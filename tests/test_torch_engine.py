@@ -47,8 +47,21 @@ def test_decode_n_matches_step_loop(model):
     assert e1.pos == e2.pos == len(prompt) + 6
 
 
+@pytest.fixture
+def unfused_flags(monkeypatch):
+    """The JAX flags of the port's first slice: f32-dequant projections at
+    every M."""
+    for k, v in {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
+                 "ZGML_TPU_I8DOT": "0"}.items():
+        monkeypatch.setenv(k, v)
+
+
 @pytest.mark.parametrize("chunk", [1, 5, 64])
-def test_prefill_is_chunk_invariant(model, chunk):
+def test_prefill_is_chunk_invariant(model, chunk, unfused_flags):
+    """Under the f32-dequant tier the chunking changes only the order of f32
+    sums. Under the default flags chunks of <= 32 rows take the int8 tier and
+    larger ones the f32 tier, in the JAX package as here
+    (tests/test_torch_llama.py::test_default_prefill_head_tier_matches_jax)."""
     prompt = np.arange(13) * 7 % TINY_TEST.vocab_size
     ref = LlamaEngine(model, prefill_chunk=13).prefill(prompt)
     got = LlamaEngine(model, prefill_chunk=chunk).prefill(prompt)

@@ -9,7 +9,10 @@ import torch
 
 from zgml_tpu_torch.ops import build, dispatch
 from zgml_tpu_torch.ops.attention import decode_attention_cuda, flash_attention_cuda
-from zgml_tpu_torch.ops.qmatmul import q4_matmul_cuda
+from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
+from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
+from zgml_tpu_torch.ops.qmatmul import (q4_greedy_cuda, q4_matmul_cuda, q4_matmul_i8_cuda,
+                                        quantize_act_cuda)
 from zgml_tpu_torch.quant.packed import PackedWeight
 
 torch.set_num_threads(1)
@@ -87,6 +90,33 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_attention_cuda(q, kv, kv, 4)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_cuda(q[:, :, :1], kv, kv, 4)
+
+
+def test_decode_tier_wrappers_refuse_cpu_tensors():
+    """K1, K5, K6d and K7 launchers raise off the card, as K2-K4's do."""
+    x = torch.zeros(1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        q4_matmul_i8_cuda(x, _pw("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        q4_greedy_cuda(x, _pw("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        quantize_act_cuda(x)
+    gu = PackedWeight(64, 32, torch.zeros(64, 16, dtype=torch.uint8),
+                      torch.zeros(64, 1, dtype=torch.float16))
+    wd = PackedWeight(32, 32, torch.zeros(32, 16, dtype=torch.uint8),
+                      torch.zeros(32, 1, dtype=torch.float16))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_ffn_norm_cuda(x, torch.ones(32), gu, wd, 1e-5)
+    cache = torch.zeros(1, 1, 1, 8, 32, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block_cuda(x.reshape(1, 1, 32), torch.ones(32), _pw_n(96), _pw_n(32), cache,
+                        cache, 0, torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
+                        torch.zeros(1, 16), 1, 1, 1e-5)
+
+
+def _pw_n(n):
+    return PackedWeight(n, 32, torch.zeros(n, 16, dtype=torch.uint8),
+                        torch.zeros(n, 1, dtype=torch.float16))
 
 
 def test_force_ref_is_scoped():

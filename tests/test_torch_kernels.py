@@ -7,16 +7,23 @@ machine without JAX, where tests/conftest.py (which imports jax) is skipped:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 Tolerances: K2 rtol 1e-5 / atol 1e-4*sqrt(K) and K3/K4 1e-5, since kernel and
-plain version both compute in f32 and differ only in the order of the sums.
+plain version both compute in f32 and differ only in the order of the sums;
+K1, K6d and K7 1e-5 * max|out| for the same reason (K1's int8 block dots are
+exact on both sides, and its quantized activations must be bit-equal); K5's
+id must equal argmax of K1's output on the card exactly.
 """
 import numpy as np
 import pytest
 import torch
 
-from zgml_tpu_torch.ops import dispatch
+from zgml_tpu_torch.ops import dispatch, refs
 from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_ref,
                                           flash_attention_cuda, flash_attention_ref)
-from zgml_tpu_torch.ops.qmatmul import q4_matmul_cuda, q4_matmul_ref
+from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda, fused_ffn_norm_ref
+from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref
+from zgml_tpu_torch.ops.qmatmul import (q4_greedy_cuda, q4_matmul_cuda, q4_matmul_i8_cuda,
+                                        q4_matmul_i8_ref, q4_matmul_ref, quantize_act_cuda,
+                                        quantize_act_ref)
 from zgml_tpu_torch.quant.packed import PackedWeight, from_nibbles
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -86,7 +93,8 @@ def test_decode_attention(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_dispatch_counts_kernel_launches(cuda):
+def test_dispatch_counts_kernel_launches(cuda, monkeypatch):
+    monkeypatch.setenv("ZGML_TPU_I8DOT", "0")       # K2 at every M
     rng = np.random.default_rng(0)
     w = _weight(rng, 64, 64, cuda)
     x = torch.ones(2, 64, device=cuda)
@@ -108,3 +116,107 @@ def test_wrappers_refuse_bad_inputs(cuda):
     kv = torch.zeros(1, 1, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention_cuda(q, kv, kv, 4)
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 2560, 2048), (8, 2048, 5632), (32, 11264, 2048),
+                                   (5, 96, 64), (3, 300, 576)])
+def test_q4_matmul_i8(cuda, m, n, k):
+    rng = np.random.default_rng(m * 11 + n)
+    w = _weight(rng, n, k, cuda)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    x[0, :32] = 0.0
+    xq, xs = quantize_act_cuda(x)
+    rq, rs = quantize_act_ref(x)
+    got = q4_matmul_i8_cuda(x, w)
+    want = q4_matmul_i8_ref(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, rq) and torch.equal(xs.view(torch.int32), rs.view(torch.int32))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("n,k,seed", [(32000, 2048, 0), (32000, 2048, 1), (96, 64, 2),
+                                      (1000, 512, 3)])
+def test_q4_greedy(cuda, n, k, seed):
+    rng = np.random.default_rng(seed)
+    w = _weight(rng, n, k, cuda)
+    x = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32)).to(cuda)
+    tok = q4_greedy_cuda(x, w)
+    y = q4_matmul_i8_cuda(x, w)
+    torch.cuda.synchronize()
+    assert tok.dtype == torch.int64 and int(tok[0]) == int(torch.argmax(y[0]))
+
+
+def test_q4_greedy_first_index_on_ties(cuda):
+    w = from_nibbles(np.full((64, 64), 9, np.uint8), np.full((64, 2), 0.5, np.float16), cuda)
+    tok = q4_greedy_cuda(torch.ones(1, 64, device=cuda), w)     # every row equal
+    torch.cuda.synchronize()
+    assert int(tok[0]) == 0
+
+
+@pytest.mark.parametrize("d,f,m", [(2048, 5632, 1), (512, 320, 3), (2048, 5632, 32),
+                                   (512, 1024, 16)])
+def test_fused_ffn_norm(cuda, d, f, m):
+    rng = np.random.default_rng(d + f + m)
+    gu, wd = _weight(rng, 2 * f, d, cuda), _weight(rng, d, f, cuda)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, 1, d)).astype(np.float32)).to(cuda)
+    got = fused_ffn_norm_cuda(x, g, gu, wd, 1e-5)
+    want = fused_ffn_norm_ref(x, g, gu, wd, 1e-5)
+    torch.cuda.synchronize()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("hq,hkv,hd,s,pos,li", [(32, 4, 64, 2048, 0, 3), (32, 4, 64, 2048, 1, 21),
+                                                (32, 4, 64, 2048, 200, 5),
+                                                (32, 4, 64, 2048, 2047, 1),
+                                                (8, 2, 32, 96, 37, 1), (8, 8, 128, 256, 130, 0),
+                                                # every other compiled head dim
+                                                (4, 2, 96, 128, 50, 1), (4, 4, 160, 128, 0, 0),
+                                                (4, 2, 192, 128, 1, 0), (2, 1, 224, 64, 63, 1),
+                                                (8, 2, 256, 256, 130, 1)])
+def test_attn_block(cuda, hq, hkv, hd, s, pos, li):
+    rng = np.random.default_rng(pos + hd)
+    d, L = hq * hd, max(li + 1, 2)
+    wqkv, wo = _weight(rng, (hq + 2 * hkv) * hd, d, cuda), _weight(rng, d, hq * hd, cuda)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    ck = torch.from_numpy(rng.standard_normal((L, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cv = torch.from_numpy(rng.standard_normal((L, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    ck_r, cv_r = ck.clone(), cv.clone()
+    got = attn_block_cuda(x, g, wqkv, wo, ck, cv, li, pos_t, cos, sin, hq, hkv, 1e-5)
+    want = attn_block_ref(x, g, wqkv, wo, ck_r, cv_r, li, pos, cos, sin, hq, hkv, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b)
+    # the kernel's cache row is its own k_cur / v_cur rounded to bf16; the rest untouched
+    assert torch.equal(ck[li, 0, :, pos], got[1][0, :, 0].to(torch.bfloat16))
+    assert torch.equal(cv[li, 0, :, pos], got[2][0, :, 0].to(torch.bfloat16))
+    rows = torch.arange(s, device=cuda) != pos
+    assert torch.equal(ck[:, :, :, rows], ck_r[:, :, :, rows])
+    assert torch.equal(cv[:, :, :, rows], cv_r[:, :, :, rows])
+
+
+def test_dispatch_counts_each_kernel(cuda):
+    """Each kernel has its own counter; force_ref() keeps the path and counts
+    the plain versions under the same names."""
+    rng = np.random.default_rng(1)
+    w = _weight(rng, 64, 64, cuda)
+    x = torch.ones(1, 64, device=cuda)
+    global_profile.reset()
+    dispatch.qmatmul(x, w)
+    dispatch.qmatmul_greedy(x, w)
+    dispatch.qmatmul(torch.ones(33, 64, device=cuda), w)
+    with dispatch.force_ref():
+        dispatch.qmatmul(x, w)
+        dispatch.qmatmul_greedy(x, w)
+    assert global_profile.tier_summary() == {"qmatmul": {"cuda": 1},
+                                             "qmatmul_i8": {"cuda": 1, "ref": 1},
+                                             "qmatmul_greedy": {"cuda": 1, "ref": 1}}

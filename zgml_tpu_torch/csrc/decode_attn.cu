@@ -22,12 +22,12 @@
 // block writes its partial (unnormalised o, max, sum) per query head; a
 // second small kernel merges the chunks with the usual rescaling. K rows in
 // shared memory are padded by one word so the per-key dot products of a warp
-// hit distinct banks. Softmax math is f32.
-#include "common.cuh"
+// hit distinct banks. Softmax math is f32. The per-chunk device code is
+// decode_split.cuh, shared with K7's phase B (layer_attn.cu).
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int DA_CHUNK = 128;     // keys per block
 constexpr int DA_THREADS = 128;
 
 template <int D>
@@ -36,94 +36,27 @@ decode_partial_kernel(const float* __restrict__ q, const __nv_bfloat16* __restri
                       const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
                       float* __restrict__ part, int Hq, int Hkv, int S, int kv_row,
                       float scale, int n_split) {
-  constexpr int W = D / 2;               // 32-bit words (bf16 pairs) per row
   extern __shared__ __align__(16) float smem[];
   const int n_rep = Hq / Hkv;
-  float* qs = smem;                                    // [n_rep][D]
-  float* sc = qs + n_rep * D;                          // [n_rep][DA_CHUNK]
-  uint32_t* ks = reinterpret_cast<uint32_t*>(sc + n_rep * DA_CHUNK);   // [DA_CHUNK][W + 1]
-  uint32_t* vs = ks + DA_CHUNK * (W + 1);                              // [DA_CHUNK][W]
-
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
   const int split = blockIdx.x;
   const int len = min(kv_len[b], S);
   const int c0 = split * DA_CHUNK;
   const int nk = min(DA_CHUNK, len - c0);
   const int h0 = b * Hq + hk * n_rep;                  // first query head of the group
-  const int tid = threadIdx.x;
-  auto part_of = [&](int r) { return part + ((size_t)(h0 + r) * n_split + split) * (D + 2); };
+  const size_t head_stride = (size_t)n_split * (D + 2);
+  float* part0 = part + ((size_t)h0 * n_split + split) * (D + 2);
 
   if (nk <= 0) {                                       // chunk past kv_len
-    for (int r = tid; r < n_rep; r += DA_THREADS) {
-      part_of(r)[D] = -INFINITY;
-      part_of(r)[D + 1] = 0.f;
+    for (int r = threadIdx.x; r < n_rep; r += DA_THREADS) {
+      part0[r * head_stride + D] = -INFINITY;
+      part0[r * head_stride + D + 1] = 0.f;
     }
     return;
   }
-  for (int i = tid; i < n_rep * D; i += DA_THREADS) qs[i] = q[(size_t)h0 * D + i];
   const size_t base = ((size_t)(kv_row + b) * Hkv + hk) * S * D + (size_t)c0 * D;
-  const uint32_t* kg = reinterpret_cast<const uint32_t*>(k + base);
-  const uint32_t* vg = reinterpret_cast<const uint32_t*>(v + base);
-  for (int i = tid; i < nk * W; i += DA_THREADS) {
-    const int j = i / W, w = i % W;
-    ks[j * (W + 1) + w] = __ldg(kg + i);
-    vs[j * W + w] = __ldg(vg + i);
-  }
-  __syncthreads();
-
-  // scores: thread -> (query head r, key j)
-  for (int i = tid; i < n_rep * DA_CHUNK; i += DA_THREADS) {
-    const int r = i / DA_CHUNK, j = i % DA_CHUNK;
-    float sj = -INFINITY;
-    if (j < nk) {
-      const uint32_t* kr = ks + j * (W + 1);
-      const float* qr = qs + r * D;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int w = 0; w < W; ++w) {
-        const uint32_t u = kr[w];
-        dot = fmaf(qr[2 * w], bf16_lo(u), dot);
-        dot = fmaf(qr[2 * w + 1], bf16_hi(u), dot);
-      }
-      sj = dot * scale;
-    }
-    sc[i] = sj;
-  }
-  __syncthreads();
-
-  // per query head: max and sum of exp over the chunk (one warp per head)
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < n_rep; r += DA_THREADS / 32) {
-    float* sr = sc + r * DA_CHUNK;
-    float mx = -INFINITY;
-    for (int j = lane; j < DA_CHUNK; j += 32) mx = fmaxf(mx, sr[j]);
-    mx = warp_max(mx);                 // finite: key c0 < len is live
-    float sum = 0.f;
-    for (int j = lane; j < DA_CHUNK; j += 32) {
-      const float p = expf(sr[j] - mx);   // masked -> exp(-inf) = 0
-      sr[j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      part_of(r)[D] = mx;
-      part_of(r)[D + 1] = sum;
-    }
-  }
-  __syncthreads();
-
-  // unnormalised p @ V: thread -> (query head r, dim i)
-  for (int i = tid; i < n_rep * D; i += DA_THREADS) {
-    const int r = i / D, c = i % D;
-    const float* pr = sc + r * DA_CHUNK;
-    const uint32_t* vc = vs + (c >> 1);
-    float acc = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const uint32_t u = vc[j * W];
-      acc = fmaf(pr[j], (c & 1) ? bf16_hi(u) : bf16_lo(u), acc);
-    }
-    part_of(r)[c] = acc;
-  }
+  decode_chunk_partial<D, DA_THREADS>(q + (size_t)h0 * D, k + base, v + base, nk, n_rep,
+                                      scale, part0, head_stride, smem);
 }
 
 template <int D>
@@ -150,10 +83,8 @@ template <int D>
 int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, const int* kv_len,
            float* o, float* part, int B, int Hq, int Hkv, int S, int kv_row, float scale,
            cudaStream_t st) {
-  const int n_rep = Hq / Hkv;
   const int n_split = (S + DA_CHUNK - 1) / DA_CHUNK;
-  const size_t smem = sizeof(float) * ((size_t)n_rep * D + (size_t)n_rep * DA_CHUNK) +
-                      sizeof(uint32_t) * ((size_t)DA_CHUNK * (D / 2 + 1) + (size_t)DA_CHUNK * (D / 2));
+  const size_t smem = decode_chunk_smem_bytes<D>(Hq / Hkv);
   int rc = allow_dynamic_smem(decode_partial_kernel<D>, smem);
   if (rc != 0) return rc;
   decode_partial_kernel<D><<<dim3(n_split, B * Hkv), DA_THREADS, smem, st>>>(

@@ -51,24 +51,8 @@ q4_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ qs,
   const uint4* row = reinterpret_cast<const uint4*>(qs + (size_t)n * (K / 2));
   const __half* drow = d + (size_t)n * nblk;
   float acc = 0.f;
-  for (int b = lane; b < nblk; b += 32) {
-    const uint4 p = __ldg(row + b);
-    const float s = __half2float(drow[b]);
-    const float* xb = xs + b * 33;
-    const uint32_t w[4] = {p.x, p.y, p.z, p.w};
-    float sum = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = q * 4 + i;
-        const int byte = (w[q] >> (8 * i)) & 0xFF;
-        sum = fmaf((float)((byte & 15) - 8), xb[j], sum);
-        sum = fmaf((float)((byte >> 4) - 8), xb[j + 16], sum);
-      }
-    }
-    acc = fmaf(sum, s, acc);
-  }
+  for (int b = lane; b < nblk; b += 32)
+    acc = fmaf(q4_block_dot_f32(__ldg(row + b), xs + b * 33), __half2float(drow[b]), acc);
   acc = warp_sum(acc);
   if (lane == 0) y[(size_t)m * N + n] = acc;
 }

@@ -1,10 +1,24 @@
 """Llama-family decoder over a stacked bf16 KV cache.
 
-Counterpart of zgml_tpu/models/llama.py on the slice it runs: the per-layer
-`_layer_step(kv_layer=li)` path of the stacked cache (llama.py:286-341) with
-fused `wqkv` and `w_gate_up` projections, and `_head_out` with greedy =
-argmax over the logits (llama.py:528-542). GQA, RMSNorm, half-split RoPE,
-SwiGLU, tied or separate lm_head.
+Counterpart of zgml_tpu/models/llama.py on the paths it runs over the
+stacked cache, chosen as the JAX package chooses them (config.py flags):
+
+  - batch-1 decode with ZGML_TPU_ATTN_BLOCK on (the default) and a head_dim
+    the layer kernel takes: per layer the fused attention block K7
+    (llama.py:773-811), then the fused FFN K6d (`_ffn_after_attn`,
+    llama.py:217-260), or the composed FFN when
+    ZGML_TPU_KERNELS_DISABLE=fused_ffn or at a width JAX does not fuse at;
+  - everything else (prefill, batch > 1, ATTN_BLOCK=0): the per-layer
+    `_layer_step(kv_layer=li)` path (llama.py:286-341) with fused `wqkv` and
+    `w_gate_up` projections and K3/K4 attention; its FFN runs as one K6d
+    launch for calls of at most 32 rows where JAX runs its fused f32 FFN
+    (K6b) there, else composed;
+  - `_head_out` (llama.py:517-543): greedy through K5 when it applies, else
+    the argmax over the logits.
+
+Every projection's tier (K1 int8 for M <= 32, or K2) is picked in
+ops/dispatch.qmatmul. GQA, RMSNorm, half-split RoPE, SwiGLU, tied or separate
+lm_head.
 
 The KV cache has one layout, ``{"k", "v"}`` bf16 tensors [L, B, Hkv, S, d],
 and ``forward`` writes the new positions into it IN PLACE (the JAX package
@@ -22,8 +36,10 @@ import dataclasses
 
 import torch
 
+from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import dispatch as ops
-from zgml_tpu_torch.ops import refs
+from zgml_tpu_torch.ops import ffn, refs
+from zgml_tpu_torch.ops.layerkernel import attn_block_compatible
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +91,36 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
                                   kv_row=li * bb)
     att = att.transpose(1, 2).reshape(b, t, nq)
     x = x + ops.qmatmul(att, layer["wo"])
+    return _ffn(cfg, x, layer, after_attn_block=False)
 
+
+def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
+    """The FFN half of a layer, x + down(swiglu(gate|up(rmsnorm(x)))), where
+    the JAX package fuses it (at most 32 rows, fused_ffn not disabled, a width
+    it fuses at: ops/ffn.ffn_fuses) in one K6d launch, else composed from two
+    projections. JAX's `_layer_step` fuses with its f32 K6b and the fused
+    decode with K6d (llama.py:217-260, 326-340): the same f32 sums."""
+    rows = x.numel() // x.shape[-1]
+    if (rows <= ffn.FFN_MAX_ROWS and "fused_ffn" not in config.kernels_disabled()
+            and ffn.ffn_fuses(cfg.d_model, after_attn_block)):
+        return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
+                                  cfg.rms_norm_eps)
     h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
     gu = ops.qmatmul(h, layer["w_gate_up"])
     f = gu.shape[-1] // 2
     ff = refs.swiglu(gu[..., :f], gu[..., f:])
     return x + ops.qmatmul(ff, layer["w_down"])
+
+
+def _fused_decode(cfg: LlamaConfig, x, layers, ck, cv, pos: int, cos, sin):
+    """Batch-1 decode of one token: K7 then the FFN per layer
+    (llama.py:796-805); K7 writes each layer's K/V row at pos."""
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    for li, layer in enumerate(layers):
+        x, _, _ = ops.attn_block(x, layer["attn_norm"], layer["wqkv"], layer["wo"], ck, cv, li,
+                                 pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps)
+        x = _ffn(cfg, x, layer, after_attn_block=True)
+    return x
 
 
 class LlamaModel(torch.nn.Module):
@@ -117,6 +157,8 @@ class LlamaModel(torch.nn.Module):
         positions = torch.arange(pos, pos + t, device=x.device)
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
         decode = t == 1
+        if decode and config.attn_block() and attn_block_compatible(cfg.head_dim, b):
+            return _fused_decode(cfg, x, self.params["layers"], ck, cv, pos, cos, sin)
         kv_len = pos + t
         if decode:
             kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
@@ -124,15 +166,23 @@ class LlamaModel(torch.nn.Module):
             x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode)
         return x
 
-    def head(self, x: torch.Tensor, greedy: bool = False) -> torch.Tensor:
+    def head(self, x: torch.Tensor, greedy: bool = False,
+             tier_rows: int | None = None) -> torch.Tensor:
         """Final norm + lm_head: logits f32 [B, T, V], or with greedy the
-        argmax ids int64 [B] of the last position (first index on ties)."""
+        argmax ids int64 [B] of the last position (first index on ties; K5
+        for batch 1). tier_rows: the row count of the call this head stands
+        for (the prefill engine computes the last row of a chunk), which picks
+        the projection's tier."""
         x = ops.rmsnorm(x, self.params["out_norm"], self.cfg.rms_norm_eps)
         lm_head = self.params.get("lm_head")
+        if greedy and lm_head is not None:
+            tok = ops.qmatmul_greedy(x[:, -1], lm_head)
+            if tok is not None:
+                return tok
         if lm_head is None:       # tied embeddings: logits = x @ embd.T
             logits = x.to(torch.float32) @ self.params["tok_embd"].to(torch.float32).T
         else:
-            logits = ops.qmatmul(x, lm_head)
+            logits = ops.qmatmul(x, lm_head, tier_rows)
         if greedy:
             return torch.argmax(logits[:, -1], dim=-1)
         return logits

@@ -1,10 +1,16 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 The sources in zgml_tpu_torch/csrc/ compile into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+plain C interface (no PyTorch headers, so a build takes seconds). Each
+source compiles in its own nvcc process, all started together, then one
+nvcc links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v csrc/*.cu -o <build_dir>/libzgml_kernels_<hash>.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -shared *.o -o <build_dir>/libzgml_kernels_<hash>.so
+
+No fast-math flag: K1's activation quantization must round and divide as
+IEEE f32 does, like the JAX package.
 
 The library is built at first use into config.build_dir() (under build/,
 which .gitignore lists), named by a hash of the sources and flags so an
@@ -27,10 +33,11 @@ import time
 from zgml_tpu_torch import config
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("status.cu", "q4_matmul.cu", "flash_attn.cu", "decode_attn.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("status.cu", "q4_matmul.cu", "flash_attn.cu", "decode_attn.cu",
+           "q4_i8_matmul.cu", "ffn.cu", "layer_attn.cu")
+HEADERS = ("common.cuh", "decode_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported function -> argtypes (every launcher returns an int status)
@@ -39,6 +46,12 @@ _SIGNATURES = {
     "zgml_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "zgml_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "zgml_decode_split_count": (_I,),
+    "zgml_q4_i8_quantize": (_P, _P, _P, _I, _I, _P),
+    "zgml_q4_matmul_i8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "zgml_q4_greedy": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "zgml_ffn_norm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "zgml_attn_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 
@@ -80,17 +93,33 @@ def build() -> tuple[pathlib.Path, float]:
         return out, 0.0
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
+    work = out.parent / f"{out.stem}.{os.getpid()}.objs"
+    work.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    jobs = []
+    for src in SOURCES:
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(work / f"{src}.o")]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} (exit {proc.returncode}):\n{text[-3000:]}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{s}.o") for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
     seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    (out.parent / "build.log").write_text("\n".join(log))
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise KernelBuildError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)     # atomic: a concurrent process sees all or nothing
     return out, seconds
 

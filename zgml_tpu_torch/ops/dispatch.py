@@ -1,17 +1,26 @@
 """Op dispatch: a CUDA tensor goes to its kernel, a CPU tensor to the plain version.
 
-Counterpart of zgml_tpu/ops/dispatch.py. The tier follows from the device of
-the tensors an op is given, and from nothing else:
+Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
 
-  cuda  -> the hand-written kernel (ops/qmatmul.py, ops/attention.py); a
-           kernel that cannot build or launch raises, it never falls back
-  cpu   -> the plain torch version
-  other -> NotImplementedError
+  tier of an op, from the device of its tensors and nothing else:
+    cuda  -> the hand-written kernel (ops/qmatmul.py, ops/attention.py,
+             ops/ffn.py, ops/layerkernel.py); a kernel that cannot build or
+             launch raises, it never falls back
+    cpu   -> the plain torch version
+    other -> NotImplementedError
+  which kernel a projection takes, from the JAX package's rule
+    (qmatmul.py:639,728): the int8-activation K1 when config.i8dot() and the
+    call has M <= 32 rows, else the f32-dequant K2. The model picks the
+    decode path (K7, K6d, K5) from config (models/llama.py).
 
 ``force_ref()`` is the one explicit way to run the plain versions on the card
-(to compare the kernels with them). Every call is counted by tier in
-runtime.profile.global_profile: a kernel's count is added where it launches,
-a plain call's here.
+(to compare the kernels with them). It keeps the path and swaps each kernel
+for its plain version; the JAX package's force_ref instead turns its fused
+kernels off, which changes the path. Every call is counted by tier in
+runtime.profile.global_profile, under one name per kernel (qmatmul = K2,
+qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d, attn_block =
+K7, attention = K3, decode_attention = K4): a kernel's count is added where
+it launches, a plain call's here.
 """
 from __future__ import annotations
 
@@ -20,7 +29,8 @@ import contextvars
 
 import torch
 
-from zgml_tpu_torch.ops import attention, qmatmul as _qmm, refs
+from zgml_tpu_torch import config
+from zgml_tpu_torch.ops import attention, ffn, layerkernel, qmatmul as _qmm, refs
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -53,12 +63,56 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     return _device_of(*tensors).type == "cuda" and not _force_ref.get()
 
 
-def qmatmul(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """x f32 [..., K] @ dequant(W).T -> f32 [..., N]."""
+def qmatmul(x: torch.Tensor, w: PackedWeight, tier_rows: int | None = None) -> torch.Tensor:
+    """x f32 [..., K] @ dequant(W).T -> f32 [..., N]. The tier follows the
+    call's row count, or `tier_rows` when the caller computes a few rows of a
+    larger call (the prefill head: one row of a chunk, as JAX computes the
+    whole chunk)."""
+    rows = x.numel() // w.k if tier_rows is None else tier_rows
+    if config.i8dot() and rows <= _qmm.I8_MAX_ROWS:
+        if _use_kernel(x, w.qs, w.d):
+            return _qmm.q4_matmul_i8_cuda(x, w)
+        global_profile.count_op("qmatmul_i8", "ref")
+        return _qmm.q4_matmul_i8_ref(x, w)
     if _use_kernel(x, w.qs, w.d):
         return _qmm.q4_matmul_cuda(x, w)
     global_profile.count_op("qmatmul", "ref")
     return _qmm.q4_matmul_ref(x, w)
+
+
+def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
+    """argmax_n(x @ dequant(W)) of one row as int64 [1] through K5, or None
+    where K5 does not apply (int8 tier off, or more than one row): the caller
+    then takes the argmax of qmatmul's logits, as zgml_tpu/ops/dispatch.py:80-92."""
+    if not config.i8dot() or x.numel() != w.k:
+        return None
+    if _use_kernel(x, w.qs, w.d):
+        return _qmm.q4_greedy_cuda(x, w)
+    global_profile.count_op("qmatmul_greedy", "ref")
+    return _qmm.q4_greedy_ref(x, w)
+
+
+def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: PackedWeight,
+                   eps: float) -> torch.Tensor:
+    """K6d: x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * gamma; decode,
+    at most 32 rows."""
+    if _use_kernel(x, gamma, gu.qs, wd.qs):
+        return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps)
+    global_profile.count_op("fused_ffn_norm", "ref")
+    return ffn.fused_ffn_norm_ref(x, gamma, gu, wd, eps)
+
+
+def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, pos,
+               cos, sin, n_heads: int, n_kv_heads: int, eps: float):
+    """K7: one batch-1 decode token's attention half-layer over layer li of
+    the stacked cache (written in place at pos); returns (x_out, k_cur,
+    v_cur). See ops/layerkernel.py for layouts."""
+    if _use_kernel(x, gamma, wqkv.qs, wo.qs, ck, cv):
+        return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
+                                           n_heads, n_kv_heads, eps)
+    global_profile.count_op("attn_block", "ref")
+    return layerkernel.attn_block_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
+                                      n_heads, n_kv_heads, eps)
 
 
 def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):

@@ -8,6 +8,11 @@ the JAX engine does (the padded rows' K/V land in the cache past the valid
 prefix and are overwritten by the next tokens); decode_n is a Python loop
 whose tokens stay on the device, so a burst needs no host sync until its ids
 are read. The KV cache is updated in place.
+
+The tiers match the JAX engine's plans (engine.py:46-91): `step` and sampled
+`decode_n` take the logits through the M = B projection (K1 when the int8
+tier is on), greedy `decode_n` the fused greedy head (K5), and batch-1 decode
+runs the layer kernels (K7, K6d) when ZGML_TPU_ATTN_BLOCK is on.
 """
 from __future__ import annotations
 
@@ -66,7 +71,10 @@ class LlamaEngine:
                 if n_valid < size:
                     window = np.pad(window, ((0, 0), (0, size - n_valid)))
                 x = self.model.body(self._ids(window, window.shape), self.cache, self.pos)
-                last = self.model.head(x[:, n_valid - 1:n_valid])[:, 0]
+                # the JAX engine computes the head over the whole chunk
+                # (engine.py:53-58), so its tier follows the chunk's rows
+                last = self.model.head(x[:, n_valid - 1:n_valid],
+                                       tier_rows=window.size)[:, 0]
                 self.pos += n_valid
         global_profile.add("prefill_tokens", t * b)
         return last
