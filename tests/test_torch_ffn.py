@@ -1,5 +1,6 @@
-"""K6d fused_ffn_norm: the port's plain version against the JAX package's
-N-packed FFN kernel (`fused_ffn_norm_q4n`, interpret mode, f32 dequant).
+"""K6d / K6a fused_ffn_norm: the port's plain version against the JAX
+package's N-packed Q4_0 FFN kernel (`fused_ffn_norm_q4n`) and its planar
+Q8_0 FFN kernel (`fused_ffn_norm_pallas`), interpret mode, f32 dequant.
 
 Both sides get the same Q4_0 weights: the JAX side the pack that `ffn_npack`
 derives from its planar part-padded w_gate_up and w_down, the port its own
@@ -8,7 +9,9 @@ the logical sizes. Bound 1e-5 * max|out|: both are f32 (rmsnorm, dequant
 dots, SwiGLU, residual) and differ only in the order of the sums. The same
 holds against JAX's planar fused FFN (K6b), which its `_layer_step` runs for
 calls of <= 32 rows; and ffn_fuses must give JAX's own verdict on where it
-fuses at all.
+fuses at all, at each kind. At Q8_0 the JAX package runs K6a for both the
+fused decode and `_layer_step`, on w_gate_up part-padded to w_down's padded
+K, as its loader fuses them.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,7 @@ import pytest
 import torch
 
 from zgml_tpu.ops import dispatch as jdispatch
-from zgml_tpu.ops.ffn import ffn_compatible, fused_ffn_norm_q4n
+from zgml_tpu.ops.ffn import ffn_compatible, fused_ffn_norm_pallas, fused_ffn_norm_q4n
 from zgml_tpu.quant.headmajor import attach_head_major, ffn_npack
 from zgml_tpu.quant.repack import concat_packed, quantize_weight
 
@@ -29,7 +32,8 @@ torch.set_num_threads(1)
 
 
 def _port(pw, col0=0, n=None):
-    return packed.from_planar_q4_0(pw.qvals, pw.scales, pw.n if n is None else n, pw.k, col0)
+    build = packed.from_planar_q8_0 if pw.kind == "q8_0" else packed.from_planar_q4_0
+    return build(pw.qvals, pw.scales, pw.n if n is None else n, pw.k, col0, device="cpu")
 
 
 @pytest.mark.parametrize("d,f,m", [(512, 1024, 1), (512, 320, 3)])
@@ -103,5 +107,56 @@ def test_ffn_fuses_follows_the_jax_padding(monkeypatch, d):
              "w_gate_up": concat_packed([qw(f, d, n_align=1), qw(f, d, n_align=1)],
                                         part_pad=wd.k_pad)}
     assert attach_head_major(layer, 1, 1, hd)
-    assert ffn_fuses(d, after_attn_block=True) == ("ffn_q4n" in layer)
-    assert ffn_fuses(d, after_attn_block=False) == ffn_compatible(layer["w_gate_up"], wd)
+    assert ffn_fuses(d, f, "q4_0", after_attn_block=True) == ("ffn_q4n" in layer)
+    assert ffn_fuses(d, f, "q4_0", after_attn_block=False) == ffn_compatible(layer["w_gate_up"], wd)
+
+
+@pytest.mark.parametrize("m", [1, 16, 32])
+def test_q8_fused_ffn_norm_plain_matches_jax_kernel(monkeypatch, m):
+    """K6a at d 512 / F 1024: the JAX kernel `_ffn_kernel` through
+    fused_ffn_norm_pallas (what `_ffn_after_attn` runs at Q8_0) against the
+    port's plain version; within 1e-5 * max|out| (f32 on both sides)."""
+    monkeypatch.setenv("ZGML_TPU_SCALES", "f16")
+    d, f = 512, 1024
+    rng = np.random.default_rng(200 + m)
+
+    def qw(n, k, **kw):
+        return quantize_weight(rng.standard_normal((n, k)).astype(np.float32) * 0.05,
+                               "q8_0", **kw)
+    wd = qw(d, f)
+    gu = concat_packed([qw(f, d, n_align=1), qw(f, d, n_align=1)], part_pad=wd.k_pad)
+    assert ffn_compatible(gu, wd)
+    g = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    x = rng.standard_normal((1, m, d)).astype(np.float32)
+    want = np.asarray(fused_ffn_norm_pallas(jnp.asarray(x), jnp.asarray(g), gu, wd, 1e-5))
+
+    gu_p = packed.concat([_port(gu, 0, f), _port(gu, gu.n // 2, f)])
+    global_profile.reset()
+    got = dispatch.fused_ffn_norm(torch.from_numpy(x), torch.from_numpy(g), gu_p, _port(wd),
+                                  1e-5).numpy()
+    assert global_profile.tier_summary() == {"fused_ffn_norm_q8": {"ref": 1}}
+    assert got.shape == want.shape == (1, m, d)
+    assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("d,f", [(576, 256), (2048, 256), (4096, 256), (8192, 256),
+                                 (9216, 256), (256, 256), (3200, 256), (2048, 320),
+                                 (512, 1536)])
+def test_q8_ffn_fuses_follows_ffn_compatible(monkeypatch, d, f):
+    """At Q8_0 ffn_fuses gives ffn_compatible's verdict at both call sites
+    (no N-packed view is attached, so `_ffn_after_attn` asks it too), on
+    weights padded as the JAX loader pads them: the padded D capped at 8192
+    (d 9216 composes) and w_down's padded K a multiple of 256 (F 320 pads to
+    384 and composes)."""
+    monkeypatch.setenv("ZGML_TPU_SCALES", "f16")
+    rng = np.random.default_rng(d + f)
+
+    def qw(n, k, **kw):
+        return quantize_weight(rng.standard_normal((n, k)).astype(np.float32) * 0.05,
+                               "q8_0", **kw)
+    wd = qw(d, f)
+    gu = concat_packed([qw(f, d, n_align=1), qw(f, d, n_align=1)], part_pad=wd.k_pad)
+    want = ffn_compatible(gu, wd)
+    assert want == (d <= 8192 and f != 320)
+    assert ffn_fuses(d, f, "q8_0", after_attn_block=True) == want
+    assert ffn_fuses(d, f, "q8_0", after_attn_block=False) == want

@@ -11,7 +11,7 @@ from zgml_tpu_torch.ops import build, dispatch
 from zgml_tpu_torch.ops.attention import decode_attention_cuda, flash_attention_cuda
 from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
 from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
-from zgml_tpu_torch.ops.qmatmul import (q4_greedy_cuda, q4_matmul_cuda, q4_matmul_i8_cuda,
+from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, qmatmul_cuda, qmatmul_i8_cuda,
                                         quantize_act_cuda)
 from zgml_tpu_torch.quant.packed import PackedWeight
 
@@ -83,7 +83,7 @@ def test_build_names_library_by_source_hash(monkeypatch, tmp_path):
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A launcher never runs the plain version: off the card it raises."""
     with pytest.raises(ValueError, match="CUDA"):
-        q4_matmul_cuda(torch.zeros(1, 32), _pw("cpu"))
+        qmatmul_cuda(torch.zeros(1, 32), _pw("cpu"))
     q = torch.zeros(1, 2, 4, 16)
     kv = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -96,9 +96,9 @@ def test_decode_tier_wrappers_refuse_cpu_tensors():
     """K1, K5, K6d and K7 launchers raise off the card, as K2-K4's do."""
     x = torch.zeros(1, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        q4_matmul_i8_cuda(x, _pw("cpu"))
+        qmatmul_i8_cuda(x, _pw("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        q4_greedy_cuda(x, _pw("cpu"))
+        greedy_cuda(x, _pw("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
         quantize_act_cuda(x)
     gu = PackedWeight(64, 32, torch.zeros(64, 16, dtype=torch.uint8),
@@ -117,6 +117,23 @@ def test_decode_tier_wrappers_refuse_cpu_tensors():
 def _pw_n(n):
     return PackedWeight(n, 32, torch.zeros(n, 16, dtype=torch.uint8),
                         torch.zeros(n, 1, dtype=torch.float16))
+
+
+def test_load_llama_defaults_to_the_card(tmp_path):
+    """load_llama runs on the card unless asked for the CPU: without a card
+    the default-argument call raises an error naming the device instead of
+    handing back a CPU model."""
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
+    path = str(tmp_path / "tiny.gguf")
+    write_synthetic_llama_gguf(path, TINY_TEST, seed=2)
+    if torch.cuda.is_available():
+        model, gf = load_llama(path)
+        gf.close()
+        assert model.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+        load_llama(path)
 
 
 def test_force_ref_is_scoped():

@@ -6,11 +6,12 @@ machine without JAX, where tests/conftest.py (which imports jax) is skipped:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-Tolerances: K2 rtol 1e-5 / atol 1e-4*sqrt(K) and K3/K4 1e-5, since kernel and
-plain version both compute in f32 and differ only in the order of the sums;
-K1, K6d and K7 1e-5 * max|out| for the same reason (K1's int8 block dots are
-exact on both sides, and its quantized activations must be bit-equal); K5's
-id must equal argmax of K1's output on the card exactly.
+The weight kernels run at both kinds, Q4_0 and Q8_0. Tolerances: K2 rtol
+1e-5 / atol 1e-4*sqrt(K) and K3/K4 1e-5, since kernel and plain version both
+compute in f32 and differ only in the order of the sums; K1, K6 and K7
+1e-5 * max|out| for the same reason (K1's int8 block dots are exact on both
+sides, and its quantized activations must be bit-equal); K5's id must equal
+argmax of K1's output on the card exactly.
 """
 import numpy as np
 import pytest
@@ -21,10 +22,10 @@ from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attentio
                                           flash_attention_cuda, flash_attention_ref)
 from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda, fused_ffn_norm_ref
 from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref
-from zgml_tpu_torch.ops.qmatmul import (q4_greedy_cuda, q4_matmul_cuda, q4_matmul_i8_cuda,
-                                        q4_matmul_i8_ref, q4_matmul_ref, quantize_act_cuda,
+from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, qmatmul_cuda, qmatmul_i8_cuda,
+                                        qmatmul_i8_ref, qmatmul_ref, quantize_act_cuda,
                                         quantize_act_ref)
-from zgml_tpu_torch.quant.packed import PackedWeight, from_nibbles
+from zgml_tpu_torch.quant.packed import PackedWeight, from_int8, from_nibbles
 from zgml_tpu_torch.runtime.profile import global_profile
 
 pytestmark = pytest.mark.gpu
@@ -38,19 +39,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _weight(rng, n, k, device):
-    return from_nibbles(rng.integers(0, 16, (n, k), dtype=np.uint8),
-                        rng.uniform(0.001, 0.02, (n, k // 32)).astype(np.float16), device)
+KINDS = ["q4_0", "q8_0"]
 
 
+def _weight(rng, n, k, device, kind="q4_0"):
+    d = rng.uniform(0.001, 0.02, (n, k // 32)).astype(np.float16)
+    if kind == "q8_0":
+        return from_int8(rng.integers(-127, 128, (n, k), dtype=np.int8), d / 16, device)
+    return from_nibbles(rng.integers(0, 16, (n, k), dtype=np.uint8), d, device)
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("m,n,k", [(1, 2560, 2048), (3, 300, 576), (4, 64, 5632),
                                    (5, 96, 64), (128, 2048, 2048), (77, 1000, 512)])
-def test_q4_matmul(cuda, m, n, k):
+def test_q4_matmul(cuda, m, n, k, kind):
     rng = np.random.default_rng(m * 7 + n)
-    w = _weight(rng, n, k, cuda)
+    w = _weight(rng, n, k, cuda, kind)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
-    got = q4_matmul_cuda(x, w)
-    want = q4_matmul_ref(x, w)
+    got = qmatmul_cuda(x, w)
+    want = qmatmul_ref(x, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * np.sqrt(k))
 
@@ -109,9 +116,9 @@ def test_wrappers_refuse_bad_inputs(cuda):
     w = PackedWeight(8, 32, torch.zeros(8, 16, dtype=torch.uint8, device=cuda),
                      torch.zeros(8, 1, dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="float32"):
-        q4_matmul_cuda(torch.zeros(1, 32, device=cuda, dtype=torch.float16), w)
+        qmatmul_cuda(torch.zeros(1, 32, device=cuda, dtype=torch.float16), w)
     with pytest.raises(ValueError, match="contiguous"):
-        q4_matmul_cuda(torch.zeros(32, 2, device=cuda).T, w)
+        qmatmul_cuda(torch.zeros(32, 2, device=cuda).T, w)
     q = torch.zeros(1, 2, 4, 16, device=cuda)
     kv = torch.zeros(1, 1, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -122,46 +129,51 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("m,n,k", [(1, 2560, 2048), (8, 2048, 5632), (32, 11264, 2048),
                                    (5, 96, 64), (3, 300, 576)])
-def test_q4_matmul_i8(cuda, m, n, k):
+def test_q4_matmul_i8(cuda, m, n, k, kind):
     rng = np.random.default_rng(m * 11 + n)
-    w = _weight(rng, n, k, cuda)
+    w = _weight(rng, n, k, cuda, kind)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
     x[0, :32] = 0.0
     xq, xs = quantize_act_cuda(x)
     rq, rs = quantize_act_ref(x)
-    got = q4_matmul_i8_cuda(x, w)
-    want = q4_matmul_i8_ref(x, w)
+    got = qmatmul_i8_cuda(x, w)
+    want = qmatmul_i8_ref(x, w)
     torch.cuda.synchronize()
     assert torch.equal(xq, rq) and torch.equal(xs.view(torch.int32), rs.view(torch.int32))
     _close(got, want)
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("n,k,seed", [(32000, 2048, 0), (32000, 2048, 1), (96, 64, 2),
                                       (1000, 512, 3)])
-def test_q4_greedy(cuda, n, k, seed):
+def test_q4_greedy(cuda, n, k, seed, kind):
     rng = np.random.default_rng(seed)
-    w = _weight(rng, n, k, cuda)
+    w = _weight(rng, n, k, cuda, kind)
     x = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32)).to(cuda)
-    tok = q4_greedy_cuda(x, w)
-    y = q4_matmul_i8_cuda(x, w)
+    tok = greedy_cuda(x, w)
+    y = qmatmul_i8_cuda(x, w)
     torch.cuda.synchronize()
     assert tok.dtype == torch.int64 and int(tok[0]) == int(torch.argmax(y[0]))
 
 
 def test_q4_greedy_first_index_on_ties(cuda):
-    w = from_nibbles(np.full((64, 64), 9, np.uint8), np.full((64, 2), 0.5, np.float16), cuda)
-    tok = q4_greedy_cuda(torch.ones(1, 64, device=cuda), w)     # every row equal
-    torch.cuda.synchronize()
-    assert int(tok[0]) == 0
+    for w in (from_nibbles(np.full((64, 64), 9, np.uint8), np.full((64, 2), 0.5, np.float16),
+                           cuda),
+              from_int8(np.full((64, 64), 3, np.int8), np.full((64, 2), 0.5, np.float16), cuda)):
+        tok = greedy_cuda(torch.ones(1, 64, device=cuda), w)     # every row equal
+        torch.cuda.synchronize()
+        assert int(tok[0]) == 0
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("d,f,m", [(2048, 5632, 1), (512, 320, 3), (2048, 5632, 32),
                                    (512, 1024, 16)])
-def test_fused_ffn_norm(cuda, d, f, m):
+def test_fused_ffn_norm(cuda, d, f, m, kind):
     rng = np.random.default_rng(d + f + m)
-    gu, wd = _weight(rng, 2 * f, d, cuda), _weight(rng, d, f, cuda)
+    gu, wd = _weight(rng, 2 * f, d, cuda, kind), _weight(rng, d, f, cuda, kind)
     g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
     x = torch.from_numpy(rng.standard_normal((m, 1, d)).astype(np.float32)).to(cuda)
     got = fused_ffn_norm_cuda(x, g, gu, wd, 1e-5)
@@ -170,6 +182,7 @@ def test_fused_ffn_norm(cuda, d, f, m):
     _close(got, want)
 
 
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("hq,hkv,hd,s,pos,li", [(32, 4, 64, 2048, 0, 3), (32, 4, 64, 2048, 1, 21),
                                                 (32, 4, 64, 2048, 200, 5),
                                                 (32, 4, 64, 2048, 2047, 1),
@@ -178,10 +191,11 @@ def test_fused_ffn_norm(cuda, d, f, m):
                                                 (4, 2, 96, 128, 50, 1), (4, 4, 160, 128, 0, 0),
                                                 (4, 2, 192, 128, 1, 0), (2, 1, 224, 64, 63, 1),
                                                 (8, 2, 256, 256, 130, 1)])
-def test_attn_block(cuda, hq, hkv, hd, s, pos, li):
+def test_attn_block(cuda, hq, hkv, hd, s, pos, li, kind):
     rng = np.random.default_rng(pos + hd)
     d, L = hq * hd, max(li + 1, 2)
-    wqkv, wo = _weight(rng, (hq + 2 * hkv) * hd, d, cuda), _weight(rng, d, hq * hd, cuda)
+    wqkv = _weight(rng, (hq + 2 * hkv) * hd, d, cuda, kind)
+    wo = _weight(rng, d, hq * hd, cuda, kind)
     g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
     x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
     ck = torch.from_numpy(rng.standard_normal((L, 1, hkv, s, hd)).astype(np.float32)).to(
@@ -220,3 +234,12 @@ def test_dispatch_counts_each_kernel(cuda):
     assert global_profile.tier_summary() == {"qmatmul": {"cuda": 1},
                                              "qmatmul_i8": {"cuda": 1, "ref": 1},
                                              "qmatmul_greedy": {"cuda": 1, "ref": 1}}
+    # a Q8_0 weight counts under the _q8 names
+    w8 = _weight(rng, 64, 64, cuda, "q8_0")
+    global_profile.reset()
+    dispatch.qmatmul(x, w8)
+    dispatch.qmatmul_greedy(x, w8)
+    dispatch.qmatmul(torch.ones(33, 64, device=cuda), w8)
+    assert global_profile.tier_summary() == {"qmatmul_q8": {"cuda": 1},
+                                             "qmatmul_i8_q8": {"cuda": 1},
+                                             "qmatmul_greedy_q8": {"cuda": 1}}

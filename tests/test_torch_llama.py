@@ -1,4 +1,4 @@
-"""The port's whole slice against the JAX package on tiny Q4_0 models.
+"""The port's whole slice against the JAX package on tiny Q4_0 and Q8_0 models.
 
 Both packages load the same synthetic GGUF and run with the same JAX flags,
 set (monkeypatch) around BOTH sides, since the port reads them too:
@@ -16,7 +16,11 @@ set (monkeypatch) around BOTH sides, since the port reads them too:
     projections there instead of K6d (the port follows: ops/ffn.ffn_fuses).
     The prefill head's tier (int8 for a chunk of <= 32 rows) is checked on
     the d 256 config of tests/test_layerkernel.py:126, and the fused FFN of
-    16-row prefill chunks (JAX's K6b, the port's K6d) at d 512.
+    16-row prefill chunks (JAX's K6b, the port's K6d) at d 512;
+  - the default tier at Q8_0 on the same d 512 config: K7 in its Q8_0 mode,
+    the fused FFN K6a (JAX attaches no N-packed view at Q8_0, so its fused
+    decode runs `_ffn_kernel` through ffn_compatible), the greedy head K5q8,
+    K1q8 for the step logits and K2q8 for the 64-row prefill chunk.
 
 The JAX side runs its Pallas kernels in interpret mode; the port its plain
 torch versions (CPU tensors). Bounds: logits within 1e-3 * max|logit| (both
@@ -34,8 +38,10 @@ import pytest
 import torch
 
 from zgml_tpu.io.llama_loader import load_llama as jax_load_llama
+from zgml_tpu.quant.repack import dequant_packed
 from zgml_tpu.runtime.engine import LlamaEngine as JaxEngine
 
+from zgml_tpu_torch.io.gguf import GGMLType
 from zgml_tpu_torch.io.llama_loader import load_llama, params_from_jax
 from zgml_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from zgml_tpu_torch.runtime.engine import LlamaEngine
@@ -113,8 +119,8 @@ def slice_runs(tmp_path_factory):
         np_params = _np_params(jmodel.params)
         cfg = LlamaConfig(**dataclasses.asdict(jmodel.cfg))
         jgf.close()
-        port_conv = _port_run(LlamaModel(cfg, params_from_jax(np_params, cfg)))
-        pmodel, pgf = load_llama(path)
+        port_conv = _port_run(LlamaModel(cfg, params_from_jax(np_params, cfg, device="cpu")))
+        pmodel, pgf = load_llama(path, device="cpu")
         pgf.close()
         port_loaded = _port_run(pmodel)
     return {"jax": (jlogits, tok0, jtoks.tolist(), gaps), "converted": port_conv,
@@ -165,7 +171,7 @@ def test_cpu_run_uses_plain_tier_only(monkeypatch):
 
     def pw(n, k):
         return from_nibbles(rng.integers(1, 16, (n, k), dtype=np.uint8),
-                            np.full((n, k // 32), 0.01, np.float16))
+                            np.full((n, k // 32), 0.01, np.float16), "cpu")
     hd = cfg.head_dim
     layer = {"attn_norm": torch.ones(cfg.d_model), "ffn_norm": torch.ones(cfg.d_model),
              "wqkv": pw((cfg.n_heads + 2 * cfg.n_kv_heads) * hd, cfg.d_model),
@@ -207,14 +213,25 @@ def default_runs(tmp_path_factory):
     bf16 differently at ~1% of the values (one ulp), and random weights turn
     that into ~3e-3 * max|logit| (PERF.md). With the cache shared, a
     step's inputs are identical and the bound can be tight."""
-    path = str(tmp_path_factory.mktemp("torch_default") / "d512_q4.gguf")
-    write_synthetic_llama_gguf(path, DEFAULT_CFG, seed=11)
+    return _default_runs(tmp_path_factory, GGMLType.Q4_0, seed=11)
+
+
+@pytest.fixture(scope="module")
+def q8_runs(tmp_path_factory):
+    """default_runs at Q8_0 (same config, prompt and comparisons)."""
+    return _default_runs(tmp_path_factory, GGMLType.Q8_0, seed=14)
+
+
+def _default_runs(tmp_path_factory, quant, seed):
+    path = str(tmp_path_factory.mktemp("torch_default") / f"d512_{quant.name}.gguf")
+    write_synthetic_llama_gguf(path, DEFAULT_CFG, quant=quant, seed=seed)
     prompt = np.random.default_rng(6).integers(0, DEFAULT_CFG.vocab_size, PROMPT_LEN)
     with pytest.MonkeyPatch.context() as mp:
         _set_flags(mp, DEFAULT_FLAGS)
         jmodel, jgf = jax_load_llama(path)
         jgf.close()
-        assert "ffn_q4n" in jmodel.params["layers"][0]   # the JAX decode FFN is K6d here
+        # the JAX decode FFN is K6d (N-packed view) at Q4_0, K6a at Q8_0
+        assert ("ffn_q4n" in jmodel.params["layers"][0]) == (quant == GGMLType.Q4_0)
         jeng = JaxEngine(jmodel, prefill_chunk=64)
         jlogits = np.asarray(jeng.prefill(prompt))[0]
         jcache0 = _cache_np(jeng.cache)
@@ -229,7 +246,7 @@ def default_runs(tmp_path_factory):
             jstep.append(np.asarray(lg)[0])
             feed.append(int(np.asarray(nxt)[0]))
 
-        pmodel, pgf = load_llama(path)
+        pmodel, pgf = load_llama(path, device="cpu")
         pgf.close()
         global_profile.reset()
         peng = LlamaEngine(pmodel, prefill_chunk=64)
@@ -244,28 +261,26 @@ def default_runs(tmp_path_factory):
             _load_cache(peng, cache)
             pstep.append(peng.step(torch.tensor([t]))[1][0].numpy())
         tiers = global_profile.tier_summary()
+        np_params = _np_params(jmodel.params)
     return {"jax": (jlogits, tok0, jtoks, jstep), "port": (plogits, ptok0, ptoks, pstep),
-            "tiers": tiers}
+            "tiers": tiers, "np_params": np_params, "port_params": pmodel.params}
 
 
-def test_default_prefill_logits_match_jax(default_runs):
-    jlogits, plogits = default_runs["jax"][0], default_runs["port"][0]
+def _check_prefill(runs):
+    jlogits, plogits = runs["jax"][0], runs["port"][0]
     assert plogits.shape == jlogits.shape == (DEFAULT_CFG.vocab_size,)
     assert np.max(np.abs(plogits - jlogits)) <= 1e-3 * np.max(np.abs(jlogits))
 
 
-def test_default_step_logits_match_jax(default_runs):
-    """Decode through K7 + K6d and the M = 1 logits through K1, each step on
-    the JAX cache of that step: within 1e-5 * max|logit| (f32 sums in another
-    order; the logits' int8 activations are the same)."""
-    for i, (got, want) in enumerate(zip(default_runs["port"][3], default_runs["jax"][3])):
+def _check_steps(runs):
+    for i, (got, want) in enumerate(zip(runs["port"][3], runs["jax"][3])):
         assert np.all(np.isfinite(got))
         assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want)), i
 
 
-def test_default_greedy_tokens_match_jax(default_runs):
-    jlogits, tok0, jtoks, jstep = default_runs["jax"]
-    _, ptok0, ptoks, _ = default_runs["port"]
+def _check_greedy_tokens(runs):
+    jlogits, tok0, jtoks, jstep = runs["jax"]
+    _, ptok0, ptoks, _ = runs["port"]
     bound = 1e-3 * np.max(np.abs(jlogits))
     if _gap(jlogits) < bound:
         print(f"prefill top-2 gap {_gap(jlogits):.3g} < {bound:.3g}: no token compared")
@@ -275,6 +290,74 @@ def test_default_greedy_tokens_match_jax(default_runs):
     n_cmp = next((i for i, g in enumerate(gaps) if g < 1e-3 * np.max(np.abs(jstep[i]))),
                  N_DECODE)
     assert ptoks[:n_cmp] == jtoks[:n_cmp]
+
+
+def test_default_prefill_logits_match_jax(default_runs):
+    _check_prefill(default_runs)
+
+
+def test_default_step_logits_match_jax(default_runs):
+    """Decode through K7 + K6d and the M = 1 logits through K1, each step on
+    the JAX cache of that step: within 1e-5 * max|logit| (f32 sums in another
+    order; the logits' int8 activations are the same)."""
+    _check_steps(default_runs)
+
+
+def test_default_greedy_tokens_match_jax(default_runs):
+    _check_greedy_tokens(default_runs)
+
+
+def test_q8_default_prefill_logits_match_jax(q8_runs):
+    """The 64-row prefill chunk through K2q8 and K3: within 1e-3 * max|logit|."""
+    _check_prefill(q8_runs)
+
+
+def test_q8_default_step_logits_match_jax(q8_runs):
+    """Decode through K7 (Q8_0) + K6a and the M = 1 logits through K1q8, each
+    step on the JAX cache of that step: within 1e-5 * max|logit|."""
+    _check_steps(q8_runs)
+
+
+def test_q8_default_greedy_tokens_match_jax(q8_runs):
+    """Greedy decode_n through K5q8, compared as at Q4_0."""
+    _check_greedy_tokens(q8_runs)
+
+
+def test_q8_default_run_takes_the_default_tier(q8_runs):
+    """The path JAX takes at Q8_0, as placement counts of plain versions:
+    K7 and K6a per layer and step, K5q8 per greedy step, K1q8 per step()
+    logits, K2q8 for the prefill chunks, K3; no Q4_0 kernel, no K4."""
+    tiers = q8_runs["tiers"]
+    n = 2 * N_DECODE * DEFAULT_CFG.n_layers
+    assert tiers["attn_block_q8"] == {"ref": n}
+    assert tiers["fused_ffn_norm_q8"] == {"ref": n}
+    assert tiers["qmatmul_greedy_q8"] == {"ref": N_DECODE}
+    assert tiers["qmatmul_i8_q8"] == {"ref": N_DECODE}
+    assert tiers["qmatmul_q8"]["ref"] > 0 and tiers["attention"]["ref"] > 0
+    assert not set(tiers) & {"attn_block", "fused_ffn_norm", "qmatmul_greedy", "qmatmul_i8",
+                             "qmatmul", "decode_attention"}, tiers
+
+
+def test_q8_params_from_jax_are_bit_exact(q8_runs):
+    """params_from_jax on the JAX Q8_0 model (w_gate_up part-padded and split
+    at n // 2) and the port's own GGUF load both give the JAX package's
+    dequantized weights bit for bit."""
+    np_params = q8_runs["np_params"]
+    conv = params_from_jax(np_params, DEFAULT_CFG, device="cpu")
+    for src in (conv, q8_runs["port_params"]):
+        for lj, lp in zip(np_params["layers"], src["layers"]):
+            for key in ("wqkv", "wo", "w_down"):
+                assert lp[key].kind == "q8_0"
+                assert _bits(lp[key].dequant()) == _bits(dequant_packed(lj[key]))
+            gu = dequant_packed(lj["w_gate_up"])            # [2 * f_pad, d], part-padded
+            half, f = gu.shape[0] // 2, DEFAULT_CFG.d_ff
+            want = np.concatenate([gu[:f], gu[half:half + f]])
+            assert _bits(lp["w_gate_up"].dequant()) == _bits(want)
+        assert _bits(src["lm_head"].dequant()) == _bits(dequant_packed(np_params["lm_head"]))
+
+
+def _bits(a) -> bytes:
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32).tobytes()
 
 
 def test_default_run_takes_the_default_tier(default_runs):
@@ -305,7 +388,7 @@ def test_default_prefill_head_tier_matches_jax(tmp_path, chunk, tier):
         jmodel, jgf = jax_load_llama(path)
         jgf.close()
         jlogits = np.asarray(JaxEngine(jmodel, prefill_chunk=chunk).prefill(prompt))[0]
-        pmodel, pgf = load_llama(path)
+        pmodel, pgf = load_llama(path, device="cpu")
         pgf.close()
         global_profile.reset()
         plogits = LlamaEngine(pmodel, prefill_chunk=chunk).prefill(prompt)[0].numpy()
@@ -334,7 +417,7 @@ def test_default_small_chunk_prefill_fuses_the_ffn_as_jax(tmp_path):
         jmodel, jgf = jax_load_llama(path)
         jgf.close()
         jlogits = np.asarray(JaxEngine(jmodel, prefill_chunk=CHUNK).prefill(prompt))[0]
-        pmodel, pgf = load_llama(path)
+        pmodel, pgf = load_llama(path, device="cpu")
         pgf.close()
         global_profile.reset()
         plogits = LlamaEngine(pmodel, prefill_chunk=CHUNK).prefill(prompt)[0].numpy()
@@ -381,7 +464,7 @@ def test_default_layer_step_ffn_matches_jax(tmp_path, rows):
             ff = _project(jrefs.swiglu_ref(gu[..., :cfg.d_ff], gu[..., cfg.d_ff:]),
                           jl["w_down"])
         want = np.asarray(jx + ff)
-        pmodel, pgf = load_llama(path)
+        pmodel, pgf = load_llama(path, device="cpu")
         pgf.close()
         global_profile.reset()
         got = _ffn(cfg, torch.from_numpy(x), pmodel.params["layers"][1],

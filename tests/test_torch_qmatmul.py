@@ -1,15 +1,17 @@
-"""K2, K1 and K5: the port's packed weight and plain versions against the JAX package.
+"""K2, K1 and K5 at Q4_0 and Q8_0: the port's packed weight and plain versions
+against the JAX package.
 
 The JAX side quantizes with f16 block scales (bit-exact to GGUF) and runs
 qmatmul_pallas in interpret mode. On its f32-dequant tier (ZGML_TPU_I8DOT=0,
 f32 operands at every M) the port's K2 plain version must agree within
-rtol 1e-5 / atol 1e-4 * sqrt(K): f32 sums taken in another order. On its
-int8-activation tier (the default, M <= 32) the port's K1 plain version must
-quantize the activations to the same int8 values and scales bit for bit and
-agree within 1e-5 * max|y| (exact integer block dots; only the f32 sum over
-blocks differs), and K5 must give the same id wherever the top-2 gap exceeds
-that bound. The port's converted weight must dequantize to the same values
-bit for bit.
+rtol 1e-5 / atol 1e-4 * sqrt(K) at Q4_0 and 1e-5 * max|y| at Q8_0: f32 sums
+taken in another order. On its int8-activation tier (the default, M <= 32)
+the port's K1 plain version must quantize the activations to the same int8
+values and scales bit for bit and agree within 1e-5 * max|y| (exact integer
+block dots; only the f32 sum over blocks differs), and K5 must give the same
+id wherever the top-2 gap exceeds that bound. The port's weights (converted
+from the JAX layout, loaded from GGUF bytes, or quantized by the port) must
+dequantize to the JAX package's values bit for bit.
 """
 import dataclasses
 
@@ -19,10 +21,11 @@ import pytest
 import torch
 
 from zgml_tpu.ops.qmatmul import _quantize_act, qmatmul_greedy_pallas, qmatmul_pallas
-from zgml_tpu.quant.repack import dequant_packed, quantize_weight
+from zgml_tpu.quant.repack import dequant_packed, quantize_weight, repack_gguf_tensor
 
+from zgml_tpu_torch.io import llama_loader
 from zgml_tpu_torch.ops import dispatch
-from zgml_tpu_torch.ops.qmatmul import q4_matmul_i8_ref, q4_matmul_ref, quantize_act_ref
+from zgml_tpu_torch.ops.qmatmul import qmatmul_i8_ref, qmatmul_ref, quantize_act_ref
 from zgml_tpu_torch.quant import blocks, packed
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -50,43 +53,90 @@ def _jax_weight(jpw):
     return dataclasses.replace(jpw, qvals=jnp.asarray(jpw.qvals), scales=jnp.asarray(jpw.scales))
 
 
-def _weights(seed, n=N, k=K):
+_FROM_PLANAR = {"q4_0": packed.from_planar_q4_0, "q8_0": packed.from_planar_q8_0}
+
+
+def _weights(seed, n=N, k=K, kind="q4_0"):
     rng = np.random.default_rng(seed)
     w = rng.standard_normal((n, k)).astype(np.float32)
-    jpw = quantize_weight(w, "q4_0")
-    pw = packed.from_planar_q4_0(jpw.qvals, jpw.scales, jpw.n, jpw.k)
+    jpw = quantize_weight(w, kind)
+    pw = _FROM_PLANAR[kind](jpw.qvals, jpw.scales, jpw.n, jpw.k, device="cpu")
+    assert pw.kind == kind
     return rng, jpw, pw
 
 
-def test_converted_weight_dequant_is_bit_exact(slice_flags):
-    _, jpw, pw = _weights(0)
+def _bit_equal(got: np.ndarray, want: np.ndarray) -> bool:
+    return got.shape == want.shape and np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _check_converted(kind):
+    _, jpw, pw = _weights(0, kind=kind)
     assert jpw.scales.dtype == np.int16            # f16 bit patterns
-    want = dequant_packed(jpw)
-    got = pw.dequant().numpy()
-    assert got.shape == want.shape == (N, K)
-    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert pw.dequant().shape == (N, K)
+    assert _bit_equal(pw.dequant().numpy(), dequant_packed(jpw))
 
 
-def test_gguf_bytes_load_bit_exact():
-    """Raw GGUF blocks -> PackedWeight -> dequant equals the codec's dequant."""
+def test_converted_weight_dequant_is_bit_exact(slice_flags):
+    _check_converted("q4_0")
+
+
+def test_q8_converted_weight_dequant_is_bit_exact(slice_flags):
+    _check_converted("q8_0")
+
+
+def _check_gguf_bytes(kind):
+    """Raw GGUF blocks -> PackedWeight -> dequant equals the codec's dequant
+    and the JAX package's repacked weight."""
     rng = np.random.default_rng(1)
     w = rng.standard_normal((96, 256)).astype(np.float32)
-    raw = blocks.quantize_q4_0(w)
-    pw = packed.from_gguf_q4_0(raw, 96, 256)
-    want = blocks.dequantize_q4_0(raw, w.size).reshape(96, 256)
-    assert np.array_equal(pw.dequant().numpy(), want)
+    raw = getattr(blocks, f"quantize_{kind}")(w)
+    pw = getattr(packed, f"from_gguf_{kind}")(raw, 96, 256, device="cpu")
+    got = pw.dequant().numpy()
+    assert np.array_equal(got, getattr(blocks, f"dequantize_{kind}")(raw, w.size).reshape(96, 256))
+    assert _bit_equal(got, dequant_packed(repack_gguf_tensor(kind, raw, 96, 256)))
+
+
+def test_gguf_bytes_load_bit_exact(slice_flags):
+    _check_gguf_bytes("q4_0")
+
+
+def test_q8_gguf_bytes_load_bit_exact(slice_flags):
+    _check_gguf_bytes("q8_0")
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+def test_quantize_weight_matches_jax(slice_flags, kind):
+    """The loader's quantize_weight writes the JAX package's values."""
+    w = np.random.default_rng(2).standard_normal((64, 192)).astype(np.float32)
+    pw = llama_loader.quantize_weight(w, kind, device="cpu")
+    assert pw.kind == kind and (pw.n, pw.k) == (64, 192)
+    assert _bit_equal(pw.dequant().numpy(), dequant_packed(quantize_weight(w, kind)))
+
+
+def _matmul_pair(seed, m, kind):
+    """(port plain output, JAX kernel output) on the same x and weight; the
+    port side's placement counts are reset first."""
+    rng, jpw, pw = _weights(seed, kind=kind)
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    want = np.asarray(qmatmul_pallas(jnp.asarray(x), _jax_weight(jpw)))
+    global_profile.reset()
+    got = dispatch.qmatmul(torch.from_numpy(x), pw).numpy()
+    assert got.shape == want.shape == (m, N)
+    return x, got, want
 
 
 @pytest.mark.parametrize("m", [1, 5, 32, 40])
 def test_q4_matmul_plain_matches_jax_kernel(slice_flags, m):
-    rng, jpw, pw = _weights(10 + m)
-    x = rng.standard_normal((m, K)).astype(np.float32)
-    jpw_dev = dataclasses.replace(jpw, qvals=jnp.asarray(jpw.qvals),
-                                  scales=jnp.asarray(jpw.scales))
-    want = np.asarray(qmatmul_pallas(jnp.asarray(x), jpw_dev))
-    got = dispatch.qmatmul(torch.from_numpy(x), pw).numpy()
-    assert got.shape == want.shape == (m, N)
+    _, got, want = _matmul_pair(10 + m, m, "q4_0")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4 * np.sqrt(K))
+
+
+@pytest.mark.parametrize("m", [1, 3, 64])
+def test_q8_matmul_plain_matches_jax_kernel(slice_flags, m):
+    """K2q8's plain version against `_q8_matmul` (f32 dequant, f32 sums)."""
+    _, got, want = _matmul_pair(50 + m, m, "q8_0")
+    assert global_profile.tier_summary() == {"qmatmul_q8": {"ref": 1}}
+    assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
 
 
 def test_q4_matmul_keeps_leading_dims(slice_flags):
@@ -94,13 +144,13 @@ def test_q4_matmul_keeps_leading_dims(slice_flags):
     x = torch.from_numpy(rng.standard_normal((2, 3, K)).astype(np.float32))
     y = dispatch.qmatmul(x, pw)
     assert y.shape == (2, 3, N)
-    torch.testing.assert_close(y.reshape(6, N), q4_matmul_ref(x.reshape(6, K), pw))
+    torch.testing.assert_close(y.reshape(6, N), qmatmul_ref(x.reshape(6, K), pw))
 
 
 def test_concat_keeps_part_order():
     rng = np.random.default_rng(4)
     parts = [packed.from_nibbles(rng.integers(0, 16, (n, 64), dtype=np.uint8),
-                                 rng.uniform(0.1, 1, (n, 2)).astype(np.float16))
+                                 rng.uniform(0.1, 1, (n, 2)).astype(np.float16), "cpu")
              for n in (8, 16, 4)]
     cat = packed.concat(parts)
     assert (cat.n, cat.k) == (28, 64)
@@ -114,6 +164,23 @@ def test_packed_weight_rejects_bad_planes():
     with pytest.raises(ValueError):
         packed.PackedWeight(4, 48, torch.zeros(4, 24, dtype=torch.uint8),
                             torch.zeros(4, 1, dtype=torch.float16))
+    with pytest.raises(ValueError):          # Q8_0 holds one int8 per element
+        packed.PackedWeight(4, 64, torch.zeros(4, 32, dtype=torch.int8),
+                            torch.zeros(4, 2, dtype=torch.float16), "q8_0")
+    with pytest.raises(ValueError):
+        packed.PackedWeight(4, 64, torch.zeros(4, 64, dtype=torch.uint8),
+                            torch.zeros(4, 2, dtype=torch.float16), "q8_0")
+    with pytest.raises(ValueError):
+        packed.PackedWeight(4, 64, torch.zeros(4, 64, dtype=torch.int8),
+                            torch.zeros(4, 2, dtype=torch.float16), "q5_0")
+
+
+def test_concat_refuses_mixed_kinds():
+    q4 = packed.from_nibbles(np.zeros((4, 64), np.uint8), np.ones((4, 2), np.float16), "cpu")
+    q8 = packed.from_int8(np.zeros((4, 64), np.int8), np.ones((4, 2), np.float16), "cpu")
+    assert packed.concat([q8, q8]).kind == "q8_0"
+    with pytest.raises(ValueError, match="mixed kinds"):
+        packed.concat([q4, q8])
 
 
 @pytest.mark.parametrize("m", [1, 5, 32])
@@ -131,13 +198,21 @@ def test_q4_i8_quantize_is_bit_exact_to_jax(m):
 
 @pytest.mark.parametrize("m", [1, 5, 32])
 def test_q4_matmul_i8_plain_matches_jax_kernel(default_flags, m):
-    rng, jpw, pw = _weights(30 + m)
-    x = rng.standard_normal((m, K)).astype(np.float32)
-    want = np.asarray(qmatmul_pallas(jnp.asarray(x), _jax_weight(jpw)))
-    global_profile.reset()
-    got = dispatch.qmatmul(torch.from_numpy(x), pw).numpy()
+    _, got, want = _matmul_pair(30 + m, m, "q4_0")
     assert global_profile.tier_summary() == {"qmatmul_i8": {"ref": 1}}
-    assert got.shape == want.shape == (m, N)
+    assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_q8_matmul_i8_plain_matches_jax_kernel(default_flags, m):
+    """K1q8's plain version against `_q8_matmul_i8`: the same int8
+    activations and scales bit for bit, outputs within 1e-5 * max|y|."""
+    x, got, want = _matmul_pair(60 + m, m, "q8_0")
+    assert global_profile.tier_summary() == {"qmatmul_i8_q8": {"ref": 1}}
+    jq, js = _quantize_act(jnp.asarray(x))
+    q, s = quantize_act_ref(torch.from_numpy(x))
+    assert np.array_equal(q.numpy(), np.asarray(jq))
+    assert _bit_equal(s.numpy(), np.asarray(js))
     assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
 
 
@@ -146,7 +221,7 @@ def test_q4_matmul_i8_keeps_leading_dims(default_flags):
     x = torch.from_numpy(rng.standard_normal((2, 3, K)).astype(np.float32))
     y = dispatch.qmatmul(x, pw)
     assert y.shape == (2, 3, N)
-    torch.testing.assert_close(y.reshape(6, N), q4_matmul_i8_ref(x.reshape(6, K), pw))
+    torch.testing.assert_close(y.reshape(6, N), qmatmul_i8_ref(x.reshape(6, K), pw))
 
 
 def test_qmatmul_tier_follows_rows_and_flag(default_flags, monkeypatch):
@@ -164,9 +239,8 @@ def test_qmatmul_tier_follows_rows_and_flag(default_flags, monkeypatch):
     assert global_profile.tier_summary() == {"qmatmul": {"ref": 3}, "qmatmul_i8": {"ref": 2}}
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_q4_greedy_plain_matches_jax_kernel(default_flags, seed):
-    rng, jpw, pw = _weights(40 + seed)
+def _check_greedy(seed, kind):
+    rng, jpw, pw = _weights(seed, kind=kind)
     x = rng.standard_normal((1, K)).astype(np.float32)
     y = np.asarray(qmatmul_pallas(jnp.asarray(x), _jax_weight(jpw)))[0]
     want = int(np.asarray(qmatmul_greedy_pallas(jnp.asarray(x), _jax_weight(jpw)))[0])
@@ -178,6 +252,20 @@ def test_q4_greedy_plain_matches_jax_kernel(default_flags, seed):
         assert int(got[0]) == want
     # K5's plain version is argmax of K1's plain version, first index on ties
     assert int(got[0]) == int(torch.argmax(dispatch.qmatmul(torch.from_numpy(x), pw)[0]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_q4_greedy_plain_matches_jax_kernel(default_flags, seed):
+    _check_greedy(40 + seed, "q4_0")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_q8_greedy_plain_matches_jax_kernel(default_flags, seed):
+    """K5q8's plain version against `_q8_i8_argmax_kernel`, and its placement
+    count under qmatmul_greedy_q8."""
+    global_profile.reset()
+    _check_greedy(70 + seed, "q8_0")
+    assert global_profile.tier_summary()["qmatmul_greedy_q8"] == {"ref": 1}
 
 
 def test_q4_greedy_takes_one_row_and_the_int8_tier(default_flags, monkeypatch):

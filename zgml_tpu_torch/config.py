@@ -13,7 +13,7 @@ its defaults, read at call time (the port is eager):
   ZGML_TPU_I8DOT=0                i8dot()              no int8-activation tier K1/K5:
                                                        f32-dequant K2 at every M (default 1)
   ZGML_TPU_KERNELS_DISABLE=a,b    kernels_disabled()   names of kernels turned off; the port
-                                                       reads "fused_ffn" (K6d) only
+                                                       reads "fused_ffn" (K6) only
 
 The port reads no other JAX flag. Its prefill operands stay f32, which is
 the JAX package's ZGML_TPU_PREFILL_BF16=0, and its weight scales stay the

@@ -19,6 +19,7 @@ enum ZgmlStatus : int {
   ZGML_ERR_SHAPE = -1,      // a dimension is zero, negative or not a multiple the kernel needs
   ZGML_ERR_HEAD_DIM = -2,   // head_dim without a compiled instantiation
   ZGML_ERR_SMEM = -3,       // the tile does not fit the card's shared memory
+  ZGML_ERR_KIND = -4,       // weight kind without a compiled instantiation
 };
 
 // bf16 pair packed in one 32-bit word -> two floats (exact: bf16 is the top
@@ -51,23 +52,84 @@ inline int allow_dynamic_smem(K kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-// ---- f32-dequant Q4_0 GEMV pieces (the port's N-major GGUF-order weight) ----
+// ---- block formats of the port's N-major GGUF-order weights ----------------
+//
+// (zgml_tpu_torch/quant/packed.py.) A weight row of K values is K/32 blocks;
+// block b of a row is BYTES bytes of qs at row + b * BYTES (16-byte aligned,
+// read as BYTES/16 uint4 loads into WORDS words) and one fp16 scale d[b].
+// elem(t) is the element the t-th step of a block's f32 dot takes (Q4_0 pairs
+// the two nibbles of a byte, j and j + 16; Q8_0 goes in order).
+// level(w, j) is element j's integer level (natural order) as a float, which
+// the caller scales by d; with j a constant after unrolling it compiles to a
+// shift and a mask. to_i8(w, wi) gives the block as 8 words of signed bytes,
+// elements 4q..4q+3 in word q, for dot_i8 (once per block, however many
+// activation rows it meets). KIND is the code the launchers take (0 = q4_0,
+// 1 = q8_0; ops/qmatmul.py KIND_CODE).
 
-// Sum over one 32-block of (nibble - 8) * x, x the block's 32 floats in
-// shared memory (the caller scales it by the block's d, as K2's GEMV does).
-__device__ __forceinline__ float q4_block_dot_f32(uint4 p, const float* xb) {
-  const uint32_t w[4] = {p.x, p.y, p.z, p.w};
-  float sum = 0.f;
+struct FmtQ4_0 {   // byte j: element j in the low nibble, j + 16 in the high one
+  static constexpr int KIND = 0, BYTES = 16, WORDS = 4;
+  __host__ __device__ static constexpr int elem(int t) { return (t & 1) ? 16 + (t >> 1) : t >> 1; }
+  __device__ __forceinline__ static float level(const uint32_t (&w)[WORDS], int j) {
+    const uint32_t byte = (w[(j & 15) >> 2] >> (8 * (j & 3))) & 0xFFu;
+    return (float)((int)(j < 16 ? (byte & 15u) : (byte >> 4)) - 8);
+  }
+  __device__ __forceinline__ static void to_i8(const uint32_t (&w)[WORDS], int (&wi)[8]) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = q * 4 + i;
-      const int byte = (w[q] >> (8 * i)) & 0xFF;
-      sum = fmaf((float)((byte & 15) - 8), xb[j], sum);
-      sum = fmaf((float)((byte >> 4) - 8), xb[j + 16], sum);
+    for (int q = 0; q < 4; ++q) {   // nibbles to signed bytes: (n & 15) - 8, four at a time
+      wi[q] = (int)__vsubss4(w[q] & 0x0F0F0F0Fu, 0x08080808u);
+      wi[4 + q] = (int)__vsubss4((w[q] >> 4) & 0x0F0F0F0Fu, 0x08080808u);
     }
   }
+};
+
+struct FmtQ8_0 {   // byte j: element j as int8
+  static constexpr int KIND = 1, BYTES = 32, WORDS = 8;
+  __host__ __device__ static constexpr int elem(int t) { return t; }
+  __device__ __forceinline__ static float level(const uint32_t (&w)[WORDS], int j) {
+    return (float)((int)(w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+  }
+  __device__ __forceinline__ static void to_i8(const uint32_t (&w)[WORDS], int (&wi)[8]) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) wi[q] = (int)w[q];
+  }
+};
+
+// Exact int8 dot of a block (to_i8 words) with 8 words of int8 activations.
+__device__ __forceinline__ int dot_i8(const int (&wi)[8], const int* xb) {
+  int isum = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) isum = __dp4a(wi[q], xb[q], isum);
+  return isum;
+}
+
+// Run `body` with F = the format of kind code `kind`; ZGML_ERR_KIND otherwise.
+#define ZGML_DISPATCH_KIND(kind, ...)                  \
+  switch (kind) {                                      \
+    case 0: { using F = FmtQ4_0; __VA_ARGS__; }        \
+    case 1: { using F = FmtQ8_0; __VA_ARGS__; }        \
+    default: return ZGML_ERR_KIND;                     \
+  }
+
+template <class F>
+__device__ __forceinline__ void load_block(const uint8_t* row, int b, uint32_t (&w)[F::WORDS]) {
+  const uint4* p = reinterpret_cast<const uint4*>(row) + (size_t)b * (F::BYTES / 16);
+#pragma unroll
+  for (int i = 0; i < F::BYTES / 16; ++i) {
+    const uint4 v = __ldg(p + i);
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+}
+
+// Sum over one 32-block of level_j * x_j in F::elem order, x the block's 32
+// floats in shared memory (the caller scales it by the block's d).
+template <class F>
+__device__ __forceinline__ float block_dot_f32(const uint32_t (&w)[F::WORDS], const float* xb) {
+  float sum = 0.f;
+#pragma unroll
+  for (int t = 0; t < 32; ++t) sum = fmaf(F::level(w, F::elem(t)), xb[F::elem(t)], sum);
   return sum;
 }
 
@@ -75,22 +137,22 @@ __device__ __forceinline__ float q4_block_dot_f32(uint4 p, const float* xb) {
 // [K/32][33] floats (one padding word per block, so the 32 lanes, each on its
 // own block, hit 32 banks). Lane l takes blocks l, l+32, ...; returns each
 // row's lane partial in acc (the caller reduces over the warp).
-template <int R>
-__device__ __forceinline__ void q4_rows_f32(const uint8_t* const (&qs)[R],
-                                            const __half* const (&d)[R], const float* xs,
-                                            int nblk, int lane, float (&acc)[R]) {
+template <class F, int R>
+__device__ __forceinline__ void rows_f32(const uint8_t* const (&qs)[R],
+                                         const __half* const (&d)[R], const float* xs,
+                                         int nblk, int lane, float (&acc)[R]) {
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
   for (int b = lane; b < nblk; b += 32) {
-    uint4 p[R];
+    uint32_t w[R][F::WORDS];
     float s[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      p[r] = __ldg(reinterpret_cast<const uint4*>(qs[r]) + b);
+      load_block<F>(qs[r], b, w[r]);
       s[r] = __half2float(d[r][b]);
     }
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(q4_block_dot_f32(p[r], xs + b * 33), s[r], acc[r]);
+    for (int r = 0; r < R; ++r) acc[r] = fmaf(block_dot_f32<F>(w[r], xs + b * 33), s[r], acc[r]);
   }
 }
 

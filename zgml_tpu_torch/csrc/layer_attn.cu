@@ -3,9 +3,11 @@
 // Replaces: zgml_tpu/ops/layerkernel.py `_layer_kernel` (pallas_call at line
 // 685, entry `_layer_call` / `attn_block_step(..., kv_layer=li)`), which the
 // JAX package's default batch-1 decode runs for every layer over the stacked
-// cache (models/llama.py:773-811). Ported: its f32 A phase (the int8 `a_i8`
-// A phase runs only at d >= 4096), phases B and C, the bf16 cache. Not
-// ported: phase E (the FFN merge, off by default) and the int8 cache.
+// cache (models/llama.py:773-811), with `kind` q4_0 or q8_0 (its `_dequant`,
+// layerkernel.py:76-88; here common.cuh's FmtQ4_0 / FmtQ8_0 block formats).
+// Ported: its f32 A phase (the int8 `a_i8` A phase runs only at d >= 4096),
+// phases B and C, the bf16 cache. Not ported: phase E (the FFN merge, off by
+// default) and the int8 cache.
 //
 // Semantics (the plain version is ops/layerkernel.py attn_block_ref), for x
 // f32 [d] at position pos (an int32 on the device, so a step needs no host
@@ -20,9 +22,10 @@
 // contents are the same, and phase B never reads row pos).
 //
 // What bounds it on the H100: at short context the weight bytes (wqkv 2.95 MB
-// + wo 2.36 MB at TinyLlama-1.1B); at pos 2047 the layer's cache slab (1 KB
-// per position) adds ~2 MB. Both are read once, so the kernel is bound by HBM
-// bandwidth and by the three grid barriers between its phases.
+// + wo 2.36 MB at TinyLlama-1.1B at Q4_0, 5.57 + 4.46 MB at Q8_0); at pos
+// 2047 the layer's cache slab (1 KB per position) adds ~2 MB. Both are read
+// once, so the kernel is bound by HBM bandwidth and by the three grid
+// barriers between its phases.
 //
 // What the design does about it: one cooperative launch (every block
 // resident, grid sized by the occupancy query), phases separated by a grid
@@ -49,9 +52,9 @@ constexpr int LK_WARPS = LK_THREADS / 32;
 struct LayerParams {
   const float* x;            // [d]
   const float* g;            // [d] attn_norm
-  const uint8_t* wqkv_qs;    // [(hq + 2 hkv) hd, d/2]
+  const uint8_t* wqkv_qs;    // [(hq + 2 hkv) hd, d/32 * BYTES]
   const __half* wqkv_d;      // [(hq + 2 hkv) hd, d/32]
-  const uint8_t* wo_qs;      // [d, hq hd / 2]
+  const uint8_t* wo_qs;      // [d, hq hd / 32 * BYTES]
   const __half* wo_d;        // [d, hq hd / 32]
   const float* cos;          // [hd/2] at pos
   const float* sin;          // [hd/2]
@@ -68,7 +71,7 @@ struct LayerParams {
   float eps, scale;
 };
 
-template <int D>
+template <class F, int D>
 __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
   extern __shared__ __align__(16) float smem[];
   constexpr int HALF = D / 2;
@@ -88,10 +91,11 @@ __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
   for (int t = gwarp; t < n_pairs; t += nwarps) {
     const int h = t / HALF, i = t % HALF;
     const int r1 = h * D + i, r2 = r1 + HALF;
-    const uint8_t* qs[2] = {p.wqkv_qs + (size_t)r1 * (p.d / 2), p.wqkv_qs + (size_t)r2 * (p.d / 2)};
+    const uint8_t* qs[2] = {p.wqkv_qs + (size_t)r1 * nbd * F::BYTES,
+                            p.wqkv_qs + (size_t)r2 * nbd * F::BYTES};
     const __half* dd[2] = {p.wqkv_d + (size_t)r1 * nbd, p.wqkv_d + (size_t)r2 * nbd};
     float acc[2];
-    q4_rows_f32<2>(qs, dd, xs, nbd, lane, acc);
+    rows_f32<F, 2>(qs, dd, xs, nbd, lane, acc);
     float o1 = warp_sum(acc[0]), o2 = warp_sum(acc[1]);
     if (lane == 0) {
       if (h < p.hq + p.hkv) {              // q and k heads: x*[c,c] + rot(x)*[-s,s]
@@ -167,16 +171,16 @@ __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
   __syncthreads();
   const int nbq = nq / 32;
   for (int n = gwarp; n < p.d; n += nwarps) {
-    const uint8_t* qs[1] = {p.wo_qs + (size_t)n * (nq / 2)};
+    const uint8_t* qs[1] = {p.wo_qs + (size_t)n * nbq * F::BYTES};
     const __half* dd[1] = {p.wo_d + (size_t)n * nbq};
     float acc[1];
-    q4_rows_f32<1>(qs, dd, xs, nbq, lane, acc);
+    rows_f32<F, 1>(qs, dd, xs, nbq, lane, acc);
     const float s = warp_sum(acc[0]);
     if (lane == 0) p.x_out[n] = p.x[n] + s;
   }
 }
 
-template <int D>
+template <class F, int D>
 int launch(const LayerParams& p, cudaStream_t st) {
   const int n_rep = p.hq / p.hkv;
   const int k_max = p.d > p.hq * D ? p.d : p.hq * D;
@@ -186,18 +190,34 @@ int launch(const LayerParams& p, cudaStream_t st) {
   // enough warps for the widest warp-per-row phase (A's pairs or C's rows)
   const int n_pairs = (p.hq + 2 * p.hkv) * (D / 2);
   const int max_blocks = ((n_pairs > p.d ? n_pairs : p.d) + LK_WARPS - 1) / LK_WARPS;
-  return launch_cooperative(layer_attn_kernel<D>, LK_THREADS, smem, max_blocks, p, st);
+  return launch_cooperative(layer_attn_kernel<F, D>, LK_THREADS, smem, max_blocks, p, st);
+}
+
+template <class F>
+int launch_hd(const LayerParams& p, int hd, cudaStream_t st) {
+  switch (hd) {      // the JAX rule's head dims (multiples of 32) up to 256
+    case 32: return launch<F, 32>(p, st);
+    case 64: return launch<F, 64>(p, st);
+    case 96: return launch<F, 96>(p, st);
+    case 128: return launch<F, 128>(p, st);
+    case 160: return launch<F, 160>(p, st);
+    case 192: return launch<F, 192>(p, st);
+    case 224: return launch<F, 224>(p, st);
+    case 256: return launch<F, 256>(p, st);
+    default: return ZGML_ERR_HEAD_DIM;
+  }
 }
 
 }  // namespace
 
-// x f32 [d], g f32 [d], wqkv (qs uint8 [(hq+2hkv)hd, d/2], d fp16), wo (qs
-// uint8 [d, hq hd/2], d fp16), cos/sin f32 [hd/2], ck/cv bf16 layer slabs
-// [hkv, S, hd] (written at row *pos), pos int32 [1] on the device; outputs
-// x_out f32 [d] and kv_cur f32 [2, hkv, hd]; scratch f32 q [hq hd], att
-// [hq hd], part [hq, n_split, hd + 2] with n_split = zgml_decode_split_count(S)
-// (K4's chunking); bar: two uint32 words of a zeroed workspace. All contiguous.
-ZGML_EXPORT int zgml_attn_block(const float* x, const float* g, const uint8_t* wqkv_qs,
+// kind 0 (q4_0) or 1 (q8_0), the kind of both weights; x f32 [d], g f32 [d],
+// wqkv (qs [(hq+2hkv)hd, d/32 * BYTES], d fp16), wo (qs [d, hq hd/32 *
+// BYTES], d fp16), cos/sin f32 [hd/2], ck/cv bf16 layer slabs [hkv, S, hd]
+// (written at row *pos), pos int32 [1] on the device; outputs x_out f32 [d]
+// and kv_cur f32 [2, hkv, hd]; scratch f32 q [hq hd], att [hq hd], part [hq,
+// n_split, hd + 2] with n_split = zgml_decode_split_count(S) (K4's chunking);
+// bar: two uint32 words of a zeroed workspace. All contiguous.
+ZGML_EXPORT int zgml_attn_block(int kind, const float* x, const float* g, const uint8_t* wqkv_qs,
                                 const void* wqkv_d, const uint8_t* wo_qs, const void* wo_d,
                                 const float* cos, const float* sin, void* ck, void* cv,
                                 const int* pos, float* x_out, float* kv_cur, float* q,
@@ -211,15 +231,5 @@ ZGML_EXPORT int zgml_attn_block(const float* x, const float* g, const uint8_t* w
                       x_out, kv_cur, q, att, part, bar, d, hq, hkv, S,
                       (S + DA_CHUNK - 1) / DA_CHUNK, eps, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {      // the JAX rule's head dims (multiples of 32) up to 256
-    case 32: return launch<32>(p, st);
-    case 64: return launch<64>(p, st);
-    case 96: return launch<96>(p, st);
-    case 128: return launch<128>(p, st);
-    case 160: return launch<160>(p, st);
-    case 192: return launch<192>(p, st);
-    case 224: return launch<224>(p, st);
-    case 256: return launch<256>(p, st);
-    default: return ZGML_ERR_HEAD_DIM;
-  }
+  ZGML_DISPATCH_KIND(kind, return launch_hd<F>(p, hd, st))
 }

@@ -1,10 +1,16 @@
 """GGUF -> LlamaModel (llama.cpp tensor names), and JAX params -> port params.
 
-Counterpart of zgml_tpu/io/llama_loader.py on the slice: Q4_0 matmul weights
-stay packed (quant/packed.py), fused along the out axis into wqkv (q|k|v) and
-w_gate_up (gate|up) so each is one launch; norms and embeddings load as f32.
-A matmul weight of any other type raises NotImplementedError: Q8_0 waits for
-its kernel (ROADMAP queue B, K2q8) and is never dequantized in its place.
+Counterpart of zgml_tpu/io/llama_loader.py on the slice: Q4_0 and Q8_0 matmul
+weights stay packed (quant/packed.py), fused along the out axis into wqkv
+(q|k|v) and w_gate_up (gate|up) so each is one launch; norms and embeddings
+load as f32. Everything lands on the card unless the caller asks for the CPU
+(device="cpu": the plain torch versions).
+
+Not yet ported, and refused with NotImplementedError rather than run another
+way: matmul weights of any other type (the JAX package loads F16/F32 ones
+dense, `_load_matmul`, and K-quants not at all), and layers whose q/k/v or
+gate/up mix kinds (the JAX package loads those unfused, `_load_fused`);
+ROADMAP.md queue A lists both.
 """
 from __future__ import annotations
 
@@ -16,8 +22,11 @@ import torch
 
 from zgml_tpu_torch.io.gguf import GGMLType, GGUFFile
 from zgml_tpu_torch.models.llama import LlamaConfig, LlamaModel
-from zgml_tpu_torch.quant import packed
-from zgml_tpu_torch.quant.packed import PackedWeight
+from zgml_tpu_torch.quant import blocks, packed
+from zgml_tpu_torch.quant.packed import PackedWeight, resolve_device
+
+_KINDS = {GGMLType.Q4_0: "q4_0", GGMLType.Q8_0: "q8_0"}
+_FROM_GGUF = {"q4_0": packed.from_gguf_q4_0, "q8_0": packed.from_gguf_q8_0}
 
 
 def config_from_gguf(gf: GGUFFile) -> LlamaConfig:
@@ -46,24 +55,48 @@ def config_from_gguf(gf: GGUFFile) -> LlamaConfig:
     )
 
 
-def _matmul(gf: GGUFFile, name: str, device) -> PackedWeight:
-    info = gf.tensors[name]
-    if info.ggml_type != GGMLType.Q4_0:
+def _kind(gf: GGUFFile, name: str) -> str:
+    t = gf.tensors[name].ggml_type
+    if t not in _KINDS:
         raise NotImplementedError(
-            f"{name} is {info.ggml_type.name}: zgml_tpu_torch runs Q4_0 matmul weights only; "
-            f"{info.ggml_type.name} needs its own kernel (ROADMAP.md queue B, K2q8 for Q8_0)")
-    n, k = info.np_shape
-    return packed.from_gguf_q4_0(gf.tensor_raw(name), n, k, device)
+            f"{name} is {t.name}: zgml_tpu_torch runs Q4_0 and Q8_0 matmul weights only; "
+            f"F16/F32 weights wait for the dense load mode and other types for their "
+            f"kernels (ROADMAP.md queue A)")
+    return _KINDS[t]
+
+
+def _matmul(gf: GGUFFile, name: str, device) -> PackedWeight:
+    n, k = gf.tensors[name].np_shape
+    return _FROM_GGUF[_kind(gf, name)](gf.tensor_raw(name), n, k, device)
+
+
+def _fused(gf: GGUFFile, names: list[str], device) -> PackedWeight:
+    kinds = [_kind(gf, nm) for nm in names]
+    if len(set(kinds)) > 1:
+        raise NotImplementedError(
+            f"{names} mix kinds {kinds}: mixed-kind layers wait for unfused loading "
+            f"(ROADMAP.md queue A)")
+    return packed.concat([_matmul(gf, nm, device) for nm in names])
+
+
+def quantize_weight(w: np.ndarray, kind: str, device="cuda") -> PackedWeight:
+    """An f32 [n, k] weight -> PackedWeight of `kind`, through the GGUF block
+    codecs (quant/blocks.py), which write the bytes the JAX package writes."""
+    n, k = w.shape
+    raw = {"q4_0": blocks.quantize_q4_0, "q8_0": blocks.quantize_q8_0}[kind](w)
+    return _FROM_GGUF[kind](raw, n, k, device)
 
 
 def _f32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 
 
-def load_llama(path: str, device="cpu", max_seq_len: int | None = None
+def load_llama(path: str, device="cuda", max_seq_len: int | None = None
                ) -> tuple[LlamaModel, GGUFFile]:
-    """Load a llama GGUF onto `device`. Returns (model, the parsed file); the
-    caller owns the file and closes it (the model holds copies)."""
+    """Load a llama GGUF onto `device` (the card unless device="cpu").
+    Returns (model, the parsed file); the caller owns the file and closes it
+    (the model holds copies)."""
+    device = resolve_device(device)
     gf = GGUFFile(path)
     try:
         cfg = config_from_gguf(gf)
@@ -75,11 +108,11 @@ def load_llama(path: str, device="cpu", max_seq_len: int | None = None
             layers.append({
                 "attn_norm": _f32(gf.tensor_f32(blk + "attn_norm.weight"), device),
                 "ffn_norm": _f32(gf.tensor_f32(blk + "ffn_norm.weight"), device),
-                "wqkv": packed.concat([_matmul(gf, blk + f"attn_{p}.weight", device)
-                                       for p in ("q", "k", "v")]),
+                "wqkv": _fused(gf, [blk + f"attn_{p}.weight" for p in ("q", "k", "v")],
+                               device),
                 "wo": _matmul(gf, blk + "attn_output.weight", device),
-                "w_gate_up": packed.concat([_matmul(gf, blk + f"ffn_{p}.weight", device)
-                                            for p in ("gate", "up")]),
+                "w_gate_up": _fused(gf, [blk + f"ffn_{p}.weight" for p in ("gate", "up")],
+                                    device),
                 "w_down": _matmul(gf, blk + "ffn_down.weight", device),
             })
         params = {"tok_embd": _f32(gf.tensor_f32("token_embd.weight"), device),
@@ -97,28 +130,32 @@ def _field(pw: Any, name: str):
     return pw[name] if isinstance(pw, dict) else getattr(pw, name)
 
 
+_FROM_PLANAR = {"q4_0": packed.from_planar_q4_0, "q8_0": packed.from_planar_q8_0}
+
+
 def _from_jax_packed(pw: Any, device, col0: int = 0, n: int | None = None) -> PackedWeight:
-    if _field(pw, "kind") != "q4_0":
-        raise NotImplementedError(
-            f"{_field(pw, 'kind')} weights need their own kernel (ROADMAP.md queue B)")
-    return packed.from_planar_q4_0(np.asarray(_field(pw, "qvals")),
-                                   np.asarray(_field(pw, "scales")),
-                                   _field(pw, "n") if n is None else n,
-                                   _field(pw, "k"), col0, device)
+    kind = _field(pw, "kind")
+    if kind not in _FROM_PLANAR:
+        raise NotImplementedError(f"{kind} weights wait for their kernels (ROADMAP.md queue A)")
+    return _FROM_PLANAR[kind](np.asarray(_field(pw, "qvals")), np.asarray(_field(pw, "scales")),
+                              _field(pw, "n") if n is None else n, _field(pw, "k"), col0, device)
 
 
-def params_from_jax(np_params: dict, cfg: LlamaConfig, device="cpu") -> dict:
-    """The JAX package's llama params -> this package's params.
+def params_from_jax(np_params: dict, cfg: LlamaConfig, device="cuda") -> dict:
+    """The JAX package's llama params -> this package's params on `device`
+    (the card unless device="cpu").
 
     `np_params` is what zgml_tpu's load_llama builds (unrolled layer list,
-    fused wqkv / w_gate_up, Q4_0 PackedWeights) with every array as numpy;
-    a packed weight is any object or dict with kind, n, k, qvals, scales.
+    fused wqkv / w_gate_up, Q4_0 or Q8_0 PackedWeights) with every array as
+    numpy; a packed weight is any object or dict with kind, n, k, qvals,
+    scales.
 
     w_gate_up is part-padded there: gate and up each fill half of its n
     columns (each padded to w_down's k_pad), so it is split at n // 2 and
     each half keeps its first d_ff columns. The padding columns hold zero
     scales and contribute nothing, so the result computes the same function.
     """
+    device = resolve_device(device)
     layers = []
     for lj in np_params["layers"]:
         if "wqkv" not in lj or "w_gate_up" not in lj:

@@ -3,22 +3,22 @@
 Counterpart of zgml_tpu/models/llama.py on the paths it runs over the
 stacked cache, chosen as the JAX package chooses them (config.py flags):
 
-  - batch-1 decode with ZGML_TPU_ATTN_BLOCK on (the default) and a head_dim
-    the layer kernel takes: per layer the fused attention block K7
-    (llama.py:773-811), then the fused FFN K6d (`_ffn_after_attn`,
-    llama.py:217-260), or the composed FFN when
+  - batch-1 decode with ZGML_TPU_ATTN_BLOCK on (the default), a head_dim
+    and weight kinds the layer kernel takes: per layer the fused attention
+    block K7 (llama.py:773-811), then the fused FFN (`_ffn_after_attn`,
+    llama.py:217-260: K6d at Q4_0, K6a at Q8_0), or the composed FFN when
     ZGML_TPU_KERNELS_DISABLE=fused_ffn or at a width JAX does not fuse at;
   - everything else (prefill, batch > 1, ATTN_BLOCK=0): the per-layer
     `_layer_step(kv_layer=li)` path (llama.py:286-341) with fused `wqkv` and
-    `w_gate_up` projections and K3/K4 attention; its FFN runs as one K6d
-    launch for calls of at most 32 rows where JAX runs its fused f32 FFN
-    (K6b) there, else composed;
+    `w_gate_up` projections and K3/K4 attention; its FFN runs as one fused
+    FFN launch (K6d / K6a) for calls of at most 32 rows where JAX runs its
+    fused f32 FFN (K6b / K6a) there, else composed;
   - `_head_out` (llama.py:517-543): greedy through K5 when it applies, else
     the argmax over the logits.
 
 Every projection's tier (K1 int8 for M <= 32, or K2) is picked in
-ops/dispatch.qmatmul. GQA, RMSNorm, half-split RoPE, SwiGLU, tied or separate
-lm_head.
+ops/dispatch.qmatmul, at the weight's kind (Q4_0 or Q8_0). GQA, RMSNorm,
+half-split RoPE, SwiGLU, tied or separate lm_head.
 
 The KV cache has one layout, ``{"k", "v"}`` bf16 tensors [L, B, Hkv, S, d],
 and ``forward`` writes the new positions into it IN PLACE (the JAX package
@@ -97,12 +97,15 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
 def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
     """The FFN half of a layer, x + down(swiglu(gate|up(rmsnorm(x)))), where
     the JAX package fuses it (at most 32 rows, fused_ffn not disabled, a width
-    it fuses at: ops/ffn.ffn_fuses) in one K6d launch, else composed from two
-    projections. JAX's `_layer_step` fuses with its f32 K6b and the fused
-    decode with K6d (llama.py:217-260, 326-340): the same f32 sums."""
+    and kind it fuses at: ops/ffn.ffn_fuses) in one K6 launch, else composed
+    from two projections. At Q4_0 JAX's `_layer_step` fuses with its f32 K6b
+    and the fused decode with K6d, at Q8_0 both with K6a (llama.py:217-260,
+    326-340): the same f32 sums."""
     rows = x.numel() // x.shape[-1]
+    kind = layer["w_down"].kind
     if (rows <= ffn.FFN_MAX_ROWS and "fused_ffn" not in config.kernels_disabled()
-            and ffn.ffn_fuses(cfg.d_model, after_attn_block)):
+            and layer["w_gate_up"].kind == kind
+            and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block)):
         return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
                                   cfg.rms_norm_eps)
     h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
@@ -157,12 +160,15 @@ class LlamaModel(torch.nn.Module):
         positions = torch.arange(pos, pos + t, device=x.device)
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
         decode = t == 1
-        if decode and config.attn_block() and attn_block_compatible(cfg.head_dim, b):
-            return _fused_decode(cfg, x, self.params["layers"], ck, cv, pos, cos, sin)
+        layers = self.params["layers"]
+        if (decode and config.attn_block()
+                and all(attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
+                        for ly in layers)):
+            return _fused_decode(cfg, x, layers, ck, cv, pos, cos, sin)
         kv_len = pos + t
         if decode:
             kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
-        for li, layer in enumerate(self.params["layers"]):
+        for li, layer in enumerate(layers):
             x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode)
         return x
 

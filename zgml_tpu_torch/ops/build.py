@@ -33,25 +33,26 @@ import time
 from zgml_tpu_torch import config
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("status.cu", "q4_matmul.cu", "flash_attn.cu", "decode_attn.cu",
-           "q4_i8_matmul.cu", "ffn.cu", "layer_attn.cu")
+SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
+           "qmatmul_i8.cu", "ffn.cu", "layer_attn.cu")
 HEADERS = ("common.cuh", "decode_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# exported function -> argtypes (every launcher returns an int status)
+# exported function -> argtypes (every launcher returns an int status; the
+# weight launchers take the kind code of ops/qmatmul.py KIND_CODE first)
 _SIGNATURES = {
-    "zgml_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "zgml_qmatmul": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "zgml_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     "zgml_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     "zgml_decode_split_count": (_I,),
-    "zgml_q4_i8_quantize": (_P, _P, _P, _I, _I, _P),
-    "zgml_q4_matmul_i8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "zgml_q4_greedy": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "zgml_ffn_norm": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "zgml_attn_block": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _F, _P),
+    "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),
+    "zgml_qmatmul_i8": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "zgml_greedy": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "zgml_ffn_norm": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "zgml_attn_block": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

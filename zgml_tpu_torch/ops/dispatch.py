@@ -10,17 +10,19 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
     other -> NotImplementedError
   which kernel a projection takes, from the JAX package's rule
     (qmatmul.py:639,728): the int8-activation K1 when config.i8dot() and the
-    call has M <= 32 rows, else the f32-dequant K2. The model picks the
-    decode path (K7, K6d, K5) from config (models/llama.py).
+    call has M <= 32 rows, else the f32-dequant K2, each at the weight's
+    kind (Q4_0 or Q8_0). The model picks the decode path (K7, K6, K5) from
+    config (models/llama.py).
 
 ``force_ref()`` is the one explicit way to run the plain versions on the card
 (to compare the kernels with them). It keeps the path and swaps each kernel
 for its plain version; the JAX package's force_ref instead turns its fused
 kernels off, which changes the path. Every call is counted by tier in
-runtime.profile.global_profile, under one name per kernel (qmatmul = K2,
-qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d, attn_block =
-K7, attention = K3, decode_attention = K4): a kernel's count is added where
-it launches, a plain call's here.
+runtime.profile.global_profile, under one name per kernel and kind
+(qmatmul = K2, qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d,
+attn_block = K7 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a
+and K7 at Q8_0; attention = K3, decode_attention = K4): a kernel's count is
+added where it launches, a plain call's here.
 """
 from __future__ import annotations
 
@@ -71,34 +73,35 @@ def qmatmul(x: torch.Tensor, w: PackedWeight, tier_rows: int | None = None) -> t
     rows = x.numel() // w.k if tier_rows is None else tier_rows
     if config.i8dot() and rows <= _qmm.I8_MAX_ROWS:
         if _use_kernel(x, w.qs, w.d):
-            return _qmm.q4_matmul_i8_cuda(x, w)
-        global_profile.count_op("qmatmul_i8", "ref")
-        return _qmm.q4_matmul_i8_ref(x, w)
+            return _qmm.qmatmul_i8_cuda(x, w)
+        global_profile.count_op(_qmm.counter("qmatmul_i8", w.kind), "ref")
+        return _qmm.qmatmul_i8_ref(x, w)
     if _use_kernel(x, w.qs, w.d):
-        return _qmm.q4_matmul_cuda(x, w)
-    global_profile.count_op("qmatmul", "ref")
-    return _qmm.q4_matmul_ref(x, w)
+        return _qmm.qmatmul_cuda(x, w)
+    global_profile.count_op(_qmm.counter("qmatmul", w.kind), "ref")
+    return _qmm.qmatmul_ref(x, w)
 
 
 def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
-    """argmax_n(x @ dequant(W)) of one row as int64 [1] through K5, or None
-    where K5 does not apply (int8 tier off, or more than one row): the caller
-    then takes the argmax of qmatmul's logits, as zgml_tpu/ops/dispatch.py:80-92."""
+    """argmax_n(x @ dequant(W)) of one row as int64 [1] through K5 (either
+    kind, as `qmatmul_greedy_pallas`), or None where K5 does not apply (int8
+    tier off, or more than one row): the caller then takes the argmax of
+    qmatmul's logits, as zgml_tpu/ops/dispatch.py:80-92."""
     if not config.i8dot() or x.numel() != w.k:
         return None
     if _use_kernel(x, w.qs, w.d):
-        return _qmm.q4_greedy_cuda(x, w)
-    global_profile.count_op("qmatmul_greedy", "ref")
-    return _qmm.q4_greedy_ref(x, w)
+        return _qmm.greedy_cuda(x, w)
+    global_profile.count_op(_qmm.counter("qmatmul_greedy", w.kind), "ref")
+    return _qmm.greedy_ref(x, w)
 
 
 def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: PackedWeight,
                    eps: float) -> torch.Tensor:
-    """K6d: x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * gamma; decode,
-    at most 32 rows."""
+    """K6d (Q4_0) / K6a (Q8_0): x + down(silu(gate(n)) * up(n)), n =
+    rmsnorm(x) * gamma; at most 32 rows."""
     if _use_kernel(x, gamma, gu.qs, wd.qs):
         return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps)
-    global_profile.count_op("fused_ffn_norm", "ref")
+    global_profile.count_op(_qmm.counter("fused_ffn_norm", gu.kind), "ref")
     return ffn.fused_ffn_norm_ref(x, gamma, gu, wd, eps)
 
 
@@ -110,7 +113,7 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
     if _use_kernel(x, gamma, wqkv.qs, wo.qs, ck, cv):
         return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                            n_heads, n_kv_heads, eps)
-    global_profile.count_op("attn_block", "ref")
+    global_profile.count_op(_qmm.counter("attn_block", wqkv.kind), "ref")
     return layerkernel.attn_block_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                       n_heads, n_kv_heads, eps)
 

@@ -1,12 +1,13 @@
-"""K6d: the fused decode FFN (rmsnorm + gate|up + SwiGLU + down + residual)
-and its plain version.
+"""K6: the fused FFN (rmsnorm + gate|up + SwiGLU + down + residual) and its
+plain version, Q4_0 (K6d) or Q8_0 (K6a).
 
 Counterpart of zgml_tpu/ops/ffn.py `_ffn_q4n_kernel` / `fused_ffn_norm_q4n`
-(f32 dequant). The JAX kernel reads an N-packed copy of the FFN weights
-(quant/headmajor.py ffn_npack); the port reads its one resident copy:
-``w_gate_up`` [2F, D] (gate rows, then up rows) and ``w_down`` [D, F], on the
-logical sizes (no padding). At most 32 rows, as the JAX dispatch
-(zgml_tpu/ops/dispatch.py:95-139). Callers go through
+(K6d, Q4_0) and `_ffn_kernel` / `fused_ffn_norm_pallas` (K6a, Q8_0), f32
+dequant. The JAX kernels read an N-packed (Q4_0, quant/headmajor.py
+ffn_npack) or planar part-padded (Q8_0) copy of the FFN weights; the port
+reads its one resident copy: ``w_gate_up`` [2F, D] (gate rows, then up rows)
+and ``w_down`` [D, F], on the logical sizes (no padding). At most 32 rows, as
+the JAX dispatch (zgml_tpu/ops/dispatch.py:95-139). Callers go through
 ``ops.dispatch.fused_ffn_norm``; ``ffn_fuses`` says where the JAX package
 fuses the FFN at all.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from zgml_tpu_torch.ops import build, coop, refs
+from zgml_tpu_torch.ops.qmatmul import KIND_CODE, counter
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -32,15 +34,26 @@ def _tile_friendly_pad(x: int) -> int:
     return -(-x // 128) * 128
 
 
-def ffn_fuses(d_model: int, after_attn_block: bool) -> bool:
-    """Whether the JAX package runs a fused FFN kernel at this width. Its
-    loader pads w_down's D rows to _tile_friendly_pad(D) and w_gate_up's D
-    columns further to a multiple of 512; its fused FFN kernels need the two
-    equal (the N-packed view, quant/headmajor.py:287-292; ffn_compatible,
-    ops/ffn.py:550-564). After the layer kernel the N-packed K6d takes any
-    such D (`_ffn_after_attn`); in `_layer_step` ffn_compatible also caps the
-    padded D at 8192. The port pads nothing; it only takes the same path."""
+def ffn_fuses(d_model: int, d_ff: int, kind: str, after_attn_block: bool) -> bool:
+    """Whether the JAX package runs a fused FFN kernel at this width and
+    kind, on weights its loader pads (repack.py: every dim to
+    _tile_friendly_pad; Q4_0 K further to a multiple of 512, Q8_0 K to one
+    of 32; w_gate_up's halves part-padded to w_down's padded K).
+
+      q4_0  its fused FFN kernels need w_down's padded D rows equal to
+            w_gate_up's padded D columns, i.e. the padded D a multiple of 512
+            (the N-packed view, quant/headmajor.py:287-292; ffn_compatible,
+            ops/ffn.py:550-564). After the layer kernel the N-packed K6d
+            takes any such D (`_ffn_after_attn`); in `_layer_step`
+            ffn_compatible also caps the padded D at 8192.
+      q8_0  no N-packed view is attached, so both call sites go through
+            ffn_compatible's Q8 branch (ops/ffn.py:550-559): the padded D at
+            most 8192 and w_down's padded K (from F) a multiple of 256.
+
+    The port pads nothing; it only takes the same path."""
     dp = _tile_friendly_pad(d_model)
+    if kind == "q8_0":
+        return dp <= FFN_MAX_DP and _tile_friendly_pad(d_ff) % 256 == 0
     return dp % 512 == 0 and (after_attn_block or dp <= FFN_MAX_DP)
 
 
@@ -55,7 +68,8 @@ def fused_ffn_norm_ref(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
 
 def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
                         wd: PackedWeight, eps: float) -> torch.Tensor:
-    """Launch K6d (csrc/ffn.cu). x f32 [..., D] with at most 32 rows."""
+    """Launch K6d (Q4_0) or K6a (Q8_0), csrc/ffn.cu. x f32 [..., D] with at
+    most 32 rows; both weights of one kind."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"fused_ffn_norm: {msg}")
@@ -64,6 +78,7 @@ def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
             f"x on {x.device}: x, gamma and the weights must be on one CUDA device")
     require(x.dtype == torch.float32 and gamma.dtype == torch.float32,
             f"x and gamma must be float32, got {x.dtype}/{gamma.dtype}")
+    require(gu.kind == wd.kind, f"w_gate_up is {gu.kind}, w_down {wd.kind}: one kind")
     d, f = x.shape[-1], wd.k
     require(gu.k == d and gu.n == 2 * f and wd.n == d and gamma.numel() == d,
             f"shapes: x D={d}, w_gate_up [{gu.n}, {gu.k}], w_down [{wd.n}, {wd.k}], "
@@ -78,9 +93,10 @@ def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
     y = torch.empty_like(x)
     act = torch.empty((m, f), dtype=torch.float32, device=dev)
     status = build.library().zgml_ffn_norm(
-        x.data_ptr(), gamma.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(), wd.qs.data_ptr(),
-        wd.d.data_ptr(), y.data_ptr(), act.data_ptr(), coop.barrier_words(dev).data_ptr(),
+        KIND_CODE[gu.kind], x.data_ptr(), gamma.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(),
+        wd.qs.data_ptr(), wd.d.data_ptr(), y.data_ptr(), act.data_ptr(),
+        coop.barrier_words(dev).data_ptr(),
         m, d, f, float(eps), torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "fused_ffn_norm")
-    global_profile.count_op("fused_ffn_norm", "cuda")
+    global_profile.count_op(counter("fused_ffn_norm", gu.kind), "cuda")
     return y

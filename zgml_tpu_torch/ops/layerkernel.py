@@ -5,8 +5,9 @@ Counterpart of zgml_tpu/ops/layerkernel.py `_layer_kernel` through
 (batch 1) at position `pos` it computes rmsnorm, the fused QKV projection,
 half-split RoPE, attention of each query head over layer li's cache rows
 j < pos plus the current token's own f32 K/V as the last column, the output
-projection and the residual. Ported: the f32 A phase and the bf16 cache; not
-ported: the int8 A phase (`a_i8`, d >= 4096), the int8 cache, phase E.
+projection and the residual, with wqkv and wo both Q4_0 or both Q8_0 (the
+JAX `kind`). Ported: the f32 A phase and the bf16 cache; not ported: the
+int8 A phase (`a_i8`, d >= 4096), the int8 cache, phase E.
 
 Layouts: x f32 [1, 1, d]; the stacked bf16 cache ck / cv [L, 1, Hkv, S, hd]
 (models/llama.py), which both versions write IN PLACE at (li, 0, :, pos) with
@@ -21,20 +22,23 @@ from __future__ import annotations
 import torch
 
 from zgml_tpu_torch.ops import build, coop, refs
+from zgml_tpu_torch.ops.qmatmul import KIND_CODE, counter
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
 HEAD_DIMS = tuple(range(32, 257, 32))    # compiled instantiations of csrc/layer_attn.cu
 
 
-def attn_block_compatible(head_dim: int, batch: int) -> bool:
+def attn_block_compatible(head_dim: int, batch: int, kinds: tuple[str, str]) -> bool:
     """The JAX rule (attn_block_compatible, layerkernel.py:713-735) on the
-    port's weights: B == 1, Q4_0 (the port's only format), head_dim % 32 == 0
-    and >= 32. Its wo-width check (padded d of wo <= padded d of wqkv) holds
-    for every width the JAX loader pads, so it adds nothing here. One
-    difference: the port compiles head dims up to 256 (every llama-family
-    model), and a larger head_dim runs `_layer_step` where JAX runs K7."""
-    return batch == 1 and head_dim in HEAD_DIMS
+    port's weights: B == 1, wqkv and wo of one kind, q4_0 or q8_0 (`kinds`
+    = their kinds), head_dim % 32 == 0 and >= 32. Its wo-width check (padded
+    d of wo <= padded d of wqkv) holds for every width the JAX loader pads,
+    so it adds nothing here. One difference: the port compiles head dims up
+    to 256 (every llama-family model), and a larger head_dim runs
+    `_layer_step` where JAX runs K7."""
+    return (batch == 1 and head_dim in HEAD_DIMS and len(set(kinds)) == 1
+            and kinds[0] in KIND_CODE)
 
 
 def _heads(x, wqkv, wo, n_heads, n_kv_heads):
@@ -75,8 +79,8 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                     wo: PackedWeight, ck: torch.Tensor, cv: torch.Tensor, li: int,
                     pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_heads: int,
                     n_kv_heads: int, eps: float):
-    """Launch K7 (csrc/layer_attn.cu); same contract as attn_block_ref, with
-    pos an int32 [1] CUDA tensor."""
+    """Launch K7 (csrc/layer_attn.cu) at the weights' kind; same contract as
+    attn_block_ref, with pos an int32 [1] CUDA tensor."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"attn_block: {msg}")
@@ -86,6 +90,7 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
             f"x on {x.device}: every tensor must be on one CUDA device")
     require(isinstance(pos, torch.Tensor) and pos.device == dev and pos.dtype == torch.int32
             and pos.numel() == 1, "pos must be an int32 [1] tensor on the card")
+    require(wqkv.kind == wo.kind, f"wqkv is {wqkv.kind}, wo {wo.kind}: one kind")
     d, hd = _heads(x, wqkv, wo, n_heads, n_kv_heads)
     require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
     require(x.dtype == torch.float32 and x.numel() == d,
@@ -111,12 +116,13 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                           dtype=torch.float32, device=dev)
     q_s, att_s, part_s = scratch.split([n_heads * hd, n_heads * hd, n_heads * n_split * (hd + 2)])
     status = lib.zgml_attn_block(
-        x.data_ptr(), gamma.data_ptr(), wqkv.qs.data_ptr(), wqkv.d.data_ptr(), wo.qs.data_ptr(),
-        wo.d.data_ptr(), cos.data_ptr(), sin.data_ptr(), ck[li].data_ptr(), cv[li].data_ptr(),
-        pos.data_ptr(), x_out.data_ptr(), kv_cur.data_ptr(), q_s.data_ptr(), att_s.data_ptr(),
-        part_s.data_ptr(), coop.barrier_words(dev).data_ptr(), d, n_heads, n_kv_heads, hd, s,
+        KIND_CODE[wqkv.kind], x.data_ptr(), gamma.data_ptr(), wqkv.qs.data_ptr(),
+        wqkv.d.data_ptr(), wo.qs.data_ptr(), wo.d.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        ck[li].data_ptr(), cv[li].data_ptr(), pos.data_ptr(), x_out.data_ptr(),
+        kv_cur.data_ptr(), q_s.data_ptr(), att_s.data_ptr(), part_s.data_ptr(),
+        coop.barrier_words(dev).data_ptr(), d, n_heads, n_kv_heads, hd, s,
         float(eps), 1.0 / hd ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "attn_block")
-    global_profile.count_op("attn_block", "cuda")
+    global_profile.count_op(counter("attn_block", wqkv.kind), "cuda")
     kv = kv_cur.reshape(2, 1, n_kv_heads, 1, hd)
     return x_out, kv[0], kv[1]

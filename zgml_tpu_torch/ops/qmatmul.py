@@ -1,16 +1,20 @@
-"""Q4_0 matmul kernels and their plain versions.
+"""Quantized matmul kernels (Q4_0 and Q8_0) and their plain versions.
 
-  K2  q4_matmul_cuda / q4_matmul_ref        (csrc/q4_matmul.cu) counterpart of
-      zgml_tpu/ops/qmatmul.py `_q4_kernel`: f32 dequant, any M.
-  K1  q4_matmul_i8_cuda / q4_matmul_i8_ref  (csrc/q4_i8_matmul.cu) counterpart
-      of `_q4_i8_kernel`: int8 activations per 32-block, exact int8 x int4
-      block dots, f32 scale and sum; the tier for M <= 32.
-  K5  q4_greedy_cuda / q4_greedy_ref        (csrc/q4_i8_matmul.cu) counterpart
-      of `_q4_i8_argmax_kernel` / `qmatmul_greedy_pallas`: K1 on one row,
-      then the argmax id (first index on ties).
+  K2  qmatmul_cuda / qmatmul_ref        (csrc/qmatmul.cu) counterpart of
+      zgml_tpu/ops/qmatmul.py `_q4_kernel` (K2q4) and `_q8_kernel` (K2q8):
+      f32 dequant, any M.
+  K1  qmatmul_i8_cuda / qmatmul_i8_ref  (csrc/qmatmul_i8.cu) counterpart of
+      `_q4_i8_kernel` (K1q4) and `_q8_i8_kernel` (K1q8): int8 activations per
+      32-block, exact int8 block dots, f32 scale and sum; the tier for M <= 32.
+  K5  greedy_cuda / greedy_ref          (csrc/qmatmul_i8.cu) counterpart of
+      `_q4_i8_argmax_kernel` (K5q4) / `_q8_i8_argmax_kernel` (K5q8) through
+      `qmatmul_greedy_pallas`: K1 on one row, then the argmax id (first index
+      on ties).
 
-Callers go through ``ops.dispatch``, which picks the tier (config.i8dot(),
-M) and between kernel and plain version by device.
+Each wrapper launches the kernel of its weight's kind and counts the launch
+under `counter(name, w.kind)`. Callers go through ``ops.dispatch``, which
+picks the tier (config.i8dot(), M) and between kernel and plain version by
+device.
 """
 from __future__ import annotations
 
@@ -21,14 +25,21 @@ from zgml_tpu_torch.quant.blocks import QK
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
-q4_matmul_ref = refs.qmatmul_ref
+qmatmul_ref = refs.qmatmul_ref
 
 I8_MAX_ROWS = 32        # K1 serves M <= 32 (zgml_tpu/ops/qmatmul.py:639,728)
+KIND_CODE = {"q4_0": 0, "q8_0": 1}     # the kind argument of the csrc launchers
+
+
+def counter(name: str, kind: str) -> str:
+    """The placement counter of kernel `name` at weight kind `kind`: the
+    Q4_0 kernels count under their plain name, the Q8_0 ones with _q8."""
+    return name if kind == "q4_0" else f"{name}_q8"
 
 
 def _require(cond: bool, msg: str):
     if not cond:
-        raise ValueError(f"q4_matmul: {msg}")
+        raise ValueError(f"qmatmul: {msg}")
 
 
 def _check(x: torch.Tensor, w: PackedWeight):
@@ -42,7 +53,7 @@ def _check(x: torch.Tensor, w: PackedWeight):
              "x and qs must be 16-byte aligned")
 
 
-def q4_matmul_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def qmatmul_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K2: x f32 [..., K] (contiguous, on the card) @ dequant(W).T -> f32 [..., N]."""
     _check(x, w)
     lead = x.shape[:-1]
@@ -50,11 +61,11 @@ def q4_matmul_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     y = torch.empty((*lead, w.n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    status = build.library().zgml_q4_matmul(
-        x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(), m, w.n, w.k,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "q4_matmul")
-    global_profile.count_op("qmatmul", "cuda")
+    status = build.library().zgml_qmatmul(
+        KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(), m,
+        w.n, w.k, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "qmatmul")
+    global_profile.count_op(counter("qmatmul", w.kind), "cuda")
     return y
 
 
@@ -76,24 +87,23 @@ def quantize_act_ref(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.reshape(m, k), s
 
 
-def q4_matmul_i8_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def qmatmul_i8_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K1's plain version: x f32 [..., K] -> f32 [..., N]. The block dots are
     taken in f32 on integers below 2^24, so they are exact, as on the card."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, w.k)
     xq, xs = quantize_act_ref(x2)
     nb = w.k // QK
-    q = w.qs.view(w.n, nb, 16)
-    wv = torch.cat([q & 0x0F, q >> 4], dim=-1).to(torch.float32) - 8.0    # [N, nb, 32]
-    p = torch.einsum("mbj,nbj->mnb", xq.view(-1, nb, QK).to(torch.float32), wv)
+    p = torch.einsum("mbj,nbj->mnb", xq.view(-1, nb, QK).to(torch.float32),
+                     w.levels().to(torch.float32))                          # [M, N, nb]
     y = (p * (xs[:, None, :] * w.d.to(torch.float32)[None])).sum(dim=-1)
     return y.reshape(*lead, w.n)
 
 
-def q4_greedy_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def greedy_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K5's plain version: one row x [..., K] -> int64 [1], the first argmax
-    of q4_matmul_i8_ref(x, w)."""
-    return torch.argmax(q4_matmul_i8_ref(x.reshape(1, w.k), w)[0]).reshape(1)
+    of qmatmul_i8_ref(x, w)."""
+    return torch.argmax(qmatmul_i8_ref(x.reshape(1, w.k), w)[0]).reshape(1)
 
 
 def _i8_scratch(m: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -110,14 +120,14 @@ def quantize_act_cuda(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
              f"x must be a contiguous float32 [M, K % 32 == 0] CUDA tensor, got "
              f"{x2.dtype} {tuple(x2.shape)} on {x2.device}")
     xq, xs = _i8_scratch(*x2.shape, x2.device)
-    status = build.library().zgml_q4_i8_quantize(
+    status = build.library().zgml_i8_quantize(
         x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), x2.shape[0], x2.shape[1],
         torch.cuda.current_stream(x2.device).cuda_stream)
-    build.check(status, "q4_i8_quantize")
+    build.check(status, "i8_quantize")
     return xq, xs
 
 
-def q4_matmul_i8_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def qmatmul_i8_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K1: x f32 [..., K] with at most 32 rows -> f32 [..., N]."""
     _check(x, w)
     lead = x.shape[:-1]
@@ -127,26 +137,27 @@ def q4_matmul_i8_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     if m == 0:
         return y
     xq, xs = _i8_scratch(m, w.k, x.device)
-    status = build.library().zgml_q4_matmul_i8(
-        x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(),
-        y.data_ptr(), m, w.n, w.k, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "q4_matmul_i8")
-    global_profile.count_op("qmatmul_i8", "cuda")
+    status = build.library().zgml_qmatmul_i8(
+        KIND_CODE[w.kind], x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.qs.data_ptr(),
+        w.d.data_ptr(), y.data_ptr(), m, w.n, w.k,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "qmatmul_i8")
+    global_profile.count_op(counter("qmatmul_i8", w.kind), "cuda")
     return y
 
 
-def q4_greedy_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def greedy_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K5: one row x f32 [..., K] -> int64 [1] on the card, equal to
-    argmax(q4_matmul_i8_cuda(x, w)) (same per-row device code)."""
+    argmax(qmatmul_i8_cuda(x, w)) (same per-row device code)."""
     _check(x, w)
     _require(x.numel() == w.k, f"the greedy head takes one row, got {tuple(x.shape)}")
     xq, xs = _i8_scratch(1, w.k, x.device)
     ws = torch.empty(2, dtype=torch.int64, device=x.device)     # zeroed by the pre-pass
     out = torch.empty(1, dtype=torch.int64, device=x.device)
-    status = build.library().zgml_q4_greedy(
-        x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(),
-        ws.data_ptr(), out.data_ptr(), w.n, w.k,
+    status = build.library().zgml_greedy(
+        KIND_CODE[w.kind], x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.qs.data_ptr(),
+        w.d.data_ptr(), ws.data_ptr(), out.data_ptr(), w.n, w.k,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "q4_greedy")
-    global_profile.count_op("qmatmul_greedy", "cuda")
+    build.check(status, "greedy")
+    global_profile.count_op(counter("qmatmul_greedy", w.kind), "cuda")
     return out

@@ -7,7 +7,7 @@ write identical bytes for the same input):
         Byte j holds element j (low nibble) and element j+16 (high nibble);
         value = (nibble - 8) * d, with d = (signed absmax) / -8.
   Q8_0: 32 elements / 34-byte block = [f16 scale d][32 int8], value = q * d,
-        d = absmax / 127. Only the GGUF reader needs it in this port.
+        d = absmax / 127.
 """
 from __future__ import annotations
 

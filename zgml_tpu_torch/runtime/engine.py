@@ -12,7 +12,7 @@ are read. The KV cache is updated in place.
 The tiers match the JAX engine's plans (engine.py:46-91): `step` and sampled
 `decode_n` take the logits through the M = B projection (K1 when the int8
 tier is on), greedy `decode_n` the fused greedy head (K5), and batch-1 decode
-runs the layer kernels (K7, K6d) when ZGML_TPU_ATTN_BLOCK is on.
+runs the layer kernels (K7, K6) when ZGML_TPU_ATTN_BLOCK is on.
 """
 from __future__ import annotations
 

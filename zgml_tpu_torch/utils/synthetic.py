@@ -1,11 +1,11 @@
 """Synthetic llama-architecture GGUF files with real model shapes.
 
 Counterpart of zgml_tpu/utils/synthetic.py (same presets and tensor names).
-Nothing is downloaded: weights are random, from a numpy seed. Q4_0 matmul
-weights are written as random valid blocks directly (nibbles uniform on
-1..15, i.e. levels -7..7, and per-block fp16 scales), which writes the
-TinyLlama-1.1B shape in seconds where quantizing f32 draws would take
-minutes; other types are quantized from f32 normal draws.
+Nothing is downloaded: weights are random, from a numpy seed. Q4_0 and Q8_0
+matmul weights are written as random valid blocks directly (levels uniform
+on -7..7 or -127..127, per-block fp16 scales matched to the std), which
+writes the TinyLlama-1.1B shape in seconds where quantizing f32 draws would
+take minutes; other types are quantized from f32 normal draws.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import numpy as np
 
 from zgml_tpu_torch.io.gguf import GGMLType, GGUFWriter
 from zgml_tpu_torch.models.llama import LlamaConfig
-from zgml_tpu_torch.quant.blocks import QK, Q4_0_BLOCK_BYTES
+from zgml_tpu_torch.quant.blocks import QK, Q4_0_BLOCK_BYTES, Q8_0_BLOCK_BYTES
 
 SMOLLM_135M = LlamaConfig(vocab_size=49152, d_model=576, n_heads=9, n_kv_heads=3,
                           d_ff=1536, n_layers=30, max_seq_len=2048,
@@ -33,6 +33,7 @@ TINY_TEST = LlamaConfig(vocab_size=256, d_model=64, n_heads=4, n_kv_heads=2,
                         d_ff=128, n_layers=2, max_seq_len=64)
 
 _LEVEL_STD = float(np.sqrt(2 * sum(i * i for i in range(1, 8)) / 15))  # std of -7..7
+_Q8_LEVEL_STD = float(np.sqrt(127 * 128 / 3))                          # std of -127..127
 
 
 def random_q4_0_blocks(rng: np.random.Generator, n: int, k: int, std: float) -> np.ndarray:
@@ -45,6 +46,21 @@ def random_q4_0_blocks(rng: np.random.Generator, n: int, k: int, std: float) -> 
     blk[:, :2] = d.view(np.uint8).reshape(nb, 2)
     blk[:, 2:] = nib[:, :16] | (nib[:, 16:] << 4)
     return blk.reshape(-1)
+
+
+def random_q8_0_blocks(rng: np.random.Generator, n: int, k: int, std: float) -> np.ndarray:
+    """Raw Q8_0 bytes of a random [n, k] weight whose values have roughly
+    standard deviation `std`."""
+    nb = n * k // QK
+    q = rng.integers(-127, 128, size=(nb, QK), dtype=np.int8)
+    d = (std / _Q8_LEVEL_STD * rng.uniform(0.5, 1.5, nb)).astype(np.float16)
+    blk = np.empty((nb, Q8_0_BLOCK_BYTES), np.uint8)
+    blk[:, :2] = d.view(np.uint8).reshape(nb, 2)
+    blk[:, 2:] = q.view(np.uint8)
+    return blk.reshape(-1)
+
+
+_RANDOM_BLOCKS = {GGMLType.Q4_0: random_q4_0_blocks, GGMLType.Q8_0: random_q8_0_blocks}
 
 
 def write_synthetic_llama_gguf(path: str, cfg: LlamaConfig,
@@ -74,8 +90,8 @@ def write_synthetic_llama_gguf(path: str, cfg: LlamaConfig,
         return out
 
     def matmul(name, n, k):
-        if quant == GGMLType.Q4_0:
-            w.add_raw_tensor(name, (n, k), GGMLType.Q4_0, random_q4_0_blocks(rng, n, k, scale))
+        if quant in _RANDOM_BLOCKS:
+            w.add_raw_tensor(name, (n, k), quant, _RANDOM_BLOCKS[quant](rng, n, k, scale))
         else:
             w.add_tensor(name, rand(n, k), quant)
 
