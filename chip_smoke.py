@@ -8,41 +8,59 @@ Phases, in order; any failure raises and the script exits non-zero:
      from zgml_tpu_torch/csrc with nvcc (one process per source, in
      parallel), print the build time;
   2. check each kernel against its plain torch version on the card at the
-     TinyLlama-1.1B shapes of the main paths, and time both (device time from
-     torch.profiler), at Q4_0 and at Q8_0 where the kernel takes a weight:
-     K2 at M = 1 and 128 on the five projections; K1 at M = 1, 8, 32 (its
-     quantized activations bit-equal to the plain ones); K5 on lm_head (its
-     id equal to argmax of K1 exactly; its error is how far the plain logit
-     of its id lies below the plain maximum); K6 at M = 1, 8, 32 (K6d at
-     Q4_0, K6a at Q8_0); K7 at pos 0, 1, 200, 2047 of a random stacked cache;
-     K3 and K4. Each case also gets its bound (the least time the card could
-     take: bytes moved, each input read once and each output written once,
-     over 3.35 TB/s, or f32 operations over 67 TFLOP/s, whichever is larger;
-     the __dp4a kernels K1 and K5 take the bytes bound) and, where one
-     PyTorch call computes the same function, that call's device time
-     (library_ms, timed here and used nowhere in the port);
-  3. end to end: synthetic TinyLlama-1.1B GGUFs at Q4_0 and Q8_0 (written to
-     .bench_cache/ once, from seed 0) -> load_llama(device="cuda") ->
-     LlamaEngine(prefill_chunk=128), on three paths, each with the placement
-     counts set to 0 just before it and read just after:
-       default     Q4_0, the JAX package's default flags: 3 greedy requests
-                   (prompts of 7, 128 and 300 tokens, 32 tokens each, reset
-                   between) and 1 sampled request (temperature 0.8, the
-                   engine's seeded generator); K1q4, K2q4, K3, K5q4, K6d and
-                   K7 must launch;
-       unfused     Q4_0, ZGML_TPU_ATTN_BLOCK=0 ZGML_TPU_KERNELS_DISABLE=fused_ffn
-                   ZGML_TPU_I8DOT=0 (the port's first slice): the 3 greedy
-                   requests; K2q4, K3 and K4 must launch;
-       q8_default  Q8_0, the default flags: the 3 greedy and the sampled
-                   request; K1q8, K2q8, K3, K5q8, K6a and K7 (Q8_0) must
-                   launch;
+     shapes of the main paths, and time both (device time from
+     torch.profiler). At the TinyLlama-1.1B shapes, at Q4_0 and at Q8_0
+     where the kernel takes a weight: K2 at M = 1 and 128 on the five
+     projections; K1 at M = 1, 8, 32 (its quantized activations bit-equal to
+     the plain ones); K5 on lm_head (its id equal to argmax of K1 exactly;
+     its error is how far the plain logit of its id lies below the plain
+     maximum); K6 at M = 1, 8, 32 (K6d at Q4_0, K6a at Q8_0); K6b at M = 1,
+     7, 32; K7 at pos 0, 1, 200, 2047 of a random stacked cache; K3 and K4.
+     At the Llama-2-7B shapes: K2q4, K1q4 and K5q4 on its projections; K6c
+     at M = 1, 8 and K6b at M = 1, 7, 32; K7's int8 A phase at pos 0, 1,
+     200, 2047 at Q4_0 and Q8_0; K3 at head_dim 128 with n_rep 1. K6c and
+     K7-i8 quantize a row they norm themselves: the plain version runs on
+     the kernel's own int8 activations, and the levels that differ from the
+     plain pre-pass are counted (at most one level apart). Each case also
+     gets its bound (the least time the card could take: bytes moved, each
+     input read once and each output written once, over 3.35 TB/s, or the
+     operations over the card's peak for their type, f32 at 67 TFLOP/s and
+     int8 at 1979 TOP/s, whichever is larger) and, where one PyTorch call
+     computes the same function, that call's device time (library_ms, timed
+     here and used nowhere in the port);
+  3. end to end: synthetic GGUFs from seed 0 (written to .bench_cache/
+     once), TinyLlama-1.1B at Q4_0 and Q8_0 and Llama-2-7B at Q4_0 (full
+     width and 32 layers, max_seq_len 2048 as bench.py's preset, 4.2 GB) ->
+     load_llama(device="cuda") -> LlamaEngine(prefill_chunk=128), on four
+     paths, each with the placement counts set to 0 just before it and read
+     just after:
+       default     TinyLlama Q4_0, the JAX package's default flags: 3 greedy
+                   requests (prompts of 7, 128 and 300 tokens, 32 tokens
+                   each, reset between) and 1 sampled request (temperature
+                   0.8, the engine's seeded generator, prompt 7 tokens, from
+                   an engine that prefills in 32-token chunks, so its chunk
+                   runs `_layer_step` at <= 32 rows); K1q4, K2q4, K3, K5q4,
+                   K6b, K6d and K7 (f32 A phase) must launch;
+       unfused     TinyLlama Q4_0, ZGML_TPU_ATTN_BLOCK=0
+                   ZGML_TPU_KERNELS_DISABLE=fused_ffn ZGML_TPU_I8DOT=0 (the
+                   port's first slice): the 3 greedy requests; K2q4, K3 and
+                   K4 must launch;
+       q8_default  TinyLlama Q8_0, the default flags: the 3 greedy and the
+                   sampled request; K1q8, K2q8, K3, K5q8, K6a and K7 (Q8_0)
+                   must launch;
+       llama2_7b   Llama-2-7B Q4_0, the default flags (its padded width 4096
+                   turns the int8 decode tier on): the 3 greedy and the
+                   sampled request; K1q4, K2q4, K3, K5q4, K6b, K6c and K7
+                   (int8 A phase) must launch, and no f32-mode K7, K6d or K4;
      no other kernel and no plain-tier call may run on a path; on each path
      the first request is compared with the same engine under force_ref()
-     (the same path with every kernel swapped for its plain version);
+     (the same path with every kernel swapped for its plain version): the
+     prefill logits, one decode step from a shared cache, and the greedy
+     tokens;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
-     turns (rounds of default, unfused, q8_default, q8_default, unfused,
-     default; median per path), and per path a torch.profiler breakdown of
-     one prefill chunk and 8 decode steps;
+     turns (rounds of the paths there and back; median per path), and per
+     path a torch.profiler breakdown of one prefill chunk and 8 decode
+     steps;
   5. print the kernels' JSON line, then the device JSON line last.
 Details also go to chiprun_out/chip_smoke/ (summary JSON, profiler tables).
 There is no CPU path: without a CUDA device it exits 2.
@@ -75,6 +93,12 @@ GEMM_SHAPES = [("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w_gate_up", 11264, 20
                ("w_down", 2048, 5632), ("lm_head", 32000, 2048)]
 L, HQ, HKV, D, S = 22, 32, 4, 64, 2048
 FFN_D, FFN_F = 2048, 5632
+# the same at Llama-2-7B (MHA, head_dim 128); its checks of K7 and K3 read a
+# stacked cache of 4 layers
+GEMM_SHAPES_7B = [("wqkv", 12288, 4096), ("wo", 4096, 4096), ("w_gate_up", 22016, 4096),
+                  ("w_down", 4096, 11008), ("lm_head", 32000, 4096)]
+L_7B, HQ_7B, HKV_7B, D_7B = 4, 32, 32, 128
+FFN_D_7B, FFN_F_7B = 4096, 11008
 # (q_offset, kv_len) of the flash checks: first chunk, second chunk, a
 # kv_len that ends inside the chunk; and decode kv_len values
 FLASH_CASES = [(0, 128), (128, 256), (128, 200)]
@@ -83,27 +107,47 @@ LOGIT_RTOL = 1e-3          # K2 and K3 run f32 operands
 I8_ROWS = (1, 8, 32)       # K1 cases: decode, a small batch, the largest int8 call
 ATTN_POS = (0, 1, 200, 2047)
 FFN_ROWS = (1, 8, 32)      # K6: decode, and calls of <= 32 rows outside it
+FFN_I8_ROWS = (1, 8)       # K6c: decode, and a small batch
+PLANAR_ROWS = (1, 7, 32)   # K6b: a 1-token chunk, the smoke's 7-token prompt, a full chunk
+SAMPLED_CHUNK = 32         # prefill chunk of the sampled request's engine
 GREEDY_TRIALS = 8
 RATE_ROUNDS = 5            # phase 4: rounds of the paths in turns, there and back
 ATTN_LAYER = 3             # K7 reads and writes a layer slab other than the first
 REL_BOUND = 1e-5           # K1, K6, K7 vs plain: f32 sums in another order
+# end to end, a decode step from a shared cache and the greedy-token check's
+# gap: the int8 tier (K1's step logits; K6c and K7-i8 on Llama-2-7B, whose
+# kernels norm and quantize 64 rows per token summing in another order than
+# torch) turns summation-order noise into rounding flips (PERF.md), as the
+# bf16 cache does at prefill. The prefill logits are held to
+# LOGIT_RTOL * max|logit| and the step to STEP_RTOL * max|logit|, or each to
+# SENS_MARGIN times what the plain path itself moves when the embedding rows
+# of its tokens are perturbed by SENS_EPS (relative), the larger, over
+# SENS_DRAWS draws: a difference within that is one any two faithful
+# implementations can show.
+STEP_RTOL = 1e-2
+SENS_EPS, SENS_DRAWS, SENS_MARGIN = 1e-7, 4, 2.0
 PROFILE_TRIES = 3
 KINDS = ("q4_0", "q8_0")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+I8_OP_PER_S = 1979e12
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
 PATHS = {"default": {},
          "unfused": {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
                      "ZGML_TPU_I8DOT": "0"},
-         "q8_default": {}}
-PATH_KIND = {"default": "q4_0", "unfused": "q4_0", "q8_default": "q8_0"}
-PATH_SAMPLED = ("default", "q8_default")      # paths that also answer the sampled request
+         "q8_default": {},
+         "llama2_7b": {}}
+PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
+              "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0")}
+PATH_SAMPLED = ("default", "q8_default", "llama2_7b")   # paths that also answer the sampled request
 PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                            "fused_ffn_norm", "attn_block"),
+                            "fused_ffn_norm", "fused_ffn", "attn_block"),
                 "unfused": ("q4_matmul", "flash_attention", "decode_attention"),
                 "q8_default": ("q8_matmul_i8", "q8_matmul", "flash_attention", "q8_greedy",
-                               "fused_ffn_norm_q8", "attn_block_q8")}
+                               "fused_ffn_norm_q8", "attn_block_q8"),
+                "llama2_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
+                              "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8")}
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -121,13 +165,20 @@ KERNELS = {
     "fused_ffn_norm_q8": ("fused_ffn_norm_q8", _CSRC + "ffn.cu", "zgml_tpu/ops/ffn.py:100"),
     "attn_block_q8": ("attn_block_q8", _CSRC + "layer_attn.cu",
                       "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8": ("attn_block_i8", _CSRC + "layer_attn.cu",
+                      "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_q8": ("attn_block_i8_q8", _CSRC + "layer_attn.cu",
+                         "zgml_tpu/ops/layerkernel.py:685"),
+    "fused_ffn_norm_i8": ("fused_ffn_norm_i8", _CSRC + "ffn.cu", "zgml_tpu/ops/ffn.py:416"),
+    "fused_ffn": ("fused_ffn", _CSRC + "ffn_planar.cu", "zgml_tpu/ops/ffn.py:224"),
 }
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
         ("greedy", "q4_0"): "q4_greedy", ("greedy", "q8_0"): "q8_greedy",
         ("ffn", "q4_0"): "fused_ffn_norm", ("ffn", "q8_0"): "fused_ffn_norm_q8",
-        ("attn", "q4_0"): "attn_block", ("attn", "q8_0"): "attn_block_q8"}
+        ("attn", "q4_0"): "attn_block", ("attn", "q8_0"): "attn_block_q8",
+        ("attn_i8", "q4_0"): "attn_block_i8", ("attn_i8", "q8_0"): "attn_block_i8_q8"}
 # why a kernel has no library_ms
 NO_LIBRARY = {
     "q8": "none: no PyTorch call computes a 32-block Q8_0 product (torch._weight_int8pack_mm "
@@ -135,6 +186,7 @@ NO_LIBRARY = {
     "greedy": "none: no single PyTorch call computes the quantized GEMV and its argmax",
     "ffn": "none: no single PyTorch call computes rmsnorm + quantized gate|up + SwiGLU + down "
            "+ residual",
+    "planar": "none: no single PyTorch call computes quantized gate|up + SwiGLU + down",
     "attn": "none: no single PyTorch call computes the fused attention half-layer "
             "(rmsnorm, quantized QKV, RoPE, attention, wo, residual, cache write)",
 }
@@ -195,10 +247,11 @@ def require(cond: bool, msg: str):
         raise RuntimeError(msg)
 
 
-def bound_of(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_of(nbytes: float, flops: float, i8ops: float = 0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take to
-    move `nbytes` and do `flops` f32 operations."""
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    move `nbytes` and do `flops` f32 and `i8ops` int8 operations."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = (flops / F32_FLOP_PER_S + i8ops / I8_OP_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -210,26 +263,29 @@ def check_kernels(torch, dev):
     from zgml_tpu_torch.ops import refs
     from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_ref,
                                               flash_attention_cuda, flash_attention_ref)
-    from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda, fused_ffn_norm_ref
+    from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda,
+                                        fused_ffn_norm_ref, fused_ffn_ref)
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref
     from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, greedy_ref, qmatmul_cuda,
                                             qmatmul_i8_cuda, qmatmul_i8_ref, qmatmul_ref,
-                                            quantize_act_cuda, quantize_act_ref)
+                                            quantize_act_cuda, quantize_act_ref,
+                                            rmsnorm_quantize_ref)
     from zgml_tpu_torch.quant.packed import PackedWeight
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     results = {name: [] for name in KERNELS}
 
-    def record(kernel, case, err, bound, t, tp, nbytes, flops, lib=None, lib_note=None):
+    def record(kernel, case, err, bound, t, tp, nbytes, flops, lib=None, lib_note=None,
+               i8ops=0, **extra):
         """One case: error, device times, the bound from this case's bytes
-        and operations (flops 0: the bytes bound alone), and the library
-        call's time or why there is none."""
-        b_ms, b_by = bound_of(nbytes, flops)
+        and operations (flops and i8ops 0: the bytes bound alone), and the
+        library call's time or why there is none."""
+        b_ms, b_by = bound_of(nbytes, flops, i8ops)
         lib_ms = None if lib is None else lib[0]
         results[kernel].append(dict(case=case, err=err, bound=bound, ms=t[0], call_ms=t[1],
                                     plain_ms=tp[0], plain_call_ms=tp[1], bytes=nbytes,
-                                    flops=flops, bound_ms=b_ms, bound_by=b_by,
-                                    library_ms=lib_ms, library_note=lib_note))
+                                    flops=flops, i8ops=i8ops, bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib_ms, library_note=lib_note, **extra))
         lib_txt = (f"library {lib_ms * 1e3:.1f}" if lib_ms is not None
                    else f"library {lib_note.split(':')[0]}")
         log(f"  {kernel} {case}: max_abs_err {err:.3g} (bound {bound:.3g}); device us "
@@ -260,6 +316,15 @@ def check_kernels(torch, dev):
         err = float((got - want).abs().max())
         bound = REL_BOUND * float(want.abs().max())
         return err, bound
+
+    def own_levels(act, x, gamma):
+        """How many of a kernel's int8 activations differ from the plain
+        pre-pass of the same rows (the two norms sum in another order); no
+        level may be more than one apart."""
+        rq, _ = rmsnorm_quantize_ref(x, gamma, 1e-5)
+        diff = (act[0].reshape(rq.shape).to(torch.int16) - rq.to(torch.int16)).abs()
+        require(int(diff.max()) <= 1, f"int8 activations {int(diff.max())} levels from plain")
+        return int((diff > 0).sum()), diff.numel()
 
     def int4pack(copies):
         """The Q4_0 weights as torch._weight_int4pack_mm operands (tinygemm:
@@ -295,85 +360,187 @@ def check_kernels(torch, dev):
         return t, (f"torch._weight_int4pack_mm, bf16 activations and scales (rel err "
                    f"{err:.2g} vs the f32 plain output)")
 
-    for kind in KINDS:
-        for name, n, k in GEMM_SHAPES:
-            copies = weights(kind, n, k)
-            w = copies[0]
-            wbytes = nbytes_of(w.qs, w.d)
-            packs, refusal = int4pack(copies) if kind == "q4_0" else (None, None)
-            for m in (1, 128):
-                x = torch.randn((m, k), device=dev, generator=g)
-                got, want = qmatmul_cuda(x, w), qmatmul_ref(x, w)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                bound = 1e-4 * k ** 0.5 + 1e-5 * float(want.abs().max())
-                kname = NAME["matmul", kind]
-                require(bool(torch.isfinite(got).all()) and err <= bound,
-                        f"{kname} {name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
-                t = time_ms(torch, [lambda w_=c: qmatmul_cuda(x, w_) for c in copies], 50)
-                tp = time_ms(torch, [lambda w_=c: qmatmul_ref(x, w_) for c in copies], 20)
-                lib, note = None, NO_LIBRARY["q8"] if kind == "q8_0" else refusal
-                if packs is not None:
-                    lib, note = time_int4(packs, x, want)
-                record(kname, f"{name} M={m} N={n} K={k}", err, bound, t, tp,
-                       m * k * 4 + wbytes + m * n * 4, 2 * m * n * k, lib, note)
-            for m in I8_ROWS:
-                x = torch.randn((m, k), device=dev, generator=g)
-                xq, xs = quantize_act_cuda(x)
-                rq, rs = quantize_act_ref(x)
-                got, want = qmatmul_i8_cuda(x, w), qmatmul_i8_ref(x, w)
-                torch.cuda.synchronize()
-                kname = NAME["i8", kind]
-                require(torch.equal(xq, rq)
-                        and torch.equal(xs.view(torch.int32), rs.view(torch.int32)),
-                        f"{kname} {name} M={m}: quantized activations differ from plain")
-                err, bound = rel_err(got, want)
-                require(bool(torch.isfinite(got).all()) and err <= bound,
-                        f"{kname} {name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
-                t = time_ms(torch, [lambda w_=c: qmatmul_i8_cuda(x, w_) for c in copies], 50)
-                tp = time_ms(torch, [lambda w_=c: qmatmul_i8_ref(x, w_) for c in copies], 10)
-                lib, note = None, NO_LIBRARY["q8"] if kind == "q8_0" else refusal
-                if packs is not None:
-                    lib, note = time_int4(packs, x, qmatmul_ref(x, w))
-                record(kname, f"{name} M={m} N={n} K={k}", err, bound, t, tp,
-                       m * k * 4 + wbytes + m * n * 4, 0, lib, note)
-            if name == "lm_head":
-                check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
-                             qmatmul_i8_cuda, qmatmul_i8_ref)
-            del copies, w, packs
+    def check_projection(kind, name, n, k, model):
+        """K2 at M = 1 and 128, K1 at I8_ROWS and, on lm_head, K5."""
+        copies = weights(kind, n, k)
+        w = copies[0]
+        wbytes = nbytes_of(w.qs, w.d)
+        packs, refusal = int4pack(copies) if kind == "q4_0" else (None, None)
+        for m in (1, 128):
+            x = torch.randn((m, k), device=dev, generator=g)
+            got, want = qmatmul_cuda(x, w), qmatmul_ref(x, w)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bound = 1e-4 * k ** 0.5 + 1e-5 * float(want.abs().max())
+            kname = NAME["matmul", kind]
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"{kname} {model}{name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            t = time_ms(torch, [lambda w_=c: qmatmul_cuda(x, w_) for c in copies], 50)
+            tp = time_ms(torch, [lambda w_=c: qmatmul_ref(x, w_) for c in copies], 20)
+            lib, note = None, NO_LIBRARY["q8"] if kind == "q8_0" else refusal
+            if packs is not None:
+                lib, note = time_int4(packs, x, want)
+            record(kname, f"{model}{name} M={m} N={n} K={k}", err, bound, t, tp,
+                   m * k * 4 + wbytes + m * n * 4, 2 * m * n * k, lib, note)
+        for m in I8_ROWS:
+            x = torch.randn((m, k), device=dev, generator=g)
+            xq, xs = quantize_act_cuda(x)
+            rq, rs = quantize_act_ref(x)
+            got, want = qmatmul_i8_cuda(x, w), qmatmul_i8_ref(x, w)
+            torch.cuda.synchronize()
+            kname = NAME["i8", kind]
+            require(torch.equal(xq, rq)
+                    and torch.equal(xs.view(torch.int32), rs.view(torch.int32)),
+                    f"{kname} {model}{name} M={m}: quantized activations differ from plain")
+            err, bound = rel_err(got, want)
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"{kname} {model}{name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            t = time_ms(torch, [lambda w_=c: qmatmul_i8_cuda(x, w_) for c in copies], 50)
+            tp = time_ms(torch, [lambda w_=c: qmatmul_i8_ref(x, w_) for c in copies], 10)
+            lib, note = None, NO_LIBRARY["q8"] if kind == "q8_0" else refusal
+            if packs is not None:
+                lib, note = time_int4(packs, x, qmatmul_ref(x, w))
+            record(kname, f"{model}{name} M={m} N={n} K={k}", err, bound, t, tp,
+                   m * k * 4 + wbytes + m * n * 4, 0, lib, note, i8ops=2 * m * n * k)
+        if name == "lm_head":
+            check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
+                         qmatmul_i8_cuda, qmatmul_i8_ref, model)
 
-        # K6 at the FFN shapes: M = 1 (decode) and the larger calls of <= 32 rows
-        d, f = FFN_D, FFN_F
+    def ffn_weights(kind, d, f):
         gus, wds = weights(kind, 2 * f, d, 96_000_000), weights(kind, d, f, 48_000_000)
-        pairs = list(zip(gus, wds))
+        return list(zip(gus, wds)), nbytes_of(gus[0].qs, gus[0].d, wds[0].qs, wds[0].d)
+
+    def check_ffn(kind, d, f, model, a_i8):
+        """K6d / K6a (a_i8 False) or K6c at the FFN shape: M = 1 (decode) and
+        the larger calls of <= 32 rows."""
+        pairs, wbytes = ffn_weights(kind, d, f)
         gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
-        kname = NAME["ffn", kind]
-        for m in FFN_ROWS:
+        kname = "fused_ffn_norm_i8" if a_i8 else NAME["ffn", kind]
+        for m in FFN_I8_ROWS if a_i8 else FFN_ROWS:
             x = torch.randn((1, m, d), device=dev, generator=g)
-            got = fused_ffn_norm_cuda(x, gamma, gus[0], wds[0], 1e-5)
-            want = fused_ffn_norm_ref(x, gamma, gus[0], wds[0], 1e-5)
+            act = ((torch.empty((m, d), dtype=torch.int8, device=dev),
+                    torch.empty((m, d // 32), device=dev)) if a_i8 else None)
+            got = fused_ffn_norm_cuda(x, gamma, *pairs[0], 1e-5, a_i8, act)
+            want = fused_ffn_norm_ref(x, gamma, *pairs[0], 1e-5, a_i8, act)
             torch.cuda.synchronize()
             err, bound = rel_err(got, want)
             require(bool(torch.isfinite(got).all()) and err <= bound,
-                    f"{kname} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
-            t = time_ms(torch, [lambda p_=pr: fused_ffn_norm_cuda(x, gamma, p_[0], p_[1], 1e-5)
+                    f"{kname} {model}M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            case, extra = f"{model}M={m} D={d} F={f}", {}
+            if a_i8:
+                n_diff, n_all = own_levels(act, x, gamma)
+                case += f", on the kernel's int8 activations ({n_diff} of {n_all} levels " \
+                        f"one off the plain pre-pass)"
+                extra = dict(levels_off=n_diff, levels=n_all)
+            t = time_ms(torch, [lambda p_=pr: fused_ffn_norm_cuda(x, gamma, *p_, 1e-5, a_i8)
                                 for pr in pairs], 50 if m == 1 else 10)
-            tp = time_ms(torch, [lambda p_=pr: fused_ffn_norm_ref(x, gamma, p_[0], p_[1], 1e-5)
+            tp = time_ms(torch, [lambda p_=pr: fused_ffn_norm_ref(x, gamma, *p_, 1e-5, a_i8)
                                  for pr in pairs], 20 if m == 1 else 10)
-            record(kname, f"M={m} D={d} F={f}", err, bound, t, tp,
-                   2 * m * d * 4 + d * 4 + nbytes_of(gus[0].qs, gus[0].d, wds[0].qs, wds[0].d),
-                   2 * m * 3 * d * f, None, NO_LIBRARY["ffn"])
-        del gus, wds, pairs
-        check_attn_block(torch, dev, g, kind, weights, rel_err, record, refs, attn_block_cuda,
-                         attn_block_ref)
+            ops = 2 * m * 3 * d * f
+            record(kname, case, err, bound, t, tp, 2 * m * d * 4 + d * 4 + wbytes,
+                   ops // 3 if a_i8 else ops, None, NO_LIBRARY["ffn"],
+                   i8ops=2 * ops // 3 if a_i8 else 0, **extra)
 
+    def check_planar(d, f, model):
+        """K6b on normed rows: a 1-token chunk, the smoke's 7-token prompt in
+        a <= 32-row chunk, a full 32-row chunk."""
+        pairs, wbytes = ffn_weights("q4_0", d, f)
+        for m in PLANAR_ROWS:
+            h = torch.randn((1, m, d), device=dev, generator=g)
+            got, want = fused_ffn_cuda(h, *pairs[0]), fused_ffn_ref(h, *pairs[0])
+            torch.cuda.synchronize()
+            err, bound = rel_err(got, want)
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"fused_ffn {model}M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            t = time_ms(torch, [lambda p_=pr: fused_ffn_cuda(h, *p_) for pr in pairs],
+                        50 if m == 1 else 10)
+            tp = time_ms(torch, [lambda p_=pr: fused_ffn_ref(h, *p_) for pr in pairs], 10)
+            record("fused_ffn", f"{model}M={m} D={d} F={f}", err, bound, t, tp,
+                   2 * m * d * 4 + wbytes, 6 * m * d * f, None, NO_LIBRARY["planar"])
+
+    def check_attn_block(kind, shape, model, a_i8):
+        """K7 over a random stacked cache, layer ATTN_LAYER; with a_i8 its
+        int8 A phase, held to the plain version on the kernel's own int8
+        activations."""
+        n_layers, hq, hkv, hd = shape
+        kc = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        vc = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        d, nq, nkv = hq * hd, hq * hd, hkv * hd
+        nqkv = nq + 2 * nkv
+        wqkvs, wos = weights(kind, nqkv, d, 64_000_000), weights(kind, d, nq, 64_000_000)
+        layers = list(zip(wqkvs, wos))
+        wbytes = nbytes_of(wqkvs[0].qs, wqkvs[0].d, wos[0].qs, wos[0].d)
+        gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        kname = NAME["attn_i8" if a_i8 else "attn", kind]
+        for pos in ATTN_POS:
+            x = torch.randn((1, 1, d), device=dev, generator=g)
+            cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
+            pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+            kr, vr = kc.clone(), vc.clone()
+            act = ((torch.empty(d, dtype=torch.int8, device=dev),
+                    torch.empty(d // 32, device=dev)) if a_i8 else None)
+            got = attn_block_cuda(x, gamma, *layers[0], kc, vc, ATTN_LAYER, pos_t, cos, sin,
+                                  hq, hkv, 1e-5, a_i8, act)
+            want = attn_block_ref(x, gamma, *layers[0], kr, vr, ATTN_LAYER, pos, cos, sin,
+                                  hq, hkv, 1e-5, a_i8, act)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            require(all(bool(torch.isfinite(a).all()) for a in got)
+                    and all(e <= b for e, b in errs),
+                    f"{kname} {model}pos={pos}: (max_abs_err, bound) of x_out, k_cur, v_cur "
+                    f"{errs}")
+            rows = torch.arange(S, device=dev) != pos
+            require(torch.equal(kc[ATTN_LAYER, 0, :, pos], got[1][0, :, 0].to(torch.bfloat16))
+                    and torch.equal(vc[ATTN_LAYER, 0, :, pos], got[2][0, :, 0].to(torch.bfloat16))
+                    and torch.equal(kc[..., rows, :], kr[..., rows, :])
+                    and torch.equal(vc[..., rows, :], vr[..., rows, :]),
+                    f"{kname} {model}pos={pos}: cache row pos is not bf16(k_cur, v_cur), or "
+                    f"another row changed")
+            case, extra = f"{model}pos={pos} layer={ATTN_LAYER} (x_out, k_cur, v_cur)", {}
+            if a_i8:
+                n_diff, n_all = own_levels(act, x, gamma)
+                case += f", on the kernel's int8 activations ({n_diff} of {n_all} levels " \
+                        f"one off the plain pre-pass)"
+                extra = dict(levels_off=n_diff, levels=n_all)
+            t = time_ms(torch, [lambda l_=ly: attn_block_cuda(x, gamma, *l_, kc, vc, ATTN_LAYER,
+                                                              pos_t, cos, sin, hq, hkv, 1e-5,
+                                                              a_i8) for ly in layers], 50)
+            tp = time_ms(torch, [lambda l_=ly: attn_block_ref(x, gamma, *l_, kc, vc, ATTN_LAYER,
+                                                              pos, cos, sin, hq, hkv, 1e-5,
+                                                              a_i8) for ly in layers], 20)
+            worst = max(errs, key=lambda eb: eb[0] / eb[1])
+            # x, gamma, the weights, cos/sin and the pos cache rows in; x_out,
+            # k_cur/v_cur and the new bf16 cache row out
+            nbytes = (2 * d * 4 + wbytes + hd * 4 + 2 * pos * nkv * 2
+                      + d * 4 + 2 * nkv * 4 + 2 * nkv * 2)
+            qkv_ops = 2 * d * nqkv
+            flops = (0 if a_i8 else qkv_ops) + 2 * nq * d + 4 * hq * (pos + 1) * hd
+            record(kname, case, worst[0], worst[1], t, tp, nbytes, flops, None,
+                   NO_LIBRARY["attn"], i8ops=qkv_ops if a_i8 else 0, **extra)
+
+    log("  -- TinyLlama-1.1B shapes")
+    for kind in KINDS:
+        for name, n, k in GEMM_SHAPES:
+            check_projection(kind, name, n, k, "")
+        check_ffn(kind, FFN_D, FFN_F, "", a_i8=False)
+        check_attn_block(kind, (L, HQ, HKV, D), "", a_i8=False)
+    check_planar(FFN_D, FFN_F, "")
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
-                    decode_attention_cuda, decode_attention_ref)
+                    decode_attention_cuda, decode_attention_ref, (L, HQ, HKV, D), "")
+    log("  -- Llama-2-7B shapes")
+    for name, n, k in GEMM_SHAPES_7B:
+        check_projection("q4_0", name, n, k, "7B ")
+    check_ffn("q4_0", FFN_D_7B, FFN_F_7B, "7B ", a_i8=True)
+    check_planar(FFN_D_7B, FFN_F_7B, "7B ")
+    for kind in KINDS:
+        check_attn_block(kind, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ", a_i8=True)
+    check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
+                    None, None, (L_7B, HQ_7B, HKV_7B, D_7B), "7B hd=128 n_rep=1 ")
     return results
 
 
 def check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
-                 qmatmul_i8_cuda, qmatmul_i8_ref):
+                 qmatmul_i8_cuda, qmatmul_i8_ref, model):
     """K5 on lm_head. It returns an id, so its error is measured in logits:
     how far the plain logit of the kernel's id lies below the plain maximum."""
     w = copies[0]
@@ -401,80 +568,32 @@ def check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
     err, bound = max(lost, key=lambda eb: eb[0] / eb[1])
     t = time_ms(torch, [lambda w_=c: greedy_cuda(x, w_) for c in copies], 50)
     tp = time_ms(torch, [lambda w_=c: greedy_ref(x, w_) for c in copies], 10)
-    record(kname, f"lm_head N={w.n} K={w.k}, {GREEDY_TRIALS} rows: ids != argmax(K1) "
+    record(kname, f"{model}lm_head N={w.n} K={w.k}, {GREEDY_TRIALS} rows: ids != argmax(K1) "
            f"{off_k1}/{GREEDY_TRIALS}, != plain id {off_plain}/{compared} (rows whose "
            f"plain top-2 gap exceeds the bound); error = max(plain) - plain[id]",
            err, bound, t, tp, w.k * 4 + nbytes_of(w.qs, w.d) + 8, 0, None,
-           NO_LIBRARY["greedy"])
-
-
-def check_attn_block(torch, dev, g, kind, weights, rel_err, record, refs, attn_block_cuda,
-                     attn_block_ref):
-    """K7 over a random stacked cache, layer ATTN_LAYER."""
-    kc = torch.randn((L, 1, HKV, S, D), device=dev, generator=g).to(torch.bfloat16)
-    vc = torch.randn((L, 1, HKV, S, D), device=dev, generator=g).to(torch.bfloat16)
-    d, nq, nkv = HQ * D, HQ * D, HKV * D
-    nqkv = nq + 2 * nkv
-    wqkvs, wos = weights(kind, nqkv, d, 64_000_000), weights(kind, d, nq, 64_000_000)
-    layers = list(zip(wqkvs, wos))
-    wbytes = nbytes_of(wqkvs[0].qs, wqkvs[0].d, wos[0].qs, wos[0].d)
-    gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
-    kname = NAME["attn", kind]
-    for pos in ATTN_POS:
-        x = torch.randn((1, 1, d), device=dev, generator=g)
-        cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), D)
-        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
-        kr, vr = kc.clone(), vc.clone()
-        got = attn_block_cuda(x, gamma, wqkvs[0], wos[0], kc, vc, ATTN_LAYER, pos_t, cos, sin,
-                              HQ, HKV, 1e-5)
-        want = attn_block_ref(x, gamma, wqkvs[0], wos[0], kr, vr, ATTN_LAYER, pos, cos, sin,
-                              HQ, HKV, 1e-5)
-        torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(got, want)]
-        require(all(bool(torch.isfinite(a).all()) for a in got)
-                and all(e <= b for e, b in errs),
-                f"{kname} pos={pos}: (max_abs_err, bound) of x_out, k_cur, v_cur {errs}")
-        rows = torch.arange(S, device=dev) != pos
-        require(torch.equal(kc[ATTN_LAYER, 0, :, pos], got[1][0, :, 0].to(torch.bfloat16))
-                and torch.equal(vc[ATTN_LAYER, 0, :, pos], got[2][0, :, 0].to(torch.bfloat16))
-                and torch.equal(kc[..., rows, :], kr[..., rows, :])
-                and torch.equal(vc[..., rows, :], vr[..., rows, :]),
-                f"{kname} pos={pos}: cache row pos is not bf16(k_cur, v_cur), or another "
-                f"row changed")
-        t = time_ms(torch, [lambda l_=ly: attn_block_cuda(x, gamma, l_[0], l_[1], kc, vc,
-                                                          ATTN_LAYER, pos_t, cos, sin, HQ,
-                                                          HKV, 1e-5) for ly in layers], 50)
-        tp = time_ms(torch, [lambda l_=ly: attn_block_ref(x, gamma, l_[0], l_[1], kc, vc,
-                                                          ATTN_LAYER, pos, cos, sin, HQ,
-                                                          HKV, 1e-5) for ly in layers], 20)
-        worst = max(errs, key=lambda eb: eb[0] / eb[1])
-        # x, gamma, the weights, cos/sin and the pos cache rows in; x_out,
-        # k_cur/v_cur and the new bf16 cache row out
-        nbytes = (2 * d * 4 + wbytes + D * 4 + 2 * pos * nkv * 2
-                  + d * 4 + 2 * nkv * 4 + 2 * nkv * 2)
-        flops = 2 * d * nqkv + 2 * nq * d + 4 * HQ * (pos + 1) * D
-        record(kname, f"pos={pos} layer={ATTN_LAYER} (x_out, k_cur, v_cur)",
-               worst[0], worst[1], t, tp, nbytes, flops, None, NO_LIBRARY["attn"])
-    del wqkvs, wos, layers
+           NO_LIBRARY["greedy"], i8ops=2 * w.n * w.k)
 
 
 def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
-                    decode_attention_cuda, decode_attention_ref):
-    """K3 and K4 over a random stacked cache; the library call is
-    scaled_dot_product_attention with enable_gqa over the same cache rows,
-    cast to f32 outside the timed window."""
+                    decode_attention_cuda, decode_attention_ref, shape, model):
+    """K3 (and K4, where its wrappers are given) over a random stacked cache;
+    the library call is scaled_dot_product_attention with enable_gqa over the
+    same cache rows, cast to f32 outside the timed window."""
+    n_layers, hq, hkv, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    kc = torch.randn((L, HKV, S, D), device=dev, generator=g).to(torch.bfloat16)
-    vc = torch.randn((L, HKV, S, D), device=dev, generator=g).to(torch.bfloat16)
+    kc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+    vc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
     for q_off, kv_len in FLASH_CASES:
-        q = torch.randn((1, HQ, 128, D), device=dev, generator=g)
-        row = (q_off // 128) % L
+        q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
+        row = (q_off // 128) % n_layers
         got = flash_attention_cuda(q, kc, vc, kv_len, q_off, row)
         want = flash_attention_ref(q, kc, vc, kv_len, q_off, row)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         require(bool(torch.isfinite(got).all()) and err <= 1e-5,
-                f"flash_attention q_offset={q_off} kv_len={kv_len}: max_abs_err {err:.3g}")
+                f"flash_attention {model}q_offset={q_off} kv_len={kv_len}: max_abs_err "
+                f"{err:.3g}")
         t = time_ms(torch, [lambda: flash_attention_cuda(q, kc, vc, kv_len, q_off, row)], 50)
         tp = time_ms(torch, [lambda: flash_attention_ref(q, kc, vc, kv_len, q_off, row)], 20)
         kf = kc[row:row + 1, :, :kv_len].float()
@@ -484,15 +603,16 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
         lib_err = float((sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True) - want).abs().max())
         lib = time_ms(torch, [lambda: sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True)], 50)
         live = int(mask.sum())                         # (query, key) pairs attended
-        record("flash_attention", f"Tq=128 q_offset={q_off} kv_len={kv_len}", err, 1e-5, t, tp,
-               2 * q.numel() * 4 + 2 * kv_len * HKV * D * 2, 4 * HQ * live * D, lib,
+        record("flash_attention", f"{model}Tq=128 q_offset={q_off} kv_len={kv_len}", err, 1e-5,
+               t, tp, 2 * q.numel() * 4 + 2 * kv_len * hkv * hd * 2, 4 * hq * live * hd, lib,
                f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), f32 "
                f"(max abs err {lib_err:.2g})")
-
+    if decode_attention_cuda is None:
+        return
     for kv_len in DECODE_LENS:
-        q = torch.randn((1, HQ, 1, D), device=dev, generator=g)
+        q = torch.randn((1, hq, 1, hd), device=dev, generator=g)
         lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-        row = kv_len % L
+        row = kv_len % n_layers
         got = decode_attention_cuda(q, kc, vc, lens, row)
         want = decode_attention_ref(q, kc, vc, lens, row)
         torch.cuda.synchronize()
@@ -505,23 +625,35 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
         vf = vc[row:row + 1, :, :kv_len].float()
         lib_err = float((sdpa(q, kf, vf, enable_gqa=True) - want).abs().max())
         lib = time_ms(torch, [lambda: sdpa(q, kf, vf, enable_gqa=True)], 100)
-        record("decode_attention", f"kv_len={kv_len}", err, 1e-5, t, tp,
-               2 * q.numel() * 4 + 2 * kv_len * HKV * D * 2, 4 * HQ * kv_len * D, lib,
+        record("decode_attention", f"{model}kv_len={kv_len}", err, 1e-5, t, tp,
+               2 * q.numel() * 4 + 2 * kv_len * hkv * hd * 2, 4 * hq * kv_len * hd, lib,
                f"scaled_dot_product_attention(enable_gqa=True), one query, f32 "
                f"(max abs err {lib_err:.2g})")
 
 
-def model_path(kind: str) -> pathlib.Path:
+def preset(name: str):
+    """The model of a path: bench.py's presets, at its max_seq_len 2048."""
+    import dataclasses
+
+    from zgml_tpu_torch.utils.synthetic import LLAMA2_7B, TINYLLAMA_1_1B
+    cfg = {"tinyllama-1.1b": TINYLLAMA_1_1B, "llama2-7b": LLAMA2_7B}[name]
+    return dataclasses.replace(cfg, max_seq_len=2048)
+
+
+def model_path(name: str, kind: str) -> pathlib.Path:
+    import shutil
+
     from zgml_tpu_torch.io.gguf import GGMLType
-    from zgml_tpu_torch.utils.synthetic import TINYLLAMA_1_1B, write_synthetic_llama_gguf
-    path = ROOT / ".bench_cache" / f"tinyllama-1.1b-{kind}-seed{SEED}-std{WEIGHT_STD}.gguf"
+    from zgml_tpu_torch.utils.synthetic import write_synthetic_llama_gguf
+    path = ROOT / ".bench_cache" / f"{name}-{kind}-seed{SEED}-std{WEIGHT_STD}.gguf"
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
+        free = shutil.disk_usage(path.parent).free
         t0 = time.perf_counter()
-        write_synthetic_llama_gguf(str(path), TINYLLAMA_1_1B, quant=GGMLType[kind.upper()],
+        write_synthetic_llama_gguf(str(path), preset(name), quant=GGMLType[kind.upper()],
                                    seed=SEED, scale=WEIGHT_STD)
         log(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB) in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s ({free / 1e9:.1f} GB free before)")
     else:
         log(f"  reusing {path.name}")
     return path
@@ -541,9 +673,9 @@ def set_path(name: str):
     os.environ.update(PATHS[name])
 
 
-def load_model(torch, dev, kind: str):
+def load_model(torch, dev, name: str, kind: str):
     from zgml_tpu_torch.io.llama_loader import load_llama
-    path = model_path(kind)
+    path = model_path(name, kind)
     t0 = time.perf_counter()
     model, gf = load_llama(str(path), device=dev)
     gf.close()
@@ -552,7 +684,7 @@ def load_model(torch, dev, kind: str):
                 for w in ("wqkv", "wo", "w_gate_up", "w_down"))
             and model.params["lm_head"].kind == kind,
             f"{path.name}: the loaded weights are not all {kind}")
-    log(f"  loaded {kind} in {time.perf_counter() - t0:.1f} s: {model.cfg}")
+    log(f"  loaded {path.name} in {time.perf_counter() - t0:.1f} s: {model.cfg}")
     return model
 
 
@@ -565,7 +697,11 @@ def end_to_end(torch, model, prompts, name, summary):
 
     set_path(name)
     eng = LlamaEngine(model, prefill_chunk=128)
-    sampled = (LlamaEngine(model, prefill_chunk=128, sampling=SamplingParams(temperature=0.8))
+    # the sampled request's engine prefills in chunks of SAMPLED_CHUNK rows, as
+    # a latency-bound server may: its 7-token prompt runs `_layer_step` at <=
+    # 32 rows (K1, and K6b / K6a for the FFN), which a 128-row chunk never does
+    sampled = (LlamaEngine(model, prefill_chunk=SAMPLED_CHUNK,
+                           sampling=SamplingParams(temperature=0.8))
                if name in PATH_SAMPLED else None)
     vocab = model.cfg.vocab_size
 
@@ -594,12 +730,50 @@ def end_to_end(torch, model, prompts, name, summary):
         log(f"  [{name}] prompt {len(prompt):>3} tokens, {kind} -> {out}")
     del sampled
 
-    # the first request against the plain versions of the same path on the card
-    eng.reset()
-    logits_k = eng.prefill(prompts[0])
-    with force_ref():
+    # the first request against the plain versions of the same path on the
+    # card: the prefill logits, one decode step from a shared cache, tokens.
+    # Each of the first two is held to its fixed bound or to SENS_MARGIN times
+    # what the plain path itself moves under SENS_EPS input perturbations
+    embd = model.params["tok_embd"]
+
+    def perturbed(run, ids, want):
+        """How far the plain path's output moves when the embedding rows of
+        `ids` are scaled by (1 + SENS_EPS * N(0, 1)), over SENS_DRAWS draws."""
+        ids = sorted({int(i) for i in ids})
+        rows = embd[ids].clone()
+        g = torch.Generator(device=rows.device).manual_seed(SEED)
+        moved = []
+        with force_ref():
+            for _ in range(SENS_DRAWS):
+                embd[ids] = rows * (1 + SENS_EPS * torch.randn(rows.shape, device=rows.device,
+                                                               generator=g))
+                moved.append(float((run() - want).abs().max()))
+        embd[ids] = rows
+        return moved
+
+    def prefill_from_0():
         eng.reset()
-        logits_r = eng.prefill(prompts[0])
+        return eng.prefill(prompts[0])
+
+    logits_k = prefill_from_0()
+    tok0 = torch.argmax(logits_k, dim=-1)
+    saved, pos0 = {k: v.clone() for k, v in eng.cache.items()}, eng.pos
+
+    def step_from_saved():
+        for k, v in saved.items():
+            eng.cache[k].copy_(v)
+        eng.pos = pos0
+        return eng.step(tok0)[1]
+    step_k = step_from_saved()
+    with force_ref():
+        step_r = step_from_saved()
+    sens_s = perturbed(step_from_saved, tok0, step_r)
+    del saved
+    with force_ref():
+        logits_r = prefill_from_0()
+    sens_p = perturbed(prefill_from_0, prompts[0], logits_r)
+    with force_ref():
+        logits_r = prefill_from_0()
         tok = torch.argmax(logits_r, dim=-1)
         ref_toks, gaps = [int(tok[0])], [top2_gap(logits_r[0])]
         for _ in range(31):
@@ -609,28 +783,49 @@ def end_to_end(torch, model, prompts, name, summary):
     torch.cuda.synchronize()
     require(tuple(logits_k.shape) == (1, vocab) and bool(torch.isfinite(logits_k).all()),
             f"[{name}] prefill logits {tuple(logits_k.shape)} not finite [1, {vocab}]")
-    bound = LOGIT_RTOL * float(logits_r.abs().max())
+    scale_p = float(logits_r.abs().max())
     err = float((logits_k - logits_r).abs().max())
-    require(err <= bound, f"[{name}] prefill logits: max_abs_err {err:.4g} > bound {bound:.4g}")
-    n_cmp = next((i for i, gap in enumerate(gaps) if gap < bound), 32)
+    bound = max(LOGIT_RTOL * scale_p, SENS_MARGIN * max(sens_p))
+    require(err <= bound, f"[{name}] prefill logits: max_abs_err {err:.4g} > bound {bound:.4g} "
+            f"(plain path under {SENS_EPS:g} input perturbations: {[f'{v:.3g}' for v in sens_p]})")
+    scale = float(step_r.abs().max())
+    step_err = float((step_k - step_r).abs().max())
+    step_bound = max(STEP_RTOL * scale, SENS_MARGIN * max(sens_s))
+    require(bool(torch.isfinite(step_k).all()) and step_err <= step_bound,
+            f"[{name}] decode step from a shared cache: max_abs_err {step_err:.4g} > bound "
+            f"{step_bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
+            f"{[f'{v:.3g}' for v in sens_s]})")
+    # decode on the 7B path runs 64 int8 pre-passes per token (K7-i8, K6c), so
+    # its tokens are compared up to the first plain top-2 gap under the step
+    # bound (relative); the TinyLlama paths keep the prefill bound
+    gap_bound = bound if name != "llama2_7b" else step_bound / scale * scale_p
+    n_cmp = next((i for i, gap in enumerate(gaps) if gap < gap_bound), 32)
     require(outs[0][:n_cmp] == ref_toks[:n_cmp],
             f"[{name}] tokens differ before step {n_cmp}: {outs[0]} vs plain {ref_toks}")
-    log(f"  [{name}] request 1 vs force_ref(): logits max_abs_err {err:.4g} (bound {bound:.4g}); "
-        f"tokens equal over the first {n_cmp} of 32 steps"
-        + ("" if n_cmp == 32 else f" (plain top-2 gap {gaps[n_cmp]:.3g} < bound at step {n_cmp})")
+    log(f"  [{name}] request 1 vs force_ref(): prefill logits max_abs_err {err:.4g} "
+        f"({err / scale_p:.3g} of max|logit|; bound {bound:.4g}; the plain path moves "
+        f"{max(sens_p) / scale_p:.3g} under {SENS_EPS:g} input perturbations); decode step "
+        f"from a shared cache {step_err:.4g} ({step_err / scale:.3g}; bound {step_bound:.4g}; "
+        f"the plain path moves {max(sens_s) / scale:.3g}); tokens equal over the first "
+        f"{n_cmp} of 32 steps"
+        + ("" if n_cmp == 32 else
+           f" (plain top-2 gap {gaps[n_cmp]:.3g} < {gap_bound:.3g} at step {n_cmp})")
         + f"; all 32 equal: {outs[0] == ref_toks}")
     summary.setdefault("e2e", {})[name] = dict(
-        flags=PATHS[name], weights=PATH_KIND[name], launches=launches, placement=tiers,
-        logits_err=err, logits_bound=bound, tokens_checked=n_cmp,
+        flags=PATHS[name], model=PATH_MODEL[name], launches=launches, placement=tiers,
+        logits_err=err, logits_bound=bound, logits_scale=scale_p, logits_sensitivity=sens_p,
+        step_err=step_err, step_bound=step_bound, step_scale=scale, step_sensitivity=sens_s,
+        tokens_checked=n_cmp, tokens_gap_bound=gap_bound,
         tokens_all_equal=outs[0] == ref_toks, min_gap=min(gaps), outputs=outs)
     return eng, launches
 
 
 def rates(torch, engines, prompt, card, summary):
     """pp128 and tg32 of every path, measured in turns: RATE_ROUNDS rounds of
-    the paths there and back (default, unfused, q8_default, q8_default,
-    unfused, default), one prefill and one 32-token decode_n per turn, so an
-    order effect on the host falls on every path alike; the median per path."""
+    the paths there and back (default, unfused, q8_default, llama2_7b,
+    llama2_7b, q8_default, unfused, default), one prefill and one 32-token
+    decode_n per turn, so an order effect on the host falls on every path
+    alike; the median per path."""
     p128 = prompt[:128]
     runs = {name: ([], []) for name in engines}
     order = list(engines) + list(engines)[::-1]
@@ -742,24 +937,32 @@ def main() -> int:
     build.library()
     log(f"  kernels built in {nvcc_s:.1f} s (load {time.perf_counter() - t0:.1f} s): {path}")
 
-    log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes, Q4_0 and Q8_0)")
+    log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
+        "Llama-2-7B shapes)")
+    t0 = time.perf_counter()
     checks = check_kernels(torch, dev)
+    log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     log("== 3. end to end: TinyLlama-1.1B, the default and unfused paths at Q4_0, the "
-        "default path at Q8_0")
-    models = {kind: load_model(torch, dev, kind) for kind in KINDS}
+        "default path at Q8_0; Llama-2-7B at Q4_0, the default path")
+    t0 = time.perf_counter()
+    models = {m: load_model(torch, dev, *m) for m in dict.fromkeys(PATH_MODEL.values())}
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, models["q4_0"].cfg.vocab_size, n) for n in (7, 128, 300)]
+    vocab = min(m.cfg.vocab_size for m in models.values())
+    prompts = [rng.integers(0, vocab, n) for n in (7, 128, 300)]
     engines, launches = {}, {}
     for name in PATHS:
-        engines[name], launches[name] = end_to_end(torch, models[PATH_KIND[name]], prompts,
+        engines[name], launches[name] = end_to_end(torch, models[PATH_MODEL[name]], prompts,
                                                    name, summary)
+    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
 
     log("== 4. rates (the paths in turns) and where the time goes")
+    t0 = time.perf_counter()
     rates(torch, engines, prompts[2], card, summary)
     for name, eng in engines.items():
         set_path(name)
         profile(torch, eng, prompts[2], name, summary)
+    log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [kernel_line(name, checks[name], {p: launches[p][name] for p in PATHS})
                for name in KERNELS]

@@ -11,7 +11,11 @@ The weight kernels run at both kinds, Q4_0 and Q8_0. Tolerances: K2 rtol
 compute in f32 and differ only in the order of the sums; K1, K6 and K7
 1e-5 * max|out| for the same reason (K1's int8 block dots are exact on both
 sides, and its quantized activations must be bit-equal); K5's id must equal
-argmax of K1's output on the card exactly.
+argmax of K1's output on the card exactly. The i8a modes (K7-i8, K6c)
+quantize a row they norm themselves, which the plain version norms summing
+in another order: the plain version runs on the kernel's own activations
+(act_out / act), and those may differ from the plain pre-pass by one level in
+at most 1% of the values.
 """
 import numpy as np
 import pytest
@@ -20,11 +24,12 @@ import torch
 from zgml_tpu_torch.ops import dispatch, refs
 from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_ref,
                                           flash_attention_cuda, flash_attention_ref)
-from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda, fused_ffn_norm_ref
+from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda, fused_ffn_norm_ref,
+                                    fused_ffn_ref)
 from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref
 from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, qmatmul_cuda, qmatmul_i8_cuda,
                                         qmatmul_i8_ref, qmatmul_ref, quantize_act_cuda,
-                                        quantize_act_ref)
+                                        quantize_act_ref, rmsnorm_quantize_ref)
 from zgml_tpu_torch.quant.packed import PackedWeight, from_int8, from_nibbles
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -243,3 +248,89 @@ def test_dispatch_counts_each_kernel(cuda):
     assert global_profile.tier_summary() == {"qmatmul_q8": {"cuda": 1},
                                              "qmatmul_i8_q8": {"cuda": 1},
                                              "qmatmul_greedy_q8": {"cuda": 1}}
+
+
+def _act_buffers(m, d, device):
+    return (torch.empty((m, d), dtype=torch.int8, device=device),
+            torch.empty((m, d // 32), dtype=torch.float32, device=device))
+
+
+def _check_own_activations(act, x, g):
+    """The kernel's int8 activations against the plain pre-pass of the same
+    rows: a level may land one apart where the two norms round apart."""
+    rq, rs = rmsnorm_quantize_ref(x, g, 1e-5)
+    xq, xs = act[0].reshape(rq.shape), act[1].reshape(rs.shape)
+    diff = (xq.to(torch.int16) - rq.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 0.01
+    torch.testing.assert_close(xs, rs, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("hq,hkv,hd,s,pos,li", [(32, 32, 128, 2048, 0, 1),
+                                                (32, 32, 128, 2048, 1, 1),
+                                                (32, 32, 128, 2048, 200, 0),
+                                                (32, 32, 128, 2048, 2047, 1),
+                                                (32, 4, 64, 256, 130, 1), (8, 2, 32, 96, 37, 1)])
+def test_attn_block_i8(cuda, hq, hkv, hd, s, pos, li, kind):
+    """K7's int8 A phase (Llama-2-7B's MHA head_dim 128, and GQA)."""
+    rng = np.random.default_rng(pos + hd + 1)
+    d, L = hq * hd, max(li + 1, 2)
+    wqkv = _weight(rng, (hq + 2 * hkv) * hd, d, cuda, kind)
+    wo = _weight(rng, d, hq * hd, cuda, kind)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    ck = torch.from_numpy(rng.standard_normal((L, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cv = torch.from_numpy(rng.standard_normal((L, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    ck_r, cv_r = ck.clone(), cv.clone()
+    act = _act_buffers(1, d, cuda)
+    global_profile.reset()
+    got = attn_block_cuda(x, g, wqkv, wo, ck, cv, li, pos_t, cos, sin, hq, hkv, 1e-5,
+                          a_i8=True, act_out=act)
+    want = attn_block_ref(x, g, wqkv, wo, ck_r, cv_r, li, pos, cos, sin, hq, hkv, 1e-5,
+                          a_i8=True, act=act)
+    torch.cuda.synchronize()
+    name = "attn_block_i8" if kind == "q4_0" else "attn_block_i8_q8"
+    assert global_profile.tier_summary() == {name: {"cuda": 1}}
+    for a, b in zip(got, want):
+        _close(a, b)
+    _check_own_activations(act, x, g)
+    assert torch.equal(ck[li, 0, :, pos], got[1][0, :, 0].to(torch.bfloat16))
+    rows = torch.arange(s, device=cuda) != pos
+    assert torch.equal(ck[:, :, :, rows], ck_r[:, :, :, rows])
+
+
+@pytest.mark.parametrize("d,f,m", [(4096, 11008, 1), (4096, 11008, 8), (4096, 11008, 32),
+                                   (512, 320, 3)])
+def test_fused_ffn_norm_i8(cuda, d, f, m):
+    """K6c: int8 gate|up on the kernel's own activations, f32 down."""
+    rng = np.random.default_rng(d + f + m + 1)
+    gu, wd = _weight(rng, 2 * f, d, cuda), _weight(rng, d, f, cuda)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, 1, d)).astype(np.float32)).to(cuda)
+    act = _act_buffers(m, d, cuda)
+    global_profile.reset()
+    got = fused_ffn_norm_cuda(x, g, gu, wd, 1e-5, a_i8=True, act_out=act)
+    want = fused_ffn_norm_ref(x, g, gu, wd, 1e-5, a_i8=True, act=act)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"fused_ffn_norm_i8": {"cuda": 1}}
+    _close(got, want)
+    _check_own_activations(act, x, g)
+
+
+@pytest.mark.parametrize("d,f,m", [(4096, 11008, 1), (4096, 11008, 7), (4096, 11008, 32),
+                                   (2048, 5632, 7), (2048, 5632, 16), (512, 320, 3)])
+def test_fused_ffn(cuda, d, f, m):
+    """K6b: every weight block read once for all M rows of a normed h."""
+    rng = np.random.default_rng(d + f + m + 2)
+    gu, wd = _weight(rng, 2 * f, d, cuda), _weight(rng, d, f, cuda)
+    h = torch.from_numpy(rng.standard_normal((1, m, d)).astype(np.float32)).to(cuda)
+    global_profile.reset()
+    got = fused_ffn_cuda(h, gu, wd)
+    want = fused_ffn_ref(h, gu, wd)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"fused_ffn": {"cuda": 1}}
+    _close(got, want)

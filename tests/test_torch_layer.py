@@ -9,7 +9,15 @@ and the rotated k_cur and v_cur, within 1e-5 * max|out| (f32 on both sides,
 sums in another order); the port also writes the bf16 K/V at row pos of
 layer li in place, which must hold bf16(k_cur) / bf16(v_cur) and leave every
 other row as it was.
+
+With ZGML_TPU_ATTN_I8A=1 on both sides (the JAX default at padded d >= 4096,
+forced here at small width) the A phase is int8: the port's pre-pass must
+give the int8 activations and scales of JAX's `_quantize_act` of its normed
+row bit for bit on these seeds, and the outputs the same 1e-5 bound (the
+block dots are exact integers on both sides). `attn_i8a` and the padded K
+it reads must give the JAX package's verdicts.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,11 +25,15 @@ import torch
 
 from zgml_tpu.models.llama import LlamaConfig as JaxConfig
 from zgml_tpu.ops import refs as jrefs
+from zgml_tpu import config as jconfig
 from zgml_tpu.ops.layerkernel import attn_block_step
+from zgml_tpu.ops.qmatmul import _quantize_act
 from zgml_tpu.quant.headmajor import attach_head_major
 from zgml_tpu.quant.repack import concat_packed, quantize_weight
 
+from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import dispatch, refs
+from zgml_tpu_torch.ops.qmatmul import rmsnorm_quantize_ref
 from zgml_tpu_torch.ops.layerkernel import attn_block_compatible
 from zgml_tpu_torch.quant import packed
 from zgml_tpu_torch.runtime.profile import global_profile
@@ -67,9 +79,33 @@ def test_q8_attn_block_plain_matches_jax_kernel(monkeypatch, pos, hq, hkv, hd):
     _check_against_jax(monkeypatch, pos, hq, hkv, hd, "q8_0")
 
 
-def _check_against_jax(monkeypatch, pos, hq, hkv, hd, kind="q4_0"):
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("pos,hq,hkv,hd", [(0, 8, 2, 32), (37, 8, 2, 32), (37, 4, 2, 64),
+                                           (37, 4, 4, 128)])
+def test_attn_block_i8_plain_matches_jax_kernel(monkeypatch, pos, hq, hkv, hd, kind):
+    """K7's int8 A phase (`a_i8`, layerkernel.py:148-190) forced on at small
+    width, both kinds; (4, 4, 128) is Llama-2-7B's MHA head_dim 128. Seed 100:
+    torch and XLA sum the norm's squares in another order, and on some seeds
+    a scale lands one ulp apart (the levels stay equal); on this one the
+    activations agree bit for bit in every case."""
+    _check_against_jax(monkeypatch, pos, hq, hkv, hd, kind, a_i8=True, seed=100)
+
+
+def jax_normed_i8(x, gamma, eps):
+    """The JAX package's pre-pass outside its int8 layer kernels
+    (layerkernel.py:782-786, ffn.py:530-532): its normed row through
+    `_quantize_act`, as numpy."""
+    x2 = jnp.asarray(x).reshape(-1, x.shape[-1])
+    ms = jnp.sum(x2 * x2, axis=1, keepdims=True) * (1.0 / x.shape[-1])
+    xq, xs = _quantize_act(x2 * jax.lax.rsqrt(ms + eps) * jnp.asarray(gamma).reshape(1, -1))
+    return np.asarray(xq), np.asarray(xs)
+
+
+def _check_against_jax(monkeypatch, pos, hq, hkv, hd, kind="q4_0", a_i8=False, seed=None):
     monkeypatch.setenv("ZGML_TPU_SCALES", "f16")
-    rng = np.random.default_rng(100 + pos)
+    if a_i8:
+        monkeypatch.setenv("ZGML_TPU_ATTN_I8A", "1")
+    rng = np.random.default_rng(100 + pos if seed is None else seed)
     cfg = _cfg(hq, hkv, hd)
     layer = _layer(rng, hq, hkv, hd, kind)
     li = 1
@@ -96,8 +132,14 @@ def _check_against_jax(monkeypatch, pos, hq, hkv, hd, kind="q4_0"):
         port(wqkv.qvals, wqkv.scales, wqkv.n, wqkv.k, device="cpu"),
         port(wo.qvals, wo.scales, wo.n, wo.k, device="cpu"), ck, cv, li,
         torch.tensor([pos], dtype=torch.int32), pcos, psin, hq, hkv, cfg.rms_norm_eps)
-    counter = "attn_block" if kind == "q4_0" else "attn_block_q8"
+    counter = "attn_block_i8" if a_i8 else "attn_block"
+    counter += "_q8" if kind == "q8_0" else ""
     assert global_profile.tier_summary() == {counter: {"ref": 1}}
+    if a_i8:
+        jq, js = jax_normed_i8(x, layer["attn_norm"], cfg.rms_norm_eps)
+        pq, ps = rmsnorm_quantize_ref(torch.from_numpy(x), torch.from_numpy(layer["attn_norm"]),
+                                      cfg.rms_norm_eps)
+        assert np.array_equal(pq.numpy(), jq) and np.array_equal(ps.numpy(), js)
     for got, want in ((xo, jx), (kc, jk), (vc, jv)):
         want = np.asarray(want)
         assert got.shape == want.shape
@@ -121,3 +163,23 @@ def test_attn_block_compatible_follows_the_jax_rule():
     assert attn_block_compatible(64, 1, ("q8_0", "q8_0"))
     assert not attn_block_compatible(64, 1, ("q4_0", "q8_0"))
     assert not attn_block_compatible(64, 1, ("q6_k", "q6_k"))
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("d", [2048, 3200, 4096, 5120, 8192])
+def test_i8a_flags_and_padded_k_follow_jax(monkeypatch, d, kind):
+    """padded_k gives the K the JAX loader pads a weight to, and attn_i8a /
+    ffn_i8a give the JAX verdicts on it: by default on at padded d >= 4096
+    (d 3200 pads to 3584 at Q4_0 and 3200 at Q8_0: off), and each flag
+    forces its mode either way on both packages."""
+    monkeypatch.delenv("ZGML_TPU_ATTN_I8A", raising=False)
+    monkeypatch.delenv("ZGML_TPU_FFN_I8A", raising=False)
+    dp = quantize_weight(np.zeros((32, d), np.float32), kind).k_pad
+    assert config.padded_k(d, kind) == dp
+    assert config.attn_i8a(dp) == jconfig.attn_i8a(dp) == (d >= 4096)
+    assert config.ffn_i8a(dp) == jconfig.ffn_i8a(dp) == (d >= 4096)
+    for flag in ("0", "1"):
+        monkeypatch.setenv("ZGML_TPU_ATTN_I8A", flag)
+        monkeypatch.setenv("ZGML_TPU_FFN_I8A", flag)
+        assert config.attn_i8a(dp) == jconfig.attn_i8a(dp) == (flag == "1")
+        assert config.ffn_i8a(dp) == jconfig.ffn_i8a(dp) == (flag == "1")

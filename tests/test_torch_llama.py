@@ -16,11 +16,20 @@ set (monkeypatch) around BOTH sides, since the port reads them too:
     projections there instead of K6d (the port follows: ops/ffn.ffn_fuses).
     The prefill head's tier (int8 for a chunk of <= 32 rows) is checked on
     the d 256 config of tests/test_layerkernel.py:126, and the fused FFN of
-    16-row prefill chunks (JAX's K6b, the port's K6d) at d 512;
+    16-row prefill chunks (rmsnorm, K6b, residual on both sides) at d 512;
   - the default tier at Q8_0 on the same d 512 config: K7 in its Q8_0 mode,
     the fused FFN K6a (JAX attaches no N-packed view at Q8_0, so its fused
     decode runs `_ffn_kernel` through ffn_compatible), the greedy head K5q8,
-    K1q8 for the step logits and K2q8 for the 64-row prefill chunk.
+    K1q8 for the step logits and K2q8 for the 64-row prefill chunk;
+  - the 7B-width int8 tier (I8A_FLAGS: ZGML_TPU_ATTN_I8A=1 and
+    ZGML_TPU_FFN_I8A=1, which the JAX package turns on by default at padded
+    d >= 4096) forced on the same d 512 Q4_0 model: K7's int8 A phase and
+    K6c per decode layer. Decode steps from a shared cache agree within
+    1e-2 * max|logit| (the int8 rule below: each step runs 2 int8 pre-passes
+    per layer, whose norms torch and XLA sum in another order), greedy
+    tokens up to the first JAX top-2 gap under that bound, and each layer
+    half on shared inputs within 1e-5 * max|out|, its int8 activations equal
+    to JAX's bit for bit.
 
 The JAX side runs its Pallas kernels in interpret mode; the port its plain
 torch versions (CPU tensors). Bounds: logits within 1e-3 * max|logit| (both
@@ -63,11 +72,13 @@ SLICE_FLAGS = {
     "ZGML_TPU_PREFILL_BF16": "0",
 }
 DEFAULT_FLAGS = {"ZGML_TPU_SCALES": "f16", "ZGML_TPU_PREFILL_BF16": "0"}
+I8A_FLAGS = {**DEFAULT_FLAGS, "ZGML_TPU_ATTN_I8A": "1", "ZGML_TPU_FFN_I8A": "1"}
+I8_RTOL = 1e-2             # whole-model int8-tier bound (PERF.md, the int8 tier's flips)
 PROMPT_LEN, CHUNK, N_DECODE = 20, 16, 8
 
 
 def _set_flags(mp, flags):
-    for k in SLICE_FLAGS:
+    for k in (*SLICE_FLAGS, *I8A_FLAGS):
         mp.delenv(k, raising=False)
     for k, v in flags.items():
         mp.setenv(k, v)
@@ -222,12 +233,18 @@ def q8_runs(tmp_path_factory):
     return _default_runs(tmp_path_factory, GGMLType.Q8_0, seed=14)
 
 
-def _default_runs(tmp_path_factory, quant, seed):
+@pytest.fixture(scope="module")
+def i8a_runs(tmp_path_factory):
+    """default_runs at Q4_0 with the int8 decode tier forced on (I8A_FLAGS)."""
+    return _default_runs(tmp_path_factory, GGMLType.Q4_0, seed=11, flags=I8A_FLAGS)
+
+
+def _default_runs(tmp_path_factory, quant, seed, flags=DEFAULT_FLAGS):
     path = str(tmp_path_factory.mktemp("torch_default") / f"d512_{quant.name}.gguf")
     write_synthetic_llama_gguf(path, DEFAULT_CFG, quant=quant, seed=seed)
     prompt = np.random.default_rng(6).integers(0, DEFAULT_CFG.vocab_size, PROMPT_LEN)
     with pytest.MonkeyPatch.context() as mp:
-        _set_flags(mp, DEFAULT_FLAGS)
+        _set_flags(mp, flags)
         jmodel, jgf = jax_load_llama(path)
         jgf.close()
         # the JAX decode FFN is K6d (N-packed view) at Q4_0, K6a at Q8_0
@@ -272,13 +289,16 @@ def _check_prefill(runs):
     assert np.max(np.abs(plogits - jlogits)) <= 1e-3 * np.max(np.abs(jlogits))
 
 
-def _check_steps(runs):
+def _check_steps(runs, rtol=1e-5):
+    errs = []
     for i, (got, want) in enumerate(zip(runs["port"][3], runs["jax"][3])):
         assert np.all(np.isfinite(got))
-        assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want)), i
+        errs.append(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        assert errs[-1] <= rtol, i
+    print(f"decode steps: max|diff| / max|logit| up to {max(errs):.3g} (bound {rtol:.0e})")
 
 
-def _check_greedy_tokens(runs):
+def _check_greedy_tokens(runs, rtol=1e-3):
     jlogits, tok0, jtoks, jstep = runs["jax"]
     _, ptok0, ptoks, _ = runs["port"]
     bound = 1e-3 * np.max(np.abs(jlogits))
@@ -287,8 +307,9 @@ def _check_greedy_tokens(runs):
         return
     assert ptok0 == tok0
     gaps = [_gap(lg) for lg in jstep]
-    n_cmp = next((i for i, g in enumerate(gaps) if g < 1e-3 * np.max(np.abs(jstep[i]))),
+    n_cmp = next((i for i, g in enumerate(gaps) if g < rtol * np.max(np.abs(jstep[i]))),
                  N_DECODE)
+    print(f"greedy tokens compared over {n_cmp} of {N_DECODE} steps")
     assert ptoks[:n_cmp] == jtoks[:n_cmp]
 
 
@@ -401,9 +422,9 @@ def test_default_prefill_head_tier_matches_jax(tmp_path, chunk, tier):
 
 def test_default_small_chunk_prefill_fuses_the_ffn_as_jax(tmp_path):
     """Prefill chunks of <= 32 rows at a width the JAX package fuses the FFN
-    at (d 512): JAX's `_layer_step` runs its f32 fused FFN there, the port
-    K6d, and the other projections take K1 on both sides (the placement
-    counts). The logits agree within 1e-2 * max|logit|, not the 1e-3 of the
+    at (d 512): JAX's `_layer_step` runs rmsnorm, its f32 fused FFN K6b and
+    the residual there, and so does the port, and the other projections take
+    K1 on both sides (the placement counts). The logits agree within 1e-2 * max|logit|, not the 1e-3 of the
     f32 paths: at this config one rounding flip of an int8 activation or a
     bf16 cache value moves them by 4e-3 to 8e-3 of max|logit|, and a 1e-7
     relative perturbation of the port's own embeddings causes such a flip
@@ -423,9 +444,9 @@ def test_default_small_chunk_prefill_fuses_the_ffn_as_jax(tmp_path):
         plogits = LlamaEngine(pmodel, prefill_chunk=CHUNK).prefill(prompt)[0].numpy()
         tiers = global_profile.tier_summary()
     n_chunks, n_layers = -(-PROMPT_LEN // CHUNK), DEFAULT_CFG.n_layers
-    assert tiers["fused_ffn_norm"] == {"ref": n_chunks * n_layers}
+    assert tiers["fused_ffn"] == {"ref": n_chunks * n_layers}
     assert tiers["qmatmul_i8"] == {"ref": n_chunks * (2 * n_layers + 1)}
-    assert "qmatmul" not in tiers
+    assert "qmatmul" not in tiers and "fused_ffn_norm" not in tiers
     assert np.all(np.isfinite(plogits))
     assert np.max(np.abs(plogits - jlogits)) <= 1e-2 * np.max(np.abs(jlogits))
 
@@ -434,9 +455,8 @@ def test_default_small_chunk_prefill_fuses_the_ffn_as_jax(tmp_path):
 def test_default_layer_step_ffn_matches_jax(tmp_path, rows):
     """The FFN half of `_layer_step` (prefill chunks, batch > 1 decode) on
     shared inputs with the loaded d 512 weights, under the default flags:
-    for <= 32 rows JAX runs rmsnorm, its f32 fused FFN (dispatch.fused_ffn)
-    and the residual, the port one K6d; for 33 rows both compose f32 K2
-    projections. Within 1e-5 * max|out|: f32 on both sides. (A flip-free
+    for <= 32 rows both run rmsnorm, the f32 fused FFN K6b (dispatch.fused_ffn)
+    and the residual; for 33 rows both compose f32 K2 projections. Within 1e-5 * max|out|: f32 on both sides. (A flip-free
     check: the whole layer also rounds K/V to bf16 and att to int8, which
     turn f32 summation-order differences into rounding flips.)"""
     import jax.numpy as jnp
@@ -470,7 +490,110 @@ def test_default_layer_step_ffn_matches_jax(tmp_path, rows):
         got = _ffn(cfg, torch.from_numpy(x), pmodel.params["layers"][1],
                    after_attn_block=False).numpy()
         tiers = global_profile.tier_summary()
-    assert tiers == ({"fused_ffn_norm": {"ref": 1}} if rows <= 32 else
+    assert tiers == ({"rmsnorm": {"torch": 1}, "fused_ffn": {"ref": 1}} if rows <= 32 else
                      {"rmsnorm": {"torch": 1}, "qmatmul": {"ref": 2}})
     assert got.shape == want.shape
     assert np.max(np.abs(got - want)) <= 1e-5 * np.max(np.abs(want))
+
+
+def test_i8a_step_logits_match_jax(i8a_runs):
+    """The int8 decode tier forced on at d 512 (K7 `a_i8` + K6c per layer),
+    each step on the JAX cache of that step: within 1e-2 * max|logit|. The
+    prefill (one 64-row chunk, f32) is held to 1e-3 as on the default tier.
+    Before the port read ZGML_TPU_ATTN_I8A / ZGML_TPU_FFN_I8A this failed:
+    the port ran f32 K7 and K6d where JAX quantized."""
+    _check_prefill(i8a_runs)
+    _check_steps(i8a_runs, rtol=I8_RTOL)
+
+
+def test_i8a_greedy_tokens_match_jax(i8a_runs):
+    """8 greedy tokens equal to JAX's, up to the first step whose JAX top-2
+    gap is below the int8 bound (a tie within a rounding flip)."""
+    _check_greedy_tokens(i8a_runs, rtol=I8_RTOL)
+
+
+def test_i8a_run_takes_the_int8_tier(i8a_runs):
+    """Placement: K7 in its int8 mode and K6c per layer and step; no f32 K7
+    and no K6d."""
+    tiers = i8a_runs["tiers"]
+    n = 2 * N_DECODE * DEFAULT_CFG.n_layers
+    assert tiers["attn_block_i8"] == {"ref": n}
+    assert tiers["fused_ffn_norm_i8"] == {"ref": n}
+    assert not set(tiers) & {"attn_block", "fused_ffn_norm"}, tiers
+
+
+@pytest.mark.parametrize("attn_i8a", ["1", "0"])
+def test_i8a_layer_halves_match_jax(tmp_path, monkeypatch, attn_i8a):
+    """Each half of a decode layer on shared inputs with the loaded d 512
+    weights, ZGML_TPU_FFN_I8A=1 and ZGML_TPU_ATTN_I8A as given, on both
+    sides: JAX's `attn_block_step` (interpret) and `_ffn_after_attn` against
+    the port's dispatch.attn_block and `_ffn(after_attn_block=True)`, within
+    1e-5 * max|out|, with the int8 activations equal to JAX's pre-pass bit
+    for bit. Which mode ran is read on both sides: the port's placement
+    counts and the JAX kernels' own calls (`_layer_call`'s a_i8, the int8
+    FFN's `_ffn_q4n_i8`). ZGML_TPU_ATTN_I8A=0 brings back the f32 K7 on both."""
+    import jax.numpy as jnp
+    from test_torch_layer import jax_normed_i8
+    from zgml_tpu.models.llama import _ffn_after_attn
+    from zgml_tpu.ops import ffn as jffn
+    from zgml_tpu.ops import layerkernel as jlk
+    from zgml_tpu.ops import refs as jrefs
+
+    from zgml_tpu_torch.models.llama import _ffn
+    from zgml_tpu_torch.ops import dispatch, refs
+    from zgml_tpu_torch.ops.qmatmul import rmsnorm_quantize_ref
+
+    cfg, li, pos = DEFAULT_CFG, 1, 37
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    path = str(tmp_path / "d512_q4.gguf")
+    write_synthetic_llama_gguf(path, cfg, seed=11)
+    _set_flags(monkeypatch, {**I8A_FLAGS, "ZGML_TPU_ATTN_I8A": attn_i8a})
+    seen = []
+    layer_call, ffn_i8 = jlk._layer_call, jffn._ffn_q4n_i8
+
+    def spy_layer(*a, **kw):
+        seen.append(("attn_i8", kw["a_i8"]))
+        return layer_call(*a, **kw)
+
+    def spy_ffn(*a, **kw):
+        seen.append(("ffn_i8", True))
+        return ffn_i8(*a, **kw)
+    monkeypatch.setattr(jlk, "_layer_call", spy_layer)
+    monkeypatch.setattr(jffn, "_ffn_q4n_i8", spy_ffn)
+
+    jmodel, jgf = jax_load_llama(path)
+    jgf.close()
+    pmodel, pgf = load_llama(path, device="cpu")
+    pgf.close()
+    jl, pl = jmodel.params["layers"][li], pmodel.params["layers"][li]
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1, 1, cfg.d_model)).astype(np.float32)
+    shape = (cfg.n_layers, 1, hkv, cfg.max_seq_len, hd)
+    ck = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.5).bfloat16()
+    cv = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.5).bfloat16()
+    cos, sin = jrefs.rope_cos_sin(jnp.asarray([pos]), hd, cfg.rope_base)
+    jx, jk, jv, _, _, _ = jlk.attn_block_step(
+        jmodel.cfg, jl, jnp.asarray(x), jnp.asarray(ck.float().numpy(), jnp.bfloat16),
+        jnp.asarray(cv.float().numpy(), jnp.bfloat16), pos,
+        jnp.concatenate([cos, cos], axis=1), jnp.concatenate([-sin, sin], axis=1),
+        kv_layer=li)
+    x_mid = np.array(jx)                             # the FFN half's shared input
+    jy = np.asarray(_ffn_after_attn(jmodel.cfg, jl, jnp.asarray(x_mid), None))
+    assert seen == [("attn_i8", attn_i8a == "1"), ("ffn_i8", True)]
+
+    global_profile.reset()
+    pcos, psin = refs.rope_cos_sin(torch.tensor([pos]), hd, cfg.rope_base)
+    got = dispatch.attn_block(torch.from_numpy(x), pl["attn_norm"], pl["wqkv"], pl["wo"], ck, cv,
+                              li, torch.tensor([pos], dtype=torch.int32), pcos, psin,
+                              cfg.n_heads, hkv, cfg.rms_norm_eps)
+    py = _ffn(cfg, torch.from_numpy(x_mid), pl, after_attn_block=True)
+    k7 = "attn_block_i8" if attn_i8a == "1" else "attn_block"
+    assert global_profile.tier_summary() == {k7: {"ref": 1}, "fused_ffn_norm_i8": {"ref": 1}}
+    for g, w in ((got[0], jx), (got[1], jk), (got[2], jv), (py, jy)):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.max(np.abs(g.numpy() - w)) <= 1e-5 * np.max(np.abs(w))
+    for row, gamma in ((x, "attn_norm"), (x_mid, "ffn_norm")):
+        jq, js = jax_normed_i8(row, np.asarray(jl[gamma]), cfg.rms_norm_eps)
+        pq, ps = rmsnorm_quantize_ref(torch.from_numpy(row), pl[gamma], cfg.rms_norm_eps)
+        assert np.array_equal(pq.numpy(), jq) and np.array_equal(ps.numpy(), js)

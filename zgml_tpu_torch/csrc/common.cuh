@@ -175,16 +175,96 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
+// 1 / rms of x over d values (all threads call it; red holds >= 32 floats).
+__device__ __forceinline__ float rms_inv(const float* x, int d, float eps, float* red) {
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) ss = fmaf(x[i], x[i], ss);
+  return 1.0f / sqrtf(block_sum(ss, red) / (float)d + eps);
+}
+
 // The fused kernels' rmsnorm prologue: dst = x * rsqrt(mean(x^2) + eps) * g,
 // staged as [d/32][33] floats; red is a separate 32-float area.
 __device__ __forceinline__ void stage_rmsnorm(const float* x, const float* g, int d, float eps,
                                               float* dst, float* red) {
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) ss = fmaf(x[i], x[i], ss);
-  const float inv = 1.0f / sqrtf(block_sum(ss, red) / (float)d + eps);
+  const float inv = rms_inv(x, d, eps, red);
   for (int i = threadIdx.x; i < d; i += blockDim.x)
     dst[(i >> 5) * 33 + (i & 31)] = x[i] * inv * g[i];
   __syncthreads();
+}
+
+// ---- the int8 activation tier (K1, K5, and the i8a modes of K6 and K7) ----
+
+// The JAX `_quantize_act` (zgml_tpu/ops/qmatmul.py:181-190) of one 32-block
+// held one element per lane of a warp: s = amax / 127, inv = 1 / s (0 when
+// s == 0), q = clip(rint(v * inv), -127, 127), rounding half to even. True
+// division and no fast math (ops/build.py), so q and s are bit-equal to the
+// JAX package's. Returns q; every lane gets s.
+__device__ __forceinline__ int quantize_lane(float v, float& s) {
+  const float amax = warp_max(fabsf(v));
+  s = amax / 127.0f;
+  const float inv = s > 0.f ? 1.0f / s : 0.f;
+  return (int)fminf(fmaxf(rintf(v * inv), -127.f), 127.f);
+}
+
+// Words per 32-block of int8 activations in shared memory: the block's 8
+// words and one of padding, so 32 lanes on consecutive blocks hit 32 banks.
+constexpr int XQ_WORDS = 9;
+
+// The int8 tier's prologue inside a fused kernel, with the norm folded in:
+// n = x * rsqrt(mean(x^2) + eps) * g as stage_rmsnorm computes it, each
+// 32-block of n quantized as quantize_lane does into xq ([d/32][XQ_WORDS]
+// words) and xsc ([d/32] scales). Block 0 also writes the int8 row and its
+// scales to xq_out / xs_out where those are not null (a check's view of the
+// kernel's own activations). All threads call it; it ends with a barrier.
+__device__ __forceinline__ void stage_rmsnorm_i8(const float* x, const float* g, int d,
+                                                 float eps, int* xq, float* xsc, float* red,
+                                                 int8_t* xq_out, float* xs_out) {
+  const float inv = rms_inv(x, d, eps, red);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int8_t* xq8 = reinterpret_cast<int8_t*>(xq);
+  for (int b = warp; b < d / 32; b += blockDim.x >> 5) {
+    const int i = b * 32 + lane;
+    float s;
+    const int q = quantize_lane(x[i] * inv * g[i], s);
+    xq8[b * XQ_WORDS * 4 + lane] = (int8_t)q;
+    if (lane == 0) xsc[b] = s;
+    if (xq_out != nullptr && blockIdx.x == 0) {
+      xq_out[i] = (int8_t)q;
+      if (lane == 0) xs_out[b] = s;
+    }
+  }
+  __syncthreads();
+}
+
+// R weight rows against MR int8 activation rows in shared memory (row m's
+// words at xq + m * xq_row, its scales at xsc + m * xs_row): lane l takes
+// blocks l, l+32, ...; each block is loaded and unpacked (to_i8) once and
+// dotted exactly with every row, then acc[r][m] += float(isum) * (xs * d), as
+// K1 sums. Returns each row's lane partial (the caller reduces over the warp).
+template <class F, int R, int MR>
+__device__ __forceinline__ void rows_i8(const uint8_t* const (&qs)[R],
+                                        const __half* const (&d)[R], const int* xq, int xq_row,
+                                        const float* xsc, int xs_row, int nblk, int lane,
+                                        float (&acc)[R][MR]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < MR; ++m) acc[r][m] = 0.f;
+  for (int b = lane; b < nblk; b += 32) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      uint32_t w[F::WORDS];
+      load_block<F>(qs[r], b, w);
+      int wi[8];
+      F::to_i8(w, wi);
+      const float sw = __half2float(d[r][b]);
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const int isum = dot_i8(wi, xq + m * xq_row + b * XQ_WORDS);
+        acc[r][m] = fmaf((float)isum, __fmul_rn(xsc[m * xs_row + b], sw), acc[r][m]);
+      }
+    }
+  }
 }
 
 // ---- cooperative launches ----

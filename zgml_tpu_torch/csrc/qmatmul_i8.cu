@@ -30,7 +30,8 @@
 //
 // What the design does about it:
 //   * A pre-pass launched from the same entry point quantizes x: one warp per
-//     32-block, lane j holding element j (warp max for amax).
+//     32-block, lane j holding element j (common.cuh quantize_lane, which the
+//     i8a modes of K6 and K7 share).
 //   * GEMV: one warp per output row; lane l reads whole weight blocks l,
 //     l+32, ... (one or two 16-byte loads: 512 or 1024 contiguous bytes per
 //     warp) and takes 8 __dp4a against the block's activation words (Q4_0
@@ -49,7 +50,7 @@ namespace {
 
 constexpr int I8_WARPS = 8;    // output rows per GEMV block
 constexpr int I8_ROWS = 4;     // rows of x per GEMV block
-constexpr int XW = 9;          // shared-memory words per 32-block of xq (8 + 1 pad)
+constexpr int XW = XQ_WORDS;   // shared-memory words per 32-block of xq (8 + 1 pad)
 
 __global__ void quantize_act_kernel(const float* __restrict__ x, int8_t* __restrict__ xq,
                                     float* __restrict__ xs, int n_blocks,
@@ -61,12 +62,9 @@ __global__ void quantize_act_kernel(const float* __restrict__ x, int8_t* __restr
   const int blk = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (blk >= n_blocks) return;
-  const float v = x[(size_t)blk * 32 + lane];
-  const float amax = warp_max(fabsf(v));
-  const float s = amax / 127.0f;
-  const float inv = s > 0.f ? 1.0f / s : 0.f;
-  const float r = fminf(fmaxf(rintf(v * inv), -127.f), 127.f);
-  xq[(size_t)blk * 32 + lane] = (int8_t)r;
+  float s;
+  const int q = quantize_lane(x[(size_t)blk * 32 + lane], s);
+  xq[(size_t)blk * 32 + lane] = (int8_t)q;
   if (lane == 0) xs[blk] = s;
 }
 

@@ -5,14 +5,18 @@ stacked cache, chosen as the JAX package chooses them (config.py flags):
 
   - batch-1 decode with ZGML_TPU_ATTN_BLOCK on (the default), a head_dim
     and weight kinds the layer kernel takes: per layer the fused attention
-    block K7 (llama.py:773-811), then the fused FFN (`_ffn_after_attn`,
-    llama.py:217-260: K6d at Q4_0, K6a at Q8_0), or the composed FFN when
-    ZGML_TPU_KERNELS_DISABLE=fused_ffn or at a width JAX does not fuse at;
+    block K7 (llama.py:773-811; its A phase int8 where ZGML_TPU_ATTN_I8A
+    holds, by default at padded d >= 4096), then the fused FFN
+    (`_ffn_after_attn`, llama.py:217-260: at Q4_0 K6c where ZGML_TPU_FFN_I8A
+    holds, by default at padded d >= 4096, else K6d; K6a at Q8_0), or the
+    composed FFN when ZGML_TPU_KERNELS_DISABLE=fused_ffn or at a width JAX
+    does not fuse at;
   - everything else (prefill, batch > 1, ATTN_BLOCK=0): the per-layer
     `_layer_step(kv_layer=li)` path (llama.py:286-341) with fused `wqkv` and
-    `w_gate_up` projections and K3/K4 attention; its FFN runs as one fused
-    FFN launch (K6d / K6a) for calls of at most 32 rows where JAX runs its
-    fused f32 FFN (K6b / K6a) there, else composed;
+    `w_gate_up` projections and K3/K4 attention; its FFN, for calls of at
+    most 32 rows where JAX fuses there, is JAX's composition at Q4_0
+    (rmsnorm, the f32 fused FFN K6b, the residual; llama.py:326-340) and one
+    K6a launch at Q8_0 (the same function), else composed;
   - `_head_out` (llama.py:517-543): greedy through K5 when it applies, else
     the argmax over the logits.
 
@@ -95,20 +99,24 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
 
 
 def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
-    """The FFN half of a layer, x + down(swiglu(gate|up(rmsnorm(x)))), where
-    the JAX package fuses it (at most 32 rows, fused_ffn not disabled, a width
-    and kind it fuses at: ops/ffn.ffn_fuses) in one K6 launch, else composed
-    from two projections. At Q4_0 JAX's `_layer_step` fuses with its f32 K6b
-    and the fused decode with K6d, at Q8_0 both with K6a (llama.py:217-260,
-    326-340): the same f32 sums."""
+    """The FFN half of a layer, x + down(swiglu(gate|up(rmsnorm(x)))), fused
+    where the JAX package fuses it (at most 32 rows, fused_ffn not disabled,
+    a width and kind it fuses at: ops/ffn.ffn_fuses), else composed from two
+    projections (llama.py:217-260, 326-340). Fused: after K7 one K6 launch
+    with the norm and residual inside (K6c or K6d at Q4_0, picked in
+    ops/dispatch; K6a at Q8_0); in `_layer_step` at Q4_0 rmsnorm, K6b and the
+    residual, as JAX composes them, and at Q8_0 K6a (the same f32 sums)."""
     rows = x.numel() // x.shape[-1]
     kind = layer["w_down"].kind
-    if (rows <= ffn.FFN_MAX_ROWS and "fused_ffn" not in config.kernels_disabled()
-            and layer["w_gate_up"].kind == kind
-            and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block)):
+    fuses = (rows <= ffn.FFN_MAX_ROWS and "fused_ffn" not in config.kernels_disabled()
+             and layer["w_gate_up"].kind == kind
+             and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block))
+    if fuses and (after_attn_block or kind == "q8_0"):
         return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
                                   cfg.rms_norm_eps)
     h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
+    if fuses:
+        return x + ops.fused_ffn(h, layer["w_gate_up"], layer["w_down"])
     gu = ops.qmatmul(h, layer["w_gate_up"])
     f = gu.shape[-1] // 2
     ff = refs.swiglu(gu[..., :f], gu[..., f:])

@@ -9,8 +9,9 @@ nvcc links the objects:
          -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
     nvcc -shared *.o -o <build_dir>/libzgml_kernels_<hash>.so
 
-No fast-math flag: K1's activation quantization must round and divide as
-IEEE f32 does, like the JAX package.
+No fast-math flag: the int8 tier's activation quantization (K1, K5 and the
+i8a modes of K6 and K7) must round and divide as IEEE f32 does, like the JAX
+package.
 
 The library is built at first use into config.build_dir() (under build/,
 which .gitignore lists), named by a hash of the sources and flags so an
@@ -34,7 +35,7 @@ from zgml_tpu_torch import config
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
-           "qmatmul_i8.cu", "ffn.cu", "layer_attn.cu")
+           "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu")
 HEADERS = ("common.cuh", "decode_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,9 +51,9 @@ _SIGNATURES = {
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),
     "zgml_qmatmul_i8": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "zgml_greedy": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "zgml_ffn_norm": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "zgml_attn_block": (_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _P),
+    "zgml_ffn": (_I, *(_P,) * 8, _I, _I, _I, _P),
+    "zgml_attn_block": (_I, _I, *(_P,) * 19, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

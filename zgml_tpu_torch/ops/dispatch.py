@@ -11,8 +11,11 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
   which kernel a projection takes, from the JAX package's rule
     (qmatmul.py:639,728): the int8-activation K1 when config.i8dot() and the
     call has M <= 32 rows, else the f32-dequant K2, each at the weight's
-    kind (Q4_0 or Q8_0). The model picks the decode path (K7, K6, K5) from
-    config (models/llama.py).
+    kind (Q4_0 or Q8_0); K7's A phase from config.attn_i8a and the fused
+    decode FFN (K6c or K6d) from config.ffn_i8a, each at the JAX package's
+    padded width of the weight (config.padded_k; zgml_tpu/ops/dispatch.py
+    95-139, layerkernel.py:776, ffn.py:524). The model picks the decode path
+    (K7, K6, K5) and where the FFN fuses from config (models/llama.py).
 
 ``force_ref()`` is the one explicit way to run the plain versions on the card
 (to compare the kernels with them). It keeps the path and swaps each kernel
@@ -20,9 +23,10 @@ for its plain version; the JAX package's force_ref instead turns its fused
 kernels off, which changes the path. Every call is counted by tier in
 runtime.profile.global_profile, under one name per kernel and kind
 (qmatmul = K2, qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d,
-attn_block = K7 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a
-and K7 at Q8_0; attention = K3, decode_attention = K4): a kernel's count is
-added where it launches, a plain call's here.
+fused_ffn_norm_i8 = K6c, fused_ffn = K6b, attn_block = K7 with the f32 A
+phase and attn_block_i8 with the int8 one, at Q4_0; the same names with _q8
+for K2q8, K1q8, K5q8, K6a and K7 at Q8_0; attention = K3, decode_attention =
+K4): a kernel's count is added where it launches, a plain call's here.
 """
 from __future__ import annotations
 
@@ -97,25 +101,40 @@ def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
 
 def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: PackedWeight,
                    eps: float) -> torch.Tensor:
-    """K6d (Q4_0) / K6a (Q8_0): x + down(silu(gate(n)) * up(n)), n =
-    rmsnorm(x) * gamma; at most 32 rows."""
+    """x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * gamma; at most 32
+    rows: K6a at Q8_0; at Q4_0 K6c where config.ffn_i8a holds at the padded
+    width (as `fused_ffn_norm_q4n`, zgml_tpu/ops/ffn.py:524), else K6d."""
+    a_i8 = gu.kind == "q4_0" and config.ffn_i8a(config.padded_k(gu.k, gu.kind))
     if _use_kernel(x, gamma, gu.qs, wd.qs):
-        return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps)
-    global_profile.count_op(_qmm.counter("fused_ffn_norm", gu.kind), "ref")
-    return ffn.fused_ffn_norm_ref(x, gamma, gu, wd, eps)
+        return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps, a_i8)
+    name = "fused_ffn_norm_i8" if a_i8 else "fused_ffn_norm"
+    global_profile.count_op(_qmm.counter(name, gu.kind), "ref")
+    return ffn.fused_ffn_norm_ref(x, gamma, gu, wd, eps, a_i8)
+
+
+def fused_ffn(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tensor:
+    """K6b: down(silu(gate(h)) * up(h)) for an already-normed h of at most 32
+    rows, Q4_0 (zgml_tpu/ops/dispatch.py:95-110, counter fused_ffn)."""
+    if _use_kernel(h, gu.qs, wd.qs):
+        return ffn.fused_ffn_cuda(h, gu, wd)
+    global_profile.count_op("fused_ffn", "ref")
+    return ffn.fused_ffn_ref(h, gu, wd)
 
 
 def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, pos,
                cos, sin, n_heads: int, n_kv_heads: int, eps: float):
     """K7: one batch-1 decode token's attention half-layer over layer li of
     the stacked cache (written in place at pos); returns (x_out, k_cur,
-    v_cur). See ops/layerkernel.py for layouts."""
+    v_cur). Its A phase is int8 where config.attn_i8a holds at wqkv's
+    padded width (layerkernel.py:776). See ops/layerkernel.py for layouts."""
+    a_i8 = config.attn_i8a(config.padded_k(wqkv.k, wqkv.kind))
     if _use_kernel(x, gamma, wqkv.qs, wo.qs, ck, cv):
         return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
-                                           n_heads, n_kv_heads, eps)
-    global_profile.count_op(_qmm.counter("attn_block", wqkv.kind), "ref")
+                                           n_heads, n_kv_heads, eps, a_i8)
+    name = "attn_block_i8" if a_i8 else "attn_block"
+    global_profile.count_op(_qmm.counter(name, wqkv.kind), "ref")
     return layerkernel.attn_block_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
-                                      n_heads, n_kv_heads, eps)
+                                      n_heads, n_kv_heads, eps, a_i8)
 
 
 def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):

@@ -6,8 +6,16 @@ Counterpart of zgml_tpu/ops/layerkernel.py `_layer_kernel` through
 half-split RoPE, attention of each query head over layer li's cache rows
 j < pos plus the current token's own f32 K/V as the last column, the output
 projection and the residual, with wqkv and wo both Q4_0 or both Q8_0 (the
-JAX `kind`). Ported: the f32 A phase and the bf16 cache; not ported: the
-int8 A phase (`a_i8`, d >= 4096), the int8 cache, phase E.
+JAX `kind`). Ported: both A phases, f32 and int8 (`a_i8`, layerkernel.py:
+148-190, on where config.attn_i8a(dp) holds: by default at padded d >=
+4096), and the bf16 cache; not ported: the int8 cache, phase E.
+
+With a_i8 the QKV projection takes K1's int8 block dots on the normed row
+quantized per 32-block (qmatmul.rmsnorm_quantize_ref, the JAX pre-pass of
+layerkernel.py:774-792); on the card the kernel quantizes in its own
+prologue, and a check can pass `act_out` to receive those activations and
+`act` to feed them to the plain version (a row near a rounding boundary can
+land one level apart when the two sum the norm in another order).
 
 Layouts: x f32 [1, 1, d]; the stacked bf16 cache ck / cv [L, 1, Hkv, S, hd]
 (models/llama.py), which both versions write IN PLACE at (li, 0, :, pos) with
@@ -22,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from zgml_tpu_torch.ops import build, coop, refs
-from zgml_tpu_torch.ops.qmatmul import KIND_CODE, counter
+from zgml_tpu_torch.ops.qmatmul import KIND_CODE, counter, i8_dot_ref, rmsnorm_quantize_ref
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -54,14 +62,18 @@ def _heads(x, wqkv, wo, n_heads, n_kv_heads):
 def attn_block_ref(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                    wo: PackedWeight, ck: torch.Tensor, cv: torch.Tensor, li: int, pos,
                    cos: torch.Tensor, sin: torch.Tensor, n_heads: int, n_kv_heads: int,
-                   eps: float):
+                   eps: float, a_i8: bool = False, act=None):
     """Returns (x_out [1, 1, d], k_cur [1, Hkv, 1, hd] rotated, v_cur), all f32,
-    and writes the cache row pos of layer li."""
+    and writes the cache row pos of layer li. a_i8: the int8 A phase, on
+    `act` = (xq, xs) when given, else on rmsnorm_quantize_ref's."""
     d, hd = _heads(x, wqkv, wo, n_heads, n_kv_heads)
     p = int(pos.reshape(-1)[0]) if isinstance(pos, torch.Tensor) else int(pos)
     nq, nkv = n_heads * hd, n_kv_heads * hd
-    h = refs.rmsnorm(x, gamma, eps)
-    qkv = refs.qmatmul_ref(h, wqkv)                                     # [1, 1, n]
+    if a_i8:
+        xq, xs = rmsnorm_quantize_ref(x, gamma, eps) if act is None else act
+        qkv = i8_dot_ref(xq.reshape(1, d), xs.reshape(1, d // 32), wqkv).reshape(1, 1, -1)
+    else:
+        qkv = refs.qmatmul_ref(refs.rmsnorm(x, gamma, eps), wqkv)      # [1, 1, n]
     q = qkv[..., :nq].reshape(1, 1, n_heads, hd).transpose(1, 2)
     k = qkv[..., nq:nq + nkv].reshape(1, 1, n_kv_heads, hd).transpose(1, 2)
     v = qkv[..., nq + nkv:].reshape(1, 1, n_kv_heads, hd).transpose(1, 2)
@@ -78,9 +90,11 @@ def attn_block_ref(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
 def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                     wo: PackedWeight, ck: torch.Tensor, cv: torch.Tensor, li: int,
                     pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_heads: int,
-                    n_kv_heads: int, eps: float):
+                    n_kv_heads: int, eps: float, a_i8: bool = False, act_out=None):
     """Launch K7 (csrc/layer_attn.cu) at the weights' kind; same contract as
-    attn_block_ref, with pos an int32 [1] CUDA tensor."""
+    attn_block_ref, with pos an int32 [1] CUDA tensor. a_i8: the int8 A
+    phase, counted under attn_block_i8; act_out = (xq int8 [d], xs f32
+    [d/32]) receives its activations where given."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"attn_block: {msg}")
@@ -115,14 +129,21 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
     scratch = torch.empty(2 * n_heads * hd + n_heads * n_split * (hd + 2),
                           dtype=torch.float32, device=dev)
     q_s, att_s, part_s = scratch.split([n_heads * hd, n_heads * hd, n_heads * n_split * (hd + 2)])
+    xq_p = xs_p = None
+    if act_out is not None:
+        require(a_i8 and act_out[0].dtype == torch.int8 and act_out[0].numel() == d
+                and act_out[1].dtype == torch.float32 and act_out[1].numel() == d // 32
+                and all(t.device == dev and t.is_contiguous() for t in act_out),
+                f"act_out takes int8 [{d}] and float32 [{d // 32}] on {dev}, with a_i8")
+        xq_p, xs_p = act_out[0].data_ptr(), act_out[1].data_ptr()
     status = lib.zgml_attn_block(
-        KIND_CODE[wqkv.kind], x.data_ptr(), gamma.data_ptr(), wqkv.qs.data_ptr(),
+        KIND_CODE[wqkv.kind], int(a_i8), x.data_ptr(), gamma.data_ptr(), wqkv.qs.data_ptr(),
         wqkv.d.data_ptr(), wo.qs.data_ptr(), wo.d.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         ck[li].data_ptr(), cv[li].data_ptr(), pos.data_ptr(), x_out.data_ptr(),
         kv_cur.data_ptr(), q_s.data_ptr(), att_s.data_ptr(), part_s.data_ptr(),
-        coop.barrier_words(dev).data_ptr(), d, n_heads, n_kv_heads, hd, s,
+        coop.barrier_words(dev).data_ptr(), xq_p, xs_p, d, n_heads, n_kv_heads, hd, s,
         float(eps), 1.0 / hd ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "attn_block")
-    global_profile.count_op(counter("attn_block", wqkv.kind), "cuda")
+    global_profile.count_op(counter("attn_block_i8" if a_i8 else "attn_block", wqkv.kind), "cuda")
     kv = kv_cur.reshape(2, 1, n_kv_heads, 1, hd)
     return x_out, kv[0], kv[1]

@@ -87,17 +87,33 @@ def quantize_act_ref(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q.reshape(m, k), s
 
 
-def qmatmul_i8_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """K1's plain version: x f32 [..., K] -> f32 [..., N]. The block dots are
-    taken in f32 on integers below 2^24, so they are exact, as on the card."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, w.k)
-    xq, xs = quantize_act_ref(x2)
+def rmsnorm_quantize_ref(x: torch.Tensor, gamma: torch.Tensor,
+                         eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 pre-pass of K7's and K6's i8a modes, the norm folded in, as
+    the JAX package computes it (layerkernel.py:782-786, ffn.py:530-532):
+    n = x * rsqrt(sum(x^2) * (1/d) + eps) * gamma, then quantize_act_ref(n).
+    x f32 [..., d] -> (xq int8 [M, d], xs f32 [M, d/32])."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d).to(torch.float32)
+    ms = torch.sum(x2 * x2, dim=-1, keepdim=True) * (1.0 / d)
+    return quantize_act_ref(x2 * torch.rsqrt(ms + eps) * gamma.to(torch.float32))
+
+
+def i8_dot_ref(xq: torch.Tensor, xs: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """K1's block dots on given activations: xq int8 [M, K], xs f32 [M, K/32]
+    -> f32 [M, N] = sum_b float(sum_j xq_bj level_bj) * (xs_b * d_b). The
+    integer dots are taken in f32 on values below 2^24, so they are exact,
+    as on the card."""
     nb = w.k // QK
     p = torch.einsum("mbj,nbj->mnb", xq.view(-1, nb, QK).to(torch.float32),
                      w.levels().to(torch.float32))                          # [M, N, nb]
-    y = (p * (xs[:, None, :] * w.d.to(torch.float32)[None])).sum(dim=-1)
-    return y.reshape(*lead, w.n)
+    return (p * (xs[:, None, :] * w.d.to(torch.float32)[None])).sum(dim=-1)
+
+
+def qmatmul_i8_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """K1's plain version: x f32 [..., K] -> f32 [..., N]."""
+    lead = x.shape[:-1]
+    return i8_dot_ref(*quantize_act_ref(x.reshape(-1, w.k)), w).reshape(*lead, w.n)
 
 
 def greedy_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
