@@ -9,29 +9,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      parallel), print the build time;
   2. check each kernel against its plain torch version on the card at the
      shapes of the main paths, and time both (device time from
-     torch.profiler). At the TinyLlama-1.1B shapes, at Q4_0 and at Q8_0
+     torch.profiler, or from CUDA events around calls queued behind a spin
+     kernel where the profiler's windows come back empty). At the TinyLlama-1.1B shapes, at Q4_0 and at Q8_0
      where the kernel takes a weight: K2 at M = 1 and 128 on the five
      projections; K1 at M = 1, 8, 32 (its quantized activations bit-equal to
      the plain ones); K5 on lm_head (its id equal to argmax of K1 exactly;
      its error is how far the plain logit of its id lies below the plain
      maximum); K6 at M = 1, 8, 32 (K6d at Q4_0, K6a at Q8_0); K6b at M = 1,
-     7, 32; K7 at pos 0, 1, 200, 2047 of a random stacked cache; K3 and K4.
-     At the Llama-2-7B shapes: K2q4, K1q4 and K5q4 on its projections; K6c
-     at M = 1, 8 and K6b at M = 1, 7, 32; K7's int8 A phase at pos 0, 1,
-     200, 2047 at Q4_0 and Q8_0; K3 at head_dim 128 with n_rep 1. K6c and
-     K7-i8 quantize a row they norm themselves: the plain version runs on
-     the kernel's own int8 activations, and the levels that differ from the
-     plain pre-pass are counted (at most one level apart). Each case also
-     gets its bound (the least time the card could take: bytes moved, each
-     input read once and each output written once, over 3.35 TB/s, or the
-     operations over the card's peak for their type, f32 at 67 TFLOP/s and
-     int8 at 1979 TOP/s, whichever is larger) and, where one PyTorch call
-     computes the same function, that call's device time (library_ms, timed
-     here and used nowhere in the port);
+     7, 32; K7 at pos 0, 1, 200, 2047 of a random stacked cache, bf16 and
+     int8 (kv8); K3 and K4; K9 on a 128-row chunk at q_offset 0 and 1408 and
+     K8 at batch 4 (per-row kv_len 1, 200, 2047, 1000), over a stacked int8
+     cache through kv_row. At the Llama-2-7B shapes: K2q4, K1q4 and K5q4 on
+     its projections; K6c at M = 1, 8 and K6b at M = 1, 7, 32; K7's int8 A
+     phase at pos 0, 1, 200, 2047 at Q4_0 and Q8_0, over the bf16 and the
+     int8 cache; K3 at head_dim 128 with n_rep 1; K9 as at TinyLlama and K8
+     at batch 1 (kv_len 200, 2047). K6c and K7-i8 quantize a row they norm
+     themselves: the plain version runs on the kernel's own int8 activations,
+     and the levels that differ from the plain pre-pass are counted (at most
+     one level apart); K7-kv8 likewise runs the plain version on the
+     kernel's own quantized q, and its cache row pos must be quantize_columns
+     of its own k_cur / v_cur bit for bit. Each case also gets its bound (the
+     least time the card could take: bytes moved, each input read once and
+     each output written once, over 3.35 TB/s, or the operations over the
+     card's peak for their type, f32 at 67 TFLOP/s and int8 at 1979 TOP/s,
+     whichever is larger) and, where one PyTorch call computes the same
+     function, that call's device time (library_ms, timed here and used
+     nowhere in the port; for K8 / K9 scaled_dot_product_attention after an
+     untimed dequant);
   3. end to end: synthetic GGUFs from seed 0 (written to .bench_cache/
      once), TinyLlama-1.1B at Q4_0 and Q8_0 and Llama-2-7B at Q4_0 (full
      width and 32 layers, max_seq_len 2048 as bench.py's preset, 4.2 GB) ->
-     load_llama(device="cuda") -> LlamaEngine(prefill_chunk=128), on four
+     load_llama(device="cuda") -> LlamaEngine(prefill_chunk=128), on six
      paths, each with the placement counts set to 0 just before it and read
      just after:
        default     TinyLlama Q4_0, the JAX package's default flags: 3 greedy
@@ -52,15 +60,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                    turns the int8 decode tier on): the 3 greedy and the
                    sampled request; K1q4, K2q4, K3, K5q4, K6b, K6c and K7
                    (int8 A phase) must launch, and no f32-mode K7, K6d or K4;
+       kv8_tiny    TinyLlama Q4_0, the default flags, cache_dtype="int8": the
+                   3 greedy and the sampled request, then a greedy request of
+                   4 rows x 128 prompt tokens (32 tokens each) from a batch-4
+                   engine; K1q4, K2q4, K5q4, K6b, K6d, K7 (f32 A phase, int8
+                   cache), K9 and K8 must launch, and no K3, K4 or bf16-cache
+                   K7;
+       kv8_7b      Llama-2-7B Q4_0, the default flags, cache_dtype="int8":
+                   the 3 greedy and the sampled request and a greedy request
+                   of a 1536-token prompt; K1q4, K2q4, K5q4, K6b, K6c, K7
+                   (int8 A phase, int8 cache) and K9 must launch, and no K3,
+                   K4, K8 or other K7 mode;
      no other kernel and no plain-tier call may run on a path; on each path
-     the first request is compared with the same engine under force_ref()
-     (the same path with every kernel swapped for its plain version): the
-     prefill logits, one decode step from a shared cache, and the greedy
-     tokens;
+     the first request (and on kv8_tiny the batch-4 one) is compared with the
+     same engine under force_ref() (the same path with every kernel swapped
+     for its plain version): the prefill logits, one decode step from a
+     shared cache, and the greedy tokens;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
-     turns (rounds of the paths there and back; median per path), and per
-     path a torch.profiler breakdown of one prefill chunk and 8 decode
-     steps;
+     turns (rounds of the paths there and back; median per path), with tg32
+     also at a 1536-token context on llama2_7b and kv8_7b; per path a
+     torch.profiler breakdown of one prefill chunk and 8 decode steps (and,
+     on those two, 8 steps at the 1536-token context with K7's device time
+     per token; "not measured" where the profiler sees no kernel);
   5. print the kernels' JSON line, then the device JSON line last.
 Details also go to chiprun_out/chip_smoke/ (summary JSON, profiler tables).
 There is no CPU path: without a CUDA device it exits 2.
@@ -103,6 +124,11 @@ FFN_D_7B, FFN_F_7B = 4096, 11008
 # kv_len that ends inside the chunk; and decode kv_len values
 FLASH_CASES = [(0, 128), (128, 256), (128, 200)]
 DECODE_LENS = [1, 200, 2047]
+# the int8 cache's checks: K9 on a 128-row chunk at q_offset 0 and 1408 (the
+# 12th chunk of a 1536-token prompt); K8 on batches of per-row kv_len
+KV8_FLASH_CASES = [(0, 128), (1408, 1536)]
+KV8_DECODE_LENS = [[1, 200, 2047, 1000]]          # TinyLlama, batch 4
+KV8_DECODE_LENS_7B = [[200], [2047]]              # Llama-2-7B, batch 1
 LOGIT_RTOL = 1e-3          # K2 and K3 run f32 operands
 I8_ROWS = (1, 8, 32)       # K1 cases: decode, a small batch, the largest int8 call
 ATTN_POS = (0, 1, 200, 2047)
@@ -137,17 +163,34 @@ PATHS = {"default": {},
          "unfused": {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
                      "ZGML_TPU_I8DOT": "0"},
          "q8_default": {},
-         "llama2_7b": {}}
+         "llama2_7b": {},
+         "kv8_tiny": {},
+         "kv8_7b": {}}
 PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
-              "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0")}
-PATH_SAMPLED = ("default", "q8_default", "llama2_7b")   # paths that also answer the sampled request
+              "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0"),
+              "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_7b": ("llama2-7b", "q4_0")}
+PATH_CACHE = {"kv8_tiny": "int8", "kv8_7b": "int8"}    # the engines' cache_dtype; else bf16
+# paths that also answer the sampled request
+PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_7b")
+BATCH4_PATHS = ("kv8_tiny",)    # + 4 rows x 128 prompt tokens from a batch-4 engine (K8)
+LONG_PATHS = ("kv8_7b",)        # + a LONG_PROMPT-token prompt, 32 new tokens
+LONG_RATE_PATHS = ("llama2_7b", "kv8_7b")   # phase 4: tg32 also at a LONG_PROMPT context
+LONG_PROMPT = 1536
+# paths whose decode quantizes per token beyond K1 (K7-i8 and K6c on Llama-2-7B, the
+# int8 cache): their tokens are compared up to a top-2 gap under the step bound
+FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_7b")
 PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
                             "fused_ffn_norm", "fused_ffn", "attn_block"),
                 "unfused": ("q4_matmul", "flash_attention", "decode_attention"),
                 "q8_default": ("q8_matmul_i8", "q8_matmul", "flash_attention", "q8_greedy",
                                "fused_ffn_norm_q8", "attn_block_q8"),
                 "llama2_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                              "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8")}
+                              "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8"),
+                "kv8_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
+                             "fused_ffn_norm", "fused_ffn", "attn_block_kv8",
+                             "decode_attention_q8"),
+                "kv8_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
+                           "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8")}
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -171,6 +214,18 @@ KERNELS = {
                          "zgml_tpu/ops/layerkernel.py:685"),
     "fused_ffn_norm_i8": ("fused_ffn_norm_i8", _CSRC + "ffn.cu", "zgml_tpu/ops/ffn.py:416"),
     "fused_ffn": ("fused_ffn", _CSRC + "ffn_planar.cu", "zgml_tpu/ops/ffn.py:224"),
+    "flash_attention_q8": ("flash_attention_q8", _CSRC + "flash_attn.cu",
+                           "zgml_tpu/ops/attention.py:702"),
+    "decode_attention_q8": ("decode_attention_q8", _CSRC + "decode_attn.cu",
+                            "zgml_tpu/ops/attention.py:506"),
+    "attn_block_kv8": ("attn_block_kv8", _CSRC + "layer_attn.cu",
+                       "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_kv8_q8": ("attn_block_kv8_q8", _CSRC + "layer_attn.cu",
+                          "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_kv8": ("attn_block_i8_kv8", _CSRC + "layer_attn.cu",
+                          "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_kv8_q8": ("attn_block_i8_kv8_q8", _CSRC + "layer_attn.cu",
+                             "zgml_tpu/ops/layerkernel.py:685"),
 }
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
@@ -178,7 +233,10 @@ NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("greedy", "q4_0"): "q4_greedy", ("greedy", "q8_0"): "q8_greedy",
         ("ffn", "q4_0"): "fused_ffn_norm", ("ffn", "q8_0"): "fused_ffn_norm_q8",
         ("attn", "q4_0"): "attn_block", ("attn", "q8_0"): "attn_block_q8",
-        ("attn_i8", "q4_0"): "attn_block_i8", ("attn_i8", "q8_0"): "attn_block_i8_q8"}
+        ("attn_i8", "q4_0"): "attn_block_i8", ("attn_i8", "q8_0"): "attn_block_i8_q8",
+        ("attn_kv8", "q4_0"): "attn_block_kv8", ("attn_kv8", "q8_0"): "attn_block_kv8_q8",
+        ("attn_i8_kv8", "q4_0"): "attn_block_i8_kv8",
+        ("attn_i8_kv8", "q8_0"): "attn_block_i8_kv8_q8"}
 # why a kernel has no library_ms
 NO_LIBRARY = {
     "q8": "none: no PyTorch call computes a 32-block Q8_0 product (torch._weight_int8pack_mm "
@@ -203,13 +261,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, calls, iters: int) -> tuple[float, float]:
-    """(device ms, host-inclusive ms) per call over `iters` calls, cycling
-    through `calls` (several weight copies keep the L2 cache cold, as in a
-    real step). Device ms is the sum of the calls' kernel durations from
-    torch.profiler (CUPTI); host-inclusive ms is CUDA-event time over the
-    loop, which includes the Python wrapper when it is slower than the
-    kernels."""
+def time_ms(torch, calls, iters: int) -> tuple[float, float, str]:
+    """(device ms, host-inclusive ms, timer) per call over `iters` calls,
+    cycling through `calls` (several weight copies keep the L2 cache cold,
+    as in a real step). Device ms is the sum of the calls' kernel durations
+    from torch.profiler (CUPTI; timer "profiler"), or, where no profiler
+    window saw a kernel, CUDA-event time over a backlog (`held_event_ms`;
+    timer "events"); host-inclusive ms is CUDA-event time over the loop,
+    which includes the Python wrapper when it is slower than the kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     for c in calls:
@@ -224,17 +283,50 @@ def time_ms(torch, calls, iters: int) -> tuple[float, float]:
     host_ms = start.elapsed_time(end) / iters
     # after many profiler sessions in one process a window now and then comes
     # back without its device events (seen on the H100); the calls are
-    # idempotent, so the window is profiled again
+    # idempotent, so the window is profiled again. A window also loses some
+    # of its kernel records (a few launches in 50 of K7, and now and then most
+    # of them), so the time per call is each kernel's mean duration times its
+    # launches per call, not the window's sum over `iters`
     for _ in range(PROFILE_TRIES):
         with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 calls[i % len(calls)]()
             torch.cuda.synchronize()
-        dev_us = sum(_self_device_us(ev) for ev in prof.key_averages()
-                     if ev.device_type == DeviceType.CUDA)
-        if dev_us > 0:
-            return dev_us / 1e3 / iters, host_ms
-    raise RuntimeError(f"the profiler saw no kernel in {PROFILE_TRIES} windows")
+        kern = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA and ev.count]
+        if kern:
+            per_call = sum(_self_device_us(ev) / ev.count * max(1, round(ev.count / iters))
+                           for ev in kern)
+            return per_call / 1e3, host_ms, "profiler"
+    # a run of empty windows (seen once on the H100, at the first library call
+    # of phase 2): the profiler gives no time here, CUDA events do
+    log(f"  (the profiler saw no kernel in {PROFILE_TRIES} windows: CUDA events)")
+    return held_event_ms(torch, calls, iters, host_ms), host_ms, "events"
+
+
+_SPIN_CYCLES_PER_MS = []
+
+
+def held_event_ms(torch, calls, iters: int, host_ms: float) -> float:
+    """Device ms per call from one pair of CUDA events around `iters` calls
+    queued behind a spin kernel that holds the stream until the host has
+    queued them all, so the span is the card's time for the calls and not
+    the host's time to issue them (up to the launch queue's depth)."""
+    if not _SPIN_CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    hold_ms = min(2000.0, 2.0 * host_ms * iters + 5.0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(hold_ms * _SPIN_CYCLES_PER_MS[0]))
+    start.record()
+    for i in range(iters):
+        calls[i % len(calls)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _self_device_us(ev) -> float:
@@ -265,7 +357,8 @@ def check_kernels(torch, dev):
                                               flash_attention_cuda, flash_attention_ref)
     from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda,
                                         fused_ffn_norm_ref, fused_ffn_ref)
-    from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref
+    from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref, qkv_ref
+    from zgml_tpu_torch.quant.kv_cache import quantize_columns
     from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, greedy_ref, qmatmul_cuda,
                                             qmatmul_i8_cuda, qmatmul_i8_ref, qmatmul_ref,
                                             quantize_act_cuda, quantize_act_ref,
@@ -282,10 +375,12 @@ def check_kernels(torch, dev):
         library call's time or why there is none."""
         b_ms, b_by = bound_of(nbytes, flops, i8ops)
         lib_ms = None if lib is None else lib[0]
+        timers = {"ms": t[2], "plain_ms": tp[2]} | ({} if lib is None else {"library_ms": lib[2]})
         results[kernel].append(dict(case=case, err=err, bound=bound, ms=t[0], call_ms=t[1],
                                     plain_ms=tp[0], plain_call_ms=tp[1], bytes=nbytes,
                                     flops=flops, i8ops=i8ops, bound_ms=b_ms, bound_by=b_by,
-                                    library_ms=lib_ms, library_note=lib_note, **extra))
+                                    library_ms=lib_ms, library_note=lib_note, timers=timers,
+                                    **extra))
         lib_txt = (f"library {lib_ms * 1e3:.1f}" if lib_ms is not None
                    else f"library {lib_note.split(':')[0]}")
         log(f"  {kernel} {case}: max_abs_err {err:.3g} (bound {bound:.3g}); device us "
@@ -458,31 +553,47 @@ def check_kernels(torch, dev):
             record("fused_ffn", f"{model}M={m} D={d} F={f}", err, bound, t, tp,
                    2 * m * d * 4 + wbytes, 6 * m * d * f, None, NO_LIBRARY["planar"])
 
-    def check_attn_block(kind, shape, model, a_i8):
+    def random_cache(shape, kv8):
+        """A random stacked cache [L, 1, Hkv, S, hd]: bf16, or (kv8) int8
+        levels with per-position f32 scales (the dequantized values ~1)."""
+        if not kv8:
+            return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+        return (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g),
+                torch.rand(shape[:-1], device=dev, generator=g) * 0.01 + 0.01)
+
+    def clone(c):
+        return tuple(t.clone() for t in c) if isinstance(c, tuple) else c.clone()
+
+    def check_attn_block(kind, shape, model, a_i8, kv8=False):
         """K7 over a random stacked cache, layer ATTN_LAYER; with a_i8 its
         int8 A phase, held to the plain version on the kernel's own int8
-        activations."""
+        activations; with kv8 its int8-cache mode, held to the plain version
+        on the kernel's own quantized q (q8_out), its row pos bit-equal to
+        quantize_columns of its own k_cur / v_cur."""
         n_layers, hq, hkv, hd = shape
-        kc = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
-        vc = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        kc = random_cache((n_layers, 1, hkv, S, hd), kv8)
+        vc = random_cache((n_layers, 1, hkv, S, hd), kv8)
         d, nq, nkv = hq * hd, hq * hd, hkv * hd
         nqkv = nq + 2 * nkv
         wqkvs, wos = weights(kind, nqkv, d, 64_000_000), weights(kind, d, nq, 64_000_000)
         layers = list(zip(wqkvs, wos))
         wbytes = nbytes_of(wqkvs[0].qs, wqkvs[0].d, wos[0].qs, wos[0].d)
         gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
-        kname = NAME["attn_i8" if a_i8 else "attn", kind]
+        kname = NAME[("attn_i8" if a_i8 else "attn") + ("_kv8" if kv8 else ""), kind]
+        row_bytes = 2 * (nkv + 4 * hkv) if kv8 else 2 * nkv * 2   # K and V of one position
         for pos in ATTN_POS:
             x = torch.randn((1, 1, d), device=dev, generator=g)
             cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
             pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
-            kr, vr = kc.clone(), vc.clone()
+            kr, vr = clone(kc), clone(vc)
             act = ((torch.empty(d, dtype=torch.int8, device=dev),
                     torch.empty(d // 32, device=dev)) if a_i8 else None)
+            q8 = ((torch.empty((hq, hd), dtype=torch.int8, device=dev),
+                   torch.empty(hq, device=dev)) if kv8 else None)
             got = attn_block_cuda(x, gamma, *layers[0], kc, vc, ATTN_LAYER, pos_t, cos, sin,
-                                  hq, hkv, 1e-5, a_i8, act)
+                                  hq, hkv, 1e-5, a_i8, act, q8)
             want = attn_block_ref(x, gamma, *layers[0], kr, vr, ATTN_LAYER, pos, cos, sin,
-                                  hq, hkv, 1e-5, a_i8, act)
+                                  hq, hkv, 1e-5, a_i8, act, q8)
             torch.cuda.synchronize()
             errs = [rel_err(a, b) for a, b in zip(got, want)]
             require(all(bool(torch.isfinite(a).all()) for a in got)
@@ -490,18 +601,42 @@ def check_kernels(torch, dev):
                     f"{kname} {model}pos={pos}: (max_abs_err, bound) of x_out, k_cur, v_cur "
                     f"{errs}")
             rows = torch.arange(S, device=dev) != pos
-            require(torch.equal(kc[ATTN_LAYER, 0, :, pos], got[1][0, :, 0].to(torch.bfloat16))
-                    and torch.equal(vc[ATTN_LAYER, 0, :, pos], got[2][0, :, 0].to(torch.bfloat16))
-                    and torch.equal(kc[..., rows, :], kr[..., rows, :])
-                    and torch.equal(vc[..., rows, :], vr[..., rows, :]),
-                    f"{kname} {model}pos={pos}: cache row pos is not bf16(k_cur, v_cur), or "
-                    f"another row changed")
+            if kv8:
+                same = True
+                for (lv, sc), (lv_r, sc_r), cur in ((kc, kr, got[1]), (vc, vr, got[2])):
+                    wq, ws = quantize_columns(cur[0, :, 0])
+                    same &= (torch.equal(lv[ATTN_LAYER, 0, :, pos], wq)
+                             and torch.equal(sc[ATTN_LAYER, 0, :, pos].view(torch.int32),
+                                             ws.view(torch.int32))
+                             and torch.equal(lv[..., rows, :], lv_r[..., rows, :])
+                             and torch.equal(sc[..., rows], sc_r[..., rows]))
+                require(same, f"{kname} {model}pos={pos}: cache row pos is not "
+                        f"quantize_columns(k_cur, v_cur), or another row changed")
+            else:
+                require(torch.equal(kc[ATTN_LAYER, 0, :, pos],
+                                    got[1][0, :, 0].to(torch.bfloat16))
+                        and torch.equal(vc[ATTN_LAYER, 0, :, pos],
+                                        got[2][0, :, 0].to(torch.bfloat16))
+                        and torch.equal(kc[..., rows, :], kr[..., rows, :])
+                        and torch.equal(vc[..., rows, :], vr[..., rows, :]),
+                        f"{kname} {model}pos={pos}: cache row pos is not bf16(k_cur, v_cur), "
+                        f"or another row changed")
             case, extra = f"{model}pos={pos} layer={ATTN_LAYER} (x_out, k_cur, v_cur)", {}
             if a_i8:
                 n_diff, n_all = own_levels(act, x, gamma)
                 case += f", on the kernel's int8 activations ({n_diff} of {n_all} levels " \
                         f"one off the plain pre-pass)"
                 extra = dict(levels_off=n_diff, levels=n_all)
+            if kv8:
+                q_plain = qkv_ref(x, gamma, layers[0][0], cos, sin, hq, hkv, hd, 1e-5, a_i8,
+                                  act)[0]
+                rq, _ = quantize_columns(q_plain.reshape(hq, hd))
+                dq = (q8[0].to(torch.int16) - rq.to(torch.int16)).abs()
+                require(int(dq.max()) <= 1, f"{kname} {model}pos={pos}: the kernel's q levels "
+                        f"are {int(dq.max())} from the plain quantization")
+                case += f", on the kernel's quantized q ({int((dq > 0).sum())} of {dq.numel()} " \
+                        f"levels one off the plain quantization)"
+                extra.update(q_levels_off=int((dq > 0).sum()), q_levels=dq.numel())
             t = time_ms(torch, [lambda l_=ly: attn_block_cuda(x, gamma, *l_, kc, vc, ATTN_LAYER,
                                                               pos_t, cos, sin, hq, hkv, 1e-5,
                                                               a_i8) for ly in layers], 50)
@@ -510,13 +645,16 @@ def check_kernels(torch, dev):
                                                               a_i8) for ly in layers], 20)
             worst = max(errs, key=lambda eb: eb[0] / eb[1])
             # x, gamma, the weights, cos/sin and the pos cache rows in; x_out,
-            # k_cur/v_cur and the new bf16 cache row out
-            nbytes = (2 * d * 4 + wbytes + hd * 4 + 2 * pos * nkv * 2
-                      + d * 4 + 2 * nkv * 4 + 2 * nkv * 2)
+            # k_cur/v_cur and the new cache row out
+            nbytes = (2 * d * 4 + wbytes + hd * 4 + pos * row_bytes
+                      + d * 4 + 2 * nkv * 4 + row_bytes)
             qkv_ops = 2 * d * nqkv
-            flops = (0 if a_i8 else qkv_ops) + 2 * nq * d + 4 * hq * (pos + 1) * hd
+            attn_ops = 2 * hq * pos * hd                # q . k, and again p . v
+            flops = ((0 if a_i8 else qkv_ops) + 2 * nq * d + (1 if kv8 else 2) * attn_ops
+                     + 4 * hq * hd)
+            i8ops = (qkv_ops if a_i8 else 0) + (attn_ops if kv8 else 0)
             record(kname, case, worst[0], worst[1], t, tp, nbytes, flops, None,
-                   NO_LIBRARY["attn"], i8ops=qkv_ops if a_i8 else 0, **extra)
+                   NO_LIBRARY["attn"], i8ops=i8ops, **extra)
 
     log("  -- TinyLlama-1.1B shapes")
     for kind in KINDS:
@@ -524,9 +662,11 @@ def check_kernels(torch, dev):
             check_projection(kind, name, n, k, "")
         check_ffn(kind, FFN_D, FFN_F, "", a_i8=False)
         check_attn_block(kind, (L, HQ, HKV, D), "", a_i8=False)
+        check_attn_block(kind, (L, HQ, HKV, D), "", a_i8=False, kv8=True)
     check_planar(FFN_D, FFN_F, "")
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
                     decode_attention_cuda, decode_attention_ref, (L, HQ, HKV, D), "")
+    check_attention_q8(torch, dev, g, record, (L, HQ, HKV, D), "", KV8_DECODE_LENS)
     log("  -- Llama-2-7B shapes")
     for name, n, k in GEMM_SHAPES_7B:
         check_projection("q4_0", name, n, k, "7B ")
@@ -534,8 +674,11 @@ def check_kernels(torch, dev):
     check_planar(FFN_D_7B, FFN_F_7B, "7B ")
     for kind in KINDS:
         check_attn_block(kind, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ", a_i8=True)
+        check_attn_block(kind, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ", a_i8=True, kv8=True)
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
                     None, None, (L_7B, HQ_7B, HKV_7B, D_7B), "7B hd=128 n_rep=1 ")
+    check_attention_q8(torch, dev, g, record, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ",
+                       KV8_DECODE_LENS_7B)
     return results
 
 
@@ -631,6 +774,78 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
                f"(max abs err {lib_err:.2g})")
 
 
+def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
+    """K9 and K8 over a random stacked int8 cache (levels and per-position
+    scales, read through kv_row): K9 on a 128-row chunk at KV8_FLASH_CASES,
+    K8 on one row per entry of decode_lens (each a batch of per-row
+    kv_len). The library call is scaled_dot_product_attention with
+    enable_gqa in f32 on the cache rows dequantized outside the timed window
+    (and, for K8, on q quantized and dequantized as the kernel does)."""
+    from zgml_tpu_torch.ops.attention import (decode_attention_q8_cuda, decode_attention_q8_ref,
+                                              flash_attention_q8_cuda, flash_attention_q8_ref)
+    from zgml_tpu_torch.quant.kv_cache import dequantize, quantize_columns
+    n_layers, hq, hkv, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bmax = max(len(lens) for lens in decode_lens)
+    rows = n_layers * bmax
+    k = torch.randint(-127, 128, (rows, hkv, S, hd), dtype=torch.int8, device=dev, generator=g)
+    v = torch.randint(-127, 128, (rows, hkv, S, hd), dtype=torch.int8, device=dev, generator=g)
+    ks = torch.rand((rows, hkv, S), device=dev, generator=g) * 0.01 + 0.01
+    vs = torch.rand((rows, hkv, S), device=dev, generator=g) * 0.01 + 0.01
+    pos_bytes = 2 * hkv * (hd + 4)              # K and V levels and scales of one position
+    for q_off, kv_len in KV8_FLASH_CASES:
+        q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
+        row = (q_off // 128) % rows
+        args = (q, k, ks, v, vs, kv_len, q_off, row)
+        got, want = flash_attention_q8_cuda(*args), flash_attention_q8_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= 1e-5,
+                f"flash_attention_q8 {model}q_offset={q_off} kv_len={kv_len}: max_abs_err "
+                f"{err:.3g}")
+        t = time_ms(torch, [lambda: flash_attention_q8_cuda(*args)], 50)
+        tp = time_ms(torch, [lambda: flash_attention_q8_ref(*args)], 20)
+        kf = dequantize(k[row:row + 1, :, :kv_len], ks[row:row + 1, :, :kv_len])
+        vf = dequantize(v[row:row + 1, :, :kv_len], vs[row:row + 1, :, :kv_len])
+        qi = torch.arange(128, device=dev)[:, None] + q_off
+        mask = torch.arange(kv_len, device=dev)[None, :] <= qi
+        lib_err = float((sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True) - want).abs().max())
+        lib = time_ms(torch, [lambda: sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True)], 50)
+        live = int(mask.sum())
+        record("flash_attention_q8", f"{model}hd={hd} Tq=128 q_offset={q_off} kv_len={kv_len} "
+               f"kv_row={row}", err, 1e-5, t, tp, 2 * q.numel() * 4 + kv_len * pos_bytes,
+               4 * hq * live * hd, lib,
+               f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), f32, after "
+               f"an untimed dequant (max abs err {lib_err:.2g})")
+    for lens_ in decode_lens:
+        b = len(lens_)
+        q = torch.randn((b, hq, 1, hd), device=dev, generator=g)
+        lens = torch.tensor(lens_, dtype=torch.int32, device=dev)
+        row = (n_layers - 1) * b                      # the last layer's rows
+        args = (q, k, ks, v, vs, lens, row)
+        got, want = decode_attention_q8_cuda(*args), decode_attention_q8_ref(*args)
+        torch.cuda.synchronize()
+        err, bound = float((got - want).abs().max()), 1e-5 * float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= bound,
+                f"decode_attention_q8 {model}kv_len={lens_}: max_abs_err {err:.3g} > {bound:.3g}")
+        t = time_ms(torch, [lambda: decode_attention_q8_cuda(*args)], 100)
+        tp = time_ms(torch, [lambda: decode_attention_q8_ref(*args)], 20)
+        n = max(lens_)
+        qq, qs = quantize_columns(q)
+        qf = dequantize(qq, qs)
+        kf = dequantize(k[row:row + b, :, :n], ks[row:row + b, :, :n])
+        vf = dequantize(v[row:row + b, :, :n], vs[row:row + b, :, :n])
+        mask = (torch.arange(n, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        lib_err = float((sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True) - want).abs().max())
+        lib = time_ms(torch, [lambda: sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True)], 100)
+        live = sum(lens_)
+        record("decode_attention_q8", f"{model}hd={hd} B={b} kv_len={lens_}", err, bound, t, tp,
+               2 * q.numel() * 4 + b * 4 + live * pos_bytes, 2 * hq * live * hd, lib,
+               f"scaled_dot_product_attention(enable_gqa=True, per-row mask), f32, after an "
+               f"untimed dequant of q and the cache (max abs err {lib_err:.2g})",
+               i8ops=2 * hq * live * hd)
+
+
 def preset(name: str):
     """The model of a path: bench.py's presets, at its max_seq_len 2048."""
     import dataclasses
@@ -689,57 +904,91 @@ def load_model(torch, dev, name: str, kind: str):
 
 
 def end_to_end(torch, model, prompts, name, summary):
-    """Drive one path through the engine; returns (engine, launches)."""
-    from zgml_tpu_torch.ops.dispatch import force_ref
+    """Drive one path through the engine; returns (engine, launches).
+    prompts: the three greedy prompts, then the long prompt and the batch-4
+    prompt (used by LONG_PATHS and BATCH4_PATHS)."""
     from zgml_tpu_torch.runtime.engine import LlamaEngine
     from zgml_tpu_torch.runtime.profile import global_profile
     from zgml_tpu_torch.runtime.sampling import SamplingParams
 
     set_path(name)
-    eng = LlamaEngine(model, prefill_chunk=128)
+    greedy, long_prompt, prompt4 = prompts[:3], prompts[3], prompts[4]
+    cache = PATH_CACHE.get(name, "bf16")
+    eng = LlamaEngine(model, prefill_chunk=128, cache_dtype=cache)
     # the sampled request's engine prefills in chunks of SAMPLED_CHUNK rows, as
     # a latency-bound server may: its 7-token prompt runs `_layer_step` at <=
     # 32 rows (K1, and K6b / K6a for the FFN), which a 128-row chunk never does
-    sampled = (LlamaEngine(model, prefill_chunk=SAMPLED_CHUNK,
+    sampled = (LlamaEngine(model, prefill_chunk=SAMPLED_CHUNK, cache_dtype=cache,
                            sampling=SamplingParams(temperature=0.8))
                if name in PATH_SAMPLED else None)
+    eng4 = (LlamaEngine(model, batch=4, prefill_chunk=128, cache_dtype=cache)
+            if name in BATCH4_PATHS else None)
     vocab = model.cfg.vocab_size
 
     torch.cuda.synchronize()
     global_profile.reset()
-    outs = []
-    for p in prompts:
+    outs, labels = [], []
+    for p in greedy:
         eng.reset()
         outs.append(eng.generate(p, 32))
+        labels.append(f"prompt {len(p):>4} tokens, greedy")
     if sampled is not None:
-        outs.append(sampled.generate(prompts[0], 32))
+        outs.append(sampled.generate(greedy[0], 32))
+        labels.append(f"prompt {len(greedy[0]):>4} tokens, sampled T=0.8")
+    if name in LONG_PATHS:
+        eng.reset()
+        outs.append(eng.generate(long_prompt, 32))
+        labels.append(f"prompt {len(long_prompt):>4} tokens, greedy")
+    out4 = None
+    if eng4 is not None:
+        tok = torch.argmax(eng4.prefill(prompt4), dim=-1)
+        out4 = torch.cat([tok[None], eng4.decode_n(tok, 31)]).T.tolist()
+        outs.extend(out4)
+        labels.extend(f"batch 4 row {r}, prompt {prompt4.shape[1]} tokens, greedy"
+                      for r in range(4))
     torch.cuda.synchronize()
     tiers = global_profile.tier_summary()
     launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
     plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
-    log(f"  [{name}] {len(outs)} requests answered; placement: {tiers}")
+    log(f"  [{name}] {len(outs)} requests answered (cache {cache}); placement: {tiers}")
     require(all(launches[k] > 0 for k in PATH_KERNELS[name]),
             f"[{name}] a kernel of the path never launched: {launches}")
     require(all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[name]),
             f"[{name}] a kernel of another path launched: {launches}")
     require(not plain, f"[{name}] plain tier ran on the main path: {plain}")
-    for i, out in enumerate(outs):
+    for out, label in zip(outs, labels):
         require(len(out) == 32 and all(0 <= t < vocab for t in out),
-                f"[{name}] request {i} gave {out}")
-        prompt, kind = (prompts[0], "sampled T=0.8") if i == 3 else (prompts[i], "greedy")
-        log(f"  [{name}] prompt {len(prompt):>3} tokens, {kind} -> {out}")
+                f"[{name}] {label} gave {out}")
+        log(f"  [{name}] {label} -> {out}")
     del sampled
 
-    # the first request against the plain versions of the same path on the
-    # card: the prefill logits, one decode step from a shared cache, tokens.
-    # Each of the first two is held to its fixed bound or to SENS_MARGIN times
-    # what the plain path itself moves under SENS_EPS input perturbations
-    embd = model.params["tok_embd"]
+    entry = dict(flags=PATHS[name], model=PATH_MODEL[name], cache=cache, launches=launches,
+                 placement=tiers, outputs=outs,
+                 **against_plain(torch, eng, greedy[0], outs[0], name, "request 1"))
+    if eng4 is not None:
+        entry["batch4"] = against_plain(torch, eng4, prompt4, out4, name, "the batch-4 request")
+    del eng4
+    summary.setdefault("e2e", {})[name] = entry
+    return eng, launches
+
+
+def against_plain(torch, eng, prompt, out, name, label):
+    """The request `prompt` ([T], or [B, T] on a batch-B engine) against the
+    plain versions of the same path on the card (force_ref()): the prefill
+    logits, one decode step from a shared cache, and the greedy tokens `out`
+    ([32], or B rows of 32). Each of the first two is held to its fixed bound
+    or to SENS_MARGIN times what the plain path itself moves under SENS_EPS
+    input perturbations."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    embd = eng.model.params["tok_embd"]
+    b, vocab = eng.batch, eng.model.cfg.vocab_size
+    rows_out = out if b > 1 else [out]
 
     def perturbed(run, ids, want):
         """How far the plain path's output moves when the embedding rows of
         `ids` are scaled by (1 + SENS_EPS * N(0, 1)), over SENS_DRAWS draws."""
-        ids = sorted({int(i) for i in ids})
+        ids = sorted({int(i) for i in np.asarray(ids.cpu() if hasattr(ids, "cpu") else ids)
+                      .ravel()})
         rows = embd[ids].clone()
         g = torch.Generator(device=rows.device).manual_seed(SEED)
         moved = []
@@ -753,7 +1002,7 @@ def end_to_end(torch, model, prompts, name, summary):
 
     def prefill_from_0():
         eng.reset()
-        return eng.prefill(prompts[0])
+        return eng.prefill(prompt)
 
     logits_k = prefill_from_0()
     tok0 = torch.argmax(logits_k, dim=-1)
@@ -771,63 +1020,65 @@ def end_to_end(torch, model, prompts, name, summary):
     del saved
     with force_ref():
         logits_r = prefill_from_0()
-    sens_p = perturbed(prefill_from_0, prompts[0], logits_r)
+    sens_p = perturbed(prefill_from_0, prompt, logits_r)
     with force_ref():
         logits_r = prefill_from_0()
         tok = torch.argmax(logits_r, dim=-1)
-        ref_toks, gaps = [int(tok[0])], [top2_gap(logits_r[0])]
+        ref_toks = [[int(t)] for t in tok]
+        gaps = [[top2_gap(lg)] for lg in logits_r]
         for _ in range(31):
             tok, lg = eng.step(tok)
-            ref_toks.append(int(tok[0]))
-            gaps.append(top2_gap(lg[0]))
+            for r in range(b):
+                ref_toks[r].append(int(tok[r]))
+                gaps[r].append(top2_gap(lg[r]))
     torch.cuda.synchronize()
-    require(tuple(logits_k.shape) == (1, vocab) and bool(torch.isfinite(logits_k).all()),
-            f"[{name}] prefill logits {tuple(logits_k.shape)} not finite [1, {vocab}]")
+    require(tuple(logits_k.shape) == (b, vocab) and bool(torch.isfinite(logits_k).all()),
+            f"[{name}] {label}: prefill logits {tuple(logits_k.shape)} not finite [{b}, {vocab}]")
     scale_p = float(logits_r.abs().max())
     err = float((logits_k - logits_r).abs().max())
     bound = max(LOGIT_RTOL * scale_p, SENS_MARGIN * max(sens_p))
-    require(err <= bound, f"[{name}] prefill logits: max_abs_err {err:.4g} > bound {bound:.4g} "
-            f"(plain path under {SENS_EPS:g} input perturbations: {[f'{v:.3g}' for v in sens_p]})")
+    require(err <= bound, f"[{name}] {label}: prefill logits max_abs_err {err:.4g} > bound "
+            f"{bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
+            f"{[f'{v:.3g}' for v in sens_p]})")
     scale = float(step_r.abs().max())
     step_err = float((step_k - step_r).abs().max())
     step_bound = max(STEP_RTOL * scale, SENS_MARGIN * max(sens_s))
     require(bool(torch.isfinite(step_k).all()) and step_err <= step_bound,
-            f"[{name}] decode step from a shared cache: max_abs_err {step_err:.4g} > bound "
-            f"{step_bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
+            f"[{name}] {label}: decode step from a shared cache max_abs_err {step_err:.4g} > "
+            f"bound {step_bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
             f"{[f'{v:.3g}' for v in sens_s]})")
-    # decode on the 7B path runs 64 int8 pre-passes per token (K7-i8, K6c), so
-    # its tokens are compared up to the first plain top-2 gap under the step
-    # bound (relative); the TinyLlama paths keep the prefill bound
-    gap_bound = bound if name != "llama2_7b" else step_bound / scale * scale_p
-    n_cmp = next((i for i, gap in enumerate(gaps) if gap < gap_bound), 32)
-    require(outs[0][:n_cmp] == ref_toks[:n_cmp],
-            f"[{name}] tokens differ before step {n_cmp}: {outs[0]} vs plain {ref_toks}")
-    log(f"  [{name}] request 1 vs force_ref(): prefill logits max_abs_err {err:.4g} "
+    # the FLIP_PATHS quantize per decode token beyond K1 (K7-i8 and K6c's
+    # pre-passes, the int8 cache), so their tokens are compared up to the first
+    # plain top-2 gap under the step bound (relative); the others keep the
+    # prefill bound
+    gap_bound = bound if name not in FLIP_PATHS else step_bound / scale * scale_p
+    n_cmp = [next((i for i, gap in enumerate(gr) if gap < gap_bound), 32) for gr in gaps]
+    require(all(o[:n] == r[:n] for o, r, n in zip(rows_out, ref_toks, n_cmp)),
+            f"[{name}] {label}: tokens differ before steps {n_cmp}: {rows_out} vs plain "
+            f"{ref_toks}")
+    log(f"  [{name}] {label} vs force_ref(): prefill logits max_abs_err {err:.4g} "
         f"({err / scale_p:.3g} of max|logit|; bound {bound:.4g}; the plain path moves "
         f"{max(sens_p) / scale_p:.3g} under {SENS_EPS:g} input perturbations); decode step "
         f"from a shared cache {step_err:.4g} ({step_err / scale:.3g}; bound {step_bound:.4g}; "
         f"the plain path moves {max(sens_s) / scale:.3g}); tokens equal over the first "
-        f"{n_cmp} of 32 steps"
-        + ("" if n_cmp == 32 else
-           f" (plain top-2 gap {gaps[n_cmp]:.3g} < {gap_bound:.3g} at step {n_cmp})")
-        + f"; all 32 equal: {outs[0] == ref_toks}")
-    summary.setdefault("e2e", {})[name] = dict(
-        flags=PATHS[name], model=PATH_MODEL[name], launches=launches, placement=tiers,
-        logits_err=err, logits_bound=bound, logits_scale=scale_p, logits_sensitivity=sens_p,
-        step_err=step_err, step_bound=step_bound, step_scale=scale, step_sensitivity=sens_s,
-        tokens_checked=n_cmp, tokens_gap_bound=gap_bound,
-        tokens_all_equal=outs[0] == ref_toks, min_gap=min(gaps), outputs=outs)
-    return eng, launches
+        f"{n_cmp} of 32 steps (plain top-2 gap bound {gap_bound:.3g}); all equal: "
+        f"{rows_out == ref_toks}")
+    return dict(logits_err=err, logits_bound=bound, logits_scale=scale_p,
+                logits_sensitivity=sens_p, step_err=step_err, step_bound=step_bound,
+                step_scale=scale, step_sensitivity=sens_s, tokens_checked=n_cmp,
+                tokens_gap_bound=gap_bound, tokens_all_equal=rows_out == ref_toks,
+                min_gap=min(min(gr) for gr in gaps))
 
 
-def rates(torch, engines, prompt, card, summary):
+def rates(torch, engines, prompt, long_prompt, card, summary):
     """pp128 and tg32 of every path, measured in turns: RATE_ROUNDS rounds of
-    the paths there and back (default, unfused, q8_default, llama2_7b,
-    llama2_7b, q8_default, unfused, default), one prefill and one 32-token
-    decode_n per turn, so an order effect on the host falls on every path
-    alike; the median per path."""
+    the paths there and back (default, unfused, ..., kv8_7b, kv8_7b, ...,
+    unfused, default), one prefill and one 32-token decode_n per turn, so an
+    order effect on the host falls on every path alike; the median per path.
+    On LONG_RATE_PATHS each turn also times a 32-token decode_n after a
+    LONG_PROMPT-token prefill (tg32 at that context)."""
     p128 = prompt[:128]
-    runs = {name: ([], []) for name in engines}
+    runs = {name: ([], [], []) for name in engines}
     order = list(engines) + list(engines)[::-1]
     for _ in range(RATE_ROUNDS):
         for name in order:
@@ -845,7 +1096,15 @@ def rates(torch, engines, prompt, card, summary):
             eng.decode_n(tok, 32)
             torch.cuda.synchronize()
             runs[name][1].append(time.perf_counter() - t0)
-    for name, (pp, tg) in runs.items():
+            if name in LONG_RATE_PATHS:
+                eng.reset()
+                tok = torch.argmax(eng.prefill(long_prompt), dim=-1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.decode_n(tok, 32)
+                torch.cuda.synchronize()
+                runs[name][2].append(time.perf_counter() - t0)
+    for name, (pp, tg, tg_long) in runs.items():
         pp_s, tg_s = statistics.median(pp), statistics.median(tg)
         log(f"  [{name}] pp128: {128 / pp_s:.1f} tok/s ({pp_s * 1e3:.2f} ms per 128-token "
             f"chunk; fastest turn {128 / min(pp):.1f})  [{card}]")
@@ -854,19 +1113,30 @@ def rates(torch, engines, prompt, card, summary):
         summary.setdefault("rates", {})[name] = dict(
             pp128_tok_s=128 / pp_s, tg32_tok_s=32 / tg_s, pp128_runs_s=pp, tg32_runs_s=tg,
             order=order, rounds=RATE_ROUNDS, card=card)
+        if tg_long:
+            tl_s = statistics.median(tg_long)
+            log(f"  [{name}] tg32 at a {LONG_PROMPT}-token context: {32 / tl_s:.1f} tok/s "
+                f"({tl_s / 32 * 1e3:.3f} ms per token; fastest turn {32 / min(tg_long):.1f})  "
+                f"[{card}]")
+            summary["rates"][name].update(tg32_long_tok_s=32 / tl_s, tg32_long_runs_s=tg_long,
+                                          long_context=LONG_PROMPT)
 
 
-def profile(torch, eng, prompt, name, summary):
+def profile(torch, eng, prompt, long_prompt, name, summary):
     """Device time by kernel of one 128-token prefill chunk and of 8 decode
-    steps (torch.profiler over CUPTI)."""
+    steps (torch.profiler over CUPTI); on LONG_RATE_PATHS also of 8 decode
+    steps after a LONG_PROMPT-token prefill, with K7's device time per token
+    (the layer kernel reads the cache prefix)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     out = {}
-    for label in ("prefill128", "decode8"):
+    labels = ("prefill128", "decode8") + (("decode8_long",) if name in LONG_RATE_PATHS else ())
+    for label in labels:
         for _ in range(PROFILE_TRIES):     # see time_ms: a window may come back empty
             eng.reset()
-            if label == "decode8":
-                tok = torch.argmax(eng.prefill(prompt[:128]), dim=-1)
+            if label != "prefill128":
+                ctx = long_prompt if label == "decode8_long" else prompt[:128]
+                tok = torch.argmax(eng.prefill(ctx), dim=-1)
             torch.cuda.synchronize()
             with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -883,13 +1153,25 @@ def profile(torch, eng, prompt, name, summary):
                 rows.append((ev.key, _self_device_us(ev), ev.count))
             if rows:
                 break
-        require(bool(rows), f"[{name}] {label}: the profiler saw no kernel")
+        if not rows:       # a breakdown only: the path's results were checked in phase 3
+            out[label] = dict(wall_us=wall * 1e6, device_busy_us="not measured")
+            log(f"  [{name}] {label}: host wall {wall * 1e3:.2f} ms, device busy not measured "
+                f"(the profiler saw no kernel in {PROFILE_TRIES} windows)")
+            continue
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
-        out[label] = dict(wall_us=wall * 1e6, device_busy_us=busy,
+        # K7 per token from its mean launch, as the window may lose records
+        # (time_ms); busy is the sum of the records seen, a floor
+        k7 = [(u, c) for k, u, c in rows if "layer_attn_kernel" in k]
+        k7_seen = sum(c for _, c in k7)
+        k7_us = sum(u for u, _ in k7) / k7_seen * eng.cfg.n_layers if k7_seen else 0.0
+        out[label] = dict(wall_us=wall * 1e6, device_busy_us=busy, k7_us_per_token=k7_us,
+                          k7_launches_seen=k7_seen,
                           kernels=[dict(name=k[:90], us=u, count=c) for k, u, c in rows[:15]])
         log(f"  [{name}] {label}: host wall {wall * 1e3:.2f} ms, device busy "
-            f"{busy / 1e3:.2f} ms ({100 * busy / (wall * 1e6):.1f}%)")
+            f"{busy / 1e3:.2f} ms ({100 * busy / (wall * 1e6):.1f}%)"
+            + (f"; K7 {k7_us:.1f} us of device time per token ({k7_seen} of "
+               f"{8 * eng.cfg.n_layers} launches seen)" if k7_seen else ""))
         for k, u, c in rows[:8]:
             log(f"    {u / 1e3:8.3f} ms  x{c:<5} {k[:80]}")
     summary.setdefault("profile", {})[name] = out
@@ -944,12 +1226,15 @@ def main() -> int:
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     log("== 3. end to end: TinyLlama-1.1B, the default and unfused paths at Q4_0, the "
-        "default path at Q8_0; Llama-2-7B at Q4_0, the default path")
+        "default path at Q8_0; Llama-2-7B at Q4_0, the default path; both with the int8 KV "
+        "cache")
     t0 = time.perf_counter()
     models = {m: load_model(torch, dev, *m) for m in dict.fromkeys(PATH_MODEL.values())}
     rng = np.random.default_rng(SEED)
     vocab = min(m.cfg.vocab_size for m in models.values())
-    prompts = [rng.integers(0, vocab, n) for n in (7, 128, 300)]
+    # the three greedy prompts, the long prompt, the batch-4 prompt
+    prompts = [rng.integers(0, vocab, n) for n in (7, 128, 300, LONG_PROMPT)]
+    prompts.append(rng.integers(0, vocab, (4, 128)))
     engines, launches = {}, {}
     for name in PATHS:
         engines[name], launches[name] = end_to_end(torch, models[PATH_MODEL[name]], prompts,
@@ -958,10 +1243,10 @@ def main() -> int:
 
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()
-    rates(torch, engines, prompts[2], card, summary)
+    rates(torch, engines, prompts[2], prompts[3], card, summary)
     for name, eng in engines.items():
         set_path(name)
-        profile(torch, eng, prompts[2], name, summary)
+        profile(torch, eng, prompts[2], prompts[3], name, summary)
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [kernel_line(name, checks[name], {p: launches[p][name] for p in PATHS})

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Time the attention kernels of two checkouts of zgml_tpu_torch on one card,
+in turns (A, B, B, A by default), each turn in its own process.
+
+    python3 kernel_ab.py A_DIR B_DIR [--rounds N]
+
+A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
+unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
+root, builds that root's kernels into the root's own build directory, and
+times, with chip_smoke.time_ms (device time from torch.profiler), the bf16
+cache's attention kernels at the smoke's TinyLlama-1.1B shapes: K4 at kv_len
+1, 200 and 2047 of a 22-layer cache, K3 on a 128-row chunk at (q_offset,
+kv_len) (0, 128) and (128, 256), and at head_dim 128 with n_rep 1 (Llama-2-7B),
+and K7 (f32 A phase, Q4_0) at pos 2047. Prints one JSON line per turn, then
+the median device us per case and side, with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parent
+
+
+def one(root: str) -> dict:
+    """The timings of the checkout at `root`, in this process."""
+    sys.path.insert(0, str(pathlib.Path(root).resolve()))
+    import torch
+    import zgml_tpu_torch
+    from zgml_tpu_torch.ops import refs
+    from zgml_tpu_torch.ops.attention import decode_attention_cuda, flash_attention_cuda
+    from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
+    from zgml_tpu_torch.quant.packed import PackedWeight
+    sys.path.insert(1, str(HERE))
+    from chip_smoke import time_ms
+
+    src = pathlib.Path(zgml_tpu_torch.__file__).resolve()
+    if pathlib.Path(root).resolve() not in src.parents:
+        raise RuntimeError(f"imported {src}, not the checkout at {root}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for hq, hkv, hd, tag in ((32, 4, 64, ""), (32, 32, 128, "7B ")):
+        kc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+        vc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+        for q_off, kv_len in ((0, 128), (128, 256)):
+            q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
+            out[f"K3 {tag}hd={hd} q_offset={q_off} kv_len={kv_len}"] = time_ms(
+                torch, [lambda: flash_attention_cuda(q, kc, vc, kv_len, q_off, 1)], 50)[0]
+        if tag:
+            continue
+        for kv_len in (1, 200, 2047):
+            q = torch.randn((1, hq, 1, hd), device=dev, generator=g)
+            lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+            out[f"K4 kv_len={kv_len}"] = time_ms(
+                torch, [lambda: decode_attention_cuda(q, kc, vc, lens, 3)], 100)[0]
+    d, hq, hkv, hd = 2048, 32, 4, 64
+
+    def weight(n, k):
+        return PackedWeight(n, k, torch.randint(0, 256, (n, k // 2), dtype=torch.uint8,
+                                                device=dev, generator=g),
+                            (torch.rand((n, k // 32), device=dev, generator=g) * 0.02).half())
+    wqkv, wo = weight((hq + 2 * hkv) * hd, d), weight(d, hq * hd)
+    gamma = torch.ones(d, device=dev)
+    ck = torch.randn((4, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+    cv = torch.randn((4, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn((1, 1, d), device=dev, generator=g)
+    cos, sin = refs.rope_cos_sin(torch.tensor([2047], device=dev), hd)
+    pos = torch.tensor([2047], dtype=torch.int32, device=dev)
+    out["K7 pos=2047"] = time_ms(torch, [lambda: attn_block_cuda(
+        x, gamma, wqkv, wo, ck, cv, 3, pos, cos, sin, hq, hkv, 1e-5)], 50)[0]
+    return {k: v * 1e3 for k, v in out.items()}           # device us
+
+
+def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--one":
+        print(json.dumps(one(sys.argv[2])))
+        return 0
+    a, b = sys.argv[1], sys.argv[2]
+    rounds = int(sys.argv[sys.argv.index("--rounds") + 1]) if "--rounds" in sys.argv else 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    runs = {a: [], b: []}
+    for side in [a, b, b, a] * rounds:
+        proc = subprocess.run([sys.executable, __file__, "--one", side], capture_output=True,
+                              text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{side}: {proc.stderr[-3000:]}")
+        runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(side, proc.stdout.strip().splitlines()[-1], flush=True)
+    print(card)
+    for case in runs[a][0]:
+        ma = statistics.median(r[case] for r in runs[a])
+        mb = statistics.median(r[case] for r in runs[b])
+        print(f"{case:40s} {a}: {ma:8.1f} us  {b}: {mb:8.1f} us  ({100 * (mb / ma - 1):+.1f}%)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -131,6 +131,18 @@ def test_cli_generate_on_cpu(tiny_path, capsys):
     assert "output ids:" in out and "qmatmul" in out
 
 
+def test_cli_generate_int8_cache_on_cpu(tiny_path, capsys):
+    """--kv int8: the prefill through K9's plain version and, at TINY_TEST's
+    head_dim 16 (no K7), batch-1 decode through K8's."""
+    from zgml_tpu_torch.runtime.profile import global_profile
+    global_profile.reset()
+    cli.main(["report", tiny_path, "--device", "cpu", "--kv", "int8", "--prompt-ids", "1,2,3",
+              "-n", "4"])
+    out = capsys.readouterr().out
+    assert "output ids:" in out and "flash_attention_q8" in out and "decode_attention_q8" in out
+    assert " attention " not in out and "decode_attention " not in out
+
+
 def test_load_llama_refuses_q8_0_weights(tmp_path):
     """A matmul weight type the port has no kernel for is refused, not
     dequantized in silence. Q8_0 loads now (it has its kernels); F16 matmul

@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from zgml_tpu_torch.ops import build, dispatch
-from zgml_tpu_torch.ops.attention import decode_attention_cuda, flash_attention_cuda
+from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_q8_cuda,
+                                          flash_attention_cuda, flash_attention_q8_cuda)
 from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
 from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
 from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, qmatmul_cuda, qmatmul_i8_cuda,
@@ -112,6 +113,27 @@ def test_decode_tier_wrappers_refuse_cpu_tensors():
         attn_block_cuda(x.reshape(1, 1, 32), torch.ones(32), _pw_n(96), _pw_n(32), cache,
                         cache, 0, torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
                         torch.zeros(1, 16), 1, 1, 1e-5)
+
+
+def test_int8_cache_wrappers_refuse_cpu_tensors():
+    """K8, K9 and K7's int8-cache mode raise off the card, as the others do,
+    and K8 / K9 refuse a bf16 cache handed to them as int8."""
+    q = torch.zeros(1, 2, 4, 16)
+    kv, sc = torch.zeros(1, 1, 8, 16, dtype=torch.int8), torch.ones(1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_q8_cuda(q, kv, sc, kv, sc, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_q8_cuda(q[:, :, :1], kv, sc, kv, sc, 4)
+    x = torch.zeros(1, 1, 32)
+    cache = (torch.zeros(1, 1, 1, 8, 32, dtype=torch.int8), torch.ones(1, 1, 1, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block_cuda(x, torch.ones(32), _pw_n(96), _pw_n(32), cache, cache, 0,
+                        torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
+                        torch.zeros(1, 16), 1, 1, 1e-5)
+    if torch.cuda.is_available():
+        bf = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="int8"):
+            flash_attention_q8_cuda(q.cuda(), bf, sc.cuda(), bf, sc.cuda(), 4)
 
 
 def _pw_n(n):

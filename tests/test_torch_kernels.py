@@ -15,21 +15,29 @@ argmax of K1's output on the card exactly. The i8a modes (K7-i8, K6c)
 quantize a row they norm themselves, which the plain version norms summing
 in another order: the plain version runs on the kernel's own activations
 (act_out / act), and those may differ from the plain pre-pass by one level in
-at most 1% of the values.
+at most 1% of the values. The int8-cache kernels (K8, K9, K7's kv8 mode) hold
+1e-5 against their plain versions on the same int8 cache (K8 quantizes q in
+the kernel bit-equal to the plain quantize_columns; K7-kv8's plain version
+runs on the kernel's own quantized q, q8_out / q8, whose levels may sit one
+apart from the plain ones), and K7-kv8's cache row pos is quantize_columns
+of the kernel's own k_cur / v_cur bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from zgml_tpu_torch.ops import dispatch, refs
-from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_ref,
-                                          flash_attention_cuda, flash_attention_ref)
+from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_q8_cuda,
+                                          decode_attention_q8_ref, decode_attention_ref,
+                                          flash_attention_cuda, flash_attention_q8_cuda,
+                                          flash_attention_q8_ref, flash_attention_ref)
 from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda, fused_ffn_norm_ref,
                                     fused_ffn_ref)
-from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref
+from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref, qkv_ref
 from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, qmatmul_cuda, qmatmul_i8_cuda,
                                         qmatmul_i8_ref, qmatmul_ref, quantize_act_cuda,
                                         quantize_act_ref, rmsnorm_quantize_ref)
+from zgml_tpu_torch.quant.kv_cache import quantize_columns
 from zgml_tpu_torch.quant.packed import PackedWeight, from_int8, from_nibbles
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -334,3 +342,99 @@ def test_fused_ffn(cuda, d, f, m):
     torch.cuda.synchronize()
     assert global_profile.tier_summary() == {"fused_ffn": {"cuda": 1}}
     _close(got, want)
+
+
+def _q8_cache(rng, shape, device):
+    """An int8 cache (levels, scales) of random values, through the plain
+    quantize_columns."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return tuple(t.to(device) for t in quantize_columns(x))
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,rows,s,d,kv_len,q_off,kv_row", [
+    (1, 32, 4, 128, 22, 2048, 64, 128, 0, 5),
+    (1, 32, 4, 128, 22, 2048, 64, 1536, 1408, 3),   # TinyLlama chunk 12 of a 1536 prompt
+    (1, 32, 32, 128, 4, 2048, 128, 1536, 1408, 1),  # Llama-2-7B, head_dim 128
+    (2, 4, 4, 16, 2, 64, 16, 64, 48, 0),
+    (1, 8, 2, 8, 1, 64, 32, 0, 0, 0),               # no live key -> 0
+])
+def test_flash_attention_q8(cuda, b, hq, hkv, tq, rows, s, d, kv_len, q_off, kv_row):
+    """K9 over a stacked int8 cache through kv_row."""
+    rng = np.random.default_rng(kv_len + d + 3)
+    q = torch.from_numpy(rng.standard_normal((b, hq, tq, d)).astype(np.float32)).to(cuda)
+    k, ks = _q8_cache(rng, (rows, hkv, s, d), cuda)
+    v, vs = _q8_cache(rng, (rows, hkv, s, d), cuda)
+    global_profile.reset()
+    got = flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_off, kv_row)
+    want = flash_attention_q8_ref(q, k, ks, v, vs, kv_len, q_off, kv_row)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"flash_attention_q8": {"cuda": 1}}
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hkv,rows,s,d,kv_len,kv_row", [
+    (4, 32, 4, 88, 2048, 64, [1, 200, 2047, 1000], 8),   # TinyLlama batch 4, layer 2
+    (1, 32, 32, 4, 2048, 128, [2047], 3),                # Llama-2-7B
+    (2, 8, 2, 3, 256, 128, [129, 5], 1),
+    (2, 4, 4, 2, 64, 16, [0, 64], 0),
+])
+def test_decode_attention_q8(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row):
+    """K8: q quantized per query head in the kernel, per-row kv_len."""
+    rng = np.random.default_rng(sum(kv_len) + d + 4)
+    q = torch.from_numpy(rng.standard_normal((b, hq, 1, d)).astype(np.float32)).to(cuda)
+    k, ks = _q8_cache(rng, (rows, hkv, s, d), cuda)
+    v, vs = _q8_cache(rng, (rows, hkv, s, d), cuda)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    global_profile.reset()
+    got = decode_attention_q8_cuda(q, k, ks, v, vs, lens, kv_row)
+    want = decode_attention_q8_ref(q, k, ks, v, vs, lens, kv_row)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"decode_attention_q8": {"cuda": 1}}
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("hq,hkv,hd,s,pos,li,a_i8", [
+    (32, 4, 64, 2048, 0, 3, False), (32, 4, 64, 2048, 1, 21, False),
+    (32, 4, 64, 2048, 200, 5, False), (32, 4, 64, 2048, 2047, 1, False),
+    (32, 32, 128, 2048, 200, 0, True), (32, 32, 128, 2048, 2047, 1, True),
+    (8, 2, 32, 96, 37, 1, False), (4, 2, 96, 128, 50, 1, True), (8, 2, 256, 256, 130, 1, False)])
+def test_attn_block_kv8(cuda, hq, hkv, hd, s, pos, li, a_i8, kind):
+    """K7's int8-cache mode, at both A phases: held to the plain version on
+    the kernel's own quantized q (and, with a_i8, its own activations)."""
+    rng = np.random.default_rng(pos + hd + 5)
+    d, n_layers = hq * hd, max(li + 1, 2)
+    wqkv = _weight(rng, (hq + 2 * hkv) * hd, d, cuda, kind)
+    wo = _weight(rng, d, hq * hd, cuda, kind)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    ck = _q8_cache(rng, (n_layers, 1, hkv, s, hd), cuda)
+    cv = _q8_cache(rng, (n_layers, 1, hkv, s, hd), cuda)
+    ck_r, cv_r = tuple(t.clone() for t in ck), tuple(t.clone() for t in cv)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    act = _act_buffers(1, d, cuda) if a_i8 else None
+    q8 = (torch.empty((hq, hd), dtype=torch.int8, device=cuda),
+          torch.empty(hq, dtype=torch.float32, device=cuda))
+    global_profile.reset()
+    got = attn_block_cuda(x, g, wqkv, wo, ck, cv, li, pos_t, cos, sin, hq, hkv, 1e-5,
+                          a_i8=a_i8, act_out=act, q8_out=q8)
+    want = attn_block_ref(x, g, wqkv, wo, ck_r, cv_r, li, pos, cos, sin, hq, hkv, 1e-5,
+                          a_i8=a_i8, act=act, q8=q8)
+    torch.cuda.synchronize()
+    name = "attn_block" + ("_i8" if a_i8 else "") + "_kv8" + ("_q8" if kind == "q8_0" else "")
+    assert global_profile.tier_summary() == {name: {"cuda": 1}}
+    for a, b in zip(got, want):
+        _close(a, b)
+    # the kernel's q levels against the plain quantization of the plain q
+    q_plain = qkv_ref(x, g, wqkv, cos, sin, hq, hkv, hd, 1e-5, a_i8, act)[0]
+    rq, _ = quantize_columns(q_plain.reshape(hq, hd))
+    assert int((q8[0].to(torch.int16) - rq.to(torch.int16)).abs().max()) <= 1
+    # row pos: the kernel's own k_cur / v_cur quantized; every other row untouched
+    rows = torch.arange(s, device=cuda) != pos
+    for (lv, sc), (lv_r, sc_r), cur in ((ck, ck_r, got[1]), (cv, cv_r, got[2])):
+        wq, ws = quantize_columns(cur[0, :, 0])
+        assert torch.equal(lv[li, 0, :, pos], wq)
+        assert torch.equal(sc[li, 0, :, pos].view(torch.int32), ws.view(torch.int32))
+        assert torch.equal(lv[:, :, :, rows], lv_r[:, :, :, rows])
+        assert torch.equal(sc[:, :, :, rows], sc_r[:, :, :, rows])

@@ -3,7 +3,7 @@
 The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
-the card. The *path* follows five of the JAX package's own variables, with
+the card. The *path* follows six of the JAX package's own variables, with
 its defaults, read at call time (the port is eager):
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
@@ -18,6 +18,8 @@ its defaults, read at call time (the port is eager):
                                                        the padded width dp >= 4096)
   ZGML_TPU_FFN_I8A=0|1            ffn_i8a(dp)          K6c, the Q4_0 decode FFN with int8
                                                        gate|up (default: on where dp >= 4096)
+  ZGML_TPU_ATTN_I8PV=1            refuse_attn_i8pv()   K8's int8 P.V mode (default off): not
+                                                       ported, so an int8-cache run refuses it
 
 The two i8a flags take the JAX package's padded width of the weight, which
 the port computes from its unpadded one (padded_k). The port reads no other
@@ -72,6 +74,18 @@ def ffn_i8a(dp: int) -> bool:
     """The int8 gate|up phase of the Q4_0 decode FFN, K6c, at padded width dp
     (zgml_tpu/config.py:140-145)."""
     return _flag("ZGML_TPU_FFN_I8A", "1" if dp >= I8A_MIN_DP else "0") and dp % 32 == 0
+
+
+def refuse_attn_i8pv():
+    """Raise where ZGML_TPU_ATTN_I8PV=1 asks for K8's int8 P.V mode (p
+    quantized per 256-position block, zgml_tpu/ops/attention.py:440-448;
+    zgml_tpu/config.py:177-181 reads only "1" as on). The port has no such
+    mode, and computing the f32-p function under the flag would be another
+    function than the JAX package's."""
+    if os.environ.get("ZGML_TPU_ATTN_I8PV", "0") == "1":
+        raise NotImplementedError(
+            "ZGML_TPU_ATTN_I8PV=1: K8's int8 P.V mode is not ported to zgml_tpu_torch "
+            "(unset it, or set it to 0, for the default f32 P.V over the int8 cache)")
 
 
 def tile_friendly_pad(x: int) -> int:

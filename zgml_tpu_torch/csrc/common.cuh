@@ -12,6 +12,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #define ZGML_EXPORT extern "C" __attribute__((visibility("default")))
 

@@ -1,7 +1,19 @@
-// K3 flash_attention: causal GQA prefill attention over the bf16 KV cache.
+// K3 flash_attention: causal GQA prefill attention over the bf16 KV cache;
+// and its int8-cache mode, K9 flash_attention_q8.
 //
 // Replaces: zgml_tpu/ops/attention.py `_flash_kernel` (line 44), reached
-// through `_flash` / `flash_attention_pallas` via flash_vjp.make_flash_vjp.
+// through `_flash` / `flash_attention_pallas` via flash_vjp.make_flash_vjp
+// (K3), and `_flash_q8_kernel` (line 599, pallas_call at 702), reached
+// through `_flash_q8` / `flash_attention_q8_pallas` (K9).
+//
+// K9 (the plain version is ops/attention.py flash_attention_q8_ref): k, v
+// are the position-major int8 cache [R, Hkv, S, D] with f32 scales ks, vs
+// [R, Hkv, S]. q stays f32 (the JAX kernel's ZGML_TPU_PREFILL_BF16=0, the
+// port's standing prefill): each tile's levels are converted to f32 in
+// shared memory, the scores are (q . k_levels) * (k_scale * scale) as
+// attention.py:629-631, and p is multiplied by v_scale before P.V (642). The
+// tile holds 16 levels per 16-byte load, half the bf16 tile's bytes; the
+// rest of the design, and the register pressure at D = 128, are K3's.
 //
 // Semantics (the plain version is ops/attention.py flash_attention_ref):
 //   q f32 [B, Hq, Tq, D]; k, v bf16 [R, Hkv, S, D], the cache slab read in
@@ -29,13 +41,22 @@ namespace {
 constexpr int FA_BQ = 32;   // query rows per block (one warp)
 constexpr int FA_BK = 32;   // keys per shared-memory tile
 
-template <int D>
+// the four int8 levels of a 32-bit word -> 4 floats
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* dst) {
+#pragma unroll
+  for (int b = 0; b < 4; ++b) dst[b] = (float)((int)(w << (24 - 8 * b)) >> 24);
+}
+
+template <int D, bool KV8>
 __global__ void __launch_bounds__(FA_BQ)
-flash_attn_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
-                  int Tq, int S, int kv_len, int q_offset, int kv_row, float scale) {
+flash_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
+                  const float* __restrict__ ks, const void* __restrict__ v,
+                  const float* __restrict__ vs, float* __restrict__ o, int Hq, int Hkv, int Tq,
+                  int S, int kv_len, int q_offset, int kv_row, float scale) {
   __shared__ __align__(16) float Ks[FA_BK][D];
   __shared__ __align__(16) float Vs[FA_BK][D];
+  __shared__ float Kscale[KV8 ? FA_BK : 1];      // KV8: k_scale * scale per key of the tile
+  __shared__ float Vscale[KV8 ? FA_BK : 1];      // KV8: v_scale per key
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh % Hq;
   const int hk = h / (Hq / Hkv);
@@ -54,25 +75,38 @@ flash_attn_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__
 
   const int tile_last = min(Tq, (int)(blockIdx.x + 1) * FA_BQ) - 1;
   const int kv_end = min(min(kv_len, q_offset + tile_last + 1), S);
-  const size_t kv_base = ((size_t)(kv_row + b) * Hkv + hk) * S * D;
-  const uint4* kg = reinterpret_cast<const uint4*>(k + kv_base);
-  const uint4* vg = reinterpret_cast<const uint4*>(v + kv_base);
+  const size_t pos0 = ((size_t)(kv_row + b) * Hkv + hk) * S;   // the head's first position
+  constexpr int PER = KV8 ? 16 : 8;                 // elements per 16-byte load
+  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  const uint4* kg = reinterpret_cast<const uint4*>(static_cast<const T*>(k) + pos0 * D);
+  const uint4* vg = reinterpret_cast<const uint4*>(static_cast<const T*>(v) + pos0 * D);
 
   for (int t0 = 0; t0 < kv_end; t0 += FA_BK) {
     const int nk = min(FA_BK, kv_end - t0);
-    // 8 bf16 per 16-byte load; tile rows are contiguous in the cache
-    for (int e = threadIdx.x; e < nk * D / 8; e += FA_BQ) {
-      const int j = (e * 8) / D, c = (e * 8) % D;
-      const uint4 kw = __ldg(kg + (size_t)t0 * D / 8 + e);
-      const uint4 vw = __ldg(vg + (size_t)t0 * D / 8 + e);
+    // tile rows are contiguous in the cache
+    for (int e = threadIdx.x; e < nk * D / PER; e += FA_BQ) {
+      const int j = (e * PER) / D, c = (e * PER) % D;
+      const uint4 kw = __ldg(kg + (size_t)t0 * D / PER + e);
+      const uint4 vw = __ldg(vg + (size_t)t0 * D / PER + e);
       const uint32_t kk[4] = {kw.x, kw.y, kw.z, kw.w};
       const uint32_t vv[4] = {vw.x, vw.y, vw.z, vw.w};
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        Ks[j][c + 2 * u] = bf16_lo(kk[u]);
-        Ks[j][c + 2 * u + 1] = bf16_hi(kk[u]);
-        Vs[j][c + 2 * u] = bf16_lo(vv[u]);
-        Vs[j][c + 2 * u + 1] = bf16_hi(vv[u]);
+        if constexpr (KV8) {
+          i8x4_to_f32(kk[u], &Ks[j][c + 4 * u]);
+          i8x4_to_f32(vv[u], &Vs[j][c + 4 * u]);
+        } else {
+          Ks[j][c + 2 * u] = bf16_lo(kk[u]);
+          Ks[j][c + 2 * u + 1] = bf16_hi(kk[u]);
+          Vs[j][c + 2 * u] = bf16_lo(vv[u]);
+          Vs[j][c + 2 * u + 1] = bf16_hi(vv[u]);
+        }
+      }
+    }
+    if constexpr (KV8) {
+      for (int j = threadIdx.x; j < nk; j += FA_BQ) {
+        Kscale[j] = __ldg(ks + pos0 + t0 + j) * scale;
+        Vscale[j] = __ldg(vs + pos0 + t0 + j);
       }
     }
     __syncthreads();
@@ -92,7 +126,7 @@ flash_attn_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__
             dot = fmaf(qr[i + 2], kv4.z, dot);
             dot = fmaf(qr[i + 3], kv4.w, dot);
           }
-          sj = dot * scale;
+          sj = dot * (KV8 ? Kscale[j] : scale);
         }
         s[j] = sj;
         tmax = fmaxf(tmax, sj);
@@ -108,13 +142,14 @@ flash_attn_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__
           if (s[j] == -INFINITY) continue;     // masked, or past the tile's keys
           const float p = expf(s[j] - m_new);
           psum += p;
+          const float pv = KV8 ? p * Vscale[j] : p;     // the V scale folded into p
 #pragma unroll
           for (int i = 0; i < D; i += 4) {
             const float4 v4 = *reinterpret_cast<const float4*>(&Vs[j][i]);
-            acc[i] = fmaf(p, v4.x, acc[i]);
-            acc[i + 1] = fmaf(p, v4.y, acc[i + 1]);
-            acc[i + 2] = fmaf(p, v4.z, acc[i + 2]);
-            acc[i + 3] = fmaf(p, v4.w, acc[i + 3]);
+            acc[i] = fmaf(pv, v4.x, acc[i]);
+            acc[i + 1] = fmaf(pv, v4.y, acc[i + 1]);
+            acc[i + 2] = fmaf(pv, v4.z, acc[i + 2]);
+            acc[i + 3] = fmaf(pv, v4.w, acc[i + 3]);
           }
         }
         l = l * alpha + psum;
@@ -131,34 +166,43 @@ flash_attn_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__
   }
 }
 
-template <int D>
-int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v, float* o, int B,
-           int Hq, int Hkv, int Tq, int S, int kv_len, int q_offset, int kv_row, float scale,
-           cudaStream_t st) {
+template <bool KV8>
+int launch(const float* q, const void* k, const float* ks, const void* v, const float* vs,
+           float* o, int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len, int q_offset,
+           int kv_row, float scale, cudaStream_t st) {
   const dim3 grid((Tq + FA_BQ - 1) / FA_BQ, B * Hq);
-  flash_attn_kernel<D><<<grid, FA_BQ, 0, st>>>(q, k, v, o, Hq, Hkv, Tq, S, kv_len, q_offset,
-                                               kv_row, scale);
+#define ZGML_FLASH(DD)                                                                      \
+  case DD:                                                                                  \
+    flash_attn_kernel<DD, KV8><<<grid, FA_BQ, 0, st>>>(q, k, ks, v, vs, o, Hq, Hkv, Tq, S,  \
+                                                       kv_len, q_offset, kv_row, scale);    \
+    break;
+  switch (D) {
+    ZGML_FLASH(16)
+    ZGML_FLASH(32)
+    ZGML_FLASH(64)
+    ZGML_FLASH(128)
+    default: return ZGML_ERR_HEAD_DIM;
+  }
+#undef ZGML_FLASH
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q f32 [B, Hq, Tq, D], k/v bf16 [R, Hkv, S, D] with R >= kv_row + B, o f32
+// q f32 [B, Hq, Tq, D], k/v [R, Hkv, S, D] with R >= kv_row + B: bf16 (K3, ks
+// and vs null) or int8 levels with f32 scales ks/vs [R, Hkv, S] (K9); o f32
 // [B, Hq, Tq, D]; all contiguous, 16-byte aligned.
-ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const void* v, float* o,
-                                     int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len,
-                                     int q_offset, int kv_row, float scale, void* stream) {
+ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const float* ks,
+                                     const void* v, const float* vs, float* o, int B, int Hq,
+                                     int Hkv, int Tq, int S, int D, int kv_len, int q_offset,
+                                     int kv_row, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0 || S <= 0 || kv_row < 0 ||
-      q_offset < 0)
+      q_offset < 0 || (ks == nullptr) != (vs == nullptr))
     return ZGML_ERR_SHAPE;
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, kb, vb, o, B, Hq, Hkv, Tq, S, kv_len, q_offset, kv_row, scale, st);
-    case 32: return launch<32>(q, kb, vb, o, B, Hq, Hkv, Tq, S, kv_len, q_offset, kv_row, scale, st);
-    case 64: return launch<64>(q, kb, vb, o, B, Hq, Hkv, Tq, S, kv_len, q_offset, kv_row, scale, st);
-    case 128: return launch<128>(q, kb, vb, o, B, Hq, Hkv, Tq, S, kv_len, q_offset, kv_row, scale, st);
-    default: return ZGML_ERR_HEAD_DIM;
-  }
+  if (ks != nullptr)
+    return launch<true>(q, k, ks, v, vs, o, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
+                        scale, st);
+  return launch<false>(q, k, ks, v, vs, o, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
+                       scale, st);
 }

@@ -7,8 +7,9 @@
 // layerkernel.py:76-88; here common.cuh's FmtQ4_0 / FmtQ8_0 block formats).
 // Ported: both A phases (f32, and the int8 `a_i8` one, layerkernel.py:148-190,
 // which the JAX package turns on where the padded width is >= 4096), phases B
-// and C, the bf16 cache. Not ported: phase E (the FFN merge, off by default)
-// and the int8 cache.
+// and C, both caches (bf16, and the int8 `kv_i8` one, layerkernel.py:223-267,
+// which the JAX package runs for every layer of a batch-1 decode with
+// `--kv int8`). Not ported: phase E (the FFN merge, off by default).
 //
 // Semantics (the plain version is ops/layerkernel.py attn_block_ref), for x
 // f32 [d] at position pos (an int32 on the device, so a step needs no host
@@ -25,6 +26,15 @@
 // The current k, v are also written, rounded to bf16, into cache row pos
 // (the JAX package writes all layers' rows after the layer loop; the cache
 // contents are the same, and phase B never reads row pos).
+// With the int8 cache (kv8; the position-major levels and per-position f32
+// scales of quant/kv_cache.py) the rows j < pos are attended as K8 attends
+// them (decode_split.cuh: q quantized per head after RoPE, exact `__dp4a`
+// scores times q_scale * k_scale * scale, the V scales folded into p), the
+// self column stays f32 from the unquantized q and k_cur (layerkernel.py:
+// 274-289), and row pos is written as k_cur, v_cur quantized per KV head
+// (quantize_vec, bit-equal to the plain quantize_columns on the same values;
+// llama.py:377-385). qq_out / qs_out, where not null, receive the quantized
+// q, so a check can feed the plain version the kernel's own levels.
 //
 // What bounds it on the H100: at short context the weight bytes (wqkv 2.95 MB
 // + wo 2.36 MB at TinyLlama-1.1B at Q4_0, 5.57 + 4.46 MB at Q8_0; 28.3 + 9.4
@@ -44,11 +54,14 @@
 //      rotation stays in the warp: f32-dequant GEMV of both rows (with a_i8
 //      `__dp4a` block dots, common.cuh rows_i8), rotate, and write q
 //      (scratch), k and v (f32 outputs, and bf16 into the cache);
-//   B. K4's split-KV design (decode_split.cuh): items (KV head, 128-key chunk
-//      below pos), looped over the blocks; each block serves the n_rep query
-//      heads of its group and writes their partials (o, max, sum);
+//   B. K4's split-KV design (decode_split.cuh, K8's with kv8): items (KV
+//      head, 128-key chunk below pos), looped over the blocks; each block
+//      serves the n_rep query heads of its group and writes their partials
+//      (o, max, sum);
 //   combine: one warp per query head merges the live chunks and the self
-//      column (score q . k_cur, value v_cur) and writes att;
+//      column (score q . k_cur, value v_cur) and writes att; with kv8 one
+//      warp per KV head and tensor then quantizes k_cur, v_cur into row pos
+//      (no grid barrier more: phase B has read every row below pos);
 //   C. a warp-per-row GEMV over Wo against att in shared memory, plus the
 //      residual.
 // With pos = 0 phase B is empty and att = v_cur. No float atomics.
@@ -68,8 +81,10 @@ struct LayerParams {
   const __half* wo_d;        // [d, hq hd / 32]
   const float* cos;          // [hd/2] at pos
   const float* sin;          // [hd/2]
-  __nv_bfloat16* ck;         // layer li's slab [hkv, S, hd]
-  __nv_bfloat16* cv;
+  void* ck;                  // layer li's slab [hkv, S, hd]: bf16, or int8 levels (kv8)
+  void* cv;
+  float* cks;                // kv8: layer li's scales [hkv, S]
+  float* cvs;
   const int* pos;            // [1], device
   float* x_out;              // [d]
   float* kv_cur;             // [2, hkv, hd]: rotated k, then v
@@ -79,12 +94,15 @@ struct LayerParams {
   unsigned int* bar;         // grid-barrier words
   int8_t* xq_out;            // [d] or null: a_i8's activations, for checks
   float* xs_out;             // [d/32] or null: their scales
+  int8_t* qq_out;            // kv8: [hq, hd] or null: the quantized q, for checks
+  float* qs_out;             // [hq] or null: its scales
   int d, hq, hkv, S, n_split;
   float eps, scale;
 };
 
-template <class F, int D, bool AI8>
+template <class F, int D, bool AI8, bool KV8>
 __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
+  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
   extern __shared__ __align__(16) float smem[];
   constexpr int HALF = D / 2;
   float* red = smem;                       // 32 floats
@@ -136,10 +154,12 @@ __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
         const int kvh = h - p.hq;          // 0..hkv-1: k heads, hkv..2hkv-1: v heads
         p.kv_cur[kvh * D + i] = o1;
         p.kv_cur[kvh * D + i + HALF] = o2;
-        __nv_bfloat16* cache = kvh < p.hkv ? p.ck : p.cv;
-        const size_t row = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
-        cache[row + i] = __float2bfloat16_rn(o1);
-        cache[row + i + HALF] = __float2bfloat16_rn(o2);
+        if constexpr (!KV8) {                // kv8: quantized after the combine
+          __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
+          const size_t row = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
+          cache[row + i] = __float2bfloat16_rn(o1);
+          cache[row + i + HALF] = __float2bfloat16_rn(o2);
+        }
       }
     }
   }
@@ -151,11 +171,12 @@ __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
   for (int item = blockIdx.x; item < p.hkv * n_live; item += gridDim.x) {
     const int hk = item / n_live, split = item % n_live;
     const int c0 = split * DA_CHUNK;
-    const size_t base = ((size_t)hk * p.S + c0) * D;
-    decode_chunk_partial<D, LK_THREADS>(
-        p.q + (size_t)hk * n_rep * D, p.ck + base, p.cv + base, min(DA_CHUNK, pos - c0), n_rep,
-        p.scale, p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2), head_stride,
-        smem);
+    const size_t pos0 = (size_t)hk * p.S + c0;
+    decode_chunk_partial<D, LK_THREADS, T>(
+        p.q + (size_t)hk * n_rep * D, static_cast<const T*>(p.ck) + pos0 * D,
+        KV8 ? p.cks + pos0 : nullptr, static_cast<const T*>(p.cv) + pos0 * D,
+        KV8 ? p.cvs + pos0 : nullptr, min(DA_CHUNK, pos - c0), n_rep, p.scale,
+        p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2), head_stride, smem);
   }
   grid_barrier(p.bar);
 
@@ -189,6 +210,17 @@ __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
       p.att[(size_t)h * D + lane + 32 * j] = o / den;
     }
   }
+  if constexpr (KV8) {
+    // row pos of the int8 cache: k_cur then v_cur of each KV head, quantized
+    for (int t = gwarp; t < 2 * p.hkv; t += nwarps) {
+      const size_t at = (size_t)(t % p.hkv) * p.S + pos;
+      quantize_vec<D>(p.kv_cur + (size_t)t * D, static_cast<int8_t*>(t < p.hkv ? p.ck : p.cv) +
+                      at * D, (t < p.hkv ? p.cks : p.cvs) + at, lane);
+    }
+    if (p.qq_out != nullptr)
+      for (int h = gwarp; h < p.hq; h += nwarps)
+        quantize_vec<D>(p.q + (size_t)h * D, p.qq_out + (size_t)h * D, p.qs_out + h, lane);
+  }
   grid_barrier(p.bar);
 
   // -- C: x_out = x + att @ Wo^T ----------------------------------------------
@@ -205,30 +237,31 @@ __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
   }
 }
 
-template <class F, int D, bool AI8>
+template <class F, int D, bool AI8, bool KV8>
 int launch(const LayerParams& p, cudaStream_t st) {
   const int n_rep = p.hq / p.hkv;
   const int k_max = p.d > p.hq * D ? p.d : p.hq * D;
   size_t smem = sizeof(float) * (32 + (size_t)k_max / 32 * 33);
-  const size_t smem_b = decode_chunk_smem_bytes<D>(n_rep);
+  const size_t smem_b = decode_chunk_smem_bytes<D, KV8>(n_rep);
   if (smem_b > smem) smem = smem_b;
   // enough warps for the widest warp-per-row phase (A's pairs or C's rows)
   const int n_pairs = (p.hq + 2 * p.hkv) * (D / 2);
   const int max_blocks = ((n_pairs > p.d ? n_pairs : p.d) + LK_WARPS - 1) / LK_WARPS;
-  return launch_cooperative(layer_attn_kernel<F, D, AI8>, LK_THREADS, smem, max_blocks, p, st);
+  return launch_cooperative(layer_attn_kernel<F, D, AI8, KV8>, LK_THREADS, smem, max_blocks, p,
+                            st);
 }
 
-template <class F, bool AI8>
+template <class F, bool AI8, bool KV8>
 int launch_hd(const LayerParams& p, int hd, cudaStream_t st) {
   switch (hd) {      // the JAX rule's head dims (multiples of 32) up to 256
-    case 32: return launch<F, 32, AI8>(p, st);
-    case 64: return launch<F, 64, AI8>(p, st);
-    case 96: return launch<F, 96, AI8>(p, st);
-    case 128: return launch<F, 128, AI8>(p, st);
-    case 160: return launch<F, 160, AI8>(p, st);
-    case 192: return launch<F, 192, AI8>(p, st);
-    case 224: return launch<F, 224, AI8>(p, st);
-    case 256: return launch<F, 256, AI8>(p, st);
+    case 32: return launch<F, 32, AI8, KV8>(p, st);
+    case 64: return launch<F, 64, AI8, KV8>(p, st);
+    case 96: return launch<F, 96, AI8, KV8>(p, st);
+    case 128: return launch<F, 128, AI8, KV8>(p, st);
+    case 160: return launch<F, 160, AI8, KV8>(p, st);
+    case 192: return launch<F, 192, AI8, KV8>(p, st);
+    case 224: return launch<F, 224, AI8, KV8>(p, st);
+    case 256: return launch<F, 256, AI8, KV8>(p, st);
     default: return ZGML_ERR_HEAD_DIM;
   }
 }
@@ -237,30 +270,40 @@ int launch_hd(const LayerParams& p, int hd, cudaStream_t st) {
 
 // kind 0 (q4_0) or 1 (q8_0), the kind of both weights; a_i8 1 for the int8 A
 // phase (then xq_out int8 [d] and xs_out f32 [d/32] receive its activations
-// unless null), 0 for the f32 one; x f32 [d], g f32 [d],
-// wqkv (qs [(hq+2hkv)hd, d/32 * BYTES], d fp16), wo (qs [d, hq hd/32 *
-// BYTES], d fp16), cos/sin f32 [hd/2], ck/cv bf16 layer slabs [hkv, S, hd]
-// (written at row *pos), pos int32 [1] on the device; outputs x_out f32 [d]
-// and kv_cur f32 [2, hkv, hd]; scratch f32 q [hq hd], att [hq hd], part [hq,
-// n_split, hd + 2] with n_split = zgml_decode_split_count(S) (K4's chunking);
-// bar: two uint32 words of a zeroed workspace. All contiguous.
-ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, const float* x, const float* g,
+// unless null), 0 for the f32 one; kv8 1 for the int8 cache (ck/cv int8
+// levels and cks/cvs f32 scales [hkv, S]; qq_out int8 [hq, hd] and qs_out f32
+// [hq] receive the quantized q unless null), 0 for the bf16 one (cks, cvs,
+// qq_out, qs_out null); x f32 [d], g f32 [d], wqkv (qs [(hq+2hkv)hd, d/32 *
+// BYTES], d fp16), wo (qs [d, hq hd/32 * BYTES], d fp16), cos/sin f32
+// [hd/2], ck/cv layer slabs [hkv, S, hd] (written at row *pos), pos int32 [1]
+// on the device; outputs x_out f32 [d] and kv_cur f32 [2, hkv, hd]; scratch
+// f32 q [hq hd], att [hq hd], part [hq, n_split, hd + 2] with n_split =
+// zgml_decode_split_count(S) (K4's chunking); bar: two uint32 words of a
+// zeroed workspace. All contiguous.
+ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, const float* g,
                                 const uint8_t* wqkv_qs, const void* wqkv_d, const uint8_t* wo_qs,
                                 const void* wo_d, const float* cos, const float* sin, void* ck,
-                                void* cv, const int* pos, float* x_out, float* kv_cur, float* q,
-                                float* att, float* part, unsigned int* bar, int8_t* xq_out,
-                                float* xs_out, int d, int hq, int hkv, int hd, int S, float eps,
+                                void* cv, float* cks, float* cvs, const int* pos, float* x_out,
+                                float* kv_cur, float* q, float* att, float* part,
+                                unsigned int* bar, int8_t* xq_out, float* xs_out, int8_t* qq_out,
+                                float* qs_out, int d, int hq, int hkv, int hd, int S, float eps,
                                 float scale, void* stream) {
-  if (d <= 0 || d % 32 != 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || S <= 0)
+  if (d <= 0 || d % 32 != 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || S <= 0 ||
+      (kv8 != 0) != (cks != nullptr && cvs != nullptr))
     return ZGML_ERR_SHAPE;
   const LayerParams p{x, g, wqkv_qs, static_cast<const __half*>(wqkv_d), wo_qs,
-                      static_cast<const __half*>(wo_d), cos, sin,
-                      static_cast<__nv_bfloat16*>(ck), static_cast<__nv_bfloat16*>(cv), pos,
-                      x_out, kv_cur, q, att, part, bar, xq_out, xs_out, d, hq, hkv, S,
-                      (S + DA_CHUNK - 1) / DA_CHUNK, eps, scale};
+                      static_cast<const __half*>(wo_d), cos, sin, ck, cv, cks, cvs, pos,
+                      x_out, kv_cur, q, att, part, bar, xq_out, xs_out, qq_out, qs_out, d, hq,
+                      hkv, S, (S + DA_CHUNK - 1) / DA_CHUNK, eps, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a_i8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true>(p, hd, st))
+  if (a_i8 && kv8) {
+    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, true>(p, hd, st))
   }
-  ZGML_DISPATCH_KIND(kind, return launch_hd<F, false>(p, hd, st))
+  if (a_i8) {
+    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, false>(p, hd, st))
+  }
+  if (kv8) {
+    ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, true>(p, hd, st))
+  }
+  ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, false>(p, hd, st))
 }

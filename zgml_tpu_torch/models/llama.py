@@ -1,4 +1,4 @@
-"""Llama-family decoder over a stacked bf16 KV cache.
+"""Llama-family decoder over a stacked bf16 or int8 KV cache.
 
 Counterpart of zgml_tpu/models/llama.py on the paths it runs over the
 stacked cache, chosen as the JAX package chooses them (config.py flags):
@@ -12,9 +12,10 @@ stacked cache, chosen as the JAX package chooses them (config.py flags):
     composed FFN when ZGML_TPU_KERNELS_DISABLE=fused_ffn or at a width JAX
     does not fuse at;
   - everything else (prefill, batch > 1, ATTN_BLOCK=0): the per-layer
-    `_layer_step(kv_layer=li)` path (llama.py:286-341) with fused `wqkv` and
-    `w_gate_up` projections and K3/K4 attention; its FFN, for calls of at
-    most 32 rows where JAX fuses there, is JAX's composition at Q4_0
+    `_layer_step` path (llama.py:286-341, 397-459) with fused `wqkv` and
+    `w_gate_up` projections and K3/K4 attention (K9/K8 over the int8 cache,
+    after the chunk's or token's K/V are quantized and written); its FFN,
+    for calls of at most 32 rows where JAX fuses there, is JAX's composition at Q4_0
     (rmsnorm, the f32 fused FFN K6b, the residual; llama.py:326-340) and one
     K6a launch at Q8_0 (the same function), else composed;
   - `_head_out` (llama.py:517-543): greedy through K5 when it applies, else
@@ -24,11 +25,17 @@ Every projection's tier (K1 int8 for M <= 32, or K2) is picked in
 ops/dispatch.qmatmul, at the weight's kind (Q4_0 or Q8_0). GQA, RMSNorm,
 half-split RoPE, SwiGLU, tied or separate lm_head.
 
-The KV cache has one layout, ``{"k", "v"}`` bf16 tensors [L, B, Hkv, S, d],
-and ``forward`` writes the new positions into it IN PLACE (the JAX package
+The KV cache is stacked over layers and position-major in both of its
+dtypes (``init_cache(batch, "bf16" | "int8")``): ``{"k", "v"}`` bf16 tensors
+[L, B, Hkv, S, d], or the int8 cache of quant/kv_cache.py, ``{"k", "k_s",
+"v", "v_s"}`` int8 levels [L, B, Hkv, S, d] and f32 scales [L, B, Hkv, S].
+``forward`` writes the new positions into it IN PLACE (the JAX package
 threads a new cache value through instead). Attention reads layer li's slab
-through the kernels' kv_row offset (the cache viewed as [L*B, Hkv, S, d]),
-without a copy.
+through the kernels' kv_row offset (the cache viewed as [L*B, Hkv, S, ...]),
+without a copy. The JAX package keeps the bf16 cache stacked and the int8
+one as a per-layer list (cache_layout, llama.py:651-654), and so picks K7
+for all layers or none with the first and layer by layer with the second
+(llama.py:343-357, 777-782); the port follows each.
 
 ``params`` is a plain dict, as in the JAX package: tok_embd/out_norm f32,
 ``layers`` a list of {attn_norm, ffn_norm, wqkv, wo, w_gate_up, w_down} with
@@ -44,6 +51,7 @@ from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import dispatch as ops
 from zgml_tpu_torch.ops import ffn, refs
 from zgml_tpu_torch.ops.layerkernel import attn_block_compatible
+from zgml_tpu_torch.quant import kv_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,13 +78,15 @@ class LlamaConfig:
 
 def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_len,
                 cos, sin, decode: bool):
-    """One block. x f32 [B, T, D]; ck/cv the whole [L, B, Hkv, S, d] cache,
-    written in place at (li, :, :, pos:pos+T); kv_len an int (prefill) or an
-    int32 tensor [B] (decode)."""
+    """One block. x f32 [B, T, D]; ck/cv the whole [L, B, Hkv, S, d] cache
+    (bf16, or (levels, scales) tuples of the int8 one), written in place at
+    (li, :, :, pos:pos+T); kv_len an int (prefill) or an int32 tensor [B]
+    (decode)."""
     b, t, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     nq, nkv = hq * hd, hkv * hd
-    L, bb, _, s, _ = ck.shape
+    kv8 = isinstance(ck, tuple)
+    L, bb, _, s, _ = (ck[0] if kv8 else ck).shape
 
     h = ops.rmsnorm(x, layer["attn_norm"], cfg.rms_norm_eps)
     qkv = ops.qmatmul(h, layer["wqkv"])
@@ -85,14 +95,24 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
     v = qkv[..., nq + nkv:nq + 2 * nkv].reshape(b, t, hkv, hd).transpose(1, 2)
     q = ops.rope_apply(q, cos, sin)
     k = ops.rope_apply(k, cos, sin)
-    ck[li, :, :, pos:pos + t] = k.to(ck.dtype)
-    cv[li, :, :, pos:pos + t] = v.to(cv.dtype)
-    rows_k, rows_v = ck.view(L * bb, hkv, s, hd), cv.view(L * bb, hkv, s, hd)
-    if decode:
-        att = ops.decode_attention(q, rows_k, rows_v, kv_len, kv_row=li * bb)
+    if kv8:
+        # the int8 cache (llama.py:424-459): quantize and write first, then
+        # attend from the int8 rows like every other position
+        kv_cache.write(ck, cv, li, pos, k, v)
+        rows = [c.view(L * bb, *c.shape[2:]) for c in (*ck, *cv)]      # k, k_s, v, v_s
+        if decode:
+            att = ops.decode_attention_q8(q, *rows, kv_len, kv_row=li * bb)
+        else:
+            att = ops.flash_attention_q8(q, *rows, kv_len=kv_len, q_offset=pos, kv_row=li * bb)
     else:
-        att = ops.flash_attention(q, rows_k, rows_v, kv_len=kv_len, q_offset=pos,
-                                  kv_row=li * bb)
+        ck[li, :, :, pos:pos + t] = k.to(ck.dtype)
+        cv[li, :, :, pos:pos + t] = v.to(cv.dtype)
+        rows_k, rows_v = ck.view(L * bb, hkv, s, hd), cv.view(L * bb, hkv, s, hd)
+        if decode:
+            att = ops.decode_attention(q, rows_k, rows_v, kv_len, kv_row=li * bb)
+        else:
+            att = ops.flash_attention(q, rows_k, rows_v, kv_len=kv_len, q_offset=pos,
+                                      kv_row=li * bb)
     att = att.transpose(1, 2).reshape(b, t, nq)
     x = x + ops.qmatmul(att, layer["wo"])
     return _ffn(cfg, x, layer, after_attn_block=False)
@@ -123,15 +143,12 @@ def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
     return x + ops.qmatmul(ff, layer["w_down"])
 
 
-def _fused_decode(cfg: LlamaConfig, x, layers, ck, cv, pos: int, cos, sin):
-    """Batch-1 decode of one token: K7 then the FFN per layer
-    (llama.py:796-805); K7 writes each layer's K/V row at pos."""
-    pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    for li, layer in enumerate(layers):
-        x, _, _ = ops.attn_block(x, layer["attn_norm"], layer["wqkv"], layer["wo"], ck, cv, li,
-                                 pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps)
-        x = _ffn(cfg, x, layer, after_attn_block=True)
-    return x
+def _fused_layer(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos_t, cos, sin):
+    """Batch-1 decode of one token through one layer: K7 then the FFN
+    (llama.py:796-805, 366-395); K7 writes the layer's K/V row at pos."""
+    x, _, _ = ops.attn_block(x, layer["attn_norm"], layer["wqkv"], layer["wo"], ck, cv, li,
+                             pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps)
+    return _ffn(cfg, x, layer, after_attn_block=True)
 
 
 class LlamaModel(torch.nn.Module):
@@ -147,9 +164,16 @@ class LlamaModel(torch.nn.Module):
     def device(self) -> torch.device:
         return self.params["tok_embd"].device
 
-    def init_cache(self, batch: int) -> dict:
+    def init_cache(self, batch: int, dtype: str = "bf16") -> dict:
+        """The stacked KV cache: "bf16", or "int8" (quant/kv_cache.py, as
+        the JAX package's init_cache(batch, "int8"), llama.py:659-692)."""
         c = self.cfg
         shape = (c.n_layers, batch, c.n_kv_heads, c.max_seq_len, c.head_dim)
+        if dtype == "int8":
+            config.refuse_attn_i8pv()
+            return kv_cache.init_cache(*shape, device=self.device)
+        if dtype != "bf16":
+            raise ValueError(f"cache dtype {dtype!r}: want 'bf16' or 'int8'")
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=self.device)}
 
@@ -159,25 +183,33 @@ class LlamaModel(torch.nn.Module):
         `cache`; attention sees kv_len = pos + T (as llama.py:737)."""
         cfg = self.cfg
         b, t = tokens.shape
-        ck, cv = cache["k"], cache["v"]
-        if ck.shape[1] != b:
-            raise ValueError(f"cache batch {ck.shape[1]}, tokens batch {b}")
-        if pos + t > ck.shape[3]:
-            raise ValueError(f"SequenceTooLong: pos {pos} + {t} tokens > {ck.shape[3]}")
+        kv8 = "k_s" in cache
+        shape = cache["k"].shape
+        if shape[1] != b:
+            raise ValueError(f"cache batch {shape[1]}, tokens batch {b}")
+        if pos + t > shape[3]:
+            raise ValueError(f"SequenceTooLong: pos {pos} + {t} tokens > {shape[3]}")
+        ck, cv = ((cache["k"], cache["k_s"]), (cache["v"], cache["v_s"])) if kv8 else \
+            (cache["k"], cache["v"])
         x = self.params["tok_embd"][tokens]
         positions = torch.arange(pos, pos + t, device=x.device)
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
         decode = t == 1
         layers = self.params["layers"]
-        if (decode and config.attn_block()
-                and all(attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
-                        for ly in layers)):
-            return _fused_decode(cfg, x, layers, ck, cv, pos, cos, sin)
+        fused = [decode and config.attn_block()
+                 and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
+                 for ly in layers]
+        if not kv8 and not all(fused):
+            fused = [False] * len(layers)        # the stacked bf16 cache: all layers or none
+        pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device) if any(fused) else None
         kv_len = pos + t
-        if decode:
+        if decode and not all(fused):
             kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
         for li, layer in enumerate(layers):
-            x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode)
+            if fused[li]:
+                x = _fused_layer(cfg, x, layer, ck, cv, li, pos_t, cos, sin)
+            else:
+                x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode)
         return x
 
     def head(self, x: torch.Tensor, greedy: bool = False,

@@ -45,15 +45,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # weight launchers take the kind code of ops/qmatmul.py KIND_CODE first)
 _SIGNATURES = {
     "zgml_qmatmul": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
-    "zgml_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    "zgml_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "zgml_flash_attention": (*(_P,) * 6, *(_I,) * 9, _F, _P),
+    "zgml_decode_attention": (*(_P,) * 8, *(_I,) * 6, _F, _P),
     "zgml_decode_split_count": (_I,),
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),
     "zgml_qmatmul_i8": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "zgml_greedy": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _P),
     "zgml_ffn": (_I, *(_P,) * 8, _I, _I, _I, _P),
-    "zgml_attn_block": (_I, _I, *(_P,) * 19, _I, _I, _I, _I, _I, _F, _F, _P),
+    "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P),
 }
 
 

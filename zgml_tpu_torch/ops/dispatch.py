@@ -24,9 +24,12 @@ kernels off, which changes the path. Every call is counted by tier in
 runtime.profile.global_profile, under one name per kernel and kind
 (qmatmul = K2, qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d,
 fused_ffn_norm_i8 = K6c, fused_ffn = K6b, attn_block = K7 with the f32 A
-phase and attn_block_i8 with the int8 one, at Q4_0; the same names with _q8
-for K2q8, K1q8, K5q8, K6a and K7 at Q8_0; attention = K3, decode_attention =
-K4): a kernel's count is added where it launches, a plain call's here.
+phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
+at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
+attention = K3, decode_attention = K4, flash_attention_q8 = K9,
+decode_attention_q8 = K8, the JAX package's names): a kernel's count is
+added where it launches, a plain call's here. The cache's dtype picks K3/K4
+or K9/K8 in the model, and K7's cache mode here.
 """
 from __future__ import annotations
 
@@ -126,13 +129,16 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
     """K7: one batch-1 decode token's attention half-layer over layer li of
     the stacked cache (written in place at pos); returns (x_out, k_cur,
     v_cur). Its A phase is int8 where config.attn_i8a holds at wqkv's
-    padded width (layerkernel.py:776). See ops/layerkernel.py for layouts."""
+    padded width (layerkernel.py:776), its phase B over the int8 cache where
+    ck / cv are (levels, scales) tuples (layerkernel.py:799). See
+    ops/layerkernel.py for layouts."""
     a_i8 = config.attn_i8a(config.padded_k(wqkv.k, wqkv.kind))
-    if _use_kernel(x, gamma, wqkv.qs, wo.qs, ck, cv):
+    cache = (*ck, *cv) if isinstance(ck, tuple) else (ck, cv)
+    if _use_kernel(x, gamma, wqkv.qs, wo.qs, *cache):
         return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                            n_heads, n_kv_heads, eps, a_i8)
-    name = "attn_block_i8" if a_i8 else "attn_block"
-    global_profile.count_op(_qmm.counter(name, wqkv.kind), "ref")
+    global_profile.count_op(layerkernel.counter_name(a_i8, isinstance(ck, tuple), wqkv.kind),
+                            "ref")
     return layerkernel.attn_block_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                       n_heads, n_kv_heads, eps, a_i8)
 
@@ -151,6 +157,26 @@ def decode_attention(q, k, v, kv_len, kv_row: int = 0):
         return attention.decode_attention_cuda(q, k, v, kv_len, kv_row)
     global_profile.count_op("decode_attention", "ref")
     return attention.decode_attention_ref(q, k, v, kv_len, kv_row)
+
+
+def flash_attention_q8(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0):
+    """K9: causal GQA prefill attention over the int8 cache (levels k, v,
+    per-position scales ks, vs); zgml_tpu/ops/dispatch.py:191-206."""
+    if _use_kernel(q, k, ks, v, vs):
+        return attention.flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_offset, kv_row)
+    global_profile.count_op("flash_attention_q8", "ref")
+    return attention.flash_attention_q8_ref(q, k, ks, v, vs, kv_len, q_offset, kv_row)
+
+
+def decode_attention_q8(q, k, ks, v, vs, kv_len, kv_row: int = 0):
+    """K8: one query token per row over the int8 cache prefix kv_len ([B] or
+    int); zgml_tpu/ops/dispatch.py:209-220. ZGML_TPU_ATTN_I8PV=1 (its int8
+    P.V mode) is refused, not computed as the f32-p function."""
+    config.refuse_attn_i8pv()
+    if _use_kernel(q, k, ks, v, vs):
+        return attention.decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row)
+    global_profile.count_op("decode_attention_q8", "ref")
+    return attention.decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -7,7 +7,9 @@ zero-padded to the chunk with attention over kv_len = pos + chunk exactly as
 the JAX engine does (the padded rows' K/V land in the cache past the valid
 prefix and are overwritten by the next tokens); decode_n is a Python loop
 whose tokens stay on the device, so a burst needs no host sync until its ids
-are read. The KV cache is updated in place.
+are read. The KV cache is updated in place; `cache_dtype` "int8" makes it
+the int8 cache (engine.py:33, 41), whose prefill runs K9 and decode K7's
+int8-cache mode at batch 1, K8 above.
 
 The tiers match the JAX engine's plans (engine.py:46-91): `step` and sampled
 `decode_n` take the logits through the M = B projection (K1 when the int8
@@ -28,14 +30,14 @@ class LlamaEngine:
     """One model, one KV cache of `batch` rows, one position."""
 
     def __init__(self, model: LlamaModel, batch: int = 1, prefill_chunk: int = 128,
-                 sampling: SamplingParams = SamplingParams()):
+                 cache_dtype: str = "bf16", sampling: SamplingParams = SamplingParams()):
         self.model = model
         self.cfg = model.cfg
         self.batch = batch
         self.prefill_chunk = min(prefill_chunk, model.cfg.max_seq_len)
         self.sampling = sampling
         self.device = model.device
-        self.cache = model.init_cache(batch)
+        self.cache = model.init_cache(batch, cache_dtype)
         self.pos = 0
         self.generator = torch.Generator(device=self.device).manual_seed(0)
 

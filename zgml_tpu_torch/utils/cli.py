@@ -2,10 +2,11 @@
 
 Usage: python -m zgml_tpu_torch generate model.gguf --prompt-ids 1,2,3 -n 32
        python -m zgml_tpu_torch report   model.gguf ...   (also prints op placement)
-Options: --device cuda|cpu, --temperature T, --top-k K, --top-p P.
+Options: --device cuda|cpu, --kv bf16|int8, --temperature T, --top-k K, --top-p P.
 
 --device cuda (the default) runs the CUDA kernels and fails if they cannot
-build or run; --device cpu runs the plain torch versions.
+build or run; --device cpu runs the plain torch versions. --kv int8 keeps
+the KV cache in int8 with one scale per position (quant/kv_cache.py).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ def cmd_generate(args):
     gf.close()
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p)
-    eng = LlamaEngine(model, sampling=sampling)
+    eng = LlamaEngine(model, cache_dtype=args.kv, sampling=sampling)
     ids = [int(t) for t in args.prompt_ids.split(",")] if args.prompt_ids else [1]
     out = eng.generate(ids, args.n)
     print("prompt ids:", ids)
@@ -45,6 +46,7 @@ def main(argv=None):
         p.add_argument("--prompt-ids", default=None, help="comma-separated token ids")
         p.add_argument("-n", type=int, default=32)
         p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+        p.add_argument("--kv", default="bf16", choices=["bf16", "int8"])
         p.add_argument("--temperature", type=float, default=0.0)
         p.add_argument("--top-k", type=int, default=0)
         p.add_argument("--top-p", type=float, default=1.0)
