@@ -75,15 +75,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      the first request (and on kv8_tiny the batch-4 one) is compared with the
      same engine under force_ref() (the same path with every kernel swapped
      for its plain version): the prefill logits, one decode step from a
-     shared cache, and the greedy tokens;
+     shared cache, and the greedy tokens. Then two training paths, counted
+     the same way (the listed kernels must launch, no other kernel and no
+     plain version):
+       train_dense      TinyLlama-1.1B width and depth, dense f32 from
+                        init_params(seed 0), 6 Adam steps on B 4 x T 512
+                        windows of tests/data/corpus_tokens.npy; K10f, K10dq
+                        and K10dkv;
+       train_q4_frozen  the TinyLlama Q4_0 GGUF with tok_embd and the norms
+                        trainable, 6 steps of B 1 x T 512, then the Q8_0 file,
+                        2 steps; K2 and K11 at both kinds, and K10;
+     on each: the loss of batch 0 falls from the first step to after the
+     last, one step's gradients of every trainable tensor match the same
+     step under force_ref() (within max(GRAD_RTOL * max|g|, 2 x the plain
+     path's own move under a 1e-7 embedding perturbation)), and a ZGMT
+     checkpoint of the params and Adam state reads back bit-equal;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with tg32
      also at a 1536-token context on llama2_7b and kv8_7b; per path a
      torch.profiler breakdown of one prefill chunk and 8 decode steps (and,
      on those two, 8 steps at the 1536-token context with K7's device time
-     per token; "not measured" where the profiler sees no kernel);
+     per token; "not measured" where the profiler sees no kernel); ms per
+     training step and tokens/s of both training paths in turns, and a
+     profile of one step each;
   5. print the kernels' JSON line, then the device JSON line last.
-Details also go to chiprun_out/chip_smoke/ (summary JSON, profiler tables).
+Details also go to chiprun_out/chip_smoke/ (summary JSON with the profiler
+tables, and log.txt, every line printed).
 There is no CPU path: without a CUDA device it exits 2.
 """
 from __future__ import annotations
@@ -154,6 +171,27 @@ STEP_RTOL = 1e-2
 SENS_EPS, SENS_DRAWS, SENS_MARGIN = 1e-7, 4, 2.0
 PROFILE_TRIES = 3
 KINDS = ("q4_0", "q8_0")
+# training (phase 2: K10 and K11; phase 3: the two training paths). K10 at
+# (label, B, Hq, Hkv, Tq, S, hd, kv_len, q_offset): the TinyLlama training
+# shape, Llama-2-7B's heads, and a live prefix shorter than S at an offset
+TRAIN_FLASH_CASES = [("TinyLlama B=4 T=512", 4, 32, 4, 512, 512, 64, 512, 0),
+                     ("7B hd=128 n_rep=1 T=512", 1, 32, 32, 512, 512, 128, 512, 0),
+                     ("kv_len < S", 1, 32, 4, 128, 512, 64, 300, 172)]
+TRAIN_M = 512              # K11's rows: B 1 x T 512 (train_q4_frozen), one step's g
+TRAIN_B, TRAIN_T = 4, 512  # train_dense's batch of corpus windows
+FROZEN_B = 1               # train_q4_frozen's batch
+TRAIN_STEPS = {"train_dense": 6, "train_q4_frozen": 6, "train_q8_frozen": 2}
+TRAIN_LR = 1e-3
+# one step's gradients against force_ref(): per tensor max(GRAD_RTOL * max|g|,
+# SENS_MARGIN x the plain path's own move under SENS_EPS embedding
+# perturbations); K and V are rounded to bf16, so f32 summation noise flips
+# some roundings (PERF.md), as on inference's cache
+GRAD_RTOL = 1e-3
+GRAD_SENS_DRAWS = 3
+TRAIN_RATE_ROUNDS = 3
+TRAIN_PATHS = {"train_dense": ("flash_fwd", "flash_dq", "flash_dkv"),
+               "train_q4_frozen": ("q4_matmul", "q4_matmul_bwd", "flash_fwd", "flash_dq",
+                                   "flash_dkv", "q8_matmul", "q8_matmul_bwd")}
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -226,6 +264,12 @@ KERNELS = {
                           "zgml_tpu/ops/layerkernel.py:685"),
     "attn_block_i8_kv8_q8": ("attn_block_i8_kv8_q8", _CSRC + "layer_attn.cu",
                              "zgml_tpu/ops/layerkernel.py:685"),
+    "flash_fwd": ("flash_fwd", _CSRC + "flash_attn.cu", "zgml_tpu/ops/flash_vjp.py:140"),
+    "flash_dq": ("flash_dq", _CSRC + "flash_bwd.cu", "zgml_tpu/ops/flash_vjp.py:230"),
+    "flash_dkv": ("flash_dkv", _CSRC + "flash_bwd.cu", "zgml_tpu/ops/flash_vjp.py:327"),
+    "q4_matmul_bwd": ("qmatmul_bwd", _CSRC + "qmatmul_bwd.cu", "zgml_tpu/ops/qmatmul.py:593"),
+    "q8_matmul_bwd": ("qmatmul_bwd_q8", _CSRC + "qmatmul_bwd.cu",
+                      "zgml_tpu/ops/qmatmul.py:541"),
 }
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
@@ -251,7 +295,12 @@ NO_LIBRARY = {
 
 
 def log(msg: str):
+    """Print a line, and keep it in OUT_DIR/log.txt (a long run's console
+    may keep only its tail)."""
     print(msg, flush=True)
+    if OUT_DIR.is_dir():
+        with open(OUT_DIR / "log.txt", "a") as f:
+            f.write(msg + "\n")
 
 
 def card_line() -> str:
@@ -679,6 +728,11 @@ def check_kernels(torch, dev):
                     None, None, (L_7B, HQ_7B, HKV_7B, D_7B), "7B hd=128 n_rep=1 ")
     check_attention_q8(torch, dev, g, record, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ",
                        KV8_DECODE_LENS_7B)
+    log("  -- training: K10 (flash forward with LSE, dQ, dK/dV) and K11 (dx)")
+    check_training_attention(torch, dev, g, record)
+    for kind in KINDS:
+        for name, n, k in GEMM_SHAPES:
+            check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k)
     return results
 
 
@@ -844,6 +898,153 @@ def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
                f"scaled_dot_product_attention(enable_gqa=True, per-row mask), f32, after an "
                f"untimed dequant of q and the cache (max abs err {lib_err:.2g})",
                i8ops=2 * hq * live * hd)
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 numbers at |x| (8 significant bits), f64, exact."""
+    ax = x.double().abs()
+    _, e = torch.frexp(torch.where(ax > 0, ax, torch.full_like(ax, 2.0 ** -126)))
+    return torch.ldexp(torch.ones_like(ax), e - 8)
+
+
+def check_bf16_ulp(torch, got, want, what):
+    """(max abs err, the largest tolerance): got within one bf16 ulp of want
+    per element, or 1e-6 * max|want| where the sum cancels to below f32 noise
+    (tests/test_torch_flash_vjp.py)."""
+    gd, wd = got.double(), want.double()
+    tol = torch.maximum(torch.maximum(bf16_ulp(torch, wd), bf16_ulp(torch, gd)),
+                        torch.full_like(wd, 1e-6 * float(wd.abs().max())))
+    n_bad = int(((gd - wd).abs() > tol).sum())
+    require(n_bad == 0 and bool(torch.isfinite(gd).all()),
+            f"{what}: {n_bad} elements more than one bf16 ulp from plain")
+    return float((gd - wd).abs().max()), float(tol.max())
+
+
+def efficient_attention(torch, q, k, v, do, kv_len, q_off):
+    """The library yardstick of K10: aten's memory-efficient attention with
+    compute_log_sumexp (f32) and its backward, on k / v cast to f32 and
+    expanded to the query heads outside the timed calls; the causal offset
+    as an additive bias where the mask is not top-left. Returns (forward
+    call, backward call, note) or (None, None, why not)."""
+    b, hq, tq, d = q.shape
+    rep = hq // k.shape[1]
+    kf = k[:, :, :kv_len].float().repeat_interleave(rep, 1).contiguous()
+    vf = v[:, :, :kv_len].float().repeat_interleave(rep, 1).contiguous()
+    top_left = q_off == 0 and kv_len == tq
+    bias = None
+    if not top_left:
+        qi = torch.arange(tq, device=q.device)[:, None] + q_off
+        ki = torch.arange(kv_len, device=q.device)[None, :]
+        bias = torch.zeros((tq, kv_len), device=q.device).masked_fill(ki > qi, float("-inf"))
+        bias = bias.expand(b, hq, tq, kv_len)
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+    scale = 1.0 / d ** 0.5
+    try:
+        out = eff(q, kf, vf, bias, True, 0.0, top_left, scale=scale)
+        grads = eff_bwd(do, q, kf, vf, bias, out[0], out[1], out[2], out[3], 0.0,
+                        [True, True, True, False], top_left, scale=scale)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, None, f"none: aten's efficient attention refused ({type(e).__name__}: " \
+                           f"{str(e)[:120]})"
+    del grads
+
+    def fwd():
+        return eff(q, kf, vf, bias, True, 0.0, top_left, scale=scale)
+
+    def bwd():
+        return eff_bwd(do, q, kf, vf, bias, out[0], out[1], out[2], out[3], 0.0,
+                       [True, True, True, False], top_left, scale=scale)
+    return fwd, bwd, ("aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True) "
+                      "f32" + ("" if top_left else " with an additive causal bias"))
+
+
+def check_training_attention(torch, dev, g, record):
+    """K10f, K10dq and K10dkv against their plain versions (ops/flash_vjp.py)
+    on the same inputs: K10f's O bit-equal to K3's and its LSE within
+    REL_BOUND * max, dQ within REL_BOUND * max, dK / dV within one bf16 ulp
+    per element (the backward from the kernel's own o and lse)."""
+    from zgml_tpu_torch.ops.attention import flash_attention_cuda
+    from zgml_tpu_torch.ops.flash_vjp import (flash_dkv_cuda, flash_dkv_ref, flash_dq_cuda,
+                                              flash_dq_ref, flash_fwd_lse_cuda,
+                                              flash_fwd_lse_ref)
+    for label, b, hq, hkv, tq, s, hd, kv_len, q_off in TRAIN_FLASH_CASES:
+        q = torch.randn((b, hq, tq, hd), device=dev, generator=g)
+        k = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        do = torch.randn((b, hq, tq, hd), device=dev, generator=g)
+        args = (q, k, v, kv_len, q_off)
+        o, lse = flash_fwd_lse_cuda(*args)
+        o3 = flash_attention_cuda(*args)
+        o_r, lse_r = flash_fwd_lse_ref(*args)
+        bargs = (q, k, v, do, o, lse, kv_len, q_off)
+        dq, (dk, dv) = flash_dq_cuda(*bargs), flash_dkv_cuda(*bargs)
+        dq_r, (dk_r, dv_r) = flash_dq_ref(*bargs), flash_dkv_ref(*bargs)
+        torch.cuda.synchronize()
+        case = f"{label} Hq={hq} Hkv={hkv} hd={hd} Tq={tq} S={s} kv_len={kv_len} q_offset={q_off}"
+        require(torch.equal(o.view(torch.int32), o3.view(torch.int32)),
+                f"flash_fwd {case}: O is not K3's O bit for bit")
+        err_o, bound_o = float((o - o_r).abs().max()), REL_BOUND * float(o_r.abs().max())
+        err_l, bound_l = float((lse - lse_r).abs().max()), REL_BOUND * float(lse_r.abs().max())
+        require(err_o <= bound_o and err_l <= bound_l,
+                f"flash_fwd {case}: o err {err_o:.3g} (bound {bound_o:.3g}), lse err "
+                f"{err_l:.3g} (bound {bound_l:.3g})")
+        err_q, bound_q = float((dq - dq_r).abs().max()), REL_BOUND * float(dq_r.abs().max())
+        require(bool(torch.isfinite(dq).all()) and err_q <= bound_q,
+                f"flash_dq {case}: max_abs_err {err_q:.3g} > bound {bound_q:.3g}")
+        kv_errs = [check_bf16_ulp(torch, a, r, f"flash_dkv {case} {n}")
+                   for n, a, r in (("dk", dk, dk_r), ("dv", dv, dv_r))]
+        err_kv = max(kv_errs)
+        # (query, key) pairs attended per head, and the bytes each kernel must move
+        live = sum(min(kv_len, q_off + i + 1) for i in range(tq))
+        heads = b * hq
+        qbytes, lbytes = q.numel() * 4, b * hq * tq * 4
+        kvbytes = 2 * b * hkv * kv_len * hd * 2
+        fwd_lib, bwd_lib, note = efficient_attention(torch, q, k, v, do, kv_len, q_off)
+        t = time_ms(torch, [lambda: flash_fwd_lse_cuda(*args)], 20)
+        tp = time_ms(torch, [lambda: flash_fwd_lse_ref(*args)], 5)
+        lib = time_ms(torch, [fwd_lib], 20) if fwd_lib else None
+        record("flash_fwd", case + f" (O bit-equal to K3's; lse err {err_l:.3g})", err_o,
+               bound_o, t, tp, qbytes * 2 + lbytes + kvbytes, 4 * heads * live * hd, lib, note)
+        t = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)
+        tp = time_ms(torch, [lambda: flash_dq_ref(*bargs)], 5)
+        lib = time_ms(torch, [bwd_lib], 20) if bwd_lib else None
+        bnote = note if bwd_lib is None else (
+            "aten._scaled_dot_product_efficient_attention_backward f32, one call computing dQ, "
+            "dK and dV (the same time stands beside K10dq and K10dkv)")
+        record("flash_dq", case, err_q, bound_q, t, tp, qbytes * 4 + lbytes + kvbytes,
+               6 * heads * live * hd, lib, bnote)
+        t = time_ms(torch, [lambda: flash_dkv_cuda(*bargs)], 20)
+        tp = time_ms(torch, [lambda: flash_dkv_ref(*bargs)], 5)
+        record("flash_dkv", case + " (dK, dV within one bf16 ulp per element)", err_kv[0],
+               err_kv[1], t, tp, qbytes * 3 + lbytes + kvbytes + 2 * heads * s * hd * 2,
+               8 * heads * live * hd, lib, bnote)
+
+
+def check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k):
+    """K11 at TRAIN_M rows of g against g @ dequant(W): K2's bound with N in
+    K's place; the library call is torch.matmul on the weight dequantized
+    outside the timed window."""
+    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda, qmatmul_bwd_ref
+    copies = weights(kind, n, k, 48_000_000)
+    w = copies[0]
+    gr = torch.randn((TRAIN_M, n), device=dev, generator=g)
+    got, want = qmatmul_bwd_cuda(gr, w), qmatmul_bwd_ref(gr, w)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    bound = 1e-4 * n ** 0.5 + 1e-5 * float(want.abs().max())
+    kname = f"{'q4' if kind == 'q4_0' else 'q8'}_matmul_bwd"
+    require(bool(torch.isfinite(got).all()) and err <= bound,
+            f"{kname} {name} M={TRAIN_M}: max_abs_err {err:.3g} > bound {bound:.3g}")
+    t = time_ms(torch, [lambda w_=c: qmatmul_bwd_cuda(gr, w_) for c in copies], 10)
+    tp = time_ms(torch, [lambda w_=c: qmatmul_bwd_ref(gr, w_) for c in copies], 4)
+    wd = w.dequant()
+    lib = time_ms(torch, [lambda: torch.matmul(gr, wd)], 10)
+    del wd
+    record(kname, f"{name} M={TRAIN_M} N={n} K={k}", err, bound, t, tp,
+           TRAIN_M * n * 4 + nbytes_of(w.qs, w.d) + TRAIN_M * k * 4, 2 * TRAIN_M * n * k, lib,
+           "torch.matmul(g, W) f32, W dequantized outside the timed window")
 
 
 def preset(name: str):
@@ -1070,6 +1271,234 @@ def against_plain(torch, eng, prompt, out, name, label):
                 min_gap=min(min(gr) for gr in gaps))
 
 
+def corpus_batches(torch, dev, b, t, n):
+    """n batches [b, t] of consecutive windows of tests/data/corpus_tokens.npy
+    (35632 token ids below 4122, in the repo)."""
+    ids = np.load(ROOT / "tests" / "data" / "corpus_tokens.npy").astype(np.int64)
+    require(n * b * t <= len(ids), f"the corpus holds {len(ids)} ids, {n * b * t} asked for")
+    return [torch.from_numpy(ids[i * b * t:(i + 1) * b * t].reshape(b, t)).to(dev)
+            for i in range(n)]
+
+
+def llama_loss(cfg, merge=None):
+    """The JAX training loss of tests/test_training.py:156-160: next-token
+    cross entropy of the model's training forward; merge(p) builds the full
+    params from the trainable ones (the frozen paths)."""
+    from zgml_tpu_torch.models.llama import LlamaModel
+    from zgml_tpu_torch.nn.losses import cross_entropy_idx
+
+    def loss(p, x, y):
+        return cross_entropy_idx(LlamaModel(cfg, p if merge is None else merge(p))(x)[:, :-1],
+                                 y[:, 1:])
+    return loss
+
+
+def frozen(model):
+    """(trainable params, merge) of a quantized model: tok_embd and the norms
+    train, the quantized projections stay frozen (`_qmm_diff`'s case)."""
+    full = model.params       # adam_update returns new tensors: these stay as loaded
+    tr = {"tok_embd": full["tok_embd"], "out_norm": full["out_norm"],
+          "layers": [{"attn_norm": ly["attn_norm"], "ffn_norm": ly["ffn_norm"]}
+                     for ly in full["layers"]]}
+
+    def merge(p):
+        return {**full, "tok_embd": p["tok_embd"], "out_norm": p["out_norm"],
+                "layers": [{**ly, **t} for ly, t in zip(full["layers"], p["layers"])]}
+    return tr, merge
+
+
+class Trainer:
+    """Adam steps as train_supervised takes them (value_and_grad, then
+    adam_update at TRAIN_LR) on a list of batches, each batch its own
+    input and target."""
+
+    def __init__(self, loss_fn, params, batches):
+        from zgml_tpu_torch.optim.adam import adam_init
+        self.loss_fn, self.params, self.batches = loss_fn, params, batches
+        self.state = adam_init(params)
+        self.losses = []
+
+    def step(self, i: int):
+        from zgml_tpu_torch.nn.train import value_and_grad
+        from zgml_tpu_torch.optim.adam import AdamConfig, adam_update
+        x = self.batches[i % len(self.batches)]
+        loss, grads = value_and_grad(self.loss_fn, self.params, x, x)
+        self.params, self.state = adam_update(self.params, grads, self.state,
+                                              AdamConfig(lr=TRAIN_LR))
+        self.losses.append(loss)
+
+    @property
+    def tokens(self) -> int:
+        return self.batches[0].numel()
+
+
+def train_path(torch, name, trainers, summary):
+    """One training path: each trainer's TRAIN_STEPS (batch i at step i)
+    with the placement counts set to 0 just before and read just after; the
+    path's kernels must launch, no other kernel and no plain version may
+    run, and each trainer's loss on batch 0 must fall from its first step to
+    after its last."""
+    from zgml_tpu_torch.runtime.profile import global_profile
+    set_path("default")
+    torch.cuda.synchronize()
+    global_profile.reset()
+    t0 = time.perf_counter()
+    for label, tr in trainers.items():
+        for i in range(TRAIN_STEPS[label]):
+            tr.step(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tiers = global_profile.tier_summary()
+    launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
+    plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    log(f"  [{name}] {sum(TRAIN_STEPS[lb] for lb in trainers)} steps in {wall:.1f} s; "
+        f"placement: {tiers}")
+    require(all(launches[k] > 0 for k in TRAIN_PATHS[name]),
+            f"[{name}] a kernel of the path never launched: {launches}")
+    require(all(n == 0 for k, n in launches.items() if k not in TRAIN_PATHS[name]),
+            f"[{name}] a kernel of another path launched: {launches}")
+    require(not plain, f"[{name}] plain tier ran on the training path: {plain}")
+    entry = dict(launches=launches, placement=tiers, steps_wall_s=wall)
+    for label, tr in trainers.items():
+        losses = [float(v) for v in tr.losses]
+        x = tr.batches[0]
+        with torch.no_grad():        # after the counted window: this forward is inference
+            after = float(tr.loss_fn(tr.params, x, x))
+        require(all(np.isfinite(losses)) and after < losses[0],
+                f"[{name}] {label}: the loss of batch 0 did not fall: {losses[0]} before the "
+                f"steps, {after} after")
+        log(f"  [{name}] {label}: loss per step {[round(v, 4) for v in losses]}; batch 0 "
+            f"{losses[0]:.4f} before the steps, {after:.4f} after (fell by "
+            f"{losses[0] - after:.4f})")
+        entry[label] = dict(losses=losses, batch0_after=after, lr=TRAIN_LR,
+                            tokens_per_step=tr.tokens)
+    summary.setdefault("training", {})[name] = entry
+    return launches
+
+
+def grad_check(torch, tr, label, summary):
+    """One step's gradients of every trainable tensor with the kernels
+    against the same step under force_ref(), per tensor within
+    max(GRAD_RTOL * max|g|, SENS_MARGIN x how far the plain gradients move
+    when tok_embd is scaled by (1 + SENS_EPS N(0, 1)))."""
+    from zgml_tpu_torch.nn.train import value_and_grad
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.utils.tree import flatten, paths
+    x = tr.batches[0]
+    names = [n for n, _ in paths(tr.params)]
+    gk = flatten(value_and_grad(tr.loss_fn, tr.params, x, x)[1])[0]
+    with force_ref():
+        gr = flatten(value_and_grad(tr.loss_fn, tr.params, x, x)[1])[0]
+        moves = [0.0] * len(gr)
+        gen = torch.Generator(device=x.device).manual_seed(SEED)
+        emb = tr.params["tok_embd"]
+        for _ in range(GRAD_SENS_DRAWS):
+            p2 = {**tr.params, "tok_embd": emb * (1 + SENS_EPS * torch.randn(
+                emb.shape, device=emb.device, generator=gen))}
+            gp = flatten(value_and_grad(tr.loss_fn, p2, x, x)[1])[0]
+            moves = [max(m, float((a - b).abs().max())) for m, a, b in zip(moves, gp, gr)]
+            del gp, p2
+    rows = []
+    for name, a, b, m in zip(names, gk, gr, moves):
+        scale, err = float(b.abs().max()), float((a - b).abs().max())
+        rows.append(dict(tensor=name, err=err, scale=scale, plain_move=m,
+                         bound=max(GRAD_RTOL * scale, SENS_MARGIN * m),
+                         finite=bool(torch.isfinite(a).all())))
+    del gk, gr
+    bad = [r for r in rows if not (r["finite"] and r["err"] <= r["bound"])]
+    worst = max(rows, key=lambda r: r["err"] / max(r["bound"], 1e-30))
+    rel = max(r["err"] / max(r["scale"], 1e-30) for r in rows)
+    log(f"  [{label}] one step's gradients vs force_ref(): {len(rows)} tensors, max "
+        f"|dg|/max|g| {rel:.3g}; worst against its bound: {worst['tensor']} err "
+        f"{worst['err']:.3g} bound {worst['bound']:.3g} (the plain path moves "
+        f"{worst['plain_move'] / max(worst['scale'], 1e-30):.3g} of max|g| under {SENS_EPS:g} "
+        f"perturbations)")
+    require(not bad, f"[{label}] gradients off the plain path: {bad[:5]}")
+    summary.setdefault("grad_check", {})[label] = dict(max_rel=rel, worst=worst, n=len(rows),
+                                                       tensors=rows)
+
+
+def checkpoint_roundtrip(torch, tr, label, summary):
+    """Save the params and Adam state in the ZGMT format and load them back
+    bit for bit (io/checkpoint.py), under .bench_cache/ (deleted after)."""
+    from zgml_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from zgml_tpu_torch.utils.tree import flatten
+    path = ROOT / ".bench_cache" / f"{label}.zgmt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tree = {"params": tr.params, "opt": tr.state}
+    t0 = time.perf_counter()
+    save_checkpoint(str(path), tree)
+    size = path.stat().st_size
+    try:
+        back = load_checkpoint(str(path), tree)
+    finally:
+        path.unlink()
+    leaves, got = flatten(tree)[0], flatten(back)[0]
+    same = all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+               for a, b in zip(leaves, got))
+    del back, got
+    require(same and len(leaves) > 0, f"[{label}] checkpoint round trip is not bit-equal")
+    log(f"  [{label}] checkpoint of params and Adam state: {len(leaves)} tensors, "
+        f"{size / 1e9:.2f} GB written and read back bit-equal in {time.perf_counter() - t0:.1f} s")
+    summary.setdefault("checkpoint", {})[label] = dict(tensors=len(leaves), bytes=size)
+
+
+def train_rates(torch, trainers, card, summary):
+    """ms per step and tokens/s of each training path, in turns (rounds of
+    the paths there and back), the median per path."""
+    order = list(trainers) + list(trainers)[::-1]
+    runs = {name: [] for name in trainers}
+    for _ in range(TRAIN_RATE_ROUNDS):
+        for name in order:
+            tr = trainers[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.step(0)
+            torch.cuda.synchronize()
+            runs[name].append(time.perf_counter() - t0)
+    for name, ts in runs.items():
+        med = statistics.median(ts)
+        tok = trainers[name].tokens
+        log(f"  [{name}] {med * 1e3:.1f} ms per step ({tok} tokens), {tok / med:.1f} tokens/s; "
+            f"fastest turn {min(ts) * 1e3:.1f} ms  [{card}]")
+        summary.setdefault("train_rates", {})[name] = dict(
+            step_ms=med * 1e3, tokens_per_s=tok / med, runs_s=ts, tokens=tok, order=order,
+            rounds=TRAIN_RATE_ROUNDS, card=card)
+
+
+def train_profile(torch, tr, name, summary):
+    """Device time by kernel of one training step (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    rows = []
+    for _ in range(PROFILE_TRIES):     # see time_ms: a window may come back empty
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.step(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(ev.key, _self_device_us(ev), ev.count) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA]
+        if rows:
+            break
+    if not rows:
+        summary.setdefault("train_profile", {})[name] = dict(wall_us=wall * 1e6,
+                                                             device_busy_us="not measured")
+        log(f"  [{name}] one step: host wall {wall * 1e3:.1f} ms, device busy not measured")
+        return
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    summary.setdefault("train_profile", {})[name] = dict(
+        wall_us=wall * 1e6, device_busy_us=busy,
+        kernels=[dict(name=k[:90], us=u, count=c) for k, u, c in rows[:15]])
+    log(f"  [{name}] one step: host wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+        f"({100 * busy / (wall * 1e6):.1f}%)")
+    for k, u, c in rows[:10]:
+        log(f"    {u / 1e3:8.3f} ms  x{c:<5} {k[:80]}")
+
+
 def rates(torch, engines, prompt, long_prompt, card, summary):
     """pp128 and tg32 of every path, measured in turns: RATE_ROUNDS rounds of
     the paths there and back (default, unfused, ..., kv8_7b, kv8_7b, ...,
@@ -1199,6 +1628,42 @@ def kernel_line(name, cases, by_path) -> dict:
                 cases=cases)
 
 
+def train_paths(torch, dev, models, summary, launches):
+    """Phase 3's training paths: train_dense (TinyLlama-1.1B width and depth,
+    dense f32 from init_params(seed 0), B 4 x T 512 corpus windows) and
+    train_q4_frozen (the TinyLlama Q4_0 GGUF with tok_embd and the norms
+    trainable, B 1 x T 512, then the Q8_0 file the same way). Returns the
+    trainers timed in phase 4: dense and the Q4_0 frozen one."""
+    from zgml_tpu_torch.models.llama import init_params
+    t0 = time.perf_counter()
+    cfg = preset("tinyllama-1.1b")
+    dense = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [dense["tok_embd"], dense["out_norm"], dense["lm_head"]]) \
+        + sum(t.numel() for ly in dense["layers"] for t in ly.values())
+    log(f"  init_params(TinyLlama-1.1B, seed {SEED}): {n_params / 1e9:.3f} B f32 params in "
+        f"{time.perf_counter() - t0:.1f} s")
+    trainers = {"train_dense": Trainer(llama_loss(cfg), dense,
+                                       corpus_batches(torch, dev, TRAIN_B, TRAIN_T,
+                                                      TRAIN_STEPS["train_dense"]))}
+    launches["train_dense"] = train_path(torch, "train_dense", trainers, summary)
+    grad_check(torch, trainers["train_dense"], "train_dense", summary)
+    checkpoint_roundtrip(torch, trainers["train_dense"], "train_dense", summary)
+    frozen_tr = {}
+    for kind, label in (("q4_0", "train_q4_frozen"), ("q8_0", "train_q8_frozen")):
+        model = models["tinyllama-1.1b", kind]
+        tr, merge = frozen(model)
+        frozen_tr[label] = Trainer(llama_loss(model.cfg, merge), tr,
+                                   corpus_batches(torch, dev, FROZEN_B, TRAIN_T,
+                                                  TRAIN_STEPS[label]))
+    launches["train_q4_frozen"] = train_path(torch, "train_q4_frozen", frozen_tr, summary)
+    for label, tr in frozen_tr.items():
+        grad_check(torch, tr, label, summary)
+    checkpoint_roundtrip(torch, frozen_tr["train_q4_frozen"], "train_q4_frozen", summary)
+    return {"train_dense": trainers["train_dense"],
+            "train_q4_frozen": frozen_tr["train_q4_frozen"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1207,6 +1672,8 @@ def main() -> int:
     from zgml_tpu_torch.ops import build
 
     dev = torch.device("cuda")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "log.txt").write_text("")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     summary = {}
@@ -1239,7 +1706,10 @@ def main() -> int:
     for name in PATHS:
         engines[name], launches[name] = end_to_end(torch, models[PATH_MODEL[name]], prompts,
                                                    name, summary)
-    log(f"  phase 3 took {time.perf_counter() - t0:.1f} s")
+    log(f"  phase 3 (inference) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trainers = train_paths(torch, dev, models, summary, launches)
+    log(f"  phase 3 (training) took {time.perf_counter() - t0:.1f} s")
 
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()
@@ -1247,9 +1717,13 @@ def main() -> int:
     for name, eng in engines.items():
         set_path(name)
         profile(torch, eng, prompts[2], prompts[3], name, summary)
+    set_path("default")
+    train_rates(torch, trainers, card, summary)
+    for name, tr in trainers.items():
+        train_profile(torch, tr, name, summary)
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
-    kernels = [kernel_line(name, checks[name], {p: launches[p][name] for p in PATHS})
+    kernels = [kernel_line(name, checks[name], {p: n[name] for p, n in launches.items()})
                for name in KERNELS]
     summary.update(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                    build_s=nvcc_s, kernels=kernels)

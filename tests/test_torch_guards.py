@@ -158,6 +158,86 @@ def test_load_llama_defaults_to_the_card(tmp_path):
         load_llama(path)
 
 
+def test_init_params_defaults_to_the_card_and_training_follows_params():
+    """init_params builds on the card unless asked for the CPU (without a
+    card the default raises, naming the device); train_supervised runs on
+    the device of the params it is given."""
+    from zgml_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_params
+    from zgml_tpu_torch.nn.losses import cross_entropy_idx
+    from zgml_tpu_torch.nn.train import train_supervised
+    cfg = LlamaConfig(vocab_size=16, d_model=32, n_heads=2, n_kv_heads=1, d_ff=32, n_layers=1,
+                      max_seq_len=8, tied_lm_head=True)
+    if torch.cuda.is_available():
+        assert init_params(cfg)["tok_embd"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+            init_params(cfg)
+    data = torch.arange(32).reshape(4, 8).remainder(16).numpy()
+
+    def loss(p, x, y):
+        return cross_entropy_idx(LlamaModel(cfg, p)(x)[:, :-1], y[:, 1:])
+    p, losses = train_supervised(init_params(cfg, device="cpu"), loss, data, data, epochs=1,
+                                 batch_size=2)
+    assert p["tok_embd"].device.type == "cpu" and len(losses) == 1
+
+
+def test_kernels_without_backward_raise_under_grad():
+    """K4, K5, K6*, K7, K8 and K9 have no backward: called with grad enabled on
+    an input that requires it they raise, naming the ROADMAP item, and never
+    return a result whose gradient would be silently zero."""
+    x = torch.zeros(1, 1, 32, requires_grad=True)
+    gu, wd = _pw_n(64), PackedWeight(32, 32, torch.zeros(32, 16, dtype=torch.uint8),
+                                     torch.zeros(32, 1, dtype=torch.float16))
+    q = torch.zeros(1, 2, 1, 16, requires_grad=True)
+    kv = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16)
+    i8, sc = torch.zeros(1, 1, 8, 16, dtype=torch.int8), torch.ones(1, 1, 8)
+    cache = torch.zeros(1, 1, 1, 8, 32, dtype=torch.bfloat16)
+    calls = [
+        lambda: dispatch.qmatmul_greedy(x, _pw("cpu")),
+        lambda: dispatch.fused_ffn_norm(x, torch.ones(32), gu, wd, 1e-5),
+        lambda: dispatch.fused_ffn(x, gu, wd),
+        lambda: dispatch.attn_block(x, torch.ones(32), _pw_n(96), _pw_n(32), cache, cache, 0,
+                                    torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
+                                    torch.zeros(1, 16), 1, 1, 1e-5),
+        lambda: dispatch.decode_attention(q, kv, kv, 4),
+        lambda: dispatch.decode_attention_q8(q, i8, sc, i8, sc, 4),
+        lambda: dispatch.flash_attention_q8(q, i8, sc, i8, sc, 4),
+    ]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match=r"no backward.*ROADMAP\.md B\.5"):
+            call()
+    with torch.no_grad():
+        assert dispatch.decode_attention(q, kv, kv, 4).shape == q.shape
+
+
+def test_flash_attention_refuses_kv_row_under_grad():
+    """The training flash backward reads k / v rows from 0 (as JAX's): a
+    kv_row other than 0 under autograd raises; inference keeps it."""
+    q = torch.zeros(1, 2, 4, 16, requires_grad=True)
+    kv = torch.zeros(2, 1, 8, 16, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="kv_row"):
+        dispatch.flash_attention(q, kv, kv, kv_len=4, kv_row=1)
+    with torch.no_grad():
+        assert dispatch.flash_attention(q, kv, kv, kv_len=4, kv_row=1).shape == q.shape
+
+
+def test_training_wrappers_refuse_cpu_tensors():
+    """K10f, K10dq, K10dkv and K11 launchers raise off the card."""
+    from zgml_tpu_torch.ops.flash_vjp import flash_dkv_cuda, flash_dq_cuda, flash_fwd_lse_cuda
+    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda
+    q = torch.zeros(1, 2, 4, 16)
+    kv = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_fwd_lse_cuda(q, kv, kv, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dq_cuda(q, kv, kv, q, q, lse, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_dkv_cuda(q, kv, kv, q, q, lse, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        qmatmul_bwd_cuda(torch.zeros(1, 8), _pw("cpu"))
+
+
 def test_force_ref_is_scoped():
     assert not dispatch._force_ref.get()
     with dispatch.force_ref():

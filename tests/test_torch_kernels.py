@@ -20,7 +20,10 @@ at most 1% of the values. The int8-cache kernels (K8, K9, K7's kv8 mode) hold
 the kernel bit-equal to the plain quantize_columns; K7-kv8's plain version
 runs on the kernel's own quantized q, q8_out / q8, whose levels may sit one
 apart from the plain ones), and K7-kv8's cache row pos is quantize_columns
-of the kernel's own k_cur / v_cur bit for bit.
+of the kernel's own k_cur / v_cur bit for bit. Training: K10f's O equals K3's
+bit for bit and its LSE the plain one within 1e-5 * max; K10dq within 1e-5 *
+max|dQ|; K10dkv's bf16 dK / dV within one bf16 ulp per element of the plain
+versions on the same inputs; K11 within K2's bound with N in K's place.
 """
 import numpy as np
 import pytest
@@ -438,3 +441,99 @@ def test_attn_block_kv8(cuda, hq, hkv, hd, s, pos, li, a_i8, kind):
         assert torch.equal(sc[li, 0, :, pos].view(torch.int32), ws.view(torch.int32))
         assert torch.equal(lv[:, :, :, rows], lv_r[:, :, :, rows])
         assert torch.equal(sc[:, :, :, rows], sc_r[:, :, :, rows])
+
+
+# -- training: K10 (flash forward with LSE, dQ, dK/dV) and K11 (dx) -------------
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits), in f64,
+    exact (frexp / ldexp: no log2 or pow rounding)."""
+    ax = x.double().abs()
+    _, e = torch.frexp(torch.where(ax > 0, ax, torch.full_like(ax, 2.0 ** -126)))
+    return torch.ldexp(torch.ones_like(ax), e - 8)
+
+
+def assert_bf16_ulp(got: torch.Tensor, want: torch.Tensor):
+    """One bf16 ulp per element, or 1e-6 * max|want| where the sum cancels to
+    below f32 noise (tests/test_torch_flash_vjp.py)."""
+    g, w = got.double(), want.double()
+    tol = torch.maximum(torch.maximum(bf16_ulp(w), bf16_ulp(g)),
+                        torch.full_like(w, 1e-6 * float(w.abs().max())))
+    bad = (g - w).abs() > tol
+    assert not bool(bad.any()), (int(bad.sum()), float((g - w).abs().max()))
+
+
+TRAIN_FLASH_CASES = [
+    (4, 32, 4, 512, 512, 64, 512, 0),      # TinyLlama training (B 4, T 512)
+    (1, 32, 32, 256, 256, 128, 256, 0),    # Llama-2-7B heads: hd 128, MHA
+    (2, 4, 2, 128, 256, 64, 200, 72),      # live prefix < S, offset (tests/test_vjp.py)
+    (1, 4, 1, 40, 96, 32, 77, 37),         # ragged tiles
+    (2, 8, 4, 33, 33, 16, 33, 0),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,s,d,kv_len,q_off", TRAIN_FLASH_CASES)
+def test_flash_training_kernels(cuda, b, hq, hkv, tq, s, d, kv_len, q_off):
+    """K10f's O equals K3's bit for bit and its LSE the plain one within
+    1e-5 * max; K10dq within 1e-5 * max|dQ|; K10dkv's bf16 dK / dV within
+    one ulp of the plain versions on the same inputs (o, lse the kernel's)."""
+    from zgml_tpu_torch.ops.flash_vjp import (flash_dkv_cuda, flash_dkv_ref, flash_dq_cuda,
+                                              flash_dq_ref, flash_fwd_lse_cuda, flash_fwd_lse_ref)
+    rng = np.random.default_rng(tq + d)
+    q, k, v = _qkv(rng, b, hq, hkv, tq, b, s, d, cuda)
+    do = torch.from_numpy(rng.standard_normal((b, hq, tq, d)).astype(np.float32)).to(cuda)
+    o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_off)
+    o_ref, lse_ref = flash_fwd_lse_ref(q, k, v, kv_len, q_off)
+    o3 = flash_attention_cuda(q, k, v, kv_len, q_off)
+    dq = flash_dq_cuda(q, k, v, do, o, lse, kv_len, q_off)
+    dk, dv = flash_dkv_cuda(q, k, v, do, o, lse, kv_len, q_off)
+    dq_ref = flash_dq_ref(q, k, v, do, o, lse, kv_len, q_off)
+    dk_ref, dv_ref = flash_dkv_ref(q, k, v, do, o, lse, kv_len, q_off)
+    torch.cuda.synchronize()
+    assert torch.equal(o.view(torch.int32), o3.view(torch.int32))
+    torch.testing.assert_close(o, o_ref, rtol=1e-5, atol=1e-5)
+    assert float((lse - lse_ref).abs().max()) <= 1e-5 * float(lse_ref.abs().max())
+    assert float((dq - dq_ref).abs().max()) <= 1e-5 * float(dq_ref.abs().max())
+    assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == (b, hq, s, d)
+    assert_bf16_ulp(dk, dk_ref)
+    assert_bf16_ulp(dv, dv_ref)
+
+
+def test_flash_attention_autograd_takes_k10(cuda):
+    """dispatch.flash_attention under autograd launches K10f, K10dq and
+    K10dkv once each, and its gradients equal the same Function's plain
+    tier (force_ref) within the bounds above."""
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng, 2, 8, 2, 64, 2, 64, 64, cuda)
+    grads = []
+    for ref in (False, True):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        global_profile.reset()
+        if ref:
+            with dispatch.force_ref():
+                torch.sum(torch.sin(dispatch.flash_attention(qq, kk, vv, kv_len=64))).backward()
+        else:
+            torch.sum(torch.sin(dispatch.flash_attention(qq, kk, vv, kv_len=64))).backward()
+        tier = "ref" if ref else "cuda"
+        assert global_profile.tier_summary() == {n: {tier: 1} for n in
+                                                 ("flash_fwd", "flash_dq", "flash_dkv")}
+        grads.append((qq.grad, kk.grad, vv.grad))
+    (dq, dk, dv), (dq_r, dk_r, dv_r) = grads
+    assert float((dq - dq_r).abs().max()) <= 1e-5 * float(dq_r.abs().max())
+    for got, want in ((dk, dk_r), (dv, dv_r)):     # group sums of 4 per-head terms
+        assert float((got.double() - want.double()).abs().max()) <= \
+            4 * float(bf16_ulp(want.abs().max()))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", [(512, 2560, 2048), (512, 2048, 5632), (40, 96, 64),
+                                   (1, 300, 576), (77, 1000, 512)])
+def test_qmatmul_bwd(cuda, m, n, k, kind):
+    """K11 against g @ dequant(W): K2's bound with N in K's place."""
+    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda, qmatmul_bwd_ref
+    rng = np.random.default_rng(m + n + k)
+    w = _weight(rng, n, k, cuda, kind)
+    g = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(cuda)
+    got, want = qmatmul_bwd_cuda(g, w), qmatmul_bwd_ref(g, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * np.sqrt(n))

@@ -78,7 +78,7 @@ PROMPT_LEN, CHUNK, N_DECODE = 20, 16, 8
 
 
 def _set_flags(mp, flags):
-    for k in (*SLICE_FLAGS, *I8A_FLAGS):
+    for k in (*SLICE_FLAGS, *I8A_FLAGS, "ZGML_TPU_LAYER_FFN"):
         mp.delenv(k, raising=False)
     for k, v in flags.items():
         mp.setenv(k, v)
@@ -237,6 +237,14 @@ def q8_runs(tmp_path_factory):
 def i8a_runs(tmp_path_factory):
     """default_runs at Q4_0 with the int8 decode tier forced on (I8A_FLAGS)."""
     return _default_runs(tmp_path_factory, GGMLType.Q4_0, seed=11, flags=I8A_FLAGS)
+
+
+@pytest.fixture(scope="module")
+def layer_ffn_runs(tmp_path_factory):
+    """i8a_runs with ZGML_TPU_LAYER_FFN=1: JAX runs each decode FFN as K7's
+    phase E (f32), whatever ZGML_TPU_FFN_I8A says."""
+    return _default_runs(tmp_path_factory, GGMLType.Q4_0, seed=11,
+                         flags={**I8A_FLAGS, "ZGML_TPU_LAYER_FFN": "1"})
 
 
 def _default_runs(tmp_path_factory, quant, seed, flags=DEFAULT_FLAGS):
@@ -520,6 +528,20 @@ def test_i8a_run_takes_the_int8_tier(i8a_runs):
     assert tiers["attn_block_i8"] == {"ref": n}
     assert tiers["fused_ffn_norm_i8"] == {"ref": n}
     assert not set(tiers) & {"attn_block", "fused_ffn_norm"}, tiers
+
+
+def test_layer_ffn_step_logits_match_jax(layer_ffn_runs):
+    """ZGML_TPU_LAYER_FFN=1 at the int8 tier: JAX's K7 runs the FFN as its
+    f32 phase E, so the port runs K6d after K7 (not K6c); each step from the
+    JAX cache of that step within 1e-5 * max|logit|, each layer's placement
+    attn_block_i8 + fused_ffn_norm. Before the port read the flag it ran K6c
+    and its step sat 1.43e-2 * max|logit| away (ROADMAP C.1)."""
+    _check_steps(layer_ffn_runs)
+    tiers = layer_ffn_runs["tiers"]
+    n = 2 * N_DECODE * DEFAULT_CFG.n_layers
+    assert tiers["attn_block_i8"] == {"ref": n}
+    assert tiers["fused_ffn_norm"] == {"ref": n}
+    assert "fused_ffn_norm_i8" not in tiers, tiers
 
 
 @pytest.mark.parametrize("attn_i8a", ["1", "0"])

@@ -273,3 +273,58 @@ def test_q4_greedy_takes_one_row_and_the_int8_tier(default_flags, monkeypatch):
     assert dispatch.qmatmul_greedy(torch.zeros(2, K), pw) is None
     monkeypatch.setenv("ZGML_TPU_I8DOT", "0")
     assert dispatch.qmatmul_greedy(torch.zeros(1, K), pw) is None
+
+
+# -- K11: dx = g @ dequant(W), the backward of a frozen quantized projection --
+
+@pytest.mark.parametrize("kind,k,n,m", [
+    ("q8_0", 512, 384, 16),
+    ("q4_0", 512, 384, 16),
+    ("q4_0", 768, 256, 40),   # odd m (the JAX pad path), k not a multiple of 512
+])
+def test_qmatmul_grad_matches_jax_grad(slice_flags, kind, k, n, m):
+    """dx of dispatch.qmatmul under autograd (QMatmul: K2's plain forward,
+    K11's plain backward) against jax.grad of qmatmul_pallas (K11q4 / K11q8
+    in interpret mode) at tests/test_vjp.py's cases: within 1e-5 * max|dx|
+    (f32 sums in another order); the weight gets no gradient."""
+    import jax
+    rng = np.random.default_rng(hash((kind, k, n, m)) % 2**32)
+    w = rng.standard_normal((n, k)).astype(np.float32)
+    jpw = quantize_weight(w, kind)
+    pw = _FROM_PLANAR[kind](jpw.qvals, jpw.scales, jpw.n, jpw.k, device="cpu")
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    jg = jnp.asarray(g)
+    want = np.asarray(jax.grad(lambda x_: jnp.sum(qmatmul_pallas(x_, _jax_weight(jpw)) * jg))(
+        jnp.asarray(x)))
+    tx = torch.from_numpy(x).requires_grad_()
+    global_profile.reset()
+    torch.sum(dispatch.qmatmul(tx, pw) * torch.from_numpy(g)).backward()
+    name = "qmatmul" if kind == "q4_0" else "qmatmul_q8"
+    assert global_profile.tier_summary() == {name: {"ref": 1},
+                                             name.replace("qmatmul", "qmatmul_bwd"): {"ref": 1}}
+    assert not pw.qs.requires_grad and not pw.d.requires_grad
+    err = np.max(np.abs(tx.grad.numpy() - want))
+    assert err <= 1e-5 * np.max(np.abs(want)), err
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("m", [1, 8, 32])
+def test_qmatmul_grad_on_the_int8_tier_is_straight_through(default_flags, kind, m):
+    """At M <= 32 the forward is K1 (int8 activations), whose plain version
+    rounds: autograd through it would give a zero dx. QMatmul's backward is
+    K11 there too, dx = g @ dequant(W), as JAX's `_qmm_diff_bwd`."""
+    rng, _, pw = _weights(70 + m, kind=kind)
+    x = torch.from_numpy(rng.standard_normal((1, m, K)).astype(np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.standard_normal((1, m, N)).astype(np.float32))
+    global_profile.reset()
+    y = dispatch.qmatmul(x, pw)
+    torch.sum(y * g).backward()
+    tiers = global_profile.tier_summary()
+    sfx = "" if kind == "q4_0" else "_q8"
+    assert tiers == {f"qmatmul_i8{sfx}": {"ref": 1}, f"qmatmul_bwd{sfx}": {"ref": 1}}, tiers
+    with torch.no_grad():
+        np.testing.assert_array_equal(y.numpy(), qmatmul_i8_ref(x, pw).numpy())
+    want = (g.reshape(m, N) @ pw.dequant()).reshape(1, m, K)
+    assert x.grad.shape == x.shape
+    np.testing.assert_array_equal(x.grad.numpy(), want.numpy())

@@ -9,9 +9,12 @@ anything from ``zgml_tpu``:
 - ``zgml_tpu_torch.ops``     — plain torch references (``refs``), the
                                hand-written CUDA kernels (``csrc/``, built by
                                ``ops.build``) and their wrappers, ``dispatch``.
-- ``zgml_tpu_torch.models``  — the llama model over a stacked bf16 KV cache.
+- ``zgml_tpu_torch.models``  — the llama model over a stacked bf16 KV cache,
+                               and its training forward.
 - ``zgml_tpu_torch.runtime`` — engine (chunked prefill, greedy/sampled decode),
                                sampling, placement counters.
+- ``zgml_tpu_torch.nn``, ``optim``, ``data`` — losses, the training loops,
+                               SGD / Adam, the batch loader.
 
 Tensors on a CUDA device go through the kernels; tensors on the CPU go through
 the plain torch versions. No other device is accepted.

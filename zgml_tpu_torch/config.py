@@ -3,7 +3,7 @@
 The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
-the card. The *path* follows six of the JAX package's own variables, with
+the card. The *path* follows seven of the JAX package's own variables, with
 its defaults, read at call time (the port is eager):
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
@@ -20,6 +20,8 @@ its defaults, read at call time (the port is eager):
                                                        gate|up (default: on where dp >= 4096)
   ZGML_TPU_ATTN_I8PV=1            refuse_attn_i8pv()   K8's int8 P.V mode (default off): not
                                                        ported, so an int8-cache run refuses it
+  ZGML_TPU_LAYER_FFN=1            layer_ffn()          the FFN as K7's phase E (default off):
+                                                       the port runs its function, K6d's
 
 The two i8a flags take the JAX package's padded width of the weight, which
 the port computes from its unpadded one (padded_k). The port reads no other
@@ -74,6 +76,14 @@ def ffn_i8a(dp: int) -> bool:
     """The int8 gate|up phase of the Q4_0 decode FFN, K6c, at padded width dp
     (zgml_tpu/config.py:140-145)."""
     return _flag("ZGML_TPU_FFN_I8A", "1" if dp >= I8A_MIN_DP else "0") and dp % 32 == 0
+
+
+def layer_ffn() -> bool:
+    """ZGML_TPU_LAYER_FFN (zgml_tpu/config.py:103-105, only "1" is on): the
+    JAX package then runs a Q4_0 decode FFN inside K7 as its phase E, the f32
+    N-packed FFN, whatever ZGML_TPU_FFN_I8A says (layerkernel.py:762-765).
+    The port runs that function as K6d after K7 (models/llama._ffn)."""
+    return os.environ.get("ZGML_TPU_LAYER_FFN", "0") == "1"
 
 
 def refuse_attn_i8pv():

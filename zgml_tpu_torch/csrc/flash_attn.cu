@@ -1,10 +1,20 @@
 // K3 flash_attention: causal GQA prefill attention over the bf16 KV cache;
-// and its int8-cache mode, K9 flash_attention_q8.
+// its int8-cache mode, K9 flash_attention_q8; and its LSE mode, K10f
+// flash_fwd, the forward of training's flash attention.
 //
 // Replaces: zgml_tpu/ops/attention.py `_flash_kernel` (line 44), reached
 // through `_flash` / `flash_attention_pallas` via flash_vjp.make_flash_vjp
 // (K3), and `_flash_q8_kernel` (line 599, pallas_call at 702), reached
-// through `_flash_q8` / `flash_attention_q8_pallas` (K9).
+// through `_flash_q8` / `flash_attention_q8_pallas` (K9); and
+// zgml_tpu/ops/flash_vjp.py `_fwd_kernel` (pallas_call at line 140, K10f),
+// which `make_flash_vjp` runs under jax.grad.
+//
+// K10f (the plain version is ops/flash_vjp.py flash_fwd_lse_ref) is K3 with
+// one more output: lse f32 [B, Hq, Tq], m + log(l) of each row's online
+// softmax, +inf for a row with no live key (flash_vjp.py:89-92), which the
+// backward kernels (flash_bwd.cu) turn into p = exp(s - lse). It is the same
+// kernel with a non-null lse pointer, so its O is K3's O bit for bit; the
+// JAX kernel's 128-lane LSE sidecar is TPU layout and is not kept.
 //
 // K9 (the plain version is ops/attention.py flash_attention_q8_ref): k, v
 // are the position-major int8 cache [R, Hkv, S, D] with f32 scales ks, vs
@@ -51,8 +61,9 @@ template <int D, bool KV8>
 __global__ void __launch_bounds__(FA_BQ)
 flash_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
                   const float* __restrict__ ks, const void* __restrict__ v,
-                  const float* __restrict__ vs, float* __restrict__ o, int Hq, int Hkv, int Tq,
-                  int S, int kv_len, int q_offset, int kv_row, float scale) {
+                  const float* __restrict__ vs, float* __restrict__ o, float* __restrict__ lse,
+                  int Hq, int Hkv, int Tq, int S, int kv_len, int q_offset, int kv_row,
+                  float scale) {
   __shared__ __align__(16) float Ks[FA_BK][D];
   __shared__ __align__(16) float Vs[FA_BK][D];
   __shared__ float Kscale[KV8 ? FA_BK : 1];      // KV8: k_scale * scale per key of the tile
@@ -163,18 +174,19 @@ flash_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int i = 0; i < D; ++i) op[i] = acc[i] * inv;
+    if (lse != nullptr) lse[(size_t)bh * Tq + row] = l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
 template <bool KV8>
 int launch(const float* q, const void* k, const float* ks, const void* v, const float* vs,
-           float* o, int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len, int q_offset,
-           int kv_row, float scale, cudaStream_t st) {
+           float* o, float* lse, int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len,
+           int q_offset, int kv_row, float scale, cudaStream_t st) {
   const dim3 grid((Tq + FA_BQ - 1) / FA_BQ, B * Hq);
 #define ZGML_FLASH(DD)                                                                      \
   case DD:                                                                                  \
-    flash_attn_kernel<DD, KV8><<<grid, FA_BQ, 0, st>>>(q, k, ks, v, vs, o, Hq, Hkv, Tq, S,  \
-                                                       kv_len, q_offset, kv_row, scale);    \
+    flash_attn_kernel<DD, KV8><<<grid, FA_BQ, 0, st>>>(q, k, ks, v, vs, o, lse, Hq, Hkv, Tq, \
+                                                       S, kv_len, q_offset, kv_row, scale); \
     break;
   switch (D) {
     ZGML_FLASH(16)
@@ -191,18 +203,19 @@ int launch(const float* q, const void* k, const float* ks, const void* v, const 
 
 // q f32 [B, Hq, Tq, D], k/v [R, Hkv, S, D] with R >= kv_row + B: bf16 (K3, ks
 // and vs null) or int8 levels with f32 scales ks/vs [R, Hkv, S] (K9); o f32
-// [B, Hq, Tq, D]; all contiguous, 16-byte aligned.
+// [B, Hq, Tq, D]; lse f32 [B, Hq, Tq] or null (K10f writes it; bf16 cache
+// only); all contiguous, 16-byte aligned.
 ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const float* ks,
-                                     const void* v, const float* vs, float* o, int B, int Hq,
-                                     int Hkv, int Tq, int S, int D, int kv_len, int q_offset,
-                                     int kv_row, float scale, void* stream) {
+                                     const void* v, const float* vs, float* o, float* lse,
+                                     int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len,
+                                     int q_offset, int kv_row, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0 || S <= 0 || kv_row < 0 ||
-      q_offset < 0 || (ks == nullptr) != (vs == nullptr))
+      q_offset < 0 || (ks == nullptr) != (vs == nullptr) || (ks != nullptr && lse != nullptr))
     return ZGML_ERR_SHAPE;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ks != nullptr)
-    return launch<true>(q, k, ks, v, vs, o, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
+    return launch<true>(q, k, ks, v, vs, o, lse, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
                         scale, st);
-  return launch<false>(q, k, ks, v, vs, o, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
+  return launch<false>(q, k, ks, v, vs, o, lse, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
                        scale, st);
 }

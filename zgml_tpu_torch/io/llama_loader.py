@@ -141,14 +141,19 @@ def _from_jax_packed(pw: Any, device, col0: int = 0, n: int | None = None) -> Pa
                               _field(pw, "n") if n is None else n, _field(pw, "k"), col0, device)
 
 
+_DENSE = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
 def params_from_jax(np_params: dict, cfg: LlamaConfig, device="cuda") -> dict:
     """The JAX package's llama params -> this package's params on `device`
     (the card unless device="cpu").
 
-    `np_params` is what zgml_tpu's load_llama builds (unrolled layer list,
-    fused wqkv / w_gate_up, Q4_0 or Q8_0 PackedWeights) with every array as
-    numpy; a packed weight is any object or dict with kind, n, k, qvals,
-    scales.
+    `np_params` is, with every array as numpy, either what zgml_tpu's
+    load_llama builds (unrolled layer list, fused wqkv / w_gate_up, Q4_0 or
+    Q8_0 PackedWeights; a packed weight is any object or dict with kind, n,
+    k, qvals, scales), or the dense tree of its init_params (``layers`` a dict
+    of stacked [L, ...] f32 arrays, split here into the per-layer list; the
+    leaves stay f32 tensors a caller may mark requires_grad).
 
     w_gate_up is part-padded there: gate and up each fill half of its n
     columns (each padded to w_down's k_pad), so it is split at n // 2 and
@@ -156,24 +161,33 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device="cuda") -> dict:
     scales and contribute nothing, so the result computes the same function.
     """
     device = resolve_device(device)
-    layers = []
-    for lj in np_params["layers"]:
-        if "wqkv" not in lj or "w_gate_up" not in lj:
-            raise ValueError("params_from_jax expects fused wqkv and w_gate_up layers")
-        gu = lj["w_gate_up"]
-        half = _field(gu, "n") // 2
-        layers.append({
-            "attn_norm": _f32(lj["attn_norm"], device),
-            "ffn_norm": _f32(lj["ffn_norm"], device),
-            "wqkv": _from_jax_packed(lj["wqkv"], device),
-            "wo": _from_jax_packed(lj["wo"], device),
-            "w_gate_up": packed.concat([_from_jax_packed(gu, device, 0, cfg.d_ff),
-                                        _from_jax_packed(gu, device, half, cfg.d_ff)]),
-            "w_down": _from_jax_packed(lj["w_down"], device),
-        })
+    if isinstance(np_params["layers"], dict):
+        stacked = np_params["layers"]
+        layers = [{n: _f32(stacked[n][li], device) for n in _DENSE}
+                  for li in range(cfg.n_layers)]
+    else:
+        layers = [_from_jax_layer(lj, cfg, device) for lj in np_params["layers"]]
     params = {"tok_embd": _f32(np_params["tok_embd"], device),
               "out_norm": _f32(np_params["out_norm"], device),
               "layers": layers}
-    if np_params.get("lm_head") is not None:
-        params["lm_head"] = _from_jax_packed(np_params["lm_head"], device)
+    head = np_params.get("lm_head")
+    if head is not None:
+        params["lm_head"] = (_f32(head, device) if isinstance(head, np.ndarray)
+                             else _from_jax_packed(head, device))
     return params
+
+
+def _from_jax_layer(lj: dict, cfg: LlamaConfig, device) -> dict:
+    if "wqkv" not in lj or "w_gate_up" not in lj:
+        raise ValueError("params_from_jax expects fused wqkv and w_gate_up layers")
+    gu = lj["w_gate_up"]
+    half = _field(gu, "n") // 2
+    return {
+        "attn_norm": _f32(lj["attn_norm"], device),
+        "ffn_norm": _f32(lj["ffn_norm"], device),
+        "wqkv": _from_jax_packed(lj["wqkv"], device),
+        "wo": _from_jax_packed(lj["wo"], device),
+        "w_gate_up": packed.concat([_from_jax_packed(gu, device, 0, cfg.d_ff),
+                                    _from_jax_packed(gu, device, half, cfg.d_ff)]),
+        "w_down": _from_jax_packed(lj["w_down"], device),
+    }

@@ -37,14 +37,25 @@ one as a per-layer list (cache_layout, llama.py:651-654), and so picks K7
 for all layers or none with the first and layer by layer with the second
 (llama.py:343-357, 777-782); the port follows each.
 
+Training (``forward(tokens)`` with no cache): the JAX forward from a fresh
+``init_cache(B)`` at pos 0 (tests/test_training.py:156-160), which runs
+`_layer_step` per layer. K and V are rounded to the cache's bf16 and handed
+to flash attention as they are, without the cache write (in place under
+autograd, layer 0's saved cache would be changed by layer 1); kv_len = T as
+the fresh cache gives. Under autograd flash attention is K10 and a quantized
+projection K2 (or K1) with K11 behind it; ops/dispatch.py picks them.
+
 ``params`` is a plain dict, as in the JAX package: tok_embd/out_norm f32,
 ``layers`` a list of {attn_norm, ffn_norm, wqkv, wo, w_gate_up, w_down} with
-PackedWeight projections, and lm_head (absent when tied). Inference only.
+PackedWeight projections, or of {attn_norm, ffn_norm, wq, wk, wv, wo, w_gate,
+w_up, w_down} with dense f32 [K, N] ones (``init_params``), and lm_head
+(absent when tied; PackedWeight or dense [D, V]).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from zgml_tpu_torch import config
@@ -52,6 +63,7 @@ from zgml_tpu_torch.ops import dispatch as ops
 from zgml_tpu_torch.ops import ffn, refs
 from zgml_tpu_torch.ops.layerkernel import attn_block_compatible
 from zgml_tpu_torch.quant import kv_cache
+from zgml_tpu_torch.quant.packed import PackedWeight, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,28 +88,72 @@ class LlamaConfig:
         return self.n_heads // self.n_kv_heads
 
 
+def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda", scale: float = 0.02) -> dict:
+    """Random dense f32 params drawn as zgml_tpu/models/llama.py:93-121
+    draws them (numpy default_rng(seed), the same order and shapes), so the
+    two packages build the same model from one seed; the stacked [L, ...]
+    leaves are split into the port's per-layer list. On the card unless
+    device="cpu"."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv, f, L = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.d_ff, cfg.n_layers
+
+    def w(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale)
+
+    def ones():
+        return torch.ones(d, dtype=torch.float32, device=dev)
+
+    params = {"tok_embd": w(cfg.vocab_size, d).to(dev), "out_norm": ones()}
+    layers = [{"attn_norm": ones(), "ffn_norm": ones()} for _ in range(L)]
+    for name, shape in (("wq", (d, nq)), ("wk", (d, nkv)), ("wv", (d, nkv)), ("wo", (nq, d)),
+                        ("w_gate", (d, f)), ("w_up", (d, f)), ("w_down", (f, d))):
+        stacked = w(L, *shape)
+        for li in range(L):
+            layers[li][name] = stacked[li].to(dev)
+    params["layers"] = layers
+    if not cfg.tied_lm_head:
+        params["lm_head"] = w(d, cfg.vocab_size).to(dev)
+    return params
+
+
+def _qkv(cfg: LlamaConfig, h, layer: dict):
+    """q [B, Hq, T, hd], k / v [B, Hkv, T, hd] (before RoPE): one fused
+    projection (llama.py:400-408), or three dense ones (:409-412)."""
+    b, t, _ = h.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    nq, nkv = hq * hd, hkv * hd
+    if "wqkv" in layer:
+        qkv = ops.qmatmul(h, layer["wqkv"])
+        q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:nq + 2 * nkv]
+    else:
+        q, k, v = (ops.qmatmul(h, layer[n]) for n in ("wq", "wk", "wv"))
+    return (q.reshape(b, t, hq, hd).transpose(1, 2), k.reshape(b, t, hkv, hd).transpose(1, 2),
+            v.reshape(b, t, hkv, hd).transpose(1, 2))
+
+
 def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_len,
                 cos, sin, decode: bool):
     """One block. x f32 [B, T, D]; ck/cv the whole [L, B, Hkv, S, d] cache
     (bf16, or (levels, scales) tuples of the int8 one), written in place at
     (li, :, :, pos:pos+T); kv_len an int (prefill) or an int32 tensor [B]
-    (decode)."""
+    (decode). ck None is training: pos 0, no cache, K/V rounded to bf16."""
     b, t, _ = x.shape
-    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    nq, nkv = hq * hd, hkv * hd
-    kv8 = isinstance(ck, tuple)
-    L, bb, _, s, _ = (ck[0] if kv8 else ck).shape
+    nq = cfg.n_heads * cfg.head_dim
 
     h = ops.rmsnorm(x, layer["attn_norm"], cfg.rms_norm_eps)
-    qkv = ops.qmatmul(h, layer["wqkv"])
-    q = qkv[..., :nq].reshape(b, t, hq, hd).transpose(1, 2)
-    k = qkv[..., nq:nq + nkv].reshape(b, t, hkv, hd).transpose(1, 2)
-    v = qkv[..., nq + nkv:nq + 2 * nkv].reshape(b, t, hkv, hd).transpose(1, 2)
+    q, k, v = _qkv(cfg, h, layer)
     q = ops.rope_apply(q, cos, sin)
     k = ops.rope_apply(k, cos, sin)
-    if kv8:
+    if ck is None:
+        # contiguous rows for the kernels: a cast of the transposed view keeps its strides
+        kb, vb = (u.to(torch.bfloat16).contiguous() for u in (k, v))
+        att = ops.flash_attention(q.contiguous(), kb, vb, kv_len=t)
+    elif isinstance(ck, tuple):
         # the int8 cache (llama.py:424-459): quantize and write first, then
         # attend from the int8 rows like every other position
+        L, bb = ck[0].shape[:2]
         kv_cache.write(ck, cv, li, pos, k, v)
         rows = [c.view(L * bb, *c.shape[2:]) for c in (*ck, *cv)]      # k, k_s, v, v_s
         if decode:
@@ -105,9 +161,10 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
         else:
             att = ops.flash_attention_q8(q, *rows, kv_len=kv_len, q_offset=pos, kv_row=li * bb)
     else:
+        L, bb = ck.shape[:2]
         ck[li, :, :, pos:pos + t] = k.to(ck.dtype)
         cv[li, :, :, pos:pos + t] = v.to(cv.dtype)
-        rows_k, rows_v = ck.view(L * bb, hkv, s, hd), cv.view(L * bb, hkv, s, hd)
+        rows_k, rows_v = ck.view(L * bb, *ck.shape[2:]), cv.view(L * bb, *cv.shape[2:])
         if decode:
             att = ops.decode_attention(q, rows_k, rows_v, kv_len, kv_row=li * bb)
         else:
@@ -118,14 +175,32 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
     return _ffn(cfg, x, layer, after_attn_block=False)
 
 
+def _phase_e(cfg: LlamaConfig, layer: dict) -> bool:
+    """JAX's `has_ffn` (layerkernel.py:762-765): under ZGML_TPU_LAYER_FFN=1
+    its K7 runs a Q4_0 layer's FFN as phase E, the f32 N-packed FFN, where
+    the N-packed view exists (ffn_fuses after the layer kernel; its padded
+    gate|up rows are then wqkv's k_pad)."""
+    return (config.layer_ffn()
+            and all(layer[n].kind == "q4_0" for n in ("wqkv", "w_gate_up", "w_down"))
+            and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, "q4_0", after_attn_block=True))
+
+
 def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
     """The FFN half of a layer, x + down(swiglu(gate|up(rmsnorm(x)))), fused
     where the JAX package fuses it (at most 32 rows, fused_ffn not disabled,
     a width and kind it fuses at: ops/ffn.ffn_fuses), else composed from two
-    projections (llama.py:217-260, 326-340). Fused: after K7 one K6 launch
-    with the norm and residual inside (K6c or K6d at Q4_0, picked in
-    ops/dispatch; K6a at Q8_0); in `_layer_step` at Q4_0 rmsnorm, K6b and the
+    projections (llama.py:217-260, 326-340), or from three dense ones
+    (:506-508). Fused: after K7 one K6 launch with the norm and residual
+    inside (K6c or K6d at Q4_0, picked in ops/dispatch, K6d where JAX runs
+    K7's phase E; K6a at Q8_0); in `_layer_step` at Q4_0 rmsnorm, K6b and the
     residual, as JAX composes them, and at Q8_0 K6a (the same f32 sums)."""
+    if "w_gate" in layer:
+        h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
+        ff = refs.swiglu(ops.qmatmul(h, layer["w_gate"]), ops.qmatmul(h, layer["w_up"]))
+        return x + ops.qmatmul(ff, layer["w_down"])
+    if after_attn_block and _phase_e(cfg, layer):
+        return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
+                                  cfg.rms_norm_eps, phase_e=True)
     rows = x.numel() // x.shape[-1]
     kind = layer["w_down"].kind
     fuses = (rows <= ffn.FFN_MAX_ROWS and "fused_ffn" not in config.kernels_disabled()
@@ -196,7 +271,7 @@ class LlamaModel(torch.nn.Module):
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
         decode = t == 1
         layers = self.params["layers"]
-        fused = [decode and config.attn_block()
+        fused = [decode and config.attn_block() and isinstance(ly["wo"], PackedWeight)
                  and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
                  for ly in layers]
         if not kv8 and not all(fused):
@@ -221,7 +296,7 @@ class LlamaModel(torch.nn.Module):
         the projection's tier."""
         x = ops.rmsnorm(x, self.params["out_norm"], self.cfg.rms_norm_eps)
         lm_head = self.params.get("lm_head")
-        if greedy and lm_head is not None:
+        if greedy and isinstance(lm_head, PackedWeight):
             tok = ops.qmatmul_greedy(x[:, -1], lm_head)
             if tok is not None:
                 return tok
@@ -233,8 +308,25 @@ class LlamaModel(torch.nn.Module):
             return torch.argmax(logits[:, -1], dim=-1)
         return logits
 
-    def forward(self, tokens: torch.Tensor, cache: dict, pos: int,
+    def train_body(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens int [B, T] -> hidden states f32 [B, T, D] before the final
+        norm: the JAX forward from a fresh cache at pos 0, without the cache
+        (module docstring)."""
+        cfg = self.cfg
+        t = tokens.shape[1]
+        if t > cfg.max_seq_len:
+            raise ValueError(f"SequenceTooLong: {t} tokens > max_seq_len {cfg.max_seq_len}")
+        x = self.params["tok_embd"][tokens]
+        cos, sin = refs.rope_cos_sin(torch.arange(t, device=x.device), cfg.head_dim,
+                                     cfg.rope_base)
+        for layer in self.params["layers"]:
+            x = _layer_step(cfg, x, layer, None, None, 0, 0, t, cos, sin, decode=False)
+        return x
+
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None, pos: int = 0,
                 greedy_head: bool = False) -> torch.Tensor:
         """tokens [B, T] -> logits [B, T, V] (or next ids [B] with
-        greedy_head); updates `cache` in place."""
-        return self.head(self.body(tokens, cache, pos), greedy=greedy_head)
+        greedy_head). With a cache, updates it in place; without one, the
+        training function (train_body), differentiable."""
+        body = self.train_body(tokens) if cache is None else self.body(tokens, cache, pos)
+        return self.head(body, greedy=greedy_head)

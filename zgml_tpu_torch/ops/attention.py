@@ -115,7 +115,7 @@ def flash_attention_q8_ref(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_r
     return softmax_pv(scores, v, vs).reshape(b, hq, tq, d)
 
 
-def _check_qkv(name: str, q, k, v, kv_row: int, tq: int | None, scales=None):
+def check_qkv(name: str, q, k, v, kv_row: int, tq: int | None, scales=None):
     def require(cond, msg):
         if not cond:
             raise ValueError(f"{name}: {msg}")
@@ -157,14 +157,14 @@ def flash_attention_q8_cuda(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_
 
 def _flash(q, k, ks, v, vs, kv_len, q_offset, kv_row):
     name = "attention" if ks is None else "flash_attention_q8"
-    _check_qkv(name, q, k, v, kv_row, None, None if ks is None else (ks, vs))
+    check_qkv(name, q, k, v, kv_row, None, None if ks is None else (ks, vs))
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     kv_len = s if kv_len is None else int(kv_len)
     o = torch.empty_like(q)
     status = build.library().zgml_flash_attention(
-        q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), b, hq, hkv,
-        tq, s, d, kv_len, int(q_offset), int(kv_row), 1.0 / d ** 0.5,
+        q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), None, b, hq,
+        hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), 1.0 / d ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, name)
     global_profile.count_op(name, "cuda")
@@ -184,7 +184,7 @@ def decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row: int = 0):
 
 def _decode(q, k, ks, v, vs, kv_len, kv_row):
     name = "decode_attention" if ks is None else "decode_attention_q8"
-    _check_qkv(name, q, k, v, kv_row, 1, None if ks is None else (ks, vs))
+    check_qkv(name, q, k, v, kv_row, 1, None if ks is None else (ks, vs))
     b, hq, _, d = q.shape
     _, hkv, s, _ = k.shape
     if not isinstance(kv_len, torch.Tensor):

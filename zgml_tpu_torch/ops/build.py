@@ -35,7 +35,8 @@ from zgml_tpu_torch import config
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
-           "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu")
+           "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "flash_bwd.cu",
+           "qmatmul_bwd.cu")
 HEADERS = ("common.cuh", "decode_split.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,7 +46,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # weight launchers take the kind code of ops/qmatmul.py KIND_CODE first)
 _SIGNATURES = {
     "zgml_qmatmul": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
-    "zgml_flash_attention": (*(_P,) * 6, *(_I,) * 9, _F, _P),
+    "zgml_flash_attention": (*(_P,) * 7, *(_I,) * 9, _F, _P),
+    "zgml_flash_dq": (*(_P,) * 7, *(_I,) * 8, _F, _P),
+    "zgml_flash_dkv": (*(_P,) * 8, *(_I,) * 8, _F, _P),
+    "zgml_qmatmul_bwd": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "zgml_decode_attention": (*(_P,) * 8, *(_I,) * 6, _F, _P),
     "zgml_decode_split_count": (_I,),
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),

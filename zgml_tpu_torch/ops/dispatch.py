@@ -11,11 +11,20 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
   which kernel a projection takes, from the JAX package's rule
     (qmatmul.py:639,728): the int8-activation K1 when config.i8dot() and the
     call has M <= 32 rows, else the f32-dequant K2, each at the weight's
-    kind (Q4_0 or Q8_0); K7's A phase from config.attn_i8a and the fused
-    decode FFN (K6c or K6d) from config.ffn_i8a, each at the JAX package's
-    padded width of the weight (config.padded_k; zgml_tpu/ops/dispatch.py
-    95-139, layerkernel.py:776, ffn.py:524). The model picks the decode path
-    (K7, K6, K5) and where the FFN fuses from config (models/llama.py).
+    kind (Q4_0 or Q8_0); a dense [K, N] weight takes torch.matmul, as the
+    JAX package leaves it to XLA (dispatch.py:76-77); K7's A phase from
+    config.attn_i8a and the fused decode FFN (K6c or K6d) from
+    config.ffn_i8a, each at the JAX package's padded width of the weight
+    (config.padded_k; zgml_tpu/ops/dispatch.py 95-139, layerkernel.py:776,
+    ffn.py:524). The model picks the decode path (K7, K6, K5) and where the
+    FFN fuses from config (models/llama.py).
+
+Under autograd (grad enabled and an input that requires grad): projections
+go through qmatmul.QMatmul (backward K11, dx = g @ dequant(W)), and flash
+attention through flash_vjp.FlashAttention (K10f forward, K10dq and K10dkv
+backward), on both tiers. The other kernels have no backward: called so,
+they raise NotImplementedError naming the ROADMAP item, rather than hand back
+a result whose gradient would be silently zero.
 
 ``force_ref()`` is the one explicit way to run the plain versions on the card
 (to compare the kernels with them). It keeps the path and swaps each kernel
@@ -27,7 +36,9 @@ fused_ffn_norm_i8 = K6c, fused_ffn = K6b, attn_block = K7 with the f32 A
 phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
 attention = K3, decode_attention = K4, flash_attention_q8 = K9,
-decode_attention_q8 = K8, the JAX package's names): a kernel's count is
+decode_attention_q8 = K8, the JAX package's names; flash_fwd = K10f,
+flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
+K11q8; matmul for a dense projection): a kernel's count is
 added where it launches, a plain call's here. The cache's dtype picks K3/K4
 or K9/K8 in the model, and K7's cache mode here.
 """
@@ -39,7 +50,7 @@ import contextvars
 import torch
 
 from zgml_tpu_torch import config
-from zgml_tpu_torch.ops import attention, ffn, layerkernel, qmatmul as _qmm, refs
+from zgml_tpu_torch.ops import attention, ffn, flash_vjp, layerkernel, qmatmul as _qmm, refs
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -72,13 +83,26 @@ def _use_kernel(*tensors: torch.Tensor) -> bool:
     return _device_of(*tensors).type == "cuda" and not _force_ref.get()
 
 
-def qmatmul(x: torch.Tensor, w: PackedWeight, tier_rows: int | None = None) -> torch.Tensor:
-    """x f32 [..., K] @ dequant(W).T -> f32 [..., N]. The tier follows the
-    call's row count, or `tier_rows` when the caller computes a few rows of a
-    larger call (the prefill head: one row of a chunk, as JAX computes the
-    whole chunk)."""
-    rows = x.numel() // w.k if tier_rows is None else tier_rows
-    if config.i8dot() and rows <= _qmm.I8_MAX_ROWS:
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+# the ROADMAP item of the kernels that have no backward
+NO_BACKWARD = "ROADMAP.md B.5"
+
+
+def _refuse_grad(name: str, *tensors):
+    """Raise where a kernel without a backward meets autograd."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward in zgml_tpu_torch ({NO_BACKWARD}); train through "
+            f"LlamaModel.forward(tokens), which takes K2/K11 and K10 for calls of more than "
+            f"32 rows, or run under torch.no_grad()")
+
+
+def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool) -> torch.Tensor:
+    if i8:
         if _use_kernel(x, w.qs, w.d):
             return _qmm.qmatmul_i8_cuda(x, w)
         global_profile.count_op(_qmm.counter("qmatmul_i8", w.kind), "ref")
@@ -89,6 +113,30 @@ def qmatmul(x: torch.Tensor, w: PackedWeight, tier_rows: int | None = None) -> t
     return _qmm.qmatmul_ref(x, w)
 
 
+def qmatmul_bwd(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """K11: dx = g @ dequant(W), g f32 [..., N] -> f32 [..., K]."""
+    if _use_kernel(g, w.qs, w.d):
+        return _qmm.qmatmul_bwd_cuda(g, w)
+    global_profile.count_op(_qmm.counter("qmatmul_bwd", w.kind), "ref")
+    return _qmm.qmatmul_bwd_ref(g, w)
+
+
+def qmatmul(x: torch.Tensor, w, tier_rows: int | None = None) -> torch.Tensor:
+    """x f32 [..., K] @ dequant(W).T -> f32 [..., N] for a PackedWeight W,
+    x @ w for a dense [K, N] tensor. The tier follows the call's row count,
+    or `tier_rows` when the caller computes a few rows of a larger call (the
+    prefill head: one row of a chunk, as JAX computes the whole chunk)."""
+    if isinstance(w, torch.Tensor):
+        _device_of(x, w)
+        global_profile.count_op("matmul", "torch")
+        return torch.matmul(x, w)
+    rows = x.numel() // w.k if tier_rows is None else tier_rows
+    i8 = config.i8dot() and rows <= _qmm.I8_MAX_ROWS
+    if _needs_grad(x):
+        return _qmm.QMatmul.apply(x, w, lambda x_, w_: _qmatmul_fwd(x_, w_, i8), qmatmul_bwd)
+    return _qmatmul_fwd(x, w, i8)
+
+
 def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
     """argmax_n(x @ dequant(W)) of one row as int64 [1] through K5 (either
     kind, as `qmatmul_greedy_pallas`), or None where K5 does not apply (int8
@@ -96,6 +144,7 @@ def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
     qmatmul's logits, as zgml_tpu/ops/dispatch.py:80-92."""
     if not config.i8dot() or x.numel() != w.k:
         return None
+    _refuse_grad("qmatmul_greedy (K5)", x)
     if _use_kernel(x, w.qs, w.d):
         return _qmm.greedy_cuda(x, w)
     global_profile.count_op(_qmm.counter("qmatmul_greedy", w.kind), "ref")
@@ -103,11 +152,15 @@ def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
 
 
 def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: PackedWeight,
-                   eps: float) -> torch.Tensor:
+                   eps: float, phase_e: bool = False) -> torch.Tensor:
     """x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * gamma; at most 32
     rows: K6a at Q8_0; at Q4_0 K6c where config.ffn_i8a holds at the padded
-    width (as `fused_ffn_norm_q4n`, zgml_tpu/ops/ffn.py:524), else K6d."""
-    a_i8 = gu.kind == "q4_0" and config.ffn_i8a(config.padded_k(gu.k, gu.kind))
+    width (as `fused_ffn_norm_q4n`, zgml_tpu/ops/ffn.py:524), else K6d. With
+    phase_e (the caller stands for K7's phase E, which ignores the i8a flag,
+    layerkernel.py:762-765) always K6d, its f32 function."""
+    _refuse_grad("fused_ffn_norm (K6a / K6c / K6d)", x, gamma)
+    a_i8 = (not phase_e and gu.kind == "q4_0"
+            and config.ffn_i8a(config.padded_k(gu.k, gu.kind)))
     if _use_kernel(x, gamma, gu.qs, wd.qs):
         return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps, a_i8)
     name = "fused_ffn_norm_i8" if a_i8 else "fused_ffn_norm"
@@ -118,6 +171,7 @@ def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: P
 def fused_ffn(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tensor:
     """K6b: down(silu(gate(h)) * up(h)) for an already-normed h of at most 32
     rows, Q4_0 (zgml_tpu/ops/dispatch.py:95-110, counter fused_ffn)."""
+    _refuse_grad("fused_ffn (K6b)", h)
     if _use_kernel(h, gu.qs, wd.qs):
         return ffn.fused_ffn_cuda(h, gu, wd)
     global_profile.count_op("fused_ffn", "ref")
@@ -132,6 +186,7 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
     padded width (layerkernel.py:776), its phase B over the int8 cache where
     ck / cv are (levels, scales) tuples (layerkernel.py:799). See
     ops/layerkernel.py for layouts."""
+    _refuse_grad("attn_block (K7)", x, gamma, cos, sin)
     a_i8 = config.attn_i8a(config.padded_k(wqkv.k, wqkv.kind))
     cache = (*ck, *cv) if isinstance(ck, tuple) else (ck, cv)
     if _use_kernel(x, gamma, wqkv.qs, wo.qs, *cache):
@@ -144,7 +199,16 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
 
 
 def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
-    """Causal GQA prefill attention; see ops/attention.py for layouts."""
+    """Causal GQA prefill attention; see ops/attention.py for layouts. Under
+    autograd flash_vjp.FlashAttention (K10), which reads row b of k / v for
+    row b of q: a kv_row other than 0 raises, as the JAX backward assumes 0
+    (attention.py:214-215)."""
+    if _needs_grad(q, k, v):
+        if kv_row != 0:
+            raise NotImplementedError(
+                f"flash attention under autograd with kv_row={kv_row}: the backward reads "
+                f"k / v rows from 0, as the JAX package's ({NO_BACKWARD})")
+        return flash_vjp.FlashAttention.apply(q, k, v, kv_len, q_offset, _use_kernel(q, k, v))
     if _use_kernel(q, k, v):
         return attention.flash_attention_cuda(q, k, v, kv_len, q_offset, kv_row)
     global_profile.count_op("attention", "ref")
@@ -153,6 +217,7 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
 
 def decode_attention(q, k, v, kv_len, kv_row: int = 0):
     """Single-token GQA attention over the cache prefix kv_len ([B] or int)."""
+    _refuse_grad("decode_attention (K4)", q, k, v)
     if _use_kernel(q, k, v):
         return attention.decode_attention_cuda(q, k, v, kv_len, kv_row)
     global_profile.count_op("decode_attention", "ref")
@@ -162,6 +227,7 @@ def decode_attention(q, k, v, kv_len, kv_row: int = 0):
 def flash_attention_q8(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0):
     """K9: causal GQA prefill attention over the int8 cache (levels k, v,
     per-position scales ks, vs); zgml_tpu/ops/dispatch.py:191-206."""
+    _refuse_grad("flash_attention_q8 (K9)", q, ks, vs)
     if _use_kernel(q, k, ks, v, vs):
         return attention.flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_offset, kv_row)
     global_profile.count_op("flash_attention_q8", "ref")
@@ -173,6 +239,7 @@ def decode_attention_q8(q, k, ks, v, vs, kv_len, kv_row: int = 0):
     int); zgml_tpu/ops/dispatch.py:209-220. ZGML_TPU_ATTN_I8PV=1 (its int8
     P.V mode) is refused, not computed as the f32-p function."""
     config.refuse_attn_i8pv()
+    _refuse_grad("decode_attention_q8 (K8)", q, ks, vs)
     if _use_kernel(q, k, ks, v, vs):
         return attention.decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row)
     global_profile.count_op("decode_attention_q8", "ref")

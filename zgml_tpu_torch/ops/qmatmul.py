@@ -10,6 +10,12 @@
       `_q4_i8_argmax_kernel` (K5q4) / `_q8_i8_argmax_kernel` (K5q8) through
       `qmatmul_greedy_pallas`: K1 on one row, then the argmax id (first index
       on ties).
+  K11 qmatmul_bwd_cuda / qmatmul_bwd_ref (csrc/qmatmul_bwd.cu) counterpart of
+      `_q4_bwd_kernel` (K11q4) and `_q8_bwd_kernel` (K11q8) under
+      `_qmm_diff_bwd`: dx = g @ dequant(W), f32, in logical k order.
+      ``QMatmul`` is the counterpart of `_qmm_diff`: its backward is K11 for
+      both forward tiers (K1 straight through its rounding, as JAX's), and the
+      weight planes get no gradient (frozen quantized weights).
 
 Each wrapper launches the kernel of its weight's kind and counts the launch
 under `counter(name, w.kind)`. Callers go through ``ops.dispatch``, which
@@ -160,6 +166,47 @@ def qmatmul_i8_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     build.check(status, "qmatmul_i8")
     global_profile.count_op(counter("qmatmul_i8", w.kind), "cuda")
     return y
+
+
+def qmatmul_bwd_ref(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """K11's plain version: g f32 [..., N] -> dx = g @ dequant(W) f32 [..., K]."""
+    lead = g.shape[:-1]
+    return (g.reshape(-1, w.n).to(torch.float32) @ w.dequant()).reshape(*lead, w.k)
+
+
+def qmatmul_bwd_cuda(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+    """K11: g f32 [..., N] (contiguous, on the card) -> dx f32 [..., K]."""
+    _require(g.is_cuda and w.qs.device == g.device and w.d.device == g.device,
+             f"g on {g.device}, weight on {w.qs.device}: all must be on one CUDA device")
+    _require(g.dtype == torch.float32 and g.shape[-1] == w.n and g.is_contiguous(),
+             f"g must be contiguous float32 [..., {w.n}], got {g.dtype} {tuple(g.shape)}")
+    lead = g.shape[:-1]
+    m = g.numel() // w.n
+    dx = torch.empty((*lead, w.k), dtype=torch.float32, device=g.device)
+    if m == 0:
+        return dx
+    status = build.library().zgml_qmatmul_bwd(
+        KIND_CODE[w.kind], g.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), dx.data_ptr(), m, w.n,
+        w.k, torch.cuda.current_stream(g.device).cuda_stream)
+    build.check(status, "qmatmul_bwd")
+    global_profile.count_op(counter("qmatmul_bwd", w.kind), "cuda")
+    return dx
+
+
+class QMatmul(torch.autograd.Function):
+    """x @ dequant(W).T with dx = g @ dequant(W): the counterpart of
+    `_qmm_diff`. ``apply(x, w, fwd, bwd)`` runs fwd(x, w) (the tier the
+    caller picked: K1, K2 or a plain version) and bwd(g, w) in backward
+    (K11 or its plain version); the PackedWeight is a frozen constant."""
+
+    @staticmethod
+    def forward(ctx, x, w, fwd, bwd):
+        ctx.w, ctx.bwd = w, bwd
+        return fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.to(torch.float32).contiguous(), ctx.w), None, None, None
 
 
 def greedy_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
