@@ -35,7 +35,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      whichever is larger) and, where one PyTorch call computes the same
      function, that call's device time (library_ms, timed here and used
      nowhere in the port; for K8 / K9 scaled_dot_product_attention after an
-     untimed dequant);
+     untimed dequant). K12 (rmsnorm) at d 2048 for M = 1, 128, 2048 and at d
+     4096 for M = 1, 128, within 1e-6 * max|out| (library:
+     torch.nn.functional.rms_norm); K13 (the fused elementwise chain) on
+     graph_ffn's chains silu -> mul [512, 5632] and add -> sqr [512, 2048],
+     and one case per op at [2048, 2048]: bit-equal to plain where every step
+     is exact in IEEE f32, else within 1e-6 * max|out|;
   3. end to end: synthetic GGUFs from seed 0 (written to .bench_cache/
      once), TinyLlama-1.1B at Q4_0 and Q8_0 and Llama-2-7B at Q4_0 (full
      width and 32 layers, max_seq_len 2048 as bench.py's preset, 4.2 GB) ->
@@ -71,6 +76,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                    of a 1536-token prompt; K1q4, K2q4, K5q4, K6b, K6c, K7
                    (int8 A phase, int8 cache) and K9 must launch, and no K3,
                    K4, K8 or other K7 mode;
+       rmsnorm_forced  TinyLlama Q4_0, the default flags plus
+                   ZGML_TPU_KERNELS_FORCE=rmsnorm: the 3 greedy and the
+                   sampled request; the default path's kernels and K12, which
+                   must launch exactly 2 x 22 + 1 times per prefill chunk and
+                   once per decode step's head;
      no other kernel and no plain-tier call may run on a path; on each path
      the first request (and on kv8_tiny the batch-4 one) is compared with the
      same engine under force_ref() (the same path with every kernel swapped
@@ -85,11 +95,26 @@ Phases, in order; any failure raises and the script exits non-zero:
        train_q4_frozen  the TinyLlama Q4_0 GGUF with tok_embd and the norms
                         trainable, 6 steps of B 1 x T 512, then the Q8_0 file,
                         2 steps; K2 and K11 at both kinds, and K10;
+       train_rmsnorm_forced  train_dense's model, 2 more Adam steps under
+                        ZGML_TPU_KERNELS_FORCE=rmsnorm: K10 and K12, 45 K12
+                        launches per forward (its backward recomputes plain);
      on each: the loss of batch 0 falls from the first step to after the
      last, one step's gradients of every trainable tensor match the same
      step under force_ref() (within max(GRAD_RTOL * max|g|, 2 x the plain
-     path's own move under a 1e-7 embedding perturbation)), and a ZGMT
-     checkpoint of the params and Adam state reads back bit-equal;
+     path's own move under a 1e-7 perturbation of the embedding, and on
+     train_rmsnorm_forced also of each norm's output rows, the form K12's
+     rounding takes)), and a ZGMT
+     checkpoint of the params and Adam state reads back bit-equal (dense and
+     Q4_0). Then the graph tier, counted the same way:
+       graph_ffn   ComputeGraph of a TinyLlama-1.1B FFN (x [512, 2048],
+                   gamma, w_gate / w_up [2048, 5632], w_down [5632, 2048],
+                   loss mean(y^2)): its fusion report has the chains
+                   silu -> mul and add -> sqr, one run and one
+                   value_and_grad launch K13 twice each and nothing else,
+                   both agree with force_ref() and fuse=False (1e-5 forward,
+                   1e-4 gradients, of max|ref|), 3 SGD steps lower the loss;
+       graph_sub   y - exp(x) and y / exp(x), the chain value as the right
+                   operand, through K13 equal fuse=False and numpy;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with tg32
      also at a 1536-token context on llama2_7b and kv8_7b; per path a
@@ -97,7 +122,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      on those two, 8 steps at the 1536-token context with K7's device time
      per token; "not measured" where the profiler sees no kernel); ms per
      training step and tokens/s of both training paths in turns, and a
-     profile of one step each;
+     profile of one step each; graph_ffn's ms per run and per
+     value_and_grad in turns (median of 6) and a profile of one
+     value_and_grad;
   5. print the kernels' JSON line, then the device JSON line last.
 Details also go to chiprun_out/chip_smoke/ (summary JSON with the profiler
 tables, and log.txt, every line printed).
@@ -105,6 +132,7 @@ There is no CPU path: without a CUDA device it exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pathlib
@@ -180,7 +208,8 @@ TRAIN_FLASH_CASES = [("TinyLlama B=4 T=512", 4, 32, 4, 512, 512, 64, 512, 0),
 TRAIN_M = 512              # K11's rows: B 1 x T 512 (train_q4_frozen), one step's g
 TRAIN_B, TRAIN_T = 4, 512  # train_dense's batch of corpus windows
 FROZEN_B = 1               # train_q4_frozen's batch
-TRAIN_STEPS = {"train_dense": 6, "train_q4_frozen": 6, "train_q8_frozen": 2}
+TRAIN_STEPS = {"train_dense": 6, "train_q4_frozen": 6, "train_q8_frozen": 2,
+               "train_rmsnorm_forced": 2}
 TRAIN_LR = 1e-3
 # one step's gradients against force_ref(): per tensor max(GRAD_RTOL * max|g|,
 # SENS_MARGIN x the plain path's own move under SENS_EPS embedding
@@ -191,7 +220,31 @@ GRAD_SENS_DRAWS = 3
 TRAIN_RATE_ROUNDS = 3
 TRAIN_PATHS = {"train_dense": ("flash_fwd", "flash_dq", "flash_dkv"),
                "train_q4_frozen": ("q4_matmul", "q4_matmul_bwd", "flash_fwd", "flash_dq",
-                                   "flash_dkv", "q8_matmul", "q8_matmul_bwd")}
+                                   "flash_dkv", "q8_matmul", "q8_matmul_bwd"),
+               "train_rmsnorm_forced": ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm")}
+# K12 (phase 2): (M, d) at TinyLlama-1.1B's width (a decode row, a prefill
+# chunk, the training batch B 4 x T 512) and at Llama-2-7B's; max-abs error
+# against plain within RMSNORM_RTOL * max|out|
+RMSNORM_CASES = [(1, 2048), (128, 2048), (2048, 2048), (1, 4096), (128, 4096)]
+RMSNORM_RTOL = 1e-6
+# K13 (phase 2): the graph_ffn path's two chains at their shapes, and one case
+# per op at CHAIN_OP_SHAPE; ops exact in IEEE f32 bit-equal to plain, the
+# others within CHAIN_RTOL * max|out|
+CHAIN_OP_SHAPE = (2048, 2048)
+CHAIN_EXACT = {"add", "sub", "mul", "div", "max2", "neg", "recip", "sqr", "sqrt", "abs", "relu",
+               "scale", "add_scalar"}
+CHAIN_RTOL = 1e-6
+# graph_ffn (phase 3): ComputeGraph at TinyLlama-1.1B's FFN width, vars f32
+# from seed 0 at std 0.02 (gamma 1 + 0.02 N(0, 1)); forward within
+# GRAPH_FWD_RTOL * max|out| and gradients within GRAPH_GRAD_RTOL * max|g| of the
+# same graph under force_ref() and with fuse=False; GRAPH_SGD_STEPS of SGD at
+# GRAPH_LR must lower the loss
+GRAPH_ROWS, GRAPH_D, GRAPH_F, GRAPH_STD = 512, 2048, 5632, 0.02
+GRAPH_WRT = ("g", "w_gate", "w_up", "w_down")
+GRAPH_CHAINS = [["silu", "mul"], ["add", "sqr"]]
+GRAPH_FWD_RTOL, GRAPH_GRAD_RTOL = 1e-5, 1e-4
+GRAPH_SGD_STEPS, GRAPH_LR = 3, 1.0
+GRAPH_RATE_ROUNDS = 3      # phase 4: run, value_and_grad, value_and_grad, run per round
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -203,13 +256,15 @@ PATHS = {"default": {},
          "q8_default": {},
          "llama2_7b": {},
          "kv8_tiny": {},
-         "kv8_7b": {}}
+         "kv8_7b": {},
+         "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"}}
 PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
               "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0"),
-              "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_7b": ("llama2-7b", "q4_0")}
+              "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_7b": ("llama2-7b", "q4_0"),
+              "rmsnorm_forced": ("tinyllama-1.1b", "q4_0")}
 PATH_CACHE = {"kv8_tiny": "int8", "kv8_7b": "int8"}    # the engines' cache_dtype; else bf16
 # paths that also answer the sampled request
-PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_7b")
+PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_7b", "rmsnorm_forced")
 BATCH4_PATHS = ("kv8_tiny",)    # + 4 rows x 128 prompt tokens from a batch-4 engine (K8)
 LONG_PATHS = ("kv8_7b",)        # + a LONG_PROMPT-token prompt, 32 new tokens
 LONG_RATE_PATHS = ("llama2_7b", "kv8_7b")   # phase 4: tg32 also at a LONG_PROMPT context
@@ -228,7 +283,9 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_
                              "fused_ffn_norm", "fused_ffn", "attn_block_kv8",
                              "decode_attention_q8"),
                 "kv8_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
-                           "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8")}
+                           "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8"),
+                "rmsnorm_forced": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
+                                   "fused_ffn_norm", "fused_ffn", "attn_block", "rmsnorm")}
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -270,6 +327,8 @@ KERNELS = {
     "q4_matmul_bwd": ("qmatmul_bwd", _CSRC + "qmatmul_bwd.cu", "zgml_tpu/ops/qmatmul.py:593"),
     "q8_matmul_bwd": ("qmatmul_bwd_q8", _CSRC + "qmatmul_bwd.cu",
                       "zgml_tpu/ops/qmatmul.py:541"),
+    "rmsnorm": ("rmsnorm", _CSRC + "rmsnorm.cu", "zgml_tpu/ops/rmsnorm.py:37"),
+    "fused_chain": ("fused_chain", _CSRC + "elementwise.cu", "zgml_tpu/ops/elementwise.py:104"),
 }
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
@@ -291,6 +350,8 @@ NO_LIBRARY = {
     "planar": "none: no single PyTorch call computes quantized gate|up + SwiGLU + down",
     "attn": "none: no single PyTorch call computes the fused attention half-layer "
             "(rmsnorm, quantized QKV, RoPE, attention, wo, residual, cache write)",
+    "chain": "none: no single PyTorch call computes an arbitrary elementwise chain given as "
+             "data (torch.compile would generate one; it is not a library call)",
 }
 
 
@@ -733,6 +794,9 @@ def check_kernels(torch, dev):
     for kind in KINDS:
         for name, n, k in GEMM_SHAPES:
             check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k)
+    log("  -- the graph tier and the forced norm: K12 (rmsnorm) and K13 (fused chain)")
+    check_rmsnorm(torch, dev, g, record)
+    check_chains(torch, dev, g, record)
     return results
 
 
@@ -1047,6 +1111,90 @@ def check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k):
            "torch.matmul(g, W) f32, W dequantized outside the timed window")
 
 
+def copies_for(nbytes: int, total: int = 128_000_000, most: int = 64) -> int:
+    """How many copies of a case's inputs make cycling through them find the
+    50 MB L2 cold (at least 2, at most `most`)."""
+    return max(2, min(most, -(-total // max(1, nbytes))))
+
+
+def check_rmsnorm(torch, dev, g, record):
+    """K12 at RMSNORM_CASES against refs.rmsnorm within RMSNORM_RTOL *
+    max|out|; the library call is torch.nn.functional.rms_norm (the same
+    function, never called by the port)."""
+    from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    rms_norm = getattr(torch.nn.functional, "rms_norm", None)
+    for m, d in RMSNORM_CASES:
+        xs = [torch.randn((m, d), device=dev, generator=g)
+              for _ in range(copies_for(2 * m * d * 4))]
+        gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        got, want = rmsnorm_cuda(xs[0], gamma), rmsnorm_ref(xs[0], gamma)
+        torch.cuda.synchronize()
+        err, bound = float((got - want).abs().max()), RMSNORM_RTOL * float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= bound,
+                f"rmsnorm M={m} d={d}: max_abs_err {err:.3g} > bound {bound:.3g}")
+        t = time_ms(torch, [lambda x_=x: rmsnorm_cuda(x_, gamma) for x in xs], 50)
+        tp = time_ms(torch, [lambda x_=x: rmsnorm_ref(x_, gamma) for x in xs], 20)
+        lib, note = None, "none: this torch has no torch.nn.functional.rms_norm"
+        if rms_norm is not None:
+            lib_err = float((rms_norm(xs[0], (d,), gamma, 1e-5) - want).abs().max())
+            lib = time_ms(torch, [lambda x_=x: rms_norm(x_, (d,), gamma, 1e-5) for x in xs], 50)
+            note = f"torch.nn.functional.rms_norm, f32 (max abs err {lib_err:.2g})"
+        record("rmsnorm", f"M={m} d={d}", err, bound, t, tp, 2 * m * d * 4 + d * 4,
+               4 * m * d, lib, note)
+
+
+def chain_cases():
+    """(label, steps, shape) of K13's phase-2 cases: graph_ffn's two chains,
+    then one case per op (the binary ops with one side input)."""
+    from zgml_tpu_torch.ops.elementwise import BINARY, OPCODES, Step
+    cases = [("silu -> mul", [Step("silu"), Step("mul", side=0)], (GRAPH_ROWS, GRAPH_F)),
+             ("add -> sqr", [Step("add", side=0), Step("sqr")], (GRAPH_ROWS, GRAPH_D))]
+    payload = {"scale": 0.37, "add_scalar": -1.25}
+    for op in OPCODES:
+        cases.append((op, [Step(op, payload.get(op, 0.0), 0 if op in BINARY else -1)],
+                      CHAIN_OP_SHAPE))
+    return cases
+
+
+def check_chains(torch, dev, g, record):
+    """K13 against fused_chain_ref on the same inputs: bit-equal (NaN where
+    plain is NaN) where every step is exact in IEEE f32, else within
+    CHAIN_RTOL * max|out|. No library call computes a chain given as data."""
+    from zgml_tpu_torch.ops.elementwise import BINARY, fused_chain_cuda, fused_chain_ref
+    for label, steps, shape in chain_cases():
+        n_sides = sum(st.op in BINARY for st in steps)
+        n = shape[0] * shape[1]
+        sets = []
+        for _ in range(copies_for((2 + n_sides) * n * 4, 160_000_000, 8)):
+            x = torch.randn(shape, device=dev, generator=g)
+            if label in ("log", "sqrt"):
+                x = x.abs() + 0.05
+            sets.append((x, [torch.randn(shape, device=dev, generator=g)
+                             for _ in range(n_sides)]))
+        x, sides = sets[0]
+        got, want = fused_chain_cuda(x, steps, sides), fused_chain_ref(x, steps, sides)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        exact = all(st.op in CHAIN_EXACT for st in steps)
+        require(torch.equal(torch.isnan(got), nan), f"fused_chain {label}: NaN where plain has none")
+        # equal infinities count as no error (inf - inf would read as NaN)
+        err = float(torch.where(got == want, 0.0, got - want)[~nan].abs().max())
+        if exact:
+            bound = 0.0
+            require(torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+                    f"fused_chain {label}: not bit-equal to plain (max_abs_err {err:.3g})")
+        else:
+            bound = CHAIN_RTOL * float(want[~nan].abs().max())
+            require(err <= bound, f"fused_chain {label}: max_abs_err {err:.3g} > bound {bound:.3g}")
+        t = time_ms(torch, [lambda s_=st: fused_chain_cuda(s_[0], steps, s_[1]) for st in sets],
+                    20)
+        tp = time_ms(torch, [lambda s_=st: fused_chain_ref(s_[0], steps, s_[1]) for st in sets],
+                     10)
+        record("fused_chain", f"{label} {list(shape)}" + (" (bit-equal)" if exact else ""), err,
+               bound, t, tp, (2 + n_sides) * n * 4, 4 * len(steps) * n, None,
+               NO_LIBRARY["chain"])
+
+
 def preset(name: str):
     """The model of a path: bench.py's presets, at its max_seq_len 2048."""
     import dataclasses
@@ -1157,6 +1305,17 @@ def end_to_end(torch, model, prompts, name, summary):
     require(all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[name]),
             f"[{name}] a kernel of another path launched: {launches}")
     require(not plain, f"[{name}] plain tier ran on the main path: {plain}")
+    if "rmsnorm" in PATH_KERNELS[name]:
+        # K12 at both norms of every layer of each prefill chunk (any size:
+        # `_layer_step`) and at each head call (a chunk's, a decode step's);
+        # batch-1 decode layers norm inside K7 and K6
+        chunks = sum(-(-len(p) // 128) for p in greedy)
+        chunks += -(-len(greedy[0]) // SAMPLED_CHUNK) if sampled is not None else 0
+        steps = global_profile.counters["decode_tokens"]
+        want = chunks * (2 * model.cfg.n_layers + 1) + steps
+        require(launches["rmsnorm"] == want,
+                f"[{name}] K12 launched {launches['rmsnorm']} times, want {want} ({chunks} "
+                f"chunks x {2 * model.cfg.n_layers + 1} + {steps} decode heads)")
     for out, label in zip(outs, labels):
         require(len(out) == 32 and all(0 <= t < vocab for t in out),
                 f"[{name}] {label} gave {out}")
@@ -1332,14 +1491,14 @@ class Trainer:
         return self.batches[0].numel()
 
 
-def train_path(torch, name, trainers, summary):
-    """One training path: each trainer's TRAIN_STEPS (batch i at step i)
-    with the placement counts set to 0 just before and read just after; the
-    path's kernels must launch, no other kernel and no plain version may
-    run, and each trainer's loss on batch 0 must fall from its first step to
-    after its last."""
+def train_path(torch, name, trainers, summary, flags="default"):
+    """One training path under the JAX flags of PATHS[flags]: each trainer's
+    TRAIN_STEPS (batch i at step i) with the placement counts set to 0 just
+    before and read just after; the path's kernels must launch, no other
+    kernel and no plain version may run, and each trainer's loss on batch 0
+    must fall from its first step to after its last."""
     from zgml_tpu_torch.runtime.profile import global_profile
-    set_path("default")
+    set_path(flags)
     torch.cuda.synchronize()
     global_profile.reset()
     t0 = time.perf_counter()
@@ -1376,35 +1535,75 @@ def train_path(torch, name, trainers, summary):
     return launches
 
 
-def grad_check(torch, tr, label, summary):
+@contextlib.contextmanager
+def norm_row_probe(torch, gen):
+    """Inside: ZGML_TPU_KERNELS_FORCE unset, so every norm runs refs.rmsnorm
+    under autograd, and each norm's output rows are scaled by (1 + SENS_EPS
+    N(0, 1)) from `gen` (None: not scaled). That is the form K12's rounding
+    takes: its output differs from plain only through each row's rsqrt (the
+    sum of squares in another order; every later product in plain's order)."""
+    from zgml_tpu_torch.ops import refs
+    plain, forced = refs.rmsnorm, os.environ.pop("ZGML_TPU_KERNELS_FORCE", None)
+
+    def scaled(x, gamma, eps=1e-5):
+        out = plain(x, gamma, eps)
+        if gen is None:
+            return out
+        return out * (1 + SENS_EPS * torch.randn((*out.shape[:-1], 1), device=out.device,
+                                                 generator=gen))
+    refs.rmsnorm = scaled
+    try:
+        yield
+    finally:
+        refs.rmsnorm = plain
+        if forced is not None:
+            os.environ["ZGML_TPU_KERNELS_FORCE"] = forced
+
+
+def grad_check(torch, tr, label, summary, norm_rows=False):
     """One step's gradients of every trainable tensor with the kernels
     against the same step under force_ref(), per tensor within
     max(GRAD_RTOL * max|g|, SENS_MARGIN x how far the plain gradients move
-    when tok_embd is scaled by (1 + SENS_EPS N(0, 1)))."""
+    when tok_embd is scaled by (1 + SENS_EPS N(0, 1)) and, with norm_rows
+    (a path whose norms are K12's), each norm's output rows as well
+    (norm_row_probe), measured from the same plain path unscaled)."""
     from zgml_tpu_torch.nn.train import value_and_grad
     from zgml_tpu_torch.ops.dispatch import force_ref
     from zgml_tpu_torch.utils.tree import flatten, paths
     x = tr.batches[0]
     names = [n for n, _ in paths(tr.params)]
-    gk = flatten(value_and_grad(tr.loss_fn, tr.params, x, x)[1])[0]
+
+    def grads(params):
+        return flatten(value_and_grad(tr.loss_fn, params, x, x)[1])[0]
+
+    # at most two gradient sets of the model live at once (1.1 B f32 each at
+    # TinyLlama-1.1B, beside the trainers' params and Adam state)
+    gk = grads(tr.params)
     with force_ref():
-        gr = flatten(value_and_grad(tr.loss_fn, tr.params, x, x)[1])[0]
-        moves = [0.0] * len(gr)
+        gr = grads(tr.params)
+        errs = [(float((a - b).abs().max()), float(b.abs().max()), bool(torch.isfinite(a).all()))
+                for a, b in zip(gk, gr)]
+        del gk
+        base, base_gap = gr, 0.0
+        if norm_rows:
+            with norm_row_probe(torch, None):
+                base = grads(tr.params)
+            base_gap = max(float((a - b).abs().max()) for a, b in zip(base, gr))
+        del gr
+        moves = [0.0] * len(base)
         gen = torch.Generator(device=x.device).manual_seed(SEED)
         emb = tr.params["tok_embd"]
         for _ in range(GRAD_SENS_DRAWS):
             p2 = {**tr.params, "tok_embd": emb * (1 + SENS_EPS * torch.randn(
                 emb.shape, device=emb.device, generator=gen))}
-            gp = flatten(value_and_grad(tr.loss_fn, p2, x, x)[1])[0]
-            moves = [max(m, float((a - b).abs().max())) for m, a, b in zip(moves, gp, gr)]
+            with norm_row_probe(torch, gen) if norm_rows else contextlib.nullcontext():
+                gp = grads(p2)
+            moves = [max(m, float((a - b).abs().max())) for m, a, b in zip(moves, gp, base)]
             del gp, p2
-    rows = []
-    for name, a, b, m in zip(names, gk, gr, moves):
-        scale, err = float(b.abs().max()), float((a - b).abs().max())
-        rows.append(dict(tensor=name, err=err, scale=scale, plain_move=m,
-                         bound=max(GRAD_RTOL * scale, SENS_MARGIN * m),
-                         finite=bool(torch.isfinite(a).all())))
-    del gk, gr
+        del base
+    rows = [dict(tensor=name, err=err, scale=scale, plain_move=m,
+                 bound=max(GRAD_RTOL * scale, SENS_MARGIN * m), finite=finite)
+            for name, (err, scale, finite), m in zip(names, errs, moves)]
     bad = [r for r in rows if not (r["finite"] and r["err"] <= r["bound"])]
     worst = max(rows, key=lambda r: r["err"] / max(r["bound"], 1e-30))
     rel = max(r["err"] / max(r["scale"], 1e-30) for r in rows)
@@ -1412,10 +1611,12 @@ def grad_check(torch, tr, label, summary):
         f"|dg|/max|g| {rel:.3g}; worst against its bound: {worst['tensor']} err "
         f"{worst['err']:.3g} bound {worst['bound']:.3g} (the plain path moves "
         f"{worst['plain_move'] / max(worst['scale'], 1e-30):.3g} of max|g| under {SENS_EPS:g} "
-        f"perturbations)")
+        f"perturbations of tok_embd" + (f" and every norm's rows; unscaled, its gradients are "
+                                         f"{base_gap:.3g} from force_ref()'s" if norm_rows else "")
+        + ")")
     require(not bad, f"[{label}] gradients off the plain path: {bad[:5]}")
     summary.setdefault("grad_check", {})[label] = dict(max_rel=rel, worst=worst, n=len(rows),
-                                                       tensors=rows)
+                                                       norm_rows=norm_rows, tensors=rows)
 
 
 def checkpoint_roundtrip(torch, tr, label, summary):
@@ -1467,8 +1668,9 @@ def train_rates(torch, trainers, card, summary):
             rounds=TRAIN_RATE_ROUNDS, card=card)
 
 
-def train_profile(torch, tr, name, summary):
-    """Device time by kernel of one training step (torch.profiler)."""
+def train_profile(torch, step, name, summary, key="train_profile", what="one step"):
+    """Device time by kernel of one call of `step` (torch.profiler): a
+    training step, or one graph_ffn value_and_grad."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     rows = []
@@ -1476,7 +1678,7 @@ def train_profile(torch, tr, name, summary):
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            tr.step(0)
+            step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = [(ev.key, _self_device_us(ev), ev.count) for ev in prof.key_averages()
@@ -1484,16 +1686,16 @@ def train_profile(torch, tr, name, summary):
         if rows:
             break
     if not rows:
-        summary.setdefault("train_profile", {})[name] = dict(wall_us=wall * 1e6,
-                                                             device_busy_us="not measured")
-        log(f"  [{name}] one step: host wall {wall * 1e3:.1f} ms, device busy not measured")
+        summary.setdefault(key, {})[name] = dict(wall_us=wall * 1e6,
+                                                 device_busy_us="not measured")
+        log(f"  [{name}] {what}: host wall {wall * 1e3:.1f} ms, device busy not measured")
         return
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    summary.setdefault("train_profile", {})[name] = dict(
+    summary.setdefault(key, {})[name] = dict(
         wall_us=wall * 1e6, device_busy_us=busy,
         kernels=[dict(name=k[:90], us=u, count=c) for k, u, c in rows[:15]])
-    log(f"  [{name}] one step: host wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+    log(f"  [{name}] {what}: host wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({100 * busy / (wall * 1e6):.1f}%)")
     for k, u, c in rows[:10]:
         log(f"    {u / 1e3:8.3f} ms  x{c:<5} {k[:80]}")
@@ -1649,6 +1851,23 @@ def train_paths(torch, dev, models, summary, launches):
     launches["train_dense"] = train_path(torch, "train_dense", trainers, summary)
     grad_check(torch, trainers["train_dense"], "train_dense", summary)
     checkpoint_roundtrip(torch, trainers["train_dense"], "train_dense", summary)
+    # rmsnorm_forced's training: the dense model's steps under
+    # ZGML_TPU_KERNELS_FORCE=rmsnorm (K12 forward, its plain-recompute backward)
+    # from the params train_dense reached, with a fresh Adam state
+    name = "train_rmsnorm_forced"
+    dense_tr = trainers["train_dense"]
+    forced = {name: Trainer(llama_loss(cfg), dense_tr.params,
+                            dense_tr.batches[:TRAIN_STEPS[name]])}
+    launches[name] = train_path(torch, name, forced, summary, flags="rmsnorm_forced")
+    want = TRAIN_STEPS[name] * (2 * cfg.n_layers + 1)
+    require(launches[name]["rmsnorm"] == want,
+            f"[{name}] K12 launched {launches[name]['rmsnorm']} times, want {want} "
+            f"({2 * cfg.n_layers + 1} per forward)")
+    forced[name].state = None        # its Adam moments (8.8 GB) are not needed again
+    set_path("rmsnorm_forced")
+    grad_check(torch, forced[name], name, summary, norm_rows=True)
+    set_path("default")
+    del forced
     frozen_tr = {}
     for kind, label in (("q4_0", "train_q4_frozen"), ("q8_0", "train_q8_frozen")):
         model = models["tinyllama-1.1b", kind]
@@ -1662,6 +1881,180 @@ def train_paths(torch, dev, models, summary, launches):
     checkpoint_roundtrip(torch, frozen_tr["train_q4_frozen"], "train_q4_frozen", summary)
     return {"train_dense": trainers["train_dense"],
             "train_q4_frozen": frozen_tr["train_q4_frozen"]}
+
+
+def graph_ffn_graph():
+    """The FFN of a TinyLlama-1.1B layer as a ComputeGraph loss:
+    h = rmsnorm(x) * g; y = (silu(h @ w_gate) * (h @ w_up)) @ w_down + x;
+    loss = mean(y^2)."""
+    from zgml_tpu_torch.graph import var
+    x, g = var("x", (GRAPH_ROWS, GRAPH_D)), var("g", (GRAPH_D,))
+    wg, wu = var("w_gate", (GRAPH_D, GRAPH_F)), var("w_up", (GRAPH_D, GRAPH_F))
+    wd = var("w_down", (GRAPH_F, GRAPH_D))
+    h = x.rms_norm(g)
+    y = h.matmul(wg).silu().mul(h.matmul(wu)).matmul(wd).add(x)
+    return y.sqr().mean()
+
+
+def graph_ffn_feeds(torch, dev) -> dict:
+    """graph_ffn's vars, f32 from numpy's default_rng(SEED) at std GRAPH_STD
+    (gamma 1 + GRAPH_STD N(0, 1)), on the card."""
+    rng = np.random.default_rng(SEED)
+    shapes = {"x": (GRAPH_ROWS, GRAPH_D), "g": (GRAPH_D,), "w_gate": (GRAPH_D, GRAPH_F),
+              "w_up": (GRAPH_D, GRAPH_F), "w_down": (GRAPH_F, GRAPH_D)}
+    out = {}
+    for k, shape in shapes.items():
+        v = (rng.standard_normal(shape) * GRAPH_STD).astype(np.float32)
+        out[k] = torch.from_numpy(v + np.float32(1.0) if k == "g" else v).to(dev)
+    return out
+
+
+def _launches(tiers):
+    return {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def graph_ffn_path(torch, dev, summary):
+    """ComputeGraph at TinyLlama-1.1B's FFN width: the fusion report has the
+    chains silu -> mul and add -> sqr; one run and one value_and_grad with
+    respect to gamma and the three weights launch K13 exactly twice each and
+    nothing else; both agree with the same graph under force_ref() and with
+    fuse=False; GRAPH_SGD_STEPS of SGD lower the loss. Returns (launches,
+    the fused graph, its feeds) for phase 4."""
+    from zgml_tpu_torch.graph import ComputeGraph
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.optim.sgd import sgd_update
+    from zgml_tpu_torch.runtime.profile import global_profile
+    name = "graph_ffn"
+    set_path("default")
+    loss = graph_ffn_graph()
+    gf, gu = ComputeGraph(loss, device=dev), ComputeGraph(loss, fuse=False, device=dev)
+    chains = [[n.op.value for n in c.nodes] for c in gf.fusion.chains]
+    require(chains == GRAPH_CHAINS, f"[{name}] fusion report has chains {chains}, want "
+            f"{GRAPH_CHAINS}:\n{gf.report()}")
+    feeds = graph_ffn_feeds(torch, dev)
+    vag = gf.value_and_grad(GRAPH_WRT)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    out = gf.run(**feeds)
+    val, grads = vag(**feeds)
+    torch.cuda.synchronize()
+    tiers = global_profile.tier_summary()
+    launches, plain = _launches(tiers), {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    log(f"  [{name}] one run and one value_and_grad; placement: {tiers}")
+    require(launches["fused_chain"] == 2 * len(GRAPH_CHAINS),
+            f"[{name}] K13 launched {launches['fused_chain']} times, want "
+            f"{2 * len(GRAPH_CHAINS)} (one per chain per forward)")
+    require(all(n == 0 for k, n in launches.items() if k != "fused_chain"),
+            f"[{name}] a kernel of another path launched: {launches}")
+    require(not plain, f"[{name}] plain tier ran on the graph path: {plain}")
+    with force_ref():
+        out_r = gf.run(**feeds)
+        val_r, grads_r = vag(**feeds)
+    out_u = gu.run(**feeds)
+    val_u, grads_u = gu.value_and_grad(GRAPH_WRT)(**feeds)
+    torch.cuda.synchronize()
+    errs = {"forward vs force_ref": _rel(out, out_r), "forward vs fuse=False": _rel(out, out_u),
+            "value vs force_ref": _rel(val, val_r), "value vs fuse=False": _rel(val, val_u)}
+    for k in GRAPH_WRT:
+        errs[f"d{k} vs force_ref"] = _rel(grads[k], grads_r[k])
+        errs[f"d{k} vs fuse=False"] = _rel(grads[k], grads_u[k])
+    bad = {k: v for k, v in errs.items()
+           if not v <= (GRAPH_GRAD_RTOL if k.startswith("d") else GRAPH_FWD_RTOL)}
+    require(bool(torch.isfinite(out)) and all(bool(torch.isfinite(g).all())
+                                              for g in grads.values()) and not bad,
+            f"[{name}] off its references (|diff| / max|ref|): {bad}")
+    log(f"  [{name}] loss {float(out):.6f}; |diff| / max|ref| (bounds {GRAPH_FWD_RTOL:g} forward, "
+        f"{GRAPH_GRAD_RTOL:g} gradients): " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    params = {k: feeds[k] for k in GRAPH_WRT}
+    losses = []
+    for _ in range(GRAPH_SGD_STEPS):
+        val, grads = vag(**{**feeds, **params})
+        losses.append(float(val))
+        params = sgd_update(params, grads, GRAPH_LR)
+    losses.append(float(gf.run(**{**feeds, **params})))
+    require(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+            f"[{name}] {GRAPH_SGD_STEPS} SGD steps at lr {GRAPH_LR} did not lower the loss: "
+            f"{losses}")
+    log(f"  [{name}] {GRAPH_SGD_STEPS} SGD steps at lr {GRAPH_LR}: loss {losses}")
+    summary.setdefault("graph", {})[name] = dict(
+        chains=chains, report=gf.report(), launches=launches, placement=tiers, loss=float(out),
+        rel_errs=errs, fwd_rtol=GRAPH_FWD_RTOL, grad_rtol=GRAPH_GRAD_RTOL, sgd_losses=losses,
+        lr=GRAPH_LR)
+    return launches, gf, feeds
+
+
+def graph_sub_path(torch, dev, summary):
+    """y.sub(x.exp()) and y.div(x.exp()) at [GRAPH_ROWS, GRAPH_D]: the chain
+    value is the right operand of sub / div; on the card, through K13 (one
+    launch per chain), they equal the same graph with fuse=False and numpy's
+    y - exp(x), y / exp(x) (the JAX package's fused lowering computes
+    exp(x) - y and exp(x) / y there; ROADMAP, Reference weak spots)."""
+    from zgml_tpu_torch.graph import ComputeGraph, var
+    from zgml_tpu_torch.runtime.profile import global_profile
+    name = "graph_sub"
+    set_path("default")
+    x, y = var("x", (GRAPH_ROWS, GRAPH_D)), var("y", (GRAPH_ROWS, GRAPH_D))
+    outs = [y.sub(x.exp()), y.div(x.exp())]
+    gf, gu = ComputeGraph(outs, device=dev), ComputeGraph(outs, fuse=False, device=dev)
+    chains = [[n.op.value for n in c.nodes] for c in gf.fusion.chains]
+    require(chains == [["exp", "sub"], ["exp", "div"]], f"[{name}] chains {chains}")
+    n = GRAPH_ROWS * GRAPH_D
+    xn = np.linspace(-1, 1, n, dtype=np.float32).reshape(GRAPH_ROWS, GRAPH_D)
+    yn = np.random.default_rng(SEED).uniform(1, 4, (GRAPH_ROWS, GRAPH_D)).astype(np.float32)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    got = gf.run(x=xn, y=yn)
+    torch.cuda.synchronize()
+    tiers = global_profile.tier_summary()
+    launches = _launches(tiers)
+    require(launches["fused_chain"] == 2 and all(v == 0 for k, v in launches.items()
+                                                 if k != "fused_chain")
+            and not any(t.get("ref") for t in tiers.values()),
+            f"[{name}] want 2 K13 launches and nothing else: {tiers}")
+    unfused = gu.run(x=xn, y=yn)
+    want_np = (yn - np.exp(xn), yn / np.exp(xn))
+    errs = {}
+    for label, a, u, w in zip(("sub", "div"), got, unfused, want_np):
+        w = torch.from_numpy(w).to(dev)
+        errs[f"{label} vs fuse=False"] = _rel(a, u)
+        errs[f"{label} vs numpy"] = _rel(a, w)
+    require(all(v <= CHAIN_RTOL for v in errs.values()),
+            f"[{name}] off fuse=False or numpy (|diff| / max|ref|, bound {CHAIN_RTOL:g}): {errs}")
+    log(f"  [{name}] y - exp(x), y / exp(x) through K13: [0, 0] = {float(got[0][0, 0]):.4f}, "
+        f"{float(got[1][0, 0]):.4f}; |diff| / max|ref|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    summary.setdefault("graph", {})[name] = dict(chains=chains, launches=launches,
+                                                 rel_errs=errs, bound=CHAIN_RTOL)
+    return launches
+
+
+def graph_rates(torch, gf, feeds, card, summary):
+    """ms per graph_ffn run and per value_and_grad, in turns (run, vag, vag,
+    run per round), GRAPH_RATE_ROUNDS rounds, the median of each."""
+    vag = gf.value_and_grad(GRAPH_WRT)
+    calls = {"run": lambda: gf.run(**feeds), "value_and_grad": lambda: vag(**feeds)}
+    runs = {k: [] for k in calls}
+    for _ in range(GRAPH_RATE_ROUNDS):
+        for k in ("run", "value_and_grad", "value_and_grad", "run"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[k]()
+            torch.cuda.synchronize()
+            runs[k].append(time.perf_counter() - t0)
+    out = {}
+    for k, ts in runs.items():
+        med = statistics.median(ts)
+        out[k] = dict(ms=med * 1e3, runs_s=ts)
+        log(f"  [graph_ffn] {k}: {med * 1e3:.2f} ms (median of {len(ts)}; fastest "
+            f"{min(ts) * 1e3:.2f})  [{card}]")
+    summary.setdefault("graph_rates", {})["graph_ffn"] = dict(out, card=card,
+                                                              rounds=GRAPH_RATE_ROUNDS)
+    train_profile(torch, lambda: vag(**feeds), "graph_ffn", summary, key="graph_profile",
+                  what="one value_and_grad")
 
 
 def main() -> int:
@@ -1694,7 +2087,8 @@ def main() -> int:
 
     log("== 3. end to end: TinyLlama-1.1B, the default and unfused paths at Q4_0, the "
         "default path at Q8_0; Llama-2-7B at Q4_0, the default path; both with the int8 KV "
-        "cache")
+        "cache; TinyLlama-1.1B Q4_0 under ZGML_TPU_KERNELS_FORCE=rmsnorm; training; the graph "
+        "tier")
     t0 = time.perf_counter()
     models = {m: load_model(torch, dev, *m) for m in dict.fromkeys(PATH_MODEL.values())}
     rng = np.random.default_rng(SEED)
@@ -1710,6 +2104,10 @@ def main() -> int:
     t0 = time.perf_counter()
     trainers = train_paths(torch, dev, models, summary, launches)
     log(f"  phase 3 (training) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["graph_ffn"], graph, graph_feeds = graph_ffn_path(torch, dev, summary)
+    launches["graph_sub"] = graph_sub_path(torch, dev, summary)
+    log(f"  phase 3 (graph tier) took {time.perf_counter() - t0:.1f} s")
 
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()
@@ -1720,7 +2118,8 @@ def main() -> int:
     set_path("default")
     train_rates(torch, trainers, card, summary)
     for name, tr in trainers.items():
-        train_profile(torch, tr, name, summary)
+        train_profile(torch, lambda t_=tr: t_.step(0), name, summary)
+    graph_rates(torch, graph, graph_feeds, card, summary)
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [kernel_line(name, checks[name], {p: n[name] for p, n in launches.items()})

@@ -243,3 +243,71 @@ def test_force_ref_is_scoped():
     with dispatch.force_ref():
         assert dispatch._force_ref.get()
     assert not dispatch._force_ref.get()
+
+
+NEW_MODULES = ("zgml_tpu_torch.ops.rmsnorm", "zgml_tpu_torch.ops.elementwise",
+               "zgml_tpu_torch.graph", "zgml_tpu_torch.graph.op", "zgml_tpu_torch.graph.tensor",
+               "zgml_tpu_torch.graph.fusion", "zgml_tpu_torch.graph.lower",
+               "zgml_tpu_torch.graph.graph", "zgml_tpu_torch.nn.layers",
+               "zgml_tpu_torch.data.mnist", "zgml_tpu_torch.models.demos")
+
+
+def test_graph_tier_and_demo_modules_import_no_jax():
+    """The graph tier, K12 / K13's modules, nn.layers, data.mnist and the
+    demos, each imported alone in a fresh process, pull in neither jax nor
+    zgml_tpu."""
+    code = ("import importlib, sys\n"
+            f"for n in {NEW_MODULES!r}:\n"
+            "    importlib.import_module(n)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'zgml_tpu' or m.startswith('zgml_tpu.'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env={"PYTHONPATH": str(REPO),
+                                                       "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_graph_and_demos_default_to_the_card():
+    """ComputeGraph and the demos' initialisers run on the card unless asked
+    for the CPU: without a card the default raises, naming the device."""
+    from zgml_tpu_torch.graph import ComputeGraph, var
+    from zgml_tpu_torch.models import demos
+    y = var("x", (2, 2)).exp()
+    inits = (demos.xor_mlp_init, demos.linear_regression_init, demos.poly_init,
+             demos.conv_classifier_init, lambda: demos.mlp_classifier_init(2, 4, 2),
+             demos.autoencoder_init)
+    if torch.cuda.is_available():
+        assert ComputeGraph(y).device.type == "cuda"
+        from zgml_tpu_torch.utils.tree import paths
+        assert all(t.device.type == "cuda" for init in inits for _, t in paths(init()))
+        return
+    with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+        ComputeGraph(y)
+    for init in inits:
+        with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+            init()
+    assert ComputeGraph(y, device="cpu").device.type == "cpu"
+
+
+def test_k12_k13_wrappers_refuse_what_their_kernels_do_not_take():
+    """K13 refuses a chain that is not float32 (naming the ROADMAP item, on
+    any device) and, like K12, a tensor off the card; K12 refuses other
+    dtypes."""
+    from zgml_tpu_torch.ops.elementwise import Step, fused_chain_cuda
+    from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda
+    steps = [Step("exp"), Step("mul", side=0)]
+    for dt in (torch.float64, torch.bfloat16, torch.float16):
+        x = torch.zeros(4, 8, dtype=dt)
+        with pytest.raises(NotImplementedError, match=r"float32.*ROADMAP\.md B\.4"):
+            fused_chain_cuda(x, steps, [x])
+    with pytest.raises(NotImplementedError, match="float32"):
+        fused_chain_cuda(torch.zeros(4, 8), steps, [torch.zeros(8, dtype=torch.float64)])
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_chain_cuda(torch.zeros(4, 8), steps, [torch.zeros(8)])
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(torch.zeros(2, 8), torch.ones(8))
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            rmsnorm_cuda(torch.zeros(2, 8, dtype=torch.float64, device="cuda"),
+                         torch.ones(8, device="cuda"))

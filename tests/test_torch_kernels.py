@@ -537,3 +537,115 @@ def test_qmatmul_bwd(cuda, m, n, k, kind):
     got, want = qmatmul_bwd_cuda(g, w), qmatmul_bwd_ref(g, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * np.sqrt(n))
+
+
+# -- K12 (rmsnorm) and K13 (fused elementwise chain) -------------------------
+# K12: f32 rows within 1e-6 * max|out| of refs.rmsnorm (the sum of squares in
+# another order; the rest in the plain version's order, rsqrtf as
+# torch.rsqrt); bf16 rows within one bf16 ulp of it. K13: the ops that are
+# exact in IEEE f32 bit-equal to the plain composition on the card (NaN where
+# it is NaN), the others within 1e-6 * max|out|.
+
+@pytest.mark.parametrize("m,d,dtype", [(1, 2048, torch.float32), (128, 2048, torch.float32),
+                                       (2048, 2048, torch.float32), (1, 4096, torch.float32),
+                                       (7, 100, torch.float32), (3, 64, torch.float32),
+                                       (33, 5632, torch.float32), (16, 2048, torch.bfloat16)])
+def test_rmsnorm_kernel(cuda, m, d, dtype):
+    from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    x = torch.randn((m, d), device=cuda, generator=g).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    got, want = rmsnorm_cuda(x, gamma), rmsnorm_ref(x, gamma)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=0)
+
+
+def test_rmsnorm_dispatch_and_autograd_take_k12(cuda, monkeypatch):
+    from zgml_tpu_torch.ops.rmsnorm import rmsnorm_ref
+    monkeypatch.setenv("ZGML_TPU_KERNELS_FORCE", "rmsnorm")
+    monkeypatch.delenv("ZGML_TPU_KERNELS_DISABLE", raising=False)
+    x = torch.randn(4, 256, device=cuda, requires_grad=True)
+    gamma = torch.ones(256, device=cuda, requires_grad=True)
+    global_profile.reset()
+    out = dispatch.rmsnorm(x, gamma)
+    gx, gg = torch.autograd.grad(out.square().sum(), (x, gamma))
+    with torch.no_grad():
+        dispatch.rmsnorm(x, gamma)
+    with dispatch.force_ref():
+        dispatch.rmsnorm(x, gamma)
+    xr, gr = x.detach().requires_grad_(), gamma.detach().requires_grad_()
+    wx, wg = torch.autograd.grad(rmsnorm_ref(xr, gr).square().sum(), (xr, gr))
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary()["rmsnorm"] == {"cuda": 2, "ref": 1}
+    torch.testing.assert_close(gx, wx, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gg, wg, rtol=1e-5, atol=1e-6)
+
+
+_K13_EXACT = {"add", "sub", "mul", "div", "max2", "neg", "recip", "sqr", "sqrt", "abs", "relu",
+              "scale", "add_scalar"}
+
+
+def _chain_check(got, want, exact):
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    g, w = got[~nan], want[~nan]
+    if exact:
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    else:
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+
+
+_K13_BINARY = ("add", "sub", "mul", "div", "max2")
+_K13_CASES = [(op, False) for op in ("neg", "recip", "sqr", "sqrt", "exp", "log", "abs", "tanh",
+                                     "sigmoid", "relu", "silu", "gelu", "scale", "add_scalar",
+                                     *_K13_BINARY)] + [(op, True) for op in _K13_BINARY]
+
+
+@pytest.mark.parametrize("op,side_left", _K13_CASES)
+def test_fused_chain_kernel_per_op(cuda, op, side_left):
+    from zgml_tpu_torch.ops.elementwise import BINARY, Step, fused_chain_cuda, fused_chain_ref
+    g = torch.Generator(device=cuda).manual_seed(len(op))
+    x = torch.randn((300, 517), device=cuda, generator=g)
+    x[0, :4] = float("nan")                  # NaN goes through every op
+    side = torch.randn(517, device=cuda, generator=g)
+    side[5] = float("nan")
+    payload = {"scale": 0.37, "add_scalar": -1.25}.get(op, 0.0)
+    steps = [Step(op, payload, 0 if op in BINARY else -1, side_left)]
+    got, want = fused_chain_cuda(x, steps, [side]), fused_chain_ref(x, steps, [side])
+    torch.cuda.synchronize()
+    _chain_check(got, want, op in _K13_EXACT)
+
+
+def test_fused_chain_kernel_chains_and_dispatch(cuda):
+    """The graph_ffn chains and a 16-step chain over two broadcast sides;
+    dispatch.fused_chain launches K13 and, under autograd, FusedChain."""
+    from zgml_tpu_torch.ops.elementwise import Step, fused_chain_cuda, fused_chain_ref
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((64, 333), device=cuda, generator=g)
+    sides = [torch.randn((64, 1), device=cuda, generator=g),
+             1.5 + torch.rand(333, device=cuda, generator=g)]
+    chains = [[Step("silu"), Step("mul", side=0)], [Step("add", side=1), Step("sqr")],
+              [Step("neg"), Step("exp"), Step("scale", 0.5), Step("add", side=0),
+               Step("div", side=1, side_left=True), Step("tanh"),
+               Step("sub", side=0, side_left=True), Step("gelu"), Step("max2", side=1),
+               Step("add_scalar", 0.75), Step("sigmoid"), Step("log"), Step("abs"),
+               Step("sqrt"), Step("relu"), Step("mul", side=1)]]
+    for steps in chains:
+        got, want = fused_chain_cuda(x, steps, sides), fused_chain_ref(x, steps, sides)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    global_profile.reset()
+    xg = x.clone().requires_grad_()
+    out = dispatch.fused_chain(xg, chains[0], sides[:1])
+    (gx,) = torch.autograd.grad(out.sum(), xg)
+    with torch.no_grad():
+        dispatch.fused_chain(x, chains[0], sides[:1])
+    xr = x.clone().requires_grad_()
+    (wx,) = torch.autograd.grad(fused_chain_ref(xr, chains[0], sides[:1]).sum(), xr)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary()["fused_chain"] == {"cuda": 2}
+    torch.testing.assert_close(gx, wx, rtol=0, atol=0)

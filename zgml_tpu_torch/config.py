@@ -3,7 +3,7 @@
 The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
-the card. The *path* follows seven of the JAX package's own variables, with
+the card. The *path* follows eight of the JAX package's own variables, with
 its defaults, read at call time (the port is eager):
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
@@ -13,7 +13,10 @@ its defaults, read at call time (the port is eager):
   ZGML_TPU_I8DOT=0                i8dot()              no int8-activation tier K1/K5:
                                                        f32-dequant K2 at every M (default 1)
   ZGML_TPU_KERNELS_DISABLE=a,b    kernels_disabled()   names of kernels turned off; the port
-                                                       reads "fused_ffn" (K6) only
+                                                       reads "fused_ffn" (K6) and "rmsnorm"
+  ZGML_TPU_KERNELS_FORCE=a,b      kernels_forced()     opt-in kernels of ops that run plain
+                                                       torch by default; the port reads
+                                                       "rmsnorm" (K12)
   ZGML_TPU_ATTN_I8A=0|1           attn_i8a(dp)         K7's int8 A phase (default: on where
                                                        the padded width dp >= 4096)
   ZGML_TPU_FFN_I8A=0|1            ffn_i8a(dp)          K6c, the Q4_0 decode FFN with int8
@@ -31,6 +34,7 @@ values, which is ZGML_TPU_SCALES=f16.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import pathlib
@@ -61,10 +65,35 @@ def i8dot() -> bool:
     return _flag("ZGML_TPU_I8DOT", "1")
 
 
+def _names(name: str) -> frozenset[str]:
+    raw = os.environ.get(name, "")
+    return frozenset(s.strip() for s in raw.split(",") if s.strip())
+
+
 def kernels_disabled() -> frozenset[str]:
     """ZGML_TPU_KERNELS_DISABLE, comma-separated (zgml_tpu/config.py:65-66)."""
-    raw = os.environ.get("ZGML_TPU_KERNELS_DISABLE", "")
-    return frozenset(s.strip() for s in raw.split(",") if s.strip())
+    return _names("ZGML_TPU_KERNELS_DISABLE")
+
+
+def kernels_forced() -> frozenset[str]:
+    """ZGML_TPU_KERNELS_FORCE, comma-separated (zgml_tpu/config.py:69-70):
+    "rmsnorm" routes ops.dispatch.rmsnorm to K12 on the card."""
+    return _names("ZGML_TPU_KERNELS_FORCE")
+
+
+@contextlib.contextmanager
+def force_kernels(names: str):
+    """Set ZGML_TPU_KERNELS_FORCE to `names` inside the block and restore it
+    after (zgml_tpu/config.py:73-90)."""
+    saved = os.environ.get("ZGML_TPU_KERNELS_FORCE")
+    os.environ["ZGML_TPU_KERNELS_FORCE"] = names
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("ZGML_TPU_KERNELS_FORCE", None)
+        else:
+            os.environ["ZGML_TPU_KERNELS_FORCE"] = saved
 
 
 def attn_i8a(dp: int) -> bool:

@@ -1,1 +1,1 @@
-"""The batch loader."""
+"""The batch loader and the MNIST IDX reader / synthetic writer."""

@@ -4,8 +4,9 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
 
   tier of an op, from the device of its tensors and nothing else:
     cuda  -> the hand-written kernel (ops/qmatmul.py, ops/attention.py,
-             ops/ffn.py, ops/layerkernel.py); a kernel that cannot build or
-             launch raises, it never falls back
+             ops/ffn.py, ops/layerkernel.py, ops/flash_vjp.py, ops/rmsnorm.py,
+             ops/elementwise.py); a kernel that cannot build or launch
+             raises, it never falls back
     cpu   -> the plain torch version
     other -> NotImplementedError
   which kernel a projection takes, from the JAX package's rule
@@ -22,7 +23,9 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
 Under autograd (grad enabled and an input that requires grad): projections
 go through qmatmul.QMatmul (backward K11, dx = g @ dequant(W)), and flash
 attention through flash_vjp.FlashAttention (K10f forward, K10dq and K10dkv
-backward), on both tiers. The other kernels have no backward: called so,
+backward), on both tiers; K12 and K13 through rmsnorm.RMSNorm and
+elementwise.FusedChain, whose backward recomputes the plain version, as the
+JAX custom VJPs do. The other kernels have no backward: called so,
 they raise NotImplementedError naming the ROADMAP item, rather than hand back
 a result whose gradient would be silently zero.
 
@@ -38,7 +41,9 @@ at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
 attention = K3, decode_attention = K4, flash_attention_q8 = K9,
 decode_attention_q8 = K8, the JAX package's names; flash_fwd = K10f,
 flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
-K11q8; matmul for a dense projection): a kernel's count is
+K11q8; matmul for a dense projection; rmsnorm = K12 under
+ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
+fused_chain = K13, the graph tier's fused chains): a kernel's count is
 added where it launches, a plain call's here. The cache's dtype picks K3/K4
 or K9/K8 in the model, and K7's cache mode here.
 """
@@ -51,6 +56,7 @@ import torch
 
 from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import attention, ffn, flash_vjp, layerkernel, qmatmul as _qmm, refs
+from zgml_tpu_torch.ops import elementwise as _chain, rmsnorm as _rmsnorm
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -247,10 +253,37 @@ def decode_attention_q8(q, k, ks, v, vs, kv_len, kv_row: int = 0):
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    # plain torch by design on both devices, as the JAX package leaves it to XLA
-    _device_of(x, gamma)
-    global_profile.count_op("rmsnorm", "torch")
-    return refs.rmsnorm(x, gamma, eps)
+    """Plain torch by default on both devices, as the JAX package leaves the
+    norm to XLA (counted under the `torch` tier). Where
+    ZGML_TPU_KERNELS_FORCE names "rmsnorm" and ZGML_TPU_KERNELS_DISABLE does
+    not (zgml_tpu/ops/dispatch.py:144-155): K12 on the card, through
+    rmsnorm.RMSNorm under autograd; its plain version on the CPU and under
+    force_ref(), counted under `ref`."""
+    dev = _device_of(x, gamma)
+    if "rmsnorm" not in config.kernels_forced() or "rmsnorm" in config.kernels_disabled():
+        global_profile.count_op("rmsnorm", "torch")
+        return refs.rmsnorm(x, gamma, eps)
+    kernel = dev.type == "cuda" and not _force_ref.get()
+    if _needs_grad(x, gamma):
+        return _rmsnorm.RMSNorm.apply(x, gamma, eps, kernel)
+    if kernel:
+        return _rmsnorm.rmsnorm_cuda(x, gamma, eps)
+    global_profile.count_op("rmsnorm", "ref")
+    return _rmsnorm.rmsnorm_ref(x, gamma, eps)
+
+
+def fused_chain(x: torch.Tensor, steps, sides) -> torch.Tensor:
+    """K13, the graph tier's fused elementwise chain (ops/elementwise.py):
+    the kernel on the card, the plain composition on the CPU and under
+    force_ref() (counted under `ref`); through elementwise.FusedChain under
+    autograd, whose backward recomputes the plain composition."""
+    kernel = _device_of(x, *sides).type == "cuda" and not _force_ref.get()
+    if _needs_grad(x, *sides):
+        return _chain.FusedChain.apply(x, tuple(steps), kernel, *sides)
+    if kernel:
+        return _chain.fused_chain_cuda(x, steps, sides)
+    global_profile.count_op("fused_chain", "ref")
+    return _chain.fused_chain_ref(x, steps, sides)
 
 
 def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,16 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return (xf * torch.rsqrt(ms + eps) * gamma.to(torch.float32)).to(x.dtype)
 
 
+def layernorm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm * gamma + beta over the last axis, in f32 (refs.py:76-82)."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma + beta).to(x.dtype)
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int,
                  base: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables [T, head_dim // 2] for integer positions [T];
@@ -61,10 +71,12 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, scale: float | None = None) -> torch.Tensor:
     """Softmax attention in f32. q [..., Tq, d], k/v [..., Tk, d]; mask
-    broadcastable to [..., Tq, Tk], True = attend."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
+    broadcastable to [..., Tq, Tk], True = attend; scores scaled by `scale`,
+    1/sqrt(d) where None."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.einsum("...qd,...kd->...qk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
     if mask is not None:
@@ -72,6 +84,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)          # rows with no live key -> 0
     return torch.einsum("...qk,...kd->...qd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def causal_mask(t_q: int, t_k: int, offset: int = 0, device=None) -> torch.Tensor:
+    """Boolean mask [t_q, t_k]: query i attends keys j <= i + offset (aligned
+    at the start, refs.py:143-147)."""
+    qi = torch.arange(t_q, device=device)[:, None]
+    kj = torch.arange(t_k, device=device)[None, :]
+    return kj <= qi + offset
 
 
 def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
