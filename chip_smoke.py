@@ -40,7 +40,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      torch.nn.functional.rms_norm); K13 (the fused elementwise chain) on
      graph_ffn's chains silu -> mul [512, 5632] and add -> sqr [512, 2048],
      and one case per op at [2048, 2048]: bit-equal to plain where every step
-     is exact in IEEE f32, else within 1e-6 * max|out|;
+     is exact in IEEE f32, else within 1e-6 * max|out|. The whole-stack
+     decode megacalls K14 (stack_decode) and K15 (tape_decode, and
+     tape_decode_f32 under ZGML_TPU_TAPE_BF16=0) over a random stacked cache
+     at pos 0, 1, 200, 2047: TinyLlama-1.1B's 22 layers, and Llama-2-7B's
+     widths over 4 layers; x_out, k_cur and v_cur within MEGA_REL_PER_LAYER *
+     L * max|out| with f32 operands and TAPE_BF16_RTOL * max|out| with bf16
+     ones, every layer's cache row pos the kernel's own k_cur / v_cur in bf16;
   3. end to end: synthetic GGUFs from seed 0 (written to .bench_cache/
      once), TinyLlama-1.1B at Q4_0 and Q8_0 and Llama-2-7B at Q4_0 (full
      width and 32 layers, max_seq_len 2048 as bench.py's preset, 4.2 GB) ->
@@ -81,6 +87,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                    sampled request; the default path's kernels and K12, which
                    must launch exactly 2 x 22 + 1 times per prefill chunk and
                    once per decode step's head;
+       stack_tiny  TinyLlama Q4_0 with ZGML_TPU_STACK_DECODE=1 (the model
+                   every TinyLlama Q4_0 path shares carries both megacall
+                   views, enable_stacked_decode() and enable_tape_decode(),
+                   which the other paths must not take): the 3 greedy and the
+                   sampled request; K14 exactly once per decode token, and
+                   K1q4, K2q4, K3, K5q4 and K6b, no K7 and no K6d;
+       tape_tiny   the same with ZGML_TPU_TAPE_DECODE=1: K15 (bf16 operands)
+                   once per decode token;
      no other kernel and no plain-tier call may run on a path; on each path
      the first request (and on kv8_tiny the batch-4 one) is compared with the
      same engine under force_ref() (the same path with every kernel swapped
@@ -118,7 +132,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with tg32
      also at a 1536-token context on llama2_7b and kv8_7b; per path a
-     torch.profiler breakdown of one prefill chunk and 8 decode steps (and,
+     torch.profiler breakdown of one prefill chunk and 8 decode steps, with
+     the kernels launched per decode token and the megacall's device time
+     per token (and,
      on those two, 8 steps at the 1536-token context with K7's device time
      per token; "not measured" where the profiler sees no kernel); ms per
      training step and tokens/s of both training paths in turns, and a
@@ -245,9 +261,17 @@ GRAPH_CHAINS = [["silu", "mul"], ["add", "sqr"]]
 GRAPH_FWD_RTOL, GRAPH_GRAD_RTOL = 1e-5, 1e-4
 GRAPH_SGD_STEPS, GRAPH_LR = 3, 1.0
 GRAPH_RATE_ROUNDS = 3      # phase 4: run, value_and_grad, value_and_grad, run per round
+# the megacalls K14 / K15 (phase 2) against their plain versions: with f32
+# operands REL_BOUND once per layer (each layer hands its f32 summation-order
+# difference on to the next; measured on the H100, PERF.md), with bf16 ones the
+# bound of tests/test_torch_tapekernel.py (an operand the two sum in another
+# order rounds to either bf16 neighbour)
+MEGA_REL_PER_LAYER = REL_BOUND
+TAPE_BF16_RTOL = 1e-2
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 I8_OP_PER_S = 1979e12
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
 PATHS = {"default": {},
@@ -257,21 +281,28 @@ PATHS = {"default": {},
          "llama2_7b": {},
          "kv8_tiny": {},
          "kv8_7b": {},
-         "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"}}
+         "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"},
+         "stack_tiny": {"ZGML_TPU_STACK_DECODE": "1"},
+         "tape_tiny": {"ZGML_TPU_TAPE_DECODE": "1"}}
 PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
               "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0"),
               "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_7b": ("llama2-7b", "q4_0"),
-              "rmsnorm_forced": ("tinyllama-1.1b", "q4_0")}
+              "rmsnorm_forced": ("tinyllama-1.1b", "q4_0"),
+              "stack_tiny": ("tinyllama-1.1b", "q4_0"), "tape_tiny": ("tinyllama-1.1b", "q4_0")}
+# the megacall of a path, which must launch exactly once per decode token
+MEGA_PATHS = {"stack_tiny": "stack_decode", "tape_tiny": "tape_decode"}
 PATH_CACHE = {"kv8_tiny": "int8", "kv8_7b": "int8"}    # the engines' cache_dtype; else bf16
 # paths that also answer the sampled request
-PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_7b", "rmsnorm_forced")
+PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_7b", "rmsnorm_forced",
+                "stack_tiny", "tape_tiny")
 BATCH4_PATHS = ("kv8_tiny",)    # + 4 rows x 128 prompt tokens from a batch-4 engine (K8)
 LONG_PATHS = ("kv8_7b",)        # + a LONG_PROMPT-token prompt, 32 new tokens
 LONG_RATE_PATHS = ("llama2_7b", "kv8_7b")   # phase 4: tg32 also at a LONG_PROMPT context
 LONG_PROMPT = 1536
 # paths whose decode quantizes per token beyond K1 (K7-i8 and K6c on Llama-2-7B, the
-# int8 cache): their tokens are compared up to a top-2 gap under the step bound
-FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_7b")
+# int8 cache, K15's bf16 operands): their tokens are compared up to a top-2 gap
+# under the step bound
+FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_7b", "tape_tiny")
 PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
                             "fused_ffn_norm", "fused_ffn", "attn_block"),
                 "unfused": ("q4_matmul", "flash_attention", "decode_attention"),
@@ -285,7 +316,11 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_
                 "kv8_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
                            "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8"),
                 "rmsnorm_forced": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                                   "fused_ffn_norm", "fused_ffn", "attn_block", "rmsnorm")}
+                                   "fused_ffn_norm", "fused_ffn", "attn_block", "rmsnorm"),
+                "stack_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
+                               "fused_ffn", "stack_decode"),
+                "tape_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
+                              "fused_ffn", "tape_decode")}
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -329,6 +364,10 @@ KERNELS = {
                       "zgml_tpu/ops/qmatmul.py:541"),
     "rmsnorm": ("rmsnorm", _CSRC + "rmsnorm.cu", "zgml_tpu/ops/rmsnorm.py:37"),
     "fused_chain": ("fused_chain", _CSRC + "elementwise.cu", "zgml_tpu/ops/elementwise.py:104"),
+    "stack_decode": ("stack_decode", _CSRC + "stack_decode.cu", "zgml_tpu/ops/stackkernel.py:422"),
+    "tape_decode": ("tape_decode", _CSRC + "stack_decode.cu", "zgml_tpu/ops/tapekernel.py:553"),
+    "tape_decode_f32": ("tape_decode_f32", _CSRC + "stack_decode.cu",
+                        "zgml_tpu/ops/tapekernel.py:553"),
 }
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
@@ -352,6 +391,8 @@ NO_LIBRARY = {
             "(rmsnorm, quantized QKV, RoPE, attention, wo, residual, cache write)",
     "chain": "none: no single PyTorch call computes an arbitrary elementwise chain given as "
              "data (torch.compile would generate one; it is not a library call)",
+    "stack": "none: no single PyTorch call computes a whole decode stack (every layer's norms, "
+             "quantized projections, RoPE, attention, cache write, SwiGLU and residuals)",
 }
 
 
@@ -449,11 +490,13 @@ def require(cond: bool, msg: str):
         raise RuntimeError(msg)
 
 
-def bound_of(nbytes: float, flops: float, i8ops: float = 0) -> tuple[float, str]:
+def bound_of(nbytes: float, flops: float, i8ops: float = 0,
+             bf16ops: float = 0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take to
-    move `nbytes` and do `flops` f32 and `i8ops` int8 operations."""
+    move `nbytes` and do `flops` f32, `i8ops` int8 and `bf16ops` bf16
+    operations."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = (flops / F32_FLOP_PER_S + i8ops / I8_OP_PER_S) * 1e3
+    to = (flops / F32_FLOP_PER_S + i8ops / I8_OP_PER_S + bf16ops / BF16_FLOP_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -479,16 +522,17 @@ def check_kernels(torch, dev):
     results = {name: [] for name in KERNELS}
 
     def record(kernel, case, err, bound, t, tp, nbytes, flops, lib=None, lib_note=None,
-               i8ops=0, **extra):
+               i8ops=0, bf16ops=0, **extra):
         """One case: error, device times, the bound from this case's bytes
-        and operations (flops and i8ops 0: the bytes bound alone), and the
-        library call's time or why there is none."""
-        b_ms, b_by = bound_of(nbytes, flops, i8ops)
+        and operations (flops, i8ops and bf16ops 0: the bytes bound alone),
+        and the library call's time or why there is none."""
+        b_ms, b_by = bound_of(nbytes, flops, i8ops, bf16ops)
         lib_ms = None if lib is None else lib[0]
         timers = {"ms": t[2], "plain_ms": tp[2]} | ({} if lib is None else {"library_ms": lib[2]})
         results[kernel].append(dict(case=case, err=err, bound=bound, ms=t[0], call_ms=t[1],
                                     plain_ms=tp[0], plain_call_ms=tp[1], bytes=nbytes,
-                                    flops=flops, i8ops=i8ops, bound_ms=b_ms, bound_by=b_by,
+                                    flops=flops, i8ops=i8ops, bf16ops=bf16ops, bound_ms=b_ms,
+                                    bound_by=b_by,
                                     library_ms=lib_ms, library_note=lib_note, timers=timers,
                                     **extra))
         lib_txt = (f"library {lib_ms * 1e3:.1f}" if lib_ms is not None
@@ -797,6 +841,8 @@ def check_kernels(torch, dev):
     log("  -- the graph tier and the forced norm: K12 (rmsnorm) and K13 (fused chain)")
     check_rmsnorm(torch, dev, g, record)
     check_chains(torch, dev, g, record)
+    log("  -- the whole-stack decode megacalls: K14 (stack_decode) and K15 (tape_decode)")
+    check_megacalls(torch, dev, g, record, weights)
     return results
 
 
@@ -1195,6 +1241,85 @@ def check_chains(torch, dev, g, record):
                NO_LIBRARY["chain"])
 
 
+def check_megacalls(torch, dev, g, record, weights):
+    """K14 and K15 (bf16 and f32 operands) against their plain versions on
+    one random stack of Q4_0 layers and a random stacked bf16 cache, at
+    TinyLlama-1.1B's 22 layers and at Llama-2-7B's widths over L_7B layers,
+    pos ATTN_POS: x_out, k_cur and v_cur within MEGA_REL_PER_LAYER * L *
+    max|out| with f32 operands, TAPE_BF16_RTOL * max|out| with bf16 ones;
+    every layer's cache row pos is the kernel's own k_cur / v_cur in bf16
+    (with f32 operands within one bf16 ulp of the plain version's row, or
+    that bound near 0), and no other row changes."""
+    from zgml_tpu_torch.ops import refs
+    from zgml_tpu_torch.ops.stackkernel import (PROJECTIONS, StackedLayers, stacked_decode_cuda,
+                                                stacked_decode_ref)
+    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda, tape_decode_ref
+
+    def norm(d):
+        return 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+
+    for model, (n_layers, hq, hkv, hd), f in (("", (L, HQ, HKV, D), FFN_F),
+                                              ("7B ", (L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B)):
+        d, nkv = hq * hd, hkv * hd
+        layers = [{"attn_norm": norm(d), "ffn_norm": norm(d),
+                   "wqkv": weights("q4_0", (hq + 2 * hkv) * hd, d, 1)[0],
+                   "wo": weights("q4_0", d, d, 1)[0],
+                   "w_gate_up": weights("q4_0", 2 * f, d, 1)[0],
+                   "w_down": weights("q4_0", d, f, 1)[0]} for _ in range(n_layers)]
+        stack = StackedLayers(layers, hq, hkv, 1e-5)
+        tape = Tape(stack, ())
+        # the weights and norms of every layer, read once per token
+        wbytes = sum(nbytes_of(ly[n].qs, ly[n].d) for ly in layers for n in PROJECTIONS) \
+            + 2 * n_layers * d * 4
+        ck = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        cv = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        runs = {"stack_decode": (stacked_decode_cuda, stacked_decode_ref, {}),
+                "tape_decode": (tape_decode_cuda, tape_decode_ref, {"bf16": True}),
+                "tape_decode_f32": (tape_decode_cuda, tape_decode_ref, {"bf16": False})}
+        for pos in ATTN_POS:
+            x = torch.randn((1, 1, d), device=dev, generator=g)
+            cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
+            pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+            for kname, (kernel, plain, kw) in runs.items():
+                view = stack if kname == "stack_decode" else tape
+                bf16 = kw.get("bf16", False)
+                kc, vc, kr, vr = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+                got = kernel(x, view, kc, vc, pos_t, cos, sin, **kw)
+                want = plain(x, view, kr, vr, pos, cos, sin, **kw)
+                torch.cuda.synchronize()
+                rel = TAPE_BF16_RTOL if bf16 else MEGA_REL_PER_LAYER * n_layers
+                errs = [(float((a - b).abs().max()), rel * float(b.abs().max()))
+                        for a, b in zip(got, want)]
+                require(all(bool(torch.isfinite(a).all()) for a in got)
+                        and all(e <= b for e, b in errs),
+                        f"{kname} {model}pos={pos}: (max_abs_err, bound) of x_out, k_cur, v_cur "
+                        f"{errs}")
+                rows = torch.arange(S, device=dev) != pos
+                same = True
+                for c, c_r, cur in ((kc, kr, got[1]), (vc, vr, got[2])):
+                    row, row_r = c[:, 0, :, pos].double(), c_r[:, 0, :, pos].double()
+                    tol = torch.clamp(bf16_ulp(torch, row_r), min=rel * float(row_r.abs().max()))
+                    same &= (torch.equal(c[:, 0, :, pos], cur.to(torch.bfloat16))
+                             and torch.equal(c[:, :, :, rows], c_r[:, :, :, rows])
+                             and (bf16 or bool(((row - row_r).abs() <= tol).all())))
+                require(same, f"{kname} {model}pos={pos}: a cache row pos is not the kernel's "
+                        f"k_cur / v_cur in bf16 (or is off the plain row), or another row changed")
+                t = time_ms(torch, [lambda: kernel(x, view, kc, vc, pos_t, cos, sin, **kw)], 20)
+                tp = time_ms(torch, [lambda: plain(x, view, kr, vr, pos, cos, sin, **kw)], 3)
+                worst = max(errs, key=lambda eb: eb[0] / eb[1])
+                # x in and out, cos/sin, weights and norms, each layer's live
+                # cache rows, its new row and its k_cur / v_cur out
+                nbytes = (2 * d * 4 + hd * 4 + wbytes
+                          + n_layers * ((pos + 1) * 2 * nkv * 2 + 2 * nkv * 4))
+                ops = n_layers * (2 * d * (hq + 2 * hkv) * hd + 2 * d * d + 6 * d * f
+                                  + 4 * hq * pos * hd)
+                record(kname, f"{model}L={n_layers} pos={pos} (x_out, k_cur, v_cur)", worst[0],
+                       worst[1], t, tp, nbytes, 0 if bf16 else ops, None, NO_LIBRARY["stack"],
+                       bf16ops=ops if bf16 else 0, n_layers=n_layers)
+        del layers, stack, tape, ck, cv
+        torch.cuda.empty_cache()
+
+
 def preset(name: str):
     """The model of a path: bench.py's presets, at its max_seq_len 2048."""
     import dataclasses
@@ -1316,6 +1441,13 @@ def end_to_end(torch, model, prompts, name, summary):
         require(launches["rmsnorm"] == want,
                 f"[{name}] K12 launched {launches['rmsnorm']} times, want {want} ({chunks} "
                 f"chunks x {2 * model.cfg.n_layers + 1} + {steps} decode heads)")
+    if name in MEGA_PATHS:
+        # one launch for the whole stack per decode token, from greedy
+        # decode_n and from the sampled request's step logits alike
+        steps = global_profile.counters["decode_tokens"]
+        mega = MEGA_PATHS[name]
+        require(launches[mega] == steps,
+                f"[{name}] {mega} launched {launches[mega]} times for {steps} decode tokens")
     for out, label in zip(outs, labels):
         require(len(out) == 32 and all(0 <= t < vocab for t in out),
                 f"[{name}] {label} gave {out}")
@@ -1796,13 +1928,22 @@ def profile(torch, eng, prompt, long_prompt, name, summary):
         k7 = [(u, c) for k, u, c in rows if "layer_attn_kernel" in k]
         k7_seen = sum(c for _, c in k7)
         k7_us = sum(u for u, _ in k7) / k7_seen * eng.cfg.n_layers if k7_seen else 0.0
+        # the megacall (K14 / K15), once per token
+        mega = [(u, c) for k, u, c in rows if "stack_decode_kernel" in k]
+        mega_seen = sum(c for _, c in mega)
+        mega_us = sum(u for u, _ in mega) / mega_seen if mega_seen else 0.0
+        per_token = sum(c for _, _, c in rows) / 8 if label != "prefill128" else None
         out[label] = dict(wall_us=wall * 1e6, device_busy_us=busy, k7_us_per_token=k7_us,
-                          k7_launches_seen=k7_seen,
+                          k7_launches_seen=k7_seen, megacall_us_per_token=mega_us,
+                          megacall_launches_seen=mega_seen, kernels_per_token_seen=per_token,
                           kernels=[dict(name=k[:90], us=u, count=c) for k, u, c in rows[:15]])
         log(f"  [{name}] {label}: host wall {wall * 1e3:.2f} ms, device busy "
             f"{busy / 1e3:.2f} ms ({100 * busy / (wall * 1e6):.1f}%)"
+            + (f"; {per_token:.1f} kernels per decode token seen" if per_token else "")
             + (f"; K7 {k7_us:.1f} us of device time per token ({k7_seen} of "
-               f"{8 * eng.cfg.n_layers} launches seen)" if k7_seen else ""))
+               f"{8 * eng.cfg.n_layers} launches seen)" if k7_seen else "")
+            + (f"; the megacall {mega_us:.1f} us per token ({mega_seen} of 8 launches seen)"
+               if mega_seen else ""))
         for k, u, c in rows[:8]:
             log(f"    {u / 1e3:8.3f} ms  x{c:<5} {k[:80]}")
     summary.setdefault("profile", {})[name] = out
@@ -2087,10 +2228,15 @@ def main() -> int:
 
     log("== 3. end to end: TinyLlama-1.1B, the default and unfused paths at Q4_0, the "
         "default path at Q8_0; Llama-2-7B at Q4_0, the default path; both with the int8 KV "
-        "cache; TinyLlama-1.1B Q4_0 under ZGML_TPU_KERNELS_FORCE=rmsnorm; training; the graph "
-        "tier")
+        "cache; TinyLlama-1.1B Q4_0 under ZGML_TPU_KERNELS_FORCE=rmsnorm and through the "
+        "megacalls K14 and K15; training; the graph tier")
     t0 = time.perf_counter()
     models = {m: load_model(torch, dev, *m) for m in dict.fromkeys(PATH_MODEL.values())}
+    # the megacall views on the model every TinyLlama Q4_0 path shares: only
+    # stack_tiny's and tape_tiny's flags may make decode take them
+    tiny = models["tinyllama-1.1b", "q4_0"]
+    require(tiny.enable_stacked_decode() and tiny.enable_tape_decode(),
+            "TinyLlama-1.1B Q4_0: enable_stacked_decode / enable_tape_decode refused")
     rng = np.random.default_rng(SEED)
     vocab = min(m.cfg.vocab_size for m in models.values())
     # the three greedy prompts, the long prompt, the batch-4 prompt

@@ -11,8 +11,9 @@ times, with chip_smoke.time_ms (device time from torch.profiler), the bf16
 cache's attention kernels at the smoke's TinyLlama-1.1B shapes: K4 at kv_len
 1, 200 and 2047 of a 22-layer cache, K3 on a 128-row chunk at (q_offset,
 kv_len) (0, 128) and (128, 256), and at head_dim 128 with n_rep 1 (Llama-2-7B),
-and K7 (f32 A phase, Q4_0) at pos 2047. Prints one JSON line per turn, then
-the median device us per case and side, with the card's name and power limit.
+K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and K6d (Q4_0, one row) at the
+TinyLlama-1.1B FFN. Prints one JSON line per turn, then the median device us
+per case and side, with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ def one(root: str) -> dict:
     import zgml_tpu_torch
     from zgml_tpu_torch.ops import refs
     from zgml_tpu_torch.ops.attention import decode_attention_cuda, flash_attention_cuda
+    from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
     from zgml_tpu_torch.quant.packed import PackedWeight
     sys.path.insert(1, str(HERE))
@@ -68,10 +70,15 @@ def one(root: str) -> dict:
     ck = torch.randn((4, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
     cv = torch.randn((4, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
     x = torch.randn((1, 1, d), device=dev, generator=g)
-    cos, sin = refs.rope_cos_sin(torch.tensor([2047], device=dev), hd)
-    pos = torch.tensor([2047], dtype=torch.int32, device=dev)
-    out["K7 pos=2047"] = time_ms(torch, [lambda: attn_block_cuda(
-        x, gamma, wqkv, wo, ck, cv, 3, pos, cos, sin, hq, hkv, 1e-5)], 50)[0]
+    for p in (0, 200, 2047):
+        cos, sin = refs.rope_cos_sin(torch.tensor([p], device=dev), hd)
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        out[f"K7 pos={p}"] = time_ms(torch, [lambda: attn_block_cuda(
+            x, gamma, wqkv, wo, ck, cv, 3, pos, cos, sin, hq, hkv, 1e-5)], 50)[0]
+    f = 5632
+    gus, wds = [weight(2 * f, d) for _ in range(4)], [weight(d, f) for _ in range(4)]
+    out["K6d M=1"] = time_ms(torch, [lambda gu_=gu, wd_=wd: fused_ffn_norm_cuda(
+        x, gamma, gu_, wd_, 1e-5) for gu, wd in zip(gus, wds)], 50)[0]
     return {k: v * 1e3 for k, v in out.items()}           # device us
 
 

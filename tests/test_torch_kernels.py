@@ -24,6 +24,10 @@ of the kernel's own k_cur / v_cur bit for bit. Training: K10f's O equals K3's
 bit for bit and its LSE the plain one within 1e-5 * max; K10dq within 1e-5 *
 max|dQ|; K10dkv's bf16 dK / dV within one bf16 ulp per element of the plain
 versions on the same inputs; K11 within K2's bound with N in K's place.
+The whole-stack megacalls K14 / K15 hold 1e-5 * max|out| once per layer with
+f32 operands (each layer hands its summation-order difference on) and 1e-2
+with K15's bf16 operands (an operand the two sum in another order rounds to
+either bf16 neighbour; tests/test_torch_tapekernel.py).
 """
 import numpy as np
 import pytest
@@ -649,3 +653,117 @@ def test_fused_chain_kernel_chains_and_dispatch(cuda):
     torch.cuda.synchronize()
     assert global_profile.tier_summary()["fused_chain"] == {"cuda": 2}
     torch.testing.assert_close(gx, wx, rtol=0, atol=0)
+
+
+# -- the whole-stack decode megacalls: K14 (f32 operands) and K15 (bf16 ones) --
+
+# K14 / K15 against their plain versions: with f32 operands K7's and K6d's
+# bound once per layer (each layer hands its f32 summation-order difference on
+# to the next); with bf16 ones both round each operand row to bf16, and a value
+# the two sum in another order can round to either neighbour, so the bound is
+# that of tests/test_torch_tapekernel.py
+MEGA_REL_PER_LAYER = 1e-5
+TAPE_BF16_RTOL = 1e-2
+
+
+def _stack(rng, n_layers, hq, hkv, hd, f, device):
+    from zgml_tpu_torch.ops.stackkernel import StackedLayers
+    d = hq * hd
+
+    def norm():
+        return torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(device)
+    layers = [{"attn_norm": norm(), "ffn_norm": norm(),
+               "wqkv": _weight(rng, (hq + 2 * hkv) * hd, d, device),
+               "wo": _weight(rng, d, hq * hd, device),
+               "w_gate_up": _weight(rng, 2 * f, d, device), "w_down": _weight(rng, d, f, device)}
+              for _ in range(n_layers)]
+    return StackedLayers(layers, hq, hkv, 1e-5)
+
+
+STACK_CASES = [
+    (4, 32, 4, 64, 5632, 2048, 2047),     # TinyLlama-1.1B widths
+    (3, 32, 4, 64, 5632, 2048, 0),        # pos 0: phase B empty
+    (2, 32, 32, 128, 11008, 256, 200),    # Llama-2-7B widths: hd 128, MHA
+    (2, 8, 2, 128, 768, 300, 257),        # S not a multiple of the chunk
+    (2, 16, 4, 32, 1024, 130, 129),       # K14's smallest head dim
+    (2, 4, 4, 256, 512, 64, 33)]          # the largest
+
+
+@pytest.mark.parametrize("mode,n_layers,hq,hkv,hd,f,s,pos", [
+    (mode, *case) for mode in ("stack", "tape", "tape_f32") for case in STACK_CASES
+    if mode != "tape" or case[3] in (64, 128, 256)])    # K15: the JAX tape's head dims
+def test_stack_decode(cuda, mode, n_layers, hq, hkv, hd, f, s, pos):
+    """K14 and K15 (both modes) against their plain versions: x_out, k_cur and
+    v_cur within MEGA_REL_PER_LAYER * L * max|out| with f32 operands,
+    TAPE_BF16_RTOL * max|out| with bf16 ones; every layer's cache row pos is
+    the kernel's own k_cur / v_cur in bf16 (with f32 operands within one bf16
+    ulp of the plain version's row, or the bound near 0), and no other row
+    changes."""
+    from zgml_tpu_torch.ops.stackkernel import stacked_decode_cuda, stacked_decode_ref
+    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda, tape_decode_ref
+    rng = np.random.default_rng(pos + hd + n_layers)
+    stack = _stack(rng, n_layers, hq, hkv, hd, f, cuda)
+    d = hq * hd
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    ck = torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cv = torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    ck_r, cv_r = ck.clone(), cv.clone()
+    if mode == "stack":
+        got = stacked_decode_cuda(x, stack, ck, cv, pos_t, cos, sin)
+        want = stacked_decode_ref(x, stack, ck_r, cv_r, pos, cos, sin)
+    else:
+        tape = Tape(stack, ())
+        got = tape_decode_cuda(x, tape, ck, cv, pos_t, cos, sin, bf16=mode == "tape")
+        want = tape_decode_ref(x, tape, ck_r, cv_r, pos, cos, sin, bf16=mode == "tape")
+    torch.cuda.synchronize()
+    assert got[1].shape == want[1].shape == (n_layers, hkv, hd)
+    rtol = TAPE_BF16_RTOL if mode == "tape" else MEGA_REL_PER_LAYER * n_layers
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=0, atol=rtol * float(b.abs().max()))
+    assert torch.equal(ck[:, 0, :, pos], got[1].to(torch.bfloat16))
+    assert torch.equal(cv[:, 0, :, pos], got[2].to(torch.bfloat16))
+    if mode != "tape":
+        for c, c_r in ((ck, ck_r), (cv, cv_r)):
+            row, row_r = c[:, 0, :, pos].double(), c_r[:, 0, :, pos].double()
+            tol = torch.clamp(bf16_ulp(row_r), min=rtol * float(row_r.abs().max()))
+            assert bool(((row - row_r).abs() <= tol).all())
+    rows = torch.arange(s, device=cuda) != pos
+    assert torch.equal(ck[:, :, :, rows], ck_r[:, :, :, rows])
+    assert torch.equal(cv[:, :, :, rows], cv_r[:, :, :, rows])
+
+
+def test_stack_decode_dispatch_and_head_dims(cuda, monkeypatch):
+    """dispatch.stacked_decode / tape_decode launch K14 / K15 (tape_decode_f32
+    under ZGML_TPU_TAPE_BF16=0), force_ref() their plain versions; a head dim
+    without an instantiation raises NotImplementedError, never falls back."""
+    from zgml_tpu_torch.ops.tapekernel import Tape
+    rng = np.random.default_rng(3)
+    stack = _stack(rng, 2, 8, 2, 64, 256, cuda)
+    tape = Tape(stack, ())
+    ck = torch.zeros((2, 1, 2, 64, 64), dtype=torch.bfloat16, device=cuda)
+    cv = torch.zeros_like(ck)
+    x = torch.ones((1, 1, 512), device=cuda)
+    cos, sin = refs.rope_cos_sin(torch.tensor([5], device=cuda), 64)
+    pos = torch.tensor([5], dtype=torch.int32, device=cuda)
+    global_profile.reset()
+    dispatch.stacked_decode(x, stack, ck, cv, pos, cos, sin)
+    dispatch.tape_decode(x, tape, ck, cv, pos, cos, sin)
+    monkeypatch.setenv("ZGML_TPU_TAPE_BF16", "0")
+    dispatch.tape_decode(x, tape, ck, cv, pos, cos, sin)
+    with dispatch.force_ref():
+        dispatch.stacked_decode(x, stack, ck, cv, pos, cos, sin)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"stack_decode": {"cuda": 1, "ref": 1},
+                                             "tape_decode": {"cuda": 1},
+                                             "tape_decode_f32": {"cuda": 1}}
+    wide = _stack(rng, 1, 2, 1, 288, 64, cuda)
+    ck2 = torch.zeros((1, 1, 1, 8, 288), dtype=torch.bfloat16, device=cuda)
+    cos2, sin2 = refs.rope_cos_sin(torch.tensor([1], device=cuda), 288)
+    with pytest.raises(NotImplementedError, match="head_dim 288"):
+        dispatch.stacked_decode(torch.ones((1, 1, 576), device=cuda), wide, ck2, ck2.clone(),
+                                pos.clone().fill_(1), cos2, sin2)

@@ -3,7 +3,7 @@
 The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
-the card. The *path* follows eight of the JAX package's own variables, with
+the card. The *path* follows eleven of the JAX package's own variables, with
 its defaults, read at call time (the port is eager):
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
@@ -13,7 +13,8 @@ its defaults, read at call time (the port is eager):
   ZGML_TPU_I8DOT=0                i8dot()              no int8-activation tier K1/K5:
                                                        f32-dequant K2 at every M (default 1)
   ZGML_TPU_KERNELS_DISABLE=a,b    kernels_disabled()   names of kernels turned off; the port
-                                                       reads "fused_ffn" (K6) and "rmsnorm"
+                                                       reads "fused_ffn" (K6), "rmsnorm",
+                                                       "stack_decode" (K14), "tape_decode" (K15)
   ZGML_TPU_KERNELS_FORCE=a,b      kernels_forced()     opt-in kernels of ops that run plain
                                                        torch by default; the port reads
                                                        "rmsnorm" (K12)
@@ -25,6 +26,15 @@ its defaults, read at call time (the port is eager):
                                                        ported, so an int8-cache run refuses it
   ZGML_TPU_LAYER_FFN=1            layer_ffn()          the FFN as K7's phase E (default off):
                                                        the port runs its function, K6d's
+  ZGML_TPU_STACK_DECODE=1         stack_decode()       batch-1 decode through K14, one launch
+                                                       per token for the whole stack, where
+                                                       LlamaModel.enable_stacked_decode()
+                                                       attached its view (default off)
+  ZGML_TPU_TAPE_DECODE=1          tape_decode()        the same through K15, where
+                                                       enable_tape_decode() attached its view;
+                                                       taken before K14 (default off)
+  ZGML_TPU_TAPE_BF16=0            tape_bf16()          K15 with f32 operands (default 1:
+                                                       bf16-rounded operands and weights)
 
 The two i8a flags take the JAX package's padded width of the weight, which
 the port computes from its unpadded one (padded_k). The port reads no other
@@ -113,6 +123,23 @@ def layer_ffn() -> bool:
     N-packed FFN, whatever ZGML_TPU_FFN_I8A says (layerkernel.py:762-765).
     The port runs that function as K6d after K7 (models/llama._ffn)."""
     return os.environ.get("ZGML_TPU_LAYER_FFN", "0") == "1"
+
+
+def stack_decode() -> bool:
+    """The all-layers decode megacall K14 (zgml_tpu/config.py:125-130)."""
+    return _flag("ZGML_TPU_STACK_DECODE", "0")
+
+
+def tape_decode() -> bool:
+    """The tape-streamed whole-stack decode megacall K15
+    (zgml_tpu/config.py:108-116)."""
+    return _flag("ZGML_TPU_TAPE_DECODE", "0")
+
+
+def tape_bf16() -> bool:
+    """K15's bf16 operands (zgml_tpu/config.py:119-122); "0" makes every
+    operand f32."""
+    return _flag("ZGML_TPU_TAPE_BF16", "1")
 
 
 def refuse_attn_i8pv():

@@ -45,153 +45,20 @@
 // So the weights are read ceil(M / MR) times, not M times. Rows, warps and
 // the order of every sum are fixed: no float atomics, the result does not
 // change from run to run, and a row's sums run in the same order whatever MR.
-#include "common.cuh"
+// The two phases are layer_phases.cuh's, which the whole-stack kernels
+// (stack_decode.cu) run for every layer.
+#include "layer_phases.cuh"
 
 namespace {
-
-constexpr int FFN_THREADS = 512;
-constexpr int FFN_WARPS = FFN_THREADS / 32;
-
-struct FfnParams {
-  const float* x;          // [M, D]
-  const float* g;          // [D]
-  const uint8_t* gu_qs;    // [2F, D/32 * BYTES]
-  const __half* gu_d;      // [2F, D/32]
-  const uint8_t* dn_qs;    // [D, F/32 * BYTES]
-  const __half* dn_d;      // [D, F/32]
-  float* y;                // [M, D]
-  float* act;              // [M, F] scratch
-  unsigned int* bar;       // grid-barrier words
-  int8_t* xq_out;          // [M, D] or null: K6c's activations, for checks
-  float* xs_out;           // [M, D/32] or null: their scales
-  int M, D, F;
-  float eps;
-};
-
-// Shared floats per staged row: [max(D, F)/32][33].
-__host__ __device__ inline size_t ffn_row_floats(int D, int F) {
-  return (size_t)(D > F ? D : F) / 32 * 33;
-}
-
-// R weight rows against the MR x rows staged at xs + m * stride ([K/32][33]
-// each): lane l takes blocks l, l+32, ...; each block is loaded and each of
-// its levels converted once, and dotted with every x row in block_dot_f32's
-// order.
-template <class F, int R, int MR>
-__device__ __forceinline__ void rows_f32_mr(const uint8_t* const (&qs)[R],
-                                            const __half* const (&d)[R], const float* xs,
-                                            int stride, int nblk, int lane,
-                                            float (&acc)[R][MR]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int m = 0; m < MR; ++m) acc[r][m] = 0.f;
-  for (int b = lane; b < nblk; b += 32) {
-    uint32_t w[R][F::WORDS];
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      load_block<F>(qs[r], b, w[r]);
-      s[r] = __half2float(d[r][b]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float sum[MR];
-#pragma unroll
-      for (int m = 0; m < MR; ++m) sum[m] = 0.f;
-#pragma unroll
-      for (int t = 0; t < 32; ++t) {
-        const int j = F::elem(t);
-        const float v = F::level(w[r], j);
-#pragma unroll
-        for (int m = 0; m < MR; ++m) sum[m] = fmaf(v, xs[(size_t)m * stride + b * 33 + j], sum[m]);
-      }
-#pragma unroll
-      for (int m = 0; m < MR; ++m) acc[r][m] = fmaf(sum[m], s[r], acc[r][m]);
-    }
-  }
-}
 
 template <class F, int MR, bool I8>
 __global__ void __launch_bounds__(FFN_THREADS) ffn_norm_kernel(FfnParams p) {
   extern __shared__ __align__(16) float smem[];
-  float* red = smem;                       // 32 floats
-  float* xs = smem + 32;                   // MR rows of [max(D, F)/32][33]
-  const int stride = (int)ffn_row_floats(p.D, p.F);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gwarp = blockIdx.x * FFN_WARPS + warp;
-  const int nwarps = gridDim.x * FFN_WARPS;
-  const int nbD = p.D / 32, nbF = p.F / 32;
-  int* xq = reinterpret_cast<int*>(xs);    // K6c: MR rows of [D/32][XQ_WORDS] words,
-  float* xsc = xs + MR * nbD * XQ_WORDS;   // then MR rows of [D/32] scales
-
   for (int m0 = 0; m0 < p.M; m0 += MR) {
     const int rows = p.M - m0 < MR ? p.M - m0 : MR;
-    for (int m = 0; m < MR; ++m) {         // rows past the group's end stay 0
-      const size_t row = (size_t)(m0 + m);
-      if constexpr (I8) {
-        if (m < rows) {
-          stage_rmsnorm_i8(p.x + row * p.D, p.g, p.D, p.eps, xq + m * nbD * XQ_WORDS,
-                           xsc + m * nbD, red, p.xq_out ? p.xq_out + row * p.D : nullptr,
-                           p.xs_out ? p.xs_out + row * nbD : nullptr);
-        } else {
-          for (int i = threadIdx.x; i < nbD * XQ_WORDS; i += blockDim.x)
-            xq[m * nbD * XQ_WORDS + i] = 0;
-          for (int i = threadIdx.x; i < nbD; i += blockDim.x) xsc[m * nbD + i] = 0.f;
-        }
-      } else if (m < rows) {
-        stage_rmsnorm(p.x + row * p.D, p.g, p.D, p.eps, xs + (size_t)m * stride, red);
-      } else {
-        for (int i = threadIdx.x; i < nbD * 33; i += blockDim.x)
-          xs[(size_t)m * stride + i] = 0.f;
-      }
-    }
-    __syncthreads();
-    for (int f = gwarp; f < p.F; f += nwarps) {
-      const uint8_t* qs[2] = {p.gu_qs + (size_t)f * nbD * F::BYTES,
-                              p.gu_qs + (size_t)(p.F + f) * nbD * F::BYTES};
-      const __half* dd[2] = {p.gu_d + (size_t)f * nbD, p.gu_d + (size_t)(p.F + f) * nbD};
-      float acc[2][MR];
-      if constexpr (I8) {
-        rows_i8<F, 2, MR>(qs, dd, xq, nbD * XQ_WORDS, xsc, nbD, nbD, lane, acc);
-      } else {
-        rows_f32_mr<F, 2, MR>(qs, dd, xs, stride, nbD, lane, acc);
-      }
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float gate = warp_sum(acc[0][m]);
-        const float up = warp_sum(acc[1][m]);
-        if (lane == 0 && m < rows) {
-          const float sig = 1.0f / (1.0f + expf(-gate));
-          p.act[(size_t)(m0 + m) * p.F + f] = (gate * sig) * up;
-        }
-      }
-    }
+    ffn_phase_gu<F, MR, I8, false>(p, m0, rows, smem);
     grid_barrier(p.bar);
-
-    for (int m = 0; m < MR; ++m) {
-      if (m < rows) {
-        stage_padded(p.act + (size_t)(m0 + m) * p.F, p.F, xs + (size_t)m * stride);
-      } else {
-        for (int i = threadIdx.x; i < nbF * 33; i += blockDim.x)
-          xs[(size_t)m * stride + i] = 0.f;
-      }
-    }
-    __syncthreads();
-    for (int j = gwarp; j < p.D; j += nwarps) {
-      const uint8_t* qs[1] = {p.dn_qs + (size_t)j * nbF * F::BYTES};
-      const __half* dd[1] = {p.dn_d + (size_t)j * nbF};
-      float acc[1][MR];
-      rows_f32_mr<F, 1, MR>(qs, dd, xs, stride, nbF, lane, acc);
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float s = warp_sum(acc[0][m]);
-        if (lane == 0 && m < rows) {
-          const size_t o = (size_t)(m0 + m) * p.D + j;
-          p.y[o] = p.x[o] + s;
-        }
-      }
-    }
+    ffn_phase_down<F, MR, false>(p, m0, rows, smem);
     __syncthreads();                       // xs is restaged for the next group
   }
 }

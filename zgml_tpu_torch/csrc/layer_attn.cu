@@ -64,189 +64,30 @@
 //      (no grid barrier more: phase B has read every row below pos);
 //   C. a warp-per-row GEMV over Wo against att in shared memory, plus the
 //      residual.
-// With pos = 0 phase B is empty and att = v_cur. No float atomics.
-#include "decode_split.cuh"
+// With pos = 0 phase B is empty and att = v_cur. No float atomics. The phases
+// are layer_phases.cuh's, which the whole-stack kernels (stack_decode.cu) run
+// for every layer.
+#include "layer_phases.cuh"
 
 namespace {
 
-constexpr int LK_THREADS = 512;
-constexpr int LK_WARPS = LK_THREADS / 32;
-
-struct LayerParams {
-  const float* x;            // [d]
-  const float* g;            // [d] attn_norm
-  const uint8_t* wqkv_qs;    // [(hq + 2 hkv) hd, d/32 * BYTES]
-  const __half* wqkv_d;      // [(hq + 2 hkv) hd, d/32]
-  const uint8_t* wo_qs;      // [d, hq hd / 32 * BYTES]
-  const __half* wo_d;        // [d, hq hd / 32]
-  const float* cos;          // [hd/2] at pos
-  const float* sin;          // [hd/2]
-  void* ck;                  // layer li's slab [hkv, S, hd]: bf16, or int8 levels (kv8)
-  void* cv;
-  float* cks;                // kv8: layer li's scales [hkv, S]
-  float* cvs;
-  const int* pos;            // [1], device
-  float* x_out;              // [d]
-  float* kv_cur;             // [2, hkv, hd]: rotated k, then v
-  float* q;                  // [hq, hd] scratch
-  float* att;                // [hq, hd] scratch
-  float* part;               // [hq, n_split, hd + 2] scratch
-  unsigned int* bar;         // grid-barrier words
-  int8_t* xq_out;            // [d] or null: a_i8's activations, for checks
-  float* xs_out;             // [d/32] or null: their scales
-  int8_t* qq_out;            // kv8: [hq, hd] or null: the quantized q, for checks
-  float* qs_out;             // [hq] or null: its scales
-  int d, hq, hkv, S, n_split;
-  float eps, scale;
-};
-
 template <class F, int D, bool AI8, bool KV8>
 __global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
   extern __shared__ __align__(16) float smem[];
-  constexpr int HALF = D / 2;
-  float* red = smem;                       // 32 floats
-  float* xs = smem + 32;                   // phases A and C: [K/32][33]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gwarp = blockIdx.x * LK_WARPS + warp;
-  const int nwarps = gridDim.x * LK_WARPS;
-  const int pos = __ldg(p.pos);
-  const int n_rep = p.hq / p.hkv;
-  const int nq = p.hq * D;
-
-  // -- A: rmsnorm, QKV in RoPE pairs, rotate, emit q / k_cur / v_cur ---------
-  const int nbd = p.d / 32;
-  int* xq = reinterpret_cast<int*>(xs);    // a_i8: [d/32][XQ_WORDS] words, then
-  float* xsc = xs + nbd * XQ_WORDS;        // [d/32] scales, inside xs's area
-  if constexpr (AI8) {
-    stage_rmsnorm_i8(p.x, p.g, p.d, p.eps, xq, xsc, red, p.xq_out, p.xs_out);
-  } else {
-    stage_rmsnorm(p.x, p.g, p.d, p.eps, xs, red);
-  }
-  const int n_pairs = (p.hq + 2 * p.hkv) * HALF;
-  for (int t = gwarp; t < n_pairs; t += nwarps) {
-    const int h = t / HALF, i = t % HALF;
-    const int r1 = h * D + i, r2 = r1 + HALF;
-    const uint8_t* qs[2] = {p.wqkv_qs + (size_t)r1 * nbd * F::BYTES,
-                            p.wqkv_qs + (size_t)r2 * nbd * F::BYTES};
-    const __half* dd[2] = {p.wqkv_d + (size_t)r1 * nbd, p.wqkv_d + (size_t)r2 * nbd};
-    float acc[2];
-    if constexpr (AI8) {
-      float a[2][1];
-      rows_i8<F, 2, 1>(qs, dd, xq, 0, xsc, 0, nbd, lane, a);
-      acc[0] = a[0][0];
-      acc[1] = a[1][0];
-    } else {
-      rows_f32<F, 2>(qs, dd, xs, nbd, lane, acc);
-    }
-    float o1 = warp_sum(acc[0]), o2 = warp_sum(acc[1]);
-    if (lane == 0) {
-      if (h < p.hq + p.hkv) {              // q and k heads: x*[c,c] + rot(x)*[-s,s]
-        const float c = p.cos[i], s = p.sin[i];
-        const float y1 = o1, y2 = o2;
-        o1 = __fsub_rn(__fmul_rn(y1, c), __fmul_rn(y2, s));
-        o2 = __fadd_rn(__fmul_rn(y2, c), __fmul_rn(y1, s));
-      }
-      if (h < p.hq) {
-        p.q[h * D + i] = o1;
-        p.q[h * D + i + HALF] = o2;
-      } else {
-        const int kvh = h - p.hq;          // 0..hkv-1: k heads, hkv..2hkv-1: v heads
-        p.kv_cur[kvh * D + i] = o1;
-        p.kv_cur[kvh * D + i + HALF] = o2;
-        if constexpr (!KV8) {                // kv8: quantized after the combine
-          __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
-          const size_t row = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
-          cache[row + i] = __float2bfloat16_rn(o1);
-          cache[row + i + HALF] = __float2bfloat16_rn(o2);
-        }
-      }
-    }
-  }
+  attn_phase_a<F, D, AI8, KV8, false>(p, smem);
   grid_barrier(p.bar);
-
-  // -- B: split-KV partials over the cache rows below pos --------------------
-  const int n_live = (pos + DA_CHUNK - 1) / DA_CHUNK;
-  const size_t head_stride = (size_t)p.n_split * (D + 2);
-  for (int item = blockIdx.x; item < p.hkv * n_live; item += gridDim.x) {
-    const int hk = item / n_live, split = item % n_live;
-    const int c0 = split * DA_CHUNK;
-    const size_t pos0 = (size_t)hk * p.S + c0;
-    decode_chunk_partial<D, LK_THREADS, T>(
-        p.q + (size_t)hk * n_rep * D, static_cast<const T*>(p.ck) + pos0 * D,
-        KV8 ? p.cks + pos0 : nullptr, static_cast<const T*>(p.cv) + pos0 * D,
-        KV8 ? p.cvs + pos0 : nullptr, min(DA_CHUNK, pos - c0), n_rep, p.scale,
-        p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2), head_stride, smem);
-  }
+  attn_phase_b<D, KV8>(p, smem);
   grid_barrier(p.bar);
-
-  // -- combine the chunks with the self column -------------------------------
-  for (int h = gwarp; h < p.hq; h += nwarps) {
-    const int hk = h / n_rep;
-    const float* qh = p.q + (size_t)h * D;
-    const float* kc = p.kv_cur + (size_t)hk * D;
-    const float* vc = p.kv_cur + (size_t)(p.hkv + hk) * D;
-    float dot = 0.f;
-    for (int c = lane; c < D; c += 32) dot = fmaf(__ldcg(qh + c), __ldcg(kc + c), dot);
-    const float s_self = warp_sum(dot) * p.scale;
-    const float* ph = p.part + (size_t)h * head_stride;
-    float mx = s_self;
-    for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, __ldcg(ph + s * (D + 2) + D));
-    float num[D / 32], den = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) num[j] = 0.f;
-    for (int s = 0; s < n_live; ++s) {
-      const float* ps = ph + s * (D + 2);
-      const float w = expf(__ldcg(ps + D) - mx);
-      den = fmaf(w, __ldcg(ps + D + 1), den);
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) num[j] = fmaf(w, __ldcg(ps + lane + 32 * j), num[j]);
-    }
-    const float w = expf(s_self - mx);
-    den += w;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) {
-      const float o = fmaf(w, __ldcg(vc + lane + 32 * j), num[j]);
-      p.att[(size_t)h * D + lane + 32 * j] = o / den;
-    }
-  }
-  if constexpr (KV8) {
-    // row pos of the int8 cache: k_cur then v_cur of each KV head, quantized
-    for (int t = gwarp; t < 2 * p.hkv; t += nwarps) {
-      const size_t at = (size_t)(t % p.hkv) * p.S + pos;
-      quantize_vec<D>(p.kv_cur + (size_t)t * D, static_cast<int8_t*>(t < p.hkv ? p.ck : p.cv) +
-                      at * D, (t < p.hkv ? p.cks : p.cvs) + at, lane);
-    }
-    if (p.qq_out != nullptr)
-      for (int h = gwarp; h < p.hq; h += nwarps)
-        quantize_vec<D>(p.q + (size_t)h * D, p.qq_out + (size_t)h * D, p.qs_out + h, lane);
-  }
+  attn_combine<D, KV8>(p);
   grid_barrier(p.bar);
-
-  // -- C: x_out = x + att @ Wo^T ----------------------------------------------
-  stage_padded(p.att, nq, xs);
-  __syncthreads();
-  const int nbq = nq / 32;
-  for (int n = gwarp; n < p.d; n += nwarps) {
-    const uint8_t* qs[1] = {p.wo_qs + (size_t)n * nbq * F::BYTES};
-    const __half* dd[1] = {p.wo_d + (size_t)n * nbq};
-    float acc[1];
-    rows_f32<F, 1>(qs, dd, xs, nbq, lane, acc);
-    const float s = warp_sum(acc[0]);
-    if (lane == 0) p.x_out[n] = p.x[n] + s;
-  }
+  attn_phase_c<F, D, false>(p, smem);
 }
 
 template <class F, int D, bool AI8, bool KV8>
 int launch(const LayerParams& p, cudaStream_t st) {
-  const int n_rep = p.hq / p.hkv;
-  const int k_max = p.d > p.hq * D ? p.d : p.hq * D;
-  size_t smem = sizeof(float) * (32 + (size_t)k_max / 32 * 33);
-  const size_t smem_b = decode_chunk_smem_bytes<D, KV8>(n_rep);
-  if (smem_b > smem) smem = smem_b;
+  const size_t smem = attn_smem_bytes<D, KV8>(p.d, p.hq, p.hkv);
   // enough warps for the widest warp-per-row phase (A's pairs or C's rows)
-  const int n_pairs = (p.hq + 2 * p.hkv) * (D / 2);
-  const int max_blocks = ((n_pairs > p.d ? n_pairs : p.d) + LK_WARPS - 1) / LK_WARPS;
+  const int max_blocks = (attn_max_warps<D>(p.d, p.hq, p.hkv) + LK_WARPS - 1) / LK_WARPS;
   return launch_cooperative(layer_attn_kernel<F, D, AI8, KV8>, LK_THREADS, smem, max_blocks, p,
                             st);
 }

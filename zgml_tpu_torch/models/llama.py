@@ -19,7 +19,14 @@ stacked cache, chosen as the JAX package chooses them (config.py flags):
     (rmsnorm, the f32 fused FFN K6b, the residual; llama.py:326-340) and one
     K6a launch at Q8_0 (the same function), else composed;
   - `_head_out` (llama.py:517-543): greedy through K5 when it applies, else
-    the argmax over the logits.
+    the argmax over the logits;
+  - the opt-in whole-stack megacalls (llama.py:753-771): a batch-1 decode
+    token over the bf16 cache runs ONE launch for all layers, K15 where
+    ``enable_tape_decode()`` attached its view and ZGML_TPU_TAPE_DECODE is
+    on, else K14 where ``enable_stacked_decode()`` attached its view and
+    ZGML_TPU_STACK_DECODE is on (ZGML_TPU_KERNELS_DISABLE naming either
+    turns it off); a view without its flag changes nothing, and prefill,
+    batch > 1 and the int8 cache never reach them.
 
 Every projection's tier (K1 int8 for M <= 32, or K2) is picked in
 ops/dispatch.qmatmul, at the weight's kind (Q4_0 or Q8_0). GQA, RMSNorm,
@@ -62,6 +69,8 @@ from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import dispatch as ops
 from zgml_tpu_torch.ops import ffn, refs
 from zgml_tpu_torch.ops.layerkernel import attn_block_compatible
+from zgml_tpu_torch.ops.stackkernel import stack_llama_layers
+from zgml_tpu_torch.ops.tapekernel import build_tape
 from zgml_tpu_torch.quant import kv_cache
 from zgml_tpu_torch.quant.packed import PackedWeight, resolve_device
 
@@ -239,6 +248,30 @@ class LlamaModel(torch.nn.Module):
     def device(self) -> torch.device:
         return self.params["tok_embd"].device
 
+    def enable_stacked_decode(self) -> bool:
+        """Attach the K14 view (ops/stackkernel.py StackedLayers, a pointer
+        table over the resident weights, no copy) as params["layers_stacked"]
+        and return True, or return False and attach nothing where the JAX
+        package's enable_stacked_decode does (llama.py:591-604). Decode takes
+        it under ZGML_TPU_STACK_DECODE=1."""
+        stacked = stack_llama_layers(self.params, self.cfg)
+        if stacked is None:
+            return False
+        self.params["layers_stacked"] = stacked
+        return True
+
+    def enable_tape_decode(self) -> bool:
+        """Attach the K15 view (ops/tapekernel.py Tape, over the same kind of
+        pointer table) as params["layers_tape"] and return True, or return
+        False and attach nothing where the JAX package's enable_tape_decode
+        does (llama.py:606-620). Decode takes it under
+        ZGML_TPU_TAPE_DECODE=1."""
+        tape = build_tape(self.params, self.cfg)
+        if tape is None:
+            return False
+        self.params["layers_tape"] = tape
+        return True
+
     def init_cache(self, batch: int, dtype: str = "bf16") -> dict:
         """The stacked KV cache: "bf16", or "int8" (quant/kv_cache.py, as
         the JAX package's init_cache(batch, "int8"), llama.py:659-692)."""
@@ -251,6 +284,17 @@ class LlamaModel(torch.nn.Module):
             raise ValueError(f"cache dtype {dtype!r}: want 'bf16' or 'int8'")
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=self.device)}
+
+    def _megacall(self):
+        """(dispatch function, view) of the whole-stack megacall a batch-1
+        decode token over the bf16 cache takes, or None: the tape first, as
+        llama.py:753-771."""
+        tape, stack = self.params.get("layers_tape"), self.params.get("layers_stacked")
+        if tape is not None and ops.megacall_enabled("tape_decode"):
+            return ops.tape_decode, tape
+        if stack is not None and ops.megacall_enabled("stack_decode"):
+            return ops.stacked_decode, stack
+        return None
 
     def body(self, tokens: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
         """tokens int [B, T] at positions pos.. -> hidden states f32 [B, T, D]
@@ -270,6 +314,11 @@ class LlamaModel(torch.nn.Module):
         positions = torch.arange(pos, pos + t, device=x.device)
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
         decode = t == 1
+        mega = self._megacall() if decode and b == 1 and not kv8 else None
+        if mega is not None:
+            run, view = mega
+            pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+            return run(x, view, ck, cv, pos_t, cos, sin)[0]
         layers = self.params["layers"]
         fused = [decode and config.attn_block() and isinstance(ly["wo"], PackedWeight)
                  and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))

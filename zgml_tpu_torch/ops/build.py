@@ -36,8 +36,8 @@ from zgml_tpu_torch import config
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
            "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "flash_bwd.cu",
-           "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu")
-HEADERS = ("common.cuh", "decode_split.cuh")
+           "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
+HEADERS = ("common.cuh", "decode_split.cuh", "layer_phases.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,6 +60,7 @@ _SIGNATURES = {
     "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P),
     "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _P),
     "zgml_fused_chain": (_P, _P, _LL, _I, _P, _P, _P, _P, _P, _I, _P),
+    "zgml_stack_decode": (_I, *(_P,) * 16, *(_I,) * 7, _F, _F, _P),
 }
 
 

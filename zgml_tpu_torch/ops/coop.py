@@ -1,4 +1,5 @@
-"""Workspace of the cooperative kernels (K6d csrc/ffn.cu, K7 csrc/layer_attn.cu).
+"""Workspace of the cooperative kernels (K6 csrc/ffn.cu, K7 csrc/layer_attn.cu,
+K14 / K15 csrc/stack_decode.cu).
 
 Their grid barrier (csrc/common.cuh grid_barrier) spins on two uint32 words
 that start at 0 and that every launch leaves at (0, generation). Launches on

@@ -5,7 +5,8 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
   tier of an op, from the device of its tensors and nothing else:
     cuda  -> the hand-written kernel (ops/qmatmul.py, ops/attention.py,
              ops/ffn.py, ops/layerkernel.py, ops/flash_vjp.py, ops/rmsnorm.py,
-             ops/elementwise.py); a kernel that cannot build or launch
+             ops/elementwise.py, ops/stackkernel.py, ops/tapekernel.py); a
+             kernel that cannot build or launch
              raises, it never falls back
     cpu   -> the plain torch version
     other -> NotImplementedError
@@ -43,7 +44,9 @@ decode_attention_q8 = K8, the JAX package's names; flash_fwd = K10f,
 flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
 K11q8; matmul for a dense projection; rmsnorm = K12 under
 ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
-fused_chain = K13, the graph tier's fused chains): a kernel's count is
+fused_chain = K13, the graph tier's fused chains; stack_decode = K14 and
+tape_decode = K15, tape_decode_f32 under ZGML_TPU_TAPE_BF16=0, the
+whole-stack decode megacalls): a kernel's count is
 added where it launches, a plain call's here. The cache's dtype picks K3/K4
 or K9/K8 in the model, and K7's cache mode here.
 """
@@ -57,6 +60,7 @@ import torch
 from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import attention, ffn, flash_vjp, layerkernel, qmatmul as _qmm, refs
 from zgml_tpu_torch.ops import elementwise as _chain, rmsnorm as _rmsnorm
+from zgml_tpu_torch.ops import stackkernel, tapekernel
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -290,3 +294,38 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     _device_of(x, cos, sin)
     global_profile.count_op("rope", "torch")
     return refs.rope_apply(x, cos, sin)
+
+
+def megacall_enabled(name: str) -> bool:
+    """Whether the whole-stack decode megacall `name` ("stack_decode", K14, or
+    "tape_decode", K15) may run: its flag on and ZGML_TPU_KERNELS_DISABLE not
+    naming it, as the JAX package's use_pallas(name) (zgml_tpu/ops/
+    dispatch.py:41-52). A disabled megacall runs the per-layer path (the
+    model's choice), not its plain version; force_ref() keeps the path and
+    runs the plain versions."""
+    flag = config.tape_decode if name == "tape_decode" else config.stack_decode
+    return flag() and name not in config.kernels_disabled()
+
+
+def stacked_decode(x, stack, ck, cv, pos, cos, sin):
+    """K14: one batch-1 decode token through every layer of `stack`
+    (ops/stackkernel.py StackedLayers) over the stacked bf16 cache, written
+    in place at pos; returns (x_out, k_cur [L, Hkv, hd], v_cur). No backward:
+    the JAX package has no VJP for it."""
+    _refuse_grad("stacked_decode (K14)", x, cos, sin)
+    if _use_kernel(x, ck, cv, stack.table):
+        return stackkernel.stacked_decode_cuda(x, stack, ck, cv, pos, cos, sin)
+    global_profile.count_op("stack_decode", "ref")
+    return stackkernel.stacked_decode_ref(x, stack, ck, cv, pos, cos, sin)
+
+
+def tape_decode(x, tape, ck, cv, pos, cos, sin):
+    """K15: stacked_decode's contract over `tape` (ops/tapekernel.py Tape),
+    with bf16 operands unless ZGML_TPU_TAPE_BF16=0 (counted under
+    tape_decode_f32 then). No backward, as K14."""
+    _refuse_grad("tape_decode (K15)", x, cos, sin)
+    bf16 = config.tape_bf16()
+    if _use_kernel(x, ck, cv, tape.stack.table):
+        return tapekernel.tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16)
+    global_profile.count_op(tapekernel.counter(bf16), "ref")
+    return tapekernel.tape_decode_ref(x, tape, ck, cv, pos, cos, sin, bf16)

@@ -64,19 +64,20 @@ def ffn_fuses(d_model: int, d_ff: int, kind: str, after_attn_block: bool) -> boo
 
 def fused_ffn_norm_ref(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
                        wd: PackedWeight, eps: float, a_i8: bool = False,
-                       act=None) -> torch.Tensor:
+                       act=None, mm=refs.qmatmul_ref) -> torch.Tensor:
     """x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * gamma; x f32 [..., D].
     a_i8 (K6c): gate|up as K1's int8 block dots on `act` = (xq, xs) when
-    given, else on rmsnorm_quantize_ref's."""
+    given, else on rmsnorm_quantize_ref's. mm(x, W) computes the f32
+    projections (K15's plain version passes its bf16-operand one)."""
     if a_i8:
         xq, xs = rmsnorm_quantize_ref(x, gamma, eps) if act is None else act
         d = x.shape[-1]
         g_u = i8_dot_ref(xq.reshape(-1, d), xs.reshape(-1, d // 32), gu)
         g_u = g_u.reshape(*x.shape[:-1], gu.n)
     else:
-        g_u = refs.qmatmul_ref(refs.rmsnorm(x, gamma, eps), gu)
+        g_u = mm(refs.rmsnorm(x, gamma, eps), gu)
     f = gu.n // 2
-    return x + refs.qmatmul_ref(refs.swiglu(g_u[..., :f], g_u[..., f:]), wd)
+    return x + mm(refs.swiglu(g_u[..., :f], g_u[..., f:]), wd)
 
 
 def fused_ffn_ref(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tensor:

@@ -86,16 +86,17 @@ def _heads(x, wqkv, wo, n_heads, n_kv_heads):
 def attn_block_ref(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                    wo: PackedWeight, ck: torch.Tensor, cv: torch.Tensor, li: int, pos,
                    cos: torch.Tensor, sin: torch.Tensor, n_heads: int, n_kv_heads: int,
-                   eps: float, a_i8: bool = False, act=None, q8=None):
+                   eps: float, a_i8: bool = False, act=None, q8=None, mm=refs.qmatmul_ref):
     """Returns (x_out [1, 1, d], k_cur [1, Hkv, 1, hd] rotated, v_cur), all f32,
     and writes the cache row pos of layer li. a_i8: the int8 A phase, on
     `act` = (xq, xs) when given, else on rmsnorm_quantize_ref's. With the
     int8 cache, q8 = (qq int8 [Hq, hd], qs f32 [Hq]) replaces the plain
-    quantization of q where given."""
+    quantization of q where given. mm(x, W) computes the f32 projections (K15's
+    plain version passes its bf16-operand one, ops/tapekernel.py)."""
     _, hd = _heads(x, wqkv, wo, n_heads, n_kv_heads)
     p = int(pos.reshape(-1)[0]) if isinstance(pos, torch.Tensor) else int(pos)
     nq = n_heads * hd
-    q, k, v = qkv_ref(x, gamma, wqkv, cos, sin, n_heads, n_kv_heads, hd, eps, a_i8, act)
+    q, k, v = qkv_ref(x, gamma, wqkv, cos, sin, n_heads, n_kv_heads, hd, eps, a_i8, act, mm)
     if isinstance(ck, tuple):
         att = _attend_kv8(q, k, v, ck, cv, li, p, hd, q8).reshape(1, 1, nq)
         kv_cache.write(ck, cv, li, p, k, v)
@@ -105,21 +106,21 @@ def attn_block_ref(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
         att = refs.gqa_attention_ref(q, keys, vals).transpose(1, 2).reshape(1, 1, nq)
         ck[li, :, :, p] = k[:, :, 0].to(ck.dtype)
         cv[li, :, :, p] = v[:, :, 0].to(cv.dtype)
-    return x + refs.qmatmul_ref(att, wo), k, v
+    return x + mm(att, wo), k, v
 
 
 def qkv_ref(x, gamma, wqkv: PackedWeight, cos, sin, n_heads: int, n_kv_heads: int, hd: int,
-            eps: float, a_i8: bool = False, act=None):
-    """K7's phase A, plain: rmsnorm, the QKV projection (f32, or with a_i8
-    K1's block dots on `act` or rmsnorm_quantize_ref's activations) and RoPE
-    -> q [1, Hq, 1, hd], k and v [1, Hkv, 1, hd], f32."""
+            eps: float, a_i8: bool = False, act=None, mm=refs.qmatmul_ref):
+    """K7's phase A, plain: rmsnorm, the QKV projection (f32 through mm, or
+    with a_i8 K1's block dots on `act` or rmsnorm_quantize_ref's activations)
+    and RoPE -> q [1, Hq, 1, hd], k and v [1, Hkv, 1, hd], f32."""
     d = x.shape[-1]
     nq, nkv = n_heads * hd, n_kv_heads * hd
     if a_i8:
         xq, xs = rmsnorm_quantize_ref(x, gamma, eps) if act is None else act
         qkv = i8_dot_ref(xq.reshape(1, d), xs.reshape(1, d // 32), wqkv).reshape(1, 1, -1)
     else:
-        qkv = refs.qmatmul_ref(refs.rmsnorm(x, gamma, eps), wqkv)      # [1, 1, n]
+        qkv = mm(refs.rmsnorm(x, gamma, eps), wqkv)                    # [1, 1, n]
     q = qkv[..., :nq].reshape(1, 1, n_heads, hd).transpose(1, 2)
     k = qkv[..., nq:nq + nkv].reshape(1, 1, n_kv_heads, hd).transpose(1, 2)
     v = qkv[..., nq + nkv:].reshape(1, 1, n_kv_heads, hd).transpose(1, 2)

@@ -1,0 +1,181 @@
+"""K14: the all-layers decode megacall and its plain version.
+
+Counterpart of zgml_tpu/ops/stackkernel.py: `stack_llama_layers` (the view
+that LlamaModel.enable_stacked_decode() attaches) and `_stack_kernel` through
+`stacked_decode_step` (pallas_call at line 422), which the JAX package runs
+for a batch-1 decode token over the stacked bf16 cache where the view is
+attached and ZGML_TPU_STACK_DECODE is on (models/llama.py:764-771). It
+computes, for every layer in order, the default K7's function (rmsnorm, the
+QKV projection with the f32 A phase, RoPE, attention over the cache rows
+below pos plus the current token's own f32 K/V, wo, residual) and then K6d's
+(rmsnorm, gate|up, SwiGLU, down, residual), Q4_0 weights, one launch per
+token. It takes the f32 A phase at any width: ZGML_TPU_ATTN_I8A and
+ZGML_TPU_FFN_I8A do not reach it.
+
+The JAX view stacks copies of every layer's weights ([L, ...] arrays, the
+head-major wo3 and N-packed FFN layouts). The port's view, StackedLayers,
+copies no weight: it holds a device table of per-layer pointers into the
+model's one resident copy (g1, g2 and the qs / d planes of wqkv, wo,
+w_gate_up, w_down) and references to the tensors behind them, so it must be
+rebuilt if the params are replaced. `stack_llama_layers` attaches it exactly
+where the JAX package's returns a view (see q4_views).
+
+Layouts: x f32 [1, 1, d]; the stacked bf16 cache ck / cv [L, 1, Hkv, S, hd]
+(models/llama.py), which both versions write IN PLACE at row pos of every
+layer with the current K/V rounded to bf16 (the JAX package writes them
+after the call; phase B reads rows below pos only, so the cache ends the
+same); cos / sin the [1, hd/2] tables of pos; on the card pos is an int32
+[1] tensor on the device. Returns (x_out [1, 1, d], k_cur [L, Hkv, hd],
+v_cur [L, Hkv, hd]), f32, k_cur rotated, as the JAX kernel's outputs.
+Callers go through ``ops.dispatch.stacked_decode``.
+"""
+from __future__ import annotations
+
+import torch
+
+from zgml_tpu_torch import config
+from zgml_tpu_torch.ops import build, coop, ffn, refs
+from zgml_tpu_torch.ops.layerkernel import HEAD_DIMS, attn_block_ref
+from zgml_tpu_torch.quant.blocks import QK
+from zgml_tpu_torch.quant.packed import PackedWeight
+from zgml_tpu_torch.runtime.profile import global_profile
+
+PROJECTIONS = ("wqkv", "wo", "w_gate_up", "w_down")
+# the device table's columns, in csrc/stack_decode.cu TableSlot order:
+# (layer key, plane of its PackedWeight or None for a norm)
+TABLE = (("attn_norm", None), ("ffn_norm", None), ("wqkv", "qs"), ("wqkv", "d"), ("wo", "qs"),
+         ("wo", "d"), ("w_gate_up", "qs"), ("w_gate_up", "d"), ("w_down", "qs"), ("w_down", "d"))
+
+
+class StackedLayers:
+    """The port's view of a layer stack for the whole-stack decode kernels
+    (K14, and K15 through ops/tapekernel.Tape): the layer dicts, the heads
+    and eps, and `table`, int64 [L, len(TABLE)] on the layers' device, the
+    data pointers of each layer's norms and weight planes. Copies no weight."""
+
+    def __init__(self, layers: list[dict], n_heads: int, n_kv_heads: int, eps: float):
+        self.layers = list(layers)
+        self.n_heads, self.n_kv_heads, self.eps = n_heads, n_kv_heads, eps
+        # references keep every pointed-to tensor alive as long as the table
+        self.tensors = [[ly[key] if plane is None else getattr(ly[key], plane)
+                         for key, plane in TABLE] for ly in self.layers]
+        dev = self.tensors[0][0].device
+        planes = [t for row in self.tensors for (_, plane), t in zip(TABLE, row) if plane]
+        if dev.type == "cuda" and not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+                                          for t in planes):
+            raise ValueError("StackedLayers: the weights' planes must be contiguous and "
+                             "16-byte aligned")
+        self.table = torch.tensor([[t.data_ptr() for t in row] for row in self.tensors],
+                                  dtype=torch.int64, device=dev)
+
+    @property
+    def head_dim(self) -> int:
+        return self.layers[0]["wo"].k // self.n_heads
+
+
+def q4_views(cfg, layers) -> bool:
+    """Whether the JAX loader attaches both views the megacalls read, the
+    head-major wo3 and the N-packed FFN ffn_q4n (attach_head_major,
+    zgml_tpu/quant/headmajor.py:266-293, run at load under
+    ZGML_TPU_ATTN_BLOCK, llama_loader.py:172-178), and both are Q4_0: every
+    projection Q4_0, head_dim a multiple of 32 and >= 32, wo's K exactly the
+    query heads, and the FFN fused after the layer kernel (the padded d a
+    multiple of 512, ops/ffn.ffn_fuses). The port reads config.attn_block()
+    when a view is asked for, where the JAX package read it at load."""
+    hd = cfg.head_dim
+    if not config.attn_block() or hd % QK or hd < QK:
+        return False
+    if not all(isinstance(ly.get(n), PackedWeight) and ly[n].kind == "q4_0"
+               for ly in layers for n in PROJECTIONS):
+        return False
+    return (all(ly["wo"].k == cfg.n_heads * hd for ly in layers)
+            and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, "q4_0", after_attn_block=True))
+
+
+def stack_llama_layers(params: dict, cfg) -> StackedLayers | None:
+    """The K14 view of params' layer list, or None exactly where the JAX
+    `stack_llama_layers` (stackkernel.py:440-474) returns None: no layer
+    list, or not q4_views. Its other rules (padded d a multiple of 512, the
+    same padded widths in every layer, wo3 no wider than the padded d) hold
+    for every Q4_0 model the JAX loader pads (config.padded_k)."""
+    layers = params.get("layers")
+    if not isinstance(layers, (list, tuple)) or not layers or not q4_views(cfg, layers):
+        return None
+    return StackedLayers(layers, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps)
+
+
+def stacked_decode_ref(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
+                       cv: torch.Tensor, pos, cos: torch.Tensor, sin: torch.Tensor,
+                       mm=refs.qmatmul_ref):
+    """K14's plain version: per layer layerkernel.attn_block_ref (f32 A phase,
+    bf16 cache, row pos written in place) then ffn.fused_ffn_norm_ref, each
+    projection through `mm` (K15's plain version passes its bf16 one)."""
+    hkv = stack.n_kv_heads
+    ks, vs = [], []
+    for li, ly in enumerate(stack.layers):
+        x, k, v = attn_block_ref(x, ly["attn_norm"], ly["wqkv"], ly["wo"], ck, cv, li, pos, cos,
+                                 sin, stack.n_heads, hkv, stack.eps, mm=mm)
+        x = ffn.fused_ffn_norm_ref(x, ly["ffn_norm"], ly["w_gate_up"], ly["w_down"], stack.eps,
+                                   mm=mm)
+        ks.append(k.reshape(hkv, -1))
+        vs.append(v.reshape(hkv, -1))
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def launch(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Tensor,
+           pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, bf16_ops: bool):
+    """Launch csrc/stack_decode.cu (K14 with f32 operands, K15 with bf16
+    ones); the contract of stacked_decode_ref, pos an int32 [1] CUDA tensor.
+    Counts nothing: the wrappers of K14 and K15 do."""
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"stack_decode: {msg}")
+    dev = x.device
+    hq, hkv, hd = stack.n_heads, stack.n_kv_heads, stack.head_dim
+    n_layers, d, f = len(stack.layers), x.shape[-1], stack.layers[0]["w_down"].k
+    head_dims = (64, 128, 256) if bf16_ops else HEAD_DIMS
+    if hd not in head_dims:
+        raise NotImplementedError(
+            f"head_dim {hd}: the whole-stack decode kernel is compiled for head dims "
+            f"{head_dims} ({'bf16' if bf16_ops else 'f32'} operands)")
+    require(x.is_cuda and all(t.device == dev for t in (ck, cv, cos, sin, pos, stack.table)),
+            f"x on {x.device}: every tensor and the layers' table must be on one CUDA device")
+    require(isinstance(pos, torch.Tensor) and pos.dtype == torch.int32 and pos.numel() == 1,
+            "pos must be an int32 [1] tensor on the card")
+    require(x.dtype == torch.float32 and x.numel() == d == hq * hd == stack.layers[0]["wqkv"].k,
+            f"x must be one float32 row of {hq * hd}, got {x.dtype} {tuple(x.shape)}")
+    require(ck.dtype == torch.bfloat16 and cv.dtype == torch.bfloat16 and ck.shape == cv.shape
+            and ck.dim() == 5 and tuple(ck.shape[:3]) == (n_layers, 1, hkv)
+            and ck.shape[4] == hd,
+            f"cache {tuple(ck.shape)} {ck.dtype}: want bf16 [{n_layers}, 1, {hkv}, S, {hd}]")
+    require(cos.dtype == torch.float32 and sin.dtype == torch.float32
+            and cos.numel() == hd // 2 and sin.numel() == hd // 2,
+            f"cos/sin must be float32 [{hd // 2}]")
+    require(all(t.is_contiguous() for t in (x, ck, cv, cos, sin)),
+            "x, the cache and cos/sin must be contiguous")
+    s = ck.shape[3]
+    lib = build.library()
+    n_split = lib.zgml_decode_split_count(s)
+    x_out = torch.empty_like(x)
+    kv_cur = torch.empty((n_layers, 2, hkv, hd), dtype=torch.float32, device=dev)
+    sizes = [hq * hd, hq * hd, hq * n_split * (hd + 2), d, d, f]
+    q_s, att_s, part_s, x2_s, xres_s, act_s = torch.empty(
+        sum(sizes), dtype=torch.float32, device=dev).split(sizes)
+    status = lib.zgml_stack_decode(
+        int(bf16_ops), stack.table.data_ptr(), x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), x_out.data_ptr(), kv_cur.data_ptr(),
+        q_s.data_ptr(), att_s.data_ptr(), part_s.data_ptr(), x2_s.data_ptr(), xres_s.data_ptr(),
+        act_s.data_ptr(), coop.barrier_words(dev).data_ptr(), n_layers, d, hq, hkv, hd, s, f,
+        float(stack.eps), 1.0 / hd ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "stack_decode")
+    return x_out, kv_cur[:, 0], kv_cur[:, 1]
+
+
+def stacked_decode_cuda(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
+                        cv: torch.Tensor, pos: torch.Tensor, cos: torch.Tensor,
+                        sin: torch.Tensor):
+    """Launch K14 (csrc/stack_decode.cu, f32 operands); counted under
+    stack_decode."""
+    out = launch(x, stack, ck, cv, pos, cos, sin, bf16_ops=False)
+    global_profile.count_op("stack_decode", "cuda")
+    return out
