@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name, power limit), build the CUDA kernels
      from zgml_tpu_torch/csrc with nvcc (one process per source, in
-     parallel), print the build time;
+     parallel), print the build time and ptxas' registers and spills of
+     the flash kernel's instantiations;
   2. check each kernel against its plain torch version on the card at the
      shapes of the main paths, and time both (device time from
      torch.profiler, or from CUDA events around calls queued behind a spin
@@ -22,8 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      cache through kv_row. At the Llama-2-7B shapes: K2q4, K1q4 and K5q4 on
      its projections; K6c at M = 1, 8 and K6b at M = 1, 7, 32; K7's int8 A
      phase at pos 0, 1, 200, 2047 at Q4_0 and Q8_0, over the bf16 and the
-     int8 cache; K3 at head_dim 128 with n_rep 1; K9 as at TinyLlama and K8
-     at batch 1 (kv_len 200, 2047). K6c and K7-i8 quantize a row they norm
+     int8 cache; K3 at head_dim 128 with n_rep 1 (also at q_offset 1408,
+     kv_len 1536, where the prefix is split across blocks); K9 as at
+     TinyLlama and K8 at batch 1 (kv_len 200, 2047). K6c and K7-i8 quantize a row they norm
      themselves: the plain version runs on the kernel's own int8 activations,
      and the levels that differ from the plain pre-pass are counted (at most
      one level apart); K7-kv8 likewise runs the plain version on the
@@ -31,12 +33,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      of its own k_cur / v_cur bit for bit. Each case also gets its bound (the
      least time the card could take: bytes moved, each input read once and
      each output written once, over 3.35 TB/s, or the operations over the
-     card's peak for their type, f32 at 67 TFLOP/s and int8 at 1979 TOP/s,
-     whichever is larger) and, where one PyTorch call computes the same
-     function, that call's device time (library_ms, timed here and used
-     nowhere in the port; for K8 / K9 scaled_dot_product_attention after an
-     untimed dequant). K12 (rmsnorm) at d 2048 for M = 1, 128, 2048 and at d
-     4096 for M = 1, 128, within 1e-6 * max|out| (library:
+     card's peak for their type, f32 at 67 TFLOP/s and int8 at 1979 TOP/s;
+     K3 / K9 / K10f, which run each f32 dot as two TF32 products, at twice
+     their f32 operations over 495 TFLOP/s; whichever is larger; the flash
+     cases also record their plan's n_split) and, where one PyTorch call
+     computes the same function, that call's device time (library_ms, timed
+     here and used nowhere in the port; for K8 / K9
+     scaled_dot_product_attention after an untimed dequant). K12 (rmsnorm)
+     at d 2048 for M = 1, 128, 2048 and at d 4096 for M = 1, 128, within
+     1e-6 * max|out| (library:
      torch.nn.functional.rms_norm); K13 (the fused elementwise chain) on
      graph_ffn's chains silu -> mul [512, 5632] and add -> sqr [512, 2048],
      and one case per op at [2048, 2048]: bit-equal to plain where every step
@@ -130,13 +135,13 @@ Phases, in order; any failure raises and the script exits non-zero:
        graph_sub   y - exp(x) and y / exp(x), the chain value as the right
                    operand, through K13 equal fuse=False and numpy;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
-     turns (rounds of the paths there and back; median per path), with tg32
-     also at a 1536-token context on llama2_7b and kv8_7b; per path a
-     torch.profiler breakdown of one prefill chunk and 8 decode steps, with
-     the kernels launched per decode token and the megacall's device time
-     per token (and,
-     on those two, 8 steps at the 1536-token context with K7's device time
-     per token; "not measured" where the profiler sees no kernel); ms per
+     turns (rounds of the paths there and back; median per path), with the
+     1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b;
+     per path a torch.profiler breakdown of one prefill chunk and 8 decode
+     steps, with the kernels launched per decode token and the megacall's
+     device time per token (and, on those two, 8 steps at the 1536-token
+     context with K7's device time per token; "not measured" where the
+     profiler sees no kernel); ms per
      training step and tokens/s of both training paths in turns, and a
      profile of one step each; graph_ffn's ms per run and per
      value_and_grad in turns (median of 6) and a profile of one
@@ -184,6 +189,9 @@ FFN_D_7B, FFN_F_7B = 4096, 11008
 # (q_offset, kv_len) of the flash checks: first chunk, second chunk, a
 # kv_len that ends inside the chunk; and decode kv_len values
 FLASH_CASES = [(0, 128), (128, 256), (128, 200)]
+# and at Llama-2-7B also the 12th chunk of the 1536-token prompt that
+# llama2_7b's phase-4 rate prefills (the prefix split across blocks)
+FLASH_CASES_7B_LONG = [(1408, 1536)]
 DECODE_LENS = [1, 200, 2047]
 # the int8 cache's checks: K9 on a 128-row chunk at q_offset 0 and 1408 (the
 # 12th chunk of a 1536-token prompt); K8 on batches of per-row kv_len
@@ -273,6 +281,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 I8_OP_PER_S = 1979e12
+TF32_FLOP_PER_S = 495e12
+# K3 / K9 / K10f run their f32 dots as two TF32 products each (q or p split
+# into hi + lo, csrc/flash_attn.cu): their least time for the same
+# f32-accurate work counts TF32_PASSES x the f32 operations at the TF32 rate
+TF32_PASSES = 2
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
 PATHS = {"default": {},
          "unfused": {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
@@ -412,6 +425,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(build_log: pathlib.Path, pattern: str) -> list[dict]:
+    """Registers, shared memory, stack and spills of each kernel entry in
+    nvcc's build log (ptxas -v) whose mangled name contains `pattern`."""
+    import re
+    out, cur = [], None
+    for line in build_log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = dict(entry=m.group(1)) if pattern in m.group(1) else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def time_ms(torch, calls, iters: int) -> tuple[float, float, str]:
     """(device ms, host-inclusive ms, timer) per call over `iters` calls,
     cycling through `calls` (several weight copies keep the L2 cache cold,
@@ -490,13 +530,14 @@ def require(cond: bool, msg: str):
         raise RuntimeError(msg)
 
 
-def bound_of(nbytes: float, flops: float, i8ops: float = 0,
-             bf16ops: float = 0) -> tuple[float, str]:
+def bound_of(nbytes: float, flops: float, i8ops: float = 0, bf16ops: float = 0,
+             tf32ops: float = 0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take to
-    move `nbytes` and do `flops` f32, `i8ops` int8 and `bf16ops` bf16
-    operations."""
+    move `nbytes` and do `flops` f32 (CUDA cores), `i8ops` int8, `bf16ops`
+    bf16 and `tf32ops` TF32 (tensor cores) operations."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = (flops / F32_FLOP_PER_S + i8ops / I8_OP_PER_S + bf16ops / BF16_FLOP_PER_S) * 1e3
+    to = (flops / F32_FLOP_PER_S + i8ops / I8_OP_PER_S + bf16ops / BF16_FLOP_PER_S
+          + tf32ops / TF32_FLOP_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -522,16 +563,17 @@ def check_kernels(torch, dev):
     results = {name: [] for name in KERNELS}
 
     def record(kernel, case, err, bound, t, tp, nbytes, flops, lib=None, lib_note=None,
-               i8ops=0, bf16ops=0, **extra):
+               i8ops=0, bf16ops=0, tf32ops=0, **extra):
         """One case: error, device times, the bound from this case's bytes
-        and operations (flops, i8ops and bf16ops 0: the bytes bound alone),
-        and the library call's time or why there is none."""
-        b_ms, b_by = bound_of(nbytes, flops, i8ops, bf16ops)
+        and operations (all operation counts 0: the bytes bound alone), and
+        the library call's time or why there is none."""
+        b_ms, b_by = bound_of(nbytes, flops, i8ops, bf16ops, tf32ops)
         lib_ms = None if lib is None else lib[0]
         timers = {"ms": t[2], "plain_ms": tp[2]} | ({} if lib is None else {"library_ms": lib[2]})
         results[kernel].append(dict(case=case, err=err, bound=bound, ms=t[0], call_ms=t[1],
                                     plain_ms=tp[0], plain_call_ms=tp[1], bytes=nbytes,
-                                    flops=flops, i8ops=i8ops, bf16ops=bf16ops, bound_ms=b_ms,
+                                    flops=flops, i8ops=i8ops, bf16ops=bf16ops,
+                                    tf32ops=tf32ops, bound_ms=b_ms,
                                     bound_by=b_by,
                                     library_ms=lib_ms, library_note=lib_note, timers=timers,
                                     **extra))
@@ -830,7 +872,8 @@ def check_kernels(torch, dev):
         check_attn_block(kind, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ", a_i8=True)
         check_attn_block(kind, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ", a_i8=True, kv8=True)
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
-                    None, None, (L_7B, HQ_7B, HKV_7B, D_7B), "7B hd=128 n_rep=1 ")
+                    None, None, (L_7B, HQ_7B, HKV_7B, D_7B), "7B hd=128 n_rep=1 ",
+                    FLASH_CASES + FLASH_CASES_7B_LONG)
     check_attention_q8(torch, dev, g, record, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ",
                        KV8_DECODE_LENS_7B)
     log("  -- training: K10 (flash forward with LSE, dQ, dK/dV) and K11 (dx)")
@@ -883,15 +926,18 @@ def check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
 
 
 def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
-                    decode_attention_cuda, decode_attention_ref, shape, model):
-    """K3 (and K4, where its wrappers are given) over a random stacked cache;
-    the library call is scaled_dot_product_attention with enable_gqa over the
-    same cache rows, cast to f32 outside the timed window."""
+                    decode_attention_cuda, decode_attention_ref, shape, model,
+                    flash_cases=FLASH_CASES):
+    """K3 at flash_cases (q_offset, kv_len) (and K4, where its wrappers are
+    given) over a random stacked cache; the library call is
+    scaled_dot_product_attention with enable_gqa over the same cache rows,
+    cast to f32 outside the timed window."""
+    from zgml_tpu_torch.ops.attention import flash_plan
     n_layers, hq, hkv, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     kc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
     vc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
-    for q_off, kv_len in FLASH_CASES:
+    for q_off, kv_len in flash_cases:
         q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
         row = (q_off // 128) % n_layers
         got = flash_attention_cuda(q, kc, vc, kv_len, q_off, row)
@@ -910,10 +956,13 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
         lib_err = float((sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True) - want).abs().max())
         lib = time_ms(torch, [lambda: sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True)], 50)
         live = int(mask.sum())                         # (query, key) pairs attended
-        record("flash_attention", f"{model}Tq=128 q_offset={q_off} kv_len={kv_len}", err, 1e-5,
-               t, tp, 2 * q.numel() * 4 + 2 * kv_len * hkv * hd * 2, 4 * hq * live * hd, lib,
+        plan = flash_plan(q, kc, kv_len, q_off, False)
+        record("flash_attention", f"{model}Tq=128 q_offset={q_off} kv_len={kv_len} "
+               f"n_split={plan.n_split}", err, 1e-5, t, tp,
+               2 * q.numel() * 4 + 2 * kv_len * hkv * hd * 2, 0, lib,
                f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), f32 "
-               f"(max abs err {lib_err:.2g})")
+               f"(max abs err {lib_err:.2g})", tf32ops=TF32_PASSES * 4 * hq * live * hd,
+               n_split=plan.n_split)
     if decode_attention_cuda is None:
         return
     for kv_len in DECODE_LENS:
@@ -946,7 +995,8 @@ def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
     enable_gqa in f32 on the cache rows dequantized outside the timed window
     (and, for K8, on q quantized and dequantized as the kernel does)."""
     from zgml_tpu_torch.ops.attention import (decode_attention_q8_cuda, decode_attention_q8_ref,
-                                              flash_attention_q8_cuda, flash_attention_q8_ref)
+                                              flash_attention_q8_cuda, flash_attention_q8_ref,
+                                              flash_plan)
     from zgml_tpu_torch.quant.kv_cache import dequantize, quantize_columns
     n_layers, hq, hkv, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -976,11 +1026,13 @@ def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
         lib_err = float((sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True) - want).abs().max())
         lib = time_ms(torch, [lambda: sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True)], 50)
         live = int(mask.sum())
+        plan = flash_plan(q, k, kv_len, q_off, True)
         record("flash_attention_q8", f"{model}hd={hd} Tq=128 q_offset={q_off} kv_len={kv_len} "
-               f"kv_row={row}", err, 1e-5, t, tp, 2 * q.numel() * 4 + kv_len * pos_bytes,
-               4 * hq * live * hd, lib,
+               f"kv_row={row} n_split={plan.n_split}", err, 1e-5, t, tp,
+               2 * q.numel() * 4 + kv_len * pos_bytes, 0, lib,
                f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), f32, after "
-               f"an untimed dequant (max abs err {lib_err:.2g})")
+               f"an untimed dequant (max abs err {lib_err:.2g})",
+               tf32ops=TF32_PASSES * 4 * hq * live * hd, n_split=plan.n_split)
     for lens_ in decode_lens:
         b = len(lens_)
         q = torch.randn((b, hq, 1, hd), device=dev, generator=g)
@@ -1075,7 +1127,7 @@ def check_training_attention(torch, dev, g, record):
     on the same inputs: K10f's O bit-equal to K3's and its LSE within
     REL_BOUND * max, dQ within REL_BOUND * max, dK / dV within one bf16 ulp
     per element (the backward from the kernel's own o and lse)."""
-    from zgml_tpu_torch.ops.attention import flash_attention_cuda
+    from zgml_tpu_torch.ops.attention import flash_attention_cuda, flash_plan
     from zgml_tpu_torch.ops.flash_vjp import (flash_dkv_cuda, flash_dkv_ref, flash_dq_cuda,
                                               flash_dq_ref, flash_fwd_lse_cuda,
                                               flash_fwd_lse_ref)
@@ -1115,8 +1167,10 @@ def check_training_attention(torch, dev, g, record):
         t = time_ms(torch, [lambda: flash_fwd_lse_cuda(*args)], 20)
         tp = time_ms(torch, [lambda: flash_fwd_lse_ref(*args)], 5)
         lib = time_ms(torch, [fwd_lib], 20) if fwd_lib else None
-        record("flash_fwd", case + f" (O bit-equal to K3's; lse err {err_l:.3g})", err_o,
-               bound_o, t, tp, qbytes * 2 + lbytes + kvbytes, 4 * heads * live * hd, lib, note)
+        plan = flash_plan(q, k, kv_len, q_off, False)
+        record("flash_fwd", case + f" n_split={plan.n_split} (O bit-equal to K3's; lse err "
+               f"{err_l:.3g})", err_o, bound_o, t, tp, qbytes * 2 + lbytes + kvbytes, 0, lib,
+               note, tf32ops=TF32_PASSES * 4 * heads * live * hd, n_split=plan.n_split)
         t = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)
         tp = time_ms(torch, [lambda: flash_dq_ref(*bargs)], 5)
         lib = time_ms(torch, [bwd_lib], 20) if bwd_lib else None
@@ -1838,10 +1892,11 @@ def rates(torch, engines, prompt, long_prompt, card, summary):
     the paths there and back (default, unfused, ..., kv8_7b, kv8_7b, ...,
     unfused, default), one prefill and one 32-token decode_n per turn, so an
     order effect on the host falls on every path alike; the median per path.
-    On LONG_RATE_PATHS each turn also times a 32-token decode_n after a
-    LONG_PROMPT-token prefill (tg32 at that context)."""
+    On LONG_RATE_PATHS each turn also times the LONG_PROMPT-token prefill
+    (pp1536, where the prefill attention's split prefix shows end to end)
+    and a 32-token decode_n after it (tg32 at that context)."""
     p128 = prompt[:128]
-    runs = {name: ([], [], []) for name in engines}
+    runs = {name: ([], [], [], []) for name in engines}
     order = list(engines) + list(engines)[::-1]
     for _ in range(RATE_ROUNDS):
         for name in order:
@@ -1861,13 +1916,16 @@ def rates(torch, engines, prompt, long_prompt, card, summary):
             runs[name][1].append(time.perf_counter() - t0)
             if name in LONG_RATE_PATHS:
                 eng.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 tok = torch.argmax(eng.prefill(long_prompt), dim=-1)
                 torch.cuda.synchronize()
+                runs[name][3].append(time.perf_counter() - t0)
                 t0 = time.perf_counter()
                 eng.decode_n(tok, 32)
                 torch.cuda.synchronize()
                 runs[name][2].append(time.perf_counter() - t0)
-    for name, (pp, tg, tg_long) in runs.items():
+    for name, (pp, tg, tg_long, pp_long) in runs.items():
         pp_s, tg_s = statistics.median(pp), statistics.median(tg)
         log(f"  [{name}] pp128: {128 / pp_s:.1f} tok/s ({pp_s * 1e3:.2f} ms per 128-token "
             f"chunk; fastest turn {128 / min(pp):.1f})  [{card}]")
@@ -1881,8 +1939,14 @@ def rates(torch, engines, prompt, long_prompt, card, summary):
             log(f"  [{name}] tg32 at a {LONG_PROMPT}-token context: {32 / tl_s:.1f} tok/s "
                 f"({tl_s / 32 * 1e3:.3f} ms per token; fastest turn {32 / min(tg_long):.1f})  "
                 f"[{card}]")
+            pl_s = statistics.median(pp_long)
+            log(f"  [{name}] pp{LONG_PROMPT}: {LONG_PROMPT / pl_s:.1f} tok/s ({pl_s * 1e3:.1f} ms "
+                f"for the {LONG_PROMPT}-token prompt; fastest turn "
+                f"{LONG_PROMPT / min(pp_long):.1f})  [{card}]")
             summary["rates"][name].update(tg32_long_tok_s=32 / tl_s, tg32_long_runs_s=tg_long,
-                                          long_context=LONG_PROMPT)
+                                          long_context=LONG_PROMPT,
+                                          **{f"pp{LONG_PROMPT}_tok_s": LONG_PROMPT / pl_s,
+                                             f"pp{LONG_PROMPT}_runs_s": pp_long})
 
 
 def profile(torch, eng, prompt, long_prompt, name, summary):
@@ -2219,6 +2283,11 @@ def main() -> int:
     path, nvcc_s = build.build()
     build.library()
     log(f"  kernels built in {nvcc_s:.1f} s (load {time.perf_counter() - t0:.1f} s): {path}")
+    if (path.parent / "build.log").is_file():    # ptxas -v of the flash instantiations
+        summary["ptxas_flash"] = ptxas_report(path.parent / "build.log", "flash")
+        for e in summary["ptxas_flash"]:
+            log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
+                f"{e.get('spill_stores')} bytes spill stores, {e.get('stack')} bytes stack")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

@@ -2,18 +2,26 @@
 """Time the attention kernels of two checkouts of zgml_tpu_torch on one card,
 in turns (A, B, B, A by default), each turn in its own process.
 
-    python3 kernel_ab.py A_DIR B_DIR [--rounds N]
+    python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf]
 
 A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
 unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
 root, builds that root's kernels into the root's own build directory, and
-times, with chip_smoke.time_ms (device time from torch.profiler), the bf16
-cache's attention kernels at the smoke's TinyLlama-1.1B shapes: K4 at kv_len
-1, 200 and 2047 of a 22-layer cache, K3 on a 128-row chunk at (q_offset,
-kv_len) (0, 128) and (128, 256), and at head_dim 128 with n_rep 1 (Llama-2-7B),
-K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and K6d (Q4_0, one row) at the
-TinyLlama-1.1B FFN. Prints one JSON line per turn, then the median device us
-per case and side, with the card's name and power limit.
+times, with chip_smoke.time_ms (device time from torch.profiler), the
+attention kernels at the smoke's TinyLlama-1.1B shapes and at head_dim 128
+with n_rep 1 (Llama-2-7B): K3 on a 128-row chunk at (q_offset, kv_len) (0,
+128), (128, 256) and (1408, 1536) of a bf16 cache, K9 at (0, 128) and (1408,
+1536) of an int8 one, and K10f (training's forward with LSE) at the smoke's
+three cases (TinyLlama B 4 x T 512, Llama-2-7B B 1 x T 512, and Tq 128 over
+kv_len 300 at q_offset 172); at TinyLlama-1.1B also K4 at kv_len 1, 200 and
+2047 of a 22-layer cache, K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and
+K6d (Q4_0, one row) at the FFN. With --gguf (e.g. the Llama-2-7B file
+chip_smoke.py writes under .bench_cache/) each turn also loads that model
+and times, on the host clock around a synchronized call, the prefill of a
+1536-token prompt (seeded ids, 128-row chunks) over the bf16 and the int8
+KV cache: the median of 3 after one warm-up, in us like the kernels. Prints
+one JSON line per turn, then the median per case and side, with the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -26,13 +34,42 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parent
 
 
-def one(root: str) -> dict:
+def prefill_us(torch, gguf: str) -> dict:
+    """Host us of a 1536-token prefill of the model at `gguf` per cache type."""
+    import time
+
+    import numpy as np
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    model, gf = load_llama(gguf, device="cuda")
+    gf.close()
+    ids = np.random.default_rng(0).integers(0, model.cfg.vocab_size, 1536)
+    out = {}
+    for cache in ("bf16", "int8"):
+        eng = LlamaEngine(model, prefill_chunk=128, cache_dtype=cache)
+        runs = []
+        for _ in range(4):
+            eng.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill(ids)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        out[f"prefill 1536 tokens, {cache} cache (host)"] = statistics.median(runs[1:]) * 1e6
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def one(root: str, gguf: str | None = None) -> dict:
     """The timings of the checkout at `root`, in this process."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
     import zgml_tpu_torch
     from zgml_tpu_torch.ops import refs
-    from zgml_tpu_torch.ops.attention import decode_attention_cuda, flash_attention_cuda
+    from zgml_tpu_torch.ops.attention import (decode_attention_cuda, flash_attention_cuda,
+                                              flash_attention_q8_cuda)
+    from zgml_tpu_torch.ops.flash_vjp import flash_fwd_lse_cuda
     from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
     from zgml_tpu_torch.quant.packed import PackedWeight
@@ -48,10 +85,22 @@ def one(root: str) -> dict:
     for hq, hkv, hd, tag in ((32, 4, 64, ""), (32, 32, 128, "7B ")):
         kc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
         vc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
-        for q_off, kv_len in ((0, 128), (128, 256)):
+        for q_off, kv_len in ((0, 128), (128, 256), (1408, 1536)):
             q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
             out[f"K3 {tag}hd={hd} q_offset={q_off} kv_len={kv_len}"] = time_ms(
                 torch, [lambda: flash_attention_cuda(q, kc, vc, kv_len, q_off, 1)], 50)[0]
+        k8 = torch.randint(-127, 128, (22, hkv, 2048, hd), dtype=torch.int8, device=dev,
+                           generator=g)
+        v8 = torch.randint(-127, 128, (22, hkv, 2048, hd), dtype=torch.int8, device=dev,
+                           generator=g)
+        ks = torch.rand((22, hkv, 2048), device=dev, generator=g) * 0.01 + 0.01
+        vs = torch.rand((22, hkv, 2048), device=dev, generator=g) * 0.01 + 0.01
+        for q_off, kv_len in ((0, 128), (1408, 1536)):
+            q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
+            out[f"K9 {tag}hd={hd} q_offset={q_off} kv_len={kv_len}"] = time_ms(
+                torch, [lambda: flash_attention_q8_cuda(q, k8, ks, v8, vs, kv_len, q_off, 3)],
+                50)[0]
+        del k8, v8, ks, vs
         if tag:
             continue
         for kv_len in (1, 200, 2047):
@@ -59,6 +108,14 @@ def one(root: str) -> dict:
             lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
             out[f"K4 kv_len={kv_len}"] = time_ms(
                 torch, [lambda: decode_attention_cuda(q, kc, vc, lens, 3)], 100)[0]
+    for b, hq, hkv, tq, s, hd, kv_len, q_off in ((4, 32, 4, 512, 512, 64, 512, 0),
+                                                 (1, 32, 32, 512, 512, 128, 512, 0),
+                                                 (1, 32, 4, 128, 512, 64, 300, 172)):
+        q = torch.randn((b, hq, tq, hd), device=dev, generator=g)
+        k = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        out[f"K10f B={b} Hkv={hkv} hd={hd} Tq={tq} kv_len={kv_len} q_offset={q_off}"] = time_ms(
+            torch, [lambda: flash_fwd_lse_cuda(q, k, v, kv_len, q_off)], 20)[0]
     d, hq, hkv, hd = 2048, 32, 4, 64
 
     def weight(n, k):
@@ -79,12 +136,16 @@ def one(root: str) -> dict:
     gus, wds = [weight(2 * f, d) for _ in range(4)], [weight(d, f) for _ in range(4)]
     out["K6d M=1"] = time_ms(torch, [lambda gu_=gu, wd_=wd: fused_ffn_norm_cuda(
         x, gamma, gu_, wd_, 1e-5) for gu, wd in zip(gus, wds)], 50)[0]
-    return {k: v * 1e3 for k, v in out.items()}           # device us
+    out = {k: v * 1e3 for k, v in out.items()}            # device us
+    if gguf:
+        out.update(prefill_us(torch, gguf))
+    return out
 
 
 def main() -> int:
+    gguf = sys.argv[sys.argv.index("--gguf") + 1] if "--gguf" in sys.argv else None
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2])))
+        print(json.dumps(one(sys.argv[2], gguf)))
         return 0
     a, b = sys.argv[1], sys.argv[2]
     rounds = int(sys.argv[sys.argv.index("--rounds") + 1]) if "--rounds" in sys.argv else 1
@@ -92,8 +153,9 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     runs = {a: [], b: []}
     for side in [a, b, b, a] * rounds:
-        proc = subprocess.run([sys.executable, __file__, "--one", side], capture_output=True,
-                              text=True, check=False)
+        proc = subprocess.run([sys.executable, __file__, "--one", side]
+                              + (["--gguf", str(pathlib.Path(gguf).resolve())] if gguf else []),
+                              capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"{side}: {proc.stderr[-3000:]}")
         runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
@@ -102,7 +164,7 @@ def main() -> int:
     for case in runs[a][0]:
         ma = statistics.median(r[case] for r in runs[a])
         mb = statistics.median(r[case] for r in runs[b])
-        print(f"{case:40s} {a}: {ma:8.1f} us  {b}: {mb:8.1f} us  ({100 * (mb / ma - 1):+.1f}%)")
+        print(f"{case:58s} {a}: {ma:8.1f} us  {b}: {mb:8.1f} us  ({100 * (mb / ma - 1):+.1f}%)")
     return 0
 
 

@@ -8,7 +8,9 @@ machine without JAX, where tests/conftest.py (which imports jax) is skipped:
 
 The weight kernels run at both kinds, Q4_0 and Q8_0. Tolerances: K2 rtol
 1e-5 / atol 1e-4*sqrt(K) and K3/K4 1e-5, since kernel and plain version both
-compute in f32 and differ only in the order of the sums; K1, K6 and K7
+compute in f32 and differ only in the order of the sums (K3 / K9 / K10f take
+q and p as two TF32 parts on the tensor cores, which leaves at most 2^-22 of
+each: f32's class, tests/test_torch_flash_split.py); K1, K6 and K7
 1e-5 * max|out| for the same reason (K1's int8 block dots are exact on both
 sides, and its quantized activations must be bit-equal); K5's id must equal
 argmax of K1's output on the card exactly. The i8a modes (K7-i8, K6c)
@@ -95,6 +97,14 @@ def _qkv(rng, b, hq, hkv, tq, rows, s, d, device):
     (2, 4, 4, 16, 2, 64, 16, 64, 48, 0),
     (1, 8, 2, 40, 1, 128, 128, 77, 37, 0),
     (1, 8, 2, 8, 1, 64, 32, 0, 0, 0),              # no live key -> 0
+    # the prefix split across blocks (flash_split_plan) and merged
+    (1, 32, 4, 128, 22, 2048, 64, 1536, 1408, 3),  # TinyLlama chunk 12 of a 1536 prompt
+    (1, 32, 32, 128, 4, 2048, 128, 1536, 1408, 1), # Llama-2-7B chunk 12, head_dim 128
+    (1, 32, 4, 128, 2, 2048, 64, 1000, 900, 1),    # kv_len ends inside a key tile
+    (1, 8, 2, 37, 1, 256, 64, 200, 163, 0),        # Tq not a multiple of 16
+    (1, 32, 4, 40, 1, 512, 64, 400, 360, 0),       # n_rep 8 with Tq 40
+    (2, 32, 4, 128, 6, 2048, 64, 1536, 1408, 2),   # B 2 through kv_row
+    (1, 32, 32, 128, 1, 256, 128, 128, 0, 0),      # split 2's keys all masked for early rows
 ])
 def test_flash_attention(cuda, b, hq, hkv, tq, rows, s, d, kv_len, q_off, kv_row):
     q, k, v = _qkv(np.random.default_rng(kv_len + d), b, hq, hkv, tq, rows, s, d, cuda)
@@ -364,6 +374,11 @@ def _q8_cache(rng, shape, device):
     (1, 32, 32, 128, 4, 2048, 128, 1536, 1408, 1),  # Llama-2-7B, head_dim 128
     (2, 4, 4, 16, 2, 64, 16, 64, 48, 0),
     (1, 8, 2, 8, 1, 64, 32, 0, 0, 0),               # no live key -> 0
+    (1, 32, 4, 128, 2, 2048, 64, 1000, 900, 1),     # kv_len ends inside a key tile
+    (1, 8, 2, 37, 1, 256, 64, 200, 163, 0),         # Tq not a multiple of 16
+    (1, 32, 4, 40, 1, 512, 64, 400, 360, 0),        # n_rep 8 with Tq 40
+    (2, 32, 4, 128, 6, 2048, 64, 1536, 1408, 2),    # B 2 through kv_row, split prefix
+    (1, 32, 32, 128, 1, 256, 128, 128, 0, 0),       # split 2's keys all masked for early rows
 ])
 def test_flash_attention_q8(cuda, b, hq, hkv, tq, rows, s, d, kv_len, q_off, kv_row):
     """K9 over a stacked int8 cache through kv_row."""
@@ -473,6 +488,8 @@ TRAIN_FLASH_CASES = [
     (2, 4, 2, 128, 256, 64, 200, 72),      # live prefix < S, offset (tests/test_vjp.py)
     (1, 4, 1, 40, 96, 32, 77, 37),         # ragged tiles
     (2, 8, 4, 33, 33, 16, 33, 0),
+    (1, 8, 8, 128, 1024, 128, 1024, 896),  # split prefix: O and LSE through the combine
+    (1, 32, 4, 128, 1536, 64, 1536, 1408), # TinyLlama heads at a long prefix
 ]
 
 
@@ -501,6 +518,22 @@ def test_flash_training_kernels(cuda, b, hq, hkv, tq, s, d, kv_len, q_off):
     assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == (b, hq, s, d)
     assert_bf16_ulp(dk, dk_ref)
     assert_bf16_ulp(dv, dv_ref)
+
+
+def test_flash_plan_splits_the_long_prefix_on_this_card(cuda):
+    """The long-prefix cases above take the split path on the card (the
+    plan reads its SM count and the instantiation's blocks per SM), the
+    training batch does not."""
+    from zgml_tpu_torch.ops.attention import flash_plan
+
+    def plan(b, hq, hkv, tq, s, d, kv_len, q_off, kv8=False):
+        q = torch.empty((b, hq, tq, d), device=cuda)
+        return flash_plan(q, torch.empty((b, hkv, s, d), device=cuda), kv_len, q_off, kv8)
+    for kv8 in (False, True):
+        assert plan(1, 32, 4, 128, 2048, 64, 1536, 1408, kv8).n_split > 1
+        assert plan(1, 32, 32, 128, 2048, 128, 1536, 1408, kv8).n_split > 1
+    assert plan(1, 8, 8, 128, 1024, 128, 1024, 896).n_split > 1
+    assert plan(4, 32, 4, 512, 512, 64, 512, 0).n_split == 1
 
 
 def test_flash_attention_autograd_takes_k10(cuda):

@@ -1,221 +1,626 @@
 // K3 flash_attention: causal GQA prefill attention over the bf16 KV cache;
 // its int8-cache mode, K9 flash_attention_q8; and its LSE mode, K10f
-// flash_fwd, the forward of training's flash attention.
+// flash_fwd, the forward of training's flash attention. One kernel template,
+// flash_attn_kernel<D, KV8>, serves all three.
 //
-// Replaces: zgml_tpu/ops/attention.py `_flash_kernel` (line 44), reached
-// through `_flash` / `flash_attention_pallas` via flash_vjp.make_flash_vjp
-// (K3), and `_flash_q8_kernel` (line 599, pallas_call at 702), reached
-// through `_flash_q8` / `flash_attention_q8_pallas` (K9); and
-// zgml_tpu/ops/flash_vjp.py `_fwd_kernel` (pallas_call at line 140, K10f),
-// which `make_flash_vjp` runs under jax.grad.
+// Replaces: zgml_tpu/ops/attention.py `_flash_kernel` (line 44, its grid at
+// 120-200, pallas_call at 194), reached through `_flash` /
+// `flash_attention_pallas` via flash_vjp.make_flash_vjp (K3), and
+// `_flash_q8_kernel` (line 599, pallas_call at 702), reached through
+// `_flash_q8` / `flash_attention_q8_pallas` (K9); and
+// zgml_tpu/ops/flash_vjp.py `_fwd_kernel` (line 41, pallas_call at 140,
+// K10f), which `make_flash_vjp` runs under jax.grad.
 //
-// K10f (the plain version is ops/flash_vjp.py flash_fwd_lse_ref) is K3 with
-// one more output: lse f32 [B, Hq, Tq], m + log(l) of each row's online
-// softmax, +inf for a row with no live key (flash_vjp.py:89-92), which the
-// backward kernels (flash_bwd.cu) turn into p = exp(s - lse). It is the same
-// kernel with a non-null lse pointer, so its O is K3's O bit for bit; the
-// JAX kernel's 128-lane LSE sidecar is TPU layout and is not kept.
+// Semantics (the plain versions are ops/attention.py flash_attention_ref and
+// flash_attention_q8_ref, and ops/flash_vjp.py flash_fwd_lse_ref):
+//   q f32 [B, Hq, Tq, D]; k, v bf16 [R, Hkv, S, D] (K3, K10f), or int8 levels
+//   [R, Hkv, S, D] with f32 scales ks, vs [R, Hkv, S] (K9): the cache slab
+//   read in place at batch rows kv_row + b (the stacked [L, B, Hkv, S, D]
+//   cache viewed as [L*B, ...], kv_row = layer * B). Query row i sits at
+//   absolute position q_offset + i and attends keys j < kv_len with
+//   j <= q_offset + i; query head h reads KV head h / (Hq / Hkv). Scores are
+//   (q . k) * scale, or for K9 (q . k_levels) * (k_scale * scale)
+//   (attention.py:629-631), and K9 folds v_scale into p before P.V (642).
+//   Output o f32 [B, Hq, Tq, D]; a row with no live key gives 0. K10f also
+//   writes lse f32 [B, Hq, Tq] = m + log(l), +inf for a row with no live key
+//   (flash_vjp.py:89-92); it is the same launch with a non-null lse, so its O
+//   is K3's bit for bit (the JAX 128-lane LSE sidecar is TPU layout).
 //
-// K9 (the plain version is ops/attention.py flash_attention_q8_ref): k, v
-// are the position-major int8 cache [R, Hkv, S, D] with f32 scales ks, vs
-// [R, Hkv, S]. q stays f32 (the JAX kernel's ZGML_TPU_PREFILL_BF16=0, the
-// port's standing prefill): each tile's levels are converted to f32 in
-// shared memory, the scores are (q . k_levels) * (k_scale * scale) as
-// attention.py:629-631, and p is multiplied by v_scale before P.V (642). The
-// tile holds 16 levels per 16-byte load, half the bf16 tile's bytes; the
-// rest of the design, and the register pressure at D = 128, are K3's.
+// What bounds it on the H100: at a prefill chunk (Tq = 128) the work is
+// 4 * Hq * live_pairs * D f32 operations (q.k and p.v), 2-46 us at the f32
+// rate and a quarter of that on TF32 tensor cores, while the bytes (q, o
+// and the live K/V once) take 1-5 us. The chunk gives few tiles: 64 at the
+// TinyLlama-1.1B and the Llama-2-7B chunk, for 132 SMs. So occupancy and
+// latency decide first, then the tensor-core rate.
 //
-// Semantics (the plain version is ops/attention.py flash_attention_ref):
-//   q f32 [B, Hq, Tq, D]; k, v bf16 [R, Hkv, S, D], the cache slab read in
-//   place at batch rows kv_row + b (the stacked [L, B, Hkv, S, D] cache viewed
-//   as [L*B, ...], kv_row = layer * B); query row i sits at absolute position
-//   q_offset + i and attends keys j < kv_len with j <= q_offset + i. Query
-//   head h reads KV head h / (Hq / Hkv). Output f32 [B, Hq, Tq, D]; a row
-//   with no live key gives 0.
-//
-// What bounds it on the H100: at a prefill chunk (Tq = 128, kv_len <= a few
-// hundred at the slice's prompts) the work is small (~2*2*Tq*kv*D flops per
-// head); the kernel is bound by latency and by the f32 FMA issue rate of the
-// few blocks it runs, not by HBM (one layer's live K/V is < 1 MB).
-//
-// What the design does about it: one warp per 32 query rows of one head,
-// one query row per thread with q and the output accumulator in registers;
-// K/V tiles of 32 keys are converted bf16 -> f32 once into shared memory
-// and read back as broadcasts. Online softmax in f32 per tile (one rescale
-// per tile, not per key). The KV loop stops at min(kv_len, q_offset + last
-// row of the tile + 1), so work scales with the live prefix, not with S.
+// What the design does about it:
+//  * A block is 4 warps over a tile of 64 packed query rows x one KV head;
+//    each warp owns 16 rows (one m16 fragment). The n_rep query heads that
+//    share the KV head are packed into the rows, position-major: packed row
+//    r is position r / n_rep of head hk * n_rep + r % n_rep (as the JAX
+//    kernel folds them into one batched dot, attention.py:48-55). So one
+//    staged K/V tile serves n_rep heads, and a tile spans few positions,
+//    which keeps its causal edge narrow.
+//  * The live prefix is split across blocks (grid z) when the tiles alone do
+//    not fill the card: ops/attention.py flash_split_plan picks n_split from
+//    the shapes, the live prefix and the SM count, and block z takes key
+//    tiles [z * n / n_split, (z + 1) * n / n_split) of its tile's n. With
+//    n_split > 1 each block writes its unnormalised o, m and l to scratch and
+//    flash_combine_kernel merges them (skipping splits with l = 0, so a split
+//    with no live key for a row merges without NaN) and writes o and lse;
+//    with n_split == 1 the block writes o and lse itself. The plan depends
+//    only on shapes and the SM count, so K3 and K10f take the same one.
+//  * K/V tiles of BN keys (64; 32 at D = 128, for two blocks per SM) are
+//    staged in their storage type with 16-byte cp.async, double-buffered so
+//    the next tile's copy overlaps this tile's MMAs; keys past the tile's end
+//    are zero-filled, so P.V never meets a stale value. K9's int8 levels and
+//    scales land in a raw buffer and are widened to bf16 (exact: |level| <=
+//    127) in one pass. Rows are padded by 8 elements (16 bytes), so the
+//    ldmatrix row addresses of a warp fall in distinct banks.
+//  * Dots on tensor cores: mma.sync m16n8k8 TF32 with f32 accumulators (the
+//    legacy mma.sync, not wgmma: a 16-row warp fragment keeps the per-row
+//    softmax in one warp's registers and the 64-row tile small; at these
+//    work sizes the issue rate of mma.sync is not what bounds). K and V go
+//    to the B fragments through ldmatrix (.trans for V) straight from bf16,
+//    which is exact in TF32 (8-bit significand; TF32 keeps 11), as are int8
+//    levels (7 bits). Only q and p need splitting: x = hi + lo with hi =
+//    tf32_rna(x), lo = tf32_rna(x - hi), and every product runs twice,
+//    hi . K + lo . K; K and V have no low part, so there is no third term.
+//    x - hi - lo is <= 2^-22 |x| (x - hi is exact in f32 and lo rounds it to
+//    11 bits), so each operand carries a relative error of the class of f32
+//    rounding itself; what is left is the order of the f32 accumulation
+//    (tests/test_torch_flash_split.py bounds the operand rounding against
+//    float64). This is the 3xTF32 idea with the third term exactly zero.
+//    Dimension d and key order inside an 8-wide MMA step are permuted
+//    consistently on both operands (thread t holds d 2t and 2t + 1 of q, the
+//    pair ldmatrix gives it of K; and the keys 2t, 2t + 1 of p that the S
+//    accumulator gives it, the pair ldmatrix.trans gives it of V), so S
+//    feeds P.V from registers with no shuffle.
+//  * Accumulation. The tensor cores add an MMA's products into its f32
+//    accumulator and round toward zero, so a long chain of MMAs into one
+//    accumulator drifts toward zero: in a CPU emulation at the TinyLlama
+//    training shape (T 512, D 64), one chain for S and one for O over the
+//    whole prefix gave 4x the rms error of an f32 FMA loop, with a bias,
+//    and moved training's gradients past their end-to-end bound on the
+//    card. So S is summed in three chains (hi products of even and of odd
+//    k-steps, lo products) added in f32, and each tile's P V builds, one
+//    8-column block at a time, in fresh hi and lo accumulators that join O
+//    in one IEEE fma (O * alpha + PV): no chain is longer than D/16 or BN/8
+//    MMAs, and the emulation puts the result below the f32 loop's error (rms
+//    0.65-0.73x of it at D 64 and 128; tests/test_torch_flash_split.py
+//    emulates both). O in place instead costs 3x (T 512) to 6.5x (T 1536)
+//    the f32 loop's error at D 128.
+//  * O lives in shared memory, not registers: each thread owns its
+//    fragment's slots (two rows, columns 8n + 2t and 2t + 1) and alone reads
+//    and writes them, so they need no barrier. With O's 64 floats a thread
+//    at D = 128 in registers, the fresh accumulators overran 255 registers
+//    and spilled (every grouping tried). q is staged once per block as f32
+//    beside O and split into its TF32 parts where a fragment is loaded;
+//    registers hold the tile's scores and P's split fragments.
+//  * The online softmax runs in f32 on the accumulator fragments: row max by
+//    quad shuffles, expf (no fast math in this build), one rescale per tile;
+//    each thread keeps its share of l and the quad sums it once at the end.
+//    Only tiles that cross a row's causal limit or kv_len are masked, and a
+//    warp skips a tile that none of its rows reaches.
 #include "common.cuh"
+
+#include <climits>
 
 namespace {
 
-constexpr int FA_BQ = 32;   // query rows per block (one warp)
-constexpr int FA_BK = 32;   // keys per shared-memory tile
+constexpr int FA_BM = 64;            // packed query rows of a tile: 4 warps x 16
+constexpr int FA_THREADS = 128;
+constexpr unsigned FA_FULL = 0xFFFFFFFFu;
 
-// the four int8 levels of a 32-bit word -> 4 floats
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* dst) {
+template <int D>
+struct FaShape {
+  static constexpr int BN = D == 128 ? 32 : 64;   // keys per K/V stage
+  static constexpr int NT = BN / 8;               // 8-key blocks of a stage
+  static constexpr int LDQ = D + 8;               // floats per q / O row in smem
+  static constexpr int LDK = D + 8;               // bf16 per staged K / V row
+  static_assert(NT % 4 == 0 && D % 16 == 0, "tile shape");
+};
+
+// Dynamic shared memory: q and O [FA_BM][LDQ] f32; the bf16 K and V stages
+// [BN][LDK] (two stages; K9 widens into one); K9 only: the raw int8 K and V
+// stages [BN][D] and their scales [BN], two stages each.
+template <int D, bool KV8>
+constexpr size_t fa_smem_bytes() {
+  using Sh = FaShape<D>;
+  return 2ull * FA_BM * Sh::LDQ * sizeof(float) + (KV8 ? 1ull : 2ull) * 2 * Sh::BN * Sh::LDK * 2 +
+         (KV8 ? 2ull * 2 * Sh::BN * D + 2ull * 2 * Sh::BN * sizeof(float) : 0ull);
+}
+
+struct FaParams {
+  const float* q;
+  const void* k;
+  const float* ks;
+  const void* v;
+  const float* vs;
+  float* o;
+  float* lse;
+  float* part;        // n_split > 1: [n_split][rows][D] o, then [n_split][rows][2] (m, l)
+  int Hq, Hkv, Tq, S, kv_len, q_offset, kv_row, n_split;
+  int n_rows;         // packed rows per (b, KV head): n_rep * Tq
+  int total_rows;     // B * Hq * Tq
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !live (src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8
+// (.trans: each lane gets its pair from a column)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// x rounded to TF32 (10 stored mantissa bits, nearest, ties away), as f32 bits
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xFFFFE000u;
+}
+
+// x = hi + lo, both TF32; x - hi is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a . b on a 16x8x8 TF32 tile, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// int8 level i of a word as bf16 bits (exact)
+__device__ __forceinline__ uint32_t level_bf16(uint32_t w, int i) {
+  return __float_as_uint((float)(int8_t)(w >> (8 * i))) >> 16;
+}
+
+// The key end of packed row tile m: one past the last key any of its rows sees.
+__device__ __forceinline__ int tile_key_end(int n_rows, int kv_len, int q_offset, int m,
+                                            int n_rep) {
+  const int last = min(n_rows, (m + 1) * FA_BM) - 1;
+  return max(0, min(kv_len, q_offset + last / n_rep + 1));
+}
+
+// Issue the copies of the nk live keys of a key tile (rows j0.. of the head
+// at kg / vg, scales at ksg / vsg for K9) into stage st; rows past nk are
+// zero-filled. One commit group.
+template <int D, bool KV8, class T>
+__device__ __forceinline__ void stage_tile(const T* kg, const T* vg, const float* ksg,
+                                           const float* vsg, int j0, int nk, int st,
+                                           __nv_bfloat16* kv_s, int8_t* raw, float* scl) {
+  using Sh = FaShape<D>;
+  constexpr int BN = Sh::BN, LDK = Sh::LDK;
+  const int tid = threadIdx.x;
+  if constexpr (KV8) {
+    constexpr int CH = D / 16;                     // 16-byte chunks of a row of levels
+    int8_t* kd = raw + st * 2 * BN * D;
+    int8_t* vd = kd + BN * D;
 #pragma unroll
-  for (int b = 0; b < 4; ++b) dst[b] = (float)((int)(w << (24 - 8 * b)) >> 24);
+    for (int e = tid; e < BN * CH; e += FA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool live = r < nk;
+      const size_t off = (size_t)(j0 + (live ? r : 0)) * D + c * 16;
+      cp_async16(kd + r * D + c * 16, kg + off, live);
+      cp_async16(vd + r * D + c * 16, vg + off, live);
+    }
+    if (tid < BN) {
+      const bool live = tid < nk;
+      const int off = j0 + (live ? tid : 0);
+      cp_async4(scl + st * 2 * BN + tid, ksg + off, live);
+      cp_async4(scl + st * 2 * BN + BN + tid, vsg + off, live);
+    }
+  } else {
+    constexpr int CH = D / 8;                      // 16-byte chunks of a bf16 row
+    __nv_bfloat16* kd = kv_s + st * 2 * BN * LDK;
+    __nv_bfloat16* vd = kd + BN * LDK;
+#pragma unroll
+    for (int e = tid; e < BN * CH; e += FA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool live = r < nk;
+      const size_t off = (size_t)(j0 + (live ? r : 0)) * D + c * 8;
+      cp_async16(kd + r * LDK + c * 8, kg + off, live);
+      cp_async16(vd + r * LDK + c * 8, vg + off, live);
+    }
+  }
+  cp_async_commit();
+}
+
+// minBlocks 1: an explicit occupancy target, so ptxas does not trade
+// spills for more blocks per SM on its own
+template <int D, bool KV8>
+__global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParams p) {
+  using Sh = FaShape<D>;
+  constexpr int BN = Sh::BN, NT = Sh::NT, LDQ = Sh::LDQ, LDK = Sh::LDK;
+  constexpr int NO = D / 8;                         // 8-column blocks of the output
+  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* q_s = reinterpret_cast<float*>(fa_smem);
+  float* o_s = q_s + FA_BM * LDQ;
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(o_s + FA_BM * LDQ);
+  int8_t* raw = reinterpret_cast<int8_t*>(kv_s + (KV8 ? 1 : 2) * 2 * BN * LDK);
+  float* scl = reinterpret_cast<float*>(raw + 2 * 2 * BN * D);
+
+  const int n_rep = p.Hq / p.Hkv;
+  const int n_m = (p.n_rows + FA_BM - 1) / FA_BM;
+  const int m = n_m - 1 - (int)blockIdx.x;          // the longest tiles first
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int split = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  const int key_end = tile_key_end(p.n_rows, p.kv_len, p.q_offset, m, n_rep);
+  const int n_kt = (key_end + BN - 1) / BN;
+  const int kt0 = (int)((long long)split * n_kt / p.n_split);
+  const int kt1 = (int)((long long)(split + 1) * n_kt / p.n_split);
+
+  // this thread's rows: warp * 16 + g and + 8 of the tile
+  bool valid[2];
+  int lim[2];             // keys [0, lim) are live for the row
+  size_t orow[2];         // its row of o, lse and the partials
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = m * FA_BM + warp * 16 + g + 8 * e;
+    valid[e] = r < p.n_rows;
+    const int i = r / n_rep, h = hk * n_rep + r % n_rep;
+    orow[e] = ((size_t)b * p.Hq + h) * p.Tq + i;
+    lim[e] = valid[e] ? min(p.kv_len, p.q_offset + i + 1) : 0;
+  }
+  const int warp_hi = __reduce_max_sync(FA_FULL, max(lim[0], lim[1]));
+  const int warp_lo = __reduce_min_sync(FA_FULL, min(valid[0] ? lim[0] : INT_MAX,
+                                                     valid[1] ? lim[1] : INT_MAX));
+
+  // O in shared memory: this thread's fragment slots (its two rows, columns
+  // 8n + 2t and 2t + 1), which only this thread reads and writes
+  float* const orow_s[2] = {o_s + (warp * 16 + g) * LDQ + 2 * t,
+                            o_s + (warp * 16 + g + 8) * LDQ + 2 * t};
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(orow_s[0] + 8 * n) = make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(orow_s[1] + 8 * n) = make_float2(0.f, 0.f);
+  }
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  const size_t pos0 = ((size_t)(p.kv_row + b) * p.Hkv + hk) * p.S;   // the head's position 0
+  const T* kg = static_cast<const T*>(p.k) + pos0 * D;
+  const T* vg = static_cast<const T*>(p.v) + pos0 * D;
+  const float* ksg = KV8 ? p.ks + pos0 : nullptr;
+  const float* vsg = KV8 ? p.vs + pos0 : nullptr;
+
+  if (kt0 < kt1) {
+    stage_tile<D, KV8>(kg, vg, ksg, vsg, kt0 * BN, min(BN, key_end - kt0 * BN), 0, kv_s, raw,
+                       scl);
+    // q of the tile's rows (split into TF32 parts where a fragment is loaded);
+    // rows past n_rows are 0
+#pragma unroll 4
+    for (int e = tid; e < FA_BM * D / 4; e += FA_THREADS) {
+      const int r = e / (D / 4), c = 4 * (e % (D / 4));
+      const int pr = m * FA_BM + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (pr < p.n_rows) {
+        const int h = hk * n_rep + pr % n_rep;
+        x = __ldg(reinterpret_cast<const float4*>(
+            p.q + (((size_t)b * p.Hq + h) * p.Tq + pr / n_rep) * D + c));
+      }
+      *reinterpret_cast<float4*>(q_s + r * LDQ + c) = x;
+    }
+
+    const float* qf = q_s + (warp * 16 + g) * LDQ + 2 * t;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int st = (kt - kt0) & 1;
+      if (kt + 1 < kt1) {
+        stage_tile<D, KV8>(kg, vg, ksg, vsg, (kt + 1) * BN, min(BN, key_end - (kt + 1) * BN),
+                           st ^ 1, kv_s, raw, scl);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if constexpr (KV8) {        // widen the stage's levels into the bf16 tile
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(raw + st * 2 * BN * D);
+        constexpr int W = D / 4;
+        for (int e = tid; e < 2 * BN * W; e += FA_THREADS) {
+          const int kv = e / (BN * W), r = (e / W) % BN, c = e % W;
+          const uint32_t w = src[e];
+          *reinterpret_cast<uint2*>(kv_s + (kv * BN + r) * LDK + 4 * c) =
+              make_uint2(level_bf16(w, 0) | (level_bf16(w, 1) << 16),
+                         level_bf16(w, 2) | (level_bf16(w, 3) << 16));
+        }
+        __syncthreads();
+      }
+      const __nv_bfloat16* Ks = kv_s + (KV8 ? 0 : st * 2 * BN * LDK);
+      const __nv_bfloat16* Vs = Ks + BN * LDK;
+      const float* ksc = scl + st * 2 * BN;
+      const float* vsc = ksc + BN;
+      const int k0 = kt * BN;
+      if (k0 < warp_hi) {
+        // S = q K^T over the warp's 16 rows and the BN keys, in three
+        // accumulator chains: the hi products of even and of odd k-steps, and
+        // the lo products (see "Accumulation" in the note)
+        float s[NT][4], s1[NT][4], sl[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = s1[j][e] = sl[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const float2 x0 = *reinterpret_cast<const float2*>(qf + kk * 8);
+          const float2 x1 = *reinterpret_cast<const float2*>(qf + 8 * LDQ + kk * 8);
+          // A: (row g, d 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)
+          uint32_t ah[4], al[4];
+          split_tf32(x0.x, ah[0], al[0]);
+          split_tf32(x1.x, ah[1], al[1]);
+          split_tf32(x0.y, ah[2], al[2]);
+          split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+          for (int j4 = 0; j4 < NT / 4; ++j4) {
+            uint32_t kb[4];        // B of key blocks 4 j4 .. 4 j4 + 3: (d 2t, 2t + 1) of key g
+            ldsm_x4(kb, Ks + (32 * j4 + lane) * LDK + kk * 8);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const uint32_t b0 = kb[u] << 16, b1 = kb[u] & 0xFFFF0000u;
+              mma_tf32(kk & 1 ? s1[4 * j4 + u] : s[4 * j4 + u], ah, b0, b1);
+              mma_tf32(sl[4 * j4 + u], al, b0, b1);
+            }
+          }
+        }
+        // scale, and mask where the tile crosses a row's limit
+        const bool mask = k0 + BN > warp_lo;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = 8 * j + 2 * t + (e & 1);
+            float x = (s[j][e] + s1[j][e]) + sl[j][e];
+            x *= KV8 ? ksc[key] * p.scale : p.scale;
+            if (mask && k0 + key >= lim[e >> 1]) x = -INFINITY;
+            s[j][e] = x;
+          }
+        }
+        // online softmax per row, one rescale per tile
+        float alpha[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * e], s[j][2 * e + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(FA_FULL, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(FA_FULL, mx, 2));
+          const float m_new = fmaxf(mrow[e], mx);
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          alpha[e] = expf(mrow[e] - m_use);                    // 0 before the first live key
+          float ps = 0.f;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float pj = expf(s[j][2 * e + u] - m_use);  // masked: exp(-inf) = 0
+              s[j][2 * e + u] = pj;
+              ps += pj;
+            }
+          }
+          lrow[e] = lrow[e] * alpha[e] + ps;
+          mrow[e] = m_new;
+        }
+        // P's A fragments, split once: the S fragment of key block j is the A
+        // fragment of k-step j of P V (k t <-> key 2t, k t + 4 <-> key 2t + 1)
+        uint32_t pah[NT][4], pal[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float pv[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+          if constexpr (KV8) {    // v_scale folded into p
+            const float2 vv = *reinterpret_cast<const float2*>(vsc + 8 * j + 2 * t);
+            pv[0] *= vv.x;
+            pv[1] *= vv.x;
+            pv[2] *= vv.y;
+            pv[3] *= vv.y;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) split_tf32(pv[u], pah[j][u], pal[j][u]);
+        }
+        // O = O * alpha + P V, one 8-column block at a time: the block's P V
+        // builds over the tile's keys in fresh hi and lo accumulators and joins
+        // O in one IEEE fma; V's B pairs come from ldmatrix.trans
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          float oh[4] = {0.f, 0.f, 0.f, 0.f}, ol[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int j4 = 0; j4 < NT / 4; ++j4) {
+            uint32_t vb[4];       // key blocks 4 j4 .. 4 j4 + 3: keys 2t, 2t + 1 at column g
+            ldsm_x4_trans(vb, Vs + (32 * j4 + lane) * LDK + 8 * n);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              mma_tf32(oh, pah[4 * j4 + u], vb[u] << 16, vb[u] & 0xFFFF0000u);
+              mma_tf32(ol, pal[4 * j4 + u], vb[u] << 16, vb[u] & 0xFFFF0000u);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float2* o = reinterpret_cast<float2*>(orow_s[e] + 8 * n);
+            float2 x = *o;
+            x.x = fmaf(x.x, alpha[e], oh[2 * e] + ol[2 * e]);
+            x.y = fmaf(x.y, alpha[e], oh[2 * e + 1] + ol[2 * e + 1]);
+            *o = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // each thread held its share of l: sum the quad (the same sum on all four)
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    lrow[e] += __shfl_xor_sync(FA_FULL, lrow[e], 1);
+    lrow[e] += __shfl_xor_sync(FA_FULL, lrow[e], 2);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!valid[e]) continue;
+    const float l = lrow[e];
+    if (p.n_split == 1) {
+      float* op = p.o + orow[e] * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(orow_s[e] + 8 * n);
+        *reinterpret_cast<float2*>(op + 8 * n) =
+            l > 0.f ? make_float2(x.x / l, x.y / l) : make_float2(0.f, 0.f);
+      }
+      if (p.lse != nullptr && t == 0) p.lse[orow[e]] = l > 0.f ? mrow[e] + logf(l) : INFINITY;
+    } else {
+      const size_t slot = (size_t)split * p.total_rows + orow[e];
+      float* op = p.part + slot * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(op + 8 * n) =
+            *reinterpret_cast<const float2*>(orow_s[e] + 8 * n);
+      if (t == 0)
+        *reinterpret_cast<float2*>(p.part + (size_t)p.n_split * p.total_rows * D + 2 * slot) =
+            make_float2(mrow[e], l);
+    }
+  }
+}
+
+// Merge the n_split partials of every row: o = sum_s w_s o_s / sum_s w_s l_s
+// with w_s = exp(m_s - max m) over the splits with l_s > 0; a row with none
+// gives 0 and lse +inf. One thread per 4 columns of a row.
+template <int D>
+__global__ void flash_combine_kernel(const float* __restrict__ part, float* __restrict__ o,
+                                     float* __restrict__ lse, int total_rows, int n_split) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total_rows * (D / 4)) return;
+  const int row = e / (D / 4), c = 4 * (e % (D / 4));
+  const float2* ml = reinterpret_cast<const float2*>(part + (size_t)n_split * total_rows * D);
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s) {
+    const float2 v = ml[(size_t)s * total_rows + row];
+    if (v.y > 0.f) mx = fmaxf(mx, v.x);
+  }
+  float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+  float den = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float2 v = ml[(size_t)s * total_rows + row];
+    if (v.y > 0.f) {                 // splits with no live key for the row add nothing
+      const float w = expf(v.x - mx);
+      const float4 x =
+          *reinterpret_cast<const float4*>(part + ((size_t)s * total_rows + row) * D + c);
+      num.x = fmaf(w, x.x, num.x);
+      num.y = fmaf(w, x.y, num.y);
+      num.z = fmaf(w, x.z, num.z);
+      num.w = fmaf(w, x.w, num.w);
+      den = fmaf(w, v.y, den);
+    }
+  }
+  *reinterpret_cast<float4*>(o + (size_t)row * D + c) =
+      den > 0.f ? make_float4(num.x / den, num.y / den, num.z / den, num.w / den)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (lse != nullptr && c == 0) lse[row] = den > 0.f ? mx + logf(den) : INFINITY;
 }
 
 template <int D, bool KV8>
-__global__ void __launch_bounds__(FA_BQ)
-flash_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
-                  const float* __restrict__ ks, const void* __restrict__ v,
-                  const float* __restrict__ vs, float* __restrict__ o, float* __restrict__ lse,
-                  int Hq, int Hkv, int Tq, int S, int kv_len, int q_offset, int kv_row,
-                  float scale) {
-  __shared__ __align__(16) float Ks[FA_BK][D];
-  __shared__ __align__(16) float Vs[FA_BK][D];
-  __shared__ float Kscale[KV8 ? FA_BK : 1];      // KV8: k_scale * scale per key of the tile
-  __shared__ float Vscale[KV8 ? FA_BK : 1];      // KV8: v_scale per key
-  const int bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int row = blockIdx.x * FA_BQ + threadIdx.x;
-  const bool live_row = row < Tq;
-  const int q_abs = q_offset + row;
+int launch(const FaParams& p, int B, int bn, cudaStream_t st) {
+  if (bn != FaShape<D>::BN) return ZGML_ERR_SHAPE;      // the host plan's tile must be ours
+  constexpr size_t smem = fa_smem_bytes<D, KV8>();
+  int rc = allow_dynamic_smem(flash_attn_kernel<D, KV8>, smem);
+  if (rc != 0) return rc;
+  const dim3 grid((p.n_rows + FA_BM - 1) / FA_BM, B * p.Hkv, p.n_split);
+  flash_attn_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(p);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || p.n_split == 1) return rc;
+  const int threads = 256, n = p.total_rows * (D / 4);
+  flash_combine_kernel<D><<<(n + threads - 1) / threads, threads, 0, st>>>(
+      p.part, p.o, p.lse, p.total_rows, p.n_split);
+  return (int)cudaGetLastError();
+}
 
-  float qr[D], acc[D];
-  const float* qp = q + ((size_t)bh * Tq + (live_row ? row : 0)) * D;
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    qr[i] = live_row ? qp[i] : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  const int tile_last = min(Tq, (int)(blockIdx.x + 1) * FA_BQ) - 1;
-  const int kv_end = min(min(kv_len, q_offset + tile_last + 1), S);
-  const size_t pos0 = ((size_t)(kv_row + b) * Hkv + hk) * S;   // the head's first position
-  constexpr int PER = KV8 ? 16 : 8;                 // elements per 16-byte load
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
-  const uint4* kg = reinterpret_cast<const uint4*>(static_cast<const T*>(k) + pos0 * D);
-  const uint4* vg = reinterpret_cast<const uint4*>(static_cast<const T*>(v) + pos0 * D);
-
-  for (int t0 = 0; t0 < kv_end; t0 += FA_BK) {
-    const int nk = min(FA_BK, kv_end - t0);
-    // tile rows are contiguous in the cache
-    for (int e = threadIdx.x; e < nk * D / PER; e += FA_BQ) {
-      const int j = (e * PER) / D, c = (e * PER) % D;
-      const uint4 kw = __ldg(kg + (size_t)t0 * D / PER + e);
-      const uint4 vw = __ldg(vg + (size_t)t0 * D / PER + e);
-      const uint32_t kk[4] = {kw.x, kw.y, kw.z, kw.w};
-      const uint32_t vv[4] = {vw.x, vw.y, vw.z, vw.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if constexpr (KV8) {
-          i8x4_to_f32(kk[u], &Ks[j][c + 4 * u]);
-          i8x4_to_f32(vv[u], &Vs[j][c + 4 * u]);
-        } else {
-          Ks[j][c + 2 * u] = bf16_lo(kk[u]);
-          Ks[j][c + 2 * u + 1] = bf16_hi(kk[u]);
-          Vs[j][c + 2 * u] = bf16_lo(vv[u]);
-          Vs[j][c + 2 * u + 1] = bf16_hi(vv[u]);
-        }
-      }
-    }
-    if constexpr (KV8) {
-      for (int j = threadIdx.x; j < nk; j += FA_BQ) {
-        Kscale[j] = __ldg(ks + pos0 + t0 + j) * scale;
-        Vscale[j] = __ldg(vs + pos0 + t0 + j);
-      }
-    }
-    __syncthreads();
-    if (live_row) {
-      float s[FA_BK];
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < FA_BK; ++j) {
-        float sj = -INFINITY;
-        if (j < nk && t0 + j <= q_abs) {
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < D; i += 4) {
-            const float4 kv4 = *reinterpret_cast<const float4*>(&Ks[j][i]);
-            dot = fmaf(qr[i], kv4.x, dot);
-            dot = fmaf(qr[i + 1], kv4.y, dot);
-            dot = fmaf(qr[i + 2], kv4.z, dot);
-            dot = fmaf(qr[i + 3], kv4.w, dot);
-          }
-          sj = dot * (KV8 ? Kscale[j] : scale);
-        }
-        s[j] = sj;
-        tmax = fmaxf(tmax, sj);
-      }
-      if (tmax > -INFINITY) {
-        const float m_new = fmaxf(m, tmax);
-        const float alpha = expf(m - m_new);   // 0 on the first live tile
-        float psum = 0.f;
-#pragma unroll
-        for (int i = 0; i < D; ++i) acc[i] *= alpha;
-#pragma unroll
-        for (int j = 0; j < FA_BK; ++j) {
-          if (s[j] == -INFINITY) continue;     // masked, or past the tile's keys
-          const float p = expf(s[j] - m_new);
-          psum += p;
-          const float pv = KV8 ? p * Vscale[j] : p;     // the V scale folded into p
-#pragma unroll
-          for (int i = 0; i < D; i += 4) {
-            const float4 v4 = *reinterpret_cast<const float4*>(&Vs[j][i]);
-            acc[i] = fmaf(pv, v4.x, acc[i]);
-            acc[i + 1] = fmaf(pv, v4.y, acc[i + 1]);
-            acc[i + 2] = fmaf(pv, v4.z, acc[i + 2]);
-            acc[i + 3] = fmaf(pv, v4.w, acc[i + 3]);
-          }
-        }
-        l = l * alpha + psum;
-        m = m_new;
-      }
-    }
-    __syncthreads();
-  }
-  if (live_row) {
-    float* op = o + ((size_t)bh * Tq + row) * D;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int i = 0; i < D; ++i) op[i] = acc[i] * inv;
-    if (lse != nullptr) lse[(size_t)bh * Tq + row] = l > 0.f ? m + logf(l) : INFINITY;
-  }
+template <int D, bool KV8>
+int blocks_per_sm(int* n) {
+  constexpr size_t smem = fa_smem_bytes<D, KV8>();
+  const int rc = allow_dynamic_smem(flash_attn_kernel<D, KV8>, smem);
+  if (rc != 0) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, flash_attn_kernel<D, KV8>,
+                                                            FA_THREADS, smem);
 }
 
 template <bool KV8>
-int launch(const float* q, const void* k, const float* ks, const void* v, const float* vs,
-           float* o, float* lse, int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len,
-           int q_offset, int kv_row, float scale, cudaStream_t st) {
-  const dim3 grid((Tq + FA_BQ - 1) / FA_BQ, B * Hq);
-#define ZGML_FLASH(DD)                                                                      \
-  case DD:                                                                                  \
-    flash_attn_kernel<DD, KV8><<<grid, FA_BQ, 0, st>>>(q, k, ks, v, vs, o, lse, Hq, Hkv, Tq, \
-                                                       S, kv_len, q_offset, kv_row, scale); \
-    break;
+int launch_hd(const FaParams& p, int B, int D, int bn, cudaStream_t st) {
   switch (D) {
-    ZGML_FLASH(16)
-    ZGML_FLASH(32)
-    ZGML_FLASH(64)
-    ZGML_FLASH(128)
+    case 16: return launch<16, KV8>(p, B, bn, st);
+    case 32: return launch<32, KV8>(p, B, bn, st);
+    case 64: return launch<64, KV8>(p, B, bn, st);
+    case 128: return launch<128, KV8>(p, B, bn, st);
     default: return ZGML_ERR_HEAD_DIM;
   }
-#undef ZGML_FLASH
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// *n = the blocks of flash_attn_kernel<D, kv8> one SM holds at once (the
+// occupancy the host plan fills); returns a status.
+ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv8, int* n) {
+#define ZGML_FLASH_OCC(DD) \
+  case DD: return kv8 ? blocks_per_sm<DD, true>(n) : blocks_per_sm<DD, false>(n);
+  switch (D) {
+    ZGML_FLASH_OCC(16)
+    ZGML_FLASH_OCC(32)
+    ZGML_FLASH_OCC(64)
+    ZGML_FLASH_OCC(128)
+    default: return ZGML_ERR_HEAD_DIM;
+  }
+#undef ZGML_FLASH_OCC
+}
+
 // q f32 [B, Hq, Tq, D], k/v [R, Hkv, S, D] with R >= kv_row + B: bf16 (K3, ks
 // and vs null) or int8 levels with f32 scales ks/vs [R, Hkv, S] (K9); o f32
 // [B, Hq, Tq, D]; lse f32 [B, Hq, Tq] or null (K10f writes it; bf16 cache
-// only); all contiguous, 16-byte aligned.
+// only); all contiguous, 16-byte aligned. n_split and bn come from
+// ops/attention.py flash_split_plan (bn must be this build's tile for D);
+// with n_split > 1, part is f32 scratch of n_split * B * Hq * Tq * (D + 2).
 ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const float* ks,
                                      const void* v, const float* vs, float* o, float* lse,
-                                     int B, int Hq, int Hkv, int Tq, int S, int D, int kv_len,
-                                     int q_offset, int kv_row, float scale, void* stream) {
+                                     float* part, int B, int Hq, int Hkv, int Tq, int S, int D,
+                                     int kv_len, int q_offset, int kv_row, int n_split, int bn,
+                                     float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0 || S <= 0 || kv_row < 0 ||
-      q_offset < 0 || (ks == nullptr) != (vs == nullptr) || (ks != nullptr && lse != nullptr))
+      q_offset < 0 || n_split < 1 || n_split > 65535 || (n_split > 1 && part == nullptr) ||
+      (ks == nullptr) != (vs == nullptr) || (ks != nullptr && lse != nullptr))
     return ZGML_ERR_SHAPE;
+  FaParams p{q, k, ks, v, vs, o, lse, part, Hq, Hkv, Tq, S, max(0, min(kv_len, S)), q_offset,
+             kv_row, n_split, (Hq / Hkv) * Tq, B * Hq * Tq, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ks != nullptr)
-    return launch<true>(q, k, ks, v, vs, o, lse, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
-                        scale, st);
-  return launch<false>(q, k, ks, v, vs, o, lse, B, Hq, Hkv, Tq, S, D, kv_len, q_offset, kv_row,
-                       scale, st);
+  return ks != nullptr ? launch_hd<true>(p, B, D, bn, st) : launch_hd<false>(p, B, D, bn, st);
 }

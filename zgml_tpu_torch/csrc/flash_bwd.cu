@@ -9,8 +9,10 @@
 // Semantics (plain versions: ops/flash_vjp.py flash_dq_ref, flash_dkv_ref):
 //   q, dO, O f32 [B, Hq, Tq, D]; k, v bf16 [B, Hkv, S, D]; lse f32 [B, Hq, Tq]
 //   from K10f. Query row i (absolute q_offset + i) sees keys j < kv_len with
-//   j <= q_offset + i. s = (q . k) * scale is summed in the order K3 / K10f
-//   sum it, so p = exp(s - lse) is the forward's softmax; delta = rowsum(dO O).
+//   j <= q_offset + i. s = (q . k) * scale is summed here in f32, in another
+//   order than K10f's split-TF32 tensor-core sums, so p = exp(s - lse)
+//   differs from the forward's softmax by f32 rounding of s (~1e-7
+//   relative); delta = rowsum(dO O).
 //     dQ_i  = sum_j dS_ij k_j,   dS  = p * (dO . v - delta) * scale    (f32 dO)
 //     dV_j  = sum_i p_ij dO_i
 //     dK_j  = sum_i dS'_ij q_i,  dS' = p * (bf16(dO) . v - delta) * scale
@@ -30,11 +32,12 @@
 // threads per block. In phase 1 each thread takes one query row and 4 keys of
 // the tile (s and dP, reusing its q / dO element across the 4 dots); in phase
 // 2 each thread owns D/8 (dQ) or 2 x D/8 (dK, dV) output sums in registers:
-// at most 32 floats at D = 128, where K3's one-row-per-thread accumulators
-// spill. No atomics: dQ has one block per (query head, 32 query rows) that
-// walks the live key tiles; dK/dV one block per (query head, 32 keys) that
-// walks the query tiles whose causal window reaches it. Rows are padded to
-// D + 1 floats, so the threads of a warp read distinct banks.
+// at most 32 floats at D = 128, where one query row per thread (256
+// accumulator floats) would spill. No atomics: dQ has one block per (query
+// head, 32 query rows) that walks the live key tiles; dK/dV one block per
+// (query head, 32 keys) that walks the query tiles whose causal window
+// reaches it. Rows are padded to D + 1 floats, so the threads of a warp read
+// distinct banks.
 #include "common.cuh"
 
 namespace {
@@ -66,8 +69,9 @@ __device__ __forceinline__ void load_bf16_rows(const __nv_bfloat16* __restrict__
 
 // Phase 1 of both kernels: for this thread's query row r (of the tile at
 // query i0) and keys j = (tid & 7) + 8u of the tile at key j0, the scores
-// s = (q . k) * scale in K3's order, p = exp(s - lse) (0 where masked), and
-// the dots dO . v (on `dOs`). Returns p and dp per key.
+// s = (q . k) * scale in f32 (in this kernel's order, not K10f's), p =
+// exp(s - lse) (0 where masked), and the dots dO . v (on `dOs`). Returns p
+// and dp per key.
 template <int D>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
                                        const float* Vs, int r, int i0, int j0, int Tq,

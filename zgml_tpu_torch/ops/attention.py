@@ -22,8 +22,21 @@ K8 quantizes q per query head (attention.py:529-533) and takes integer
 q.k dots, K9 keeps q f32 (the port's prefill is ZGML_TPU_PREFILL_BF16=0);
 both fold the per-position scales into the scores and into p.
 Callers go through ``ops.dispatch``.
+
+The prefill kernel (K3, K9 and K10f, csrc/flash_attn.cu) packs the n_rep
+query heads of a KV head into tiles of FLASH_BM rows, position-major, and
+may split each tile's live prefix across blocks. ``flash_split_plan`` picks
+the split from the shapes, the SM count and the blocks an SM holds
+(``flash_plan`` asks the card for both); ``flash_partials_ref`` and
+``combine_partials_ref`` are the kernel's two stages in torch (each
+split's unnormalised o, m and l, then their merge), which the CPU tests
+hold to the one-stage plain versions.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -32,6 +45,100 @@ from zgml_tpu_torch.quant.kv_cache import quantize_columns
 from zgml_tpu_torch.runtime.profile import global_profile
 
 HEAD_DIMS = (16, 32, 64, 128)     # compiled instantiations of K3, K4, K8 and K9
+
+# The prefill kernel's tiling (csrc/flash_attn.cu FA_BM, FaShape::BN) and its
+# split policy: fill the blocks the card holds at once (its SMs times the
+# instantiation's blocks per SM, which the card reports; FLASH_BLOCKS_PER_SM
+# where no card is asked, its value at head_dim 128) in one wave, give each
+# split at least FLASH_MIN_KEY_TILES key tiles (each split restages q and adds
+# a partial to the combine), and at most FLASH_MAX_SPLIT splits.
+FLASH_BM = 64
+FLASH_BLOCKS_PER_SM = 2
+FLASH_MIN_KEY_TILES = 2
+FLASH_MAX_SPLIT = 16
+
+
+def flash_bn(d: int) -> int:
+    """Keys per K/V tile of the prefill kernel at head_dim d."""
+    return 32 if d == 128 else 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How the prefill kernel cuts one call: row tiles of ``bm`` packed rows
+    (row r = position r // n_rep of query head hk * n_rep + r % n_rep), key
+    tiles of ``bn``, and each row tile's key tiles split over ``n_split``
+    blocks. The kernel does this arithmetic itself (tile_key_end, and the
+    split's [kt0, kt1)); these methods are the same formulas."""
+    bm: int
+    bn: int
+    n_rep: int
+    tq: int
+    kv_len: int
+    q_offset: int
+    n_split: int
+
+    @property
+    def n_m(self) -> int:
+        return -(-self.n_rep * self.tq // self.bm)
+
+    def tile_key_end(self, m: int) -> int:
+        """One past the last key any row of row tile m attends."""
+        last = min(self.n_rep * self.tq, (m + 1) * self.bm) - 1
+        return max(0, min(self.kv_len, self.q_offset + last // self.n_rep + 1))
+
+    def split_keys(self, m: int, s: int) -> tuple[int, int]:
+        """Keys [k0, k1) of row tile m that split s takes: key tiles
+        [s * n // n_split, (s + 1) * n // n_split) of the tile's n."""
+        end = self.tile_key_end(m)
+        n = -(-end // self.bn)
+        kt0, kt1 = s * n // self.n_split, (s + 1) * n // self.n_split
+        return min(kt0 * self.bn, end), min(kt1 * self.bn, end)
+
+
+def flash_split_plan(b: int, hq: int, hkv: int, tq: int, d: int, kv_len: int, q_offset: int,
+                     sm_count: int, per_sm: int = FLASH_BLOCKS_PER_SM) -> FlashPlan:
+    """The prefill kernel's plan for q [b, hq, tq, d] over keys j < kv_len
+    at q_offset on a card of sm_count SMs that each hold per_sm blocks: split
+    the live prefix into as many parts as one wave of blocks has room for
+    beside the tiles (so a split never adds a second, mostly idle wave), and
+    no further than the longest tile has key tiles for. A pure function of
+    the shapes and the card, so K3 and K10f on the same inputs take the same
+    plan (and K10f's O stays K3's bit for bit)."""
+    n_rep, bn = hq // hkv, flash_bn(d)
+    kv_len = max(0, kv_len)
+    tiles = b * hkv * -(-n_rep * tq // FLASH_BM)
+    longest = -(-max(0, min(kv_len, q_offset + tq)) // bn)
+    want = per_sm * sm_count // tiles
+    n_split = max(1, min(want, longest // FLASH_MIN_KEY_TILES, FLASH_MAX_SPLIT))
+    return FlashPlan(FLASH_BM, bn, n_rep, tq, kv_len, q_offset, n_split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, d: int, kv8: bool) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(build.library().zgml_flash_blocks_per_sm(d, int(kv8), ctypes.byref(n)),
+                    "flash occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"flash attention (head_dim {d}): no block fits on an SM")
+    return n.value
+
+
+def flash_plan(q, k, kv_len, q_offset: int, kv8: bool) -> FlashPlan:
+    """The plan a launch of the prefill kernel takes for q and the cache k
+    on q's card (its SM count and the instantiation's blocks per SM)."""
+    b, hq, tq, d = q.shape
+    _, hkv, s, _ = k.shape
+    kv_len = s if kv_len is None else min(int(kv_len), s)
+    index = q.device.index or 0
+    return flash_split_plan(b, hq, hkv, tq, d, kv_len, int(q_offset), _sm_count(index),
+                            _blocks_per_sm(index, d, kv8))
 
 
 def flash_attention_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
@@ -115,6 +222,85 @@ def flash_attention_q8_ref(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_r
     return softmax_pv(scores, v, vs).reshape(b, hq, tq, d)
 
 
+def _packed(q, hkv):
+    """q [B, Hq, Tq, d] -> [B, Hkv, n_rep * Tq, d], rows (position, rep)."""
+    b, hq, tq, d = q.shape
+    return q.reshape(b, hkv, hq // hkv, tq, d).transpose(2, 3).reshape(b, hkv, -1, d)
+
+
+def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
+                       plan: FlashPlan | None = None, ks=None, vs=None):
+    """The prefill kernel's first stage in torch: for each split s of
+    `plan` (one split if None) and each row, the split's unnormalised o
+    (sum of (p * v_scale) v over its live keys, p = exp(s - m)), its max m
+    (-inf where it has no live key) and l = sum p. bf16 cache (K3 / K10f)
+    or, with ks and vs, the int8 one (K9). Returns (o [n_split, B, Hq, Tq,
+    d], m [n_split, B, Hq, Tq], l [n_split, B, Hq, Tq]), f32 as the kernel
+    stores them, each summed in float64 and rounded once: held to the
+    one-stage f32 versions, the difference is then the split and the merge,
+    not a second f32 summation order over a long prefix."""
+    b, hq, tq, d = q.shape
+    if ks is None:
+        k, v = _rows(kv_row, b, k, v)
+    else:
+        k, ks, v, vs = _rows(kv_row, b, k, ks, v, vs)
+    hkv, s_len = k.shape[1], k.shape[2]
+    kv_len = s_len if kv_len is None else min(int(kv_len), s_len)
+    if plan is None:
+        plan = FlashPlan(FLASH_BM, flash_bn(d), hq // hkv, tq, max(0, kv_len), q_offset, 1)
+    f64 = torch.float64
+    scale = 1.0 / d ** 0.5
+    qp = _packed(q.to(torch.float32).to(f64), hkv)             # [B, Hkv, R, d]
+    rows = qp.shape[2]
+    pos = torch.arange(rows, device=q.device) // plan.n_rep + q_offset
+    lim = torch.clamp(torch.minimum(pos + 1, torch.full_like(pos, kv_len)), min=0)
+    kf, vf = k.to(f64), v.to(f64)
+    if ks is not None:      # k_scale * scale rounded to f32, as the kernel takes it
+        ksc, vs = (ks.to(torch.float32) * scale).to(f64), vs.to(torch.float32).to(f64)
+    po = torch.zeros((plan.n_split, b, hkv, rows, d), dtype=f64, device=q.device)
+    pm = torch.full((plan.n_split, b, hkv, rows), float("-inf"), dtype=f64, device=q.device)
+    pl = torch.zeros((plan.n_split, b, hkv, rows), dtype=f64, device=q.device)
+    for m in range(plan.n_m):
+        r0, r1 = m * plan.bm, min(rows, (m + 1) * plan.bm)
+        for si in range(plan.n_split):
+            k0, k1 = plan.split_keys(m, si)
+            if k0 >= k1:
+                continue
+            sc = torch.einsum("bgrd,bgkd->bgrk", qp[:, :, r0:r1], kf[:, :, k0:k1])
+            sc = sc * (scale if ks is None else ksc[:, :, None, k0:k1])
+            live = torch.arange(k0, k1, device=q.device)[None, :] < lim[r0:r1, None]
+            sc = torch.where(live, sc, torch.full_like(sc, float("-inf")))
+            mx = sc.amax(dim=-1)
+            p = torch.exp(sc - torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))[..., None])
+            pv = p if vs is None else p * vs[:, :, None, k0:k1]
+            po[si, :, :, r0:r1] = torch.einsum("bgrk,bgkd->bgrd", pv, vf[:, :, k0:k1])
+            pm[si, :, :, r0:r1] = mx
+            pl[si, :, :, r0:r1] = p.sum(dim=-1)
+
+    def unpack(x):      # [n_split, B, Hkv, R, ...] -> f32 [n_split, B, Hq, Tq, ...]
+        x = x.reshape(plan.n_split, b, hkv, tq, plan.n_rep, *x.shape[4:])
+        return x.transpose(3, 4).reshape(plan.n_split, b, hq, tq, *x.shape[5:]).to(torch.float32)
+    return unpack(po), unpack(pm), unpack(pl)
+
+
+def combine_partials_ref(po, pm, pl):
+    """The prefill kernel's second stage: merge the splits' partials into
+    (o [B, Hq, Tq, d], lse [B, Hq, Tq]); splits with l = 0 add nothing, and
+    a row with no live key in any split gives o = 0 and lse = +inf."""
+    live = pl > 0
+    mx = torch.where(live, pm, torch.full_like(pm, float("-inf"))).amax(dim=0)
+    w = torch.where(live, torch.exp(pm - torch.where(torch.isfinite(mx), mx,
+                                                     torch.zeros_like(mx))), torch.zeros_like(pm))
+    den = (w * pl).sum(dim=0)
+    num = (w[..., None] * po).sum(dim=0)
+    some = den > 0
+    o = torch.where(some[..., None], num / torch.where(some, den, torch.ones_like(den))[..., None],
+                    torch.zeros_like(num))
+    lse = torch.where(some, mx + torch.log(torch.where(some, den, torch.ones_like(den))),
+                      torch.full_like(den, float("inf")))
+    return o, lse
+
+
 def check_qkv(name: str, q, k, v, kv_row: int, tq: int | None, scales=None):
     def require(cond, msg):
         if not cond:
@@ -147,28 +333,42 @@ def _ptr(t):
 
 def flash_attention_cuda(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
     """Launch K3. kv_len, q_offset and kv_row are host ints."""
-    return _flash(q, k, None, v, None, kv_len, q_offset, kv_row)
+    check_qkv("attention", q, k, v, kv_row, None)
+    o, _ = launch_flash(q, k, None, v, None, kv_len, q_offset, kv_row, lse=False)
+    global_profile.count_op("attention", "cuda")
+    return o
 
 
 def flash_attention_q8_cuda(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0):
     """Launch K9 (K3's int8-cache mode). kv_len, q_offset, kv_row host ints."""
-    return _flash(q, k, ks, v, vs, kv_len, q_offset, kv_row)
+    check_qkv("flash_attention_q8", q, k, v, kv_row, None, (ks, vs))
+    o, _ = launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse=False)
+    global_profile.count_op("flash_attention_q8", "cuda")
+    return o
 
 
-def _flash(q, k, ks, v, vs, kv_len, q_offset, kv_row):
-    name = "attention" if ks is None else "flash_attention_q8"
-    check_qkv(name, q, k, v, kv_row, None, None if ks is None else (ks, vs))
+def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool):
+    """One launch of csrc/flash_attn.cu on checked inputs, with the plan of
+    flash_split_plan for this card (and its combine pass when the plan
+    splits): (o, lse or None). The caller counts the launch under its name
+    (K3, K9 or K10f)."""
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     kv_len = s if kv_len is None else int(kv_len)
+    plan = flash_plan(q, k, kv_len, q_offset, ks is not None)
     o = torch.empty_like(q)
+    lse_t = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device) if lse else None
+    part = None
+    if plan.n_split > 1:        # each split's o, then its (m, l), per row
+        part = torch.empty(plan.n_split * b * hq * tq * (d + 2), dtype=torch.float32,
+                           device=q.device)
     status = build.library().zgml_flash_attention(
-        q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), None, b, hq,
-        hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), 1.0 / d ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, name)
-    global_profile.count_op(name, "cuda")
-    return o
+        q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), _ptr(lse_t),
+        _ptr(part), b, hq, hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), plan.n_split,
+        plan.bn, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "flash_fwd" if lse else
+                "attention" if ks is None else "flash_attention_q8")
+    return o, lse_t
 
 
 def decode_attention_cuda(q, k, v, kv_len, kv_row: int = 0):

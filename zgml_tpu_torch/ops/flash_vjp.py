@@ -25,17 +25,18 @@ dK's dP takes dO rounded to bf16 and dQ's the f32 dO, as the JAX kernels do
 ``FlashAttention`` sums each GQA group of dK / dV outside the kernels in f32
 and rounds once to bf16, as XLA sums the bf16 group (flash_vjp.py:366-370).
 
-``*_cuda`` launch csrc/flash_attn.cu (K10f, K3 with an LSE output, so its O
-is K3's bit for bit) and csrc/flash_bwd.cu; ``*_ref`` are the plain torch
-versions. Callers go through ``ops.dispatch.flash_attention``, which takes
-this path when grad is enabled and q, k or v requires it.
+``*_cuda`` launch csrc/flash_attn.cu (K10f, K3 with an LSE output: the same
+launch and split plan, so its O is K3's bit for bit; with a split prefix
+the combine pass writes the LSE) and csrc/flash_bwd.cu; ``*_ref`` are the
+plain torch versions. Callers go through ``ops.dispatch.flash_attention``,
+which takes this path when grad is enabled and q, k or v requires it.
 """
 from __future__ import annotations
 
 import torch
 
 from zgml_tpu_torch.ops import build
-from zgml_tpu_torch.ops.attention import check_qkv, flash_attention_ref
+from zgml_tpu_torch.ops.attention import check_qkv, flash_attention_ref, launch_flash
 from zgml_tpu_torch.runtime.profile import global_profile
 
 
@@ -125,15 +126,7 @@ def _lens(k, kv_len):
 def flash_fwd_lse_cuda(q, k, v, kv_len=None, q_offset: int = 0):
     """Launch K10f (csrc/flash_attn.cu): (o, lse)."""
     _check("flash_fwd", q, k, v)
-    b, hq, tq, d = q.shape
-    _, hkv, s, _ = k.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
-    status = build.library().zgml_flash_attention(
-        q.data_ptr(), k.data_ptr(), None, v.data_ptr(), None, o.data_ptr(), lse.data_ptr(), b, hq,
-        hkv, tq, s, d, _lens(k, kv_len), int(q_offset), 0, 1.0 / d ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, "flash_fwd")
+    o, lse = launch_flash(q, k, None, v, None, kv_len, q_offset, 0, lse=True)
     global_profile.count_op("flash_fwd", "cuda")
     return o, lse
 
