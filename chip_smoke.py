@@ -34,9 +34,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      least time the card could take: bytes moved, each input read once and
      each output written once, over 3.35 TB/s, or the operations over the
      card's peak for their type, f32 at 67 TFLOP/s and int8 at 1979 TOP/s;
-     K3 / K9 / K10f, which run each f32 dot as two TF32 products, at twice
-     their f32 operations over 495 TFLOP/s; whichever is larger; the flash
-     cases also record their plan's n_split) and, where one PyTorch call
+     K3 / K9 / K10f and K11, which run each f32 dot as two TF32 products, at
+     twice their f32 operations over 495 TFLOP/s; whichever is larger; the
+     flash cases and K11 also record their plan's n_split) and, where one PyTorch call
      computes the same function, that call's device time (library_ms, timed
      here and used nowhere in the port; for K8 / K9
      scaled_dot_product_attention after an untimed dequant). K12 (rmsnorm)
@@ -230,6 +230,7 @@ TRAIN_FLASH_CASES = [("TinyLlama B=4 T=512", 4, 32, 4, 512, 512, 64, 512, 0),
                      ("7B hd=128 n_rep=1 T=512", 1, 32, 32, 512, 512, 128, 512, 0),
                      ("kv_len < S", 1, 32, 4, 128, 512, 64, 300, 172)]
 TRAIN_M = 512              # K11's rows: B 1 x T 512 (train_q4_frozen), one step's g
+K11_RMS_RATIO = 2.0        # K11's rms error vs float64, at most this x cuBLAS f32's
 TRAIN_B, TRAIN_T = 4, 512  # train_dense's batch of corpus windows
 FROZEN_B = 1               # train_q4_frozen's batch
 TRAIN_STEPS = {"train_dense": 6, "train_q4_frozen": 6, "train_q8_frozen": 2,
@@ -282,9 +283,10 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 I8_OP_PER_S = 1979e12
 TF32_FLOP_PER_S = 495e12
-# K3 / K9 / K10f run their f32 dots as two TF32 products each (q or p split
-# into hi + lo, csrc/flash_attn.cu): their least time for the same
-# f32-accurate work counts TF32_PASSES x the f32 operations at the TF32 rate
+# K3 / K9 / K10f and K11 run their f32 dots as two TF32 products each (q, p
+# or g * scale split into hi + lo, csrc/flash_attn.cu, csrc/qmatmul_bwd.cu):
+# their least time for the same f32-accurate work counts TF32_PASSES x the f32
+# operations at the TF32 rate
 TF32_PASSES = 2
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
 PATHS = {"default": {},
@@ -1188,27 +1190,42 @@ def check_training_attention(torch, dev, g, record):
 
 def check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k):
     """K11 at TRAIN_M rows of g against g @ dequant(W): K2's bound with N in
-    K's place; the library call is torch.matmul on the weight dequantized
-    outside the timed window."""
-    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda, qmatmul_bwd_ref
+    K's place; two launches give the same bits (a fixed split, no atomics);
+    its rms error against float64 at most K11_RMS_RATIO x the plain
+    version's (cuBLAS f32). The library call is torch.matmul on the weight
+    dequantized outside the timed window; the bound counts its TF32
+    products (TF32_PASSES per f32 product)."""
+    from zgml_tpu_torch.ops.qmatmul import (_bwd_card, qmatmul_bwd_cuda, qmatmul_bwd_plan,
+                                            qmatmul_bwd_ref)
     copies = weights(kind, n, k, 48_000_000)
     w = copies[0]
     gr = torch.randn((TRAIN_M, n), device=dev, generator=g)
-    got, want = qmatmul_bwd_cuda(gr, w), qmatmul_bwd_ref(gr, w)
+    got, again, want = qmatmul_bwd_cuda(gr, w), qmatmul_bwd_cuda(gr, w), qmatmul_bwd_ref(gr, w)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     bound = 1e-4 * n ** 0.5 + 1e-5 * float(want.abs().max())
     kname = f"{'q4' if kind == 'q4_0' else 'q8'}_matmul_bwd"
+    case = f"{name} M={TRAIN_M} N={n} K={k}"
     require(bool(torch.isfinite(got).all()) and err <= bound,
-            f"{kname} {name} M={TRAIN_M}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            f"{kname} {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+    require(bool(torch.equal(got, again)), f"{kname} {case}: two launches differ")
+    exact = gr.double() @ w.dequant().double()
+    rms, rms_plain = (float((x.double() - exact).square().mean().sqrt()) for x in (got, want))
+    require(rms <= K11_RMS_RATIO * rms_plain,
+            f"{kname} {case}: rms error vs float64 {rms:.3g} > {K11_RMS_RATIO} x plain's "
+            f"{rms_plain:.3g}")
+    del exact
     t = time_ms(torch, [lambda w_=c: qmatmul_bwd_cuda(gr, w_) for c in copies], 10)
     tp = time_ms(torch, [lambda w_=c: qmatmul_bwd_ref(gr, w_) for c in copies], 4)
     wd = w.dequant()
     lib = time_ms(torch, [lambda: torch.matmul(gr, wd)], 10)
     del wd
-    record(kname, f"{name} M={TRAIN_M} N={n} K={k}", err, bound, t, tp,
-           TRAIN_M * n * 4 + nbytes_of(w.qs, w.d) + TRAIN_M * k * 4, 2 * TRAIN_M * n * k, lib,
-           "torch.matmul(g, W) f32, W dequantized outside the timed window")
+    plan = qmatmul_bwd_plan(TRAIN_M, n, k, *_bwd_card(dev.index or 0, kind))
+    record(kname, case, err, bound, t, tp,
+           TRAIN_M * n * 4 + nbytes_of(w.qs, w.d) + TRAIN_M * k * 4, 0, lib,
+           "torch.matmul(g, W) f32, W dequantized outside the timed window",
+           tf32ops=TF32_PASSES * 2 * TRAIN_M * n * k, n_split=plan.n_split,
+           rms_vs_plain=rms / rms_plain if rms_plain else None)
 
 
 def copies_for(nbytes: int, total: int = 128_000_000, most: int = 64) -> int:
@@ -2283,11 +2300,14 @@ def main() -> int:
     path, nvcc_s = build.build()
     build.library()
     log(f"  kernels built in {nvcc_s:.1f} s (load {time.perf_counter() - t0:.1f} s): {path}")
-    if (path.parent / "build.log").is_file():    # ptxas -v of the flash instantiations
-        summary["ptxas_flash"] = ptxas_report(path.parent / "build.log", "flash")
-        for e in summary["ptxas_flash"]:
-            log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
-                f"{e.get('spill_stores')} bytes spill stores, {e.get('stack')} bytes stack")
+    if (path.parent / "build.log").is_file():    # ptxas -v of the tensor-core kernels
+        for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd")):
+            summary[key] = ptxas_report(path.parent / "build.log", pattern)
+            for e in summary[key]:
+                log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
+                    f"{e.get('spill_stores')} bytes spill stores, {e.get('stack')} bytes stack")
+        spilled = [e["entry"] for e in summary["ptxas_qmatmul_bwd"] if e.get("spill_stores")]
+        require(not spilled, f"K11 spills registers: {spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

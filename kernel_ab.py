@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the attention kernels of two checkouts of zgml_tpu_torch on one card,
-in turns (A, B, B, A by default), each turn in its own process.
+"""Time the attention kernels and K11 (the quantized matmul's dx) of two
+checkouts of zgml_tpu_torch on one card, in turns (A, B, B, A by default),
+each turn in its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf]
 
@@ -15,11 +16,14 @@ with n_rep 1 (Llama-2-7B): K3 on a 128-row chunk at (q_offset, kv_len) (0,
 three cases (TinyLlama B 4 x T 512, Llama-2-7B B 1 x T 512, and Tq 128 over
 kv_len 300 at q_offset 172); at TinyLlama-1.1B also K4 at kv_len 1, 200 and
 2047 of a 22-layer cache, K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and
-K6d (Q4_0, one row) at the FFN. With --gguf (e.g. the Llama-2-7B file
-chip_smoke.py writes under .bench_cache/) each turn also loads that model
-and times, on the host clock around a synchronized call, the prefill of a
-1536-token prompt (seeded ids, 128-row chunks) over the bf16 and the int8
-KV cache: the median of 3 after one warm-up, in us like the kernels. Prints
+K6d (Q4_0, one row) at the FFN; and K11 at Q4_0 and Q8_0 on M = 512 rows of
+g at the five TinyLlama-1.1B projections (wqkv, wo, w_gate_up, w_down,
+lm_head; weight copies cycled so the 50 MB L2 is cold). With --gguf (e.g.
+the Llama-2-7B file chip_smoke.py writes under .bench_cache/) each turn also
+loads that model and times, on the host clock around a synchronized call,
+the prefill of a 1536-token prompt (seeded ids, 128-row chunks) over the
+bf16 and the int8 KV cache: the median of 3 after one warm-up, in us like
+the kernels. Prints
 one JSON line per turn, then the median per case and side, with the card's
 name and power limit.
 """
@@ -72,6 +76,7 @@ def one(root: str, gguf: str | None = None) -> dict:
     from zgml_tpu_torch.ops.flash_vjp import flash_fwd_lse_cuda
     from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
+    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda
     from zgml_tpu_torch.quant.packed import PackedWeight
     sys.path.insert(1, str(HERE))
     from chip_smoke import time_ms
@@ -136,6 +141,26 @@ def one(root: str, gguf: str | None = None) -> dict:
     gus, wds = [weight(2 * f, d) for _ in range(4)], [weight(d, f) for _ in range(4)]
     out["K6d M=1"] = time_ms(torch, [lambda gu_=gu, wd_=wd: fused_ffn_norm_cuda(
         x, gamma, gu_, wd_, 1e-5) for gu, wd in zip(gus, wds)], 50)[0]
+    del gus, wds
+    for kind in ("q4_0", "q8_0"):
+        for name, n, k in (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w_gate_up", 11264, 2048),
+                           ("w_down", 2048, 5632), ("lm_head", 32000, 2048)):
+            per = n * k // (2 if kind == "q4_0" else 1) + n * k // 16
+            copies = []
+            for _ in range(max(2, -(-48_000_000 // per))):
+                d = (torch.rand((n, k // 32), device=dev, generator=g) * 0.02 + 0.001).half()
+                if kind == "q4_0":
+                    qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=dev,
+                                       generator=g)
+                else:
+                    qs = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev,
+                                       generator=g)
+                    d = d / 16
+                copies.append(PackedWeight(n, k, qs, d, kind))
+            gr = torch.randn((512, n), device=dev, generator=g)
+            out[f"K11 {kind} {name} M=512 N={n} K={k}"] = time_ms(
+                torch, [lambda w_=c: qmatmul_bwd_cuda(gr, w_) for c in copies], 10)[0]
+            del copies
     out = {k: v * 1e3 for k, v in out.items()}            # device us
     if gguf:
         out.update(prefill_us(torch, gguf))

@@ -1,0 +1,59 @@
+// TF32 tensor-core and cp.async helpers for the tiled GEMM kernels (K11,
+// qmatmul_bwd.cu): the same instructions the prefill flash kernel uses
+// (flash_attn.cu keeps its own copy).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace tf32 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, or 16 zero bytes where !live (src is not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 16 : 0));
+}
+
+// 4 bytes global -> shared, or 4 zero bytes where !live
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x rounded to TF32 (10 stored mantissa bits, to nearest, ties away from
+// zero), as f32 bits: the rounding of cvt.rna.tf32.f32, in two integer
+// operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// g * d = hi + lo: hi = fl32(g * d) rounded to TF32, lo = the rest of the
+// exact product in f32 (one fma), which the tensor cores read truncated to
+// TF32; together they leave at most 2^-21 |g * d| behind, unbiased
+__device__ __forceinline__ void split_product(float g, float d, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__fmul_rn(g, d));
+  lo = __float_as_uint(__fmaf_rn(g, d, -__uint_as_float(hi)));
+}
+
+// c += a . b on a 16x8x8 TF32 tile, f32 accumulators (the tensor cores round
+// the sum toward zero)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+}  // namespace tf32

@@ -37,7 +37,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
            "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "flash_bwd.cu",
            "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
-HEADERS = ("common.cuh", "decode_split.cuh", "layer_phases.cuh")
+HEADERS = ("common.cuh", "decode_split.cuh", "layer_phases.cuh", "tf32_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,7 +49,8 @@ _SIGNATURES = {
     "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 11, _F, _P),
     "zgml_flash_dq": (*(_P,) * 7, *(_I,) * 8, _F, _P),
     "zgml_flash_dkv": (*(_P,) * 8, *(_I,) * 8, _F, _P),
-    "zgml_qmatmul_bwd": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "zgml_qmatmul_bwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "zgml_qmatmul_bwd_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_decode_attention": (*(_P,) * 8, *(_I,) * 6, _F, _P),
     "zgml_decode_split_count": (_I,),
     "zgml_flash_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),

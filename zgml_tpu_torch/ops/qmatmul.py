@@ -12,7 +12,9 @@
       on ties).
   K11 qmatmul_bwd_cuda / qmatmul_bwd_ref (csrc/qmatmul_bwd.cu) counterpart of
       `_q4_bwd_kernel` (K11q4) and `_q8_bwd_kernel` (K11q8) under
-      `_qmm_diff_bwd`: dx = g @ dequant(W), f32, in logical k order.
+      `_qmm_diff_bwd`: dx = g @ dequant(W), f32, in logical k order, on TF32
+      tensor cores with g * scale split in two TF32 parts; N is split across
+      blocks by ``qmatmul_bwd_plan``.
       ``QMatmul`` is the counterpart of `_qmm_diff`: its backward is K11 for
       both forward tiers (K1 straight through its rounding, as JAX's), and the
       weight planes get no gradient (frozen quantized weights).
@@ -23,6 +25,10 @@ picks the tier (config.i8dot(), M) and between kernel and plain version by
 device.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -174,20 +180,71 @@ def qmatmul_bwd_ref(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     return (g.reshape(-1, w.n).to(torch.float32) @ w.dequant()).reshape(*lead, w.k)
 
 
+# K11's tiling (csrc/qmatmul_bwd.cu): 128 x 128 tiles of dx (BWD_BKB quant
+# blocks of k), the contraction N stepped BWD_BN rows a stage
+BWD_BM, BWD_BKB, BWD_BN = 128, 4, 32
+BWD_MAX_SPLIT = 16
+BWD_MIN_STAGES = 8        # a part of N takes at least 8 stages (256 rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """K11's launch: n_split parts of N; part z takes the rows
+    parts[z] = [begin, end), whole stages of BWD_BN rows (the last part ends
+    at N), as the kernel computes them from its grid z."""
+    n_split: int
+    parts: tuple[tuple[int, int], ...]
+
+
+def qmatmul_bwd_plan(m: int, n: int, k: int, sm_count: int, per_sm: int = 1) -> BwdPlan:
+    """Split N so that the tiles of dx times the parts fill whole waves of
+    the card's resident blocks (sm_count * per_sm): the least waves times
+    stages of the longest part, the fewest parts on a tie, no part shorter
+    than BWD_MIN_STAGES stages unless N has fewer. A pure function of the
+    shapes and the card, so dx has the same bits on every run there."""
+    tiles = -(-m // BWD_BM) * -(-(k // QK) // BWD_BKB)
+    stages = -(-n // BWD_BN)
+    slots = max(1, sm_count * per_sm)
+    most = max(1, min(BWD_MAX_SPLIT, stages // BWD_MIN_STAGES))
+    n_split = min(range(1, most + 1),
+                  key=lambda s: (-(-tiles * s // slots) * -(-stages // s), s))
+    bounds = [z * stages // n_split * BWD_BN for z in range(n_split)] + [n]
+    return BwdPlan(n_split, tuple(zip(bounds[:-1], bounds[1:])))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_card(index: int, kind: str) -> tuple[int, int]:
+    """(SM count, K11 blocks one SM holds) of card `index` at `kind`."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(build.library().zgml_qmatmul_bwd_blocks_per_sm(KIND_CODE[kind],
+                                                                   ctypes.byref(n)),
+                    "qmatmul_bwd occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"qmatmul_bwd ({kind}): no block fits on an SM")
+    return torch.cuda.get_device_properties(index).multi_processor_count, n.value
+
+
 def qmatmul_bwd_cuda(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K11: g f32 [..., N] (contiguous, on the card) -> dx f32 [..., K]."""
     _require(g.is_cuda and w.qs.device == g.device and w.d.device == g.device,
              f"g on {g.device}, weight on {w.qs.device}: all must be on one CUDA device")
     _require(g.dtype == torch.float32 and g.shape[-1] == w.n and g.is_contiguous(),
              f"g must be contiguous float32 [..., {w.n}], got {g.dtype} {tuple(g.shape)}")
+    _require(w.qs.is_contiguous() and w.d.is_contiguous() and w.qs.data_ptr() % 16 == 0,
+             "the weight planes must be contiguous and qs 16-byte aligned")
     lead = g.shape[:-1]
     m = g.numel() // w.n
     dx = torch.empty((*lead, w.k), dtype=torch.float32, device=g.device)
     if m == 0:
         return dx
+    plan = qmatmul_bwd_plan(m, w.n, w.k, *_bwd_card(g.device.index or 0, w.kind))
+    part = (torch.empty((plan.n_split, m, w.k), dtype=torch.float32, device=g.device)
+            if plan.n_split > 1 else None)
     status = build.library().zgml_qmatmul_bwd(
-        KIND_CODE[w.kind], g.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), dx.data_ptr(), m, w.n,
-        w.k, torch.cuda.current_stream(g.device).cuda_stream)
+        KIND_CODE[w.kind], g.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(), m, w.n, w.k, plan.n_split,
+        torch.cuda.current_stream(g.device).cuda_stream)
     build.check(status, "qmatmul_bwd")
     global_profile.count_op(counter("qmatmul_bwd", w.kind), "cuda")
     return dx
