@@ -35,8 +35,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      each output written once, over 3.35 TB/s, or the operations over the
      card's peak for their type, f32 at 67 TFLOP/s and int8 at 1979 TOP/s;
      K3 / K9 / K10f and K11, which run each f32 dot as two TF32 products, at
-     twice their f32 operations over 495 TFLOP/s; whichever is larger; the
-     flash cases and K11 also record their plan's n_split) and, where one PyTorch call
+     twice their f32 operations over 495 TFLOP/s, K10dq and K10dkv at the
+     TF32 and bf16 MMAs they issue per product; whichever is larger; the
+     flash cases and K11 also record their plan's n_split; K10dq and K10dkv
+     are bit-equal over two launches and dQ's rms error against float64 is
+     at most 2x the plain version's) and, where one PyTorch call
      computes the same function, that call's device time (library_ms, timed
      here and used nowhere in the port; for K8 / K9
      scaled_dot_product_attention after an untimed dequant). K12 (rmsnorm)
@@ -134,6 +137,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                    1e-4 gradients, of max|ref|), 3 SGD steps lower the loss;
        graph_sub   y - exp(x) and y / exp(x), the chain value as the right
                    operand, through K13 equal fuse=False and numpy;
+     and one JAX per-op switch (ROADMAP C.3): TinyLlama Q4_0 under
+     ZGML_TPU_KERNELS_DISABLE=attn_block places no K7 and gives the logits
+     of ZGML_TPU_ATTN_BLOCK=0 bit for bit;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with the
      1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b;
@@ -286,8 +292,17 @@ TF32_FLOP_PER_S = 495e12
 # K3 / K9 / K10f and K11 run their f32 dots as two TF32 products each (q, p
 # or g * scale split into hi + lo, csrc/flash_attn.cu, csrc/qmatmul_bwd.cu):
 # their least time for the same f32-accurate work counts TF32_PASSES x the f32
-# operations at the TF32 rate
+# operations at the TF32 rate. K10dq and K10dkv (csrc/flash_bwd.cu) count
+# their own products: two TF32 MMAs for a product of an f32 and a bf16
+# operand, three for two f32 operands, one bf16 MMA for dK's dP' (both
+# operands exact): K10DQ_TF32 and K10DKV_TF32 / K10DKV_BF16 operations per
+# (head, live pair, head_dim)
 TF32_PASSES = 2
+K10DQ_TF32 = 2 * (2 + 2 + 2)          # S = q K^T, dP = dO V^T, dQ = dS K
+K10DKV_TF32 = 2 * (2 + 3 + 3)         # S^T, dV = P^T dO, dK = dS'^T q
+K10DKV_BF16 = 2 * 1                   # dP'^T = V bf16(dO)^T
+K10_RMS_RATIO = 2.0                   # dQ's rms error vs float64, at most this x plain's
+SWITCH_STEPS = 4           # decode steps of the kernel-switch check (phase 3)
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
 PATHS = {"default": {},
          "unfused": {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
@@ -1124,13 +1139,35 @@ def efficient_attention(torch, q, k, v, do, kv_len, q_off):
                       "f32" + ("" if top_left else " with an additive causal bias"))
 
 
+def dq_float64(torch, q, k, v, do, o, lse, kv_len, q_off):
+    """dQ in float64 from the same inputs (o and lse the kernel's)."""
+    b, hq, tq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, hkv, hq // hkv, tq, d)
+    dog = do.double().reshape(qg.shape)
+    kd, vd = k.double(), v.double()
+    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) / d ** 0.5
+    ki = torch.arange(s, device=q.device)[None, :]
+    qi = torch.arange(tq, device=q.device)[:, None] + q_off
+    p = torch.where((ki < kv_len) & (ki <= qi),
+                    torch.exp(sc - lse.double().reshape(*qg.shape[:-1], 1)),
+                    torch.zeros_like(sc))
+    del sc
+    delta = (dog * o.double().reshape(qg.shape)).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bgrqd,bgkd->bgrqk", dog, vd) - delta) / d ** 0.5
+    return torch.einsum("bgrqk,bgkd->bgrqd", ds, kd).reshape(b, hq, tq, d)
+
+
 def check_training_attention(torch, dev, g, record):
     """K10f, K10dq and K10dkv against their plain versions (ops/flash_vjp.py)
     on the same inputs: K10f's O bit-equal to K3's and its LSE within
-    REL_BOUND * max, dQ within REL_BOUND * max, dK / dV within one bf16 ulp
-    per element (the backward from the kernel's own o and lse)."""
+    REL_BOUND * max, dQ within REL_BOUND * max and its rms error against
+    float64 at most K10_RMS_RATIO x the plain version's (cuBLAS f32), dK / dV
+    within one bf16 ulp per element (the backward from the kernel's own o and
+    lse), K10dq and K10dkv bit-equal over two launches (fixed split plans)."""
     from zgml_tpu_torch.ops.attention import flash_attention_cuda, flash_plan
-    from zgml_tpu_torch.ops.flash_vjp import (flash_dkv_cuda, flash_dkv_ref, flash_dq_cuda,
+    from zgml_tpu_torch.ops.flash_vjp import (flash_delta_cuda, flash_dkv_cuda, flash_dkv_plan,
+                                              flash_dkv_ref, flash_dq_cuda, flash_dq_plan,
                                               flash_dq_ref, flash_fwd_lse_cuda,
                                               flash_fwd_lse_ref)
     for label, b, hq, hkv, tq, s, hd, kv_len, q_off in TRAIN_FLASH_CASES:
@@ -1143,7 +1180,11 @@ def check_training_attention(torch, dev, g, record):
         o3 = flash_attention_cuda(*args)
         o_r, lse_r = flash_fwd_lse_ref(*args)
         bargs = (q, k, v, do, o, lse, kv_len, q_off)
+        # the second launch of each from the pre-pass's delta, as the
+        # backward hands it to both
+        delta = flash_delta_cuda(do, o)
         dq, (dk, dv) = flash_dq_cuda(*bargs), flash_dkv_cuda(*bargs)
+        dq2, (dk2, dv2) = flash_dq_cuda(*bargs, delta=delta), flash_dkv_cuda(*bargs, delta=delta)
         dq_r, (dk_r, dv_r) = flash_dq_ref(*bargs), flash_dkv_ref(*bargs)
         torch.cuda.synchronize()
         case = f"{label} Hq={hq} Hkv={hkv} hd={hd} Tq={tq} S={s} kv_len={kv_len} q_offset={q_off}"
@@ -1160,6 +1201,17 @@ def check_training_attention(torch, dev, g, record):
         kv_errs = [check_bf16_ulp(torch, a, r, f"flash_dkv {case} {n}")
                    for n, a, r in (("dk", dk, dk_r), ("dv", dv, dv_r))]
         err_kv = max(kv_errs)
+        require(torch.equal(dq.view(torch.int32), dq2.view(torch.int32)),
+                f"flash_dq {case}: two launches differ")
+        require(torch.equal(dk.view(torch.int16), dk2.view(torch.int16))
+                and torch.equal(dv.view(torch.int16), dv2.view(torch.int16)),
+                f"flash_dkv {case}: two launches differ")
+        exact = dq_float64(torch, *bargs)
+        rms, rms_plain = (float((x.double() - exact).square().mean().sqrt()) for x in (dq, dq_r))
+        del exact, dq2, dk2, dv2
+        require(rms <= K10_RMS_RATIO * rms_plain,
+                f"flash_dq {case}: rms error vs float64 {rms:.3g} > {K10_RMS_RATIO} x plain's "
+                f"{rms_plain:.3g}")
         # (query, key) pairs attended per head, and the bytes each kernel must move
         live = sum(min(kv_len, q_off + i + 1) for i in range(tq))
         heads = b * hq
@@ -1173,19 +1225,33 @@ def check_training_attention(torch, dev, g, record):
         record("flash_fwd", case + f" n_split={plan.n_split} (O bit-equal to K3's; lse err "
                f"{err_l:.3g})", err_o, bound_o, t, tp, qbytes * 2 + lbytes + kvbytes, 0, lib,
                note, tf32ops=TF32_PASSES * 4 * heads * live * hd, n_split=plan.n_split)
-        t = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)
+        # K10dq and K10dkv timed from the pre-pass's delta, which one backward
+        # computes once for both (its time, delta_ms, stands beside each)
+        t_delta = time_ms(torch, [lambda: flash_delta_cuda(do, o)], 20)[0]
+        t = time_ms(torch, [lambda: flash_dq_cuda(*bargs, delta=delta)], 20)
         tp = time_ms(torch, [lambda: flash_dq_ref(*bargs)], 5)
         lib = time_ms(torch, [bwd_lib], 20) if bwd_lib else None
         bnote = note if bwd_lib is None else (
             "aten._scaled_dot_product_efficient_attention_backward f32, one call computing dQ, "
             "dK and dV (the same time stands beside K10dq and K10dkv)")
-        record("flash_dq", case, err_q, bound_q, t, tp, qbytes * 4 + lbytes + kvbytes,
-               6 * heads * live * hd, lib, bnote)
-        t = time_ms(torch, [lambda: flash_dkv_cuda(*bargs)], 20)
+        # the bytes of the function (q, dO, O, lse, K / V in, dQ or dK / dV
+        # out) and delta, the pre-pass's row sums, written and read once
+        nq, nkv = flash_dq_plan(q, k, kv_len, q_off).n_split, \
+            flash_dkv_plan(q, k, kv_len, q_off).n_split
+        record("flash_dq", case + f" n_split={nq} (bit-equal over two launches; rms error vs "
+               f"float64 {rms / rms_plain:.2f}x plain's)", err_q, bound_q, t, tp,
+               qbytes * 4 + 2 * lbytes + kvbytes, 0, lib, bnote,
+               tf32ops=K10DQ_TF32 * heads * live * hd, n_split=nq, rms_ratio=rms / rms_plain,
+               delta_ms=t_delta)
+        t = time_ms(torch, [lambda: flash_dkv_cuda(*bargs, delta=delta)], 20)
         tp = time_ms(torch, [lambda: flash_dkv_ref(*bargs)], 5)
-        record("flash_dkv", case + " (dK, dV within one bf16 ulp per element)", err_kv[0],
-               err_kv[1], t, tp, qbytes * 3 + lbytes + kvbytes + 2 * heads * s * hd * 2,
-               8 * heads * live * hd, lib, bnote)
+        record("flash_dkv", case + f" n_split={nkv} (dK, dV within one bf16 ulp per element; "
+               f"bit-equal over two launches)", err_kv[0], err_kv[1], t, tp,
+               qbytes * 3 + 2 * lbytes + kvbytes + 2 * heads * s * hd * 2, 0, lib, bnote,
+               tf32ops=K10DKV_TF32 * heads * live * hd, bf16ops=K10DKV_BF16 * heads * live * hd,
+               n_split=nkv, delta_ms=t_delta)
+        log(f"  flash backward {case}: the delta pre-pass {t_delta * 1e3:.1f} us, once per "
+            f"backward for both kernels")
 
 
 def check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k):
@@ -1533,6 +1599,45 @@ def end_to_end(torch, model, prompts, name, summary):
     del eng4
     summary.setdefault("e2e", {})[name] = entry
     return eng, launches
+
+
+def kernel_switch_check(torch, model, prompt, summary):
+    """The JAX per-op switches on the card (ROADMAP C.3): TinyLlama-1.1B
+    Q4_0 under ZGML_TPU_KERNELS_DISABLE=attn_block places no K7 and no plain
+    version, and its prefill and SWITCH_STEPS decode steps give the logits of
+    the same requests under ZGML_TPU_ATTN_BLOCK=0 bit for bit (the JAX
+    package's path for the switch, the same kernels)."""
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    runs = {}
+    for label, flags in (("ZGML_TPU_KERNELS_DISABLE=attn_block",
+                          {"ZGML_TPU_KERNELS_DISABLE": "attn_block"}),
+                         ("ZGML_TPU_ATTN_BLOCK=0", {"ZGML_TPU_ATTN_BLOCK": "0"})):
+        set_path("default")
+        os.environ.update(flags)
+        eng = LlamaEngine(model, prefill_chunk=128)
+        global_profile.reset()
+        logits = [eng.prefill(prompt)]
+        tok = torch.argmax(logits[0], dim=-1)
+        for _ in range(SWITCH_STEPS):
+            tok, lg = eng.step(tok)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        tiers = global_profile.tier_summary()
+        require("attn_block" not in tiers, f"[{label}] K7 placed: {tiers}")
+        require(not any(t.get("ref") for t in tiers.values()),
+                f"[{label}] plain tier ran: {tiers}")
+        runs[label] = (torch.cat(logits), tiers)
+    set_path("default")
+    (a, ta), (b, tb) = runs.values()
+    require(torch.equal(a, b), f"ZGML_TPU_KERNELS_DISABLE=attn_block: logits differ from "
+            f"ZGML_TPU_ATTN_BLOCK=0 by {float((a - b).abs().max()):.3g}")
+    require(ta == tb, f"the two switches placed different kernels: {ta} / {tb}")
+    log(f"  [kernel switch] ZGML_TPU_KERNELS_DISABLE=attn_block: no K7, prefill and "
+        f"{SWITCH_STEPS} steps bit-equal to ZGML_TPU_ATTN_BLOCK=0; placement {ta}")
+    summary["kernel_switch"] = dict(switch="ZGML_TPU_KERNELS_DISABLE=attn_block",
+                                    same_as="ZGML_TPU_ATTN_BLOCK=0", steps=SWITCH_STEPS,
+                                    bit_equal=True, placement=ta)
 
 
 def against_plain(torch, eng, prompt, out, name, label):
@@ -2308,6 +2413,9 @@ def main() -> int:
                     f"{e.get('spill_stores')} bytes spill stores, {e.get('stack')} bytes stack")
         spilled = [e["entry"] for e in summary["ptxas_qmatmul_bwd"] if e.get("spill_stores")]
         require(not spilled, f"K11 spills registers: {spilled}")
+        spilled = [e["entry"] for e in summary["ptxas_flash"]
+                   if "flash_d" in e["entry"] and e.get("spill_stores")]
+        require(not spilled, f"K10dq / K10dkv spill registers: {spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")
@@ -2335,6 +2443,7 @@ def main() -> int:
     for name in PATHS:
         engines[name], launches[name] = end_to_end(torch, models[PATH_MODEL[name]], prompts,
                                                    name, summary)
+    kernel_switch_check(torch, tiny, prompts[1], summary)
     log(f"  phase 3 (inference) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trainers = train_paths(torch, dev, models, summary, launches)

@@ -12,9 +12,11 @@ times, with chip_smoke.time_ms (device time from torch.profiler), the
 attention kernels at the smoke's TinyLlama-1.1B shapes and at head_dim 128
 with n_rep 1 (Llama-2-7B): K3 on a 128-row chunk at (q_offset, kv_len) (0,
 128), (128, 256) and (1408, 1536) of a bf16 cache, K9 at (0, 128) and (1408,
-1536) of an int8 one, and K10f (training's forward with LSE) at the smoke's
-three cases (TinyLlama B 4 x T 512, Llama-2-7B B 1 x T 512, and Tq 128 over
-kv_len 300 at q_offset 172); at TinyLlama-1.1B also K4 at kv_len 1, 200 and
+1536) of an int8 one, and K10f (training's forward with LSE), K10dq and
+K10dkv (its backward, each called as the autograd backward calls it with no
+precomputed delta) at the smoke's three cases (TinyLlama B 4 x T 512,
+Llama-2-7B B 1 x T 512, and Tq 128 over kv_len 300 at q_offset 172); at
+TinyLlama-1.1B also K4 at kv_len 1, 200 and
 2047 of a 22-layer cache, K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and
 K6d (Q4_0, one row) at the FFN; and K11 at Q4_0 and Q8_0 on M = 512 rows of
 g at the five TinyLlama-1.1B projections (wqkv, wo, w_gate_up, w_down,
@@ -73,7 +75,7 @@ def one(root: str, gguf: str | None = None) -> dict:
     from zgml_tpu_torch.ops import refs
     from zgml_tpu_torch.ops.attention import (decode_attention_cuda, flash_attention_cuda,
                                               flash_attention_q8_cuda)
-    from zgml_tpu_torch.ops.flash_vjp import flash_fwd_lse_cuda
+    from zgml_tpu_torch.ops.flash_vjp import flash_dkv_cuda, flash_dq_cuda, flash_fwd_lse_cuda
     from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
     from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda
@@ -119,8 +121,14 @@ def one(root: str, gguf: str | None = None) -> dict:
         q = torch.randn((b, hq, tq, hd), device=dev, generator=g)
         k = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
-        out[f"K10f B={b} Hkv={hkv} hd={hd} Tq={tq} kv_len={kv_len} q_offset={q_off}"] = time_ms(
+        shape = f"B={b} Hkv={hkv} hd={hd} Tq={tq} kv_len={kv_len} q_offset={q_off}"
+        out[f"K10f {shape}"] = time_ms(
             torch, [lambda: flash_fwd_lse_cuda(q, k, v, kv_len, q_off)], 20)[0]
+        do = torch.randn((b, hq, tq, hd), device=dev, generator=g)
+        o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_off)
+        bargs = (q, k, v, do, o, lse, kv_len, q_off)
+        out[f"K10dq {shape}"] = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)[0]
+        out[f"K10dkv {shape}"] = time_ms(torch, [lambda: flash_dkv_cuda(*bargs)], 20)[0]
     d, hq, hkv, hd = 2048, 32, 4, 64
 
     def weight(n, k):

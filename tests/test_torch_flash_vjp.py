@@ -171,6 +171,38 @@ def test_flash_attention_grads_match_jax_grad(geom):
         _assert_ulps(got.float().numpy(), want, name, floor_rel=floor)
 
 
+@pytest.mark.parametrize("geom", GEOMETRIES[1:])
+def test_attention_switched_off_trains_the_plain_attention(geom, monkeypatch):
+    """With attention switched off (ZGML_TPU_KERNELS_DISABLE=attention, set
+    around both packages; ROADMAP C.3) training's attention is the plain one
+    differentiated by autograd, as the JAX package's ref tier under jax.grad
+    (zgml_tpu/ops/dispatch.py:173-190), not K10: no flash_fwd / flash_dq /
+    flash_dkv placement, dQ within 1e-5 * max and the bf16 dK / dV within the
+    group-sum bound above of jax.grad through the JAX dispatch."""
+    from zgml_tpu.ops import dispatch as jdispatch
+    monkeypatch.setenv("ZGML_TPU_KERNELS_DISABLE", "attention")
+    b, hq, hkv, tq, s, kv_len, q_off = geom
+    q, k, v, do = _inputs(b, hq, hkv, tq, s, seed=sum(geom) + 2)
+
+    def jf(q_, k_, v_):
+        return jnp.sum(jnp.sin(jdispatch.flash_attention(q_, k_, v_, kv_len=kv_len,
+                                                         q_offset=q_off)))
+
+    jg = jax.grad(jf, argnums=(0, 1, 2))(jnp.asarray(q), _jnp_bf16(k), _jnp_bf16(v))
+    tq_ = torch.from_numpy(q).requires_grad_()
+    tk, tv = k.clone().requires_grad_(), v.clone().requires_grad_()
+    global_profile.reset()
+    o = dispatch.flash_attention(tq_, tk, tv, kv_len=kv_len, q_offset=q_off)
+    torch.sum(torch.sin(o)).backward()
+    assert global_profile.tier_summary() == {"attention": {"ref": 1}}
+    _assert_rel(tq_.grad.numpy(), np.asarray(jg[0]), 1e-5, "dq")
+    assert tk.grad.dtype == torch.bfloat16
+    for name, got, want in (("dk", tk.grad, jg[1]), ("dv", tv.grad, jg[2])):
+        want = _np(want)
+        floor = hq // hkv * float(ulp_bf16(np.max(np.abs(want)))) / np.max(np.abs(want))
+        _assert_ulps(got.float().numpy(), want, name, floor_rel=floor)
+
+
 def test_group_sum_rounds_once():
     """XLA sums the bf16 group in f32 and rounds once (checked against
     jnp.sum of a bf16 array); group_sum does the same."""

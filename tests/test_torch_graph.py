@@ -452,6 +452,35 @@ def test_chain_longer_than_one_launch():
     _close(got, jgraph.ComputeGraph(build(jgraph.var), fuse=False).run(**feeds))
 
 
+def test_kernels_ref_runs_chains_node_by_node(monkeypatch):
+    """ZGML_TPU_KERNELS=ref turns the graph tier's fused chain off, as the
+    JAX package's use_pallas() with no name (graph.py:129-130): the 36-step
+    chain of test_chain_longer_than_one_launch runs node by node, with no
+    K13 placement, bit-equal to fuse=False; the same JAX graph under the
+    same switch within 1e-5. Read at each run: unset, the chain is back."""
+    rng = np.random.default_rng(13)
+    feeds = {k: rng.uniform(0.5, 1.5, (6, 10)).astype(np.float32) for k in ("x", "y")}
+
+    def build(v):
+        x, y = v("x", (6, 10)), v("y", (6, 10))
+        h = x
+        for _ in range(18):
+            h = h.tanh().mul(y)
+        return h
+    pg = _cpu(build(var))
+    monkeypatch.setenv("ZGML_TPU_KERNELS", "ref")
+    global_profile.reset()
+    got = pg.run(**feeds)
+    assert "fused_chain" not in global_profile.tier_summary()
+    np.testing.assert_array_equal(np.asarray(got),
+                                  np.asarray(_cpu(build(var), fuse=False).run(**feeds)))
+    _close(got, jgraph.ComputeGraph(build(jgraph.var), fuse=True).run(**feeds))
+    monkeypatch.delenv("ZGML_TPU_KERNELS")
+    global_profile.reset()
+    pg.run(**feeds)
+    assert global_profile.tier_summary() == {"fused_chain": {"ref": 3}}
+
+
 def test_chain_side_input_after_its_head():
     """x.exp().mul(x.sigmoid()) fuses to exp -> mul, whose side input
     (sigmoid) comes after the chain's head in topo order. The port emits a

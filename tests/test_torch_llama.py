@@ -78,7 +78,7 @@ PROMPT_LEN, CHUNK, N_DECODE = 20, 16, 8
 
 
 def _set_flags(mp, flags):
-    for k in (*SLICE_FLAGS, *I8A_FLAGS, "ZGML_TPU_LAYER_FFN"):
+    for k in (*SLICE_FLAGS, *I8A_FLAGS, "ZGML_TPU_LAYER_FFN", "ZGML_TPU_KERNELS"):
         mp.delenv(k, raising=False)
     for k, v in flags.items():
         mp.setenv(k, v)
@@ -619,3 +619,117 @@ def test_i8a_layer_halves_match_jax(tmp_path, monkeypatch, attn_i8a):
         jq, js = jax_normed_i8(row, np.asarray(jl[gamma]), cfg.rms_norm_eps)
         pq, ps = rmsnorm_quantize_ref(torch.from_numpy(row), pl[gamma], cfg.rms_norm_eps)
         assert np.array_equal(pq.numpy(), jq) and np.array_equal(ps.numpy(), js)
+
+
+# -- the JAX per-op kernel switches (ROADMAP C.3) -------------------------------
+# Each switch, set around both packages on the default tier at d 512 Q4_0
+# (seed 11): the port takes the JAX package's path for it. The int8-cache
+# case runs batch 2 (batch-1 decode is K7's, which decode_attention does not
+# gate), where JAX's decode over the int8 cache, switched off, dequantizes the
+# cache and attends with the unquantized q.
+SWITCHES = {
+    "kernels_ref": {"ZGML_TPU_KERNELS": "ref"},
+    "qmatmul": {"ZGML_TPU_KERNELS_DISABLE": "qmatmul"},
+    "attention": {"ZGML_TPU_KERNELS_DISABLE": "attention"},
+    "decode_attention": {"ZGML_TPU_KERNELS_DISABLE": "decode_attention"},
+    "attn_block": {"ZGML_TPU_KERNELS_DISABLE": "attn_block"},
+    "decode_attention_kv8": {"ZGML_TPU_KERNELS_DISABLE": "decode_attention"},
+}
+# Step bounds other than 1e-5: a switch whose path keeps an int8 tier takes
+# the whole-model int8 bound (I8_RTOL): the int8 cache, and attn_block,
+# whose decode layers then project their M = 1 rows through K1, int8
+# activations of rows the two sides sum in another order (measured 8.3e-3
+# at step 7). ZGML_TPU_KERNELS=ref has no int8 tier, but with K7 off the
+# token's own K / V are written to the bf16 cache before attending (JAX's
+# ZGML_TPU_ATTN_BLOCK=0 path), so each side rounds its own f32 row to bf16,
+# and a one-ulp flip there moves the step (measured: one of the 256 v values
+# of the row, 4.2e-5 * max|logit|): the prefill's bound
+SWITCH_RTOL = {"decode_attention_kv8": I8_RTOL, "attn_block": I8_RTOL, "kernels_ref": 1e-3}
+# placement names each switch must not show (the kernels it turns off) and
+# must show (the path JAX takes instead, or the kernels it keeps)
+SWITCH_TIERS = {
+    "kernels_ref": ({"attn_block", "fused_ffn_norm", "fused_ffn", "qmatmul_i8",
+                     "qmatmul_greedy"}, {"decode_attention", "qmatmul", "attention"}),
+    "qmatmul": ({"qmatmul_i8", "qmatmul_greedy"}, {"attn_block", "fused_ffn_norm", "qmatmul"}),
+    "attention": (set(), {"attention", "attn_block"}),
+    "decode_attention": ({"decode_attention"}, {"attn_block", "qmatmul_greedy"}),
+    "attn_block": ({"attn_block", "fused_ffn_norm"}, {"decode_attention", "fused_ffn"}),
+    "decode_attention_kv8": ({"attn_block_kv8", "decode_attention"},
+                             {"decode_attention_q8", "flash_attention_q8"}),
+}
+
+
+def _kv8_switch_run(tmp_path_factory, flags, batch=2):
+    """_default_runs over the int8 cache at batch 2: the prefill logits, and
+    each decode step of the port from the JAX cache of that step
+    (cache_from_jax), fed JAX's greedy tokens."""
+    from zgml_tpu_torch.quant import kv_cache
+    path = str(tmp_path_factory.mktemp("torch_switch") / "d512_q4_kv8.gguf")
+    write_synthetic_llama_gguf(path, DEFAULT_CFG, quant=GGMLType.Q4_0, seed=11)
+    prompt = np.random.default_rng(6).integers(0, DEFAULT_CFG.vocab_size, (batch, PROMPT_LEN))
+    with pytest.MonkeyPatch.context() as mp:
+        _set_flags(mp, flags)
+        jmodel, jgf = jax_load_llama(path)
+        jgf.close()
+        jeng = JaxEngine(jmodel, batch=batch, prefill_chunk=64, cache_dtype="int8",
+                         donate_cache=False)
+        jlogits = np.asarray(jeng.prefill(prompt))
+        tok, feed, jstep, jcaches = np.argmax(jlogits, -1).astype(np.int32), [], [], []
+        for _ in range(N_DECODE):
+            jcaches.append({k: [tuple(np.asarray(a) for a in layer) for layer in v]
+                            for k, v in jeng.cache.items()})
+            feed.append(tok)
+            nxt, lg = jeng.step(tok)
+            jstep.append(np.asarray(lg))
+            tok = np.asarray(nxt)
+        pmodel, pgf = load_llama(path, device="cpu")
+        pgf.close()
+        global_profile.reset()
+        peng = LlamaEngine(pmodel, batch=batch, prefill_chunk=64, cache_dtype="int8")
+        plogits = peng.prefill(prompt).numpy()
+        pstep = []
+        for t, cache in zip(feed, jcaches):
+            for k, v in kv_cache.cache_from_jax(cache).items():
+                peng.cache[k].copy_(v)
+            pstep.append(peng.step(torch.from_numpy(t.astype(np.int64)))[1].numpy())
+        tiers = global_profile.tier_summary()
+    return {"jax": (jlogits, jstep), "port": (plogits, pstep), "tiers": tiers}
+
+
+@pytest.fixture(scope="module", params=list(SWITCHES))
+def switch_runs(request, tmp_path_factory):
+    flags = {**DEFAULT_FLAGS, **SWITCHES[request.param]}
+    if request.param.endswith("_kv8"):
+        return request.param, _kv8_switch_run(tmp_path_factory, flags)
+    return request.param, _default_runs(tmp_path_factory, GGMLType.Q4_0, seed=11, flags=flags)
+
+
+def test_kernel_switches_match_jax(switch_runs):
+    """ROADMAP C.3: under each JAX per-op switch the port takes the JAX
+    package's path. Prefill logits within 1e-3 * max|logit| (the two
+    prefills' K/V round to bf16 apart, test_default_prefill_logits_match_jax);
+    each decode step from the JAX cache of that step within 1e-5 *
+    max|logit| (SWITCH_RTOL: 1e-2 where an int8 tier stays, 1e-3 where only
+    the token's own K / V round to bf16 before attention); greedy tokens equal (from
+    the shared cache, up to the first step whose JAX top-2 gap is under the
+    step bound); the placement shows the switched kernels gone and the path
+    JAX takes instead."""
+    name, runs = switch_runs
+    rtol = SWITCH_RTOL.get(name, 1e-5)
+    tiers = runs["tiers"]
+    absent, present = SWITCH_TIERS[name]
+    assert not absent & set(tiers), tiers
+    assert present <= set(tiers), tiers
+    assert all(set(t) <= {"ref", "torch"} for t in tiers.values()), tiers
+    if name.endswith("_kv8"):
+        (jlogits, jstep), (plogits, pstep) = runs["jax"], runs["port"]
+        assert np.max(np.abs(plogits - jlogits)) <= I8_RTOL * np.max(np.abs(jlogits))
+        for got, want in zip(pstep, jstep):
+            assert np.max(np.abs(got - want)) <= rtol * np.max(np.abs(want))
+            for row in range(want.shape[0]):
+                if _gap(want[row]) >= rtol * np.max(np.abs(want[row])):
+                    assert np.argmax(got[row]) == np.argmax(want[row])
+        return
+    _check_prefill(runs)
+    _check_steps(runs, rtol)
+    _check_greedy_tokens(runs, rtol)

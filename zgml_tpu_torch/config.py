@@ -3,7 +3,7 @@
 The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
-the card. The *path* follows eleven of the JAX package's own variables, with
+the card. The *path* follows twelve of the JAX package's own variables, with
 its defaults, read at call time (the port is eager):
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
@@ -12,9 +12,9 @@ its defaults, read at call time (the port is eager):
                                                        kernel K7 (default 1: on)
   ZGML_TPU_I8DOT=0                i8dot()              no int8-activation tier K1/K5:
                                                        f32-dequant K2 at every M (default 1)
-  ZGML_TPU_KERNELS_DISABLE=a,b    kernels_disabled()   names of kernels turned off; the port
-                                                       reads "fused_ffn" (K6), "rmsnorm",
-                                                       "stack_decode" (K14), "tape_decode" (K15)
+  ZGML_TPU_KERNELS=ref            kernels_ref()        every op switched off (default
+                                                       "pallas": on), as kernel_on() says
+  ZGML_TPU_KERNELS_DISABLE=a,b    kernel_on(op)        the named ops switched off
   ZGML_TPU_KERNELS_FORCE=a,b      kernels_forced()     opt-in kernels of ops that run plain
                                                        torch by default; the port reads
                                                        "rmsnorm" (K12)
@@ -37,8 +37,39 @@ its defaults, read at call time (the port is eager):
                                                        bf16-rounded operands and weights)
 
 The two i8a flags take the JAX package's padded width of the weight, which
-the port computes from its unpadded one (padded_k). The port reads no other
-JAX flag. Its prefill operands stay f32, which is the JAX package's
+the port computes from its unpadded one (padded_k).
+
+The per-op switches (ZGML_TPU_KERNELS=ref, ZGML_TPU_KERNELS_DISABLE) are the
+environment's part of the JAX package's ``use_pallas(op)``
+(zgml_tpu/ops/dispatch.py:41-52): ``kernel_on(op)`` is false under
+ZGML_TPU_KERNELS=ref, or where ZGML_TPU_KERNELS_DISABLE names op; with no
+name (the graph tier's fused chain) only ZGML_TPU_KERNELS=ref turns it off.
+A switched-off op takes the JAX package's path for it, in the model and in
+ops/dispatch.py:
+
+  qmatmul           no int8-activation tier: the f32 dequant matmul (K2's
+                    function) at every M, and no greedy head K5 (argmax of
+                    the logits); K6 and K7 keep their own names
+  attention         prefill (K3) and K9 run their plain versions, K9 over
+                    the cache dequantized to f32 (JAX's dequantize-then-
+                    attend); training's flash attention is the plain
+                    attention under autograd, not K10
+  decode_attention  K4 runs its plain version; over the int8 cache, the
+                    cache dequantized to f32 and attended with the
+                    unquantized q (JAX's function, not K8's)
+  attn_block        batch-1 decode without K7, as ZGML_TPU_ATTN_BLOCK=0
+  fused_ffn         no K6: the FFN composed from its projections
+  rmsnorm           no K12, whatever ZGML_TPU_KERNELS_FORCE says
+  stack_decode, tape_decode   no K14 / K15: the per-layer path
+  ring_attention    accepted; the port has no ring attention (ROADMAP A.7),
+                    so it routes nothing
+
+Where a switch swaps a kernel for its plain version of the same function, the
+call counts under `ref`, as on the CPU. ``dispatch.use_kernel(op)`` is the
+predicate that runs a kernel: kernel_on(op) and not under force_ref().
+force_ref() keeps the path (it compares the kernels with their plain
+versions on it); the switches change it. The port reads no other JAX flag.
+Its prefill operands stay f32, which is the JAX package's
 ZGML_TPU_PREFILL_BF16=0, and its weight scales stay the GGUF file's fp16
 values, which is ZGML_TPU_SCALES=f16.
 """
@@ -75,14 +106,27 @@ def i8dot() -> bool:
     return _flag("ZGML_TPU_I8DOT", "1")
 
 
-def _names(name: str) -> frozenset[str]:
-    raw = os.environ.get(name, "")
+@functools.lru_cache(maxsize=64)       # the dispatch reads the lists at every call
+def _parse_names(raw: str) -> frozenset[str]:
     return frozenset(s.strip() for s in raw.split(",") if s.strip())
 
 
-def kernels_disabled() -> frozenset[str]:
-    """ZGML_TPU_KERNELS_DISABLE, comma-separated (zgml_tpu/config.py:65-66)."""
-    return _names("ZGML_TPU_KERNELS_DISABLE")
+def _names(name: str) -> frozenset[str]:
+    return _parse_names(os.environ.get(name, ""))
+
+
+def kernels_ref() -> bool:
+    """ZGML_TPU_KERNELS=ref (zgml_tpu/config.py:60-62): every op off."""
+    return os.environ.get("ZGML_TPU_KERNELS", "pallas") == "ref"
+
+
+def kernel_on(op: str | None = None) -> bool:
+    """The environment's part of the JAX package's use_pallas(op): off under
+    ZGML_TPU_KERNELS=ref, or for an op ZGML_TPU_KERNELS_DISABLE (comma-
+    separated, zgml_tpu/config.py:65-66) names."""
+    if kernels_ref():
+        return False
+    return op is None or op not in _names("ZGML_TPU_KERNELS_DISABLE")
 
 
 def kernels_forced() -> frozenset[str]:

@@ -8,7 +8,9 @@ no torch.compile), and autograd differentiates it (``grad``,
 Every fused chain (graph/fusion.py) is one launch of K13, the fused
 elementwise kernel (ops/dispatch.fused_chain), on the card (consecutive
 launches past 16 steps or 8 side inputs); its plain composition on the CPU
-and under dispatch.force_ref(). The graph runs on the
+and under dispatch.force_ref(). Under ZGML_TPU_KERNELS=ref (config.kernel_on
+with no name, as the JAX package's use_pallas(), graph.py:129-130) a chain
+runs step by step, node by node, read at each run. The graph runs on the
 card unless built with device="cpu"; without a card the default raises.
 
 The chain's operand order is the graph's: where the chain value is the right
@@ -25,6 +27,7 @@ from typing import Any, Sequence
 
 import torch
 
+from zgml_tpu_torch import config
 from zgml_tpu_torch.graph.fusion import FusionReport, detect_chains
 from zgml_tpu_torch.graph.lower import BINARY_OPS, as_tensor, lower_node
 from zgml_tpu_torch.graph.op import Op
@@ -83,12 +86,13 @@ class ComputeGraph:
             if len(args) != len(var_names):
                 raise TypeError(f"expected {len(var_names)} args ({var_names}), got {len(args)}")
             vals: dict[int, Any] = {v.id: as_tensor(a, device) for v, a in zip(self.vars, args)}
+            fused = config.kernel_on()        # ZGML_TPU_KERNELS=ref: node by node
             for node in order:
                 if node.op == Op.VAR:
                     continue
-                if node.id in interior:
+                if fused and node.id in interior:
                     continue          # computed as part of its chain
-                chain = chain_by_output.get(node.id)
+                chain = chain_by_output.get(node.id) if fused else None
                 vals[node.id] = (self._emit_chain(chain, vals) if chain is not None
                                  else lower_node(node, vals, device))
             outs = [vals[o.id] for o in self.outputs]

@@ -3,14 +3,15 @@
 Counterpart of zgml_tpu/models/llama.py on the paths it runs over the
 stacked cache, chosen as the JAX package chooses them (config.py flags):
 
-  - batch-1 decode with ZGML_TPU_ATTN_BLOCK on (the default), a head_dim
-    and weight kinds the layer kernel takes: per layer the fused attention
+  - batch-1 decode with ZGML_TPU_ATTN_BLOCK on (the default) and attn_block
+    not switched off (config.kernel_on), a head_dim and weight kinds the
+    layer kernel takes: per layer the fused attention
     block K7 (llama.py:773-811; its A phase int8 where ZGML_TPU_ATTN_I8A
     holds, by default at padded d >= 4096), then the fused FFN
     (`_ffn_after_attn`, llama.py:217-260: at Q4_0 K6c where ZGML_TPU_FFN_I8A
     holds, by default at padded d >= 4096, else K6d; K6a at Q8_0), or the
-    composed FFN when ZGML_TPU_KERNELS_DISABLE=fused_ffn or at a width JAX
-    does not fuse at;
+    composed FFN when fused_ffn is switched off or at a width JAX does not
+    fuse at;
   - everything else (prefill, batch > 1, ATTN_BLOCK=0): the per-layer
     `_layer_step` path (llama.py:286-341, 397-459) with fused `wqkv` and
     `w_gate_up` projections and K3/K4 attention (K9/K8 over the int8 cache,
@@ -212,7 +213,7 @@ def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
                                   cfg.rms_norm_eps, phase_e=True)
     rows = x.numel() // x.shape[-1]
     kind = layer["w_down"].kind
-    fuses = (rows <= ffn.FFN_MAX_ROWS and "fused_ffn" not in config.kernels_disabled()
+    fuses = (rows <= ffn.FFN_MAX_ROWS and config.kernel_on("fused_ffn")
              and layer["w_gate_up"].kind == kind
              and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block))
     if fuses and (after_attn_block or kind == "q8_0"):
@@ -320,7 +321,8 @@ class LlamaModel(torch.nn.Module):
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
             return run(x, view, ck, cv, pos_t, cos, sin)[0]
         layers = self.params["layers"]
-        fused = [decode and config.attn_block() and isinstance(ly["wo"], PackedWeight)
+        k7 = decode and config.attn_block() and config.kernel_on("attn_block")
+        fused = [k7 and isinstance(ly["wo"], PackedWeight)
                  and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
                  for ly in layers]
         if not kv8 and not all(fused):

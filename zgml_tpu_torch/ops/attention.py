@@ -97,15 +97,17 @@ class FlashPlan:
 
 
 def flash_split_plan(b: int, hq: int, hkv: int, tq: int, d: int, kv_len: int, q_offset: int,
-                     sm_count: int, per_sm: int = FLASH_BLOCKS_PER_SM) -> FlashPlan:
+                     sm_count: int, per_sm: int = FLASH_BLOCKS_PER_SM,
+                     bn: int | None = None) -> FlashPlan:
     """The prefill kernel's plan for q [b, hq, tq, d] over keys j < kv_len
     at q_offset on a card of sm_count SMs that each hold per_sm blocks: split
     the live prefix into as many parts as one wave of blocks has room for
     beside the tiles (so a split never adds a second, mostly idle wave), and
     no further than the longest tile has key tiles for. A pure function of
     the shapes and the card, so K3 and K10f on the same inputs take the same
-    plan (and K10f's O stays K3's bit for bit)."""
-    n_rep, bn = hq // hkv, flash_bn(d)
+    plan (and K10f's O stays K3's bit for bit). `bn`: the key tile of
+    another kernel with these row tiles (K10dq), else flash_bn(d)."""
+    n_rep, bn = hq // hkv, bn or flash_bn(d)
     kv_len = max(0, kv_len)
     tiles = b * hkv * -(-n_rep * tq // FLASH_BM)
     longest = -(-max(0, min(kv_len, q_offset + tq)) // bn)

@@ -47,8 +47,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 _SIGNATURES = {
     "zgml_qmatmul": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
     "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 11, _F, _P),
-    "zgml_flash_dq": (*(_P,) * 7, *(_I,) * 8, _F, _P),
-    "zgml_flash_dkv": (*(_P,) * 8, *(_I,) * 8, _F, _P),
+    "zgml_flash_dq": (*(_P,) * 8, *(_I,) * 10, _F, _P),
+    "zgml_flash_dkv": (*(_P,) * 9, *(_I,) * 9, _F, _P),
+    "zgml_flash_delta": (_P, _P, _P, _I, _I, _P),
+    "zgml_flash_bwd_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_qmatmul_bwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "zgml_qmatmul_bwd_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_decode_attention": (*(_P,) * 8, *(_I,) * 6, _F, _P),

@@ -33,7 +33,12 @@ a result whose gradient would be silently zero.
 ``force_ref()`` is the one explicit way to run the plain versions on the card
 (to compare the kernels with them). It keeps the path and swaps each kernel
 for its plain version; the JAX package's force_ref instead turns its fused
-kernels off, which changes the path. Every call is counted by tier in
+kernels off, which changes the path. The JAX per-op switches
+(ZGML_TPU_KERNELS=ref, ZGML_TPU_KERNELS_DISABLE; config.kernel_on) do change
+it, as they do in the JAX package: ``use_kernel(op)`` runs a kernel only
+where its op is on and force_ref() is not in effect, and the path decisions
+here and in the model read config.kernel_on (config.py lists each op's
+path when it is off). Every call is counted by tier in
 runtime.profile.global_profile, under one name per kernel and kind
 (qmatmul = K2, qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d,
 fused_ffn_norm_i8 = K6c, fused_ffn = K6b, attn_block = K7 with the f32 A
@@ -61,6 +66,7 @@ from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import attention, ffn, flash_vjp, layerkernel, qmatmul as _qmm, refs
 from zgml_tpu_torch.ops import elementwise as _chain, rmsnorm as _rmsnorm
 from zgml_tpu_torch.ops import stackkernel, tapekernel
+from zgml_tpu_torch.quant import kv_cache
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -89,8 +95,16 @@ def _device_of(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def _use_kernel(*tensors: torch.Tensor) -> bool:
-    return _device_of(*tensors).type == "cuda" and not _force_ref.get()
+def use_kernel(op: str | None = None) -> bool:
+    """The port's use_pallas(op) (zgml_tpu/ops/dispatch.py:41-52): off under
+    force_ref(), under ZGML_TPU_KERNELS=ref, and for an op that
+    ZGML_TPU_KERNELS_DISABLE names (config.kernel_on); on otherwise. Where
+    it is off a CUDA tensor runs the plain version, counted under `ref`."""
+    return not _force_ref.get() and config.kernel_on(op)
+
+
+def _use_kernel(op: str | None, *tensors: torch.Tensor) -> bool:
+    return _device_of(*tensors).type == "cuda" and use_kernel(op)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -113,11 +127,11 @@ def _refuse_grad(name: str, *tensors):
 
 def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool) -> torch.Tensor:
     if i8:
-        if _use_kernel(x, w.qs, w.d):
+        if _use_kernel("qmatmul", x, w.qs, w.d):
             return _qmm.qmatmul_i8_cuda(x, w)
         global_profile.count_op(_qmm.counter("qmatmul_i8", w.kind), "ref")
         return _qmm.qmatmul_i8_ref(x, w)
-    if _use_kernel(x, w.qs, w.d):
+    if _use_kernel("qmatmul", x, w.qs, w.d):
         return _qmm.qmatmul_cuda(x, w)
     global_profile.count_op(_qmm.counter("qmatmul", w.kind), "ref")
     return _qmm.qmatmul_ref(x, w)
@@ -125,7 +139,7 @@ def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool) -> torch.Tensor:
 
 def qmatmul_bwd(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K11: dx = g @ dequant(W), g f32 [..., N] -> f32 [..., K]."""
-    if _use_kernel(g, w.qs, w.d):
+    if _use_kernel("qmatmul", g, w.qs, w.d):
         return _qmm.qmatmul_bwd_cuda(g, w)
     global_profile.count_op(_qmm.counter("qmatmul_bwd", w.kind), "ref")
     return _qmm.qmatmul_bwd_ref(g, w)
@@ -135,13 +149,14 @@ def qmatmul(x: torch.Tensor, w, tier_rows: int | None = None) -> torch.Tensor:
     """x f32 [..., K] @ dequant(W).T -> f32 [..., N] for a PackedWeight W,
     x @ w for a dense [K, N] tensor. The tier follows the call's row count,
     or `tier_rows` when the caller computes a few rows of a larger call (the
-    prefill head: one row of a chunk, as JAX computes the whole chunk)."""
+    prefill head: one row of a chunk, as JAX computes the whole chunk); with
+    qmatmul switched off, the f32 tier at every M (dispatch.py:67-75)."""
     if isinstance(w, torch.Tensor):
         _device_of(x, w)
         global_profile.count_op("matmul", "torch")
         return torch.matmul(x, w)
     rows = x.numel() // w.k if tier_rows is None else tier_rows
-    i8 = config.i8dot() and rows <= _qmm.I8_MAX_ROWS
+    i8 = config.i8dot() and config.kernel_on("qmatmul") and rows <= _qmm.I8_MAX_ROWS
     if _needs_grad(x):
         return _qmm.QMatmul.apply(x, w, lambda x_, w_: _qmatmul_fwd(x_, w_, i8), qmatmul_bwd)
     return _qmatmul_fwd(x, w, i8)
@@ -150,12 +165,12 @@ def qmatmul(x: torch.Tensor, w, tier_rows: int | None = None) -> torch.Tensor:
 def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
     """argmax_n(x @ dequant(W)) of one row as int64 [1] through K5 (either
     kind, as `qmatmul_greedy_pallas`), or None where K5 does not apply (int8
-    tier off, or more than one row): the caller then takes the argmax of
-    qmatmul's logits, as zgml_tpu/ops/dispatch.py:80-92."""
-    if not config.i8dot() or x.numel() != w.k:
+    tier or qmatmul off, or more than one row): the caller then takes the
+    argmax of qmatmul's logits, as zgml_tpu/ops/dispatch.py:80-92."""
+    if not config.i8dot() or not config.kernel_on("qmatmul") or x.numel() != w.k:
         return None
     _refuse_grad("qmatmul_greedy (K5)", x)
-    if _use_kernel(x, w.qs, w.d):
+    if _use_kernel("qmatmul", x, w.qs, w.d):
         return _qmm.greedy_cuda(x, w)
     global_profile.count_op(_qmm.counter("qmatmul_greedy", w.kind), "ref")
     return _qmm.greedy_ref(x, w)
@@ -171,7 +186,7 @@ def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: P
     _refuse_grad("fused_ffn_norm (K6a / K6c / K6d)", x, gamma)
     a_i8 = (not phase_e and gu.kind == "q4_0"
             and config.ffn_i8a(config.padded_k(gu.k, gu.kind)))
-    if _use_kernel(x, gamma, gu.qs, wd.qs):
+    if _use_kernel("fused_ffn", x, gamma, gu.qs, wd.qs):
         return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps, a_i8)
     name = "fused_ffn_norm_i8" if a_i8 else "fused_ffn_norm"
     global_profile.count_op(_qmm.counter(name, gu.kind), "ref")
@@ -182,7 +197,7 @@ def fused_ffn(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tens
     """K6b: down(silu(gate(h)) * up(h)) for an already-normed h of at most 32
     rows, Q4_0 (zgml_tpu/ops/dispatch.py:95-110, counter fused_ffn)."""
     _refuse_grad("fused_ffn (K6b)", h)
-    if _use_kernel(h, gu.qs, wd.qs):
+    if _use_kernel("fused_ffn", h, gu.qs, wd.qs):
         return ffn.fused_ffn_cuda(h, gu, wd)
     global_profile.count_op("fused_ffn", "ref")
     return ffn.fused_ffn_ref(h, gu, wd)
@@ -199,7 +214,7 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
     _refuse_grad("attn_block (K7)", x, gamma, cos, sin)
     a_i8 = config.attn_i8a(config.padded_k(wqkv.k, wqkv.kind))
     cache = (*ck, *cv) if isinstance(ck, tuple) else (ck, cv)
-    if _use_kernel(x, gamma, wqkv.qs, wo.qs, *cache):
+    if _use_kernel("attn_block", x, gamma, wqkv.qs, wo.qs, *cache):
         return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                            n_heads, n_kv_heads, eps, a_i8)
     global_profile.count_op(layerkernel.counter_name(a_i8, isinstance(ck, tuple), wqkv.kind),
@@ -212,14 +227,17 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
     """Causal GQA prefill attention; see ops/attention.py for layouts. Under
     autograd flash_vjp.FlashAttention (K10), which reads row b of k / v for
     row b of q: a kv_row other than 0 raises, as the JAX backward assumes 0
-    (attention.py:214-215)."""
-    if _needs_grad(q, k, v):
+    (attention.py:214-215). With attention switched off, the plain version,
+    differentiated by autograd as the JAX ref tier is by jax.grad
+    (dispatch.py:173-190), not K10's backward (its dK takes a bf16 dO)."""
+    if _needs_grad(q, k, v) and config.kernel_on("attention"):
         if kv_row != 0:
             raise NotImplementedError(
                 f"flash attention under autograd with kv_row={kv_row}: the backward reads "
                 f"k / v rows from 0, as the JAX package's ({NO_BACKWARD})")
-        return flash_vjp.FlashAttention.apply(q, k, v, kv_len, q_offset, _use_kernel(q, k, v))
-    if _use_kernel(q, k, v):
+        return flash_vjp.FlashAttention.apply(q, k, v, kv_len, q_offset,
+                                              _use_kernel("attention", q, k, v))
+    if _use_kernel("attention", q, k, v):
         return attention.flash_attention_cuda(q, k, v, kv_len, q_offset, kv_row)
     global_profile.count_op("attention", "ref")
     return attention.flash_attention_ref(q, k, v, kv_len, q_offset, kv_row)
@@ -228,7 +246,7 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
 def decode_attention(q, k, v, kv_len, kv_row: int = 0):
     """Single-token GQA attention over the cache prefix kv_len ([B] or int)."""
     _refuse_grad("decode_attention (K4)", q, k, v)
-    if _use_kernel(q, k, v):
+    if _use_kernel("decode_attention", q, k, v):
         return attention.decode_attention_cuda(q, k, v, kv_len, kv_row)
     global_profile.count_op("decode_attention", "ref")
     return attention.decode_attention_ref(q, k, v, kv_len, kv_row)
@@ -236,9 +254,16 @@ def decode_attention(q, k, v, kv_len, kv_row: int = 0):
 
 def flash_attention_q8(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0):
     """K9: causal GQA prefill attention over the int8 cache (levels k, v,
-    per-position scales ks, vs); zgml_tpu/ops/dispatch.py:191-206."""
+    per-position scales ks, vs); zgml_tpu/ops/dispatch.py:191-206. With
+    attention switched off, JAX's path: the rows dequantized to f32, then the
+    plain prefill attention."""
     _refuse_grad("flash_attention_q8 (K9)", q, ks, vs)
-    if _use_kernel(q, k, ks, v, vs):
+    if not config.kernel_on("attention"):
+        _device_of(q, k, ks, v, vs)
+        global_profile.count_op("flash_attention_q8", "ref")
+        kf, vf = _dequantized_rows(q.shape[0], kv_row, k, ks, v, vs)
+        return attention.flash_attention_ref(q, kf, vf, kv_len, q_offset)
+    if _use_kernel("attention", q, k, ks, v, vs):
         return attention.flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_offset, kv_row)
     global_profile.count_op("flash_attention_q8", "ref")
     return attention.flash_attention_q8_ref(q, k, ks, v, vs, kv_len, q_offset, kv_row)
@@ -247,27 +272,41 @@ def flash_attention_q8(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: 
 def decode_attention_q8(q, k, ks, v, vs, kv_len, kv_row: int = 0):
     """K8: one query token per row over the int8 cache prefix kv_len ([B] or
     int); zgml_tpu/ops/dispatch.py:209-220. ZGML_TPU_ATTN_I8PV=1 (its int8
-    P.V mode) is refused, not computed as the f32-p function."""
-    config.refuse_attn_i8pv()
+    P.V mode) is refused, not computed as the f32-p function. With
+    decode_attention switched off, JAX's path: the rows dequantized to f32
+    and attended with the unquantized q (another function than K8's)."""
     _refuse_grad("decode_attention_q8 (K8)", q, ks, vs)
-    if _use_kernel(q, k, ks, v, vs):
+    if not config.kernel_on("decode_attention"):
+        _device_of(q, k, ks, v, vs)
+        global_profile.count_op("decode_attention_q8", "ref")
+        kf, vf = _dequantized_rows(q.shape[0], kv_row, k, ks, v, vs)
+        return attention.decode_attention_ref(q, kf, vf, kv_len)
+    config.refuse_attn_i8pv()
+    if _use_kernel("decode_attention", q, k, ks, v, vs):
         return attention.decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row)
     global_profile.count_op("decode_attention_q8", "ref")
     return attention.decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row)
 
 
+def _dequantized_rows(b: int, kv_row: int, k, ks, v, vs):
+    """Rows kv_row .. kv_row + b of the int8 cache as f32 K and V (the JAX
+    ref tier's dequantize_cache)."""
+    rows = slice(kv_row, kv_row + b)
+    return kv_cache.dequantize(k[rows], ks[rows]), kv_cache.dequantize(v[rows], vs[rows])
+
+
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Plain torch by default on both devices, as the JAX package leaves the
     norm to XLA (counted under the `torch` tier). Where
-    ZGML_TPU_KERNELS_FORCE names "rmsnorm" and ZGML_TPU_KERNELS_DISABLE does
-    not (zgml_tpu/ops/dispatch.py:144-155): K12 on the card, through
+    ZGML_TPU_KERNELS_FORCE names "rmsnorm" and the switches leave it on
+    (zgml_tpu/ops/dispatch.py:144-155): K12 on the card, through
     rmsnorm.RMSNorm under autograd; its plain version on the CPU and under
     force_ref(), counted under `ref`."""
     dev = _device_of(x, gamma)
-    if "rmsnorm" not in config.kernels_forced() or "rmsnorm" in config.kernels_disabled():
+    if "rmsnorm" not in config.kernels_forced() or not config.kernel_on("rmsnorm"):
         global_profile.count_op("rmsnorm", "torch")
         return refs.rmsnorm(x, gamma, eps)
-    kernel = dev.type == "cuda" and not _force_ref.get()
+    kernel = dev.type == "cuda" and use_kernel("rmsnorm")
     if _needs_grad(x, gamma):
         return _rmsnorm.RMSNorm.apply(x, gamma, eps, kernel)
     if kernel:
@@ -281,7 +320,7 @@ def fused_chain(x: torch.Tensor, steps, sides) -> torch.Tensor:
     the kernel on the card, the plain composition on the CPU and under
     force_ref() (counted under `ref`); through elementwise.FusedChain under
     autograd, whose backward recomputes the plain composition."""
-    kernel = _device_of(x, *sides).type == "cuda" and not _force_ref.get()
+    kernel = _device_of(x, *sides).type == "cuda" and use_kernel()
     if _needs_grad(x, *sides):
         return _chain.FusedChain.apply(x, tuple(steps), kernel, *sides)
     if kernel:
@@ -298,13 +337,13 @@ def rope_apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def megacall_enabled(name: str) -> bool:
     """Whether the whole-stack decode megacall `name` ("stack_decode", K14, or
-    "tape_decode", K15) may run: its flag on and ZGML_TPU_KERNELS_DISABLE not
-    naming it, as the JAX package's use_pallas(name) (zgml_tpu/ops/
+    "tape_decode", K15) may run: its flag on and the switches leaving it on
+    (config.kernel_on), as the JAX package's use_pallas(name) (zgml_tpu/ops/
     dispatch.py:41-52). A disabled megacall runs the per-layer path (the
     model's choice), not its plain version; force_ref() keeps the path and
     runs the plain versions."""
     flag = config.tape_decode if name == "tape_decode" else config.stack_decode
-    return flag() and name not in config.kernels_disabled()
+    return flag() and config.kernel_on(name)
 
 
 def stacked_decode(x, stack, ck, cv, pos, cos, sin):
@@ -313,7 +352,7 @@ def stacked_decode(x, stack, ck, cv, pos, cos, sin):
     in place at pos; returns (x_out, k_cur [L, Hkv, hd], v_cur). No backward:
     the JAX package has no VJP for it."""
     _refuse_grad("stacked_decode (K14)", x, cos, sin)
-    if _use_kernel(x, ck, cv, stack.table):
+    if _use_kernel("stack_decode", x, ck, cv, stack.table):
         return stackkernel.stacked_decode_cuda(x, stack, ck, cv, pos, cos, sin)
     global_profile.count_op("stack_decode", "ref")
     return stackkernel.stacked_decode_ref(x, stack, ck, cv, pos, cos, sin)
@@ -325,7 +364,7 @@ def tape_decode(x, tape, ck, cv, pos, cos, sin):
     tape_decode_f32 then). No backward, as K14."""
     _refuse_grad("tape_decode (K15)", x, cos, sin)
     bf16 = config.tape_bf16()
-    if _use_kernel(x, ck, cv, tape.stack.table):
+    if _use_kernel("tape_decode", x, ck, cv, tape.stack.table):
         return tapekernel.tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16)
     global_profile.count_op(tapekernel.counter(bf16), "ref")
     return tapekernel.tape_decode_ref(x, tape, ck, cv, pos, cos, sin, bf16)

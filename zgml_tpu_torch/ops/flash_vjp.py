@@ -27,17 +27,40 @@ and rounds once to bf16, as XLA sums the bf16 group (flash_vjp.py:366-370).
 
 ``*_cuda`` launch csrc/flash_attn.cu (K10f, K3 with an LSE output: the same
 launch and split plan, so its O is K3's bit for bit; with a split prefix
-the combine pass writes the LSE) and csrc/flash_bwd.cu; ``*_ref`` are the
-plain torch versions. Callers go through ``ops.dispatch.flash_attention``,
-which takes this path when grad is enabled and q, k or v requires it.
+the combine pass writes the LSE) and csrc/flash_bwd.cu (K10dq, K10dkv and
+their delta pre-pass, ``flash_delta_cuda``, run once per backward and
+handed to both); ``*_ref`` are the plain torch versions. Callers go
+through ``ops.dispatch.flash_attention``, which takes this path when grad
+is enabled and q, k or v requires it.
+
+K10dq tiles as K3 (64 packed query rows) with K/V tiles of DQ_BN keys and
+splits each tile's keys by K3's rule (``attention.flash_split_plan`` at
+K10dq's tile and occupancy). K10dkv takes 64 keys a block and streams
+32-row query tiles; ``flash_dkv_split_plan`` splits each key tile's query
+range across blocks where the key tiles alone do not fill the card. The
+splits' f32 partials are added in split order: the same bits on every run.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from zgml_tpu_torch.ops import build
-from zgml_tpu_torch.ops.attention import check_qkv, flash_attention_ref, launch_flash
+from zgml_tpu_torch.ops.attention import (FlashPlan, _sm_count, check_qkv, flash_attention_ref,
+                                          flash_split_plan, launch_flash)
 from zgml_tpu_torch.runtime.profile import global_profile
+
+# K10dq's key tile (csrc/flash_bwd.cu DQ_BN); K10dkv's tiling (DKV_BK,
+# DKV_BQ) and its split policy, as the prefill kernel's: fill one wave of
+# the blocks the card holds, give each split at least DKV_MIN_Q_TILES query
+# tiles, at most DKV_MAX_SPLIT splits
+DQ_BN = 64
+DKV_BK, DKV_BQ = 64, 32
+DKV_MIN_Q_TILES = 2
+DKV_MAX_SPLIT = 16
 
 
 def _scores(q, k, kv_len, q_offset):
@@ -115,12 +138,92 @@ def _check(name, q, k, v, extra=()):
         shape = q.shape if t_.dim() == 4 else (b, hq, tq)
         if (t_.device != q.device or t_.dtype != torch.float32 or t_.shape != shape
                 or not t_.is_contiguous()):
-            raise ValueError(f"{name}: dO, O and lse must be contiguous float32 {tuple(q.shape)} "
-                             f"/ {(b, hq, tq)} on {q.device}")
+            raise ValueError(f"{name}: dO, O, lse and delta must be contiguous float32 "
+                             f"{tuple(q.shape)} / {(b, hq, tq)} on {q.device}")
 
 
 def _lens(k, kv_len):
     return k.shape[2] if kv_len is None else int(kv_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashDkvPlan:
+    """How K10dkv cuts one call: key tiles of ``bk`` keys, each walking the
+    query tiles of ``bq`` rows from the first whose causal window reaches
+    its lowest key, that range split over ``n_split`` blocks. The kernel
+    does this arithmetic itself; these methods are the same formulas."""
+    bk: int
+    bq: int
+    tq: int
+    s: int
+    kv_len: int
+    q_offset: int
+    n_split: int
+
+    @property
+    def n_kt(self) -> int:
+        return -(-self.s // self.bk)
+
+    def query_tiles(self, jt: int) -> tuple[int, int]:
+        """(first query tile, count) of key tile jt; none past kv_len."""
+        j0 = jt * self.bk
+        first = max(0, j0 - self.q_offset) // self.bq
+        if j0 >= min(self.kv_len, self.s):
+            return first, 0
+        return first, max(0, -(-self.tq // self.bq) - first)
+
+    def split_queries(self, jt: int, z: int) -> tuple[int, int]:
+        """Query rows [i0, i1) that split z of key tile jt takes."""
+        first, n = self.query_tiles(jt)
+        qt0, qt1 = first + z * n // self.n_split, first + (z + 1) * n // self.n_split
+        return min(qt0 * self.bq, self.tq), min(qt1 * self.bq, self.tq)
+
+
+def flash_dkv_split_plan(b: int, hq: int, tq: int, s: int, kv_len: int, q_offset: int,
+                         sm_count: int, per_sm: int) -> FlashDkvPlan:
+    """K10dkv's plan for q [b, hq, tq, d] over keys j < kv_len of s at
+    q_offset on a card of sm_count SMs holding per_sm blocks each: split the
+    query range into as many parts as one wave of blocks has room for beside
+    the live key tiles, and no further than the longest key tile (the first)
+    has query tiles for. A pure function of the shapes and the card."""
+    kv_len = max(0, min(kv_len, s))
+    live = b * hq * -(-kv_len // DKV_BK)
+    longest = -(-tq // DKV_BQ) if kv_len > 0 else 0
+    want = per_sm * sm_count // max(1, live)
+    n_split = max(1, min(want, longest // DKV_MIN_Q_TILES, DKV_MAX_SPLIT))
+    return FlashDkvPlan(DKV_BK, DKV_BQ, tq, s, kv_len, q_offset, n_split)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks_per_sm(index: int, d: int, which: int) -> int:
+    """Blocks of K10dq (which 0) or K10dkv (1) at head_dim d one SM of card
+    `index` holds at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(build.library().zgml_flash_bwd_blocks_per_sm(d, which, ctypes.byref(n)),
+                    "flash backward occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"flash backward (head_dim {d}): no block fits on an SM")
+    return n.value
+
+
+def flash_dq_plan(q, k, kv_len, q_offset: int) -> FlashPlan:
+    """The plan K10dq takes for q and k on q's card: K3's row tiles and
+    split rule at K10dq's key tile and occupancy."""
+    b, hq, tq, d = q.shape
+    _, hkv, s, _ = k.shape
+    index = q.device.index or 0
+    return flash_split_plan(b, hq, hkv, tq, d, min(_lens(k, kv_len), s), int(q_offset),
+                            _sm_count(index), _bwd_blocks_per_sm(index, d, 0), bn=DQ_BN)
+
+
+def flash_dkv_plan(q, k, kv_len, q_offset: int) -> FlashDkvPlan:
+    """The plan K10dkv takes for q and k on q's card."""
+    b, hq, tq, d = q.shape
+    s = k.shape[2]
+    index = q.device.index or 0
+    return flash_dkv_split_plan(b, hq, tq, s, _lens(k, kv_len), int(q_offset), _sm_count(index),
+                                _bwd_blocks_per_sm(index, d, 1))
 
 
 def flash_fwd_lse_cuda(q, k, v, kv_len=None, q_offset: int = 0):
@@ -131,33 +234,58 @@ def flash_fwd_lse_cuda(q, k, v, kv_len=None, q_offset: int = 0):
     return o, lse
 
 
-def flash_dq_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0):
-    """Launch K10dq (csrc/flash_bwd.cu): dq f32 [B, Hq, Tq, d]."""
-    _check("flash_dq", q, k, v, (do, o, lse))
+def flash_delta_cuda(do, o):
+    """The backward's pre-pass (csrc/flash_bwd.cu): delta = rowsum(dO * O)
+    f32 [B, Hq, Tq], which K10dq and K10dkv both read."""
+    b, hq, tq, d = do.shape
+    delta = torch.empty((b, hq, tq), dtype=torch.float32, device=do.device)
+    status = build.library().zgml_flash_delta(
+        do.data_ptr(), o.data_ptr(), delta.data_ptr(), b * hq * tq, d,
+        torch.cuda.current_stream(do.device).cuda_stream)
+    build.check(status, "flash_delta")
+    return delta
+
+
+def flash_dq_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=None):
+    """Launch K10dq (csrc/flash_bwd.cu): dq f32 [B, Hq, Tq, d]. `delta`
+    from flash_delta_cuda(do, o), or None to run the pre-pass here."""
+    _check("flash_dq", q, k, v, (do, o, lse) + (() if delta is None else (delta,)))
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
+    if delta is None:
+        delta = flash_delta_cuda(do, o)
+    plan = flash_dq_plan(q, k, kv_len, q_offset)
     dq = torch.empty_like(q)
+    part = (torch.empty(plan.n_split * q.numel(), dtype=torch.float32, device=q.device)
+            if plan.n_split > 1 else None)
     status = build.library().zgml_flash_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        dq.data_ptr(), b, hq, hkv, tq, s, d, _lens(k, kv_len), int(q_offset), 1.0 / d ** 0.5,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), None if part is None else part.data_ptr(), b, hq, hkv,
+        tq, s, d, _lens(k, kv_len), int(q_offset), plan.n_split, plan.bn, 1.0 / d ** 0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "flash_dq")
     global_profile.count_op("flash_dq", "cuda")
     return dq
 
 
-def flash_dkv_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0):
+def flash_dkv_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=None):
     """Launch K10dkv (csrc/flash_bwd.cu): (dk, dv) bf16 [B, Hq, S, d] per
-    query head."""
-    _check("flash_dkv", q, k, v, (do, o, lse))
+    query head. `delta` as flash_dq_cuda's."""
+    _check("flash_dkv", q, k, v, (do, o, lse) + (() if delta is None else (delta,)))
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
+    if delta is None:
+        delta = flash_delta_cuda(do, o)
+    plan = flash_dkv_plan(q, k, kv_len, q_offset)
     dk = torch.empty((b, hq, s, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    part = (torch.empty(plan.n_split * 2 * dk.numel(), dtype=torch.float32, device=q.device)
+            if plan.n_split > 1 else None)
     status = build.library().zgml_flash_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, hq, hkv, tq, s, d, _lens(k, kv_len), int(q_offset),
-        1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
+        b, hq, hkv, tq, s, d, _lens(k, kv_len), int(q_offset), plan.n_split, 1.0 / d ** 0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "flash_dkv")
     global_profile.count_op("flash_dkv", "cuda")
     return dk, dv
@@ -188,8 +316,9 @@ class FlashAttention(torch.autograd.Function):
         kv_len, q_offset, kernel = ctx.meta
         do = do.to(torch.float32).contiguous()
         if kernel:
-            dq = flash_dq_cuda(q, k, v, do, o, lse, kv_len, q_offset)
-            dkh, dvh = flash_dkv_cuda(q, k, v, do, o, lse, kv_len, q_offset)
+            delta = flash_delta_cuda(do, o)
+            dq = flash_dq_cuda(q, k, v, do, o, lse, kv_len, q_offset, delta)
+            dkh, dvh = flash_dkv_cuda(q, k, v, do, o, lse, kv_len, q_offset, delta)
         else:
             global_profile.count_op("flash_dq", "ref")
             global_profile.count_op("flash_dkv", "ref")
