@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name, power limit), build the CUDA kernels
      from zgml_tpu_torch/csrc with nvcc (one process per source, in
      parallel), print the build time and ptxas' registers and spills of
-     the flash kernel's instantiations;
+     the instantiations of the flash kernels, K11, K12 and K13 (none of
+     which may spill);
   2. check each kernel against its plain torch version on the card at the
      shapes of the main paths, and time both (device time from
      torch.profiler, or from CUDA events around calls queued behind a spin
@@ -44,11 +45,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      here and used nowhere in the port; for K8 / K9
      scaled_dot_product_attention after an untimed dequant). K12 (rmsnorm)
      at d 2048 for M = 1, 128, 2048 and at d 4096 for M = 1, 128, within
-     1e-6 * max|out| (library:
-     torch.nn.functional.rms_norm); K13 (the fused elementwise chain) on
-     graph_ffn's chains silu -> mul [512, 5632] and add -> sqr [512, 2048],
-     and one case per op at [2048, 2048]: bit-equal to plain where every step
-     is exact in IEEE f32, else within 1e-6 * max|out|. The whole-stack
+     1e-6 * max|out|, on its 16-byte vector path, bit-equal over two
+     launches (library: torch.nn.functional.rms_norm); K13 (the fused
+     elementwise chain) on graph_ffn's chains silu -> mul [512, 5632] and
+     add -> sqr [512, 2048], one case per op at [2048, 2048] (library: the
+     one PyTorch call of that op) and a bias [2048] added to [2048, 2048]
+     (read in place: one kernel a call; library torch.add): bit-equal to
+     plain where every step is exact in IEEE f32, else within 1e-6 *
+     max|out|. The whole-stack
      decode megacalls K14 (stack_decode) and K15 (tape_decode, and
      tape_decode_f32 under ZGML_TPU_TAPE_BF16=0) over a random stacked cache
      at pos 0, 1, 200, 2047: TinyLlama-1.1B's 22 layers, and Llama-2-7B's
@@ -161,6 +165,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import pathlib
 import statistics
@@ -258,9 +263,10 @@ TRAIN_PATHS = {"train_dense": ("flash_fwd", "flash_dq", "flash_dkv"),
 # against plain within RMSNORM_RTOL * max|out|
 RMSNORM_CASES = [(1, 2048), (128, 2048), (2048, 2048), (1, 4096), (128, 4096)]
 RMSNORM_RTOL = 1e-6
-# K13 (phase 2): the graph_ffn path's two chains at their shapes, and one case
-# per op at CHAIN_OP_SHAPE; ops exact in IEEE f32 bit-equal to plain, the
-# others within CHAIN_RTOL * max|out|
+# K13 (phase 2): the graph_ffn path's two chains at their shapes, one case
+# per op at CHAIN_OP_SHAPE, and a bias of CHAIN_OP_SHAPE[1] values added to
+# CHAIN_OP_SHAPE (a side read in place); ops exact in IEEE f32 bit-equal to
+# plain, the others within CHAIN_RTOL * max|out|
 CHAIN_OP_SHAPE = (2048, 2048)
 CHAIN_EXACT = {"add", "sub", "mul", "div", "max2", "neg", "recip", "sqr", "sqrt", "abs", "relu",
                "scale", "add_scalar"}
@@ -1302,19 +1308,25 @@ def copies_for(nbytes: int, total: int = 128_000_000, most: int = 64) -> int:
 
 def check_rmsnorm(torch, dev, g, record):
     """K12 at RMSNORM_CASES against refs.rmsnorm within RMSNORM_RTOL *
-    max|out|; the library call is torch.nn.functional.rms_norm (the same
-    function, never called by the port)."""
-    from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda, rmsnorm_ref
+    max|out|, on the vector path of its plan, bit-equal over two launches.
+    The library call is torch.nn.functional.rms_norm (the same function,
+    never called by the port)."""
+    from zgml_tpu_torch.ops.rmsnorm import launch_plan, rmsnorm_cuda, rmsnorm_ref
     rms_norm = getattr(torch.nn.functional, "rms_norm", None)
     for m, d in RMSNORM_CASES:
         xs = [torch.randn((m, d), device=dev, generator=g)
               for _ in range(copies_for(2 * m * d * 4))]
         gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        plan = launch_plan(xs[0], gamma)
+        require(plan.vector, f"rmsnorm M={m} d={d}: the plan takes the scalar path ({plan})")
         got, want = rmsnorm_cuda(xs[0], gamma), rmsnorm_ref(xs[0], gamma)
+        again = rmsnorm_cuda(xs[0], gamma)
         torch.cuda.synchronize()
         err, bound = float((got - want).abs().max()), RMSNORM_RTOL * float(want.abs().max())
         require(bool(torch.isfinite(got).all()) and err <= bound,
                 f"rmsnorm M={m} d={d}: max_abs_err {err:.3g} > bound {bound:.3g}")
+        require(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+                f"rmsnorm M={m} d={d}: two launches differ")
         t = time_ms(torch, [lambda x_=x: rmsnorm_cuda(x_, gamma) for x in xs], 50)
         tp = time_ms(torch, [lambda x_=x: rmsnorm_ref(x_, gamma) for x in xs], 20)
         lib, note = None, "none: this torch has no torch.nn.functional.rms_norm"
@@ -1323,36 +1335,85 @@ def check_rmsnorm(torch, dev, g, record):
             lib = time_ms(torch, [lambda x_=x: rms_norm(x_, (d,), gamma, 1e-5) for x in xs], 50)
             note = f"torch.nn.functional.rms_norm, f32 (max abs err {lib_err:.2g})"
         record("rmsnorm", f"M={m} d={d}", err, bound, t, tp, 2 * m * d * 4 + d * 4,
-               4 * m * d, lib, note)
+               4 * m * d, lib, note, plan=plan._asdict())
 
 
 def chain_cases():
-    """(label, steps, shape) of K13's phase-2 cases: graph_ffn's two chains,
-    then one case per op (the binary ops with one side input)."""
+    """(label, steps, shape, side shape) of K13's phase-2 cases: graph_ffn's
+    two chains, one case per op (the binary ops with one side input of x's
+    shape), and a bias of shape[1] values added to CHAIN_OP_SHAPE."""
     from zgml_tpu_torch.ops.elementwise import BINARY, OPCODES, Step
-    cases = [("silu -> mul", [Step("silu"), Step("mul", side=0)], (GRAPH_ROWS, GRAPH_F)),
-             ("add -> sqr", [Step("add", side=0), Step("sqr")], (GRAPH_ROWS, GRAPH_D))]
+    cases = [("silu -> mul", [Step("silu"), Step("mul", side=0)], (GRAPH_ROWS, GRAPH_F), None),
+             ("add -> sqr", [Step("add", side=0), Step("sqr")], (GRAPH_ROWS, GRAPH_D), None)]
     payload = {"scale": 0.37, "add_scalar": -1.25}
     for op in OPCODES:
         cases.append((op, [Step(op, payload.get(op, 0.0), 0 if op in BINARY else -1)],
-                      CHAIN_OP_SHAPE))
+                      CHAIN_OP_SHAPE, None))
+    cases.append((f"add bias [{CHAIN_OP_SHAPE[1]}]", [Step("add", side=0)], CHAIN_OP_SHAPE,
+                  CHAIN_OP_SHAPE[1:]))
     return cases
+
+
+def chain_library(torch, steps):
+    """(the one PyTorch call computing a one-step chain as a function of x
+    and the side inputs, its name), or None for a longer chain."""
+    if len(steps) != 1:
+        return None
+    f, op, p = torch.nn.functional, steps[0].op, steps[0].payload
+    calls = {"neg": torch.neg, "recip": torch.reciprocal, "sqr": torch.square,
+             "sqrt": torch.sqrt, "exp": torch.exp, "log": torch.log, "abs": torch.abs,
+             "tanh": torch.tanh, "sigmoid": torch.sigmoid, "relu": torch.relu, "silu": f.silu}
+    if op in calls:
+        return (lambda x, s: calls[op](x)), ("F.silu" if op == "silu"
+                                             else f"torch.{calls[op].__name__}")
+    if op == "gelu":
+        return (lambda x, s: f.gelu(x, approximate="tanh")), 'F.gelu(approximate="tanh")'
+    if op in ("scale", "add_scalar"):
+        fn = torch.mul if op == "scale" else torch.add
+        return (lambda x, s: fn(x, p)), f"torch.{fn.__name__}(x, {p})"
+    fn = {"add": torch.add, "sub": torch.sub, "mul": torch.mul, "div": torch.div,
+          "max2": torch.maximum}[op]
+    return (lambda x, s: fn(x, s[0])), f"torch.{fn.__name__}"
+
+
+def kernels_per_call(torch, call, iters: int = 10) -> dict | None:
+    """{kernel name: launches per call} over `iters` calls from a profiler
+    window (None where every window came back empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    call()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        kern = {ev.key: ev.count / iters for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and ev.count}
+        if kern:
+            return kern
+    return None
 
 
 def check_chains(torch, dev, g, record):
     """K13 against fused_chain_ref on the same inputs: bit-equal (NaN where
     plain is NaN) where every step is exact in IEEE f32, else within
-    CHAIN_RTOL * max|out|. No library call computes a chain given as data."""
+    CHAIN_RTOL * max|out|. A one-step chain's library call is the PyTorch
+    call of its op; no library call computes graph_ffn's chains given as
+    data. The bias case must run as one kernel a call (its side read in
+    place, not materialised)."""
     from zgml_tpu_torch.ops.elementwise import BINARY, fused_chain_cuda, fused_chain_ref
-    for label, steps, shape in chain_cases():
+    for label, steps, shape, side_shape in chain_cases():
         n_sides = sum(st.op in BINARY for st in steps)
-        n = shape[0] * shape[1]
+        side_shape = shape if side_shape is None else side_shape
+        n, n_side = math.prod(shape), math.prod(side_shape)
+        nbytes = (2 * n + n_sides * n_side) * 4
         sets = []
-        for _ in range(copies_for((2 + n_sides) * n * 4, 160_000_000, 8)):
+        for _ in range(copies_for(nbytes, 160_000_000, 8)):
             x = torch.randn(shape, device=dev, generator=g)
             if label in ("log", "sqrt"):
                 x = x.abs() + 0.05
-            sets.append((x, [torch.randn(shape, device=dev, generator=g)
+            sets.append((x, [torch.randn(side_shape, device=dev, generator=g)
                              for _ in range(n_sides)]))
         x, sides = sets[0]
         got, want = fused_chain_cuda(x, steps, sides), fused_chain_ref(x, steps, sides)
@@ -1369,13 +1430,29 @@ def check_chains(torch, dev, g, record):
         else:
             bound = CHAIN_RTOL * float(want[~nan].abs().max())
             require(err <= bound, f"fused_chain {label}: max_abs_err {err:.3g} > bound {bound:.3g}")
+        extra = {}
+        if side_shape != shape:
+            per_call = kernels_per_call(torch, lambda: fused_chain_cuda(x, steps, sides))
+            require(per_call is not None, f"fused_chain {label}: kernels a call not counted (the "
+                                          f"profiler saw no kernel in {PROFILE_TRIES} windows)")
+            require(len(per_call) == 1 and "chain_kernel" in next(iter(per_call))
+                    and next(iter(per_call.values())) <= 1,
+                    f"fused_chain {label}: not one kernel a call: {per_call}")
+            extra["kernels_per_call"] = per_call
         t = time_ms(torch, [lambda s_=st: fused_chain_cuda(s_[0], steps, s_[1]) for st in sets],
                     20)
         tp = time_ms(torch, [lambda s_=st: fused_chain_ref(s_[0], steps, s_[1]) for st in sets],
                      10)
+        lib, note = None, NO_LIBRARY["chain"]
+        library = chain_library(torch, steps)
+        if library is not None:
+            fn, name = library
+            lib_out = fn(x, sides)
+            lib_err = float(torch.where(lib_out == want, 0.0, lib_out - want)[~nan].abs().max())
+            lib = time_ms(torch, [lambda s_=st: fn(s_[0], s_[1]) for st in sets], 20)
+            note = f"{name}, f32 (max abs err against plain {lib_err:.2g})"
         record("fused_chain", f"{label} {list(shape)}" + (" (bit-equal)" if exact else ""), err,
-               bound, t, tp, (2 + n_sides) * n * 4, 4 * len(steps) * n, None,
-               NO_LIBRARY["chain"])
+               bound, t, tp, nbytes, 4 * len(steps) * n, lib, note, **extra)
 
 
 def check_megacalls(torch, dev, g, record, weights):
@@ -2406,7 +2483,8 @@ def main() -> int:
     build.library()
     log(f"  kernels built in {nvcc_s:.1f} s (load {time.perf_counter() - t0:.1f} s): {path}")
     if (path.parent / "build.log").is_file():    # ptxas -v of the tensor-core kernels
-        for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd")):
+        for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd"),
+                             ("ptxas_rmsnorm", "rmsnorm"), ("ptxas_chain", "chain_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
                 log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
@@ -2416,6 +2494,9 @@ def main() -> int:
         spilled = [e["entry"] for e in summary["ptxas_flash"]
                    if "flash_d" in e["entry"] and e.get("spill_stores")]
         require(not spilled, f"K10dq / K10dkv spill registers: {spilled}")
+        spilled = [e["entry"] for e in summary["ptxas_rmsnorm"] + summary["ptxas_chain"]
+                   if e.get("spill_stores")]
+        require(not spilled, f"K12 / K13 spill registers: {spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the attention kernels and K11 (the quantized matmul's dx) of two
-checkouts of zgml_tpu_torch on one card, in turns (A, B, B, A by default),
-each turn in its own process.
+"""Time the attention kernels, K11 (the quantized matmul's dx), K12 (rmsnorm)
+and K13 (the fused elementwise chain) of two checkouts of zgml_tpu_torch on
+one card, in turns (A, B, B, A by default), each turn in its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf]
 
@@ -20,8 +20,10 @@ TinyLlama-1.1B also K4 at kv_len 1, 200 and
 2047 of a 22-layer cache, K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and
 K6d (Q4_0, one row) at the FFN; and K11 at Q4_0 and Q8_0 on M = 512 rows of
 g at the five TinyLlama-1.1B projections (wqkv, wo, w_gate_up, w_down,
-lm_head; weight copies cycled so the 50 MB L2 is cold). With --gguf (e.g.
-the Llama-2-7B file chip_smoke.py writes under .bench_cache/) each turn also
+lm_head; weight copies cycled so the 50 MB L2 is cold); K12 at the smoke's
+RMSNORM_CASES (f32) and K13 at its chain_cases() (graph_ffn's two chains,
+one case per op at [2048, 2048], and a bias [2048] added to [2048, 2048]),
+input copies cycled as the smoke does. With --gguf (e.g. the Llama-2-7B file chip_smoke.py writes under .bench_cache/) each turn also
 loads that model and times, on the host clock around a synchronized call,
 the prefill of a 1536-token prompt (seeded ids, 128-row chunks) over the
 bf16 and the int8 KV cache: the median of 3 after one warm-up, in us like
@@ -31,6 +33,7 @@ name and power limit.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -78,10 +81,15 @@ def one(root: str, gguf: str | None = None) -> dict:
     from zgml_tpu_torch.ops.flash_vjp import flash_dkv_cuda, flash_dq_cuda, flash_fwd_lse_cuda
     from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
+    from zgml_tpu_torch.ops.elementwise import BINARY, fused_chain_cuda
     from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda
+    from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda
     from zgml_tpu_torch.quant.packed import PackedWeight
-    sys.path.insert(1, str(HERE))
-    from chip_smoke import time_ms
+    # this file's chip_smoke, not the checkout's: both sides time alike
+    spec = importlib.util.spec_from_file_location("ab_chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    time_ms, copies_for = smoke.time_ms, smoke.copies_for
 
     src = pathlib.Path(zgml_tpu_torch.__file__).resolve()
     if pathlib.Path(root).resolve() not in src.parents:
@@ -169,6 +177,21 @@ def one(root: str, gguf: str | None = None) -> dict:
             out[f"K11 {kind} {name} M=512 N={n} K={k}"] = time_ms(
                 torch, [lambda w_=c: qmatmul_bwd_cuda(gr, w_) for c in copies], 10)[0]
             del copies
+    for m, d in smoke.RMSNORM_CASES:
+        xs = [torch.randn((m, d), device=dev, generator=g)
+              for _ in range(copies_for(2 * m * d * 4))]
+        gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        out[f"K12 M={m} d={d}"] = time_ms(
+            torch, [lambda x_=x: rmsnorm_cuda(x_, gamma) for x in xs], 50)[0]
+    for label, steps, shape, side_shape in smoke.chain_cases():
+        n_sides = sum(st.op in BINARY for st in steps)
+        side_shape = shape if side_shape is None else side_shape
+        nbytes = (2 + n_sides) * shape[0] * shape[1] * 4
+        sets = [(torch.randn(shape, device=dev, generator=g).abs() + 0.05,
+                 [torch.randn(side_shape, device=dev, generator=g) for _ in range(n_sides)])
+                for _ in range(copies_for(nbytes, 160_000_000, 8))]
+        out[f"K13 {label} {list(shape)}"] = time_ms(
+            torch, [lambda s_=st: fused_chain_cuda(s_[0], steps, s_[1]) for st in sets], 20)[0]
     out = {k: v * 1e3 for k, v in out.items()}            # device us
     if gguf:
         out.update(prefill_us(torch, gguf))

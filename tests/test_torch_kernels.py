@@ -663,7 +663,8 @@ def test_qmatmul_bwd(cuda, m, n, k, kind):
 @pytest.mark.parametrize("m,d,dtype", [(1, 2048, torch.float32), (128, 2048, torch.float32),
                                        (2048, 2048, torch.float32), (1, 4096, torch.float32),
                                        (7, 100, torch.float32), (3, 64, torch.float32),
-                                       (33, 5632, torch.float32), (16, 2048, torch.bfloat16)])
+                                       (33, 5632, torch.float32), (16, 2048, torch.bfloat16),
+                                       (128, 4096, torch.float32), (128, 4096, torch.bfloat16)])
 def test_rmsnorm_kernel(cuda, m, d, dtype):
     from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda, rmsnorm_ref
     g = torch.Generator(device=cuda).manual_seed(m + d)
@@ -676,6 +677,42 @@ def test_rmsnorm_kernel(cuda, m, d, dtype):
         assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_unaligned_x_takes_the_scalar_path(cuda, dtype):
+    """x one element past a 16-byte boundary: the plan takes the scalar
+    loop, with the same bounds."""
+    from zgml_tpu_torch.ops.rmsnorm import launch_plan, rmsnorm_cuda, rmsnorm_ref
+    m, d = 64, 2048
+    g = torch.Generator(device=cuda).manual_seed(3)
+    buf = torch.randn(m * d + 1, device=cuda, generator=g).to(dtype)
+    x = buf.view(-1)[1:1 + m * d].view(m, d)
+    gamma = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    assert not launch_plan(x, gamma).vector
+    got, want = rmsnorm_cuda(x, gamma), rmsnorm_ref(x, gamma)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("m,d", [(1, 2048), (2048, 2048), (1, 4096), (3, 8192), (300, 512)])
+def test_rmsnorm_kernel_two_launches_are_bit_equal(cuda, m, d):
+    """A fixed summation order: two launches give the same bits, on every
+    plan form (a warp a row, a block a row), each within 1e-6 * max|out| of
+    plain."""
+    from zgml_tpu_torch.ops.rmsnorm import launch_plan, rmsnorm_cuda, rmsnorm_ref
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    x = torch.randn((m, d), device=cuda, generator=g)
+    gamma = 1 + 0.1 * torch.randn(d, device=cuda, generator=g)
+    assert launch_plan(x, gamma).vector
+    a, b = rmsnorm_cuda(x, gamma), rmsnorm_cuda(x, gamma)
+    want = rmsnorm_ref(x, gamma)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert float((a - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 def test_rmsnorm_dispatch_and_autograd_take_k12(cuda, monkeypatch):
@@ -763,6 +800,72 @@ def test_fused_chain_kernel_chains_and_dispatch(cuda):
     torch.cuda.synchronize()
     assert global_profile.tier_summary()["fused_chain"] == {"cuda": 2}
     torch.testing.assert_close(gx, wx, rtol=0, atol=0)
+
+
+# K13's side inputs in every form it reads in place (a bias [d] or [1, d],
+# rows [B, M, 1], one value) and one it materialises ([B, 1, d]), at a d that
+# takes 16-byte vectors and one that does not; a chain of exact ops, so
+# bit-equal to plain
+_K13_SIDES = [lambda b, m, d: (d,), lambda b, m, d: (1, d), lambda b, m, d: (b, m, 1),
+              lambda b, m, d: (), lambda b, m, d: (b, 1, d)]
+
+
+@pytest.mark.parametrize("shape", [(4, 64, 512), (3, 33, 333)])
+@pytest.mark.parametrize("form", range(len(_K13_SIDES)),
+                         ids=["bias", "bias_1d", "rows", "scalar", "materialised"])
+def test_fused_chain_kernel_side_forms(cuda, shape, form):
+    from zgml_tpu_torch.ops.elementwise import Step, fused_chain_cuda, fused_chain_ref
+    g = torch.Generator(device=cuda).manual_seed(form + shape[2])
+    x = torch.randn(shape, device=cuda, generator=g)
+    side = 1.5 + torch.rand(_K13_SIDES[form](*shape), device=cuda, generator=g)
+    other = torch.randn(shape, device=cuda, generator=g)
+    steps = [Step("add", side=0), Step("div", side=0, side_left=True), Step("mul", side=1),
+             Step("sub", side=0, side_left=True), Step("max2", side=0)]
+    got, want = fused_chain_cuda(x, steps, [side, other]), fused_chain_ref(x, steps, [side, other])
+    torch.cuda.synchronize()
+    _chain_check(got, want, True)
+
+
+@pytest.mark.parametrize("n", [315, 4099, 8 * 1000 + 5])
+def test_fused_chain_kernel_ragged_and_misaligned(cuda, n):
+    """n not a multiple of a group (the tail runs a lane a thread), and x and
+    a side input one element past a 16-byte boundary (all of it a lane a
+    thread): bit-equal to plain on exact ops, 1e-6 * max|out| on the rest."""
+    from zgml_tpu_torch.ops.elementwise import Step, fused_chain_cuda, fused_chain_ref
+    g = torch.Generator(device=cuda).manual_seed(n)
+    buf = torch.randn(2 * n + 2, device=cuda, generator=g)
+    for x, side in ((buf[:n], buf[n + 1:2 * n + 1]), (buf[1:n + 1], buf[n + 2:])):
+        for steps, exact in (([Step("mul", side=0), Step("add_scalar", 0.5), Step("relu")], True),
+                             ([Step("silu"), Step("sub", side=0, side_left=True),
+                               Step("tanh")], False)):
+            got, want = fused_chain_cuda(x, steps, [side]), fused_chain_ref(x, steps, [side])
+            torch.cuda.synchronize()
+            _chain_check(got, want, exact)
+
+
+def test_fused_chain_kernel_reads_a_bias_in_place(cuda):
+    """A bias [d] added to [M, d] is one kernel a call: the side is not
+    materialised at x's shape first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zgml_tpu_torch.ops.elementwise import Step, fused_chain_cuda, fused_chain_ref
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((256, 2048), device=cuda, generator=g)
+    bias = torch.randn(2048, device=cuda, generator=g)
+    steps = [Step("add", side=0)]
+    _chain_check(fused_chain_cuda(x, steps, [bias]), fused_chain_ref(x, steps, [bias]), True)
+    torch.cuda.synchronize()
+    for _ in range(3):             # a profiler window now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fused_chain_cuda(x, steps, [bias])
+            torch.cuda.synchronize()
+        kernels = {ev.key: ev.count for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.count}
+        if kernels:
+            break
+    assert len(kernels) == 1 and "chain_kernel" in next(iter(kernels)), kernels
+    assert next(iter(kernels.values())) <= 5
 
 
 # -- the whole-stack decode megacalls: K14 (f32 operands) and K15 (bf16 ones) --

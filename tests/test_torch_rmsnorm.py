@@ -7,6 +7,15 @@ sums of squares in another order), the gradients of x and gamma through
 rmsnorm.RMSNorm (plain recompute) within 1e-5 * max|g| of jax.grad through
 the custom VJP (the same recompute, sums in another order).
 
+K12's design, held here before the card sees it: ``rmsnorm_plan`` covers
+every row once (each vector by one thread of one block, at most 4 vectors a
+thread, threads a multiple of 32 up to 1024, the scalar loop exactly where
+d is not a multiple of the 16-byte vector width or an operand is not
+aligned), and a numpy emulation of the kernel's f32 summation order (each
+thread over its vectors, the warp's xor shuffle tree, the warps' sums in
+order) stays within 2e-6 * max|out| of
+refs.rmsnorm and of the JAX kernel.
+
 Routing: ZGML_TPU_KERNELS_FORCE=rmsnorm sends ops.dispatch.rmsnorm to K12 on
 the card; on the CPU the call runs the plain version counted under `ref`,
 and without the flag plain torch counted under `torch`, as the JAX package
@@ -33,7 +42,7 @@ from zgml_tpu_torch.io.gguf import GGMLType
 from zgml_tpu_torch.io.llama_loader import load_llama
 from zgml_tpu_torch.models.llama import LlamaConfig
 from zgml_tpu_torch.ops import dispatch
-from zgml_tpu_torch.ops.rmsnorm import RMSNorm, rmsnorm_ref
+from zgml_tpu_torch.ops.rmsnorm import RMSNorm, VPT_MAX, rmsnorm_plan, rmsnorm_ref
 from zgml_tpu_torch.runtime.engine import LlamaEngine
 from zgml_tpu_torch.runtime.profile import global_profile
 from zgml_tpu_torch.utils.synthetic import write_synthetic_llama_gguf
@@ -63,6 +72,97 @@ def test_plain_matches_jax_kernel(m, d):
     got = rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(g), 1e-5)
     assert got.dtype == torch.float32
     _close(got.numpy(), want, FWD_RTOL)
+
+
+H100_SMS = 132
+
+
+def _vector_indices(plan, d):
+    """Per thread of a row: the vectors (scalar path: values) it holds, as
+    csrc/rmsnorm.cu indexes them."""
+    n = d // plan.width
+    return {t: [i for r in range(plan.vpt) if (i := r * plan.threads + t) < n]
+            for t in range(plan.threads)}
+
+
+@pytest.mark.parametrize("m", [1, 128, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [1, 31, 64, 100, 2048, 4096, 5632, 8192])
+def test_plan_covers_each_row_once(d, dtype, m):
+    plan = rmsnorm_plan(m, d, dtype, H100_SMS)
+    width = 16 // dtype.itemsize
+    assert plan.vector == (d % width == 0)
+    assert plan.width == (width if plan.vector else 1)
+    assert 1 <= plan.vpt <= VPT_MAX
+    assert plan.threads % 32 == 0 and plan.threads * plan.rows <= 1024
+    assert plan.rows == 1 or plan.threads == 32
+    held = _vector_indices(plan, d)
+    got = sorted(i for v in held.values() for i in v)
+    assert got == list(range(d // plan.width))
+    assert plan.blocks * plan.rows >= m
+    assert (plan.blocks - 1) * plan.rows < m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [4096, 5632, 8192, 16384])
+def test_plan_gives_a_wide_row_one_block_of_the_fewest_threads(d, dtype):
+    """A row wider than one warp's 4 vectors a thread takes one block, of
+    the fewest whole warps that hold it in at most 4 vectors a thread."""
+    plan = rmsnorm_plan(1, d, dtype, H100_SMS)
+    nvec = d // (16 // dtype.itemsize)
+    assert plan.vector and plan.rows == 1 and plan.blocks == 1
+    assert plan.threads * VPT_MAX >= nvec > (plan.threads - 32) * VPT_MAX
+    assert (plan.vpt - 1) * plan.threads < nvec <= plan.vpt * plan.threads
+
+
+def test_plan_takes_the_scalar_loop_where_unaligned():
+    plan = rmsnorm_plan(128, 2048, torch.float32, H100_SMS, aligned=False)
+    assert not plan.vector and plan.width == 1 and plan.blocks == 128
+
+
+def _warp_tree(lanes):
+    """csrc/common.cuh warp_sum: v += shfl_xor(v, off), off 16 .. 1, in f32
+    (every lane ends with the same bits); lane 0's value."""
+    v = np.asarray(lanes, np.float32)
+    for off in (16, 8, 4, 2, 1):
+        v = (v + v[np.arange(32) ^ off]).astype(np.float32)
+    return v[0]
+
+
+def _emulate_k12(x, g, eps, plan):
+    """csrc/rmsnorm.cu's vector path in numpy f32: each thread's sum of
+    squares over its vectors in order, the warp tree, then (a row in a block)
+    the warps' sums in order; ms = sum / d, rsqrt, x * inv, then * gamma."""
+    m, d = x.shape
+    held = _vector_indices(plan, d)
+    out = np.empty_like(x)
+    for row in range(m):
+        sq = (x[row] * x[row]).astype(np.float32).reshape(-1, plan.width)
+        ss = []
+        for t in range(plan.threads):
+            acc = np.float32(0)
+            for i in held[t]:
+                for v in sq[i]:
+                    acc = np.float32(acc + v)
+            ss.append(acc)
+        warps = [_warp_tree(ss[w:w + 32]) for w in range(0, plan.threads, 32)]
+        total = np.float32(0)
+        for w in warps:
+            total = np.float32(total + w)
+        ms = np.float32(total / np.float32(d))
+        inv = np.float32(1 / np.sqrt(np.float64(np.float32(ms + np.float32(eps)))))
+        out[row] = (x[row] * inv).astype(np.float32) * g
+    return out
+
+
+@pytest.mark.parametrize("d", [512, 2048, 4096])
+def test_kernel_summation_order_matches_refs_and_jax(d):
+    x, g = _inputs(3, d, d + 1)
+    plan = rmsnorm_plan(3, d, torch.float32, H100_SMS)
+    assert plan.vector
+    got = _emulate_k12(x, g, 1e-5, plan)
+    _close(got, rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(g), 1e-5).numpy(), FWD_RTOL)
+    _close(got, rmsnorm_pallas(jnp.asarray(x), jnp.asarray(g), 1e-5), FWD_RTOL)
 
 
 @pytest.mark.parametrize("shape", [(7, 100), (2, 3, 64)])

@@ -62,8 +62,9 @@ _SIGNATURES = {
     "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _P),
     "zgml_ffn": (_I, *(_P,) * 8, _I, _I, _I, _P),
     "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P),
-    "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _P),
-    "zgml_fused_chain": (_P, _P, _LL, _I, _P, _P, _P, _P, _P, _I, _P),
+    "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    "zgml_fused_chain": (_P, _P, _LL, _P, _I, _P),
+    "zgml_fused_chain_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_stack_decode": (_I, *(_P,) * 16, *(_I,) * 7, _F, _F, _P),
 }
 
