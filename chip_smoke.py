@@ -211,6 +211,8 @@ KV8_DECODE_LENS = [[1, 200, 2047, 1000]]          # TinyLlama, batch 4
 KV8_DECODE_LENS_7B = [[200], [2047]]              # Llama-2-7B, batch 1
 LOGIT_RTOL = 1e-3          # K2 and K3 run f32 operands
 I8_ROWS = (1, 8, 32)       # K1 cases: decode, a small batch, the largest int8 call
+K2_ROWS = (1, 128)         # K2 cases: decode (the GEMV tier), a prefill chunk (tiled)
+K2_TRAIN_ROWS = (512,)     # and at TinyLlama-1.1B train_q4_frozen's forward, B 1 x T 512
 ATTN_POS = (0, 1, 200, 2047)
 FFN_ROWS = (1, 8, 32)      # K6: decode, and calls of <= 32 rows outside it
 FFN_I8_ROWS = (1, 8)       # K6c: decode, and a small batch
@@ -295,8 +297,9 @@ F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 I8_OP_PER_S = 1979e12
 TF32_FLOP_PER_S = 495e12
-# K3 / K9 / K10f and K11 run their f32 dots as two TF32 products each (q, p
-# or g * scale split into hi + lo, csrc/flash_attn.cu, csrc/qmatmul_bwd.cu):
+# K2's tiled tier, K3 / K9 / K10f and K11 run their f32 dots as two TF32
+# products each (x, q, p or g * scale split into hi + lo, csrc/qmatmul.cu,
+# csrc/flash_attn.cu, csrc/qmatmul_bwd.cu):
 # their least time for the same f32-accurate work counts TF32_PASSES x the f32
 # operations at the TF32 rate. K10dq and K10dkv (csrc/flash_bwd.cu) count
 # their own products: two TF32 MMAs for a product of an f32 and a bf16
@@ -415,6 +418,9 @@ NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("attn_kv8", "q4_0"): "attn_block_kv8", ("attn_kv8", "q8_0"): "attn_block_kv8_q8",
         ("attn_i8_kv8", "q4_0"): "attn_block_i8_kv8",
         ("attn_i8_kv8", "q8_0"): "attn_block_i8_kv8_q8"}
+# K2's library call (phase 2): the same function, timed and used nowhere in the port
+LIBRARY_K2 = ("torch.matmul(x, W.T) f32 (allow_tf32 False), W dequantized outside the "
+              "timed window")
 # why a kernel has no library_ms
 NO_LIBRARY = {
     "q8": "none: no PyTorch call computes a 32-block Q8_0 product (torch._weight_int8pack_mm "
@@ -576,10 +582,10 @@ def check_kernels(torch, dev):
                                         fused_ffn_norm_ref, fused_ffn_ref)
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref, qkv_ref
     from zgml_tpu_torch.quant.kv_cache import quantize_columns
-    from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, greedy_ref, qmatmul_cuda,
-                                            qmatmul_i8_cuda, qmatmul_i8_ref, qmatmul_ref,
-                                            quantize_act_cuda, quantize_act_ref,
-                                            rmsnorm_quantize_ref)
+    from zgml_tpu_torch.ops.qmatmul import (GEMV_MAX_M, _fwd_card, greedy_cuda, greedy_ref,
+                                            qmatmul_cuda, qmatmul_i8_cuda, qmatmul_i8_ref,
+                                            qmatmul_plan, qmatmul_ref, quantize_act_cuda,
+                                            quantize_act_ref, rmsnorm_quantize_ref)
     from zgml_tpu_torch.quant.packed import PackedWeight
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -675,27 +681,53 @@ def check_kernels(torch, dev):
                    f"{err:.2g} vs the f32 plain output)")
 
     def check_projection(kind, name, n, k, model):
-        """K2 at M = 1 and 128, K1 at I8_ROWS and, on lm_head, K5."""
+        """K2 at K2_ROWS (and K2_TRAIN_ROWS at TinyLlama-1.1B), K1 at
+        I8_ROWS and, on lm_head, K5. K2: two launches give the same bits; its
+        rms error against float64 is recorded, and above GEMV_MAX_M rows
+        (split-TF32 tensor cores) held to at most K11_RMS_RATIO x the plain
+        version's (cuBLAS f32); the bound counts the tiled tier's TF32
+        products (TF32_PASSES per f32 product), the GEMV's f32 ones. The
+        library call is torch.matmul(x, W.T) in f32 on the weight dequantized
+        outside the timed window (the same function); at Q4_0 the int4pack
+        call, which rounds x to bf16 (another function), is a second note."""
         copies = weights(kind, n, k)
         w = copies[0]
         wbytes = nbytes_of(w.qs, w.d)
         packs, refusal = int4pack(copies) if kind == "q4_0" else (None, None)
-        for m in (1, 128):
+        kname = NAME["matmul", kind]
+        wds = [c.dequant() for c in copies[:copies_for(n * k * 4, most=len(copies))]]
+        for m in K2_ROWS + (K2_TRAIN_ROWS if not model else ()):
             x = torch.randn((m, k), device=dev, generator=g)
-            got, want = qmatmul_cuda(x, w), qmatmul_ref(x, w)
+            got, again, want = qmatmul_cuda(x, w), qmatmul_cuda(x, w), qmatmul_ref(x, w)
             torch.cuda.synchronize()
+            case = f"{model}{name} M={m} N={n} K={k}"
             err = float((got - want).abs().max())
             bound = 1e-4 * k ** 0.5 + 1e-5 * float(want.abs().max())
-            kname = NAME["matmul", kind]
             require(bool(torch.isfinite(got).all()) and err <= bound,
-                    f"{kname} {model}{name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+                    f"{kname} {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            require(bool(torch.equal(got, again)), f"{kname} {case}: two launches differ")
+            exact = x.double() @ wds[0].double().T
+            rms, rms_plain = (float((y.double() - exact).square().mean().sqrt())
+                              for y in (got, want))
+            del exact
+            tiled = m > GEMV_MAX_M
+            require(not tiled or rms <= K11_RMS_RATIO * rms_plain,
+                    f"{kname} {case}: rms error vs float64 {rms:.3g} > {K11_RMS_RATIO} x "
+                    f"plain's {rms_plain:.3g}")
             t = time_ms(torch, [lambda w_=c: qmatmul_cuda(x, w_) for c in copies], 50)
             tp = time_ms(torch, [lambda w_=c: qmatmul_ref(x, w_) for c in copies], 20)
-            lib, note = None, NO_LIBRARY["q8"] if kind == "q8_0" else refusal
-            if packs is not None:
-                lib, note = time_int4(packs, x, want)
-            record(kname, f"{model}{name} M={m} N={n} K={k}", err, bound, t, tp,
-                   m * k * 4 + wbytes + m * n * 4, 2 * m * n * k, lib, note)
+            lib = time_ms(torch, [lambda wd_=wd: torch.matmul(x, wd_.T) for wd in wds], 20)
+            extra = dict(rms_vs_plain=rms / rms_plain if rms_plain else None)
+            if kind == "q4_0":
+                i4, i4_note = time_int4(packs, x, want) if packs is not None else (None, refusal)
+                extra.update(int4pack_ms=None if i4 is None else i4[0],
+                             int4pack_note=f"another function: {i4_note}")
+            if tiled:
+                extra["n_split"] = qmatmul_plan(m, n, k, *_fwd_card(dev.index or 0, kind)).n_split
+            record(kname, case, err, bound, t, tp, m * k * 4 + wbytes + m * n * 4,
+                   0 if tiled else 2 * m * n * k, lib, LIBRARY_K2,
+                   tf32ops=TF32_PASSES * 2 * m * n * k if tiled else 0, **extra)
+        del wds
         for m in I8_ROWS:
             x = torch.randn((m, k), device=dev, generator=g)
             xq, xs = quantize_act_cuda(x)
@@ -2484,13 +2516,16 @@ def main() -> int:
     log(f"  kernels built in {nvcc_s:.1f} s (load {time.perf_counter() - t0:.1f} s): {path}")
     if (path.parent / "build.log").is_file():    # ptxas -v of the tensor-core kernels
         for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd"),
-                             ("ptxas_rmsnorm", "rmsnorm"), ("ptxas_chain", "chain_kernel")):
+                             ("ptxas_qmatmul", "qgemm_tf32"), ("ptxas_rmsnorm", "rmsnorm"),
+                             ("ptxas_chain", "chain_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
                 log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
                     f"{e.get('spill_stores')} bytes spill stores, {e.get('stack')} bytes stack")
         spilled = [e["entry"] for e in summary["ptxas_qmatmul_bwd"] if e.get("spill_stores")]
         require(not spilled, f"K11 spills registers: {spilled}")
+        spilled = [e["entry"] for e in summary["ptxas_qmatmul"] if e.get("spill_stores")]
+        require(not spilled, f"K2's tiled tier spills registers: {spilled}")
         spilled = [e["entry"] for e in summary["ptxas_flash"]
                    if "flash_d" in e["entry"] and e.get("spill_stores")]
         require(not spilled, f"K10dq / K10dkv spill registers: {spilled}")

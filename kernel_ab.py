@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the attention kernels, K11 (the quantized matmul's dx), K12 (rmsnorm)
-and K13 (the fused elementwise chain) of two checkouts of zgml_tpu_torch on
-one card, in turns (A, B, B, A by default), each turn in its own process.
+"""Time the attention kernels, K2 (the quantized matmul), K11 (its dx), K12
+(rmsnorm) and K13 (the fused elementwise chain) of two checkouts of
+zgml_tpu_torch on one card, in turns (A, B, B, A by default), each turn in
+its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf]
 
@@ -20,7 +21,11 @@ TinyLlama-1.1B also K4 at kv_len 1, 200 and
 2047 of a 22-layer cache, K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and
 K6d (Q4_0, one row) at the FFN; and K11 at Q4_0 and Q8_0 on M = 512 rows of
 g at the five TinyLlama-1.1B projections (wqkv, wo, w_gate_up, w_down,
-lm_head; weight copies cycled so the 50 MB L2 is cold); K12 at the smoke's
+lm_head; weight copies cycled so the 50 MB L2 is cold); K2 at Q4_0 and
+Q8_0 on a 128-row prefill chunk at those five projections and at Llama-2-7B's
+(wqkv, wo, w_gate_up, w_down, lm_head), on M = 512 (train_q4_frozen's
+forward) and on M = 8 and 32 (the unfused path's small calls) at
+TinyLlama-1.1B's, weight copies cycled likewise; K12 at the smoke's
 RMSNORM_CASES (f32) and K13 at its chain_cases() (graph_ffn's two chains,
 one case per op at [2048, 2048], and a bias [2048] added to [2048, 2048]),
 input copies cycled as the smoke does. With --gguf (e.g. the Llama-2-7B file chip_smoke.py writes under .bench_cache/) each turn also
@@ -82,7 +87,7 @@ def one(root: str, gguf: str | None = None) -> dict:
     from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
     from zgml_tpu_torch.ops.elementwise import BINARY, fused_chain_cuda
-    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda
+    from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda, qmatmul_cuda
     from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda
     from zgml_tpu_torch.quant.packed import PackedWeight
     # this file's chip_smoke, not the checkout's: both sides time alike
@@ -158,25 +163,41 @@ def one(root: str, gguf: str | None = None) -> dict:
     out["K6d M=1"] = time_ms(torch, [lambda gu_=gu, wd_=wd: fused_ffn_norm_cuda(
         x, gamma, gu_, wd_, 1e-5) for gu, wd in zip(gus, wds)], 50)[0]
     del gus, wds
+
+    def copies_of(kind, n, k):
+        """Copies of a random [n, k] weight of `kind` totalling >= 48 MB."""
+        per = n * k // (2 if kind == "q4_0" else 1) + n * k // 16
+        copies = []
+        for _ in range(max(2, -(-48_000_000 // per))):
+            d = (torch.rand((n, k // 32), device=dev, generator=g) * 0.02 + 0.001).half()
+            if kind == "q4_0":
+                qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=dev,
+                                   generator=g)
+            else:
+                qs = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g)
+                d = d / 16
+            copies.append(PackedWeight(n, k, qs, d, kind))
+        return copies
+
+    tiny = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w_gate_up", 11264, 2048),
+            ("w_down", 2048, 5632), ("lm_head", 32000, 2048))
     for kind in ("q4_0", "q8_0"):
-        for name, n, k in (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w_gate_up", 11264, 2048),
-                           ("w_down", 2048, 5632), ("lm_head", 32000, 2048)):
-            per = n * k // (2 if kind == "q4_0" else 1) + n * k // 16
-            copies = []
-            for _ in range(max(2, -(-48_000_000 // per))):
-                d = (torch.rand((n, k // 32), device=dev, generator=g) * 0.02 + 0.001).half()
-                if kind == "q4_0":
-                    qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=dev,
-                                       generator=g)
-                else:
-                    qs = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev,
-                                       generator=g)
-                    d = d / 16
-                copies.append(PackedWeight(n, k, qs, d, kind))
+        for name, n, k in tiny:
+            copies = copies_of(kind, n, k)
             gr = torch.randn((512, n), device=dev, generator=g)
             out[f"K11 {kind} {name} M=512 N={n} K={k}"] = time_ms(
                 torch, [lambda w_=c: qmatmul_bwd_cuda(gr, w_) for c in copies], 10)[0]
             del copies
+    for kind in ("q4_0", "q8_0"):
+        for tag, shapes, rows in (("", tiny, (8, 32, 128, 512)),
+                                  ("7B ", smoke.GEMM_SHAPES_7B, (128,))):
+            for name, n, k in shapes:
+                copies = copies_of(kind, n, k)
+                for m in rows:
+                    x = torch.randn((m, k), device=dev, generator=g)
+                    out[f"K2 {kind} {tag}{name} M={m} N={n} K={k}"] = time_ms(
+                        torch, [lambda w_=c: qmatmul_cuda(x, w_) for c in copies], 20)[0]
+                del copies
     for m, d in smoke.RMSNORM_CASES:
         xs = [torch.randn((m, d), device=dev, generator=g)
               for _ in range(copies_for(2 * m * d * 4))]

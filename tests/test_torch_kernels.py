@@ -8,7 +8,10 @@ machine without JAX, where tests/conftest.py (which imports jax) is skipped:
 
 The weight kernels run at both kinds, Q4_0 and Q8_0. Tolerances: K2 rtol
 1e-5 / atol 1e-4*sqrt(K) and K3/K4 1e-5, since kernel and plain version both
-compute in f32 and differ only in the order of the sums (K3 / K9 / K10f take
+compute in f32 and differ only in the order of the sums (K2 above 4 rows
+takes x as two TF32 parts against exact levels, one fresh accumulator per
+quant block: bit-equal over two launches, its rms error against float64 at
+most 2x the plain version's; K3 / K9 / K10f take
 q and p as two TF32 parts on the tensor cores, which leaves at most 2^-22 of
 each: f32's class, tests/test_torch_flash_split.py); K1, K6 and K7
 1e-5 * max|out| for the same reason (K1's int8 block dots are exact on both
@@ -77,15 +80,29 @@ def _weight(rng, n, k, device, kind="q4_0"):
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("m,n,k", [(1, 2560, 2048), (3, 300, 576), (4, 64, 5632),
-                                   (5, 96, 64), (128, 2048, 2048), (77, 1000, 512)])
+                                   (5, 96, 64), (128, 2048, 2048), (77, 1000, 512),
+                                   (7, 2560, 2048), (33, 1000, 576), (512, 2048, 2048),
+                                   (512, 333, 5632), (130, 77, 96), (128, 32000, 2048)])
 def test_q4_matmul(cuda, m, n, k, kind):
+    """K2 against x @ dequant(W).T; above GEMV_MAX_M rows (split-TF32
+    tensor cores, tests/test_torch_qmatmul_fwd_split.py) also bit-equal over
+    two launches (a fixed split, no atomics) and its rms error against
+    float64 at most 2x that of the plain version (cuBLAS f32)."""
+    from zgml_tpu_torch.ops.qmatmul import GEMV_MAX_M
     rng = np.random.default_rng(m * 7 + n)
     w = _weight(rng, n, k, cuda, kind)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
-    got = qmatmul_cuda(x, w)
+    got, again = qmatmul_cuda(x, w), qmatmul_cuda(x, w)
     want = qmatmul_ref(x, w)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * np.sqrt(k))
+    assert torch.equal(got, again)
+    if m > GEMV_MAX_M:
+        exact = x.double() @ w.dequant().double().T
+
+        def rms(y):
+            return float((y.double() - exact).square().mean().sqrt())
+        assert rms(got) <= 2 * rms(want), (rms(got), rms(want))
 
 
 def _qkv(rng, b, hq, hkv, tq, rows, s, d, device):

@@ -54,7 +54,7 @@
 //    resident blocks per SM (zgml_qmatmul_bwd_blocks_per_sm). Part z takes
 //    stages [z S / n_split, (z + 1) S / n_split) of the S = ceil(N / 32).
 //    With n_split > 1 each part writes an f32 partial dx, and
-//    qgemm_bwd_sum_kernel adds the parts in order 0, 1, ...: no atomics, so
+//    tf32::sum_parts adds the parts in order 0, 1, ...: no atomics, so
 //    dx has the same bits on every run. The grid runs k tiles fastest, so
 //    the blocks that read one (m tile, part) slice of g run together and g
 //    comes from HBM about once; W is read once per 128-row tile of g.
@@ -272,21 +272,6 @@ __global__ void __launch_bounds__(THREADS, 1) qgemm_bwd_kernel(const BwdParams p
   }
 }
 
-// dx = part[0] + part[1] + ... in that order (n4 float4s per part)
-__global__ void qgemm_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dx,
-                                     long long n4, int n_split) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
-       i += (long long)gridDim.x * blockDim.x) {
-    float4 s = part[i];
-    for (int z = 1; z < n_split; ++z) {
-      const float4 v = part[z * n4 + i];
-      s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y), __fadd_rn(s.z, v.z),
-                      __fadd_rn(s.w, v.w));
-    }
-    dx[i] = s;
-  }
-}
-
 template <class F, bool G16>
 int launch(const BwdParams& p, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<F>();
@@ -333,10 +318,5 @@ ZGML_EXPORT int zgml_qmatmul_bwd(int kind, const float* g, const uint8_t* qs, co
     break;
   })
   if (rc != 0 || n_split == 1) return rc;
-  const long long n4 = (long long)M * K / 4;
-  const int threads = 256;
-  const long long blocks = (n4 + threads - 1) / threads;
-  qgemm_bwd_sum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), threads, 0, st>>>(
-      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dx), n4, n_split);
-  return (int)cudaGetLastError();
+  return tf32::sum_parts(part, dx, (long long)M * K, n_split, st);
 }

@@ -1,7 +1,8 @@
 // TF32 and bf16 tensor-core, ldmatrix and cp.async helpers for the tiled
-// kernels K11 (qmatmul_bwd.cu) and K10dq / K10dkv (flash_bwd.cu): the same
-// instructions the prefill flash kernel uses (flash_attn.cu keeps its own
-// copy).
+// kernels K2 (qmatmul.cu), K11 (qmatmul_bwd.cu) and K10dq / K10dkv
+// (flash_bwd.cu): the same instructions the prefill flash kernel uses
+// (flash_attn.cu keeps its own copy); and the fixed-order sum of the split
+// GEMMs' partials (K2, K11).
 #pragma once
 
 #include <cstdint>
@@ -94,5 +95,46 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
+
+namespace {
+
+// y = part[0] + part[1] + ... + part[n_split - 1] (n values each), added in
+// that order: no atomics, so y has the same bits on every run
+template <int = 0>
+__global__ void sum_parts_kernel(const float* __restrict__ part, float* __restrict__ y,
+                                 long long n, int n_split) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if ((n & 3) == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    const long long n4 = n >> 2;
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4; i += stride) {
+      float4 s = p4[i];
+      for (int z = 1; z < n_split; ++z) {
+        const float4 v = p4[z * n4 + i];
+        s = make_float4(__fadd_rn(s.x, v.x), __fadd_rn(s.y, v.y), __fadd_rn(s.z, v.z),
+                        __fadd_rn(s.w, v.w));
+      }
+      reinterpret_cast<float4*>(y)[i] = s;
+    }
+  } else {
+    for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n; i += stride) {
+      float s = part[i];
+      for (int z = 1; z < n_split; ++z) s = __fadd_rn(s, part[z * n + i]);
+      y[i] = s;
+    }
+  }
+}
+
+// launch sum_parts_kernel on `st` (part and y 16-byte aligned); returns a
+// status. A template, like the kernel, so a source that includes this header
+// and never sums gets no copy of the kernel.
+template <int = 0>
+inline int sum_parts(const float* part, float* y, long long n, int n_split, cudaStream_t st) {
+  const long long blocks = ((n & 3) == 0 ? n / 4 : n) / 256 + 1;
+  sum_parts_kernel<><<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, st>>>(part, y, n, n_split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace tf32

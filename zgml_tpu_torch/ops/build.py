@@ -45,7 +45,8 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # exported function -> argtypes (every launcher returns an int status; the
 # weight launchers take the kind code of ops/qmatmul.py KIND_CODE first)
 _SIGNATURES = {
-    "zgml_qmatmul": (_I, _P, _P, _P, _P, _I, _I, _I, _P),
+    "zgml_qmatmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "zgml_qmatmul_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 11, _F, _P),
     "zgml_flash_dq": (*(_P,) * 8, *(_I,) * 10, _F, _P),
     "zgml_flash_dkv": (*(_P,) * 9, *(_I,) * 9, _F, _P),

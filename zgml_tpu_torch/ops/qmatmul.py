@@ -2,7 +2,8 @@
 
   K2  qmatmul_cuda / qmatmul_ref        (csrc/qmatmul.cu) counterpart of
       zgml_tpu/ops/qmatmul.py `_q4_kernel` (K2q4) and `_q8_kernel` (K2q8):
-      f32 dequant, any M.
+      f32 dequant, any M; a GEMV up to GEMV_MAX_M rows, above that split-TF32
+      `wgmma` with K split across blocks by ``qmatmul_plan``.
   K1  qmatmul_i8_cuda / qmatmul_i8_ref  (csrc/qmatmul_i8.cu) counterpart of
       `_q4_i8_kernel` (K1q4) and `_q8_i8_kernel` (K1q8): int8 activations per
       32-block, exact int8 block dots, f32 scale and sum; the tier for M <= 32.
@@ -65,6 +66,68 @@ def _check(x: torch.Tensor, w: PackedWeight):
              "x and qs must be 16-byte aligned")
 
 
+# K2's tiled tier (csrc/qmatmul.cu): 128 x 128 tiles of y, K stepped one
+# quant block a stage; M <= GEMV_MAX_M runs the GEMV, which takes no plan
+GEMV_MAX_M = 4
+FWD_BM, FWD_BN = 128, 128
+FWD_MAX_SPLIT = 16
+FWD_MIN_STAGES = 8        # a part of K takes at least 8 quant blocks
+# the plan's cost model: a resident block's time for one stage (~1 us on
+# the H100: Llama-2-7B's lm_head at M 128, 2 waves x 128 stages, takes ~253
+# us; PERF.md), and the rate at which the partials are written and read back
+# (HBM's)
+FWD_STAGE_US = 1.0
+FWD_PART_BYTES_PER_US = 3.35e6
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """K2's launch at M > GEMV_MAX_M: n_split parts of K; part z takes the
+    quant blocks parts[z] = [begin, end) (the kernel computes them from its
+    grid z)."""
+    n_split: int
+    parts: tuple[tuple[int, int], ...]
+
+
+def qmatmul_plan(m: int, n: int, k: int, sm_count: int, per_sm: int = 1) -> FwdPlan:
+    """Split K so that the tiles of y times the parts fill the card's
+    resident blocks (sm_count * per_sm): the least estimated time, waves x
+    stages of the longest part at FWD_STAGE_US plus the partials' traffic
+    (written and read back, and y written) at FWD_PART_BYTES_PER_US, the
+    fewest parts on a tie, no part shorter than FWD_MIN_STAGES quant blocks
+    unless K has fewer. A pure function of the shapes and the card, so y
+    has the same bits on every run there."""
+    tiles = -(-m // FWD_BM) * -(-n // FWD_BN)
+    stages = k // QK
+    slots = max(1, sm_count * per_sm)
+    most = max(1, min(FWD_MAX_SPLIT, stages // FWD_MIN_STAGES))
+
+    def cost(s):
+        run = -(-tiles * s // slots) * -(-stages // s) * FWD_STAGE_US
+        return run + (0 if s == 1 else (2 * s + 1) * m * n * 4 / FWD_PART_BYTES_PER_US)
+    n_split = min(range(1, most + 1), key=lambda s: (cost(s), s))
+    bounds = [z * stages // n_split for z in range(n_split + 1)]
+    return FwdPlan(n_split, tuple(zip(bounds[:-1], bounds[1:])))
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int, kind: str, query: str, what: str) -> tuple[int, int]:
+    """(SM count, blocks of a kernel one SM holds) of card `index` at `kind`,
+    from the library's occupancy query `query`."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(getattr(build.library(), query)(KIND_CODE[kind], ctypes.byref(n)),
+                    f"{what} occupancy")
+    if n.value < 1:
+        raise RuntimeError(f"{what} ({kind}): no block fits on an SM")
+    return torch.cuda.get_device_properties(index).multi_processor_count, n.value
+
+
+def _fwd_card(index: int, kind: str) -> tuple[int, int]:
+    """(SM count, K2 tiled blocks one SM holds) of card `index` at `kind`."""
+    return _card(index, kind, "zgml_qmatmul_blocks_per_sm", "qmatmul")
+
+
 def qmatmul_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K2: x f32 [..., K] (contiguous, on the card) @ dequant(W).T -> f32 [..., N]."""
     _check(x, w)
@@ -73,9 +136,15 @@ def qmatmul_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     y = torch.empty((*lead, w.n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
+    n_split, part = 1, None
+    if m > GEMV_MAX_M:
+        n_split = qmatmul_plan(m, w.n, w.k, *_fwd_card(x.device.index or 0, w.kind)).n_split
+        if n_split > 1:
+            part = torch.empty((n_split, m, w.n), dtype=torch.float32, device=x.device)
     status = build.library().zgml_qmatmul(
-        KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(), m,
-        w.n, w.k, torch.cuda.current_stream(x.device).cuda_stream)
+        KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), m, w.n, w.k, n_split,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "qmatmul")
     global_profile.count_op(counter("qmatmul", w.kind), "cuda")
     return y
@@ -212,17 +281,9 @@ def qmatmul_bwd_plan(m: int, n: int, k: int, sm_count: int, per_sm: int = 1) -> 
     return BwdPlan(n_split, tuple(zip(bounds[:-1], bounds[1:])))
 
 
-@functools.lru_cache(maxsize=None)
 def _bwd_card(index: int, kind: str) -> tuple[int, int]:
     """(SM count, K11 blocks one SM holds) of card `index` at `kind`."""
-    n = ctypes.c_int(0)
-    with torch.cuda.device(index):
-        build.check(build.library().zgml_qmatmul_bwd_blocks_per_sm(KIND_CODE[kind],
-                                                                   ctypes.byref(n)),
-                    "qmatmul_bwd occupancy")
-    if n.value < 1:
-        raise RuntimeError(f"qmatmul_bwd ({kind}): no block fits on an SM")
-    return torch.cuda.get_device_properties(index).multi_processor_count, n.value
+    return _card(index, kind, "zgml_qmatmul_bwd_blocks_per_sm", "qmatmul_bwd")
 
 
 def qmatmul_bwd_cuda(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
