@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name, power limit), build the CUDA kernels
      from zgml_tpu_torch/csrc with nvcc (one process per source, in
      parallel), print the build time and ptxas' registers and spills of
-     the instantiations of the flash kernels, K11, K12 and K13 (none of
-     which may spill);
+     the instantiations of the flash kernels, K11, K12, K13, K7 and K6
+     (none of which may spill, but K6's groups of 2 and 4 rows, recorded);
   2. check each kernel against its plain torch version on the card at the
      shapes of the main paths, and time both (device time from
      torch.profiler, or from CUDA events around calls queued behind a spin
@@ -31,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the levels that differ from the plain pre-pass are counted (at most
      one level apart); K7-kv8 likewise runs the plain version on the
      kernel's own quantized q, and its cache row pos must be quantize_columns
-     of its own k_cur / v_cur bit for bit. Each case also gets its bound (the
+     of its own k_cur / v_cur bit for bit. K6 and K7 give the same bits over
+     two launches in every case, and record their launch plan (grid, ring
+     slots and size, shared memory, row group; ops/decode_plan.py). Each
+     case also gets its bound (the
      least time the card could take: bytes moved, each input read once and
      each output written once, over 3.35 TB/s, or the operations over the
      card's peak for their type, f32 at 67 TFLOP/s and int8 at 1979 TOP/s;
@@ -148,10 +151,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      turns (rounds of the paths there and back; median per path), with the
      1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b;
      per path a torch.profiler breakdown of one prefill chunk and 8 decode
-     steps, with the kernels launched per decode token and the megacall's
-     device time per token (and, on those two, 8 steps at the 1536-token
-     context with K7's device time per token; "not measured" where the
-     profiler sees no kernel); ms per
+     steps, with the kernels launched per decode token, K7's and K6's and
+     the megacall's device time per token (and, on those two, 8 steps at the
+     1536-token context; "not measured" where the profiler sees no kernel);
+     ms per
      training step and tokens/s of both training paths in turns, and a
      profile of one step each; graph_ffn's ms per run and per
      value_and_grad in turns (median of 6) and a profile of one
@@ -570,6 +573,14 @@ def bound_of(nbytes: float, flops: float, i8ops: float = 0, bf16ops: float = 0,
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def stream_plan(plan) -> dict:
+    """The launch of a weight-streaming decode kernel (K6, K7) as a case
+    records it: one block an SM, the ring's slots and size, the dynamic shared
+    memory, the row group."""
+    return dict(grid=plan.grid, stages=plan.stages, slot_bytes=plan.slot_bytes,
+                smem_bytes=plan.smem_bytes, mr=plan.mr)
+
+
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -580,6 +591,7 @@ def check_kernels(torch, dev):
                                               flash_attention_cuda, flash_attention_ref)
     from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda,
                                         fused_ffn_norm_ref, fused_ffn_ref)
+    from zgml_tpu_torch.ops.decode_plan import attn_plan, ffn_plan, launch_args
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref, qkv_ref
     from zgml_tpu_torch.quant.kv_cache import quantize_columns
     from zgml_tpu_torch.ops.qmatmul import (GEMV_MAX_M, _fwd_card, greedy_cuda, greedy_ref,
@@ -767,17 +779,20 @@ def check_kernels(torch, dev):
             act = ((torch.empty((m, d), dtype=torch.int8, device=dev),
                     torch.empty((m, d // 32), device=dev)) if a_i8 else None)
             got = fused_ffn_norm_cuda(x, gamma, *pairs[0], 1e-5, a_i8, act)
+            again = fused_ffn_norm_cuda(x, gamma, *pairs[0], 1e-5, a_i8)
             want = fused_ffn_norm_ref(x, gamma, *pairs[0], 1e-5, a_i8, act)
             torch.cuda.synchronize()
             err, bound = rel_err(got, want)
             require(bool(torch.isfinite(got).all()) and err <= bound,
                     f"{kname} {model}M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
-            case, extra = f"{model}M={m} D={d} F={f}", {}
+            require(bool(torch.equal(got, again)), f"{kname} {model}M={m}: two launches differ")
+            case, extra = f"{model}M={m} D={d} F={f}", stream_plan(
+                launch_args(dev, ffn_plan, m, d, f, kind, a_i8)[0])
             if a_i8:
                 n_diff, n_all = own_levels(act, x, gamma)
                 case += f", on the kernel's int8 activations ({n_diff} of {n_all} levels " \
                         f"one off the plain pre-pass)"
-                extra = dict(levels_off=n_diff, levels=n_all)
+                extra.update(levels_off=n_diff, levels=n_all)
             t = time_ms(torch, [lambda p_=pr: fused_ffn_norm_cuda(x, gamma, *p_, 1e-5, a_i8)
                                 for pr in pairs], 50 if m == 1 else 10)
             tp = time_ms(torch, [lambda p_=pr: fused_ffn_norm_ref(x, gamma, *p_, 1e-5, a_i8)
@@ -843,9 +858,14 @@ def check_kernels(torch, dev):
                    torch.empty(hq, device=dev)) if kv8 else None)
             got = attn_block_cuda(x, gamma, *layers[0], kc, vc, ATTN_LAYER, pos_t, cos, sin,
                                   hq, hkv, 1e-5, a_i8, act, q8)
+            # the second launch reads the rows below pos and writes row pos again
+            again = attn_block_cuda(x, gamma, *layers[0], kc, vc, ATTN_LAYER, pos_t, cos, sin,
+                                    hq, hkv, 1e-5, a_i8)
             want = attn_block_ref(x, gamma, *layers[0], kr, vr, ATTN_LAYER, pos, cos, sin,
                                   hq, hkv, 1e-5, a_i8, act, q8)
             torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{kname} {model}pos={pos}: two launches differ")
             errs = [rel_err(a, b) for a, b in zip(got, want)]
             require(all(bool(torch.isfinite(a).all()) for a in got)
                     and all(e <= b for e, b in errs),
@@ -872,12 +892,14 @@ def check_kernels(torch, dev):
                         and torch.equal(vc[..., rows, :], vr[..., rows, :]),
                         f"{kname} {model}pos={pos}: cache row pos is not bf16(k_cur, v_cur), "
                         f"or another row changed")
-            case, extra = f"{model}pos={pos} layer={ATTN_LAYER} (x_out, k_cur, v_cur)", {}
+            case = f"{model}pos={pos} layer={ATTN_LAYER} (x_out, k_cur, v_cur)"
+            extra = stream_plan(launch_args(dev, attn_plan, d, hq, hkv, hd, kind, a_i8, kv8,
+                                            S)[0])
             if a_i8:
                 n_diff, n_all = own_levels(act, x, gamma)
                 case += f", on the kernel's int8 activations ({n_diff} of {n_all} levels " \
                         f"one off the plain pre-pass)"
-                extra = dict(levels_off=n_diff, levels=n_all)
+                extra.update(levels_off=n_diff, levels=n_all)
             if kv8:
                 q_plain = qkv_ref(x, gamma, layers[0][0], cos, sin, hq, hkv, hd, 1e-5, a_i8,
                                   act)[0]
@@ -2182,9 +2204,9 @@ def rates(torch, engines, prompt, long_prompt, card, summary):
 
 def profile(torch, eng, prompt, long_prompt, name, summary):
     """Device time by kernel of one 128-token prefill chunk and of 8 decode
-    steps (torch.profiler over CUPTI); on LONG_RATE_PATHS also of 8 decode
-    steps after a LONG_PROMPT-token prefill, with K7's device time per token
-    (the layer kernel reads the cache prefix)."""
+    steps (torch.profiler over CUPTI), with K7's and K6's device time per
+    token; on LONG_RATE_PATHS also of 8 decode steps after a
+    LONG_PROMPT-token prefill (the layer kernel reads the cache prefix)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     out = {}
@@ -2223,13 +2245,19 @@ def profile(torch, eng, prompt, long_prompt, name, summary):
         k7 = [(u, c) for k, u, c in rows if "layer_attn_kernel" in k]
         k7_seen = sum(c for _, c in k7)
         k7_us = sum(u for u, _ in k7) / k7_seen * eng.cfg.n_layers if k7_seen else 0.0
+        # K6 (K6d / K6a / K6c) per token likewise; in a prefill chunk its
+        # launches are the FFN calls of <= 32 rows, none at 128 rows
+        k6 = [(u, c) for k, u, c in rows if "ffn_norm_kernel" in k]
+        k6_seen = sum(c for _, c in k6)
+        k6_us = sum(u for u, _ in k6) / k6_seen * eng.cfg.n_layers if k6_seen else 0.0
         # the megacall (K14 / K15), once per token
         mega = [(u, c) for k, u, c in rows if "stack_decode_kernel" in k]
         mega_seen = sum(c for _, c in mega)
         mega_us = sum(u for u, _ in mega) / mega_seen if mega_seen else 0.0
         per_token = sum(c for _, _, c in rows) / 8 if label != "prefill128" else None
         out[label] = dict(wall_us=wall * 1e6, device_busy_us=busy, k7_us_per_token=k7_us,
-                          k7_launches_seen=k7_seen, megacall_us_per_token=mega_us,
+                          k7_launches_seen=k7_seen, k6_us_per_token=k6_us,
+                          k6_launches_seen=k6_seen, megacall_us_per_token=mega_us,
                           megacall_launches_seen=mega_seen, kernels_per_token_seen=per_token,
                           kernels=[dict(name=k[:90], us=u, count=c) for k, u, c in rows[:15]])
         log(f"  [{name}] {label}: host wall {wall * 1e3:.2f} ms, device busy "
@@ -2237,6 +2265,8 @@ def profile(torch, eng, prompt, long_prompt, name, summary):
             + (f"; {per_token:.1f} kernels per decode token seen" if per_token else "")
             + (f"; K7 {k7_us:.1f} us of device time per token ({k7_seen} of "
                f"{8 * eng.cfg.n_layers} launches seen)" if k7_seen else "")
+            + (f"; K6 {k6_us:.1f} us of device time per token ({k6_seen} of "
+               f"{8 * eng.cfg.n_layers} launches seen)" if k6_seen else "")
             + (f"; the megacall {mega_us:.1f} us per token ({mega_seen} of 8 launches seen)"
                if mega_seen else ""))
         for k, u, c in rows[:8]:
@@ -2517,7 +2547,8 @@ def main() -> int:
     if (path.parent / "build.log").is_file():    # ptxas -v of the tensor-core kernels
         for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd"),
                              ("ptxas_qmatmul", "qgemm_tf32"), ("ptxas_rmsnorm", "rmsnorm"),
-                             ("ptxas_chain", "chain_kernel")):
+                             ("ptxas_chain", "chain_kernel"), ("ptxas_attn", "layer_attn_kernel"),
+                             ("ptxas_ffn", "ffn_norm_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
                 log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
@@ -2532,6 +2563,12 @@ def main() -> int:
         spilled = [e["entry"] for e in summary["ptxas_rmsnorm"] + summary["ptxas_chain"]
                    if e.get("spill_stores")]
         require(not spilled, f"K12 / K13 spill registers: {spilled}")
+        # K7 and K6 at one row (the decode calls; ffn_norm_kernel<F, 1, ...>):
+        # no spill; K6's groups of 2 and 4 rows are recorded
+        spilled = [e["entry"] for e in summary["ptxas_attn"] + summary["ptxas_ffn"]
+                   if ("layer_attn" in e["entry"] or "Li1E" in e["entry"])
+                   and e.get("spill_stores")]
+        require(not spilled, f"K7 / K6 at one row spill registers: {spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the attention kernels, K2 (the quantized matmul), K11 (its dx), K12
-(rmsnorm) and K13 (the fused elementwise chain) of two checkouts of
-zgml_tpu_torch on one card, in turns (A, B, B, A by default), each turn in
-its own process.
+"""Time the attention kernels, the decode kernels K7 / K6 / K14 / K15, K2
+(the quantized matmul), K11 (its dx), K12 (rmsnorm) and K13 (the fused
+elementwise chain) of two checkouts of zgml_tpu_torch on one card, in turns
+(A, B, B, A by default), each turn in its own process.
 
-    python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf]
+    python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode]
 
 A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
 unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
@@ -17,27 +17,31 @@ with n_rep 1 (Llama-2-7B): K3 on a 128-row chunk at (q_offset, kv_len) (0,
 K10dkv (its backward, each called as the autograd backward calls it with no
 precomputed delta) at the smoke's three cases (TinyLlama B 4 x T 512,
 Llama-2-7B B 1 x T 512, and Tq 128 over kv_len 300 at q_offset 172); at
-TinyLlama-1.1B also K4 at kv_len 1, 200 and
-2047 of a 22-layer cache, K7 (f32 A phase, Q4_0) at pos 0, 200 and 2047, and
-K6d (Q4_0, one row) at the FFN; and K11 at Q4_0 and Q8_0 on M = 512 rows of
-g at the five TinyLlama-1.1B projections (wqkv, wo, w_gate_up, w_down,
-lm_head; weight copies cycled so the 50 MB L2 is cold); K2 at Q4_0 and
-Q8_0 on a 128-row prefill chunk at those five projections and at Llama-2-7B's
-(wqkv, wo, w_gate_up, w_down, lm_head), on M = 512 (train_q4_frozen's
-forward) and on M = 8 and 32 (the unfused path's small calls) at
-TinyLlama-1.1B's, weight copies cycled likewise; K12 at the smoke's
-RMSNORM_CASES (f32) and K13 at its chain_cases() (graph_ffn's two chains,
-one case per op at [2048, 2048], and a bias [2048] added to [2048, 2048]),
-input copies cycled as the smoke does. With --gguf (e.g. the Llama-2-7B file chip_smoke.py writes under .bench_cache/) each turn also
-loads that model and times, on the host clock around a synchronized call,
-the prefill of a 1536-token prompt (seeded ids, 128-row chunks) over the
-bf16 and the int8 KV cache: the median of 3 after one warm-up, in us like
-the kernels. Prints
-one JSON line per turn, then the median per case and side, with the card's
-name and power limit.
+TinyLlama-1.1B also K4 at kv_len 1, 200 and 2047 of a 22-layer cache; the
+decode kernels (decode_us, alone with --decode): K7 at Q4_0 in its four
+modes, TinyLlama-1.1B's f32 A phase over the bf16 and the int8 cache and
+Llama-2-7B's int8 A phase over both, at pos 0, 200 and 2047 of a 4-layer
+cache, K6d (Q4_0) and K6a (Q8_0) at TinyLlama-1.1B's FFN at M = 1, 8, 32
+and K6c at Llama-2-7B's at M = 1, 8, and K14 / K15 (bf16 operands) over
+TinyLlama-1.1B's 22 Q4_0 layers at pos 0 and 2047; K11 at Q4_0 and Q8_0
+on M = 512 rows of g at the five TinyLlama-1.1B projections (wqkv, wo,
+w_gate_up, w_down, lm_head); K2 at Q4_0 and Q8_0 on a 128-row prefill chunk
+at those five projections and at Llama-2-7B's (wqkv, wo, w_gate_up, w_down,
+lm_head), on M = 512 (train_q4_frozen's forward) and on M = 8 and 32 (the
+unfused path's small calls) at TinyLlama-1.1B's; weight copies cycled so
+the 50 MB L2 is cold; K12 at the smoke's RMSNORM_CASES (f32) and K13 at its
+chain_cases() (graph_ffn's two chains, one case per op at [2048, 2048], and
+a bias [2048] added to [2048, 2048]), input copies cycled as the smoke does.
+With --gguf (e.g. the Llama-2-7B file chip_smoke.py writes under
+.bench_cache/) each turn also loads that model and times, on the host clock
+around a synchronized call, the prefill of a 1536-token prompt (seeded ids,
+128-row chunks) over the bf16 and the int8 KV cache: the median of 3 after
+one warm-up, in us like the kernels. Prints one JSON line per turn, then the
+median per case and side, with the card's name and power limit.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import pathlib
@@ -75,21 +79,110 @@ def prefill_us(torch, gguf: str) -> dict:
     return out
 
 
-def one(root: str, gguf: str | None = None) -> dict:
-    """The timings of the checkout at `root`, in this process."""
+def weight_copies(torch, dev, g, kind, n, k, total=48_000_000):
+    """Copies of a random [n, k] weight of `kind` totalling >= `total`
+    bytes (48 MB: the 50 MB L2 stays cold as the calls cycle)."""
+    from zgml_tpu_torch.quant.packed import PackedWeight
+    per = n * k // (2 if kind == "q4_0" else 1) + n * k // 16
+    copies = []
+    for _ in range(max(2, -(-total // per))):
+        d = (torch.rand((n, k // 32), device=dev, generator=g) * 0.02 + 0.001).half()
+        if kind == "q4_0":
+            qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=dev,
+                               generator=g)
+        else:
+            qs = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g)
+            d = d / 16
+        copies.append(PackedWeight(n, k, qs, d, kind))
+    return copies
+
+
+def decode_us(torch, dev, g, time_ms) -> dict:
+    """Device ms of the decode kernels K7 (its four modes), K6 (K6d, K6a,
+    K6c) and the megacalls K14 / K15."""
+    from zgml_tpu_torch.ops import refs
+    from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
+    from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
+    from zgml_tpu_torch.ops.stackkernel import StackedLayers, stacked_decode_cuda
+    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda
+    copies_of = functools.partial(weight_copies, torch, dev, g)
+    out = {}
+
+    # K7 in its four modes at Q4_0: TinyLlama-1.1B's f32 A phase over the
+    # bf16 and the int8 cache, Llama-2-7B's int8 A phase over both
+    for tag, (hq, hkv, hd), a_i8 in (("", (32, 4, 64), False), ("7B ", (32, 32, 128), True)):
+        d = hq * hd
+        layers = list(zip(copies_of("q4_0", (hq + 2 * hkv) * hd, d, 32_000_000),
+                          copies_of("q4_0", d, hq * hd, 24_000_000)))
+        gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        x = torch.randn((1, 1, d), device=dev, generator=g)
+        for kv8 in (False, True):
+            shape = (4, 1, hkv, 2048, hd)
+            if kv8:
+                ck = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g),
+                      torch.rand(shape[:-1], device=dev, generator=g) * 0.01 + 0.01)
+                cv = (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g),
+                      torch.rand(shape[:-1], device=dev, generator=g) * 0.01 + 0.01)
+            else:
+                ck = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                cv = torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+            mode = ("i8" if a_i8 else "f32") + ("-kv8" if kv8 else "")
+            for p in (0, 200, 2047):
+                cos, sin = refs.rope_cos_sin(torch.tensor([p], device=dev), hd)
+                pos = torch.tensor([p], dtype=torch.int32, device=dev)
+                out[f"K7 {tag}{mode} pos={p}"] = time_ms(torch, [
+                    lambda l_=ly: attn_block_cuda(x, gamma, *l_, ck, cv, 3, pos, cos, sin, hq,
+                                                  hkv, 1e-5, a_i8) for ly in layers], 50)[0]
+            del ck, cv
+        del layers
+    # K6: K6d (Q4_0) and K6a (Q8_0) at TinyLlama-1.1B's FFN, K6c at Llama-2-7B's
+    for name, kind, d, f, a_i8, rows in (("K6d", "q4_0", 2048, 5632, False, (1, 8, 32)),
+                                         ("K6a", "q8_0", 2048, 5632, False, (1, 8, 32)),
+                                         ("K6c 7B", "q4_0", 4096, 11008, True, (1, 8))):
+        pairs = list(zip(copies_of(kind, 2 * f, d, 64_000_000), copies_of(kind, d, f, 32_000_000)))
+        gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        for m in rows:
+            x = torch.randn((1, m, d), device=dev, generator=g)
+            out[f"{name} M={m}"] = time_ms(torch, [
+                lambda p_=pr: fused_ffn_norm_cuda(x, gamma, *p_, 1e-5, a_i8) for pr in pairs],
+                50 if m == 1 else 10)[0]
+        del pairs
+    # K14 and K15 (bf16 operands) over TinyLlama-1.1B's 22 Q4_0 layers
+    d, hq, hkv, hd, f = 2048, 32, 4, 64, 5632
+    layers = [{"attn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
+               "ffn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
+               "wqkv": copies_of("q4_0", (hq + 2 * hkv) * hd, d, 1)[0],
+               "wo": copies_of("q4_0", d, d, 1)[0],
+               "w_gate_up": copies_of("q4_0", 2 * f, d, 1)[0],
+               "w_down": copies_of("q4_0", d, f, 1)[0]} for _ in range(22)]
+    stack = StackedLayers(layers, hq, hkv, 1e-5)
+    tape = Tape(stack, ())
+    ck = torch.randn((22, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+    cv = torch.randn((22, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn((1, 1, d), device=dev, generator=g)
+    for p in (0, 2047):
+        cos, sin = refs.rope_cos_sin(torch.tensor([p], device=dev), hd)
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        out[f"K14 pos={p}"] = time_ms(
+            torch, [lambda: stacked_decode_cuda(x, stack, ck, cv, pos, cos, sin)], 20)[0]
+        out[f"K15 pos={p}"] = time_ms(
+            torch, [lambda: tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16=True)], 20)[0]
+    del layers, stack, tape, ck, cv
+    return out
+
+
+def one(root: str, gguf: str | None = None, decode_only: bool = False) -> dict:
+    """The timings of the checkout at `root`, in this process (with
+    decode_only, those of decode_us alone)."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
     import zgml_tpu_torch
-    from zgml_tpu_torch.ops import refs
     from zgml_tpu_torch.ops.attention import (decode_attention_cuda, flash_attention_cuda,
                                               flash_attention_q8_cuda)
     from zgml_tpu_torch.ops.flash_vjp import flash_dkv_cuda, flash_dq_cuda, flash_fwd_lse_cuda
-    from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
-    from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
     from zgml_tpu_torch.ops.elementwise import BINARY, fused_chain_cuda
     from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda, qmatmul_cuda
     from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda
-    from zgml_tpu_torch.quant.packed import PackedWeight
     # this file's chip_smoke, not the checkout's: both sides time alike
     spec = importlib.util.spec_from_file_location("ab_chip_smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -101,6 +194,8 @@ def one(root: str, gguf: str | None = None) -> dict:
         raise RuntimeError(f"imported {src}, not the checkout at {root}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    if decode_only:
+        return {k: v * 1e3 for k, v in decode_us(torch, dev, g, time_ms).items()}
     out = {}
     for hq, hkv, hd, tag in ((32, 4, 64, ""), (32, 32, 128, "7B ")):
         kc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
@@ -142,42 +237,8 @@ def one(root: str, gguf: str | None = None) -> dict:
         bargs = (q, k, v, do, o, lse, kv_len, q_off)
         out[f"K10dq {shape}"] = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)[0]
         out[f"K10dkv {shape}"] = time_ms(torch, [lambda: flash_dkv_cuda(*bargs)], 20)[0]
-    d, hq, hkv, hd = 2048, 32, 4, 64
-
-    def weight(n, k):
-        return PackedWeight(n, k, torch.randint(0, 256, (n, k // 2), dtype=torch.uint8,
-                                                device=dev, generator=g),
-                            (torch.rand((n, k // 32), device=dev, generator=g) * 0.02).half())
-    wqkv, wo = weight((hq + 2 * hkv) * hd, d), weight(d, hq * hd)
-    gamma = torch.ones(d, device=dev)
-    ck = torch.randn((4, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
-    cv = torch.randn((4, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
-    x = torch.randn((1, 1, d), device=dev, generator=g)
-    for p in (0, 200, 2047):
-        cos, sin = refs.rope_cos_sin(torch.tensor([p], device=dev), hd)
-        pos = torch.tensor([p], dtype=torch.int32, device=dev)
-        out[f"K7 pos={p}"] = time_ms(torch, [lambda: attn_block_cuda(
-            x, gamma, wqkv, wo, ck, cv, 3, pos, cos, sin, hq, hkv, 1e-5)], 50)[0]
-    f = 5632
-    gus, wds = [weight(2 * f, d) for _ in range(4)], [weight(d, f) for _ in range(4)]
-    out["K6d M=1"] = time_ms(torch, [lambda gu_=gu, wd_=wd: fused_ffn_norm_cuda(
-        x, gamma, gu_, wd_, 1e-5) for gu, wd in zip(gus, wds)], 50)[0]
-    del gus, wds
-
-    def copies_of(kind, n, k):
-        """Copies of a random [n, k] weight of `kind` totalling >= 48 MB."""
-        per = n * k // (2 if kind == "q4_0" else 1) + n * k // 16
-        copies = []
-        for _ in range(max(2, -(-48_000_000 // per))):
-            d = (torch.rand((n, k // 32), device=dev, generator=g) * 0.02 + 0.001).half()
-            if kind == "q4_0":
-                qs = torch.randint(0, 256, (n, k // 2), dtype=torch.uint8, device=dev,
-                                   generator=g)
-            else:
-                qs = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g)
-                d = d / 16
-            copies.append(PackedWeight(n, k, qs, d, kind))
-        return copies
+    copies_of = functools.partial(weight_copies, torch, dev, g)
+    out.update(decode_us(torch, dev, g, time_ms))
 
     tiny = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w_gate_up", 11264, 2048),
             ("w_down", 2048, 5632), ("lm_head", 32000, 2048))
@@ -221,8 +282,9 @@ def one(root: str, gguf: str | None = None) -> dict:
 
 def main() -> int:
     gguf = sys.argv[sys.argv.index("--gguf") + 1] if "--gguf" in sys.argv else None
+    decode_only = "--decode" in sys.argv
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2], gguf)))
+        print(json.dumps(one(sys.argv[2], gguf, decode_only)))
         return 0
     a, b = sys.argv[1], sys.argv[2]
     rounds = int(sys.argv[sys.argv.index("--rounds") + 1]) if "--rounds" in sys.argv else 1
@@ -231,7 +293,8 @@ def main() -> int:
     runs = {a: [], b: []}
     for side in [a, b, b, a] * rounds:
         proc = subprocess.run([sys.executable, __file__, "--one", side]
-                              + (["--gguf", str(pathlib.Path(gguf).resolve())] if gguf else []),
+                              + (["--gguf", str(pathlib.Path(gguf).resolve())] if gguf else [])
+                              + (["--decode"] if decode_only else []),
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"{side}: {proc.stderr[-3000:]}")

@@ -483,6 +483,113 @@ def test_attn_block_kv8(cuda, hq, hkv, hd, s, pos, li, a_i8, kind):
         assert torch.equal(sc[:, :, :, rows], sc_r[:, :, :, rows])
 
 
+
+# -- K6 / K7 on the weight-streaming design: copies that need the 8-row units,
+# -- a ragged row group, and the same bits over two launches -------------------
+
+@pytest.mark.parametrize("kind,a_i8", [("q4_0", False), ("q8_0", False), ("q4_0", True)])
+@pytest.mark.parametrize("m", [1, 5])
+def test_fused_ffn_norm_streamed_rows(cuda, m, kind, a_i8):
+    """d 576 (36-byte scale rows: units of 8 rows), F 1536; M 5 is a group of
+    4 and a ragged group of 1."""
+    d, f = 576, 1536
+    rng = np.random.default_rng(m + len(kind) + a_i8)
+    gu, wd = _weight(rng, 2 * f, d, cuda, kind), _weight(rng, d, f, cuda, kind)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((m, 1, d)).astype(np.float32)).to(cuda)
+    act = _act_buffers(m, d, cuda) if a_i8 else None
+    got = fused_ffn_norm_cuda(x, g, gu, wd, 1e-5, a_i8, act)
+    want = fused_ffn_norm_ref(x, g, gu, wd, 1e-5, a_i8, act)
+    torch.cuda.synchronize()
+    _close(got, want)
+    if a_i8:
+        _check_own_activations(act, x, g)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("a_i8,kv8", [(False, False), (True, False), (False, True),
+                                      (True, True)])
+def test_attn_block_streamed_rows(cuda, a_i8, kv8, kind):
+    """d 576 = 9 heads of 64 over 3 KV heads: 36-byte scale rows (units of
+    8 rows), at every A phase and cache."""
+    hq, hkv, hd, s, pos, li = 9, 3, 64, 256, 130, 1
+    rng = np.random.default_rng(hq + a_i8 + 2 * kv8)
+    d = hq * hd
+    wqkv = _weight(rng, (hq + 2 * hkv) * hd, d, cuda, kind)
+    wo = _weight(rng, d, hq * hd, cuda, kind)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    if kv8:
+        ck, cv = (_q8_cache(rng, (2, 1, hkv, s, hd), cuda) for _ in range(2))
+        ck_r, cv_r = tuple(t.clone() for t in ck), tuple(t.clone() for t in cv)
+    else:
+        ck, cv = (torch.from_numpy(rng.standard_normal((2, 1, hkv, s, hd)).astype(np.float32))
+                  .to(cuda, torch.bfloat16) for _ in range(2))
+        ck_r, cv_r = ck.clone(), cv.clone()
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    act = _act_buffers(1, d, cuda) if a_i8 else None
+    q8 = ((torch.empty((hq, hd), dtype=torch.int8, device=cuda),
+           torch.empty(hq, dtype=torch.float32, device=cuda)) if kv8 else None)
+    got = attn_block_cuda(x, g, wqkv, wo, ck, cv, li, pos_t, cos, sin, hq, hkv, 1e-5,
+                          a_i8=a_i8, act_out=act, q8_out=q8)
+    want = attn_block_ref(x, g, wqkv, wo, ck_r, cv_r, li, pos, cos, sin, hq, hkv, 1e-5,
+                          a_i8=a_i8, act=act, q8=q8)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def _ffn_twice(cuda, kind, a_i8, d, f, m):
+    rng = np.random.default_rng(d + f + m)
+    gu, wd = _weight(rng, 2 * f, d, cuda, kind), _weight(rng, d, f, cuda, kind)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, m, d)).astype(np.float32)).to(cuda)
+    return [fused_ffn_norm_cuda(x, g, gu, wd, 1e-5, a_i8) for _ in range(2)]
+
+
+@pytest.mark.parametrize("kind,a_i8", [("q4_0", False), ("q8_0", False), ("q4_0", True)])
+@pytest.mark.parametrize("d,f,m", [(2048, 5632, 1), (2048, 5632, 8), (576, 1536, 5),
+                                   (4096, 11008, 1)])
+def test_fused_ffn_norm_two_launches_are_bit_equal(cuda, d, f, m, kind, a_i8):
+    """K6d / K6a / K6c: fixed rows, warps and sums, no float atomics."""
+    first, second = _ffn_twice(cuda, kind, a_i8, d, f, m)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("a_i8,kv8", [(False, False), (True, False), (False, True),
+                                      (True, True)])
+@pytest.mark.parametrize("hq,hkv,hd,pos", [(32, 4, 64, 0), (32, 4, 64, 2047),
+                                           (32, 32, 128, 1), (32, 32, 128, 200)])
+def test_attn_block_two_launches_are_bit_equal(cuda, hq, hkv, hd, pos, a_i8, kv8, kind):
+    """K7 in every mode: the merge of a KV head's chunks runs in whichever
+    block completes its count, always in chunk order; the cache row pos is
+    written with the same bits both times."""
+    rng = np.random.default_rng(pos + hd + a_i8 + 2 * kv8)
+    d, s = hq * hd, 2048
+    wqkv = _weight(rng, (hq + 2 * hkv) * hd, d, cuda, kind)
+    wo = _weight(rng, d, hq * hd, cuda, kind)
+    g = torch.from_numpy((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    if kv8:
+        ck, cv = (_q8_cache(rng, (1, 1, hkv, s, hd), cuda) for _ in range(2))
+    else:
+        ck, cv = (torch.from_numpy(rng.standard_normal((1, 1, hkv, s, hd)).astype(np.float32))
+                  .to(cuda, torch.bfloat16) for _ in range(2))
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    runs = []
+    for _ in range(2):
+        out = attn_block_cuda(x, g, wqkv, wo, ck, cv, 0, pos_t, cos, sin, hq, hkv, 1e-5,
+                              a_i8=a_i8)
+        row = ((ck[0][0, 0, :, pos].clone(), ck[1][0, 0, :, pos].clone()) if kv8
+               else (ck[0, 0, :, pos].clone(),))
+        runs.append((*out, *row))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
 # -- training: K10 (flash forward with LSE, dQ, dK/dV) and K11 (dx) -------------
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:

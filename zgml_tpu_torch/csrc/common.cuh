@@ -28,6 +28,11 @@ enum ZgmlStatus : int {
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
+// The barrier of a whole block (decode_split.cuh takes another for a part of one).
+struct BlockSync {
+  __device__ __forceinline__ static void sync() { __syncthreads(); }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
@@ -274,63 +279,6 @@ __device__ __forceinline__ int quantize_lane(float v, float& s) {
 // Words per 32-block of int8 activations in shared memory: the block's 8
 // words and one of padding, so 32 lanes on consecutive blocks hit 32 banks.
 constexpr int XQ_WORDS = 9;
-
-// The int8 tier's prologue inside a fused kernel, with the norm folded in:
-// n = x * rsqrt(mean(x^2) + eps) * g as stage_rmsnorm computes it, each
-// 32-block of n quantized as quantize_lane does into xq ([d/32][XQ_WORDS]
-// words) and xsc ([d/32] scales). Block 0 also writes the int8 row and its
-// scales to xq_out / xs_out where those are not null (a check's view of the
-// kernel's own activations). All threads call it; it ends with a barrier.
-__device__ __forceinline__ void stage_rmsnorm_i8(const float* x, const float* g, int d,
-                                                 float eps, int* xq, float* xsc, float* red,
-                                                 int8_t* xq_out, float* xs_out) {
-  const float inv = rms_inv(x, d, eps, red);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int8_t* xq8 = reinterpret_cast<int8_t*>(xq);
-  for (int b = warp; b < d / 32; b += blockDim.x >> 5) {
-    const int i = b * 32 + lane;
-    float s;
-    const int q = quantize_lane(__ldcg(x + i) * inv * g[i], s);
-    xq8[b * XQ_WORDS * 4 + lane] = (int8_t)q;
-    if (lane == 0) xsc[b] = s;
-    if (xq_out != nullptr && blockIdx.x == 0) {
-      xq_out[i] = (int8_t)q;
-      if (lane == 0) xs_out[b] = s;
-    }
-  }
-  __syncthreads();
-}
-
-// R weight rows against MR int8 activation rows in shared memory (row m's
-// words at xq + m * xq_row, its scales at xsc + m * xs_row): lane l takes
-// blocks l, l+32, ...; each block is loaded and unpacked (to_i8) once and
-// dotted exactly with every row, then acc[r][m] += float(isum) * (xs * d), as
-// K1 sums. Returns each row's lane partial (the caller reduces over the warp).
-template <class F, int R, int MR>
-__device__ __forceinline__ void rows_i8(const uint8_t* const (&qs)[R],
-                                        const __half* const (&d)[R], const int* xq, int xq_row,
-                                        const float* xsc, int xs_row, int nblk, int lane,
-                                        float (&acc)[R][MR]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int m = 0; m < MR; ++m) acc[r][m] = 0.f;
-  for (int b = lane; b < nblk; b += 32) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      uint32_t w[F::WORDS];
-      load_block<F>(qs[r], b, w);
-      int wi[8];
-      F::to_i8(w, wi);
-      const float sw = __half2float(d[r][b]);
-#pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const int isum = dot_i8(wi, xq + m * xq_row + b * XQ_WORDS);
-        acc[r][m] = fmaf((float)isum, __fmul_rn(xsc[m * xs_row + b], sw), acc[r][m]);
-      }
-    }
-  }
-}
 
 // ---- cooperative launches ----
 

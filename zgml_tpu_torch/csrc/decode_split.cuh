@@ -6,7 +6,8 @@
 // (nk in 1..DA_CHUNK) from one shared-memory copy of its K and V, and write
 // per query head r the partial (unnormalised o[D], max, sum of exp) at
 // part + r * head_stride. The caller merges the chunks with the usual
-// rescaling. K rows in shared memory are padded by one word so the per-key
+// rescaling. Sync is the barrier of the THREADS threads that run it (the
+// whole block, or K7's consumer warps beside its weight producer). K rows in shared memory are padded by one word so the per-key
 // dot products of a warp hit distinct banks.
 //
 // Two cache elements, one template parameter T:
@@ -54,7 +55,7 @@ __device__ __forceinline__ void quantize_vec(const float* src, int8_t* dst, floa
 // Dynamic shared memory of decode_chunk_partial<D, THREADS, T>, in bytes
 // (KV8: T is int8_t).
 template <int D, bool KV8>
-inline size_t decode_chunk_smem_bytes(int n_rep) {
+__host__ __device__ inline size_t decode_chunk_smem_bytes(int n_rep) {
   if (KV8)   // q levels, q scales, scores, K words (padded), V words, K and V scales
     return sizeof(float) * ((size_t)n_rep * D / 4 + n_rep + (size_t)n_rep * DA_CHUNK +
                             (size_t)DA_CHUNK * (D / 4 + 1) + (size_t)DA_CHUNK * (D / 4) +
@@ -66,7 +67,7 @@ inline size_t decode_chunk_smem_bytes(int n_rep) {
 // Per query head (one warp each): the max and the sum of exp of its chunk
 // scores sc[r][0..DA_CHUNK), written to its partial at D and D + 1, and p =
 // exp(s - max) in place (masked keys: exp(-inf) = 0). Ends with a barrier.
-template <int THREADS>
+template <int THREADS, class Sync = BlockSync>
 __device__ __forceinline__ void chunk_softmax(float* sc, int n_rep, int D, float* part,
                                               size_t head_stride) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -87,15 +88,16 @@ __device__ __forceinline__ void chunk_softmax(float* sc, int n_rep, int D, float
       part[r * head_stride + D + 1] = sum;
     }
   }
-  __syncthreads();
+  Sync::sync();
 }
 
 // q: the group's n_rep f32 query rows [n_rep][D] (read with __ldcg: K7 writes
 // them in the same kernel); k, v: the chunk's first key row of this head,
 // rows of D elements T, bf16 or (int8_t) levels; ksc, vsc (int8 only, else
-// null): the chunk's first position scale. All THREADS threads of the block
-// call it; it ends with a barrier, so the caller may reuse smem at once.
-template <int D, int THREADS, class T>
+// null): the chunk's first position scale. All THREADS threads (threads
+// 0 .. THREADS - 1 of the block, joined by Sync) call it; it ends with a
+// barrier, so the caller may reuse smem at once.
+template <int D, int THREADS, class T, class Sync = BlockSync>
 __device__ void decode_chunk_partial(const float* q, const T* k, const float* ksc, const T* v,
                                      const float* vsc, int nk, int n_rep, float scale,
                                      float* part, size_t head_stride, float* smem) {
@@ -125,7 +127,7 @@ __device__ void decode_chunk_partial(const float* q, const T* k, const float* ks
       kss[j] = __ldg(ksc + j);
       vss[j] = __ldg(vsc + j);
     }
-    __syncthreads();
+    Sync::sync();
 
     // scores: thread -> (query head r, key j); the integer dot is exact
     for (int i = tid; i < n_rep * DA_CHUNK; i += THREADS) {
@@ -141,8 +143,8 @@ __device__ void decode_chunk_partial(const float* q, const T* k, const float* ks
       }
       sc[i] = sj;
     }
-    __syncthreads();
-    chunk_softmax<THREADS>(sc, n_rep, D, part, head_stride);
+    Sync::sync();
+    chunk_softmax<THREADS, Sync>(sc, n_rep, D, part, head_stride);
 
     // unnormalised (p * v_scale) @ V: thread -> (query head r, dim c)
     const int8_t* v8 = reinterpret_cast<const int8_t*>(vs);
@@ -168,7 +170,7 @@ __device__ void decode_chunk_partial(const float* q, const T* k, const float* ks
       ks[j * (W + 1) + w] = __ldg(kg + i);
       vs[j * W + w] = __ldg(vg + i);
     }
-    __syncthreads();
+    Sync::sync();
 
     // scores: thread -> (query head r, key j)
     for (int i = tid; i < n_rep * DA_CHUNK; i += THREADS) {
@@ -188,8 +190,8 @@ __device__ void decode_chunk_partial(const float* q, const T* k, const float* ks
       }
       sc[i] = sj;
     }
-    __syncthreads();
-    chunk_softmax<THREADS>(sc, n_rep, D, part, head_stride);
+    Sync::sync();
+    chunk_softmax<THREADS, Sync>(sc, n_rep, D, part, head_stride);
 
     // unnormalised p @ V: thread -> (query head r, dim c)
     for (int i = tid; i < n_rep * D; i += THREADS) {
@@ -204,5 +206,5 @@ __device__ void decode_chunk_partial(const float* q, const T* k, const float* ks
       part[r * head_stride + c] = acc;
     }
   }
-  __syncthreads();
+  Sync::sync();
 }

@@ -40,69 +40,268 @@
 // + wo 2.36 MB at TinyLlama-1.1B at Q4_0, 5.57 + 4.46 MB at Q8_0; 28.3 + 9.4
 // MB at Llama-2-7B at Q4_0); at pos 2047 the layer's cache slab (1 KB per
 // position at TinyLlama, 16 KB at Llama-2-7B) adds ~2 / 33.6 MB. Both are
-// read once, so the kernel is bound by HBM bandwidth and by the three grid
+// read once, so the kernel is bound by HBM bandwidth, and by the grid
 // barriers between its phases.
 //
-// What the design does about it: one cooperative launch (every block
-// resident, grid sized by the occupancy query), phases separated by a grid
-// barrier:
-//   A. every block computes the rmsnorm of x into shared memory (with a_i8:
-//      quantized there per 32-block, common.cuh stage_rmsnorm_i8, bit-equal
-//      to the JAX pre-pass on the same normed row; the JAX package runs that
-//      pre-pass outside its kernel, here it costs no third launch); each warp
-//      owns one RoPE pair of QKV rows (i, i + hd/2) of one head, so the
-//      rotation stays in the warp: f32-dequant GEMV of both rows (with a_i8
-//      `__dp4a` block dots, common.cuh rows_i8), rotate, and write q
-//      (scratch), k and v (f32 outputs, and bf16 into the cache);
+// What the design does about it (weight_stream.cuh): one persistent
+// block an SM (the grid of ops/decode_plan.py attn_plan, launched
+// cooperatively with no occupancy query), 16 consumer warps and a producer
+// warp. From kernel entry the producer keeps 1D bulk copies (TMA) of the
+// block's wqkv rows, then of its wo rows, in flight through a ring of
+// shared-memory slots; it runs ahead across the grid barriers, which only
+// the consumers pass, so wo is already streaming while phase B runs (a
+// warp-per-row GEMV that loads as it dots holds too few bytes in flight to
+// reach HBM's rate, and can ask for no wo byte before the last barrier).
+// Phases:
+//   A. the consumers norm x into shared memory (with a_i8: quantized there
+//      per 32-block, weight_stream.cuh stage_norm_i8, bit-equal to the JAX
+//      pre-pass on the same normed row; the JAX package runs that pre-pass
+//      outside its kernel) while the first slots land; a unit is a run of
+//      RoPE pairs (rows h*hd + i and h*hd + hd/2 + i) of one head, so the
+//      rotation stays in one warp: a warp dots both rows of a pair (f32
+//      dequant, or with a_i8 exact `__dp4a` block dots), rotates, and writes
+//      q (scratch), k and v (f32 outputs, and bf16 into the cache);
 //   B. K4's split-KV design (decode_split.cuh, K8's with kv8): items (KV
 //      head, 128-key chunk below pos), looped over the blocks; each block
 //      serves the n_rep query heads of its group and writes their partials
-//      (o, max, sum);
-//   combine: one warp per query head merges the live chunks and the self
-//      column (score q . k_cur, value v_cur) and writes att; with kv8 one
-//      warp per KV head and tensor then quantizes k_cur, v_cur into row pos
-//      (no grid barrier more: phase B has read every row below pos);
-//   C. a warp-per-row GEMV over Wo against att in shared memory, plus the
-//      residual.
-// With pos = 0 phase B is empty and att = v_cur. No float atomics. The phases
-// are layer_phases.cuh's, which the whole-stack kernels (stack_decode.cu) run
-// for every layer.
-#include "layer_phases.cuh"
+//      (o, max, sum) from the activation area, beside the ring; the block
+//      that writes a KV head's last item (an arrival count a head) merges
+//      its query heads' live chunks and self column (score q . k_cur, value
+//      v_cur) into att, so the combine takes no grid barrier of its own;
+//      with kv8 the consumers also quantize k_cur, v_cur into row pos (phase
+//      B reads the rows below pos only);
+//   C. the consumers stage att and dot the landed wo rows (a warp two rows),
+//      plus the residual.
+// With pos = 0 phase B is empty and att = v_cur. No float atomics: the
+// merge takes the chunks in their fixed order, whichever block runs it.
+#include "weight_stream.cuh"
 
 namespace {
 
-template <class F, int D, bool AI8, bool KV8>
-__global__ void __launch_bounds__(LK_THREADS) layer_attn_kernel(LayerParams p) {
-  extern __shared__ __align__(16) float smem[];
-  attn_phase_a<F, D, AI8, KV8, false>(p, smem);
-  grid_barrier(p.bar);
-  attn_phase_b<D, KV8>(p, smem);
-  grid_barrier(p.bar);
-  attn_combine<D, KV8>(p);
-  grid_barrier(p.bar);
-  attn_phase_c<F, D, false>(p, smem);
+// Bytes of phase A's staged activations: the normed x, f32 or int8.
+template <bool AI8>
+__host__ __device__ size_t staged_a_bytes(int d) {
+  return AI8 ? (size_t)ws::xq_words(d) * 4 : (size_t)d / 32 * ws::XPAD * 4;
+}
+
+// Bytes of the activation area the phases use (ops/decode_plan.py
+// attn_act_bytes): phase A's staged row and, behind it, x and g as copied;
+// phase B's chunk and an int for each of a block's `items`; phase C's
+// staged attention.
+template <int D, bool AI8, bool KV8>
+size_t attn_act_bytes(int d, int hq, int hkv, int items) {
+  const size_t a = staged_a_bytes<AI8>(d) + (size_t)2 * d * 4;
+  const size_t b = decode_chunk_smem_bytes<D, KV8>(hq / hkv) + (size_t)4 * items;
+  const size_t c = (size_t)hq * D / 32 * ws::XPAD * 4;
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// Phase B and the combine between one pair of grid barriers: attn_phase_b's
+// items (KV head, 128-key chunk below pos) over the blocks; a block that
+// wrote its items' partials counts each on its head's word of `heads` (all
+// at once, one round trip), and the block that completes a head's count
+// merges its n_rep query heads (one warp each, merge_head, the chunks in
+// their fixed order) and sets the word back to 0. With no live chunk (pos 0)
+// block hk % grid merges head hk. With kv8 the consumers also quantize
+// k_cur, v_cur into cache row pos (phase B reads rows below pos only) and,
+// where asked, q into qq_out. smem: the phase's area, then `last`'s ints.
+template <int D, bool KV8>
+__device__ __forceinline__ void phase_b_merged(const LayerParams& p, float* smem,
+                                               unsigned int* heads) {
+  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pos = __ldg(p.pos);
+  const int n_rep = p.hq / p.hkv;
+  const int n_live = (pos + DA_CHUNK - 1) / DA_CHUNK;
+  const size_t head_stride = (size_t)p.n_split * (D + 2);
+  if constexpr (KV8) {
+    const int gwarp = blockIdx.x * ws::WARPS + warp, nwarps = gridDim.x * ws::WARPS;
+    for (int t = gwarp; t < 2 * p.hkv; t += nwarps) {
+      const size_t at = (size_t)(t % p.hkv) * p.S + pos;
+      quantize_vec<D>(p.kv_cur + (size_t)t * D, static_cast<int8_t*>(t < p.hkv ? p.ck : p.cv) +
+                      at * D, (t < p.hkv ? p.cks : p.cvs) + at, lane);
+    }
+    if (p.qq_out != nullptr)
+      for (int h = gwarp; h < p.hq; h += nwarps)
+        quantize_vec<D>(p.q + (size_t)h * D, p.qq_out + (size_t)h * D, p.qs_out + h, lane);
+  }
+  if (n_live == 0) {
+    for (int hk = blockIdx.x; hk < p.hkv; hk += gridDim.x)
+      for (int r = warp; r < n_rep; r += ws::WARPS) merge_head<D>(p, hk * n_rep + r, 0, lane);
+    return;
+  }
+  int* last = reinterpret_cast<int*>(smem + decode_chunk_smem_bytes<D, KV8>(n_rep) / 4);
+  const int n_items = p.hkv * n_live;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int hk = item / n_live, split = item % n_live;
+    const int c0 = split * DA_CHUNK;
+    const size_t pos0 = (size_t)hk * p.S + c0;
+    decode_chunk_partial<D, ws::CONSUMERS, T, ws::Sync>(
+        p.q + (size_t)hk * n_rep * D, static_cast<const T*>(p.ck) + pos0 * D,
+        KV8 ? p.cks + pos0 : nullptr, static_cast<const T*>(p.cv) + pos0 * D,
+        KV8 ? p.cvs + pos0 : nullptr, min(DA_CHUNK, pos - c0), n_rep, p.scale,
+        p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2), head_stride, smem);
+  }
+  // count this block's items on their heads, one thread an item (the
+  // partials above are the block's, joined by the Sync that ended each);
+  // last[k]: the head of the block's item k where this block completed its
+  // count, else -1
+  const int mine = blockIdx.x < n_items ? (n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  for (int k = threadIdx.x; k < mine; k += ws::CONSUMERS) {
+    const int hk = (blockIdx.x + k * gridDim.x) / n_live;
+    ws::fence_acq_rel();
+    const bool done = atomicAdd(heads + hk, 1u) == (unsigned)n_live - 1;
+    if (done) {
+      heads[hk] = 0u;
+      ws::fence_acq_rel();
+    }
+    last[k] = done ? hk : -1;
+  }
+  ws::sync();
+  for (int t = warp; t < mine * n_rep; t += ws::WARPS) {
+    const int hk = last[t / n_rep];
+    if (hk >= 0) merge_head<D>(p, hk * n_rep + t % n_rep, n_live, lane);
+  }
 }
 
 template <class F, int D, bool AI8, bool KV8>
-int launch(const LayerParams& p, cudaStream_t st) {
-  const size_t smem = attn_smem_bytes<D, KV8>(p.d, p.hq, p.hkv);
-  // enough warps for the widest warp-per-row phase (A's pairs or C's rows)
-  const int max_blocks = (attn_max_warps<D>(p.d, p.hq, p.hkv) + LK_WARPS - 1) / LK_WARPS;
-  return launch_cooperative(layer_attn_kernel<F, D, AI8, KV8>, LK_THREADS, smem, max_blocks, p,
-                            st);
+__global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams p, ws::Args a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  ws::ring_init(smem, a.ring);
+  // x and g, copied ahead of the weights where both are 16-byte aligned
+  float* xin = reinterpret_cast<float*>(smem + a.ring.act_off + staged_a_bytes<AI8>(p.d));
+  const bool copy_x = ws::aligned16(p.x) && ws::aligned16(p.g);
+  if (threadIdx.x >= ws::CONSUMERS) {      // the producer warp: one thread copies
+    if (threadIdx.x == ws::CONSUMERS) {
+      if (copy_x) ws::produce_x(smem, xin, p.x, p.d * 4, p.g, p.d * 4);
+      int n = 0;
+      ws::produce<F>(smem, a.ring, a.ph[0], n);
+      ws::produce<F>(smem, a.ring, a.ph[1], n, a.ring.ahead, 0);
+      ws::produce_tail(smem, a.ring, n);
+    }
+    return;
+  }
+  ws::GridBarrier gb;
+  gb.start(p.bar);                         // before the staging: its read overlaps
+  float* red = ws::red_area(smem);
+  float* act = reinterpret_cast<float*>(smem + a.ring.act_off);
+  const int lane = threadIdx.x & 31;
+  const int pos = __ldg(p.pos);
+  constexpr int HALF = D / 2;
+  constexpr int R = ws::ITEM_ROWS;         // a RoPE pair an item
+  int n = 0;
+
+  // A: norm (and quantize) x, then QKV in RoPE pairs, rotate, emit
+  const float* xr = p.x;
+  const float* gr = p.g;
+  if (copy_x) {
+    ws::mbar_wait(ws::x_bar(smem), 0);
+    xr = xin;
+    gr = xin + p.d;
+  }
+  if constexpr (AI8) {
+    ws::stage_norm_i8(xr, gr, p.d, p.eps, reinterpret_cast<int*>(act), red, p.xq_out,
+                      p.xs_out);
+  } else {
+    ws::stage_norm(xr, gr, p.d, p.eps, act, red);
+  }
+  ws::sync();
+  ws::consume<F, R>(smem, a.ring, a.ph[0], n, [&](const ws::StageView<F>& v, int i, int row) {
+    int j[R], at[R];
+    ws::item_rows<R>(v, i, j, at);
+    float acc[R][1];
+    if constexpr (AI8) {
+      ws::dot_i8<F, R, 1>(v, j, reinterpret_cast<const int*>(act), 0, lane, acc);
+    } else {
+      ws::dot_f32<F, R, 1>(v, j, act, 0, lane, acc);
+    }
+    float o[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r] = warp_sum(acc[r][0]);
+#pragma unroll
+    for (int r = 0; r < R; r += 2) {       // the pair (row, row + hd/2) of RoPE
+      if (lane != 0) continue;
+      float o1 = o[r], o2 = o[r + 1];
+      const int r1 = row + at[r], h = r1 / D, ii = r1 % D;
+      if (h < p.hq + p.hkv) {              // q and k heads: x*[c,c] + rot(x)*[-s,s]
+        const float c = p.cos[ii], s = p.sin[ii];
+        const float y1 = o1, y2 = o2;
+        o1 = __fsub_rn(__fmul_rn(y1, c), __fmul_rn(y2, s));
+        o2 = __fadd_rn(__fmul_rn(y2, c), __fmul_rn(y1, s));
+      }
+      if (h < p.hq) {
+        p.q[h * D + ii] = o1;
+        p.q[h * D + ii + HALF] = o2;
+      } else {
+        const int kvh = h - p.hq;          // 0..hkv-1: k heads, hkv..2hkv-1: v heads
+        p.kv_cur[kvh * D + ii] = o1;
+        p.kv_cur[kvh * D + ii + HALF] = o2;
+        if constexpr (!KV8) {              // kv8: quantized after the combine
+          __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
+          const size_t c0 = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
+          cache[c0 + ii] = __float2bfloat16_rn(o1);
+          cache[c0 + ii + HALF] = __float2bfloat16_rn(o2);
+        }
+      }
+    }
+  });
+  gb.wait();
+  phase_b_merged<D, KV8>(p, act, a.counters);
+  gb.wait();
+
+  // C: x_out = x + att @ Wo^T
+  ws::stage_rows(p.att, p.hq * D, act);
+  ws::sync();
+  if (threadIdx.x == 0) ws::mbar_arrive(ws::go_bar(smem));   // wo may stream in full
+  ws::consume<F, R>(smem, a.ring, a.ph[1], n, [&](const ws::StageView<F>& v, int i, int row) {
+    int j[R], at[R];
+    ws::item_rows<R>(v, i, j, at);
+    float acc[R][1];
+    ws::dot_f32<F, R, 1>(v, j, act, 0, lane, acc);
+    float o[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) o[r] = warp_sum(acc[r][0]);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) p.x_out[row + at[r]] = __ldcg(p.x + row + at[r]) + o[r];
+    }
+  });
+}
+
+template <class F, int D, bool AI8, bool KV8>
+int launch(const LayerParams& p, unsigned int* heads, const int* plan, const int* bounds,
+           int device, cudaStream_t st) {
+  static std::atomic<unsigned> ready{0};
+  const int nq = p.hq * D;
+  ws::Args a{{ws::plan_phase(plan, 0, p.wqkv_qs, p.wqkv_d, bounds, p.d),
+              ws::plan_phase(plan, 1, p.wo_qs, p.wo_d, bounds, nq)},
+             {plan[1], plan[2], ws::HEADER_BYTES + plan[1] * plan[2], plan[7]}, heads};
+  // the plan's phases: A over the (hq + 2 hkv) hd rows of wqkv in RoPE-pair
+  // runs of one head, C over the d rows of wo
+  const ws::Phase& pa = a.ph[0];
+  const ws::Phase& pc = a.ph[1];
+  if (plan[5] != 1 || plan[6] != 2 || pa.segs != 2 || pa.seg_off != D / 2 || pa.group_rows != D ||
+      pa.group_units * pa.unit_rows != D / 2 || pc.segs != 1 ||
+      !ws::plan_fits<F>(plan, a.ph, 2,
+                        attn_act_bytes<D, AI8, KV8>(p.d, p.hq, p.hkv,
+                                                    (p.hkv * p.n_split + plan[0] - 1) / plan[0])))
+    return ZGML_ERR_SMEM;
+  return ws::launch(layer_attn_kernel<F, D, AI8, KV8>, p, a, plan[0], plan[4], device, ready,
+                    st);
 }
 
 template <class F, bool AI8, bool KV8>
-int launch_hd(const LayerParams& p, int hd, cudaStream_t st) {
+int launch_hd(const LayerParams& p, unsigned int* heads, int hd, const int* plan,
+              const int* bounds, int device, cudaStream_t st) {
   switch (hd) {      // the JAX rule's head dims (multiples of 32) up to 256
-    case 32: return launch<F, 32, AI8, KV8>(p, st);
-    case 64: return launch<F, 64, AI8, KV8>(p, st);
-    case 96: return launch<F, 96, AI8, KV8>(p, st);
-    case 128: return launch<F, 128, AI8, KV8>(p, st);
-    case 160: return launch<F, 160, AI8, KV8>(p, st);
-    case 192: return launch<F, 192, AI8, KV8>(p, st);
-    case 224: return launch<F, 224, AI8, KV8>(p, st);
-    case 256: return launch<F, 256, AI8, KV8>(p, st);
+    case 32: return launch<F, 32, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 64: return launch<F, 64, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 96: return launch<F, 96, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 128: return launch<F, 128, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 160: return launch<F, 160, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 192: return launch<F, 192, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 224: return launch<F, 224, AI8, KV8>(p, heads, plan, bounds, device, st);
+    case 256: return launch<F, 256, AI8, KV8>(p, heads, plan, bounds, device, st);
     default: return ZGML_ERR_HEAD_DIM;
   }
 }
@@ -115,12 +314,15 @@ int launch_hd(const LayerParams& p, int hd, cudaStream_t st) {
 // levels and cks/cvs f32 scales [hkv, S]; qq_out int8 [hq, hd] and qs_out f32
 // [hq] receive the quantized q unless null), 0 for the bf16 one (cks, cvs,
 // qq_out, qs_out null); x f32 [d], g f32 [d], wqkv (qs [(hq+2hkv)hd, d/32 *
-// BYTES], d fp16), wo (qs [d, hq hd/32 * BYTES], d fp16), cos/sin f32
-// [hd/2], ck/cv layer slabs [hkv, S, hd] (written at row *pos), pos int32 [1]
-// on the device; outputs x_out f32 [d] and kv_cur f32 [2, hkv, hd]; scratch
-// f32 q [hq hd], att [hq hd], part [hq, n_split, hd + 2] with n_split =
-// zgml_decode_split_count(S) (K4's chunking); bar: two uint32 words of a
-// zeroed workspace. All contiguous.
+// BYTES], d fp16), wo (qs [d, hq hd/32 * BYTES], d fp16), both planes 16-byte
+// aligned, cos/sin f32 [hd/2], ck/cv layer slabs [hkv, S, hd] (written at row
+// *pos), pos int32 [1] on the device; outputs x_out f32 [d] and kv_cur f32
+// [2, hkv, hd]; scratch f32 q [hq hd], att [hq hd], part [hq, n_split, hd + 2]
+// with n_split = zgml_decode_split_count(S) (K4's chunking); bar: two uint32
+// words of a zeroed workspace; heads: hkv uint32 words of a zeroed workspace
+// (left zeroed). plan: the host ints of ops/decode_plan.py
+// attn_plan (host_ints), bounds: its int32 [2, grid + 1] range bounds on the
+// card; device: the card's index. All contiguous.
 ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, const float* g,
                                 const uint8_t* wqkv_qs, const void* wqkv_d, const uint8_t* wo_qs,
                                 const void* wo_d, const float* cos, const float* sin, void* ck,
@@ -128,9 +330,11 @@ ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, con
                                 float* kv_cur, float* q, float* att, float* part,
                                 unsigned int* bar, int8_t* xq_out, float* xs_out, int8_t* qq_out,
                                 float* qs_out, int d, int hq, int hkv, int hd, int S, float eps,
-                                float scale, void* stream) {
+                                float scale, unsigned int* heads, const int* plan,
+                                const int* bounds, int device, void* stream) {
   if (d <= 0 || d % 32 != 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || S <= 0 ||
-      (kv8 != 0) != (cks != nullptr && cvs != nullptr))
+      (kv8 != 0) != (cks != nullptr && cvs != nullptr) || heads == nullptr || plan == nullptr ||
+      bounds == nullptr)
     return ZGML_ERR_SHAPE;
   const LayerParams p{x, g, wqkv_qs, static_cast<const __half*>(wqkv_d), wo_qs,
                       static_cast<const __half*>(wo_d), cos, sin, ck, cv, cks, cvs, pos,
@@ -138,13 +342,13 @@ ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, con
                       hkv, S, (S + DA_CHUNK - 1) / DA_CHUNK, eps, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a_i8 && kv8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, true>(p, hd, st))
+    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, true>(p, heads, hd, plan, bounds, device, st))
   }
   if (a_i8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, false>(p, hd, st))
+    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, false>(p, heads, hd, plan, bounds, device, st))
   }
   if (kv8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, true>(p, hd, st))
+    ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, true>(p, heads, hd, plan, bounds, device, st))
   }
-  ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, false>(p, hd, st))
+  ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, false>(p, heads, hd, plan, bounds, device, st))
 }

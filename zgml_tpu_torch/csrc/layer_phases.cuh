@@ -1,7 +1,8 @@
-// The phases of the batch-1 decode layer as device functions, shared by the
-// kernels that run them: K7 (layer_attn.cu: attention A, B, combine, C), K6
-// (ffn.cu: gate|up + SwiGLU, down + residual) and the whole-stack megacalls
-// K14 / K15 (stack_decode.cu: all six for every layer in one launch).
+// The phases of the batch-1 decode layer as device functions, as the
+// whole-stack megacalls K14 / K15 run them (stack_decode.cu: all six for
+// every layer in one launch): warp-per-row GEMVs that load as they dot. K7
+// (layer_attn.cu) and K6 (ffn.cu) stream their weights instead
+// (weight_stream.cuh) and share LayerParams / FfnParams and merge_head.
 //
 // Every phase is called by all threads of every block of a cooperative
 // launch, reads what earlier phases wrote (in this launch, by other blocks)
@@ -51,11 +52,11 @@ struct LayerParams {
 };
 
 // Dynamic shared memory of the attention phases, in bytes.
-template <int D, bool KV8>
+template <int D>
 inline size_t attn_smem_bytes(int d, int hq, int hkv) {
   const int k_max = d > hq * D ? d : hq * D;
   const size_t smem = sizeof(float) * (32 + (size_t)k_max / 32 * 33);
-  const size_t smem_b = decode_chunk_smem_bytes<D, KV8>(hq / hkv);
+  const size_t smem_b = decode_chunk_smem_bytes<D, false>(hq / hkv);
   return smem_b > smem ? smem_b : smem;
 }
 
@@ -68,7 +69,7 @@ inline int attn_max_warps(int d, int hq, int hkv) {
 
 // A: rmsnorm, QKV in RoPE pairs, rotate, emit q / k_cur / v_cur (and, with
 // the bf16 cache, k_cur / v_cur rounded into cache row pos).
-template <class F, int D, bool AI8, bool KV8, bool BF16>
+template <class F, int D, bool BF16>
 __device__ __forceinline__ void attn_phase_a(const LayerParams& p, float* smem) {
   float* red = smem;                       // 32 floats
   float* xs = smem + 32;                   // [K/32][33]
@@ -78,13 +79,7 @@ __device__ __forceinline__ void attn_phase_a(const LayerParams& p, float* smem) 
   const int pos = __ldg(p.pos);
   constexpr int HALF = D / 2;
   const int nbd = p.d / 32;
-  int* xq = reinterpret_cast<int*>(xs);    // a_i8: [d/32][XQ_WORDS] words, then
-  float* xsc = xs + nbd * XQ_WORDS;        // [d/32] scales, inside xs's area
-  if constexpr (AI8) {
-    stage_rmsnorm_i8(p.x, p.g, p.d, p.eps, xq, xsc, red, p.xq_out, p.xs_out);
-  } else {
-    stage_rmsnorm<BF16>(p.x, p.g, p.d, p.eps, xs, red);
-  }
+  stage_rmsnorm<BF16>(p.x, p.g, p.d, p.eps, xs, red);
   const int n_pairs = (p.hq + 2 * p.hkv) * HALF;
   for (int t = gwarp; t < n_pairs; t += nwarps) {
     const int h = t / HALF, i = t % HALF;
@@ -93,12 +88,7 @@ __device__ __forceinline__ void attn_phase_a(const LayerParams& p, float* smem) 
                             p.wqkv_qs + (size_t)r2 * nbd * F::BYTES};
     const __half* dd[2] = {p.wqkv_d + (size_t)r1 * nbd, p.wqkv_d + (size_t)r2 * nbd};
     float acc[2];
-    if constexpr (AI8) {
-      float a[2][1];
-      rows_i8<F, 2, 1>(qs, dd, xq, 0, xsc, 0, nbd, lane, a);
-      acc[0] = a[0][0];
-      acc[1] = a[1][0];
-    } else if constexpr (BF16) {
+    if constexpr (BF16) {
       float a[2][1];
       rows_bf16<F, 2, 1>(qs, dd, xs, 0, nbd, lane, a);
       acc[0] = a[0][0];
@@ -121,21 +111,19 @@ __device__ __forceinline__ void attn_phase_a(const LayerParams& p, float* smem) 
         const int kvh = h - p.hq;          // 0..hkv-1: k heads, hkv..2hkv-1: v heads
         p.kv_cur[kvh * D + i] = o1;
         p.kv_cur[kvh * D + i + HALF] = o2;
-        if constexpr (!KV8) {                // kv8: quantized after the combine
-          __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
-          const size_t row = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
-          cache[row + i] = __float2bfloat16_rn(o1);
-          cache[row + i + HALF] = __float2bfloat16_rn(o2);
-        }
+        __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
+        const size_t row = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
+        cache[row + i] = __float2bfloat16_rn(o1);
+        cache[row + i + HALF] = __float2bfloat16_rn(o2);
       }
     }
   }
 }
 
 // B: split-KV partials over the cache rows below pos.
-template <int D, bool KV8>
+template <int D>
 __device__ __forceinline__ void attn_phase_b(const LayerParams& p, float* smem) {
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  using T = __nv_bfloat16;
   const int pos = __ldg(p.pos);
   const int n_rep = p.hq / p.hkv;
   const int n_live = (pos + DA_CHUNK - 1) / DA_CHUNK;
@@ -146,63 +134,55 @@ __device__ __forceinline__ void attn_phase_b(const LayerParams& p, float* smem) 
     const size_t pos0 = (size_t)hk * p.S + c0;
     decode_chunk_partial<D, LK_THREADS, T>(
         p.q + (size_t)hk * n_rep * D, static_cast<const T*>(p.ck) + pos0 * D,
-        KV8 ? p.cks + pos0 : nullptr, static_cast<const T*>(p.cv) + pos0 * D,
-        KV8 ? p.cvs + pos0 : nullptr, min(DA_CHUNK, pos - c0), n_rep, p.scale,
-        p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2), head_stride, smem);
+        nullptr, static_cast<const T*>(p.cv) + pos0 * D, nullptr, min(DA_CHUNK, pos - c0),
+        n_rep, p.scale, p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2),
+        head_stride, smem);
   }
 }
 
-// Combine the chunks with the self column into att (with kv8, then quantize
-// k_cur, v_cur into cache row pos: phase B has read every row below pos).
-template <int D, bool KV8>
+// The merge of query head h (one warp): the n_live chunks' partials, in
+// chunk order, and the self column (score q . k_cur, value v_cur) into att.
+template <int D>
+__device__ __forceinline__ void merge_head(const LayerParams& p, int h, int n_live, int lane) {
+  const int hk = h / (p.hq / p.hkv);
+  const size_t head_stride = (size_t)p.n_split * (D + 2);
+  const float* qh = p.q + (size_t)h * D;
+  const float* kc = p.kv_cur + (size_t)hk * D;
+  const float* vc = p.kv_cur + (size_t)(p.hkv + hk) * D;
+  float dot = 0.f;
+  for (int c = lane; c < D; c += 32) dot = fmaf(__ldcg(qh + c), __ldcg(kc + c), dot);
+  const float s_self = warp_sum(dot) * p.scale;
+  const float* ph = p.part + (size_t)h * head_stride;
+  float mx = s_self;
+  for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, __ldcg(ph + s * (D + 2) + D));
+  float num[D / 32], den = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 32; ++j) num[j] = 0.f;
+  for (int s = 0; s < n_live; ++s) {
+    const float* ps = ph + s * (D + 2);
+    const float w = expf(__ldcg(ps + D) - mx);
+    den = fmaf(w, __ldcg(ps + D + 1), den);
+#pragma unroll
+    for (int j = 0; j < D / 32; ++j) num[j] = fmaf(w, __ldcg(ps + lane + 32 * j), num[j]);
+  }
+  const float w = expf(s_self - mx);
+  den += w;
+#pragma unroll
+  for (int j = 0; j < D / 32; ++j) {
+    const float o = fmaf(w, __ldcg(vc + lane + 32 * j), num[j]);
+    p.att[(size_t)h * D + lane + 32 * j] = o / den;
+  }
+}
+
+// Combine the chunks with the self column into att.
+template <int D>
 __device__ __forceinline__ void attn_combine(const LayerParams& p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gwarp = blockIdx.x * LK_WARPS + warp;
   const int nwarps = gridDim.x * LK_WARPS;
   const int pos = __ldg(p.pos);
-  const int n_rep = p.hq / p.hkv;
   const int n_live = (pos + DA_CHUNK - 1) / DA_CHUNK;
-  const size_t head_stride = (size_t)p.n_split * (D + 2);
-  for (int h = gwarp; h < p.hq; h += nwarps) {
-    const int hk = h / n_rep;
-    const float* qh = p.q + (size_t)h * D;
-    const float* kc = p.kv_cur + (size_t)hk * D;
-    const float* vc = p.kv_cur + (size_t)(p.hkv + hk) * D;
-    float dot = 0.f;
-    for (int c = lane; c < D; c += 32) dot = fmaf(__ldcg(qh + c), __ldcg(kc + c), dot);
-    const float s_self = warp_sum(dot) * p.scale;
-    const float* ph = p.part + (size_t)h * head_stride;
-    float mx = s_self;
-    for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, __ldcg(ph + s * (D + 2) + D));
-    float num[D / 32], den = 0.f;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) num[j] = 0.f;
-    for (int s = 0; s < n_live; ++s) {
-      const float* ps = ph + s * (D + 2);
-      const float w = expf(__ldcg(ps + D) - mx);
-      den = fmaf(w, __ldcg(ps + D + 1), den);
-#pragma unroll
-      for (int j = 0; j < D / 32; ++j) num[j] = fmaf(w, __ldcg(ps + lane + 32 * j), num[j]);
-    }
-    const float w = expf(s_self - mx);
-    den += w;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) {
-      const float o = fmaf(w, __ldcg(vc + lane + 32 * j), num[j]);
-      p.att[(size_t)h * D + lane + 32 * j] = o / den;
-    }
-  }
-  if constexpr (KV8) {
-    // row pos of the int8 cache: k_cur then v_cur of each KV head, quantized
-    for (int t = gwarp; t < 2 * p.hkv; t += nwarps) {
-      const size_t at = (size_t)(t % p.hkv) * p.S + pos;
-      quantize_vec<D>(p.kv_cur + (size_t)t * D, static_cast<int8_t*>(t < p.hkv ? p.ck : p.cv) +
-                      at * D, (t < p.hkv ? p.cks : p.cvs) + at, lane);
-    }
-    if (p.qq_out != nullptr)
-      for (int h = gwarp; h < p.hq; h += nwarps)
-        quantize_vec<D>(p.q + (size_t)h * D, p.qq_out + (size_t)h * D, p.qs_out + h, lane);
-  }
+  for (int h = gwarp; h < p.hq; h += nwarps) merge_head<D>(p, h, n_live, lane);
 }
 
 // C: x_out = x + att @ Wo^T.
@@ -295,10 +275,9 @@ __device__ __forceinline__ void rows_f32_mr(const uint8_t* const (&qs)[R],
 }
 
 // Gate|up of the row group m0 .. m0 + rows - 1 (MR staged, rows past the
-// group's end 0): every block stages n = rmsnorm(x) * g (K6c quantizes it),
-// each warp owns rows f and F + f of w_gate_up and writes act[m][f] =
-// silu(gate) * up.
-template <class F, int MR, bool I8, bool BF16>
+// group's end 0): every block stages n = rmsnorm(x) * g, each warp owns rows
+// f and F + f of w_gate_up and writes act[m][f] = silu(gate) * up.
+template <class F, int MR, bool BF16>
 __device__ __forceinline__ void ffn_phase_gu(const FfnParams& p, int m0, int rows, float* smem) {
   float* red = smem;                       // 32 floats
   float* xs = smem + 32;                   // MR rows of [max(D, F)/32][33]
@@ -307,21 +286,9 @@ __device__ __forceinline__ void ffn_phase_gu(const FfnParams& p, int m0, int row
   const int gwarp = blockIdx.x * FFN_WARPS + warp;
   const int nwarps = gridDim.x * FFN_WARPS;
   const int nbD = p.D / 32;
-  int* xq = reinterpret_cast<int*>(xs);    // K6c: MR rows of [D/32][XQ_WORDS] words,
-  float* xsc = xs + MR * nbD * XQ_WORDS;   // then MR rows of [D/32] scales
   for (int m = 0; m < MR; ++m) {           // rows past the group's end stay 0
     const size_t row = (size_t)(m0 + m);
-    if constexpr (I8) {
-      if (m < rows) {
-        stage_rmsnorm_i8(p.x + row * p.D, p.g, p.D, p.eps, xq + m * nbD * XQ_WORDS,
-                         xsc + m * nbD, red, p.xq_out ? p.xq_out + row * p.D : nullptr,
-                         p.xs_out ? p.xs_out + row * nbD : nullptr);
-      } else {
-        for (int i = threadIdx.x; i < nbD * XQ_WORDS; i += blockDim.x)
-          xq[m * nbD * XQ_WORDS + i] = 0;
-        for (int i = threadIdx.x; i < nbD; i += blockDim.x) xsc[m * nbD + i] = 0.f;
-      }
-    } else if (m < rows) {
+    if (m < rows) {
       stage_rmsnorm<BF16>(p.x + row * p.D, p.g, p.D, p.eps, xs + (size_t)m * stride, red);
     } else {
       for (int i = threadIdx.x; i < nbD * 33; i += blockDim.x)
@@ -334,9 +301,7 @@ __device__ __forceinline__ void ffn_phase_gu(const FfnParams& p, int m0, int row
                             p.gu_qs + (size_t)(p.F + f) * nbD * F::BYTES};
     const __half* dd[2] = {p.gu_d + (size_t)f * nbD, p.gu_d + (size_t)(p.F + f) * nbD};
     float acc[2][MR];
-    if constexpr (I8) {
-      rows_i8<F, 2, MR>(qs, dd, xq, nbD * XQ_WORDS, xsc, nbD, nbD, lane, acc);
-    } else if constexpr (BF16) {
+    if constexpr (BF16) {
       rows_bf16<F, 2, MR>(qs, dd, xs, stride, nbD, lane, acc);
     } else {
       rows_f32_mr<F, 2, MR>(qs, dd, xs, stride, nbD, lane, acc);

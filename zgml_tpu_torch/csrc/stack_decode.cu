@@ -94,11 +94,11 @@ __global__ void __launch_bounds__(LK_THREADS) stack_decode_kernel(StackParams p)
                          p.pos, p.x2, p.kv_cur + (size_t)l * 2 * p.hkv * D, p.q, p.att, p.part,
                          p.bar, nullptr, nullptr, nullptr, nullptr, p.d, p.hq, p.hkv, p.S,
                          p.n_split, p.eps, p.scale};
-    attn_phase_a<F, D, false, false, BF16_OPS>(lp, smem);
+    attn_phase_a<F, D, BF16_OPS>(lp, smem);
     grid_barrier(p.bar);
-    attn_phase_b<D, false>(lp, smem);
+    attn_phase_b<D>(lp, smem);
     grid_barrier(p.bar);
-    attn_combine<D, false>(lp);
+    attn_combine<D>(lp);
     grid_barrier(p.bar);
     attn_phase_c<F, D, BF16_OPS>(lp, smem);
     grid_barrier(p.bar);
@@ -106,7 +106,7 @@ __global__ void __launch_bounds__(LK_THREADS) stack_decode_kernel(StackParams p)
                        slot<const __half>(row, T_GU_D), slot<const uint8_t>(row, T_DN_QS),
                        slot<const __half>(row, T_DN_D), l + 1 == p.L ? p.x_out : p.xres, p.act,
                        p.bar, nullptr, nullptr, 1, p.d, p.F, p.eps};
-    ffn_phase_gu<F, 1, false, BF16_OPS>(fp, 0, 1, smem);
+    ffn_phase_gu<F, 1, BF16_OPS>(fp, 0, 1, smem);
     grid_barrier(p.bar);
     ffn_phase_down<F, 1, BF16_OPS>(fp, 0, 1, smem);
     if (l + 1 < p.L) grid_barrier(p.bar);
@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(LK_THREADS) stack_decode_kernel(StackParams p)
 
 template <class F, int D, bool BF16_OPS>
 int launch(const StackParams& p, cudaStream_t st) {
-  size_t smem = attn_smem_bytes<D, false>(p.d, p.hq, p.hkv);
+  size_t smem = attn_smem_bytes<D>(p.d, p.hq, p.hkv);
   const size_t smem_f = sizeof(float) * (32 + ffn_row_floats(p.d, p.F));
   if (smem_f > smem) smem = smem_f;
   int warps = attn_max_warps<D>(p.d, p.hq, p.hkv);

@@ -37,11 +37,13 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
            "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "flash_bwd.cu",
            "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
-HEADERS = ("common.cuh", "decode_split.cuh", "layer_phases.cuh", "tf32_mma.cuh")
+HEADERS = ("common.cuh", "decode_split.cuh", "layer_phases.cuh", "tf32_mma.cuh",
+           "weight_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)     # a host int array (ops/decode_plan.py host ints)
 # exported function -> argtypes (every launcher returns an int status; the
 # weight launchers take the kind code of ops/qmatmul.py KIND_CODE first)
 _SIGNATURES = {
@@ -60,9 +62,10 @@ _SIGNATURES = {
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),
     "zgml_qmatmul_i8": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "zgml_greedy": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _P),
+    "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _IP, _P, _I, _P),
     "zgml_ffn": (_I, *(_P,) * 8, _I, _I, _I, _P),
-    "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P),
+    "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P, _IP, _P, _I,
+                        _P),
     "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     "zgml_fused_chain": (_P, _P, _LL, _P, _I, _P),
     "zgml_fused_chain_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),

@@ -28,3 +28,20 @@ def barrier_words(device: torch.device) -> torch.Tensor:
             ws = torch.zeros(2, dtype=torch.int32, device=torch.device("cuda", idx))
             _words[key] = ws
     return ws
+
+
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def counter_words(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed uint32 words (int32) for a launch on the current
+    stream of `device` that counts arrivals in them and leaves them zeroed
+    (K7: one a KV head), kept per (device, stream) as the barrier words."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (idx, torch.cuda.current_stream(idx).cuda_stream)
+    with _lock:
+        ws = _counters.get(key)
+        if ws is None or ws.numel() < n:
+            ws = torch.zeros(max(n, 64), dtype=torch.int32, device=torch.device("cuda", idx))
+            _counters[key] = ws
+    return ws

@@ -1,0 +1,260 @@
+"""Launch plans of the weight-streaming decode kernels: K7 (csrc/layer_attn.cu)
+and K6d / K6a / K6c (csrc/ffn.cu), both built on csrc/weight_stream.cuh.
+
+Each kernel runs one persistent block an SM: 16 consumer warps and one
+producer warp, which streams the block's weight rows with 1D bulk copies
+(TMA) through a ring of `stages` slots of `slot_bytes` in shared memory,
+beside an area of `act_bytes` for the staged activations (and K7's phase B).
+A phase (K7: A over wqkv, C over wo; K6: gate|up, then down) is a list of
+units, each a few weight rows of one or two segments (K7 A: the two rows of
+a RoPE pair; K6 gate|up: a gate row and its up row), split into contiguous,
+balanced ranges, one per block. A block cuts its range into stages of at
+most `unit_max` units, never across a group (K7 A: a head), so a stage is
+`segs` runs of contiguous rows; the producer copies each run's qs and fp16
+scale rows, the consumers dot each pair of rows (one warp an item). Every
+copy starts and ends on a multiple of 16 bytes: a unit is `unit_rows` rows,
+enough that unit_rows * K/16 bytes of scales are a multiple of 16.
+
+The plan is a pure function of the shapes, the kind, the SM count and the
+stage target, and the kernel reads it as given (no occupancy query at
+launch): `launch_args` caches it per shape and card as the host ints and
+the device table of range bounds that the launchers take.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import threading
+from typing import NamedTuple
+
+import torch
+
+from zgml_tpu_torch.quant.packed import QS_BLOCK_BYTES
+
+SMEM_LIMIT = 232_448       # dynamic shared memory one block of the H100 may use
+MAX_STAGES = 16            # ws::MAX_STAGES: mbarrier pairs in the header
+HEADER_BYTES = 384         # ws::HEADER_BYTES: 2 * MAX_STAGES + 2 mbarriers, 16 reduction floats
+STAGE_BYTES = 32 * 1024    # default slot size (a larger unit takes a larger slot)
+SLOT_ALIGN = 128
+XPAD = 36                  # floats per staged f32 32-block (ws::XPAD): conflict-free float4s
+XQ_BYTES = 56              # bytes per staged int8 32-block: 48 of levels, a scale, a sum
+DA_CHUNK = 128             # csrc/decode_split.cuh: keys per phase-B chunk
+PLAN_HEADER = 8            # ints before the phases in the host array
+AHEAD_BYTES = 32 * 1024    # bytes of the second weight copied before its grid barrier
+PHASE_INTS = 6             # segs, seg_off, unit_rows, group_units, group_rows, unit_max
+
+
+class Phase(NamedTuple):
+    """One streamed weight: rows of length k, in units of `unit_rows` rows per
+    segment. Unit u's first row is (u // group_units) * group_rows +
+    (u % group_units) * unit_rows; with segs 2 the same rows + seg_off are
+    its second segment. Block b takes units [bounds[b], bounds[b + 1])."""
+    k: int
+    segs: int
+    seg_off: int
+    unit_rows: int
+    group_units: int
+    group_rows: int
+    unit_max: int
+    units: int
+    bounds: tuple[int, ...]
+
+
+class StreamPlan(NamedTuple):
+    grid: int
+    stages: int
+    slot_bytes: int
+    act_bytes: int
+    smem_bytes: int
+    mr: int                     # K6's rows per group (1 for K7)
+    ahead: int                  # stages of phases[1] copied before the barrier ahead of it
+    phases: tuple[Phase, ...]   # K7: (A, C); K6: (gate|up, down)
+
+
+def row_bytes(k: int, kind: str) -> int:
+    """Bytes of one weight row: its qs blocks and its fp16 scales."""
+    return k // 32 * QS_BLOCK_BYTES[kind] + k // 16
+
+
+def align_rows(k: int) -> int:
+    """The fewest rows whose fp16 scales (k/16 bytes a row) fill a multiple
+    of 16 bytes; qs rows (k/2 or k bytes, k % 32 == 0) always do."""
+    return 16 // math.gcd(k // 16, 16)
+
+
+ITEM_ROWS = 2              # weight rows a warp dots at once (ws::ITEM_ROWS)
+
+
+def _phase(k, kind, segs, seg_off, unit_rows, group_units, group_rows, units, grid, slot):
+    unit_max = max(1, slot // (segs * unit_rows * row_bytes(k, kind)))
+    bounds = tuple(b * units // grid for b in range(grid + 1))
+    return Phase(k, segs, seg_off, unit_rows, group_units, group_rows, unit_max, units, bounds)
+
+
+def stages_of(ph: Phase, u0: int, u1: int) -> list[tuple[int, int]]:
+    """(first unit, units) of each stage of the range [u0, u1), as the kernel
+    cuts it (csrc/weight_stream.cuh stage_units)."""
+    out, u = [], u0
+    while u < u1:
+        c = min(u1 - u, ph.unit_max, ph.group_units - u % ph.group_units)
+        out.append((u, c))
+        u += c
+    return out
+
+
+def unit_row(ph: Phase, u: int) -> int:
+    return (u // ph.group_units) * ph.group_rows + (u % ph.group_units) * ph.unit_rows
+
+
+def _ring(phases_of, act_bytes: int, slot: int, rounds: int = 1) -> int:
+    """Slots: as many as fit beside the activations, at most MAX_STAGES and
+    at most the stages the busiest block runs (`rounds` times over)."""
+    phases = phases_of(slot)
+    grid = len(phases[0].bounds) - 1
+    need = max(sum(len(stages_of(ph, ph.bounds[b], ph.bounds[b + 1])) for ph in phases)
+               for b in range(grid)) * rounds
+    fit = (SMEM_LIMIT - HEADER_BYTES - act_bytes) // slot
+    return min(MAX_STAGES, fit, max(1, need))
+
+
+def _slot(units_bytes: list[int], stage_bytes: int) -> int:
+    """The slot: the largest stage a phase fills with whole units up to
+    stage_bytes (one unit where a unit is larger)."""
+    most = max(max(1, stage_bytes // u) * u for u in units_bytes)
+    return -(-most // SLOT_ALIGN) * SLOT_ALIGN
+
+
+def _ahead(slot: int) -> int:
+    """Stages of the second weight the producer copies before the consumers
+    pass the grid barrier ahead of it: AHEAD_BYTES' worth, at least one."""
+    return max(1, AHEAD_BYTES // slot)
+
+
+def decode_chunk_smem_bytes(hd: int, kv8: bool, n_rep: int) -> int:
+    """csrc/decode_split.cuh decode_chunk_smem_bytes<hd, kv8>(n_rep)."""
+    if kv8:
+        return 4 * (n_rep * hd // 4 + n_rep + n_rep * DA_CHUNK + DA_CHUNK * (hd // 4 + 1)
+                    + DA_CHUNK * (hd // 4) + 2 * DA_CHUNK)
+    return 4 * (n_rep * hd + n_rep * DA_CHUNK) + 4 * (DA_CHUNK * (hd // 2 + 1)
+                                                      + DA_CHUNK * (hd // 2))
+
+
+def xq_row_bytes(d: int) -> int:
+    """Bytes of one staged int8 row of d values (levels, scales, sums),
+    rounded up to 16 (csrc/weight_stream.cuh xq_words)."""
+    return -(-(d // 32 * XQ_BYTES) // 16) * 16
+
+
+def attn_act_bytes(d: int, hq: int, hkv: int, hd: int, a_i8: bool, kv8: bool, s: int,
+                   grid: int) -> int:
+    """K7's activation area: phase A's normed x (f32, or int8 with its scales
+    and sums) with x and g as copied behind it; phase B's chunk and an int
+    for each item (KV head, 128-key chunk of an S-row cache) a block of the
+    grid takes; phase C's staged attention (csrc/layer_attn.cu
+    attn_act_bytes)."""
+    a = (xq_row_bytes(d) if a_i8 else d // 32 * XPAD * 4) + 2 * d * 4
+    items = hkv * -(-s // DA_CHUNK)         # phase B's (KV head, chunk) items
+    b = decode_chunk_smem_bytes(hd, kv8, hq // hkv) + 4 * -(-items // grid)
+    c = hq * hd // 32 * XPAD * 4
+    return max(a, b, c)
+
+
+def ffn_act_bytes(d: int, f: int, mr: int, a_i8: bool) -> int:
+    """K6's activation area: mr normed rows for gate|up (f32, or K6c's int8)
+    with the first group's x rows and g as copied behind them, then mr
+    SwiGLU rows for down (csrc/ffn.cu ffn_act_bytes)."""
+    gu = mr * (xq_row_bytes(d) if a_i8 else d // 32 * XPAD * 4) + (mr + 1) * d * 4
+    return max(gu, mr * f // 32 * XPAD * 4)
+
+
+def attn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bool, s: int,
+              sm_count: int, stage_bytes: int | None = None) -> StreamPlan:
+    """K7's plan for an S-row cache: phase A over wqkv in units of RoPE-pair
+    runs of one head (rows h*hd + i and h*hd + hd/2 + i), phase C over wo in
+    runs of rows."""
+    half = hd // 2
+    ga = math.lcm(align_rows(d), ITEM_ROWS // 2)   # pairs a unit (divides half % 16 == 0)
+    gc = math.lcm(align_rows(hq * hd), ITEM_ROWS)  # rows a unit
+    grid = max(1, sm_count)
+    units_a, units_c = (hq + 2 * hkv) * half // ga, d // gc
+
+    def phases(slot):
+        return (_phase(d, kind, 2, half, ga, half // ga, hd, units_a, grid, slot),
+                _phase(hq * hd, kind, 1, 0, gc, units_c, 0, units_c, grid, slot))
+    act = attn_act_bytes(d, hq, hkv, hd, a_i8, kv8, s, grid)
+    slot = _slot([2 * ga * row_bytes(d, kind), gc * row_bytes(hq * hd, kind)],
+                 stage_bytes or STAGE_BYTES)
+    stages = _ring(phases, act, slot)
+    if stages < 1:
+        raise ValueError(f"attn_block: d {d}, heads {hq}/{hkv} x {hd} at {kind} leave no room "
+                         f"for a {slot}-byte stage beside {act} bytes of activations")
+    return StreamPlan(grid, stages, slot, act, HEADER_BYTES + stages * slot + act, 1,
+                      _ahead(slot), phases(slot))
+
+
+FFN_GROUPS = (4, 2, 1)      # rows a group (csrc/ffn.cu instantiations)
+
+
+def ffn_plan(m: int, d: int, f: int, kind: str, a_i8: bool, sm_count: int,
+             stage_bytes: int | None = None) -> StreamPlan:
+    """K6's plan: gate|up in units of (gate row, up row) runs, down in runs
+    of rows; the rows in groups of mr (the fewest groups whose staging
+    leaves a ring of four slots, else of two, else of one), each group
+    streaming both weights once."""
+    grid = max(1, sm_count)
+
+    gg = math.lcm(align_rows(d), ITEM_ROWS // 2)
+    gd = math.lcm(align_rows(f), ITEM_ROWS)
+
+    def phases(slot):
+        return (_phase(d, kind, 2, f, gg, f // gg, 0, f // gg, grid, slot),
+                _phase(f, kind, 1, 0, gd, d // gd, 0, d // gd, grid, slot))
+    slot = _slot([2 * gg * row_bytes(d, kind), gd * row_bytes(f, kind)],
+                 stage_bytes or STAGE_BYTES)
+    fewest = min(g for g in FFN_GROUPS if g >= min(m, FFN_GROUPS[0]))
+    for least in (4, 2, 1):
+        for mr in (g for g in FFN_GROUPS if g <= fewest):
+            act = ffn_act_bytes(d, f, mr, a_i8)
+            stages = _ring(phases, act, slot, -(-m // mr))
+            if stages >= least:
+                return StreamPlan(grid, stages, slot, act, HEADER_BYTES + stages * slot + act,
+                                  mr, _ahead(slot), phases(slot))
+    raise ValueError(f"fused_ffn_norm: D {d}, F {f} at {kind} leave no room for a {slot}-byte "
+                     f"stage beside one row's activations")
+
+
+def host_ints(plan: StreamPlan) -> list[int]:
+    """The plan as the launchers read it: grid, stages, slot_bytes,
+    act_bytes, smem_bytes, mr, phases, ahead, then PHASE_INTS per phase."""
+    out = [plan.grid, plan.stages, plan.slot_bytes, plan.act_bytes, plan.smem_bytes, plan.mr,
+           len(plan.phases), plan.ahead]
+    for ph in plan.phases:
+        out += [ph.segs, ph.seg_off, ph.unit_rows, ph.group_units, ph.group_rows, ph.unit_max]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_lock = threading.Lock()
+_args: dict[tuple, tuple] = {}
+
+
+def launch_args(device: torch.device, make, *key) -> tuple[StreamPlan, ctypes.Array, torch.Tensor]:
+    """(plan, host ints as a ctypes array, device int32 [phases, grid + 1]
+    of range bounds) for `make(*key, sm_count)`, cached per card and key."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    ck = (index, make.__name__, *key)
+    with _lock:
+        hit = _args.get(ck)
+        if hit is None:
+            plan = make(*key, sm_count(index))
+            ints = host_ints(plan)
+            bounds = torch.tensor([ph.bounds for ph in plan.phases], dtype=torch.int32,
+                                  device=torch.device("cuda", index))
+            hit = (plan, (ctypes.c_int * len(ints))(*ints), bounds)
+            _args[ck] = hit
+    return hit

@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from zgml_tpu_torch import config
-from zgml_tpu_torch.ops import build, coop, refs
+from zgml_tpu_torch.ops import build, coop, decode_plan, refs
 from zgml_tpu_torch.ops.qmatmul import KIND_CODE, counter, i8_dot_ref, rmsnorm_quantize_ref
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
@@ -116,11 +116,15 @@ def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
                         wd: PackedWeight, eps: float, a_i8: bool = False,
                         act_out=None) -> torch.Tensor:
     """Launch K6d (Q4_0), K6a (Q8_0) or, with a_i8, K6c (Q4_0 only),
-    csrc/ffn.cu. x f32 [..., D] with at most 32 rows; both weights of one
+    csrc/ffn.cu, on the plan of decode_plan.ffn_plan (cached per shape and
+    card). x f32 [..., D] with at most 32 rows; both weights of one
     kind. act_out = (xq int8 [M, D], xs f32 [M, D/32]) receives K6c's
     activations where given."""
     m = _check("fused_ffn_norm", x, (gamma,), gu, wd)
     dev, d, f = x.device, x.shape[-1], wd.k
+    if not all(t.data_ptr() % 16 == 0 for t in (gu.d, wd.d)):
+        raise ValueError("fused_ffn_norm: the weights' d planes must be 16-byte aligned "
+                         "(bulk copies)")
     if a_i8 and gu.kind != "q4_0":
         raise ValueError(f"fused_ffn_norm: the int8 mode takes q4_0 weights, got {gu.kind}")
     xq_p = xs_p = None
@@ -133,11 +137,13 @@ def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
         xq_p, xs_p = act_out[0].data_ptr(), act_out[1].data_ptr()
     y = torch.empty_like(x)
     act = torch.empty((m, f), dtype=torch.float32, device=dev)
+    _, plan, bounds = decode_plan.launch_args(dev, decode_plan.ffn_plan, m, d, f, gu.kind,
+                                              bool(a_i8))
     status = build.library().zgml_ffn_norm(
         KIND_CODE[gu.kind], int(a_i8), x.data_ptr(), gamma.data_ptr(), gu.qs.data_ptr(),
         gu.d.data_ptr(), wd.qs.data_ptr(), wd.d.data_ptr(), y.data_ptr(), act.data_ptr(),
-        coop.barrier_words(dev).data_ptr(), xq_p, xs_p,
-        m, d, f, float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        coop.barrier_words(dev).data_ptr(), xq_p, xs_p, m, d, f, float(eps), plan,
+        bounds.data_ptr(), bounds.device.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "fused_ffn_norm")
     name = "fused_ffn_norm_i8" if a_i8 else "fused_ffn_norm"
     global_profile.count_op(counter(name, gu.kind), "cuda")

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from zgml_tpu_torch.ops import build, coop, refs
+from zgml_tpu_torch.ops import build, coop, decode_plan, refs
 from zgml_tpu_torch.ops.attention import softmax_pv
 from zgml_tpu_torch.ops.qmatmul import KIND_CODE, counter, i8_dot_ref, rmsnorm_quantize_ref
 from zgml_tpu_torch.quant import kv_cache
@@ -152,7 +152,8 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                     pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_heads: int,
                     n_kv_heads: int, eps: float, a_i8: bool = False, act_out=None,
                     q8_out=None):
-    """Launch K7 (csrc/layer_attn.cu) at the weights' kind; same contract as
+    """Launch K7 (csrc/layer_attn.cu) at the weights' kind on the plan of
+    decode_plan.attn_plan (cached per shape and card); same contract as
     attn_block_ref, with pos an int32 [1] CUDA tensor. a_i8: the int8 A
     phase; act_out = (xq int8 [d], xs f32 [d/32]) receives its activations
     where given. With the int8 cache (ck, cv tuples), q8_out = (qq int8
@@ -188,8 +189,8 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
             f"cos/sin must be float32 [{hd // 2}]")
     tensors = (x, gamma, wqkv.qs, wqkv.d, wo.qs, wo.d, ck, cv, cos, sin, *scales)
     require(all(t.is_contiguous() for t in tensors), "every input must be contiguous")
-    require(wqkv.qs.data_ptr() % 16 == 0 and wo.qs.data_ptr() % 16 == 0,
-            "the weights' qs planes must be 16-byte aligned")
+    require(all(t.data_ptr() % 16 == 0 for t in (wqkv.qs, wqkv.d, wo.qs, wo.d)),
+            "the weights' qs and d planes must be 16-byte aligned (bulk copies)")
     s = ck.shape[3]
     lib = build.library()
     n_split = lib.zgml_decode_split_count(s)          # phase B chunks as K4's
@@ -213,6 +214,8 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                 f"q8_out takes int8 [{n_heads}, {hd}] and float32 [{n_heads}] on {dev}, with "
                 f"the int8 cache")
         qq_p, qs_p = q8_out[0].data_ptr(), q8_out[1].data_ptr()
+    _, plan, bounds = decode_plan.launch_args(dev, decode_plan.attn_plan, d, n_heads, n_kv_heads,
+                                              hd, wqkv.kind, bool(a_i8), kv8, s)
     status = lib.zgml_attn_block(
         KIND_CODE[wqkv.kind], int(a_i8), int(kv8), x.data_ptr(), gamma.data_ptr(),
         wqkv.qs.data_ptr(), wqkv.d.data_ptr(), wo.qs.data_ptr(), wo.d.data_ptr(),
@@ -221,7 +224,8 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
         pos.data_ptr(), x_out.data_ptr(), kv_cur.data_ptr(), q_s.data_ptr(), att_s.data_ptr(),
         part_s.data_ptr(), coop.barrier_words(dev).data_ptr(), xq_p, xs_p, qq_p, qs_p, d,
         n_heads, n_kv_heads, hd, s, float(eps), 1.0 / hd ** 0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        coop.counter_words(dev, n_kv_heads).data_ptr(), plan, bounds.data_ptr(),
+        bounds.device.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "attn_block")
     global_profile.count_op(counter_name(a_i8, kv8, wqkv.kind), "cuda")
     kv = kv_cur.reshape(2, 1, n_kv_heads, 1, hd)
