@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name, power limit), build the CUDA kernels
      from zgml_tpu_torch/csrc with nvcc (one process per source, in
      parallel), print the build time and ptxas' registers and spills of
-     the instantiations of the flash kernels, K11, K12, K13, K7 and K6
-     (none of which may spill, but K6's groups of 2 and 4 rows, recorded);
+     the instantiations of the flash kernels, K11, K12, K13, K7, K6, K14 and
+     K15 (none of which may spill, but K6's groups of 2 and 4 rows, recorded);
   2. check each kernel against its plain torch version on the card at the
      shapes of the main paths, and time both (device time from
      torch.profiler, or from CUDA events around calls queued behind a spin
@@ -62,6 +62,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      widths over 4 layers; x_out, k_cur and v_cur within MEGA_REL_PER_LAYER *
      L * max|out| with f32 operands and TAPE_BF16_RTOL * max|out| with bf16
      ones, every layer's cache row pos the kernel's own k_cur / v_cur in bf16;
+     K14 and tape_decode_f32 bit-equal to the per-layer chain (K7 with the
+     f32 A phase, then K6d at one row, every layer's k_cur / v_cur, the final
+     x and the cache), K15's rms error against a float64 evaluation of the
+     same stack at most MEGA_RMS_RATIO x the plain version's and its rms
+     distance from the plain version at most MEGA_ROUNDING_RATIO x the f32
+     chain's (so a K15 without its bf16 roundings fails), all three
+     bit-equal over two launches, no spill or stack frame in any instantiation;
   3. end to end: synthetic GGUFs from seed 0 (written to .bench_cache/
      once), TinyLlama-1.1B at Q4_0 and Q8_0 and Llama-2-7B at Q4_0 (full
      width and 32 layers, max_seq_len 2048 as bench.py's preset, 4.2 GB) ->
@@ -294,6 +301,15 @@ GRAPH_RATE_ROUNDS = 3      # phase 4: run, value_and_grad, value_and_grad, run p
 # order rounds to either bf16 neighbour)
 MEGA_REL_PER_LAYER = REL_BOUND
 TAPE_BF16_RTOL = 1e-2
+# K15's rms error against a float64 evaluation of the same stack on its bf16
+# weights (stackkernel.stacked_decode_f64: operand rows unrounded) at most this
+# x the plain version's (the K2 / K11 gate); K14 and tape_decode_f32 are
+# bit-equal to the per-layer chain K7 + K6d instead
+MEGA_RMS_RATIO = 2.0
+# and K15's rms distance from its plain version at most this x that of the f32
+# function (the chain, f32 operands) from the same plain version: a K15 without
+# its bf16 roundings of the weights and operand rows fails
+MEGA_ROUNDING_RATIO = 0.5
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -428,6 +444,9 @@ LIBRARY_K2 = ("torch.matmul(x, W.T) f32 (allow_tf32 False), W dequantized outsid
 NO_LIBRARY = {
     "q8": "none: no PyTorch call computes a 32-block Q8_0 product (torch._weight_int8pack_mm "
           "takes one scale per output channel, not per 32-block)",
+    "q4_i8": "none: no PyTorch call quantizes x to int8 per 32-block before a Q4_0 product "
+             "(torch._weight_int4pack_mm rounds x to bf16: another function, kept as "
+             "int4pack_ms)",
     "greedy": "none: no single PyTorch call computes the quantized GEMV and its argmax",
     "ffn": "none: no single PyTorch call computes rmsnorm + quantized gate|up + SwiGLU + down "
            "+ residual",
@@ -755,11 +774,16 @@ def check_kernels(torch, dev):
                     f"{kname} {model}{name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
             t = time_ms(torch, [lambda w_=c: qmatmul_i8_cuda(x, w_) for c in copies], 50)
             tp = time_ms(torch, [lambda w_=c: qmatmul_i8_ref(x, w_) for c in copies], 10)
-            lib, note = None, NO_LIBRARY["q8"] if kind == "q8_0" else refusal
-            if packs is not None:
-                lib, note = time_int4(packs, x, qmatmul_ref(x, w))
+            extra = {}
+            if kind == "q4_0":    # int4pack rounds x to bf16: another function, a note
+                i4, i4_note = time_int4(packs, x, qmatmul_ref(x, w)) if packs is not None \
+                    else (None, refusal)
+                extra.update(int4pack_ms=None if i4 is None else i4[0],
+                             int4pack_note=f"another function: {i4_note}")
             record(kname, f"{model}{name} M={m} N={n} K={k}", err, bound, t, tp,
-                   m * k * 4 + wbytes + m * n * 4, 0, lib, note, i8ops=2 * m * n * k)
+                   m * k * 4 + wbytes + m * n * 4, 0, None,
+                   NO_LIBRARY["q8" if kind == "q8_0" else "q4_i8"], i8ops=2 * m * n * k,
+                   **extra)
         if name == "lm_head":
             check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
                          qmatmul_i8_cuda, qmatmul_i8_ref, model)
@@ -1517,14 +1541,27 @@ def check_megacalls(torch, dev, g, record, weights):
     max|out| with f32 operands, TAPE_BF16_RTOL * max|out| with bf16 ones;
     every layer's cache row pos is the kernel's own k_cur / v_cur in bf16
     (with f32 operands within one bf16 ulp of the plain version's row, or
-    that bound near 0), and no other row changes."""
+    that bound near 0), and no other row changes. With f32 operands the
+    kernel is bit-equal to the per-layer chain (stackkernel.layer_chain:
+    every layer's k_cur / v_cur, the final x and the cache); K15's rms error
+    against stackkernel.stacked_decode_f64 is at most MEGA_RMS_RATIO x the
+    plain version's, and its rms distance from the plain version at most
+    MEGA_ROUNDING_RATIO x the chain's (the f32 function's); two launches
+    give the same bits. Each case records the chain's device
+    time (chain_ms) and the launch's plan."""
     from zgml_tpu_torch.ops import refs
-    from zgml_tpu_torch.ops.stackkernel import (PROJECTIONS, StackedLayers, stacked_decode_cuda,
+    from zgml_tpu_torch.ops.decode_plan import launch_args, stack_plan
+    from zgml_tpu_torch.ops.stackkernel import (PROJECTIONS, StackedLayers, layer_chain,
+                                                stacked_decode_cuda, stacked_decode_f64,
                                                 stacked_decode_ref)
-    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda, tape_decode_ref
+    from zgml_tpu_torch.ops.tapekernel import Tape, bf16_weight, tape_decode_cuda, tape_decode_ref
+    from zgml_tpu_torch.quant.packed import PackedWeight
 
     def norm(d):
         return 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+
+    def rms(a, b):
+        return float(torch.sqrt(torch.mean((a.double() - b) ** 2)))
 
     for model, (n_layers, hq, hkv, hd), f in (("", (L, HQ, HKV, D), FFN_F),
                                               ("7B ", (L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B)):
@@ -1536,6 +1573,7 @@ def check_megacalls(torch, dev, g, record, weights):
                    "w_down": weights("q4_0", d, f, 1)[0]} for _ in range(n_layers)]
         stack = StackedLayers(layers, hq, hkv, 1e-5)
         tape = Tape(stack, ())
+        plan = stream_plan(launch_args(dev, stack_plan, n_layers, d, hq, hkv, hd, f, S)[0])
         # the weights and norms of every layer, read once per token
         wbytes = sum(nbytes_of(ly[n].qs, ly[n].d) for ly in layers for n in PROJECTIONS) \
             + 2 * n_layers * d * 4
@@ -1548,13 +1586,23 @@ def check_megacalls(torch, dev, g, record, weights):
             x = torch.randn((1, 1, d), device=dev, generator=g)
             cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
             pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+            kc, vc = ck.clone(), cv.clone()
+            chain = layer_chain(x, stack, kc, vc, pos_t, cos, sin)
+            chain_cache = (kc, vc)
+            flat_chain = torch.cat([t.reshape(-1) for t in chain])
+            kt, vt = ck.clone(), cv.clone()      # timed in place: row pos takes the same values
+            t_chain = time_ms(torch, [lambda: layer_chain(x, stack, kt, vt, pos_t, cos, sin)], 3)
+            del kt, vt
             for kname, (kernel, plain, kw) in runs.items():
                 view = stack if kname == "stack_decode" else tape
                 bf16 = kw.get("bf16", False)
                 kc, vc, kr, vr = ck.clone(), cv.clone(), ck.clone(), cv.clone()
                 got = kernel(x, view, kc, vc, pos_t, cos, sin, **kw)
+                again = kernel(x, view, kc.clone(), vc.clone(), pos_t, cos, sin, **kw)
                 want = plain(x, view, kr, vr, pos, cos, sin, **kw)
                 torch.cuda.synchronize()
+                require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                        f"{kname} {model}pos={pos}: two launches differ")
                 rel = TAPE_BF16_RTOL if bf16 else MEGA_REL_PER_LAYER * n_layers
                 errs = [(float((a - b).abs().max()), rel * float(b.abs().max()))
                         for a, b in zip(got, want)]
@@ -1572,6 +1620,25 @@ def check_megacalls(torch, dev, g, record, weights):
                              and (bf16 or bool(((row - row_r).abs() <= tol).all())))
                 require(same, f"{kname} {model}pos={pos}: a cache row pos is not the kernel's "
                         f"k_cur / v_cur in bf16 (or is off the plain row), or another row changed")
+                if not bf16:
+                    require(all(torch.equal(a.reshape(b.shape), b) for a, b in zip(got, chain))
+                            and torch.equal(kc, chain_cache[0])
+                            and torch.equal(vc, chain_cache[1]),
+                            f"{kname} {model}pos={pos}: not bit-equal to the per-layer chain "
+                            f"K7 + K6d")
+                exact = stacked_decode_f64(x, stack, ck, cv, pos, cos, sin,
+                                           bf16_weight if bf16 else PackedWeight.dequant)
+                flat = [torch.cat([t.reshape(-1) for t in out]) for out in (got, want)]
+                rms_k, rms_p = rms(flat[0], exact), rms(flat[1], exact)
+                require(not bf16 or rms_k <= MEGA_RMS_RATIO * rms_p,
+                        f"{kname} {model}pos={pos}: rms error against float64 {rms_k:.3g} is "
+                        f"over {MEGA_RMS_RATIO} x the plain version's {rms_p:.3g}")
+                # K15's roundings: nearer its plain version than the f32 function is
+                near, far = rms(flat[0], flat[1].double()), rms(flat_chain, flat[1].double())
+                require(not bf16 or near <= MEGA_ROUNDING_RATIO * far,
+                        f"{kname} {model}pos={pos}: rms distance from the plain version "
+                        f"{near:.3g} is over {MEGA_ROUNDING_RATIO} x the f32 chain's {far:.3g}")
+                del exact
                 t = time_ms(torch, [lambda: kernel(x, view, kc, vc, pos_t, cos, sin, **kw)], 20)
                 tp = time_ms(torch, [lambda: plain(x, view, kr, vr, pos, cos, sin, **kw)], 3)
                 worst = max(errs, key=lambda eb: eb[0] / eb[1])
@@ -1583,7 +1650,12 @@ def check_megacalls(torch, dev, g, record, weights):
                                   + 4 * hq * pos * hd)
                 record(kname, f"{model}L={n_layers} pos={pos} (x_out, k_cur, v_cur)", worst[0],
                        worst[1], t, tp, nbytes, 0 if bf16 else ops, None, NO_LIBRARY["stack"],
-                       bf16ops=ops if bf16 else 0, n_layers=n_layers)
+                       bf16ops=ops if bf16 else 0, n_layers=n_layers, chain_ms=t_chain[0],
+                       bits_equal_chain=not bf16, rms_err=rms_k, plain_rms_err=rms_p,
+                       rounding_ratio=near / far if bf16 and far else None, **plan)
+                log(f"    {kname} {model}pos={pos}: per-layer chain K7 + K6d "
+                    f"{t_chain[0] * 1e3:.1f} us; rms error vs float64 {rms_k:.3g} (plain "
+                    f"{rms_p:.3g})")
         del layers, stack, tape, ck, cv
         torch.cuda.empty_cache()
 
@@ -2548,7 +2620,8 @@ def main() -> int:
         for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd"),
                              ("ptxas_qmatmul", "qgemm_tf32"), ("ptxas_rmsnorm", "rmsnorm"),
                              ("ptxas_chain", "chain_kernel"), ("ptxas_attn", "layer_attn_kernel"),
-                             ("ptxas_ffn", "ffn_norm_kernel")):
+                             ("ptxas_ffn", "ffn_norm_kernel"),
+                             ("ptxas_stack", "stack_decode_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
                 log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
@@ -2563,12 +2636,20 @@ def main() -> int:
         spilled = [e["entry"] for e in summary["ptxas_rmsnorm"] + summary["ptxas_chain"]
                    if e.get("spill_stores")]
         require(not spilled, f"K12 / K13 spill registers: {spilled}")
-        # K7 and K6 at one row (the decode calls; ffn_norm_kernel<F, 1, ...>):
-        # no spill; K6's groups of 2 and 4 rows are recorded
+        # K7 and K6 at one row (the decode calls; ffn_norm_kernel<F, 1, ...>)
+        # and K14 / K15: no spill and no stack frame (the producer's gate in
+        # local memory cost the megacalls 1-3%); K6's groups of 2 and 4 rows
+        # are recorded
         spilled = [e["entry"] for e in summary["ptxas_attn"] + summary["ptxas_ffn"]
                    if ("layer_attn" in e["entry"] or "Li1E" in e["entry"])
-                   and e.get("spill_stores")]
-        require(not spilled, f"K7 / K6 at one row spill registers: {spilled}")
+                   and (e.get("spill_stores") or e.get("stack"))]
+        require(not spilled, f"K7 / K6 at one row spill registers or use a stack frame: "
+                f"{spilled}")
+        spilled = [e["entry"] for e in summary["ptxas_stack"]
+                   if e.get("spill_stores") or e.get("stack")]
+        require(summary["ptxas_stack"] and not spilled,
+                f"K14 / K15 spill registers or use a stack frame (or no ptxas report): "
+                f"{spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

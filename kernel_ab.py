@@ -4,7 +4,7 @@
 elementwise chain) of two checkouts of zgml_tpu_torch on one card, in turns
 (A, B, B, A by default), each turn in its own process.
 
-    python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode]
+    python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode] [--rates]
 
 A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
 unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
@@ -22,8 +22,9 @@ decode kernels (decode_us, alone with --decode): K7 at Q4_0 in its four
 modes, TinyLlama-1.1B's f32 A phase over the bf16 and the int8 cache and
 Llama-2-7B's int8 A phase over both, at pos 0, 200 and 2047 of a 4-layer
 cache, K6d (Q4_0) and K6a (Q8_0) at TinyLlama-1.1B's FFN at M = 1, 8, 32
-and K6c at Llama-2-7B's at M = 1, 8, and K14 / K15 (bf16 operands) over
-TinyLlama-1.1B's 22 Q4_0 layers at pos 0 and 2047; K11 at Q4_0 and Q8_0
+and K6c at Llama-2-7B's at M = 1, 8, and K14, K15 and K15 with f32 operands
+over TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4 at pos
+0, 1, 200 and 2047 (the smoke's megacall cases); K11 at Q4_0 and Q8_0
 on M = 512 rows of g at the five TinyLlama-1.1B projections (wqkv, wo,
 w_gate_up, w_down, lm_head); K2 at Q4_0 and Q8_0 on a 128-row prefill chunk
 at those five projections and at Llama-2-7B's (wqkv, wo, w_gate_up, w_down,
@@ -36,8 +37,14 @@ With --gguf (e.g. the Llama-2-7B file chip_smoke.py writes under
 .bench_cache/) each turn also loads that model and times, on the host clock
 around a synchronized call, the prefill of a 1536-token prompt (seeded ids,
 128-row chunks) over the bf16 and the int8 KV cache: the median of 3 after
-one warm-up, in us like the kernels. Prints one JSON line per turn, then the
-median per case and side, with the card's name and power limit.
+one warm-up, in us like the kernels. With --rates each turn also loads the
+smoke's synthetic GGUFs (written under .bench_cache/ where missing) and
+times every path of chip_smoke.PATHS end to end as the smoke's tg32 does: a
+32-token decode_n after a 128-token prefill, on the host clock around
+synchronized calls, the paths there and back RATE_RUNS times after a
+warm-up round; the median per path, in host us a token. Prints one JSON
+line per turn, then the median per case and side, with the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -77,6 +84,44 @@ def prefill_us(torch, gguf: str) -> dict:
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+RATE_RUNS = 3     # --rates: timed rounds of the paths there and back in a turn
+
+
+def path_rates(torch, smoke) -> dict:
+    """Host us a token of each smoke path's tg32 (see the module's --rates)."""
+    import time
+
+    import numpy as np
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    dev = torch.device("cuda")
+    models = {m: smoke.load_model(torch, dev, *m) for m in dict.fromkeys(smoke.PATH_MODEL.values())}
+    tiny = models["tinyllama-1.1b", "q4_0"]
+    if not (tiny.enable_stacked_decode() and tiny.enable_tape_decode()):
+        raise RuntimeError("TinyLlama-1.1B Q4_0: the megacall views were refused")
+    vocab = min(m.cfg.vocab_size for m in models.values())
+    prompt = np.random.default_rng(smoke.SEED).integers(0, vocab, 128)
+    engines = {name: LlamaEngine(models[smoke.PATH_MODEL[name]], prefill_chunk=128,
+                                 cache_dtype=smoke.PATH_CACHE.get(name, "bf16"))
+               for name in smoke.PATHS}
+    runs = {name: [] for name in engines}
+    order = list(engines) + list(engines)[::-1]
+    for r in range(RATE_RUNS + 1):
+        for name in order:
+            smoke.set_path(name)
+            eng = engines[name]
+            eng.reset()
+            tok = torch.argmax(eng.prefill(prompt), dim=-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.decode_n(tok, 32)
+            torch.cuda.synchronize()
+            if r:
+                runs[name].append(time.perf_counter() - t0)
+    smoke.set_path("default")
+    return {f"tg32 {name} (host us a token)": statistics.median(v) / 32 * 1e6
+            for name, v in runs.items()}
 
 
 def weight_copies(torch, dev, g, kind, n, k, total=48_000_000):
@@ -147,33 +192,39 @@ def decode_us(torch, dev, g, time_ms) -> dict:
                 lambda p_=pr: fused_ffn_norm_cuda(x, gamma, *p_, 1e-5, a_i8) for pr in pairs],
                 50 if m == 1 else 10)[0]
         del pairs
-    # K14 and K15 (bf16 operands) over TinyLlama-1.1B's 22 Q4_0 layers
-    d, hq, hkv, hd, f = 2048, 32, 4, 64, 5632
-    layers = [{"attn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
-               "ffn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
-               "wqkv": copies_of("q4_0", (hq + 2 * hkv) * hd, d, 1)[0],
-               "wo": copies_of("q4_0", d, d, 1)[0],
-               "w_gate_up": copies_of("q4_0", 2 * f, d, 1)[0],
-               "w_down": copies_of("q4_0", d, f, 1)[0]} for _ in range(22)]
-    stack = StackedLayers(layers, hq, hkv, 1e-5)
-    tape = Tape(stack, ())
-    ck = torch.randn((22, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
-    cv = torch.randn((22, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
-    x = torch.randn((1, 1, d), device=dev, generator=g)
-    for p in (0, 2047):
-        cos, sin = refs.rope_cos_sin(torch.tensor([p], device=dev), hd)
-        pos = torch.tensor([p], dtype=torch.int32, device=dev)
-        out[f"K14 pos={p}"] = time_ms(
-            torch, [lambda: stacked_decode_cuda(x, stack, ck, cv, pos, cos, sin)], 20)[0]
-        out[f"K15 pos={p}"] = time_ms(
-            torch, [lambda: tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16=True)], 20)[0]
-    del layers, stack, tape, ck, cv
+    # K14, K15 and K15 with f32 operands (tape_f32) at the smoke's megacall
+    # cases: TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4
+    for tag, (n_layers, hq, hkv, hd, f) in (("", (22, 32, 4, 64, 5632)),
+                                            ("7B ", (4, 32, 32, 128, 11008))):
+        d = hq * hd
+        layers = [{"attn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
+                   "ffn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
+                   "wqkv": copies_of("q4_0", (hq + 2 * hkv) * hd, d, 1)[0],
+                   "wo": copies_of("q4_0", d, d, 1)[0],
+                   "w_gate_up": copies_of("q4_0", 2 * f, d, 1)[0],
+                   "w_down": copies_of("q4_0", d, f, 1)[0]} for _ in range(n_layers)]
+        stack = StackedLayers(layers, hq, hkv, 1e-5)
+        tape = Tape(stack, ())
+        ck = torch.randn((n_layers, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+        cv = torch.randn((n_layers, 1, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
+        x = torch.randn((1, 1, d), device=dev, generator=g)
+        for p in (0, 1, 200, 2047):
+            cos, sin = refs.rope_cos_sin(torch.tensor([p], device=dev), hd)
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+            out[f"K14 {tag}pos={p}"] = time_ms(
+                torch, [lambda: stacked_decode_cuda(x, stack, ck, cv, pos, cos, sin)], 20)[0]
+            for name, bf16 in (("K15", True), ("K15 f32", False)):
+                out[f"{name} {tag}pos={p}"] = time_ms(
+                    torch, [lambda: tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16=bf16)],
+                    20)[0]
+        del layers, stack, tape, ck, cv
     return out
 
 
-def one(root: str, gguf: str | None = None, decode_only: bool = False) -> dict:
+def one(root: str, gguf: str | None = None, decode_only: bool = False,
+        rates: bool = False) -> dict:
     """The timings of the checkout at `root`, in this process (with
-    decode_only, those of decode_us alone)."""
+    decode_only, those of decode_us alone; with rates, and path_rates')."""
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
     import zgml_tpu_torch
@@ -195,7 +246,8 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     if decode_only:
-        return {k: v * 1e3 for k, v in decode_us(torch, dev, g, time_ms).items()}
+        out = {k: v * 1e3 for k, v in decode_us(torch, dev, g, time_ms).items()}
+        return {**out, **path_rates(torch, smoke)} if rates else out
     out = {}
     for hq, hkv, hd, tag in ((32, 4, 64, ""), (32, 32, 128, "7B ")):
         kc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
@@ -277,14 +329,16 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False) -> dict:
     out = {k: v * 1e3 for k, v in out.items()}            # device us
     if gguf:
         out.update(prefill_us(torch, gguf))
+    if rates:
+        out.update(path_rates(torch, smoke))
     return out
 
 
 def main() -> int:
     gguf = sys.argv[sys.argv.index("--gguf") + 1] if "--gguf" in sys.argv else None
-    decode_only = "--decode" in sys.argv
+    decode_only, rates = "--decode" in sys.argv, "--rates" in sys.argv
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
-        print(json.dumps(one(sys.argv[2], gguf, decode_only)))
+        print(json.dumps(one(sys.argv[2], gguf, decode_only, rates)))
         return 0
     a, b = sys.argv[1], sys.argv[2]
     rounds = int(sys.argv[sys.argv.index("--rounds") + 1]) if "--rounds" in sys.argv else 1
@@ -294,7 +348,8 @@ def main() -> int:
     for side in [a, b, b, a] * rounds:
         proc = subprocess.run([sys.executable, __file__, "--one", side]
                               + (["--gguf", str(pathlib.Path(gguf).resolve())] if gguf else [])
-                              + (["--decode"] if decode_only else []),
+                              + (["--decode"] if decode_only else [])
+                              + (["--rates"] if rates else []),
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"{side}: {proc.stderr[-3000:]}")

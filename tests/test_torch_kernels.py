@@ -1104,3 +1104,77 @@ def test_stack_decode_dispatch_and_head_dims(cuda, monkeypatch):
     with pytest.raises(NotImplementedError, match="head_dim 288"):
         dispatch.stacked_decode(torch.ones((1, 1, 576), device=cuda), wide, ck2, ck2.clone(),
                                 pos.clone().fill_(1), cos2, sin2)
+
+
+STACK_CHAIN_CASES = [
+    (3, 32, 4, 64, 5632, 2048, 300),      # TinyLlama-1.1B widths, 3 chunks live
+    (2, 32, 32, 128, 11008, 512, 257),    # Llama-2-7B widths, S not a chunk multiple
+    (2, 8, 2, 64, 768, 64, 0)]            # pos 0: phase B empty
+
+
+@pytest.mark.parametrize("mode", ("stack", "tape_f32"))
+@pytest.mark.parametrize("n_layers,hq,hkv,hd,f,s,pos", STACK_CHAIN_CASES)
+def test_stack_decode_is_the_layer_chain_bit_for_bit(cuda, mode, n_layers, hq, hkv, hd, f, s,
+                                                     pos):
+    """K14 and tape_decode_f32 run K7's and K6d's arithmetic in their order:
+    every layer's k_cur / v_cur, the final x and the cache equal the
+    per-layer chain's bit for bit, and a second launch gives the same bits
+    (the KV heads' arrival counts are back at zero for every layer)."""
+    from zgml_tpu_torch.ops.stackkernel import layer_chain, stacked_decode_cuda
+    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda
+    rng = np.random.default_rng(pos + n_layers)
+    stack = _stack(rng, n_layers, hq, hkv, hd, f, cuda)
+    d = hq * hd
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    ck = torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cv = torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+
+    def run(kc, vc):
+        if mode == "stack":
+            return stacked_decode_cuda(x, stack, kc, vc, pos_t, cos, sin)
+        return tape_decode_cuda(x, Tape(stack, ()), kc, vc, pos_t, cos, sin, bf16=False)
+    ck1, cv1, ck2, cv2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    got, again = run(ck1, cv1), run(ck.clone(), cv.clone())
+    want = layer_chain(x, stack, ck2, cv2, pos_t, cos, sin)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a.reshape(b.shape), b) and torch.equal(a, c)
+    assert torch.equal(ck1, ck2) and torch.equal(cv1, cv2)
+
+
+@pytest.mark.parametrize("n_layers,hq,hkv,hd,f,s,pos", STACK_CHAIN_CASES)
+def test_tape_decode_rms_error_and_two_launches(cuda, n_layers, hq, hkv, hd, f, s, pos):
+    """K15 (bf16 operands): two launches give the same bits, its rms error
+    against float64 is at most 2x the plain version's, and it is nearer its
+    plain version than the f32 function (the per-layer chain) is: at most
+    half the chain's rms distance, so a K15 without its bf16 roundings of
+    the weights and operand rows fails."""
+    from zgml_tpu_torch.ops.stackkernel import layer_chain, stacked_decode_f64
+    from zgml_tpu_torch.ops.tapekernel import Tape, bf16_weight, tape_decode_cuda, tape_decode_ref
+    rng = np.random.default_rng(pos + 7 * n_layers)
+    tape = Tape(_stack(rng, n_layers, hq, hkv, hd, f, cuda), ())
+    d = hq * hd
+    x = torch.from_numpy(rng.standard_normal((1, 1, d)).astype(np.float32)).to(cuda)
+    ck = torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cv = torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=cuda), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda)
+    got = tape_decode_cuda(x, tape, ck.clone(), cv.clone(), pos_t, cos, sin)
+    again = tape_decode_cuda(x, tape, ck.clone(), cv.clone(), pos_t, cos, sin)
+    want = tape_decode_ref(x, tape, ck.clone(), cv.clone(), pos, cos, sin)
+    chain = layer_chain(x, tape.stack, ck.clone(), cv.clone(), pos_t, cos, sin)
+    exact = stacked_decode_f64(x, tape.stack, ck, cv, pos, cos, sin, bf16_weight)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    flat = [torch.cat([t.reshape(-1) for t in out]).double() for out in (got, want, chain)]
+
+    def rms(a, b):
+        return float(torch.sqrt(torch.mean((a - b) ** 2)))
+    assert rms(flat[0], exact) <= 2.0 * rms(flat[1], exact)
+    assert rms(flat[0], flat[1]) <= 0.5 * rms(flat[2], flat[1])

@@ -162,70 +162,6 @@ __device__ __forceinline__ void rows_f32(const uint8_t* const (&qs)[R],
   }
 }
 
-// bf16_rn(v) as a float: K15's rounding of an operand or a weight
-// (zgml_tpu/ops/tapekernel.py, `.astype(bf16)` and _deq_rows).
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// An operand as a fused kernel stages it: as it is, or (BF16, K15) rounded to bf16.
-template <bool BF16>
-__device__ __forceinline__ float op_value(float v) {
-  if constexpr (BF16) return round_bf16(v);
-  return v;
-}
-
-// R output rows of a warp-per-row GEMV against MR rows of x staged as
-// rows_f32 stages them (row m at xs + m * stride), on K15's weights: element
-// j of a block is bf16_rn(level_j * bf16_rn(d)), as zgml_tpu/ops/tapekernel.py
-// _deq_rows makes it with dt bf16 (the f32 product of a 4- or 8-bit level and
-// a bf16 is exact, so it rounds once). With x rounded to bf16 too, every
-// product is exact in f32 and only the order of the f32 sums differs from
-// the JAX dot. Returns each row's lane partial (the caller reduces).
-template <class F, int R, int MR>
-__device__ __forceinline__ void rows_bf16(const uint8_t* const (&qs)[R],
-                                          const __half* const (&d)[R], const float* xs,
-                                          int stride, int nblk, int lane, float (&acc)[R][MR]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int m = 0; m < MR; ++m) acc[r][m] = 0.f;
-  for (int b = lane; b < nblk; b += 32) {
-    uint32_t w[R][F::WORDS];
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      load_block<F>(qs[r], b, w[r]);
-      s[r] = round_bf16(__half2float(d[r][b]));
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float sum[MR];
-#pragma unroll
-      for (int m = 0; m < MR; ++m) sum[m] = 0.f;
-#pragma unroll
-      for (int t = 0; t < 32; ++t) {
-        const int j = F::elem(t);
-        const float v = round_bf16(F::level(w[r], j) * s[r]);
-#pragma unroll
-        for (int m = 0; m < MR; ++m) sum[m] = fmaf(v, xs[(size_t)m * stride + b * 33 + j], sum[m]);
-      }
-#pragma unroll
-      for (int m = 0; m < MR; ++m) acc[r][m] += sum[m];
-    }
-  }
-}
-
-// Stage n floats (n % 32 == 0) from global memory into shared memory as
-// [n/32][33], each through op_value<BF16>. Loads with __ldcg (L2), so data
-// written earlier in the same kernel by other blocks is seen after a grid
-// barrier.
-template <bool BF16 = false>
-__device__ __forceinline__ void stage_padded(const float* src, int n, float* dst) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    dst[(i >> 5) * 33 + (i & 31)] = op_value<BF16>(__ldcg(src + i));
-}
-
 // Sum of v over the block (all threads call it; red holds >= 32 floats).
 __device__ __forceinline__ float block_sum(float v, float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -236,30 +172,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   float t = 0.f;
   for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += red[w];
   return t;
-}
-
-// 1 / rms of x over d values (all threads call it; red holds >= 32 floats).
-// x is read with __ldcg: the whole-stack kernels (stack_decode.cu) norm rows
-// that other blocks wrote earlier in the same launch.
-__device__ __forceinline__ float rms_inv(const float* x, int d, float eps, float* red) {
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float v = __ldcg(x + i);
-    ss = fmaf(v, v, ss);
-  }
-  return 1.0f / sqrtf(block_sum(ss, red) / (float)d + eps);
-}
-
-// The fused kernels' rmsnorm prologue: dst = x * rsqrt(mean(x^2) + eps) * g,
-// each value through op_value<BF16>, staged as [d/32][33] floats; red is a
-// separate 32-float area.
-template <bool BF16 = false>
-__device__ __forceinline__ void stage_rmsnorm(const float* x, const float* g, int d, float eps,
-                                              float* dst, float* red) {
-  const float inv = rms_inv(x, d, eps, red);
-  for (int i = threadIdx.x; i < d; i += blockDim.x)
-    dst[(i >> 5) * 33 + (i & 31)] = op_value<BF16>(__ldcg(x + i) * inv * g[i]);
-  __syncthreads();
 }
 
 // ---- the int8 activation tier (K1, K5, and the i8a modes of K6 and K7) ----

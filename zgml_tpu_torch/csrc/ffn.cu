@@ -51,7 +51,7 @@
 // So the weights are read ceil(M / MR) times, not M times. Rows, warps and
 // the order of every sum are fixed: no float atomics, the result does not
 // change from run to run, and a row's sums run in the same order whatever MR.
-#include "weight_stream.cuh"
+#include "layer_phases.cuh"
 
 namespace {
 
@@ -84,17 +84,20 @@ __global__ void __launch_bounds__(ws::THREADS, 1) ffn_norm_kernel(FfnParams p, w
   if (threadIdx.x >= ws::CONSUMERS) {      // the producer warp: one thread copies
     if (threadIdx.x == ws::CONSUMERS) {
       if (copy_x) ws::produce_x(smem, xin, p.x, rows0 * p.D * 4, p.g, p.D * 4);
-      int n = 0;
+      int range[4], n = 0;
+      ws::block_ranges<2>(a.ph, range);
+      ws::Gate<2> gate;                    // w_down: `ahead` stages until act is staged
       for (int gi = 0; gi < groups; ++gi) {
-        ws::produce<F>(smem, a.ring, a.ph[0], n);
-        ws::produce<F>(smem, a.ring, a.ph[1], n, a.ring.ahead, gi);
+        ws::produce<F>(smem, a.ring, a.ph[0], range[0], range[1], n, gate, gi > 0);
+        if (gi == 0) gate.start(a.ph, range, a.ring.ahead);
+        ws::produce<F>(smem, a.ring, a.ph[1], range[2], range[3], n, gate, true);
       }
       ws::produce_tail(smem, a.ring, n);
     }
     return;
   }
-  ws::GridBarrier gb;
-  gb.start(p.bar);                         // before the staging: its read overlaps
+  ws::CountBarrier gb;
+  gb.start(p.bar + 2);
   float* red = ws::red_area(smem);
   float* act = reinterpret_cast<float*>(smem + a.ring.act_off);
   const int lane = threadIdx.x & 31;
@@ -160,8 +163,10 @@ __global__ void __launch_bounds__(ws::THREADS, 1) ffn_norm_kernel(FfnParams p, w
         ws::zero_words(reinterpret_cast<uint32_t*>(act + m * xa_row), xa_row);
       }
     }
-    ws::sync();
-    if (threadIdx.x == 0) ws::mbar_arrive(ws::go_bar(smem));   // w_down may stream in full
+    // w_down and the next group's gate|up may stream in full (the next
+    // group's gate|up held at `ahead` stages until its rows are staged was
+    // slower at M 8: PERF.md)
+    ws::release(smem, 2 * gi + 2);
     ws::consume<F, R>(smem, a.ring, a.ph[1], n, [&](const ws::StageView<F>& v, int i, int row) {
       int j[R], at[R];
       ws::item_rows<R>(v, i, j, at);

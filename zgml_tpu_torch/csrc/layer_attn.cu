@@ -74,7 +74,7 @@
 //      plus the residual.
 // With pos = 0 phase B is empty and att = v_cur. No float atomics: the
 // merge takes the chunks in their fixed order, whichever block runs it.
-#include "weight_stream.cuh"
+#include "layer_phases.cuh"
 
 namespace {
 
@@ -96,74 +96,6 @@ size_t attn_act_bytes(int d, int hq, int hkv, int items) {
   return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
 
-// Phase B and the combine between one pair of grid barriers: attn_phase_b's
-// items (KV head, 128-key chunk below pos) over the blocks; a block that
-// wrote its items' partials counts each on its head's word of `heads` (all
-// at once, one round trip), and the block that completes a head's count
-// merges its n_rep query heads (one warp each, merge_head, the chunks in
-// their fixed order) and sets the word back to 0. With no live chunk (pos 0)
-// block hk % grid merges head hk. With kv8 the consumers also quantize
-// k_cur, v_cur into cache row pos (phase B reads rows below pos only) and,
-// where asked, q into qq_out. smem: the phase's area, then `last`'s ints.
-template <int D, bool KV8>
-__device__ __forceinline__ void phase_b_merged(const LayerParams& p, float* smem,
-                                               unsigned int* heads) {
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int pos = __ldg(p.pos);
-  const int n_rep = p.hq / p.hkv;
-  const int n_live = (pos + DA_CHUNK - 1) / DA_CHUNK;
-  const size_t head_stride = (size_t)p.n_split * (D + 2);
-  if constexpr (KV8) {
-    const int gwarp = blockIdx.x * ws::WARPS + warp, nwarps = gridDim.x * ws::WARPS;
-    for (int t = gwarp; t < 2 * p.hkv; t += nwarps) {
-      const size_t at = (size_t)(t % p.hkv) * p.S + pos;
-      quantize_vec<D>(p.kv_cur + (size_t)t * D, static_cast<int8_t*>(t < p.hkv ? p.ck : p.cv) +
-                      at * D, (t < p.hkv ? p.cks : p.cvs) + at, lane);
-    }
-    if (p.qq_out != nullptr)
-      for (int h = gwarp; h < p.hq; h += nwarps)
-        quantize_vec<D>(p.q + (size_t)h * D, p.qq_out + (size_t)h * D, p.qs_out + h, lane);
-  }
-  if (n_live == 0) {
-    for (int hk = blockIdx.x; hk < p.hkv; hk += gridDim.x)
-      for (int r = warp; r < n_rep; r += ws::WARPS) merge_head<D>(p, hk * n_rep + r, 0, lane);
-    return;
-  }
-  int* last = reinterpret_cast<int*>(smem + decode_chunk_smem_bytes<D, KV8>(n_rep) / 4);
-  const int n_items = p.hkv * n_live;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int hk = item / n_live, split = item % n_live;
-    const int c0 = split * DA_CHUNK;
-    const size_t pos0 = (size_t)hk * p.S + c0;
-    decode_chunk_partial<D, ws::CONSUMERS, T, ws::Sync>(
-        p.q + (size_t)hk * n_rep * D, static_cast<const T*>(p.ck) + pos0 * D,
-        KV8 ? p.cks + pos0 : nullptr, static_cast<const T*>(p.cv) + pos0 * D,
-        KV8 ? p.cvs + pos0 : nullptr, min(DA_CHUNK, pos - c0), n_rep, p.scale,
-        p.part + ((size_t)hk * n_rep * p.n_split + split) * (D + 2), head_stride, smem);
-  }
-  // count this block's items on their heads, one thread an item (the
-  // partials above are the block's, joined by the Sync that ended each);
-  // last[k]: the head of the block's item k where this block completed its
-  // count, else -1
-  const int mine = blockIdx.x < n_items ? (n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  for (int k = threadIdx.x; k < mine; k += ws::CONSUMERS) {
-    const int hk = (blockIdx.x + k * gridDim.x) / n_live;
-    ws::fence_acq_rel();
-    const bool done = atomicAdd(heads + hk, 1u) == (unsigned)n_live - 1;
-    if (done) {
-      heads[hk] = 0u;
-      ws::fence_acq_rel();
-    }
-    last[k] = done ? hk : -1;
-  }
-  ws::sync();
-  for (int t = warp; t < mine * n_rep; t += ws::WARPS) {
-    const int hk = last[t / n_rep];
-    if (hk >= 0) merge_head<D>(p, hk * n_rep + t % n_rep, n_live, lane);
-  }
-}
-
 template <class F, int D, bool AI8, bool KV8>
 __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams p, ws::Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -174,15 +106,18 @@ __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams 
   if (threadIdx.x >= ws::CONSUMERS) {      // the producer warp: one thread copies
     if (threadIdx.x == ws::CONSUMERS) {
       if (copy_x) ws::produce_x(smem, xin, p.x, p.d * 4, p.g, p.d * 4);
-      int n = 0;
-      ws::produce<F>(smem, a.ring, a.ph[0], n);
-      ws::produce<F>(smem, a.ring, a.ph[1], n, a.ring.ahead, 0);
+      int range[4], n = 0;
+      ws::block_ranges<2>(a.ph, range);
+      ws::Gate<2> gate;                    // wo: `ahead` stages until att is staged
+      ws::produce<F>(smem, a.ring, a.ph[0], range[0], range[1], n, gate, false);
+      gate.start(a.ph, range, a.ring.ahead);
+      ws::produce<F>(smem, a.ring, a.ph[1], range[2], range[3], n, gate, true);
       ws::produce_tail(smem, a.ring, n);
     }
     return;
   }
-  ws::GridBarrier gb;
-  gb.start(p.bar);                         // before the staging: its read overlaps
+  ws::CountBarrier gb;
+  gb.start(p.bar + 2);
   float* red = ws::red_area(smem);
   float* act = reinterpret_cast<float*>(smem + a.ring.act_off);
   const int lane = threadIdx.x & 31;
@@ -251,8 +186,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams 
 
   // C: x_out = x + att @ Wo^T
   ws::stage_rows(p.att, p.hq * D, act);
-  ws::sync();
-  if (threadIdx.x == 0) ws::mbar_arrive(ws::go_bar(smem));   // wo may stream in full
+  ws::release(smem, 1);                    // wo may stream in full
   ws::consume<F, R>(smem, a.ring, a.ph[1], n, [&](const ws::StageView<F>& v, int i, int row) {
     int j[R], at[R];
     ws::item_rows<R>(v, i, j, at);

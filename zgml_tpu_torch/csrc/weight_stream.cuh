@@ -4,7 +4,8 @@
 // copies (TMA, cp.async.bulk ... mbarrier::complete_tx) into a ring of
 // shared-memory slots, each with a full and an empty mbarrier, from kernel
 // entry on, through every phase in order and across the grid barriers,
-// which only the consumers pass. The consumers norm (or quantize) the
+// which only the consumers pass, held by a Gate (at most `ahead` stages past
+// the last phase whose activations the consumers staged). The consumers norm (or quantize) the
 // activations into shared memory while the first slots land, then dot each
 // landed slot's rows (one warp an item of two rows) and release the slot.
 //
@@ -21,13 +22,14 @@
 // unsigned nibbles less 8 times the activation block's sum (the same integer).
 // No float atomics: two launches give the same bits.
 //
-// Written so that the whole-stack kernels (stack_decode.cu) can take these
-// phases too; they still run layer_phases.cuh's.
+// The whole-stack megacalls K14 / K15 (stack_decode.cu) stream a layer's four
+// weights through one ring for every layer, and K15 dots bf16 weights
+// (dot_bf16).
 #pragma once
 
 #include <atomic>
 
-#include "layer_phases.cuh"
+#include "decode_split.cuh"
 
 namespace ws {
 
@@ -35,8 +37,9 @@ constexpr int WARPS = 16;                    // consumer warps
 constexpr int CONSUMERS = WARPS * 32;
 constexpr int THREADS = CONSUMERS + 32;      // and the producer warp
 constexpr int MAX_STAGES = 16;               // mbarrier pairs in the header
-// header: full[MAX_STAGES] and empty[MAX_STAGES] mbarriers, x_bar and go_bar,
-// then WARPS reduction floats (ops/decode_plan.py HEADER_BYTES)
+// header: full[MAX_STAGES] and empty[MAX_STAGES] mbarriers, x_bar, the
+// gate's count, the megacalls' unit ranges, then WARPS reduction floats
+// (ops/decode_plan.py HEADER_BYTES)
 constexpr int HEADER_BYTES = 16 * MAX_STAGES + 128;
 constexpr int XPAD = 36;                     // floats a staged f32 32-block: float4 reads of 8
                                              // consecutive blocks hit 32 distinct banks
@@ -45,7 +48,6 @@ constexpr int XQ_BYTES = 4 * XQ_STRIDE + 8;  // and its scale and level sum
 constexpr int PLAN_HEADER = 8, PHASE_INTS = 6;
 constexpr int ITEM_ROWS = 2;                 // weight rows a warp dots at once (an item)
 
-static_assert(CONSUMERS == LK_THREADS, "phase B and the combine run on LK_THREADS threads");
 static_assert(HEADER_BYTES % 128 == 0, "the ring starts 128-byte aligned");
 
 // The consumers' barrier (named barrier 1; the producer warp never joins it).
@@ -60,44 +62,47 @@ __device__ __forceinline__ void fence_acq_rel() {
   asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
 }
 
-// grid_barrier (common.cuh: the same words, left at (0, generation)) among
-// the consumers of every block, one round trip shorter: thread 0 reads the
-// generation once, when the block starts (GridBarrier::start), and each
-// barrier adds one to it; arrivals are acquire-release atomics, the release
-// a release add that the others poll with acquire loads. The consumers'
-// writes before a barrier are seen by every block after it (read back with
-// __ldcg).
-struct GridBarrier {
-  unsigned int* bar;
-  unsigned int next;     // thread 0: the generation that ends the next barrier
+// The consumers' grid barrier, on three words (coop.barrier_words from word
+// 2): two arrival counts and an epoch. A launch counts its arrivals in
+// words[e & 1], e the epoch thread 0 reads when the block starts, and finds
+// that count at 0: an arrival is one release reduction (no round trip), and
+// a block passes once the count reaches its target (acquire loads). Once
+// every block has passed the launch's first barrier, and so has read e,
+// block 0 sets the epoch to e + 1 and zeroes the other count, which the
+// launch before used (launches on one stream run one after another): the
+// next launch finds its count at 0, and no block waits on an atomic as it
+// leaves. The consumers' writes before a barrier are seen by every block
+// after it (read back with __ldcg).
+struct CountBarrier {
+  unsigned int* words;
+  unsigned int epoch;    // thread 0: the launch's epoch
+  unsigned int target;   // thread 0: the count that ends the next barrier
 
-  __device__ __forceinline__ void start(unsigned int* words) {
-    bar = words;
-    if (threadIdx.x == 0) {
-      asm volatile("ld.relaxed.gpu.u32 %0, [%1];\n" : "=r"(next) : "l"(bar + 1) : "memory");
-      ++next;
-    }
+  __device__ __forceinline__ void start(unsigned int* w) {
+    words = w;
+    target = 0;
+    if (threadIdx.x == 0)                  // its latency overlaps the first phase
+      asm volatile("ld.relaxed.gpu.u32 %0, [%1];\n" : "=r"(epoch) : "l"(w + 2) : "memory");
   }
 
   __device__ __forceinline__ void wait() {
     sync();
     if (threadIdx.x == 0) {
-      unsigned int arrived;
-      asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;\n"
-                   : "=r"(arrived) : "l"(bar) : "memory");
-      if (arrived == gridDim.x - 1) {
-        asm volatile("st.relaxed.gpu.u32 [%0], 0;\n" ::"l"(bar) : "memory");
-        asm volatile("red.release.gpu.add.u32 [%0], 1;\n" ::"l"(bar + 1) : "memory");
-      } else {
-        unsigned int gen;
-        for (;;) {
-          asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(gen) : "l"(bar + 1)
-                       : "memory");
-          if ((int)(gen - next) >= 0) break;
-          __nanosleep(32);
-        }
+      unsigned int* count = words + (epoch & 1);
+      target += gridDim.x;
+      asm volatile("red.release.gpu.add.u32 [%0], 1;\n" ::"l"(count) : "memory");
+      for (;;) {
+        unsigned int c;
+        asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(c) : "l"(count) : "memory");
+        if ((int)(c - target) >= 0) break;
+        __nanosleep(32);
       }
-      ++next;
+      if (blockIdx.x == 0 && target == gridDim.x) {   // past the first barrier
+        asm volatile("st.relaxed.gpu.u32 [%0], 0;\n" ::"l"(words + ((epoch + 1) & 1))
+                     : "memory");
+        asm volatile("st.relaxed.gpu.u32 [%0], %1;\n" ::"l"(words + 2), "r"(epoch + 1)
+                     : "memory");
+      }
     }
     sync();
   }
@@ -153,10 +158,9 @@ struct Phase {
   int k, segs, seg_off, unit_rows, group_units, group_rows, unit_max;
 };
 
-// ahead: stages of the second weight the producer copies before the
-// consumers have passed the grid barrier that precedes it and staged its
-// activations (the rest waits for go_bar): loads and atomics an SM issues
-// queue behind the copies it has in flight.
+// ahead: stages the producer may copy past the last phase whose
+// activations the consumers staged (Gate): loads, atomics and polls an SM
+// issues queue behind the copies it has in flight.
 struct Ring {
   int stages, slot_bytes, act_off, ahead;
 };
@@ -203,6 +207,18 @@ __device__ __forceinline__ int unit_row(const Phase& ph, int u) {
   return (u / ph.group_units) * ph.group_rows + (u % ph.group_units) * ph.unit_rows;
 }
 
+// The stages of units [u0, u1) of `ph` (stage_units' cut), a group at a
+// time.
+__device__ __forceinline__ int stage_count(const Phase& ph, int u0, int u1) {
+  int c = 0;
+  for (int u = u0; u < u1;) {
+    const int end = min(u1, (u / ph.group_units + 1) * ph.group_units);
+    c += (end - u + ph.unit_max - 1) / ph.unit_max;
+    u = end;
+  }
+  return c;
+}
+
 __device__ __forceinline__ uint64_t* full_bar(uint8_t* smem, int s) {
   return reinterpret_cast<uint64_t*>(smem) + s;
 }
@@ -212,21 +228,25 @@ __device__ __forceinline__ uint64_t* empty_bar(uint8_t* smem, int s) {
 __device__ __forceinline__ uint64_t* x_bar(uint8_t* smem) {
   return reinterpret_cast<uint64_t*>(smem) + 2 * MAX_STAGES;
 }
-// arrived by the consumers once they have passed the grid barrier before a
-// launch's second weight and staged its activations (once a row group)
-__device__ __forceinline__ uint64_t* go_bar(uint8_t* smem) {
-  return reinterpret_cast<uint64_t*>(smem) + 2 * MAX_STAGES + 1;
+// the count of released phases (Gate), written by consumer thread 0
+__device__ __forceinline__ volatile unsigned* go_count(uint8_t* smem) {
+  return reinterpret_cast<volatile unsigned*>(smem + 16 * MAX_STAGES + 16);
+}
+// the megacalls' unit ranges of this block, [u0, u1) per phase kind (at most 4)
+__device__ __forceinline__ int* ranges(uint8_t* smem) {
+  return reinterpret_cast<int*>(smem + 16 * MAX_STAGES + 32);
 }
 __device__ __forceinline__ float* red_area(uint8_t* smem) {
   return reinterpret_cast<float*>(smem + 16 * MAX_STAGES + 64);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // All threads: thread 0 sets up the ring's barriers (full: the producer's
-// one arrival and its bytes; empty: one arrival a consumer warp).
+// one arrival and its bytes; empty: one arrival a consumer warp) and the
+// gate's count (1: the first phase needs no staging).
 __device__ __forceinline__ void ring_init(uint8_t* smem, const Ring& r) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < r.stages; ++s) {
@@ -234,23 +254,78 @@ __device__ __forceinline__ void ring_init(uint8_t* smem, const Ring& r) {
       mbar_init(empty_bar(smem, s), WARPS);
     }
     mbar_init(x_bar(smem), 1);
-    mbar_init(go_bar(smem), 1);
+    *go_count(smem) = 1;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
-// The producer (one thread): copy this block's stages of `ph`, stage n of
-// the launch into slot n % stages; after `ahead` of them (< 0: never) wait
-// for phase `go` of go_bar.
-template <class F>
-__device__ __forceinline__ void produce(uint8_t* smem, const Ring& r, const Phase& ph, int& n,
-                                        int ahead = -1, int go = 0) {
-  const int u1 = __ldg(ph.bounds + blockIdx.x + 1);
+// The producer's gate. `go` counts the phases whose activations the
+// consumers have staged (1 at entry: the first phase needs none; release);
+// phase j of the launch is phase kind j % KINDS of round j / KINDS (a layer
+// of the megacalls, a row group of K6, K7's one), and this block runs cnt[k]
+// stages of kind k a round. Stage n of the stream may be copied once n <
+// end(g - 1) + ahead, g the count, end(j) the stages of phases 0 .. j: at
+// most `ahead` stages are in flight past the last phase the consumers
+// staged, whatever the phases' lengths (loads, atomics and polls an SM
+// issues queue behind its bulk copies in flight).
+template <int KINDS>
+struct Gate {
+  int cnt[KINDS];
+  int ahead, seen, limit;
+
+  // the block's unit range of kind k is [range[2k], range[2k + 1])
+  __device__ __forceinline__ void start(const Phase* ph, const int* range, int ahead_) {
+#pragma unroll
+    for (int k = 0; k < KINDS; ++k) cnt[k] = stage_count(ph[k], range[2 * k], range[2 * k + 1]);
+    ahead = ahead_;
+    seen = 1;
+    limit = end(0) + ahead;
+  }
+  __device__ __forceinline__ int end(int j) const {
+    const int k = j % KINDS;
+    int round = 0, part = 0;
+#pragma unroll
+    for (int i = 0; i < KINDS; ++i) {    // constant indices: cnt stays in registers
+      round += cnt[i];
+      if (i <= k) part += cnt[i];
+    }
+    return (j / KINDS) * round + part;
+  }
+  __device__ __forceinline__ void wait(const volatile unsigned* go, int n) {
+    while (n >= limit) {
+      const int g = (int)*go;
+      if (g != seen) {
+        seen = g;
+        limit = end(g - 1) + ahead;
+      } else {
+        __nanosleep(64);
+      }
+    }
+  }
+};
+
+// The consumers (all of them) release phases 0 .. j, as a rule once they
+// have staged phase j's activations: the producer may run `ahead` stages
+// past phase j (K6 releases the next row group's gate|up with w_down).
+__device__ __forceinline__ void release(uint8_t* smem, int j) {
+  sync();
+  if (threadIdx.x == 0) *go_count(smem) = (unsigned)j + 1;
+}
+
+// The producer (one thread): copy the stages of units [u0, u1) of `ph`,
+// stage n of the launch into slot n % stages, each once the gate lets it
+// (gated false: the launch's first phase, which waits for no staging; the
+// producer starts the gate after it, so counting its stages delays no
+// copy). The gate passes by reference: through a pointer it would live in
+// local memory.
+template <class F, int KINDS>
+__device__ __forceinline__ void produce(uint8_t* smem, const Ring& r, const Phase& ph, int u0,
+                                        int u1, int& n, Gate<KINDS>& gate, bool gated) {
   const size_t rq = (size_t)ph.k / 32 * F::BYTES, rd = (size_t)ph.k / 16;
-  int issued = 0;
-  for (int u = __ldg(ph.bounds + blockIdx.x); u < u1; ++issued) {
-    if (issued == ahead) mbar_wait(go_bar(smem), go & 1);
+  const volatile unsigned* go = go_count(smem);
+  for (int u = u0; u < u1;) {
+    if (gated) gate.wait(go, n);
     const int c = stage_units(ph, u, u1), row = unit_row(ph, u), rows = c * ph.unit_rows;
     const int slot = n % r.stages;
     mbar_wait(empty_bar(smem, slot), ((n / r.stages) & 1) ^ 1);
@@ -265,6 +340,17 @@ __device__ __forceinline__ void produce(uint8_t* smem, const Ring& r, const Phas
     }
     ++n;
     u += c;
+  }
+}
+
+// This block's unit ranges of the launch's phases, [u0, u1) for each, from
+// the plan's bounds.
+template <int KINDS>
+__device__ __forceinline__ void block_ranges(const Phase* ph, int* range) {
+#pragma unroll
+  for (int k = 0; k < KINDS; ++k) {
+    range[2 * k] = __ldg(ph[k].bounds + blockIdx.x);
+    range[2 * k + 1] = __ldg(ph[k].bounds + blockIdx.x + 1);
   }
 }
 
@@ -303,17 +389,16 @@ struct StageView {
   }
 };
 
-// The consumers: for each of this block's stages of `ph`, wait for it to
+// The consumers: for each stage of units [u0, u1) of `ph`, wait for it to
 // land, run item(view, i, row) for the stage's items of R rows (i: the item
 // in the stage, row: the stage's first row), dealt round robin over the
 // warps by their index in the phase, and release the slot.
 template <class F, int R, class Item>
-__device__ __forceinline__ void consume(uint8_t* smem, const Ring& r, const Phase& ph, int& n,
-                                        Item&& item) {
+__device__ __forceinline__ void consume_range(uint8_t* smem, const Ring& r, const Phase& ph,
+                                              int u0, int u1, int& n, Item&& item) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int u1 = __ldg(ph.bounds + blockIdx.x + 1);
   int t0 = 0;
-  for (int u = __ldg(ph.bounds + blockIdx.x); u < u1;) {
+  for (int u = u0; u < u1;) {
     const int c = stage_units(ph, u, u1), rows = c * ph.unit_rows;
     const int slot = n % r.stages;
     const int items = ph.segs * rows / R;
@@ -328,6 +413,14 @@ __device__ __forceinline__ void consume(uint8_t* smem, const Ring& r, const Phas
     ++n;
     u += c;
   }
+}
+
+// The same over this block's range of `ph`.
+template <class F, int R, class Item>
+__device__ __forceinline__ void consume(uint8_t* smem, const Ring& r, const Phase& ph, int& n,
+                                        Item&& item) {
+  consume_range<F, R>(smem, r, ph, __ldg(ph.bounds + blockIdx.x),
+                      __ldg(ph.bounds + blockIdx.x + 1), n, item);
 }
 
 // ---- activations ---------------------------------------------------------------
@@ -345,8 +438,9 @@ __device__ __forceinline__ float consumer_sum(float v, float* red) {
   return t;
 }
 
-// rms_inv over the consumers (the same order as rms_inv on 512 threads); x
-// in shared or global memory (not written in the launch).
+// 1 / rms of x over d values, summed by the consumers (thread i takes x[i],
+// x[i + CONSUMERS], ...; then consumer_sum); x in shared or global memory
+// (not written in the launch).
 __device__ __forceinline__ float consumer_rms_inv(const float* x, int d, float eps, float* red) {
   float ss = 0.f;
   for (int i = threadIdx.x; i < d; i += CONSUMERS) {
@@ -356,17 +450,39 @@ __device__ __forceinline__ float consumer_rms_inv(const float* x, int d, float e
   return 1.0f / sqrtf(consumer_sum(ss, red) / (float)d + eps);
 }
 
-// dst[b * XPAD + j] = x[32 b + j] * inv * g[32 b + j] (stage_rmsnorm's value).
+// bf16_rn(v) as a float: K15's rounding of an operand row
+// (zgml_tpu/ops/tapekernel.py, `.astype(bf16)`).
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// dst[b * XPAD + j] = x[32 b + j] * inv * g[32 b + j], with BF16 (K15)
+// rounded to bf16.
+template <bool BF16 = false>
 __device__ __forceinline__ void stage_norm(const float* x, const float* g, int d, float eps,
                                            float* dst, float* red) {
   const float inv = consumer_rms_inv(x, d, eps, red);
-  for (int i = threadIdx.x; i < d; i += CONSUMERS)
-    dst[(i >> 5) * XPAD + (i & 31)] = x[i] * inv * g[i];
+  for (int i = threadIdx.x; i < d; i += CONSUMERS) {
+    const float v = x[i] * inv * g[i];
+    dst[(i >> 5) * XPAD + (i & 31)] = BF16 ? round_bf16(v) : v;
+  }
 }
 
-// dst[b * XPAD + j] = src[32 b + j], read with __ldcg (written in this launch).
+// dst[b * XPAD + j] = src[32 b + j], read with __ldcg (written in this launch),
+// with BF16 rounded to bf16.
+template <bool BF16 = false>
 __device__ __forceinline__ void stage_rows(const float* src, int n, float* dst) {
-  for (int i = threadIdx.x; i < n; i += CONSUMERS) dst[(i >> 5) * XPAD + (i & 31)] = __ldcg(src + i);
+  for (int i = threadIdx.x; i < n; i += CONSUMERS) {
+    const float v = __ldcg(src + i);
+    dst[(i >> 5) * XPAD + (i & 31)] = BF16 ? round_bf16(v) : v;
+  }
+}
+
+// dst[i] = src[i] for n floats (n % 4 == 0, both 16-byte aligned), read with
+// __ldcg (written in this launch).
+__device__ __forceinline__ void copy_row(const float* src, int n, float* dst) {
+  for (int i = threadIdx.x; i < n / 4; i += CONSUMERS)
+    reinterpret_cast<float4*>(dst)[i] = __ldcg(reinterpret_cast<const float4*>(src) + i);
 }
 
 // The int8 activations of a normed row, each 32-block quantized by
@@ -512,6 +628,57 @@ __device__ __forceinline__ void dot_f32(const StageView<F>& v, const int (&j)[R]
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int m = 0; m < MR; ++m) acc[r][m] = fmaf(sum[r][m], sc[r], acc[r][m]);
+  }
+}
+
+// K15's dot: rows j[0..R) of a landed Q4_0 stage against one staged row of
+// bf16-rounded floats (xs, [nblk][XPAD]), on the weights bf16_rn(level *
+// bf16_rn(d)) (zgml_tpu/ops/tapekernel.py _deq_rows): a level pair becomes
+// bf16x2 by the exponent trick (0x4300 | n is 128 + n, exact), less 136
+// (exact), times the bf16x2 scale (one rounding, so each weight is
+// tapekernel.bf16_weight's bit for bit), then widened by a shift. Every
+// product is exact in f32. Lane l takes blocks l, l + 32, ...; a block's 32
+// products are summed from 0 by fma in pair order (word q = 0..3, then the
+// nibble pairs at shifts 0, 4, 8, 12: elements 16h + 4q + k and 16h + 4q + k
+// + 2 with k = shift / 8, h = shift / 4 % 2), and added to the lane's sum
+// (the caller reduces over the warp).
+template <int R>
+__device__ __forceinline__ void dot_bf16(const StageView<FmtQ4_0>& v, const int (&j)[R],
+                                         const float* xs, int lane, float (&acc)[R]) {
+  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+  for (int b = lane; b < v.nblk; b += 32) {
+    uint32_t w[R][4];
+    __nv_bfloat162 sc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      smem_block<FmtQ4_0>(v.qs(j[r]), b, w[r]);
+      sc[r] = __bfloat162bfloat162(__float2bfloat16_rn(__half2float(v.d(j[r])[b])));
+    }
+    const float* xb = xs + b * XPAD;
+    float sum[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) sum[r] = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(xb + 4 * q);
+      const float4 c = *reinterpret_cast<const float4*>(xb + 16 + 4 * q);
+      const float x8[8] = {a.x, a.z, c.x, c.z, a.y, a.w, c.y, c.w};
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t lv = ((w[r][q] >> (4 * s)) & 0x000F000Fu) | 0x43004300u;
+          const __nv_bfloat162 wv =
+              __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lv), bias), sc[r]);
+          const uint32_t u = *reinterpret_cast<const uint32_t*>(&wv);
+          sum[r] = fmaf(__uint_as_float(u << 16), x8[2 * s], sum[r]);
+          sum[r] = fmaf(__uint_as_float(u & 0xFFFF0000u), x8[2 * s + 1], sum[r]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] += sum[r];
   }
 }
 

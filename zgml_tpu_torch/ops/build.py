@@ -69,7 +69,7 @@ _SIGNATURES = {
     "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     "zgml_fused_chain": (_P, _P, _LL, _P, _I, _P),
     "zgml_fused_chain_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
-    "zgml_stack_decode": (_I, *(_P,) * 16, *(_I,) * 7, _F, _F, _P),
+    "zgml_stack_decode": (_I, *(_P,) * 17, *(_I,) * 7, _F, _F, _IP, _P, _I, _P),
 }
 
 

@@ -1,11 +1,14 @@
 """Workspace of the cooperative kernels (K6 csrc/ffn.cu, K7 csrc/layer_attn.cu,
 K14 / K15 csrc/stack_decode.cu).
 
-Their grid barrier (csrc/common.cuh grid_barrier) spins on two uint32 words
-that start at 0 and that every launch leaves at (0, generation). Launches on
-one stream run one after another, so they can share the words; launches on
-two streams could run at once and must not. The words are therefore kept per
-(device, stream), allocated zeroed on first use.
+K6b's grid barrier (csrc/common.cuh grid_barrier) spins on two uint32 words
+that start at 0 and that every launch leaves at (0, generation); the
+weight-streaming kernels' (csrc/weight_stream.cuh CountBarrier: K6, K7, K14,
+K15) takes the next three, two arrival counts and an epoch, which start at
+0 and which each launch leaves ready for the next one on its stream. Launches on one stream run one
+after another, so they can share the words; launches on two streams could
+run at once and must not. The words are therefore kept per (device, stream),
+allocated zeroed on first use.
 """
 from __future__ import annotations
 
@@ -18,14 +21,14 @@ _words: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def barrier_words(device: torch.device) -> torch.Tensor:
-    """Two barrier words (int32 [2]) for a launch on the current stream of
-    `device`."""
+    """The barrier words (int32 [8]: grid_barrier's two, CountBarrier's three)
+    for a launch on the current stream of `device`."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     key = (idx, torch.cuda.current_stream(idx).cuda_stream)
     with _lock:
         ws = _words.get(key)
         if ws is None:
-            ws = torch.zeros(2, dtype=torch.int32, device=torch.device("cuda", idx))
+            ws = torch.zeros(8, dtype=torch.int32, device=torch.device("cuda", idx))
             _words[key] = ws
     return ws
 
@@ -36,7 +39,8 @@ _counters: dict[tuple[int, int], torch.Tensor] = {}
 def counter_words(device: torch.device, n: int) -> torch.Tensor:
     """At least n zeroed uint32 words (int32) for a launch on the current
     stream of `device` that counts arrivals in them and leaves them zeroed
-    (K7: one a KV head), kept per (device, stream) as the barrier words."""
+    (K7 and the megacalls: one a KV head), kept per (device, stream) as the
+    barrier words."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     key = (idx, torch.cuda.current_stream(idx).cuda_stream)
     with _lock:

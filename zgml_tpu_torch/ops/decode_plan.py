@@ -34,14 +34,15 @@ from zgml_tpu_torch.quant.packed import QS_BLOCK_BYTES
 
 SMEM_LIMIT = 232_448       # dynamic shared memory one block of the H100 may use
 MAX_STAGES = 16            # ws::MAX_STAGES: mbarrier pairs in the header
-HEADER_BYTES = 384         # ws::HEADER_BYTES: 2 * MAX_STAGES + 2 mbarriers, 16 reduction floats
+HEADER_BYTES = 384         # ws::HEADER_BYTES: 2 * MAX_STAGES + 1 mbarriers, the gate's count,
+                          # the megacalls' unit ranges, 16 reduction floats
 STAGE_BYTES = 32 * 1024    # default slot size (a larger unit takes a larger slot)
 SLOT_ALIGN = 128
 XPAD = 36                  # floats per staged f32 32-block (ws::XPAD): conflict-free float4s
 XQ_BYTES = 56              # bytes per staged int8 32-block: 48 of levels, a scale, a sum
 DA_CHUNK = 128             # csrc/decode_split.cuh: keys per phase-B chunk
 PLAN_HEADER = 8            # ints before the phases in the host array
-AHEAD_BYTES = 32 * 1024    # bytes of the second weight copied before its grid barrier
+AHEAD_BYTES = 32 * 1024    # bytes copied past the last phase whose activations are staged
 PHASE_INTS = 6             # segs, seg_off, unit_rows, group_units, group_rows, unit_max
 
 
@@ -68,7 +69,7 @@ class StreamPlan(NamedTuple):
     act_bytes: int
     smem_bytes: int
     mr: int                     # K6's rows per group (1 for K7)
-    ahead: int                  # stages of phases[1] copied before the barrier ahead of it
+    ahead: int                  # stages copied past the last phase whose rows are staged
     phases: tuple[Phase, ...]   # K7: (A, C); K6: (gate|up, down)
 
 
@@ -126,8 +127,8 @@ def _slot(units_bytes: list[int], stage_bytes: int) -> int:
 
 
 def _ahead(slot: int) -> int:
-    """Stages of the second weight the producer copies before the consumers
-    pass the grid barrier ahead of it: AHEAD_BYTES' worth, at least one."""
+    """Stages the producer copies past the last phase whose activations the
+    consumers staged (ws::Gate): AHEAD_BYTES' worth, at least one."""
     return max(1, AHEAD_BYTES // slot)
 
 
@@ -222,6 +223,61 @@ def ffn_plan(m: int, d: int, f: int, kind: str, a_i8: bool, sm_count: int,
                                   mr, _ahead(slot), phases(slot))
     raise ValueError(f"fused_ffn_norm: D {d}, F {f} at {kind} leave no room for a {slot}-byte "
                      f"stage beside one row's activations")
+
+
+TABLE_SLOTS = 10          # csrc/stack_decode.cu T_SLOTS: int64 pointers a layer
+STACK_AHEAD_BYTES = 64 * 1024   # the megacalls' AHEAD_BYTES (32-128 KB measured: PERF.md)
+
+
+def stack_act_bytes(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s: int,
+                    grid: int) -> int:
+    """The megacalls' activation area (csrc/stack_decode.cu stack_act_bytes):
+    the layers' pointer table (as copied, rounded up to 128 bytes), one raw
+    row of d floats (the layer's input x through phase C, then x2 through
+    down), then the phases' area: A's normed x with layer 0's gain as copied
+    behind it, B's chunk and an int for each of a block's items, C's staged
+    attention, gate|up's normed x2, down's staged SwiGLU row."""
+    table = -(-n_layers * TABLE_SLOTS * 8 // SLOT_ALIGN) * SLOT_ALIGN
+    row = d // 32 * XPAD * 4
+    items = hkv * -(-s // DA_CHUNK)
+    b = decode_chunk_smem_bytes(hd, False, hq // hkv) + 4 * -(-items // grid)
+    return table + d * 4 + max(row + d * 4, b, hq * hd // 32 * XPAD * 4, f // 32 * XPAD * 4)
+
+
+def stack_plan(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s: int,
+               sm_count: int) -> StreamPlan:
+    """The whole-stack megacalls' plan (K14 / K15, csrc/stack_decode.cu): one
+    ring through which a layer's four weights stream in order, K7's two
+    phases (wqkv in RoPE-pair runs of one head, wo in runs of rows) then
+    K6d's at one row (w_gate_up in (gate row, up row) runs, w_down in runs of
+    rows), the same for every layer (the JAX rule: every layer has the same
+    widths). `ahead` stages may be in flight past the phase whose activations
+    the consumers staged last. Raises NotImplementedError where no slot fits
+    beside the activations."""
+    half = hd // 2
+    grid = max(1, sm_count)
+    ga = math.lcm(align_rows(d), ITEM_ROWS // 2)     # pairs a unit: A's and gate|up's
+    gc = math.lcm(align_rows(hq * hd), ITEM_ROWS)
+    gd = math.lcm(align_rows(f), ITEM_ROWS)
+    units_a, units_c = (hq + 2 * hkv) * half // ga, d // gc
+
+    def phases(slot):
+        return (_phase(d, "q4_0", 2, half, ga, half // ga, hd, units_a, grid, slot),
+                _phase(hq * hd, "q4_0", 1, 0, gc, units_c, 0, units_c, grid, slot),
+                _phase(d, "q4_0", 2, f, ga, f // ga, 0, f // ga, grid, slot),
+                _phase(f, "q4_0", 1, 0, gd, d // gd, 0, d // gd, grid, slot))
+    act = stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, grid)
+    slot = _slot([2 * ga * row_bytes(d, "q4_0"), gc * row_bytes(hq * hd, "q4_0"),
+                  gd * row_bytes(f, "q4_0")], STAGE_BYTES)
+    stages = _ring(phases, act, slot, n_layers)
+    if stages < 2:
+        raise NotImplementedError(
+            f"stack_decode: d {d}, heads {hq}/{hkv} x {hd}, d_ff {f}, {n_layers} layers, "
+            f"S {s} leave no room for two {slot}-byte stages beside {act} bytes of "
+            f"activations")
+    ahead = max(1, min(stages - 1, STACK_AHEAD_BYTES // slot))
+    return StreamPlan(grid, stages, slot, act, HEADER_BYTES + stages * slot + act, 1, ahead,
+                      phases(slot))
 
 
 def host_ints(plan: StreamPlan) -> list[int]:

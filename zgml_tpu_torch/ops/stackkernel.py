@@ -34,8 +34,8 @@ from __future__ import annotations
 import torch
 
 from zgml_tpu_torch import config
-from zgml_tpu_torch.ops import build, coop, ffn, refs
-from zgml_tpu_torch.ops.layerkernel import HEAD_DIMS, attn_block_ref
+from zgml_tpu_torch.ops import build, coop, decode_plan, ffn, refs
+from zgml_tpu_torch.ops.layerkernel import HEAD_DIMS, attn_block_cuda, attn_block_ref
 from zgml_tpu_torch.quant.blocks import QK
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
@@ -60,11 +60,10 @@ class StackedLayers:
         self.tensors = [[ly[key] if plane is None else getattr(ly[key], plane)
                          for key, plane in TABLE] for ly in self.layers]
         dev = self.tensors[0][0].device
-        planes = [t for row in self.tensors for (_, plane), t in zip(TABLE, row) if plane]
         if dev.type == "cuda" and not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-                                          for t in planes):
-            raise ValueError("StackedLayers: the weights' planes must be contiguous and "
-                             "16-byte aligned")
+                                          for row in self.tensors for t in row):
+            raise ValueError("StackedLayers: the norms and the weights' planes must be "
+                             "contiguous and 16-byte aligned (bulk copies)")
         self.table = torch.tensor([[t.data_ptr() for t in row] for row in self.tensors],
                                   dtype=torch.int64, device=dev)
 
@@ -122,11 +121,72 @@ def stacked_decode_ref(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
     return x, torch.stack(ks), torch.stack(vs)
 
 
+def layer_chain(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Tensor,
+                pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """The per-layer chain K14 replaces, on the card: K7 (f32 A phase, bf16
+    cache) then K6d at one row, for every layer. Same contract as
+    stacked_decode_cuda; K14 and tape_decode_f32 give its bits."""
+    hkv = stack.n_kv_heads
+    ks, vs = [], []
+    for li, ly in enumerate(stack.layers):
+        x, k, v = attn_block_cuda(x, ly["attn_norm"], ly["wqkv"], ly["wo"], ck, cv, li, pos,
+                                  cos, sin, stack.n_heads, hkv, stack.eps, False)
+        x = ffn.fused_ffn_norm_cuda(x, ly["ffn_norm"], ly["w_gate_up"], ly["w_down"],
+                                    stack.eps, False)
+        ks.append(k.reshape(hkv, -1))
+        vs.append(v.reshape(hkv, -1))
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def stacked_decode_f64(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
+                       cv: torch.Tensor, pos: int, cos: torch.Tensor, sin: torch.Tensor,
+                       weight=PackedWeight.dequant) -> torch.Tensor:
+    """The megacalls' function in float64 (ck / cv as before the call: rows
+    below pos are read, none is written): every projection on weight(W)
+    (the exact dequantized weight, or tapekernel.bf16_weight for K15's);
+    norms, RoPE, attention and residuals in float64. K15's operand rows stay
+    unrounded: rounded from their float64 values they flip other elements
+    than an f32 evaluation rounds, and one flip outweighs every f32 sum.
+    Returns (x_out, k_cur, v_cur) flattened into one vector, the yardstick
+    of the rms checks."""
+    hq, hkv = stack.n_heads, stack.n_kv_heads
+    hd = cos.numel() * 2
+    c, s = cos.double().reshape(-1), sin.double().reshape(-1)
+
+    def mm(a, w):
+        return a @ weight(w).double().T
+
+    def norm(a, gam):
+        return a * torch.rsqrt((a * a).mean() + stack.eps) * gam.double()
+
+    def rope(t):
+        t1, t2 = t[..., :hd // 2], t[..., hd // 2:]
+        return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s], dim=-1)
+    nq, nkv, f = hq * hd, hkv * hd, stack.layers[0]["w_down"].k
+    x = x.double().reshape(-1)
+    ks, vs = [], []
+    for li, ly in enumerate(stack.layers):
+        qkv = mm(norm(x, ly["attn_norm"]), ly["wqkv"])
+        q = rope(qkv[:nq].reshape(hkv, hq // hkv, hd))
+        k, v = rope(qkv[nq:nq + nkv].reshape(hkv, hd)), qkv[nq + nkv:].reshape(hkv, hd)
+        keys = torch.cat([ck[li, 0, :, :pos].double(), k[:, None]], dim=1)
+        vals = torch.cat([cv[li, 0, :, :pos].double(), v[:, None]], dim=1)
+        p = torch.softmax(torch.einsum("grd,gsd->grs", q, keys) / hd ** 0.5, dim=-1)
+        x2 = x + mm(torch.einsum("grs,gsd->grd", p, vals).reshape(-1), ly["wo"])
+        gu = mm(norm(x2, ly["ffn_norm"]), ly["w_gate_up"])
+        x = x2 + mm(gu[:f] * torch.sigmoid(gu[:f]) * gu[f:], ly["w_down"])
+        ks.append(k)
+        vs.append(v)
+    return torch.cat([x, torch.stack(ks).reshape(-1), torch.stack(vs).reshape(-1)])
+
+
 def launch(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Tensor,
            pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, bf16_ops: bool):
     """Launch csrc/stack_decode.cu (K14 with f32 operands, K15 with bf16
-    ones); the contract of stacked_decode_ref, pos an int32 [1] CUDA tensor.
-    Counts nothing: the wrappers of K14 and K15 do."""
+    ones) on the plan of decode_plan.stack_plan (cached per shape and card);
+    the contract of stacked_decode_ref, pos an int32 [1] CUDA tensor. A head
+    dim without an instantiation, or a shape the plan cannot fit, raises
+    NotImplementedError. Counts nothing: the wrappers of K14 and K15 do."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"stack_decode: {msg}")
@@ -154,19 +214,25 @@ def launch(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Te
     require(all(t.is_contiguous() for t in (x, ck, cv, cos, sin)),
             "x, the cache and cos/sin must be contiguous")
     s = ck.shape[3]
+    _, plan, bounds = decode_plan.launch_args(dev, decode_plan.stack_plan, n_layers, d, hq, hkv,
+                                              hd, f, s)
     lib = build.library()
     n_split = lib.zgml_decode_split_count(s)
+    if x.data_ptr() % 16:
+        x = x.clone()                 # the kernel bulk-copies x
     x_out = torch.empty_like(x)
     kv_cur = torch.empty((n_layers, 2, hkv, hd), dtype=torch.float32, device=dev)
-    sizes = [hq * hd, hq * hd, hq * n_split * (hd + 2), d, d, f]
-    q_s, att_s, part_s, x2_s, xres_s, act_s = torch.empty(
+    sizes = [d, d, f, hq * hd, hq * hd, hq * n_split * (hd + 2)]   # x2, xres 16-byte aligned
+    x2_s, xres_s, act_s, q_s, att_s, part_s = torch.empty(
         sum(sizes), dtype=torch.float32, device=dev).split(sizes)
     status = lib.zgml_stack_decode(
         int(bf16_ops), stack.table.data_ptr(), x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), x_out.data_ptr(), kv_cur.data_ptr(),
         q_s.data_ptr(), att_s.data_ptr(), part_s.data_ptr(), x2_s.data_ptr(), xres_s.data_ptr(),
-        act_s.data_ptr(), coop.barrier_words(dev).data_ptr(), n_layers, d, hq, hkv, hd, s, f,
-        float(stack.eps), 1.0 / hd ** 0.5, torch.cuda.current_stream(dev).cuda_stream)
+        act_s.data_ptr(), coop.barrier_words(dev).data_ptr(),
+        coop.counter_words(dev, hkv).data_ptr(), n_layers, d, hq, hkv, hd, s, f,
+        float(stack.eps), 1.0 / hd ** 0.5, plan, bounds.data_ptr(), bounds.device.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "stack_decode")
     return x_out, kv_cur[:, 0], kv_cur[:, 1]
 
