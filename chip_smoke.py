@@ -218,6 +218,9 @@ DECODE_LENS = [1, 200, 2047]
 # 12th chunk of a 1536-token prompt); K8 on batches of per-row kv_len
 KV8_FLASH_CASES = [(0, 128), (1408, 1536)]
 KV8_DECODE_LENS = [[1, 200, 2047, 1000]]          # TinyLlama, batch 4
+# K4 at batch 4 with per-row kv_len (the serving engine's bf16 decode; a row
+# with no key gives 0)
+DECODE_BATCH_LENS = [0, 1, 200, 2047]
 KV8_DECODE_LENS_7B = [[200], [2047]]              # Llama-2-7B, batch 1
 LOGIT_RTOL = 1e-3          # K2 and K3 run f32 operands
 I8_ROWS = (1, 8, 32)       # K1 cases: decode, a small batch, the largest int8 call
@@ -226,12 +229,16 @@ K2_TRAIN_ROWS = (512,)     # and at TinyLlama-1.1B train_q4_frozen's forward, B 
 ATTN_POS = (0, 1, 200, 2047)
 FFN_ROWS = (1, 8, 32)      # K6: decode, and calls of <= 32 rows outside it
 FFN_I8_ROWS = (1, 8)       # K6c: decode, and a small batch
-PLANAR_ROWS = (1, 7, 32)   # K6b: a 1-token chunk, the smoke's 7-token prompt, a full chunk
+PLANAR_ROWS = (1, 4, 7, 32)   # K6b: a 1-token chunk, kv8_tiny's batch-4 decode, the smoke's
+                              # 7-token prompt, a full chunk
 SAMPLED_CHUNK = 32         # prefill chunk of the sampled request's engine
 GREEDY_TRIALS = 8
 RATE_ROUNDS = 5            # phase 4: rounds of the paths in turns, there and back
 ATTN_LAYER = 3             # K7 reads and writes a layer slab other than the first
 REL_BOUND = 1e-5           # K1, K6, K7 vs plain: f32 sums in another order
+# K6b (split-TF32 tensor cores, as K2 above 4 rows): its rms error against
+# float64 at most this x the plain version's
+PLANAR_RMS_RATIO = 2.0
 # end to end, a decode step from a shared cache and the greedy-token check's
 # gap: the int8 tier (K1's step logits; K6c and K7-i8 on Llama-2-7B, whose
 # kernels norm and quantize 64 rows per token summing in another order than
@@ -827,21 +834,49 @@ def check_kernels(torch, dev):
                    i8ops=2 * ops // 3 if a_i8 else 0, **extra)
 
     def check_planar(d, f, model):
-        """K6b on normed rows: a 1-token chunk, the smoke's 7-token prompt in
-        a <= 32-row chunk, a full 32-row chunk."""
+        """K6b on normed rows: a 1-token chunk, kv8_tiny's batch-4 decode,
+        the smoke's 7-token prompt in a <= 32-row chunk, a full 32-row chunk.
+        Within REL_BOUND * max|y| of plain, two launches bit-equal, its rms
+        error against float64 at most PLANAR_RMS_RATIO x the plain
+        version's; the bound counts the tensor-core form's TF32 products
+        (TF32_PASSES per f32 product), the CUDA-core form's (M <=
+        PLANAR_F32_MAX_M) f32 FMAs."""
+        from zgml_tpu_torch.ops.decode_plan import planar_args
+        from zgml_tpu_torch.ops.ffn import PLANAR_F32_MAX_M
         pairs, wbytes = ffn_weights("q4_0", d, f)
+        gu0, wd0 = (w.dequant().double() for w in pairs[0])
         for m in PLANAR_ROWS:
             h = torch.randn((1, m, d), device=dev, generator=g)
-            got, want = fused_ffn_cuda(h, *pairs[0]), fused_ffn_ref(h, *pairs[0])
+            got, again = fused_ffn_cuda(h, *pairs[0]), fused_ffn_cuda(h, *pairs[0])
+            want = fused_ffn_ref(h, *pairs[0])
             torch.cuda.synchronize()
             err, bound = rel_err(got, want)
+            case = f"{model}M={m} D={d} F={f}"
             require(bool(torch.isfinite(got).all()) and err <= bound,
-                    f"fused_ffn {model}M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+                    f"fused_ffn {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            require(bool(torch.equal(got, again)), f"fused_ffn {case}: two launches differ")
+            gu_ = h.double() @ gu0.T
+            act = torch.nn.functional.silu(gu_[..., :f]) * gu_[..., f:]
+            exact = act @ wd0.T
+            rms, rms_plain = (float((y.double() - exact).square().mean().sqrt())
+                              for y in (got, want))
+            require(rms <= PLANAR_RMS_RATIO * rms_plain,
+                    f"fused_ffn {case}: rms error vs float64 {rms:.3g} > {PLANAR_RMS_RATIO} x "
+                    f"plain's {rms_plain:.3g}")
+            plan = (planar_args(dev, m, d, f)[0] if m > PLANAR_F32_MAX_M
+                    else launch_args(dev, ffn_plan, m, d, f, "q4_0", False)[0])
             t = time_ms(torch, [lambda p_=pr: fused_ffn_cuda(h, *p_) for pr in pairs],
-                        50 if m == 1 else 10)
+                        50 if m <= 4 else 20)
             tp = time_ms(torch, [lambda p_=pr: fused_ffn_ref(h, *p_) for pr in pairs], 10)
-            record("fused_ffn", f"{model}M={m} D={d} F={f}", err, bound, t, tp,
-                   2 * m * d * 4 + wbytes, 6 * m * d * f, None, NO_LIBRARY["planar"])
+            tensor = m > PLANAR_F32_MAX_M          # else the CUDA-core form's f32 FMAs
+            record("fused_ffn", case, err, bound, t, tp, 2 * m * d * 4 + wbytes,
+                   0 if tensor else 6 * m * d * f, None, NO_LIBRARY["planar"],
+                   tf32ops=TF32_PASSES * 6 * m * d * f if tensor else 0,
+                   rms_vs_plain=rms / rms_plain if rms_plain else None,
+                   form="tensor cores" if tensor else "CUDA cores", grid=plan.grid,
+                   stages=plan.stages, slot_bytes=plan.slot_bytes, smem_bytes=plan.smem_bytes,
+                   **(dict(kc=plan.kc, ks=plan.ks) if tensor else dict(mr=plan.mr)))
+        del gu0, wd0
 
     def random_cache(shape, kv8):
         """A random stacked cache [L, 1, Hkv, S, hd]: bf16, or (kv8) int8
@@ -1066,6 +1101,8 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
                n_split=plan.n_split)
     if decode_attention_cuda is None:
         return
+    from zgml_tpu_torch.ops.decode_plan import decode_splits, sm_count
+    sms = sm_count(dev.index or 0)
     for kv_len in DECODE_LENS:
         q = torch.randn((1, hq, 1, hd), device=dev, generator=g)
         lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
@@ -1082,10 +1119,47 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
         vf = vc[row:row + 1, :, :kv_len].float()
         lib_err = float((sdpa(q, kf, vf, enable_gqa=True) - want).abs().max())
         lib = time_ms(torch, [lambda: sdpa(q, kf, vf, enable_gqa=True)], 100)
+        require(bool(torch.equal(got, decode_attention_cuda(q, kc, vc, lens, row))),
+                f"decode_attention kv_len={kv_len}: two launches differ")
         record("decode_attention", f"{model}kv_len={kv_len}", err, 1e-5, t, tp,
                2 * q.numel() * 4 + 2 * kv_len * hkv * hd * 2, 4 * hq * kv_len * hd, lib,
                f"scaled_dot_product_attention(enable_gqa=True), one query, f32 "
-               f"(max abs err {lib_err:.2g})")
+               f"(max abs err {lib_err:.2g})", n_split=decode_splits(1, hkv, S, hd, sms))
+    # batch 4, per-row kv_len (rows kv_row .. kv_row + 3 of the stacked cache)
+    b = len(DECODE_BATCH_LENS)
+    q = torch.randn((b, hq, 1, hd), device=dev, generator=g)
+    lens = torch.tensor(DECODE_BATCH_LENS, dtype=torch.int32, device=dev)
+    row = 2
+    got, again = (decode_attention_cuda(q, kc, vc, lens, row) for _ in range(2))
+    want = decode_attention_ref(q, kc, vc, lens, row)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    case = f"{model}B={b} kv_len={DECODE_BATCH_LENS}"
+    require(bool(torch.isfinite(got).all()) and err <= 1e-5 and bool(torch.equal(got, again))
+            and not bool(got[DECODE_BATCH_LENS.index(0)].any()),
+            f"decode_attention {case}: max_abs_err {err:.3g}, or two launches differ, or the "
+            f"kv_len 0 row is not 0")
+    t = time_ms(torch, [lambda: decode_attention_cuda(q, kc, vc, lens, row)], 100)
+    tp = time_ms(torch, [lambda: decode_attention_ref(q, kc, vc, lens, row)], 20)
+    keys = sum(DECODE_BATCH_LENS)
+    lib_err, lib = 0.0, None
+    outs = []
+    for i, n in enumerate(DECODE_BATCH_LENS):     # SDPA row by row: one call per kv_len
+        if n:
+            outs.append((q[i:i + 1], kc[row + i:row + i + 1, :, :n].float(),
+                         vc[row + i:row + i + 1, :, :n].float()))
+            lib_err = max(lib_err, float((sdpa(*outs[-1], enable_gqa=True)
+                                          - want[i:i + 1]).abs().max()))
+
+    def lib_rows():
+        for a in outs:
+            sdpa(*a, enable_gqa=True)
+    lib = time_ms(torch, [lib_rows], 50)
+    record("decode_attention", case, err, 1e-5, t, tp,
+           2 * q.numel() * 4 + 2 * keys * hkv * hd * 2, 4 * hq * keys * hd, lib,
+           f"scaled_dot_product_attention(enable_gqa=True), one call per live row (kv_len "
+           f"differs by row), f32 (max abs err {lib_err:.2g})",
+           n_split=decode_splits(b, hkv, S, hd, sms))
 
 
 def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
@@ -2621,7 +2695,9 @@ def main() -> int:
                              ("ptxas_qmatmul", "qgemm_tf32"), ("ptxas_rmsnorm", "rmsnorm"),
                              ("ptxas_chain", "chain_kernel"), ("ptxas_attn", "layer_attn_kernel"),
                              ("ptxas_ffn", "ffn_norm_kernel"),
-                             ("ptxas_stack", "stack_decode_kernel")):
+                             ("ptxas_stack", "stack_decode_kernel"),
+                             ("ptxas_planar", "ffn_planar"),
+                             ("ptxas_decode", "decode_bf16_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
                 log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
@@ -2650,6 +2726,14 @@ def main() -> int:
         require(summary["ptxas_stack"] and not spilled,
                 f"K14 / K15 spill registers or use a stack frame (or no ptxas report): "
                 f"{spilled}")
+        # K6b's tensor-core form, its CUDA-core form at 1 and 2 rows a group
+        # (ffn_planar_f32_kernel<1>, <2>) and K4: no spill; the CUDA-core form
+        # at 4 rows is K6d's MR 4 dot at the 96-register cap and is recorded,
+        # as K6d's MR 4 is
+        spilled = [e["entry"] for e in summary["ptxas_planar"] + summary["ptxas_decode"]
+                   if e.get("spill_stores") and "f32_kernelILi4E" not in e["entry"]]
+        require(summary["ptxas_planar"] and summary["ptxas_decode"] and not spilled,
+                f"K6b / K4 spill registers (or no ptxas report): {spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the attention kernels, the decode kernels K7 / K6 / K14 / K15, K2
-(the quantized matmul), K11 (its dx), K12 (rmsnorm) and K13 (the fused
-elementwise chain) of two checkouts of zgml_tpu_torch on one card, in turns
-(A, B, B, A by default), each turn in its own process.
+"""Time the attention kernels, the decode kernels K7 / K6 / K6b / K4 / K8 /
+K14 / K15, K2 (the quantized matmul), K11 (its dx), K12 (rmsnorm) and K13
+(the fused elementwise chain) of two checkouts of zgml_tpu_torch on one
+card, in turns (A, B, B, A by default), each turn in its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode] [--rates]
+                         [--only K6b,K4,...] [--bits]
 
 A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
 unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
@@ -16,13 +17,16 @@ with n_rep 1 (Llama-2-7B): K3 on a 128-row chunk at (q_offset, kv_len) (0,
 1536) of an int8 one, and K10f (training's forward with LSE), K10dq and
 K10dkv (its backward, each called as the autograd backward calls it with no
 precomputed delta) at the smoke's three cases (TinyLlama B 4 x T 512,
-Llama-2-7B B 1 x T 512, and Tq 128 over kv_len 300 at q_offset 172); at
-TinyLlama-1.1B also K4 at kv_len 1, 200 and 2047 of a 22-layer cache; the
+Llama-2-7B B 1 x T 512, and Tq 128 over kv_len 300 at q_offset 172); the
 decode kernels (decode_us, alone with --decode): K7 at Q4_0 in its four
 modes, TinyLlama-1.1B's f32 A phase over the bf16 and the int8 cache and
 Llama-2-7B's int8 A phase over both, at pos 0, 200 and 2047 of a 4-layer
 cache, K6d (Q4_0) and K6a (Q8_0) at TinyLlama-1.1B's FFN at M = 1, 8, 32
-and K6c at Llama-2-7B's at M = 1, 8, and K14, K15 and K15 with f32 operands
+and K6c at Llama-2-7B's at M = 1, 8, K6b at both models' FFN at M = 1, 4,
+7, 32, K4 at the smoke's cases over TinyLlama-1.1B's 22-layer bf16 cache
+(batch 1 at kv_len 1, 200, 2047, and batch 4 at chip_smoke.DECODE_BATCH_LENS),
+K8 at the smoke's (TinyLlama-1.1B batch 4, Llama-2-7B batch 1 at kv_len 200
+and 2047), and K14, K15 and K15 with f32 operands
 over TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4 at pos
 0, 1, 200 and 2047 (the smoke's megacall cases); K11 at Q4_0 and Q8_0
 on M = 512 rows of g at the five TinyLlama-1.1B projections (wqkv, wo,
@@ -42,9 +46,13 @@ smoke's synthetic GGUFs (written under .bench_cache/ where missing) and
 times every path of chip_smoke.PATHS end to end as the smoke's tg32 does: a
 32-token decode_n after a 128-token prefill, on the host clock around
 synchronized calls, the paths there and back RATE_RUNS times after a
-warm-up round; the median per path, in host us a token. Prints one JSON
-line per turn, then the median per case and side, with the card's name and
-power limit.
+warm-up round; the median per path, in host us a token. With --decode, --only times
+only the named families of the decode kernels (K7, K6, K6b, K4, K8, K14:
+K14 takes K15 with it). With --bits each turn also hashes K8's output at
+fixed inputs (numpy-seeded, the smoke's cases and a batch with a kv_len 0
+row), and the sides' hashes are compared: the same bits on every turn of
+both, or not. Prints one JSON line per turn, then the median per case and
+side, with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -57,6 +65,13 @@ import subprocess
 import sys
 
 HERE = pathlib.Path(__file__).resolve().parent
+
+
+def wanted(family: str) -> bool:
+    """Whether --only (if given) names this decode kernel family."""
+    if "--only" not in sys.argv:
+        return True
+    return family in sys.argv[sys.argv.index("--only") + 1].split(",")
 
 
 def prefill_us(torch, gguf: str) -> dict:
@@ -142,11 +157,12 @@ def weight_copies(torch, dev, g, kind, n, k, total=48_000_000):
     return copies
 
 
-def decode_us(torch, dev, g, time_ms) -> dict:
+def decode_us(torch, dev, g, time_ms, smoke) -> dict:
     """Device ms of the decode kernels K7 (its four modes), K6 (K6d, K6a,
-    K6c) and the megacalls K14 / K15."""
+    K6c), K6b, K4, K8 and the megacalls K14 / K15."""
     from zgml_tpu_torch.ops import refs
-    from zgml_tpu_torch.ops.ffn import fused_ffn_norm_cuda
+    from zgml_tpu_torch.ops.attention import decode_attention_cuda, decode_attention_q8_cuda
+    from zgml_tpu_torch.ops.ffn import fused_ffn_cuda, fused_ffn_norm_cuda
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda
     from zgml_tpu_torch.ops.stackkernel import StackedLayers, stacked_decode_cuda
     from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda
@@ -156,6 +172,8 @@ def decode_us(torch, dev, g, time_ms) -> dict:
     # K7 in its four modes at Q4_0: TinyLlama-1.1B's f32 A phase over the
     # bf16 and the int8 cache, Llama-2-7B's int8 A phase over both
     for tag, (hq, hkv, hd), a_i8 in (("", (32, 4, 64), False), ("7B ", (32, 32, 128), True)):
+        if not wanted("K7"):
+            break
         d = hq * hd
         layers = list(zip(copies_of("q4_0", (hq + 2 * hkv) * hd, d, 32_000_000),
                           copies_of("q4_0", d, hq * hd, 24_000_000)))
@@ -184,6 +202,8 @@ def decode_us(torch, dev, g, time_ms) -> dict:
     for name, kind, d, f, a_i8, rows in (("K6d", "q4_0", 2048, 5632, False, (1, 8, 32)),
                                          ("K6a", "q8_0", 2048, 5632, False, (1, 8, 32)),
                                          ("K6c 7B", "q4_0", 4096, 11008, True, (1, 8))):
+        if not wanted("K6"):
+            break
         pairs = list(zip(copies_of(kind, 2 * f, d, 64_000_000), copies_of(kind, d, f, 32_000_000)))
         gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
         for m in rows:
@@ -192,10 +212,51 @@ def decode_us(torch, dev, g, time_ms) -> dict:
                 lambda p_=pr: fused_ffn_norm_cuda(x, gamma, *p_, 1e-5, a_i8) for pr in pairs],
                 50 if m == 1 else 10)[0]
         del pairs
+    # K6b at TinyLlama-1.1B's and Llama-2-7B's FFN (the smoke's rows and M 4)
+    for tag, d, f in (("", 2048, 5632), ("7B ", 4096, 11008)):
+        if not wanted("K6b"):
+            break
+        pairs = list(zip(copies_of("q4_0", 2 * f, d, 64_000_000),
+                         copies_of("q4_0", d, f, 32_000_000)))
+        for m in (1, 4, 7, 32):
+            h = torch.randn((1, m, d), device=dev, generator=g)
+            out[f"K6b {tag}M={m}"] = time_ms(torch, [lambda p_=pr: fused_ffn_cuda(h, *p_)
+                                                     for pr in pairs], 50 if m <= 4 else 20)[0]
+        del pairs
+    # K4 at the smoke's cases: batch 1 at kv_len 1, 200, 2047 and batch 4 with
+    # per-row kv_len over TinyLlama-1.1B's 22-layer bf16 cache
+    kc = torch.randn((22, 4, 2048, 64), device=dev, generator=g).to(torch.bfloat16)
+    vc = torch.randn((22, 4, 2048, 64), device=dev, generator=g).to(torch.bfloat16)
+    for lens_, row in [([n], 3) for n in (1, 200, 2047)] + [(smoke.DECODE_BATCH_LENS, 2)]:
+        if not wanted("K4"):
+            break
+        q = torch.randn((len(lens_), 32, 1, 64), device=dev, generator=g)
+        lens = torch.tensor(lens_, dtype=torch.int32, device=dev)
+        out[f"K4 B={len(lens_)} kv_len={lens_}"] = time_ms(
+            torch, [lambda: decode_attention_cuda(q, kc, vc, lens, row)], 100)[0]
+    del kc, vc
+    # K8 at the smoke's cases: TinyLlama-1.1B batch 4, Llama-2-7B batch 1
+    for tag, (hq, hkv, hd), cases in (("", (32, 4, 64), smoke.KV8_DECODE_LENS),
+                                      ("7B ", (32, 32, 128), smoke.KV8_DECODE_LENS_7B)):
+        if not wanted("K8"):
+            break
+        shape = (22 if not tag else 4, hkv, 2048, hd)
+        k8 = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+        v8 = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+        ks = torch.rand(shape[:3], device=dev, generator=g) * 0.01 + 0.01
+        vs = torch.rand(shape[:3], device=dev, generator=g) * 0.01 + 0.01
+        for lens_ in cases:
+            q = torch.randn((len(lens_), hq, 1, hd), device=dev, generator=g)
+            lens = torch.tensor(lens_, dtype=torch.int32, device=dev)
+            out[f"K8 {tag}B={len(lens_)} kv_len={lens_}"] = time_ms(
+                torch, [lambda: decode_attention_q8_cuda(q, k8, ks, v8, vs, lens, 0)], 100)[0]
+        del k8, v8, ks, vs
     # K14, K15 and K15 with f32 operands (tape_f32) at the smoke's megacall
     # cases: TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4
     for tag, (n_layers, hq, hkv, hd, f) in (("", (22, 32, 4, 64, 5632)),
                                             ("7B ", (4, 32, 32, 128, 11008))):
+        if not wanted("K14"):
+            break
         d = hq * hd
         layers = [{"attn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
                    "ffn_norm": 1.0 + 0.1 * torch.randn(d, device=dev, generator=g),
@@ -221,6 +282,29 @@ def decode_us(torch, dev, g, time_ms) -> dict:
     return out
 
 
+def k8_bits(torch, dev) -> dict:
+    """sha256 of K8's output bytes at fixed numpy-seeded inputs, per case."""
+    import hashlib
+
+    import numpy as np
+    from zgml_tpu_torch.ops.attention import decode_attention_q8_cuda
+    out = {}
+    for b, hq, hkv, hd, rows, lens in ((4, 32, 4, 64, 22, [1, 200, 2047, 1000]),
+                                       (1, 32, 32, 128, 4, [200]), (1, 32, 32, 128, 4, [2047]),
+                                       (2, 8, 2, 16, 3, [0, 64])):
+        rng = np.random.default_rng(hd + b)
+        q = torch.from_numpy(rng.standard_normal((b, hq, 1, hd)).astype(np.float32)).to(dev)
+        lv = [torch.from_numpy(rng.integers(-127, 128, (rows, hkv, 2048, hd), dtype=np.int8))
+              .to(dev) for _ in range(2)]
+        sc = [torch.from_numpy(rng.uniform(0.01, 0.02, (rows, hkv, 2048)).astype(np.float32))
+              .to(dev) for _ in range(2)]
+        o = decode_attention_q8_cuda(q, lv[0], sc[0], lv[1], sc[1],
+                                     torch.tensor(lens, dtype=torch.int32, device=dev), 1)
+        out[f"K8 bits hd={hd} B={b} kv_len={lens}"] = hashlib.sha256(
+            o.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
 def one(root: str, gguf: str | None = None, decode_only: bool = False,
         rates: bool = False) -> dict:
     """The timings of the checkout at `root`, in this process (with
@@ -228,8 +312,7 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
     sys.path.insert(0, str(pathlib.Path(root).resolve()))
     import torch
     import zgml_tpu_torch
-    from zgml_tpu_torch.ops.attention import (decode_attention_cuda, flash_attention_cuda,
-                                              flash_attention_q8_cuda)
+    from zgml_tpu_torch.ops.attention import flash_attention_cuda, flash_attention_q8_cuda
     from zgml_tpu_torch.ops.flash_vjp import flash_dkv_cuda, flash_dq_cuda, flash_fwd_lse_cuda
     from zgml_tpu_torch.ops.elementwise import BINARY, fused_chain_cuda
     from zgml_tpu_torch.ops.qmatmul import qmatmul_bwd_cuda, qmatmul_cuda
@@ -245,9 +328,10 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         raise RuntimeError(f"imported {src}, not the checkout at {root}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    bits = k8_bits(torch, dev) if "--bits" in sys.argv else {}
     if decode_only:
-        out = {k: v * 1e3 for k, v in decode_us(torch, dev, g, time_ms).items()}
-        return {**out, **path_rates(torch, smoke)} if rates else out
+        out = {k: v * 1e3 for k, v in decode_us(torch, dev, g, time_ms, smoke).items()}
+        return {**out, **bits, **path_rates(torch, smoke)} if rates else {**out, **bits}
     out = {}
     for hq, hkv, hd, tag in ((32, 4, 64, ""), (32, 32, 128, "7B ")):
         kc = torch.randn((22, hkv, 2048, hd), device=dev, generator=g).to(torch.bfloat16)
@@ -268,13 +352,6 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
                 torch, [lambda: flash_attention_q8_cuda(q, k8, ks, v8, vs, kv_len, q_off, 3)],
                 50)[0]
         del k8, v8, ks, vs
-        if tag:
-            continue
-        for kv_len in (1, 200, 2047):
-            q = torch.randn((1, hq, 1, hd), device=dev, generator=g)
-            lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
-            out[f"K4 kv_len={kv_len}"] = time_ms(
-                torch, [lambda: decode_attention_cuda(q, kc, vc, lens, 3)], 100)[0]
     for b, hq, hkv, tq, s, hd, kv_len, q_off in ((4, 32, 4, 512, 512, 64, 512, 0),
                                                  (1, 32, 32, 512, 512, 128, 512, 0),
                                                  (1, 32, 4, 128, 512, 64, 300, 172)):
@@ -290,7 +367,7 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         out[f"K10dq {shape}"] = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)[0]
         out[f"K10dkv {shape}"] = time_ms(torch, [lambda: flash_dkv_cuda(*bargs)], 20)[0]
     copies_of = functools.partial(weight_copies, torch, dev, g)
-    out.update(decode_us(torch, dev, g, time_ms))
+    out.update(decode_us(torch, dev, g, time_ms, smoke))
 
     tiny = (("wqkv", 2560, 2048), ("wo", 2048, 2048), ("w_gate_up", 11264, 2048),
             ("w_down", 2048, 5632), ("lm_head", 32000, 2048))
@@ -331,7 +408,7 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         out.update(prefill_us(torch, gguf))
     if rates:
         out.update(path_rates(torch, smoke))
-    return out
+    return {**out, **bits}
 
 
 def main() -> int:
@@ -349,7 +426,10 @@ def main() -> int:
         proc = subprocess.run([sys.executable, __file__, "--one", side]
                               + (["--gguf", str(pathlib.Path(gguf).resolve())] if gguf else [])
                               + (["--decode"] if decode_only else [])
-                              + (["--rates"] if rates else []),
+                              + (["--rates"] if rates else [])
+                              + (sys.argv[sys.argv.index("--only"):][:2]
+                                 if "--only" in sys.argv else [])
+                              + (["--bits"] if "--bits" in sys.argv else []),
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(f"{side}: {proc.stderr[-3000:]}")
@@ -357,6 +437,10 @@ def main() -> int:
         print(side, proc.stdout.strip().splitlines()[-1], flush=True)
     print(card)
     for case in runs[a][0]:
+        if isinstance(runs[a][0][case], str):       # --bits: one hash on every turn of both
+            same = len({r[case] for r in runs[a] + runs[b]}) == 1
+            print(f"{case:58s} {'the same bits on every turn' if same else 'DIFFERENT bits'}")
+            continue
         ma = statistics.median(r[case] for r in runs[a])
         mb = statistics.median(r[case] for r in runs[b])
         print(f"{case:58s} {a}: {ma:8.1f} us  {b}: {mb:8.1f} us  ({100 * (mb / ma - 1):+.1f}%)")

@@ -221,3 +221,107 @@ def test_q4_int8_fold_is_the_same_integer():
         nib = rng.integers(0, 16, 32)
         x = rng.integers(-127, 128, 32)
         assert int(((nib - 8) * x).sum()) == int((nib * x).sum()) - 8 * int(x.sum())
+
+
+# ---- K6b's plan (csrc/ffn_planar.cu) ----------------------------------------------
+
+PLANAR_SHAPES = [(TINY["d"], TINY["f"]), (L7B["d"], L7B["f"]), (512, 320), (576, 1536),
+                 (64, 96)]
+
+
+def _planar_stages(plan: dp.PlanarPlan, b: int):
+    """(phase, tile, first block, blocks) of block b's stages in the order
+    the producer copies them and the consumers take them."""
+    for p in range(2):
+        t0, t1 = dp.planar_tile_range(plan.tiles[p], plan.grid, b)
+        for c0, nb, _ in dp.planar_chunks(plan.nblk[p], plan.kc, plan.ks):
+            for t in range(t0, t1):
+                for s0 in range(c0, c0 + nb, plan.ks):
+                    yield p, t, s0, min(plan.ks, c0 + nb - s0)
+
+
+@pytest.mark.parametrize("m", (1, 4, 7, 8, 9, 16, 17, 32))
+@pytest.mark.parametrize("d,f", PLANAR_SHAPES)
+def test_planar_plan_fits_and_covers_every_block_once(d, f, m):
+    """K6b: the ring, the staged x chunk, the warps' sums and the per-tile
+    sums fit one block's shared memory; each weight row's quant blocks are
+    copied exactly once over the grid; every copy is 16-byte aligned and
+    fits its slot; the x chunk splits in place (M * kc <= 512)."""
+    plan = dp.planar_plan(m, d, f, SMS)
+    assert plan.grid == SMS and 2 <= plan.stages <= dp.MAX_STAGES
+    assert plan.smem_bytes == (dp.HEADER_BYTES + plan.stages * plan.slot_bytes + plan.x_bytes
+                               + plan.part_bytes + plan.acc_bytes) <= 232_448
+    assert plan.kc % plan.ks == 0 and plan.ks % 16 == 0 and m * plan.kc <= 512
+    assert plan.x_bytes == m * (plan.kc * 64 + dp.PLANAR_XPAD) * 4
+    assert plan.part_bytes == 16 * dp.PLANAR_TILE * 8 * 4
+    chunked = max(plan.nblk) > plan.kc
+    assert plan.acc_bytes == (plan.max_tiles * dp.PLANAR_TILE * m * 4 if chunked else 0)
+    rows = (2 * f, d)
+    seen = [np.zeros((rows[p], plan.nblk[p]), np.int64) for p in range(2)]
+    qs_area = dp.PLANAR_TILE * (plan.ks * 16 + dp.PLANAR_ROW_PAD)
+    for b in range(plan.grid):
+        for p, t, s0, nb in _planar_stages(plan, b):
+            nblk = plan.nblk[p]
+            per = dp.PLANAR_TILE // (2 if p == 0 else 1)
+            off = f if p == 0 else 0
+            tile_rows = [t * per + r % per + (r // per) * off for r in range(dp.PLANAR_TILE)]
+            whole = nblk % 8 != 0
+            sc_bytes = dp.PLANAR_TILE * (nblk if whole else nb) * 2
+            assert qs_area + sc_bytes <= plan.slot_bytes
+            for row in tile_rows:
+                seen[p][row, s0:s0 + nb] += 1
+                assert (row * nblk * 16 + s0 * 16) % 16 == 0 and nb * 16 % 16 == 0
+                if not whole:
+                    assert ((row * nblk + s0) * 2) % 16 == 0 and (nb * 2) % 16 == 0
+            if whole:                           # a segment's rows' scales in one copy
+                for seg in range(2 if p == 0 else 1):
+                    r0 = tile_rows[seg * per]
+                    assert (r0 * nblk * 2) % 16 == 0 and (per * nblk * 2) % 16 == 0
+    assert all((s == 1).all() for s in seen), "a weight block is copied twice or never"
+
+
+def test_planar_plan_at_the_main_shapes_keeps_a_deep_ring():
+    """kv8_tiny's batch-4 decode (M 4) and the 7-token prompt (M 7) at
+    TinyLlama-1.1B and Llama-2-7B: at least 4 slots, h's first chunk whole
+    in shared memory (one chunk of gate|up), down in at most 3 chunks at
+    TinyLlama-1.1B."""
+    for m in (4, 7):
+        for s in (TINY, L7B):
+            plan = dp.planar_plan(m, s["d"], s["f"], SMS)
+            assert plan.stages >= dp.PLANAR_MIN_STAGES
+            chunks = [len(dp.planar_chunks(nb, plan.kc, plan.ks)) for nb in plan.nblk]
+            if s is TINY:
+                assert chunks[0] == 1 and chunks[1] <= 3
+    plan = dp.planar_plan(1, L7B["d"], L7B["f"], SMS)
+    assert max(plan.nblk) <= plan.kc                 # one row: x whole at 7B
+
+
+# ---- K4's split rule (csrc/decode_attn.cu) -------------------------------------------
+
+@pytest.mark.parametrize("hd", (64, 128))
+@pytest.mark.parametrize("b,hkv", [(1, 4), (4, 4), (1, 32), (2, 2), (3, 8)])
+@pytest.mark.parametrize("s", (64, 256, 2048))
+def test_decode_splits_cover_every_key_once(b, hkv, s, hd):
+    """Every key j < kv_len of a row is taken by exactly one split, the
+    splits in key order and in whole 32-key groups but the last; the grid
+    is one wave of the H100's SMs at most (two blocks an SM at head_dim <=
+    64, one above); and the live splits (the merge's count) are
+    min(n_split, groups)."""
+    n = dp.decode_splits(b, hkv, s, hd, SMS)
+    per_sm = 2 if hd <= 64 else 1
+    assert 1 <= n <= dp.DECODE_MAX_SPLIT and b * hkv * n <= max(per_sm * SMS, b * hkv)
+    for kv_len in sorted({0, 1, 31, 32, 33, 127, 128, 129, 200, s - 1, s, s + 5}):
+        keys = [dp.decode_split_keys(kv_len, s, n, sp) for sp in range(n)]
+        covered = [j for k0, k1 in keys for j in range(k0, k1)]
+        assert covered == list(range(min(kv_len, s)))
+        assert all(k0 % dp.DECODE_GROUP == 0 for k0, k1 in keys if k1 > k0)
+        groups = -(-min(kv_len, s) // dp.DECODE_GROUP)
+        assert sum(k1 > k0 for k0, k1 in keys) == min(n, groups)
+
+
+def test_decode_splits_at_the_main_shapes():
+    """TinyLlama-1.1B batch 1 (4 KV heads of 64) and batch 4, Llama-2-7B
+    batch 1 (32 KV heads of 128), S 2048: 16, 16 and 4 splits."""
+    assert dp.decode_splits(1, 4, 2048, 64, SMS) == 16
+    assert dp.decode_splits(4, 4, 2048, 64, SMS) == 16
+    assert dp.decode_splits(1, 32, 2048, 128, SMS) == 4

@@ -141,14 +141,35 @@ def test_flash_attention(cuda, b, hq, hkv, tq, rows, s, d, kv_len, q_off, kv_row
     (1, 32, 4, 1, 2048, 64, [2047], 0),
     (2, 8, 2, 3, 256, 128, [129, 5], 1),
     (2, 4, 4, 2, 64, 16, [0, 64], 0),
+    # batch 4 with a row of no key, at every head dim (TinyLlama-1.1B's heads at 64)
+    (4, 32, 4, 88, 2048, 64, [0, 1, 200, 2047], 8),
+    (4, 8, 2, 4, 2048, 16, [0, 1, 200, 2047], 0),
+    (4, 8, 2, 4, 2048, 32, [0, 1, 200, 2047], 0),
+    (4, 32, 32, 4, 2048, 128, [0, 1, 200, 2047], 0),
+    # kv_len on both sides of a split edge (32-key groups: one split or two;
+    # 16 splits of 4 groups at S 2048: the second split's first key)
+    (1, 32, 4, 22, 2048, 64, [32], 1),
+    (1, 32, 4, 22, 2048, 64, [33], 1),
+    (2, 32, 4, 22, 2048, 64, [128, 129], 2),
+    (2, 32, 4, 22, 2048, 64, [2048, 2016], 3),
+    (1, 32, 4, 22, 2048, 64, [5000], 4),         # kv_len past S: all S keys
 ])
 def test_decode_attention(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row):
+    """K4: one launch, per-row kv_len on the device; two launches give the
+    same bits and a row with kv_len 0 gives 0."""
     q, k, v = _qkv(np.random.default_rng(sum(kv_len) + d), b, hq, hkv, 1, rows, s, d, cuda)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    global_profile.reset()
     got = decode_attention_cuda(q, k, v, lens, kv_row)
-    want = decode_attention_ref(q, k, v, lens, kv_row)
+    again = decode_attention_cuda(q, k, v, lens, kv_row)
+    want = decode_attention_ref(q, k, v, torch.clamp(lens, max=s), kv_row)
     torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"decode_attention": {"cuda": 2}}
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+    for i, n in enumerate(kv_len):
+        if n == 0:
+            assert not got[i].any()
 
 
 def test_dispatch_counts_kernel_launches(cuda, monkeypatch):
@@ -367,19 +388,42 @@ def test_fused_ffn_norm_i8(cuda, d, f, m):
     _check_own_activations(act, x, g)
 
 
-@pytest.mark.parametrize("d,f,m", [(4096, 11008, 1), (4096, 11008, 7), (4096, 11008, 32),
-                                   (2048, 5632, 7), (2048, 5632, 16), (512, 320, 3)])
+@pytest.mark.parametrize("d,f,m", [(4096, 11008, 1), (4096, 11008, 4), (4096, 11008, 7),
+                                   (4096, 11008, 32), (2048, 5632, 1), (2048, 5632, 4),
+                                   (2048, 5632, 7), (2048, 5632, 8), (2048, 5632, 9),
+                                   (2048, 5632, 16), (2048, 5632, 17), (2048, 5632, 32),
+                                   (512, 320, 3), (576, 1536, 5), (576, 352, 32), (64, 96, 2)])
 def test_fused_ffn(cuda, d, f, m):
-    """K6b: every weight block read once for all M rows of a normed h."""
+    """K6b: every weight block read once for all M rows of a normed h, at
+    the n8-tile edges of M, and at D or F whose quant blocks are not a
+    multiple of 8 (576, 320, 352: whole scale rows a stage) or of the chunk;
+    two launches give the same bits."""
     rng = np.random.default_rng(d + f + m + 2)
     gu, wd = _weight(rng, 2 * f, d, cuda), _weight(rng, d, f, cuda)
     h = torch.from_numpy(rng.standard_normal((1, m, d)).astype(np.float32)).to(cuda)
     global_profile.reset()
     got = fused_ffn_cuda(h, gu, wd)
+    again = fused_ffn_cuda(h, gu, wd)
     want = fused_ffn_ref(h, gu, wd)
     torch.cuda.synchronize()
-    assert global_profile.tier_summary() == {"fused_ffn": {"cuda": 1}}
+    assert global_profile.tier_summary() == {"fused_ffn": {"cuda": 2}}
     _close(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m", [4, 7, 32])
+def test_fused_ffn_rms_error_against_float64(cuda, m):
+    """K6b's split-TF32 products at TinyLlama-1.1B's FFN: its rms error
+    against float64 at most 2x the plain version's (f32)."""
+    rng = np.random.default_rng(m + 11)
+    d, f = 2048, 5632
+    gu, wd = _weight(rng, 2 * f, d, cuda), _weight(rng, d, f, cuda)
+    h = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    got, want = fused_ffn_cuda(h, gu, wd), fused_ffn_ref(h, gu, wd)
+    g_u = h.double() @ gu.dequant().double().T
+    exact = (torch.nn.functional.silu(g_u[:, :f]) * g_u[:, f:]) @ wd.dequant().double().T
+    rms, rms_plain = ((y.double() - exact).square().mean().sqrt() for y in (got, want))
+    assert rms <= 2 * rms_plain
 
 
 def _q8_cache(rng, shape, device):

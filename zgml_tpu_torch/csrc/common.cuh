@@ -191,59 +191,3 @@ __device__ __forceinline__ int quantize_lane(float v, float& s) {
 // Words per 32-block of int8 activations in shared memory: the block's 8
 // words and one of padding, so 32 lanes on consecutive blocks hit 32 banks.
 constexpr int XQ_WORDS = 9;
-
-// ---- cooperative launches ----
-
-// Grid-wide barrier of a cooperative launch (cudaLaunchCooperativeKernel
-// guarantees that every block is resident, so spinning cannot deadlock).
-// `bar` is two words of a workspace that start at 0 and are left at
-// (0, generation): bar[0] counts arrivals and is reset by the last block to
-// arrive, bar[1] is bumped to release the others. The fences make every write
-// issued before the barrier visible to all blocks after it; data written in
-// the kernel is read back with __ldcg, never through the read-only path.
-__device__ __forceinline__ void grid_barrier(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-constexpr int COOP_BLOCKS_PER_SM = 2;
-
-// Launch kernel(params) cooperatively with as many blocks as the occupancy
-// query allows to be resident at once (at most COOP_BLOCKS_PER_SM per SM and
-// `max_blocks` in all), so that grid_barrier never waits on a block that
-// cannot run.
-template <typename P>
-inline int launch_cooperative(void (*kernel)(P), int threads, size_t smem, int max_blocks,
-                              P params, cudaStream_t st) {
-  int rc = allow_dynamic_smem(kernel, smem);
-  if (rc != 0) return rc;
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (rc != 0) return rc;
-  if (per_sm < 1) return ZGML_ERR_SMEM;
-  const int per = per_sm < COOP_BLOCKS_PER_SM ? per_sm : COOP_BLOCKS_PER_SM;
-  int blocks = sms * per;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  void* args[] = {&params};
-  rc = (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(threads), args,
-                                        smem, st);
-  return rc != 0 ? rc : (int)cudaGetLastError();
-}

@@ -1,5 +1,5 @@
 // Split-KV decode attention over one 128-key chunk of one KV head: the device
-// code K4 / K8 (decode_attn.cu) run once per block and K7's phase B
+// code K8 (decode_attn.cu) runs once per block and K7's phase B
 // (layer_attn.cu) runs in a loop over (KV head, chunk) items.
 //
 // The n_rep query heads of one GQA group attend keys 0..nk-1 of the chunk
@@ -11,7 +11,7 @@
 // dot products of a warp hit distinct banks.
 //
 // Two cache elements, one template parameter T:
-//   bf16 (K4, K7):     f32 scores q . k * scale, p @ V in f32;
+//   bf16 (K7, K14):    f32 scores q . k * scale, p @ V in f32;
 //   int8 (K8, K7-kv8): the position-major int8 cache with one f32 scale per
 //     position (zgml_tpu_torch/quant/kv_cache.py). The block quantizes the
 //     group's f32 q rows itself (quantize_vec: absmax/127 per query head,

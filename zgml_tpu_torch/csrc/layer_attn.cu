@@ -61,7 +61,7 @@
 //      rotation stays in one warp: a warp dots both rows of a pair (f32
 //      dequant, or with a_i8 exact `__dp4a` block dots), rotates, and writes
 //      q (scratch), k and v (f32 outputs, and bf16 into the cache);
-//   B. K4's split-KV design (decode_split.cuh, K8's with kv8): items (KV
+//   B. K8's split-KV design (decode_split.cuh, in bf16 or int8): items (KV
 //      head, 128-key chunk below pos), looped over the blocks; each block
 //      serves the n_rep query heads of its group and writes their partials
 //      (o, max, sum) from the activation area, beside the ring; the block
@@ -252,7 +252,7 @@ int launch_hd(const LayerParams& p, unsigned int* heads, int hd, const int* plan
 // aligned, cos/sin f32 [hd/2], ck/cv layer slabs [hkv, S, hd] (written at row
 // *pos), pos int32 [1] on the device; outputs x_out f32 [d] and kv_cur f32
 // [2, hkv, hd]; scratch f32 q [hq hd], att [hq hd], part [hq, n_split, hd + 2]
-// with n_split = zgml_decode_split_count(S) (K4's chunking); bar: two uint32
+// with n_split = zgml_decode_split_count(S) (K8's chunking); bar: two uint32
 // words of a zeroed workspace; heads: hkv uint32 words of a zeroed workspace
 // (left zeroed). plan: the host ints of ops/decode_plan.py
 // attn_plan (host_ints), bounds: its int32 [2, grid + 1] range bounds on the

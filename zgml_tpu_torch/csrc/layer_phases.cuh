@@ -75,7 +75,7 @@ __device__ __forceinline__ void merge_head(const LayerParams& p, int h, int n_li
 }
 
 // Phase B and the combine between one pair of grid barriers: the split-KV
-// items (KV head, 128-key chunk below pos; decode_split.cuh, K4's design)
+// items (KV head, 128-key chunk below pos; decode_split.cuh, K8's design)
 // over the blocks, each writing its query heads' partials; a block that
 // wrote its items' partials counts each on its head's word of `heads` (all
 // at once, one round trip), and the block that completes a head's count

@@ -40,7 +40,7 @@ import functools
 
 import torch
 
-from zgml_tpu_torch.ops import build, refs
+from zgml_tpu_torch.ops import build, coop, decode_plan, refs
 from zgml_tpu_torch.quant.kv_cache import quantize_columns
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -395,13 +395,22 @@ def _decode(q, k, ks, v, vs, kv_len, kv_row):
             or kv_len.shape != (b,) or not kv_len.is_contiguous()):
         raise ValueError(f"{name}: kv_len must be a contiguous int32 [{b}] tensor on {q.device}")
     lib = build.library()
-    n_split = lib.zgml_decode_split_count(s)
-    part = torch.empty((b * hq, n_split, d + 2), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     o = torch.empty_like(q)
-    status = lib.zgml_decode_attention(
-        q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), kv_len.data_ptr(),
-        o.data_ptr(), part.data_ptr(), b, hq, hkv, s, d, int(kv_row), 1.0 / d ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if ks is None:            # K4: one launch, splits from the card's SM count
+        index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+        n_split = decode_plan.decode_splits(b, hkv, s, d, decode_plan.sm_count(index))
+        part = torch.empty((b * hq, n_split, d + 2), dtype=torch.float32, device=q.device)
+        status = lib.zgml_decode_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
+            part.data_ptr(), coop.counter_words(q.device, b * hkv).data_ptr(), b, hq, hkv, s, d,
+            int(kv_row), n_split, 1.0 / d ** 0.5, stream)
+    else:
+        n_split = lib.zgml_decode_split_count(s)
+        part = torch.empty((b * hq, n_split, d + 2), dtype=torch.float32, device=q.device)
+        status = lib.zgml_decode_attention(
+            q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), kv_len.data_ptr(),
+            o.data_ptr(), part.data_ptr(), b, hq, hkv, s, d, int(kv_row), 1.0 / d ** 0.5, stream)
     build.check(status, name)
     global_profile.count_op(name, "cuda")
     return o

@@ -1,14 +1,16 @@
-"""Workspace of the cooperative kernels (K6 csrc/ffn.cu, K7 csrc/layer_attn.cu,
-K14 / K15 csrc/stack_decode.cu).
+"""Workspace of the cooperative kernels (K6 csrc/ffn.cu, K6b csrc/ffn_planar.cu,
+K7 csrc/layer_attn.cu, K14 / K15 csrc/stack_decode.cu) and of K4's merge
+(csrc/decode_attn.cu).
 
-K6b's grid barrier (csrc/common.cuh grid_barrier) spins on two uint32 words
-that start at 0 and that every launch leaves at (0, generation); the
-weight-streaming kernels' (csrc/weight_stream.cuh CountBarrier: K6, K7, K14,
-K15) takes the next three, two arrival counts and an epoch, which start at
-0 and which each launch leaves ready for the next one on its stream. Launches on one stream run one
-after another, so they can share the words; launches on two streams could
-run at once and must not. The words are therefore kept per (device, stream),
-allocated zeroed on first use.
+The weight-streaming kernels' grid barrier (csrc/weight_stream.cuh
+CountBarrier) takes words 2-4 of the barrier words, two arrival counts and an
+epoch, which start at 0 and which each launch leaves ready for the next one
+on its stream (words 0-1 are unused). The counter words count arrivals (K7's
+and the megacalls' phase B a KV head, K4's splits a row and KV head) and each
+launch leaves them zeroed. Launches on one stream run one after another, so
+they can share the words; launches on two streams could run at once and must
+not. The words are therefore kept per (device, stream), allocated zeroed on
+first use.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ _words: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def barrier_words(device: torch.device) -> torch.Tensor:
-    """The barrier words (int32 [8]: grid_barrier's two, CountBarrier's three)
-    for a launch on the current stream of `device`."""
+    """The barrier words (int32 [8]; CountBarrier's three from word 2) for a
+    launch on the current stream of `device`."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     key = (idx, torch.cuda.current_stream(idx).cuda_stream)
     with _lock:
@@ -39,8 +41,8 @@ _counters: dict[tuple[int, int], torch.Tensor] = {}
 def counter_words(device: torch.device, n: int) -> torch.Tensor:
     """At least n zeroed uint32 words (int32) for a launch on the current
     stream of `device` that counts arrivals in them and leaves them zeroed
-    (K7 and the megacalls: one a KV head), kept per (device, stream) as the
-    barrier words."""
+    (K7 and the megacalls: one a KV head; K4: one a batch row and KV head),
+    kept per (device, stream) as the barrier words."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     key = (idx, torch.cuda.current_stream(idx).cuda_stream)
     with _lock:

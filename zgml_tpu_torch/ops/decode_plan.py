@@ -1,5 +1,8 @@
-"""Launch plans of the weight-streaming decode kernels: K7 (csrc/layer_attn.cu)
-and K6d / K6a / K6c (csrc/ffn.cu), both built on csrc/weight_stream.cuh.
+"""Launch plans of the weight-streaming decode kernels: K7 (csrc/layer_attn.cu),
+K6d / K6a / K6c (csrc/ffn.cu), the megacalls K14 / K15 (csrc/stack_decode.cu)
+and K6b (csrc/ffn_planar.cu, `planar_plan`), all built on
+csrc/weight_stream.cuh; and K4's split of a row's keys (csrc/decode_attn.cu,
+`decode_splits`, `decode_split_keys`).
 
 Each kernel runs one persistent block an SM: 16 consumer warps and one
 producer warp, which streams the block's weight rows with 1D bulk copies
@@ -18,7 +21,8 @@ enough that unit_rows * K/16 bytes of scales are a multiple of 16.
 The plan is a pure function of the shapes, the kind, the SM count and the
 stage target, and the kernel reads it as given (no occupancy query at
 launch): `launch_args` caches it per shape and card as the host ints and
-the device table of range bounds that the launchers take.
+the device table of range bounds that the launchers take (K6b: `planar_args`,
+host ints only; a block computes its tiles as K4 its keys).
 """
 from __future__ import annotations
 
@@ -278,6 +282,143 @@ def stack_plan(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s: int
     ahead = max(1, min(stages - 1, STACK_AHEAD_BYTES // slot))
     return StreamPlan(grid, stages, slot, act, HEADER_BYTES + stages * slot + act, 1, ahead,
                       phases(slot))
+
+
+PLANAR_TILE = 16          # weight rows an m16n8k8 A operand (csrc/ffn_planar.cu PT_ROWS)
+PLANAR_ROW_PAD = 16       # bytes after each row's qs in a slot: the 8 rows' words hit 32 banks
+PLANAR_XPAD = 16          # floats after each staged x row: the B loads hit 32 banks
+PLANAR_X_FLOATS = 512 * 32   # M * kc * 32 at most: the x chunk splits in place in 8 float4s a thread
+PLANAR_MIN_STAGES = 4
+
+
+class PlanarPlan(NamedTuple):
+    """K6b's launch (csrc/ffn_planar.cu). Phase 0 (gate|up) has f/8 tiles of
+    8 gate rows and the same 8 up rows, phase 1 (down) d/16 tiles of 16
+    rows; block b takes tiles [b * tiles // grid, (b + 1) * tiles // grid)
+    of each. The contraction goes in chunks of `kc` quant blocks (x staged
+    once a chunk for all m rows, as TF32 hi / lo parts), each tile's chunk in
+    stages of `ks` blocks of its 16 rows, `stages` slots of `slot_bytes`."""
+    grid: int
+    stages: int
+    slot_bytes: int
+    x_bytes: int
+    part_bytes: int
+    acc_bytes: int
+    smem_bytes: int
+    ks: int
+    kc: int
+    ahead: int
+    max_tiles: int
+    nt: int                     # n8 tiles of the m rows (1, 2 or 4): the warps' split
+    tiles: tuple[int, int]      # (gate|up, down)
+    nblk: tuple[int, int]       # quant blocks a row: (d / 32, f / 32)
+
+
+def planar_nt(m: int) -> int:
+    """n8 tiles of m rows as the kernel's 16 warps split them (1, 2 or 4):
+    warp w takes tile w // (16 // nt) and the quant blocks w % (16 // nt),
+    + 16 // nt, ... of each stage."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4
+
+
+def planar_tile_range(tiles: int, grid: int, b: int) -> tuple[int, int]:
+    return b * tiles // grid, (b + 1) * tiles // grid
+
+
+def planar_slot_bytes(ks: int, nblk: tuple[int, int]) -> int:
+    """A slot: 16 rows of ks blocks' qs (each row padded by PLANAR_ROW_PAD),
+    then the scales: 16 rows of ks, or, where a row's blocks are not a
+    multiple of 8 (its scale rows are then not 16-byte aligned), the tile's
+    whole scale rows."""
+    qs = PLANAR_TILE * (ks * 16 + PLANAR_ROW_PAD)
+    sc = max(PLANAR_TILE * (nb if nb % 8 else ks) * 2 for nb in nblk)
+    return -(-(qs + sc) // SLOT_ALIGN) * SLOT_ALIGN
+
+
+def planar_chunks(nblk: int, kc: int, ks: int) -> list[tuple[int, int, int]]:
+    """(first block, blocks, stages) of each chunk of a row of nblk blocks."""
+    return [(c0, min(kc, nblk - c0), -(-min(kc, nblk - c0) // ks)) for c0 in range(0, nblk, kc)]
+
+
+def planar_plan(m: int, d: int, f: int, sm_count: int) -> PlanarPlan:
+    """K6b's tensor-core plan for m rows (1..32; ops/ffn.py runs it above
+    PLANAR_F32_MAX_M) at d, f (multiples of 32): the widest x chunk (kc
+    quant blocks, up to PLANAR_X_FLOATS / (32 m)) that leaves a ring of
+    PLANAR_MIN_STAGES slots beside it, stages of 64 blocks (32 or 16 where a
+    chunk holds fewer: a stage is 32 row pieces, and fewer, larger ones
+    stream faster)."""
+    if not (0 < m <= 32 and d > 0 and f > 0 and d % 32 == 0 and f % 32 == 0):
+        raise ValueError(f"fused_ffn: m {m}, d {d}, f {f}: want 1..32 rows, d and f % 32 == 0")
+    grid = max(1, sm_count)
+    nt = planar_nt(m)
+    nblk = (d // 32, f // 32)
+    tiles = (f // 8, d // PLANAR_TILE)
+    cap = PLANAR_X_FLOATS // (32 * m)
+    ks = 64 if cap >= 64 else 32 if cap >= 32 else 16
+    kc = min(-(-max(nblk) // ks) * ks, cap // ks * ks)
+    slot = planar_slot_bytes(ks, nblk)
+    max_tiles = max(-(-t // grid) for t in tiles)
+    part = 16 * PLANAR_TILE * 8 * 4           # each warp's sums: 16 rows of its n8 tile
+    while True:
+        x = m * (kc * 64 + PLANAR_XPAD) * 4
+        acc = max_tiles * PLANAR_TILE * m * 4 if any(nb > kc for nb in nblk) else 0
+        stages = min(MAX_STAGES, (SMEM_LIMIT - HEADER_BYTES - x - part - acc) // slot)
+        if stages >= PLANAR_MIN_STAGES or kc == ks:
+            break
+        kc -= ks
+    if stages < 2:
+        raise ValueError(f"fused_ffn: m {m}, d {d}, f {f} leave no room for two {slot}-byte "
+                         f"stages")
+    return PlanarPlan(grid, stages, slot, x, part, acc, HEADER_BYTES + stages * slot + x + part
+                      + acc, ks, kc, max(1, AHEAD_BYTES // slot), max_tiles, nt, tiles, nblk)
+
+
+def planar_ints(plan: PlanarPlan) -> list[int]:
+    """The host ints csrc/ffn_planar.cu's launcher reads."""
+    return [plan.grid, plan.stages, plan.slot_bytes, plan.x_bytes, plan.part_bytes,
+            plan.acc_bytes, plan.smem_bytes, plan.ks, plan.kc, plan.ahead, plan.max_tiles]
+
+
+_planar: dict[tuple, tuple] = {}
+
+
+def planar_args(device: torch.device, m: int, d: int, f: int) -> tuple[PlanarPlan, ctypes.Array]:
+    """(plan, host ints as a ctypes array) of planar_plan on `device`'s
+    card, cached per card and shape."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, m, d, f)
+    with _lock:
+        hit = _planar.get(key)
+        if hit is None:
+            plan = planar_plan(m, d, f, sm_count(index))
+            ints = planar_ints(plan)
+            hit = _planar[key] = (plan, (ctypes.c_int * len(ints))(*ints))
+    return hit
+
+
+DECODE_GROUP = 32         # csrc/decode_attn.cu: keys a warp scores at once (one a lane)
+DECODE_WARPS = 4
+DECODE_MAX_SPLIT = 16
+
+
+def decode_splits(b: int, hkv: int, s: int, hd: int, sm_count: int) -> int:
+    """K4's blocks per (batch row, KV head): as many as the card holds at once
+    (two an SM at head_dim <= 64, whose tiles take ~85 KB of shared memory;
+    one above), at most DECODE_MAX_SPLIT (the last block merges every
+    split's partial) and no more than an S-row cache has groups of a block's
+    warps."""
+    most = max(1, -(-s // (DECODE_GROUP * DECODE_WARPS)))
+    per_sm = 2 if hd <= 64 else 1
+    return max(1, min(DECODE_MAX_SPLIT, most, per_sm * sm_count // max(1, b * hkv)))
+
+
+def decode_split_keys(kv_len: int, s: int, n_split: int, split: int) -> tuple[int, int]:
+    """Keys [k0, k1) of split `split` for a row of kv_len keys (clipped to
+    [0, s]): groups of DECODE_GROUP keys, split balanced over n_split."""
+    length = max(0, min(kv_len, s))
+    g = -(-length // DECODE_GROUP)
+    g0, g1 = split * g // n_split, (split + 1) * g // n_split
+    return min(g0 * DECODE_GROUP, length), min(g1 * DECODE_GROUP, length)
 
 
 def host_ints(plan: StreamPlan) -> list[int]:

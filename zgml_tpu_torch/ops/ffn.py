@@ -36,6 +36,10 @@ from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
 FFN_MAX_ROWS = 32
+# K6b's CUDA-core form (K6d's streaming and f32 dots on its plan) up to this
+# many rows, the split-TF32 tensor-core form above: the faster of the two at
+# each of 1, 4 and 7 rows on the H100 (PERF.md)
+PLANAR_F32_MAX_M = 4
 FFN_MAX_DP = 8192        # ffn_compatible's padded-D cap (zgml_tpu/ops/ffn.py:556)
 
 
@@ -152,17 +156,35 @@ def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
 
 def fused_ffn_cuda(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tensor:
     """Launch K6b (csrc/ffn_planar.cu): h f32 [..., D] (normed) with at most
-    32 rows, Q4_0 weights -> down(silu(gate(h)) * up(h)) f32 [..., D]."""
+    32 rows, Q4_0 weights -> down(silu(gate(h)) * up(h)) f32 [..., D]. Up to
+    PLANAR_F32_MAX_M rows its CUDA-core form on K6d's plan
+    (decode_plan.ffn_plan), above its tensor-core form on
+    decode_plan.planar_plan (each cached per shape and card)."""
     m = _check("fused_ffn", h, (), gu, wd)
     if gu.kind != "q4_0":
         raise ValueError(f"fused_ffn: K6b takes q4_0 weights, got {gu.kind}")
+    if not all(t.data_ptr() % 16 == 0 for t in (gu.d, wd.d)):
+        raise ValueError("fused_ffn: the weights' d planes must be 16-byte aligned (bulk copies)")
+    if h.data_ptr() % 16:           # its first chunk is a bulk copy, the rest float4 loads
+        h = h.clone()
     dev, d, f = h.device, h.shape[-1], wd.k
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     y = torch.empty_like(h)
     act = torch.empty((m, f), dtype=torch.float32, device=dev)
-    status = build.library().zgml_ffn(
-        KIND_CODE[gu.kind], h.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(), wd.qs.data_ptr(),
-        wd.d.data_ptr(), y.data_ptr(), act.data_ptr(), coop.barrier_words(dev).data_ptr(),
-        m, d, f, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if m <= PLANAR_F32_MAX_M:
+        _, plan, bounds = decode_plan.launch_args(dev, decode_plan.ffn_plan, m, d, f, "q4_0",
+                                                  False)
+        status = build.library().zgml_ffn_f32(
+            h.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(), wd.qs.data_ptr(), wd.d.data_ptr(),
+            y.data_ptr(), act.data_ptr(), coop.barrier_words(dev).data_ptr(), m, d, f, plan,
+            bounds.data_ptr(), index, stream)
+    else:
+        _, plan = decode_plan.planar_args(dev, m, d, f)
+        status = build.library().zgml_ffn(
+            KIND_CODE[gu.kind], h.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(),
+            wd.qs.data_ptr(), wd.d.data_ptr(), y.data_ptr(), act.data_ptr(),
+            coop.barrier_words(dev).data_ptr(), m, d, f, plan, index, stream)
     build.check(status, "fused_ffn")
     global_profile.count_op("fused_ffn", "cuda")
     return y

@@ -193,7 +193,7 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
             "the weights' qs and d planes must be 16-byte aligned (bulk copies)")
     s = ck.shape[3]
     lib = build.library()
-    n_split = lib.zgml_decode_split_count(s)          # phase B chunks as K4's
+    n_split = lib.zgml_decode_split_count(s)          # phase B chunks as K8's
     x_out = torch.empty_like(x)
     kv_cur = torch.empty((2, n_kv_heads, hd), dtype=torch.float32, device=dev)
     scratch = torch.empty(2 * n_heads * hd + n_heads * n_split * (hd + 2),
