@@ -7,15 +7,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. print the card (nvidia-smi name, power limit), build the CUDA kernels
      from zgml_tpu_torch/csrc with nvcc (one process per source, in
      parallel), print the build time and ptxas' registers and spills of
-     the instantiations of the flash kernels, K11, K12, K13, K7, K6, K14 and
-     K15 (none of which may spill, but K6's groups of 2 and 4 rows, recorded);
+     the instantiations of the flash kernels, K11, K12, K13, K7, K6, K14,
+     K15, K1 and K5 (none of which may spill, but K6's groups of 2 and 4
+     rows, recorded);
   2. check each kernel against its plain torch version on the card at the
      shapes of the main paths, and time both (device time from
      torch.profiler, or from CUDA events around calls queued behind a spin
      kernel where the profiler's windows come back empty). At the TinyLlama-1.1B shapes, at Q4_0 and at Q8_0
      where the kernel takes a weight: K2 at M = 1 and 128 on the five
-     projections; K1 at M = 1, 8, 32 (its quantized activations bit-equal to
-     the plain ones); K5 on lm_head (its id equal to argmax of K1 exactly;
+     projections; K1 at M = 1, 4, 8, 32 (the pre-pass's and the kernel's own
+     quantized activations bit-equal to the plain ones, two launches
+     bit-equal, its rms error against a float64 evaluation of the same int8
+     function at most I8_RMS_RATIO x the plain version's, one kernel record
+     a call); K5 on lm_head (its id equal to argmax of K1 exactly;
      its error is how far the plain logit of its id lies below the plain
      maximum); K6 at M = 1, 8, 32 (K6d at Q4_0, K6a at Q8_0); K6b at M = 1,
      7, 32; K7 at pos 0, 1, 200, 2047 of a random stacked cache, bf16 and
@@ -223,7 +227,11 @@ KV8_DECODE_LENS = [[1, 200, 2047, 1000]]          # TinyLlama, batch 4
 DECODE_BATCH_LENS = [0, 1, 200, 2047]
 KV8_DECODE_LENS_7B = [[200], [2047]]              # Llama-2-7B, batch 1
 LOGIT_RTOL = 1e-3          # K2 and K3 run f32 operands
-I8_ROWS = (1, 8, 32)       # K1 cases: decode, a small batch, the largest int8 call
+I8_ROWS = (1, 4, 8, 32)    # K1 cases: decode, kv8_tiny's batch-4 decode, a small batch, the
+                           # largest int8 call
+# K1's rms error against a float64 evaluation of the same int8 function at
+# most this x the plain version's
+I8_RMS_RATIO = 2.0
 K2_ROWS = (1, 128)         # K2 cases: decode (the GEMV tier), a prefill chunk (tiled)
 K2_TRAIN_ROWS = (512,)     # and at TinyLlama-1.1B train_q4_frozen's forward, B 1 x T 512
 ATTN_POS = (0, 1, 200, 2047)
@@ -621,9 +629,10 @@ def check_kernels(torch, dev):
     from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref, qkv_ref
     from zgml_tpu_torch.quant.kv_cache import quantize_columns
     from zgml_tpu_torch.ops.qmatmul import (GEMV_MAX_M, _fwd_card, greedy_cuda, greedy_ref,
-                                            qmatmul_cuda, qmatmul_i8_cuda, qmatmul_i8_ref,
-                                            qmatmul_plan, qmatmul_ref, quantize_act_cuda,
-                                            quantize_act_ref, rmsnorm_quantize_ref)
+                                            i8_plan, qmatmul_cuda, qmatmul_i8_cuda,
+                                            qmatmul_i8_ref, qmatmul_plan, qmatmul_ref,
+                                            quantize_act_cuda, quantize_act_ref,
+                                            rmsnorm_quantize_ref)
     from zgml_tpu_torch.quant.packed import PackedWeight
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -766,22 +775,48 @@ def check_kernels(torch, dev):
                    0 if tiled else 2 * m * n * k, lib, LIBRARY_K2,
                    tf32ops=TF32_PASSES * 2 * m * n * k if tiled else 0, **extra)
         del wds
+        wd64 = w.dequant().double()
         for m in I8_ROWS:
             x = torch.randn((m, k), device=dev, generator=g)
             xq, xs = quantize_act_cuda(x)
             rq, rs = quantize_act_ref(x)
-            got, want = qmatmul_i8_cuda(x, w), qmatmul_i8_ref(x, w)
+            act = (torch.empty_like(rq), torch.empty_like(rs))
+            got, want = qmatmul_i8_cuda(x, w, act_out=act), qmatmul_i8_ref(x, w)
+            again = qmatmul_i8_cuda(x, w)
             torch.cuda.synchronize()
             kname = NAME["i8", kind]
+            case = f"{model}{name} M={m}"
             require(torch.equal(xq, rq)
                     and torch.equal(xs.view(torch.int32), rs.view(torch.int32)),
-                    f"{kname} {model}{name} M={m}: quantized activations differ from plain")
+                    f"{kname} {case}: the pre-pass's activations differ from plain")
+            require(torch.equal(act[0], rq)
+                    and torch.equal(act[1].view(torch.int32), rs.view(torch.int32)),
+                    f"{kname} {case}: the kernel's own activations differ from plain")
             err, bound = rel_err(got, want)
             require(bool(torch.isfinite(got).all()) and err <= bound,
-                    f"{kname} {model}{name} M={m}: max_abs_err {err:.3g} > bound {bound:.3g}")
+                    f"{kname} {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            require(bool(torch.equal(got, again)), f"{kname} {case}: two launches differ")
+            # the same int8 function in float64: x's own levels and scales, exact weights
+            exact = ((rq.double().view(m, -1, 32) * rs.double()[..., None]).view(m, k)
+                     @ wd64.T)
+            rms, rms_plain = (float((y.double() - exact).square().mean().sqrt())
+                              for y in (got, want))
+            del exact
+            require(rms <= I8_RMS_RATIO * rms_plain,
+                    f"{kname} {case}: rms error vs float64 {rms:.3g} > {I8_RMS_RATIO} x "
+                    f"plain's {rms_plain:.3g}")
+            per_call = kernels_per_call(torch, lambda: qmatmul_i8_cuda(x, w))
+            require(per_call is None or len(per_call) == 1,
+                    f"{kname} {case}: more than one kernel a call: {per_call}")
             t = time_ms(torch, [lambda w_=c: qmatmul_i8_cuda(x, w_) for c in copies], 50)
             tp = time_ms(torch, [lambda w_=c: qmatmul_i8_ref(x, w_) for c in copies], 10)
-            extra = {}
+            plan = i8_plan(m, n, k, kind, torch.cuda.get_device_properties(dev).
+                           multi_processor_count)
+            extra = dict(rms_vs_plain=rms / rms_plain if rms_plain else None,
+                         kernels_per_call="not measured" if per_call is None else per_call,
+                         plan=dict(tr=plan.tr, S=plan.S, stages=plan.stages,
+                                   slot_bytes=plan.slot_bytes, self_q=plan.self_q, xg=plan.xg,
+                                   pis=plan.pis, smem_bytes=plan.smem_bytes))
             if kind == "q4_0":    # int4pack rounds x to bf16: another function, a note
                 i4, i4_note = time_int4(packs, x, qmatmul_ref(x, w)) if packs is not None \
                     else (None, refusal)
@@ -791,6 +826,7 @@ def check_kernels(torch, dev):
                    m * k * 4 + wbytes + m * n * 4, 0, None,
                    NO_LIBRARY["q8" if kind == "q8_0" else "q4_i8"], i8ops=2 * m * n * k,
                    **extra)
+        del wd64
         if name == "lm_head":
             check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
                          qmatmul_i8_cuda, qmatmul_i8_ref, model)
@@ -2697,7 +2733,8 @@ def main() -> int:
                              ("ptxas_ffn", "ffn_norm_kernel"),
                              ("ptxas_stack", "stack_decode_kernel"),
                              ("ptxas_planar", "ffn_planar"),
-                             ("ptxas_decode", "decode_bf16_kernel")):
+                             ("ptxas_decode", "decode_bf16_kernel"),
+                             ("ptxas_i8", "qi8_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
                 log(f"  ptxas {e['entry'][:70]}: {e.get('registers')} registers, "
@@ -2734,6 +2771,11 @@ def main() -> int:
                    if e.get("spill_stores") and "f32_kernelILi4E" not in e["entry"]]
         require(summary["ptxas_planar"] and summary["ptxas_decode"] and not spilled,
                 f"K6b / K4 spill registers (or no ptxas report): {spilled}")
+        # K1 / K5 (every instantiation): no spill and no stack frame
+        spilled = [e["entry"] for e in summary["ptxas_i8"]
+                   if e.get("spill_stores") or e.get("stack")]
+        require(summary["ptxas_i8"] and not spilled,
+                f"K1 / K5 spill registers or use a stack frame (or no ptxas report): {spilled}")
 
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")

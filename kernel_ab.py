@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the attention kernels, the decode kernels K7 / K6 / K6b / K4 / K8 /
-K14 / K15, K2 (the quantized matmul), K11 (its dx), K12 (rmsnorm) and K13
-(the fused elementwise chain) of two checkouts of zgml_tpu_torch on one
-card, in turns (A, B, B, A by default), each turn in its own process.
+K14 / K15, K1 / K5 (the int8 GEMV and the greedy head), K2 (the quantized
+matmul), K11 (its dx), K12 (rmsnorm) and K13 (the fused elementwise chain)
+of two checkouts of zgml_tpu_torch on one card, in turns (A, B, B, A by
+default), each turn in its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode] [--rates]
                          [--only K6b,K4,...] [--bits]
@@ -28,7 +29,10 @@ and K6c at Llama-2-7B's at M = 1, 8, K6b at both models' FFN at M = 1, 4,
 K8 at the smoke's (TinyLlama-1.1B batch 4, Llama-2-7B batch 1 at kv_len 200
 and 2047), and K14, K15 and K15 with f32 operands
 over TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4 at pos
-0, 1, 200 and 2047 (the smoke's megacall cases); K11 at Q4_0 and Q8_0
+0, 1, 200 and 2047 (the smoke's megacall cases), K1 at the smoke's cases
+(chip_smoke.I8_ROWS on TinyLlama-1.1B's five projections at Q4_0 and Q8_0
+and on Llama-2-7B's at Q4_0) and K5 at the smoke's (lm_head, the same
+kinds and models); K11 at Q4_0 and Q8_0
 on M = 512 rows of g at the five TinyLlama-1.1B projections (wqkv, wo,
 w_gate_up, w_down, lm_head); K2 at Q4_0 and Q8_0 on a 128-row prefill chunk
 at those five projections and at Llama-2-7B's (wqkv, wo, w_gate_up, w_down,
@@ -46,13 +50,16 @@ smoke's synthetic GGUFs (written under .bench_cache/ where missing) and
 times every path of chip_smoke.PATHS end to end as the smoke's tg32 does: a
 32-token decode_n after a 128-token prefill, on the host clock around
 synchronized calls, the paths there and back RATE_RUNS times after a
-warm-up round; the median per path, in host us a token. With --decode, --only times
-only the named families of the decode kernels (K7, K6, K6b, K4, K8, K14:
-K14 takes K15 with it). With --bits each turn also hashes K8's output at
-fixed inputs (numpy-seeded, the smoke's cases and a batch with a kv_len 0
-row), and the sides' hashes are compared: the same bits on every turn of
-both, or not. Prints one JSON line per turn, then the median per case and
-side, with the card's name and power limit.
+warm-up round; the median per path, in host us a token. --only times only
+the named families of the decode kernels (K7, K6, K6b, K4, K8, K14, K1, K5:
+K14 takes K15 with it), and implies --decode. With --bits each turn also
+hashes K8's and K1's outputs at fixed inputs (numpy-seeded: K8 at the
+smoke's cases and a batch with a kv_len 0 row, K1 at M = 1, 4, 8, 32 of
+TinyLlama-1.1B's wqkv and lm_head at both kinds, where --only names the
+family), and the hashes are compared: each side the same bits on every
+turn, and the two sides the same bits or not. Prints one JSON line per
+turn, then the median per case and side, with the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -279,6 +286,50 @@ def decode_us(torch, dev, g, time_ms, smoke) -> dict:
                     torch, [lambda: tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16=bf16)],
                     20)[0]
         del layers, stack, tape, ck, cv
+    # K1 at the smoke's cases, K5 on their lm_head
+    from zgml_tpu_torch.ops.qmatmul import greedy_cuda, qmatmul_i8_cuda
+    for tag, shapes, kinds in (("", smoke.GEMM_SHAPES, ("q4_0", "q8_0")),
+                               ("7B ", smoke.GEMM_SHAPES_7B, ("q4_0",))):
+        if not (wanted("K1") or wanted("K5")):
+            break
+        for kind in kinds:
+            for name, n, k in shapes:
+                if name != "lm_head" and not wanted("K1"):
+                    continue
+                copies = copies_of(kind, n, k)
+                for m in smoke.I8_ROWS if wanted("K1") else ():
+                    x = torch.randn((m, k), device=dev, generator=g)
+                    out[f"K1 {kind} {tag}{name} M={m}"] = time_ms(
+                        torch, [lambda w_=c: qmatmul_i8_cuda(x, w_) for c in copies], 50)[0]
+                if name == "lm_head" and wanted("K5"):
+                    x = torch.randn((1, k), device=dev, generator=g)
+                    out[f"K5 {kind} {tag}lm_head"] = time_ms(
+                        torch, [lambda w_=c: greedy_cuda(x, w_) for c in copies], 50)[0]
+                del copies
+    return out
+
+
+def k1_bits(torch, dev) -> dict:
+    """sha256 of K1's output bytes at fixed numpy-seeded inputs, per case."""
+    import hashlib
+
+    import numpy as np
+    from zgml_tpu_torch.ops.qmatmul import qmatmul_i8_cuda
+    from zgml_tpu_torch.quant.packed import PackedWeight
+    out = {}
+    for kind in ("q4_0", "q8_0"):
+        for name, n, k in (("wqkv", 2560, 2048), ("lm_head", 32000, 2048)):
+            rng = np.random.default_rng(n + len(kind))
+            d = torch.from_numpy(rng.uniform(0.001, 0.021, (n, k // 32)).astype(np.float16))
+            if kind == "q4_0":
+                qs = torch.from_numpy(rng.integers(0, 256, (n, k // 2), dtype=np.uint8))
+            else:
+                qs = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8))
+            w = PackedWeight(n, k, qs.to(dev), d.to(dev), kind)
+            for m in (1, 4, 8, 32):
+                x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev)
+                out[f"K1 bits {kind} {name} M={m}"] = hashlib.sha256(
+                    qmatmul_i8_cuda(x, w).cpu().numpy().tobytes()).hexdigest()
     return out
 
 
@@ -328,7 +379,10 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         raise RuntimeError(f"imported {src}, not the checkout at {root}")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    bits = k8_bits(torch, dev) if "--bits" in sys.argv else {}
+    bits = {}
+    if "--bits" in sys.argv:
+        bits.update(k8_bits(torch, dev) if wanted("K8") else {})
+        bits.update(k1_bits(torch, dev) if wanted("K1") else {})
     if decode_only:
         out = {k: v * 1e3 for k, v in decode_us(torch, dev, g, time_ms, smoke).items()}
         return {**out, **bits, **path_rates(torch, smoke)} if rates else {**out, **bits}
@@ -413,7 +467,8 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
 
 def main() -> int:
     gguf = sys.argv[sys.argv.index("--gguf") + 1] if "--gguf" in sys.argv else None
-    decode_only, rates = "--decode" in sys.argv, "--rates" in sys.argv
+    decode_only = "--decode" in sys.argv or "--only" in sys.argv
+    rates = "--rates" in sys.argv
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
         print(json.dumps(one(sys.argv[2], gguf, decode_only, rates)))
         return 0
@@ -437,9 +492,13 @@ def main() -> int:
         print(side, proc.stdout.strip().splitlines()[-1], flush=True)
     print(card)
     for case in runs[a][0]:
-        if isinstance(runs[a][0][case], str):       # --bits: one hash on every turn of both
-            same = len({r[case] for r in runs[a] + runs[b]}) == 1
-            print(f"{case:58s} {'the same bits on every turn' if same else 'DIFFERENT bits'}")
+        if isinstance(runs[a][0][case], str):       # --bits: a hash a turn
+            sa, sb = {r[case] for r in runs[a]}, {r[case] for r in runs[b]}
+            if len(sa) == 1 and len(sb) == 1:
+                print(f"{case:58s} each side the same bits on every turn; the sides "
+                      f"{'agree' if sa == sb else 'differ'}")
+            else:
+                print(f"{case:58s} DIFFERENT bits between turns of one side")
             continue
         ma = statistics.median(r[case] for r in runs[a])
         mb = statistics.median(r[case] for r in runs[b])

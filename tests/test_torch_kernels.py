@@ -219,6 +219,27 @@ def test_q4_matmul_i8(cuda, m, n, k, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", [(1, 2560, 2048), (4, 32000, 2048), (8, 2048, 5632),
+                                   (32, 2048, 5632), (32, 4096, 11008), (17, 300, 576),
+                                   (2, 1000, 512)])
+def test_q4_matmul_i8_own_activations_two_launches(cuda, m, n, k, kind):
+    """K1's own int8 activations (act_out) are the plain pre-pass's bit for
+    bit, and two launches give the same bits, in every form of its plan."""
+    rng = np.random.default_rng(m + n + k)
+    w = _weight(rng, n, k, cuda, kind)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    act = (torch.empty((m, k), dtype=torch.int8, device=cuda),
+           torch.empty((m, k // 32), dtype=torch.float32, device=cuda))
+    first = qmatmul_i8_cuda(x, w, act_out=act)
+    second = qmatmul_i8_cuda(x, w)
+    rq, rs = quantize_act_ref(x)
+    torch.cuda.synchronize()
+    assert torch.equal(act[0], rq) and torch.equal(act[1].view(torch.int32), rs.view(torch.int32))
+    assert torch.equal(first, second)
+    _close(first, qmatmul_i8_ref(x, w))
+
+
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("n,k,seed", [(32000, 2048, 0), (32000, 2048, 1), (96, 64, 2),
                                       (1000, 512, 3)])
 def test_q4_greedy(cuda, n, k, seed, kind):

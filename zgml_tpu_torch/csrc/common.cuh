@@ -67,10 +67,8 @@ inline int allow_dynamic_smem(K kernel, size_t bytes) {
 // the two nibbles of a byte, j and j + 16; Q8_0 goes in order).
 // level(w, j) is element j's integer level (natural order) as a float, which
 // the caller scales by d; with j a constant after unrolling it compiles to a
-// shift and a mask. to_i8(w, wi) gives the block as 8 words of signed bytes,
-// elements 4q..4q+3 in word q, for dot_i8 (once per block, however many
-// activation rows it meets). KIND is the code the launchers take (0 = q4_0,
-// 1 = q8_0; ops/qmatmul.py KIND_CODE).
+// shift and a mask. KIND is the code the launchers take (0 = q4_0, 1 = q8_0;
+// ops/qmatmul.py KIND_CODE).
 
 struct FmtQ4_0 {   // byte j: element j in the low nibble, j + 16 in the high one
   static constexpr int KIND = 0, BYTES = 16, WORDS = 4;
@@ -78,13 +76,6 @@ struct FmtQ4_0 {   // byte j: element j in the low nibble, j + 16 in the high on
   __device__ __forceinline__ static float level(const uint32_t (&w)[WORDS], int j) {
     const uint32_t byte = (w[(j & 15) >> 2] >> (8 * (j & 3))) & 0xFFu;
     return (float)((int)(j < 16 ? (byte & 15u) : (byte >> 4)) - 8);
-  }
-  __device__ __forceinline__ static void to_i8(const uint32_t (&w)[WORDS], int (&wi)[8]) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {   // nibbles to signed bytes: (n & 15) - 8, four at a time
-      wi[q] = (int)__vsubss4(w[q] & 0x0F0F0F0Fu, 0x08080808u);
-      wi[4 + q] = (int)__vsubss4((w[q] >> 4) & 0x0F0F0F0Fu, 0x08080808u);
-    }
   }
 };
 
@@ -94,19 +85,7 @@ struct FmtQ8_0 {   // byte j: element j as int8
   __device__ __forceinline__ static float level(const uint32_t (&w)[WORDS], int j) {
     return (float)((int)(w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
   }
-  __device__ __forceinline__ static void to_i8(const uint32_t (&w)[WORDS], int (&wi)[8]) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) wi[q] = (int)w[q];
-  }
 };
-
-// Exact int8 dot of a block (to_i8 words) with 8 words of int8 activations.
-__device__ __forceinline__ int dot_i8(const int (&wi)[8], const int* xb) {
-  int isum = 0;
-#pragma unroll
-  for (int q = 0; q < 8; ++q) isum = __dp4a(wi[q], xb[q], isum);
-  return isum;
-}
 
 // Run `body` with F = the format of kind code `kind`; ZGML_ERR_KIND otherwise.
 #define ZGML_DISPATCH_KIND(kind, ...)                  \
@@ -174,7 +153,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// ---- the int8 activation tier (K1, K5, and the i8a modes of K6 and K7) ----
+// ---- the int8 activation tier (K1's pre-pass and the i8a modes of K6 and K7;
+// K1 and K5 quantize in their launch by qmatmul_i8.cu quantize_thread) ----
 
 // The JAX `_quantize_act` (zgml_tpu/ops/qmatmul.py:181-190) of one 32-block
 // held one element per lane of a warp: s = amax / 127, inv = 1 / s (0 when
@@ -188,6 +168,3 @@ __device__ __forceinline__ int quantize_lane(float v, float& s) {
   return (int)fminf(fmaxf(rintf(v * inv), -127.f), 127.f);
 }
 
-// Words per 32-block of int8 activations in shared memory: the block's 8
-// words and one of padding, so 32 lanes on consecutive blocks hit 32 banks.
-constexpr int XQ_WORDS = 9;

@@ -17,8 +17,9 @@
 // place where ZGML_TPU_FFN_I8A holds (by default at padded d >= 4096): the
 // rmsnorm and the per-32-block quantization of n, which JAX runs outside its
 // kernel, run here in the kernel's prologue (weight_stream.cuh stage_norm_i8,
-// bit-equal to the JAX pre-pass on the same normed row), gate and up are K1's
-// exact `__dp4a` block dots, and the down projection stays f32 dequant.
+// bit-equal to the JAX pre-pass on the same normed row), gate and up are
+// exact `__dp4a` int8 block dots (ws::dot_i8), and the down projection stays
+// f32 dequant.
 //
 // Semantics (the plain version is ops/ffn.py fused_ffn_norm_ref): per row,
 // n = x * rsqrt(mean(x^2) + eps) * g; act[f] = (gate_f * sigmoid(gate_f)) * up_f;

@@ -12,11 +12,10 @@
 // The phases' units, the ring and the activation area come from the Python
 // plan (ops/decode_plan.py, whose Phase and host ints this header reads);
 // the launchers check it against the kernel's own needs. The dots keep the
-// arithmetic and the order of the warp-per-row kernels they replace
-// (common.cuh rows_f32, qmatmul_i8.cu): lane l takes blocks l, l + 32, ... of
-// a row, each block summed in F::elem order and scaled by its d with one
-// fma, the lanes then summed by the xor butterfly of warp_sum; the int8
-// block dots are exact. Levels become
+// arithmetic and the order of a warp-per-row GEMV (common.cuh rows_f32):
+// lane l takes blocks l, l + 32, ... of a row, each block summed in F::elem
+// order and scaled by its d with one fma, the lanes then summed by the xor
+// butterfly of warp_sum; the int8 block dots (`__dp4a`) are exact. Levels become
 // floats by the exponent trick (2^23 + n, less 2^23 + 8 or + 128: exact and
 // off the slow int-to-float unit), and a Q4_0 int8 block dot takes the
 // unsigned nibbles less 8 times the activation block's sum (the same integer).
@@ -684,7 +683,7 @@ __device__ __forceinline__ void dot_bf16(const StageView<FmtQ4_0>& v, const int 
 
 // The same on MR staged int8 rows (row m's words at xq + m * xq_row, laid
 // out as stage_norm_i8 stages them): exact block dots, then acc +=
-// float(isum) * (xs * d) (K1's order).
+// float(isum) * (xs * d), in dot_f32's order.
 template <class F, int R, int MR>
 __device__ __forceinline__ void dot_i8(const StageView<F>& v, const int (&j)[R], const int* xq,
                                        int xq_row, int lane, float (&acc)[R][MR]) {

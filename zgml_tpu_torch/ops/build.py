@@ -61,8 +61,8 @@ _SIGNATURES = {
     "zgml_decode_split_count": (_I,),
     "zgml_flash_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),
-    "zgml_qmatmul_i8": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "zgml_greedy": (_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "zgml_qmatmul_i8": (_I, *(_P,) * 8, _I, _I, _I, _IP, _I, _P),
+    "zgml_greedy": (_I, *(_P,) * 7, _I, _I, _IP, _I, _P),
     "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _IP, _P, _I, _P),
     "zgml_ffn": (_I, *(_P,) * 8, _I, _I, _I, _IP, _I, _P),
     "zgml_ffn_f32": (*(_P,) * 8, _I, _I, _I, _IP, _P, _I, _P),

@@ -51,3 +51,22 @@ def counter_words(device: torch.device, n: int) -> torch.Tensor:
             ws = torch.zeros(max(n, 64), dtype=torch.int32, device=torch.device("cuda", idx))
             _counters[key] = ws
     return ws
+
+
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def scratch(device: torch.device, nbytes: int) -> torch.Tensor:
+    """At least nbytes of uint8 scratch (256-byte aligned, contents
+    undefined) for a launch on the current stream of `device` that writes it
+    before it reads it (K1 / K5's global int8 activations and K5's per-block
+    maxima), kept per (device, stream) and grown as needed, as the words."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    key = (idx, torch.cuda.current_stream(idx).cuda_stream)
+    with _lock:
+        buf = _scratch.get(key)
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1 << 16), dtype=torch.uint8,
+                              device=torch.device("cuda", idx))
+            _scratch[key] = buf
+    return buf

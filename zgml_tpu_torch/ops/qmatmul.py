@@ -6,11 +6,12 @@
       `wgmma` with K split across blocks by ``qmatmul_plan``.
   K1  qmatmul_i8_cuda / qmatmul_i8_ref  (csrc/qmatmul_i8.cu) counterpart of
       `_q4_i8_kernel` (K1q4) and `_q8_i8_kernel` (K1q8): int8 activations per
-      32-block, exact int8 block dots, f32 scale and sum; the tier for M <= 32.
+      32-block, exact int8 block dots (int8 tensor cores), f32 scale and sum;
+      the tier for M <= 32, one launch a call on the plan ``i8_plan``.
   K5  greedy_cuda / greedy_ref          (csrc/qmatmul_i8.cu) counterpart of
       `_q4_i8_argmax_kernel` (K5q4) / `_q8_i8_argmax_kernel` (K5q8) through
-      `qmatmul_greedy_pallas`: K1 on one row, then the argmax id (first index
-      on ties).
+      `qmatmul_greedy_pallas`: K1 on one row (K1's M = 1 plan and code), then
+      the argmax id (first index on ties).
   K11 qmatmul_bwd_cuda / qmatmul_bwd_ref (csrc/qmatmul_bwd.cu) counterpart of
       `_q4_bwd_kernel` (K11q4) and `_q8_bwd_kernel` (K11q8) under
       `_qmm_diff_bwd`: dx = g @ dequant(W), f32, in logical k order, on TF32
@@ -30,12 +31,16 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import threading
+from typing import NamedTuple
 
 import torch
 
-from zgml_tpu_torch.ops import build, refs
+from zgml_tpu_torch.ops import build, coop, refs
+from zgml_tpu_torch.ops.decode_plan import (AHEAD_BYTES, HEADER_BYTES, MAX_STAGES, SLOT_ALIGN,
+                                            SMEM_LIMIT, sm_count)
 from zgml_tpu_torch.quant.blocks import QK
-from zgml_tpu_torch.quant.packed import PackedWeight
+from zgml_tpu_torch.quant.packed import QS_BLOCK_BYTES, PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
 qmatmul_ref = refs.qmatmul_ref
@@ -203,20 +208,191 @@ def greedy_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     return torch.argmax(qmatmul_i8_ref(x.reshape(1, w.k), w)[0]).reshape(1)
 
 
-def _i8_scratch(m: int, k: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """xq int8 [m, k] and xs f32 [m, k/32] for the pre-pass."""
-    return (torch.empty((m, k), dtype=torch.int8, device=device),
-            torch.empty((m, k // QK), dtype=torch.float32, device=device))
+# K1 / K5's launch (csrc/qmatmul_i8.cu): one block an SM, 16 consumer warps
+# and a producer warp streaming the block's 16-row tiles, S at a time
+I8_TILE = 16               # weight rows an MMA tile (the A operand of m16n8k32)
+I8_SEG = 128               # bytes of a row one warp's item covers
+I8_WARPS = 16              # consumer warps (csrc/weight_stream.cuh ws::WARPS)
+I8_SELF_MAX_MK = 8192      # M * K up to which every block quantizes x itself (no grid barrier)
+I8_STAGE_BYTES = 72 * 1024    # a stage's size to aim at (72 KB beat 32 KB on the H100: PERF.md)
+I8_RED_BYTES = 256         # K5's per-warp (value, row) pairs and its last-block flag
+
+
+class I8Plan(NamedTuple):
+    """K1's launch for m rows (K5: m = 1). The grid's `tiles` tiles of tr
+    rows (16: the MMA's A operand; 8 where two 16-row slots do not fit, the
+    MMA's other 8 rows idle) are split into contiguous ranges, block b taking
+    [b * tiles // grid, (b + 1) * tiles // grid), streamed S tiles a stage
+    (whole rows: one bulk copy of qs and one of the scales) through `stages`
+    slots. self_q: every block quantizes x itself from a copy at xin_off;
+    else the blocks quantize their share into a global xq and pass a grid
+    barrier, then stage it at xf_off / xs_off, or, xg, read it from L2 in the
+    dot. A stage of st tiles splits each tile into i8_parts(plan, st) parts
+    of its nseg 128-byte segments (contiguous ranges), each taken by
+    i8_groups(nt) warps (one a column group of x's rows); each output's part
+    sums are added in part order at part_off (two buffers, stage by stage in
+    turn, where nt <= 2; where nt is 4 and a slot holds them, pis, in the
+    slot just consumed, and part takes none)."""
+    grid: int
+    stages: int
+    slot_bytes: int
+    S: int
+    ahead: int
+    self_q: bool
+    xg: bool
+    nt: int
+    xin_off: int
+    xf_off: int
+    xs_off: int
+    part_off: int
+    red_off: int
+    smem_bytes: int
+    tr: int
+    pis: bool
+    tiles: int
+    nseg: int
+
+
+def i8_nt(m: int) -> int:
+    """n8 tiles of m rows of x (the kernel's instantiations: 1, 2, 4)."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4
+
+
+def i8_groups(nt: int) -> int:
+    """Column groups a tile's warps split x's rows in (2 at four n8 tiles:
+    a warp then keeps two tiles' accumulators)."""
+    return 2 if nt == 4 else 1
+
+
+def _align(n: int) -> int:
+    return -(-n // SLOT_ALIGN) * SLOT_ALIGN
+
+
+def i8_plan(m: int, n: int, k: int, kind: str, sm_count: int) -> I8Plan:
+    """K1's plan (a pure function of the shapes, the kind and the SM count,
+    so y has the same bits on every run of a card). S: enough tiles that a
+    stage's segments give every warp work, I8_STAGE_BYTES' worth where that
+    is more, at most the tiles a block has, then the largest S up to that
+    whose segments split evenly over the warps. The first mode whose areas leave a ring of
+    two slots (or of the stages a block runs) wins, in order: self
+    quantization (m * k <= I8_SELF_MAX_MK), the global xq staged in shared
+    memory, the global xq read from L2; within a mode the largest S down to
+    1; 16-row tiles first, then 8-row ones, then 8-row ones in a ring of one
+    slot (no copy overlaps the dots). Raises ValueError where even that
+    finds no room."""
+    if not (1 <= m <= 32 and n >= 1 and k >= 32 and k % QK == 0):
+        raise ValueError(f"qmatmul_i8: m {m}, n {n}, k {k}: want 1..32 rows, k % 32 == 0")
+    grid = max(1, sm_count)
+    nb, bpb = k // QK, QS_BLOCK_BYTES[kind]
+    rq = nb * bpb
+    nseg = -(-rq // I8_SEG)
+    nt = i8_nt(m)
+    mx = 8 * nt
+    # the stages' partial sums: two buffers (one barrier a stage) up to 16
+    # rows; above, in the slot just consumed where it holds them (pis)
+    part1 = I8_WARPS * I8_TILE * (1 if m == 1 else mx) * 4    # M == 1: C's column 0 alone
+    modes = ([(True, False)] if m * k <= I8_SELF_MAX_MK else []) + [(False, False),
+                                                                   (False, True)]
+    for tr, least in ((I8_TILE, 2), (I8_TILE // 2, 2), (I8_TILE // 2, 1)):
+        tile_bytes = tr * nb * (bpb + 2)
+        tiles = -(-n // tr)
+        per_block = -(-tiles // grid)
+        wk = I8_WARPS // i8_groups(nt)      # warps a stage's parts of K go to
+        s_pref = max(1, min(wk, per_block, max(-(-wk // nseg), I8_STAGE_BYTES // tile_bytes)))
+        # the largest S up to that whose segments split evenly over the warps
+        even = [s for s in range(-(-wk // nseg), s_pref + 1) if s * nseg % wk == 0]
+        s_pref = max(even, default=s_pref)
+        for self_q, xg in modes:
+            xin = _align(m * k * 4) if self_q else 0
+            xf = 0 if xg else _align(m * k)
+            xs = 0 if xg else _align(nb * mx * 4)
+            for S in range(s_pref, 0, -1):
+                slot = _align(S * tile_bytes)
+                pis = nt == 4 and slot >= part1
+                part = 0 if pis else part1 * (2 if nt <= 2 else 1)
+                areas = xin + xf + xs + part + I8_RED_BYTES
+                need = -(-per_block // S)
+                stages = min(MAX_STAGES, (SMEM_LIMIT - HEADER_BYTES - areas) // slot, need)
+                if stages >= min(least, need):
+                    xin_off = HEADER_BYTES + stages * slot
+                    xf_off = xin_off + xin
+                    xs_off = xf_off + xf
+                    part_off = xs_off + xs
+                    red_off = part_off + part
+                    return I8Plan(grid, stages, slot, S, max(1, AHEAD_BYTES // slot), self_q,
+                                  xg, nt, xin_off, xf_off, xs_off, part_off, red_off,
+                                  red_off + I8_RED_BYTES, tr, pis, tiles, nseg)
+    raise ValueError(f"qmatmul_i8: an 8-row tile of {kind} rows of k {k} leaves no room for "
+                     f"a slot")
+
+
+def i8_ints(plan: I8Plan) -> list[int]:
+    """The host ints csrc/qmatmul_i8.cu's launchers read."""
+    return [plan.grid, plan.stages, plan.slot_bytes, plan.S, plan.ahead, int(plan.self_q),
+            int(plan.xg), plan.nt, plan.xin_off, plan.xf_off, plan.xs_off, plan.part_off,
+            plan.red_off, plan.smem_bytes, plan.tr, int(plan.pis)]
+
+
+def i8_block_tiles(plan: I8Plan, b: int) -> tuple[int, int]:
+    """Tiles [t0, t1) of block b."""
+    return b * plan.tiles // plan.grid, (b + 1) * plan.tiles // plan.grid
+
+
+def i8_stages(plan: I8Plan, b: int) -> list[tuple[int, int]]:
+    """(first tile, tiles) of each stage of block b."""
+    t0, t1 = i8_block_tiles(plan, b)
+    return [(u, min(plan.S, t1 - u)) for u in range(t0, t1, plan.S)]
+
+
+def i8_parts(plan: I8Plan, st: int) -> int:
+    """Parts of K a tile of a stage of st tiles is split in (each taken by
+    i8_groups(plan.nt) warps)."""
+    return min(I8_WARPS // (i8_groups(plan.nt) * st), plan.nseg)
+
+
+def i8_part_segments(plan: I8Plan, st: int, part: int) -> range:
+    """The 128-byte segments of a tile that part `part` of a stage of st
+    tiles takes (contiguous, in order)."""
+    p = i8_parts(plan, st)
+    return range(part * plan.nseg // p, (part + 1) * plan.nseg // p)
+
+
+def i8_scratch_bytes(plan: I8Plan, m: int, k: int, greedy: bool = False) -> int:
+    """Bytes of the launch's global scratch: the global xq (m * k, rounded
+    to 16) and its staged scales; K5 adds each block's best value and row."""
+    xq = -(-m * k // 16) * 16
+    return xq + k // QK * 8 * plan.nt * 4 + (8 * plan.grid if greedy else 0)
+
+
+_lock = threading.Lock()
+_i8_args: dict[tuple, tuple] = {}
+
+
+def i8_args(device: torch.device, m: int, n: int, k: int, kind: str
+            ) -> tuple[I8Plan, ctypes.Array]:
+    """(plan, host ints as a ctypes array) of i8_plan on `device`'s card,
+    cached per card and shape."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, m, n, k, kind)
+    with _lock:
+        hit = _i8_args.get(key)
+        if hit is None:
+            plan = i8_plan(m, n, k, kind, sm_count(index))
+            ints = i8_ints(plan)
+            hit = _i8_args[key] = (plan, (ctypes.c_int * len(ints))(*ints))
+    return hit
 
 
 def quantize_act_cuda(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K1's activation pre-pass alone, on the card: x f32 [M, K] -> (xq, xs),
-    bit-equal to quantize_act_ref (so a check can hold it to the plain one)."""
+    bit-equal to quantize_act_ref (so a check can hold it to the plain one).
+    K1 and K5 run the same device function inside their launch."""
     _require(x2.is_cuda and x2.dtype == torch.float32 and x2.dim() == 2
              and x2.is_contiguous() and x2.shape[1] % QK == 0,
              f"x must be a contiguous float32 [M, K % 32 == 0] CUDA tensor, got "
              f"{x2.dtype} {tuple(x2.shape)} on {x2.device}")
-    xq, xs = _i8_scratch(*x2.shape, x2.device)
+    xq = torch.empty(x2.shape, dtype=torch.int8, device=x2.device)
+    xs = torch.empty((x2.shape[0], x2.shape[1] // QK), dtype=torch.float32, device=x2.device)
     status = build.library().zgml_i8_quantize(
         x2.data_ptr(), xq.data_ptr(), xs.data_ptr(), x2.shape[0], x2.shape[1],
         torch.cuda.current_stream(x2.device).cuda_stream)
@@ -224,8 +400,22 @@ def quantize_act_cuda(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xq, xs
 
 
-def qmatmul_i8_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """K1: x f32 [..., K] with at most 32 rows -> f32 [..., N]."""
+def _act_ptrs(act_out, m: int, k: int, device) -> tuple[int | None, int | None]:
+    if act_out is None:
+        return None, None
+    xq, xs = act_out
+    _require(xq.dtype == torch.int8 and xq.numel() == m * k and xs.dtype == torch.float32
+             and xs.numel() == m * k // QK
+             and all(t.device == device and t.is_contiguous() for t in act_out),
+             f"act_out takes int8 [{m}, {k}] and float32 [{m}, {k // QK}] contiguous "
+             f"tensors on {device}")
+    return xq.data_ptr(), xs.data_ptr()
+
+
+def qmatmul_i8_cuda(x: torch.Tensor, w: PackedWeight, act_out=None) -> torch.Tensor:
+    """K1: x f32 [..., K] with at most 32 rows -> f32 [..., N]. act_out =
+    (xq int8 [M, K], xs f32 [M, K/32]) receives the kernel's own int8
+    activations (a check holds them to quantize_act_ref)."""
     _check(x, w)
     lead = x.shape[:-1]
     m = x.numel() // w.k
@@ -233,10 +423,14 @@ def qmatmul_i8_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     y = torch.empty((*lead, w.n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    xq, xs = _i8_scratch(m, w.k, x.device)
+    _require(w.d.data_ptr() % 16 == 0, "the weight's scales must be 16-byte aligned")
+    plan, ints = i8_args(x.device, m, w.n, w.k, w.kind)
+    xq_p, xs_p = _act_ptrs(act_out, m, w.k, x.device)
+    scratch = None if plan.self_q else coop.scratch(x.device, i8_scratch_bytes(plan, m, w.k))
     status = build.library().zgml_qmatmul_i8(
-        KIND_CODE[w.kind], x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.qs.data_ptr(),
-        w.d.data_ptr(), y.data_ptr(), m, w.n, w.k,
+        KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(),
+        xq_p, xs_p, None if scratch is None else scratch.data_ptr(),
+        coop.barrier_words(x.device).data_ptr(), m, w.n, w.k, ints, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "qmatmul_i8")
     global_profile.count_op(counter("qmatmul_i8", w.kind), "cuda")
@@ -329,15 +523,17 @@ class QMatmul(torch.autograd.Function):
 
 def greedy_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K5: one row x f32 [..., K] -> int64 [1] on the card, equal to
-    argmax(qmatmul_i8_cuda(x, w)) (same per-row device code)."""
+    argmax(qmatmul_i8_cuda(x, w)) (K1's M = 1 plan and device code)."""
     _check(x, w)
     _require(x.numel() == w.k, f"the greedy head takes one row, got {tuple(x.shape)}")
-    xq, xs = _i8_scratch(1, w.k, x.device)
-    ws = torch.empty(2, dtype=torch.int64, device=x.device)     # zeroed by the pre-pass
+    _require(w.d.data_ptr() % 16 == 0, "the weight's scales must be 16-byte aligned")
+    plan, ints = i8_args(x.device, 1, w.n, w.k, w.kind)
     out = torch.empty(1, dtype=torch.int64, device=x.device)
+    scratch = coop.scratch(x.device, i8_scratch_bytes(plan, 1, w.k, greedy=True))
     status = build.library().zgml_greedy(
-        KIND_CODE[w.kind], x.data_ptr(), xq.data_ptr(), xs.data_ptr(), w.qs.data_ptr(),
-        w.d.data_ptr(), ws.data_ptr(), out.data_ptr(), w.n, w.k,
+        KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), coop.barrier_words(x.device).data_ptr(),
+        coop.counter_words(x.device, 1).data_ptr(), w.n, w.k, ints, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "greedy")
     global_profile.count_op(counter("qmatmul_greedy", w.kind), "cuda")
