@@ -72,13 +72,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      same stack at most MEGA_RMS_RATIO x the plain version's and its rms
      distance from the plain version at most MEGA_ROUNDING_RATIO x the f32
      chain's (so a K15 without its bf16 roundings fails), all three
-     bit-equal over two launches, no spill or stack frame in any instantiation;
+     bit-equal over two launches, no spill or stack frame in any instantiation.
+     The bf16 forms (ZGML_TPU_PREFILL_BF16, the JAX default): K2's at M =
+     128 and 512 on every projection of both models at Q4_0 and Q8_0, and
+     lm_head's one row at tier_rows 128 (the bf16 GEMV, through the
+     dispatch); K3's and K9's at q_offset 0, 128 and 1408 at both models'
+     head dims; K10f / K10dq / K10dkv's at the three training cases: the
+     pre-pass's bf16(x) bit-equal to torch's, two launches bit-equal, K2
+     within K2_BF16_RTOL * max|y|, the flash family within
+     max(FLASH_BF16_RTOL * max|o|, FLIP_MARGIN x the plain version's own
+     move under a few-ulp move of its score scale) of the plain version of
+     the same launch plan (p rounded to bf16 flips where two f32 sums of a
+     score differ), rms error against float64 of the same roundings at most
+     BF16_RMS_RATIO x the plain version's; bounds at one bf16 product per
+     dot, K10's dS products at two TF32; library calls in bf16 (torch.matmul,
+     scaled_dot_product_attention, aten's efficient attention);
   3. end to end: synthetic GGUFs from seed 0 (written to .bench_cache/
      once), TinyLlama-1.1B at Q4_0 and Q8_0 and Llama-2-7B at Q4_0 (full
      width and 32 layers, max_seq_len 2048 as bench.py's preset, 4.2 GB) ->
      load_llama(device="cuda") -> LlamaEngine(prefill_chunk=128), on six
      paths, each with the placement counts set to 0 just before it and read
      just after:
+     (at the default flags prefill runs the bf16 forms: K2 above 32 rows,
+     the prefill head's row, K3, K9 and K10; unfused, kv8_tiny and
+     train_rmsnorm_forced pin ZGML_TPU_PREFILL_BF16=0, so the TF32 forms of
+     K2q4, K3, K9 and K10 launch too; K2q8's TF32 form is held in phase 2)
        default     TinyLlama Q4_0, the JAX package's default flags: 3 greedy
                    requests (prompts of 7, 128 and 300 tokens, 32 tokens
                    each, reset between) and 1 sampled request (temperature
@@ -226,7 +244,7 @@ KV8_DECODE_LENS = [[1, 200, 2047, 1000]]          # TinyLlama, batch 4
 # with no key gives 0)
 DECODE_BATCH_LENS = [0, 1, 200, 2047]
 KV8_DECODE_LENS_7B = [[200], [2047]]              # Llama-2-7B, batch 1
-LOGIT_RTOL = 1e-3          # K2 and K3 run f32 operands
+LOGIT_RTOL = 1e-3          # kernels vs plain: f32 sums in another order (SENS_MARGIN below)
 I8_ROWS = (1, 4, 8, 32)    # K1 cases: decode, kv8_tiny's batch-4 decode, a small batch, the
                            # largest int8 call
 # K1's rms error against a float64 evaluation of the same int8 function at
@@ -281,10 +299,14 @@ TRAIN_LR = 1e-3
 GRAD_RTOL = 1e-3
 GRAD_SENS_DRAWS = 3
 TRAIN_RATE_ROUNDS = 3
-TRAIN_PATHS = {"train_dense": ("flash_fwd", "flash_dq", "flash_dkv"),
-               "train_q4_frozen": ("q4_matmul", "q4_matmul_bwd", "flash_fwd", "flash_dq",
-                                   "flash_dkv", "q8_matmul", "q8_matmul_bwd"),
+TRAIN_PATHS = {"train_dense": ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16"),
+               "train_q4_frozen": ("q4_matmul_bf16", "q4_matmul_bwd", "flash_fwd_bf16",
+                                   "flash_dq_bf16", "flash_dkv_bf16", "q8_matmul_bf16",
+                                   "q8_matmul_bwd"),
                "train_rmsnorm_forced": ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm")}
+# the flags of a training path that are not an inference path's (set_path)
+TRAIN_FLAGS = {"train_rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm",
+                                        "ZGML_TPU_PREFILL_BF16": "0"}}
 # K12 (phase 2): (M, d) at TinyLlama-1.1B's width (a decode row, a prefill
 # chunk, the training batch B 4 x T 512) and at Llama-2-7B's; max-abs error
 # against plain within RMSNORM_RTOL * max|out|
@@ -345,14 +367,45 @@ K10DQ_TF32 = 2 * (2 + 2 + 2)          # S = q K^T, dP = dO V^T, dQ = dS K
 K10DKV_TF32 = 2 * (2 + 3 + 3)         # S^T, dV = P^T dO, dK = dS'^T q
 K10DKV_BF16 = 2 * 1                   # dP'^T = V bf16(dO)^T
 K10_RMS_RATIO = 2.0                   # dQ's rms error vs float64, at most this x plain's
+# the bf16 forms (ZGML_TPU_PREFILL_BF16, on by default: JAX's dot_bf16 and the
+# flash kernels' bf16 operands), phase 2: K2 at K2_BF16_ROWS on every
+# projection at both widths and kinds, and lm_head's one row at tier_rows
+# K2_HEAD_TIER (the prefill head: JAX computes the 128-row chunk in bf16);
+# K3 / K9 on a 128-row chunk at BF16_FLASH_CASES (q_offset, kv_len); K10 at
+# TRAIN_FLASH_CASES. Max-abs error within K2_BF16_RTOL * max|y| (K2: exact
+# products of the same bf16 operands, f32 sums in another order); for the
+# flash family within max(FLASH_BF16_RTOL * max|o|, FLIP_MARGIN x the plain
+# version's own move when its score scale moves by FLIP_EPS): a score one
+# ulp off rounds its p to the other bf16 neighbour, which moved o by up to
+# 4.4e-4 of max|o| on the H100 (PERF.md), past FLASH_BF16_RTOL alone; rms
+# error against a float64 evaluation of the same roundings at most
+# BF16_RMS_RATIO x the plain version's (for the flash family, or the flips'
+# rms move, the larger)
+K2_BF16_ROWS = (128, 512)
+K2_HEAD_TIER = 128
+BF16_FLASH_CASES = [(0, 128), (128, 256), (1408, 1536)]
+K2_BF16_RTOL = 1e-5
+FLASH_BF16_RTOL = 1e-4
+FLIP_EPS = (2.0 ** -20, -2.0 ** -20, 2.0 ** -18, -2.0 ** -18)
+FLIP_MARGIN = 2.0
+BF16_RMS_RATIO = 2.0
+# the bf16 forms' products (per head, live pair and head_dim): one bf16 MMA
+# per dot; K10's dS products (dQ = dS K, dK = dS'^T q) two TF32 each (dS f32,
+# k and bf16(q) exact in TF32)
+K10DQ_BF16, K10DQ_BF16_TF32 = 2 * (1 + 1), 2 * 2          # S, dP; dS K
+K10DKV_BF16_BF16, K10DKV_BF16_TF32 = 2 * (1 + 1 + 1), 2 * 2   # S^T, dP', dV; dK
+LIBRARY_K2_BF16 = ("torch.matmul(x, W.T) in bf16 (cuBLAS, bf16 out), x and the dequantized W "
+                   "rounded to bf16 outside the timed window")
 SWITCH_STEPS = 4           # decode steps of the kernel-switch check (phase 3)
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
+# (unfused and kv8_tiny pin ZGML_TPU_PREFILL_BF16=0, so the TF32 forms of K2q4,
+# K3 and K9 launch on a path; train_rmsnorm_forced pins it for K10's)
 PATHS = {"default": {},
          "unfused": {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
-                     "ZGML_TPU_I8DOT": "0"},
+                     "ZGML_TPU_I8DOT": "0", "ZGML_TPU_PREFILL_BF16": "0"},
          "q8_default": {},
          "llama2_7b": {},
-         "kv8_tiny": {},
+         "kv8_tiny": {"ZGML_TPU_PREFILL_BF16": "0"},
          "kv8_7b": {},
          "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"},
          "stack_tiny": {"ZGML_TPU_STACK_DECODE": "1"},
@@ -376,24 +429,25 @@ LONG_PROMPT = 1536
 # int8 cache, K15's bf16 operands): their tokens are compared up to a top-2 gap
 # under the step bound
 FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_7b", "tape_tiny")
-PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                            "fused_ffn_norm", "fused_ffn", "attn_block"),
+PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                            "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block"),
                 "unfused": ("q4_matmul", "flash_attention", "decode_attention"),
-                "q8_default": ("q8_matmul_i8", "q8_matmul", "flash_attention", "q8_greedy",
-                               "fused_ffn_norm_q8", "attn_block_q8"),
-                "llama2_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                              "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8"),
+                "q8_default": ("q8_matmul_i8", "q8_matmul_bf16", "flash_attention_bf16",
+                               "q8_greedy", "fused_ffn_norm_q8", "attn_block_q8"),
+                "llama2_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                              "q4_greedy", "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8"),
                 "kv8_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
                              "fused_ffn_norm", "fused_ffn", "attn_block_kv8",
                              "decode_attention_q8"),
-                "kv8_7b": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
-                           "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8"),
-                "rmsnorm_forced": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                                   "fused_ffn_norm", "fused_ffn", "attn_block", "rmsnorm"),
-                "stack_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                               "fused_ffn", "stack_decode"),
-                "tape_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention", "q4_greedy",
-                              "fused_ffn", "tape_decode")}
+                "kv8_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_q8_bf16",
+                           "q4_greedy", "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8"),
+                "rmsnorm_forced": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                                   "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block",
+                                   "rmsnorm"),
+                "stack_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                               "q4_greedy", "fused_ffn", "stack_decode"),
+                "tape_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                              "q4_greedy", "fused_ffn", "tape_decode")}
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -439,9 +493,26 @@ KERNELS = {
     "fused_chain": ("fused_chain", _CSRC + "elementwise.cu", "zgml_tpu/ops/elementwise.py:104"),
     "stack_decode": ("stack_decode", _CSRC + "stack_decode.cu", "zgml_tpu/ops/stackkernel.py:422"),
     "tape_decode": ("tape_decode", _CSRC + "stack_decode.cu", "zgml_tpu/ops/tapekernel.py:553"),
+    "q4_matmul_bf16": ("qmatmul_bf16", _CSRC + "qmatmul.cu", "zgml_tpu/ops/qmatmul.py:141"),
+    "q8_matmul_bf16": ("qmatmul_bf16_q8", _CSRC + "qmatmul.cu", "zgml_tpu/ops/qmatmul.py:81"),
+    "flash_attention_bf16": ("attention_bf16", _CSRC + "flash_attn.cu",
+                             "zgml_tpu/ops/attention.py:194"),
+    "flash_attention_q8_bf16": ("flash_attention_q8_bf16", _CSRC + "flash_attn.cu",
+                                "zgml_tpu/ops/attention.py:702"),
+    "flash_fwd_bf16": ("flash_fwd_bf16", _CSRC + "flash_attn.cu",
+                       "zgml_tpu/ops/flash_vjp.py:140"),
+    "flash_dq_bf16": ("flash_dq_bf16", _CSRC + "flash_bwd.cu", "zgml_tpu/ops/flash_vjp.py:230"),
+    "flash_dkv_bf16": ("flash_dkv_bf16", _CSRC + "flash_bwd.cu", "zgml_tpu/ops/flash_vjp.py:327"),
     "tape_decode_f32": ("tape_decode_f32", _CSRC + "stack_decode.cu",
                         "zgml_tpu/ops/tapekernel.py:553"),
 }
+# the form of each kernel with two (ZGML_TPU_PREFILL_BF16): its mode in the
+# JSON line, beside the counter that names it
+MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "flash_attention_q8",
+                               "flash_fwd", "flash_dq", "flash_dkv")},
+        **{k: "bf16" for k in ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16",
+                               "flash_attention_q8_bf16", "flash_fwd_bf16", "flash_dq_bf16",
+                               "flash_dkv_bf16")}}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -1035,6 +1106,15 @@ def check_kernels(torch, dev):
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
                     decode_attention_cuda, decode_attention_ref, (L, HQ, HKV, D), "")
     check_attention_q8(torch, dev, g, record, (L, HQ, HKV, D), "", KV8_DECODE_LENS)
+    log("  -- the bf16 forms (ZGML_TPU_PREFILL_BF16) at TinyLlama-1.1B and Llama-2-7B shapes")
+    for kind in KINDS:
+        for shapes, model in ((GEMM_SHAPES, ""), (GEMM_SHAPES_7B, "7B ")):
+            for name, n, k in shapes:
+                check_projection_bf16(torch, dev, g, record, weights, kind, name, n, k, model)
+    for shape, model in (((L, HQ, HKV, D), ""), ((L_7B, HQ_7B, HKV_7B, D_7B), "7B ")):
+        for kv8 in (False, True):
+            check_attention_bf16(torch, dev, g, record, shape, model, kv8)
+    check_training_attention_bf16(torch, dev, g, record)
     log("  -- Llama-2-7B shapes")
     for name, n, k in GEMM_SHAPES_7B:
         check_projection("q4_0", name, n, k, "7B ")
@@ -1280,35 +1360,42 @@ def bf16_ulp(torch, x):
     return torch.ldexp(torch.ones_like(ax), e - 8)
 
 
-def check_bf16_ulp(torch, got, want, what):
+def check_bf16_ulp(torch, got, want, what, extra=0.0):
     """(max abs err, the largest tolerance): got within one bf16 ulp of want
     per element, or 1e-6 * max|want| where the sum cancels to below f32 noise
-    (tests/test_torch_flash_vjp.py)."""
+    (tests/test_torch_flash_vjp.py), or `extra` where given."""
     gd, wd = got.double(), want.double()
     tol = torch.maximum(torch.maximum(bf16_ulp(torch, wd), bf16_ulp(torch, gd)),
-                        torch.full_like(wd, 1e-6 * float(wd.abs().max())))
+                        torch.full_like(wd, max(extra, 1e-6 * float(wd.abs().max()))))
     n_bad = int(((gd - wd).abs() > tol).sum())
     require(n_bad == 0 and bool(torch.isfinite(gd).all()),
             f"{what}: {n_bad} elements more than one bf16 ulp from plain")
     return float((gd - wd).abs().max()), float(tol.max())
 
 
-def efficient_attention(torch, q, k, v, do, kv_len, q_off):
+def efficient_attention(torch, q, k, v, do, kv_len, q_off, dtype=None):
     """The library yardstick of K10: aten's memory-efficient attention with
-    compute_log_sumexp (f32) and its backward, on k / v cast to f32 and
-    expanded to the query heads outside the timed calls; the causal offset
-    as an additive bias where the mask is not top-left. Returns (forward
-    call, backward call, note) or (None, None, why not)."""
+    compute_log_sumexp (f32, or `dtype`: the bf16 forms' yardstick in bf16)
+    and its backward, on k / v cast and expanded to the query heads outside
+    the timed calls; the causal offset as an additive bias where the mask is
+    not top-left. Returns (forward call, backward call, note) or (None,
+    None, why not)."""
+    dtype = dtype or torch.float32
+    q, do = q.to(dtype), do.to(dtype)
     b, hq, tq, d = q.shape
     rep = hq // k.shape[1]
-    kf = k[:, :, :kv_len].float().repeat_interleave(rep, 1).contiguous()
-    vf = v[:, :, :kv_len].float().repeat_interleave(rep, 1).contiguous()
+    kf = k[:, :, :kv_len].to(dtype).repeat_interleave(rep, 1).contiguous()
+    vf = v[:, :, :kv_len].to(dtype).repeat_interleave(rep, 1).contiguous()
     top_left = q_off == 0 and kv_len == tq
     bias = None
     if not top_left:
         qi = torch.arange(tq, device=q.device)[:, None] + q_off
         ki = torch.arange(kv_len, device=q.device)[None, :]
-        bias = torch.zeros((tq, kv_len), device=q.device).masked_fill(ki > qi, float("-inf"))
+        # rows padded to 16 keys: the bf16 kernel wants the bias's row stride
+        # a multiple of 8 (kv_len 300 is not); the view keeps kv_len columns
+        width = -(-kv_len // 16) * 16
+        bias = torch.zeros((tq, width), device=q.device, dtype=dtype)[:, :kv_len]
+        bias.masked_fill_(ki > qi, float("-inf"))
         bias = bias.expand(b, hq, tq, kv_len)
     eff = torch.ops.aten._scaled_dot_product_efficient_attention
     eff_bwd = torch.ops.aten._scaled_dot_product_efficient_attention_backward
@@ -1330,7 +1417,8 @@ def efficient_attention(torch, q, k, v, do, kv_len, q_off):
         return eff_bwd(do, q, kf, vf, bias, out[0], out[1], out[2], out[3], 0.0,
                        [True, True, True, False], top_left, scale=scale)
     return fwd, bwd, ("aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True) "
-                      "f32" + ("" if top_left else " with an additive causal bias"))
+                      + ("f32" if dtype == torch.float32 else "bf16")
+                      + ("" if top_left else " with an additive causal bias"))
 
 
 def dq_float64(torch, q, k, v, do, o, lse, kv_len, q_off):
@@ -1446,6 +1534,301 @@ def check_training_attention(torch, dev, g, record):
                n_split=nkv, delta_ms=t_delta)
         log(f"  flash backward {case}: the delta pre-pass {t_delta * 1e3:.1f} us, once per "
             f"backward for both kernels")
+
+
+def check_projection_bf16(torch, dev, g, record, weights, kind, name, n, k, model):
+    """K2's bf16 form at K2_BF16_ROWS (and, on lm_head, its one row at
+    tier_rows K2_HEAD_TIER, the GEMV's bf16 mode) against
+    qmatmul_ref(bf16=True): the pre-pass's bf16(x) bit-equal to torch's
+    rounding, two launches bit-equal, max-abs error within K2_BF16_RTOL *
+    max|y|, and rms error against a float64 evaluation of the same bf16
+    operands at most BF16_RMS_RATIO x the plain version's. The bound counts
+    one bf16 product per dot (the GEMV: f32 FMAs on the CUDA cores); the
+    library call is a bf16 torch.matmul on x and the weight rounded to bf16
+    outside the timed window (cuBLAS; bf16 output)."""
+    from zgml_tpu_torch.ops import refs
+    from zgml_tpu_torch.ops.dispatch import qmatmul as dispatch_qmatmul
+    from zgml_tpu_torch.ops.qmatmul import _fwd_card, qmatmul_cuda, qmatmul_plan, qmatmul_ref
+    from zgml_tpu_torch.runtime.profile import global_profile
+    copies = weights(kind, n, k)
+    w = copies[0]
+    wbytes = nbytes_of(w.qs, w.d)
+    kname = NAME["matmul", kind] + "_bf16"
+    wbs = [refs.bf16_round(c.dequant()).to(torch.bfloat16)
+           for c in copies[:copies_for(n * k * 2, most=len(copies))]]
+    w64 = wbs[0].double()
+    rows = [(m, m) for m in K2_BF16_ROWS] + ([(1, K2_HEAD_TIER)] if name == "lm_head" else [])
+    for m, tier in rows:
+        x = torch.randn((m, k), device=dev, generator=g)
+        xb = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+        tiled = m > 4
+        if tiled:
+            got = qmatmul_cuda(x, w, True, xb_out=xb)
+        else:       # the dispatch's choice at the head's tier, counted as it counts
+            global_profile.reset()
+            set_path("default")
+            got = dispatch_qmatmul(x, w, tier_rows=tier)
+            placed = global_profile.tier_summary()
+            require(placed == {KERNELS[kname][0]: {"cuda": 1}},
+                    f"{kname}: one row at tier_rows {tier} placed {placed}, want the bf16 GEMV")
+        again, want = qmatmul_cuda(x, w, True), qmatmul_ref(x, w, True)
+        torch.cuda.synchronize()
+        case = f"{model}{name} M={m}" + ("" if tiled else f" (tier_rows {tier})") + \
+            f" N={n} K={k}"
+        require(not tiled or torch.equal(xb.view(torch.int16), x.to(torch.bfloat16).view(
+            torch.int16)), f"{kname} {case}: the pre-pass's bf16(x) differs from torch's")
+        err, bound = float((got - want).abs().max()), K2_BF16_RTOL * float(want.abs().max())
+        require(bool(torch.isfinite(got).all()) and err <= bound,
+                f"{kname} {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+        require(bool(torch.equal(got, again)), f"{kname} {case}: two launches differ")
+        exact = refs.bf16_round(x).double() @ w64.T
+        rms, rms_plain = (float((y.double() - exact).square().mean().sqrt()) for y in (got, want))
+        del exact
+        require(rms <= BF16_RMS_RATIO * rms_plain,
+                f"{kname} {case}: rms error vs float64 {rms:.3g} > {BF16_RMS_RATIO} x plain's "
+                f"{rms_plain:.3g}")
+        t = time_ms(torch, [lambda w_=c: qmatmul_cuda(x, w_, True) for c in copies], 50)
+        tp = time_ms(torch, [lambda w_=c: qmatmul_ref(x, w_, True) for c in copies], 10)
+        xb16 = x.to(torch.bfloat16)
+        lib = time_ms(torch, [lambda wb_=wb: torch.matmul(xb16, wb_.T) for wb in wbs], 20)
+        extra = dict(rms_vs_plain=rms / rms_plain if rms_plain else None, mode="bf16")
+        if tiled:
+            extra["n_split"] = qmatmul_plan(m, n, k, *_fwd_card(dev.index or 0, kind, True),
+                                            bf16=True).n_split
+        record(kname, case, err, bound, t, tp, m * k * 4 + wbytes + m * n * 4,
+               0 if tiled else 2 * m * n * k, lib, LIBRARY_K2_BF16,
+               bf16ops=2 * m * n * k if tiled else 0, **extra)
+    del wbs, w64
+
+
+def flip_moves(torch, plain, d):
+    """(largest max-abs, largest rms) move of a plain bf16 flash version
+    `plain(scale)` when its score scale 1/sqrt(d) moves by FLIP_EPS: where
+    the scores' f32 sums of two implementations differ by an ulp, some p
+    round to the other bf16 neighbour (a flip), and this is how far such
+    flips move the output (tests/test_torch_prefill_bf16.py)."""
+    base = plain(1.0 / d ** 0.5)
+    moves = [plain((1 + e) / d ** 0.5) - base for e in FLIP_EPS]
+    return (max(float(m.abs().max()) for m in moves),
+            max(float(m.double().square().mean().sqrt()) for m in moves))
+
+
+def check_attention_bf16(torch, dev, g, record, shape, model, kv8):
+    """K3's bf16 form (K9's where kv8) on a 128-row chunk at BF16_FLASH_CASES
+    over a random stacked cache, against the plain version of the same
+    launch plan (attention.flash_partials_ref(bf16=True) and the combine:
+    where the plan splits the prefix, each split's running max starts at its
+    first key): two launches bit-equal; max-abs error within
+    max(FLASH_BF16_RTOL * max|o|, FLIP_MARGIN x flip_moves), rms error
+    against a float64 evaluation of the same roundings (q and p to bf16) at
+    most BF16_RMS_RATIO x max(the plain version's, the flips' rms move). The
+    distance from the unsplit function (JAX's running max from key 0) is
+    recorded. Bound: one bf16 product per dot. Library: bf16
+    scaled_dot_product_attention(enable_gqa=True) with a boolean causal
+    mask (K9: on the cache rows dequantized to bf16 outside the timed
+    window)."""
+    from zgml_tpu_torch.ops import attention as A
+    from zgml_tpu_torch.quant.kv_cache import dequantize
+    n_layers, hq, hkv, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if kv8:
+        kc = torch.randint(-127, 128, (n_layers, hkv, S, hd), dtype=torch.int8, device=dev,
+                           generator=g)
+        vc = torch.randint(-127, 128, (n_layers, hkv, S, hd), dtype=torch.int8, device=dev,
+                           generator=g)
+        ks = torch.rand((n_layers, hkv, S), device=dev, generator=g) * 0.01 + 0.01
+        vs = torch.rand((n_layers, hkv, S), device=dev, generator=g) * 0.01 + 0.01
+        scales, kname = dict(ks=ks, vs=vs), "flash_attention_q8_bf16"
+    else:
+        kc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        vc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        scales, kname = {}, "flash_attention_bf16"
+    group = A.flash_group(S, kv8)
+    for q_off, kv_len in BF16_FLASH_CASES:
+        q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
+        row = (q_off // 128) % n_layers
+        if kv8:
+            def launch():
+                return A.flash_attention_q8_cuda(q, kc, ks, vc, vs, kv_len, q_off, row, True)
+        else:
+            def launch():
+                return A.flash_attention_cuda(q, kc, vc, kv_len, q_off, row, True)
+        got, again = launch(), launch()
+        plan = A.flash_plan(q, kc, kv_len, q_off, kv8, group)
+
+        def plain(scale=None, exact=False):
+            return A.combine_partials_ref(*A.flash_partials_ref(
+                q, kc, vc, kv_len, q_off, row, plan=plan, bf16=True, exact=exact, scale=scale,
+                **scales))[0]
+        want, exact = plain(), plain(exact=True)
+        unsplit = (A.flash_attention_q8_ref(q, kc, ks, vc, vs, kv_len, q_off, row, True)
+                   if kv8 else A.flash_attention_ref(q, kc, vc, kv_len, q_off, row, True))
+        torch.cuda.synchronize()
+        case = f"{model}hd={hd} Tq=128 q_offset={q_off} kv_len={kv_len} n_split={plan.n_split}"
+        mx = float(want.abs().max())
+        move, move_rms = flip_moves(torch, plain, hd)
+        err = float((got - want).abs().max())
+        bound = max(FLASH_BF16_RTOL * mx, FLIP_MARGIN * move)
+        require(bool(torch.isfinite(got).all()) and err <= bound,
+                f"{kname} {case}: max_abs_err {err:.3g} > bound {bound:.3g} (flip move "
+                f"{move:.3g})")
+        require(bool(torch.equal(got, again)), f"{kname} {case}: two launches differ")
+        rms, rms_plain = (float((y.double() - exact).square().mean().sqrt()) for y in (got, want))
+        require(rms <= BF16_RMS_RATIO * max(rms_plain, move_rms),
+                f"{kname} {case}: rms error vs float64 {rms:.3g} > {BF16_RMS_RATIO} x "
+                f"max(plain's {rms_plain:.3g}, the flips' {move_rms:.3g})")
+        t = time_ms(torch, [launch], 50)
+        tp = time_ms(torch, [lambda: plain()], 10)
+        if kv8:
+            kf = dequantize(kc[row:row + 1, :, :kv_len], ks[row:row + 1, :, :kv_len])
+            vf = dequantize(vc[row:row + 1, :, :kv_len], vs[row:row + 1, :, :kv_len])
+            kb16, vb16 = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        else:
+            kb16, vb16 = kc[row:row + 1, :, :kv_len], vc[row:row + 1, :, :kv_len]
+        qb16 = q.to(torch.bfloat16)
+        qi = torch.arange(128, device=dev)[:, None] + q_off
+        mask = torch.arange(kv_len, device=dev)[None, :] <= qi
+        lib_err = float((sdpa(qb16, kb16, vb16, attn_mask=mask, enable_gqa=True).float()
+                         - want).abs().max())
+        lib = time_ms(torch, [lambda: sdpa(qb16, kb16, vb16, attn_mask=mask, enable_gqa=True)],
+                      50)
+        live = int(mask.sum())
+        pos_bytes = 2 * hkv * (hd + 4) if kv8 else 2 * hkv * hd * 2
+        record(kname, case, err, bound, t, tp, 2 * q.numel() * 4 + kv_len * pos_bytes, 0, lib,
+               f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), bf16"
+               + (", after an untimed dequant" if kv8 else "")
+               + f" (max abs err {lib_err:.2g})", bf16ops=4 * hq * live * hd,
+               n_split=plan.n_split, mode="bf16", flip_move=move,
+               rms_ratio=rms / max(rms_plain, move_rms),
+               vs_unsplit=float((got - unsplit).abs().max()) / mx)
+
+
+def dq_float64_bf16(torch, q, k, v, do, o, lse, kv_len, q_off):
+    """K10dq's bf16 form in float64 from the same inputs and roundings:
+    bf16(q) in s, bf16(dO) in dP (o and lse the kernel's)."""
+    from zgml_tpu_torch.ops import refs
+    qb, dob = refs.bf16_round(q), refs.bf16_round(do)
+    b, hq, tq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    qg = qb.double().reshape(b, hkv, hq // hkv, tq, d)
+    dog = do.double().reshape(qg.shape)
+    kd, vd = k.double(), v.double()
+    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) / d ** 0.5
+    ki = torch.arange(s, device=q.device)[None, :]
+    qi = torch.arange(tq, device=q.device)[:, None] + q_off
+    p = torch.where((ki < kv_len) & (ki <= qi),
+                    torch.exp(sc - lse.double().reshape(*qg.shape[:-1], 1)),
+                    torch.zeros_like(sc))
+    del sc
+    delta = (dog * o.double().reshape(qg.shape)).sum(-1, keepdim=True)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dob.double().reshape(qg.shape), vd)
+    ds = p * (dp - delta) / d ** 0.5
+    return torch.einsum("bgrqk,bgkd->bgrqd", ds, kd).reshape(b, hq, tq, d)
+
+
+def check_training_attention_bf16(torch, dev, g, record):
+    """K10f, K10dq and K10dkv in their bf16 forms at TRAIN_FLASH_CASES:
+    K10f's O bit-equal to K3's bf16 O, within the flip-aware bound of
+    check_attention_bf16 of the plain version of its plan, its LSE within
+    REL_BOUND * max; dQ within REL_BOUND * max and its rms error against
+    float64 (dq_float64_bf16) at most BF16_RMS_RATIO x the plain version's;
+    dK within one bf16 ulp per element and dV within one ulp or FLIP_MARGIN
+    x the plain dV's largest move under the score-scale moves (its bf16(p)
+    flip), both bit-equal over two launches. Bounds: one bf16 product per
+    dot, the dS products (dQ = dS K, dK = dS^T q) two TF32 each. Library:
+    aten's efficient attention and its backward in bf16."""
+    from zgml_tpu_torch.ops import attention as A
+    from zgml_tpu_torch.ops.flash_vjp import (flash_delta_cuda, flash_dkv_cuda, flash_dkv_plan,
+                                              flash_dkv_ref, flash_dq_cuda, flash_dq_plan,
+                                              flash_dq_ref, flash_fwd_lse_cuda)
+    for label, b, hq, hkv, tq, s, hd, kv_len, q_off in TRAIN_FLASH_CASES:
+        q = torch.randn((b, hq, tq, hd), device=dev, generator=g)
+        k = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        v = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        do = torch.randn((b, hq, tq, hd), device=dev, generator=g)
+        args = (q, k, v, kv_len, q_off)
+        group = A.flash_group(s, False)
+        o, lse = flash_fwd_lse_cuda(*args, bf16=True)
+        o3 = A.flash_attention_cuda(*args, 0, True)
+        plan = A.flash_plan(q, k, kv_len, q_off, False, group)
+
+        def plain(scale=None):
+            return A.combine_partials_ref(*A.flash_partials_ref(
+                q, k, v, kv_len, q_off, 0, plan=plan, bf16=True, scale=scale))
+        o_r, lse_r = plain()
+        bargs = (q, k, v, do, o, lse, kv_len, q_off)
+        delta = flash_delta_cuda(do, o)
+        dq, (dk, dv) = flash_dq_cuda(*bargs, bf16=True), flash_dkv_cuda(*bargs, bf16=True)
+        dq2 = flash_dq_cuda(*bargs, delta=delta, bf16=True)
+        dk2, dv2 = flash_dkv_cuda(*bargs, delta=delta, bf16=True)
+        dq_r, (dk_r, dv_r) = flash_dq_ref(*bargs, bf16=True), flash_dkv_ref(*bargs, bf16=True)
+        torch.cuda.synchronize()
+        case = f"{label} Hq={hq} Hkv={hkv} hd={hd} Tq={tq} S={s} kv_len={kv_len} q_offset={q_off}"
+        require(torch.equal(o.view(torch.int32), o3.view(torch.int32)),
+                f"flash_fwd_bf16 {case}: O is not K3's bf16 O bit for bit")
+        move, _ = flip_moves(torch, lambda sc: plain(sc)[0], hd)
+        err_o = float((o - o_r).abs().max())
+        bound_o = max(FLASH_BF16_RTOL * float(o_r.abs().max()), FLIP_MARGIN * move)
+        err_l, bound_l = float((lse - lse_r).abs().max()), REL_BOUND * float(lse_r.abs().max())
+        require(err_o <= bound_o and err_l <= bound_l,
+                f"flash_fwd_bf16 {case}: o err {err_o:.3g} (bound {bound_o:.3g}), lse err "
+                f"{err_l:.3g} (bound {bound_l:.3g})")
+        err_q, bound_q = float((dq - dq_r).abs().max()), REL_BOUND * float(dq_r.abs().max())
+        require(bool(torch.isfinite(dq).all()) and err_q <= bound_q,
+                f"flash_dq_bf16 {case}: max_abs_err {err_q:.3g} > bound {bound_q:.3g}")
+        err_k = check_bf16_ulp(torch, dk, dk_r, f"flash_dkv_bf16 {case} dk")
+        dv_move = max(float((flash_dkv_ref(*bargs, bf16=True, scale=(1 + e) / hd ** 0.5)[1]
+                             .double() - dv_r.double()).abs().max()) for e in FLIP_EPS)
+        err_v = check_bf16_ulp(torch, dv, dv_r, f"flash_dkv_bf16 {case} dv",
+                               extra=FLIP_MARGIN * dv_move)
+        del dv_move
+        err_kv = max(err_k, err_v)
+        require(torch.equal(dq.view(torch.int32), dq2.view(torch.int32)),
+                f"flash_dq_bf16 {case}: two launches differ")
+        require(torch.equal(dk.view(torch.int16), dk2.view(torch.int16))
+                and torch.equal(dv.view(torch.int16), dv2.view(torch.int16)),
+                f"flash_dkv_bf16 {case}: two launches differ")
+        exact = dq_float64_bf16(torch, *bargs)
+        rms, rms_plain = (float((x.double() - exact).square().mean().sqrt()) for x in (dq, dq_r))
+        del exact, dq2, dk2, dv2
+        require(rms <= BF16_RMS_RATIO * rms_plain,
+                f"flash_dq_bf16 {case}: rms error vs float64 {rms:.3g} > {BF16_RMS_RATIO} x "
+                f"plain's {rms_plain:.3g}")
+        live = sum(min(kv_len, q_off + i + 1) for i in range(tq))
+        heads = b * hq
+        qbytes, lbytes = q.numel() * 4, b * hq * tq * 4
+        kvbytes = 2 * b * hkv * kv_len * hd * 2
+        fwd_lib, bwd_lib, note = efficient_attention(torch, q, k, v, do, kv_len, q_off,
+                                                     torch.bfloat16)
+        t = time_ms(torch, [lambda: flash_fwd_lse_cuda(*args, bf16=True)], 20)
+        tp = time_ms(torch, [lambda: plain()], 5)
+        lib = time_ms(torch, [fwd_lib], 20) if fwd_lib else None
+        record("flash_fwd_bf16", case + f" n_split={plan.n_split} (O bit-equal to K3's bf16 O; "
+               f"lse err {err_l:.3g})", err_o, bound_o, t, tp, qbytes * 2 + lbytes + kvbytes, 0,
+               lib, note, bf16ops=4 * heads * live * hd, n_split=plan.n_split, mode="bf16",
+               flip_move=move)
+        t_delta = time_ms(torch, [lambda: flash_delta_cuda(do, o)], 20)[0]
+        t = time_ms(torch, [lambda: flash_dq_cuda(*bargs, delta=delta, bf16=True)], 20)
+        tp = time_ms(torch, [lambda: flash_dq_ref(*bargs, bf16=True)], 5)
+        lib = time_ms(torch, [bwd_lib], 20) if bwd_lib else None
+        bnote = note if bwd_lib is None else (
+            "aten._scaled_dot_product_efficient_attention_backward bf16, one call computing "
+            "dQ, dK and dV (the same time stands beside K10dq and K10dkv)")
+        nq = flash_dq_plan(q, k, kv_len, q_off, True).n_split
+        nkv = flash_dkv_plan(q, k, kv_len, q_off, True).n_split
+        record("flash_dq_bf16", case + f" n_split={nq} (bit-equal over two launches; rms error "
+               f"vs float64 {rms / rms_plain:.2f}x plain's)", err_q, bound_q, t, tp,
+               qbytes * 4 + 2 * lbytes + kvbytes, 0, lib, bnote,
+               bf16ops=K10DQ_BF16 * heads * live * hd, tf32ops=K10DQ_BF16_TF32 * heads * live * hd,
+               n_split=nq, rms_ratio=rms / rms_plain, delta_ms=t_delta, mode="bf16")
+        t = time_ms(torch, [lambda: flash_dkv_cuda(*bargs, delta=delta, bf16=True)], 20)
+        tp = time_ms(torch, [lambda: flash_dkv_ref(*bargs, bf16=True)], 5)
+        record("flash_dkv_bf16", case + f" n_split={nkv} (dK within one bf16 ulp, dV one ulp or "
+               f"its flips; bit-equal over two launches)", err_kv[0], err_kv[1], t, tp,
+               qbytes * 3 + 2 * lbytes + kvbytes + 2 * heads * s * hd * 2, 0, lib, bnote,
+               bf16ops=K10DKV_BF16_BF16 * heads * live * hd,
+               tf32ops=K10DKV_BF16_TF32 * heads * live * hd, n_split=nkv, delta_ms=t_delta,
+               mode="bf16")
 
 
 def check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k):
@@ -1804,12 +2187,13 @@ def top2_gap(logits) -> float:
 
 
 def set_path(name: str):
-    """Set the JAX flags of a path in this process (the port reads them at
-    call time)."""
-    for flags in PATHS.values():
+    """Set the JAX flags of a path (PATHS, or TRAIN_FLAGS for a training
+    path with its own) in this process (the port reads them at call time)."""
+    paths = {**PATHS, **TRAIN_FLAGS}
+    for flags in paths.values():
         for k in flags:
             os.environ.pop(k, None)
-    os.environ.update(PATHS[name])
+    os.environ.update(paths[name])
 
 
 def load_model(torch, dev, name: str, kind: str):
@@ -2181,13 +2565,39 @@ def norm_row_probe(torch, gen):
             os.environ["ZGML_TPU_KERNELS_FORCE"] = forced
 
 
-def grad_check(torch, tr, label, summary, norm_rows=False):
+@contextlib.contextmanager
+def proj_out_probe(torch, gen):
+    """Inside: each quantized projection's plain output (qmatmul_ref, which
+    the dispatch calls under force_ref()) scaled per element by (1 +
+    SENS_EPS N(0, 1)) from `gen` (None: not scaled). That is the form K2's
+    bf16 form's difference from plain takes: the same bf16 operands, exact
+    products, its f32 sums in another order; the next projection's and the
+    flash kernels' bf16 roundings of those values then flip alike."""
+    from zgml_tpu_torch.ops import qmatmul as qmm
+    plain = qmm.qmatmul_ref
+
+    def scaled(x, w, bf16=False):
+        out = plain(x, w, bf16)
+        if gen is None:
+            return out
+        return out * (1 + SENS_EPS * torch.randn(out.shape, device=out.device, generator=gen))
+    qmm.qmatmul_ref = scaled
+    try:
+        yield
+    finally:
+        qmm.qmatmul_ref = plain
+
+
+def grad_check(torch, tr, label, summary, norm_rows=False, proj_out=False):
     """One step's gradients of every trainable tensor with the kernels
     against the same step under force_ref(), per tensor within
     max(GRAD_RTOL * max|g|, SENS_MARGIN x how far the plain gradients move
     when tok_embd is scaled by (1 + SENS_EPS N(0, 1)) and, with norm_rows
     (a path whose norms are K12's), each norm's output rows as well
-    (norm_row_probe), measured from the same plain path unscaled)."""
+    (norm_row_probe), with proj_out (a path whose projections run K2's bf16
+    form, whose sums' order its consumers' bf16 roundings turn into flips)
+    each projection's output as well (proj_out_probe), measured from the
+    same plain path unscaled)."""
     from zgml_tpu_torch.nn.train import value_and_grad
     from zgml_tpu_torch.ops.dispatch import force_ref
     from zgml_tpu_torch.utils.tree import flatten, paths
@@ -2217,7 +2627,8 @@ def grad_check(torch, tr, label, summary, norm_rows=False):
         for _ in range(GRAD_SENS_DRAWS):
             p2 = {**tr.params, "tok_embd": emb * (1 + SENS_EPS * torch.randn(
                 emb.shape, device=emb.device, generator=gen))}
-            with norm_row_probe(torch, gen) if norm_rows else contextlib.nullcontext():
+            with (norm_row_probe(torch, gen) if norm_rows else contextlib.nullcontext()), \
+                    (proj_out_probe(torch, gen) if proj_out else contextlib.nullcontext()):
                 gp = grads(p2)
             moves = [max(m, float((a - b).abs().max())) for m, a, b in zip(moves, gp, base)]
             del gp, p2
@@ -2234,10 +2645,11 @@ def grad_check(torch, tr, label, summary, norm_rows=False):
         f"{worst['plain_move'] / max(worst['scale'], 1e-30):.3g} of max|g| under {SENS_EPS:g} "
         f"perturbations of tok_embd" + (f" and every norm's rows; unscaled, its gradients are "
                                          f"{base_gap:.3g} from force_ref()'s" if norm_rows else "")
-        + ")")
+        + (" and every projection's output" if proj_out else "") + ")")
     require(not bad, f"[{label}] gradients off the plain path: {bad[:5]}")
     summary.setdefault("grad_check", {})[label] = dict(max_rel=rel, worst=worst, n=len(rows),
-                                                       norm_rows=norm_rows, tensors=rows)
+                                                       norm_rows=norm_rows, proj_out=proj_out,
+                                                       tensors=rows)
 
 
 def checkpoint_roundtrip(torch, tr, label, summary):
@@ -2466,6 +2878,7 @@ def kernel_line(name, cases, by_path) -> dict:
     libs = [c["library_ms"] for c in cases]
     has_lib = all(v is not None for v in libs)
     return dict(name=name, route="cuda", source=src, replaces=replaces,
+                **({"mode": MODE[name]} if name in MODE else {}),
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=max(c["err"] for c in cases),
                 ms=sum(c["ms"] for c in cases),
@@ -2506,13 +2919,13 @@ def train_paths(torch, dev, models, summary, launches):
     dense_tr = trainers["train_dense"]
     forced = {name: Trainer(llama_loss(cfg), dense_tr.params,
                             dense_tr.batches[:TRAIN_STEPS[name]])}
-    launches[name] = train_path(torch, name, forced, summary, flags="rmsnorm_forced")
+    launches[name] = train_path(torch, name, forced, summary, flags=name)
     want = TRAIN_STEPS[name] * (2 * cfg.n_layers + 1)
     require(launches[name]["rmsnorm"] == want,
             f"[{name}] K12 launched {launches[name]['rmsnorm']} times, want {want} "
             f"({2 * cfg.n_layers + 1} per forward)")
     forced[name].state = None        # its Adam moments (8.8 GB) are not needed again
-    set_path("rmsnorm_forced")
+    set_path(name)
     grad_check(torch, forced[name], name, summary, norm_rows=True)
     set_path("default")
     del forced
@@ -2524,8 +2937,8 @@ def train_paths(torch, dev, models, summary, launches):
                                    corpus_batches(torch, dev, FROZEN_B, TRAIN_T,
                                                   TRAIN_STEPS[label]))
     launches["train_q4_frozen"] = train_path(torch, "train_q4_frozen", frozen_tr, summary)
-    for label, tr in frozen_tr.items():
-        grad_check(torch, tr, label, summary)
+    for label, tr in frozen_tr.items():      # their projections run K2's bf16 form
+        grad_check(torch, tr, label, summary, proj_out=True)
     checkpoint_roundtrip(torch, frozen_tr["train_q4_frozen"], "train_q4_frozen", summary)
     return {"train_dense": trainers["train_dense"],
             "train_q4_frozen": frozen_tr["train_q4_frozen"]}
@@ -2728,7 +3141,8 @@ def main() -> int:
     log(f"  kernels built in {nvcc_s:.1f} s (load {time.perf_counter() - t0:.1f} s): {path}")
     if (path.parent / "build.log").is_file():    # ptxas -v of the tensor-core kernels
         for key, pattern in (("ptxas_flash", "flash"), ("ptxas_qmatmul_bwd", "qgemm_bwd"),
-                             ("ptxas_qmatmul", "qgemm_tf32"), ("ptxas_rmsnorm", "rmsnorm"),
+                             ("ptxas_qmatmul", "qgemm_tf32"),
+                             ("ptxas_qmatmul_bf16", "qgemm_bf16"), ("ptxas_rmsnorm", "rmsnorm"),
                              ("ptxas_chain", "chain_kernel"), ("ptxas_attn", "layer_attn_kernel"),
                              ("ptxas_ffn", "ffn_norm_kernel"),
                              ("ptxas_stack", "stack_decode_kernel"),
@@ -2741,11 +3155,15 @@ def main() -> int:
                     f"{e.get('spill_stores')} bytes spill stores, {e.get('stack')} bytes stack")
         spilled = [e["entry"] for e in summary["ptxas_qmatmul_bwd"] if e.get("spill_stores")]
         require(not spilled, f"K11 spills registers: {spilled}")
-        spilled = [e["entry"] for e in summary["ptxas_qmatmul"] if e.get("spill_stores")]
-        require(not spilled, f"K2's tiled tier spills registers: {spilled}")
+        spilled = [e["entry"] for e in summary["ptxas_qmatmul"] + summary["ptxas_qmatmul_bf16"]
+                   if e.get("spill_stores")]
+        require(summary["ptxas_qmatmul_bf16"] and not spilled,
+                f"K2's tiled tier (or its bf16 GEMM) spills registers: {spilled}")
         spilled = [e["entry"] for e in summary["ptxas_flash"]
-                   if "flash_d" in e["entry"] and e.get("spill_stores")]
-        require(not spilled, f"K10dq / K10dkv spill registers: {spilled}")
+                   if ("flash_d" in e["entry"] or "flash_bf16" in e["entry"])
+                   and e.get("spill_stores")]
+        require(not spilled, f"K10dq / K10dkv or the bf16 flash forward spill registers: "
+                f"{spilled}")
         spilled = [e["entry"] for e in summary["ptxas_rmsnorm"] + summary["ptxas_chain"]
                    if e.get("spill_stores")]
         require(not spilled, f"K12 / K13 spill registers: {spilled}")

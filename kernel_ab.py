@@ -6,7 +6,7 @@ of two checkouts of zgml_tpu_torch on one card, in turns (A, B, B, A by
 default), each turn in its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode] [--rates]
-                         [--only K6b,K4,...] [--bits]
+                         [--only K6b,K4,...] [--bits] [--prefill-bf16 0|1]
 
 A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
 unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
@@ -57,15 +57,22 @@ hashes K8's and K1's outputs at fixed inputs (numpy-seeded: K8 at the
 smoke's cases and a batch with a kv_len 0 row, K1 at M = 1, 4, 8, 32 of
 TinyLlama-1.1B's wqkv and lm_head at both kinds, where --only names the
 family), and the hashes are compared: each side the same bits on every
-turn, and the two sides the same bits or not. Prints one JSON line per
-turn, then the median per case and side, with the card's name and power
-limit.
+turn, and the two sides the same bits or not. --prefill-bf16 sets
+ZGML_TPU_PREFILL_BF16 in every turn (default 1, the JAX default) and times
+K2, K3, K9 and K10 in the form a checkout's dispatch takes under it: the bf16
+forms where the checkout has them (a K2 call whose JAX row tile holds 32 rows
+or more), the f32 (TF32) forms where it has none or the flag is 0; so `A_DIR
+B_DIR --prefill-bf16 1` times a parent without them against its change.
+Prints one JSON line per turn, then the median per case and side, with the
+card's name and power limit.
 """
 from __future__ import annotations
 
 import functools
 import importlib.util
+import inspect
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -377,6 +384,14 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
     src = pathlib.Path(zgml_tpu_torch.__file__).resolve()
     if pathlib.Path(root).resolve() not in src.parents:
         raise RuntimeError(f"imported {src}, not the checkout at {root}")
+    # the form this checkout's dispatch takes under ZGML_TPU_PREFILL_BF16
+    from zgml_tpu_torch.ops import qmatmul as qmm
+    bf16 = (os.environ.get("ZGML_TPU_PREFILL_BF16", "1") != "0"
+            and "bf16" in inspect.signature(qmatmul_cuda).parameters)
+    fkw = {"bf16": True} if bf16 else {}
+
+    def k2_kw(m):
+        return fkw if bf16 and qmm.row_tile(m) >= qmm.BF16_MIN_TILE else {}
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     bits = {}
@@ -393,7 +408,7 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         for q_off, kv_len in ((0, 128), (128, 256), (1408, 1536)):
             q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
             out[f"K3 {tag}hd={hd} q_offset={q_off} kv_len={kv_len}"] = time_ms(
-                torch, [lambda: flash_attention_cuda(q, kc, vc, kv_len, q_off, 1)], 50)[0]
+                torch, [lambda: flash_attention_cuda(q, kc, vc, kv_len, q_off, 1, **fkw)], 50)[0]
         k8 = torch.randint(-127, 128, (22, hkv, 2048, hd), dtype=torch.int8, device=dev,
                            generator=g)
         v8 = torch.randint(-127, 128, (22, hkv, 2048, hd), dtype=torch.int8, device=dev,
@@ -403,8 +418,8 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         for q_off, kv_len in ((0, 128), (1408, 1536)):
             q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
             out[f"K9 {tag}hd={hd} q_offset={q_off} kv_len={kv_len}"] = time_ms(
-                torch, [lambda: flash_attention_q8_cuda(q, k8, ks, v8, vs, kv_len, q_off, 3)],
-                50)[0]
+                torch, [lambda: flash_attention_q8_cuda(q, k8, ks, v8, vs, kv_len, q_off, 3,
+                                                        **fkw)], 50)[0]
         del k8, v8, ks, vs
     for b, hq, hkv, tq, s, hd, kv_len, q_off in ((4, 32, 4, 512, 512, 64, 512, 0),
                                                  (1, 32, 32, 512, 512, 128, 512, 0),
@@ -414,12 +429,13 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
         v = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
         shape = f"B={b} Hkv={hkv} hd={hd} Tq={tq} kv_len={kv_len} q_offset={q_off}"
         out[f"K10f {shape}"] = time_ms(
-            torch, [lambda: flash_fwd_lse_cuda(q, k, v, kv_len, q_off)], 20)[0]
+            torch, [lambda: flash_fwd_lse_cuda(q, k, v, kv_len, q_off, **fkw)], 20)[0]
         do = torch.randn((b, hq, tq, hd), device=dev, generator=g)
-        o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_off)
+        o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_off, **fkw)
         bargs = (q, k, v, do, o, lse, kv_len, q_off)
-        out[f"K10dq {shape}"] = time_ms(torch, [lambda: flash_dq_cuda(*bargs)], 20)[0]
-        out[f"K10dkv {shape}"] = time_ms(torch, [lambda: flash_dkv_cuda(*bargs)], 20)[0]
+        out[f"K10dq {shape}"] = time_ms(torch, [lambda: flash_dq_cuda(*bargs, **fkw)], 20)[0]
+        out[f"K10dkv {shape}"] = time_ms(torch, [lambda: flash_dkv_cuda(*bargs, **fkw)],
+                                         20)[0]
     copies_of = functools.partial(weight_copies, torch, dev, g)
     out.update(decode_us(torch, dev, g, time_ms, smoke))
 
@@ -440,7 +456,8 @@ def one(root: str, gguf: str | None = None, decode_only: bool = False,
                 for m in rows:
                     x = torch.randn((m, k), device=dev, generator=g)
                     out[f"K2 {kind} {tag}{name} M={m} N={n} K={k}"] = time_ms(
-                        torch, [lambda w_=c: qmatmul_cuda(x, w_) for c in copies], 20)[0]
+                        torch, [lambda w_=c: qmatmul_cuda(x, w_, **k2_kw(m)) for c in copies],
+                        20)[0]
                 del copies
     for m, d in smoke.RMSNORM_CASES:
         xs = [torch.randn((m, d), device=dev, generator=g)
@@ -469,6 +486,8 @@ def main() -> int:
     gguf = sys.argv[sys.argv.index("--gguf") + 1] if "--gguf" in sys.argv else None
     decode_only = "--decode" in sys.argv or "--only" in sys.argv
     rates = "--rates" in sys.argv
+    if "--prefill-bf16" in sys.argv:
+        os.environ["ZGML_TPU_PREFILL_BF16"] = sys.argv[sys.argv.index("--prefill-bf16") + 1]
     if len(sys.argv) >= 3 and sys.argv[1] == "--one":
         print(json.dumps(one(sys.argv[2], gguf, decode_only, rates)))
         return 0
@@ -490,7 +509,7 @@ def main() -> int:
             raise RuntimeError(f"{side}: {proc.stderr[-3000:]}")
         runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(side, proc.stdout.strip().splitlines()[-1], flush=True)
-    print(card)
+    print(card, "ZGML_TPU_PREFILL_BF16=" + os.environ.get("ZGML_TPU_PREFILL_BF16", "1"))
     for case in runs[a][0]:
         if isinstance(runs[a][0][case], str):       # --bits: a hash a turn
             sa, sb = {r[case] for r in runs[a]}, {r[case] for r in runs[b]}

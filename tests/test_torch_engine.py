@@ -50,9 +50,9 @@ def test_decode_n_matches_step_loop(model):
 @pytest.fixture
 def unfused_flags(monkeypatch):
     """The JAX flags of the port's first slice: f32-dequant projections at
-    every M."""
+    every M, f32 prefill operands (ZGML_TPU_PREFILL_BF16=0)."""
     for k, v in {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
-                 "ZGML_TPU_I8DOT": "0"}.items():
+                 "ZGML_TPU_I8DOT": "0", "ZGML_TPU_PREFILL_BF16": "0"}.items():
         monkeypatch.setenv(k, v)
 
 

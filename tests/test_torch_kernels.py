@@ -313,7 +313,8 @@ def test_attn_block(cuda, hq, hkv, hd, s, pos, li, kind):
 
 def test_dispatch_counts_each_kernel(cuda):
     """Each kernel has its own counter; force_ref() keeps the path and counts
-    the plain versions under the same names."""
+    the plain versions under the same names (33 rows: K2's bf16 form at the
+    default ZGML_TPU_PREFILL_BF16)."""
     rng = np.random.default_rng(1)
     w = _weight(rng, 64, 64, cuda)
     x = torch.ones(1, 64, device=cuda)
@@ -324,7 +325,7 @@ def test_dispatch_counts_each_kernel(cuda):
     with dispatch.force_ref():
         dispatch.qmatmul(x, w)
         dispatch.qmatmul_greedy(x, w)
-    assert global_profile.tier_summary() == {"qmatmul": {"cuda": 1},
+    assert global_profile.tier_summary() == {"qmatmul_bf16": {"cuda": 1},
                                              "qmatmul_i8": {"cuda": 1, "ref": 1},
                                              "qmatmul_greedy": {"cuda": 1, "ref": 1}}
     # a Q8_0 weight counts under the _q8 names
@@ -333,7 +334,7 @@ def test_dispatch_counts_each_kernel(cuda):
     dispatch.qmatmul(x, w8)
     dispatch.qmatmul_greedy(x, w8)
     dispatch.qmatmul(torch.ones(33, 64, device=cuda), w8)
-    assert global_profile.tier_summary() == {"qmatmul_q8": {"cuda": 1},
+    assert global_profile.tier_summary() == {"qmatmul_bf16_q8": {"cuda": 1},
                                              "qmatmul_i8_q8": {"cuda": 1},
                                              "qmatmul_greedy_q8": {"cuda": 1}}
 
@@ -793,10 +794,12 @@ def test_flash_plan_splits_the_long_prefix_on_this_card(cuda):
     assert plan(4, 32, 4, 512, 512, 64, 512, 0).n_split == 1
 
 
-def test_flash_attention_autograd_takes_k10(cuda):
-    """dispatch.flash_attention under autograd launches K10f, K10dq and
-    K10dkv once each, and its gradients equal the same Function's plain
-    tier (force_ref) within the bounds above."""
+def test_flash_attention_autograd_takes_k10(cuda, monkeypatch):
+    """dispatch.flash_attention under autograd (f32 operands,
+    ZGML_TPU_PREFILL_BF16=0) launches K10f, K10dq and K10dkv once each, and
+    its gradients equal the same Function's plain tier (force_ref) within
+    the bounds above."""
+    monkeypatch.setenv("ZGML_TPU_PREFILL_BF16", "0")
     rng = np.random.default_rng(3)
     q, k, v = _qkv(rng, 2, 8, 2, 64, 2, 64, 64, cuda)
     grads = []
@@ -1243,3 +1246,208 @@ def test_tape_decode_rms_error_and_two_launches(cuda, n_layers, hq, hkv, hd, f, 
         return float(torch.sqrt(torch.mean((a - b) ** 2)))
     assert rms(flat[0], exact) <= 2.0 * rms(flat[1], exact)
     assert rms(flat[0], flat[1]) <= 0.5 * rms(flat[2], flat[1])
+
+
+# -- the bf16 forms (ZGML_TPU_PREFILL_BF16) -----------------------------------------
+#
+# K2's bf16 form within 1e-5 * max|y| of qmatmul_ref(bf16=True) (exact products
+# of the same bf16 operands, f32 sums in another order), its pre-pass's bf16(x)
+# bit-equal to torch's rounding; the flash family's against the plain version
+# of the same launch plan within max(1e-4 * max|o|, 2 x the plain version's own
+# move when its score scale moves by FLIP_EPS: a score an ulp off rounds its p
+# to the other bf16 neighbour), K10dq within 1e-5, dK one bf16 ulp, dV one ulp
+# or 2 x its own flips' move; each bit-equal over two launches and its rms
+# error against float64 of the same roundings at most 2x the plain version's
+# (the flash forward: or 2x the flips' rms move).
+
+FLIP_EPS = (2.0 ** -20, -2.0 ** -20, 2.0 ** -18, -2.0 ** -18)
+
+
+def _flip_moves(plain, d):
+    base = plain(1.0 / d ** 0.5)
+    moves = [plain((1 + e) / d ** 0.5) - base for e in FLIP_EPS]
+    return (max(float(m.abs().max()) for m in moves),
+            max(float(m.double().square().mean().sqrt()) for m in moves))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("m,n,k", [(1, 2560, 2048), (1, 32000, 2048), (4, 64, 5632),
+                                   (5, 96, 64), (40, 1000, 576), (128, 2048, 2048),
+                                   (130, 77, 96), (512, 333, 5632), (512, 11264, 2048),
+                                   (128, 12288, 4096)])
+def test_qmatmul_bf16(cuda, m, n, k, kind):
+    from zgml_tpu_torch.ops.qmatmul import GEMV_MAX_M
+    rng = np.random.default_rng(m * 5 + n)
+    w = _weight(rng, n, k, cuda, kind)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+    xb = torch.empty((m, k), dtype=torch.bfloat16, device=cuda)
+    tiled = m > GEMV_MAX_M
+    got = qmatmul_cuda(x, w, True, xb_out=xb if tiled else None)
+    again, want = qmatmul_cuda(x, w, True), qmatmul_ref(x, w, True)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert torch.equal(got, again)
+    if tiled:
+        assert torch.equal(xb.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))
+        exact = refs.bf16_round(x).double() @ refs.bf16_round(w.dequant()).double().T
+
+        def rms(y):
+            return float((y.double() - exact).square().mean().sqrt())
+        assert rms(got) <= 2 * rms(want), (rms(got), rms(want))
+
+
+def test_dispatch_takes_the_bf16_form_by_tier(cuda, monkeypatch):
+    """The default flags: K2's bf16 form where JAX's row tile holds 32 rows
+    (33 rows, and one row at tier_rows 128), the f32 one below (9 rows with
+    I8DOT=0) and everywhere under ZGML_TPU_PREFILL_BF16=0."""
+    monkeypatch.delenv("ZGML_TPU_PREFILL_BF16", raising=False)
+    rng = np.random.default_rng(2)
+    w = _weight(rng, 64, 64, cuda)
+    global_profile.reset()
+    dispatch.qmatmul(torch.ones(33, 64, device=cuda), w)
+    dispatch.qmatmul(torch.ones(1, 64, device=cuda), w, tier_rows=128)
+    monkeypatch.setenv("ZGML_TPU_I8DOT", "0")
+    dispatch.qmatmul(torch.ones(9, 64, device=cuda), w)
+    monkeypatch.setenv("ZGML_TPU_PREFILL_BF16", "0")
+    dispatch.qmatmul(torch.ones(33, 64, device=cuda), w)
+    assert global_profile.tier_summary() == {"qmatmul_bf16": {"cuda": 2}, "qmatmul": {"cuda": 2}}
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+@pytest.mark.parametrize("b,hq,hkv,tq,rows,s,d,kv_len,q_off,kv_row", [
+    (1, 32, 4, 128, 22, 2048, 64, 128, 0, 5),
+    (1, 32, 4, 128, 22, 2048, 64, 1536, 1408, 3),  # the prefix split across blocks
+    (1, 32, 32, 128, 4, 2048, 128, 1536, 1408, 1), # head_dim 128, split
+    (1, 32, 32, 128, 4, 2048, 128, 256, 128, 1),
+    (2, 4, 4, 16, 2, 64, 16, 64, 48, 0),           # a group of 64 keys (S 64)
+    (1, 8, 2, 37, 1, 200, 64, 200, 163, 0),        # groups of 8 keys (S 200), Tq 37
+    (1, 8, 2, 8, 1, 64, 32, 0, 0, 0),              # no live key -> 0
+])
+def test_flash_attention_bf16(cuda, b, hq, hkv, tq, rows, s, d, kv_len, q_off, kv_row, kv8):
+    from zgml_tpu_torch.ops.attention import (combine_partials_ref, flash_group, flash_partials_ref,
+                                              flash_plan)
+    rng = np.random.default_rng(kv_len + d + kv8)
+    q, k, v = _qkv(rng, b, hq, hkv, tq, rows, s, d, cuda)
+    scales = {}
+    if kv8:
+        k, ks = quantize_columns(k.float())
+        v, vs = quantize_columns(v.float())
+        scales = dict(ks=ks, vs=vs)
+
+        def launch():
+            return flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_off, kv_row, True)
+    else:
+        def launch():
+            return flash_attention_cuda(q, k, v, kv_len, q_off, kv_row, True)
+    got, again = launch(), launch()
+    plan = flash_plan(q, k, kv_len, q_off, kv8, flash_group(s, kv8))
+
+    def plain(scale=None, exact=False):
+        return combine_partials_ref(*flash_partials_ref(q, k, v, kv_len, q_off, kv_row, plan=plan,
+                                                        bf16=True, exact=exact, scale=scale,
+                                                        **scales))[0]
+    want, exact = plain(), plain(exact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if kv_len == 0:
+        assert not bool(got.any())
+        return
+    move, move_rms = _flip_moves(plain, d)
+    err = float((got - want).abs().max())
+    assert err <= max(1e-4 * float(want.abs().max()), 2 * move), (err, move)
+
+    def rms(y):
+        return float((y.double() - exact).square().mean().sqrt())
+    assert rms(got) <= 2 * max(rms(want), move_rms), (rms(got), rms(want), move_rms)
+
+
+@pytest.mark.parametrize("b,hq,hkv,tq,s,d,kv_len,q_off", TRAIN_FLASH_CASES)
+def test_flash_training_kernels_bf16(cuda, b, hq, hkv, tq, s, d, kv_len, q_off):
+    from zgml_tpu_torch.ops.attention import (combine_partials_ref, flash_group, flash_partials_ref,
+                                              flash_plan)
+    from zgml_tpu_torch.ops.flash_vjp import (flash_delta_cuda, flash_dkv_cuda, flash_dkv_ref,
+                                              flash_dq_cuda, flash_dq_ref, flash_fwd_lse_cuda)
+    rng = np.random.default_rng(tq + d + kv_len + 1)
+    q, k, v = _qkv(rng, b, hq, hkv, tq, b, s, d, cuda)
+    do = torch.from_numpy(rng.standard_normal((b, hq, tq, d)).astype(np.float32)).to(cuda)
+    o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_off, bf16=True)
+    o3 = flash_attention_cuda(q, k, v, kv_len, q_off, 0, True)
+    plan = flash_plan(q, k, kv_len, q_off, False, flash_group(s, False))
+
+    def plain(scale=None):
+        return combine_partials_ref(*flash_partials_ref(q, k, v, kv_len, q_off, plan=plan,
+                                                        bf16=True, scale=scale))
+    o_ref, lse_ref = plain()
+    args = (q, k, v, do, o, lse, kv_len, q_off)
+    delta = flash_delta_cuda(do, o)
+    dq, dq2 = flash_dq_cuda(*args, bf16=True), flash_dq_cuda(*args, delta=delta, bf16=True)
+    (dk, dv), (dk2, dv2) = (flash_dkv_cuda(*args, bf16=True),
+                            flash_dkv_cuda(*args, delta=delta, bf16=True))
+    dq_ref = flash_dq_ref(*args, bf16=True)
+    dk_ref, dv_ref = flash_dkv_ref(*args, bf16=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o.view(torch.int32), o3.view(torch.int32))
+    assert torch.equal(dq.view(torch.int32), dq2.view(torch.int32))
+    assert torch.equal(dk.view(torch.int16), dk2.view(torch.int16))
+    assert torch.equal(dv.view(torch.int16), dv2.view(torch.int16))
+    if kv_len == 0:
+        assert not bool(o.any()) and not bool(dq.any()) and not bool(dv.float().any())
+        return
+    move, _ = _flip_moves(lambda sc: plain(sc)[0], d)
+    assert float((o - o_ref).abs().max()) <= max(1e-4 * float(o_ref.abs().max()), 2 * move)
+    fin = torch.isfinite(lse_ref)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert float((lse - lse_ref)[fin].abs().max()) <= 1e-5 * float(lse_ref[fin].abs().max())
+    assert float((dq - dq_ref).abs().max()) <= 1e-5 * float(dq_ref.abs().max())
+    assert_bf16_ulp(dk, dk_ref)
+    # dV takes bf16(p), whose flips may land on any element: each may also
+    # move by twice the largest move of the plain dV under the scale moves
+    dv_move = max(float((flash_dkv_ref(*args, bf16=True, scale=(1 + e) / d ** 0.5)[1].double()
+                         - dv_ref.double()).abs().max()) for e in FLIP_EPS)
+    g_, w_ = dv.double(), dv_ref.double()
+    tol = torch.maximum(torch.maximum(bf16_ulp(w_), bf16_ulp(g_)),
+                        torch.full_like(w_, max(1e-6 * float(w_.abs().max()), 2 * dv_move)))
+    assert not bool(((g_ - w_).abs() > tol).any())
+    qb, dob = refs.bf16_round(q), refs.bf16_round(do)
+    exact = _dq64_bf16(qb, k, v, do, dob, o, lse, kv_len, q_off)
+
+    def rms(x):
+        return float((x.double() - exact).square().mean().sqrt())
+    assert rms(dq) <= 2 * rms(dq_ref), (rms(dq), rms(dq_ref))
+
+
+def _dq64_bf16(qb, k, v, do, dob, o, lse, kv_len, q_off):
+    """dQ's bf16 form in float64: s from bf16(q), dP from bf16(dO)."""
+    b, hq, tq, d = qb.shape
+    hkv, s = k.shape[1], k.shape[2]
+    qg = qb.double().reshape(b, hkv, hq // hkv, tq, d)
+    kd, vd = k.double(), v.double()
+    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) / d ** 0.5
+    ki = torch.arange(s, device=qb.device)[None, :]
+    qi = torch.arange(tq, device=qb.device)[:, None] + q_off
+    p = torch.where((ki < kv_len) & (ki <= qi),
+                    torch.exp(sc - lse.double().reshape(*qg.shape[:-1], 1)), torch.zeros_like(sc))
+    delta = (do.double().reshape(qg.shape) * o.double().reshape(qg.shape)).sum(-1, keepdim=True)
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dob.double().reshape(qg.shape), vd)
+    return torch.einsum("bgrqk,bgkd->bgrqd", p * (dp - delta) / d ** 0.5, kd).reshape(b, hq, tq, d)
+
+
+def test_flash_attention_autograd_takes_k10_bf16(cuda, monkeypatch):
+    """At the default flags dispatch.flash_attention under autograd launches
+    K10's bf16 forms once each (counted flash_fwd_bf16, ...), and dQ equals
+    the same Function's plain tier within 1e-5 * max."""
+    monkeypatch.delenv("ZGML_TPU_PREFILL_BF16", raising=False)
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng, 2, 8, 2, 64, 2, 64, 64, cuda)
+    grads = []
+    for ref in (False, True):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        global_profile.reset()
+        with dispatch.force_ref() if ref else torch.enable_grad():
+            torch.sum(torch.sin(dispatch.flash_attention(qq, kk, vv, kv_len=64))).backward()
+        tier = "ref" if ref else "cuda"
+        assert global_profile.tier_summary() == {n: {tier: 1} for n in
+                                                 ("flash_fwd_bf16", "flash_dq_bf16",
+                                                  "flash_dkv_bf16")}
+        grads.append(qq.grad)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-5 * float(grads[1].abs().max())

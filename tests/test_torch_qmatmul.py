@@ -226,7 +226,9 @@ def test_q4_matmul_i8_keeps_leading_dims(default_flags):
 
 def test_qmatmul_tier_follows_rows_and_flag(default_flags, monkeypatch):
     """K1 for M <= 32 (or tier_rows <= 32), K2 above, K2 everywhere with
-    ZGML_TPU_I8DOT=0 (zgml_tpu/ops/qmatmul.py:639,728)."""
+    ZGML_TPU_I8DOT=0 (zgml_tpu/ops/qmatmul.py:639,728); K2 in its bf16 form
+    where JAX's row tile holds 32 rows or more (the 33-row call and the row
+    at tier_rows 128, under the default ZGML_TPU_PREFILL_BF16), f32 below."""
     rng, _, pw = _weights(7)
     x33 = torch.from_numpy(rng.standard_normal((33, K)).astype(np.float32))
     global_profile.reset()
@@ -236,7 +238,8 @@ def test_qmatmul_tier_follows_rows_and_flag(default_flags, monkeypatch):
     dispatch.qmatmul(x33[:1], pw, tier_rows=16)
     monkeypatch.setenv("ZGML_TPU_I8DOT", "0")
     dispatch.qmatmul(x33[:1], pw)
-    assert global_profile.tier_summary() == {"qmatmul": {"ref": 3}, "qmatmul_i8": {"ref": 2}}
+    assert global_profile.tier_summary() == {"qmatmul": {"ref": 1}, "qmatmul_bf16": {"ref": 2},
+                                             "qmatmul_i8": {"ref": 2}}
 
 
 def _check_greedy(seed, kind):

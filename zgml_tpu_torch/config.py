@@ -3,7 +3,7 @@
 The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
-the card. The *path* follows twelve of the JAX package's own variables, with
+the card. The *path* follows thirteen of the JAX package's own variables, with
 its defaults, read at call time (the port is eager):
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
@@ -35,6 +35,9 @@ its defaults, read at call time (the port is eager):
                                                        taken before K14 (default off)
   ZGML_TPU_TAPE_BF16=0            tape_bf16()          K15 with f32 operands (default 1:
                                                        bf16-rounded operands and weights)
+  ZGML_TPU_PREFILL_BF16=0         prefill_bf16()       f32 prefill operands (default 1: K2 in
+                                                       JAX's bf16 row tiles, K3 / K9 / K10
+                                                       round their dot operands to bf16)
 
 The two i8a flags take the JAX package's padded width of the weight, which
 the port computes from its unpadded one (padded_k).
@@ -69,9 +72,18 @@ call counts under `ref`, as on the CPU. ``dispatch.use_kernel(op)`` is the
 predicate that runs a kernel: kernel_on(op) and not under force_ref().
 force_ref() keeps the path (it compares the kernels with their plain
 versions on it); the switches change it. The port reads no other JAX flag.
-Its prefill operands stay f32, which is the JAX package's
-ZGML_TPU_PREFILL_BF16=0, and its weight scales stay the GGUF file's fp16
-values, which is ZGML_TPU_SCALES=f16.
+
+ZGML_TPU_PREFILL_BF16 (zgml_tpu/config.py:188-191) picks the prefill's
+numerics as it does the JAX package's, and with its default, 1: a K2 call
+whose JAX row tile is at least 32 rows and that the int8 tier does not
+take (ops/qmatmul.bf16_rows) rounds x and the dequantized weight
+bf16(level * scale) to bf16 before an f32-accumulated dot
+(qmatmul.py:57-63, :113-121); the flash kernels K3, K9, K10f, K10dq and
+K10dkv round their dot operands to bf16 (attention.py:77-104, 625-644,
+flash_vjp.py:60-84, 168-187, 258-284). "0" keeps every prefill operand
+f32. Where qmatmul or attention is switched off, the JAX ref tier runs, in
+f32 at every flag, and so does the port. Its weight scales stay the GGUF
+file's fp16 values, which is ZGML_TPU_SCALES=f16.
 """
 from __future__ import annotations
 
@@ -196,6 +208,12 @@ def refuse_attn_i8pv():
         raise NotImplementedError(
             "ZGML_TPU_ATTN_I8PV=1: K8's int8 P.V mode is not ported to zgml_tpu_torch "
             "(unset it, or set it to 0, for the default f32 P.V over the int8 cache)")
+
+
+def prefill_bf16() -> bool:
+    """bf16 dot operands on the prefill path: K2's bf16 row tiles and the
+    flash kernels' score / P.V dots (zgml_tpu/config.py:188-191)."""
+    return _flag("ZGML_TPU_PREFILL_BF16", "1")
 
 
 def tile_friendly_pad(x: int) -> int:

@@ -102,7 +102,39 @@
 //    each thread keeps its share of l and the quad sums it once at the end.
 //    Only tiles that cross a row's causal limit or kv_len are masked, and a
 //    warp skips a tile that none of its rows reaches.
+//
+// The bf16 form, flash_bf16_kernel<D, KV8> (bf16 != 0; ZGML_TPU_PREFILL_BF16,
+// on by default): the JAX kernels' function at bf16=True (attention.py:77-104,
+// 625-644; flash_vjp.py:60-84). Scores bf16(q) . K (K9: . levels) with f32
+// sums, times scale (K9: k_scale * scale, rounded as flash_bwd.cu recomputes
+// them); an f32 online softmax whose running max steps once per JAX key tile
+// of `group` keys (flash_group: 128, or K9's 256, counted from key 0); p (K9:
+// p * v_scale) rounded to bf16 against bf16 V (K9: levels); l sums the
+// unrounded p.
+//  * What bounds it: 4 * Hq * live_pairs * D operations on bf16 tensor cores
+//    at 989 TFLOP/s, one product per dot (the f32 form takes two TF32 ones
+//    at half that rate), and the same bytes.
+//  * Dots on mma.sync m16n8k16 bf16: q's A fragments rounded once per block
+//    and held in registers; K's B fragments by ldmatrix; each S accumulator
+//    chain is D / 16 MMAs long. P's A fragments are packed to bf16 straight
+//    from the S accumulators (key blocks 2j and 2j + 1 make k-step j), V's B
+//    fragments by ldmatrix.trans; each sub-tile's P V builds in fresh
+//    accumulators and joins O (shared memory, as the f32 form's) in one fma.
+//  * The running max steps per group, not per staged sub-tile (BN keys: 128
+//    at D <= 64, 64 at D 128): p's bf16 rounding depends on the max it is
+//    taken against. A group of one sub-tile takes its max from its own S; a
+//    longer one (K3 at D 128, K9's 256-key groups) first runs a max pass
+//    over its sub-tiles' K alone, then the main pass recomputes the same S
+//    (the same MMAs, the same bits) against the group's max. The walk over a
+//    split is a sequence of items (group, sub-tile, pass), double-buffered
+//    by cp.async as the f32 form's tiles.
+//  * A split of the prefix (flash_split_plan, at `group` keys a tile) starts
+//    its running max at its first key: where the plan splits, p rounds
+//    against another max than JAX's for keys whose group lies past a larger
+//    score of an earlier split. ops/attention.flash_partials_ref(bf16=True)
+//    is this function for a given plan; unsplit it is JAX's.
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 #include <climits>
 
@@ -144,6 +176,7 @@ struct FaParams {
   int n_rows;         // packed rows per (b, KV head): n_rep * Tq
   int total_rows;     // B * Hq * Tq
   float scale;
+  int group;          // the bf16 form's keys a running-max step (JAX's key tile)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -259,6 +292,47 @@ __device__ __forceinline__ void stage_tile(const T* kg, const T* vg, const float
     }
   }
   cp_async_commit();
+}
+
+// The block's end: each thread held its share of l, summed over the quad
+// (the same sum on all four); then o = O / l and the lse, or with a split
+// prefix the unnormalised O and (m, l) into the partials.
+template <int D>
+__device__ __forceinline__ void fa_epilogue(const FaParams& p, float* const (&orow_s)[2],
+                                            const size_t (&orow)[2], const bool (&valid)[2],
+                                            const float (&mrow)[2], float (&lrow)[2], int split,
+                                            int t) {
+  constexpr int NO = D / 8;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    lrow[e] += __shfl_xor_sync(FA_FULL, lrow[e], 1);
+    lrow[e] += __shfl_xor_sync(FA_FULL, lrow[e], 2);
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!valid[e]) continue;
+    const float l = lrow[e];
+    if (p.n_split == 1) {
+      float* op = p.o + orow[e] * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float2 x = *reinterpret_cast<const float2*>(orow_s[e] + 8 * n);
+        *reinterpret_cast<float2*>(op + 8 * n) =
+            l > 0.f ? make_float2(x.x / l, x.y / l) : make_float2(0.f, 0.f);
+      }
+      if (p.lse != nullptr && t == 0) p.lse[orow[e]] = l > 0.f ? mrow[e] + logf(l) : INFINITY;
+    } else {
+      const size_t slot = (size_t)split * p.total_rows + orow[e];
+      float* op = p.part + slot * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(op + 8 * n) =
+            *reinterpret_cast<const float2*>(orow_s[e] + 8 * n);
+      if (t == 0)
+        *reinterpret_cast<float2*>(p.part + (size_t)p.n_split * p.total_rows * D + 2 * slot) =
+            make_float2(mrow[e], l);
+    }
+  }
 }
 
 // minBlocks 1: an explicit occupancy target, so ptxas does not trade
@@ -482,37 +556,340 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParam
     }
   }
 
-  // each thread held its share of l: sum the quad (the same sum on all four)
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    lrow[e] += __shfl_xor_sync(FA_FULL, lrow[e], 1);
-    lrow[e] += __shfl_xor_sync(FA_FULL, lrow[e], 2);
-  }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    if (!valid[e]) continue;
-    const float l = lrow[e];
-    if (p.n_split == 1) {
-      float* op = p.o + orow[e] * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const float2 x = *reinterpret_cast<const float2*>(orow_s[e] + 8 * n);
-        *reinterpret_cast<float2*>(op + 8 * n) =
-            l > 0.f ? make_float2(x.x / l, x.y / l) : make_float2(0.f, 0.f);
-      }
-      if (p.lse != nullptr && t == 0) p.lse[orow[e]] = l > 0.f ? mrow[e] + logf(l) : INFINITY;
-    } else {
-      const size_t slot = (size_t)split * p.total_rows + orow[e];
-      float* op = p.part + slot * D + 2 * t;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<float2*>(op + 8 * n) =
-            *reinterpret_cast<const float2*>(orow_s[e] + 8 * n);
-      if (t == 0)
-        *reinterpret_cast<float2*>(p.part + (size_t)p.n_split * p.total_rows * D + 2 * slot) =
-            make_float2(mrow[e], l);
+  fa_epilogue<D>(p, orow_s, orow, valid, mrow, lrow, split, t);
+}
+
+// ---- the bf16 form ------------------------------------------------------------
+
+template <int D>
+struct FbShape {
+  static constexpr int BN = D <= 64 ? 128 : 64;   // keys per K/V sub-tile
+  static constexpr int NT = BN / 8;               // 8-key blocks of a sub-tile
+  static constexpr int KS = D / 16;               // k16 steps of a score
+  static constexpr int LDO = D + 8;               // floats per O row in smem
+  static constexpr int LDK = D + 8;               // bf16 per staged K / V row
+  static_assert(NT % 2 == 0 && D % 16 == 0 && (D / 8) % 2 == 0, "tile shape");
+};
+
+// O [FA_BM][LDO] f32; the bf16 K and V sub-tiles [BN][LDK] (two stages; K9
+// widens into one); K9 only: the raw int8 K and V [BN][D] and their scales
+// [BN], two stages each.
+template <int D, bool KV8>
+constexpr size_t fb_smem_bytes() {
+  using Sh = FbShape<D>;
+  return 1ull * FA_BM * Sh::LDO * sizeof(float) + (KV8 ? 1ull : 2ull) * 2 * Sh::BN * Sh::LDK * 2 +
+         (KV8 ? 2ull * 2 * Sh::BN * D + 2ull * 2 * Sh::BN * sizeof(float) : 0ull);
+}
+
+// One step of the bf16 form's walk over a split: sub-tile `sub` of key group
+// `grp`, in the max pass (pass 0, K only) or the main pass (pass 1, K and V).
+// A group of one sub-tile has no max pass.
+struct FbItem {
+  int grp, sub, pass;
+};
+
+__device__ __forceinline__ int fb_nsub(int grp, int group, int key_end, int bn) {
+  const int g0 = grp * group, g1 = min(g0 + group, key_end);
+  return (g1 - g0 + bn - 1) / bn;
+}
+
+__device__ __forceinline__ FbItem fb_first(int grp, int group, int key_end, int bn) {
+  return {grp, 0, fb_nsub(grp, group, key_end, bn) > 1 ? 0 : 1};
+}
+
+__device__ __forceinline__ FbItem fb_next(FbItem it, int group, int key_end, int bn) {
+  if (it.sub + 1 < fb_nsub(it.grp, group, key_end, bn)) return {it.grp, it.sub + 1, it.pass};
+  if (it.pass == 0) return {it.grp, 0, 1};
+  return fb_first(it.grp + 1, group, key_end, bn);
+}
+
+// Issue the copies of an item's keys [j0, j0 + nk) (K, and V in the main
+// pass) into stage st; rows past nk are zero-filled. One commit group.
+template <int D, bool KV8, class T>
+__device__ __forceinline__ void fb_stage(const T* kg, const T* vg, const float* ksg,
+                                         const float* vsg, int j0, int nk, bool with_v, int st,
+                                         __nv_bfloat16* kv_s, int8_t* raw, float* scl) {
+  using Sh = FbShape<D>;
+  constexpr int BN = Sh::BN, LDK = Sh::LDK;
+  const int tid = threadIdx.x;
+  if constexpr (KV8) {
+    constexpr int CH = D / 16;
+    int8_t* kd = raw + st * 2 * BN * D;
+    int8_t* vd = kd + BN * D;
+    for (int e = tid; e < BN * CH; e += FA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool live = r < nk;
+      const size_t off = (size_t)(j0 + (live ? r : 0)) * D + c * 16;
+      cp_async16(kd + r * D + c * 16, kg + off, live);
+      if (with_v) cp_async16(vd + r * D + c * 16, vg + off, live);
+    }
+    if (tid < BN) {
+      const bool live = tid < nk;
+      const int off = j0 + (live ? tid : 0);
+      cp_async4(scl + st * 2 * BN + tid, ksg + off, live);
+      if (with_v) cp_async4(scl + st * 2 * BN + BN + tid, vsg + off, live);
+    }
+  } else {
+    constexpr int CH = D / 8;
+    __nv_bfloat16* kd = kv_s + st * 2 * BN * LDK;
+    __nv_bfloat16* vd = kd + BN * LDK;
+    for (int e = tid; e < BN * CH; e += FA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool live = r < nk;
+      const size_t off = (size_t)(j0 + (live ? r : 0)) * D + c * 8;
+      cp_async16(kd + r * LDK + c * 8, kg + off, live);
+      if (with_v) cp_async16(vd + r * LDK + c * 8, vg + off, live);
     }
   }
+  cp_async_commit();
+}
+
+template <int D, bool KV8>
+__global__ void __launch_bounds__(FA_THREADS, 1) flash_bf16_kernel(const FaParams p) {
+  using Sh = FbShape<D>;
+  constexpr int BN = Sh::BN, NT = Sh::NT, KS = Sh::KS, LDO = Sh::LDO, LDK = Sh::LDK;
+  constexpr int NO = D / 8;
+  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  float* o_s = reinterpret_cast<float*>(fa_smem);
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(o_s + FA_BM * LDO);
+  int8_t* raw = reinterpret_cast<int8_t*>(kv_s + (KV8 ? 1 : 2) * 2 * BN * LDK);
+  float* scl = reinterpret_cast<float*>(raw + 2 * 2 * BN * D);
+
+  const int n_rep = p.Hq / p.Hkv;
+  const int n_m = (p.n_rows + FA_BM - 1) / FA_BM;
+  const int m = n_m - 1 - (int)blockIdx.x;          // the longest tiles first
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int split = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int group = p.group;
+
+  const int key_end = tile_key_end(p.n_rows, p.kv_len, p.q_offset, m, n_rep);
+  const int n_kt = (key_end + group - 1) / group;   // key groups of the tile
+  const int kt0 = (int)((long long)split * n_kt / p.n_split);
+  const int kt1 = (int)((long long)(split + 1) * n_kt / p.n_split);
+
+  bool valid[2];
+  int lim[2];
+  size_t orow[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = m * FA_BM + warp * 16 + g + 8 * e;
+    valid[e] = r < p.n_rows;
+    const int i = r / n_rep, h = hk * n_rep + r % n_rep;
+    orow[e] = ((size_t)b * p.Hq + h) * p.Tq + i;
+    lim[e] = valid[e] ? min(p.kv_len, p.q_offset + i + 1) : 0;
+  }
+  const int warp_hi = __reduce_max_sync(FA_FULL, max(lim[0], lim[1]));
+  const int warp_lo = __reduce_min_sync(FA_FULL, min(valid[0] ? lim[0] : INT_MAX,
+                                                     valid[1] ? lim[1] : INT_MAX));
+
+  float* const orow_s[2] = {o_s + (warp * 16 + g) * LDO + 2 * t,
+                            o_s + (warp * 16 + g + 8) * LDO + 2 * t};
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(orow_s[0] + 8 * n) = make_float2(0.f, 0.f);
+    *reinterpret_cast<float2*>(orow_s[1] + 8 * n) = make_float2(0.f, 0.f);
+  }
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+  float gmax[2] = {-INFINITY, -INFINITY};     // the group's max (its max pass)
+  float muse[2] = {0.f, 0.f};                 // the max the group's p are taken against
+
+  const size_t pos0 = ((size_t)(p.kv_row + b) * p.Hkv + hk) * p.S;
+  const T* kg = static_cast<const T*>(p.k) + pos0 * D;
+  const T* vg = static_cast<const T*>(p.v) + pos0 * D;
+  const float* ksg = KV8 ? p.ks + pos0 : nullptr;
+  const float* vsg = KV8 ? p.vs + pos0 : nullptr;
+
+  if (kt0 < kt1) {
+    FbItem it = fb_first(kt0, group, key_end, BN);
+    {
+      const int j0 = it.grp * group;
+      fb_stage<D, KV8>(kg, vg, ksg, vsg, j0, min(BN, min(j0 + group, key_end) - j0), it.pass == 1,
+                       0, kv_s, raw, scl);
+    }
+    // q's A fragments, bf16 (rounded to nearest even), held for the block:
+    // qa[ks] = (row g, d 16ks + 2t..), (g + 8, ..), (g, 16ks + 8 + 2t..), (g + 8, ..)
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int pr = m * FA_BM + warp * 16 + g + 8 * e;
+      const float* qrow = nullptr;
+      if (pr < p.n_rows) {
+        const int h = hk * n_rep + pr % n_rep;
+        qrow = p.q + (((size_t)b * p.Hq + h) * p.Tq + pr / n_rep) * D + 2 * t;
+      }
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float2 x = make_float2(0.f, 0.f);
+          if (qrow != nullptr) x = __ldg(reinterpret_cast<const float2*>(qrow + 16 * ks + 8 * hf));
+          qa[ks][2 * hf + e] = tf32::pack_bf16x2(x.x, x.y);
+        }
+    }
+
+    int st = 0;
+    while (it.grp < kt1) {
+      const FbItem nx = fb_next(it, group, key_end, BN);
+      if (nx.grp < kt1) {
+        const int j0n = nx.grp * group + nx.sub * BN;
+        fb_stage<D, KV8>(kg, vg, ksg, vsg, j0n,
+                         min(BN, min(nx.grp * group + group, key_end) - j0n), nx.pass == 1,
+                         st ^ 1, kv_s, raw, scl);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const bool main_pass = it.pass == 1;
+      if constexpr (KV8) {        // widen the stage's levels (K; V in the main pass) to bf16
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(raw + st * 2 * BN * D);
+        constexpr int W = D / 4;
+        const int n_w = (main_pass ? 2 : 1) * BN * W;
+        for (int e = tid; e < n_w; e += FA_THREADS) {
+          const int kv = e / (BN * W), r = (e / W) % BN, c = e % W;
+          const uint32_t w = src[e];
+          *reinterpret_cast<uint2*>(kv_s + (kv * BN + r) * LDK + 4 * c) =
+              make_uint2(level_bf16(w, 0) | (level_bf16(w, 1) << 16),
+                         level_bf16(w, 2) | (level_bf16(w, 3) << 16));
+        }
+        __syncthreads();
+      }
+      const __nv_bfloat16* Ks = kv_s + (KV8 ? 0 : st * 2 * BN * LDK);
+      const __nv_bfloat16* Vs = Ks + BN * LDK;
+      const float* ksc = scl + st * 2 * BN;
+      const float* vsc = ksc + BN;
+      const int g0 = it.grp * group;
+      const int g1 = min(g0 + group, key_end);
+      const int j0 = g0 + it.sub * BN;
+      const bool two = fb_nsub(it.grp, group, key_end, BN) > 1;
+      if (it.sub == 0 && (!main_pass || !two)) gmax[0] = gmax[1] = -INFINITY;
+      if (j0 < warp_hi) {
+        // S = bf16(q) K^T over the warp's 16 rows and the sub-tile's keys:
+        // one bf16 MMA per 16 d, exact products, f32 sums (one chain of KS)
+        float s[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int j2 = 0; j2 < NT / 2; ++j2) {
+            uint32_t kb[4];        // key blocks 2 j2, 2 j2 + 1: (d 16ks + 2t.., key g), (+8 ..)
+            ldsm_x4(kb, Ks + (16 * j2 + (lane & 7) + 8 * (lane >> 4)) * LDK + 16 * ks +
+                            8 * ((lane >> 3) & 1));
+            tf32::mma_bf16(s[2 * j2], qa[ks], kb[0], kb[1]);
+            tf32::mma_bf16(s[2 * j2 + 1], qa[ks], kb[2], kb[3]);
+          }
+        }
+        // scale (K9: k_scale * scale, attention.py:631), and mask keys past a
+        // row's limit or the group's end
+        const bool mask = j0 + BN > warp_lo || j0 + BN > g1;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j0 + 8 * j + 2 * t + (e & 1);
+            // rounded as the backward (flash_bwd.cu) recomputes it
+            float x = __fmul_rn(s[j][e], KV8 ? __fmul_rn(ksc[key - j0], p.scale) : p.scale);
+            if (mask && (key >= lim[e >> 1] || key >= g1)) x = -INFINITY;
+            s[j][e] = x;
+          }
+        }
+        float tmax[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * e], s[j][2 * e + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(FA_FULL, mx, 1));
+          tmax[e] = fmaxf(mx, __shfl_xor_sync(FA_FULL, mx, 2));
+        }
+        if (!main_pass) {
+          gmax[0] = fmaxf(gmax[0], tmax[0]);
+          gmax[1] = fmaxf(gmax[1], tmax[1]);
+        } else {
+          // the group's first sub-tile moves the running max once (JAX's tile
+          // step, attention.py:92-104); its later sub-tiles add at alpha 1
+          float alpha[2] = {1.f, 1.f};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (it.sub == 0) {
+              const float gm = two ? gmax[e] : tmax[e];
+              const float m_new = fmaxf(mrow[e], gm);
+              muse[e] = m_new == -INFINITY ? 0.f : m_new;
+              alpha[e] = expf(mrow[e] - muse[e]);             // 0 before the first live key
+              lrow[e] *= alpha[e];
+              mrow[e] = m_new;
+            }
+            float ps = 0.f;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const float pj = expf(s[j][2 * e + u] - muse[e]);   // masked: exp(-inf) = 0
+                s[j][2 * e + u] = pj;
+                ps += pj;
+              }
+            }
+            lrow[e] += ps;
+          }
+          // P's A fragments, bf16 (K9: p * v_scale, attention.py:642), from the
+          // S accumulators: k-step j2 takes key blocks 2 j2 and 2 j2 + 1
+          uint32_t pa[NT / 2][4];
+#pragma unroll
+          for (int j2 = 0; j2 < NT / 2; ++j2) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int j = 2 * j2 + hf;
+              float v0 = s[j][0], v1 = s[j][1], v2 = s[j][2], v3 = s[j][3];
+              if constexpr (KV8) {
+                const float2 vv = *reinterpret_cast<const float2*>(vsc + 8 * j + 2 * t);
+                v0 *= vv.x;
+                v1 *= vv.y;
+                v2 *= vv.x;
+                v3 *= vv.y;
+              }
+              pa[j2][2 * hf] = tf32::pack_bf16x2(v0, v1);
+              pa[j2][2 * hf + 1] = tf32::pack_bf16x2(v2, v3);
+            }
+          }
+          // O = O * alpha + P V, two 8-column blocks at a time, each sub-tile's
+          // P V in fresh accumulators joined by one IEEE fma
+#pragma unroll
+          for (int n = 0; n < NO; n += 2) {
+            float o0[4] = {0.f, 0.f, 0.f, 0.f}, o1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+            for (int j2 = 0; j2 < NT / 2; ++j2) {
+              uint32_t vb[4];     // (keys 16 j2 + 2t.., col g), (+8 ..) of blocks n, n + 1
+              ldsm_x4_trans(vb, Vs + (16 * j2 + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDK +
+                                    8 * (n + (lane >> 4)));
+              tf32::mma_bf16(o0, pa[j2], vb[0], vb[1]);
+              tf32::mma_bf16(o1, pa[j2], vb[2], vb[3]);
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float2* oa = reinterpret_cast<float2*>(orow_s[e] + 8 * n);
+              float2* ob = reinterpret_cast<float2*>(orow_s[e] + 8 * (n + 1));
+              float2 xa = *oa, xb = *ob;
+              xa.x = fmaf(xa.x, alpha[e], o0[2 * e]);
+              xa.y = fmaf(xa.y, alpha[e], o0[2 * e + 1]);
+              xb.x = fmaf(xb.x, alpha[e], o1[2 * e]);
+              xb.y = fmaf(xb.y, alpha[e], o1[2 * e + 1]);
+              *oa = xa;
+              *ob = xb;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      it = nx;
+      st ^= 1;
+    }
+  }
+  fa_epilogue<D>(p, orow_s, orow, valid, mrow, lrow, split, t);
 }
 
 // Merge the n_split partials of every row: o = sum_s w_s o_s / sum_s w_s l_s
@@ -552,13 +929,24 @@ __global__ void flash_combine_kernel(const float* __restrict__ part, float* __re
 }
 
 template <int D, bool KV8>
-int launch(const FaParams& p, int B, int bn, cudaStream_t st) {
-  if (bn != FaShape<D>::BN) return ZGML_ERR_SHAPE;      // the host plan's tile must be ours
-  constexpr size_t smem = fa_smem_bytes<D, KV8>();
-  int rc = allow_dynamic_smem(flash_attn_kernel<D, KV8>, smem);
-  if (rc != 0) return rc;
+int launch(const FaParams& p, int B, int bn, bool bf16, cudaStream_t st) {
   const dim3 grid((p.n_rows + FA_BM - 1) / FA_BM, B * p.Hkv, p.n_split);
-  flash_attn_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(p);
+  int rc;
+  if (bf16) {         // bn is the key group, any size
+    if (bn < 1) return ZGML_ERR_SHAPE;
+    FaParams q = p;
+    q.group = bn;
+    constexpr size_t smem = fb_smem_bytes<D, KV8>();
+    rc = allow_dynamic_smem(flash_bf16_kernel<D, KV8>, smem);
+    if (rc != 0) return rc;
+    flash_bf16_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(q);
+  } else {
+    if (bn != FaShape<D>::BN) return ZGML_ERR_SHAPE;    // the host plan's tile must be ours
+    constexpr size_t smem = fa_smem_bytes<D, KV8>();
+    rc = allow_dynamic_smem(flash_attn_kernel<D, KV8>, smem);
+    if (rc != 0) return rc;
+    flash_attn_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(p);
+  }
   rc = (int)cudaGetLastError();
   if (rc != 0 || p.n_split == 1) return rc;
   const int threads = 256, n = p.total_rows * (D / 4);
@@ -567,33 +955,38 @@ int launch(const FaParams& p, int B, int bn, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int D, bool KV8>
-int blocks_per_sm(int* n) {
-  constexpr size_t smem = fa_smem_bytes<D, KV8>();
-  const int rc = allow_dynamic_smem(flash_attn_kernel<D, KV8>, smem);
+template <class K>
+int occupancy(K kernel, size_t smem, int* n) {
+  const int rc = allow_dynamic_smem(kernel, smem);
   if (rc != 0) return rc;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, flash_attn_kernel<D, KV8>,
-                                                            FA_THREADS, smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, FA_THREADS, smem);
+}
+
+template <int D, bool KV8>
+int blocks_per_sm(bool bf16, int* n) {
+  return bf16 ? occupancy(flash_bf16_kernel<D, KV8>, fb_smem_bytes<D, KV8>(), n)
+              : occupancy(flash_attn_kernel<D, KV8>, fa_smem_bytes<D, KV8>(), n);
 }
 
 template <bool KV8>
-int launch_hd(const FaParams& p, int B, int D, int bn, cudaStream_t st) {
+int launch_hd(const FaParams& p, int B, int D, int bn, bool bf16, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<16, KV8>(p, B, bn, st);
-    case 32: return launch<32, KV8>(p, B, bn, st);
-    case 64: return launch<64, KV8>(p, B, bn, st);
-    case 128: return launch<128, KV8>(p, B, bn, st);
+    case 16: return launch<16, KV8>(p, B, bn, bf16, st);
+    case 32: return launch<32, KV8>(p, B, bn, bf16, st);
+    case 64: return launch<64, KV8>(p, B, bn, bf16, st);
+    case 128: return launch<128, KV8>(p, B, bn, bf16, st);
     default: return ZGML_ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
 
-// *n = the blocks of flash_attn_kernel<D, kv8> one SM holds at once (the
-// occupancy the host plan fills); returns a status.
-ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv8, int* n) {
+// *n = the blocks of flash_attn_kernel<D, kv8> (bf16: flash_bf16_kernel)
+// one SM holds at once (the occupancy the host plan fills); returns a status.
+ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv8, int bf16, int* n) {
 #define ZGML_FLASH_OCC(DD) \
-  case DD: return kv8 ? blocks_per_sm<DD, true>(n) : blocks_per_sm<DD, false>(n);
+  case DD:                 \
+    return kv8 ? blocks_per_sm<DD, true>(bf16 != 0, n) : blocks_per_sm<DD, false>(bf16 != 0, n);
   switch (D) {
     ZGML_FLASH_OCC(16)
     ZGML_FLASH_OCC(32)
@@ -608,19 +1001,21 @@ ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv8, int* n) {
 // and vs null) or int8 levels with f32 scales ks/vs [R, Hkv, S] (K9); o f32
 // [B, Hq, Tq, D]; lse f32 [B, Hq, Tq] or null (K10f writes it; bf16 cache
 // only); all contiguous, 16-byte aligned. n_split and bn come from
-// ops/attention.py flash_split_plan (bn must be this build's tile for D);
+// ops/attention.py flash_split_plan (bn must be this build's tile for D;
+// with bf16 != 0, the bf16 form, it is the key group of its running max);
 // with n_split > 1, part is f32 scratch of n_split * B * Hq * Tq * (D + 2).
 ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const float* ks,
                                      const void* v, const float* vs, float* o, float* lse,
                                      float* part, int B, int Hq, int Hkv, int Tq, int S, int D,
                                      int kv_len, int q_offset, int kv_row, int n_split, int bn,
-                                     float scale, void* stream) {
+                                     int bf16, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0 || S <= 0 || kv_row < 0 ||
       q_offset < 0 || n_split < 1 || n_split > 65535 || (n_split > 1 && part == nullptr) ||
       (ks == nullptr) != (vs == nullptr) || (ks != nullptr && lse != nullptr))
     return ZGML_ERR_SHAPE;
   FaParams p{q, k, ks, v, vs, o, lse, part, Hq, Hkv, Tq, S, max(0, min(kv_len, S)), q_offset,
-             kv_row, n_split, (Hq / Hkv) * Tq, B * Hq * Tq, scale};
+             kv_row, n_split, (Hq / Hkv) * Tq, B * Hq * Tq, scale, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ks != nullptr ? launch_hd<true>(p, B, D, bn, st) : launch_hd<false>(p, B, D, bn, st);
+  return ks != nullptr ? launch_hd<true>(p, B, D, bn, bf16 != 0, st)
+                       : launch_hd<false>(p, B, D, bn, bf16 != 0, st);
 }

@@ -4,8 +4,8 @@
 //
 // Replaces: zgml_tpu/ops/flash_vjp.py `_dq_kernel` (pallas_call at line 230)
 // and `_dkv_kernel` (pallas_call at line 327), which the backward of
-// `make_flash_vjp` runs under jax.grad, at ZGML_TPU_PREFILL_BF16=0 (f32
-// operands: the port's standing prefill function).
+// `make_flash_vjp` runs under jax.grad: at ZGML_TPU_PREFILL_BF16=0 (f32
+// operands) here, at the default 1 in the bf16 forms (below).
 //
 // Semantics (plain versions: ops/flash_vjp.py flash_dq_ref, flash_dkv_ref):
 //   q, dO, O f32 [B, Hq, Tq, D]; k, v bf16 [B, Hkv, S, D]; lse f32 [B, Hq, Tq]
@@ -44,7 +44,7 @@
 //    hi lo + lo hi: dV = P^T dO, dK = dS'^T q; the lo lo term is below
 //    2^-22). dP' = bf16(dO) V^T has two exact operands: one bf16 m16n8k16
 //    MMA, whose products are exact in f32. No TF32-only product: the error
-//    stays in the class of f32 rounding, the port's standing function.
+//    stays in the class of f32 rounding, the f32 form's function.
 //  * Short chains. The tensor cores round each MMA's sum toward zero (in
 //    K10f one long chain moved training's gradients past their bound). A
 //    tile's S and dP are summed in three chains each, as K3's S (hi products
@@ -107,6 +107,19 @@
 //    masked; a warp skips a tile none of its pairs reaches. Keys past
 //    kv_len and queries past Tq are zero-filled in shared memory, so no
 //    stale value meets an MMA.
+//
+// The bf16 forms (template flag BF16; ZGML_TPU_PREFILL_BF16, on by default):
+// JAX's operand dtypes at bf16=True (flash_vjp.py:168-187, 258-284). s from
+// bf16(q) and k on bf16 mma.sync m16n8k16 in the order flash_attn.cu's bf16
+// form takes it (one chain of D / 16 MMAs; bf16_scores), so p = exp(s * scale
+// - lse) meets the LSE of the same bits; dP = bf16(dO) . v in K10dq (dK's dP'
+// already is); dV += bf16(p)^T bf16(dO) on bf16 MMAs, each MMA alone in a
+// fresh accumulator added round-to-nearest (dkv_accumulate_bf16); dQ = dS k
+// and dK = dS'^T bf16(q) keep the f32 dS, split into two TF32 parts against
+// k and bf16(q), which are exact in TF32: two products, not three
+// (dkv_accumulate<D, true>). bf16(q) is packed and rounded in place once per
+// landed stage, in the room of the lo parts the form does not use. The
+// delta pre-pass and the split plans are the f32 form's.
 #include "common.cuh"
 #include "tf32_mma.cuh"
 
@@ -264,9 +277,47 @@ __device__ __forceinline__ void stage_kv(const __nv_bfloat16* kg, const __nv_bfl
   }
 }
 
+// s[j] = bf16(a) . B^T for the warp's 16 rows and NT 8-key blocks: a the
+// rows' f32 values in shared memory at af (this thread's row g, column 2t;
+// row g + 8 at 8 LDA further), rounded to bf16 (nearest even) into the A
+// fragments; B the staged bf16 rows [NT * 8][LDK] (K or V), through
+// ldmatrix. One bf16 m16n8k16 MMA per 16 d, one chain from zero, in d order:
+// the order flash_attn.cu's bf16 form takes its scores in.
+template <int D, int NT, int LDA, int LDK>
+__device__ __forceinline__ void bf16_scores(const float* af, const __nv_bfloat16* Bs,
+                                            float (&s)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float2 x = *reinterpret_cast<const float2*>(af + 8 * LDA * e + 16 * ks + 8 * hf);
+        a[2 * hf + e] = pack_bf16x2(x.x, x.y);
+      }
+#pragma unroll
+    for (int j2 = 0; j2 < NT / 2; ++j2) {
+      uint32_t kb[4];      // key blocks 2 j2, 2 j2 + 1: (d 16ks + 2t.., key g), (+8 ..)
+      ldsm_x4(kb, Bs + (16 * j2 + (lane & 7) + 8 * (lane >> 4)) * LDK + 16 * ks +
+                      8 * ((lane >> 3) & 1));
+      mma_bf16(s[2 * j2], a, kb[0], kb[1]);
+      mma_bf16(s[2 * j2 + 1], a, kb[2], kb[3]);
+    }
+  }
+}
+
 // ---- K10dq ------------------------------------------------------------------
 
-template <int D>
+// BF16: the bf16 form (s from bf16(q), dP from bf16(dO), one bf16 MMA per
+// 16 d in one chain, as flash_attn.cu's bf16 form takes s); dS K as in the
+// f32 form
+template <int D, bool BF16>
 __global__ void __launch_bounds__(BW_THREADS, 1) flash_dq_kernel(const BwParams p) {
   using Sh = DqShape<D>;
   constexpr int BN = Sh::BN, NT = Sh::NT, NO = Sh::NO, NB = Sh::NB, LDQ = Sh::LDQ;
@@ -365,7 +416,20 @@ __global__ void __launch_bounds__(BW_THREADS, 1) flash_dq_kernel(const BwParams 
         // p = exp(s * scale - lse) over the warp's 16 rows and the BN keys; S
         // in three chains (hi products of even and of odd k-steps, lo ones)
         float pr[NT][4];
-        {
+        if constexpr (BF16) {
+          float s0[NT][4];
+          bf16_scores<D, NT, LDQ, LDK>(qf, Ks, s0);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * j + 2 * t + (e & 1);
+              const float x = __fmul_rn(s0[j][e], p.scale);
+              pr[j][e] = mask && key >= lim[e >> 1] ? 0.f
+                                                    : expf(__fsub_rn(x, lse_r[e >> 1]));
+            }
+          }
+        } else {
           float s0[NT][4], s1[NT][4], sl[NT][4];
 #pragma unroll
           for (int j = 0; j < NT; ++j)
@@ -404,32 +468,41 @@ __global__ void __launch_bounds__(BW_THREADS, 1) flash_dq_kernel(const BwParams 
             }
           }
         }
-        // dS = p * (dO . v - delta) * scale, dP in three chains as S
+        // dS = p * (dO . v - delta) * scale, dP in three chains as S (bf16:
+        // bf16(dO) . v, one chain)
         uint32_t dah[NT][4], dal[NT][4];
         {
           float d0[NT][4], d1[NT][4], dl[NT][4];
+          if constexpr (BF16) {
+            bf16_scores<D, NT, LDQ, LDK>(df, Vs, d0);
 #pragma unroll
-          for (int j = 0; j < NT; ++j)
+            for (int j = 0; j < NT; ++j)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) d0[j][e] = d1[j][e] = dl[j][e] = 0.f;
+              for (int e = 0; e < 4; ++e) d1[j][e] = dl[j][e] = 0.f;
+          } else {
 #pragma unroll
-          for (int kk = 0; kk < D / 8; ++kk) {
-            const float2 x0 = *reinterpret_cast<const float2*>(df + kk * 8);
-            const float2 x1 = *reinterpret_cast<const float2*>(df + 8 * LDQ + kk * 8);
-            uint32_t ah[4], al[4];
-            split_tf32(x0.x, ah[0], al[0]);
-            split_tf32(x1.x, ah[1], al[1]);
-            split_tf32(x0.y, ah[2], al[2]);
-            split_tf32(x1.y, ah[3], al[3]);
+            for (int j = 0; j < NT; ++j)
 #pragma unroll
-            for (int j4 = 0; j4 < NT / 4; ++j4) {
-              uint32_t vb[4];
-              ldsm_x4(vb, Vs + (32 * j4 + lane) * LDK + kk * 8);
+              for (int e = 0; e < 4; ++e) d0[j][e] = d1[j][e] = dl[j][e] = 0.f;
 #pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                const uint32_t b0 = vb[u] << 16, b1 = vb[u] & 0xFFFF0000u;
-                mma_tf32(kk & 1 ? d1[4 * j4 + u] : d0[4 * j4 + u], ah, b0, b1);
-                mma_tf32(dl[4 * j4 + u], al, b0, b1);
+            for (int kk = 0; kk < D / 8; ++kk) {
+              const float2 x0 = *reinterpret_cast<const float2*>(df + kk * 8);
+              const float2 x1 = *reinterpret_cast<const float2*>(df + 8 * LDQ + kk * 8);
+              uint32_t ah[4], al[4];
+              split_tf32(x0.x, ah[0], al[0]);
+              split_tf32(x1.x, ah[1], al[1]);
+              split_tf32(x0.y, ah[2], al[2]);
+              split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+              for (int j4 = 0; j4 < NT / 4; ++j4) {
+                uint32_t vb[4];
+                ldsm_x4(vb, Vs + (32 * j4 + lane) * LDK + kk * 8);
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                  const uint32_t b0 = vb[u] << 16, b1 = vb[u] & 0xFFFF0000u;
+                  mma_tf32(kk & 1 ? d1[4 * j4 + u] : d0[4 * j4 + u], ah, b0, b1);
+                  mma_tf32(dl[4 * j4 + u], al, b0, b1);
+                }
               }
             }
           }
@@ -540,7 +613,9 @@ __device__ __forceinline__ void stage_q(const float* qg, const float* dg, const 
 // over the groups is not unrolled: at D = 128 unrolled it takes 255
 // registers); the stage's sums join the thread's slots of acc (rows g and
 // g + 8) in one f32 add.
-template <int D>
+// EXACT_B: b has no low part (bf16(q) in the bf16 form), so the a_hi . b_lo
+// product is not taken: two MMAs per product.
+template <int D, bool EXACT_B>
 __device__ __forceinline__ void dkv_accumulate(const float (&a)[DkvShape<D>::NQ][4],
                                                const float* bh, const float* bl,
                                                float* const (&acc)[2]) {
@@ -568,12 +643,14 @@ __device__ __forceinline__ void dkv_accumulate(const float (&a)[DkvShape<D>::NQ]
       for (int nb = 0; nb < NB; ++nb) {
         const int o = (8 * jq + 2 * t) * LDQ + 8 * (n0 + nb) + g;
         const uint32_t bh0 = __float_as_uint(bh[o]), bh1 = __float_as_uint(bh[o + LDQ]);
-        const uint32_t bl0 = __float_as_uint(bl[o]), bl1 = __float_as_uint(bl[o + LDQ]);
         float h1[4] = {0.f, 0.f, 0.f, 0.f};       // the hi products alone, joined round-to-nearest
         mma_tf32(h1, ah[jq], bh0, bh1);
 #pragma unroll
         for (int e = 0; e < 4; ++e) hh[nb][e] += h1[e];
-        mma_tf32(sm[nb], ah[jq], bl0, bl1);
+        if constexpr (!EXACT_B) {
+          const uint32_t bl0 = __float_as_uint(bl[o]), bl1 = __float_as_uint(bl[o + LDQ]);
+          mma_tf32(sm[nb], ah[jq], bl0, bl1);
+        }
         mma_tf32(sm[nb], al[jq], bh0, bh1);
       }
     }
@@ -590,7 +667,67 @@ __device__ __forceinline__ void dkv_accumulate(const float (&a)[DkvShape<D>::NQ]
   }
 }
 
+// dV's stage sum in the bf16 form: acc += bf16(p^T) bf16(dO) for the warp's
+// 16 keys, p^T in its accumulator fragments [NQ][4] packed to bf16 A
+// fragments (k-step js takes query blocks 2 js and 2 js + 1), bf16(dO) the B
+// operand from the stage's [DKV_BQ][LDB] through ldmatrix.trans; each MMA
+// alone in a fresh accumulator added round-to-nearest, NB 8-column blocks
+// side by side (pairs), joined into acc's thread slots in one f32 add.
 template <int D>
+__device__ __forceinline__ void dkv_accumulate_bf16(const float (&a)[DkvShape<D>::NQ][4],
+                                                    const __nv_bfloat16* b,
+                                                    float* const (&acc)[2]) {
+  using Sh = DkvShape<D>;
+  constexpr int NQ = Sh::NQ, LDB = Sh::LDB, NB = Sh::NB;
+  const int lane = threadIdx.x & 31;
+  uint32_t pa[NQ / 2][4];
+#pragma unroll
+  for (int js = 0; js < NQ / 2; ++js)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      pa[js][2 * hf] = pack_bf16x2(a[2 * js + hf][0], a[2 * js + hf][1]);
+      pa[js][2 * hf + 1] = pack_bf16x2(a[2 * js + hf][2], a[2 * js + hf][3]);
+    }
+#pragma unroll 1
+  for (int n0 = 0; n0 < D / 8; n0 += NB) {
+    float hh[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hh[nb][e] = 0.f;
+#pragma unroll
+    for (int js = 0; js < NQ / 2; ++js) {
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        uint32_t vb[4];          // (queries 16 js + 2t.., col g), (+8 ..) of blocks n, n + 1
+        ldsm_x4_trans(vb, b + (16 * js + 8 * ((lane >> 3) & 1) + (lane & 7)) * LDB +
+                              8 * (n0 + nb + (lane >> 4)));
+        float f0[4] = {0.f, 0.f, 0.f, 0.f}, f1[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(f0, pa[js], vb[0], vb[1]);
+        mma_bf16(f1, pa[js], vb[2], vb[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hh[nb][e] += f0[e];
+          hh[nb + 1][e] += f1[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float2* o = reinterpret_cast<float2*>(acc[e] + 8 * (n0 + nb));
+        float2 x = *o;
+        x.x += hh[nb][2 * e];
+        x.y += hh[nb][2 * e + 1];
+        *o = x;
+      }
+  }
+}
+
+// BF16: the bf16 form (S^T from bf16(q), dV = bf16(p)^T bf16(dO) on bf16
+// MMAs, dK against bf16(q), which is exact in TF32: two products, not three)
+template <int D, bool BF16>
 __global__ void __launch_bounds__(BW_THREADS, 1) flash_dkv_kernel(const BwParams p) {
   using Sh = DkvShape<D>;
   constexpr int NQ = Sh::NQ, NO = Sh::NO, LDQ = Sh::LDQ, LDB = Sh::LDB, LDK = Sh::LDK;
@@ -606,6 +743,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1) flash_dkv_kernel(const BwParams
   float* q_lo = dv_s + DKV_BK * LDA;                               // [BQ][LDQ]
   float* do_lo = q_lo + DKV_BQ * LDQ;                              // [BQ][LDQ]
   __nv_bfloat16* do_b = reinterpret_cast<__nv_bfloat16*>(do_lo + DKV_BQ * LDQ);  // [BQ][LDB]
+  // the bf16 form's bf16(q) [BQ][LDB], in the room of the lo parts it does not use
+  __nv_bfloat16* q_b = reinterpret_cast<__nv_bfloat16*>(q_lo);
 
   const int bh = blockIdx.x, b = bh / p.Hq, h = bh % p.Hq;
   const int hk = h / (p.Hq / p.Hkv);
@@ -671,6 +810,14 @@ __global__ void __launch_bounds__(BW_THREADS, 1) flash_dkv_kernel(const BwParams
         float4* qp = reinterpret_cast<float4*>(qs + r * LDQ + c);
         float4* dp = reinterpret_cast<float4*>(ds_ + r * LDQ + c);
         const float4 x = *qp, y = *dp;
+        if constexpr (BF16) {      // bf16(q) packed and in place (as f32), bf16(dO) packed
+          const uint32_t q0 = pack_bf16x2(x.x, x.y), q1 = pack_bf16x2(x.z, x.w);
+          *reinterpret_cast<uint2*>(q_b + r * LDB + c) = make_uint2(q0, q1);
+          *reinterpret_cast<uint2*>(do_b + r * LDB + c) =
+              make_uint2(pack_bf16x2(y.x, y.y), pack_bf16x2(y.z, y.w));
+          *qp = make_float4(bf16_lo(q0), bf16_hi(q0), bf16_lo(q1), bf16_hi(q1));
+          continue;
+        }
         uint32_t qh[4], ql[4], dh[4], dl[4];
         split_tf32(x.x, qh[0], ql[0]);
         split_tf32(x.y, qh[1], ql[1]);
@@ -710,19 +857,35 @@ __global__ void __launch_bounds__(BW_THREADS, 1) flash_dkv_kernel(const BwParams
           for (int j = 0; j < NQ; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) s0[j][e] = s1[j][e] = sl[j][e] = 0.f;
+          if constexpr (BF16) {
+            // S^T = K bf16(q)^T: K's A fragments by ldmatrix, bf16(q) pairs as
+            // B; one MMA per 16 d, one chain
 #pragma unroll
-          for (int kk = 0; kk < D / 8; ++kk) {
-            const uint16_t* k16 = reinterpret_cast<const uint16_t*>(kr + kk * 8);
-            // A: (key g, d t), (g + 8, t), (g, t + 4), (g + 8, t + 4), bf16 -> f32 bits
-            const uint32_t a[4] = {(uint32_t)k16[0] << 16, (uint32_t)k16[8 * LDK] << 16,
-                                   (uint32_t)k16[4] << 16, (uint32_t)k16[8 * LDK + 4] << 16};
+            for (int ks = 0; ks < D / 16; ++ks) {
+              uint32_t ka[4];
+              ldsm_x4(ka, k_s + (warp * 16 + (lane & 15)) * LDK + 16 * ks + 8 * (lane >> 4));
 #pragma unroll
-            for (int jq = 0; jq < NQ; ++jq) {
-              const int o = (8 * jq + g) * LDQ + kk * 8 + t;       // B: (d t, query g)
-              const uint32_t bh0 = __float_as_uint(qs[o]), bh1 = __float_as_uint(qs[o + 4]);
-              const uint32_t bl0 = __float_as_uint(q_lo[o]), bl1 = __float_as_uint(q_lo[o + 4]);
-              mma_tf32(kk & 1 ? s1[jq] : s0[jq], a, bh0, bh1);
-              mma_tf32(sl[jq], a, bl0, bl1);
+              for (int jq = 0; jq < NQ; ++jq) {
+                const __nv_bfloat16* br = q_b + (8 * jq + g) * LDB + 16 * ks + 2 * t;
+                mma_bf16(s0[jq], ka, *reinterpret_cast<const uint32_t*>(br),
+                         *reinterpret_cast<const uint32_t*>(br + 8));
+              }
+            }
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < D / 8; ++kk) {
+              const uint16_t* k16 = reinterpret_cast<const uint16_t*>(kr + kk * 8);
+              // A: (key g, d t), (g + 8, t), (g, t + 4), (g + 8, t + 4), bf16 -> f32 bits
+              const uint32_t a[4] = {(uint32_t)k16[0] << 16, (uint32_t)k16[8 * LDK] << 16,
+                                     (uint32_t)k16[4] << 16, (uint32_t)k16[8 * LDK + 4] << 16};
+#pragma unroll
+              for (int jq = 0; jq < NQ; ++jq) {
+                const int o = (8 * jq + g) * LDQ + kk * 8 + t;       // B: (d t, query g)
+                const uint32_t bh0 = __float_as_uint(qs[o]), bh1 = __float_as_uint(qs[o + 4]);
+                const uint32_t bl0 = __float_as_uint(q_lo[o]), bl1 = __float_as_uint(q_lo[o + 4]);
+                mma_tf32(kk & 1 ? s1[jq] : s0[jq], a, bh0, bh1);
+                mma_tf32(sl[jq], a, bl0, bl1);
+              }
             }
           }
 #pragma unroll
@@ -769,8 +932,13 @@ __global__ void __launch_bounds__(BW_THREADS, 1) flash_dkv_kernel(const BwParams
           }
         }
         // dV += P^T dO, then dK += dS'^T q
-        dkv_accumulate<D>(pr, ds_, do_lo, dv_row);
-        dkv_accumulate<D>(dsv, qs, q_lo, dk_row);
+        if constexpr (BF16) {
+          dkv_accumulate_bf16<D>(pr, do_b, dv_row);
+          dkv_accumulate<D, true>(dsv, qs, nullptr, dk_row);
+        } else {
+          dkv_accumulate<D, false>(pr, ds_, do_lo, dv_row);
+          dkv_accumulate<D, false>(dsv, qs, q_lo, dk_row);
+        }
       }
       __syncthreads();
     }
@@ -817,49 +985,56 @@ int launch_sum(const float* part, float* out, __nv_bfloat16* out_b, __nv_bfloat1
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BF16>
 int launch_dq(const BwParams& p, int B, int bn, cudaStream_t st) {
   if (bn != DqShape<D>::BN) return ZGML_ERR_SHAPE;      // the host plan's tile must be ours
   constexpr size_t smem = dq_smem_bytes<D>();
-  int rc = allow_dynamic_smem(flash_dq_kernel<D>, smem);
+  int rc = allow_dynamic_smem(flash_dq_kernel<D, BF16>, smem);
   if (rc != 0) return rc;
   const int n_m = ((p.Hq / p.Hkv) * p.Tq + DQ_BM - 1) / DQ_BM;
   const dim3 grid(B * p.Hkv, n_m, p.n_split);
-  flash_dq_kernel<D><<<grid, BW_THREADS, smem, st>>>(p);
+  flash_dq_kernel<D, BF16><<<grid, BW_THREADS, smem, st>>>(p);
   rc = (int)cudaGetLastError();
   if (rc != 0 || p.n_split == 1) return rc;
   const size_t total = (size_t)B * p.Hq * p.Tq * D;
   return launch_sum(p.part, p.dq, nullptr, nullptr, total, p.n_split, total, st);
 }
 
-template <int D>
+template <int D, bool BF16>
 int launch_dkv(const BwParams& p, int B, cudaStream_t st) {
   constexpr size_t smem = dkv_smem_bytes<D>();
-  int rc = allow_dynamic_smem(flash_dkv_kernel<D>, smem);
+  int rc = allow_dynamic_smem(flash_dkv_kernel<D, BF16>, smem);
   if (rc != 0) return rc;
   const dim3 grid(B * p.Hq, (p.S + DKV_BK - 1) / DKV_BK, p.n_split);
-  flash_dkv_kernel<D><<<grid, BW_THREADS, smem, st>>>(p);
+  flash_dkv_kernel<D, BF16><<<grid, BW_THREADS, smem, st>>>(p);
   rc = (int)cudaGetLastError();
   if (rc != 0 || p.n_split == 1) return rc;
   const size_t n = (size_t)B * p.Hq * p.S * D;
   return launch_sum(p.part, nullptr, p.dk, p.dv, n, p.n_split, 2 * n, st);
 }
 
-template <int D>
-int blocks_per_sm(int which, int* n) {
-  if (which == 0) {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    const int rc = allow_dynamic_smem(flash_dq_kernel<D>, smem);
-    if (rc != 0) return rc;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, flash_dq_kernel<D>, BW_THREADS,
-                                                              smem);
-  }
-  constexpr size_t smem = dkv_smem_bytes<D>();
-  const int rc = allow_dynamic_smem(flash_dkv_kernel<D>, smem);
+template <class K>
+int occupancy(K kernel, size_t smem, int* n) {
+  const int rc = allow_dynamic_smem(kernel, smem);
   if (rc != 0) return rc;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, flash_dkv_kernel<D>, BW_THREADS,
-                                                            smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, BW_THREADS, smem);
 }
+
+template <int D, bool BF16>
+int blocks_per_sm(int which, int* n) {
+  return which == 0 ? occupancy(flash_dq_kernel<D, BF16>, dq_smem_bytes<D>(), n)
+                    : occupancy(flash_dkv_kernel<D, BF16>, dkv_smem_bytes<D>(), n);
+}
+
+// Run launcher L<D, bf16> for the head dim D; ZGML_ERR_HEAD_DIM otherwise.
+#define ZGML_BWD_DISPATCH(D, bf16, CALL)                                           \
+  switch (D) {                                                                     \
+    case 16: return bf16 ? CALL(16, true) : CALL(16, false);                       \
+    case 32: return bf16 ? CALL(32, true) : CALL(32, false);                       \
+    case 64: return bf16 ? CALL(64, true) : CALL(64, false);                       \
+    case 128: return bf16 ? CALL(128, true) : CALL(128, false);                    \
+    default: return ZGML_ERR_HEAD_DIM;                                             \
+  }
 
 bool bad_shape(int B, int Hq, int Hkv, int Tq, int S, int q_offset, int n_split,
                const float* part) {
@@ -877,16 +1052,13 @@ ZGML_EXPORT int zgml_flash_delta(const float* dO, const float* O, float* delta, 
   return launch_delta(dO, O, delta, rows, D, static_cast<cudaStream_t>(stream));
 }
 
-// *n = the blocks of K10dq (which 0) or K10dkv (which 1) at head_dim D one SM
-// holds at once (the occupancy the host plan fills); returns a status.
-ZGML_EXPORT int zgml_flash_bwd_blocks_per_sm(int D, int which, int* n) {
-  switch (D) {
-    case 16: return blocks_per_sm<16>(which, n);
-    case 32: return blocks_per_sm<32>(which, n);
-    case 64: return blocks_per_sm<64>(which, n);
-    case 128: return blocks_per_sm<128>(which, n);
-    default: return ZGML_ERR_HEAD_DIM;
-  }
+// *n = the blocks of K10dq (which 0) or K10dkv (which 1) at head_dim D (bf16:
+// its bf16 form) one SM holds at once (the occupancy the host plan fills);
+// returns a status.
+ZGML_EXPORT int zgml_flash_bwd_blocks_per_sm(int D, int which, int bf16, int* n) {
+#define ZGML_OCC(DD, B16) blocks_per_sm<DD, B16>(which, n)
+  ZGML_BWD_DISPATCH(D, bf16 != 0, ZGML_OCC)
+#undef ZGML_OCC
 }
 
 // q, dO f32 [B, Hq, Tq, D]; k, v bf16 [B, Hkv, S, D]; lse, delta f32
@@ -897,19 +1069,15 @@ ZGML_EXPORT int zgml_flash_bwd_blocks_per_sm(int D, int which, int* n) {
 ZGML_EXPORT int zgml_flash_dq(const float* q, const void* k, const void* v, const float* dO,
                               const float* lse, const float* delta, float* dq, float* part, int B,
                               int Hq, int Hkv, int Tq, int S, int D, int kv_len, int q_offset,
-                              int n_split, int bn, float scale, void* stream) {
+                              int n_split, int bn, int bf16, float scale, void* stream) {
   if (bad_shape(B, Hq, Hkv, Tq, S, q_offset, n_split, part)) return ZGML_ERR_SHAPE;
   BwParams p{q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), dO,
              lse, delta, dq, nullptr, nullptr, part, Hq, Hkv, Tq, S, max(0, min(kv_len, S)),
              q_offset, n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq<16>(p, B, bn, st);
-    case 32: return launch_dq<32>(p, B, bn, st);
-    case 64: return launch_dq<64>(p, B, bn, st);
-    case 128: return launch_dq<128>(p, B, bn, st);
-    default: return ZGML_ERR_HEAD_DIM;
-  }
+#define ZGML_DQ(DD, B16) launch_dq<DD, B16>(p, B, bn, st)
+  ZGML_BWD_DISPATCH(D, bf16 != 0, ZGML_DQ)
+#undef ZGML_DQ
 }
 
 // The same inputs -> dk, dv bf16 [B, Hq, S, D] per query head; contiguous.
@@ -918,7 +1086,7 @@ ZGML_EXPORT int zgml_flash_dq(const float* q, const void* k, const void* v, cons
 ZGML_EXPORT int zgml_flash_dkv(const float* q, const void* k, const void* v, const float* dO,
                                const float* lse, const float* delta, void* dk, void* dv,
                                float* part, int B, int Hq, int Hkv, int Tq, int S, int D,
-                               int kv_len, int q_offset, int n_split, float scale,
+                               int kv_len, int q_offset, int n_split, int bf16, float scale,
                                void* stream) {
   if (bad_shape(B, Hq, Hkv, Tq, S, q_offset, n_split, part)) return ZGML_ERR_SHAPE;
   BwParams p{q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), dO,
@@ -926,11 +1094,7 @@ ZGML_EXPORT int zgml_flash_dkv(const float* q, const void* k, const void* v, con
              static_cast<__nv_bfloat16*>(dv), part, Hq, Hkv, Tq, S, max(0, min(kv_len, S)),
              q_offset, n_split, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dkv<16>(p, B, st);
-    case 32: return launch_dkv<32>(p, B, st);
-    case 64: return launch_dkv<64>(p, B, st);
-    case 128: return launch_dkv<128>(p, B, st);
-    default: return ZGML_ERR_HEAD_DIM;
-  }
+#define ZGML_DKV(DD, B16) launch_dkv<DD, B16>(p, B, st)
+  ZGML_BWD_DISPATCH(D, bf16 != 0, ZGML_DKV)
+#undef ZGML_DKV
 }

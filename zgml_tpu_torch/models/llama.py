@@ -159,7 +159,9 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
     if ck is None:
         # contiguous rows for the kernels: a cast of the transposed view keeps its strides
         kb, vb = (u.to(torch.bfloat16).contiguous() for u in (k, v))
-        att = ops.flash_attention(q.contiguous(), kb, vb, kv_len=t)
+        # the JAX forward attends over a cache of max_seq_len positions, whose
+        # length sets the bf16 form's running-max step (ops/attention.flash_group)
+        att = ops.flash_attention(q.contiguous(), kb, vb, kv_len=t, tile_s=cfg.max_seq_len)
     elif isinstance(ck, tuple):
         # the int8 cache (llama.py:424-459): quantize and write first, then
         # attend from the int8 rows like every other position

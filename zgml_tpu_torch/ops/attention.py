@@ -19,9 +19,20 @@ cache is a mode of each); ``*_ref`` are the plain torch versions, with the
 masks of zgml_tpu/ops/dispatch.py (177-188, 237-246). The int8 ones compute
 the kernels' functions, not the JAX ref tier's dequantize-then-attend:
 K8 quantizes q per query head (attention.py:529-533) and takes integer
-q.k dots, K9 keeps q f32 (the port's prefill is ZGML_TPU_PREFILL_BF16=0);
-both fold the per-position scales into the scores and into p.
+q.k dots, K9 keeps q f32 in its f32 form (ZGML_TPU_PREFILL_BF16=0); both
+fold the per-position scales into the scores and into p.
 Callers go through ``ops.dispatch``.
+
+Under ZGML_TPU_PREFILL_BF16 (config.prefill_bf16(), default on) K3, K9 and
+K10f take their bf16 form, the JAX kernels' function at bf16=True
+(attention.py:77-104, 625-644; flash_vjp.py:60-84): scores from bf16(q)
+and the bf16 K (K9: the int8 levels) with f32 sums, times scale (K9:
+k_scale * scale); an f32 online softmax whose running max steps once per
+JAX key tile of ``flash_group`` keys from key 0; p (K9: p * v_scale)
+rounded to bf16 against bf16 V (K9: levels), f32 sums; l the sum of the
+unrounded p. The plain versions take bf16=True (``grouped_softmax_pv``);
+the bf16 launches count under attention_bf16, flash_attention_q8_bf16 and
+flash_fwd_bf16.
 
 The prefill kernel (K3, K9 and K10f, csrc/flash_attn.cu) packs the n_rep
 query heads of a KV head into tiles of FLASH_BM rows, position-major, and
@@ -59,8 +70,25 @@ FLASH_MAX_SPLIT = 16
 
 
 def flash_bn(d: int) -> int:
-    """Keys per K/V tile of the prefill kernel at head_dim d."""
+    """Keys per K/V tile of the prefill kernel at head_dim d (f32 form)."""
     return 32 if d == 128 else 64
+
+
+def flash_group(s: int, kv8: bool) -> int:
+    """Keys of one JAX flash tile over a cache of s positions, the step of
+    the bf16 form's running max: K3 / K10f's bk (attention.py:282-290, bk
+    128: halved while it does not divide s, down to 8; 128 over a padded
+    cache where none divides), K9's (attention.py:762-772, bk 256: 128
+    where 256 does not divide s, s below 256)."""
+    if kv8:
+        bk = min(256, s)
+        while bk >= 256 and s % bk:
+            bk //= 2
+        return bk if s % bk == 0 else 128
+    bk = min(128, s)
+    while bk >= 16 and s % bk:
+        bk //= 2
+    return bk if s % bk == 0 else 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +134,8 @@ def flash_split_plan(b: int, hq: int, hkv: int, tq: int, d: int, kv_len: int, q_
     no further than the longest tile has key tiles for. A pure function of
     the shapes and the card, so K3 and K10f on the same inputs take the same
     plan (and K10f's O stays K3's bit for bit). `bn`: the key tile of
-    another kernel with these row tiles (K10dq), else flash_bn(d)."""
+    another kernel with these row tiles (K10dq) or the bf16 form's group
+    (its splits start on a group), else flash_bn(d)."""
     n_rep, bn = hq // hkv, bn or flash_bn(d)
     kv_len = max(0, kv_len)
     tiles = b * hkv * -(-n_rep * tq // FLASH_BM)
@@ -122,31 +151,83 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(index: int, d: int, kv8: bool) -> int:
+def _blocks_per_sm(index: int, d: int, kv8: bool, bf16: bool = False) -> int:
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        build.check(build.library().zgml_flash_blocks_per_sm(d, int(kv8), ctypes.byref(n)),
+        build.check(build.library().zgml_flash_blocks_per_sm(d, int(kv8), int(bf16),
+                                                             ctypes.byref(n)),
                     "flash occupancy")
     if n.value < 1:
         raise RuntimeError(f"flash attention (head_dim {d}): no block fits on an SM")
     return n.value
 
 
-def flash_plan(q, k, kv_len, q_offset: int, kv8: bool) -> FlashPlan:
+def flash_plan(q, k, kv_len, q_offset: int, kv8: bool, group: int | None = None) -> FlashPlan:
     """The plan a launch of the prefill kernel takes for q and the cache k
-    on q's card (its SM count and the instantiation's blocks per SM)."""
+    on q's card (its SM count and the instantiation's blocks per SM); with
+    `group` (the bf16 form's keys a running-max step) its splits start on a
+    group."""
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     kv_len = s if kv_len is None else min(int(kv_len), s)
     index = q.device.index or 0
     return flash_split_plan(b, hq, hkv, tq, d, kv_len, int(q_offset), _sm_count(index),
-                            _blocks_per_sm(index, d, kv8))
+                            _blocks_per_sm(index, d, kv8, group is not None), bn=group)
 
 
-def flash_attention_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
+def grouped_softmax_pv(sc: torch.Tensor, v: torch.Tensor, vs: torch.Tensor | None,
+                       group: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 form's softmax and P.V over keys [0, K) that start on a
+    group: sc f32 [..., R, K] scores (masked keys -inf), v [..., K, d]
+    values (bf16, or int8 levels), vs [..., K] f32 V scales or None. The
+    running max m_t steps once per `group` keys, as the JAX kernel's per
+    key tile (attention.py:92-104); key j's p = exp(s_j - m_t(j)) in f32,
+    (p * vs) rounded to bf16 against v, f32 sums; group t's sums join with
+    weight exp(m_t - m), all in sc's dtype (f32, or f64 for a check's exact
+    evaluation of the same roundings). Returns (o [..., R, d] unnormalised,
+    the final max m [..., R] (-inf where no key is live), l [..., R] the sum
+    of the unrounded p), o and l relative to m."""
+    n = sc.shape[-1]
+    g = -(-n // group)
+    pad = g * group - n
+    if pad:
+        sc = torch.nn.functional.pad(sc, (0, pad), value=float("-inf"))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        if vs is not None:
+            vs = torch.nn.functional.pad(vs, (0, pad))
+    sg = sc.reshape(*sc.shape[:-1], g, group)                          # [..., R, G, gk]
+    mt = torch.cummax(sg.amax(dim=-1), dim=-1).values                  # running max [..., R, G]
+    live = torch.isfinite(mt)
+    mu = torch.where(live, mt, torch.zeros_like(mt))
+    p = torch.exp(sg - mu[..., None])                                  # masked: exp(-inf) = 0
+    lt = p.sum(dim=-1)
+    pv = p if vs is None else p * vs.reshape(*vs.shape[:-1], 1, g, group)
+    vg = v.to(sc.dtype).reshape(*v.shape[:-2], g, group, v.shape[-1])
+    ot = torch.einsum("...rgk,...gkd->...rgd", refs.bf16_round(pv), vg)
+    m = mt[..., -1]
+    w = torch.where(live, torch.exp(mu - torch.where(torch.isfinite(m), m,
+                                                     torch.zeros_like(m))[..., None]),
+                    torch.zeros_like(mu))
+    return (w[..., None] * ot).sum(dim=-2), m, (w * lt).sum(dim=-1)
+
+
+def normalised(o: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """o / l per row, 0 where l is 0 (no live key)."""
+    some = l > 0
+    return torch.where(some[..., None], o / torch.where(some, l, torch.ones_like(l))[..., None],
+                       torch.zeros_like(o))
+
+
+def flash_attention_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
+                        bf16: bool = False, group: int | None = None,
+                        scale: float | None = None):
     """Causal GQA prefill attention: query row i (absolute q_offset + i)
-    attends keys j < kv_len with j <= q_offset + i."""
-    b, tq = q.shape[0], q.shape[2]
+    attends keys j < kv_len with j <= q_offset + i. bf16: K3's bf16 form
+    (the module note), its running max stepping every `group` keys
+    (flash_group of the cache length where None), its scores scaled by
+    `scale` (1/sqrt(d) where None; a check moves it by a few ulps to see
+    which p roundings flip)."""
+    b, hq, tq, d = q.shape
     k, v = k[kv_row:kv_row + b], v[kv_row:kv_row + b]
     s = k.shape[2]
     if kv_len is None:
@@ -154,7 +235,14 @@ def flash_attention_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0
     ki = torch.arange(s, device=q.device)[None, :]
     qi = torch.arange(tq, device=q.device)[:, None] + q_offset
     mask = (ki < kv_len) & (ki <= qi)                       # [Tq, S]
-    return refs.gqa_attention_ref(q, k, v, mask[None, None])
+    if not bf16:
+        return refs.gqa_attention_ref(q, k, v, mask[None, None])
+    hkv = k.shape[1]
+    qg = refs.bf16_round(q.to(torch.float32)).reshape(b, hkv, hq // hkv, tq, d)
+    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.to(torch.float32)) * (scale or 1.0 / d ** 0.5)
+    sc = torch.where(mask, sc, torch.full_like(sc, float("-inf")))
+    o, _, l = grouped_softmax_pv(sc, v[:, :, None], None, group or flash_group(s, False))
+    return normalised(o, l).reshape(b, hq, tq, d)
 
 
 def decode_attention_ref(q, k, v, kv_len, kv_row: int = 0):
@@ -204,24 +292,34 @@ def decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row: int = 0):
     return softmax_pv(scores, v, vs).reshape(b, hq, 1, d)
 
 
-def flash_attention_q8_ref(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0):
+def flash_attention_q8_ref(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0,
+                           bf16: bool = False, group: int | None = None,
+                           scale: float | None = None):
     """K9's function: causal GQA prefill over the int8 cache, q f32, scores
     (q . k_levels) * (k_scale * 1/sqrt(d)) (attention.py:629-631), query row
     i (absolute q_offset + i) attending keys j < kv_len with j <= q_offset +
-    i, P.V with the V scales folded into p."""
+    i, P.V with the V scales folded into p. bf16: K9's bf16 form (q rounded
+    to bf16, bf16(p * v_scale) against the levels, the running max stepping
+    every `group` keys, flash_group(S, kv8=True) where None; `scale` as
+    flash_attention_ref's)."""
     b, hq, tq, d = q.shape
     k, ks, v, vs = _rows(kv_row, b, k, ks, v, vs)
     hkv, s = k.shape[1], k.shape[2]
     if kv_len is None:
         kv_len = s
     qg = q.to(torch.float32).reshape(b, hkv, hq // hkv * tq, d)     # rows (rep, i)
+    if bf16:
+        qg = refs.bf16_round(qg)
     dots = torch.einsum("bgrd,bgsd->bgrs", qg, k.to(torch.float32))
-    scores = dots * (ks * (1.0 / d ** 0.5))[:, :, None, :]
+    scores = dots * (ks * (scale or 1.0 / d ** 0.5))[:, :, None, :]
     ki = torch.arange(s, device=q.device)[None, :]
     qi = torch.arange(qg.shape[2], device=q.device)[:, None] % tq + q_offset
     mask = (ki < kv_len) & (ki <= qi)
     scores = torch.where(mask, scores, torch.full_like(scores, float("-inf")))
-    return softmax_pv(scores, v, vs).reshape(b, hq, tq, d)
+    if not bf16:
+        return softmax_pv(scores, v, vs).reshape(b, hq, tq, d)
+    o, _, l = grouped_softmax_pv(scores, v, vs, group or flash_group(s, True))
+    return normalised(o, l).reshape(b, hq, tq, d)
 
 
 def _packed(q, hkv):
@@ -231,7 +329,8 @@ def _packed(q, hkv):
 
 
 def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
-                       plan: FlashPlan | None = None, ks=None, vs=None):
+                       plan: FlashPlan | None = None, ks=None, vs=None, bf16: bool = False,
+                       exact: bool = False, scale: float | None = None):
     """The prefill kernel's first stage in torch: for each split s of
     `plan` (one split if None) and each row, the split's unnormalised o
     (sum of (p * v_scale) v over its live keys, p = exp(s - m)), its max m
@@ -240,7 +339,13 @@ def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
     d], m [n_split, B, Hq, Tq], l [n_split, B, Hq, Tq]), f32 as the kernel
     stores them, each summed in float64 and rounded once: held to the
     one-stage f32 versions, the difference is then the split and the merge,
-    not a second f32 summation order over a long prefix."""
+    not a second f32 summation order over a long prefix. bf16: the bf16
+    form's partials, in f32 as the kernel computes them (its p rounds
+    against an f32 max), each split's running max stepping every plan.bn
+    keys from the split's first key (grouped_softmax_pv); with exact, the
+    same roundings evaluated in float64 (bf16(q), p rounded to bf16 against
+    the float64 max), returned in float64; `scale` as
+    flash_attention_ref's."""
     b, hq, tq, d = q.shape
     if ks is None:
         k, v = _rows(kv_row, b, k, v)
@@ -249,16 +354,19 @@ def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
     hkv, s_len = k.shape[1], k.shape[2]
     kv_len = s_len if kv_len is None else min(int(kv_len), s_len)
     if plan is None:
-        plan = FlashPlan(FLASH_BM, flash_bn(d), hq // hkv, tq, max(0, kv_len), q_offset, 1)
+        bn = flash_group(s_len, ks is not None) if bf16 else flash_bn(d)
+        plan = FlashPlan(FLASH_BM, bn, hq // hkv, tq, max(0, kv_len), q_offset, 1)
     f64 = torch.float64
-    scale = 1.0 / d ** 0.5
+    scale = scale or 1.0 / d ** 0.5
     qp = _packed(q.to(torch.float32).to(f64), hkv)             # [B, Hkv, R, d]
     rows = qp.shape[2]
     pos = torch.arange(rows, device=q.device) // plan.n_rep + q_offset
     lim = torch.clamp(torch.minimum(pos + 1, torch.full_like(pos, kv_len)), min=0)
     kf, vf = k.to(f64), v.to(f64)
+    qb = refs.bf16_round(_packed(q.to(torch.float32), hkv)) if bf16 else None
     if ks is not None:      # k_scale * scale rounded to f32, as the kernel takes it
-        ksc, vs = (ks.to(torch.float32) * scale).to(f64), vs.to(torch.float32).to(f64)
+        ksc32, vs32 = ks.to(torch.float32) * scale, vs.to(torch.float32)
+        ksc, vs = ksc32.to(f64), vs32.to(f64)
     po = torch.zeros((plan.n_split, b, hkv, rows, d), dtype=f64, device=q.device)
     pm = torch.full((plan.n_split, b, hkv, rows), float("-inf"), dtype=f64, device=q.device)
     pl = torch.zeros((plan.n_split, b, hkv, rows), dtype=f64, device=q.device)
@@ -268,9 +376,20 @@ def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
             k0, k1 = plan.split_keys(m, si)
             if k0 >= k1:
                 continue
+            live = torch.arange(k0, k1, device=q.device)[None, :] < lim[r0:r1, None]
+            if bf16:
+                dt = f64 if exact else torch.float32
+                sc = torch.einsum("bgrd,bgkd->bgrk", qb[:, :, r0:r1].to(dt),
+                                  k[:, :, k0:k1].to(dt))
+                sc = sc * (scale if ks is None else ksc32[:, :, None, k0:k1].to(dt))
+                sc = torch.where(live, sc, torch.full_like(sc, float("-inf")))
+                o_, m_, l_ = grouped_softmax_pv(sc, v[:, :, k0:k1],
+                                                None if vs is None else vs32[:, :, k0:k1].to(dt),
+                                                plan.bn)
+                po[si, :, :, r0:r1], pm[si, :, :, r0:r1], pl[si, :, :, r0:r1] = o_, m_, l_
+                continue
             sc = torch.einsum("bgrd,bgkd->bgrk", qp[:, :, r0:r1], kf[:, :, k0:k1])
             sc = sc * (scale if ks is None else ksc[:, :, None, k0:k1])
-            live = torch.arange(k0, k1, device=q.device)[None, :] < lim[r0:r1, None]
             sc = torch.where(live, sc, torch.full_like(sc, float("-inf")))
             mx = sc.amax(dim=-1)
             p = torch.exp(sc - torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))[..., None])
@@ -281,7 +400,8 @@ def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
 
     def unpack(x):      # [n_split, B, Hkv, R, ...] -> f32 [n_split, B, Hq, Tq, ...]
         x = x.reshape(plan.n_split, b, hkv, tq, plan.n_rep, *x.shape[4:])
-        return x.transpose(3, 4).reshape(plan.n_split, b, hq, tq, *x.shape[5:]).to(torch.float32)
+        x = x.transpose(3, 4).reshape(plan.n_split, b, hq, tq, *x.shape[5:])
+        return x if exact else x.to(torch.float32)
     return unpack(po), unpack(pm), unpack(pl)
 
 
@@ -333,31 +453,47 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_attention_cuda(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
-    """Launch K3. kv_len, q_offset and kv_row are host ints."""
+def counter(name: str, bf16: bool) -> str:
+    """The placement counter of flash kernel `name` (attention = K3,
+    flash_attention_q8 = K9, flash_fwd = K10f, flash_dq, flash_dkv) in its
+    f32 or its bf16 form."""
+    return f"{name}_bf16" if bf16 else name
+
+
+def flash_attention_cuda(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
+                         bf16: bool = False, group: int | None = None):
+    """Launch K3 (bf16: its bf16 form, the running max stepping every
+    `group` keys, flash_group of the cache length where None). kv_len,
+    q_offset and kv_row are host ints."""
     check_qkv("attention", q, k, v, kv_row, None)
-    o, _ = launch_flash(q, k, None, v, None, kv_len, q_offset, kv_row, lse=False)
-    global_profile.count_op("attention", "cuda")
+    o, _ = launch_flash(q, k, None, v, None, kv_len, q_offset, kv_row, lse=False,
+                        group=(group or flash_group(k.shape[2], False)) if bf16 else None)
+    global_profile.count_op(counter("attention", bf16), "cuda")
     return o
 
 
-def flash_attention_q8_cuda(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0):
-    """Launch K9 (K3's int8-cache mode). kv_len, q_offset, kv_row host ints."""
+def flash_attention_q8_cuda(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0,
+                            bf16: bool = False, group: int | None = None):
+    """Launch K9 (K3's int8-cache mode; bf16 and group as K3's). kv_len,
+    q_offset, kv_row host ints."""
     check_qkv("flash_attention_q8", q, k, v, kv_row, None, (ks, vs))
-    o, _ = launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse=False)
-    global_profile.count_op("flash_attention_q8", "cuda")
+    o, _ = launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse=False,
+                        group=(group or flash_group(k.shape[2], True)) if bf16 else None)
+    global_profile.count_op(counter("flash_attention_q8", bf16), "cuda")
     return o
 
 
-def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool):
+def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool,
+                 group: int | None = None):
     """One launch of csrc/flash_attn.cu on checked inputs, with the plan of
     flash_split_plan for this card (and its combine pass when the plan
-    splits): (o, lse or None). The caller counts the launch under its name
+    splits): (o, lse or None); with `group`, the bf16 form whose running max
+    steps every `group` keys. The caller counts the launch under its name
     (K3, K9 or K10f)."""
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     kv_len = s if kv_len is None else int(kv_len)
-    plan = flash_plan(q, k, kv_len, q_offset, ks is not None)
+    plan = flash_plan(q, k, kv_len, q_offset, ks is not None, group)
     o = torch.empty_like(q)
     lse_t = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device) if lse else None
     part = None
@@ -367,7 +503,8 @@ def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool):
     status = build.library().zgml_flash_attention(
         q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), _ptr(lse_t),
         _ptr(part), b, hq, hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), plan.n_split,
-        plan.bn, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        plan.bn, int(group is not None), 1.0 / d ** 0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(status, "flash_fwd" if lse else
                 "attention" if ks is None else "flash_attention_q8")
     return o, lse_t

@@ -47,19 +47,20 @@ _IP = ctypes.POINTER(ctypes.c_int)     # a host int array (ops/decode_plan.py ho
 # exported function -> argtypes (every launcher returns an int status; the
 # weight launchers take the kind code of ops/qmatmul.py KIND_CODE first)
 _SIGNATURES = {
-    "zgml_qmatmul": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "zgml_qmatmul": (_I, *(_P,) * 6, _I, _I, _I, _I, _I, _P),
     "zgml_qmatmul_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
-    "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 11, _F, _P),
-    "zgml_flash_dq": (*(_P,) * 8, *(_I,) * 10, _F, _P),
-    "zgml_flash_dkv": (*(_P,) * 9, *(_I,) * 9, _F, _P),
+    "zgml_qmatmul_bf16_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
+    "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 12, _F, _P),
+    "zgml_flash_dq": (*(_P,) * 8, *(_I,) * 11, _F, _P),
+    "zgml_flash_dkv": (*(_P,) * 9, *(_I,) * 10, _F, _P),
     "zgml_flash_delta": (_P, _P, _P, _I, _I, _P),
-    "zgml_flash_bwd_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
+    "zgml_flash_bwd_blocks_per_sm": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_qmatmul_bwd": (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "zgml_qmatmul_bwd_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_decode_attention": (*(_P,) * 8, *(_I,) * 6, _F, _P),
     "zgml_decode_attention_bf16": (*(_P,) * 7, *(_I,) * 7, _F, _P),
     "zgml_decode_split_count": (_I,),
-    "zgml_flash_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
+    "zgml_flash_blocks_per_sm": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),
     "zgml_qmatmul_i8": (_I, *(_P,) * 8, _I, _I, _I, _IP, _I, _P),
     "zgml_greedy": (_I, *(_P,) * 7, _I, _I, _IP, _I, _P),

@@ -40,11 +40,13 @@ where its op is on and force_ref() is not in effect, and the path decisions
 here and in the model read config.kernel_on (config.py lists each op's
 path when it is off). Every call is counted by tier in
 runtime.profile.global_profile, under one name per kernel and kind
-(qmatmul = K2, qmatmul_i8 = K1, qmatmul_greedy = K5, fused_ffn_norm = K6d,
+(qmatmul = K2 and qmatmul_bf16 its bf16 form, qmatmul_i8 = K1,
+qmatmul_greedy = K5, fused_ffn_norm = K6d,
 fused_ffn_norm_i8 = K6c, fused_ffn = K6b, attn_block = K7 with the f32 A
 phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
-attention = K3, decode_attention = K4, flash_attention_q8 = K9,
+attention = K3, decode_attention = K4, flash_attention_q8 = K9 (each prefill
+flash kernel + _bf16 in its bf16 form, ZGML_TPU_PREFILL_BF16),
 decode_attention_q8 = K8, the JAX package's names; flash_fwd = K10f,
 flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
 K11q8; matmul for a dense projection; rmsnorm = K12 under
@@ -125,16 +127,16 @@ def _refuse_grad(name: str, *tensors):
             f"32 rows, or run under torch.no_grad()")
 
 
-def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool) -> torch.Tensor:
+def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool, bf16: bool) -> torch.Tensor:
     if i8:
         if _use_kernel("qmatmul", x, w.qs, w.d):
             return _qmm.qmatmul_i8_cuda(x, w)
         global_profile.count_op(_qmm.counter("qmatmul_i8", w.kind), "ref")
         return _qmm.qmatmul_i8_ref(x, w)
     if _use_kernel("qmatmul", x, w.qs, w.d):
-        return _qmm.qmatmul_cuda(x, w)
-    global_profile.count_op(_qmm.counter("qmatmul", w.kind), "ref")
-    return _qmm.qmatmul_ref(x, w)
+        return _qmm.qmatmul_cuda(x, w, bf16)
+    global_profile.count_op(_qmm.counter("qmatmul", w.kind, bf16), "ref")
+    return _qmm.qmatmul_ref(x, w, bf16)
 
 
 def qmatmul_bwd(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
@@ -149,17 +151,22 @@ def qmatmul(x: torch.Tensor, w, tier_rows: int | None = None) -> torch.Tensor:
     """x f32 [..., K] @ dequant(W).T -> f32 [..., N] for a PackedWeight W,
     x @ w for a dense [K, N] tensor. The tier follows the call's row count,
     or `tier_rows` when the caller computes a few rows of a larger call (the
-    prefill head: one row of a chunk, as JAX computes the whole chunk); with
-    qmatmul switched off, the f32 tier at every M (dispatch.py:67-75)."""
+    prefill head: one row of a chunk, as JAX computes the whole chunk): K1
+    up to 32 rows under config.i8dot(), else K2, in its bf16 form where
+    qmatmul.bf16_tier says JAX's dot_bf16 holds; with qmatmul switched off,
+    the f32 tier at every M (dispatch.py:67-75)."""
     if isinstance(w, torch.Tensor):
         _device_of(x, w)
         global_profile.count_op("matmul", "torch")
         return torch.matmul(x, w)
     rows = x.numel() // w.k if tier_rows is None else tier_rows
-    i8 = config.i8dot() and config.kernel_on("qmatmul") and rows <= _qmm.I8_MAX_ROWS
+    on = config.kernel_on("qmatmul")
+    i8 = config.i8dot() and on and rows <= _qmm.I8_MAX_ROWS
+    bf16 = on and _qmm.bf16_tier(rows, i8)
     if _needs_grad(x):
-        return _qmm.QMatmul.apply(x, w, lambda x_, w_: _qmatmul_fwd(x_, w_, i8), qmatmul_bwd)
-    return _qmatmul_fwd(x, w, i8)
+        return _qmm.QMatmul.apply(x, w, lambda x_, w_: _qmatmul_fwd(x_, w_, i8, bf16),
+                                  qmatmul_bwd)
+    return _qmatmul_fwd(x, w, i8, bf16)
 
 
 def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
@@ -223,24 +230,32 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
                                       n_heads, n_kv_heads, eps, a_i8)
 
 
-def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0):
+def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
+                    tile_s: int | None = None):
     """Causal GQA prefill attention; see ops/attention.py for layouts. Under
     autograd flash_vjp.FlashAttention (K10), which reads row b of k / v for
     row b of q: a kv_row other than 0 raises, as the JAX backward assumes 0
     (attention.py:214-215). With attention switched off, the plain version,
     differentiated by autograd as the JAX ref tier is by jax.grad
-    (dispatch.py:173-190), not K10's backward (its dK takes a bf16 dO)."""
-    if _needs_grad(q, k, v) and config.kernel_on("attention"):
+    (dispatch.py:173-190), not K10's backward (its dK takes a bf16 dO), in
+    f32 at every ZGML_TPU_PREFILL_BF16. With it on, the bf16 forms where
+    config.prefill_bf16(), their running max stepping as JAX's tile over a
+    cache of tile_s positions (k's length where None: training passes the
+    cache length the JAX forward attends over)."""
+    on = config.kernel_on("attention")
+    bf16 = on and config.prefill_bf16()
+    group = attention.flash_group(tile_s or k.shape[2], False) if bf16 else None
+    if _needs_grad(q, k, v) and on:
         if kv_row != 0:
             raise NotImplementedError(
                 f"flash attention under autograd with kv_row={kv_row}: the backward reads "
                 f"k / v rows from 0, as the JAX package's ({NO_BACKWARD})")
         return flash_vjp.FlashAttention.apply(q, k, v, kv_len, q_offset,
-                                              _use_kernel("attention", q, k, v))
+                                              _use_kernel("attention", q, k, v), bf16, group)
     if _use_kernel("attention", q, k, v):
-        return attention.flash_attention_cuda(q, k, v, kv_len, q_offset, kv_row)
-    global_profile.count_op("attention", "ref")
-    return attention.flash_attention_ref(q, k, v, kv_len, q_offset, kv_row)
+        return attention.flash_attention_cuda(q, k, v, kv_len, q_offset, kv_row, bf16, group)
+    global_profile.count_op(attention.counter("attention", bf16), "ref")
+    return attention.flash_attention_ref(q, k, v, kv_len, q_offset, kv_row, bf16, group)
 
 
 def decode_attention(q, k, v, kv_len, kv_row: int = 0):
@@ -263,10 +278,12 @@ def flash_attention_q8(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: 
         global_profile.count_op("flash_attention_q8", "ref")
         kf, vf = _dequantized_rows(q.shape[0], kv_row, k, ks, v, vs)
         return attention.flash_attention_ref(q, kf, vf, kv_len, q_offset)
+    bf16 = config.prefill_bf16()
     if _use_kernel("attention", q, k, ks, v, vs):
-        return attention.flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_offset, kv_row)
-    global_profile.count_op("flash_attention_q8", "ref")
-    return attention.flash_attention_q8_ref(q, k, ks, v, vs, kv_len, q_offset, kv_row)
+        return attention.flash_attention_q8_cuda(q, k, ks, v, vs, kv_len, q_offset, kv_row,
+                                                 bf16)
+    global_profile.count_op(attention.counter("flash_attention_q8", bf16), "ref")
+    return attention.flash_attention_q8_ref(q, k, ks, v, vs, kv_len, q_offset, kv_row, bf16)
 
 
 def decode_attention_q8(q, k, ks, v, vs, kv_len, kv_row: int = 0):

@@ -3,9 +3,9 @@ FlashAttention-2 backward, kernels and plain versions, and the autograd
 Function that joins them.
 
 Counterpart of zgml_tpu/ops/flash_vjp.py: `_fwd_kernel` (K10f), `_dq_kernel`
-(K10dq), `_dkv_kernel` (K10dkv) and `make_flash_vjp`, at the JAX package's
-ZGML_TPU_PREFILL_BF16=0 (f32 operands, the port's standing prefill function;
-ops/attention.py):
+(K10dq), `_dkv_kernel` (K10dkv) and `make_flash_vjp`, with f32 operands
+(the JAX package's ZGML_TPU_PREFILL_BF16=0) or, bf16=True, its bf16=True
+forms (the flag's default; config.prefill_bf16()):
 
   q, dO, O  f32  [B, Hq, Tq, d]
   k, v      bf16 [B, Hkv, S, d]    query head h reads KV head h // (Hq / Hkv);
@@ -22,6 +22,11 @@ ops/attention.py):
 
 dK's dP takes dO rounded to bf16 and dQ's the f32 dO, as the JAX kernels do
 (flash_vjp.py:275 rounds it whatever the operand dtype, :182-185 does not).
+The bf16 form (flash_vjp.py:60-84, 168-187, 258-284): K10f is K3's bf16
+form with its LSE (ops/attention.py); the backward's s takes bf16(q), both
+dP take bf16(dO), dV = bf16(p)^T bf16(dO), and dS k / dS'^T q keep the f32
+dS against k and bf16(q). Its launches count under flash_fwd_bf16,
+flash_dq_bf16 and flash_dkv_bf16.
 ``FlashAttention`` sums each GQA group of dK / dV outside the kernels in f32
 and rounds once to bf16, as XLA sums the bf16 group (flash_vjp.py:366-370).
 
@@ -48,9 +53,10 @@ import functools
 
 import torch
 
-from zgml_tpu_torch.ops import build
-from zgml_tpu_torch.ops.attention import (FlashPlan, _sm_count, check_qkv, flash_attention_ref,
-                                          flash_split_plan, launch_flash)
+from zgml_tpu_torch.ops import build, refs
+from zgml_tpu_torch.ops.attention import (FlashPlan, _sm_count, check_qkv, counter,
+                                          flash_attention_ref, flash_group, flash_split_plan,
+                                          grouped_softmax_pv, launch_flash, normalised)
 from zgml_tpu_torch.runtime.profile import global_profile
 
 # K10dq's key tile (csrc/flash_bwd.cu DQ_BN); K10dkv's tiling (DKV_BK,
@@ -63,27 +69,42 @@ DKV_MIN_Q_TILES = 2
 DKV_MAX_SPLIT = 16
 
 
-def _scores(q, k, kv_len, q_offset):
-    """(s f32 [B, Hkv, n_rep, Tq, S], its causal mask [Tq, S], q grouped
-    [B, Hkv, n_rep, Tq, d])."""
+def _scores(q, k, kv_len, q_offset, bf16: bool = False, scale: float | None = None):
+    """(s f32 [B, Hkv, n_rep, Tq, S] scaled by `scale` (1/sqrt(d) where
+    None), its causal mask [Tq, S], q grouped [B, Hkv, n_rep, Tq, d],
+    rounded to bf16 with bf16)."""
     b, hq, tq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     qg = q.to(torch.float32).reshape(b, hkv, hq // hkv, tq, d)
-    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.to(torch.float32)) * (1.0 / d ** 0.5)
+    if bf16:
+        qg = refs.bf16_round(qg)
+    sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.to(torch.float32)) * (scale or 1.0 / d ** 0.5)
     ki = torch.arange(s, device=q.device)[None, :]
     qi = torch.arange(tq, device=q.device)[:, None] + q_offset
     return sc, (ki < (s if kv_len is None else kv_len)) & (ki <= qi), qg
 
 
-def _probs(q, k, lse, kv_len, q_offset):
+def _probs(q, k, lse, kv_len, q_offset, bf16: bool = False, scale: float | None = None):
     """p = exp(s - lse) [B, Hkv, n_rep, Tq, S] (0 where masked), q grouped."""
-    sc, mask, qg = _scores(q, k, kv_len, q_offset)
+    sc, mask, qg = _scores(q, k, kv_len, q_offset, bf16, scale)
     p = torch.where(mask, torch.exp(sc - lse.reshape(*qg.shape[:-1], 1)), torch.zeros_like(sc))
     return p, qg
 
 
-def flash_fwd_lse_ref(q, k, v, kv_len=None, q_offset: int = 0):
-    """K10f's plain version: (o f32 [B, Hq, Tq, d], lse f32 [B, Hq, Tq])."""
+def flash_fwd_lse_ref(q, k, v, kv_len=None, q_offset: int = 0, bf16: bool = False,
+                      group: int | None = None, scale: float | None = None):
+    """K10f's plain version: (o f32 [B, Hq, Tq, d], lse f32 [B, Hq, Tq]).
+    bf16: K3's bf16 form (group and scale as flash_attention_ref's) and its
+    lse = m + log(l), l the running sum of the unrounded p
+    (flash_vjp.py:89-92)."""
+    if bf16:
+        sc, mask, _ = _scores(q, k, kv_len, q_offset, bf16=True, scale=scale)
+        sc = torch.where(mask, sc, torch.full_like(sc, float("-inf")))
+        o, m, l = grouped_softmax_pv(sc, v[:, :, None], None,
+                                     group or flash_group(k.shape[2], False))
+        lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, torch.ones_like(l))),
+                          torch.full_like(l, float("inf")))
+        return normalised(o, l).reshape(q.shape), lse.reshape(q.shape[:3])
     sc, mask, _ = _scores(q, k, kv_len, q_offset)
     lse = torch.logsumexp(sc.masked_fill(~mask, float("-inf")), dim=-1)
     lse = torch.where(torch.isfinite(lse), lse, torch.full_like(lse, float("inf")))
@@ -94,25 +115,34 @@ def _delta(do, o):
     return torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1, keepdim=True)
 
 
-def flash_dq_ref(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0):
-    """K10dq's plain version: dq f32 [B, Hq, Tq, d]."""
+def flash_dq_ref(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, bf16: bool = False):
+    """K10dq's plain version: dq f32 [B, Hq, Tq, d]; bf16: s from bf16(q),
+    dP from bf16(dO) (flash_vjp.py:168-187)."""
     b, hq, tq, d = q.shape
     hkv = k.shape[1]
-    p, _ = _probs(q, k, lse, kv_len, q_offset)
+    p, _ = _probs(q, k, lse, kv_len, q_offset, bf16)
     dog = do.to(torch.float32).reshape(b, hkv, hq // hkv, tq, d)
-    dp = torch.einsum("bgrqd,bgkd->bgrqk", dog, v.to(torch.float32))
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", refs.bf16_round(dog) if bf16 else dog,
+                      v.to(torch.float32))
     ds = p * (dp - _delta(dog, o.reshape(dog.shape))) * (1.0 / d ** 0.5)
     return torch.einsum("bgrqk,bgkd->bgrqd", ds, k.to(torch.float32)).reshape(b, hq, tq, d)
 
 
-def flash_dkv_ref(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0):
+def flash_dkv_ref(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, bf16: bool = False,
+                  scale: float | None = None):
     """K10dkv's plain version: (dk, dv) per query head [B, Hq, S, d] in k's
-    and v's dtype."""
+    and v's dtype; bf16: s from bf16(q), dV = bf16(p)^T bf16(dO), dK
+    against bf16(q) (flash_vjp.py:258-284). `scale` scales the recomputed
+    scores only (1/sqrt(d) where None; a check moves it by a few ulps to see
+    which bf16(p) flip)."""
     b, hq, tq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    p, qg = _probs(q, k, lse, kv_len, q_offset)
+    p, qg = _probs(q, k, lse, kv_len, q_offset, bf16, scale)
     dog = do.to(torch.float32).reshape(b, hkv, hq // hkv, tq, d)
-    dv = torch.einsum("bgrqk,bgrqd->bgrkd", p, dog)
+    if bf16:
+        dv = torch.einsum("bgrqk,bgrqd->bgrkd", refs.bf16_round(p), refs.bf16_round(dog))
+    else:
+        dv = torch.einsum("bgrqk,bgrqd->bgrkd", p, dog)
     dp = torch.einsum("bgrqd,bgkd->bgrqk", dog.to(torch.bfloat16).to(torch.float32),
                       v.to(torch.float32))
     ds = p * (dp - _delta(dog, o.reshape(dog.shape))) * (1.0 / d ** 0.5)
@@ -195,42 +225,46 @@ def flash_dkv_split_plan(b: int, hq: int, tq: int, s: int, kv_len: int, q_offset
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_blocks_per_sm(index: int, d: int, which: int) -> int:
-    """Blocks of K10dq (which 0) or K10dkv (1) at head_dim d one SM of card
-    `index` holds at once."""
+def _bwd_blocks_per_sm(index: int, d: int, which: int, bf16: bool = False) -> int:
+    """Blocks of K10dq (which 0) or K10dkv (1) at head_dim d (bf16: its
+    bf16 form) one SM of card `index` holds at once."""
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        build.check(build.library().zgml_flash_bwd_blocks_per_sm(d, which, ctypes.byref(n)),
+        build.check(build.library().zgml_flash_bwd_blocks_per_sm(d, which, int(bf16),
+                                                                 ctypes.byref(n)),
                     "flash backward occupancy")
     if n.value < 1:
         raise RuntimeError(f"flash backward (head_dim {d}): no block fits on an SM")
     return n.value
 
 
-def flash_dq_plan(q, k, kv_len, q_offset: int) -> FlashPlan:
+def flash_dq_plan(q, k, kv_len, q_offset: int, bf16: bool = False) -> FlashPlan:
     """The plan K10dq takes for q and k on q's card: K3's row tiles and
     split rule at K10dq's key tile and occupancy."""
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     index = q.device.index or 0
     return flash_split_plan(b, hq, hkv, tq, d, min(_lens(k, kv_len), s), int(q_offset),
-                            _sm_count(index), _bwd_blocks_per_sm(index, d, 0), bn=DQ_BN)
+                            _sm_count(index), _bwd_blocks_per_sm(index, d, 0, bf16), bn=DQ_BN)
 
 
-def flash_dkv_plan(q, k, kv_len, q_offset: int) -> FlashDkvPlan:
+def flash_dkv_plan(q, k, kv_len, q_offset: int, bf16: bool = False) -> FlashDkvPlan:
     """The plan K10dkv takes for q and k on q's card."""
     b, hq, tq, d = q.shape
     s = k.shape[2]
     index = q.device.index or 0
     return flash_dkv_split_plan(b, hq, tq, s, _lens(k, kv_len), int(q_offset), _sm_count(index),
-                                _bwd_blocks_per_sm(index, d, 1))
+                                _bwd_blocks_per_sm(index, d, 1, bf16))
 
 
-def flash_fwd_lse_cuda(q, k, v, kv_len=None, q_offset: int = 0):
-    """Launch K10f (csrc/flash_attn.cu): (o, lse)."""
+def flash_fwd_lse_cuda(q, k, v, kv_len=None, q_offset: int = 0, bf16: bool = False,
+                       group: int | None = None):
+    """Launch K10f (csrc/flash_attn.cu): (o, lse); bf16 and group as
+    attention.flash_attention_cuda's."""
     _check("flash_fwd", q, k, v)
-    o, lse = launch_flash(q, k, None, v, None, kv_len, q_offset, 0, lse=True)
-    global_profile.count_op("flash_fwd", "cuda")
+    o, lse = launch_flash(q, k, None, v, None, kv_len, q_offset, 0, lse=True,
+                          group=(group or flash_group(k.shape[2], False)) if bf16 else None)
+    global_profile.count_op(counter("flash_fwd", bf16), "cuda")
     return o, lse
 
 
@@ -246,37 +280,40 @@ def flash_delta_cuda(do, o):
     return delta
 
 
-def flash_dq_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=None):
-    """Launch K10dq (csrc/flash_bwd.cu): dq f32 [B, Hq, Tq, d]. `delta`
-    from flash_delta_cuda(do, o), or None to run the pre-pass here."""
+def flash_dq_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=None,
+                  bf16: bool = False):
+    """Launch K10dq (csrc/flash_bwd.cu): dq f32 [B, Hq, Tq, d] (bf16: its
+    bf16 form). `delta` from flash_delta_cuda(do, o), or None to run the
+    pre-pass here."""
     _check("flash_dq", q, k, v, (do, o, lse) + (() if delta is None else (delta,)))
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     if delta is None:
         delta = flash_delta_cuda(do, o)
-    plan = flash_dq_plan(q, k, kv_len, q_offset)
+    plan = flash_dq_plan(q, k, kv_len, q_offset, bf16)
     dq = torch.empty_like(q)
     part = (torch.empty(plan.n_split * q.numel(), dtype=torch.float32, device=q.device)
             if plan.n_split > 1 else None)
     status = build.library().zgml_flash_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), None if part is None else part.data_ptr(), b, hq, hkv,
-        tq, s, d, _lens(k, kv_len), int(q_offset), plan.n_split, plan.bn, 1.0 / d ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, "flash_dq")
-    global_profile.count_op("flash_dq", "cuda")
+        tq, s, d, _lens(k, kv_len), int(q_offset), plan.n_split, plan.bn, int(bf16),
+        1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, counter("flash_dq", bf16))
+    global_profile.count_op(counter("flash_dq", bf16), "cuda")
     return dq
 
 
-def flash_dkv_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=None):
+def flash_dkv_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=None,
+                   bf16: bool = False):
     """Launch K10dkv (csrc/flash_bwd.cu): (dk, dv) bf16 [B, Hq, S, d] per
-    query head. `delta` as flash_dq_cuda's."""
+    query head (bf16: its bf16 form). `delta` as flash_dq_cuda's."""
     _check("flash_dkv", q, k, v, (do, o, lse) + (() if delta is None else (delta,)))
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     if delta is None:
         delta = flash_delta_cuda(do, o)
-    plan = flash_dkv_plan(q, k, kv_len, q_offset)
+    plan = flash_dkv_plan(q, k, kv_len, q_offset, bf16)
     dk = torch.empty((b, hq, s, d), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     part = (torch.empty(plan.n_split * 2 * dk.numel(), dtype=torch.float32, device=q.device)
@@ -284,45 +321,47 @@ def flash_dkv_cuda(q, k, v, do, o, lse, kv_len=None, q_offset: int = 0, delta=No
     status = build.library().zgml_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if part is None else part.data_ptr(),
-        b, hq, hkv, tq, s, d, _lens(k, kv_len), int(q_offset), plan.n_split, 1.0 / d ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(status, "flash_dkv")
-    global_profile.count_op("flash_dkv", "cuda")
+        b, hq, hkv, tq, s, d, _lens(k, kv_len), int(q_offset), plan.n_split, int(bf16),
+        1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, counter("flash_dkv", bf16))
+    global_profile.count_op(counter("flash_dkv", bf16), "cuda")
     return dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Causal GQA flash attention with the FlashAttention-2 backward: the
     counterpart of `make_flash_vjp`. ``apply(q, k, v, kv_len, q_offset,
-    kernel)``: the kernels (K10f, then K10dq and K10dkv in backward) where
-    `kernel` is true, else the plain versions, counted as "ref" placements;
-    the tier is fixed at the forward call, so the backward recomputes p
-    against the LSE of the same tier. Returns o f32 [B, Hq, Tq, d]."""
+    kernel, bf16, group)``: the kernels (K10f, then K10dq and K10dkv in
+    backward) where `kernel` is true, else the plain versions, counted as
+    "ref" placements; bf16 picks the bf16 forms in both directions (group:
+    the forward's running-max step, as flash_attention_ref's); the tier is
+    fixed at the forward call, so the backward recomputes p against the LSE
+    of the same tier. Returns o f32 [B, Hq, Tq, d]."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, q_offset, kernel):
+    def forward(ctx, q, k, v, kv_len, q_offset, kernel, bf16=False, group=None):
         if kernel:
-            o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_offset)
+            o, lse = flash_fwd_lse_cuda(q, k, v, kv_len, q_offset, bf16, group)
         else:
-            global_profile.count_op("flash_fwd", "ref")
-            o, lse = flash_fwd_lse_ref(q, k, v, kv_len, q_offset)
+            global_profile.count_op(counter("flash_fwd", bf16), "ref")
+            o, lse = flash_fwd_lse_ref(q, k, v, kv_len, q_offset, bf16, group)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.meta = (kv_len, q_offset, kernel)
+        ctx.meta = (kv_len, q_offset, kernel, bf16)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        kv_len, q_offset, kernel = ctx.meta
+        kv_len, q_offset, kernel, bf16 = ctx.meta
         do = do.to(torch.float32).contiguous()
         if kernel:
             delta = flash_delta_cuda(do, o)
-            dq = flash_dq_cuda(q, k, v, do, o, lse, kv_len, q_offset, delta)
-            dkh, dvh = flash_dkv_cuda(q, k, v, do, o, lse, kv_len, q_offset, delta)
+            dq = flash_dq_cuda(q, k, v, do, o, lse, kv_len, q_offset, delta, bf16)
+            dkh, dvh = flash_dkv_cuda(q, k, v, do, o, lse, kv_len, q_offset, delta, bf16)
         else:
-            global_profile.count_op("flash_dq", "ref")
-            global_profile.count_op("flash_dkv", "ref")
-            dq = flash_dq_ref(q, k, v, do, o, lse, kv_len, q_offset)
-            dkh, dvh = flash_dkv_ref(q, k, v, do, o, lse, kv_len, q_offset)
+            global_profile.count_op(counter("flash_dq", bf16), "ref")
+            global_profile.count_op(counter("flash_dkv", bf16), "ref")
+            dq = flash_dq_ref(q, k, v, do, o, lse, kv_len, q_offset, bf16)
+            dkh, dvh = flash_dkv_ref(q, k, v, do, o, lse, kv_len, q_offset, bf16)
         hkv = k.shape[1]
-        return dq, group_sum(dkh, hkv), group_sum(dvh, hkv), None, None, None
+        return dq, group_sum(dkh, hkv), group_sum(dvh, hkv), None, None, None, None, None

@@ -3,7 +3,12 @@
   K2  qmatmul_cuda / qmatmul_ref        (csrc/qmatmul.cu) counterpart of
       zgml_tpu/ops/qmatmul.py `_q4_kernel` (K2q4) and `_q8_kernel` (K2q8):
       f32 dequant, any M; a GEMV up to GEMV_MAX_M rows, above that split-TF32
-      `wgmma` with K split across blocks by ``qmatmul_plan``.
+      `wgmma` with K split across blocks by ``qmatmul_plan``. Its bf16 form
+      (bf16=True: JAX's dot_bf16, qmatmul.py:57-63, 113-121) computes
+      sum_k bf16(x) * bf16(level * scale) with f32 sums: the GEMV's bf16 mode
+      up to GEMV_MAX_M rows, above that a bf16 `wgmma` GEMM. ``bf16_tier``
+      says which calls take it (JAX's row tile ``row_tile`` of at least 32
+      rows, no int8 tier, ZGML_TPU_PREFILL_BF16 on).
   K1  qmatmul_i8_cuda / qmatmul_i8_ref  (csrc/qmatmul_i8.cu) counterpart of
       `_q4_i8_kernel` (K1q4) and `_q8_i8_kernel` (K1q8): int8 activations per
       32-block, exact int8 block dots (int8 tensor cores), f32 scale and sum;
@@ -22,7 +27,8 @@
       weight planes get no gradient (frozen quantized weights).
 
 Each wrapper launches the kernel of its weight's kind and counts the launch
-under `counter(name, w.kind)`. Callers go through ``ops.dispatch``, which
+under `counter(name, w.kind)` (K2's bf16 form under `counter(name, w.kind,
+bf16=True)`, qmatmul_bf16 / qmatmul_bf16_q8). Callers go through ``ops.dispatch``, which
 picks the tier (config.i8dot(), M) and between kernel and plain version by
 device.
 """
@@ -36,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from zgml_tpu_torch import config
 from zgml_tpu_torch.ops import build, coop, refs
 from zgml_tpu_torch.ops.decode_plan import (AHEAD_BYTES, HEADER_BYTES, MAX_STAGES, SLOT_ALIGN,
                                             SMEM_LIMIT, sm_count)
@@ -49,10 +56,41 @@ I8_MAX_ROWS = 32        # K1 serves M <= 32 (zgml_tpu/ops/qmatmul.py:639,728)
 KIND_CODE = {"q4_0": 0, "q8_0": 1}     # the kind argument of the csrc launchers
 
 
-def counter(name: str, kind: str) -> str:
+def counter(name: str, kind: str, bf16: bool = False) -> str:
     """The placement counter of kernel `name` at weight kind `kind`: the
-    Q4_0 kernels count under their plain name, the Q8_0 ones with _q8."""
+    Q4_0 kernels count under their plain name, the Q8_0 ones with _q8; K2's
+    bf16 form adds _bf16 to the name (qmatmul_bf16, qmatmul_bf16_q8)."""
+    name = f"{name}_bf16" if bf16 else name
     return name if kind == "q4_0" else f"{name}_q8"
+
+
+BF16_MIN_TILE = 32      # JAX's bf16 tier: a row tile of at least 32 rows (qmatmul.py:646)
+
+
+def _choose_tile(total: int, limit: int, mult: int) -> int:
+    """The largest multiple of `mult` that divides `total` and is <= limit,
+    else total (zgml_tpu/ops/qmatmul.py `_choose_tile`)."""
+    for cand in range(min(limit, total) // mult * mult, 0, -mult):
+        if total % cand == 0:
+            return cand
+    return total
+
+
+def row_tile(m: int) -> int:
+    """The JAX package's row tile bm of an m-row call (qmatmul.py:716, 727):
+    m padded to a multiple of 8 (at least 8), whole up to 512 rows, else its
+    largest divisor that is a multiple of 8 and <= 256."""
+    m_pad = max(8, -(-m // 8) * 8)
+    return m_pad if m_pad <= 512 else _choose_tile(m_pad, 256, 8)
+
+
+def bf16_tier(rows: int, i8: bool) -> bool:
+    """Whether a K2 call standing for `rows` rows computes the bf16-operand
+    function, as `_qmm_diff` decides dot_bf16 (qmatmul.py:636-648): the int8
+    tier (i8) does not take it, JAX's row tile holds at least 32 rows, and
+    ZGML_TPU_PREFILL_BF16 is on. m_pad = 8 p for a prime p > 64 gives
+    bm = 8: such calls stay f32."""
+    return not i8 and row_tile(rows) >= BF16_MIN_TILE and config.prefill_bf16()
 
 
 def _require(cond: bool, msg: str):
@@ -72,7 +110,8 @@ def _check(x: torch.Tensor, w: PackedWeight):
 
 
 # K2's tiled tier (csrc/qmatmul.cu): 128 x 128 tiles of y, K stepped one
-# quant block a stage; M <= GEMV_MAX_M runs the GEMV, which takes no plan
+# quant block a stage (the bf16 form: two); M <= GEMV_MAX_M runs the GEMV,
+# which takes no plan
 GEMV_MAX_M = 4
 FWD_BM, FWD_BN = 128, 128
 FWD_MAX_SPLIT = 16
@@ -80,9 +119,12 @@ FWD_MIN_STAGES = 8        # a part of K takes at least 8 quant blocks
 # the plan's cost model: a resident block's time for one stage (~1 us on
 # the H100: Llama-2-7B's lm_head at M 128, 2 waves x 128 stages, takes ~253
 # us; PERF.md), and the rate at which the partials are written and read back
-# (HBM's)
+# (HBM's). The bf16 form's stage (64 k, one bf16 product where TF32 takes
+# two at half the rate) is put at half the TF32 one's time: an estimate
 FWD_STAGE_US = 1.0
+FWD_STAGE_US_BF16 = 0.5
 FWD_PART_BYTES_PER_US = 3.35e6
+BF16_STAGE_BLOCKS = 2     # quant blocks a stage of the bf16 form takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,24 +136,28 @@ class FwdPlan:
     parts: tuple[tuple[int, int], ...]
 
 
-def qmatmul_plan(m: int, n: int, k: int, sm_count: int, per_sm: int = 1) -> FwdPlan:
+def qmatmul_plan(m: int, n: int, k: int, sm_count: int, per_sm: int = 1,
+                 bf16: bool = False) -> FwdPlan:
     """Split K so that the tiles of y times the parts fill the card's
     resident blocks (sm_count * per_sm): the least estimated time, waves x
-    stages of the longest part at FWD_STAGE_US plus the partials' traffic
+    stages of the longest part at FWD_STAGE_US (bf16: FWD_STAGE_US_BF16 a
+    stage of BF16_STAGE_BLOCKS quant blocks) plus the partials' traffic
     (written and read back, and y written) at FWD_PART_BYTES_PER_US, the
     fewest parts on a tie, no part shorter than FWD_MIN_STAGES quant blocks
-    unless K has fewer. A pure function of the shapes and the card, so y
-    has the same bits on every run there."""
+    unless K has fewer. Parts are whole quant blocks (a bf16 part of an odd
+    count ends on a half stage). A pure function of the shapes and the
+    card, so y has the same bits on every run there."""
     tiles = -(-m // FWD_BM) * -(-n // FWD_BN)
-    stages = k // QK
+    blocks = k // QK
+    per_stage, stage_us = (BF16_STAGE_BLOCKS, FWD_STAGE_US_BF16) if bf16 else (1, FWD_STAGE_US)
     slots = max(1, sm_count * per_sm)
-    most = max(1, min(FWD_MAX_SPLIT, stages // FWD_MIN_STAGES))
+    most = max(1, min(FWD_MAX_SPLIT, blocks // FWD_MIN_STAGES))
 
     def cost(s):
-        run = -(-tiles * s // slots) * -(-stages // s) * FWD_STAGE_US
+        run = -(-tiles * s // slots) * -(-blocks // (s * per_stage)) * stage_us
         return run + (0 if s == 1 else (2 * s + 1) * m * n * 4 / FWD_PART_BYTES_PER_US)
     n_split = min(range(1, most + 1), key=lambda s: (cost(s), s))
-    bounds = [z * stages // n_split for z in range(n_split + 1)]
+    bounds = [z * blocks // n_split for z in range(n_split + 1)]
     return FwdPlan(n_split, tuple(zip(bounds[:-1], bounds[1:])))
 
 
@@ -128,30 +174,46 @@ def _card(index: int, kind: str, query: str, what: str) -> tuple[int, int]:
     return torch.cuda.get_device_properties(index).multi_processor_count, n.value
 
 
-def _fwd_card(index: int, kind: str) -> tuple[int, int]:
-    """(SM count, K2 tiled blocks one SM holds) of card `index` at `kind`."""
+def _fwd_card(index: int, kind: str, bf16: bool = False) -> tuple[int, int]:
+    """(SM count, K2 tiled blocks one SM holds) of card `index` at `kind`
+    (the bf16 form's GEMM with bf16)."""
+    if bf16:
+        return _card(index, kind, "zgml_qmatmul_bf16_blocks_per_sm", "qmatmul_bf16")
     return _card(index, kind, "zgml_qmatmul_blocks_per_sm", "qmatmul")
 
 
-def qmatmul_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """K2: x f32 [..., K] (contiguous, on the card) @ dequant(W).T -> f32 [..., N]."""
+def qmatmul_cuda(x: torch.Tensor, w: PackedWeight, bf16: bool = False,
+                 xb_out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2: x f32 [..., K] (contiguous, on the card) @ dequant(W).T -> f32
+    [..., N]; with bf16 its bf16 form (bf16(x) . bf16(level * scale), f32
+    sums). xb_out (bf16 [M, K], contiguous), above GEMV_MAX_M rows in the
+    bf16 form, receives the pre-pass's bf16(x) (a check holds it to x
+    rounded by torch)."""
     _check(x, w)
     lead = x.shape[:-1]
     m = x.numel() // w.k
     y = torch.empty((*lead, w.n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    n_split, part = 1, None
+    n_split, part, xb = 1, None, None
     if m > GEMV_MAX_M:
-        n_split = qmatmul_plan(m, w.n, w.k, *_fwd_card(x.device.index or 0, w.kind)).n_split
+        n_split = qmatmul_plan(m, w.n, w.k, *_fwd_card(x.device.index or 0, w.kind, bf16),
+                               bf16=bf16).n_split
         if n_split > 1:
             part = torch.empty((n_split, m, w.n), dtype=torch.float32, device=x.device)
+        if bf16:        # the kernel's pre-pass writes bf16(x) here, once for every tile
+            xb = xb_out if xb_out is not None else torch.empty(
+                (m, w.k), dtype=torch.bfloat16, device=x.device)
+            _require(xb.dtype == torch.bfloat16 and xb.numel() == m * w.k
+                     and xb.is_contiguous() and xb.device == x.device
+                     and xb.data_ptr() % 16 == 0,
+                     f"xb_out takes a contiguous 16-byte aligned bf16 [{m}, {w.k}] tensor")
     status = build.library().zgml_qmatmul(
         KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), m, w.n, w.k, n_split,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(status, "qmatmul")
-    global_profile.count_op(counter("qmatmul", w.kind), "cuda")
+        None if part is None else part.data_ptr(), None if xb is None else xb.data_ptr(), m,
+        w.n, w.k, n_split, int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(status, "qmatmul_bf16" if bf16 else "qmatmul")
+    global_profile.count_op(counter("qmatmul", w.kind, bf16), "cuda")
     return y
 
 

@@ -16,12 +16,22 @@ import torch
 from zgml_tpu_torch.quant.packed import PackedWeight
 
 
-def qmatmul_ref(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), in x's dtype (f32 or f64)."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def qmatmul_ref(x: torch.Tensor, w: PackedWeight, bf16: bool = False) -> torch.Tensor:
     """x [..., K] @ dequant(W).T -> [..., N] f32 (the weight dequantized
-    exactly, then one f32 matmul)."""
+    exactly, then one f32 matmul). bf16: JAX's dot_bf16 form
+    (zgml_tpu/ops/qmatmul.py:57-63, 113-121), x and the dequantized weight
+    level * scale (exact in f32) each rounded to bf16, then the f32 matmul,
+    whose products are exact (on the card with TF32 off, torch's default)."""
     lead = x.shape[:-1]
-    y = x.reshape(-1, x.shape[-1]).to(torch.float32) @ w.dequant().T
-    return y.reshape(*lead, w.n)
+    x2, wt = x.reshape(-1, x.shape[-1]).to(torch.float32), w.dequant()
+    if bf16:
+        x2, wt = bf16_round(x2), bf16_round(wt)
+    return (x2 @ wt.T).reshape(*lead, w.n)
 
 
 def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
