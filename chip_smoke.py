@@ -24,13 +24,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      maximum); K6 at M = 1, 8, 32 (K6d at Q4_0, K6a at Q8_0); K6b at M = 1,
      7, 32; K7 at pos 0, 1, 200, 2047 of a random stacked cache, bf16 and
      int8 (kv8); K3 and K4; K9 on a 128-row chunk at q_offset 0 and 1408 and
-     K8 at batch 4 (per-row kv_len 1, 200, 2047, 1000), over a stacked int8
-     cache through kv_row. At the Llama-2-7B shapes: K2q4, K1q4 and K5q4 on
+     K8 in both its modes (f32 P.V, and p quantized per JAX block under
+     ZGML_TPU_ATTN_I8PV) at batch 4 (per-row kv_len 1, 200, 2047, 1000, and
+     256, 257, 513, 0 on its 256-key blocks' edges), over a stacked int8
+     cache through kv_row, against the plain version of its split plan (the
+     I8PV mode within the flips a FLIP_EPS move of the score scale causes),
+     two launches bit-equal, with n_split, shared memory, registers and
+     spills. At the Llama-2-7B shapes: K2q4, K1q4 and K5q4 on
      its projections; K6c at M = 1, 8 and K6b at M = 1, 7, 32; K7's int8 A
      phase at pos 0, 1, 200, 2047 at Q4_0 and Q8_0, over the bf16 and the
      int8 cache; K3 at head_dim 128 with n_rep 1 (also at q_offset 1408,
      kv_len 1536, where the prefix is split across blocks); K9 as at
-     TinyLlama and K8 at batch 1 (kv_len 200, 2047). K6c and K7-i8 quantize a row they norm
+     TinyLlama and K8 (both modes) at batch 1 (kv_len 200, 2047). K6c and K7-i8 quantize a
+     row they norm
      themselves: the plain version runs on the kernel's own int8 activations,
      and the levels that differ from the plain pre-pass are counted (at most
      one level apart); K7-kv8 likewise runs the plain version on the
@@ -121,6 +127,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                    engine; K1q4, K2q4, K5q4, K6b, K6d, K7 (f32 A phase, int8
                    cache), K9 and K8 must launch, and no K3, K4 or bf16-cache
                    K7;
+       kv8_i8pv    kv8_tiny's model and cache at the default flags plus
+                   ZGML_TPU_ATTN_I8PV=1: the 3 greedy and the sampled request
+                   (K7's int8-cache mode, which the flag does not change),
+                   then a greedy request of 4 rows x 320 prompt tokens (3
+                   chunks; the decode in K8's second 256-key block) from a
+                   batch-4 engine; K8's I8PV mode, kv8_tiny's other kernels
+                   with the bf16 forms of K2q4 and K9 must launch, and no
+                   f32-p K8 and no TF32 form;
        kv8_7b      Llama-2-7B Q4_0, the default flags, cache_dtype="int8":
                    the 3 greedy and the sampled request and a greedy request
                    of a 1536-token prompt; K1q4, K2q4, K5q4, K6b, K6c, K7
@@ -140,10 +154,13 @@ Phases, in order; any failure raises and the script exits non-zero:
        tape_tiny   the same with ZGML_TPU_TAPE_DECODE=1: K15 (bf16 operands)
                    once per decode token;
      no other kernel and no plain-tier call may run on a path; on each path
-     the first request (and on kv8_tiny the batch-4 one) is compared with the
+     the first request (and on kv8_tiny and kv8_i8pv the batch-4 one) is compared with the
      same engine under force_ref() (the same path with every kernel swapped
      for its plain version): the prefill logits, one decode step from a
-     shared cache, and the greedy tokens. Then two training paths, counted
+     shared cache, and the greedy tokens (each within a fixed bound or 2 x
+     the plain path's own move under a 1e-7 perturbation of the embedding,
+     and at prefill where it takes the bf16 forms also of each
+     projection's output, the larger). Then two training paths, counted
      the same way (the listed kernels must launch, no other kernel and no
      plain version):
        train_dense      TinyLlama-1.1B width and depth, dense f32 from
@@ -178,7 +195,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      of ZGML_TPU_ATTN_BLOCK=0 bit for bit;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with the
-     1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b;
+     1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b,
+     and tg32 of the batch-4 engines of kv8_tiny and kv8_i8pv (K8's two
+     modes) in turns after the 4 x 320 prompt;
      per path a torch.profiler breakdown of one prefill chunk and 8 decode
      steps, with the kernels launched per decode token, K7's and K6's and
      the megacall's device time per token (and, on those two, 8 steps at the
@@ -239,7 +258,9 @@ DECODE_LENS = [1, 200, 2047]
 # the int8 cache's checks: K9 on a 128-row chunk at q_offset 0 and 1408 (the
 # 12th chunk of a 1536-token prompt); K8 on batches of per-row kv_len
 KV8_FLASH_CASES = [(0, 128), (1408, 1536)]
-KV8_DECODE_LENS = [[1, 200, 2047, 1000]]          # TinyLlama, batch 4
+# TinyLlama batch 4, and a batch on K8's JAX-block edges (256 keys at S 2048)
+# with a row of no key
+KV8_DECODE_LENS = [[1, 200, 2047, 1000], [256, 257, 513, 0]]
 # K4 at batch 4 with per-row kv_len (the serving engine's bf16 decode; a row
 # with no key gives 0)
 DECODE_BATCH_LENS = [0, 1, 200, 2047]
@@ -399,36 +420,43 @@ LIBRARY_K2_BF16 = ("torch.matmul(x, W.T) in bf16 (cuBLAS, bf16 out), x and the d
 SWITCH_STEPS = 4           # decode steps of the kernel-switch check (phase 3)
 # the JAX flags of each path (config.py); a missing key is unset, i.e. default
 # (unfused and kv8_tiny pin ZGML_TPU_PREFILL_BF16=0, so the TF32 forms of K2q4,
-# K3 and K9 launch on a path; train_rmsnorm_forced pins it for K10's)
+# K3 and K9 launch on a path; train_rmsnorm_forced pins it for K10's;
+# kv8_i8pv is the default flags plus ZGML_TPU_ATTN_I8PV=1)
 PATHS = {"default": {},
          "unfused": {"ZGML_TPU_ATTN_BLOCK": "0", "ZGML_TPU_KERNELS_DISABLE": "fused_ffn",
                      "ZGML_TPU_I8DOT": "0", "ZGML_TPU_PREFILL_BF16": "0"},
          "q8_default": {},
          "llama2_7b": {},
          "kv8_tiny": {"ZGML_TPU_PREFILL_BF16": "0"},
+         "kv8_i8pv": {"ZGML_TPU_ATTN_I8PV": "1"},
          "kv8_7b": {},
          "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"},
          "stack_tiny": {"ZGML_TPU_STACK_DECODE": "1"},
          "tape_tiny": {"ZGML_TPU_TAPE_DECODE": "1"}}
 PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
               "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0"),
-              "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_7b": ("llama2-7b", "q4_0"),
+              "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_i8pv": ("tinyllama-1.1b", "q4_0"),
+              "kv8_7b": ("llama2-7b", "q4_0"),
               "rmsnorm_forced": ("tinyllama-1.1b", "q4_0"),
               "stack_tiny": ("tinyllama-1.1b", "q4_0"), "tape_tiny": ("tinyllama-1.1b", "q4_0")}
 # the megacall of a path, which must launch exactly once per decode token
 MEGA_PATHS = {"stack_tiny": "stack_decode", "tape_tiny": "tape_decode"}
-PATH_CACHE = {"kv8_tiny": "int8", "kv8_7b": "int8"}    # the engines' cache_dtype; else bf16
+# the engines' cache_dtype; else bf16
+PATH_CACHE = {"kv8_tiny": "int8", "kv8_i8pv": "int8", "kv8_7b": "int8"}
 # paths that also answer the sampled request
-PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_7b", "rmsnorm_forced",
-                "stack_tiny", "tape_tiny")
-BATCH4_PATHS = ("kv8_tiny",)    # + 4 rows x 128 prompt tokens from a batch-4 engine (K8)
+PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b",
+                "rmsnorm_forced", "stack_tiny", "tape_tiny")
+# + a greedy request of 4 rows x this many prompt tokens (32 new tokens each)
+# from a batch-4 engine (K8; on kv8_i8pv 3 chunks of 128, the decode in JAX
+# block 1 of K8's 256-key blocks)
+BATCH4_PATHS = {"kv8_tiny": 128, "kv8_i8pv": 320}
 LONG_PATHS = ("kv8_7b",)        # + a LONG_PROMPT-token prompt, 32 new tokens
 LONG_RATE_PATHS = ("llama2_7b", "kv8_7b")   # phase 4: tg32 also at a LONG_PROMPT context
 LONG_PROMPT = 1536
 # paths whose decode quantizes per token beyond K1 (K7-i8 and K6c on Llama-2-7B, the
 # int8 cache, K15's bf16 operands): their tokens are compared up to a top-2 gap
 # under the step bound
-FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_7b", "tape_tiny")
+FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b", "tape_tiny")
 PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
                             "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block"),
                 "unfused": ("q4_matmul", "flash_attention", "decode_attention"),
@@ -439,6 +467,9 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_b
                 "kv8_tiny": ("q4_matmul_i8", "q4_matmul", "flash_attention_q8", "q4_greedy",
                              "fused_ffn_norm", "fused_ffn", "attn_block_kv8",
                              "decode_attention_q8"),
+                "kv8_i8pv": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_q8_bf16",
+                             "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block_kv8",
+                             "decode_attention_q8_i8pv"),
                 "kv8_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_q8_bf16",
                            "q4_greedy", "fused_ffn_norm_i8", "fused_ffn", "attn_block_i8_kv8"),
                 "rmsnorm_forced": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
@@ -475,6 +506,8 @@ KERNELS = {
                            "zgml_tpu/ops/attention.py:702"),
     "decode_attention_q8": ("decode_attention_q8", _CSRC + "decode_attn.cu",
                             "zgml_tpu/ops/attention.py:506"),
+    "decode_attention_q8_i8pv": ("decode_attention_q8_i8pv", _CSRC + "decode_attn.cu",
+                                 "zgml_tpu/ops/attention.py:506"),
     "attn_block_kv8": ("attn_block_kv8", _CSRC + "layer_attn.cu",
                        "zgml_tpu/ops/layerkernel.py:685"),
     "attn_block_kv8_q8": ("attn_block_kv8_q8", _CSRC + "layer_attn.cu",
@@ -506,13 +539,15 @@ KERNELS = {
     "tape_decode_f32": ("tape_decode_f32", _CSRC + "stack_decode.cu",
                         "zgml_tpu/ops/tapekernel.py:553"),
 }
-# the form of each kernel with two (ZGML_TPU_PREFILL_BF16): its mode in the
-# JSON line, beside the counter that names it
+# the form of each kernel with two (ZGML_TPU_PREFILL_BF16; K8's
+# ZGML_TPU_ATTN_I8PV): its mode in the JSON line, beside the counter that
+# names it
 MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "flash_attention_q8",
                                "flash_fwd", "flash_dq", "flash_dkv")},
         **{k: "bf16" for k in ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16",
                                "flash_attention_q8_bf16", "flash_fwd_bf16", "flash_dq_bf16",
-                               "flash_dkv_bf16")}}
+                               "flash_dkv_bf16")},
+        "decode_attention_q8": "f32p", "decode_attention_q8_i8pv": "i8pv"}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -690,7 +725,9 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_kernels(torch, dev):
+def check_kernels(torch, dev, ptxas_q8):
+    """Phase 2; ptxas_q8: ptxas' report of K8's instantiations (recorded in
+    its cases)."""
     from zgml_tpu_torch.ops import refs
     from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_ref,
                                               flash_attention_cuda, flash_attention_ref)
@@ -1105,7 +1142,7 @@ def check_kernels(torch, dev):
     check_planar(FFN_D, FFN_F, "")
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
                     decode_attention_cuda, decode_attention_ref, (L, HQ, HKV, D), "")
-    check_attention_q8(torch, dev, g, record, (L, HQ, HKV, D), "", KV8_DECODE_LENS)
+    check_attention_q8(torch, dev, g, record, (L, HQ, HKV, D), "", KV8_DECODE_LENS, ptxas_q8)
     log("  -- the bf16 forms (ZGML_TPU_PREFILL_BF16) at TinyLlama-1.1B and Llama-2-7B shapes")
     for kind in KINDS:
         for shapes, model in ((GEMM_SHAPES, ""), (GEMM_SHAPES_7B, "7B ")):
@@ -1127,7 +1164,7 @@ def check_kernels(torch, dev):
                     None, None, (L_7B, HQ_7B, HKV_7B, D_7B), "7B hd=128 n_rep=1 ",
                     FLASH_CASES + FLASH_CASES_7B_LONG)
     check_attention_q8(torch, dev, g, record, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ",
-                       KV8_DECODE_LENS_7B)
+                       KV8_DECODE_LENS_7B, ptxas_q8)
     log("  -- training: K10 (flash forward with LSE, dQ, dK/dV) and K11 (dx)")
     check_training_attention(torch, dev, g, record)
     for kind in KINDS:
@@ -1278,16 +1315,37 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
            n_split=decode_splits(b, hkv, S, hd, sms))
 
 
-def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
+def k8_smem_bytes(hd: int, n_rep: int) -> int:
+    """K8's dynamic shared memory (csrc/decode_attn.cu dq_smem_bytes): q
+    levels and scales, p, the block maxima, the warps' merge area, each
+    warp's steps (two, one at head_dim 128) of two groups (K rows padded by
+    16 bytes, V, scales), the merge flag and its split maxima and sums."""
+    def r16(n):
+        return -(-n // 16) * 16
+    group, stages = 32 * (2 * hd + 16) + 2 * 32 * 4, 1 if hd >= 128 else 2
+    return (r16(n_rep * hd) + r16(n_rep * 4) + 4 * 4 * 8 * (2 * 32 + 4 + hd)
+            + 4 * stages * 2 * group + 16 + 4 * n_rep * 2 * 16)
+
+
+def check_attention_q8(torch, dev, g, record, shape, model, decode_lens, ptxas):
     """K9 and K8 over a random stacked int8 cache (levels and per-position
     scales, read through kv_row): K9 on a 128-row chunk at KV8_FLASH_CASES,
-    K8 on one row per entry of decode_lens (each a batch of per-row
-    kv_len). The library call is scaled_dot_product_attention with
-    enable_gqa in f32 on the cache rows dequantized outside the timed window
-    (and, for K8, on q quantized and dequantized as the kernel does)."""
+    K8 in both its modes on one row per entry of decode_lens (each a batch
+    of per-row kv_len): against the plain version of its launch plan (the
+    I8PV mode: each split's running max from its first JAX block) within
+    max(1e-5 * max|o|, FLIP_MARGIN x the plain version's own move under a
+    FLIP_EPS move of its score scale) in the I8PV mode (p * v_scale / psc
+    at a half rounds to the other level), 1e-5 * max|o| in the f32-p one,
+    and in the I8PV mode each shortcut (the f32-p function, p quantized per
+    32-key group) farther from that plain version than the bound;
+    two launches bit-equal; a kv_len 0 row 0; its plan's n_split, shared
+    memory and ptxas' registers and spills recorded. The library call is
+    scaled_dot_product_attention with enable_gqa in f32 on the cache rows
+    dequantized outside the timed window (for K8's f32-p mode on q quantized
+    and dequantized as the kernel does; none for the I8PV mode)."""
     from zgml_tpu_torch.ops.attention import (decode_attention_q8_cuda, decode_attention_q8_ref,
-                                              flash_attention_q8_cuda, flash_attention_q8_ref,
-                                              flash_plan)
+                                              decode_q8_splits, flash_attention_q8_cuda,
+                                              flash_attention_q8_ref, flash_plan, q8_counter)
     from zgml_tpu_torch.quant.kv_cache import dequantize, quantize_columns
     n_layers, hq, hkv, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1324,33 +1382,76 @@ def check_attention_q8(torch, dev, g, record, shape, model, decode_lens):
                f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), f32, after "
                f"an untimed dequant (max abs err {lib_err:.2g})",
                tf32ops=TF32_PASSES * 4 * hq * live * hd, n_split=plan.n_split)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for lens_ in decode_lens:
         b = len(lens_)
         q = torch.randn((b, hq, 1, hd), device=dev, generator=g)
         lens = torch.tensor(lens_, dtype=torch.int32, device=dev)
         row = (n_layers - 1) * b                      # the last layer's rows
         args = (q, k, ks, v, vs, lens, row)
-        got, want = decode_attention_q8_cuda(*args), decode_attention_q8_ref(*args)
-        torch.cuda.synchronize()
-        err, bound = float((got - want).abs().max()), 1e-5 * float(want.abs().max())
-        require(bool(torch.isfinite(got).all()) and err <= bound,
-                f"decode_attention_q8 {model}kv_len={lens_}: max_abs_err {err:.3g} > {bound:.3g}")
-        t = time_ms(torch, [lambda: decode_attention_q8_cuda(*args)], 100)
-        tp = time_ms(torch, [lambda: decode_attention_q8_ref(*args)], 20)
         n = max(lens_)
         qq, qs = quantize_columns(q)
         qf = dequantize(qq, qs)
         kf = dequantize(k[row:row + b, :, :n], ks[row:row + b, :, :n])
         vf = dequantize(v[row:row + b, :, :n], vs[row:row + b, :, :n])
         mask = (torch.arange(n, device=dev)[None, :] < lens[:, None])[:, None, None, :]
-        lib_err = float((sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True) - want).abs().max())
-        lib = time_ms(torch, [lambda: sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True)], 100)
         live = sum(lens_)
-        record("decode_attention_q8", f"{model}hd={hd} B={b} kv_len={lens_}", err, bound, t, tp,
-               2 * q.numel() * 4 + b * 4 + live * pos_bytes, 2 * hq * live * hd, lib,
-               f"scaled_dot_product_attention(enable_gqa=True, per-row mask), f32, after an "
-               f"untimed dequant of q and the cache (max abs err {lib_err:.2g})",
-               i8ops=2 * hq * live * hd)
+        for i8pv in (False, True):
+            name = q8_counter(i8pv)
+            n_split = decode_q8_splits(b, hkv, S, hd, sms, i8pv)
+
+            def launch(i8pv=i8pv):
+                return decode_attention_q8_cuda(*args, i8pv)
+
+            def plain(scale=None, split=n_split, i8pv=i8pv):
+                return decode_attention_q8_ref(*args, i8pv, split=split, scale=scale)
+            got, again, want = launch(), launch(), plain()
+            move = max(float((plain((1 + e) / hd ** 0.5) - want).abs().max())
+                       for e in FLIP_EPS) if i8pv else 0.0
+            torch.cuda.synchronize()
+            case = f"{model}hd={hd} B={b} kv_len={lens_} n_split={n_split}"
+            mx = float(want.abs().max())
+            err, bound = float((got - want).abs().max()), max(1e-5 * mx, FLIP_MARGIN * move)
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"{name} {case}: max_abs_err {err:.3g} > {bound:.3g} (flip move {move:.3g})")
+            require(bool(torch.equal(got, again)), f"{name} {case}: two launches differ")
+            require(all(not got[i].any() for i, n_ in enumerate(lens_) if n_ == 0),
+                    f"{name} {case}: a row with kv_len 0 is not 0")
+            t = time_ms(torch, [launch], 100)
+            tp = time_ms(torch, [plain], 20 if not i8pv else 5)
+            if i8pv:
+                lib, note = None, "none: no call quantizes p per block"
+                # the bound must tell the function from its shortcuts: f32 p
+                # against the levels, and p quantized per 32-key group
+                shortcuts = {"f32_p": plain(i8pv=False),
+                             "per_32_keys": decode_attention_q8_ref(*args, True, split=n_split,
+                                                                    block=32)}
+                gaps = {k_: float((o_ - want).abs().max()) for k_, o_ in shortcuts.items()}
+                require(all(gap > bound for gap in gaps.values()),
+                        f"{name} {case}: a shortcut lies within the bound {bound:.3g}: {gaps}")
+                log(f"  {name} {case}: bound {bound:.3g} (flip move {move:.3g}); the shortcuts "
+                    f"lie " + ", ".join(f"{k_} {v_:.3g} ({v_ / bound:.1f}x)"
+                                        for k_, v_ in gaps.items()) + " from the plain version")
+                extra = dict(flip_move=move, shortcut_gaps=gaps,
+                             vs_unsplit=float((got - plain(split=None)).abs().max()) / mx)
+                ops = dict(i8ops=4 * hq * live * hd)             # q.k and P.V both int8
+                flops = 0
+            else:
+                lib_err = float((sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True) - want)
+                                .abs().max())
+                lib = time_ms(torch, [lambda: sdpa(qf, kf, vf, attn_mask=mask, enable_gqa=True)],
+                              100)
+                note = (f"scaled_dot_product_attention(enable_gqa=True, per-row mask), f32, "
+                        f"after an untimed dequant of q and the cache (max abs err "
+                        f"{lib_err:.2g})")
+                extra, ops, flops = {}, dict(i8ops=2 * hq * live * hd), 2 * hq * live * hd
+            entry = next((e for e in ptxas
+                          if f"decode_q8_kernelILi{hd}ELb{int(i8pv)}E" in e["entry"]), {})
+            record(name, case, err, bound, t, tp,
+                   2 * q.numel() * 4 + b * 4 + live * pos_bytes, flops, lib, note,
+                   n_split=n_split, smem_bytes=k8_smem_bytes(hd, hq // hkv),
+                   registers=entry.get("registers"), spill_stores=entry.get("spill_stores"),
+                   **ops, **extra)
 
 
 def bf16_ulp(torch, x):
@@ -2212,15 +2313,17 @@ def load_model(torch, dev, name: str, kind: str):
 
 
 def end_to_end(torch, model, prompts, name, summary):
-    """Drive one path through the engine; returns (engine, launches).
-    prompts: the three greedy prompts, then the long prompt and the batch-4
-    prompt (used by LONG_PATHS and BATCH4_PATHS)."""
+    """Drive one path through the engine; returns (engine, launches, the
+    batch-4 engine or None). prompts: the three greedy prompts, then the
+    long prompt and the batch-4 prompts by their length (used by LONG_PATHS
+    and BATCH4_PATHS)."""
     from zgml_tpu_torch.runtime.engine import LlamaEngine
     from zgml_tpu_torch.runtime.profile import global_profile
     from zgml_tpu_torch.runtime.sampling import SamplingParams
 
     set_path(name)
-    greedy, long_prompt, prompt4 = prompts[:3], prompts[3], prompts[4]
+    greedy, long_prompt = prompts[:3], prompts[3]
+    prompt4 = prompts[4][BATCH4_PATHS[name]] if name in BATCH4_PATHS else None
     cache = PATH_CACHE.get(name, "bf16")
     eng = LlamaEngine(model, prefill_chunk=128, cache_dtype=cache)
     # the sampled request's engine prefills in chunks of SAMPLED_CHUNK rows, as
@@ -2293,9 +2396,8 @@ def end_to_end(torch, model, prompts, name, summary):
                  **against_plain(torch, eng, greedy[0], outs[0], name, "request 1"))
     if eng4 is not None:
         entry["batch4"] = against_plain(torch, eng4, prompt4, out4, name, "the batch-4 request")
-    del eng4
     summary.setdefault("e2e", {})[name] = entry
-    return eng, launches
+    return eng, launches, eng4
 
 
 def kernel_switch_check(torch, model, prompt, summary):
@@ -2343,15 +2445,21 @@ def against_plain(torch, eng, prompt, out, name, label):
     logits, one decode step from a shared cache, and the greedy tokens `out`
     ([32], or B rows of 32). Each of the first two is held to its fixed bound
     or to SENS_MARGIN times what the plain path itself moves under SENS_EPS
-    input perturbations."""
+    input perturbations; on a path whose prefill takes the bf16 forms
+    (ZGML_TPU_PREFILL_BF16), the prefill's also under SENS_EPS perturbations
+    of every projection's output (proj_out_probe), the larger: there the
+    plain path's bf16 and int8 roundings swallow most embedding
+    perturbations (PERF.md)."""
+    from zgml_tpu_torch import config
     from zgml_tpu_torch.ops.dispatch import force_ref
     embd = eng.model.params["tok_embd"]
     b, vocab = eng.batch, eng.model.cfg.vocab_size
     rows_out = out if b > 1 else [out]
 
-    def perturbed(run, ids, want):
+    def perturbed(run, ids, want, proj_out=False):
         """How far the plain path's output moves when the embedding rows of
-        `ids` are scaled by (1 + SENS_EPS * N(0, 1)), over SENS_DRAWS draws."""
+        `ids` are scaled by (1 + SENS_EPS * N(0, 1)), with proj_out each
+        projection's output as well, over SENS_DRAWS draws."""
         ids = sorted({int(i) for i in np.asarray(ids.cpu() if hasattr(ids, "cpu") else ids)
                       .ravel()})
         rows = embd[ids].clone()
@@ -2361,7 +2469,8 @@ def against_plain(torch, eng, prompt, out, name, label):
             for _ in range(SENS_DRAWS):
                 embd[ids] = rows * (1 + SENS_EPS * torch.randn(rows.shape, device=rows.device,
                                                                generator=g))
-                moved.append(float((run() - want).abs().max()))
+                with proj_out_probe(torch, g) if proj_out else contextlib.nullcontext():
+                    moved.append(float((run() - want).abs().max()))
         embd[ids] = rows
         return moved
 
@@ -2386,6 +2495,8 @@ def against_plain(torch, eng, prompt, out, name, label):
     with force_ref():
         logits_r = prefill_from_0()
     sens_p = perturbed(prefill_from_0, prompt, logits_r)
+    proj_out = config.prefill_bf16()
+    sens_o = perturbed(prefill_from_0, prompt, logits_r, True) if proj_out else []
     with force_ref():
         logits_r = prefill_from_0()
         tok = torch.argmax(logits_r, dim=-1)
@@ -2401,10 +2512,11 @@ def against_plain(torch, eng, prompt, out, name, label):
             f"[{name}] {label}: prefill logits {tuple(logits_k.shape)} not finite [{b}, {vocab}]")
     scale_p = float(logits_r.abs().max())
     err = float((logits_k - logits_r).abs().max())
-    bound = max(LOGIT_RTOL * scale_p, SENS_MARGIN * max(sens_p))
+    bound = max(LOGIT_RTOL * scale_p, SENS_MARGIN * max(sens_p + sens_o))
     require(err <= bound, f"[{name}] {label}: prefill logits max_abs_err {err:.4g} > bound "
             f"{bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
-            f"{[f'{v:.3g}' for v in sens_p]})")
+            f"{[f'{v:.3g}' for v in sens_p]}; and of every projection's output: "
+            f"{[f'{v:.3g}' for v in sens_o]})")
     scale = float(step_r.abs().max())
     step_err = float((step_k - step_r).abs().max())
     step_bound = max(STEP_RTOL * scale, SENS_MARGIN * max(sens_s))
@@ -2423,13 +2535,16 @@ def against_plain(torch, eng, prompt, out, name, label):
             f"{ref_toks}")
     log(f"  [{name}] {label} vs force_ref(): prefill logits max_abs_err {err:.4g} "
         f"({err / scale_p:.3g} of max|logit|; bound {bound:.4g}; the plain path moves "
-        f"{max(sens_p) / scale_p:.3g} under {SENS_EPS:g} input perturbations); decode step "
+        f"{max(sens_p) / scale_p:.3g} under {SENS_EPS:g} input perturbations"
+        + (f", {max(sens_o) / scale_p:.3g} with every projection's output" if sens_o else "")
+        + f"); decode step "
         f"from a shared cache {step_err:.4g} ({step_err / scale:.3g}; bound {step_bound:.4g}; "
         f"the plain path moves {max(sens_s) / scale:.3g}); tokens equal over the first "
         f"{n_cmp} of 32 steps (plain top-2 gap bound {gap_bound:.3g}); all equal: "
         f"{rows_out == ref_toks}")
     return dict(logits_err=err, logits_bound=bound, logits_scale=scale_p,
-                logits_sensitivity=sens_p, step_err=step_err, step_bound=step_bound,
+                logits_sensitivity=sens_p, logits_sensitivity_proj_out=sens_o,
+                step_err=step_err, step_bound=step_bound,
                 step_scale=scale, step_sensitivity=sens_s, tokens_checked=n_cmp,
                 tokens_gap_bound=gap_bound, tokens_all_equal=rows_out == ref_toks,
                 min_gap=min(min(gr) for gr in gaps))
@@ -2567,25 +2682,27 @@ def norm_row_probe(torch, gen):
 
 @contextlib.contextmanager
 def proj_out_probe(torch, gen):
-    """Inside: each quantized projection's plain output (qmatmul_ref, which
-    the dispatch calls under force_ref()) scaled per element by (1 +
-    SENS_EPS N(0, 1)) from `gen` (None: not scaled). That is the form K2's
-    bf16 form's difference from plain takes: the same bf16 operands, exact
-    products, its f32 sums in another order; the next projection's and the
-    flash kernels' bf16 roundings of those values then flip alike."""
+    """Inside: each quantized projection's plain output (qmatmul_ref and
+    the int8 tier's qmatmul_i8_ref, which the dispatch calls under
+    force_ref()) scaled per element by (1 + SENS_EPS N(0, 1)) from `gen`
+    (None: not scaled). That is the form K2's bf16 form's and K1's
+    difference from plain takes: the same bf16 or int8 operands, exact
+    products, f32 sums in another order; the next projection's int8 or bf16
+    roundings, the cache's and the flash kernels' of those values then flip
+    alike, where an embedding perturbation is mostly rounded away first."""
     from zgml_tpu_torch.ops import qmatmul as qmm
-    plain = qmm.qmatmul_ref
+    plain, plain_i8 = qmm.qmatmul_ref, qmm.qmatmul_i8_ref
 
-    def scaled(x, w, bf16=False):
-        out = plain(x, w, bf16)
+    def moved(out):
         if gen is None:
             return out
         return out * (1 + SENS_EPS * torch.randn(out.shape, device=out.device, generator=gen))
-    qmm.qmatmul_ref = scaled
+    qmm.qmatmul_ref = lambda x, w, bf16=False: moved(plain(x, w, bf16))
+    qmm.qmatmul_i8_ref = lambda x, w: moved(plain_i8(x, w))
     try:
         yield
     finally:
-        qmm.qmatmul_ref = plain
+        qmm.qmatmul_ref, qmm.qmatmul_i8_ref = plain, plain_i8
 
 
 def grad_check(torch, tr, label, summary, norm_rows=False, proj_out=False):
@@ -2794,6 +2911,34 @@ def rates(torch, engines, prompt, long_prompt, card, summary):
                                           long_context=LONG_PROMPT,
                                           **{f"pp{LONG_PROMPT}_tok_s": LONG_PROMPT / pl_s,
                                              f"pp{LONG_PROMPT}_runs_s": pp_long})
+
+
+def batch4_rates(torch, engines4, prompt4, card, summary):
+    """tg32 of the batch-4 engines (BATCH4_PATHS: K8 in its f32-p mode on
+    kv8_tiny, its I8PV mode on kv8_i8pv) in turns, RATE_ROUNDS rounds there
+    and back: a 32-token decode_n of 4 rows after the prefill of `prompt4`
+    (4 rows, untimed), on the host clock around synchronized calls; the
+    median per path, in tokens/s of all 4 rows."""
+    runs = {name: [] for name in engines4}
+    order = list(engines4) + list(engines4)[::-1]
+    for _ in range(RATE_ROUNDS):
+        for name in order:
+            set_path(name)
+            eng = engines4[name]
+            eng.reset()
+            tok = torch.argmax(eng.prefill(prompt4), dim=-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.decode_n(tok, 32)
+            torch.cuda.synchronize()
+            runs[name].append(time.perf_counter() - t0)
+    for name, tg in runs.items():
+        tg_s = statistics.median(tg)
+        log(f"  [{name}] batch-4 tg32 after a {prompt4.shape[1]}-token prompt: "
+            f"{4 * 32 / tg_s:.1f} tok/s ({tg_s / 32 * 1e3:.3f} ms per step of 4 tokens; "
+            f"fastest turn {4 * 32 / min(tg):.1f})  [{card}]")
+        summary["rates"][name].update(batch4_tg32_tok_s=4 * 32 / tg_s, batch4_tg32_runs_s=tg,
+                                      batch4_prompt=prompt4.shape[1], batch4_order=order)
 
 
 def profile(torch, eng, prompt, long_prompt, name, summary):
@@ -3148,6 +3293,7 @@ def main() -> int:
                              ("ptxas_stack", "stack_decode_kernel"),
                              ("ptxas_planar", "ffn_planar"),
                              ("ptxas_decode", "decode_bf16_kernel"),
+                             ("ptxas_decode_q8", "decode_q8_kernel"),
                              ("ptxas_i8", "qi8_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
             for e in summary[key]:
@@ -3182,13 +3328,15 @@ def main() -> int:
                 f"K14 / K15 spill registers or use a stack frame (or no ptxas report): "
                 f"{spilled}")
         # K6b's tensor-core form, its CUDA-core form at 1 and 2 rows a group
-        # (ffn_planar_f32_kernel<1>, <2>) and K4: no spill; the CUDA-core form
+        # (ffn_planar_f32_kernel<1>, <2>), K4 and K8: no spill; the CUDA-core form
         # at 4 rows is K6d's MR 4 dot at the 96-register cap and is recorded,
         # as K6d's MR 4 is
         spilled = [e["entry"] for e in summary["ptxas_planar"] + summary["ptxas_decode"]
+                   + summary["ptxas_decode_q8"]
                    if e.get("spill_stores") and "f32_kernelILi4E" not in e["entry"]]
-        require(summary["ptxas_planar"] and summary["ptxas_decode"] and not spilled,
-                f"K6b / K4 spill registers (or no ptxas report): {spilled}")
+        require(summary["ptxas_planar"] and summary["ptxas_decode"]
+                and summary["ptxas_decode_q8"] and not spilled,
+                f"K6b / K4 / K8 spill registers (or no ptxas report): {spilled}")
         # K1 / K5 (every instantiation): no spill and no stack frame
         spilled = [e["entry"] for e in summary["ptxas_i8"]
                    if e.get("spill_stores") or e.get("stack")]
@@ -3198,7 +3346,7 @@ def main() -> int:
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")
     t0 = time.perf_counter()
-    checks = check_kernels(torch, dev)
+    checks = check_kernels(torch, dev, summary.get("ptxas_decode_q8", []))
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     log("== 3. end to end: TinyLlama-1.1B, the default and unfused paths at Q4_0, the "
@@ -3214,13 +3362,16 @@ def main() -> int:
             "TinyLlama-1.1B Q4_0: enable_stacked_decode / enable_tape_decode refused")
     rng = np.random.default_rng(SEED)
     vocab = min(m.cfg.vocab_size for m in models.values())
-    # the three greedy prompts, the long prompt, the batch-4 prompt
+    # the three greedy prompts, the long prompt, the batch-4 prompts
     prompts = [rng.integers(0, vocab, n) for n in (7, 128, 300, LONG_PROMPT)]
-    prompts.append(rng.integers(0, vocab, (4, 128)))
-    engines, launches = {}, {}
+    prompts.append({n: rng.integers(0, vocab, (4, n))
+                    for n in sorted(set(BATCH4_PATHS.values()))})
+    engines, engines4, launches = {}, {}, {}
     for name in PATHS:
-        engines[name], launches[name] = end_to_end(torch, models[PATH_MODEL[name]], prompts,
-                                                   name, summary)
+        engines[name], launches[name], eng4 = end_to_end(torch, models[PATH_MODEL[name]],
+                                                         prompts, name, summary)
+        if eng4 is not None:
+            engines4[name] = eng4
     kernel_switch_check(torch, tiny, prompts[1], summary)
     log(f"  phase 3 (inference) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3234,6 +3385,7 @@ def main() -> int:
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()
     rates(torch, engines, prompts[2], prompts[3], card, summary)
+    batch4_rates(torch, engines4, prompts[4][max(BATCH4_PATHS.values())], card, summary)
     for name, eng in engines.items():
         set_path(name)
         profile(torch, eng, prompts[2], prompts[3], name, summary)

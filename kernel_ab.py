@@ -7,6 +7,7 @@ default), each turn in its own process.
 
     python3 kernel_ab.py A_DIR B_DIR [--rounds N] [--gguf MODEL.gguf] [--decode] [--rates]
                          [--only K6b,K4,...] [--bits] [--prefill-bf16 0|1]
+                         [--splits 2,4,8,...]
 
 A_DIR and B_DIR are roots of checkouts (e.g. a `git archive` of the parent
 unpacked under build/, and `.`). Each process imports zgml_tpu_torch from its
@@ -27,7 +28,8 @@ and K6c at Llama-2-7B's at M = 1, 8, K6b at both models' FFN at M = 1, 4,
 7, 32, K4 at the smoke's cases over TinyLlama-1.1B's 22-layer bf16 cache
 (batch 1 at kv_len 1, 200, 2047, and batch 4 at chip_smoke.DECODE_BATCH_LENS),
 K8 at the smoke's (TinyLlama-1.1B batch 4, Llama-2-7B batch 1 at kv_len 200
-and 2047), and K14, K15 and K15 with f32 operands
+and 2047; in both its modes where the checkout has the ZGML_TPU_ATTN_I8PV
+one, "K8 i8pv ..."), and K14, K15 and K15 with f32 operands
 over TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4 at pos
 0, 1, 200 and 2047 (the smoke's megacall cases), K1 at the smoke's cases
 (chip_smoke.I8_ROWS on TinyLlama-1.1B's five projections at Q4_0 and Q8_0
@@ -57,7 +59,9 @@ hashes K8's and K1's outputs at fixed inputs (numpy-seeded: K8 at the
 smoke's cases and a batch with a kv_len 0 row, K1 at M = 1, 4, 8, 32 of
 TinyLlama-1.1B's wqkv and lm_head at both kinds, where --only names the
 family), and the hashes are compared: each side the same bits on every
-turn, and the two sides the same bits or not. --prefill-bf16 sets
+turn, and the two sides the same bits or not. --splits 2,4,... also times
+K8, in both modes where a checkout has the I8PV one, at each of those split
+counts in place of its plan's (through its C entry point). --prefill-bf16 sets
 ZGML_TPU_PREFILL_BF16 in every turn (default 1, the JAX default) and times
 K2, K3, K9 and K10 in the form a checkout's dispatch takes under it: the bf16
 forms where the checkout has them (a K2 call whose JAX row tile holds 32 rows
@@ -249,7 +253,13 @@ def decode_us(torch, dev, g, time_ms, smoke) -> dict:
         out[f"K4 B={len(lens_)} kv_len={lens_}"] = time_ms(
             torch, [lambda: decode_attention_cuda(q, kc, vc, lens, row)], 100)[0]
     del kc, vc
-    # K8 at the smoke's cases: TinyLlama-1.1B batch 4, Llama-2-7B batch 1
+    # K8 at the smoke's cases: TinyLlama-1.1B batch 4, Llama-2-7B batch 1; in
+    # its I8PV mode too where the checkout has it ("K8 i8pv ..."), and there
+    # with --splits at those split counts too ("... n_split=N")
+    modes = [("", {})] + ([("i8pv ", {"i8pv": True})] if "i8pv" in inspect.signature(
+        decode_attention_q8_cuda).parameters else [])
+    splits = ([int(n) for n in sys.argv[sys.argv.index("--splits") + 1].split(",")]
+              if "--splits" in sys.argv else [])
     for tag, (hq, hkv, hd), cases in (("", (32, 4, 64), smoke.KV8_DECODE_LENS),
                                       ("7B ", (32, 32, 128), smoke.KV8_DECODE_LENS_7B)):
         if not wanted("K8"):
@@ -262,8 +272,16 @@ def decode_us(torch, dev, g, time_ms, smoke) -> dict:
         for lens_ in cases:
             q = torch.randn((len(lens_), hq, 1, hd), device=dev, generator=g)
             lens = torch.tensor(lens_, dtype=torch.int32, device=dev)
-            out[f"K8 {tag}B={len(lens_)} kv_len={lens_}"] = time_ms(
-                torch, [lambda: decode_attention_q8_cuda(q, k8, ks, v8, vs, lens, 0)], 100)[0]
+            for mode, kw in modes:
+                def call(kw=kw):
+                    return decode_attention_q8_cuda(q, k8, ks, v8, vs, lens, 0, **kw)
+                out[f"K8 {mode}{tag}B={len(lens_)} kv_len={lens_}"] = time_ms(torch, [call],
+                                                                              100)[0]
+            for n_split in splits if len(modes) > 1 else ():
+                for mode, i8pv in (("", False), ("i8pv ", True)):
+                    out[f"K8 {mode}{tag}B={len(lens_)} kv_len={lens_} n_split={n_split}"] = \
+                        time_ms(torch, [k8_at_split(torch, q, k8, ks, v8, vs, lens, n_split,
+                                                    i8pv)], 100)[0]
         del k8, v8, ks, vs
     # K14, K15 and K15 with f32 operands (tape_f32) at the smoke's megacall
     # cases: TinyLlama-1.1B's 22 Q4_0 layers and Llama-2-7B's widths over 4
@@ -316,6 +334,27 @@ def decode_us(torch, dev, g, time_ms, smoke) -> dict:
     return out
 
 
+def k8_at_split(torch, q, k, ks, v, vs, lens, n_split: int, i8pv: bool):
+    """A call of K8 through its C entry point at n_split blocks per (batch
+    row, KV head) in place of its plan's (ops/attention.py decode_q8_splits),
+    over cache rows from 0."""
+    from zgml_tpu_torch.ops import attention, build, coop
+    lib = build.library()
+    b, hq, _, hd = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    part = torch.empty((b * hq, n_split, hd + 2), device=q.device)
+    words = coop.counter_words(q.device, b * hkv).data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        build.check(lib.zgml_decode_attention_q8(
+            q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
+            lens.data_ptr(), o.data_ptr(), part.data_ptr(), words, b, hq, hkv, s, hd, 0, n_split,
+            attention.k8_block(s), int(i8pv), 1.0 / hd ** 0.5, stream), "K8")
+    return call
+
+
 def k1_bits(torch, dev) -> dict:
     """sha256 of K1's output bytes at fixed numpy-seeded inputs, per case."""
     import hashlib
@@ -341,7 +380,8 @@ def k1_bits(torch, dev) -> dict:
 
 
 def k8_bits(torch, dev) -> dict:
-    """sha256 of K8's output bytes at fixed numpy-seeded inputs, per case."""
+    """sha256 of K8's output bytes at fixed numpy-seeded inputs, per case (and
+    per mode where the checkout has the I8PV one)."""
     import hashlib
 
     import numpy as np
@@ -356,10 +396,14 @@ def k8_bits(torch, dev) -> dict:
               .to(dev) for _ in range(2)]
         sc = [torch.from_numpy(rng.uniform(0.01, 0.02, (rows, hkv, 2048)).astype(np.float32))
               .to(dev) for _ in range(2)]
-        o = decode_attention_q8_cuda(q, lv[0], sc[0], lv[1], sc[1],
-                                     torch.tensor(lens, dtype=torch.int32, device=dev), 1)
-        out[f"K8 bits hd={hd} B={b} kv_len={lens}"] = hashlib.sha256(
-            o.cpu().numpy().tobytes()).hexdigest()
+        modes = [("", {})] + ([("i8pv ", {"i8pv": True})] if "i8pv" in inspect.signature(
+            decode_attention_q8_cuda).parameters else [])
+        for mode, kw in modes:
+            o = decode_attention_q8_cuda(q, lv[0], sc[0], lv[1], sc[1],
+                                         torch.tensor(lens, dtype=torch.int32, device=dev), 1,
+                                         **kw)
+            out[f"K8 {mode}bits hd={hd} B={b} kv_len={lens}"] = hashlib.sha256(
+                o.cpu().numpy().tobytes()).hexdigest()
     return out
 
 
@@ -503,6 +547,8 @@ def main() -> int:
                               + (["--rates"] if rates else [])
                               + (sys.argv[sys.argv.index("--only"):][:2]
                                  if "--only" in sys.argv else [])
+                              + (sys.argv[sys.argv.index("--splits"):][:2]
+                                 if "--splits" in sys.argv else [])
                               + (["--bits"] if "--bits" in sys.argv else []),
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
@@ -510,7 +556,14 @@ def main() -> int:
         runs[side].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         print(side, proc.stdout.strip().splitlines()[-1], flush=True)
     print(card, "ZGML_TPU_PREFILL_BF16=" + os.environ.get("ZGML_TPU_PREFILL_BF16", "1"))
-    for case in runs[a][0]:
+    for case in dict.fromkeys([*runs[a][0], *runs[b][0]]):
+        sides = [side for side in (a, b) if case in runs[side][0]]
+        if len(sides) == 1:                         # a case one checkout lacks (a new mode)
+            vals = [r[case] for r in runs[sides[0]]]
+            shown = (f"{statistics.median(vals):8.1f} us" if not isinstance(vals[0], str)
+                     else f"{len(set(vals))} distinct bits over its turns")
+            print(f"{case:58s} only {sides[0]}: {shown}")
+            continue
         if isinstance(runs[a][0][case], str):       # --bits: a hash a turn
             sa, sb = {r[case] for r in runs[a]}, {r[case] for r in runs[b]}
             if len(sa) == 1 and len(sb) == 1:

@@ -22,7 +22,9 @@ in another order: the plain version runs on the kernel's own activations
 (act_out / act), and those may differ from the plain pre-pass by one level in
 at most 1% of the values. The int8-cache kernels (K8, K9, K7's kv8 mode) hold
 1e-5 against their plain versions on the same int8 cache (K8 quantizes q in
-the kernel bit-equal to the plain quantize_columns; K7-kv8's plain version
+the kernel bit-equal to the plain quantize_columns; its ZGML_TPU_ATTN_I8PV
+mode against the plain version of its split plan, or the flips a few-ulp
+move of the score scale causes there; K7-kv8's plain version
 runs on the kernel's own quantized q, q8_out / q8, whose levels may sit one
 apart from the plain ones), and K7-kv8's cache row pos is quantize_columns
 of the kernel's own k_cur / v_cur bit for bit. Training: K10f's O equals K3's
@@ -45,6 +47,7 @@ import torch
 from zgml_tpu_torch.ops import dispatch, refs
 from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_q8_cuda,
                                           decode_attention_q8_ref, decode_attention_ref,
+                                          decode_q8_splits,
                                           flash_attention_cuda, flash_attention_q8_cuda,
                                           flash_attention_q8_ref, flash_attention_ref)
 from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda, fused_ffn_norm_ref,
@@ -481,25 +484,52 @@ def test_flash_attention_q8(cuda, b, hq, hkv, tq, rows, s, d, kv_len, q_off, kv_
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("i8pv", [False, True], ids=["f32p", "i8pv"])
 @pytest.mark.parametrize("b,hq,hkv,rows,s,d,kv_len,kv_row", [
     (4, 32, 4, 88, 2048, 64, [1, 200, 2047, 1000], 8),   # TinyLlama batch 4, layer 2
+    (4, 32, 4, 88, 2048, 64, [256, 257, 513, 0], 4),     # JAX-block edges, a row of no key
     (1, 32, 32, 4, 2048, 128, [2047], 3),                # Llama-2-7B
+    (1, 32, 32, 4, 2048, 128, [200], 0),
     (2, 8, 2, 3, 256, 128, [129, 5], 1),
     (2, 4, 4, 2, 64, 16, [0, 64], 0),
+    (2, 8, 2, 2, 200, 64, [200, 77], 0),                 # one JAX block of 200
+    (2, 4, 2, 3, 300, 32, [300, 129], 1),                # blocks of 128 over S 300
+    (1, 4, 4, 1, 384, 128, [333], 0),                    # blocks of 128 over S 384
 ])
-def test_decode_attention_q8(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row):
-    """K8: q quantized per query head in the kernel, per-row kv_len."""
+def test_decode_attention_q8(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row, i8pv):
+    """K8 in one launch, q quantized per query head in the kernel, per-row
+    kv_len, in both modes: against the plain version of its launch plan
+    (the I8PV mode: each split's running max from its first JAX block)
+    within 1e-5 * max|o|, or in the I8PV mode 2 x the plain version's own
+    move under a 2^-20 / 2^-18 move of its score scale (a p * v_scale /
+    psc at a half rounds to the other level), the larger; two launches
+    bit-equal; a kv_len 0 row gives 0."""
     rng = np.random.default_rng(sum(kv_len) + d + 4)
     q = torch.from_numpy(rng.standard_normal((b, hq, 1, d)).astype(np.float32)).to(cuda)
     k, ks = _q8_cache(rng, (rows, hkv, s, d), cuda)
     v, vs = _q8_cache(rng, (rows, hkv, s, d), cuda)
     lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    n_split = decode_q8_splits(b, hkv, s, d, torch.cuda.get_device_properties(cuda)
+                               .multi_processor_count, i8pv)
     global_profile.reset()
-    got = decode_attention_q8_cuda(q, k, ks, v, vs, lens, kv_row)
-    want = decode_attention_q8_ref(q, k, ks, v, vs, lens, kv_row)
+    got = decode_attention_q8_cuda(q, k, ks, v, vs, lens, kv_row, i8pv)
+    again = decode_attention_q8_cuda(q, k, ks, v, vs, lens, kv_row, i8pv)
+
+    def plain(scale=None):
+        return decode_attention_q8_ref(q, k, ks, v, vs, lens, kv_row, i8pv, split=n_split,
+                                       scale=scale)
+    want = plain()
+    move = max(float((plain((1 + e) / d ** 0.5) - want).abs().max())
+               for e in (2.0 ** -20, -2.0 ** -20, 2.0 ** -18, -2.0 ** -18)) if i8pv else 0.0
     torch.cuda.synchronize()
-    assert global_profile.tier_summary() == {"decode_attention_q8": {"cuda": 1}}
-    _close(got, want)
+    name = "decode_attention_q8_i8pv" if i8pv else "decode_attention_q8"
+    assert global_profile.tier_summary() == {name: {"cuda": 2}}
+    err, mx = float((got - want).abs().max()), float(want.abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= max(1e-5 * mx, 2 * move), (err, mx, move)
+    assert torch.equal(got, again)
+    for i, n in enumerate(kv_len):
+        if n == 0:
+            assert not got[i].any()
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -15,7 +15,25 @@ sides); the whole slice at the d 512 / 8-2 heads / 2-layer config within the
 int8 tier's flip-aware 1e-2 * max|logit| (ROADMAP C: a 1e-7 perturbation
 moves such a model by up to 7.5e-3), and one decode step from a cache
 carried over from JAX (cache_from_jax) within 1e-5 * max|logit|.
+
+K8's ZGML_TPU_ATTN_I8PV mode (p * v_scale quantized to int8 per JAX block,
+`decode_attention_q8_pallas(pq_i8=True)`) is held to 1e-5 * max|out| too:
+both sides round the same f32 values (the integer P.V is exact on both), and
+where exp of the two CPU libraries put p * v_scale / psc on the two sides
+of a half a level would flip; none does on these inputs (measured <= 2e-7
+of max|out|). Its plain version must leave the f32-p function, and p
+quantized per 32 keys, by at least 10x that tolerance, so neither shortcut
+passes. Its slice run (the flag set before JAX first traces the forward)
+holds the int8 tier's bounds above; and again at the JAX default
+ZGML_TPU_PREFILL_BF16 (K2's and K9's bf16 forms write the int8 cache),
+where the bounds are flip-aware: each the larger of 1e-2 * max|logit| and
+2 x the port's own move under 1e-7 perturbations of the embedding (there
+the bf16 K and V cross int8 rounding edges: the port's steps move by up to
+1.1e-2 of max|logit| under them, and sit 1.09e-2 from JAX's).
 """
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +41,7 @@ import torch
 
 from zgml_tpu.io.llama_loader import load_llama as jax_load_llama
 from zgml_tpu.models.llama import LlamaConfig as JaxConfig
+from zgml_tpu.ops import attention as jattn
 from zgml_tpu.ops import dispatch as jops
 from zgml_tpu.ops import refs as jrefs
 from zgml_tpu.ops.attention import decode_attention_q8_pallas, flash_attention_q8_pallas
@@ -32,7 +51,7 @@ from zgml_tpu.runtime.engine import LlamaEngine as JaxEngine
 
 from zgml_tpu_torch.io.llama_loader import load_llama
 from zgml_tpu_torch.models.llama import LlamaConfig
-from zgml_tpu_torch.ops import dispatch, refs
+from zgml_tpu_torch.ops import attention, dispatch, refs
 from zgml_tpu_torch.quant import kv_cache, packed
 from zgml_tpu_torch.runtime.engine import LlamaEngine
 from zgml_tpu_torch.runtime.profile import global_profile
@@ -44,6 +63,7 @@ FLAGS = {"ZGML_TPU_SCALES": "f16", "ZGML_TPU_PREFILL_BF16": "0", "ZGML_TPU_ATTN_
          "ZGML_TPU_FFN_I8A": "0", "ZGML_TPU_ATTN_I8PV": "0"}
 RTOL = 1e-5                # kernel functions on shared inputs
 I8_RTOL = 1e-2             # whole-model int8 tier (ROADMAP C)
+SENS_MARGIN = 2.0          # x the port's own move, where a bound is flip-aware
 KV8_CFG = LlamaConfig(vocab_size=96, d_model=512, n_heads=8, n_kv_heads=2, d_ff=1024,
                       n_layers=2, max_seq_len=256)
 PROMPT_LEN, N_STEPS = 20, 4
@@ -126,7 +146,9 @@ DECODE_CASES = [
     (2, 8, 2, 2, 512, 64, [300, 512], 0),      # GQA
     (2, 4, 4, 2, 768, 64, [1, 700], 0),        # MHA
     (2, 8, 2, 3, 256, 32, [0, 129], 1),        # kv_row > 0; a row with no live key
-    (1, 4, 4, 1, 384, 128, [333], 0),          # head_dim 128
+    (1, 4, 4, 1, 384, 128, [333], 0),          # head_dim 128; blocks of 128 (384 % 256)
+    (2, 8, 2, 2, 200, 64, [200, 77], 0),       # S 200: one block of 200
+    (2, 4, 2, 3, 300, 32, [300, 129], 1),      # S 300: blocks of 128, the cache padded
 ]
 
 
@@ -142,6 +164,91 @@ def test_decode_q8_plain_matches_jax_kernel(flags, b, hq, hkv, rows, s, d, kv_le
                                        kv_row=kv_row)
     assert global_profile.tier_summary() == {"decode_attention_q8": {"ref": 1}}
     _close(got.numpy(), want)
+
+
+def _q8_case(b, hq, hkv, rows, s, d, kv_len, kv_row):
+    """The inputs of a DECODE_CASES entry: (q, JAX K / V columns of the
+    query rows, the port's (levels, scales) of K and V, lens)."""
+    q, (kq, ks), (vq, vs), pk, pv = _q8_inputs(s + d + b, b, hq, hkv, 1, rows, s, d)
+    sl = slice(kv_row, kv_row + b)
+    return q, (kq[sl], ks[sl], vq[sl], vs[sl]), (*pk, *pv), np.asarray(kv_len, np.int32)
+
+
+@pytest.mark.parametrize("b,hq,hkv,rows,s,d,kv_len,kv_row", DECODE_CASES)
+def test_decode_q8_i8pv_plain_matches_jax_kernel(flags, b, hq, hkv, rows, s, d, kv_len, kv_row):
+    """ZGML_TPU_ATTN_I8PV=1: the port's plain K8 in its int8 P.V mode (through
+    the dispatch, counted under decode_attention_q8_i8pv) against the JAX
+    Pallas kernel at pq_i8=True, per JAX block of k8_block(S) keys."""
+    flags.setenv("ZGML_TPU_ATTN_I8PV", "1")
+    q, jcols, pcols, lens = _q8_case(b, hq, hkv, rows, s, d, kv_len, kv_row)
+    want = np.asarray(decode_attention_q8_pallas(jnp.asarray(q), *jcols, jnp.asarray(lens),
+                                                 pq_i8=True))
+    global_profile.reset()
+    got = dispatch.decode_attention_q8(torch.from_numpy(q), *pcols, torch.from_numpy(lens),
+                                       kv_row=kv_row)
+    assert global_profile.tier_summary() == {"decode_attention_q8_i8pv": {"ref": 1}}
+    _close(got.numpy(), want)
+    for row, n in enumerate(kv_len):
+        if n == 0:
+            assert not got[row].any()
+
+
+def _i8pv_gap(case, **other):
+    """max|I8PV - other| / max|I8PV| of the plain K8 on a DECODE_CASES entry,
+    `other` the plain version's keywords of the function compared with."""
+    b, hq, hkv, rows, s, d, kv_len, kv_row = case
+    q, _, pcols, lens = _q8_case(*case)
+    args = (torch.from_numpy(q), *pcols, torch.from_numpy(lens), kv_row)
+    i8pv = attention.decode_attention_q8_ref(*args, i8pv=True).numpy()
+    return np.abs(i8pv - attention.decode_attention_q8_ref(*args, **other).numpy()).max() / (
+        np.abs(i8pv).max())
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_q8_i8pv_is_not_the_f32p_function(case):
+    """The I8PV plain version leaves the f32-p function (p * v_scale in f32)
+    by at least 10x the 1e-5 tolerance it meets against JAX."""
+    assert _i8pv_gap(case, i8pv=False) >= 10 * RTOL
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_q8_i8pv_is_not_p_quantized_per_32_keys(case):
+    """The same margin against p quantized per 32 keys (a warp's group):
+    the quantization group is the whole JAX block (256, 128, or S keys)."""
+    assert _i8pv_gap(case, i8pv=True, block=32) >= 10 * RTOL
+
+
+def _jax_block_rule(s: int, bs: int = 256) -> int:
+    """zgml_tpu/ops/attention.py:536-545, bs_eff of decode_attention_q8_pallas."""
+    bs_eff = min(bs, s)
+    while bs_eff >= 256 and s % bs_eff:
+        bs_eff //= 2
+    if s % bs_eff:
+        bs_eff = min(bs, 128)
+    return bs_eff
+
+
+def test_k8_block_follows_jax(monkeypatch):
+    """attention.k8_block(S) is the JAX kernel's block for every S in 1..2100
+    (the rule of attention.py:536-545), and at a few S the block the JAX
+    wrapper itself hands its kernel (the kernel stubbed out): 256 at 2048,
+    128 at 300 (the cache padded to 384) and 384, S below 256."""
+    assert all(attention.k8_block(s) == _jax_block_rule(s) for s in range(1, 2101))
+    assert (attention.k8_block(2048), attention.k8_block(300), attention.k8_block(384),
+            attention.k8_block(200)) == (256, 128, 128, 200)
+    seen = {}
+
+    def stub(qq, qs, kq, ks, vq, vs, kv_len, *, hkv, bs, scale, pq_i8, dyn=True):
+        seen[kq.shape[-1]] = bs
+        return jnp.zeros(qq.shape, jnp.float32)
+    monkeypatch.setattr(jattn, "_decode_q8", stub)
+    q = jnp.zeros((1, 1, 1, 16))
+    for s in (1, 64, 200, 256, 300, 384, 1000, 2048, 2100):
+        seen.clear()
+        z, sc = jnp.zeros((1, 1, 16, s), jnp.int8), jnp.zeros((1, 1, s))
+        decode_attention_q8_pallas(q, z, sc, z, sc, 1, pq_i8=True)
+        (padded, bs), = seen.items()
+        assert bs == attention.k8_block(s) and padded == -(-s // bs) * bs, (s, seen)
 
 
 def test_plain_k8_is_the_kernels_function_not_the_ref_tier(flags):
@@ -262,14 +369,15 @@ def _gap(logits) -> float:
     return float(top2[1] - top2[0])
 
 
-def _slice_run(path, batch, chunk):
+def _slice_run(path, batch, chunk, cfg=KV8_CFG, prompt_len=PROMPT_LEN, flags=FLAGS):
     """JAX LlamaEngine(cache_dtype="int8") and the port's on one prompt per
-    row: the prefill logits, the JAX cache after it, then N_STEPS greedy
-    steps on the JAX side and the port fed the same tokens; the port also
-    steps once from the JAX cache carried over by cache_from_jax."""
-    prompt = np.random.default_rng(9).integers(0, KV8_CFG.vocab_size, (batch, PROMPT_LEN))
+    row, under `flags` on both sides (set before JAX traces the forward):
+    the prefill logits, the JAX cache after it, then N_STEPS greedy steps on
+    the JAX side and the port fed the same tokens; the port also steps once
+    from the JAX cache carried over by cache_from_jax."""
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, (batch, prompt_len))
     with pytest.MonkeyPatch.context() as mp:
-        for k, v in FLAGS.items():
+        for k, v in flags.items():
             mp.setenv(k, v)
         jmodel, jgf = jax_load_llama(path)
         jgf.close()
@@ -297,7 +405,34 @@ def _slice_run(path, batch, chunk):
         for k, v in kv_cache.cache_from_jax(jcache).items():
             peng.cache[k].copy_(v)
         carried = peng.step(torch.from_numpy(feed[0].astype(np.int64)))[1].numpy()
-    return dict(jax=(jlogits, jstep), port=(plogits, pstep), carried=carried, tiers=tiers)
+    return dict(jax=(jlogits, jstep), port=(plogits, pstep), carried=carried, tiers=tiers,
+                prompt=prompt, feed=feed)
+
+
+def _port_moves(path, batch, chunk, prompt, feed, flags, draws=4, eps=1e-7):
+    """How far the port's own prefill logits and decode steps (fed `feed`)
+    move, relative to their max|logit|, when tok_embd is scaled by (1 + eps
+    N(0, 1)), the largest over `draws` seeded draws: (prefill, steps)."""
+    def run(model):
+        eng = LlamaEngine(model, batch=batch, prefill_chunk=chunk, cache_dtype="int8")
+        return [eng.prefill(prompt).numpy()] + [
+            eng.step(torch.from_numpy(t.astype(np.int64)))[1].numpy() for t in feed]
+
+    def rel(a, b):
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in flags.items():
+            mp.setenv(k, v)
+        model, gf = load_llama(path, device="cpu")
+        gf.close()
+        base, emb = run(model), model.params["tok_embd"].clone()
+        g, moves = torch.Generator().manual_seed(0), [0.0, 0.0]
+        for _ in range(draws):
+            model.params["tok_embd"].copy_(emb * (1 + eps * torch.randn(emb.shape, generator=g)))
+            out = run(model)
+            moves = [max(moves[0], rel(out[0], base[0])),
+                     max([moves[1]] + [rel(a, b) for a, b in zip(out[1:], base[1:])])]
+    return moves
 
 
 @pytest.fixture(scope="module", params=[(1, 16), (2, 16), (1, 128), (2, 128)],
@@ -319,12 +454,16 @@ def test_kv8_steps_and_greedy_tokens_match_jax(kv8_runs):
     greedy tokens equal to JAX's up to the first step whose JAX top-2 gap is
     under that bound."""
     _, runs = kv8_runs
+    _steps_and_tokens_match(runs)
+
+
+def _steps_and_tokens_match(runs, rtol=I8_RTOL):
     jstep, pstep = runs["jax"][1], runs["port"][1]
     for got, want in zip(pstep, jstep):
-        _close(got, want, I8_RTOL)
+        _close(got, want, rtol)
     for row in range(jstep[0].shape[0]):
         for got, want in zip(pstep, jstep):
-            if _gap(want[row]) < I8_RTOL * np.max(np.abs(want[row])):
+            if _gap(want[row]) < rtol * np.max(np.abs(want[row])):
                 break
             assert np.argmax(got[row]) == np.argmax(want[row])
 
@@ -350,18 +489,75 @@ def test_kv8_run_takes_the_int8_cache_kernels(kv8_runs):
                              "attn_block_kv8" if batch > 1 else "decode_attention_q8"}, tiers
 
 
-def test_attn_i8pv_is_refused(kv8_model, flags):
-    """ZGML_TPU_ATTN_I8PV=1 (K8's int8 P.V mode, not ported) raises an error
-    that names the flag, at the cache and at K8; it is never computed as the
-    f32-p function."""
-    flags.setenv("ZGML_TPU_ATTN_I8PV", "1")
+def test_init_cache_refuses_other_dtypes(kv8_model):
+    """A cache dtype other than "bf16" or "int8" raises, naming both."""
     model, gf = load_llama(kv8_model, device="cpu")
     gf.close()
-    with pytest.raises(NotImplementedError, match="ZGML_TPU_ATTN_I8PV"):
-        LlamaEngine(model, cache_dtype="int8")
-    q = torch.zeros(1, 2, 1, 16)
-    kv, sc = torch.zeros(1, 1, 8, 16, dtype=torch.int8), torch.ones(1, 1, 8)
-    with pytest.raises(NotImplementedError, match="ZGML_TPU_ATTN_I8PV"):
-        dispatch.decode_attention_q8(q, kv, sc, kv, sc, 4)
     with pytest.raises(ValueError, match="'bf16' or 'int8'"):
         model.init_cache(1, "fp8")
+
+
+# ---- the slice under ZGML_TPU_ATTN_I8PV=1 ----------------------------------------------
+
+# the d 512 config with max_seq_len 384 (K8's blocks are 128 keys) and a
+# 140-token prompt: prefill in chunks of 128 (K9), batch-2 decode through
+# K8's I8PV mode over JAX blocks 0 and 1; under FLAGS, and at the JAX
+# default ZGML_TPU_PREFILL_BF16 (K9's and K2's bf16 forms over the int8
+# cache, which the flag itself leaves alone)
+I8PV_CFG = dataclasses.replace(KV8_CFG, max_seq_len=384)
+I8PV_PROMPT = 140
+I8PV_FLAGS = {**FLAGS, "ZGML_TPU_ATTN_I8PV": "1"}
+I8PV_BF16_FLAGS = {**I8PV_FLAGS, "ZGML_TPU_PREFILL_BF16": "1"}
+
+
+@pytest.fixture(scope="module", params=[I8PV_FLAGS, I8PV_BF16_FLAGS],
+                ids=["prefill-f32", "prefill-bf16"])
+def i8pv_run(request, tmp_path_factory):
+    assert attention.k8_block(I8PV_CFG.max_seq_len) == 128
+    path = str(tmp_path_factory.mktemp("torch_kv8_i8pv") / "d512_s384_q4.gguf")
+    write_synthetic_llama_gguf(path, I8PV_CFG, seed=24)
+    jax.clear_caches()          # the JAX forward reads the flags when it traces
+    run = _slice_run(path, 2, 128, I8PV_CFG, I8PV_PROMPT, request.param)
+    run["bf16"] = request.param["ZGML_TPU_PREFILL_BF16"] == "1"
+    # at the bf16 prefill the cache's int8 levels of bf16-form K and V flip
+    # under sums in another order: its bounds are flip-aware
+    moves = (_port_moves(path, 2, 128, run["prompt"], run["feed"], request.param)
+             if run["bf16"] else (0.0, 0.0))
+    run["rtol"] = [max(I8_RTOL, SENS_MARGIN * m) for m in moves]
+    return run
+
+
+def test_i8pv_prefill_logits_match_jax(i8pv_run):
+    """The prefill (K9, which the flag does not change; in its bf16 form at
+    the default ZGML_TPU_PREFILL_BF16) within the int8 tier's 1e-2 *
+    max|logit|, at the bf16 prefill or SENS_MARGIN x the port's own move
+    under 1e-7 embedding perturbations, the larger."""
+    _close(i8pv_run["port"][0], i8pv_run["jax"][0], i8pv_run["rtol"][0])
+
+
+def test_i8pv_steps_and_greedy_tokens_match_jax(i8pv_run):
+    """The batch-2 decode steps through K8's I8PV mode on both sides: each
+    step's logits within 1e-2 * max|logit| (at the bf16 prefill, or
+    SENS_MARGIN x the port's own move, the larger), the greedy tokens equal
+    as in test_kv8_steps_and_greedy_tokens_match_jax."""
+    _steps_and_tokens_match(i8pv_run, i8pv_run["rtol"][1])
+
+
+def test_i8pv_step_from_carried_cache_matches_jax(i8pv_run):
+    """One I8PV decode step from the JAX int8 cache carried over: the same
+    inputs on both sides, within 1e-5 * max|logit|."""
+    _close(i8pv_run["carried"], i8pv_run["jax"][1][0])
+
+
+def test_i8pv_run_takes_k8_i8pv(i8pv_run):
+    """Placement under the flag: prefill K9 (2 chunks a layer; its bf16 form
+    at the default ZGML_TPU_PREFILL_BF16), decode K8's I8PV mode once a
+    layer a step, and no f32-p K8 or bf16-cache kernel."""
+    tiers, n_layers = i8pv_run["tiers"], I8PV_CFG.n_layers
+    k9, other = "flash_attention_q8_bf16", "flash_attention_q8"
+    if not i8pv_run["bf16"]:
+        k9, other = other, k9
+    assert tiers[k9] == {"ref": 2 * n_layers}
+    assert tiers["decode_attention_q8_i8pv"] == {"ref": N_STEPS * n_layers}
+    assert not set(tiers) & {"decode_attention_q8", "attention", "decode_attention",
+                             "attn_block", "attn_block_kv8", other}, tiers

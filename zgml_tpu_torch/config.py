@@ -22,8 +22,8 @@ its defaults, read at call time (the port is eager):
                                                        the padded width dp >= 4096)
   ZGML_TPU_FFN_I8A=0|1            ffn_i8a(dp)          K6c, the Q4_0 decode FFN with int8
                                                        gate|up (default: on where dp >= 4096)
-  ZGML_TPU_ATTN_I8PV=1            refuse_attn_i8pv()   K8's int8 P.V mode (default off): not
-                                                       ported, so an int8-cache run refuses it
+  ZGML_TPU_ATTN_I8PV=1            attn_i8pv()          K8's int8 P.V mode (default off): p
+                                                       quantized per JAX key block
   ZGML_TPU_LAYER_FFN=1            layer_ffn()          the FFN as K7's phase E (default off):
                                                        the port runs its function, K6d's
   ZGML_TPU_STACK_DECODE=1         stack_decode()       batch-1 decode through K14, one launch
@@ -198,16 +198,11 @@ def tape_bf16() -> bool:
     return _flag("ZGML_TPU_TAPE_BF16", "1")
 
 
-def refuse_attn_i8pv():
-    """Raise where ZGML_TPU_ATTN_I8PV=1 asks for K8's int8 P.V mode (p
-    quantized per 256-position block, zgml_tpu/ops/attention.py:440-448;
-    zgml_tpu/config.py:177-181 reads only "1" as on). The port has no such
-    mode, and computing the f32-p function under the flag would be another
-    function than the JAX package's."""
-    if os.environ.get("ZGML_TPU_ATTN_I8PV", "0") == "1":
-        raise NotImplementedError(
-            "ZGML_TPU_ATTN_I8PV=1: K8's int8 P.V mode is not ported to zgml_tpu_torch "
-            "(unset it, or set it to 0, for the default f32 P.V over the int8 cache)")
+def attn_i8pv() -> bool:
+    """K8's int8 P.V mode (zgml_tpu/config.py:177-181; attention.py:440-448):
+    p * v_scale quantized to int8 per JAX key block, an integer P.V. Read per
+    call; only "1" turns it on, as in the JAX package."""
+    return os.environ.get("ZGML_TPU_ATTN_I8PV", "0") == "1"
 
 
 def prefill_bf16() -> bool:

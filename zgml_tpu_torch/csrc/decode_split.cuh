@@ -1,6 +1,8 @@
 // Split-KV decode attention over one 128-key chunk of one KV head: the device
-// code K8 (decode_attn.cu) runs once per block and K7's phase B
-// (layer_attn.cu) runs in a loop over (KV head, chunk) items.
+// code K7's phase B (layer_attn.cu, and the megacalls through
+// layer_phases.cuh) runs in a loop over (KV head, chunk) items; the first
+// port's K8 ran it once per block (K8 has its own kernel in decode_attn.cu,
+// which takes quantize_vec from here).
 //
 // The n_rep query heads of one GQA group attend keys 0..nk-1 of the chunk
 // (nk in 1..DA_CHUNK) from one shared-memory copy of its K and V, and write
@@ -12,7 +14,7 @@
 //
 // Two cache elements, one template parameter T:
 //   bf16 (K7, K14):    f32 scores q . k * scale, p @ V in f32;
-//   int8 (K8, K7-kv8): the position-major int8 cache with one f32 scale per
+//   int8 (K7-kv8):     the position-major int8 cache with one f32 scale per
 //     position (zgml_tpu_torch/quant/kv_cache.py). The block quantizes the
 //     group's f32 q rows itself (quantize_vec: absmax/127 per query head,
 //     as zgml_tpu/ops/attention.py:529-533 and layerkernel.py:223-232), takes

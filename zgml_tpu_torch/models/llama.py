@@ -281,7 +281,6 @@ class LlamaModel(torch.nn.Module):
         c = self.cfg
         shape = (c.n_layers, batch, c.n_kv_heads, c.max_seq_len, c.head_dim)
         if dtype == "int8":
-            config.refuse_attn_i8pv()
             return kv_cache.init_cache(*shape, device=self.device)
         if dtype != "bf16":
             raise ValueError(f"cache dtype {dtype!r}: want 'bf16' or 'int8'")

@@ -23,6 +23,16 @@ q.k dots, K9 keeps q f32 in its f32 form (ZGML_TPU_PREFILL_BF16=0); both
 fold the per-position scales into the scores and into p.
 Callers go through ``ops.dispatch``.
 
+K8 has a second function under ZGML_TPU_ATTN_I8PV=1 (config.attn_i8pv(),
+attention.py:384-392, 440-448): per JAX key block of ``k8_block(S)`` keys
+the running max steps to the block's, p * v_scale is quantized to int8
+against the block's own max (psc = max / 127, pq = round-half-even(pv /
+psc)), P.V runs exactly in integers and the block adds o_i32 * psc; l is
+the sum of the unrounded p. ``decode_attention_q8_ref(i8pv=True)`` is it,
+with ``split``: the plain version of the kernel's plan (each split's
+running max from its first block, then the merge); the launches count
+under decode_attention_q8_i8pv.
+
 Under ZGML_TPU_PREFILL_BF16 (config.prefill_bf16(), default on) K3, K9 and
 K10f take their bf16 form, the JAX kernels' function at bf16=True
 (attention.py:77-104, 625-644; flash_vjp.py:60-84): scores from bf16(q)
@@ -89,6 +99,14 @@ def flash_group(s: int, kv8: bool) -> int:
     while bk >= 16 and s % bk:
         bk //= 2
     return bk if s % bk == 0 else 128
+
+
+def k8_block(s: int) -> int:
+    """Keys of one JAX block of K8 over a cache of s positions, the unit its
+    I8PV mode quantizes p against (bs_eff, attention.py:536-545, bs 256):
+    256 where 256 divides s, s below 256, else 128 over the cache padded up
+    (the padded keys are masked); K9's tile takes the same rule."""
+    return flash_group(s, kv8=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,23 +291,72 @@ def _rows(kv_row: int, b: int, *tensors):
     return [t[kv_row:kv_row + b] for t in tensors]
 
 
-def decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row: int = 0):
+def decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row: int = 0, i8pv: bool = False,
+                            split: int | None = None, scale: float | None = None,
+                            block: int | None = None):
     """K8's function: one query token per batch row over the int8 cache
     prefix j < kv_len[b]. q is quantized per query head as the kernel does
     (quantize_columns over d), the scores are the exact integer dots times
-    q_scale * k_scale * 1/sqrt(d) (attention.py:425-426), and P.V runs in
-    f32 on the int8 levels with the V scales folded into p."""
+    q_scale * k_scale * `scale` (1/sqrt(d) where None; attention.py:425-426).
+    f32-p (i8pv False): P.V in f32 on the int8 levels with the V scales
+    folded into p. i8pv: the ZGML_TPU_ATTN_I8PV function (the module note)
+    over JAX blocks of `block` keys (k8_block(S) where None), the row's
+    blocks cut into `split` parts as the kernel's plan cuts them
+    (decode_plan.decode_split_keys in whole blocks; one where None, JAX's
+    function), each with its own running max, merged as combine_partials_ref."""
     b, hq, _, d = q.shape
     k, ks, v, vs = _rows(kv_row, b, k, ks, v, vs)
     hkv, s = k.shape[1], k.shape[2]
     qq, qs = quantize_columns(q.reshape(b, hkv, hq // hkv, d))     # [B, Hkv, n_rep, d]
     # integers below 2^24 (|level| <= 127, d <= 256): exact in f32 in any order
     dots = torch.einsum("bgrd,bgsd->bgrs", qq.to(torch.float32), k.to(torch.float32))
-    sc = qs[..., None] * ks[:, :, None, :] * (1.0 / d ** 0.5)
-    lens = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1, 1)
-    live = torch.arange(s, device=q.device)[None, None, None, :] < lens
-    scores = torch.where(live, dots * sc, torch.full_like(dots, float("-inf")))
-    return softmax_pv(scores, v, vs).reshape(b, hq, 1, d)
+    sc = qs[..., None] * ks[:, :, None, :] * (scale or 1.0 / d ** 0.5)
+    lens = torch.clamp(torch.as_tensor(kv_len, device=q.device).reshape(-1), 0, s)
+    lens = lens.expand(b).reshape(b, 1, 1, 1)
+    ki = torch.arange(s, device=q.device)[None, None, None, :]
+    scores = torch.where(ki < lens, dots * sc, torch.full_like(dots, float("-inf")))
+    if not i8pv:
+        return softmax_pv(scores, v, vs).reshape(b, hq, 1, d)
+    bs, n_split = block or k8_block(s), split or 1
+    n_blk = -(-lens // bs)                                        # the row's live blocks
+    parts = []
+    for si in range(n_split):
+        lo = torch.minimum(si * n_blk // n_split * bs, lens)
+        hi = torch.minimum((si + 1) * n_blk // n_split * bs, lens)
+        mine = torch.where((ki >= lo) & (ki < hi), scores, torch.full_like(scores, float("-inf")))
+        parts.append(_i8pv_blocks(mine, v, vs, bs))
+    o, _ = combine_partials_ref(*(torch.stack(x) for x in zip(*parts)))
+    return o.reshape(b, hq, 1, d)
+
+
+def _i8pv_blocks(scores, v, vs, bs: int):
+    """The I8PV online pass over keys [0, S) in blocks of bs (a key of
+    score -inf adds nothing, a block without a live key leaves the state as
+    it was): scores [B, Hkv, R, S] f32, v [B, Hkv, S, d] int8 levels, vs
+    [B, Hkv, S] -> (o [B, Hkv, R, d] unnormalised, m [B, Hkv, R] (-inf where
+    no key is live), l [B, Hkv, R]), as attention.py:428-448 per block."""
+    s_len = scores.shape[-1]
+    m = torch.full(scores.shape[:-1], float("-inf"), device=scores.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*m.shape, v.shape[-1]), device=scores.device)
+    for t0 in range(0, s_len, bs):
+        st = scores[..., t0:t0 + bs]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        live = torch.isfinite(m_new)
+        mu = torch.where(live, m_new, torch.zeros_like(m_new))
+        alpha = torch.where(live, torch.exp(m - mu), torch.zeros_like(mu))
+        p = torch.exp(st - mu[..., None])                            # masked: exp(-inf) = 0
+        l = l * alpha + p.sum(dim=-1)
+        pv = p * vs[:, :, None, t0:t0 + bs]
+        psc = pv.amax(dim=-1) / 127.0                                # pv >= 0
+        pinv = torch.where(psc > 0, 1.0 / torch.where(psc > 0, psc, torch.ones_like(psc)),
+                           torch.zeros_like(psc))
+        pq = torch.round(pv * pinv[..., None])                       # half to even, as rint
+        # the integer P.V, exact in float64 (|sum| <= 256 * 127 * 127)
+        o_i = torch.einsum("bgrs,bgsd->bgrd", pq.double(), v[:, :, t0:t0 + bs].double())
+        acc = acc * alpha[..., None] + o_i.float() * psc[..., None]
+        m = m_new
+    return acc, m, l
 
 
 def flash_attention_q8_ref(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: int = 0,
@@ -515,14 +582,29 @@ def decode_attention_cuda(q, k, v, kv_len, kv_row: int = 0):
     return _decode(q, k, None, v, None, kv_len, kv_row)
 
 
-def decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row: int = 0):
-    """Launch K8 (K4's int8-cache mode; q quantized per query head in the
-    kernel). kv_len: int32 CUDA tensor [B] (or an int, made into one)."""
-    return _decode(q, k, ks, v, vs, kv_len, kv_row)
+def decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row: int = 0, i8pv: bool = False):
+    """Launch K8 (q quantized per query head in the kernel; i8pv: its
+    ZGML_TPU_ATTN_I8PV mode). kv_len: int32 CUDA tensor [B] (or an int, made
+    into one)."""
+    return _decode(q, k, ks, v, vs, kv_len, kv_row, i8pv)
 
 
-def _decode(q, k, ks, v, vs, kv_len, kv_row):
-    name = "decode_attention" if ks is None else "decode_attention_q8"
+def q8_counter(i8pv: bool) -> str:
+    """K8's placement counter in its f32-p or its I8PV mode."""
+    return "decode_attention_q8_i8pv" if i8pv else "decode_attention_q8"
+
+
+def decode_q8_splits(b: int, hkv: int, s: int, d: int, sm_count: int, i8pv: bool) -> int:
+    """K8's blocks per (batch row, KV head): K4's rule at two blocks an SM at
+    every head dim (K8's shared memory stays under half an SM's: csrc/
+    decode_attn.cu dq_stages), and in the I8PV mode no more than the cache
+    has JAX blocks (a split takes whole blocks)."""
+    unit = k8_block(s) if i8pv else decode_plan.DECODE_GROUP * decode_plan.DECODE_WARPS
+    return decode_plan.decode_splits(b, hkv, s, d, sm_count, unit, per_sm=2)
+
+
+def _decode(q, k, ks, v, vs, kv_len, kv_row, i8pv=False):
+    name = "decode_attention" if ks is None else q8_counter(i8pv)
     check_qkv(name, q, k, v, kv_row, 1, None if ks is None else (ks, vs))
     b, hq, _, d = q.shape
     _, hkv, s, _ = k.shape
@@ -533,21 +615,24 @@ def _decode(q, k, ks, v, vs, kv_len, kv_row):
         raise ValueError(f"{name}: kv_len must be a contiguous int32 [{b}] tensor on {q.device}")
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
     o = torch.empty_like(q)
-    if ks is None:            # K4: one launch, splits from the card's SM count
-        index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    words = coop.counter_words(q.device, b * hkv).data_ptr()
+    # one launch each, splits from the card's SM count
+    if ks is None:            # K4
         n_split = decode_plan.decode_splits(b, hkv, s, d, decode_plan.sm_count(index))
         part = torch.empty((b * hq, n_split, d + 2), dtype=torch.float32, device=q.device)
         status = lib.zgml_decode_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
-            part.data_ptr(), coop.counter_words(q.device, b * hkv).data_ptr(), b, hq, hkv, s, d,
-            int(kv_row), n_split, 1.0 / d ** 0.5, stream)
-    else:
-        n_split = lib.zgml_decode_split_count(s)
+            part.data_ptr(), words, b, hq, hkv, s, d, int(kv_row), n_split, 1.0 / d ** 0.5,
+            stream)
+    else:                     # K8
+        n_split = decode_q8_splits(b, hkv, s, d, decode_plan.sm_count(index), i8pv)
         part = torch.empty((b * hq, n_split, d + 2), dtype=torch.float32, device=q.device)
-        status = lib.zgml_decode_attention(
-            q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), kv_len.data_ptr(),
-            o.data_ptr(), part.data_ptr(), b, hq, hkv, s, d, int(kv_row), 1.0 / d ** 0.5, stream)
+        status = lib.zgml_decode_attention_q8(
+            q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
+            kv_len.data_ptr(), o.data_ptr(), part.data_ptr(), words, b, hq, hkv, s, d,
+            int(kv_row), n_split, k8_block(s), int(i8pv), 1.0 / d ** 0.5, stream)
     build.check(status, name)
     global_profile.count_op(name, "cuda")
     return o

@@ -1,8 +1,8 @@
 """Launch plans of the weight-streaming decode kernels: K7 (csrc/layer_attn.cu),
 K6d / K6a / K6c (csrc/ffn.cu), the megacalls K14 / K15 (csrc/stack_decode.cu)
 and K6b (csrc/ffn_planar.cu, `planar_plan`), all built on
-csrc/weight_stream.cuh; and K4's split of a row's keys (csrc/decode_attn.cu,
-`decode_splits`, `decode_split_keys`).
+csrc/weight_stream.cuh; and K4's and K8's split of a row's keys
+(csrc/decode_attn.cu, `decode_splits`, `decode_split_keys`).
 
 Each kernel runs one persistent block an SM: 16 consumer warps and one
 producer warp, which streams the block's weight rows with 1D bulk copies
@@ -401,24 +401,28 @@ DECODE_WARPS = 4
 DECODE_MAX_SPLIT = 16
 
 
-def decode_splits(b: int, hkv: int, s: int, hd: int, sm_count: int) -> int:
-    """K4's blocks per (batch row, KV head): as many as the card holds at once
-    (two an SM at head_dim <= 64, whose tiles take ~85 KB of shared memory;
-    one above), at most DECODE_MAX_SPLIT (the last block merges every
-    split's partial) and no more than an S-row cache has groups of a block's
-    warps."""
-    most = max(1, -(-s // (DECODE_GROUP * DECODE_WARPS)))
-    per_sm = 2 if hd <= 64 else 1
+def decode_splits(b: int, hkv: int, s: int, hd: int, sm_count: int,
+                  unit: int = DECODE_GROUP * DECODE_WARPS, per_sm: int | None = None) -> int:
+    """K4's and K8's blocks per (batch row, KV head): as many as the card
+    holds at once (`per_sm` an SM; K4: two at head_dim <= 64, whose tiles
+    take ~85 KB of shared memory, one above), at most DECODE_MAX_SPLIT (the
+    last block merges every split's partial) and no more than an S-row cache
+    has units of `unit` keys (a block's warps' groups; K8's I8PV mode: its
+    JAX block, attention.k8_block)."""
+    most = max(1, -(-s // unit))
+    per_sm = per_sm or (2 if hd <= 64 else 1)
     return max(1, min(DECODE_MAX_SPLIT, most, per_sm * sm_count // max(1, b * hkv)))
 
 
-def decode_split_keys(kv_len: int, s: int, n_split: int, split: int) -> tuple[int, int]:
+def decode_split_keys(kv_len: int, s: int, n_split: int, split: int,
+                      unit: int = DECODE_GROUP) -> tuple[int, int]:
     """Keys [k0, k1) of split `split` for a row of kv_len keys (clipped to
-    [0, s]): groups of DECODE_GROUP keys, split balanced over n_split."""
+    [0, s]): units of `unit` keys (32-key groups; K8's I8PV mode: whole JAX
+    blocks), split balanced over n_split."""
     length = max(0, min(kv_len, s))
-    g = -(-length // DECODE_GROUP)
+    g = -(-length // unit)
     g0, g1 = split * g // n_split, (split + 1) * g // n_split
-    return min(g0 * DECODE_GROUP, length), min(g1 * DECODE_GROUP, length)
+    return min(g0 * unit, length), min(g1 * unit, length)
 
 
 def host_ints(plan: StreamPlan) -> list[int]:

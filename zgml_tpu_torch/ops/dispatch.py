@@ -47,7 +47,8 @@ phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
 attention = K3, decode_attention = K4, flash_attention_q8 = K9 (each prefill
 flash kernel + _bf16 in its bf16 form, ZGML_TPU_PREFILL_BF16),
-decode_attention_q8 = K8, the JAX package's names; flash_fwd = K10f,
+decode_attention_q8 = K8 (decode_attention_q8_i8pv in its
+ZGML_TPU_ATTN_I8PV mode), the JAX package's names; flash_fwd = K10f,
 flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
 K11q8; matmul for a dense projection; rmsnorm = K12 under
 ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
@@ -288,21 +289,22 @@ def flash_attention_q8(q, k, ks, v, vs, kv_len=None, q_offset: int = 0, kv_row: 
 
 def decode_attention_q8(q, k, ks, v, vs, kv_len, kv_row: int = 0):
     """K8: one query token per row over the int8 cache prefix kv_len ([B] or
-    int); zgml_tpu/ops/dispatch.py:209-220. ZGML_TPU_ATTN_I8PV=1 (its int8
-    P.V mode) is refused, not computed as the f32-p function. With
-    decode_attention switched off, JAX's path: the rows dequantized to f32
-    and attended with the unquantized q (another function than K8's)."""
+    int); zgml_tpu/ops/dispatch.py:209-220. Under ZGML_TPU_ATTN_I8PV=1
+    (config.attn_i8pv(), read per call) its int8 P.V mode, counted under
+    decode_attention_q8_i8pv. With decode_attention switched off, JAX's path:
+    the rows dequantized to f32 and attended with the unquantized q (another
+    function than K8's, in either mode)."""
     _refuse_grad("decode_attention_q8 (K8)", q, ks, vs)
     if not config.kernel_on("decode_attention"):
         _device_of(q, k, ks, v, vs)
         global_profile.count_op("decode_attention_q8", "ref")
         kf, vf = _dequantized_rows(q.shape[0], kv_row, k, ks, v, vs)
         return attention.decode_attention_ref(q, kf, vf, kv_len)
-    config.refuse_attn_i8pv()
+    i8pv = config.attn_i8pv()
     if _use_kernel("decode_attention", q, k, ks, v, vs):
-        return attention.decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row)
-    global_profile.count_op("decode_attention_q8", "ref")
-    return attention.decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row)
+        return attention.decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row, i8pv)
+    global_profile.count_op(attention.q8_counter(i8pv), "ref")
+    return attention.decode_attention_q8_ref(q, k, ks, v, vs, kv_len, kv_row, i8pv)
 
 
 def _dequantized_rows(b: int, kv_row: int, k, ks, v, vs):
