@@ -65,7 +65,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      one PyTorch call of that op) and a bias [2048] added to [2048, 2048]
      (read in place: one kernel a call; library torch.add): bit-equal to
      plain where every step is exact in IEEE f32, else within 1e-6 *
-     max|out|. The whole-stack
+     max|out|; K13's bf16 and f16 forms at the same cases, within
+     CHAIN_ULPS_16 ulp per element of plain and bit-equal over two launches
+     (library: the op's PyTorch call in that dtype). K7 with its phase E
+     (ZGML_TPU_LAYER_FFN) at pos 0, 1, 200, 2047 in four modes (TinyLlama f32
+     A phase over the bf16 and the int8 cache, Llama-2-7B int8 A phase over
+     both): bit-equal to the chain K7 + K6d (whose time it records) and over
+     two launches, within REL_BOUND of its plain version; K6a's no-norm form
+     at M = 1, 8, 32; the fused FFN's dx (ops/ffn.FusedFFN) at M = 1, 8, 32
+     at both kinds against force_ref() (summary ffn_vjp). The whole-stack
      decode megacalls K14 (stack_decode) and K15 (tape_decode, and
      tape_decode_f32 under ZGML_TPU_TAPE_BF16=0) over a random stacked cache
      at pos 0, 1, 200, 2047: TinyLlama-1.1B's 22 layers, and Llama-2-7B's
@@ -153,6 +161,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                    K1q4, K2q4, K3, K5q4 and K6b, no K7 and no K6d;
        tape_tiny   the same with ZGML_TPU_TAPE_DECODE=1: K15 (bf16 operands)
                    once per decode token;
+       layer_ffn_tiny  TinyLlama Q4_0 with ZGML_TPU_LAYER_FFN=1: the 3 greedy
+                   and the sampled request; K7 with its phase E exactly once
+                   per layer per decode token (22 a token), and K1q4, K2q4,
+                   K3, K5q4 and K6b, no K6d and no K7 without E;
      no other kernel and no plain-tier call may run on a path; on each path
      the first request (and on kv8_tiny and kv8_i8pv the batch-4 one) is compared with the
      same engine under force_ref() (the same path with every kernel swapped
@@ -170,6 +182,11 @@ Phases, in order; any failure raises and the script exits non-zero:
        train_q4_frozen  the TinyLlama Q4_0 GGUF with tok_embd and the norms
                         trainable, 6 steps of B 1 x T 512, then the Q8_0 file,
                         2 steps; K2 and K11 at both kinds, and K10;
+       train_q4_short   the same models on B 1 x T 32 windows (6 steps at
+                        Q4_0, 2 at Q8_0): every call of <= 32 rows, so K1
+                        (forward and the fused FFN's backward recompute),
+                        K6b and K6a's no-norm form (ops/ffn.FusedFFN), K11
+                        at both kinds and K10;
        train_rmsnorm_forced  train_dense's model, 2 more Adam steps under
                         ZGML_TPU_KERNELS_FORCE=rmsnorm: K10 and K12, 45 K12
                         launches per forward (its backward recomputes plain);
@@ -188,6 +205,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                    value_and_grad launch K13 twice each and nothing else,
                    both agree with force_ref() and fuse=False (1e-5 forward,
                    1e-4 gradients, of max|ref|), 3 SGD steps lower the loss;
+       graph_ffn_bf16  graph_ffn's FFN with bf16 vars on the residual stream
+                   r = alpha x + a (GRAPH_RES_SCALE): its chain scale -> add
+                   is bf16 (K13's bf16 form once per forward), the FFN's two
+                   are f32 (the graph's matmul yields f32); r within one bf16
+                   ulp of force_ref()'s, loss and gradients within max(2 bf16
+                   ulps of max|ref|, 2 x the plain graph's move under one-ulp
+                   moves of every chain output) of force_ref() and
+                   fuse=False, 3 SGD steps (f32 master weights) lower the
+                   loss;
        graph_sub   y - exp(x) and y / exp(x), the chain value as the right
                    operand, through K13 equal fuse=False and numpy;
      and one JAX per-op switch (ROADMAP C.3): TinyLlama Q4_0 under
@@ -311,7 +337,8 @@ K11_RMS_RATIO = 2.0        # K11's rms error vs float64, at most this x cuBLAS f
 TRAIN_B, TRAIN_T = 4, 512  # train_dense's batch of corpus windows
 FROZEN_B = 1               # train_q4_frozen's batch
 TRAIN_STEPS = {"train_dense": 6, "train_q4_frozen": 6, "train_q8_frozen": 2,
-               "train_rmsnorm_forced": 2}
+               "train_rmsnorm_forced": 2, "train_q4_short": 6, "train_q8_short": 2}
+SHORT_T = 32               # train_q4_short's windows: B 1 x T 32, the fused FFN's rows
 TRAIN_LR = 1e-3
 # one step's gradients against force_ref(): per tensor max(GRAD_RTOL * max|g|,
 # SENS_MARGIN x the plain path's own move under SENS_EPS embedding
@@ -324,7 +351,10 @@ TRAIN_PATHS = {"train_dense": ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf1
                "train_q4_frozen": ("q4_matmul_bf16", "q4_matmul_bwd", "flash_fwd_bf16",
                                    "flash_dq_bf16", "flash_dkv_bf16", "q8_matmul_bf16",
                                    "q8_matmul_bwd"),
-               "train_rmsnorm_forced": ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm")}
+               "train_rmsnorm_forced": ("flash_fwd", "flash_dq", "flash_dkv", "rmsnorm"),
+               "train_q4_short": ("q4_matmul_i8", "q8_matmul_i8", "fused_ffn", "fused_ffn_q8",
+                                  "q4_matmul_bwd", "q8_matmul_bwd", "flash_fwd_bf16",
+                                  "flash_dq_bf16", "flash_dkv_bf16")}
 # the flags of a training path that are not an inference path's (set_path)
 TRAIN_FLAGS = {"train_rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm",
                                         "ZGML_TPU_PREFILL_BF16": "0"}}
@@ -341,6 +371,9 @@ CHAIN_OP_SHAPE = (2048, 2048)
 CHAIN_EXACT = {"add", "sub", "mul", "div", "max2", "neg", "recip", "sqr", "sqrt", "abs", "relu",
                "scale", "add_scalar"}
 CHAIN_RTOL = 1e-6
+# K13's bf16 / f16 forms (phase 2): within this many units in the last place
+# of the dtype per element of the plain version
+CHAIN_ULPS_16 = 1
 # graph_ffn (phase 3): ComputeGraph at TinyLlama-1.1B's FFN width, vars f32
 # from seed 0 at std 0.02 (gamma 1 + 0.02 N(0, 1)); forward within
 # GRAPH_FWD_RTOL * max|out| and gradients within GRAPH_GRAD_RTOL * max|g| of the
@@ -352,6 +385,18 @@ GRAPH_CHAINS = [["silu", "mul"], ["add", "sqr"]]
 GRAPH_FWD_RTOL, GRAPH_GRAD_RTOL = 1e-5, 1e-4
 GRAPH_SGD_STEPS, GRAPH_LR = 3, 1.0
 GRAPH_RATE_ROUNDS = 3      # phase 4: run, value_and_grad, value_and_grad, run per round
+# graph_ffn_bf16 (phase 3): graph_ffn's FFN with bf16 vars on the residual
+# stream r = alpha x + a of a bf16 layer (x the layer's input, a its attention
+# half's output; DeepNet's residual scaling, alpha = (2 N)^(1/4) for N = 22
+# layers): the chain scale -> add is bf16 (K13's bf16 form), the FFN's two
+# chains are f32 (the graph's matmul yields f32, as JAX's
+# preferred_element_type does); its chain output within GRAPH_BF16_ULPS bf16
+# ulp per element of force_ref()'s, the loss and gradients within max(2 bf16
+# ulps of max|ref|, SENS_MARGIN x the plain graph's own move when every chain
+# output moves by one ulp of its dtype) of force_ref() and fuse=False
+GRAPH_RES_SCALE = (2 * 22) ** 0.25
+GRAPH_BF16_CHAINS = [["scale", "add"], ["silu", "mul"], ["add", "sqr"]]
+GRAPH_BF16_ULPS = 1
 # the megacalls K14 / K15 (phase 2) against their plain versions: with f32
 # operands REL_BOUND once per layer (each layer hands its f32 summation-order
 # difference on to the next; measured on the H100, PERF.md), with bf16 ones the
@@ -432,20 +477,24 @@ PATHS = {"default": {},
          "kv8_7b": {},
          "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"},
          "stack_tiny": {"ZGML_TPU_STACK_DECODE": "1"},
-         "tape_tiny": {"ZGML_TPU_TAPE_DECODE": "1"}}
+         "tape_tiny": {"ZGML_TPU_TAPE_DECODE": "1"},
+         "layer_ffn_tiny": {"ZGML_TPU_LAYER_FFN": "1"}}
 PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
               "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0"),
               "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_i8pv": ("tinyllama-1.1b", "q4_0"),
               "kv8_7b": ("llama2-7b", "q4_0"),
               "rmsnorm_forced": ("tinyllama-1.1b", "q4_0"),
-              "stack_tiny": ("tinyllama-1.1b", "q4_0"), "tape_tiny": ("tinyllama-1.1b", "q4_0")}
+              "stack_tiny": ("tinyllama-1.1b", "q4_0"), "tape_tiny": ("tinyllama-1.1b", "q4_0"),
+              "layer_ffn_tiny": ("tinyllama-1.1b", "q4_0")}
 # the megacall of a path, which must launch exactly once per decode token
 MEGA_PATHS = {"stack_tiny": "stack_decode", "tape_tiny": "tape_decode"}
+# the layer kernel of a path, which must launch once per layer per decode token
+LAYER_PATHS = {"layer_ffn_tiny": "attn_block_ffn"}
 # the engines' cache_dtype; else bf16
 PATH_CACHE = {"kv8_tiny": "int8", "kv8_i8pv": "int8", "kv8_7b": "int8"}
 # paths that also answer the sampled request
 PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b",
-                "rmsnorm_forced", "stack_tiny", "tape_tiny")
+                "rmsnorm_forced", "stack_tiny", "tape_tiny", "layer_ffn_tiny")
 # + a greedy request of 4 rows x this many prompt tokens (32 new tokens each)
 # from a batch-4 engine (K8; on kv8_i8pv 3 chunks of 128, the decode in JAX
 # block 1 of K8's 256-key blocks)
@@ -478,7 +527,9 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_b
                 "stack_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
                                "q4_greedy", "fused_ffn", "stack_decode"),
                 "tape_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
-                              "q4_greedy", "fused_ffn", "tape_decode")}
+                              "q4_greedy", "fused_ffn", "tape_decode"),
+                "layer_ffn_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                                   "q4_greedy", "fused_ffn", "attn_block_ffn")}
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -538,6 +589,19 @@ KERNELS = {
     "flash_dkv_bf16": ("flash_dkv_bf16", _CSRC + "flash_bwd.cu", "zgml_tpu/ops/flash_vjp.py:327"),
     "tape_decode_f32": ("tape_decode_f32", _CSRC + "stack_decode.cu",
                         "zgml_tpu/ops/tapekernel.py:553"),
+    "attn_block_ffn": ("attn_block_ffn", _CSRC + "layer_attn_ffn.cu",
+                       "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_kv8_ffn": ("attn_block_kv8_ffn", _CSRC + "layer_attn_ffn.cu",
+                           "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_ffn": ("attn_block_i8_ffn", _CSRC + "layer_attn_ffn.cu",
+                          "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_kv8_ffn": ("attn_block_i8_kv8_ffn", _CSRC + "layer_attn_ffn.cu",
+                              "zgml_tpu/ops/layerkernel.py:685"),
+    "fused_ffn_q8": ("fused_ffn_q8", _CSRC + "ffn.cu", "zgml_tpu/ops/ffn.py:100"),
+    "fused_chain_bf16": ("fused_chain_bf16", _CSRC + "elementwise.cu",
+                         "zgml_tpu/ops/elementwise.py:104"),
+    "fused_chain_f16": ("fused_chain_f16", _CSRC + "elementwise.cu",
+                        "zgml_tpu/ops/elementwise.py:104"),
 }
 # the form of each kernel with two (ZGML_TPU_PREFILL_BF16; K8's
 # ZGML_TPU_ATTN_I8PV): its mode in the JSON line, beside the counter that
@@ -547,7 +611,11 @@ MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "fla
         **{k: "bf16" for k in ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16",
                                "flash_attention_q8_bf16", "flash_fwd_bf16", "flash_dq_bf16",
                                "flash_dkv_bf16")},
-        "decode_attention_q8": "f32p", "decode_attention_q8_i8pv": "i8pv"}
+        "decode_attention_q8": "f32p", "decode_attention_q8_i8pv": "i8pv",
+        **{k: "phase_e" for k in ("attn_block_ffn", "attn_block_kv8_ffn", "attn_block_i8_ffn",
+                                  "attn_block_i8_kv8_ffn")},
+        "fused_ffn_q8": "no_norm", "fused_chain": "f32", "fused_chain_bf16": "bf16",
+        "fused_chain_f16": "f16"}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -576,6 +644,9 @@ NO_LIBRARY = {
             "(rmsnorm, quantized QKV, RoPE, attention, wo, residual, cache write)",
     "chain": "none: no single PyTorch call computes an arbitrary elementwise chain given as "
              "data (torch.compile would generate one; it is not a library call)",
+    "attn_ffn": "none: no single PyTorch call computes a whole decode layer (rmsnorm, "
+                "quantized QKV, RoPE, attention, cache write, wo, residual, rmsnorm, quantized "
+                "SwiGLU FFN, residual)",
     "stack": "none: no single PyTorch call computes a whole decode stack (every layer's norms, "
              "quantized projections, RoPE, attention, cache write, SwiGLU and residuals)",
 }
@@ -733,8 +804,9 @@ def check_kernels(torch, dev, ptxas_q8):
                                               flash_attention_cuda, flash_attention_ref)
     from zgml_tpu_torch.ops.ffn import (fused_ffn_cuda, fused_ffn_norm_cuda,
                                         fused_ffn_norm_ref, fused_ffn_ref)
-    from zgml_tpu_torch.ops.decode_plan import attn_plan, ffn_plan, launch_args
-    from zgml_tpu_torch.ops.layerkernel import attn_block_cuda, attn_block_ref, qkv_ref
+    from zgml_tpu_torch.ops.decode_plan import attn_ffn_plan, attn_plan, ffn_plan, launch_args
+    from zgml_tpu_torch.ops.layerkernel import (attn_block_cuda, attn_block_ffn_ref,
+                                                attn_block_ref, qkv_ref)
     from zgml_tpu_torch.quant.kv_cache import quantize_columns
     from zgml_tpu_torch.ops.qmatmul import (GEMV_MAX_M, _fwd_card, greedy_cuda, greedy_ref,
                                             i8_plan, qmatmul_cuda, qmatmul_i8_cuda,
@@ -1132,6 +1204,153 @@ def check_kernels(torch, dev, ptxas_q8):
             record(kname, case, worst[0], worst[1], t, tp, nbytes, flops, None,
                    NO_LIBRARY["attn"], i8ops=i8ops, **extra)
 
+    def check_attn_block_ffn(shape, f, model, a_i8, kv8):
+        """K7 with its phase E (ZGML_TPU_LAYER_FFN, Q4_0) over a random
+        stacked cache, layer ATTN_LAYER, at ATTN_POS: bit-equal to the chain
+        K7 (the same A phase and cache) then K6d at one row, in x_out, k_cur,
+        v_cur and the cache, and over two launches; within REL_BOUND of its
+        plain version (attn_block_ffn_ref on the kernel's own int8
+        activations and quantized q, as K7's checks). The chain's device time
+        is recorded beside it (chain_ms); the bound is K7's bytes and
+        operations plus K6d's weights and operations."""
+        n_layers, hq, hkv, hd = shape
+        kc = random_cache((n_layers, 1, hkv, S, hd), kv8)
+        vc = random_cache((n_layers, 1, hkv, S, hd), kv8)
+        d, nq, nkv = hq * hd, hq * hd, hkv * hd
+        nqkv = nq + 2 * nkv
+        layers = list(zip(weights("q4_0", nqkv, d, 64_000_000), weights("q4_0", d, nq, 64_000_000),
+                          weights("q4_0", 2 * f, d, 96_000_000), weights("q4_0", d, f, 48_000_000)))
+        wbytes = sum(nbytes_of(w.qs, w.d) for w in layers[0])
+        g1 = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        g2 = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+        kname = ("attn_block" + ("_i8" if a_i8 else "") + ("_kv8" if kv8 else "") + "_ffn")
+        row_bytes = 2 * (nkv + 4 * hkv) if kv8 else 2 * nkv * 2
+
+        def run(ly, kc_, vc_, pos_t, cos, sin, act=None, q8=None):
+            return attn_block_cuda(x, g1, ly[0], ly[1], kc_, vc_, ATTN_LAYER, pos_t, cos, sin,
+                                   hq, hkv, 1e-5, a_i8, act, q8, ffn=(g2, ly[2], ly[3]))
+
+        def chain(ly, kc_, vc_, pos_t, cos, sin):
+            x2 = attn_block_cuda(x, g1, ly[0], ly[1], kc_, vc_, ATTN_LAYER, pos_t, cos, sin,
+                                 hq, hkv, 1e-5, a_i8)
+            return (fused_ffn_norm_cuda(x2[0], g2, ly[2], ly[3], 1e-5, False), *x2[1:])
+        for pos in ATTN_POS:
+            x = torch.randn((1, 1, d), device=dev, generator=g)
+            cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
+            pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+            k1, v1, k2, v2, kr, vr = (clone(c) for c in (kc, vc, kc, vc, kc, vc))
+            act = ((torch.empty(d, dtype=torch.int8, device=dev),
+                    torch.empty(d // 32, device=dev)) if a_i8 else None)
+            q8 = ((torch.empty((hq, hd), dtype=torch.int8, device=dev),
+                   torch.empty(hq, device=dev)) if kv8 else None)
+            got = run(layers[0], kc, vc, pos_t, cos, sin, act, q8)
+            again = run(layers[0], k1, v1, pos_t, cos, sin)
+            want_chain = chain(layers[0], k2, v2, pos_t, cos, sin)
+            want = attn_block_ffn_ref(x, g1, layers[0][0], layers[0][1], kr, vr, ATTN_LAYER, pos,
+                                      cos, sin, hq, hkv, 1e-5, (g2, *layers[0][2:]), a_i8, act,
+                                      q8)
+            torch.cuda.synchronize()
+            same = lambda a, b: (all(torch.equal(u, v) for u, v in zip(a, b))  # noqa: E731
+                                 if isinstance(a, tuple) else torch.equal(a, b))
+            require(all(torch.equal(a, b) and torch.equal(a, c)
+                        for a, b, c in zip(got, want_chain, again))
+                    and same(kc, k1) and same(vc, v1) and same(kc, k2) and same(vc, v2),
+                    f"{kname} {model}pos={pos}: not bit-equal to the chain K7 + K6d, or two "
+                    f"launches differ")
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            require(all(bool(torch.isfinite(a).all()) for a in got)
+                    and all(e <= b for e, b in errs),
+                    f"{kname} {model}pos={pos}: (max_abs_err, bound) of x_out, k_cur, v_cur "
+                    f"vs plain {errs}")
+            plan = launch_args(dev, attn_ffn_plan, d, hq, hkv, hd, "q4_0", a_i8, kv8, S, f)[0]
+            t = time_ms(torch, [lambda l_=ly: run(l_, kc, vc, pos_t, cos, sin)
+                                for ly in layers], 50)
+            tc = time_ms(torch, [lambda l_=ly: chain(l_, kc, vc, pos_t, cos, sin)
+                                 for ly in layers], 50)
+            tp = time_ms(torch, [lambda l_=ly: attn_block_ffn_ref(
+                x, g1, l_[0], l_[1], kc, vc, ATTN_LAYER, pos, cos, sin, hq, hkv, 1e-5,
+                (g2, *l_[2:]), a_i8) for ly in layers], 20)
+            worst = max(errs, key=lambda eb: eb[0] / eb[1])
+            # x, both gains, the four weights, cos/sin and the pos cache rows
+            # in; x_out, k_cur / v_cur and the new cache row out
+            nbytes = (3 * d * 4 + wbytes + hd * 4 + pos * row_bytes
+                      + d * 4 + 2 * nkv * 4 + row_bytes)
+            qkv_ops = 2 * d * nqkv
+            attn_ops = 2 * hq * pos * hd
+            flops = ((0 if a_i8 else qkv_ops) + 2 * nq * d + (1 if kv8 else 2) * attn_ops
+                     + 4 * hq * hd + 6 * d * f)
+            i8ops = (qkv_ops if a_i8 else 0) + (attn_ops if kv8 else 0)
+            record(kname, f"{model}pos={pos} layer={ATTN_LAYER} d_ff={f} (x_out, k_cur, v_cur; "
+                   f"bit-equal to K7 + K6d)", worst[0], worst[1], t, tp, nbytes, flops, None,
+                   NO_LIBRARY["attn_ffn"], i8ops=i8ops, chain_ms=tc[0], chain_call_ms=tc[1],
+                   **stream_plan(plan))
+
+    def check_ffn_nonorm(d, f, model):
+        """K6a's no-norm form (fused_ffn_cuda at Q8_0, the training FFN of
+        <= 32 rows at Q8_0) at FFN_ROWS against fused_ffn_ref within
+        REL_BOUND * max|y|, two launches bit-equal."""
+        pairs, wbytes = ffn_weights("q8_0", d, f)
+        for m in FFN_ROWS:
+            h = torch.randn((1, m, d), device=dev, generator=g)
+            got, again = fused_ffn_cuda(h, *pairs[0]), fused_ffn_cuda(h, *pairs[0])
+            want = fused_ffn_ref(h, *pairs[0])
+            torch.cuda.synchronize()
+            err, bound = rel_err(got, want)
+            case = f"{model}M={m} D={d} F={f}"
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"fused_ffn_q8 {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            require(bool(torch.equal(got, again)), f"fused_ffn_q8 {case}: two launches differ")
+            t = time_ms(torch, [lambda p_=pr: fused_ffn_cuda(h, *p_) for pr in pairs],
+                        50 if m == 1 else 10)
+            tp = time_ms(torch, [lambda p_=pr: fused_ffn_ref(h, *p_) for pr in pairs], 10)
+            record("fused_ffn_q8", case, err, bound, t, tp, 2 * m * d * 4 + wbytes,
+                   6 * m * d * f, None, NO_LIBRARY["planar"],
+                   **stream_plan(launch_args(dev, ffn_plan, m, d, f, "q8_0", False)[0]))
+
+    def check_ffn_vjp(kind, d, f, model):
+        """The fused FFN's dx (ops/ffn.FusedFFN: K6b / K6a no-norm forward,
+        K1's recompute of gate|up, K11 twice) at FFN_ROWS on the card
+        against the same Function under force_ref(), within max(REL_BOUND *
+        max|dx|, SENS_MARGIN x the plain version's own move when h moves by
+        SENS_EPS relative): the recompute's int8 activations flip where two
+        implementations sum a row in another order. Recorded in the summary
+        (ffn_vjp): the device time of forward and backward, the plain one's,
+        and its bound (w_gate_up read three times, w_down twice)."""
+        from zgml_tpu_torch.ops import dispatch
+        pairs, wbytes = ffn_weights(kind, d, f)
+
+        def dx_of(h, gr, pr):
+            leaf = h.detach().clone().requires_grad_()
+            return torch.autograd.grad(dispatch.fused_ffn(leaf, *pr), leaf, gr)[0]
+        for m in FFN_ROWS:
+            h = torch.randn((1, m, d), device=dev, generator=g)
+            gr = torch.randn((1, m, d), device=dev, generator=g)
+            got = dx_of(h, gr, pairs[0])
+            with dispatch.force_ref():
+                want = dx_of(h, gr, pairs[0])
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                moved = max(float((dx_of(h * (1 + SENS_EPS * torch.randn(
+                    h.shape, device=dev, generator=gen)), gr, pairs[0]) - want).abs().max())
+                    for _ in range(SENS_DRAWS))
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bound = max(REL_BOUND * float(want.abs().max()), SENS_MARGIN * moved)
+            case = f"{model}{kind} M={m} D={d} F={f}"
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"ffn_vjp {case}: dx max_abs_err {err:.3g} > bound {bound:.3g}")
+            t = time_ms(torch, [lambda p_=pr: dx_of(h, gr, p_) for pr in pairs], 10)
+            with dispatch.force_ref():
+                tp = time_ms(torch, [lambda p_=pr: dx_of(h, gr, p_) for pr in pairs], 5)
+            gu_bytes = nbytes_of(pairs[0][0].qs, pairs[0][0].d)
+            b_ms, b_by = bound_of(3 * gu_bytes + 2 * (wbytes - gu_bytes) + 3 * m * d * 4,
+                                  12 * m * d * f, i8ops=4 * m * d * f)
+            log(f"  ffn_vjp {case}: dx max_abs_err {err:.3g} (bound {bound:.3g}, the plain "
+                f"version moves {moved:.3g}); backward device us {t[0] * 1e3:.1f} (forward "
+                f"included), plain {tp[0] * 1e3:.1f}; bound {b_ms * 1e3:.1f} us by {b_by}")
+            summary_ffn_vjp.append(dict(case=case, err=err, bound=bound, plain_move=moved,
+                                        ms=t[0], plain_ms=tp[0], bound_ms=b_ms, bound_by=b_by))
+
+    summary_ffn_vjp = results.setdefault("_ffn_vjp", [])
     log("  -- TinyLlama-1.1B shapes")
     for kind in KINDS:
         for name, n, k in GEMM_SHAPES:
@@ -1140,6 +1359,14 @@ def check_kernels(torch, dev, ptxas_q8):
         check_attn_block(kind, (L, HQ, HKV, D), "", a_i8=False)
         check_attn_block(kind, (L, HQ, HKV, D), "", a_i8=False, kv8=True)
     check_planar(FFN_D, FFN_F, "")
+    log("  -- K7 with phase E (ZGML_TPU_LAYER_FFN), K6a's no-norm form, the fused FFN's dx")
+    check_attn_block_ffn((L, HQ, HKV, D), FFN_F, "", a_i8=False, kv8=False)
+    check_attn_block_ffn((L, HQ, HKV, D), FFN_F, "", a_i8=False, kv8=True)
+    check_attn_block_ffn((L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B, "7B ", a_i8=True, kv8=False)
+    check_attn_block_ffn((L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B, "7B ", a_i8=True, kv8=True)
+    check_ffn_nonorm(FFN_D, FFN_F, "")
+    for kind in KINDS:
+        check_ffn_vjp(kind, FFN_D, FFN_F, "")
     check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention_ref,
                     decode_attention_cuda, decode_attention_ref, (L, HQ, HKV, D), "")
     check_attention_q8(torch, dev, g, record, (L, HQ, HKV, D), "", KV8_DECODE_LENS, ptxas_q8)
@@ -1173,6 +1400,8 @@ def check_kernels(torch, dev, ptxas_q8):
     log("  -- the graph tier and the forced norm: K12 (rmsnorm) and K13 (fused chain)")
     check_rmsnorm(torch, dev, g, record)
     check_chains(torch, dev, g, record)
+    for dtype in (torch.bfloat16, torch.float16):
+        check_chains_16(torch, dev, g, record, dtype)
     log("  -- the whole-stack decode megacalls: K14 (stack_decode) and K15 (tape_decode)")
     check_megacalls(torch, dev, g, record, weights)
     return results
@@ -2127,6 +2356,67 @@ def check_chains(torch, dev, g, record):
                bound, t, tp, nbytes, 4 * len(steps) * n, lib, note, **extra)
 
 
+def chain_ulps(torch, got, want):
+    """The largest |got - want| over the finite elements in units in the last
+    place of their dtype (bf16: 8 significant bits, f16: 11) at max(|got|,
+    |want|); infinities and NaNs must match exactly (else inf)."""
+    bits, tiny = (8, 2.0 ** -133) if got.dtype == torch.bfloat16 else (11, 2.0 ** -24)
+    fin = torch.isfinite(want)
+    if not (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(got[want.isinf()], want[want.isinf()])):
+        return math.inf
+    a, b = got[fin].double(), want[fin].double()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    spacing = torch.ldexp(torch.ones_like(a), (e - bits).to(torch.int32)).clamp_min(tiny)
+    return float(((a - b).abs() / spacing).max()) if a.numel() else 0.0
+
+
+def check_chains_16(torch, dev, g, record, dtype):
+    """K13's bf16 / f16 form (each step the torch op on the dtype, rounded
+    to it) at chain_cases(): within CHAIN_ULPS_16 ulp per element of
+    fused_chain_ref on the same inputs, two launches bit-equal; a one-step
+    chain's library call is that op's PyTorch call in the dtype."""
+    from zgml_tpu_torch.ops.elementwise import BINARY, counter, fused_chain_cuda, fused_chain_ref
+    kname = counter(dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    for label, steps, shape, side_shape in chain_cases():
+        n_sides = sum(st.op in BINARY for st in steps)
+        side_shape = shape if side_shape is None else side_shape
+        n, n_side = math.prod(shape), math.prod(side_shape)
+        nbytes = (2 * n + n_sides * n_side) * size
+        sets = []
+        for _ in range(copies_for(nbytes, 160_000_000, 8)):
+            x = torch.randn(shape, device=dev, generator=g)
+            if label in ("log", "sqrt"):
+                x = x.abs() + 0.05
+            sets.append((x.to(dtype), [torch.randn(side_shape, device=dev, generator=g).to(dtype)
+                                       for _ in range(n_sides)]))
+        x, sides = sets[0]
+        got, again = fused_chain_cuda(x, steps, sides), fused_chain_cuda(x, steps, sides)
+        want = fused_chain_ref(x, steps, sides)
+        torch.cuda.synchronize()
+        ulps = chain_ulps(torch, got, want)
+        require(got.dtype == dtype and torch.equal(got, again) and ulps <= CHAIN_ULPS_16,
+                f"{kname} {label}: {ulps} ulps from plain (bound {CHAIN_ULPS_16}), or two "
+                f"launches differ")
+        fin = torch.isfinite(want)
+        err = float((got[fin].float() - want[fin].float()).abs().max())
+        t = time_ms(torch, [lambda s_=st: fused_chain_cuda(s_[0], steps, s_[1]) for st in sets],
+                    20)
+        tp = time_ms(torch, [lambda s_=st: fused_chain_ref(s_[0], steps, s_[1]) for st in sets],
+                     10)
+        lib, note = None, NO_LIBRARY["chain"]
+        library = chain_library(torch, steps)
+        if library is not None:
+            fn, name = library
+            lib = time_ms(torch, [lambda s_=st: fn(s_[0], s_[1]) for st in sets], 20)
+            note = f"{name}, {str(dtype).removeprefix('torch.')}"
+        record(kname, f"{label} {list(shape)} ({ulps:g} ulp)", err,
+               CHAIN_ULPS_16 * float(want[fin].float().abs().max()) * 2.0 ** (
+                   -7 if dtype == torch.bfloat16 else -10), t, tp, nbytes,
+               4 * len(steps) * n, lib, note, ulps=ulps)
+
+
 def check_megacalls(torch, dev, g, record, weights):
     """K14 and K15 (bf16 and f32 operands) against their plain versions on
     one random stack of Q4_0 layers and a random stacked bf16 cache, at
@@ -2385,6 +2675,13 @@ def end_to_end(torch, model, prompts, name, summary):
         mega = MEGA_PATHS[name]
         require(launches[mega] == steps,
                 f"[{name}] {mega} launched {launches[mega]} times for {steps} decode tokens")
+    if name in LAYER_PATHS:
+        # one launch a layer per decode token (K7 with the FFN inside)
+        steps = global_profile.counters["decode_tokens"]
+        kern, want = LAYER_PATHS[name], steps * model.cfg.n_layers
+        require(launches[kern] == want,
+                f"[{name}] {kern} launched {launches[kern]} times for {steps} decode tokens x "
+                f"{model.cfg.n_layers} layers")
     for out, label in zip(outs, labels):
         require(len(out) == 32 and all(0 <= t < vocab for t in out),
                 f"[{name}] {label} gave {out}")
@@ -3085,8 +3382,23 @@ def train_paths(torch, dev, models, summary, launches):
     for label, tr in frozen_tr.items():      # their projections run K2's bf16 form
         grad_check(torch, tr, label, summary, proj_out=True)
     checkpoint_roundtrip(torch, frozen_tr["train_q4_frozen"], "train_q4_frozen", summary)
+    # train_q4_short: the same frozen models on B 1 x T 32 windows (every
+    # call of <= 32 rows: K1 projections, the fused FFN K6b / K6a's no-norm
+    # form with its backward, K11, K10), the Q4_0 file then the Q8_0 one
+    short_tr = {}
+    for kind, label in (("q4_0", "train_q4_short"), ("q8_0", "train_q8_short")):
+        model = models["tinyllama-1.1b", kind]
+        tr, merge = frozen(model)
+        short_tr[label] = Trainer(llama_loss(model.cfg, merge), tr,
+                                  corpus_batches(torch, dev, FROZEN_B, SHORT_T,
+                                                 TRAIN_STEPS[label]))
+    launches["train_q4_short"] = train_path(torch, "train_q4_short", short_tr, summary)
+    for label, tr in short_tr.items():        # K1's int8 activations, as K2's bf16 form
+        grad_check(torch, tr, label, summary, proj_out=True)
+    checkpoint_roundtrip(torch, short_tr["train_q4_short"], "train_q4_short", summary)
     return {"train_dense": trainers["train_dense"],
-            "train_q4_frozen": frozen_tr["train_q4_frozen"]}
+            "train_q4_frozen": frozen_tr["train_q4_frozen"],
+            "train_q4_short": short_tr["train_q4_short"]}
 
 
 def graph_ffn_graph():
@@ -3238,9 +3550,151 @@ def graph_sub_path(torch, dev, summary):
     return launches
 
 
-def graph_rates(torch, gf, feeds, card, summary):
-    """ms per graph_ffn run and per value_and_grad, in turns (run, vag, vag,
-    run per round), GRAPH_RATE_ROUNDS rounds, the median of each."""
+def graph_ffn_bf16_graph():
+    """graph_ffn's FFN on r = GRAPH_RES_SCALE x + a, all vars bf16:
+    h = rmsnorm(r) * g; y = (silu(h @ w_gate) * (h @ w_up)) @ w_down + r;
+    loss = mean(y^2)."""
+    from zgml_tpu_torch.graph import var
+    x, a = var("x", (GRAPH_ROWS, GRAPH_D)), var("a", (GRAPH_ROWS, GRAPH_D))
+    g = var("g", (GRAPH_D,))
+    wg, wu = var("w_gate", (GRAPH_D, GRAPH_F)), var("w_up", (GRAPH_D, GRAPH_F))
+    wd = var("w_down", (GRAPH_F, GRAPH_D))
+    r = x.scale(GRAPH_RES_SCALE).add(a)
+    h = r.rms_norm(g)
+    y = h.matmul(wg).silu().mul(h.matmul(wu)).matmul(wd).add(r)
+    return y.sqr().mean(), r
+
+
+@contextlib.contextmanager
+def chain_nudge(torch, sign):
+    """Inside: every plain chain output (elementwise.fused_chain_ref, which
+    force_ref() runs) moved by one ulp of its dtype towards sign * inf, a
+    constant, so the gradient's function stays the plain one."""
+    from zgml_tpu_torch.ops import elementwise
+    plain = elementwise.fused_chain_ref
+
+    def nudged(x, steps, sides):
+        out = plain(x, steps, sides)
+        with torch.no_grad():
+            bits = {torch.bfloat16: 8, torch.float16: 11}.get(out.dtype, 24)
+            _, e = torch.frexp(out.detach().float())
+            step = sign * torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - bits)
+        return (out.float() + step).to(out.dtype)
+    elementwise.fused_chain_ref = nudged
+    try:
+        yield
+    finally:
+        elementwise.fused_chain_ref = plain
+
+
+def graph_ffn_bf16_path(torch, dev, summary):
+    """graph_ffn_bf16 (GRAPH_RES_SCALE above): the fusion report has
+    GRAPH_BF16_CHAINS; one run and one value_and_grad with respect to gamma
+    and the three weights launch K13's bf16 form once and its f32 form twice
+    per forward and nothing else; the bf16 chain's output (r alone, the same
+    feeds) within GRAPH_BF16_ULPS ulp per element of force_ref()'s; the loss
+    and gradients within max(2 bf16 ulps of max|ref|, SENS_MARGIN x the plain
+    graph's move under chain_nudge) of force_ref() and of fuse=False;
+    GRAPH_SGD_STEPS of SGD (f32 master weights, bf16 in the graph) lower the
+    loss. Returns (launches, the fused graph, its feeds) for phase 4."""
+    from zgml_tpu_torch.graph import ComputeGraph
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.optim.sgd import sgd_update
+    from zgml_tpu_torch.runtime.profile import global_profile
+    name = "graph_ffn_bf16"
+    set_path("default")
+    loss, r = graph_ffn_bf16_graph()
+    gf, gu = ComputeGraph(loss, device=dev), ComputeGraph(loss, fuse=False, device=dev)
+    chains = [[n.op.value for n in c.nodes] for c in gf.fusion.chains]
+    require(sorted(chains) == sorted(GRAPH_BF16_CHAINS),
+            f"[{name}] fusion report has chains {chains}, want {GRAPH_BF16_CHAINS}:\n"
+            f"{gf.report()}")
+    feeds = {k: v.to(torch.bfloat16) for k, v in graph_ffn_feeds(torch, dev).items()}
+    feeds["a"] = (torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        (GRAPH_ROWS, GRAPH_D)).astype(np.float32) * GRAPH_STD)).to(dev, torch.bfloat16)
+    vag = gf.value_and_grad(GRAPH_WRT)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    out = gf.run(**feeds)
+    val, grads = vag(**feeds)
+    torch.cuda.synchronize()
+    tiers = global_profile.tier_summary()
+    launches, plain = _launches(tiers), {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    log(f"  [{name}] one run and one value_and_grad; placement: {tiers}")
+    require(launches["fused_chain_bf16"] == 2 and launches["fused_chain"] == 4,
+            f"[{name}] K13 launched {launches['fused_chain_bf16']} times in bf16 and "
+            f"{launches['fused_chain']} in f32, want 2 and 4 (per forward one bf16 chain, "
+            f"two f32 ones)")
+    require(all(n == 0 for k, n in launches.items()
+                if k not in ("fused_chain", "fused_chain_bf16")),
+            f"[{name}] a kernel of another path launched: {launches}")
+    require(not plain, f"[{name}] plain tier ran on the graph path: {plain}")
+    rg = ComputeGraph(r, device=dev)
+    r_feeds = {k: feeds[k] for k in ("x", "a")}
+    r_got = rg.run(**r_feeds)
+    with force_ref():
+        r_want = rg.run(**r_feeds)
+    r_ulps = chain_ulps(torch, r_got, r_want)
+    require(r_got.dtype == torch.bfloat16 and r_ulps <= GRAPH_BF16_ULPS,
+            f"[{name}] the bf16 chain's output is {r_ulps} ulps from force_ref()'s")
+    with force_ref():
+        out_r = gf.run(**feeds)
+        val_r, grads_r = vag(**feeds)
+        moves = {"loss": 0.0, **{k: 0.0 for k in GRAPH_WRT}}
+        for sign in (1.0, -1.0):
+            with chain_nudge(torch, sign):
+                val_n, grads_n = vag(**feeds)
+            moves["loss"] = max(moves["loss"], float((val_n - val_r).abs()))
+            for k in GRAPH_WRT:
+                moves[k] = max(moves[k], float((grads_n[k].float() - grads_r[k].float())
+                                               .abs().max()))
+    out_u = gu.run(**feeds)
+    val_u, grads_u = gu.value_and_grad(GRAPH_WRT)(**feeds)
+    torch.cuda.synchronize()
+
+    def bound(ref, move):
+        top = ref.float().abs().max()
+        return max(float(2 * bf16_ulp(torch, top)), SENS_MARGIN * move)
+    rows = {"loss vs force_ref": (val, val_r, moves["loss"]),
+            "loss vs fuse=False": (val_u, val_r, moves["loss"]),
+            "run vs force_ref": (out, out_r, moves["loss"])}
+    for k in GRAPH_WRT:
+        rows[f"d{k} vs force_ref"] = (grads[k], grads_r[k], moves[k])
+        rows[f"d{k} vs fuse=False"] = (grads_u[k], grads_r[k], moves[k])
+    errs = {k: (float((a.float() - b.float()).abs().max()), bound(b, m))
+            for k, (a, b, m) in rows.items()}
+    bad = {k: v for k, v in errs.items() if not v[0] <= v[1]}
+    require(bool(torch.isfinite(out)) and all(bool(torch.isfinite(g.float()).all())
+                                              for g in grads.values()) and not bad,
+            f"[{name}] off its references (max abs err, bound): {bad}")
+    log(f"  [{name}] loss {float(out):.6f}; the bf16 chain {r_ulps:g} ulp from force_ref(); "
+        f"(max abs err, bound): " + ", ".join(f"{k} {e:.3g} / {b:.3g}"
+                                               for k, (e, b) in errs.items()))
+    # mixed precision: f32 master weights, their bf16 copies in the graph (a
+    # bf16 weight does not move under updates below half its ulp)
+    master = {k: feeds[k].float() for k in GRAPH_WRT}
+    losses = []
+    for _ in range(GRAPH_SGD_STEPS):
+        val, grads = vag(**{**feeds, **{k: v.to(torch.bfloat16) for k, v in master.items()}})
+        losses.append(float(val))
+        master = sgd_update(master, {k: v.float() for k, v in grads.items()}, GRAPH_LR)
+    losses.append(float(gf.run(**{**feeds, **{k: v.to(torch.bfloat16)
+                                              for k, v in master.items()}})))
+    require(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+            f"[{name}] {GRAPH_SGD_STEPS} SGD steps at lr {GRAPH_LR} did not lower the loss: "
+            f"{losses}")
+    log(f"  [{name}] {GRAPH_SGD_STEPS} SGD steps at lr {GRAPH_LR} (f32 master weights, bf16 in "
+        f"the graph): loss {losses}")
+    summary.setdefault("graph", {})[name] = dict(
+        chains=chains, report=gf.report(), launches=launches, placement=tiers, loss=float(out),
+        chain_ulps=r_ulps, errs=errs, plain_moves=moves, sgd_losses=losses, lr=GRAPH_LR,
+        res_scale=GRAPH_RES_SCALE)
+    return launches, gf, feeds
+
+
+def graph_rates(torch, gf, feeds, card, summary, name="graph_ffn"):
+    """ms per run of graph `name` and per value_and_grad, in turns (run, vag,
+    vag, run per round), GRAPH_RATE_ROUNDS rounds, the median of each."""
     vag = gf.value_and_grad(GRAPH_WRT)
     calls = {"run": lambda: gf.run(**feeds), "value_and_grad": lambda: vag(**feeds)}
     runs = {k: [] for k in calls}
@@ -3255,11 +3709,11 @@ def graph_rates(torch, gf, feeds, card, summary):
     for k, ts in runs.items():
         med = statistics.median(ts)
         out[k] = dict(ms=med * 1e3, runs_s=ts)
-        log(f"  [graph_ffn] {k}: {med * 1e3:.2f} ms (median of {len(ts)}; fastest "
+        log(f"  [{name}] {k}: {med * 1e3:.2f} ms (median of {len(ts)}; fastest "
             f"{min(ts) * 1e3:.2f})  [{card}]")
-    summary.setdefault("graph_rates", {})["graph_ffn"] = dict(out, card=card,
-                                                              rounds=GRAPH_RATE_ROUNDS)
-    train_profile(torch, lambda: vag(**feeds), "graph_ffn", summary, key="graph_profile",
+    summary.setdefault("graph_rates", {})[name] = dict(out, card=card,
+                                                       rounds=GRAPH_RATE_ROUNDS)
+    train_profile(torch, lambda: vag(**feeds), name, summary, key="graph_profile",
                   what="one value_and_grad")
 
 
@@ -3347,6 +3801,7 @@ def main() -> int:
         "Llama-2-7B shapes)")
     t0 = time.perf_counter()
     checks = check_kernels(torch, dev, summary.get("ptxas_decode_q8", []))
+    summary["ffn_vjp"] = checks.pop("_ffn_vjp")
     log(f"  phase 2 took {time.perf_counter() - t0:.1f} s")
 
     log("== 3. end to end: TinyLlama-1.1B, the default and unfused paths at Q4_0, the "
@@ -3379,6 +3834,7 @@ def main() -> int:
     log(f"  phase 3 (training) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches["graph_ffn"], graph, graph_feeds = graph_ffn_path(torch, dev, summary)
+    launches["graph_ffn_bf16"], graph16, graph16_feeds = graph_ffn_bf16_path(torch, dev, summary)
     launches["graph_sub"] = graph_sub_path(torch, dev, summary)
     log(f"  phase 3 (graph tier) took {time.perf_counter() - t0:.1f} s")
 
@@ -3394,6 +3850,7 @@ def main() -> int:
     for name, tr in trainers.items():
         train_profile(torch, lambda t_=tr: t_.step(0), name, summary)
     graph_rates(torch, graph, graph_feeds, card, summary)
+    graph_rates(torch, graph16, graph16_feeds, card, summary, "graph_ffn_bf16")
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [kernel_line(name, checks[name], {p: n[name] for p, n in launches.items()})

@@ -274,10 +274,10 @@ def test_chain_with_mapped_sides_matches_jax(name):
 
 def test_program_layout_matches_the_kernel():
     """ops/elementwise._Program is csrc/elementwise.cu's Program (its
-    static_assert: 456 bytes), field by field."""
-    assert ctypes.sizeof(_Program) == 456
+    static_assert: 520 bytes), field by field."""
+    assert ctypes.sizeof(_Program) == 520
     assert (_Program.steps.offset, _Program.sides.offset, _Program.n_steps.offset,
-            _Program.n_sides.offset) == (0, 256, 448, 452)
+            _Program.n_sides.offset) == (0, 320, 512, 516)
 
 
 @pytest.mark.parametrize("n", [1, 315, 4099, 512 * 2048, 512 * 5632, 2048 * 2048, 2 ** 31 + 8])

@@ -182,9 +182,12 @@ def test_init_params_defaults_to_the_card_and_training_follows_params():
 
 
 def test_kernels_without_backward_raise_under_grad():
-    """K4, K5, K6*, K7, K8 and K9 have no backward: called with grad enabled on
-    an input that requires it they raise, naming the ROADMAP item, and never
-    return a result whose gradient would be silently zero."""
+    """K4, K5, K6's normed form, K7, K8 and K9 have no backward (nor have the
+    JAX package's kernels): called with grad enabled on an input that
+    requires it they raise, naming the ROADMAP item, and never return a
+    result whose gradient would be silently zero. The fused FFN of <= 32
+    rows (K6b / K6a's no-norm form) has one (ops/ffn.FusedFFN, as JAX's
+    `_ffn_diff`): it gives a gradient."""
     x = torch.zeros(1, 1, 32, requires_grad=True)
     gu, wd = _pw_n(64), PackedWeight(32, 32, torch.zeros(32, 16, dtype=torch.uint8),
                                      torch.zeros(32, 1, dtype=torch.float16))
@@ -195,7 +198,6 @@ def test_kernels_without_backward_raise_under_grad():
     calls = [
         lambda: dispatch.qmatmul_greedy(x, _pw("cpu")),
         lambda: dispatch.fused_ffn_norm(x, torch.ones(32), gu, wd, 1e-5),
-        lambda: dispatch.fused_ffn(x, gu, wd),
         lambda: dispatch.attn_block(x, torch.ones(32), _pw_n(96), _pw_n(32), cache, cache, 0,
                                     torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
                                     torch.zeros(1, 16), 1, 1, 1e-5),
@@ -208,6 +210,8 @@ def test_kernels_without_backward_raise_under_grad():
             call()
     with torch.no_grad():
         assert dispatch.decode_attention(q, kv, kv, 4).shape == q.shape
+    (g,) = torch.autograd.grad(dispatch.fused_ffn(x, gu, wd).sum(), x)
+    assert g.shape == x.shape
 
 
 def test_flash_attention_refuses_kv_row_under_grad():
@@ -291,18 +295,22 @@ def test_graph_and_demos_default_to_the_card():
 
 
 def test_k12_k13_wrappers_refuse_what_their_kernels_do_not_take():
-    """K13 refuses a chain that is not float32 (naming the ROADMAP item, on
-    any device) and, like K12, a tensor off the card; K12 refuses other
-    dtypes."""
-    from zgml_tpu_torch.ops.elementwise import Step, fused_chain_cuda
+    """K13 refuses a chain of a dtype it has no form for (float64, on any
+    device), a chain whose value would leave x's dtype (as the JAX kernel's
+    store does) and, like K12, a tensor off the card (bf16 / f16 / int32
+    chains included: they have forms); K12 refuses other dtypes."""
+    from zgml_tpu_torch.ops.elementwise import Step, check_dtype, fused_chain_cuda
     from zgml_tpu_torch.ops.rmsnorm import rmsnorm_cuda
     steps = [Step("exp"), Step("mul", side=0)]
-    for dt in (torch.float64, torch.bfloat16, torch.float16):
-        x = torch.zeros(4, 8, dtype=dt)
-        with pytest.raises(NotImplementedError, match=r"float32.*ROADMAP\.md B\.4"):
-            fused_chain_cuda(x, steps, [x])
+    x = torch.zeros(4, 8, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="float32"):
-        fused_chain_cuda(torch.zeros(4, 8), steps, [torch.zeros(8, dtype=torch.float64)])
+        fused_chain_cuda(x, steps, [x])
+    for dt in (torch.bfloat16, torch.float16):
+        x = torch.zeros(4, 8, dtype=dt)
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_chain_cuda(x, steps, [x])
+    with pytest.raises(ValueError, match="chain's value"):
+        check_dtype(torch.zeros(4, 8), steps, [torch.zeros(8, dtype=torch.float64)])
     with pytest.raises(ValueError, match="CUDA"):
         fused_chain_cuda(torch.zeros(4, 8), steps, [torch.zeros(8)])
     with pytest.raises(ValueError, match="CUDA"):

@@ -532,16 +532,16 @@ def test_i8a_run_takes_the_int8_tier(i8a_runs):
 
 def test_layer_ffn_step_logits_match_jax(layer_ffn_runs):
     """ZGML_TPU_LAYER_FFN=1 at the int8 tier: JAX's K7 runs the FFN as its
-    f32 phase E, so the port runs K6d after K7 (not K6c); each step from the
-    JAX cache of that step within 1e-5 * max|logit|, each layer's placement
-    attn_block_i8 + fused_ffn_norm. Before the port read the flag it ran K6c
-    and its step sat 1.43e-2 * max|logit| away (ROADMAP C.1)."""
+    f32 phase E, so the port runs K7 with its phase E (K6d's f32 function
+    inside the launch, not K6c); each step from the JAX cache of that step
+    within 1e-5 * max|logit|, each layer's placement one attn_block_i8_ffn
+    and no separate FFN. Before the port read the flag it ran K6c and its
+    step sat 1.43e-2 * max|logit| away (ROADMAP C.1)."""
     _check_steps(layer_ffn_runs)
     tiers = layer_ffn_runs["tiers"]
     n = 2 * N_DECODE * DEFAULT_CFG.n_layers
-    assert tiers["attn_block_i8"] == {"ref": n}
-    assert tiers["fused_ffn_norm"] == {"ref": n}
-    assert "fused_ffn_norm_i8" not in tiers, tiers
+    assert tiers["attn_block_i8_ffn"] == {"ref": n}
+    assert not set(tiers) & {"attn_block_i8", "fused_ffn_norm", "fused_ffn_norm_i8"}, tiers
 
 
 @pytest.mark.parametrize("attn_i8a", ["1", "0"])

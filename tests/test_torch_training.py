@@ -305,16 +305,22 @@ def test_frozen_quantized_step_grads_match_jax(quant_paths, monkeypatch, kind):
 
 
 def test_grad_through_a_kernel_without_backward_raises(quant_paths):
-    """A call of <= 32 rows reaches the fused FFN K6b, which has no backward:
-    under autograd it raises instead of returning a zero gradient."""
+    """K6's normed form (K6d here), which has no backward in JAX either,
+    raises under autograd instead of returning a zero gradient. A call of
+    <= 32 rows now reaches the fused FFN K6b through ops/ffn.FusedFFN, which
+    has one: the model's forward at 16 rows gives a gradient."""
+    from zgml_tpu_torch.ops import dispatch
     tmodel, tgf = load_llama(quant_paths["q4_0"], device="cpu")
     tgf.close()
+    ly = tmodel.params["layers"][0]
+    x = torch.zeros((1, 1, QUANT_CFG.d_model), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K6d.*ROADMAP"):
+        dispatch.fused_ffn_norm(x, ly["ffn_norm"], ly["w_gate_up"], ly["w_down"], 1e-5)
     tokens = torch.zeros((1, 16), dtype=torch.int64)
     tr = {"tok_embd": tmodel.params["tok_embd"].clone().requires_grad_()}
-    with pytest.raises(NotImplementedError, match="K6b.*ROADMAP"):
-        LlamaModel(QUANT_CFG, {**tmodel.params, **tr})(tokens)
-    with torch.no_grad():
-        assert LlamaModel(QUANT_CFG, {**tmodel.params, **tr})(tokens).shape == (1, 16, 96)
+    out = LlamaModel(QUANT_CFG, {**tmodel.params, **tr})(tokens)
+    (g,) = torch.autograd.grad(out.sum(), tr["tok_embd"])
+    assert out.shape == (1, 16, 96) and bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0)
 
 
 # -- train_supervised -------------------------------------------------------------

@@ -1,6 +1,11 @@
 // K6 fused_ffn_norm: y = x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * g,
 // for M <= 32 rows, in one launch: f32 dequant at Q4_0 (K6d) or Q8_0 (K6a),
-// or at Q4_0 with int8 gate|up (K6c).
+// or at Q4_0 with int8 gate|up (K6c). K6a's no-norm form (g null): y =
+// down(silu(gate(x)) * up(x)), no norm and no residual, the JAX kernel's
+// form behind `fused_ffn_pallas` (`_ffn_impl` with g zeros and norm_eps None,
+// ffn.py:644-650), which the JAX package runs for a Q8_0 FFN call of <= 32
+// rows in `_layer_step`; the port runs it there under autograd (the fused
+// FFN's forward, ops/ffn.FusedFFN).
 //
 // Replaces: zgml_tpu/ops/ffn.py `_ffn_q4n_kernel` (pallas_call at line 459,
 // entry `fused_ffn_norm_q4n`), which the JAX package's fused decode runs
@@ -78,10 +83,12 @@ __global__ void __launch_bounds__(ws::THREADS, 1) ffn_norm_kernel(FfnParams p, w
   ws::ring_init(smem, a.ring);
   const int groups = (p.M + MR - 1) / MR;
   // the first group's x rows and g, copied ahead of the weights where both
-  // are 16-byte aligned (the later groups' rows are read as they are)
+  // are 16-byte aligned (the later groups' rows, and every row of the
+  // no-norm form, are read as they are)
   float* xin = reinterpret_cast<float*>(smem + a.ring.act_off + MR * staged_row_bytes<I8>(p.D));
   const int rows0 = p.M < MR ? p.M : MR;
-  const bool copy_x = ws::aligned16(p.x) && ws::aligned16(p.g);
+  const bool norm = p.g != nullptr;
+  const bool copy_x = norm && ws::aligned16(p.x) && ws::aligned16(p.g);
   if (threadIdx.x >= ws::CONSUMERS) {      // the producer warp: one thread copies
     if (threadIdx.x == ws::CONSUMERS) {
       if (copy_x) ws::produce_x(smem, xin, p.x, rows0 * p.D * 4, p.g, p.D * 4);
@@ -127,8 +134,13 @@ __global__ void __launch_bounds__(ws::THREADS, 1) ffn_norm_kernel(FfnParams p, w
         } else {
           ws::zero_words(reinterpret_cast<uint32_t*>(xq), xq_row);
         }
-      } else if (m < rows) {
+      } else if (m < rows && norm) {
         ws::stage_norm(xr + (size_t)m * p.D, gr, p.D, p.eps, act + m * xs_row, red);
+      } else if (m < rows) {               // the no-norm form: the row as it is
+        const float* src = xr + (size_t)m * p.D;
+        float* dst = act + m * xs_row;
+        for (int i = threadIdx.x; i < p.D; i += ws::CONSUMERS)
+          dst[(i >> 5) * ws::XPAD + (i & 31)] = src[i];
       } else {
         ws::zero_words(reinterpret_cast<uint32_t*>(act + m * xs_row), xs_row);
       }
@@ -180,7 +192,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) ffn_norm_kernel(FfnParams p, w
           const float s = warp_sum(acc[r][m]);
           if (lane == 0 && m < rows) {
             const size_t o = (size_t)(m0 + m) * p.D + row + at[r];
-            p.y[o] = __ldcg(p.x + o) + s;
+            p.y[o] = norm ? __ldcg(p.x + o) + s : s;
           }
         }
     });
@@ -217,7 +229,8 @@ int launch_rows(const FfnParams& p, const int* plan, const int* bounds, int devi
 
 // kind 0 (q4_0) or 1 (q8_0); a_i8 1 for K6c (q4_0 only: then xq_out int8
 // [M, D] and xs_out f32 [M, D/32] receive its activations unless null), 0 for
-// the f32 K6d / K6a; x f32 [M, D], g f32 [D], w_gate_up (qs [2F, D/32 *
+// the f32 K6d / K6a; x f32 [M, D], g f32 [D] (null: the no-norm form, no norm
+// and no residual; f32 only), w_gate_up (qs [2F, D/32 *
 // BYTES], d fp16 [2F, D/32]), w_down (qs [D, F/32 * BYTES], d fp16 [D, F/32]),
 // the planes 16-byte aligned -> y f32 [M, D]; act f32 [M, F] scratch; bar:
 // two uint32 words of a zeroed workspace; plan: the host ints of
@@ -229,7 +242,7 @@ ZGML_EXPORT int zgml_ffn_norm(int kind, int a_i8, const float* x, const float* g
                               int8_t* xq_out, float* xs_out, int M, int D, int F, float eps,
                               const int* plan, const int* bounds, int device, void* stream) {
   if (M <= 0 || M > 32 || D <= 0 || F <= 0 || D % 32 != 0 || F % 32 != 0 || plan == nullptr ||
-      bounds == nullptr)
+      bounds == nullptr || (a_i8 && g == nullptr))
     return ZGML_ERR_SHAPE;
   const FfnParams p{x, g, gu_qs, static_cast<const __half*>(gu_d), dn_qs,
                     static_cast<const __half*>(dn_d), y, act, bar, xq_out, xs_out, M, D, F, eps};

@@ -9,7 +9,9 @@
 // which the JAX package turns on where the padded width is >= 4096), phases B
 // and C, both caches (bf16, and the int8 `kv_i8` one, layerkernel.py:223-267,
 // which the JAX package runs for every layer of a batch-1 decode with
-// `--kv int8`). Not ported: phase E (the FFN merge, off by default).
+// `--kv int8`), and phase E (`has_ffn`, layerkernel.py:91-123, 343, 392,
+// gated at :758-765 by ZGML_TPU_LAYER_FFN=1, off by default: the layer's
+// Q4_0 FFN in the same launch, the f32 function whatever the A phase).
 //
 // Semantics (the plain version is ops/layerkernel.py attn_block_ref), for x
 // f32 [d] at position pos (an int32 on the device, so a step needs no host
@@ -74,170 +76,31 @@
 //      plus the residual.
 // With pos = 0 phase B is empty and att = v_cur. No float atomics: the
 // merge takes the chunks in their fixed order, whichever block runs it.
-#include "layer_phases.cuh"
+//
+// Phase E (template flag E, Q4_0 only, as JAX's has_ffn): after C a grid
+// barrier, then K6d's function at one row on x2 = x_out, streamed through
+// the same ring as K14 streams a layer (stack_decode.cu): the producer runs
+// on from wo into w_gate_up (in (gate row, up row) runs) and w_down, held by
+// the Gate (`ahead` stages past the last phase whose rows the consumers
+// staged, so gate|up's first slots are in flight while B and C run); the
+// consumers copy x2 into shared memory as a raw row (K14's staging of x2:
+// read back with __ldcg after the barrier, behind at most `ahead` stages of
+// copies), norm it with ffn_norm, dot gate|up into act = silu(gate) * up
+// (a global scratch row), and after one more grid barrier dot w_down plus
+// the raw row's residual into x_out. The dots, the norm and the SwiGLU are
+// K6d's at M 1 in its order, so x_out is bit-equal to the chain K7 + K6d.
+#include "layer_attn.cuh"
 
 namespace {
 
-// Bytes of phase A's staged activations: the normed x, f32 or int8.
-template <bool AI8>
-__host__ __device__ size_t staged_a_bytes(int d) {
-  return AI8 ? (size_t)ws::xq_words(d) * 4 : (size_t)d / 32 * ws::XPAD * 4;
-}
-
-// Bytes of the activation area the phases use (ops/decode_plan.py
-// attn_act_bytes): phase A's staged row and, behind it, x and g as copied;
-// phase B's chunk and an int for each of a block's `items`; phase C's
-// staged attention.
-template <int D, bool AI8, bool KV8>
-size_t attn_act_bytes(int d, int hq, int hkv, int items) {
-  const size_t a = staged_a_bytes<AI8>(d) + (size_t)2 * d * 4;
-  const size_t b = decode_chunk_smem_bytes<D, KV8>(hq / hkv) + (size_t)4 * items;
-  const size_t c = (size_t)hq * D / 32 * ws::XPAD * 4;
-  return a > b ? (a > c ? a : c) : (b > c ? b : c);
-}
-
-template <class F, int D, bool AI8, bool KV8>
-__global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams p, ws::Args a) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  ws::ring_init(smem, a.ring);
-  // x and g, copied ahead of the weights where both are 16-byte aligned
-  float* xin = reinterpret_cast<float*>(smem + a.ring.act_off + staged_a_bytes<AI8>(p.d));
-  const bool copy_x = ws::aligned16(p.x) && ws::aligned16(p.g);
-  if (threadIdx.x >= ws::CONSUMERS) {      // the producer warp: one thread copies
-    if (threadIdx.x == ws::CONSUMERS) {
-      if (copy_x) ws::produce_x(smem, xin, p.x, p.d * 4, p.g, p.d * 4);
-      int range[4], n = 0;
-      ws::block_ranges<2>(a.ph, range);
-      ws::Gate<2> gate;                    // wo: `ahead` stages until att is staged
-      ws::produce<F>(smem, a.ring, a.ph[0], range[0], range[1], n, gate, false);
-      gate.start(a.ph, range, a.ring.ahead);
-      ws::produce<F>(smem, a.ring, a.ph[1], range[2], range[3], n, gate, true);
-      ws::produce_tail(smem, a.ring, n);
-    }
-    return;
-  }
-  ws::CountBarrier gb;
-  gb.start(p.bar + 2);
-  float* red = ws::red_area(smem);
-  float* act = reinterpret_cast<float*>(smem + a.ring.act_off);
-  const int lane = threadIdx.x & 31;
-  const int pos = __ldg(p.pos);
-  constexpr int HALF = D / 2;
-  constexpr int R = ws::ITEM_ROWS;         // a RoPE pair an item
-  int n = 0;
-
-  // A: norm (and quantize) x, then QKV in RoPE pairs, rotate, emit
-  const float* xr = p.x;
-  const float* gr = p.g;
-  if (copy_x) {
-    ws::mbar_wait(ws::x_bar(smem), 0);
-    xr = xin;
-    gr = xin + p.d;
-  }
-  if constexpr (AI8) {
-    ws::stage_norm_i8(xr, gr, p.d, p.eps, reinterpret_cast<int*>(act), red, p.xq_out,
-                      p.xs_out);
-  } else {
-    ws::stage_norm(xr, gr, p.d, p.eps, act, red);
-  }
-  ws::sync();
-  ws::consume<F, R>(smem, a.ring, a.ph[0], n, [&](const ws::StageView<F>& v, int i, int row) {
-    int j[R], at[R];
-    ws::item_rows<R>(v, i, j, at);
-    float acc[R][1];
-    if constexpr (AI8) {
-      ws::dot_i8<F, R, 1>(v, j, reinterpret_cast<const int*>(act), 0, lane, acc);
-    } else {
-      ws::dot_f32<F, R, 1>(v, j, act, 0, lane, acc);
-    }
-    float o[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) o[r] = warp_sum(acc[r][0]);
-#pragma unroll
-    for (int r = 0; r < R; r += 2) {       // the pair (row, row + hd/2) of RoPE
-      if (lane != 0) continue;
-      float o1 = o[r], o2 = o[r + 1];
-      const int r1 = row + at[r], h = r1 / D, ii = r1 % D;
-      if (h < p.hq + p.hkv) {              // q and k heads: x*[c,c] + rot(x)*[-s,s]
-        const float c = p.cos[ii], s = p.sin[ii];
-        const float y1 = o1, y2 = o2;
-        o1 = __fsub_rn(__fmul_rn(y1, c), __fmul_rn(y2, s));
-        o2 = __fadd_rn(__fmul_rn(y2, c), __fmul_rn(y1, s));
-      }
-      if (h < p.hq) {
-        p.q[h * D + ii] = o1;
-        p.q[h * D + ii + HALF] = o2;
-      } else {
-        const int kvh = h - p.hq;          // 0..hkv-1: k heads, hkv..2hkv-1: v heads
-        p.kv_cur[kvh * D + ii] = o1;
-        p.kv_cur[kvh * D + ii + HALF] = o2;
-        if constexpr (!KV8) {              // kv8: quantized after the combine
-          __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
-          const size_t c0 = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
-          cache[c0 + ii] = __float2bfloat16_rn(o1);
-          cache[c0 + ii + HALF] = __float2bfloat16_rn(o2);
-        }
-      }
-    }
-  });
-  gb.wait();
-  phase_b_merged<D, KV8>(p, act, a.counters);
-  gb.wait();
-
-  // C: x_out = x + att @ Wo^T
-  ws::stage_rows(p.att, p.hq * D, act);
-  ws::release(smem, 1);                    // wo may stream in full
-  ws::consume<F, R>(smem, a.ring, a.ph[1], n, [&](const ws::StageView<F>& v, int i, int row) {
-    int j[R], at[R];
-    ws::item_rows<R>(v, i, j, at);
-    float acc[R][1];
-    ws::dot_f32<F, R, 1>(v, j, act, 0, lane, acc);
-    float o[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) o[r] = warp_sum(acc[r][0]);
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) p.x_out[row + at[r]] = __ldcg(p.x + row + at[r]) + o[r];
-    }
-  });
-}
-
-template <class F, int D, bool AI8, bool KV8>
-int launch(const LayerParams& p, unsigned int* heads, const int* plan, const int* bounds,
-           int device, cudaStream_t st) {
-  static std::atomic<unsigned> ready{0};
-  const int nq = p.hq * D;
-  ws::Args a{{ws::plan_phase(plan, 0, p.wqkv_qs, p.wqkv_d, bounds, p.d),
-              ws::plan_phase(plan, 1, p.wo_qs, p.wo_d, bounds, nq)},
-             {plan[1], plan[2], ws::HEADER_BYTES + plan[1] * plan[2], plan[7]}, heads};
-  // the plan's phases: A over the (hq + 2 hkv) hd rows of wqkv in RoPE-pair
-  // runs of one head, C over the d rows of wo
-  const ws::Phase& pa = a.ph[0];
-  const ws::Phase& pc = a.ph[1];
-  if (plan[5] != 1 || plan[6] != 2 || pa.segs != 2 || pa.seg_off != D / 2 || pa.group_rows != D ||
-      pa.group_units * pa.unit_rows != D / 2 || pc.segs != 1 ||
-      !ws::plan_fits<F>(plan, a.ph, 2,
-                        attn_act_bytes<D, AI8, KV8>(p.d, p.hq, p.hkv,
-                                                    (p.hkv * p.n_split + plan[0] - 1) / plan[0])))
-    return ZGML_ERR_SMEM;
-  return ws::launch(layer_attn_kernel<F, D, AI8, KV8>, p, a, plan[0], plan[4], device, ready,
-                    st);
-}
-
-template <class F, bool AI8, bool KV8>
-int launch_hd(const LayerParams& p, unsigned int* heads, int hd, const int* plan,
-              const int* bounds, int device, cudaStream_t st) {
-  switch (hd) {      // the JAX rule's head dims (multiples of 32) up to 256
-    case 32: return launch<F, 32, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 64: return launch<F, 64, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 96: return launch<F, 96, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 128: return launch<F, 128, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 160: return launch<F, 160, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 192: return launch<F, 192, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 224: return launch<F, 224, AI8, KV8>(p, heads, plan, bounds, device, st);
-    case 256: return launch<F, 256, AI8, KV8>(p, heads, plan, bounds, device, st);
-    default: return ZGML_ERR_HEAD_DIM;
-  }
+// The modes of one weight format without phase E: the A phase and the cache.
+template <class F>
+int launch_modes(const LayerParams& p, int a_i8, int kv8, unsigned int* heads, int hd,
+                 const int* plan, const int* bounds, int device, cudaStream_t st) {
+  if (a_i8 && kv8) return launch_hd<F, true, true, false>(p, heads, hd, plan, bounds, device, st);
+  if (a_i8) return launch_hd<F, true, false, false>(p, heads, hd, plan, bounds, device, st);
+  if (kv8) return launch_hd<F, false, true, false>(p, heads, hd, plan, bounds, device, st);
+  return launch_hd<F, false, false, false>(p, heads, hd, plan, bounds, device, st);
 }
 
 }  // namespace
@@ -247,7 +110,10 @@ int launch_hd(const LayerParams& p, unsigned int* heads, int hd, const int* plan
 // unless null), 0 for the f32 one; kv8 1 for the int8 cache (ck/cv int8
 // levels and cks/cvs f32 scales [hkv, S]; qq_out int8 [hq, hd] and qs_out f32
 // [hq] receive the quantized q unless null), 0 for the bf16 one (cks, cvs,
-// qq_out, qs_out null); x f32 [d], g f32 [d], wqkv (qs [(hq+2hkv)hd, d/32 *
+// qq_out, qs_out null); g2 non-null for phase E (kind 0 only: g2 f32 [d]
+// ffn_norm, w_gate_up gu_qs / gu_d [2F, d], w_down dn_qs / dn_d [d, F], the
+// planes 16-byte aligned, act f32 [F] scratch; x_out 16-byte aligned), else
+// those null and F 0; x f32 [d], g f32 [d], wqkv (qs [(hq+2hkv)hd, d/32 *
 // BYTES], d fp16), wo (qs [d, hq hd/32 * BYTES], d fp16), both planes 16-byte
 // aligned, cos/sin f32 [hd/2], ck/cv layer slabs [hkv, S, hd] (written at row
 // *pos), pos int32 [1] on the device; outputs x_out f32 [d] and kv_cur f32
@@ -264,25 +130,27 @@ ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, con
                                 float* kv_cur, float* q, float* att, float* part,
                                 unsigned int* bar, int8_t* xq_out, float* xs_out, int8_t* qq_out,
                                 float* qs_out, int d, int hq, int hkv, int hd, int S, float eps,
-                                float scale, unsigned int* heads, const int* plan,
+                                float scale, unsigned int* heads, const float* g2,
+                                const uint8_t* gu_qs, const void* gu_d, const uint8_t* dn_qs,
+                                const void* dn_d, float* act, int F, const int* plan,
                                 const int* bounds, int device, void* stream) {
+  const int e = g2 != nullptr;
   if (d <= 0 || d % 32 != 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || S <= 0 ||
       (kv8 != 0) != (cks != nullptr && cvs != nullptr) || heads == nullptr || plan == nullptr ||
-      bounds == nullptr)
+      bounds == nullptr ||
+      (e && (F <= 0 || F % 32 != 0 || !gu_qs || !gu_d || !dn_qs || !dn_d || !act ||
+             !ws::aligned16(x_out))))
     return ZGML_ERR_SHAPE;
   const LayerParams p{x, g, wqkv_qs, static_cast<const __half*>(wqkv_d), wo_qs,
                       static_cast<const __half*>(wo_d), cos, sin, ck, cv, cks, cvs, pos,
                       x_out, kv_cur, q, att, part, bar, xq_out, xs_out, qq_out, qs_out, d, hq,
-                      hkv, S, (S + DA_CHUNK - 1) / DA_CHUNK, eps, scale};
+                      hkv, S, (S + DA_CHUNK - 1) / DA_CHUNK, eps, scale, g2, gu_qs,
+                      static_cast<const __half*>(gu_d), dn_qs, static_cast<const __half*>(dn_d),
+                      act, e ? F : 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a_i8 && kv8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, true>(p, heads, hd, plan, bounds, device, st))
-  }
-  if (a_i8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, true, false>(p, heads, hd, plan, bounds, device, st))
-  }
-  if (kv8) {
-    ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, true>(p, heads, hd, plan, bounds, device, st))
-  }
-  ZGML_DISPATCH_KIND(kind, return launch_hd<F, false, false>(p, heads, hd, plan, bounds, device, st))
+  if (e)             // JAX's has_ffn: Q4_0 only
+    return kind == 0 ? launch_attn_ffn(p, a_i8, kv8, heads, hd, plan, bounds, device, st)
+                     : (int)ZGML_ERR_KIND;
+  ZGML_DISPATCH_KIND(kind, return launch_modes<F>(p, a_i8, kv8, heads, hd, plan, bounds,
+                                                  device, st))
 }

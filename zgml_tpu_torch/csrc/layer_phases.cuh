@@ -38,6 +38,15 @@ struct LayerParams {
   float* qs_out;             // [hq] or null: its scales
   int d, hq, hkv, S, n_split;
   float eps, scale;
+  // K7's phase E (layer_attn.cu, E true; K14 leaves these null): the layer's
+  // FFN on x2 = the attention half's output
+  const float* g2;           // [d] ffn_norm
+  const uint8_t* gu_qs;      // w_gate_up [2F, d/32 * BYTES]: gate rows, then up rows
+  const __half* gu_d;        // [2F, d/32]
+  const uint8_t* dn_qs;      // w_down [d, F/32 * BYTES]
+  const __half* dn_d;        // [d, F/32]
+  float* act;                // [F] scratch: the SwiGLU row
+  int F;
 };
 
 // The merge of query head h (one warp): the n_live chunks' partials, in

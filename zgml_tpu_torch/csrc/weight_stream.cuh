@@ -164,13 +164,16 @@ struct Ring {
   int stages, slot_bytes, act_off, ahead;
 };
 
-// A launch's streaming arguments: its two phases, its ring, and (K7) words
-// of a zeroed workspace it leaves zeroed.
-struct Args {
-  Phase ph[2];
+// A launch's streaming arguments: its N phases, its ring, and (K7) words of
+// a zeroed workspace it leaves zeroed. K6 and K7 stream two weights; K7 with
+// its phase E four.
+template <int N>
+struct ArgsN {
+  Phase ph[N];
   Ring ring;
   unsigned int* counters;
 };
+using Args = ArgsN<2>;
 
 // Phase i of a launcher's host plan ints (PLAN_HEADER ints, then PHASE_INTS a phase).
 inline Phase plan_phase(const int* plan, int i, const uint8_t* qs, const void* d,

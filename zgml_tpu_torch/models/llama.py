@@ -11,7 +11,8 @@ stacked cache, chosen as the JAX package chooses them (config.py flags):
     (`_ffn_after_attn`, llama.py:217-260: at Q4_0 K6c where ZGML_TPU_FFN_I8A
     holds, by default at padded d >= 4096, else K6d; K6a at Q8_0), or the
     composed FFN when fused_ffn is switched off or at a width JAX does not
-    fuse at;
+    fuse at; under ZGML_TPU_LAYER_FFN=1 at Q4_0 (JAX's has_ffn) one launch of
+    K7 with its phase E per layer instead, the FFN inside it;
   - everything else (prefill, batch > 1, ATTN_BLOCK=0): the per-layer
     `_layer_step` path (llama.py:286-341, 397-459) with fused `wqkv` and
     `w_gate_up` projections and K3/K4 attention (K9/K8 over the int8 cache,
@@ -50,8 +51,11 @@ Training (``forward(tokens)`` with no cache): the JAX forward from a fresh
 `_layer_step` per layer. K and V are rounded to the cache's bf16 and handed
 to flash attention as they are, without the cache write (in place under
 autograd, layer 0's saved cache would be changed by layer 1); kv_len = T as
-the fresh cache gives. Under autograd flash attention is K10 and a quantized
-projection K2 (or K1) with K11 behind it; ops/dispatch.py picks them.
+the fresh cache gives. Under autograd flash attention is K10, a quantized
+projection K2 (or K1 at <= 32 rows) with K11 behind it, and an FFN call of
+<= 32 rows the fused FFN (K6b, K6a's no-norm form at Q8_0) whose backward
+recomputes gate|up at the projection tier and takes K11 (ops/ffn.FusedFFN);
+ops/dispatch.py picks them.
 
 ``params`` is a plain dict, as in the JAX package: tok_embd/out_norm f32,
 ``layers`` a list of {attn_norm, ffn_norm, wqkv, wo, w_gate_up, w_down} with
@@ -203,22 +207,23 @@ def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
     a width and kind it fuses at: ops/ffn.ffn_fuses), else composed from two
     projections (llama.py:217-260, 326-340), or from three dense ones
     (:506-508). Fused: after K7 one K6 launch with the norm and residual
-    inside (K6c or K6d at Q4_0, picked in ops/dispatch, K6d where JAX runs
-    K7's phase E; K6a at Q8_0); in `_layer_step` at Q4_0 rmsnorm, K6b and the
-    residual, as JAX composes them, and at Q8_0 K6a (the same f32 sums)."""
+    inside (K6c or K6d at Q4_0, picked in ops/dispatch; K6a at Q8_0; where
+    JAX runs K7's phase E the FFN is inside K7, `_fused_layer`); in
+    `_layer_step` at Q4_0 rmsnorm, K6b and the
+    residual, as JAX composes them, and at Q8_0 K6a (the same f32 sums).
+    Under autograd `_layer_step` takes JAX's composition at both kinds:
+    rmsnorm, the fused FFN (K6b, or K6a's no-norm form at Q8_0) through
+    ops/ffn.FusedFFN, the residual; JAX has no backward for the normed form."""
     if "w_gate" in layer:
         h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
         ff = refs.swiglu(ops.qmatmul(h, layer["w_gate"]), ops.qmatmul(h, layer["w_up"]))
         return x + ops.qmatmul(ff, layer["w_down"])
-    if after_attn_block and _phase_e(cfg, layer):
-        return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
-                                  cfg.rms_norm_eps, phase_e=True)
     rows = x.numel() // x.shape[-1]
     kind = layer["w_down"].kind
     fuses = (rows <= ffn.FFN_MAX_ROWS and config.kernel_on("fused_ffn")
              and layer["w_gate_up"].kind == kind
              and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block))
-    if fuses and (after_attn_block or kind == "q8_0"):
+    if fuses and (after_attn_block or (kind == "q8_0" and not ops.needs_grad(x))):
         return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
                                   cfg.rms_norm_eps)
     h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
@@ -232,10 +237,14 @@ def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
 
 def _fused_layer(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos_t, cos, sin):
     """Batch-1 decode of one token through one layer: K7 then the FFN
-    (llama.py:796-805, 366-395); K7 writes the layer's K/V row at pos."""
+    (llama.py:796-805, 366-395), or where JAX runs K7's phase E (`_phase_e`)
+    one K7 launch with the FFN inside it; K7 writes the layer's K/V row at
+    pos."""
+    ffn = ((layer["ffn_norm"], layer["w_gate_up"], layer["w_down"])
+           if _phase_e(cfg, layer) else None)
     x, _, _ = ops.attn_block(x, layer["attn_norm"], layer["wqkv"], layer["wo"], ck, cv, li,
-                             pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps)
-    return _ffn(cfg, x, layer, after_attn_block=True)
+                             pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps, ffn)
+    return x if ffn is not None else _ffn(cfg, x, layer, after_attn_block=True)
 
 
 class LlamaModel(torch.nn.Module):

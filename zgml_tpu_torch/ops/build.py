@@ -35,10 +35,10 @@ from zgml_tpu_torch import config
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
-           "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "flash_bwd.cu",
-           "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
-HEADERS = ("common.cuh", "decode_split.cuh", "layer_phases.cuh", "tf32_mma.cuh",
-           "weight_stream.cuh")
+           "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "layer_attn_ffn.cu",
+           "flash_bwd.cu", "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
+HEADERS = ("common.cuh", "decode_split.cuh", "layer_attn.cuh", "layer_phases.cuh",
+           "tf32_mma.cuh", "weight_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,11 +67,11 @@ _SIGNATURES = {
     "zgml_ffn_norm": (_I, _I, *(_P,) * 11, _I, _I, _I, _F, _IP, _P, _I, _P),
     "zgml_ffn": (_I, *(_P,) * 8, _I, _I, _I, _IP, _I, _P),
     "zgml_ffn_f32": (*(_P,) * 8, _I, _I, _I, _IP, _P, _I, _P),
-    "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P, _IP, _P, _I,
-                        _P),
+    "zgml_attn_block": (_I, _I, _I, *(_P,) * 23, _I, _I, _I, _I, _I, _F, _F, _P,
+                        *(_P,) * 6, _I, _IP, _P, _I, _P),
     "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
-    "zgml_fused_chain": (_P, _P, _LL, _P, _I, _P),
-    "zgml_fused_chain_blocks_per_sm": (_I, _I, ctypes.POINTER(ctypes.c_int)),
+    "zgml_fused_chain": (_I, _P, _P, _LL, _P, _I, _P),
+    "zgml_fused_chain_blocks_per_sm": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_stack_decode": (_I, *(_P,) * 17, *(_I,) * 7, _F, _F, _IP, _P, _I, _P),
 }
 
@@ -126,7 +126,9 @@ def build() -> tuple[pathlib.Path, float]:
     log, failed = [], []
     for cmd, proc in jobs:
         text, _ = proc.communicate()
-        log.append(" ".join(cmd) + "\n" + text)
+        # seconds from the start until this source's object was done (the
+        # jobs run together; a later one may have ended first)
+        log.append(" ".join(cmd) + f"\n[done after {time.perf_counter() - t0:.1f} s]\n" + text)
         if proc.returncode != 0:
             failed.append(f"{cmd[-3]} (exit {proc.returncode}):\n{text[-3000:]}")
     if not failed:

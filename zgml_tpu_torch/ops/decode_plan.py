@@ -8,7 +8,8 @@ Each kernel runs one persistent block an SM: 16 consumer warps and one
 producer warp, which streams the block's weight rows with 1D bulk copies
 (TMA) through a ring of `stages` slots of `slot_bytes` in shared memory,
 beside an area of `act_bytes` for the staged activations (and K7's phase B).
-A phase (K7: A over wqkv, C over wo; K6: gate|up, then down) is a list of
+A phase (K7: A over wqkv, C over wo, and with its phase E gate|up and down
+as K6d's; K6: gate|up, then down) is a list of
 units, each a few weight rows of one or two segments (K7 A: the two rows of
 a RoPE pair; K6 gate|up: a gate row and its up row), split into contiguous,
 balanced ranges, one per block. A block cuts its range into stages of at
@@ -152,17 +153,19 @@ def xq_row_bytes(d: int) -> int:
 
 
 def attn_act_bytes(d: int, hq: int, hkv: int, hd: int, a_i8: bool, kv8: bool, s: int,
-                   grid: int) -> int:
+                   grid: int, f: int = 0) -> int:
     """K7's activation area: phase A's normed x (f32, or int8 with its scales
     and sums) with x and g as copied behind it; phase B's chunk and an int
     for each item (KV head, 128-key chunk of an S-row cache) a block of the
-    grid takes; phase C's staged attention (csrc/layer_attn.cu
-    attn_act_bytes)."""
+    grid takes; phase C's staged attention; with phase E (f > 0) x2 as a raw
+    row of d floats and the staged normed x2 or SwiGLU row behind it
+    (csrc/layer_attn.cu attn_act_bytes)."""
     a = (xq_row_bytes(d) if a_i8 else d // 32 * XPAD * 4) + 2 * d * 4
     items = hkv * -(-s // DA_CHUNK)         # phase B's (KV head, chunk) items
     b = decode_chunk_smem_bytes(hd, kv8, hq // hkv) + 4 * -(-items // grid)
     c = hq * hd // 32 * XPAD * 4
-    return max(a, b, c)
+    e = d * 4 + max(d, f) // 32 * XPAD * 4 if f else 0
+    return max(a, b, c, e)
 
 
 def ffn_act_bytes(d: int, f: int, mr: int, a_i8: bool) -> int:
@@ -174,28 +177,44 @@ def ffn_act_bytes(d: int, f: int, mr: int, a_i8: bool) -> int:
 
 
 def attn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bool, s: int,
-              sm_count: int, stage_bytes: int | None = None) -> StreamPlan:
+              sm_count: int, stage_bytes: int | None = None, f: int = 0) -> StreamPlan:
     """K7's plan for an S-row cache: phase A over wqkv in units of RoPE-pair
     runs of one head (rows h*hd + i and h*hd + hd/2 + i), phase C over wo in
-    runs of rows."""
+    runs of rows; with f > 0 (phase E, a d_ff of f) then K6d's two phases,
+    gate|up in (gate row, up row) runs and down in runs of rows, through the
+    same ring (attn_ffn_plan)."""
     half = hd // 2
     ga = math.lcm(align_rows(d), ITEM_ROWS // 2)   # pairs a unit (divides half % 16 == 0)
     gc = math.lcm(align_rows(hq * hd), ITEM_ROWS)  # rows a unit
     grid = max(1, sm_count)
     units_a, units_c = (hq + 2 * hkv) * half // ga, d // gc
+    gd = math.lcm(align_rows(f), ITEM_ROWS) if f else 0
 
     def phases(slot):
-        return (_phase(d, kind, 2, half, ga, half // ga, hd, units_a, grid, slot),
-                _phase(hq * hd, kind, 1, 0, gc, units_c, 0, units_c, grid, slot))
-    act = attn_act_bytes(d, hq, hkv, hd, a_i8, kv8, s, grid)
-    slot = _slot([2 * ga * row_bytes(d, kind), gc * row_bytes(hq * hd, kind)],
-                 stage_bytes or STAGE_BYTES)
+        out = (_phase(d, kind, 2, half, ga, half // ga, hd, units_a, grid, slot),
+               _phase(hq * hd, kind, 1, 0, gc, units_c, 0, units_c, grid, slot))
+        if f:
+            out += (_phase(d, kind, 2, f, ga, f // ga, 0, f // ga, grid, slot),
+                    _phase(f, kind, 1, 0, gd, d // gd, 0, d // gd, grid, slot))
+        return out
+    act = attn_act_bytes(d, hq, hkv, hd, a_i8, kv8, s, grid, f)
+    units = [2 * ga * row_bytes(d, kind), gc * row_bytes(hq * hd, kind)]
+    if f:
+        units.append(gd * row_bytes(f, kind))
+    slot = _slot(units, stage_bytes or STAGE_BYTES)
     stages = _ring(phases, act, slot)
     if stages < 1:
         raise ValueError(f"attn_block: d {d}, heads {hq}/{hkv} x {hd} at {kind} leave no room "
                          f"for a {slot}-byte stage beside {act} bytes of activations")
     return StreamPlan(grid, stages, slot, act, HEADER_BYTES + stages * slot + act, 1,
                       _ahead(slot), phases(slot))
+
+
+def attn_ffn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bool, s: int,
+                  f: int, sm_count: int, stage_bytes: int | None = None) -> StreamPlan:
+    """K7 with its phase E (ZGML_TPU_LAYER_FFN): attn_plan's two phases, then
+    gate|up and down of a d_ff of f, four phases through one ring."""
+    return attn_plan(d, hq, hkv, hd, kind, a_i8, kv8, s, sm_count, stage_bytes, f)
 
 
 FFN_GROUPS = (4, 2, 1)      # rows a group (csrc/ffn.cu instantiations)

@@ -22,17 +22,23 @@ Counterpart of zgml_tpu/ops/dispatch.py. Two decisions, kept apart:
     FFN fuses from config (models/llama.py).
 
 Under autograd (grad enabled and an input that requires grad): projections
-go through qmatmul.QMatmul (backward K11, dx = g @ dequant(W)), and flash
-attention through flash_vjp.FlashAttention (K10f forward, K10dq and K10dkv
-backward), on both tiers; K12 and K13 through rmsnorm.RMSNorm and
+go through qmatmul.QMatmul (backward K11, dx = g @ dequant(W)), the fused
+FFN of <= 32 rows (K6b, K6a's no-norm form) through ffn.FusedFFN (backward:
+the projections' recompute at their tier and K11, as `_ffn_diff_bwd`), and
+flash attention through flash_vjp.FlashAttention (K10f forward, K10dq and
+K10dkv backward), on both tiers; K12 and K13 through rmsnorm.RMSNorm and
 elementwise.FusedChain, whose backward recomputes the plain version, as the
-JAX custom VJPs do. The other kernels have no backward: called so,
-they raise NotImplementedError naming the ROADMAP item, rather than hand back
-a result whose gradient would be silently zero.
+JAX custom VJPs do. The other kernels have no backward (the JAX package has
+none for them): called so, they raise NotImplementedError naming the
+ROADMAP item, rather than hand back a result whose gradient would be
+silently zero.
 
 ``force_ref()`` is the one explicit way to run the plain versions on the card
 (to compare the kernels with them). It keeps the path and swaps each kernel
-for its plain version; the JAX package's force_ref instead turns its fused
+for its plain version, in a backward too: every autograd Function here takes
+its backward's kernels as its forward decided them, since autograd runs a
+CUDA backward on its own device thread, where force_ref()'s context variable
+is not set; the JAX package's force_ref instead turns its fused
 kernels off, which changes the path. The JAX per-op switches
 (ZGML_TPU_KERNELS=ref, ZGML_TPU_KERNELS_DISABLE; config.kernel_on) do change
 it, as they do in the JAX package: ``use_kernel(op)`` runs a kernel only
@@ -42,7 +48,8 @@ path when it is off). Every call is counted by tier in
 runtime.profile.global_profile, under one name per kernel and kind
 (qmatmul = K2 and qmatmul_bf16 its bf16 form, qmatmul_i8 = K1,
 qmatmul_greedy = K5, fused_ffn_norm = K6d,
-fused_ffn_norm_i8 = K6c, fused_ffn = K6b, attn_block = K7 with the f32 A
+fused_ffn_norm_i8 = K6c, fused_ffn = K6b (fused_ffn_q8 = K6a's no-norm
+form), attn_block_ffn = K7 with its phase E (ZGML_TPU_LAYER_FFN), attn_block = K7 with the f32 A
 phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
 attention = K3, decode_attention = K4, flash_attention_q8 = K9 (each prefill
@@ -52,7 +59,8 @@ ZGML_TPU_ATTN_I8PV mode), the JAX package's names; flash_fwd = K10f,
 flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
 K11q8; matmul for a dense projection; rmsnorm = K12 under
 ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
-fused_chain = K13, the graph tier's fused chains; stack_decode = K14 and
+fused_chain = K13, the graph tier's fused chains (f32; fused_chain_bf16,
+fused_chain_f16 and fused_chain_i32 its other dtypes); stack_decode = K14 and
 tape_decode = K15, tape_decode_f32 under ZGML_TPU_TAPE_BF16=0, the
 whole-stack decode megacalls): a kernel's count is
 added where it launches, a plain call's here. The cache's dtype picks K3/K4
@@ -110,7 +118,7 @@ def _use_kernel(op: str | None, *tensors: torch.Tensor) -> bool:
     return _device_of(*tensors).type == "cuda" and use_kernel(op)
 
 
-def _needs_grad(*tensors) -> bool:
+def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
@@ -121,31 +129,54 @@ NO_BACKWARD = "ROADMAP.md B.5"
 
 def _refuse_grad(name: str, *tensors):
     """Raise where a kernel without a backward meets autograd."""
-    if _needs_grad(*tensors):
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name} has no backward in zgml_tpu_torch ({NO_BACKWARD}); train through "
-            f"LlamaModel.forward(tokens), which takes K2/K11 and K10 for calls of more than "
-            f"32 rows, or run under torch.no_grad()")
+            f"{name} has no backward (nor has the JAX package's kernel; {NO_BACKWARD}); train "
+            f"through LlamaModel.forward(tokens), which takes K1/K2, K6b/K6a, K11 and K10, or "
+            f"run under torch.no_grad()")
 
 
-def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool, bf16: bool) -> torch.Tensor:
+def _kernel_or(kernel: bool | None, op: str, *tensors) -> bool:
+    """`kernel` where the caller decided it, else _use_kernel(op, ...). A
+    backward decides at forward time: autograd runs a CUDA backward on its
+    own device thread, where force_ref()'s context variable is not set."""
+    if kernel is None:
+        return _use_kernel(op, *tensors)
+    _device_of(*tensors)
+    return kernel
+
+
+def _qmatmul_fwd(x: torch.Tensor, w: PackedWeight, i8: bool, bf16: bool,
+                 kernel: bool | None = None) -> torch.Tensor:
+    kernel = _kernel_or(kernel, "qmatmul", x, w.qs, w.d)
     if i8:
-        if _use_kernel("qmatmul", x, w.qs, w.d):
+        if kernel:
             return _qmm.qmatmul_i8_cuda(x, w)
         global_profile.count_op(_qmm.counter("qmatmul_i8", w.kind), "ref")
         return _qmm.qmatmul_i8_ref(x, w)
-    if _use_kernel("qmatmul", x, w.qs, w.d):
+    if kernel:
         return _qmm.qmatmul_cuda(x, w, bf16)
     global_profile.count_op(_qmm.counter("qmatmul", w.kind, bf16), "ref")
     return _qmm.qmatmul_ref(x, w, bf16)
 
 
-def qmatmul_bwd(g: torch.Tensor, w: PackedWeight) -> torch.Tensor:
-    """K11: dx = g @ dequant(W), g f32 [..., N] -> f32 [..., K]."""
-    if _use_kernel("qmatmul", g, w.qs, w.d):
+def qmatmul_bwd(g: torch.Tensor, w: PackedWeight, kernel: bool | None = None) -> torch.Tensor:
+    """K11: dx = g @ dequant(W), g f32 [..., N] -> f32 [..., K]; `kernel`:
+    whether to launch it, as the forward decided (None: decide here)."""
+    if _kernel_or(kernel, "qmatmul", g, w.qs, w.d):
         return _qmm.qmatmul_bwd_cuda(g, w)
     global_profile.count_op(_qmm.counter("qmatmul_bwd", w.kind), "ref")
     return _qmm.qmatmul_bwd_ref(g, w)
+
+
+def _tier(rows: int) -> tuple[bool, bool]:
+    """(int8, bf16) of a projection standing for `rows` rows: K1 up to 32
+    rows under config.i8dot() (JAX's bm == m_pad <= 32, m_pad = rows padded
+    to a multiple of 8, qmatmul.py:719-729), else K2, in its bf16 form where
+    qmatmul.bf16_tier holds; with qmatmul switched off, the f32 tier."""
+    on = config.kernel_on("qmatmul")
+    i8 = config.i8dot() and on and rows <= _qmm.I8_MAX_ROWS
+    return i8, on and _qmm.bf16_tier(rows, i8)
 
 
 def qmatmul(x: torch.Tensor, w, tier_rows: int | None = None) -> torch.Tensor:
@@ -161,12 +192,11 @@ def qmatmul(x: torch.Tensor, w, tier_rows: int | None = None) -> torch.Tensor:
         global_profile.count_op("matmul", "torch")
         return torch.matmul(x, w)
     rows = x.numel() // w.k if tier_rows is None else tier_rows
-    on = config.kernel_on("qmatmul")
-    i8 = config.i8dot() and on and rows <= _qmm.I8_MAX_ROWS
-    bf16 = on and _qmm.bf16_tier(rows, i8)
-    if _needs_grad(x):
-        return _qmm.QMatmul.apply(x, w, lambda x_, w_: _qmatmul_fwd(x_, w_, i8, bf16),
-                                  qmatmul_bwd)
+    i8, bf16 = _tier(rows)
+    if needs_grad(x):
+        kernel = _use_kernel("qmatmul", x, w.qs, w.d)    # for the backward too (_kernel_or)
+        return _qmm.QMatmul.apply(x, w, lambda x_, w_: _qmatmul_fwd(x_, w_, i8, bf16, kernel),
+                                  lambda g_, w_: qmatmul_bwd(g_, w_, kernel))
     return _qmatmul_fwd(x, w, i8, bf16)
 
 
@@ -185,15 +215,12 @@ def qmatmul_greedy(x: torch.Tensor, w: PackedWeight) -> torch.Tensor | None:
 
 
 def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: PackedWeight,
-                   eps: float, phase_e: bool = False) -> torch.Tensor:
+                   eps: float) -> torch.Tensor:
     """x + down(silu(gate(n)) * up(n)), n = rmsnorm(x) * gamma; at most 32
     rows: K6a at Q8_0; at Q4_0 K6c where config.ffn_i8a holds at the padded
-    width (as `fused_ffn_norm_q4n`, zgml_tpu/ops/ffn.py:524), else K6d. With
-    phase_e (the caller stands for K7's phase E, which ignores the i8a flag,
-    layerkernel.py:762-765) always K6d, its f32 function."""
+    width (as `fused_ffn_norm_q4n`, zgml_tpu/ops/ffn.py:524), else K6d."""
     _refuse_grad("fused_ffn_norm (K6a / K6c / K6d)", x, gamma)
-    a_i8 = (not phase_e and gu.kind == "q4_0"
-            and config.ffn_i8a(config.padded_k(gu.k, gu.kind)))
+    a_i8 = gu.kind == "q4_0" and config.ffn_i8a(config.padded_k(gu.k, gu.kind))
     if _use_kernel("fused_ffn", x, gamma, gu.qs, wd.qs):
         return ffn.fused_ffn_norm_cuda(x, gamma, gu, wd, eps, a_i8)
     name = "fused_ffn_norm_i8" if a_i8 else "fused_ffn_norm"
@@ -202,31 +229,53 @@ def fused_ffn_norm(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight, wd: P
 
 
 def fused_ffn(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tensor:
-    """K6b: down(silu(gate(h)) * up(h)) for an already-normed h of at most 32
-    rows, Q4_0 (zgml_tpu/ops/dispatch.py:95-110, counter fused_ffn)."""
-    _refuse_grad("fused_ffn (K6b)", h)
-    if _use_kernel("fused_ffn", h, gu.qs, wd.qs):
-        return ffn.fused_ffn_cuda(h, gu, wd)
-    global_profile.count_op("fused_ffn", "ref")
-    return ffn.fused_ffn_ref(h, gu, wd)
+    """down(silu(gate(h)) * up(h)) for an already-normed h of at most 32
+    rows (zgml_tpu/ops/dispatch.py:95-110): K6b at Q4_0 (counter fused_ffn),
+    K6a's no-norm form at Q8_0 (fused_ffn_q8). Under autograd through
+    ffn.FusedFFN, whose backward recomputes gate|up at the projection tier
+    of these rows and takes K11 twice (`_ffn_diff_bwd`)."""
+    kernel = _use_kernel("fused_ffn", h, gu.qs, wd.qs)
+
+    def fwd(h_):
+        if kernel:
+            return ffn.fused_ffn_cuda(h_, gu, wd)
+        global_profile.count_op(_qmm.counter("fused_ffn", gu.kind), "ref")
+        return ffn.fused_ffn_ref(h_, gu, wd)
+
+    if needs_grad(h):
+        # the backward's tiers decided now (_kernel_or): K1 / K2 and K11, or
+        # their plain versions under force_ref() or with qmatmul switched off
+        i8, bf16 = _tier(h.numel() // gu.k)
+        proj = _use_kernel("qmatmul", h, gu.qs, gu.d)
+        return ffn.FusedFFN.apply(h, gu, wd, fwd,
+                                  lambda x_, w_: _qmatmul_fwd(x_, w_, i8, bf16, proj),
+                                  lambda g_, w_: qmatmul_bwd(g_, w_, proj))
+    return fwd(h)
 
 
 def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, pos,
-               cos, sin, n_heads: int, n_kv_heads: int, eps: float):
+               cos, sin, n_heads: int, n_kv_heads: int, eps: float, ffn=None):
     """K7: one batch-1 decode token's attention half-layer over layer li of
     the stacked cache (written in place at pos); returns (x_out, k_cur,
     v_cur). Its A phase is int8 where config.attn_i8a holds at wqkv's
     padded width (layerkernel.py:776), its phase B over the int8 cache where
-    ck / cv are (levels, scales) tuples (layerkernel.py:799). See
-    ops/layerkernel.py for layouts."""
+    ck / cv are (levels, scales) tuples (layerkernel.py:799). With ffn =
+    (ffn_norm, w_gate_up, w_down) its phase E (JAX's has_ffn, the caller's
+    choice under ZGML_TPU_LAYER_FFN) runs the layer's FFN, K6d's f32
+    function, in the same launch: x_out is then the whole layer's output
+    (counter attn_block_ffn, +_i8 / _kv8 by mode). See ops/layerkernel.py for
+    layouts."""
     _refuse_grad("attn_block (K7)", x, gamma, cos, sin)
     a_i8 = config.attn_i8a(config.padded_k(wqkv.k, wqkv.kind))
     cache = (*ck, *cv) if isinstance(ck, tuple) else (ck, cv)
     if _use_kernel("attn_block", x, gamma, wqkv.qs, wo.qs, *cache):
         return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
-                                           n_heads, n_kv_heads, eps, a_i8)
-    global_profile.count_op(layerkernel.counter_name(a_i8, isinstance(ck, tuple), wqkv.kind),
-                            "ref")
+                                           n_heads, n_kv_heads, eps, a_i8, ffn=ffn)
+    global_profile.count_op(layerkernel.counter_name(a_i8, isinstance(ck, tuple), wqkv.kind,
+                                                     ffn is not None), "ref")
+    if ffn is not None:
+        return layerkernel.attn_block_ffn_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
+                                              n_heads, n_kv_heads, eps, ffn, a_i8)
     return layerkernel.attn_block_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                       n_heads, n_kv_heads, eps, a_i8)
 
@@ -246,7 +295,7 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
     on = config.kernel_on("attention")
     bf16 = on and config.prefill_bf16()
     group = attention.flash_group(tile_s or k.shape[2], False) if bf16 else None
-    if _needs_grad(q, k, v) and on:
+    if needs_grad(q, k, v) and on:
         if kv_row != 0:
             raise NotImplementedError(
                 f"flash attention under autograd with kv_row={kv_row}: the backward reads "
@@ -326,7 +375,7 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5) -> torch.Te
         global_profile.count_op("rmsnorm", "torch")
         return refs.rmsnorm(x, gamma, eps)
     kernel = dev.type == "cuda" and use_kernel("rmsnorm")
-    if _needs_grad(x, gamma):
+    if needs_grad(x, gamma):
         return _rmsnorm.RMSNorm.apply(x, gamma, eps, kernel)
     if kernel:
         return _rmsnorm.rmsnorm_cuda(x, gamma, eps)
@@ -338,13 +387,16 @@ def fused_chain(x: torch.Tensor, steps, sides) -> torch.Tensor:
     """K13, the graph tier's fused elementwise chain (ops/elementwise.py):
     the kernel on the card, the plain composition on the CPU and under
     force_ref() (counted under `ref`); through elementwise.FusedChain under
-    autograd, whose backward recomputes the plain composition."""
+    autograd, whose backward recomputes the plain composition. Raises
+    (ValueError) where the chain's value is not of x's dtype, on either
+    tier, as the JAX kernel does (elementwise.check_dtype)."""
     kernel = _device_of(x, *sides).type == "cuda" and use_kernel()
-    if _needs_grad(x, *sides):
+    _chain.check_dtype(x, steps, sides)
+    if needs_grad(x, *sides):
         return _chain.FusedChain.apply(x, tuple(steps), kernel, *sides)
     if kernel:
         return _chain.fused_chain_cuda(x, steps, sides)
-    global_profile.count_op("fused_chain", "ref")
+    global_profile.count_op(_chain.counter(x.dtype), "ref")
     return _chain.fused_chain_ref(x, steps, sides)
 
 

@@ -11,7 +11,14 @@
   K6b  fused_ffn_cuda / fused_ffn_ref (csrc/ffn_planar.cu): down(silu(gate(h))
       * up(h)) for an already-normed h, no residual, Q4_0, f32. Counterpart of
       `_ffn_q4_kernel` / `fused_ffn_pallas`, which the JAX `_layer_step` runs
-      (through dispatch.fused_ffn) for Q4_0 FFN calls of <= 32 rows.
+      (through dispatch.fused_ffn) for Q4_0 FFN calls of <= 32 rows. At Q8_0
+      fused_ffn_cuda launches K6a's no-norm form (csrc/ffn.cu, g null: no
+      norm, no residual), the JAX `_ffn_kernel` as `fused_ffn_pallas` runs it.
+  FusedFFN  the autograd Function of that FFN (`_ffn_diff`, ffn.py:591-625):
+      forward K6b / K6a no-norm, backward JAX's `_ffn_diff_bwd`, the gradient
+      of comp(h) = qmatmul(swiglu(qmatmul(h, gu)), wd) through the port's own
+      projection tiers (the recompute's gate|up at JAX's tier for those rows,
+      K11 for each dh); the weights get no gradient.
 
 The JAX kernels read an N-packed (Q4_0 decode, quant/headmajor.py
 ffn_npack) or planar part-padded copy of the FFN weights; the port reads its
@@ -155,16 +162,18 @@ def fused_ffn_norm_cuda(x: torch.Tensor, gamma: torch.Tensor, gu: PackedWeight,
 
 
 def fused_ffn_cuda(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch.Tensor:
-    """Launch K6b (csrc/ffn_planar.cu): h f32 [..., D] (normed) with at most
-    32 rows, Q4_0 weights -> down(silu(gate(h)) * up(h)) f32 [..., D]. Up to
+    """down(silu(gate(h)) * up(h)) f32 [..., D] for h f32 [..., D] (normed)
+    of at most 32 rows. Q4_0: launch K6b (csrc/ffn_planar.cu): up to
     PLANAR_F32_MAX_M rows its CUDA-core form on K6d's plan
     (decode_plan.ffn_plan), above its tensor-core form on
-    decode_plan.planar_plan (each cached per shape and card)."""
+    decode_plan.planar_plan (each cached per shape and card). Q8_0: K6a's
+    no-norm form (csrc/ffn.cu with no gain) on ffn_plan, counted under
+    fused_ffn_q8."""
     m = _check("fused_ffn", h, (), gu, wd)
-    if gu.kind != "q4_0":
-        raise ValueError(f"fused_ffn: K6b takes q4_0 weights, got {gu.kind}")
     if not all(t.data_ptr() % 16 == 0 for t in (gu.d, wd.d)):
         raise ValueError("fused_ffn: the weights' d planes must be 16-byte aligned (bulk copies)")
+    if gu.kind != "q4_0":
+        return _ffn_nonorm_cuda(h, gu, wd, m)
     if h.data_ptr() % 16:           # its first chunk is a bulk copy, the rest float4 loads
         h = h.clone()
     dev, d, f = h.device, h.shape[-1], wd.k
@@ -188,3 +197,49 @@ def fused_ffn_cuda(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight) -> torch
     build.check(status, "fused_ffn")
     global_profile.count_op("fused_ffn", "cuda")
     return y
+
+
+def _ffn_nonorm_cuda(h: torch.Tensor, gu: PackedWeight, wd: PackedWeight, m: int):
+    """K6a's no-norm form (csrc/ffn.cu, g null): the checked h of m rows."""
+    dev, d, f = h.device, h.shape[-1], wd.k
+    y = torch.empty_like(h)
+    act = torch.empty((m, f), dtype=torch.float32, device=dev)
+    _, plan, bounds = decode_plan.launch_args(dev, decode_plan.ffn_plan, m, d, f, gu.kind, False)
+    status = build.library().zgml_ffn_norm(
+        KIND_CODE[gu.kind], 0, h.data_ptr(), None, gu.qs.data_ptr(), gu.d.data_ptr(),
+        wd.qs.data_ptr(), wd.d.data_ptr(), y.data_ptr(), act.data_ptr(),
+        coop.barrier_words(dev).data_ptr(), None, None, m, d, f, 0.0, plan, bounds.data_ptr(),
+        bounds.device.index, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "fused_ffn")
+    global_profile.count_op(counter("fused_ffn", gu.kind), "cuda")
+    return y
+
+
+class FusedFFN(torch.autograd.Function):
+    """``apply(h, gu, wd, fwd, proj, proj_bwd)``: fwd(h), the fused FFN
+    (K6b / K6a's no-norm form, or its plain version); backward JAX's
+    `_ffn_diff_bwd` (ffn.py:603-625): it recomputes gate|up = proj(h, gu)
+    (the tier JAX's qmatmul_pallas takes for these rows: K1 at <= 32 rows
+    under ZGML_TPU_I8DOT, so the gradient is that of the int8 recompute's
+    comp, not of fwd's f32 act), then dact = proj_bwd(g, wd), the SwiGLU
+    backward of act = up * (gate * sigmoid(gate)) under autograd, and dh =
+    proj_bwd(dgate|up, gu) (K11 twice). The weights are frozen constants."""
+
+    @staticmethod
+    def forward(ctx, h, gu, wd, fwd, proj, proj_bwd):
+        ctx.save_for_backward(h)
+        ctx.gu, ctx.wd, ctx.proj, ctx.proj_bwd = gu, wd, proj, proj_bwd
+        return fwd(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+        gu_out = ctx.proj(h.detach(), ctx.gu)
+        d_act = ctx.proj_bwd(g.to(torch.float32).contiguous(), ctx.wd)
+        f = gu_out.shape[-1] // 2
+        with torch.enable_grad():
+            leaf = gu_out.detach().requires_grad_()
+            gate, up = leaf[..., :f], leaf[..., f:]
+            act = up * (gate * torch.sigmoid(gate))
+            (d_gu,) = torch.autograd.grad(act, leaf, d_act)
+        return ctx.proj_bwd(d_gu.contiguous(), ctx.gu), None, None, None, None, None

@@ -8,7 +8,13 @@ j < pos plus the current token's own f32 K/V as the last column, the output
 projection and the residual, with wqkv and wo both Q4_0 or both Q8_0 (the
 JAX `kind`). Ported: both A phases, f32 and int8 (`a_i8`, layerkernel.py:
 148-190, on where config.attn_i8a(dp) holds: by default at padded d >=
-4096), and both caches, bf16 and int8 (`kv_i8`); not ported: phase E.
+4096), both caches, bf16 and int8 (`kv_i8`), and phase E (`has_ffn`,
+layerkernel.py:91-123, 758-765, under ZGML_TPU_LAYER_FFN=1 at Q4_0): with
+``ffn`` = (ffn_norm, w_gate_up, w_down) the same launch then runs the
+layer's FFN, K6d's f32 function at one row, on its output (x_out = x2 +
+down(silu(gate(n)) * up(n)), n = rmsnorm(x2) * ffn_norm), whatever the A
+phase, as JAX's has_ffn ignores the i8a flag; its plain version is the
+chain attn_block_ref then ffn.fused_ffn_norm_ref.
 
 With the int8 cache (quant/kv_cache.py) the cache rows j < pos are attended
 as the JAX kernel does (layerkernel.py:223-267): q quantized per head after
@@ -67,10 +73,12 @@ def attn_block_compatible(head_dim: int, batch: int, kinds: tuple[str, str]) -> 
             and kinds[0] in KIND_CODE)
 
 
-def counter_name(a_i8: bool, kv8: bool, kind: str) -> str:
-    """K7's placement counter for its A phase, cache and kind: attn_block,
-    attn_block_i8, attn_block_kv8, attn_block_i8_kv8, each with _q8 at Q8_0."""
-    return counter("attn_block" + ("_i8" if a_i8 else "") + ("_kv8" if kv8 else ""), kind)
+def counter_name(a_i8: bool, kv8: bool, kind: str, ffn: bool = False) -> str:
+    """K7's placement counter for its A phase, cache, phase E and kind:
+    attn_block, attn_block_i8, attn_block_kv8, attn_block_i8_kv8, each with
+    _q8 at Q8_0; with phase E (Q4_0) the same names + _ffn."""
+    name = "attn_block" + ("_i8" if a_i8 else "") + ("_kv8" if kv8 else "")
+    return counter(name + ("_ffn" if ffn else ""), kind)
 
 
 def _heads(x, wqkv, wo, n_heads, n_kv_heads):
@@ -107,6 +115,18 @@ def attn_block_ref(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
         ck[li, :, :, p] = k[:, :, 0].to(ck.dtype)
         cv[li, :, :, p] = v[:, :, 0].to(cv.dtype)
     return x + mm(att, wo), k, v
+
+
+def attn_block_ffn_ref(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, pos,
+                       cos, sin, n_heads: int, n_kv_heads: int, eps: float, ffn,
+                       a_i8: bool = False, act=None, q8=None):
+    """K7 with phase E, plain: attn_block_ref, then on its x_out K6d's f32
+    function (ffn.fused_ffn_norm_ref, no int8 mode) with ffn = (ffn_norm,
+    w_gate_up, w_down). Returns (x_out, k_cur, v_cur)."""
+    from zgml_tpu_torch.ops.ffn import fused_ffn_norm_ref
+    x2, k, v = attn_block_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin, n_heads,
+                              n_kv_heads, eps, a_i8, act, q8)
+    return fused_ffn_norm_ref(x2, *ffn, eps), k, v
 
 
 def qkv_ref(x, gamma, wqkv: PackedWeight, cos, sin, n_heads: int, n_kv_heads: int, hd: int,
@@ -151,14 +171,16 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                     wo: PackedWeight, ck: torch.Tensor, cv: torch.Tensor, li: int,
                     pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n_heads: int,
                     n_kv_heads: int, eps: float, a_i8: bool = False, act_out=None,
-                    q8_out=None):
+                    q8_out=None, ffn=None):
     """Launch K7 (csrc/layer_attn.cu) at the weights' kind on the plan of
     decode_plan.attn_plan (cached per shape and card); same contract as
     attn_block_ref, with pos an int32 [1] CUDA tensor. a_i8: the int8 A
     phase; act_out = (xq int8 [d], xs f32 [d/32]) receives its activations
     where given. With the int8 cache (ck, cv tuples), q8_out = (qq int8
-    [Hq, hd], qs f32 [Hq]) receives the quantized q where given. Counted
-    under counter_name(a_i8, kv8, kind)."""
+    [Hq, hd], qs f32 [Hq]) receives the quantized q where given. With ffn =
+    (ffn_norm f32 [d], w_gate_up [2F, d], w_down [d, F], Q4_0) phase E runs
+    in the same launch on decode_plan.attn_ffn_plan: attn_block_ffn_ref's
+    contract. Counted under counter_name(a_i8, kv8, kind, ffn given)."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"attn_block: {msg}")
@@ -188,8 +210,23 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
             and cos.numel() == hd // 2 and sin.numel() == hd // 2,
             f"cos/sin must be float32 [{hd // 2}]")
     tensors = (x, gamma, wqkv.qs, wqkv.d, wo.qs, wo.d, ck, cv, cos, sin, *scales)
+    planes = [wqkv.qs, wqkv.d, wo.qs, wo.d]
+    f = 0
+    if ffn is not None:
+        g2, gu, wd = ffn
+        f = wd.k
+        require(wqkv.kind == gu.kind == wd.kind == "q4_0",
+                f"phase E takes q4_0 weights (JAX's has_ffn), got {wqkv.kind}, {gu.kind}, "
+                f"{wd.kind}")
+        require(g2.dtype == torch.float32 and g2.numel() == d and gu.k == d and gu.n == 2 * f
+                and wd.n == d and f % 32 == 0,
+                f"phase E: ffn_norm [{d}], w_gate_up [{gu.n}, {gu.k}], w_down [{wd.n}, "
+                f"{wd.k}]; want [{d}], [2F, {d}], [{d}, F]")
+        planes += [gu.qs, gu.d, wd.qs, wd.d]
+        tensors += (g2, gu.qs, gu.d, wd.qs, wd.d)
+        require(all(t.device == dev for t in tensors), "phase E's tensors must be on x's card")
     require(all(t.is_contiguous() for t in tensors), "every input must be contiguous")
-    require(all(t.data_ptr() % 16 == 0 for t in (wqkv.qs, wqkv.d, wo.qs, wo.d)),
+    require(all(t.data_ptr() % 16 == 0 for t in planes),
             "the weights' qs and d planes must be 16-byte aligned (bulk copies)")
     s = ck.shape[3]
     lib = build.library()
@@ -214,8 +251,17 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
                 f"q8_out takes int8 [{n_heads}, {hd}] and float32 [{n_heads}] on {dev}, with "
                 f"the int8 cache")
         qq_p, qs_p = q8_out[0].data_ptr(), q8_out[1].data_ptr()
-    _, plan, bounds = decode_plan.launch_args(dev, decode_plan.attn_plan, d, n_heads, n_kv_heads,
-                                              hd, wqkv.kind, bool(a_i8), kv8, s)
+    if ffn is None:
+        _, plan, bounds = decode_plan.launch_args(dev, decode_plan.attn_plan, d, n_heads,
+                                                  n_kv_heads, hd, wqkv.kind, bool(a_i8), kv8, s)
+        e_args = (None,) * 6 + (0,)
+    else:
+        _, plan, bounds = decode_plan.launch_args(dev, decode_plan.attn_ffn_plan, d, n_heads,
+                                                  n_kv_heads, hd, wqkv.kind, bool(a_i8), kv8,
+                                                  s, f)
+        act = torch.empty(f, dtype=torch.float32, device=dev)
+        e_args = (g2.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(), wd.qs.data_ptr(),
+                  wd.d.data_ptr(), act.data_ptr(), f)
     status = lib.zgml_attn_block(
         KIND_CODE[wqkv.kind], int(a_i8), int(kv8), x.data_ptr(), gamma.data_ptr(),
         wqkv.qs.data_ptr(), wqkv.d.data_ptr(), wo.qs.data_ptr(), wo.d.data_ptr(),
@@ -224,9 +270,9 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
         pos.data_ptr(), x_out.data_ptr(), kv_cur.data_ptr(), q_s.data_ptr(), att_s.data_ptr(),
         part_s.data_ptr(), coop.barrier_words(dev).data_ptr(), xq_p, xs_p, qq_p, qs_p, d,
         n_heads, n_kv_heads, hd, s, float(eps), 1.0 / hd ** 0.5,
-        coop.counter_words(dev, n_kv_heads).data_ptr(), plan, bounds.data_ptr(),
+        coop.counter_words(dev, n_kv_heads).data_ptr(), *e_args, plan, bounds.data_ptr(),
         bounds.device.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "attn_block")
-    global_profile.count_op(counter_name(a_i8, kv8, wqkv.kind), "cuda")
+    global_profile.count_op(counter_name(a_i8, kv8, wqkv.kind, ffn is not None), "cuda")
     kv = kv_cur.reshape(2, 1, n_kv_heads, 1, hd)
     return x_out, kv[0], kv[1]
