@@ -87,6 +87,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      distance from the plain version at most MEGA_ROUNDING_RATIO x the f32
      chain's (so a K15 without its bf16 roundings fails), all three
      bit-equal over two launches, no spill or stack frame in any instantiation.
+     ROADMAP B.6's shapes (check_wide): K1q8's K-split form on a 70B-shaped
+     Q8_0 w_down (N 8192, K 28,672) at M = 1 and 32 (within REL_BOUND *
+     max|y| of plain, two launches bit-equal, its own int8 activations the
+     pre-pass's), and K14 at 80 layers of the 70B width (its pointer table
+     read from global memory, 80 table rows over two layers' weights: within
+     MEGA_REL_PER_LAYER * 80 * max|out| of plain, bit-equal to the chain and
+     over two launches). K4, K8 and K6b also at the serving paths' 8 rows.
      The bf16 forms (ZGML_TPU_PREFILL_BF16, the JAX default): K2's at M =
      128 and 512 on every projection of both models at Q4_0 and Q8_0, and
      lm_head's one row at tier_rows 128 (the bf16 GEMV, through the
@@ -165,6 +172,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                    and the sampled request; K7 with its phase E exactly once
                    per layer per decode token (22 a token), and K1q4, K2q4,
                    K3, K5q4 and K6b, no K6d and no K7 without E;
+     then the serving paths (runtime/serving.py, ContinuousBatchingEngine of
+     max_batch 8 and prefill_chunk 128 on TinyLlama Q4_0 at the default
+     flags): serve_tiny (bf16 cache: K2q4's and K3's bf16 forms prefilling
+     into a slot through kv_row, K1q4, K6b and K4 at 8 rows) and
+     serve_kv8_tiny (the int8 cache: K9's bf16 form and K8 instead of K3 and
+     K4), each on 12 greedy requests (prompts of 5-300 tokens and 8-48 new
+     tokens drawn from seed 0; 8 at the start, 4 after the sixth step, then
+     step_burst(8) once admissions drain), with (a) each request's stream
+     bit-equal to it served alone by a fresh server, (b) its slot prefill's
+     last logits against a batch-1 LlamaEngine prefill (the largest
+     difference printed), (c) its tokens equal to the same server's under
+     force_ref() up to the first plain top-2 gap under the step bound;
      no other kernel and no plain-tier call may run on a path; on each path
      the first request (and on kv8_tiny and kv8_i8pv the batch-4 one) is compared with the
      same engine under force_ref() (the same path with every kernel swapped
@@ -223,7 +242,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      turns (rounds of the paths there and back; median per path), with the
      1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b,
      and tg32 of the batch-4 engines of kv8_tiny and kv8_i8pv (K8's two
-     modes) in turns after the 4 x 320 prompt;
+     modes) in turns after the 4 x 320 prompt; each serving path's rate (all
+     requests' tokens over the host wall of the whole traffic, median of 3
+     runs in turns) and the device-busy share of 8 decode steps of 8 live
+     rows;
      per path a torch.profiler breakdown of one prefill chunk and 8 decode
      steps, with the kernels launched per decode token, K7's and K6's and
      the megacall's device time per token (and, on those two, 8 steps at the
@@ -286,10 +308,12 @@ DECODE_LENS = [1, 200, 2047]
 KV8_FLASH_CASES = [(0, 128), (1408, 1536)]
 # TinyLlama batch 4, and a batch on K8's JAX-block edges (256 keys at S 2048)
 # with a row of no key
-KV8_DECODE_LENS = [[1, 200, 2047, 1000], [256, 257, 513, 0]]
-# K4 at batch 4 with per-row kv_len (the serving engine's bf16 decode; a row
-# with no key gives 0)
+KV8_DECODE_LENS = [[1, 200, 2047, 1000], [256, 257, 513, 0],
+                   [0, 1, 48, 129, 300, 257, 88, 2047]]     # and the serving paths' 8 rows
+# K4 at batch 4 with per-row kv_len (a row with no key gives 0), and at the
+# serving paths' 8 rows
 DECODE_BATCH_LENS = [0, 1, 200, 2047]
+SERVE_DECODE_LENS = KV8_DECODE_LENS[2]
 KV8_DECODE_LENS_7B = [[200], [2047]]              # Llama-2-7B, batch 1
 LOGIT_RTOL = 1e-3          # kernels vs plain: f32 sums in another order (SENS_MARGIN below)
 I8_ROWS = (1, 4, 8, 32)    # K1 cases: decode, kv8_tiny's batch-4 decode, a small batch, the
@@ -302,8 +326,8 @@ K2_TRAIN_ROWS = (512,)     # and at TinyLlama-1.1B train_q4_frozen's forward, B 
 ATTN_POS = (0, 1, 200, 2047)
 FFN_ROWS = (1, 8, 32)      # K6: decode, and calls of <= 32 rows outside it
 FFN_I8_ROWS = (1, 8)       # K6c: decode, and a small batch
-PLANAR_ROWS = (1, 4, 7, 32)   # K6b: a 1-token chunk, kv8_tiny's batch-4 decode, the smoke's
-                              # 7-token prompt, a full chunk
+PLANAR_ROWS = (1, 4, 7, 8, 32)   # K6b: a 1-token chunk, kv8_tiny's batch-4 decode, the
+                                 # smoke's 7-token prompt, the serving decode, a full chunk
 SAMPLED_CHUNK = 32         # prefill chunk of the sampled request's engine
 GREEDY_TRIALS = 8
 RATE_ROUNDS = 5            # phase 4: rounds of the paths in turns, there and back
@@ -414,6 +438,10 @@ MEGA_RMS_RATIO = 2.0
 # its bf16 roundings of the weights and operand rows fails
 MEGA_ROUNDING_RATIO = 0.5
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit) for the bound
+# ROADMAP B.6's shapes (phase 2, check_wide): a 70B-shaped Q8_0 w_down (N, K), and
+# K14 at (L, d, hq, hkv, hd, d_ff, pos) of the 70B width over S
+WIDE_DOWN = (8192, 28672)
+WIDE_STACK = (80, 8192, 64, 8, 128, 28672, 1500)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -530,6 +558,21 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_b
                               "q4_greedy", "fused_ffn", "tape_decode"),
                 "layer_ffn_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
                                    "q4_greedy", "fused_ffn", "attn_block_ffn")}
+# continuous batching (runtime/serving.py) on the TinyLlama Q4_0 model the
+# default path loads, at the default flags: its cache and the kernels that
+# must launch (and no other, no plain version)
+SERVE_PATHS = {"serve_tiny": ("bf16", ("q4_matmul_i8", "q4_matmul_bf16",
+                                       "flash_attention_bf16", "fused_ffn",
+                                       "decode_attention")),
+               "serve_kv8_tiny": ("int8", ("q4_matmul_i8", "q4_matmul_bf16",
+                                           "flash_attention_q8_bf16", "fused_ffn",
+                                           "decode_attention_q8"))}
+SERVE_BATCH, SERVE_CHUNK = 8, 128     # max_batch, prefill_chunk
+SERVE_REQUESTS, SERVE_FIRST = 12, 8   # requests, of which submitted at the start
+SERVE_ADMIT_STEP = 6                  # the rest after this many steps
+SERVE_BURST = 8                       # step_burst(n) once admissions drain
+SERVE_PROMPT, SERVE_NEW = (5, 300), (8, 48)   # prompt lengths, max_new_tokens (inclusive)
+SERVE_RATE_RUNS = 3                   # phase 4: serving rate, median of runs in turns
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -1404,6 +1447,8 @@ def check_kernels(torch, dev, ptxas_q8):
         check_chains_16(torch, dev, g, record, dtype)
     log("  -- the whole-stack decode megacalls: K14 (stack_decode) and K15 (tape_decode)")
     check_megacalls(torch, dev, g, record, weights)
+    log("  -- the 70B shapes of ROADMAP B.6: K1q8's K-split form, K14's global table")
+    check_wide(torch, dev, g, record, weights)
     return results
 
 
@@ -1507,26 +1552,38 @@ def check_attention(torch, dev, g, record, flash_attention_cuda, flash_attention
                2 * q.numel() * 4 + 2 * kv_len * hkv * hd * 2, 4 * hq * kv_len * hd, lib,
                f"scaled_dot_product_attention(enable_gqa=True), one query, f32 "
                f"(max abs err {lib_err:.2g})", n_split=decode_splits(1, hkv, S, hd, sms))
-    # batch 4, per-row kv_len (rows kv_row .. kv_row + 3 of the stacked cache)
-    b = len(DECODE_BATCH_LENS)
+    # batch 4 and the serving paths' batch 8, per-row kv_len (rows kv_row ..
+    # kv_row + B - 1 of the stacked cache)
+    for batch_lens in (DECODE_BATCH_LENS, SERVE_DECODE_LENS):
+        check_decode_batch(torch, dev, g, record, decode_attention_cuda, decode_attention_ref,
+                           kc, vc, shape, model, batch_lens, sms)
+
+
+def check_decode_batch(torch, dev, g, record, decode_attention_cuda, decode_attention_ref,
+                       kc, vc, shape, model, batch_lens, sms):
+    """K4 at one batch of per-row kv_len (one 0: a row of no key gives 0)."""
+    from zgml_tpu_torch.ops.decode_plan import decode_splits
+    _, hq, hkv, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b = len(batch_lens)
     q = torch.randn((b, hq, 1, hd), device=dev, generator=g)
-    lens = torch.tensor(DECODE_BATCH_LENS, dtype=torch.int32, device=dev)
+    lens = torch.tensor(batch_lens, dtype=torch.int32, device=dev)
     row = 2
     got, again = (decode_attention_cuda(q, kc, vc, lens, row) for _ in range(2))
     want = decode_attention_ref(q, kc, vc, lens, row)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    case = f"{model}B={b} kv_len={DECODE_BATCH_LENS}"
+    case = f"{model}B={b} kv_len={batch_lens}"
     require(bool(torch.isfinite(got).all()) and err <= 1e-5 and bool(torch.equal(got, again))
-            and not bool(got[DECODE_BATCH_LENS.index(0)].any()),
+            and not bool(got[batch_lens.index(0)].any()),
             f"decode_attention {case}: max_abs_err {err:.3g}, or two launches differ, or the "
             f"kv_len 0 row is not 0")
     t = time_ms(torch, [lambda: decode_attention_cuda(q, kc, vc, lens, row)], 100)
     tp = time_ms(torch, [lambda: decode_attention_ref(q, kc, vc, lens, row)], 20)
-    keys = sum(DECODE_BATCH_LENS)
+    keys = sum(batch_lens)
     lib_err, lib = 0.0, None
     outs = []
-    for i, n in enumerate(DECODE_BATCH_LENS):     # SDPA row by row: one call per kv_len
+    for i, n in enumerate(batch_lens):     # SDPA row by row: one call per kv_len
         if n:
             outs.append((q[i:i + 1], kc[row + i:row + i + 1, :, :n].float(),
                          vc[row + i:row + i + 1, :, :n].float()))
@@ -2544,6 +2601,107 @@ def check_megacalls(torch, dev, g, record, weights):
         torch.cuda.empty_cache()
 
 
+def check_wide(torch, dev, g, record, weights):
+    """ROADMAP B.6's two shapes, which the JAX kernels take and the port's
+    plans refused before: K1q8 on a 70B-shaped Q8_0 w_down (N 8192, K
+    28,672) at M = 1 and 32, its K-split form (i8_plan kc > 1): within
+    REL_BOUND * max|y| of plain, bit-equal over two launches, its own int8
+    activations the pre-pass's; and K14 at 80 layers of the 70B width
+    (WIDE_STACK), the layers' pointer table read from global memory, its 80
+    table rows pointing at two layers' weights (~1 GB; each layer's weights
+    still stream once a layer): within MEGA_REL_PER_LAYER * 80 * max|out| of
+    plain, bit-equal to the per-layer chain K7 + K6d and over two launches."""
+    from zgml_tpu_torch.ops import refs
+    from zgml_tpu_torch.ops.decode_plan import launch_args, stack_act_bytes, stack_plan
+    from zgml_tpu_torch.ops.qmatmul import (i8_plan, qmatmul_i8_cuda, qmatmul_i8_ref,
+                                            quantize_act_ref)
+    from zgml_tpu_torch.ops.stackkernel import (PROJECTIONS, StackedLayers, layer_chain,
+                                                stacked_decode_cuda, stacked_decode_ref)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, k = WIDE_DOWN
+    copies = weights("q8_0", n, k)
+    w = copies[0]
+    wbytes = nbytes_of(w.qs, w.d)
+    for m in (1, 32):
+        plan = i8_plan(m, n, k, "q8_0", sms)
+        case = f"70B w_down M={m} N={n} K={k} (K-split, kc={plan.kc})"
+        require(plan.kc > 1, f"q8_matmul_i8 {case}: the plan is not the K-split form")
+        x = torch.randn((m, k), device=dev, generator=g)
+        rq, rs = quantize_act_ref(x)
+        act = (torch.empty_like(rq), torch.empty_like(rs))
+        got, again = qmatmul_i8_cuda(x, w, act_out=act), qmatmul_i8_cuda(x, w)
+        want = qmatmul_i8_ref(x, w)
+        torch.cuda.synchronize()
+        err, bound = float((got - want).abs().max()), REL_BOUND * float(want.abs().max())
+        require(torch.equal(act[0], rq)
+                and torch.equal(act[1].view(torch.int32), rs.view(torch.int32)),
+                f"q8_matmul_i8 {case}: the kernel's own activations differ from plain")
+        require(bool(torch.isfinite(got).all()) and err <= bound,
+                f"q8_matmul_i8 {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+        require(torch.equal(got, again), f"q8_matmul_i8 {case}: two launches differ")
+        t = time_ms(torch, [lambda w_=c: qmatmul_i8_cuda(x, w_) for c in copies], 20)
+        tp = time_ms(torch, [lambda w_=c: qmatmul_i8_ref(x, w_) for c in copies], 4)
+        record("q8_matmul_i8", case, err, bound, t, tp, m * k * 4 + wbytes + m * n * 4, 0, None,
+               NO_LIBRARY["q8"], i8ops=2 * m * n * k,
+               plan=dict(kc=plan.kc, tr=plan.tr, S=plan.S, stages=plan.stages,
+                         slot_bytes=plan.slot_bytes, xg=plan.xg, pis=plan.pis,
+                         smem_bytes=plan.smem_bytes))
+    del copies, w
+    n_layers, d, hq, hkv, hd, f, pos = WIDE_STACK
+    nkv = hkv * hd
+    plan, _, _ = launch_args(dev, stack_plan, n_layers, d, hq, hkv, hd, f, S)
+    require(plan.act_bytes == stack_act_bytes(n_layers, d, hq, hkv, hd, f, S, plan.grid,
+                                              table=False),
+            "stack_decode 70B: the plan stages the pointer table")
+
+    def norm():
+        return 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
+    two = [{"attn_norm": norm(), "ffn_norm": norm(),
+            "wqkv": weights("q4_0", (hq + 2 * hkv) * hd, d, 1)[0],
+            "wo": weights("q4_0", d, d, 1)[0], "w_gate_up": weights("q4_0", 2 * f, d, 1)[0],
+            "w_down": weights("q4_0", d, f, 1)[0]} for _ in range(2)]
+    stack = StackedLayers([two[li % 2] for li in range(n_layers)], hq, hkv, 1e-5)
+    wbytes = n_layers * (sum(nbytes_of(two[0][p].qs, two[0][p].d) for p in PROJECTIONS)
+                         + 2 * d * 4)
+    ck = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+    cv = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+    x = torch.randn((1, 1, d), device=dev, generator=g)
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+    case = f"70B L={n_layers} (two layers' weights) pos={pos}, table in global memory"
+    kc, vc, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    got = stacked_decode_cuda(x, stack, kc, vc, pos_t, cos, sin)
+    again = stacked_decode_cuda(x, stack, ck.clone(), cv.clone(), pos_t, cos, sin)
+    chain = layer_chain(x, stack, k2, v2, pos_t, cos, sin)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"stack_decode {case}: two launches differ")
+    require(all(torch.equal(a.reshape(c.shape), c) for a, c in zip(got, chain))
+            and torch.equal(kc, k2) and torch.equal(vc, v2),
+            f"stack_decode {case}: not bit-equal to the per-layer chain K7 + K6d")
+    del k2, v2, chain
+    kr, vr = ck.clone(), cv.clone()
+    want = stacked_decode_ref(x, stack, kr, vr, pos, cos, sin)
+    torch.cuda.synchronize()
+    rel = MEGA_REL_PER_LAYER * n_layers
+    errs = [(float((a - b).abs().max()), rel * float(b.abs().max())) for a, b in zip(got, want)]
+    require(all(bool(torch.isfinite(a).all()) for a in got) and all(e <= b for e, b in errs),
+            f"stack_decode {case}: (max_abs_err, bound) of x_out, k_cur, v_cur {errs}")
+    t = time_ms(torch, [lambda: stacked_decode_cuda(x, stack, kc, vc, pos_t, cos, sin)], 10)
+    t_chain = time_ms(torch, [lambda: layer_chain(x, stack, kc, vc, pos_t, cos, sin)], 3)
+    tp = time_ms(torch, [lambda: stacked_decode_ref(x, stack, kr, vr, pos, cos, sin)], 2)
+    worst = max(errs, key=lambda eb: eb[0] / eb[1])
+    nbytes = (2 * d * 4 + hd * 4 + wbytes
+              + n_layers * ((pos + 1) * 2 * nkv * 2 + 2 * nkv * 4))
+    ops = n_layers * (2 * d * (hq + 2 * hkv) * hd + 2 * d * d + 6 * d * f + 4 * hq * pos * hd)
+    record("stack_decode", case, worst[0], worst[1], t, tp, nbytes, ops, None,
+           NO_LIBRARY["stack"], n_layers=n_layers, chain_ms=t_chain[0], bits_equal_chain=True,
+           table="global", **stream_plan(plan))
+    log(f"    stack_decode 70B: per-layer chain K7 + K6d {t_chain[0] * 1e3:.1f} us")
+    del two, stack, ck, cv, kc, vc, kr, vr
+    torch.cuda.empty_cache()
+
+
 def preset(name: str):
     """The model of a path: bench.py's presets, at its max_seq_len 2048."""
     import dataclasses
@@ -2695,6 +2853,206 @@ def end_to_end(torch, model, prompts, name, summary):
         entry["batch4"] = against_plain(torch, eng4, prompt4, out4, name, "the batch-4 request")
     summary.setdefault("e2e", {})[name] = entry
     return eng, launches, eng4
+
+
+def serve_traffic(vocab: int) -> list[tuple[list[int], int]]:
+    """The serving paths' requests: SERVE_REQUESTS (prompt, max_new_tokens),
+    prompt lengths and budgets drawn from SEED (one to three chunks)."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    news = rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1, SERVE_REQUESTS)
+    return [(rng.integers(0, vocab, int(n)).tolist(), int(m)) for n, m in zip(lens, news)]
+
+
+def drive_server(serve, reqs) -> tuple[list[list[int]], int]:
+    """SERVE_FIRST requests at the start, the others after the
+    SERVE_ADMIT_STEP-th step (mid-flight admission, slot reuse), step()
+    until admissions drain, then step_burst(SERVE_BURST); returns the
+    outputs in submit order and the steps taken."""
+    rids = [serve.submit(p, n) for p, n in reqs[:SERVE_FIRST]]
+    steps = 0
+    while serve.busy():
+        if steps == SERVE_ADMIT_STEP:
+            rids += [serve.submit(p, n) for p, n in reqs[SERVE_FIRST:]]
+        if steps >= SERVE_ADMIT_STEP and not serve.waiting and not serve.prefilling:
+            serve.step_burst(SERVE_BURST)
+        else:
+            serve.step()
+        steps += 1
+    require(len(rids) == len(reqs), f"the server drained before step {SERVE_ADMIT_STEP}")
+    return [serve.requests[r].output for r in rids], steps
+
+
+def watch_server(torch, serve, gaps: bool):
+    """Wrap a server's prefill and decode steps: each request's last prefill
+    logits (rid -> [1, V]) and, with gaps, the top-2 gap of every logit row
+    it was sampled from, relative to the row's max|logit| (rid -> list)."""
+    lasts, rel_gaps = {}, {}
+    prefill, decode = serve._prefill_slot, serve._decode_logits
+
+    def rel(lg):
+        top = lg.float().topk(2, dim=-1).values
+        return ((top[:, 0] - top[:, 1]) / lg.float().abs().amax(dim=-1)).tolist()
+
+    def prefill_spy(tokens, slot, pos, n_valid):
+        out = prefill(tokens, slot, pos, n_valid)
+        p = serve.prefilling[0]
+        if pos + n_valid >= len(p.req.prompt):
+            lasts[p.req.rid] = out.clone()
+            if gaps:
+                rel_gaps[p.req.rid] = rel(out)
+        return out
+
+    def decode_spy(tok, pos, active):
+        logits = decode(tok, pos, active)
+        row_gaps = rel(logits)
+        for i, r in enumerate(serve.slots):
+            if r is not None:
+                rel_gaps[r.rid].append(row_gaps[i])
+        return logits
+    serve._prefill_slot = prefill_spy
+    if gaps:
+        serve._decode_logits = decode_spy
+    return lasts, rel_gaps
+
+
+def serving_path(torch, model, reqs, name, summary):
+    """A serving path (SERVE_PATHS): the traffic of serve_traffic through one
+    ContinuousBatchingEngine(max_batch SERVE_BATCH, prefill_chunk
+    SERVE_CHUNK) under drive_server, the placement counts set to 0 just
+    before it and read just after: the path's kernels launched, no other
+    kernel and no plain version. Then, for each request: (a) its stream
+    bit-equal to the same request served alone by a fresh engine of the
+    same max_batch and chunk (each row's kernels compute it from that row
+    alone at a fixed max_batch); (b) its last prefill logits (into its
+    slot) against a batch-1 LlamaEngine prefill of its prompt at the same
+    chunk, the largest difference printed, within LOGIT_RTOL * max|logit|;
+    (c) its tokens equal those of the same server under force_ref() up to
+    the first token whose plain top-2 gap is under STEP_RTOL * max|logit|
+    (FLIP_PATHS' rule). Returns the launches."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
+    cache, kernels = SERVE_PATHS[name]
+    set_path("default")
+
+    def server():
+        return ContinuousBatchingEngine(model, max_batch=SERVE_BATCH, prefill_chunk=SERVE_CHUNK,
+                                        cache_dtype=cache)
+    serve = server()
+    lasts, _ = watch_server(torch, serve, gaps=False)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    outs, steps = drive_server(serve, reqs)
+    torch.cuda.synchronize()
+    tiers = global_profile.tier_summary()
+    launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
+    plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    log(f"  [{name}] {len(outs)} requests in {steps} steps (cache {cache}, max_batch "
+        f"{SERVE_BATCH}, chunk {SERVE_CHUNK}); placement: {tiers}")
+    require(all(launches[k] > 0 for k in kernels),
+            f"[{name}] a kernel of the path never launched: {launches}")
+    require(all(n == 0 for k, n in launches.items() if k not in kernels),
+            f"[{name}] a kernel of another path launched: {launches}")
+    require(not plain, f"[{name}] plain tier ran on the main path: {plain}")
+    vocab = model.cfg.vocab_size
+    for (p, n), out in zip(reqs, outs):
+        require(len(out) == n and all(0 <= t < vocab for t in out),
+                f"[{name}] a request of {len(p)} tokens gave {out} for {n}")
+    # (a) each request alone, (b) its slot prefill against a batch-1 prefill
+    alone_equal, prefill_diffs = [], []
+    for rid, ((p, n), out) in enumerate(zip(reqs, outs)):
+        alone = server().run([(p, n)])[0]
+        alone_equal.append(alone == out)
+        ref = LlamaEngine(model, prefill_chunk=SERVE_CHUNK, cache_dtype=cache).prefill(p)
+        diff = float((lasts[rid] - ref).abs().max())
+        prefill_diffs.append(diff)
+        bound = LOGIT_RTOL * float(ref.abs().max())
+        require(bool(torch.isfinite(lasts[rid]).all()) and diff <= bound,
+                f"[{name}] request {rid}: the slot prefill's logits are {diff:.3g} from a "
+                f"batch-1 prefill's (bound {bound:.3g})")
+    require(all(alone_equal), f"[{name}] a request's stream differs when served alone: "
+            f"{alone_equal}")
+    # (c) against the same server under force_ref()
+    plain_serve = server()
+    with force_ref():
+        _, gaps = watch_server(torch, plain_serve, gaps=True)
+        ref_outs, _ = drive_server(plain_serve, reqs)
+    n_cmp = [next((i for i, gap in enumerate(gaps[rid]) if gap < STEP_RTOL), len(out))
+             for rid, out in enumerate(outs)]
+    require(all(o[:c] == r[:c] for o, r, c in zip(outs, ref_outs, n_cmp)),
+            f"[{name}] tokens differ from force_ref()'s before tokens {n_cmp}")
+    log(f"  [{name}] (a) every stream bit-equal to its request served alone: "
+        f"{all(alone_equal)}; (b) slot prefill vs batch-1 prefill, largest logit difference "
+        f"{max(prefill_diffs):.3g} (bit-equal {max(prefill_diffs) == 0.0}); (c) tokens equal to "
+        f"force_ref()'s over the first {n_cmp} (plain top-2 gap bound {STEP_RTOL} of "
+        f"max|logit|), all equal: {outs == ref_outs}")
+    summary.setdefault("serve", {})[name] = dict(
+        cache=cache, max_batch=SERVE_BATCH, prefill_chunk=SERVE_CHUNK, steps=steps,
+        requests=[dict(prompt=len(p), max_new_tokens=n) for p, n in reqs],
+        launches=launches, placement=tiers, outputs=outs, alone_equal=alone_equal,
+        prefill_vs_batch1_max_diff=prefill_diffs, tokens_checked=n_cmp,
+        tokens_all_equal_plain=outs == ref_outs)
+    return launches
+
+
+def serving_rates(torch, model, reqs, card, summary):
+    """Phase 4: each serving path's rate, all requests' emitted tokens over
+    the host wall of drive_server (synchronized), SERVE_RATE_RUNS runs in
+    turns, the median; and the device-busy share of 8 serve_decode steps of
+    SERVE_BATCH live requests (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
+    set_path("default")
+    walls = {name: [] for name in SERVE_PATHS}
+    tokens = {}
+    for _ in range(SERVE_RATE_RUNS):
+        for name, (cache, _) in SERVE_PATHS.items():
+            serve = ContinuousBatchingEngine(model, max_batch=SERVE_BATCH,
+                                             prefill_chunk=SERVE_CHUNK, cache_dtype=cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs, _ = drive_server(serve, reqs)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            tokens[name] = sum(len(o) for o in outs)
+    for name, (cache, _) in SERVE_PATHS.items():
+        wall = statistics.median(walls[name])
+        rate = tokens[name] / wall
+        # 8 decode steps with every slot live and no admission pending
+        serve = ContinuousBatchingEngine(model, max_batch=SERVE_BATCH,
+                                         prefill_chunk=SERVE_CHUNK, cache_dtype=cache)
+        for p, _ in reqs[:SERVE_BATCH]:
+            serve.submit(p, 64)
+        while serve.prefilling or serve.waiting:
+            serve.step()
+        busy = None
+        for _ in range(PROFILE_TRIES):
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(8):
+                    serve.step()
+                torch.cuda.synchronize()
+                dwall = time.perf_counter() - t0
+            kern = [_self_device_us(ev) for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA]
+            if kern:
+                busy = sum(kern)
+                break
+        share = "not measured" if busy is None else busy / (dwall * 1e6)
+        log(f"  [{name}] serving rate {rate:.1f} tok/s ({tokens[name]} tokens of "
+            f"{SERVE_REQUESTS} requests, median host wall {wall:.3f} s of {SERVE_RATE_RUNS} runs "
+            f"in turns); 8 serve_decode steps of {SERVE_BATCH} rows: host wall "
+            f"{dwall * 1e3:.2f} ms, device busy "
+            + ("not measured" if busy is None else f"{busy / 1e3:.2f} ms ({100 * share:.1f}%)")
+            + f"  [{card}]")
+        summary.setdefault("rates", {})[name] = dict(
+            serve_tok_s=rate, tokens=tokens[name], walls_s=walls[name],
+            decode8_wall_us=dwall * 1e6, decode8_busy_us=busy, decode8_busy_share=share,
+            card=card)
 
 
 def kernel_switch_check(torch, model, prompt, summary):
@@ -3830,6 +4188,11 @@ def main() -> int:
     kernel_switch_check(torch, tiny, prompts[1], summary)
     log(f"  phase 3 (inference) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    serve_reqs = serve_traffic(tiny.cfg.vocab_size)
+    for name in SERVE_PATHS:
+        launches[name] = serving_path(torch, tiny, serve_reqs, name, summary)
+    log(f"  phase 3 (serving) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     trainers = train_paths(torch, dev, models, summary, launches)
     log(f"  phase 3 (training) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3846,6 +4209,7 @@ def main() -> int:
         set_path(name)
         profile(torch, eng, prompts[2], prompts[3], name, summary)
     set_path("default")
+    serving_rates(torch, tiny, serve_reqs, card, summary)
     train_rates(torch, trainers, card, summary)
     for name, tr in trainers.items():
         train_profile(torch, lambda t_=tr: t_.step(0), name, summary)

@@ -143,12 +143,28 @@ def test_cli_generate_int8_cache_on_cpu(tiny_path, capsys):
     assert " attention " not in out and "decode_attention " not in out
 
 
-def test_load_llama_refuses_q8_0_weights(tmp_path):
-    """A matmul weight type the port has no kernel for is refused, not
-    dequantized in silence. Q8_0 loads now (it has its kernels); F16 matmul
-    weights, which the JAX package loads dense, wait for the dense load mode
-    and are refused the same way."""
+def test_load_llama_refuses_q8_0_weights(tmp_path, monkeypatch):
+    """What the loader cannot run is refused, not dequantized in silence.
+    Q8_0 loads (it has its kernels), and so do F16 matmul weights, dense, as
+    the JAX package loads them (`_load_matmul`) since the dense load mode;
+    a quantized layer whose q/k/v mix kinds (attn_v F16 beside Q4_0, which
+    the JAX package loads unfused) is refused, naming ROADMAP.md A.3."""
+    from zgml_tpu_torch.utils import synthetic
     path = str(tmp_path / "tiny_f16.gguf")
     write_synthetic_llama_gguf(path, TINY_TEST, quant=GGMLType.F16)
-    with pytest.raises(NotImplementedError, match="F16.*dense load mode"):
-        load_llama(path, device="cpu")
+    model, gf = load_llama(path, device="cpu")
+    gf.close()
+    layer = model.params["layers"][0]
+    assert all(isinstance(layer[n], torch.Tensor) and layer[n].dtype == torch.float32
+               for n in ("wqkv", "wo", "w_gate_up", "w_down"))
+
+    class MixedWriter(synthetic.GGUFWriter):
+        def add_raw_tensor(self, name, shape, ggml_type, raw):
+            if "attn_v" in name and ggml_type != GGMLType.F16:
+                raw, ggml_type = np.zeros(shape, np.float16), GGMLType.F16
+            return super().add_raw_tensor(name, shape, ggml_type, raw)
+    monkeypatch.setattr(synthetic, "GGUFWriter", MixedWriter)
+    mixed = str(tmp_path / "tiny_mixed.gguf")
+    synthetic.write_synthetic_llama_gguf(mixed, TINY_TEST, quant=GGMLType.Q4_0)
+    with pytest.raises(NotImplementedError, match=r"mix kinds.*ROADMAP\.md A\.3"):
+        load_llama(mixed, device="cpu")

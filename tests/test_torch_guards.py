@@ -319,3 +319,36 @@ def test_k12_k13_wrappers_refuse_what_their_kernels_do_not_take():
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             rmsnorm_cuda(torch.zeros(2, 8, dtype=torch.float64, device="cuda"),
                          torch.ones(8, device="cuda"))
+
+
+def test_serving_imports_no_jax_and_runs_where_the_model_is(tmp_path):
+    """runtime/serving.py, imported alone in a fresh process, pulls in neither
+    jax nor zgml_tpu; a server holds its cache and its generator on its
+    model's device: the card for a model loaded with the defaults (whose load
+    raises without one), the CPU only for a model built with device="cpu"."""
+    code = ("import sys\n"
+            "import zgml_tpu_torch.runtime.serving\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+            "or m == 'zgml_tpu' or m.startswith('zgml_tpu.'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env={"PYTHONPATH": str(REPO),
+                                                       "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
+    from zgml_tpu_torch.utils.synthetic import TINY_TEST, write_synthetic_llama_gguf
+    path = str(tmp_path / "tiny.gguf")
+    write_synthetic_llama_gguf(path, TINY_TEST, seed=2)
+    model, gf = load_llama(path, device="cpu")
+    gf.close()
+    serve = ContinuousBatchingEngine(model, max_batch=2)
+    assert serve.cache["k"].device.type == serve.generator.device.type == "cpu"
+    if torch.cuda.is_available():
+        model, gf = load_llama(path)
+        gf.close()
+        serve = ContinuousBatchingEngine(model, max_batch=2)
+        assert serve.cache["k"].device.type == serve.generator.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+        load_llama(path)

@@ -34,8 +34,9 @@ from zgml_tpu.ops.qmatmul import qmatmul_greedy_pallas, qmatmul_pallas
 from zgml_tpu.quant.repack import quantize_weight
 
 from zgml_tpu_torch.ops import decode_plan
-from zgml_tpu_torch.ops.qmatmul import (I8_SELF_MAX_MK, I8_TILE, I8_WARPS, i8_block_tiles,
-                                        i8_groups, i8_ints, i8_nt, i8_part_segments, i8_parts,
+from zgml_tpu_torch.ops.qmatmul import (I8_SELF_MAX_MK, I8_TILE, I8_WARPS, _i8_split_plan,
+                                        i8_block_tiles, i8_groups, i8_ints, i8_nt,
+                                        i8_part_segments, i8_parts, i8_piece, i8_piece_align,
                                         i8_plan, i8_scratch_bytes, i8_stages, qmatmul_i8_ref,
                                         quantize_act_ref)
 from zgml_tpu_torch.quant import packed
@@ -52,6 +53,10 @@ SHAPES = [(n, k, kind) for n, k in TINY for kind in ("q4_0", "q8_0")] + \
          [(n, k, "q4_0") for n, k in SEVEN_B] + \
          [(n, k, kind) for n, k in GPU_TESTS for kind in ("q4_0", "q8_0")]
 ROWS = (1, 2, 4, 5, 8, 9, 16, 17, 31, 32)
+# rows no 8-row tile of whole rows holds a slot of (Q8_0 from k 27,040, Q4_0
+# from 51,072; 70B's d_ff is 28,672) at some M: the K-split form
+SPLIT_SHAPES = [(8192, 27040, "q8_0"), (8192, 28672, "q8_0"), (1000, 28672, "q8_0"),
+                (8192, 51072, "q4_0"), (8192, 57344, "q4_0")]
 
 
 def _tile_bytes(k, kind, tr):
@@ -115,7 +120,7 @@ def test_plan_fits_shared_memory(n, k, kind):
             2 if plan.nt <= 2 else 1))
         assert plan.smem_bytes >= plan.red_off + I8_WARPS * 8
         ints = i8_ints(plan)
-        assert len(ints) == 16 and ints[0] == SMS and ints[13] == plan.smem_bytes
+        assert len(ints) == 17 and ints[0] == SMS and ints[13] == plan.smem_bytes
         assert i8_scratch_bytes(plan, 1, k, greedy=True) > i8_scratch_bytes(plan, 1, k)
 
 
@@ -132,6 +137,59 @@ def test_plan_forms_follow_the_rules(n, k, kind):
             assert not _fits(m, k, kind, plan.tr, False, False, 2, plan)
         if plan.tr == I8_TILE // 2:        # no mode fits two 16-row slots
             assert not _fits(m, k, kind, I8_TILE, False, True, 2, plan)
+        assert plan.kc == 1                # whole rows wherever they fit
+
+
+def _units(plan, b):
+    """(tile, piece) of each stage of block b."""
+    return [(u // plan.kc, u % plan.kc) for u, _ in i8_stages(plan, b)]
+
+
+@pytest.mark.parametrize("n,k,kind", SPLIT_SHAPES)
+def test_split_plan_covers_rows_and_k(n, k, kind):
+    """Every (output row, quant block) in exactly one part of one stage of
+    one block; pieces on 8-block bounds where k / 32 is a multiple of 8; a
+    stage of the K-split form is one unit, within the slot; every warp count
+    and the shared memory within the H100's."""
+    nb, bps = k // 32, 128 // QS_BLOCK_BYTES[kind]
+    for m in ROWS:
+        plan = i8_plan(m, n, k, kind, SMS)
+        if plan.kc == 1:                 # whole rows fit at this M (a ring of one slot)
+            assert (kind, k, m >= 17) in (("q8_0", 27040, True), ("q4_0", 51072, True))
+            continue
+        assert plan.S == 1 and plan.tr == I8_TILE and plan.smem_bytes <= decode_plan.SMEM_LIMIT
+        assert plan.xg and not plan.self_q   # x from L2 (the kernel's SPLIT instantiations)
+        assert 2 <= plan.stages <= decode_plan.MAX_STAGES
+        assert not _fits(m, k, kind, I8_TILE // 2, False, True, 1, plan)   # no whole-row form
+        g = i8_piece_align(nb)
+        seen = np.zeros((n, nb), np.int32)
+        for b in range(plan.grid):
+            for tile, j in _units(plan, b):
+                b0, nbc = i8_piece(plan, nb, j)
+                assert b0 % g == 0 and nbc % g == 0 and nbc > 0
+                assert plan.slot_bytes >= I8_TILE * nbc * (QS_BLOCK_BYTES[kind] + 2)
+                nseg = -(-nbc * QS_BLOCK_BYTES[kind] // 128)
+                assert nseg <= plan.nseg
+                P = i8_parts(plan, 1, nseg)
+                assert P * i8_groups(plan.nt) <= I8_WARPS
+                rows = slice(tile * I8_TILE, min((tile + 1) * I8_TILE, n))
+                for p in range(P):
+                    for sg in i8_part_segments(plan, 1, p, nseg):
+                        seen[rows, b0 + sg * bps:b0 + min((sg + 1) * bps, nbc)] += 1
+        assert np.all(seen == 1), f"m {m}: a (row, block) not covered exactly once"
+        assert i8_ints(plan)[16] == plan.kc and len(i8_ints(plan)) == 17
+        assert i8_scratch_bytes(plan, m, k, n=n) >= i8_scratch_bytes(plan, m, k) + \
+            plan.kc * m * n * 4
+
+
+def test_split_plan_at_the_70b_shapes():
+    """The shapes that raised before: K1q8 on a 70B w_down at M 1 and 32, and
+    K1q4 from k 51,072."""
+    for m in (1, 32):
+        plan = i8_plan(m, 8192, 28672, "q8_0", SMS)
+        assert plan.kc > 1 and plan.stages >= 2
+    assert i8_plan(1, 8192, 51072, "q4_0", SMS).kc > 1
+    assert i8_plan(1, 8192, 27040, "q8_0", SMS).kc > 1
 
 
 def test_plan_forms_at_the_model_widths():
@@ -151,8 +209,25 @@ def test_plan_forms_at_the_model_widths():
 
 # -- the model of the kernel's arithmetic ------------------------------------------
 
+def _part_sums(xq, xs, lv, d, rows, _b0, parts):
+    """A tile's sums over `parts` (lists of quant blocks, in order): per part
+    acc = fma(float(c), xs * d, acc) from 0 over its blocks, the parts added
+    in order -> f32 [rows, M]."""
+    v = None
+    for blks in parts:
+        acc = torch.zeros((rows.stop - rows.start, xq.shape[0]), dtype=torch.float32)
+        for blk in blks:
+            c = lv[rows, blk] @ xq[:, blk].T                     # exact int dots
+            sd = xs[:, blk][None, :] * d[rows, blk][:, None]     # f32 product
+            acc = (c.double() * sd.double() + acc.double()).float()
+        v = acc if v is None else v + acc
+    return v
+
+
 def kernel_model(x: torch.Tensor, w: packed.PackedWeight, plan) -> torch.Tensor:
-    """y f32 [M, N] in the kernel's order on `plan` (see the module)."""
+    """y f32 [M, N] in the kernel's order on `plan` (see the module); the
+    K-split form sums each (tile, piece) unit as a tile, then each output's
+    pieces in piece order from 0."""
     m, k = x.shape
     nb = k // 32
     bps = 128 // QS_BLOCK_BYTES[w.kind]
@@ -161,6 +236,20 @@ def kernel_model(x: torch.Tensor, w: packed.PackedWeight, plan) -> torch.Tensor:
     lv = w.levels().to(torch.int64)                 # [N, nb, 32]
     d = w.d.to(torch.float32)
     y = torch.zeros((m, w.n), dtype=torch.float32)
+    if plan.kc > 1:
+        ypart = torch.zeros((plan.kc, m, w.n), dtype=torch.float32)
+        for b in range(plan.grid):
+            for tile, j in _units(plan, b):
+                rows = slice(tile * plan.tr, min((tile + 1) * plan.tr, w.n))
+                b0, nbc = i8_piece(plan, nb, j)
+                nseg = -(-nbc * QS_BLOCK_BYTES[w.kind] // 128)
+                parts = [[b0 + blk for sg in i8_part_segments(plan, 1, p, nseg)
+                          for blk in range(sg * bps, min((sg + 1) * bps, nbc))]
+                         for p in range(i8_parts(plan, 1, nseg))]
+                ypart[j][:, rows] = _part_sums(xq, xs, lv, d, rows, b0, parts).T
+        for j in range(plan.kc):
+            y = y + ypart[j]
+        return y
     for b in range(plan.grid):
         for u, st in i8_stages(plan, b):
             for tl in range(st):
@@ -168,16 +257,10 @@ def kernel_model(x: torch.Tensor, w: packed.PackedWeight, plan) -> torch.Tensor:
                 rows = slice(r0, min(r0 + plan.tr, w.n))
                 if r0 >= w.n:
                     continue
-                v = None
-                for p in range(i8_parts(plan, st)):
-                    acc = torch.zeros((rows.stop - r0, m), dtype=torch.float32)
-                    for sg in i8_part_segments(plan, st, p):
-                        for blk in range(sg * bps, min((sg + 1) * bps, nb)):
-                            c = lv[rows, blk] @ xq[:, blk].T             # exact int dots
-                            sd = xs[:, blk][None, :] * d[rows, blk][:, None]   # f32 product
-                            acc = (c.double() * sd.double() + acc.double()).float()
-                    v = acc if v is None else v + acc
-                y[:, rows] = v.T
+                parts = [[blk for sg in i8_part_segments(plan, st, p)
+                          for blk in range(sg * bps, min((sg + 1) * bps, nb))]
+                         for p in range(i8_parts(plan, st))]
+                y[:, rows] = _part_sums(xq, xs, lv, d, rows, 0, parts).T
     return y
 
 
@@ -242,6 +325,33 @@ def test_model_matches_jax_plain_and_float64(default_flags, kind, m, n, k, sms):
     rms = np.sqrt(np.mean((got - exact) ** 2))
     rms_plain = np.sqrt(np.mean((plain - exact) ** 2))
     assert rms <= 2.0 * rms_plain + 1e-30
+
+
+@pytest.mark.parametrize("kind", ["q4_0", "q8_0"])
+@pytest.mark.parametrize("m,n,k,sms,kc", [(1, 96, 512, 4, 2), (5, 300, 1024, 3, 3),
+                                          (32, 200, 800, 4, 4), (17, 64, 2048, 132, 5)])
+def test_split_model_matches_jax_plain_and_float64(default_flags, kind, m, n, k, sms, kc):
+    """The K-split form's order (each piece's parts, the pieces in order) at
+    small shapes, the plan built at kc pieces: within 1e-5 * max|y| of the
+    JAX int8 tier, the plain version and float64, rms at most 2x the plain
+    version's (k 800: 25 blocks, pieces on single-block bounds)."""
+    rng, jw, pw = _weights(m * 11 + n + kc, n, k, kind)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    x[0, :32] = 0.0
+    plan = _i8_split_plan(m, n, k, kind, sms, kc_least=kc)
+    assert plan.kc == kc
+    xt = torch.from_numpy(x)
+    got = kernel_model(xt, pw, plan).numpy()
+    jax_y = np.asarray(qmatmul_pallas(jnp.asarray(x), jw))
+    plain = qmatmul_i8_ref(xt, pw).numpy()
+    xq, xs = quantize_act_ref(xt)
+    exact = ((xq.double().view(m, -1, 32) * xs.double()[..., None]).view(m, k)
+             @ pw.dequant().double().T).numpy()
+    bound = 1e-5 * np.max(np.abs(exact))
+    for ref in (jax_y, plain, exact):
+        assert np.max(np.abs(got - ref)) <= bound
+    rms = np.sqrt(np.mean((got - exact) ** 2))
+    assert rms <= 2.0 * np.sqrt(np.mean((plain - exact) ** 2)) + 1e-30
 
 
 @pytest.mark.parametrize("kind", ["q4_0", "q8_0"])

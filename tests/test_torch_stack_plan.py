@@ -103,10 +103,48 @@ def test_stack_plan(n_layers, d, hq, hkv, hd, f):
 @pytest.mark.parametrize("n_layers,d,hq,hkv,hd,f", [
     (2, 2048, 32, 4, 64, 65536),          # down's staged row alone overflows a block
     (2, 16384, 128, 8, 128, 53248),       # nor at 16384 / 53248
-    (2000, 4096, 32, 32, 128, 11008)])    # the pointer table of 2000 layers leaves no room
+    (80, 8192, 64, 8, 128, 49152)])       # nor with the table in global memory
 def test_stack_plan_refuses_what_it_cannot_fit(n_layers, d, hq, hkv, hd, f):
     with pytest.raises(NotImplementedError, match="stack_decode"):
         dp.stack_plan(n_layers, d, hq, hkv, hd, f, S, SMS)
+
+
+# (L, d, hq, hkv, hd, f): the 70B shape, where the staged table leaves one
+# stage, and 2000 layers of the 7B width, where the table alone fills a block
+GLOBAL_TABLE_SHAPES = [(80, 8192, 64, 8, 128, 28672), (2000, 4096, 32, 32, 128, 11008)]
+
+
+@pytest.mark.parametrize("s", (2048, 4096, 8192))
+@pytest.mark.parametrize("n_layers,d,hq,hkv,hd,f", GLOBAL_TABLE_SHAPES)
+def test_stack_plan_reads_the_table_from_global_memory_where_it_does_not_fit(
+        n_layers, d, hq, hkv, hd, f, s):
+    """Where the staged pointer table leaves fewer than two stages, the plan
+    leaves it in global memory (act_bytes without it, which is how the kernel
+    tells the two apart) and streams the layers as every other plan does."""
+    staged = dp.stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, SMS)
+    plan = dp.stack_plan(n_layers, d, hq, hkv, hd, f, s, SMS)
+    assert (dp.SMEM_LIMIT - dp.HEADER_BYTES - staged) // plan.slot_bytes < 2
+    assert plan.act_bytes == dp.stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, SMS, table=False)
+    assert plan.act_bytes < staged
+    assert 2 <= plan.stages and plan.smem_bytes <= dp.SMEM_LIMIT
+    assert plan.smem_bytes == dp.HEADER_BYTES + plan.stages * plan.slot_bytes + plan.act_bytes
+    assert 1 <= plan.ahead < plan.stages
+    pa, pc, pgu, pdn = plan.phases
+    _check_phase(pa, (hq + 2 * hkv) * hd, plan)
+    _check_phase(pc, d, plan)
+    _check_phase(pgu, 2 * f, plan)
+    _check_phase(pdn, d, plan)
+
+
+@pytest.mark.parametrize("n_layers,d,hq,hkv,hd,f", STACK_SHAPES)
+def test_stack_plan_keeps_the_staged_table_where_it_fits(n_layers, d, hq, hkv, hd, f):
+    """Every shape that planned with the table in shared memory keeps that
+    plan: the same act_bytes (so the kernel stages the table), ring and
+    phases at S 2048 and at 131072."""
+    for s in (S, 131072):
+        plan = dp.stack_plan(n_layers, d, hq, hkv, hd, f, s, SMS)
+        act = dp.stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, SMS, table=True)
+        assert plan.act_bytes == act and plan.stages >= 2
 
 
 def _stream(plan: dp.StreamPlan, b: int, n_layers: int):

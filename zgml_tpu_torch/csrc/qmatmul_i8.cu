@@ -65,6 +65,20 @@
 //     plan's `xg`). The producer copies at most `ahead` stages before the
 //     consumers have staged x (loads an SM issues queue behind its bulk
 //     copies in flight).
+//   * Rows too long for an 8-row tile of whole rows to leave a slot (Q8_0
+//     from K 27,040, Q4_0 from 51,072; the JAX grid tiles K and takes any K)
+//     run the K-split form (the plan's kc > 1): each tile's rows are cut in
+//     kc pieces of consecutive quant blocks (bounds a multiple of 8 blocks
+//     where K / 32 is, so each row's fp16 scales come as 16-byte copies), a
+//     unit is (tile, piece) and a stage one unit, whose rows the producer
+//     copies a row at a time; each unit's sums go to a global [kc, M, N]
+//     area, and after one grid barrier each block adds its share of the
+//     outputs' kc pieces in piece order (two launches give the same bits).
+//     x is quantized as in the whole-row form, bit-equal to the pre-pass,
+//     and read from L2 (XG). It has instantiations of its own (SPLIT), so
+//     the whole-row ones carry none of a piece's state (ptxas caps 544
+//     threads at 96 registers); M = 1 runs its n8 code (the one-row form
+//     spills at that cap).
 //   * K5 is the same code at M = 1 with the same plan (so its values are
 //     K1's bit for bit) and an argmax in place of the store: each thread
 //     keeps the best of the rows it sums (strictly greater: its rows ascend),
@@ -84,6 +98,7 @@ struct I8Params {
   const uint8_t* qs;        // [N, nb * BYTES]
   const __half* d;          // [N, nb]
   float* y;                 // [M, N] (K1)
+  float* ypart;             // the K-split form: [kc, M, N] piece sums
   uint8_t* xg;              // global mode: xq in fragment order, [nb][M][32]
   float* xsg;               // global mode: [nb][MX] staged scales
   int8_t* xq_out;           // [M, K] or null: the kernel's own activations
@@ -103,7 +118,20 @@ struct I8Args {
   int S, tr, self_q;        // tiles a stage, rows a tile (16, or 8 where 16 leave no slot)
   int pis;                  // the partial sums go into the slot just consumed (no part area)
   int xf_off, xs_off, part_off, red_off;
+  int kc;                   // K pieces a row (1: whole rows; above, the K-split form, S 1)
 };
+
+// Quant blocks a K-split piece's bounds are a multiple of (ops/qmatmul.py
+// i8_piece_align): 8 where nb is, so its scales copy in 16-byte units.
+__host__ __device__ __forceinline__ int piece_align(int nb) { return nb % 8 == 0 ? 8 : 1; }
+
+// Piece j of kc of a row of nb quant blocks: its first block and its blocks
+// (ops/qmatmul.py i8_piece).
+__device__ __forceinline__ void piece(int nb, int kc, int j, int& b0, int& nbc) {
+  const int g = piece_align(nb);
+  b0 = j * (nb / g) / kc * g;
+  nbc = (j + 1) * (nb / g) / kc * g - b0;
+}
 
 // Byte offset of elements 4c..4c+3 of a row's 32-block in its fragment-order
 // 32 bytes: lane t's two words hold elements 4t..4t+3 and 16 + 4t..16 + 4t + 3.
@@ -169,10 +197,11 @@ __device__ __forceinline__ float quantize_thread(const float* src, uint8_t* dst,
 
 // One item of a warp: rows g and g + 8 of a tile (tq: its qs rows, rq bytes
 // apart; its scale rows in dq (shared memory, nb apart) or, where the stage
-// could not copy them, at dg in global memory), the quant blocks of segment
-// sg (128 bytes of each row: 8 blocks at Q4_0, 4 at Q8_0), against the NT n8
-// tiles of x from row m0 (xf / xs: fragment-order rows and staged scales of
-// MX columns, in shared memory or, XG, in global memory). rows: the tile's
+// could not copy them, at dg in global memory, dgs apart), the quant blocks of
+// segment sg of the row's nb (128 bytes of each row: 8 blocks at Q4_0, 4 at
+// Q8_0), against the NT n8 tiles of x from row m0 (xf / xs: fragment-order
+// rows and staged scales of MX columns, in shared memory or, XG, in global
+// memory). rows: the tile's
 // rows that exist; half: an 8-row tile (rows g + 8 are zero); ONE: M == 1
 // (only column 0 of the C fragment counts).
 //
@@ -187,7 +216,8 @@ __device__ __forceinline__ float quantize_thread(const float* src, uint8_t* dst,
 // block uses.
 template <class F, int NT, int MX, bool XG, bool ONE>
 __device__ __forceinline__ void item(const uint8_t* tq, int rq, const __half* dq,
-                                     const __half* dg, int nb, int sg, bool half, int rows,
+                                     const __half* dg, int dgs, int nb, int sg, bool half,
+                                     int rows,
                                      const uint8_t* xf, const float* xs, int M, int m0, int lane,
                                      float (&acc)[NT][4]) {
   constexpr int BPS = SEG / F::BYTES;       // quant blocks a segment: 8 (Q4_0), 4 (Q8_0)
@@ -256,8 +286,8 @@ __device__ __forceinline__ void item(const uint8_t* tq, int rq, const __half* dq
         for (int e = 0; e < 2 && c + e < BPG; ++e) {
           const int bl = q * BPG + c + e, b = b0 + bl;
           if (bl < nbk) {
-            const __half* sl = dq != nullptr ? dq + g * nb + b : dg + (size_t)g * nb + b;
-            const __half* sh = sl + 8 * nb;
+            const __half* sl = dq != nullptr ? dq + g * nb + b : dg + (size_t)g * dgs + b;
+            const __half* sh = sl + 8 * (dq != nullptr ? nb : dgs);
             if (g < rows) lo |= (uint32_t)__half_as_ushort(*sl) << (16 * e);
             if (!half && g + 8 < rows) hi |= (uint32_t)__half_as_ushort(*sh) << (16 * e);
           }
@@ -355,8 +385,8 @@ __device__ __forceinline__ void item(const uint8_t* tq, int rq, const __half* dq
 // [sg0, sg1) of part w % (NH P) / NH (the plan's i8_parts / i8_part_segments).
 template <int NH>
 struct Split {
-  int st, P, tl, hh, sg0, sg1;
-  __device__ __forceinline__ Split(int st_, int nseg, int warp) : st(st_) {
+  int st, nseg, P, tl, hh, sg0, sg1;
+  __device__ __forceinline__ Split(int st_, int nseg_, int warp) : st(st_), nseg(nseg_) {
     P = min(ws::WARPS / (NH * st), nseg);
     tl = warp / (NH * P);
     hh = warp % (NH * P) % NH;
@@ -366,15 +396,17 @@ struct Split {
   }
 };
 
-// The block's tiles [t0, t1) of the grid's ceil(N / tr).
-__device__ __forceinline__ void block_tiles(int N, int tr, int& t0, int& t1) {
-  const unsigned T = (unsigned)(N + tr - 1) / tr;          // 32-bit: T * grid < 2^32
+// The block's units [t0, t1) of the grid's ceil(N / tr) * kc: tiles, or in
+// the K-split form (tile, piece) units u = tile * kc + piece.
+__device__ __forceinline__ void block_tiles(int N, int tr, int kc, int& t0, int& t1) {
+  const unsigned T = (unsigned)(N + tr - 1) / tr * kc;     // 32-bit: T * grid < 2^32
   t0 = (int)(blockIdx.x * T / gridDim.x);
   t1 = (int)((blockIdx.x + 1) * T / gridDim.x);
 }
 
-template <class F, int NT, bool XG, bool ARGMAX, bool ONE>
+template <class F, int NT, bool XG, bool ARGMAX, bool ONE, bool SPLIT>
 __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args a) {
+  static_assert(!SPLIT || (XG && !ARGMAX), "the K-split form reads x from L2, K1 only");
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int MX = 8 * NT;
   constexpr int NH = NT == 4 ? 2 : 1;       // column groups a tile's warps split x's rows in
@@ -382,9 +414,9 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
   const int nb = p.K / 32, rq = nb * F::BYTES;
   const int nseg = (rq + SEG - 1) / SEG;
   ws::ring_init(smem, a.ring);
-  const int tr = a.tr;
+  const int tr = a.tr, kc = SPLIT ? a.kc : 1;
   int t0, t1;
-  block_tiles(p.N, tr, t0, t1);
+  block_tiles(p.N, tr, kc, t0, t1);
   float* xin = reinterpret_cast<float*>(smem + a.ring.act_off);
 
   if (threadIdx.x >= ws::CONSUMERS) {       // the producer warp: one thread copies
@@ -398,11 +430,30 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
       for (int u = t0; u < t1; u += a.S, ++n) {
         if (!a.self_q && n >= a.ring.ahead)
           while (*go < 2u) __nanosleep(64);
-        const int rows = min(min(a.S, t1 - u) * tr, p.N - u * tr);
-        const uint32_t qb = (uint32_t)(rows * rq), db = (uint32_t)(rows * nb * 2);
         const int slot = n % a.ring.stages;
         ws::mbar_wait(ws::empty_bar(smem, slot), ((n / a.ring.stages) & 1) ^ 1);
         uint8_t* dst = smem + ws::HEADER_BYTES + (size_t)slot * a.ring.slot_bytes;
+        if constexpr (SPLIT) {              // one piece of a tile's rows, a row at a time
+          const int tile = u / kc;
+          int b0, nbc;
+          piece(nb, kc, u % kc, b0, nbc);
+          const int rows = min(tr, p.N - tile * tr);
+          const uint32_t rqc = (uint32_t)nbc * F::BYTES;
+          const uint32_t dc = nb % 8 == 0 ? (uint32_t)nbc * 2 : 0u;
+          ws::mbar_expect_tx(ws::full_bar(smem, slot), (uint32_t)rows * (rqc + dc));
+          for (int r = 0; r < rows; ++r) {
+            const size_t row = (size_t)tile * tr + r;
+            ws::bulk_copy(dst + (size_t)r * rqc, p.qs + row * rq + (size_t)b0 * F::BYTES, rqc,
+                          ws::full_bar(smem, slot));
+            if (dc)
+              ws::bulk_copy(dst + (size_t)tr * rqc + (size_t)r * dc,
+                            reinterpret_cast<const uint8_t*>(p.d + row * nb + b0), dc,
+                            ws::full_bar(smem, slot));
+          }
+          continue;
+        }
+        const int rows = min(min(a.S, t1 - u) * tr, p.N - u * tr);
+        const uint32_t qb = (uint32_t)(rows * rq), db = (uint32_t)(rows * nb * 2);
         const bool dcopy = db % 16 == 0;
         ws::mbar_expect_tx(ws::full_bar(smem, slot), qb + (dcopy ? db : 0u));
         ws::bulk_copy(dst, p.qs + (size_t)u * tr * rq, qb, ws::full_bar(smem, slot));
@@ -419,7 +470,10 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   uint8_t* xf_s = smem + a.xf_off;
   float* xs_s = reinterpret_cast<float*>(smem + a.xs_off);
-  // 1. the int8 activations
+  // 1. the int8 activations (the barrier: the global xq's, and the K-split
+  // form's before the piece sums are added)
+  ws::CountBarrier gb;
+  if (SPLIT || !a.self_q) gb.start(p.bar + 2);
   if (a.self_q) {
     ws::mbar_wait(ws::x_bar(smem), 0);
     const bool out = p.xq_out != nullptr && blockIdx.x == 0;    // block 0 writes its own
@@ -434,8 +488,6 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
       xs_s[(i / (MX - p.M)) * MX + p.M + i % (MX - p.M)] = 0.f;
     ws::sync();
   } else {
-    ws::CountBarrier gb;
-    gb.start(p.bar + 2);
     const unsigned Q = (unsigned)(nb * MX);    // (b, m) with m < MX: rows past M give xs 0
     const int q0 = (int)(blockIdx.x * Q / gridDim.x);
     const int q1 = (int)((blockIdx.x + 1) * Q / gridDim.x);
@@ -486,13 +538,21 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
   Split<NH> split(a.S, nseg, warp);
   int n = 0;
   for (int u = t0; u < t1; u += a.S, ++n) {
+    int tile = u, b0 = 0, nbc = nb;         // the stage's first tile, and its piece of K
+    if constexpr (SPLIT) {
+      tile = u / kc;
+      piece(nb, kc, u % kc, b0, nbc);
+    }
+    const int rqc = nbc * F::BYTES;
     const int st = min(a.S, t1 - u);
-    const int rows = min(st * tr, p.N - u * tr);
+    const int rows = min(st * tr, p.N - tile * tr);
     const int slot = n % a.ring.stages;
     ws::mbar_wait(ws::full_bar(smem, slot), (n / a.ring.stages) & 1);
     uint8_t* base = smem + ws::HEADER_BYTES + (size_t)slot * a.ring.slot_bytes;
-    const bool dcopy = rows * nb * 2 % 16 == 0;
-    if (st != split.st) split = Split<NH>(st, nseg, warp);   // a block's last stage may be short
+    const bool dcopy = SPLIT ? nb % 8 == 0 : rows * nb * 2 % 16 == 0;
+    const int nsegc = SPLIT ? (rqc + SEG - 1) / SEG : nseg;
+    if (st != split.st || (SPLIT && nsegc != split.nseg))   // a last stage may be short
+      split = Split<NH>(st, nsegc, warp);
     const int P = split.P, m0 = 8 * NTI * split.hh;
     const bool active = warp < st * NH * P;
     float acc[NTI][4];
@@ -501,13 +561,14 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
     if (active) {
       const int r0 = split.tl * tr;
       const __half* dq =
-          dcopy ? reinterpret_cast<const __half*>(base + (size_t)a.S * tr * rq) + r0 * nb
+          dcopy ? reinterpret_cast<const __half*>(base + (size_t)a.S * tr * rqc) + r0 * nbc
                 : nullptr;
-      const __half* dg = p.d + (size_t)(u * tr + r0) * nb;
+      const __half* dg = p.d + (size_t)(tile * tr + r0) * nb + b0;
       const int tile_rows = min(tr, rows - r0);
       for (int sg = split.sg0; sg < split.sg1; ++sg)
-        item<F, NTI, MX, XG, ONE>(base + (size_t)r0 * rq, rq, dq, dg, nb, sg, tr < TILE,
-                                  tile_rows, xf, xs, p.M, m0, lane, acc);
+        item<F, NTI, MX, XG, ONE>(base + (size_t)r0 * rqc, rqc, dq, dg, nb, nbc, sg,
+                                  tr < TILE, tile_rows, xf + (size_t)b0 * p.M * 32,
+                                  xs + b0 * MX, p.M, m0, lane, acc);
     }
     float* part;
     if (a.pis) {
@@ -541,6 +602,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
     // each output: its tile's P partial sums in part order; a warp reads
     // consecutive rows (rows fastest, then m, then the tile)
     if constexpr (!ARGMAX) {
+      float* yo = SPLIT ? p.ypart + (size_t)(u % kc) * p.M * p.N : p.y;
       for (int o = threadIdx.x; o < st * p.M * tr; o += ws::CONSUMERS) {
         const int r = o & (tr - 1), q = o >> (tr == TILE ? 4 : 3);
         const int m = ONE ? 0 : q % p.M, tq = ONE ? q : q / p.M;
@@ -548,7 +610,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
         const float* pp = part + (tq * NH * P + (NH == 2 ? m / 16 : 0)) * PM * TILE + m * TILE + r;
         float v = 0.f;
         for (int q = 0; q < P; ++q) v += pp[q * NH * PM * TILE];
-        p.y[(size_t)m * p.N + (u + tq) * tr + r] = v;
+        yo[(size_t)m * p.N + (tile + tq) * tr + r] = v;
       }
     } else {                                // M == 1: thread o keeps the best of its rows
       for (int o = threadIdx.x; o < rows; o += ws::CONSUMERS) {
@@ -566,6 +628,16 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
       if (lane == 0) ws::mbar_arrive(ws::empty_bar(smem, slot));
     } else if (!dbl) {
       ws::sync();                           // part is rewritten by the next stage
+    }
+  }
+  if constexpr (SPLIT) {                    // each output: its kc pieces in piece order
+    gb.wait();
+    const unsigned long long mn = (unsigned long long)p.M * p.N;
+    const size_t o0 = blockIdx.x * mn / gridDim.x, o1 = (blockIdx.x + 1) * mn / gridDim.x;
+    for (size_t o = o0 + threadIdx.x; o < o1; o += ws::CONSUMERS) {
+      float v = 0.f;
+      for (int j = 0; j < kc; ++j) v += __ldcg(p.ypart + j * mn + o);
+      p.y[o] = v;
     }
   }
   if constexpr (ARGMAX) {                   // the block's best, then the grid's: the largest
@@ -643,16 +715,18 @@ __global__ void quantize_act_kernel(const float* __restrict__ x, int8_t* __restr
 
 // The plan's ints, checked against what the kernel needs: plan[0..] = grid,
 // stages, slot_bytes, S, ahead, self_q, xg, nt, xin_off, xf_off, xs_off,
-// part_off, red_off, smem_bytes, tr, pis (ops/qmatmul.py i8_ints).
+// part_off, red_off, smem_bytes, tr, pis, kc (ops/qmatmul.py i8_ints).
 
 template <class F>
 int plan_args(const int* plan, int M, int K, I8Args& a) {
   const int grid = plan[0], stages = plan[1], slot = plan[2], S = plan[3], ahead = plan[4];
   const int self_q = plan[5], xg = plan[6], nt = plan[7];
   const int xin_off = plan[8], xf_off = plan[9], xs_off = plan[10], part_off = plan[11];
-  const int red_off = plan[12], smem = plan[13], tr = plan[14], pis = plan[15];
-  const int nb = K / 32, mx = 8 * nt;
-  const long long tile = (long long)tr * nb * (F::BYTES + 2);
+  const int red_off = plan[12], smem = plan[13], tr = plan[14], pis = plan[15], kc = plan[16];
+  const int nb = K / 32, mx = 8 * nt, g = piece_align(nb);
+  if (kc < 1 || kc > nb / g || (kc > 1 && (S != 1 || tr != TILE || !xg))) return ZGML_ERR_SMEM;
+  const int nbc = kc > 1 ? (nb / g + kc - 1) / kc * g : nb;    // the longest piece
+  const long long tile = (long long)tr * nbc * (F::BYTES + 2);
   if (grid < 1 || stages < 1 || stages > ws::MAX_STAGES || slot % 128 != 0 || S < 1 ||
       S > ws::WARPS || (long long)slot < S * tile || ahead < 0 || nt < 1 || nt > 4 ||
       nt != (M <= 8 ? 1 : M <= 16 ? 2 : 4) || (self_q && xg) || (tr != TILE && tr != TILE / 2))
@@ -662,20 +736,23 @@ int plan_args(const int* plan, int M, int K, I8Args& a) {
   const long long xf = xg ? 0 : (long long)M * K, xs = xg ? 0 : (long long)nb * mx * 4;
   if (xin_off != ring_end || xf_off < xin_off + xin || xs_off < xf_off + xf ||
       part_off < xs_off + xs ||
-      red_off < part_off + (pis ? 0 : (long long)ws::WARPS * TILE * (M == 1 ? 1 : mx) * 4) ||
+      red_off < part_off + (pis ? 0 : (long long)ws::WARPS * TILE * (M == 1 && kc == 1 ? 1 : mx)
+                                          * 4) ||
       (pis && slot < ws::WARPS * TILE * mx * 4) ||
       smem < red_off + ws::WARPS * 8 + 4 || smem > 232448 || xf_off % 16 || xs_off % 16 ||
       part_off % 16 || red_off % 16)
     return ZGML_ERR_SMEM;
-  a = I8Args{{stages, slot, xin_off, ahead}, S, tr, self_q, pis, xf_off, xs_off, part_off, red_off};
+  a = I8Args{{stages, slot, xin_off, ahead}, S, tr, self_q, pis, xf_off, xs_off, part_off,
+             red_off, kc};
   return 0;
 }
 
-template <class F, int NT, bool XG, bool ARGMAX, bool ONE = false>
+template <class F, int NT, bool XG, bool ARGMAX, bool ONE = false, bool SPLIT = false>
 int launch_nt(const I8Params& p, const I8Args& a, int grid, int smem, int device,
               cudaStream_t st) {
   static std::atomic<unsigned> ready{0};
-  return ws::launch(qi8_kernel<F, NT, XG, ARGMAX, ONE>, p, a, grid, smem, device, ready, st);
+  return ws::launch(qi8_kernel<F, NT, XG, ARGMAX, ONE, SPLIT>, p, a, grid, smem, device, ready,
+                    st);
 }
 
 template <class F>
@@ -685,6 +762,14 @@ int launch_k1(const I8Params& p, const int* plan, int device, cudaStream_t st) {
   if (rc != 0) return rc;
   const int grid = plan[0], smem = plan[13];
   const bool xg = plan[6] != 0;
+  if (a.kc > 1) {                           // the K-split form (xg: plan_args), M = 1 on
+    switch (plan[7]) {                      // the n8 code
+      case 1: return launch_nt<F, 1, true, false, false, true>(p, a, grid, smem, device, st);
+      case 2: return launch_nt<F, 2, true, false, false, true>(p, a, grid, smem, device, st);
+      case 4: return launch_nt<F, 4, true, false, false, true>(p, a, grid, smem, device, st);
+      default: return ZGML_ERR_SHAPE;
+    }
+  }
   if (p.M == 1)                             // K5's instantiations: the same code
     return xg ? launch_nt<F, 1, true, false, true>(p, a, grid, smem, device, st)
               : launch_nt<F, 1, false, false, true>(p, a, grid, smem, device, st);
@@ -704,7 +789,7 @@ int launch_k5(const I8Params& p, const int* plan, int device, cudaStream_t st) {
   I8Args a;
   const int rc = plan_args<F>(plan, 1, p.K, a);
   if (rc != 0) return rc;
-  if (plan[7] != 1) return ZGML_ERR_SHAPE;
+  if (plan[7] != 1 || a.kc != 1) return ZGML_ERR_SHAPE;     // K5 runs whole rows only
   const int grid = plan[0], smem = plan[13];
   return plan[6] ? launch_nt<F, 1, true, true, true>(p, a, grid, smem, device, st)
                  : launch_nt<F, 1, false, true, true>(p, a, grid, smem, device, st);
@@ -732,7 +817,9 @@ ZGML_EXPORT int zgml_i8_quantize(const float* x, int8_t* xq, float* xs, int M, i
 // bytes) then its staged scales (K/32 * 8 nt floats, 16-byte aligned);
 // xq_out / xs_out: null, or int8 [M, K] and f32 [M, K/32] for the kernel's
 // own activations; bar: coop.barrier_words; plan: ops/qmatmul.py i8_ints;
-// device: the card's index. All contiguous, 16-byte aligned, on `stream`.
+// the K-split form (plan kc > 1) adds its [kc, M, N] f32 piece sums after
+// them, and needs the scratch with self quantization too; device: the
+// card's index. All contiguous, 16-byte aligned, on `stream`.
 ZGML_EXPORT int zgml_qmatmul_i8(int kind, const float* x, const uint8_t* qs, const void* d,
                                 float* y, int8_t* xq_out, float* xs_out, uint8_t* scratch,
                                 unsigned int* bar, int M, int N, int K, const int* plan,
@@ -741,9 +828,13 @@ ZGML_EXPORT int zgml_qmatmul_i8(int kind, const float* x, const uint8_t* qs, con
       !aligned_args(x, qs, d) || (xq_out == nullptr) != (xs_out == nullptr))
     return ZGML_ERR_SHAPE;
   if (kind != 0 && kind != 1) return ZGML_ERR_KIND;
-  if (!plan[5] && (scratch == nullptr || !ws::aligned16(scratch))) return ZGML_ERR_SHAPE;
+  if ((!plan[5] || plan[16] > 1) && (scratch == nullptr || !ws::aligned16(scratch)))
+    return ZGML_ERR_SHAPE;
   const size_t xq_bytes = ((size_t)M * K + 15) / 16 * 16;
-  const I8Params p{x, qs, static_cast<const __half*>(d), y, scratch,
+  const size_t xs_bytes = (size_t)K / 32 * 8 * plan[7] * 4;
+  const I8Params p{x, qs, static_cast<const __half*>(d), y,
+                   scratch ? reinterpret_cast<float*>(scratch + xq_bytes + xs_bytes) : nullptr,
+                   scratch,
                    scratch ? reinterpret_cast<float*>(scratch + xq_bytes) : nullptr,
                    xq_out, xs_out, bar, nullptr, nullptr, nullptr, nullptr, M, N, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -764,7 +855,7 @@ ZGML_EXPORT int zgml_greedy(int kind, const float* x, const uint8_t* qs, const v
   if (kind != 0 && kind != 1) return ZGML_ERR_KIND;
   const size_t xq_bytes = ((size_t)K + 15) / 16 * 16, xs_bytes = (size_t)K / 32 * 8 * 4;
   float* best_v = reinterpret_cast<float*>(scratch + xq_bytes + xs_bytes);
-  const I8Params p{x, qs, static_cast<const __half*>(d), nullptr, scratch,
+  const I8Params p{x, qs, static_cast<const __half*>(d), nullptr, nullptr, scratch,
                    reinterpret_cast<float*>(scratch + xq_bytes), nullptr, nullptr, bar, ticket,
                    best_v, reinterpret_cast<int*>(best_v + plan[0]), out_id, 1, N, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

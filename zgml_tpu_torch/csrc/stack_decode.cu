@@ -40,7 +40,9 @@
 // What the design does about it (weight_stream.cuh, as K7 and K6): one
 // persistent block an SM (the grid of ops/decode_plan.py stack_plan, launched
 // cooperatively), 16 consumer warps and a producer warp. From kernel entry
-// the producer copies x, layer 0's gain and the pointer table, then streams
+// the producer copies x, layer 0's gain and the pointer table (where it fits
+// beside two stages; else a layer's pointers are read from global memory at
+// the layer's start), then streams
 // every layer's four weights in order through one ring of shared-memory
 // slots with 1D bulk copies (TMA): wqkv (phase A, in RoPE-pair runs), wo
 // (C), w_gate_up (gate|up, in (gate row, up row) runs) and w_down (down),
@@ -95,11 +97,14 @@ struct StackParams {
   float eps, scale;
 };
 
-// The streamed weights of a layer (their qs / d pointers come from the table)
-// and the ring.
+// The streamed weights of a layer (their qs / d pointers come from the table),
+// the ring, and where the table is read: staged in shared memory at the
+// activation area's start (tab_smem), or, where that leaves no two stages
+// (80 layers of the 70B width), each layer's row from global memory.
 struct StackArgs {
   ws::Phase ph[KINDS];
   ws::Ring ring;
+  int tab_smem;
 };
 
 // Bytes of the pointer table as copied, and as it sits in shared memory.
@@ -109,12 +114,12 @@ __host__ __device__ inline size_t table_area(int L) {
 }
 
 // Bytes of the activation area (ops/decode_plan.py stack_act_bytes): the
-// table, a raw row of d floats, then the phases' area: A's normed x with
-// layer 0's gain as copied behind it, B's chunk and an int for each of a
-// block's `items`, C's staged attention, gate|up's normed x2, down's staged
-// SwiGLU row.
+// table where it is staged, a raw row of d floats, then the phases' area:
+// A's normed x with layer 0's gain as copied behind it, B's chunk and an int
+// for each of a block's `items`, C's staged attention, gate|up's normed x2,
+// down's staged SwiGLU row.
 template <int D>
-size_t stack_act_bytes(int L, int d, int hq, int hkv, int F, int items) {
+size_t stack_act_bytes(int L, int d, int hq, int hkv, int F, int items, bool table) {
   const size_t row = (size_t)d / 32 * ws::XPAD * 4;
   size_t m = row + (size_t)d * 4;
   const size_t b = decode_chunk_smem_bytes<D, false>(hq / hkv) + (size_t)4 * items;
@@ -123,7 +128,7 @@ size_t stack_act_bytes(int L, int d, int hq, int hkv, int F, int items) {
   if (b > m) m = b;
   if (c > m) m = c;
   if (dn > m) m = dn;
-  return table_area(L) + (size_t)d * 4 + m;
+  return (table ? table_area(L) : 0) + (size_t)d * 4 + m;
 }
 
 template <class T>
@@ -131,11 +136,13 @@ __device__ __forceinline__ T* slot(const unsigned long long* row, int s) {
   return reinterpret_cast<T*>(row[s]);
 }
 
-// The producer (one thread): x, layer 0's gain and the table first, then
-// every layer's four weights through the ring, held by the gate.
+// The producer (one thread): x, layer 0's gain and the table (where it is
+// staged) first, then every layer's four weights through the ring, held by
+// the gate. tab: the staged table, or the global one.
 __device__ __forceinline__ void produce_stack(uint8_t* smem, const StackParams& p,
-                                              const StackArgs& a, unsigned long long* tab,
-                                              float* raw, float* g0) {
+                                              const StackArgs& a,
+                                              const unsigned long long* tab, float* raw,
+                                              float* g0) {
   using F = FmtQ4_0;
   const int* range = ws::ranges(smem);
   // layer 0's pointers come before any copy is in flight
@@ -143,10 +150,10 @@ __device__ __forceinline__ void produce_stack(uint8_t* smem, const StackParams& 
   const uint8_t* qs0 = reinterpret_cast<const uint8_t*>(__ldg(p.table + T_WQKV_QS));
   const __half* d0 = reinterpret_cast<const __half*>(__ldg(p.table + T_WQKV_D));
   uint64_t* xb = ws::x_bar(smem);
-  ws::mbar_expect_tx(xb, 2u * p.d * 4 + table_bytes(p.L));
+  ws::mbar_expect_tx(xb, 2u * p.d * 4 + (a.tab_smem ? table_bytes(p.L) : 0u));
   ws::bulk_copy(raw, p.x, p.d * 4, xb);
   ws::bulk_copy(g0, g1, p.d * 4, xb);
-  ws::bulk_copy(tab, p.table, table_bytes(p.L), xb);
+  if (a.tab_smem) ws::bulk_copy(smem + a.ring.act_off, p.table, table_bytes(p.L), xb);
   ws::Gate<KINDS> gate;
   int n = 0;
   for (int l = 0; l < p.L; ++l) {
@@ -174,8 +181,10 @@ __global__ void __launch_bounds__(ws::THREADS, 1) stack_decode_kernel(StackParam
                                                                        StackArgs a) {
   using F = FmtQ4_0;
   extern __shared__ __align__(128) uint8_t smem[];
-  unsigned long long* tab = reinterpret_cast<unsigned long long*>(smem + a.ring.act_off);
-  float* raw = reinterpret_cast<float*>(smem + a.ring.act_off + table_area(p.L));
+  const unsigned long long* tab =
+      a.tab_smem ? reinterpret_cast<const unsigned long long*>(smem + a.ring.act_off) : p.table;
+  float* raw =
+      reinterpret_cast<float*>(smem + a.ring.act_off + (a.tab_smem ? table_area(p.L) : 0));
   float* act = raw + p.d;                              // the phases' area
   float* g0 = act + p.d / 32 * ws::XPAD;               // layer 0's attn_norm as copied
   if (threadIdx.x == 0) ws::block_ranges<KINDS>(a.ph, ws::ranges(smem));
@@ -320,22 +329,27 @@ int launch(const StackParams& p, const int* plan, const int* bounds, int device,
   using F = FmtQ4_0;
   static std::atomic<unsigned> ready{0};
   const int nq = p.hq * D;
+  const int items = (p.hkv * p.n_split + plan[0] - 1) / plan[0];
+  // the plan's act_bytes says where the table is read (stack_plan)
+  const size_t act_t = stack_act_bytes<D>(p.L, p.d, p.hq, p.hkv, p.F, items, true);
+  const size_t act_g = stack_act_bytes<D>(p.L, p.d, p.hq, p.hkv, p.F, items, false);
+  const int tab_smem = (size_t)plan[3] >= act_t;
   const StackArgs a{{ws::plan_phase(plan, PA, nullptr, nullptr, bounds, p.d),
                      ws::plan_phase(plan, PC, nullptr, nullptr, bounds, nq),
                      ws::plan_phase(plan, PGU, nullptr, nullptr, bounds, p.d),
                      ws::plan_phase(plan, PDN, nullptr, nullptr, bounds, p.F)},
-                    {plan[1], plan[2], ws::HEADER_BYTES + plan[1] * plan[2], plan[7]}};
+                    {plan[1], plan[2], ws::HEADER_BYTES + plan[1] * plan[2], plan[7]},
+                    tab_smem};
   // the plan's phases: A over the (hq + 2 hkv) hd rows of wqkv in RoPE-pair
   // runs of one head, C over the d rows of wo, gate|up over F (gate row, up
   // row) pairs, down over d rows; at least one stage ahead, fewer than the ring
   const ws::Phase& pa = a.ph[PA];
   const ws::Phase& pgu = a.ph[PGU];
-  const int items = (p.hkv * p.n_split + plan[0] - 1) / plan[0];
   if (plan[5] != 1 || plan[6] != KINDS || plan[7] < 1 || plan[7] >= plan[1] || pa.segs != 2 ||
       pa.seg_off != D / 2 || pa.group_rows != D || pa.group_units * pa.unit_rows != D / 2 ||
       a.ph[PC].segs != 1 || pgu.segs != 2 || pgu.seg_off != p.F || a.ph[PDN].segs != 1 ||
       !ws::plan_fits<F>(plan, a.ph, KINDS,
-                        stack_act_bytes<D>(p.L, p.d, p.hq, p.hkv, p.F, items)))
+                        tab_smem ? act_t : act_g))
     return ZGML_ERR_SMEM;
   return ws::launch(stack_decode_kernel<D, BF16>, p, a, plan[0], plan[4], device, ready, st);
 }

@@ -1,16 +1,25 @@
 """GGUF -> LlamaModel (llama.cpp tensor names), and JAX params -> port params.
 
-Counterpart of zgml_tpu/io/llama_loader.py on the slice: Q4_0 and Q8_0 matmul
-weights stay packed (quant/packed.py), fused along the out axis into wqkv
-(q|k|v) and w_gate_up (gate|up) so each is one launch; norms and embeddings
-load as f32. Everything lands on the card unless the caller asks for the CPU
-(device="cpu": the plain torch versions).
+Counterpart of zgml_tpu/io/llama_loader.py, in its two modes
+(`_load_matmul` / `_load_fused`, llama_loader.py:87-112):
+
+  - mode="quantized" (the default): Q4_0 and Q8_0 matmul weights stay packed
+    (quant/packed.py), fused along the out axis into wqkv (q|k|v) and
+    w_gate_up (gate|up) so each is one launch; F16 / F32 ones load dense, as
+    JAX loads them;
+  - mode="dense": every matmul weight f32 K-major [K, N] (Q4_0 / Q8_0
+    dequantized, F16 / F32 as stored), wqkv and w_gate_up concatenated along
+    N; the model computes their products with torch.matmul, as the JAX
+    package computes them outside any Pallas kernel.
+
+Norms and embeddings load as f32. Everything lands on the card unless the
+caller asks for the CPU (device="cpu": the plain torch versions).
 
 Not yet ported, and refused with NotImplementedError rather than run another
-way: matmul weights of any other type (the JAX package loads F16/F32 ones
-dense, `_load_matmul`, and K-quants not at all), and layers whose q/k/v or
-gate/up mix kinds (the JAX package loads those unfused, `_load_fused`);
-ROADMAP.md queue A lists both.
+way: quantized layers whose q/k/v or gate/up mix kinds (the JAX package
+loads those unfused, `_load_fused`; ROADMAP.md A.3 lists them with
+`quantize_llama_params` and `LlamaModel.quantize`), and weight types the
+JAX package cannot decode either (K-quants).
 """
 from __future__ import annotations
 
@@ -26,7 +35,9 @@ from zgml_tpu_torch.quant import blocks, packed
 from zgml_tpu_torch.quant.packed import PackedWeight, resolve_device
 
 _KINDS = {GGMLType.Q4_0: "q4_0", GGMLType.Q8_0: "q8_0"}
+_DENSE_TYPES = (GGMLType.F32, GGMLType.F16)
 _FROM_GGUF = {"q4_0": packed.from_gguf_q4_0, "q8_0": packed.from_gguf_q8_0}
+MODES = ("quantized", "dense")
 
 
 def config_from_gguf(gf: GGUFFile) -> LlamaConfig:
@@ -56,27 +67,43 @@ def config_from_gguf(gf: GGUFFile) -> LlamaConfig:
 
 
 def _kind(gf: GGUFFile, name: str) -> str:
+    """q4_0 / q8_0, or "dense" for F16 / F32 (which both modes load dense)."""
     t = gf.tensors[name].ggml_type
+    if t in _DENSE_TYPES:
+        return "dense"
     if t not in _KINDS:
         raise NotImplementedError(
-            f"{name} is {t.name}: zgml_tpu_torch runs Q4_0 and Q8_0 matmul weights only; "
-            f"F16/F32 weights wait for the dense load mode and other types for their "
-            f"kernels (ROADMAP.md queue A)")
+            f"{name} is {t.name}: zgml_tpu_torch loads Q4_0, Q8_0, F16 and F32 matmul "
+            f"weights, as the JAX package decodes them (ROADMAP.md queue A)")
     return _KINDS[t]
 
 
-def _matmul(gf: GGUFFile, name: str, device) -> PackedWeight:
+def _dense(gf: GGUFFile, name: str, device) -> torch.Tensor:
+    """An [N, K] matmul weight as f32 K-major [K, N] (llama_loader.py:94-95)."""
+    return _f32(np.ascontiguousarray(gf.tensor_f32(name).T), device)
+
+
+def _matmul(gf: GGUFFile, name: str, mode: str, device):
+    kind = _kind(gf, name)
+    if mode == "dense" or kind == "dense":
+        return _dense(gf, name, device)
     n, k = gf.tensors[name].np_shape
-    return _FROM_GGUF[_kind(gf, name)](gf.tensor_raw(name), n, k, device)
+    return _FROM_GGUF[kind](gf.tensor_raw(name), n, k, device)
 
 
-def _fused(gf: GGUFFile, names: list[str], device) -> PackedWeight:
+def _fused(gf: GGUFFile, names: list[str], mode: str, device):
+    """Weights of one input fused along the out axis: packed.concat, or
+    torch.cat of the dense [K, N] parts along N (llama_loader.py:98-112)."""
     kinds = [_kind(gf, nm) for nm in names]
-    if len(set(kinds)) > 1:
+    if mode == "quantized" and len(set(kinds)) > 1:
         raise NotImplementedError(
             f"{names} mix kinds {kinds}: mixed-kind layers wait for unfused loading "
-            f"(ROADMAP.md queue A)")
-    return packed.concat([_matmul(gf, nm, device) for nm in names])
+            f"(ROADMAP.md A.3, with quantize_llama_params and LlamaModel.quantize); "
+            f"mode='dense' loads them")
+    parts = [_matmul(gf, nm, mode, device) for nm in names]
+    if isinstance(parts[0], PackedWeight):
+        return packed.concat(parts)
+    return torch.cat(parts, dim=1)
 
 
 def quantize_weight(w: np.ndarray, kind: str, device="cuda") -> PackedWeight:
@@ -91,11 +118,14 @@ def _f32(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(device)
 
 
-def load_llama(path: str, device="cuda", max_seq_len: int | None = None
-               ) -> tuple[LlamaModel, GGUFFile]:
-    """Load a llama GGUF onto `device` (the card unless device="cpu").
+def load_llama(path: str, device="cuda", max_seq_len: int | None = None,
+               mode: str = "quantized") -> tuple[LlamaModel, GGUFFile]:
+    """Load a llama GGUF onto `device` (the card unless device="cpu"), its
+    matmul weights packed (mode="quantized") or f32 [K, N] (mode="dense").
     Returns (model, the parsed file); the caller owns the file and closes it
     (the model holds copies)."""
+    if mode not in MODES:
+        raise ValueError(f"load mode {mode!r}: want one of {MODES}")
     device = resolve_device(device)
     gf = GGUFFile(path)
     try:
@@ -109,17 +139,17 @@ def load_llama(path: str, device="cuda", max_seq_len: int | None = None
                 "attn_norm": _f32(gf.tensor_f32(blk + "attn_norm.weight"), device),
                 "ffn_norm": _f32(gf.tensor_f32(blk + "ffn_norm.weight"), device),
                 "wqkv": _fused(gf, [blk + f"attn_{p}.weight" for p in ("q", "k", "v")],
-                               device),
-                "wo": _matmul(gf, blk + "attn_output.weight", device),
+                               mode, device),
+                "wo": _matmul(gf, blk + "attn_output.weight", mode, device),
                 "w_gate_up": _fused(gf, [blk + f"ffn_{p}.weight" for p in ("gate", "up")],
-                                    device),
-                "w_down": _matmul(gf, blk + "ffn_down.weight", device),
+                                    mode, device),
+                "w_down": _matmul(gf, blk + "ffn_down.weight", mode, device),
             })
         params = {"tok_embd": _f32(gf.tensor_f32("token_embd.weight"), device),
                   "out_norm": _f32(gf.tensor_f32("output_norm.weight"), device),
                   "layers": layers}
         if not cfg.tied_lm_head:
-            params["lm_head"] = _matmul(gf, "output.weight", device)
+            params["lm_head"] = _matmul(gf, "output.weight", mode, device)
     except BaseException:
         gf.close()
         raise

@@ -147,12 +147,33 @@ def _qkv(cfg: LlamaConfig, h, layer: dict):
             v.reshape(b, t, hkv, hd).transpose(1, 2))
 
 
+def write_kv(ck: torch.Tensor, cv: torch.Tensor, li: int, pos: int, k: torch.Tensor,
+             v: torch.Tensor, row: int | None = None, wp: torch.Tensor | None = None):
+    """k / v [B, Hkv, T, hd] into layer li of the bf16 cache, IN PLACE: at
+    positions pos..pos+T-1 of every row, or of row `row` alone for a batch-1
+    chunk (serving's prefill into a slot, zgml_tpu/models/llama.py:460-468),
+    or, wp an int32 tensor [B] and T 1, row b at position wp[b] (per-row
+    decode, llama.py:474-478: indexed on the device, no host sync)."""
+    t = k.shape[2]
+    for c, u in ((ck, k), (cv, v)):
+        if wp is not None:
+            rows = torch.arange(u.shape[0], device=wp.device)
+            c[li][rows, :, wp.long()] = u[:, :, 0].to(c.dtype)
+        elif row is not None:
+            c[li, row, :, pos:pos + t] = u[0].to(c.dtype)
+        else:
+            c[li, :, :, pos:pos + t] = u.to(c.dtype)
+
+
 def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_len,
-                cos, sin, decode: bool):
-    """One block. x f32 [B, T, D]; ck/cv the whole [L, B, Hkv, S, d] cache
+                cos, sin, decode: bool, row: int | None = None, wp: torch.Tensor | None = None):
+    """One block. x f32 [B, T, D]; ck/cv the whole [L, B', Hkv, S, d] cache
     (bf16, or (levels, scales) tuples of the int8 one), written in place at
-    (li, :, :, pos:pos+T); kv_len an int (prefill) or an int32 tensor [B]
-    (decode). ck None is training: pos 0, no cache, K/V rounded to bf16."""
+    (li, :, :, pos:pos+T), or (li, row, :, pos:pos+T) for a batch-1 chunk
+    into row `row` (attention then reads that row through kv_row), or at
+    (li, b, :, wp[b]) for per-row decode; kv_len an int (prefill) or an
+    int32 tensor [B] (decode). ck None is training: pos 0, no cache, K/V
+    rounded to bf16."""
     b, t, _ = x.shape
     nq = cfg.n_heads * cfg.head_dim
 
@@ -170,22 +191,22 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
         # the int8 cache (llama.py:424-459): quantize and write first, then
         # attend from the int8 rows like every other position
         L, bb = ck[0].shape[:2]
-        kv_cache.write(ck, cv, li, pos, k, v)
+        kv_cache.write(ck, cv, li, pos, k, v, row, wp)
         rows = [c.view(L * bb, *c.shape[2:]) for c in (*ck, *cv)]      # k, k_s, v, v_s
-        if decode:
+        if decode and row is None:
             att = ops.decode_attention_q8(q, *rows, kv_len, kv_row=li * bb)
         else:
-            att = ops.flash_attention_q8(q, *rows, kv_len=kv_len, q_offset=pos, kv_row=li * bb)
+            att = ops.flash_attention_q8(q, *rows, kv_len=kv_len, q_offset=pos,
+                                         kv_row=li * bb + (row or 0))
     else:
         L, bb = ck.shape[:2]
-        ck[li, :, :, pos:pos + t] = k.to(ck.dtype)
-        cv[li, :, :, pos:pos + t] = v.to(cv.dtype)
+        write_kv(ck, cv, li, pos, k, v, row, wp)
         rows_k, rows_v = ck.view(L * bb, *ck.shape[2:]), cv.view(L * bb, *cv.shape[2:])
-        if decode:
+        if decode and row is None:
             att = ops.decode_attention(q, rows_k, rows_v, kv_len, kv_row=li * bb)
         else:
             att = ops.flash_attention(q, rows_k, rows_v, kv_len=kv_len, q_offset=pos,
-                                      kv_row=li * bb)
+                                      kv_row=li * bb + (row or 0))
     att = att.transpose(1, 2).reshape(b, t, nq)
     x = x + ops.qmatmul(att, layer["wo"])
     return _ffn(cfg, x, layer, after_attn_block=False)
@@ -219,8 +240,9 @@ def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
         ff = refs.swiglu(ops.qmatmul(h, layer["w_gate"]), ops.qmatmul(h, layer["w_up"]))
         return x + ops.qmatmul(ff, layer["w_down"])
     rows = x.numel() // x.shape[-1]
-    kind = layer["w_down"].kind
-    fuses = (rows <= ffn.FFN_MAX_ROWS and config.kernel_on("fused_ffn")
+    packed_ffn = all(isinstance(layer[n], PackedWeight) for n in ("w_gate_up", "w_down"))
+    kind = layer["w_down"].kind if packed_ffn else None
+    fuses = (packed_ffn and rows <= ffn.FFN_MAX_ROWS and config.kernel_on("fused_ffn")
              and layer["w_gate_up"].kind == kind
              and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block))
     if fuses and (after_attn_block or (kind == "q8_0" and not ops.needs_grad(x))):
@@ -307,32 +329,71 @@ class LlamaModel(torch.nn.Module):
             return ops.stacked_decode, stack
         return None
 
-    def body(self, tokens: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
+    def body(self, tokens: torch.Tensor, cache: dict, pos, cache_row: int | None = None,
+             write_pos: torch.Tensor | None = None) -> torch.Tensor:
         """tokens int [B, T] at positions pos.. -> hidden states f32 [B, T, D]
         before the final norm. Writes K/V of positions pos..pos+T-1 into
-        `cache`; attention sees kv_len = pos + T (as llama.py:737)."""
+        `cache`; attention sees kv_len = pos + T (as llama.py:737).
+
+        Continuous batching (zgml_tpu/models/llama.py:695-737), both on the
+        `_layer_step` path alone, never K7, its phase E or the megacalls
+        (llama.py:343-345, 747-750): `pos` an int32 tensor [B] on the device
+        (decode only, T 1): RoPE per row, kv_len = pos + 1 per row, row b's
+        K/V written at write_pos[b] (default pos[b]); `cache_row`: tokens of
+        batch 1 into row cache_row of a cache of more rows, written at
+        (li, cache_row, :, pos:pos+T) and attended through kv_row
+        li * B' + cache_row. write_pos with an int pos takes that path too and
+        writes at pos, as JAX does (it reads write_pos with per-row pos only)."""
         cfg = self.cfg
         b, t = tokens.shape
         kv8 = "k_s" in cache
         shape = cache["k"].shape
-        if shape[1] != b:
+        per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
+        slots = per_row or cache_row is not None or write_pos is not None
+        if cache_row is not None:
+            if b != 1 or not 0 <= cache_row < shape[1]:
+                raise ValueError(f"cache_row {cache_row}: want batch-1 tokens and a row of "
+                                 f"the cache's {shape[1]}, got batch {b}")
+        elif shape[1] != b:
             raise ValueError(f"cache batch {shape[1]}, tokens batch {b}")
-        if pos + t > shape[3]:
+        if per_row:
+            if t != 1 or tuple(pos.shape) != (b,) or cache_row is not None:
+                raise ValueError(f"per-row positions {tuple(pos.shape)} take single-token "
+                                 f"decode of batch {b} into the whole cache, got {t} tokens")
+        elif pos + t > shape[3]:
             raise ValueError(f"SequenceTooLong: pos {pos} + {t} tokens > {shape[3]}")
         ck, cv = ((cache["k"], cache["k_s"]), (cache["v"], cache["v_s"])) if kv8 else \
             (cache["k"], cache["v"])
         x = self.params["tok_embd"][tokens]
+        decode = t == 1
+        layers = self.params["layers"]
+        if per_row:
+            pos_v = pos.to(device=x.device, dtype=torch.int32)
+            cos, sin = refs.rope_cos_sin(pos_v, cfg.head_dim, cfg.rope_base)
+            cos, sin = cos[:, None, None, :], sin[:, None, None, :]   # [B, 1, 1, hd/2]
+            kv_len = pos_v + t
+            wp = pos_v if write_pos is None else write_pos.to(device=x.device,
+                                                              dtype=torch.int32)
+            for li, layer in enumerate(layers):
+                x = _layer_step(cfg, x, layer, ck, cv, li, 0, kv_len, cos, sin, decode, wp=wp)
+            return x
         positions = torch.arange(pos, pos + t, device=x.device)
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
-        decode = t == 1
+        if slots:                  # a chunk into row cache_row, or write_pos with an int pos
+            kv_len = pos + t
+            if decode and cache_row is None:    # a slot's chunk takes flash at any length
+                kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
+            for li, layer in enumerate(layers):
+                x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode,
+                                row=cache_row)
+            return x
         mega = self._megacall() if decode and b == 1 and not kv8 else None
         if mega is not None:
             run, view = mega
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
             return run(x, view, ck, cv, pos_t, cos, sin)[0]
-        layers = self.params["layers"]
         k7 = decode and config.attn_block() and config.kernel_on("attn_block")
-        fused = [k7 and isinstance(ly["wo"], PackedWeight)
+        fused = [k7 and all(isinstance(ly[n], PackedWeight) for n in ("wqkv", "wo"))
                  and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
                  for ly in layers]
         if not kv8 and not all(fused):
@@ -384,10 +445,16 @@ class LlamaModel(torch.nn.Module):
             x = _layer_step(cfg, x, layer, None, None, 0, 0, t, cos, sin, decode=False)
         return x
 
-    def forward(self, tokens: torch.Tensor, cache: dict | None = None, pos: int = 0,
-                greedy_head: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None, pos=0,
+                greedy_head: bool = False, cache_row: int | None = None,
+                write_pos: torch.Tensor | None = None) -> torch.Tensor:
         """tokens [B, T] -> logits [B, T, V] (or next ids [B] with
-        greedy_head). With a cache, updates it in place; without one, the
-        training function (train_body), differentiable."""
-        body = self.train_body(tokens) if cache is None else self.body(tokens, cache, pos)
+        greedy_head). With a cache, updates it in place (pos an int, or an
+        int32 tensor [B] of per-row positions; cache_row and write_pos as in
+        `body`); without one, the training function (train_body),
+        differentiable."""
+        if cache is None:
+            body = self.train_body(tokens)
+        else:
+            body = self.body(tokens, cache, pos, cache_row, write_pos)
         return self.head(body, greedy=greedy_head)

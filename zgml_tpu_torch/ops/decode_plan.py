@@ -253,14 +253,15 @@ STACK_AHEAD_BYTES = 64 * 1024   # the megacalls' AHEAD_BYTES (32-128 KB measured
 
 
 def stack_act_bytes(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s: int,
-                    grid: int) -> int:
+                    grid: int, table: bool = True) -> int:
     """The megacalls' activation area (csrc/stack_decode.cu stack_act_bytes):
-    the layers' pointer table (as copied, rounded up to 128 bytes), one raw
+    the layers' pointer table where it is staged (as copied, rounded up to
+    128 bytes; `table` False: read from global memory, no area), one raw
     row of d floats (the layer's input x through phase C, then x2 through
     down), then the phases' area: A's normed x with layer 0's gain as copied
     behind it, B's chunk and an int for each of a block's items, C's staged
     attention, gate|up's normed x2, down's staged SwiGLU row."""
-    table = -(-n_layers * TABLE_SLOTS * 8 // SLOT_ALIGN) * SLOT_ALIGN
+    table = -(-n_layers * TABLE_SLOTS * 8 // SLOT_ALIGN) * SLOT_ALIGN if table else 0
     row = d // 32 * XPAD * 4
     items = hkv * -(-s // DA_CHUNK)
     b = decode_chunk_smem_bytes(hd, False, hq // hkv) + 4 * -(-items // grid)
@@ -275,8 +276,11 @@ def stack_plan(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s: int
     K6d's at one row (w_gate_up in (gate row, up row) runs, w_down in runs of
     rows), the same for every layer (the JAX rule: every layer has the same
     widths). `ahead` stages may be in flight past the phase whose activations
-    the consumers staged last. Raises NotImplementedError where no slot fits
-    beside the activations."""
+    the consumers staged last. The layers' pointer table is staged in shared
+    memory beside the activations where that leaves two stages; else each
+    layer's row is read from global memory (the kernel tells the two apart
+    by act_bytes), which is what fits 80 layers of the 70B width. Raises
+    NotImplementedError where no two slots fit beside the activations."""
     half = hd // 2
     grid = max(1, sm_count)
     ga = math.lcm(align_rows(d), ITEM_ROWS // 2)     # pairs a unit: A's and gate|up's
@@ -289,10 +293,13 @@ def stack_plan(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s: int
                 _phase(hq * hd, "q4_0", 1, 0, gc, units_c, 0, units_c, grid, slot),
                 _phase(d, "q4_0", 2, f, ga, f // ga, 0, f // ga, grid, slot),
                 _phase(f, "q4_0", 1, 0, gd, d // gd, 0, d // gd, grid, slot))
-    act = stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, grid)
     slot = _slot([2 * ga * row_bytes(d, "q4_0"), gc * row_bytes(hq * hd, "q4_0"),
                   gd * row_bytes(f, "q4_0")], STAGE_BYTES)
-    stages = _ring(phases, act, slot, n_layers)
+    for table in (True, False):
+        act = stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, grid, table)
+        stages = _ring(phases, act, slot, n_layers)
+        if stages >= 2:
+            break
     if stages < 2:
         raise NotImplementedError(
             f"stack_decode: d {d}, heads {hq}/{hkv} x {hd}, d_ff {f}, {n_layers} layers, "

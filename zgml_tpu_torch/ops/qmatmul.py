@@ -294,7 +294,15 @@ class I8Plan(NamedTuple):
     i8_groups(nt) warps (one a column group of x's rows); each output's part
     sums are added in part order at part_off (two buffers, stage by stage in
     turn, where nt <= 2; where nt is 4 and a slot holds them, pis, in the
-    slot just consumed, and part takes none)."""
+    slot just consumed, and part takes none).
+
+    kc > 1 is the K-split form, for rows so long that no 8-row tile of whole
+    rows leaves a slot: each tile's rows are cut into kc pieces of
+    consecutive quant blocks (`i8_piece`), a unit is (tile, piece), the
+    grid's tiles * kc units are split as the tiles are above, a stage is one
+    unit (S 1; nseg: the longest piece's segments), and each unit's sums go
+    to a global [kc, M, N] area; after one grid barrier each output is the
+    sum of its kc pieces in piece order."""
     grid: int
     stages: int
     slot_bytes: int
@@ -313,6 +321,7 @@ class I8Plan(NamedTuple):
     pis: bool
     tiles: int
     nseg: int
+    kc: int = 1
 
 
 def i8_nt(m: int) -> int:
@@ -340,8 +349,9 @@ def i8_plan(m: int, n: int, k: int, kind: str, sm_count: int) -> I8Plan:
     quantization (m * k <= I8_SELF_MAX_MK), the global xq staged in shared
     memory, the global xq read from L2; within a mode the largest S down to
     1; 16-row tiles first, then 8-row ones, then 8-row ones in a ring of one
-    slot (no copy overlaps the dots). Raises ValueError where even that
-    finds no room."""
+    slot (no copy overlaps the dots). Where even that finds no room (Q8_0
+    rows from k 27,040, Q4_0 from 51,072), the K-split form with the fewest
+    pieces whose 16-row unit leaves two slots (`_i8_split_plan`)."""
     if not (1 <= m <= 32 and n >= 1 and k >= 32 and k % QK == 0):
         raise ValueError(f"qmatmul_i8: m {m}, n {n}, k {k}: want 1..32 rows, k % 32 == 0")
     grid = max(1, sm_count)
@@ -384,46 +394,98 @@ def i8_plan(m: int, n: int, k: int, kind: str, sm_count: int) -> I8Plan:
                     return I8Plan(grid, stages, slot, S, max(1, AHEAD_BYTES // slot), self_q,
                                   xg, nt, xin_off, xf_off, xs_off, part_off, red_off,
                                   red_off + I8_RED_BYTES, tr, pis, tiles, nseg)
-    raise ValueError(f"qmatmul_i8: an 8-row tile of {kind} rows of k {k} leaves no room for "
+    return _i8_split_plan(m, n, k, kind, grid)
+
+
+def _i8_split_plan(m: int, n: int, k: int, kind: str, grid: int, kc_least: int = 2) -> I8Plan:
+    """The K-split form (I8Plan, kc > 1) with the fewest pieces from kc_least
+    on whose 16-row unit leaves two slots (or the units a block runs); x
+    goes to the global xq and is read from L2 (xg: at such K its staged
+    rows take the room of a slot). M = 1 runs the n8 code of 2-8 rows (its
+    one-row form spilled at ptxas' 96-register cap), so the part area holds
+    8 columns at every M."""
+    nb, bpb = k // QK, QS_BLOCK_BYTES[kind]
+    nt = i8_nt(m)
+    mx = 8 * nt
+    part1 = I8_WARPS * I8_TILE * mx * 4
+    tiles = -(-n // I8_TILE)
+    g = i8_piece_align(nb)
+    for kc in range(kc_least, nb // g + 1):
+        nbc = -(-nb // g // kc) * g
+        slot = _align(I8_TILE * nbc * (bpb + 2))
+        pis = nt == 4 and slot >= part1
+        part = 0 if pis else part1 * (2 if nt <= 2 else 1)
+        need = -(-tiles * kc // grid)
+        stages = min(MAX_STAGES, (SMEM_LIMIT - HEADER_BYTES - part - I8_RED_BYTES) // slot, need)
+        if stages >= min(2, need):
+            off = HEADER_BYTES + stages * slot
+            return I8Plan(grid, stages, slot, 1, max(1, AHEAD_BYTES // slot), False, True, nt,
+                          off, off, off, off, off + part, off + part + I8_RED_BYTES, I8_TILE,
+                          pis, tiles, -(-nbc * bpb // I8_SEG), kc)
+    raise ValueError(f"qmatmul_i8: a 16-row tile of {kind} rows of k {k} leaves no room for "
                      f"a slot")
+
+
+def i8_piece_align(nb: int) -> int:
+    """Quant blocks a K-split piece's bounds are a multiple of: 8 where the
+    row's nb is (each piece's fp16 scales then a whole number of 16-byte
+    bulk copies, staged beside its levels), else 1 (read from global memory
+    in the dot)."""
+    return 8 if nb % 8 == 0 else 1
+
+
+def i8_piece(plan: I8Plan, nb: int, j: int) -> tuple[int, int]:
+    """(first quant block, blocks) of piece j of a row of nb quant blocks:
+    [j * (nb / g) // kc * g, (j + 1) * (nb / g) // kc * g), g =
+    i8_piece_align(nb) (the whole row where kc is 1)."""
+    g = i8_piece_align(nb)
+    b0 = j * (nb // g) // plan.kc * g
+    return b0, (j + 1) * (nb // g) // plan.kc * g - b0
 
 
 def i8_ints(plan: I8Plan) -> list[int]:
     """The host ints csrc/qmatmul_i8.cu's launchers read."""
     return [plan.grid, plan.stages, plan.slot_bytes, plan.S, plan.ahead, int(plan.self_q),
             int(plan.xg), plan.nt, plan.xin_off, plan.xf_off, plan.xs_off, plan.part_off,
-            plan.red_off, plan.smem_bytes, plan.tr, int(plan.pis)]
+            plan.red_off, plan.smem_bytes, plan.tr, int(plan.pis), plan.kc]
 
 
 def i8_block_tiles(plan: I8Plan, b: int) -> tuple[int, int]:
-    """Tiles [t0, t1) of block b."""
-    return b * plan.tiles // plan.grid, (b + 1) * plan.tiles // plan.grid
+    """Units [t0, t1) of block b: tiles, or in the K-split form (tile, piece)
+    units u = tile * kc + piece."""
+    units = plan.tiles * plan.kc
+    return b * units // plan.grid, (b + 1) * units // plan.grid
 
 
 def i8_stages(plan: I8Plan, b: int) -> list[tuple[int, int]]:
-    """(first tile, tiles) of each stage of block b."""
+    """(first unit, units) of each stage of block b."""
     t0, t1 = i8_block_tiles(plan, b)
     return [(u, min(plan.S, t1 - u)) for u in range(t0, t1, plan.S)]
 
 
-def i8_parts(plan: I8Plan, st: int) -> int:
+def i8_parts(plan: I8Plan, st: int, nseg: int | None = None) -> int:
     """Parts of K a tile of a stage of st tiles is split in (each taken by
-    i8_groups(plan.nt) warps)."""
-    return min(I8_WARPS // (i8_groups(plan.nt) * st), plan.nseg)
+    i8_groups(plan.nt) warps); nseg: the stage's segments a row (a K-split
+    piece's own), plan.nseg by default."""
+    nseg = plan.nseg if nseg is None else nseg
+    return min(I8_WARPS // (i8_groups(plan.nt) * st), nseg)
 
 
-def i8_part_segments(plan: I8Plan, st: int, part: int) -> range:
+def i8_part_segments(plan: I8Plan, st: int, part: int, nseg: int | None = None) -> range:
     """The 128-byte segments of a tile that part `part` of a stage of st
     tiles takes (contiguous, in order)."""
-    p = i8_parts(plan, st)
-    return range(part * plan.nseg // p, (part + 1) * plan.nseg // p)
+    nseg = plan.nseg if nseg is None else nseg
+    p = i8_parts(plan, st, nseg)
+    return range(part * nseg // p, (part + 1) * nseg // p)
 
 
-def i8_scratch_bytes(plan: I8Plan, m: int, k: int, greedy: bool = False) -> int:
+def i8_scratch_bytes(plan: I8Plan, m: int, k: int, greedy: bool = False, n: int = 0) -> int:
     """Bytes of the launch's global scratch: the global xq (m * k, rounded
-    to 16) and its staged scales; K5 adds each block's best value and row."""
+    to 16) and its staged scales; K5 adds each block's best value and row,
+    the K-split form (K1 of n outputs) its [kc, m, n] piece sums."""
     xq = -(-m * k // 16) * 16
-    return xq + k // QK * 8 * plan.nt * 4 + (8 * plan.grid if greedy else 0)
+    split = plan.kc * m * n * 4 if plan.kc > 1 else 0
+    return xq + k // QK * 8 * plan.nt * 4 + (8 * plan.grid if greedy else 0) + split
 
 
 _lock = threading.Lock()
@@ -488,7 +550,8 @@ def qmatmul_i8_cuda(x: torch.Tensor, w: PackedWeight, act_out=None) -> torch.Ten
     _require(w.d.data_ptr() % 16 == 0, "the weight's scales must be 16-byte aligned")
     plan, ints = i8_args(x.device, m, w.n, w.k, w.kind)
     xq_p, xs_p = _act_ptrs(act_out, m, w.k, x.device)
-    scratch = None if plan.self_q else coop.scratch(x.device, i8_scratch_bytes(plan, m, w.k))
+    scratch = (None if plan.self_q and plan.kc == 1
+               else coop.scratch(x.device, i8_scratch_bytes(plan, m, w.k, n=w.n)))
     status = build.library().zgml_qmatmul_i8(
         KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), y.data_ptr(),
         xq_p, xs_p, None if scratch is None else scratch.data_ptr(),
@@ -590,6 +653,10 @@ def greedy_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     _require(x.numel() == w.k, f"the greedy head takes one row, got {tuple(x.shape)}")
     _require(w.d.data_ptr() % 16 == 0, "the weight's scales must be 16-byte aligned")
     plan, ints = i8_args(x.device, 1, w.n, w.k, w.kind)
+    if plan.kc > 1:
+        raise NotImplementedError(
+            f"greedy head: k {w.k} at {w.kind} takes K1's K-split form, which K5 does not run "
+            f"(ROADMAP.md queue B)")
     out = torch.empty(1, dtype=torch.int64, device=x.device)
     scratch = coop.scratch(x.device, i8_scratch_bytes(plan, 1, w.k, greedy=True))
     status = build.library().zgml_greedy(

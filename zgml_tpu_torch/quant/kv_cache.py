@@ -52,16 +52,29 @@ def quantize_columns(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def write(ck: tuple, cv: tuple, li: int, pos: int, k: torch.Tensor, v: torch.Tensor):
+def write(ck: tuple, cv: tuple, li: int, pos: int, k: torch.Tensor, v: torch.Tensor,
+          row: int | None = None, wp: torch.Tensor | None = None):
     """Quantize k and v [B, Hkv, T, hd] (together: one set of launches) and
-    write them IN PLACE at positions pos..pos+T-1 of layer li of the cache's
-    (levels, scales) pairs ck and cv (the JAX write_columns,
-    kv_cache.py:56-61)."""
+    write them IN PLACE into layer li of the cache's (levels, scales) pairs ck
+    and cv: at positions pos..pos+T-1 of every row (the JAX write_columns,
+    kv_cache.py:56-61), or of row `row` alone for a batch-1 chunk (serving's
+    prefill into a slot, zgml_tpu/models/llama.py:429-438), or, wp an int32
+    tensor [B] on the cache's device and T 1, row b at its own position
+    wp[b] (per-row decode, llama.py:443-447): indexed on the device, no host
+    sync, no loop over rows."""
     q, s = quantize_columns(torch.stack([k, v]))
     t = k.shape[2]
     for (lv, sc), qi, si in ((ck, q[0], s[0]), (cv, q[1], s[1])):
-        lv[li, :, :, pos:pos + t] = qi
-        sc[li, :, :, pos:pos + t] = si
+        if wp is not None:
+            rows, at = torch.arange(k.shape[0], device=wp.device), wp.long()
+            lv[li][rows, :, at] = qi[:, :, 0]
+            sc[li][rows, :, at] = si[:, :, 0]
+        elif row is not None:
+            lv[li, row, :, pos:pos + t] = qi[0]
+            sc[li, row, :, pos:pos + t] = si[0]
+        else:
+            lv[li, :, :, pos:pos + t] = qi
+            sc[li, :, :, pos:pos + t] = si
 
 
 def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
