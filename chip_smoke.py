@@ -237,7 +237,37 @@ Phases, in order; any failure raises and the script exits non-zero:
                    operand, through K13 equal fuse=False and numpy;
      and one JAX per-op switch (ROADMAP C.3): TinyLlama Q4_0 under
      ZGML_TPU_KERNELS_DISABLE=attn_block places no K7 and gives the logits
-     of ZGML_TPU_ATTN_BLOCK=0 bit for bit;
+     of ZGML_TPU_ATTN_BLOCK=0 bit for bit. Then the weight forms and the
+     text and quality tools, counted the same way:
+       mixed_tiny / mixed_kv8_tiny  a TinyLlama-1.1B GGUF that mixes kinds
+                   (Q4_0 with attn_v, ffn_up, ffn_down and output.weight at
+                   Q8_0 in a pattern over the layers, MIXED_PATHS' comment;
+                   the repo's BPE inside): `python -m zgml_tpu_torch
+                   inspect` (its census), then `generate --prompt MIXED_TEXT
+                   -n 32` through the command line's main on the card over
+                   the bf16 cache (K4 in all 22 layers a decode token, no K7)
+                   and the int8 cache (K7 in the 11 layers with a fused Q4_0
+                   wqkv, K8 at batch 1 in the other 11), K1q8 and K5q8 for
+                   the Q8_0 tensors and the head, K6b only where gate|up and
+                   down are both Q4_0; each request against force_ref() as
+                   the inference paths' first;
+       eval_tiny   the perplexity (runtime/eval.py) of EVAL_WINDOWS windows
+                   of EVAL_WINDOW tokens of tests/data/corpus_tokens.npy on
+                   the TinyLlama Q4_0 and Q8_0 files loaded dense and
+                   quantized, and Q4_0 over the int8 cache (K2's and K3's
+                   bf16 forms, K9's): each ppl within max(EVAL_RTOL * ppl
+                   (1e-5 dense, 1e-3 quantized), 2 x the plain path's own
+                   move under 1e-7 perturbations)
+                   of force_ref()'s, dppl per pair, wall and device time of
+                   one window;
+       hf_tiny     a TinyLlama-1.1B-shaped HF safetensors checkpoint in F16
+                   (drawn on the card from SEED, written once to
+                   .bench_cache/) through load_llama_hf,
+                   then LlamaModel.quantize("q8_0") and quantize("q4_0")
+                   (timed; packed.quantize equal to the numpy codec on one
+                   weight each), dppl against the dense model on eval_tiny's
+                   windows, and a greedy request on each quantized model
+                   against force_ref() (K7, K6a / K6d, K5q8 / K5q4);
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with the
      1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b,
@@ -533,7 +563,8 @@ LONG_PROMPT = 1536
 # paths whose decode quantizes per token beyond K1 (K7-i8 and K6c on Llama-2-7B, the
 # int8 cache, K15's bf16 operands): their tokens are compared up to a top-2 gap
 # under the step bound
-FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b", "tape_tiny")
+FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b", "tape_tiny", "mixed_tiny",
+              "mixed_kv8_tiny")
 PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
                             "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block"),
                 "unfused": ("q4_matmul", "flash_attention", "decode_attention"),
@@ -573,6 +604,37 @@ SERVE_ADMIT_STEP = 6                  # the rest after this many steps
 SERVE_BURST = 8                       # step_burst(n) once admissions drain
 SERVE_PROMPT, SERVE_NEW = (5, 300), (8, 48)   # prompt lengths, max_new_tokens (inclusive)
 SERVE_RATE_RUNS = 3                   # phase 4: serving rate, median of runs in turns
+# the weight forms and quality tools (phase 3): mixed_tiny's GGUF is TinyLlama-1.1B
+# at Q4_0 with attn_v at Q8_0 in even layers (q / k / v load unfused), ffn_up at
+# Q8_0 in layers 1 mod 4 (gate / up unfused), ffn_down at Q8_0 in layers 3 mod 4
+# (a Q4_0 gate|up beside a Q8_0 down: the FFN composed) and output.weight at
+# Q8_0 (mixed_kinds), with the repo's BPE (tests/data/bpe) inside; the prompt is
+# text. Its kernels over each cache (the composed FFNs' K1 projections quantize
+# swiglu(gate, up): FLIP_PATHS' token rule)
+MIXED_TEXT = "The port runs the quantized llama path on the card, one kernel at a time."
+MIXED_PATHS = {"mixed_tiny": ("bf16", ("q4_matmul_i8", "q8_matmul_i8", "q4_matmul_bf16",
+                                       "q8_matmul_bf16", "flash_attention_bf16",
+                                       "decode_attention", "fused_ffn", "q8_greedy")),
+               "mixed_kv8_tiny": ("int8", ("q4_matmul_i8", "q8_matmul_i8", "q4_matmul_bf16",
+                                           "q8_matmul_bf16", "flash_attention_q8_bf16",
+                                           "decode_attention_q8", "attn_block_kv8",
+                                           "fused_ffn", "q8_greedy"))}
+# eval_tiny / hf_tiny: perplexity of the first EVAL_WINDOWS windows of EVAL_WINDOW
+# tokens of tests/data/corpus_tokens.npy; each card ppl within max(EVAL_RTOL *
+# ppl, SENS_MARGIN x the plain path's own move under SENS_EPS perturbations,
+# EVAL_SENS_DRAWS draws) of force_ref()'s. EVAL_RTOL is the CPU tests' bound on
+# the port's ppl against JAX's (tests/test_torch_eval.py): f32 sums in another
+# order for a dense model; for the quantized tiers and the int8 cache the bf16
+# and int8 roundings of such sums flip, and the 1e-7 perturbations move the
+# plain path less than the kernels do there (the int8 cache's ppl sat 1.1e-4
+# from force_ref()'s at a 2x envelope of 6.7e-5 on the H100, PERF.md)
+EVAL_WINDOW, EVAL_WINDOWS = 256, 16
+EVAL_RTOL = {False: 1e-5, True: 1e-3}          # by quantized
+EVAL_SENS_DRAWS = 2
+EVAL_KERNELS = ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16",
+                "flash_attention_q8_bf16")
+HF_KERNELS = ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16", "attn_block",
+              "attn_block_q8", "fused_ffn_norm", "fused_ffn_norm_q8", "q4_greedy", "q8_greedy")
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -2760,6 +2822,28 @@ def load_model(torch, dev, name: str, kind: str):
     return model
 
 
+def path_launches(name, kernels, decode=None):
+    """The placement counts since the last reset as {kernel: launches}, after
+    the rule of every path: each of `kernels` launched, no other kernel and
+    no plain version; `decode` {kernel: launches per decode token} adds
+    exact counts."""
+    from zgml_tpu_torch.runtime.profile import global_profile
+    tiers = global_profile.tier_summary()
+    launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
+    plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    require(all(launches[k] > 0 for k in kernels),
+            f"[{name}] a kernel of the path never launched: {launches}")
+    require(all(n == 0 for k, n in launches.items() if k not in kernels),
+            f"[{name}] a kernel of another path launched: {launches}")
+    require(not plain, f"[{name}] plain tier ran on the path: {plain}")
+    steps = global_profile.counters["decode_tokens"]
+    for k, per_token in (decode or {}).items():
+        require(launches[k] == per_token * steps,
+                f"[{name}] {k} launched {launches[k]} times for {steps} decode tokens x "
+                f"{per_token}")
+    return launches, tiers
+
+
 def end_to_end(torch, model, prompts, name, summary):
     """Drive one path through the engine; returns (engine, launches, the
     batch-4 engine or None). prompts: the three greedy prompts, then the
@@ -2806,15 +2890,12 @@ def end_to_end(torch, model, prompts, name, summary):
         labels.extend(f"batch 4 row {r}, prompt {prompt4.shape[1]} tokens, greedy"
                       for r in range(4))
     torch.cuda.synchronize()
-    tiers = global_profile.tier_summary()
-    launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
-    plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    # the megacall once per decode token (greedy decode_n and the sampled
+    # request's step logits alike), or K7 with the FFN inside once a layer
+    per_token = ({MEGA_PATHS[name]: 1} if name in MEGA_PATHS else
+                 {LAYER_PATHS[name]: model.cfg.n_layers} if name in LAYER_PATHS else None)
+    launches, tiers = path_launches(name, PATH_KERNELS[name], per_token)
     log(f"  [{name}] {len(outs)} requests answered (cache {cache}); placement: {tiers}")
-    require(all(launches[k] > 0 for k in PATH_KERNELS[name]),
-            f"[{name}] a kernel of the path never launched: {launches}")
-    require(all(n == 0 for k, n in launches.items() if k not in PATH_KERNELS[name]),
-            f"[{name}] a kernel of another path launched: {launches}")
-    require(not plain, f"[{name}] plain tier ran on the main path: {plain}")
     if "rmsnorm" in PATH_KERNELS[name]:
         # K12 at both norms of every layer of each prefill chunk (any size:
         # `_layer_step`) and at each head call (a chunk's, a decode step's);
@@ -2826,20 +2907,6 @@ def end_to_end(torch, model, prompts, name, summary):
         require(launches["rmsnorm"] == want,
                 f"[{name}] K12 launched {launches['rmsnorm']} times, want {want} ({chunks} "
                 f"chunks x {2 * model.cfg.n_layers + 1} + {steps} decode heads)")
-    if name in MEGA_PATHS:
-        # one launch for the whole stack per decode token, from greedy
-        # decode_n and from the sampled request's step logits alike
-        steps = global_profile.counters["decode_tokens"]
-        mega = MEGA_PATHS[name]
-        require(launches[mega] == steps,
-                f"[{name}] {mega} launched {launches[mega]} times for {steps} decode tokens")
-    if name in LAYER_PATHS:
-        # one launch a layer per decode token (K7 with the FFN inside)
-        steps = global_profile.counters["decode_tokens"]
-        kern, want = LAYER_PATHS[name], steps * model.cfg.n_layers
-        require(launches[kern] == want,
-                f"[{name}] {kern} launched {launches[kern]} times for {steps} decode tokens x "
-                f"{model.cfg.n_layers} layers")
     for out, label in zip(outs, labels):
         require(len(out) == 32 and all(0 <= t < vocab for t in out),
                 f"[{name}] {label} gave {out}")
@@ -2946,16 +3013,9 @@ def serving_path(torch, model, reqs, name, summary):
     global_profile.reset()
     outs, steps = drive_server(serve, reqs)
     torch.cuda.synchronize()
-    tiers = global_profile.tier_summary()
-    launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
-    plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    launches, tiers = path_launches(name, kernels)
     log(f"  [{name}] {len(outs)} requests in {steps} steps (cache {cache}, max_batch "
         f"{SERVE_BATCH}, chunk {SERVE_CHUNK}); placement: {tiers}")
-    require(all(launches[k] > 0 for k in kernels),
-            f"[{name}] a kernel of the path never launched: {launches}")
-    require(all(n == 0 for k, n in launches.items() if k not in kernels),
-            f"[{name}] a kernel of another path launched: {launches}")
-    require(not plain, f"[{name}] plain tier ran on the main path: {plain}")
     vocab = model.cfg.vocab_size
     for (p, n), out in zip(reqs, outs):
         require(len(out) == n and all(0 <= t < vocab for t in out),
@@ -3282,16 +3342,9 @@ def train_path(torch, name, trainers, summary, flags="default"):
             tr.step(i)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tiers = global_profile.tier_summary()
-    launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
-    plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    launches, tiers = path_launches(name, TRAIN_PATHS[name])
     log(f"  [{name}] {sum(TRAIN_STEPS[lb] for lb in trainers)} steps in {wall:.1f} s; "
         f"placement: {tiers}")
-    require(all(launches[k] > 0 for k in TRAIN_PATHS[name]),
-            f"[{name}] a kernel of the path never launched: {launches}")
-    require(all(n == 0 for k, n in launches.items() if k not in TRAIN_PATHS[name]),
-            f"[{name}] a kernel of another path launched: {launches}")
-    require(not plain, f"[{name}] plain tier ran on the training path: {plain}")
     entry = dict(launches=launches, placement=tiers, steps_wall_s=wall)
     for label, tr in trainers.items():
         losses = [float(v) for v in tr.losses]
@@ -3785,10 +3838,6 @@ def graph_ffn_feeds(torch, dev) -> dict:
     return out
 
 
-def _launches(tiers):
-    return {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
-
-
 def _rel(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
@@ -3818,15 +3867,11 @@ def graph_ffn_path(torch, dev, summary):
     out = gf.run(**feeds)
     val, grads = vag(**feeds)
     torch.cuda.synchronize()
-    tiers = global_profile.tier_summary()
-    launches, plain = _launches(tiers), {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    launches, tiers = path_launches(name, ("fused_chain",))
     log(f"  [{name}] one run and one value_and_grad; placement: {tiers}")
     require(launches["fused_chain"] == 2 * len(GRAPH_CHAINS),
             f"[{name}] K13 launched {launches['fused_chain']} times, want "
             f"{2 * len(GRAPH_CHAINS)} (one per chain per forward)")
-    require(all(n == 0 for k, n in launches.items() if k != "fused_chain"),
-            f"[{name}] a kernel of another path launched: {launches}")
-    require(not plain, f"[{name}] plain tier ran on the graph path: {plain}")
     with force_ref():
         out_r = gf.run(**feeds)
         val_r, grads_r = vag(**feeds)
@@ -3885,12 +3930,8 @@ def graph_sub_path(torch, dev, summary):
     global_profile.reset()
     got = gf.run(x=xn, y=yn)
     torch.cuda.synchronize()
-    tiers = global_profile.tier_summary()
-    launches = _launches(tiers)
-    require(launches["fused_chain"] == 2 and all(v == 0 for k, v in launches.items()
-                                                 if k != "fused_chain")
-            and not any(t.get("ref") for t in tiers.values()),
-            f"[{name}] want 2 K13 launches and nothing else: {tiers}")
+    launches, tiers = path_launches(name, ("fused_chain",))
+    require(launches["fused_chain"] == 2, f"[{name}] want 2 K13 launches: {tiers}")
     unfused = gu.run(x=xn, y=yn)
     want_np = (yn - np.exp(xn), yn / np.exp(xn))
     errs = {}
@@ -3976,17 +4017,12 @@ def graph_ffn_bf16_path(torch, dev, summary):
     out = gf.run(**feeds)
     val, grads = vag(**feeds)
     torch.cuda.synchronize()
-    tiers = global_profile.tier_summary()
-    launches, plain = _launches(tiers), {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
+    launches, tiers = path_launches(name, ("fused_chain", "fused_chain_bf16"))
     log(f"  [{name}] one run and one value_and_grad; placement: {tiers}")
     require(launches["fused_chain_bf16"] == 2 and launches["fused_chain"] == 4,
             f"[{name}] K13 launched {launches['fused_chain_bf16']} times in bf16 and "
             f"{launches['fused_chain']} in f32, want 2 and 4 (per forward one bf16 chain, "
             f"two f32 ones)")
-    require(all(n == 0 for k, n in launches.items()
-                if k not in ("fused_chain", "fused_chain_bf16")),
-            f"[{name}] a kernel of another path launched: {launches}")
-    require(not plain, f"[{name}] plain tier ran on the graph path: {plain}")
     rg = ComputeGraph(r, device=dev)
     r_feeds = {k: feeds[k] for k in ("x", "a")}
     r_got = rg.run(**r_feeds)
@@ -4073,6 +4109,371 @@ def graph_rates(torch, gf, feeds, card, summary, name="graph_ffn"):
                                                        rounds=GRAPH_RATE_ROUNDS)
     train_profile(torch, lambda: vag(**feeds), name, summary, key="graph_profile",
                   what="one value_and_grad")
+
+
+def bpe_tokenizer():
+    from zgml_tpu_torch.io.tokenizer import BPETokenizer
+    bpe = ROOT / "tests" / "data" / "bpe"
+    return BPETokenizer.from_files(bpe / "vocab.json", bpe / "merges.txt")
+
+
+def mixed_kinds(n_layers: int) -> dict:
+    """mixed_tiny's tensor types inside its Q4_0 file (the comment above MIXED_TEXT)."""
+    from zgml_tpu_torch.io.gguf import GGMLType
+    kinds = {"output.weight": GGMLType.Q8_0}
+    for i in range(n_layers):
+        if i % 2 == 0:
+            kinds[f"blk.{i}.attn_v.weight"] = GGMLType.Q8_0
+        if i % 4 == 1:
+            kinds[f"blk.{i}.ffn_up.weight"] = GGMLType.Q8_0
+        if i % 4 == 3:
+            kinds[f"blk.{i}.ffn_down.weight"] = GGMLType.Q8_0
+    return kinds
+
+
+def mixed_model_path() -> pathlib.Path:
+    from zgml_tpu_torch.io.gguf import GGMLType
+    from zgml_tpu_torch.utils.synthetic import write_synthetic_llama_gguf
+    cfg = preset("tinyllama-1.1b")
+    path = ROOT / ".bench_cache" / f"tinyllama-1.1b-mixed-q4_0-seed{SEED}-std{WEIGHT_STD}.gguf"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        write_synthetic_llama_gguf(str(path), cfg, quant=GGMLType.Q4_0, seed=SEED,
+                                   scale=WEIGHT_STD, kinds=mixed_kinds(cfg.n_layers),
+                                   tokenizer=bpe_tokenizer())
+        log(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"  reusing {path.name}")
+    return path
+
+
+def run_cli(argv) -> list[str]:
+    """zgml_tpu_torch's command line in this process; its printed lines."""
+    import io
+
+    from zgml_tpu_torch.utils import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue().splitlines()
+
+
+def cli_ids(lines, label) -> list[int]:
+    line = next(ln for ln in lines if ln.startswith(label))
+    return json.loads(line[len(label):].strip())
+
+
+def mixed_paths(torch, dev, summary):
+    """mixed_tiny / mixed_kv8_tiny: the mixed-kind TinyLlama-1.1B GGUF
+    (mixed_kinds, the repo's BPE inside) through the command line a user
+    calls: `inspect`, then `generate --prompt MIXED_TEXT -n 32` on the card
+    over the bf16 and the int8 cache, the placement counts set to 0 just
+    before each and read just after, holding the routes JAX takes (over the
+    bf16 cache `_layer_step` in every layer: K4 22 times a decode token, no
+    K7; over the int8 cache K7 on the 11 layers with a fused Q4_0 wqkv and
+    K8 at batch 1 on the other 11), K1q8 on wv, ffn_up and ffn_down, K5q8
+    for the head, K6b only in the layers whose gate|up and down are both
+    Q4_0. Then each request against the plain versions (against_plain) on
+    the same model and engine. Returns {path: launches}."""
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    set_path("default")
+    path = mixed_model_path()
+    lines = run_cli(["inspect", str(path)])
+    for ln in lines:
+        log(f"  [mixed_tiny] inspect: {ln}")
+    model, gf = load_llama(str(path), device=dev)
+    gf.close()
+    n = model.cfg.n_layers
+    n_q8 = len(mixed_kinds(n))
+    census = sorted(ln.strip() for ln in lines if ln.endswith(" tensors") and ":" in ln)
+    want = sorted(f"{t}: {c} tensors" for t, c in (("Q4_0", 7 * n + 1 - n_q8), ("Q8_0", n_q8),
+                                                    ("F32", 2 * n + 2)))
+    require(census == want, f"[mixed_tiny] inspect's census {census}, want {want}")
+    fused = sum("wqkv" in ly for ly in model.params["layers"])
+    require(fused == n // 2 and all(ly["wqkv"].kind == "q4_0" for ly in model.params["layers"]
+                                    if "wqkv" in ly)
+            and model.params["lm_head"].kind == "q8_0",
+            f"[mixed_tiny] the layout is not the mix's: "
+            f"{[sorted(ly) for ly in model.params['layers'][:4]]}")
+    out = {}
+    for name, (cache, kernels) in MIXED_PATHS.items():
+        torch.cuda.synchronize()
+        global_profile.reset()
+        t0 = time.perf_counter()
+        lines = run_cli(["generate", str(path), "--prompt", MIXED_TEXT, "-n", "32"]
+                        + (["--kv", "int8"] if cache == "int8" else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # K4 in every layer over the bf16 cache; over the int8 cache K7 where
+        # wqkv is fused and K8 in the others
+        per_token = ({"decode_attention": n} if cache == "bf16" else
+                     {"attn_block_kv8": fused, "decode_attention_q8": n - fused})
+        launches, tiers = path_launches(name, kernels, per_token)
+        prompt, toks = cli_ids(lines, "prompt ids:"), cli_ids(lines, "output ids:")
+        require(len(toks) == 32 and all(0 <= t < model.cfg.vocab_size for t in toks),
+                f"[{name}] output {toks}")
+        log(f"  [{name}] `generate --prompt {MIXED_TEXT!r}{' --kv int8' if cache == 'int8' else ''}` "
+            f"in {wall:.1f} s (load included): prompt ids {prompt} -> {toks}; placement: {tiers}")
+        eng = LlamaEngine(model, prefill_chunk=128, cache_dtype=cache)
+        entry = dict(cache=cache, prompt_ids=prompt, outputs=toks, launches=launches,
+                     placement=tiers, wall_s=wall,
+                     **against_plain(torch, eng, np.asarray(prompt), toks, name, "the prompt"))
+        summary.setdefault("e2e", {})[name] = entry
+        out[name] = launches
+        del eng
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def eval_tokens() -> np.ndarray:
+    ids = np.load(ROOT / "tests" / "data" / "corpus_tokens.npy").astype(np.int64)
+    return ids[:EVAL_WINDOWS * EVAL_WINDOW + 1]
+
+
+def eval_check(torch, model, toks, cache, label, quantized, ppl):
+    """The card's ppl of `model` on `toks` (`ppl`) against the same model's under
+    force_ref() on the card, within max(EVAL_RTOL[quantized] * ppl, SENS_MARGIN x the
+    plain path's own move when the embedding rows of the tokens (and, on a
+    quantized model, every projection's plain output: proj_out_probe) are
+    scaled by 1 + SENS_EPS N(0, 1), EVAL_SENS_DRAWS draws)."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.runtime.eval import perplexity
+    embd = model.params["tok_embd"]
+    ids = sorted({int(i) for i in toks})
+    rows = embd[ids].clone()
+    g = torch.Generator(device=rows.device).manual_seed(SEED)
+    with force_ref():
+        ref = perplexity(model, toks, EVAL_WINDOW, cache)
+        moves = []
+        for _ in range(EVAL_SENS_DRAWS):
+            embd[ids] = rows * (1 + SENS_EPS * torch.randn(rows.shape, device=rows.device,
+                                                           generator=g))
+            with proj_out_probe(torch, g) if quantized else contextlib.nullcontext():
+                moves.append(abs(perplexity(model, toks, EVAL_WINDOW, cache) - ref))
+        embd[ids] = rows
+    bound = max(EVAL_RTOL[quantized] * ref, SENS_MARGIN * max(moves))
+    err = abs(ppl - ref)
+    require(math.isfinite(ppl) and err <= bound,
+            f"[{label}] ppl {ppl!r} against force_ref()'s {ref!r}: {err:.4g} > bound {bound:.4g} "
+            f"(the plain path moves {[f'{m:.3g}' for m in moves]})")
+    log(f"  [{label}] ppl {ppl:.6f} (force_ref() {ref:.6f}, {err / ref:.3g} relative; bound "
+        f"{bound / ref:.3g}, the plain path moves {max(moves) / ref:.3g} under {SENS_EPS:g} "
+        f"perturbations)")
+    return dict(ppl=ppl, ppl_plain=ref, err=err, bound=bound, sensitivity=moves)
+
+
+def window_time(torch, model, toks, cache):
+    """Host wall and device busy (torch.profiler, the kernel records) of one
+    window_nll of EVAL_WINDOW + 1 tokens, after one untimed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from zgml_tpu_torch.runtime.eval import window_nll
+    chunk = toks[:EVAL_WINDOW + 1]
+    window_nll(model, chunk, cache)
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            window_nll(model, chunk, cache)        # returns a float: synchronized
+            wall = time.perf_counter() - t0
+        busy = sum(_self_device_us(ev) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+        if busy:
+            return wall * 1e3, busy / 1e3
+    return wall * 1e3, "not measured"
+
+
+def eval_path(torch, dev, models, summary):
+    """eval_tiny: perplexity (runtime/eval.py) of the first EVAL_WINDOWS
+    windows of EVAL_WINDOW tokens of tests/data/corpus_tokens.npy on the
+    TinyLlama-1.1B Q4_0 and Q8_0 files, each loaded dense (load_llama
+    mode="dense": torch.matmul projections, K3) and quantized (K2's bf16
+    form, K3), the Q4_0 one also over the int8 cache (K9), the placement
+    counts set to 0 just before the card's runs and read just after; each
+    ppl held to force_ref()'s (eval_check); ppl, dppl per pair, and the wall
+    and device time of one window. Returns the launches."""
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.runtime.eval import perplexity
+    from zgml_tpu_torch.runtime.profile import global_profile
+    set_path("default")
+    toks = eval_tokens()
+    log(f"  [eval_tiny] {EVAL_WINDOWS} windows of {EVAL_WINDOW} tokens of the corpus "
+        f"({len(toks)} ids)")
+    runs = []          # (label, model, cache, quantized)
+    dense = {}
+    for kind in KINDS:
+        t0 = time.perf_counter()
+        model, gf = load_llama(str(model_path("tinyllama-1.1b", kind)), device=dev, mode="dense")
+        gf.close()
+        torch.cuda.synchronize()
+        log(f"  [eval_tiny] loaded the {kind} file dense in {time.perf_counter() - t0:.1f} s")
+        dense[kind] = model
+        runs += [(f"{kind} dense", model, "bf16", False),
+                 (f"{kind}", models["tinyllama-1.1b", kind], "bf16", True)]
+    runs.append(("q4_0 int8 cache", models["tinyllama-1.1b", "q4_0"], "int8", True))
+    torch.cuda.synchronize()
+    global_profile.reset()
+    ppl = {label: perplexity(m, toks, EVAL_WINDOW, cache) for label, m, cache, _ in runs}
+    torch.cuda.synchronize()
+    launches, tiers = path_launches("eval_tiny", EVAL_KERNELS)
+    windows = global_profile.phase_calls["eval_window"]
+    require(windows == EVAL_WINDOWS * len(runs), f"[eval_tiny] {windows} windows")
+    card = card_line()
+    entry = dict(windows=EVAL_WINDOWS, window=EVAL_WINDOW, launches=launches, placement=tiers,
+                 runs={})
+    for label, m, cache, quantized in runs:
+        check = eval_check(torch, m, toks, cache, f"eval_tiny {label}", quantized, ppl[label])
+        wall_ms, device_ms = window_time(torch, m, toks, cache)
+        check.update(window_wall_ms=wall_ms, window_device_ms=device_ms)
+        entry["runs"][label] = check
+        log(f"  [eval_tiny {label}] one window of {EVAL_WINDOW + 1} tokens: host wall "
+            f"{wall_ms:.2f} ms, device busy "
+            + (f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f}%)"
+               if isinstance(device_ms, float) else device_ms) + f"  ({card})")
+    for a, b in (("q4_0 dense", "q4_0"), ("q8_0 dense", "q8_0"), ("q4_0", "q4_0 int8 cache")):
+        d = ppl[b] - ppl[a]
+        entry.setdefault("deltas", {})[f"{b} vs {a}"] = d
+        log(f"  [eval_tiny] {b} vs {a}: ppl {ppl[b]:.6f} vs {ppl[a]:.6f}, dppl {d:+.6f} "
+            f"({d / ppl[a]:+.3g} relative)  ({card})")
+    summary["eval_tiny"] = entry
+    del dense, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hf_model_path(torch, dev, cfg) -> pathlib.Path:
+    """A TinyLlama-1.1B-shaped HF llama checkpoint in F16 (HF names, [out,
+    in] weights, norms 1), drawn at WEIGHT_STD on the card from SEED (torch's
+    generator there: numpy's draws of 1.1B values took ~25 s of a 32 s
+    write), written once."""
+    from zgml_tpu_torch.io.safetensors import save_safetensors
+    path = ROOT / ".bench_cache" / f"tinyllama-1.1b-hf-f16-seed{SEED}-std{WEIGHT_STD}.safetensors"
+    if path.exists():
+        log(f"  reusing {path.name}")
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+
+    def rand(*shape):
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32) * WEIGHT_STD
+        return w.to(torch.float16).cpu().numpy()
+    ones = np.ones(d, np.float16)
+    tensors = {"model.embed_tokens.weight": rand(cfg.vocab_size, d), "model.norm.weight": ones}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        tensors.update({p + "input_layernorm.weight": ones,
+                        p + "post_attention_layernorm.weight": ones,
+                        p + "self_attn.q_proj.weight": rand(cfg.n_heads * hd, d),
+                        p + "self_attn.k_proj.weight": rand(cfg.n_kv_heads * hd, d),
+                        p + "self_attn.v_proj.weight": rand(cfg.n_kv_heads * hd, d),
+                        p + "self_attn.o_proj.weight": rand(d, cfg.n_heads * hd),
+                        p + "mlp.gate_proj.weight": rand(f, d),
+                        p + "mlp.up_proj.weight": rand(f, d),
+                        p + "mlp.down_proj.weight": rand(d, f)})
+    tensors["lm_head.weight"] = rand(cfg.vocab_size, d)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    save_safetensors(tmp, tensors)
+    os.replace(tmp, path)
+    log(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def hf_path(torch, dev, prompt, summary):
+    """hf_tiny: the HF checkpoint (hf_model_path) through load_llama_hf onto
+    the card (dense f32), then LlamaModel.quantize("q8_0") and, from the same
+    dense weights (quantize leaves them as they are), quantize("q4_0"), each
+    timed; packed.quantize's planes against the numpy codec's for one weight
+    of each kind; the ppl of each on eval_tiny's windows and its dppl
+    against the dense model (the FP16-vs-quantized measure); a greedy
+    request of 32 tokens on each quantized model against the plain versions
+    (against_plain). The placement counts are set to 0 before the card's
+    runs and read after. Returns the launches."""
+    from zgml_tpu_torch.io.hf_loaders import load_llama_hf
+    from zgml_tpu_torch.models.llama import LlamaModel
+    from zgml_tpu_torch.quant import blocks, packed
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.eval import perplexity
+    from zgml_tpu_torch.runtime.profile import global_profile
+    set_path("default")
+    cfg = preset("tinyllama-1.1b")
+    path = hf_model_path(torch, dev, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = load_llama_hf(str(path), cfg, device=dev)
+    torch.cuda.synchronize()
+    times = dict(load_s=time.perf_counter() - t0)
+    quant = {}
+    for kind in KINDS:
+        t0 = time.perf_counter()
+        quant[kind] = LlamaModel(cfg, dense.params).quantize(kind)
+        torch.cuda.synchronize()
+        times[f"quantize_{kind}_s"] = time.perf_counter() - t0
+    require(not any(isinstance(v, packed.PackedWeight) for v in dense.params["layers"][0].values()),
+            "[hf_tiny] quantize changed the dense weights")
+    # the device quantizer against the numpy GGUF codecs on one weight each
+    w = dense.params["layers"][0]["wo"].t().contiguous()
+    host = w.cpu().numpy()
+    for kind, (codec, split) in (("q8_0", (blocks.quantize_q8_0, packed.from_gguf_q8_0)),
+                                 ("q4_0", (blocks.quantize_q4_0, packed.from_gguf_q4_0))):
+        want = split(codec(host), *host.shape, device="cpu")
+        got = packed.quantize(w, kind)
+        require(torch.equal(got.qs.cpu(), want.qs)
+                and torch.equal(got.d.cpu().view(torch.int16), want.d.view(torch.int16)),
+                f"[hf_tiny] packed.quantize({kind}) differs from the numpy codec")
+    log(f"  [hf_tiny] load_llama_hf {times['load_s']:.2f} s, quantize q8_0 "
+        f"{times['quantize_q8_0_s']:.3f} s, q4_0 {times['quantize_q4_0_s']:.3f} s (on the card); "
+        f"packed.quantize equals the numpy codec at both kinds  ({card_line()})")
+    toks = eval_tokens()
+    torch.cuda.synchronize()
+    global_profile.reset()
+    ppl = {"dense": perplexity(dense, toks, EVAL_WINDOW)}
+    outs = {}
+    for kind, model in quant.items():
+        ppl[kind] = perplexity(model, toks, EVAL_WINDOW)
+        eng = LlamaEngine(model, prefill_chunk=128)
+        outs[kind] = eng.generate(prompt, 32)
+    torch.cuda.synchronize()
+    launches, tiers = path_launches("hf_tiny", HF_KERNELS)
+    entry = dict(times=times, ppl=ppl, outputs=outs, launches=launches, placement=tiers)
+    for kind in KINDS:
+        d = ppl[kind] - ppl["dense"]
+        entry.setdefault("deltas", {})[kind] = d
+        log(f"  [hf_tiny] {kind} vs the F16 checkpoint dense: ppl {ppl[kind]:.6f} vs "
+            f"{ppl['dense']:.6f}, dppl {d:+.6f} ({d / ppl['dense']:+.3g} relative)")
+        log(f"  [hf_tiny {kind}] greedy prompt {len(prompt)} tokens -> {outs[kind]}")
+        eng = LlamaEngine(quant[kind], prefill_chunk=128)
+        entry[f"plain_{kind}"] = against_plain(torch, eng, prompt, outs[kind], "hf_tiny",
+                                               f"{kind} greedy request")
+        del eng
+    summary["hf_tiny"] = entry
+    del dense, quant
+    torch.cuda.empty_cache()
+    return launches
+
+
+def weight_form_paths(torch, dev, models, prompt, summary):
+    """Phase 3's weight forms and quality tools: mixed_tiny, eval_tiny,
+    hf_tiny. Returns {path: launches}."""
+    t0 = time.perf_counter()
+    out = mixed_paths(torch, dev, summary)
+    t1 = time.perf_counter()
+    out["eval_tiny"] = eval_path(torch, dev, models, summary)
+    t2 = time.perf_counter()
+    out["hf_tiny"] = hf_path(torch, dev, prompt, summary)
+    summary["weight_forms_s"] = dict(mixed_tiny=t1 - t0, eval_tiny=t2 - t1,
+                                     hf_tiny=time.perf_counter() - t2)
+    log(f"  mixed_tiny {t1 - t0:.1f} s, eval_tiny {t2 - t1:.1f} s, hf_tiny "
+        f"{time.perf_counter() - t2:.1f} s (file writes included)")
+    return out
 
 
 def main() -> int:
@@ -4200,6 +4601,9 @@ def main() -> int:
     launches["graph_ffn_bf16"], graph16, graph16_feeds = graph_ffn_bf16_path(torch, dev, summary)
     launches["graph_sub"] = graph_sub_path(torch, dev, summary)
     log(f"  phase 3 (graph tier) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(weight_form_paths(torch, dev, models, prompts[0], summary))
+    log(f"  phase 3 (weight forms, text and quality) took {time.perf_counter() - t0:.1f} s")
 
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()

@@ -7,9 +7,10 @@ import torch
 
 from zgml_tpu.ops import refs as jrefs
 
-from zgml_tpu_torch.io.gguf import GGMLType
+from zgml_tpu_torch.io.gguf import GGMLType, tensor_nbytes
 from zgml_tpu_torch.io.llama_loader import load_llama
 from zgml_tpu_torch.ops import refs
+from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.engine import LlamaEngine
 from zgml_tpu_torch.runtime.sampling import SamplingParams, sample
 from zgml_tpu_torch.utils import cli
@@ -147,8 +148,10 @@ def test_load_llama_refuses_q8_0_weights(tmp_path, monkeypatch):
     """What the loader cannot run is refused, not dequantized in silence.
     Q8_0 loads (it has its kernels), and so do F16 matmul weights, dense, as
     the JAX package loads them (`_load_matmul`) since the dense load mode;
-    a quantized layer whose q/k/v mix kinds (attn_v F16 beside Q4_0, which
-    the JAX package loads unfused) is refused, naming ROADMAP.md A.3."""
+    a quantized layer whose q/k/v mix types (attn_v F16 beside Q4_0) loads
+    unfused, as the JAX package's `_load_fused` loads it: wq and wk packed,
+    wv dense. A type the JAX package cannot decode either (Q4_1) is refused,
+    naming it."""
     from zgml_tpu_torch.utils import synthetic
     path = str(tmp_path / "tiny_f16.gguf")
     write_synthetic_llama_gguf(path, TINY_TEST, quant=GGMLType.F16)
@@ -158,13 +161,24 @@ def test_load_llama_refuses_q8_0_weights(tmp_path, monkeypatch):
     assert all(isinstance(layer[n], torch.Tensor) and layer[n].dtype == torch.float32
                for n in ("wqkv", "wo", "w_gate_up", "w_down"))
 
-    class MixedWriter(synthetic.GGUFWriter):
-        def add_raw_tensor(self, name, shape, ggml_type, raw):
-            if "attn_v" in name and ggml_type != GGMLType.F16:
-                raw, ggml_type = np.zeros(shape, np.float16), GGMLType.F16
-            return super().add_raw_tensor(name, shape, ggml_type, raw)
-    monkeypatch.setattr(synthetic, "GGUFWriter", MixedWriter)
-    mixed = str(tmp_path / "tiny_mixed.gguf")
-    synthetic.write_synthetic_llama_gguf(mixed, TINY_TEST, quant=GGMLType.Q4_0)
-    with pytest.raises(NotImplementedError, match=r"mix kinds.*ROADMAP\.md A\.3"):
-        load_llama(mixed, device="cpu")
+    def mixed_file(name, ggml_type):
+        class MixedWriter(synthetic.GGUFWriter):
+            def add_raw_tensor(self, tname, shape, t, raw):
+                if "attn_v" in tname and t != ggml_type:
+                    n = int(np.prod(shape))
+                    raw, t = np.zeros(tensor_nbytes(ggml_type, n), np.uint8), ggml_type
+                return super().add_raw_tensor(tname, shape, t, raw)
+        with monkeypatch.context() as mp:
+            mp.setattr(synthetic, "GGUFWriter", MixedWriter)
+            out = str(tmp_path / name)
+            synthetic.write_synthetic_llama_gguf(out, TINY_TEST, quant=GGMLType.Q4_0)
+        return out
+
+    model, gf = load_llama(mixed_file("tiny_mixed.gguf", GGMLType.F16), device="cpu")
+    gf.close()
+    for layer in model.params["layers"]:
+        assert "wqkv" not in layer and isinstance(layer["w_gate_up"], PackedWeight)
+        assert layer["wq"].kind == layer["wk"].kind == "q4_0"
+        assert isinstance(layer["wv"], torch.Tensor) and layer["wv"].dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="Q4_1"):
+        load_llama(mixed_file("tiny_q4_1.gguf", GGMLType.Q4_1), device="cpu")

@@ -6,7 +6,10 @@ Counterpart of zgml_tpu/io/llama_loader.py, in its two modes
   - mode="quantized" (the default): Q4_0 and Q8_0 matmul weights stay packed
     (quant/packed.py), fused along the out axis into wqkv (q|k|v) and
     w_gate_up (gate|up) so each is one launch; F16 / F32 ones load dense, as
-    JAX loads them;
+    JAX loads them. A group whose tensors are of different types (real GGUFs
+    often keep attn_v or ffn_up at Q8_0 inside a Q4_0 model) loads unfused,
+    as wq / wk / wv or w_gate / w_up, exactly where JAX's `_load_fused`
+    returns None;
   - mode="dense": every matmul weight f32 K-major [K, N] (Q4_0 / Q8_0
     dequantized, F16 / F32 as stored), wqkv and w_gate_up concatenated along
     N; the model computes their products with torch.matmul, as the JAX
@@ -14,12 +17,9 @@ Counterpart of zgml_tpu/io/llama_loader.py, in its two modes
 
 Norms and embeddings load as f32. Everything lands on the card unless the
 caller asks for the CPU (device="cpu": the plain torch versions).
-
-Not yet ported, and refused with NotImplementedError rather than run another
-way: quantized layers whose q/k/v or gate/up mix kinds (the JAX package
-loads those unfused, `_load_fused`; ROADMAP.md A.3 lists them with
-`quantize_llama_params` and `LlamaModel.quantize`), and weight types the
-JAX package cannot decode either (K-quants).
+`quantize_llama_params` turns a dense model's matmul weights into packed ones
+afterwards (JAX's post-hoc quantize, llama_loader.py:202-253). Weight types
+the JAX package cannot decode either (K-quants) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -79,7 +79,14 @@ def _kind(gf: GGUFFile, name: str) -> str:
 
 
 def _dense(gf: GGUFFile, name: str, device) -> torch.Tensor:
-    """An [N, K] matmul weight as f32 K-major [K, N] (llama_loader.py:94-95)."""
+    """An [N, K] matmul weight as f32 K-major [K, N] (llama_loader.py:94-95).
+    Q4_0 / Q8_0 blocks go to the device packed and are dequantized and
+    transposed there: level * scale is exact in f32, so the values are the
+    numpy codec's, without a host pass over the f32 weights."""
+    kind = _kind(gf, name)
+    if kind in _FROM_GGUF:
+        n, k = gf.tensors[name].np_shape
+        return _FROM_GGUF[kind](gf.tensor_raw(name), n, k, device).dequant().t().contiguous()
     return _f32(np.ascontiguousarray(gf.tensor_f32(name).T), device)
 
 
@@ -91,19 +98,18 @@ def _matmul(gf: GGUFFile, name: str, mode: str, device):
     return _FROM_GGUF[kind](gf.tensor_raw(name), n, k, device)
 
 
-def _fused(gf: GGUFFile, names: list[str], mode: str, device):
-    """Weights of one input fused along the out axis: packed.concat, or
-    torch.cat of the dense [K, N] parts along N (llama_loader.py:98-112)."""
-    kinds = [_kind(gf, nm) for nm in names]
-    if mode == "quantized" and len(set(kinds)) > 1:
-        raise NotImplementedError(
-            f"{names} mix kinds {kinds}: mixed-kind layers wait for unfused loading "
-            f"(ROADMAP.md A.3, with quantize_llama_params and LlamaModel.quantize); "
-            f"mode='dense' loads them")
+def _group(gf: GGUFFile, keys: tuple[str, ...], names: list[str], fused_key: str, mode: str,
+           device) -> dict:
+    """Weights of one input: fused along the out axis under `fused_key`
+    (packed.concat, or torch.cat of the dense [K, N] parts along N), or, in
+    the quantized mode where the tensors' types differ, each under its own
+    key (llama_loader.py:98-116, 143-168)."""
     parts = [_matmul(gf, nm, mode, device) for nm in names]
+    if mode == "quantized" and len({gf.tensors[nm].ggml_type for nm in names}) > 1:
+        return dict(zip(keys, parts))
     if isinstance(parts[0], PackedWeight):
-        return packed.concat(parts)
-    return torch.cat(parts, dim=1)
+        return {fused_key: packed.concat(parts)}
+    return {fused_key: torch.cat(parts, dim=1)}
 
 
 def quantize_weight(w: np.ndarray, kind: str, device="cuda") -> PackedWeight:
@@ -138,11 +144,13 @@ def load_llama(path: str, device="cuda", max_seq_len: int | None = None,
             layers.append({
                 "attn_norm": _f32(gf.tensor_f32(blk + "attn_norm.weight"), device),
                 "ffn_norm": _f32(gf.tensor_f32(blk + "ffn_norm.weight"), device),
-                "wqkv": _fused(gf, [blk + f"attn_{p}.weight" for p in ("q", "k", "v")],
-                               mode, device),
+                **_group(gf, ("wq", "wk", "wv"),
+                         [blk + f"attn_{p}.weight" for p in ("q", "k", "v")], "wqkv", mode,
+                         device),
                 "wo": _matmul(gf, blk + "attn_output.weight", mode, device),
-                "w_gate_up": _fused(gf, [blk + f"ffn_{p}.weight" for p in ("gate", "up")],
-                                    mode, device),
+                **_group(gf, ("w_gate", "w_up"),
+                         [blk + f"ffn_{p}.weight" for p in ("gate", "up")], "w_gate_up", mode,
+                         device),
                 "w_down": _matmul(gf, blk + "ffn_down.weight", mode, device),
             })
         params = {"tok_embd": _f32(gf.tensor_f32("token_embd.weight"), device),
@@ -154,6 +162,36 @@ def load_llama(path: str, device="cuda", max_seq_len: int | None = None,
         gf.close()
         raise
     return LlamaModel(cfg, params), gf
+
+
+MATMULS = ("wq", "wk", "wv", "wqkv", "wo", "w_gate", "w_up", "w_gate_up", "w_down")
+
+
+def quantize_llama_params(params: dict, kind: str = "q8_0") -> dict:
+    """Post-hoc weight quantization of a dense-loaded llama, as the JAX
+    package's (llama_loader.py:202-253): every dense matmul weight [K, N]
+    becomes a PackedWeight of `kind` (packed.quantize, on the weight's
+    device, the bytes the GGUF codecs write), fused wqkv / w_gate_up stay
+    fused, packed weights stay as they are, and norms and embeddings stay
+    f32. A PackedWeight's blocks run along K within one output row, so
+    quantizing a fused [K, N] weight whole gives the blocks of quantizing
+    each section (JAX's gate and up) and concatenating them. Returns a NEW
+    params dict (a per-layer list) sharing the untouched tensors. A megacall
+    view is carried over as it is: one attaches only where every projection
+    is packed already, and packed weights are not touched."""
+    layers = params.get("layers")
+    if not isinstance(layers, (list, tuple)):
+        raise ValueError("quantize_llama_params expects a per-layer list of layers")
+
+    def q(leaf):
+        return leaf if isinstance(leaf, PackedWeight) else packed.quantize(leaf.t(), kind)
+
+    out = dict(params)
+    out["layers"] = [{k: q(v) if k in MATMULS else v for k, v in layer.items()}
+                     for layer in layers]
+    if "lm_head" in out:
+        out["lm_head"] = q(out["lm_head"])
+    return out
 
 
 def _field(pw: Any, name: str):
@@ -179,12 +217,14 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device="cuda") -> dict:
     (the card unless device="cpu").
 
     `np_params` is, with every array as numpy, either what zgml_tpu's
-    load_llama builds (unrolled layer list, fused wqkv / w_gate_up, Q4_0 or
+    load_llama or quantize_llama_params builds (unrolled layer list, Q4_0 or
     Q8_0 PackedWeights; a packed weight is any object or dict with kind, n,
     k, qvals, scales), or the dense tree of its init_params (``layers`` a dict
     of stacked [L, ...] f32 arrays, split here into the per-layer list; the
     leaves stay f32 tensors a caller may mark requires_grad).
 
+    A layer may hold unfused wq / wk / wv or w_gate / w_up (a mixed-kind
+    GGUF), and dense leaves beside packed ones (F16 / F32 tensors). A packed
     w_gate_up is part-padded there: gate and up each fill half of its n
     columns (each padded to w_down's k_pad), so it is split at n // 2 and
     each half keeps its first d_ff columns. The padding columns hold zero
@@ -208,16 +248,16 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device="cuda") -> dict:
 
 
 def _from_jax_layer(lj: dict, cfg: LlamaConfig, device) -> dict:
-    if "wqkv" not in lj or "w_gate_up" not in lj:
-        raise ValueError("params_from_jax expects fused wqkv and w_gate_up layers")
-    gu = lj["w_gate_up"]
-    half = _field(gu, "n") // 2
-    return {
-        "attn_norm": _f32(lj["attn_norm"], device),
-        "ffn_norm": _f32(lj["ffn_norm"], device),
-        "wqkv": _from_jax_packed(lj["wqkv"], device),
-        "wo": _from_jax_packed(lj["wo"], device),
-        "w_gate_up": packed.concat([_from_jax_packed(gu, device, 0, cfg.d_ff),
-                                    _from_jax_packed(gu, device, half, cfg.d_ff)]),
-        "w_down": _from_jax_packed(lj["w_down"], device),
-    }
+    """One JAX layer: its norms and matmul weights, fused or unfused, packed
+    or dense (numpy [K, N]); the derived views (wo3, ffn_q4n) are dropped."""
+    out = {}
+    for key, v in lj.items():
+        if key in ("attn_norm", "ffn_norm") or (key in MATMULS and isinstance(v, np.ndarray)):
+            out[key] = _f32(v, device)
+        elif key == "w_gate_up":
+            half = _field(v, "n") // 2
+            out[key] = packed.concat([_from_jax_packed(v, device, 0, cfg.d_ff),
+                                      _from_jax_packed(v, device, half, cfg.d_ff)])
+        elif key in MATMULS:
+            out[key] = _from_jax_packed(v, device)
+    return out

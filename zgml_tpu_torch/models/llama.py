@@ -59,9 +59,13 @@ ops/dispatch.py picks them.
 
 ``params`` is a plain dict, as in the JAX package: tok_embd/out_norm f32,
 ``layers`` a list of {attn_norm, ffn_norm, wqkv, wo, w_gate_up, w_down} with
-PackedWeight projections, or of {attn_norm, ffn_norm, wq, wk, wv, wo, w_gate,
-w_up, w_down} with dense f32 [K, N] ones (``init_params``), and lm_head
-(absent when tied; PackedWeight or dense [D, V]).
+PackedWeight or dense f32 [K, N] projections, where a layer of a mixed-kind
+GGUF holds wq / wk / wv in place of wqkv and w_gate / w_up in place of
+w_gate_up (``init_params`` and ``load_llama_hf(fuse=False)`` hold both unfused),
+and lm_head (absent when tied; PackedWeight or dense [D, V]). A layer without
+a packed wqkv and wo of one kind takes no K7: over the int8 cache JAX's
+choice is made layer by layer, over the stacked bf16 cache for all layers or
+none (llama.py:343-357, 775-782). ``quantize(kind)`` packs a dense model.
 """
 from __future__ import annotations
 
@@ -218,7 +222,8 @@ def _phase_e(cfg: LlamaConfig, layer: dict) -> bool:
     the N-packed view exists (ffn_fuses after the layer kernel; its padded
     gate|up rows are then wqkv's k_pad)."""
     return (config.layer_ffn()
-            and all(layer[n].kind == "q4_0" for n in ("wqkv", "w_gate_up", "w_down"))
+            and all(isinstance(layer.get(n), PackedWeight) and layer[n].kind == "q4_0"
+                    for n in ("wqkv", "w_gate_up", "w_down"))
             and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, "q4_0", after_attn_block=True))
 
 
@@ -281,6 +286,17 @@ class LlamaModel(torch.nn.Module):
     @property
     def device(self) -> torch.device:
         return self.params["tok_embd"].device
+
+    def quantize(self, kind: str = "q8_0") -> "LlamaModel":
+        """Post-hoc weight quantization in place, as the JAX package's
+        (llama.py:558-571): every dense matmul weight becomes a PackedWeight
+        of `kind` on the model's device (io/llama_loader.quantize_llama_params);
+        norms and embeddings stay f32. The port derives no weight view at
+        load (the megacall views only on request), so there is none to
+        re-derive. Returns self."""
+        from zgml_tpu_torch.io.llama_loader import quantize_llama_params
+        self.params = quantize_llama_params(self.params, kind)
+        return self
 
     def enable_stacked_decode(self) -> bool:
         """Attach the K14 view (ops/stackkernel.py StackedLayers, a pointer
@@ -393,7 +409,7 @@ class LlamaModel(torch.nn.Module):
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
             return run(x, view, ck, cv, pos_t, cos, sin)[0]
         k7 = decode and config.attn_block() and config.kernel_on("attn_block")
-        fused = [k7 and all(isinstance(ly[n], PackedWeight) for n in ("wqkv", "wo"))
+        fused = [k7 and all(isinstance(ly.get(n), PackedWeight) for n in ("wqkv", "wo"))
                  and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
                  for ly in layers]
         if not kv8 and not all(fused):

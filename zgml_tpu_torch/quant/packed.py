@@ -169,6 +169,39 @@ def from_planar_q8_0(qvals: np.ndarray, scales: np.ndarray, n: int, k: int,
     return from_int8(np.ascontiguousarray(q.T), np.ascontiguousarray(s.T), device)
 
 
+def quantize(w: torch.Tensor, kind: str) -> PackedWeight:
+    """An f32 [n, k] weight -> PackedWeight of `kind` on w's device, computed
+    there. Its planes are those of the GGUF blocks quant/blocks.py's numpy
+    codecs write for the same values, bit for bit: the same f32 operations in
+    the same order, each division tensor by tensor (torch on CUDA divides by
+    a Python scalar as a multiply by its reciprocal), rounding half to even,
+    the first index of a tied absmax."""
+    if kind not in KINDS:
+        raise ValueError(f"quantize: kind {kind!r} not in {KINDS}")
+    n, k = w.shape
+    if k % QK:
+        raise ValueError(f"K={k} not divisible by {QK}")
+    b = w.to(torch.float32).contiguous().reshape(n, k // QK, QK)
+    one = torch.ones((), dtype=torch.float32, device=w.device)
+    if kind == "q8_0":
+        amax = b.abs().amax(dim=-1)
+        d = (amax / (127 * one)).to(torch.float16)
+        df = d.to(torch.float32)
+        live = df > 0
+        inv = torch.where(live, one / torch.where(live, df, one), 0.0)
+        q = torch.round(b * inv[..., None]).clamp(-128, 127).to(torch.int8)
+        return PackedWeight(n, k, q.reshape(n, k).contiguous(), d.contiguous(), "q8_0")
+    idx = b.abs().argmax(dim=-1, keepdim=True)
+    maxv = b.gather(-1, idx)[..., 0]
+    d = (maxv / (-8 * one)).to(torch.float16)
+    df = d.to(torch.float32)
+    live = df != 0
+    inv = torch.where(live, one / torch.where(live, df, one), 0.0)
+    q = (b * inv[..., None] + 8.5).to(torch.int32).clamp(0, 15).to(torch.uint8)
+    qs = q[..., :16] | (q[..., 16:] << 4)
+    return PackedWeight(n, k, qs.reshape(n, k // 2).contiguous(), d.contiguous())
+
+
 def concat(parts: list[PackedWeight]) -> PackedWeight:
     """Fuse same-kind, same-K weights along the out-feature axis (one launch
     for Q/K/V or gate/up); outputs keep the order of `parts`."""

@@ -5,7 +5,9 @@ Nothing is downloaded: weights are random, from a numpy seed. Q4_0 and Q8_0
 matmul weights are written as random valid blocks directly (levels uniform
 on -7..7 or -127..127, per-block fp16 scales matched to the std), which
 writes the TinyLlama-1.1B shape in seconds where quantizing f32 draws would
-take minutes; other types are quantized from f32 normal draws.
+take minutes; other types are quantized from f32 normal draws. A map from
+tensor name to type writes a file that mixes kinds, as real GGUFs do (e.g.
+attn_v at Q8_0 inside a Q4_0 model), and a tokenizer can be embedded.
 """
 from __future__ import annotations
 
@@ -63,11 +65,36 @@ def random_q8_0_blocks(rng: np.random.Generator, n: int, k: int, std: float) -> 
 _RANDOM_BLOCKS = {GGMLType.Q4_0: random_q4_0_blocks, GGMLType.Q8_0: random_q8_0_blocks}
 
 
+def tokenizer_metadata(tokenizer, vocab_size: int) -> dict:
+    """The tokenizer.ggml.* keys of a BPETokenizer (io/tokenizer.py) in a
+    model of `vocab_size` rows. config_from_gguf reads the vocabulary size
+    from the token list, so the list is padded to vocab_size with unique
+    placeholders that no merge produces (their first character is outside
+    the byte-level alphabet); the first two placeholders are BOS and EOS."""
+    tokens = [None] * len(tokenizer.vocab)
+    for tok, i in tokenizer.vocab.items():
+        tokens[i] = tok
+    if None in tokens or vocab_size < len(tokens) + 2:
+        raise ValueError(f"a tokenizer of {len(tokens)} dense ids needs at least two ids of "
+                         f"room in a vocabulary of {vocab_size}")
+    bos = len(tokens)
+    tokens += [f"\ue000{i}" for i in range(len(tokens), vocab_size)]
+    return {"tokenizer.ggml.tokens": tokens,
+            "tokenizer.ggml.merges": tokenizer.merges(),
+            "tokenizer.ggml.bos_token_id": bos, "tokenizer.ggml.eos_token_id": bos + 1}
+
+
 def write_synthetic_llama_gguf(path: str, cfg: LlamaConfig,
                                quant: int = GGMLType.Q4_0, seed: int = 0,
-                               scale: float = 0.05):
+                               scale: float = 0.05, kinds: dict[str, int] | None = None,
+                               tokenizer=None):
     """Write a random llama GGUF with llama.cpp tensor names and metadata.
-    The file appears at `path` only once complete."""
+    `kinds` maps a matmul tensor's name (e.g. "blk.0.attn_v.weight",
+    "output.weight") to the type it is written in instead of `quant`;
+    `tokenizer` (a BPETokenizer) embeds its vocabulary (tokenizer_metadata).
+    Without either the bytes are those of earlier versions. The file appears
+    at `path` only once complete."""
+    kinds = kinds or {}
     rng = np.random.default_rng(seed)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -83,6 +110,9 @@ def write_synthetic_llama_gguf(path: str, cfg: LlamaConfig,
     w.add_metadata("llama.context_length", cfg.max_seq_len)
     w.add_metadata("llama.rope.freq_base", cfg.rope_base)
     w.add_metadata("llama.attention.layer_norm_rms_epsilon", cfg.rms_norm_eps)
+    if tokenizer is not None:
+        for key, value in tokenizer_metadata(tokenizer, cfg.vocab_size).items():
+            w.add_metadata(key, value)
 
     def rand(*shape):
         out = rng.standard_normal(shape, dtype=np.float32)
@@ -90,10 +120,11 @@ def write_synthetic_llama_gguf(path: str, cfg: LlamaConfig,
         return out
 
     def matmul(name, n, k):
-        if quant in _RANDOM_BLOCKS:
-            w.add_raw_tensor(name, (n, k), quant, _RANDOM_BLOCKS[quant](rng, n, k, scale))
+        t = kinds.get(name, quant)
+        if t in _RANDOM_BLOCKS:
+            w.add_raw_tensor(name, (n, k), t, _RANDOM_BLOCKS[t](rng, n, k, scale))
         else:
-            w.add_tensor(name, rand(n, k), quant)
+            w.add_tensor(name, rand(n, k), t)
 
     w.add_tensor("token_embd.weight", rand(cfg.vocab_size, d), GGMLType.F32)
     w.add_tensor("output_norm.weight", np.ones(d, np.float32), GGMLType.F32)
