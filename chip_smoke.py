@@ -56,7 +56,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      at most 2x the plain version's) and, where one PyTorch call
      computes the same function, that call's device time (library_ms, timed
      here and used nowhere in the port; for K8 / K9
-     scaled_dot_product_attention after an untimed dequant). K12 (rmsnorm)
+     scaled_dot_product_attention after an untimed dequant). At GPT-2 XL's
+     heads (Hq = Hkv = 25 of 64, a cache of 1024): K3's bf16 form at
+     q_offset 0 / 128 and K4 at kv_len 1, 200, 1023; K4's f32 form
+     (decode_attention_f32, f32 K / V) at Whisper large-v3's decoder (20
+     heads of 64: the self cache of 448 at kv_len 1, 200, 448, the cross K / V
+     of 1500 keys) and at head_dim 128 (library: scaled_dot_product_attention
+     f32). K12 (rmsnorm)
      at d 2048 for M = 1, 128, 2048 and at d 4096 for M = 1, 128, within
      1e-6 * max|out|, on its 16-byte vector path, bit-equal over two
      launches (library: torch.nn.functional.rms_norm); K13 (the fused
@@ -267,7 +273,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                    (timed; packed.quantize equal to the numpy codec on one
                    weight each), dppl against the dense model on eval_tiny's
                    windows, and a greedy request on each quantized model
-                   against force_ref() (K7, K6a / K6d, K5q8 / K5q4);
+                   against force_ref() (K7, K6a / K6d, K5q8 / K5q4).
+     Then the other models (ROADMAP A.6), each from an F16 HF-named
+     checkpoint drawn on the card from SEED and written once to
+     .bench_cache/, at the published widths of its config.json:
+       gpt2_xl     GPT-2 XL at full width and depth (GPT2_XL) through
+                   load_gpt2_hf and LlamaEngine: a 128-token prompt and 32
+                   greedy tokens (K3's bf16 form, K4 in every layer; no plain
+                   version), against force_ref() as the inference paths'
+                   first request; pp128, tg32 and a profile;
+       whisper_large_v3  Whisper large-v3's shapes (WHISPER_V3, heads from
+                   its config.json) through load_whisper_hf: 30 s of tones and
+                   noise through log_mel_spectrogram and pad_or_trim(3000),
+                   transcribe_greedy (K4's f32 form twice a decoder layer a
+                   step, counted exactly); the encoder states and each
+                   step's logits within max(1e-5 * max, 2 x the plain path's
+                   move under 1e-7 perturbations) of force_ref()'s, the
+                   tokens against force_ref()'s and the uncached decoder's;
+                   encode ms, decode tok/s, device busy;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with the
      1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b,
@@ -635,6 +658,40 @@ EVAL_KERNELS = ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16",
                 "flash_attention_q8_bf16")
 HF_KERNELS = ("q4_matmul_bf16", "q8_matmul_bf16", "flash_attention_bf16", "attn_block",
               "attn_block_q8", "fused_ffn_norm", "fused_ffn_norm_q8", "q4_greedy", "q8_greedy")
+# GPT-2 XL and Whisper large-v3 (phase 2's shapes and phase 3's gpt2_xl /
+# whisper_large_v3 paths): the widths and depths of the published config.json
+# of openai-community/gpt2-xl (n_embd 1600, n_head 25, n_layer 48, n_ctx 1024,
+# vocab 50257) and openai/whisper-large-v3 (num_mel_bins 128,
+# max_source_positions 1500, d_model 1280, 20 heads, 32 + 32 layers, vocab
+# 51866, max_target_positions 448); random weights at WEIGHT_STD from SEED in
+# HF-named F16 safetensors written on the card (not downloaded)
+GPT2_XL = dict(vocab_size=50257, d_model=1600, n_heads=25, n_layers=48, max_seq_len=1024)
+WHISPER_V3 = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_heads=20,
+                  n_audio_layers=32, vocab_size=51866, n_text_ctx=448, n_text_state=1280,
+                  n_text_heads=20, n_text_layers=32)
+GPT_PROMPT, GPT_NEW = 128, 32          # gpt2_xl: one 128-token chunk, 32 greedy tokens
+GPT_KERNELS = ("flash_attention_bf16", "decode_attention")
+# phase 2 at GPT-2 XL's heads (Hq = Hkv = 25 of 64, a cache of n_ctx 1024):
+# K4 at these kv_len, K3's bf16 form on a 128-row chunk at (q_offset, kv_len)
+GPT_DECODE_LENS = [1, 200, 1023]
+GPT_FLASH_CASES = [(0, 128), (128, 256)]
+# K4's f32 form (phase 2): (label, Hq, Hkv, hd, S, kv_len) at Whisper
+# large-v3's decoder (its self cache of n_text_ctx positions, its cross K / V
+# over n_audio_ctx keys: not a multiple of the 32-key group) and at head_dim 128
+F32_DECODE_CASES = [("self", 20, 20, 64, 448, 1), ("self", 20, 20, 64, 448, 200),
+                    ("self", 20, 20, 64, 448, 448), ("cross", 20, 20, 64, 1500, 1500),
+                    ("hd=128 n_rep=4", 32, 8, 128, 1500, 1500)]
+# whisper_large_v3: 30 s of tones plus noise from SEED through the log-mel
+# frontend and pad_or_trim(WHISPER_FRAMES), transcribe_greedy from the
+# multilingual model's <|startoftranscript|> to <|endoftext|> or
+# WHISPER_TOKENS tokens; the encoder states and each step's logits against
+# force_ref() within max(WHISPER_RTOL * max, SENS_MARGIN x the plain path's
+# own move under SENS_EPS perturbations of its input, WHISPER_SENS_DRAWS draws)
+WHISPER_SECONDS, WHISPER_FRAMES = 30, 3000
+WHISPER_BOS, WHISPER_EOS, WHISPER_TOKENS = 50258, 50257, 32
+WHISPER_TONES = (220.0, 440.0, 1250.0, 3100.0)
+WHISPER_RTOL = 1e-5
+WHISPER_SENS_DRAWS = 2
 _CSRC = "zgml_tpu_torch/csrc/"
 # kernel -> (placement counter of ops/dispatch.py, source, TPU kernel it replaces)
 KERNELS = {
@@ -707,6 +764,8 @@ KERNELS = {
                          "zgml_tpu/ops/elementwise.py:104"),
     "fused_chain_f16": ("fused_chain_f16", _CSRC + "elementwise.cu",
                         "zgml_tpu/ops/elementwise.py:104"),
+    "decode_attention_f32": ("decode_attention_f32", _CSRC + "decode_attn.cu",
+                             "zgml_tpu/ops/attention.py:375"),
 }
 # the form of each kernel with two (ZGML_TPU_PREFILL_BF16; K8's
 # ZGML_TPU_ATTN_I8PV): its mode in the JSON line, beside the counter that
@@ -720,7 +779,7 @@ MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "fla
         **{k: "phase_e" for k in ("attn_block_ffn", "attn_block_kv8_ffn", "attn_block_i8_ffn",
                                   "attn_block_i8_kv8_ffn")},
         "fused_ffn_q8": "no_norm", "fused_chain": "f32", "fused_chain_bf16": "bf16",
-        "fused_chain_f16": "f16"}
+        "fused_chain_f16": "f16", "decode_attention_f32": "f32"}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -1484,6 +1543,19 @@ def check_kernels(torch, dev, ptxas_q8):
         for kv8 in (False, True):
             check_attention_bf16(torch, dev, g, record, shape, model, kv8)
     check_training_attention_bf16(torch, dev, g, record)
+    log("  -- GPT-2 XL (25 heads of 64, n_rep 1, n_ctx 1024): K3's bf16 form and K4; Whisper "
+        "large-v3's decoder: K4's f32 form")
+    hd_gpt = GPT2_XL["d_model"] // GPT2_XL["n_heads"]
+    check_attention_bf16(torch, dev, g, record, (2, GPT2_XL["n_heads"], GPT2_XL["n_heads"], hd_gpt),
+                         "GPT-2 XL ", False, GPT2_XL["max_seq_len"], GPT_FLASH_CASES)
+    for kv_len in GPT_DECODE_LENS:
+        check_decode_case(torch, dev, g, record, "decode_attention", GPT2_XL["n_heads"],
+                          GPT2_XL["n_heads"], hd_gpt, GPT2_XL["max_seq_len"], kv_len, "GPT-2 XL ",
+                          torch.bfloat16)
+    for label, hq, hkv, hd, s_, kv_len in F32_DECODE_CASES:
+        check_decode_case(torch, dev, g, record, "decode_attention_f32", hq, hkv, hd, s_, kv_len,
+                          f"Whisper large-v3 {label} " if hd == 64 else f"{label} ",
+                          torch.float32)
     log("  -- Llama-2-7B shapes")
     for name, n, k in GEMM_SHAPES_7B:
         check_projection("q4_0", name, n, k, "7B ")
@@ -1661,6 +1733,43 @@ def check_decode_batch(torch, dev, g, record, decode_attention_cuda, decode_atte
            f"scaled_dot_product_attention(enable_gqa=True), one call per live row (kv_len "
            f"differs by row), f32 (max abs err {lib_err:.2g})",
            n_split=decode_splits(b, hkv, S, hd, sms))
+
+
+def check_decode_case(torch, dev, g, record, kname, hq, hkv, hd, s, kv_len, label, dtype):
+    """K4 (`dtype` bf16) or its f32 form (float32) at one batch-1 case over a
+    random cache of 3 rows of `s` positions (row 1 read through kv_row):
+    within 1e-5 of the plain version, two launches bit-equal; the bound
+    counts the live K / V rows at the cache's element size; library:
+    scaled_dot_product_attention(enable_gqa=True) in f32 over the same rows."""
+    from zgml_tpu_torch.ops.attention import (decode_attention_cuda, decode_attention_ref,
+                                              decode_per_sm)
+    from zgml_tpu_torch.ops.decode_plan import decode_splits, sm_count
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kc = torch.randn((3, hkv, s, hd), device=dev, generator=g).to(dtype)
+    vc = torch.randn((3, hkv, s, hd), device=dev, generator=g).to(dtype)
+    q = torch.randn((1, hq, 1, hd), device=dev, generator=g)
+    lens = torch.full((1,), kv_len, dtype=torch.int32, device=dev)
+
+    def launch():
+        return decode_attention_cuda(q, kc, vc, lens, 1)
+    got, again = launch(), launch()
+    want = decode_attention_ref(q, kc, vc, lens, 1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    case = f"{label}Hq={hq} Hkv={hkv} hd={hd} S={s} kv_len={kv_len}"
+    require(bool(torch.isfinite(got).all()) and err <= 1e-5 and bool(torch.equal(got, again)),
+            f"{kname} {case}: max_abs_err {err:.3g}, or two launches differ")
+    t = time_ms(torch, [launch], 100)
+    tp = time_ms(torch, [lambda: decode_attention_ref(q, kc, vc, lens, 1)], 20)
+    kf, vf = (c[1:2, :, :kv_len].float() for c in (kc, vc))
+    lib_err = float((sdpa(q, kf, vf, enable_gqa=True) - want).abs().max())
+    lib = time_ms(torch, [lambda: sdpa(q, kf, vf, enable_gqa=True)], 100)
+    n_split = decode_splits(1, hkv, s, hd, sm_count(dev.index or 0),
+                            per_sm=decode_per_sm(hd, dtype == torch.float32))
+    record(kname, case, err, 1e-5, t, tp,
+           2 * q.numel() * 4 + 2 * kv_len * hkv * hd * kc.element_size(), 4 * hq * kv_len * hd,
+           lib, f"scaled_dot_product_attention(enable_gqa=True), one query, f32 (max abs err "
+           f"{lib_err:.2g})", n_split=n_split)
 
 
 def k8_smem_bytes(hd: int, n_rep: int) -> int:
@@ -2062,7 +2171,8 @@ def flip_moves(torch, plain, d):
             max(float(m.double().square().mean().sqrt()) for m in moves))
 
 
-def check_attention_bf16(torch, dev, g, record, shape, model, kv8):
+def check_attention_bf16(torch, dev, g, record, shape, model, kv8, s=S,
+                         cases=BF16_FLASH_CASES):
     """K3's bf16 form (K9's where kv8) on a 128-row chunk at BF16_FLASH_CASES
     over a random stacked cache, against the plain version of the same
     launch plan (attention.flash_partials_ref(bf16=True) and the combine:
@@ -2072,7 +2182,8 @@ def check_attention_bf16(torch, dev, g, record, shape, model, kv8):
     against a float64 evaluation of the same roundings (q and p to bf16) at
     most BF16_RMS_RATIO x max(the plain version's, the flips' rms move). The
     distance from the unsplit function (JAX's running max from key 0) is
-    recorded. Bound: one bf16 product per dot. Library: bf16
+    recorded. A cache of `s` positions, the chunks at `cases`. Bound: one
+    bf16 product per dot. Library: bf16
     scaled_dot_product_attention(enable_gqa=True) with a boolean causal
     mask (K9: on the cache rows dequantized to bf16 outside the timed
     window)."""
@@ -2081,19 +2192,19 @@ def check_attention_bf16(torch, dev, g, record, shape, model, kv8):
     n_layers, hq, hkv, hd = shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if kv8:
-        kc = torch.randint(-127, 128, (n_layers, hkv, S, hd), dtype=torch.int8, device=dev,
+        kc = torch.randint(-127, 128, (n_layers, hkv, s, hd), dtype=torch.int8, device=dev,
                            generator=g)
-        vc = torch.randint(-127, 128, (n_layers, hkv, S, hd), dtype=torch.int8, device=dev,
+        vc = torch.randint(-127, 128, (n_layers, hkv, s, hd), dtype=torch.int8, device=dev,
                            generator=g)
-        ks = torch.rand((n_layers, hkv, S), device=dev, generator=g) * 0.01 + 0.01
-        vs = torch.rand((n_layers, hkv, S), device=dev, generator=g) * 0.01 + 0.01
+        ks = torch.rand((n_layers, hkv, s), device=dev, generator=g) * 0.01 + 0.01
+        vs = torch.rand((n_layers, hkv, s), device=dev, generator=g) * 0.01 + 0.01
         scales, kname = dict(ks=ks, vs=vs), "flash_attention_q8_bf16"
     else:
-        kc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
-        vc = torch.randn((n_layers, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
+        kc = torch.randn((n_layers, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
+        vc = torch.randn((n_layers, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
         scales, kname = {}, "flash_attention_bf16"
-    group = A.flash_group(S, kv8)
-    for q_off, kv_len in BF16_FLASH_CASES:
+    group = A.flash_group(s, kv8)
+    for q_off, kv_len in cases:
         q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
         row = (q_off // 128) % n_layers
         if kv8:
@@ -3167,7 +3278,8 @@ def against_plain(torch, eng, prompt, out, name, label):
     perturbations (PERF.md)."""
     from zgml_tpu_torch import config
     from zgml_tpu_torch.ops.dispatch import force_ref
-    embd = eng.model.params["tok_embd"]
+    params = eng.model.params
+    embd = params["tok_embd"] if "tok_embd" in params else params["wte"]    # llama, GPT-2
     b, vocab = eng.batch, eng.model.cfg.vocab_size
     rows_out = out if b > 1 else [out]
 
@@ -4347,43 +4459,55 @@ def eval_path(torch, dev, models, summary):
     return launches
 
 
-def hf_model_path(torch, dev, cfg) -> pathlib.Path:
-    """A TinyLlama-1.1B-shaped HF llama checkpoint in F16 (HF names, [out,
-    in] weights, norms 1), drawn at WEIGHT_STD on the card from SEED (torch's
-    generator there: numpy's draws of 1.1B values took ~25 s of a 32 s
-    write), written once."""
+def write_f16_checkpoint(torch, dev, path: pathlib.Path, spec: dict, config=None):
+    """Write `spec` {HF name: a shape, drawn at WEIGHT_STD on the card from
+    SEED, or a numpy array, written as it is} to `path` as F16 safetensors
+    (with `config` as config.json beside it), once."""
     from zgml_tpu_torch.io.safetensors import save_safetensors
-    path = ROOT / ".bench_cache" / f"tinyllama-1.1b-hf-f16-seed{SEED}-std{WEIGHT_STD}.safetensors"
     if path.exists():
-        log(f"  reusing {path.name}")
-        return path
+        log(f"  reusing {path}")
+        return
     path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED)
-    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-
-    def rand(*shape):
-        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32) * WEIGHT_STD
-        return w.to(torch.float16).cpu().numpy()
-    ones = np.ones(d, np.float16)
-    tensors = {"model.embed_tokens.weight": rand(cfg.vocab_size, d), "model.norm.weight": ones}
-    for i in range(cfg.n_layers):
-        p = f"model.layers.{i}."
-        tensors.update({p + "input_layernorm.weight": ones,
-                        p + "post_attention_layernorm.weight": ones,
-                        p + "self_attn.q_proj.weight": rand(cfg.n_heads * hd, d),
-                        p + "self_attn.k_proj.weight": rand(cfg.n_kv_heads * hd, d),
-                        p + "self_attn.v_proj.weight": rand(cfg.n_kv_heads * hd, d),
-                        p + "self_attn.o_proj.weight": rand(d, cfg.n_heads * hd),
-                        p + "mlp.gate_proj.weight": rand(f, d),
-                        p + "mlp.up_proj.weight": rand(f, d),
-                        p + "mlp.down_proj.weight": rand(d, f)})
-    tensors["lm_head.weight"] = rand(cfg.vocab_size, d)
+    tensors = {}
+    for name, v in spec.items():
+        if isinstance(v, np.ndarray):
+            tensors[name] = v.astype(np.float16)
+        else:
+            w = torch.randn(v, generator=g, device=dev, dtype=torch.float32) * WEIGHT_STD
+            tensors[name] = w.to(torch.float16).cpu().numpy()
+    if config is not None:
+        (path.parent / "config.json").write_text(json.dumps(config))
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     save_safetensors(tmp, tensors)
     os.replace(tmp, path)
     log(f"  wrote {path.name} ({path.stat().st_size / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+def hf_model_path(torch, dev, cfg) -> pathlib.Path:
+    """A TinyLlama-1.1B-shaped HF llama checkpoint in F16 (HF names, [out,
+    in] weights, norms 1), drawn at WEIGHT_STD on the card from SEED (torch's
+    generator there: numpy's draws of 1.1B values took ~25 s of a 32 s
+    write), written once (write_f16_checkpoint)."""
+    path = ROOT / ".bench_cache" / f"tinyllama-1.1b-hf-f16-seed{SEED}-std{WEIGHT_STD}.safetensors"
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    ones = np.ones(d, np.float32)
+    spec = {"model.embed_tokens.weight": (cfg.vocab_size, d), "model.norm.weight": ones}
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        spec.update({p + "input_layernorm.weight": ones,
+                     p + "post_attention_layernorm.weight": ones,
+                     p + "self_attn.q_proj.weight": (cfg.n_heads * hd, d),
+                     p + "self_attn.k_proj.weight": (cfg.n_kv_heads * hd, d),
+                     p + "self_attn.v_proj.weight": (cfg.n_kv_heads * hd, d),
+                     p + "self_attn.o_proj.weight": (d, cfg.n_heads * hd),
+                     p + "mlp.gate_proj.weight": (f, d),
+                     p + "mlp.up_proj.weight": (f, d),
+                     p + "mlp.down_proj.weight": (d, f)})
+    spec["lm_head.weight"] = (cfg.vocab_size, d)
+    write_f16_checkpoint(torch, dev, path, spec)
     return path
 
 
@@ -4476,6 +4600,332 @@ def weight_form_paths(torch, dev, models, prompt, summary):
     return out
 
 
+def gpt2_spec(cfg) -> dict:
+    """GPT-2's HF tensors (wte, wpe, h.{i}.ln_1 / attn.c_attn / attn.c_proj /
+    ln_2 / mlp.c_fc / mlp.c_proj, ln_f; Conv1D weights [in, out]): LayerNorm
+    gains 1 and biases 0, every other tensor drawn."""
+    d, f = cfg.d_model, cfg.ff
+    ones, zeros = np.ones(d, np.float32), np.zeros(d, np.float32)
+    spec = {"wte.weight": (cfg.vocab_size, d), "wpe.weight": (cfg.max_seq_len, d),
+            "ln_f.weight": ones, "ln_f.bias": zeros}
+    for i in range(cfg.n_layers):
+        p = f"h.{i}."
+        spec.update({p + "ln_1.weight": ones, p + "ln_1.bias": zeros,
+                     p + "attn.c_attn.weight": (d, 3 * d), p + "attn.c_attn.bias": (3 * d,),
+                     p + "attn.c_proj.weight": (d, d), p + "attn.c_proj.bias": (d,),
+                     p + "ln_2.weight": ones, p + "ln_2.bias": zeros,
+                     p + "mlp.c_fc.weight": (d, f), p + "mlp.c_fc.bias": (f,),
+                     p + "mlp.c_proj.weight": (f, d), p + "mlp.c_proj.bias": (d,)})
+    return spec
+
+
+def whisper_spec(cfg) -> dict:
+    """Whisper's HF tensors (model.encoder.conv1 / conv2 [out, in, 3],
+    embed_positions, layers.{i}.self_attn.{q,k,v,out}_proj (k without a
+    bias), fc1, fc2 and their norms, layer_norm; the decoder's embed_tokens,
+    embed_positions, layers with encoder_attn, layer_norm): LayerNorm gains 1
+    and biases 0, the encoder positions the sinusoidal table (as HF's
+    checkpoints hold it), every other tensor drawn."""
+    from zgml_tpu_torch.models.gpt import sinusoidal_positions
+    d = cfg.n_audio_state
+    ones, zeros = np.ones(d, np.float32), np.zeros(d, np.float32)
+
+    def norm(name):
+        return {name + ".weight": ones, name + ".bias": zeros}
+
+    def attn(name):
+        return {name + ".q_proj.weight": (d, d), name + ".q_proj.bias": (d,),
+                name + ".k_proj.weight": (d, d), name + ".v_proj.weight": (d, d),
+                name + ".v_proj.bias": (d,), name + ".out_proj.weight": (d, d),
+                name + ".out_proj.bias": (d,)}
+
+    def block(name, cross):
+        out = {**attn(name + ".self_attn"), **norm(name + ".self_attn_layer_norm"),
+               name + ".fc1.weight": (4 * d, d), name + ".fc1.bias": (4 * d,),
+               name + ".fc2.weight": (d, 4 * d), name + ".fc2.bias": (d,),
+               **norm(name + ".final_layer_norm")}
+        if cross:
+            out.update({**attn(name + ".encoder_attn"), **norm(name + ".encoder_attn_layer_norm")})
+        return out
+    e, dec = "model.encoder.", "model.decoder."
+    spec = {e + "conv1.weight": (d, cfg.n_mels, 3), e + "conv1.bias": (d,),
+            e + "conv2.weight": (d, d, 3), e + "conv2.bias": (d,),
+            e + "embed_positions.weight": sinusoidal_positions(cfg.n_audio_ctx, d),
+            **norm(e + "layer_norm"),
+            dec + "embed_tokens.weight": (cfg.vocab_size, d),
+            dec + "embed_positions.weight": (cfg.n_text_ctx, d), **norm(dec + "layer_norm")}
+    for i in range(cfg.n_audio_layers):
+        spec.update(block(f"{e}layers.{i}", False))
+    for i in range(cfg.n_text_layers):
+        spec.update(block(f"{dec}layers.{i}", True))
+    return spec
+
+
+def device_busy(torch, run) -> tuple[float, float | str]:
+    """(host wall us, device busy us) of one call of `run` under
+    torch.profiler (the kernels' records, a floor: records get lost), or
+    "not measured" where PROFILE_TRIES windows saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(_self_device_us(ev) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA)
+        if busy:
+            return wall * 1e6, busy
+    return wall * 1e6, "not measured"
+
+
+def busy_text(wall_us, busy_us) -> str:
+    if isinstance(busy_us, str):
+        return f"host wall {wall_us / 1e3:.2f} ms, device busy {busy_us}"
+    return (f"host wall {wall_us / 1e3:.2f} ms, device busy {busy_us / 1e3:.2f} ms "
+            f"({100 * busy_us / wall_us:.1f}%)")
+
+
+def gpt2_path(torch, dev, card, summary):
+    """gpt2_xl: GPT-2 XL at full width and depth from an F16 HF checkpoint
+    (gpt2_spec, written once to .bench_cache/) through load_gpt2_hf, served by
+    LlamaEngine: a GPT_PROMPT-token prompt (one chunk: K3's bf16 form in every
+    layer) and GPT_NEW greedy tokens (K4 in every layer a decode token); the
+    placement counts (no plain version, K4 exactly n_layers a decode token),
+    the request against force_ref() (against_plain), pp128 and tg32 (host
+    clock, RATE_ROUNDS runs, median) and the device-busy share of a chunk and
+    8 decode steps (profile). Returns the launches."""
+    from zgml_tpu_torch.io.hf_loaders import load_gpt2_hf
+    from zgml_tpu_torch.models.gpt import GPTConfig
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    set_path("default")
+    cfg = GPTConfig(**GPT2_XL)
+    path = ROOT / ".bench_cache" / f"gpt2-xl-hf-f16-seed{SEED}-std{WEIGHT_STD}.safetensors"
+    write_f16_checkpoint(torch, dev, path, gpt2_spec(cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load_gpt2_hf(str(path), cfg, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    def numel(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.numel()
+        return sum(numel(v) for v in (tree.values() if isinstance(tree, dict) else tree))
+    n_params = numel(model.params)
+    log(f"  [gpt2_xl] load_gpt2_hf {load_s:.2f} s: {n_params / 1e9:.3f} B f32 params on the card, "
+        f"{cfg}")
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, GPT_PROMPT)
+    eng = LlamaEngine(model, prefill_chunk=128)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    out = eng.generate(prompt, GPT_NEW)
+    torch.cuda.synchronize()
+    launches, tiers = path_launches("gpt2_xl", GPT_KERNELS, {"decode_attention": cfg.n_layers})
+    require(len(out) == GPT_NEW and all(0 <= t < cfg.vocab_size for t in out),
+            f"[gpt2_xl] greedy request gave {out}")
+    log(f"  [gpt2_xl] placement: {tiers}")
+    log(f"  [gpt2_xl] prompt {GPT_PROMPT} tokens, greedy -> {out}")
+    entry = dict(config=GPT2_XL, load_s=load_s, n_params=n_params, launches=launches,
+                 placement=tiers, outputs=out,
+                 **against_plain(torch, eng, prompt, out, "gpt2_xl", "request 1"))
+    pp, tg = [], []
+    for _ in range(RATE_ROUNDS):
+        eng.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = torch.argmax(eng.prefill(prompt), dim=-1)
+        torch.cuda.synchronize()
+        pp.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        eng.decode_n(tok, 32)
+        torch.cuda.synchronize()
+        tg.append(time.perf_counter() - t0)
+    entry["rates"] = dict(pp128_tok_s=GPT_PROMPT / statistics.median(pp),
+                          tg32_tok_s=32 / statistics.median(tg), pp128_runs_s=pp, tg32_runs_s=tg,
+                          card=card)
+    log(f"  [gpt2_xl] pp128: {entry['rates']['pp128_tok_s']:.1f} tok/s, tg32: "
+        f"{entry['rates']['tg32_tok_s']:.1f} tok/s (medians of {RATE_ROUNDS})  [{card}]")
+    profile(torch, eng, prompt, prompt, "gpt2_xl", summary)
+    summary["gpt2_xl"] = entry
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_wave() -> np.ndarray:
+    """WHISPER_SECONDS of audio at 16 kHz from SEED: WHISPER_TONES, each at a
+    random amplitude and phase, plus white noise."""
+    from zgml_tpu_torch.data.audio import SAMPLE_RATE
+    rng = np.random.default_rng(SEED)
+    t = np.arange(WHISPER_SECONDS * SAMPLE_RATE) / SAMPLE_RATE
+    wave = sum(rng.uniform(0.05, 0.3) * np.sin(2 * np.pi * f * t + rng.uniform(0, 2 * np.pi))
+               for f in WHISPER_TONES)
+    return (wave + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def whisper_path(torch, dev, card, summary):
+    """whisper_large_v3: Whisper large-v3's shapes from an F16 HF checkpoint
+    with its config.json (whisper_spec, written once) through load_whisper_hf;
+    whisper_wave through log_mel_spectrogram (128 mels) and
+    pad_or_trim(WHISPER_FRAMES), then transcribe_greedy (K4's f32 form twice
+    a decoder layer a step: over the f32 self cache and the cross K / V);
+    against force_ref(): the encoder states, each step's logits on the
+    card's tokens, and the tokens up to the first plain top-2 gap under the
+    step bound; the cached tokens against the uncached decoder's (the
+    oracle); encode ms, decode tok/s and the device-busy share of the
+    encoder and of 8 decode steps. Returns the launches."""
+    from zgml_tpu_torch.data.audio import log_mel_spectrogram, pad_or_trim
+    from zgml_tpu_torch.io.hf_loaders import load_whisper_hf
+    from zgml_tpu_torch.models.whisper import WhisperConfig
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.runtime.profile import global_profile
+    set_path("default")
+    cfg = WhisperConfig(**WHISPER_V3)
+    path = (ROOT / ".bench_cache" / f"whisper-large-v3-hf-f16-seed{SEED}-std{WEIGHT_STD}"
+            / "model.safetensors")
+    write_f16_checkpoint(torch, dev, path, whisper_spec(cfg),
+                         {"encoder_attention_heads": cfg.n_audio_heads,
+                          "decoder_attention_heads": cfg.n_text_heads})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load_whisper_hf(str(path), device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(model.cfg == cfg, f"[whisper_large_v3] load_whisper_hf inferred {model.cfg}")
+    log(f"  [whisper_large_v3] load_whisper_hf {load_s:.2f} s (heads from config.json): {cfg}")
+    t0 = time.perf_counter()
+    mel = pad_or_trim(log_mel_spectrogram(whisper_wave(), cfg.n_mels, device=dev),
+                      WHISPER_FRAMES)[None]
+    torch.cuda.synchronize()
+    mel_s = time.perf_counter() - t0
+    require(tuple(mel.shape) == (1, WHISPER_FRAMES, cfg.n_mels) and bool(torch.isfinite(mel).all()),
+            f"[whisper_large_v3] log-mel features {tuple(mel.shape)}")
+    torch.cuda.synchronize()
+    global_profile.reset()
+    toks = model.transcribe_greedy(mel, WHISPER_BOS, WHISPER_EOS, WHISPER_TOKENS)
+    torch.cuda.synchronize()
+    steps = len(toks) - 1
+    launches, tiers = path_launches("whisper_large_v3", ("decode_attention_f32",))
+    want = 2 * cfg.n_text_layers * steps
+    require(launches["decode_attention_f32"] == want,
+            f"[whisper_large_v3] decode_attention_f32 launched {launches['decode_attention_f32']} "
+            f"times, want {want} (2 x {cfg.n_text_layers} layers x {steps} steps)")
+    require(toks[0] == WHISPER_BOS and all(0 <= t < cfg.vocab_size for t in toks),
+            f"[whisper_large_v3] transcribe_greedy gave {toks}")
+    log(f"  [whisper_large_v3] placement: {tiers}")
+    log(f"  [whisper_large_v3] {WHISPER_SECONDS} s of audio ({mel_s * 1e3:.1f} ms of log-mel "
+        f"frontend) -> {toks}")
+
+    # against force_ref(): the encoder states (no kernel: the same torch ops)
+    enc = model.encode_features(mel)
+    embd = model.params["tok_embd"]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def nudged(x):
+        return x * (1 + SENS_EPS * torch.randn(x.shape, device=dev, generator=g))
+    with force_ref():
+        enc_r = model.encode_features(mel)
+        enc_moves = [float((model.encode_features(nudged(mel)) - enc_r).abs().max())
+                     for _ in range(WHISPER_SENS_DRAWS)]
+    enc_err = float((enc - enc_r).abs().max())
+    enc_bound = max(WHISPER_RTOL * float(enc_r.abs().max()), SENS_MARGIN * max(enc_moves))
+    require(enc_err <= enc_bound, f"[whisper_large_v3] encoder states max_abs_err {enc_err:.4g} "
+            f"> bound {enc_bound:.4g}")
+
+    def step_logits(feed):
+        """Each step's logits with the tokens `feed` fed in turn (the card's)."""
+        cross, cache, out = model.precompute_cross_kv(enc), model.init_cache(1), []
+        for i, t in enumerate(feed):
+            lg, cache = model.decode_step([[t]], cross, cache, i)
+            out.append(lg[0])
+        return torch.stack(out)
+    feed = toks[:-1]
+    got = step_logits(feed)
+    ids = sorted(set(feed))
+    rows = embd[ids].clone()
+    with force_ref():
+        want_l = step_logits(feed)
+        moves = []
+        for _ in range(WHISPER_SENS_DRAWS):
+            embd[ids] = nudged(rows)
+            moves.append((step_logits(feed) - want_l).abs().amax(dim=-1))
+        embd[ids] = rows
+        ref_toks = model.transcribe_greedy(mel, WHISPER_BOS, WHISPER_EOS, WHISPER_TOKENS)
+        ref_gaps = [top2_gap(lg) for lg in step_logits(ref_toks[:-1])]
+    move = torch.stack(moves).amax(dim=0)
+    scale = want_l.abs().amax(dim=-1)
+    errs = (got - want_l).abs().amax(dim=-1)
+    bounds = torch.maximum(WHISPER_RTOL * scale, SENS_MARGIN * move)
+    require(bool(torch.isfinite(got).all()) and bool((errs <= bounds).all()),
+            f"[whisper_large_v3] step logits: max_abs_err {errs.tolist()} > bounds "
+            f"{bounds.tolist()}")
+    gap_bound = float((bounds / scale).max()) * float(scale.max())
+    n_cmp = next((i for i, gap in enumerate(ref_gaps) if gap < gap_bound), len(ref_gaps))
+    require(toks[:n_cmp + 1] == ref_toks[:n_cmp + 1],
+            f"[whisper_large_v3] tokens differ from force_ref()'s before step {n_cmp}: {toks} vs "
+            f"{ref_toks}")
+    # the cached decode against the uncached decoder (whisper.py's oracle)
+    unc, unc_gaps = [WHISPER_BOS], []
+    for _ in range(steps):
+        lg = model.decode([unc], enc)[0, -1]
+        unc_gaps.append(top2_gap(lg))
+        unc.append(int(torch.argmax(lg)))
+    n_unc = next((i for i, gap in enumerate(unc_gaps) if gap < gap_bound), steps)
+    require(toks[:n_unc + 1] == unc[:n_unc + 1],
+            f"[whisper_large_v3] cached tokens {toks} differ from the uncached decoder's {unc} "
+            f"before step {n_unc}")
+    log(f"  [whisper_large_v3] vs force_ref(): encoder states max_abs_err {enc_err:.3g} (bound "
+        f"{enc_bound:.3g}); step logits max_abs_err {float((errs / scale).max()):.3g} of "
+        f"max|logit| (bound {float((bounds / scale).min()):.3g}-"
+        f"{float((bounds / scale).max()):.3g}; the plain path moves "
+        f"{float((move / scale).max()):.3g} under {SENS_EPS:g} perturbations); tokens equal over "
+        f"the first {n_cmp} of {steps} steps (all: {toks == ref_toks}); the uncached decoder's "
+        f"over {n_unc} (all: {toks == unc})")
+
+    # rates and device busy
+    enc_s, dec_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = model.encode_features(mel)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+        cross, cache = model.precompute_cross_kv(enc), model.init_cache(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = WHISPER_BOS
+        for i in range(WHISPER_TOKENS):
+            lg, cache = model.decode_step([[tok]], cross, cache, i)
+            tok = int(torch.argmax(lg[0]))
+        dec_s.append(time.perf_counter() - t0)
+    cross, cache = model.precompute_cross_kv(enc), model.init_cache(1)
+
+    def eight_steps():
+        for i in range(8):
+            model.decode_step([[WHISPER_BOS]], cross, cache, i)
+    busy = dict(encode=device_busy(torch, lambda: model.encode_features(mel)),
+                decode8=device_busy(torch, eight_steps))
+    rates = dict(encode_ms=1e3 * statistics.median(enc_s),
+                 decode_tok_s=WHISPER_TOKENS / statistics.median(dec_s), encode_runs_s=enc_s,
+                 decode_runs_s=dec_s, card=card)
+    log(f"  [whisper_large_v3] encode {rates['encode_ms']:.1f} ms ({WHISPER_FRAMES} frames), "
+        f"decode {rates['decode_tok_s']:.1f} tok/s ({WHISPER_TOKENS} steps with their argmax "
+        f"read back; medians of 3); encoder: {busy_text(*busy['encode'])}; 8 decode steps: "
+        f"{busy_text(*busy['decode8'])}  [{card}]")
+    summary["whisper_large_v3"] = dict(
+        config=WHISPER_V3, load_s=load_s, mel_s=mel_s, launches=launches, placement=tiers,
+        outputs=toks, ref_outputs=ref_toks, uncached_outputs=unc, encoder_err=enc_err,
+        encoder_bound=enc_bound, step_errs=errs.tolist(), step_bounds=bounds.tolist(),
+        tokens_checked=n_cmp, uncached_checked=n_unc, rates=rates,
+        busy={k: dict(wall_us=w, device_busy_us=b) for k, (w, b) in busy.items()})
+    del model, cross, cache, enc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4505,7 +4955,7 @@ def main() -> int:
                              ("ptxas_ffn", "ffn_norm_kernel"),
                              ("ptxas_stack", "stack_decode_kernel"),
                              ("ptxas_planar", "ffn_planar"),
-                             ("ptxas_decode", "decode_bf16_kernel"),
+                             ("ptxas_decode", "decode_kv_kernel"),
                              ("ptxas_decode_q8", "decode_q8_kernel"),
                              ("ptxas_i8", "qi8_kernel")):
             summary[key] = ptxas_report(path.parent / "build.log", pattern)
@@ -4604,6 +5054,13 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(weight_form_paths(torch, dev, models, prompts[0], summary))
     log(f"  phase 3 (weight forms, text and quality) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches["gpt2_xl"] = gpt2_path(torch, dev, card, summary)
+    t1 = time.perf_counter()
+    launches["whisper_large_v3"] = whisper_path(torch, dev, card, summary)
+    summary["model_paths_s"] = dict(gpt2_xl=t1 - t0, whisper_large_v3=time.perf_counter() - t1)
+    log(f"  phase 3 (GPT-2 XL, Whisper large-v3) took {time.perf_counter() - t0:.1f} s "
+        f"(gpt2_xl {t1 - t0:.1f} s, file writes included)")
 
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()

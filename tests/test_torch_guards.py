@@ -27,18 +27,22 @@ names = [m.name for m in pkgutil.walk_packages(zgml_tpu_torch.__path__, "zgml_tp
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "zgml_tpu.")) or m == "zgml_tpu")
-print(len(names), bad)
+print(len(names), bad, names)
 assert not bad, bad
 """
 
 
 def test_port_imports_no_jax():
+    """Every module of the port imports (the GPT-2 and Whisper modules and
+    their loaders among them) without jax or zgml_tpu."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                           text=True, timeout=300, env={"PYTHONPATH": str(REPO),
                                                        "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20
+    for name in ("models.gpt", "models.whisper", "data.audio", "io.hf_loaders"):
+        assert f"zgml_tpu_torch.{name}" in proc.stdout, name
 
 
 def _pw(device):
@@ -113,6 +117,26 @@ def test_decode_tier_wrappers_refuse_cpu_tensors():
         attn_block_cuda(x.reshape(1, 1, 32), torch.ones(32), _pw_n(96), _pw_n(32), cache,
                         cache, 0, torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
                         torch.zeros(1, 16), 1, 1, 1e-5)
+
+
+def test_decode_f32_form_takes_f32_and_refuses_cpu_tensors():
+    """K4's f32 form: check_qkv takes f32 K / V there (the launch then
+    refuses the CPU tensors: the device is checked after the dtypes),
+    refuses K and V of two dtypes, and the bf16 form refuses f32 K / V."""
+    from zgml_tpu_torch.ops.attention import check_qkv
+    q = torch.zeros(1, 4, 1, 64)
+    f32, bf = torch.zeros(1, 4, 64, 64), torch.zeros(1, 4, 64, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="decode_attention_f32: q on cpu.*one CUDA device"):
+        decode_attention_cuda(q, f32, f32, 8)
+    for k, v in ((f32, bf), (bf, f32)):
+        with pytest.raises(ValueError, match="k/v must be torch.float32"):
+            check_qkv("decode_attention_f32", q, k, v, 0, 1, kv_dtype=torch.float32)
+        with pytest.raises(ValueError, match="k/v must be torch.bfloat16"):
+            check_qkv("decode_attention", q, k, v, 0, 1)
+    with pytest.raises(ValueError, match="k/v must be torch.bfloat16"):
+        decode_attention_cuda(q, bf, f32, 8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        check_qkv("decode_attention_f32", q, f32, f32, 0, 1, kv_dtype=torch.float32)
 
 
 def test_int8_cache_wrappers_refuse_cpu_tensors():
@@ -352,3 +376,32 @@ def test_serving_imports_no_jax_and_runs_where_the_model_is(tmp_path):
         return
     with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
         load_llama(path)
+
+
+def test_gpt_whisper_and_audio_default_to_the_card(tmp_path):
+    """GPT-2's and Whisper's init_params and HF loaders, and the log-mel
+    frontend, run on the card unless asked for the CPU: without a card the
+    default-argument call raises naming the device."""
+    import numpy as np
+
+    from zgml_tpu_torch.data.audio import log_mel_spectrogram
+    from zgml_tpu_torch.io.hf_loaders import load_gpt2_hf, load_whisper_hf
+    from zgml_tpu_torch.io.llama_loader import gpt_params_from_jax, whisper_params_from_jax
+    from zgml_tpu_torch.models import gpt, whisper
+    from zgml_tpu_torch.quant import kv_cache
+    if torch.cuda.is_available():
+        pytest.skip("the default device is the card here")
+    gcfg = gpt.GPTConfig(vocab_size=16, d_model=32, n_heads=2, n_layers=1, max_seq_len=8)
+    wcfg = whisper.WhisperConfig(n_mels=8, n_audio_ctx=8, n_audio_state=32, n_audio_heads=2,
+                                 n_audio_layers=1, vocab_size=16, n_text_ctx=8,
+                                 n_text_state=32, n_text_heads=2, n_text_layers=1)
+    path = str(tmp_path / "none.safetensors")
+    calls = [lambda: gpt.init_params(gcfg), lambda: whisper.init_params(wcfg),
+             lambda: load_gpt2_hf(path, gcfg), lambda: load_whisper_hf(path),
+             lambda: log_mel_spectrogram(np.zeros(1600, np.float32)),
+             lambda: gpt_params_from_jax({"layers": [{}]}, gcfg),
+             lambda: whisper_params_from_jax({"enc_layers": [{}], "dec_layers": [{}]}, wcfg),
+             lambda: kv_cache.cache_from_jax({"k": [], "v": []})]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+            call()

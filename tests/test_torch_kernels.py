@@ -175,6 +175,50 @@ def test_decode_attention(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row):
             assert not got[i].any()
 
 
+@pytest.mark.parametrize("b,hq,hkv,rows,s,d,kv_len,kv_row", [
+    # Whisper large-v3's decoder (20 heads of 64): the self cache of 448
+    # positions, cross-attention over 1500 keys (not a multiple of the 32-key
+    # group: no read past S)
+    (1, 20, 20, 32, 448, 64, [1], 7),
+    (1, 20, 20, 32, 448, 64, [200], 0),
+    (1, 20, 20, 32, 448, 64, [448], 31),
+    (1, 20, 20, 1, 1500, 64, [1500], 0),
+    (2, 20, 20, 2, 1500, 64, [1500, 1500], 0),
+    # every head dim, GQA, a row with no key, kv_len past S
+    (4, 8, 2, 4, 448, 16, [0, 1, 200, 448], 0),
+    (4, 8, 2, 4, 1500, 32, [0, 1, 77, 1500], 0),
+    (4, 32, 8, 4, 1500, 128, [0, 1, 777, 1500], 0),
+    (1, 32, 32, 1, 2048, 128, [2047], 0),
+    (1, 20, 20, 1, 1500, 64, [5000], 0),
+])
+def test_decode_attention_f32(cuda, b, hq, hkv, rows, s, d, kv_len, kv_row):
+    """K4's f32 form over f32 K / V: counted as decode_attention_f32, within
+    1e-5 of the plain version, two launches bit-equal, a kv_len 0 row 0."""
+    q, k, v = _qkv(np.random.default_rng(sum(kv_len) + d + 1), b, hq, hkv, 1, rows, s, d, cuda)
+    k, v = k.float() + 1e-3 * torch.randn_like(k.float()), v.float()
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    global_profile.reset()
+    got = dispatch.decode_attention(q, k, v, lens, kv_row)
+    again = decode_attention_cuda(q, k, v, lens, kv_row)
+    want = decode_attention_ref(q, k, v, torch.clamp(lens, max=s), kv_row)
+    torch.cuda.synchronize()
+    assert global_profile.tier_summary() == {"decode_attention_f32": {"cuda": 2}}
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+    for i, n in enumerate(kv_len):
+        if n == 0:
+            assert not got[i].any()
+
+
+def test_decode_attention_f32_refuses_mixed_kv(cuda):
+    q = torch.zeros(1, 4, 1, 64, device=cuda)
+    kv = torch.zeros(1, 4, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        decode_attention_cuda(q, kv, kv.to(torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_attention_cuda(q, kv.to(torch.bfloat16), kv, 8)
+
+
 def test_dispatch_counts_kernel_launches(cuda, monkeypatch):
     monkeypatch.setenv("ZGML_TPU_I8DOT", "0")       # K2 at every M
     rng = np.random.default_rng(0)

@@ -120,7 +120,7 @@ def test_cache_from_jax_round_trip():
             q, sc = jkv.quantize_columns(jnp.asarray(x))
             jax_cache[name].append(jkv.write_columns(jc[f"{name}_q"][li], jc[f"{name}_s"][li],
                                                      q, sc, 3 + li))
-    port = kv_cache.cache_from_jax(jax_cache)
+    port = kv_cache.cache_from_jax(jax_cache, device="cpu")
     assert set(port) == {"k", "k_s", "v", "v_s"}
     assert port["k"].shape == (n_layers, b, hkv, s, hd) and port["k"].dtype == torch.int8
     assert port["k_s"].shape == (n_layers, b, hkv, s) and port["k_s"].dtype == torch.float32
@@ -402,7 +402,7 @@ def _slice_run(path, batch, chunk, cfg=KV8_CFG, prompt_len=PROMPT_LEN, flags=FLA
         tiers = global_profile.tier_summary()
         peng.reset()
         peng.prefill(prompt)
-        for k, v in kv_cache.cache_from_jax(jcache).items():
+        for k, v in kv_cache.cache_from_jax(jcache, device="cpu").items():
             peng.cache[k].copy_(v)
         carried = peng.step(torch.from_numpy(feed[0].astype(np.int64)))[1].numpy()
     return dict(jax=(jlogits, jstep), port=(plogits, pstep), carried=carried, tiers=tiers,

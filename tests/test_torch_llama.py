@@ -689,7 +689,7 @@ def _kv8_switch_run(tmp_path_factory, flags, batch=2):
         plogits = peng.prefill(prompt).numpy()
         pstep = []
         for t, cache in zip(feed, jcaches):
-            for k, v in kv_cache.cache_from_jax(cache).items():
+            for k, v in kv_cache.cache_from_jax(cache, device="cpu").items():
                 peng.cache[k].copy_(v)
             pstep.append(peng.step(torch.from_numpy(t.astype(np.int64)))[1].numpy())
         tiers = global_profile.tier_summary()

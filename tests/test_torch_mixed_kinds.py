@@ -156,7 +156,8 @@ def test_params_from_jax_carries_a_mixed_model(mixed_gguf, monkeypatch):
 def _port_cache(jcache, int8):
     if int8:
         return kv_cache.cache_from_jax({n: [tuple(np.asarray(a) for a in layer)
-                                            for layer in jcache[n]] for n in ("k", "v")})
+                                            for layer in jcache[n]] for n in ("k", "v")},
+                                           device="cpu")
     return {n: torch.from_numpy(np.array(jcache[n].astype(jnp.float32))).to(torch.bfloat16)
             for n in ("k", "v")}
 

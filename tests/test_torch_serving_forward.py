@@ -71,7 +71,7 @@ def _jax_cache(cache, int8):
     if int8:
         return {k: v.numpy() for k, v in kv_cache.cache_from_jax(
             {n: [tuple(np.asarray(a) for a in layer) for layer in cache[n]]
-             for n in ("k", "v")}).items()}
+             for n in ("k", "v")}, device="cpu").items()}
     return {n: np.stack([np.asarray(c.astype(jnp.float32)) for c in cache[n]])
             for n in ("k", "v")}
 

@@ -1,5 +1,6 @@
-// K4 decode_attention: one query token per row, GQA, over the bf16 KV cache;
-// and K8 decode_attention_q8 over the int8 cache, in its two modes.
+// K4 decode_attention: one query token per row, GQA, over the bf16 KV cache
+// or (its f32 form, decode_attention_f32) over f32 K / V; and K8
+// decode_attention_q8 over the int8 cache, in its two modes.
 //
 // Replaces: zgml_tpu/ops/attention.py `_decode_kernel` (line 282), reached
 // through `_decode` / `decode_attention_pallas` (K4), and `_decode_q8_kernel`
@@ -11,14 +12,18 @@
 //   q f32 [B, Hq, 1, D]; k, v bf16 [R, Hkv, S, D] read in place at batch rows
 //   kv_row + b; row b attends keys j < kv_len[b] (int32 on the device, so a
 //   decode step needs no host sync). Output f32 [B, Hq, 1, D]; a row with
-//   kv_len 0 gives 0.
+//   kv_len 0 gives 0. The f32 form takes k, v f32 (the JAX kernel widens
+//   whatever cache it is given, attention.py:306-307; Whisper's decoder reads
+//   an f32 self-attention cache and f32 cross-attention K / V): the same
+//   kernel text at T = float, keys past kv_len, and past S where S is not a
+//   multiple of the 32-key group, never read.
 //
 // What bounds it on the H100: HBM bytes, 2 * kv_len * D * 2 per KV head per
 // row for ~4 flops per byte (2.1 MB, 0.6 us, at TinyLlama-1.1B's 4 heads and
 // 2047 keys); but at decode sizes its time is latency: a launch, a round
 // trip for the keys, one for the merge.
 //
-// What K4's design does about it (decode_bf16_kernel, one launch): the grid
+// What K4's design does about it (decode_kv_kernel, one launch): the grid
 // is (n_split, B * Hkv), n_split from the SM count and B * Hkv alone
 // (ops/decode_plan.py decode_splits), so no host sync and no dependence on
 // S beyond a cap. Each block reads kv_len[b] on the device and takes its own
@@ -76,18 +81,24 @@ constexpr int DK_GROUP = 32;             // keys a warp scores at once, one a la
 constexpr int DK_RG = 8;                 // query heads a pass over the keys
 constexpr int DK_MAX_SPLIT = 16;         // ops/decode_plan.py DECODE_MAX_SPLIT
 
-// Dynamic shared memory of decode_bf16_kernel<D>: q [n_rep][D] f32; each
-// warp's two K tiles [32][D + 8] (rows padded by 16 bytes: the lanes' row
-// reads hit 32 banks) and two V tiles [32][D], bf16; p [DK_WARPS][DK_RG][32],
-// the warps' max and sum [DK_WARPS][DK_RG] each and their o
-// [DK_WARPS][DK_RG][D]; the merge flag.
-template <int D>
-__host__ __device__ constexpr int dk_krow() { return D + 8; }
-template <int D>
+// Dynamic shared memory of decode_kv_kernel<D, T>: q [n_rep][D] f32; each
+// warp's dk_nbuf K tiles [32][D + 16 / sizeof(T)] (rows padded by 16 bytes: the
+// lanes' row reads hit 32 banks) and as many V tiles [32][D], of the cache's
+// element T (bf16, or f32 for the f32 form); p [DK_WARPS][DK_RG][32], the
+// warps' max and sum [DK_WARPS][DK_RG] each and their o [DK_WARPS][DK_RG][D];
+// the merge flag. The f32 form's tiles are twice the bf16 one's: at head_dim
+// 128 two buffers a warp would take 266,240 bytes, past the 227 KB an SM has,
+// so that instantiation keeps one buffer a warp (the next group's copy waits
+// for the current one's P.V).
+template <int D, typename T>
+__host__ __device__ constexpr int dk_krow() { return D + 16 / (int)sizeof(T); }
+template <int D, typename T>
+__host__ __device__ constexpr int dk_nbuf() { return sizeof(T) == 4 && D >= 128 ? 1 : 2; }
+template <int D, typename T>
 size_t dk_smem_bytes(int n_rep) {
   return sizeof(float) * ((size_t)n_rep * D + DK_WARPS * DK_RG * (DK_GROUP + 2 + D) +
                           (size_t)n_rep * 2 * DK_MAX_SPLIT) +
-         2 * (size_t)DK_WARPS * 2 * DK_GROUP * (dk_krow<D>() + D) + 16;
+         sizeof(T) * (size_t)DK_WARPS * dk_nbuf<D, T>() * DK_GROUP * (dk_krow<D, T>() + D) + 16;
 }
 
 // dims this lane owns in P.V, from its first (lanes past D repeat lanes below)
@@ -108,6 +119,49 @@ __device__ __forceinline__ void load_v(const __nv_bfloat16* p, float (&vv)[DPL])
   }
 }
 
+template <int DPL>
+__device__ __forceinline__ void load_v(const float* p, float (&vv)[DPL]) {
+  if constexpr (DPL == 1) {
+    vv[0] = *p;
+  } else if constexpr (DPL == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    vv[0] = u.x;
+    vv[1] = u.y;
+  } else {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    vv[0] = u.x;
+    vv[1] = u.y;
+    vv[2] = u.z;
+    vv[3] = u.w;
+  }
+}
+
+// eight consecutive elements of a K row (16-byte aligned) as f32
+__device__ __forceinline__ void load_k8(const __nv_bfloat16* p, float (&kf)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  kf[0] = bf16_lo(u.x);
+  kf[1] = bf16_hi(u.x);
+  kf[2] = bf16_lo(u.y);
+  kf[3] = bf16_hi(u.y);
+  kf[4] = bf16_lo(u.z);
+  kf[5] = bf16_hi(u.z);
+  kf[6] = bf16_lo(u.w);
+  kf[7] = bf16_hi(u.w);
+}
+
+__device__ __forceinline__ void load_k8(const float* p, float (&kf)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  kf[0] = a.x;
+  kf[1] = a.y;
+  kf[2] = a.z;
+  kf[3] = a.w;
+  kf[4] = b.x;
+  kf[5] = b.y;
+  kf[6] = b.z;
+  kf[7] = b.w;
+}
+
 // Whether split s of n holds any of a row's G units (decode_split_keys).
 __device__ __forceinline__ bool split_live(int s, int n, int G) {
   return (unsigned)((s + 1) * G) / n > (unsigned)(s * G) / n;    // G <= S / 32, n <= 16
@@ -115,30 +169,31 @@ __device__ __forceinline__ bool split_live(int s, int n, int G) {
 
 // One warp's copies of group gi's K and V tiles (keys gi * 32 .. + 31 of the
 // head, rows at or past len zero-filled and not read) into kt / vt.
-template <int D>
-__device__ __forceinline__ void copy_group(const __nv_bfloat16* kb, const __nv_bfloat16* vb,
-                                           int gi, int len, __nv_bfloat16* kt,
-                                           __nv_bfloat16* vt, int lane) {
-  constexpr int CH = D / 8;                            // 16-byte chunks a row
+template <int D, typename T>
+__device__ __forceinline__ void copy_group(const T* kb, const T* vb, int gi, int len, T* kt,
+                                           T* vt, int lane) {
+  constexpr int EPC = 16 / (int)sizeof(T);             // elements a 16-byte chunk
+  constexpr int CH = D / EPC;                          // chunks a row
   for (int i = lane; i < DK_GROUP * CH; i += 32) {
     const int r = i / CH, c = i % CH, j = gi * DK_GROUP + r;
     const bool live = j < len;
-    const size_t at = (size_t)(live ? j : 0) * D + c * 8;
-    tf32::cp_async16(kt + r * dk_krow<D>() + c * 8, kb + at, live);
-    tf32::cp_async16(vt + r * D + c * 8, vb + at, live);
+    const size_t at = (size_t)(live ? j : 0) * D + c * EPC;
+    tf32::cp_async16(kt + r * dk_krow<D, T>() + c * EPC, kb + at, live);
+    tf32::cp_async16(vt + r * D + c * EPC, vb + at, live);
   }
 }
 
 // ---- K4 ----------------------------------------------------------------------
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(DK_THREADS)
-decode_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
-                   float* __restrict__ o, float* __restrict__ part, unsigned int* counters,
-                   int Hq, int Hkv, int S, int kv_row, float scale, int n_split) {
+decode_kv_kernel(const float* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ kv_len, float* __restrict__ o,
+                 float* __restrict__ part, unsigned int* counters, int Hq, int Hkv, int S,
+                 int kv_row, float scale, int n_split) {
   constexpr int DPL = D >= 32 ? D / 32 : 1;
-  constexpr int KT = DK_GROUP * dk_krow<D>(), VT = DK_GROUP * D;    // bf16s a tile
+  constexpr int NB = dk_nbuf<D, T>();
+  constexpr int KT = DK_GROUP * dk_krow<D, T>(), VT = DK_GROUP * D;   // elements a tile
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_rep = Hq / Hkv;
@@ -164,13 +219,13 @@ decode_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
   float* wm = ps + DK_WARPS * DK_RG * DK_GROUP;        // [DK_WARPS][DK_RG]
   float* wl = wm + DK_WARPS * DK_RG;
   float* wo = wl + DK_WARPS * DK_RG;                   // [DK_WARPS][DK_RG][D]
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(wo + DK_WARPS * DK_RG * D) +
-                      (size_t)warp * 2 * (KT + VT);    // this warp's tiles: K0 V0 K1 V1
-  int* flag = reinterpret_cast<int*>(reinterpret_cast<__nv_bfloat16*>(wo + DK_WARPS * DK_RG * D) +
-                                     (size_t)DK_WARPS * 2 * (KT + VT));
+  T* kt = reinterpret_cast<T*>(wo + DK_WARPS * DK_RG * D) +
+          (size_t)warp * NB * (KT + VT);               // this warp's tiles: K0 V0 (K1 V1)
+  int* flag = reinterpret_cast<int*>(reinterpret_cast<T*>(wo + DK_WARPS * DK_RG * D) +
+                                     (size_t)DK_WARPS * NB * (KT + VT));
   const size_t pos0 = ((size_t)(kv_row + b) * Hkv + hk) * S;
-  const __nv_bfloat16* kb = k + pos0 * D;
-  const __nv_bfloat16* vb = v + pos0 * D;
+  const T* kb = k + pos0 * D;
+  const T* vb = v + pos0 * D;
   const int dl = (lane * DPL) % D;                     // this lane's first dim in P.V
   // a block with fewer groups than warps gives each group hs warps, which
   // split its query heads: warp w takes groups g0 + w / hs, + DK_WARPS / hs,
@@ -182,13 +237,15 @@ decode_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
     const int per = (nr + hs - 1) / hs;
     const int ra = min(nr, (warp % hs) * per), rb = min(nr, ra + per);
     const int g_end = ra < rb ? g1 : gf;               // a warp without heads takes no group
-    // this warp's first two groups in flight (with q, at r0 = 0)
-    if (gf < g_end) copy_group<D>(kb, vb, gf, len, kt, kt + KT, lane);
+    // this warp's first NB groups in flight (with q, at r0 = 0)
+    if (gf < g_end) copy_group<D, T>(kb, vb, gf, len, kt, kt + KT, lane);
     tf32::cp_async_commit();
-    if (gf + step < g_end)
-      copy_group<D>(kb, vb, gf + step, len, kt + KT + VT, kt + 2 * KT + VT, lane);
-    tf32::cp_async_commit();
-    tf32::cp_async_wait<1>();
+    if constexpr (NB == 2) {
+      if (gf + step < g_end)
+        copy_group<D, T>(kb, vb, gf + step, len, kt + KT + VT, kt + 2 * KT + VT, lane);
+      tf32::cp_async_commit();
+    }
+    tf32::cp_async_wait<NB - 1>();
     __syncthreads();                                   // q from every thread's copies
     float mr[DK_RG], lr[DK_RG], orr[DK_RG][DPL];
 #pragma unroll
@@ -199,21 +256,20 @@ decode_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
       for (int i = 0; i < DPL; ++i) orr[r][i] = 0.f;
     }
     int buf = 0;
-    for (int gi = gf; gi < g_end; gi += step, buf ^= 1) {
-      const __nv_bfloat16* kg = kt + buf * (KT + VT);
-      const __nv_bfloat16* vg = kg + KT;
+    for (int gi = gf; gi < g_end; gi += step, buf ^= NB - 1) {
+      const T* kg = kt + buf * (KT + VT);
+      const T* vg = kg + KT;
       const int j = gi * DK_GROUP + lane;
       const bool valid = j < len;
       float s[DK_RG];
 #pragma unroll
       for (int r = 0; r < DK_RG; ++r) s[r] = 0.f;
       {                                                // lane j's key against the heads
-        const uint4* kr = reinterpret_cast<const uint4*>(kg + lane * dk_krow<D>());
+        const T* kr = kg + lane * dk_krow<D, T>();
 #pragma unroll
         for (int c = 0; c < D / 8; ++c) {
-          const uint4 u = kr[c];
-          const float kf[8] = {bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y),
-                               bf16_lo(u.z), bf16_hi(u.z), bf16_lo(u.w), bf16_hi(u.w)};
+          float kf[8];
+          load_k8(kr + 8 * c, kf);
 #pragma unroll
           for (int r = 0; r < DK_RG; ++r)
             if (r >= ra && r < rb) {
@@ -258,11 +314,11 @@ decode_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
           }
       }
       __syncwarp();                                    // the tiles and p are read
-      if (gi + 2 * step < g_end)                       // this buffer's next group
-        copy_group<D>(kb, vb, gi + 2 * step, len, kt + buf * (KT + VT),
-                      kt + buf * (KT + VT) + KT, lane);
+      if (gi + NB * step < g_end)                      // this buffer's next group
+        copy_group<D, T>(kb, vb, gi + NB * step, len, kt + buf * (KT + VT),
+                         kt + buf * (KT + VT) + KT, lane);
       tf32::cp_async_commit();
-      tf32::cp_async_wait<1>();
+      tf32::cp_async_wait<NB - 1>();
       __syncwarp();
     }
 #pragma unroll
@@ -360,22 +416,22 @@ decode_bf16_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict_
   }
 }
 
-template <int D>
-int launch_bf16(const float* q, const void* k, const void* v, const int* kv_len, float* o,
-                float* part, unsigned int* counters, int B, int Hq, int Hkv, int S, int kv_row,
-                int n_split, float scale, cudaStream_t st) {
-  const size_t smem = dk_smem_bytes<D>(Hq / Hkv);
-  const int rc = allow_dynamic_smem(decode_bf16_kernel<D>, smem);
+template <int D, typename T>
+int launch_kv(const float* q, const void* k, const void* v, const int* kv_len, float* o,
+              float* part, unsigned int* counters, int B, int Hq, int Hkv, int S, int kv_row,
+              int n_split, float scale, cudaStream_t st) {
+  const size_t smem = dk_smem_bytes<D, T>(Hq / Hkv);
+  const int rc = allow_dynamic_smem(decode_kv_kernel<D, T>, smem);
   if (rc != 0) return rc;
-  decode_bf16_kernel<D><<<dim3(n_split, B * Hkv), DK_THREADS, smem, st>>>(
-      q, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), kv_len, o,
-      part, counters, Hq, Hkv, S, kv_row, scale, n_split);
+  decode_kv_kernel<D, T><<<dim3(n_split, B * Hkv), DK_THREADS, smem, st>>>(
+      q, static_cast<const T*>(k), static_cast<const T*>(v), kv_len, o, part, counters, Hq, Hkv,
+      S, kv_row, scale, n_split);
   return (int)cudaGetLastError();
 }
 
 // ---- K8 ----------------------------------------------------------------------
 
-// K8's tail, K4's (decode_bf16_kernel) in functions: K4 keeps its inline
+// K8's tail, K4's (decode_kv_kernel) in functions: K4 keeps its inline
 // text, which ran 5-8% faster than through these (PERF.md), so the two
 // copies change together.
 //
@@ -941,23 +997,26 @@ ZGML_EXPORT int zgml_decode_attention_q8(const float* q, const void* k, const fl
 // Chunks of K7's phase B (decode_split.cuh) over an S-row cache: part's rows per query head.
 ZGML_EXPORT int zgml_decode_split_count(int S) { return (S + DA_CHUNK - 1) / DA_CHUNK; }
 
-// K4: q f32 [B, Hq, D], k/v bf16 [R, Hkv, S, D] with R >= kv_row + B (16-byte
-// aligned), kv_len int32 [B], o f32 [B, Hq, D], part f32 [B*Hq, n_split,
-// D + 2] (n_split from ops/decode_plan.py decode_splits), counters: B*Hkv
-// zeroed uint32 words that each launch leaves zeroed; all contiguous.
-ZGML_EXPORT int zgml_decode_attention_bf16(const float* q, const void* k, const void* v,
-                                           const int* kv_len, float* o, float* part,
-                                           unsigned int* counters, int B, int Hq, int Hkv, int S,
-                                           int D, int kv_row, int n_split, float scale,
-                                           void* stream) {
+// K4: q f32 [B, Hq, D], k/v bf16 (zgml_decode_attention_bf16) or f32
+// (zgml_decode_attention_f32, the f32 form) [R, Hkv, S, D] with R >= kv_row +
+// B (16-byte aligned), kv_len int32 [B], o f32 [B, Hq, D], part f32 [B*Hq,
+// n_split, D + 2] (n_split from ops/decode_plan.py decode_splits, at most 16),
+// counters: B*Hkv zeroed uint32 words that each launch leaves zeroed; all
+// contiguous. One export a cache element type, each launching
+// decode_kv_kernel<D, T> with T fixed at compile time (a `void*` cache typed
+// at run time ran 14-16% slower).
+template <typename T>
+static int decode_kv(const float* q, const void* k, const void* v, const int* kv_len, float* o,
+              float* part, unsigned int* counters, int B, int Hq, int Hkv, int S, int D,
+              int kv_row, int n_split, float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || kv_row < 0 || n_split < 1 ||
-      B * Hkv > 65535)
+      n_split > DK_MAX_SPLIT || B * Hkv > 65535)
     return ZGML_ERR_SHAPE;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ZGML_DECODE(DD)                                                                    \
-  case DD:                                                                                 \
-    return launch_bf16<DD>(q, k, v, kv_len, o, part, counters, B, Hq, Hkv, S, kv_row, n_split, \
-                           scale, st);
+#define ZGML_DECODE(DD)                                                                   \
+  case DD:                                                                                \
+    return launch_kv<DD, T>(q, k, v, kv_len, o, part, counters, B, Hq, Hkv, S, kv_row,    \
+                            n_split, scale, st);
   switch (D) {
     ZGML_DECODE(16)
     ZGML_DECODE(32)
@@ -966,4 +1025,22 @@ ZGML_EXPORT int zgml_decode_attention_bf16(const float* q, const void* k, const 
     default: return ZGML_ERR_HEAD_DIM;
   }
 #undef ZGML_DECODE
+}
+
+ZGML_EXPORT int zgml_decode_attention_bf16(const float* q, const void* k, const void* v,
+                                           const int* kv_len, float* o, float* part,
+                                           unsigned int* counters, int B, int Hq, int Hkv, int S,
+                                           int D, int kv_row, int n_split, float scale,
+                                           void* stream) {
+  return decode_kv<__nv_bfloat16>(q, k, v, kv_len, o, part, counters, B, Hq, Hkv, S, D, kv_row,
+                                  n_split, scale, stream);
+}
+
+ZGML_EXPORT int zgml_decode_attention_f32(const float* q, const void* k, const void* v,
+                                          const int* kv_len, float* o, float* part,
+                                          unsigned int* counters, int B, int Hq, int Hkv, int S,
+                                          int D, int kv_row, int n_split, float scale,
+                                          void* stream) {
+  return decode_kv<float>(q, k, v, kv_len, o, part, counters, B, Hq, Hkv, S, D, kv_row, n_split,
+                          scale, stream);
 }

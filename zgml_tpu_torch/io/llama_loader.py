@@ -261,3 +261,36 @@ def _from_jax_layer(lj: dict, cfg: LlamaConfig, device) -> dict:
         elif key in MATMULS:
             out[key] = _from_jax_packed(v, device)
     return out
+
+
+def _tree_f32(tree, device):
+    """A JAX params tree of numpy arrays (dicts and lists) as f32 tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_f32(v, device) for v in tree]
+    return _f32(tree, device)
+
+
+def gpt_params_from_jax(np_params: dict, cfg, device="cuda") -> dict:
+    """zgml_tpu/models/gpt.py's params (its init_params or load_gpt2_hf tree,
+    every array as numpy) -> models/gpt.GPTModel's on `device` (the card
+    unless device="cpu"): the same tree, f32 tensors."""
+    if len(np_params["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(np_params['layers'])} layers, cfg has {cfg.n_layers}")
+    return _tree_f32(np_params, resolve_device(device))
+
+
+def whisper_params_from_jax(np_params: dict, cfg, device="cuda") -> dict:
+    """zgml_tpu/models/whisper.py's params (numpy) -> models/whisper.
+    WhisperModel's on `device` (the card unless device="cpu"): the same tree
+    of f32 tensors, the convolution weights turned from lax's "WIO" [k, in,
+    out] to [out, in, k]."""
+    if (len(np_params["enc_layers"]), len(np_params["dec_layers"])) != (
+            cfg.n_audio_layers, cfg.n_text_layers):
+        raise ValueError(f"{len(np_params['enc_layers'])} / {len(np_params['dec_layers'])} "
+                         f"layers, cfg has {cfg.n_audio_layers} / {cfg.n_text_layers}")
+    out = _tree_f32(np_params, resolve_device(device))
+    for name in ("conv1_w", "conv2_w"):
+        out[name] = out[name].permute(2, 1, 0).contiguous()
+    return out

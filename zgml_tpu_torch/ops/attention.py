@@ -11,6 +11,9 @@ cache's, which is position-major as the bf16 one (quant/kv_cache.py):
                                      row b of the query reads cache row
                                      kv_row + b (the stacked [L, B, ...] cache
                                      viewed as [L*B, ...], kv_row = layer * B)
+       or f32  [R, Hkv, S, d]        K4's f32 form (Whisper's decoder: its
+                                     f32 self cache and cross K / V), the
+                                     JAX kernel's widening of any cache
        or int8 [R, Hkv, S, d] with ks, vs f32 [R, Hkv, S], one scale per
                                      position (K8, K9)
 
@@ -490,15 +493,21 @@ def combine_partials_ref(po, pm, pl):
     return o, lse
 
 
-def check_qkv(name: str, q, k, v, kv_row: int, tq: int | None, scales=None):
+def check_qkv(name: str, q, k, v, kv_row: int, tq: int | None, scales=None,
+              kv_dtype: torch.dtype = torch.bfloat16):
+    """Raise ValueError unless q, k, v (and the int8 cache's scales) are
+    what a kernel launch takes: one CUDA device, q f32, k and v both of
+    `kv_dtype` (bf16; float32 for K4's f32 form; int8 where scales are
+    given), a compiled head dim, contiguous and 16-byte aligned. The dtypes
+    are checked before the device."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"{name}: {msg}")
+    require(q.dtype == torch.float32, f"q must be float32, got {q.dtype}")
+    want = kv_dtype if scales is None else torch.int8
+    require(k.dtype == want and v.dtype == want, f"k/v must be {want}, got {k.dtype}/{v.dtype}")
     require(q.is_cuda and k.device == q.device and v.device == q.device,
             f"q on {q.device}, k on {k.device}, v on {v.device}: one CUDA device")
-    require(q.dtype == torch.float32, f"q must be float32, got {q.dtype}")
-    want = torch.bfloat16 if scales is None else torch.int8
-    require(k.dtype == want and v.dtype == want, f"k/v must be {want}, got {k.dtype}/{v.dtype}")
     require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: want 4-d, k == v")
     b, hq, t, d = q.shape
@@ -578,8 +587,23 @@ def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool,
 
 
 def decode_attention_cuda(q, k, v, kv_len, kv_row: int = 0):
-    """Launch K4. kv_len: int32 CUDA tensor [B] (or an int, made into one)."""
+    """Launch K4: over a bf16 cache, or in its f32 form over f32 k and v
+    (counted under decode_attention_f32). kv_len: int32 CUDA tensor [B] (or
+    an int, made into one)."""
     return _decode(q, k, None, v, None, kv_len, kv_row)
+
+
+def decode_counter(k: torch.Tensor) -> str:
+    """K4's placement counter for a cache of k's dtype: decode_attention
+    over bf16, decode_attention_f32 over f32 (the f32 form)."""
+    return "decode_attention_f32" if k.dtype == torch.float32 else "decode_attention"
+
+
+def decode_per_sm(d: int, f32: bool) -> int:
+    """K4's blocks an SM holds: two at head_dim <= 64 over bf16 (~85 KB of
+    shared memory a block), at <= 32 in the f32 form (its tiles are twice
+    as large: ~148 KB at 64), one above (csrc/decode_attn.cu dk_smem_bytes)."""
+    return 2 if d <= (32 if f32 else 64) else 1
 
 
 def decode_attention_q8_cuda(q, k, ks, v, vs, kv_len, kv_row: int = 0, i8pv: bool = False):
@@ -604,8 +628,10 @@ def decode_q8_splits(b: int, hkv: int, s: int, d: int, sm_count: int, i8pv: bool
 
 
 def _decode(q, k, ks, v, vs, kv_len, kv_row, i8pv=False):
-    name = "decode_attention" if ks is None else q8_counter(i8pv)
-    check_qkv(name, q, k, v, kv_row, 1, None if ks is None else (ks, vs))
+    name = decode_counter(k) if ks is None else q8_counter(i8pv)
+    f32 = name == "decode_attention_f32"
+    check_qkv(name, q, k, v, kv_row, 1, None if ks is None else (ks, vs),
+              torch.float32 if f32 else torch.bfloat16)
     b, hq, _, d = q.shape
     _, hkv, s, _ = k.shape
     if not isinstance(kv_len, torch.Tensor):
@@ -619,10 +645,12 @@ def _decode(q, k, ks, v, vs, kv_len, kv_row, i8pv=False):
     o = torch.empty_like(q)
     words = coop.counter_words(q.device, b * hkv).data_ptr()
     # one launch each, splits from the card's SM count
-    if ks is None:            # K4
-        n_split = decode_plan.decode_splits(b, hkv, s, d, decode_plan.sm_count(index))
+    if ks is None:            # K4, over bf16 or in its f32 form
+        n_split = decode_plan.decode_splits(b, hkv, s, d, decode_plan.sm_count(index),
+                                            per_sm=decode_per_sm(d, f32))
         part = torch.empty((b * hq, n_split, d + 2), dtype=torch.float32, device=q.device)
-        status = lib.zgml_decode_attention_bf16(
+        launch = lib.zgml_decode_attention_f32 if f32 else lib.zgml_decode_attention_bf16
+        status = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
             part.data_ptr(), words, b, hq, hkv, s, d, int(kv_row), n_split, 1.0 / d ** 0.5,
             stream)

@@ -59,6 +59,7 @@ _SIGNATURES = {
     "zgml_qmatmul_bwd_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_decode_attention_q8": (*(_P,) * 9, *(_I,) * 9, _F, _P),
     "zgml_decode_attention_bf16": (*(_P,) * 7, *(_I,) * 7, _F, _P),
+    "zgml_decode_attention_f32": (*(_P,) * 7, *(_I,) * 7, _F, _P),
     "zgml_decode_split_count": (_I,),
     "zgml_flash_blocks_per_sm": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
     "zgml_i8_quantize": (_P, _P, _P, _I, _I, _P),

@@ -52,7 +52,8 @@ fused_ffn_norm_i8 = K6c, fused_ffn = K6b (fused_ffn_q8 = K6a's no-norm
 form), attn_block_ffn = K7 with its phase E (ZGML_TPU_LAYER_FFN), attn_block = K7 with the f32 A
 phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
-attention = K3, decode_attention = K4, flash_attention_q8 = K9 (each prefill
+attention = K3, decode_attention = K4 (decode_attention_f32 its f32 form over f32
+K / V), flash_attention_q8 = K9 (each prefill
 flash kernel + _bf16 in its bf16 form, ZGML_TPU_PREFILL_BF16),
 decode_attention_q8 = K8 (decode_attention_q8_i8pv in its
 ZGML_TPU_ATTN_I8PV mode), the JAX package's names; flash_fwd = K10f,
@@ -309,11 +310,13 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
 
 
 def decode_attention(q, k, v, kv_len, kv_row: int = 0):
-    """Single-token GQA attention over the cache prefix kv_len ([B] or int)."""
+    """Single-token GQA attention over the cache prefix kv_len ([B] or int):
+    K4 over a bf16 cache, its f32 form over f32 K / V (the JAX kernel widens
+    any cache, attention.py:306-307), counted under decode_attention_f32."""
     _refuse_grad("decode_attention (K4)", q, k, v)
     if _use_kernel("decode_attention", q, k, v):
         return attention.decode_attention_cuda(q, k, v, kv_len, kv_row)
-    global_profile.count_op("decode_attention", "ref")
+    global_profile.count_op(attention.decode_counter(k), "ref")
     return attention.decode_attention_ref(q, k, v, kv_len, kv_row)
 
 

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zgml_tpu_torch.quant.packed import resolve_device
+
 
 def init_cache(n_layers: int, batch: int, n_kv_heads: int, max_seq: int, head_dim: int,
                device) -> dict:
@@ -82,11 +84,13 @@ def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * s[..., None]
 
 
-def cache_from_jax(jax_cache: dict, device="cpu") -> dict:
+def cache_from_jax(jax_cache: dict, device="cuda") -> dict:
     """The JAX package's int8 cache, as numpy, in the port's layout: its
     per-layer list {"k": [(k_q [B, Hkv, d, S], k_s [B, Hkv, S]), ...], "v":
     ...} (init_cache(batch, "int8") of a loaded model) -> {"k", "k_s", "v",
-    "v_s"}, the same levels and scales moved to position-major."""
+    "v_s"}, the same levels and scales moved to position-major, on `device`
+    (the card unless device="cpu", as params_from_jax)."""
+    device = resolve_device(device)
     out = {}
     for name in ("k", "v"):
         q = np.stack([np.asarray(layer[0]) for layer in jax_cache[name]])
