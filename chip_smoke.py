@@ -183,7 +183,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      flags): serve_tiny (bf16 cache: K2q4's and K3's bf16 forms prefilling
      into a slot through kv_row, K1q4, K6b and K4 at 8 rows) and
      serve_kv8_tiny (the int8 cache: K9's bf16 form and K8 instead of K3 and
-     K4), each on 12 greedy requests (prompts of 5-300 tokens and 8-48 new
+     K4; on the model's first SHALLOW_LAYERS layers), each on 12 greedy
+     requests (prompts of 5-300 tokens and 8-48 new
      tokens drawn from seed 0; 8 at the start, 4 after the sixth step, then
      step_burst(8) once admissions drain), with (a) each request's stream
      bit-equal to it served alone by a fresh server, (b) its slot prefill's
@@ -200,7 +201,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      projection's output, the larger). Then two training paths, counted
      the same way (the listed kernels must launch, no other kernel and no
      plain version):
-       train_dense      TinyLlama-1.1B width and depth, dense f32 from
+       train_dense      TinyLlama-1.1B width at SHALLOW_LAYERS layers, dense f32 from
                         init_params(seed 0), 6 Adam steps on B 4 x T 512
                         windows of tests/data/corpus_tokens.npy; K10f, K10dq
                         and K10dkv;
@@ -291,6 +292,72 @@ Phases, in order; any failure raises and the script exits non-zero:
                    move under 1e-7 perturbations) of force_ref()'s, the
                    tokens against force_ref()'s and the uncached decoder's;
                    encode ms, decode tok/s, device busy;
+     then the parallel paths (zgml_tpu_torch/parallel, ROADMAP A.7a): one
+     World of PAR_RANKS = 2 spawned ranks that share the card over gloo
+     (NCCL refuses two ranks on one device; every collective goes through
+     host memory, counted), each run bounded by PAR_TIMEOUT, a rank that
+     fails or hangs failing the smoke; each path's counts are the ranks'
+     own, reset just before the counted work and summed over the ranks (each
+     rank must launch the path's kernels, no other, no plain version):
+       tp2_7b      Llama-2-7B Q4_0 at full width and depth, tensor-parallel
+                   over the two ranks (each loads the GGUF on the CPU and
+                   keeps its shard on the card): a 128-token prefill and 32
+                   greedy tokens through LlamaEngine; K7's int8 A phase, K6c
+                   and K1q4 (the gathered head, no K5) on the local shapes,
+                   K2q4 and K3 in their bf16 forms; the prefill logits and one
+                   decode step from a shared cache (the one-process engine's,
+                   each rank its KV heads) against the one-process engine's
+                   within max(1e-3 / 1e-2 of max, 2 x the plain path's move
+                   under 1e-7 perturbations, PAR_SENS_DRAWS draws each of the
+                   embedding and of every projection's output), the tokens
+                   equal up to its first top-2 gap under the step bound;
+                   and on each rank the same shards under force_ref() (the
+                   plain version of every kernel at the local shapes, the
+                   same collectives): its prefill logits and one decode step
+                   from its own cache within those bounds, its tokens equal
+                   to the plain greedy tokens up to their first small top-2
+                   gap (against_plain's rule); pp128, tg32, each
+                   rank's device-busy share of 8 decode steps and its host
+                   copies;
+       cp2_tiny    TinyLlama-1.1B Q4_0 on every rank: LlamaEngine.prefill_cp
+                   of the 1536-token prompt over a 2-rank 'cp' axis (ring
+                   attention: one K10f launch, its bf16 form, a hop that
+                   runs, 22 x (1 + 2) in all, and the cp body's K2 bf16),
+                   over the bf16 cache, then the int8 cache, each followed
+                   by 32 greedy tokens (K7, K6d, K5); the bf16 run's last
+                   logits and cache against the chunked prefill's (the
+                   logits as tp2_7b's; cache layer 0 one bf16 ulp or 1e-5 of
+                   max, all layers within the logits' relative envelope),
+                   its tokens up to the first small gap; the int8 run's
+                   logits bit-equal to the bf16 run's and its cache the same
+                   K/V quantized per position (half a level plus half a bf16
+                   ulp), its first decode step and tokens against a
+                   one-process int8 engine reading that same cache under
+                   force_ref() (the step within the int8 path's
+                   plain_envelope step bound, the tokens up to the first
+                   small plain top-2 gap); then under
+                   ZGML_TPU_PREFILL_BF16=0 (K2's f32 form, K10f's f32-K/V
+                   form a hop over the cp body's f32 K/V, as JAX's) the
+                   prefill's last logits against the same prefill_cp under
+                   force_ref() on the same ranks within LOGIT_RTOL of max;
+                   pp1536;
+       serve_mesh_tiny  serve_tiny's 12 requests under drive_server over the
+                   two ranks at (dp 1, tp 2) and (dp 2, tp 1), on TinyLlama
+                   Q4_0's first SHALLOW_LAYERS layers: at dp 2 each
+                   stream equal to a one-process server of max_batch 4 (the
+                   same function a row at a time), at tp 2 to the one-process
+                   server's and to the same sharded server under force_ref()
+                   on the ranks (the plain versions at the local shapes), each
+                   up to its first top-2 gap under STEP_RTOL; the serving
+                   rate;
+     and NCCL at world size 1 in this process (init, all_reduce and
+     all_gather through parallel/mesh.py, equal to their input).
+     SHALLOW_PATHS (unfused, q8_default, kv8_i8pv, rmsnorm_forced,
+     stack_tiny, tape_tiny, layer_ffn_tiny, serve_kv8_tiny), train_dense
+     and train_rmsnorm_forced run on TinyLlama-1.1B's first SHALLOW_LAYERS = 4
+     layers at full width: their kernels run and are checked at full depth
+     elsewhere (phase 2 and the full-depth paths). The GGUFs phase 3 loads
+     are written by a spawned process while phase 2 runs;
   4. prefill (pp128) and decode (tg32) tokens/s of every path, measured in
      turns (rounds of the paths there and back; median per path), with the
      1536-token prefill (pp1536) and tg32 after it on llama2_7b and kv8_7b,
@@ -318,6 +385,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import multiprocessing
 import os
 import pathlib
 import statistics
@@ -349,6 +417,15 @@ GEMM_SHAPES_7B = [("wqkv", 12288, 4096), ("wo", 4096, 4096), ("w_gate_up", 22016
                   ("w_down", 4096, 11008), ("lm_head", 32000, 4096)]
 L_7B, HQ_7B, HKV_7B, D_7B = 4, 32, 32, 128
 FFN_D_7B, FFN_F_7B = 4096, 11008
+# the shard shapes a rank of a tp-2 path gives the kernels (phase 2; tp2_7b
+# and serve_mesh_tiny's tp 2 run): wqkv and w_gate_up split by heads and by
+# gate|up halves, wo and w_down by whole 32-blocks of K, the head by rows;
+# the model width stays whole (parallel/tp.py), and every tier verdict is
+# taken on these local widths
+GEMM_SHAPES_TP2 = [("wqkv", 1280, 2048), ("wo", 2048, 1024), ("w_gate_up", 5632, 2048),
+                   ("w_down", 2048, 2816), ("lm_head", 16000, 2048)]
+GEMM_SHAPES_7B_TP2 = [("wqkv", 6144, 4096), ("wo", 4096, 2048), ("w_gate_up", 11008, 4096),
+                      ("w_down", 4096, 5504), ("lm_head", 16000, 4096)]
 # (q_offset, kv_len) of the flash checks: first chunk, second chunk, a
 # kv_len that ends inside the chunk; and decode kv_len values
 FLASH_CASES = [(0, 128), (128, 256), (128, 200)]
@@ -627,6 +704,41 @@ SERVE_ADMIT_STEP = 6                  # the rest after this many steps
 SERVE_BURST = 8                       # step_burst(n) once admissions drain
 SERVE_PROMPT, SERVE_NEW = (5, 300), (8, 48)   # prompt lengths, max_new_tokens (inclusive)
 SERVE_RATE_RUNS = 3                   # phase 4: serving rate, median of runs in turns
+# the parallel paths (phase 3): PAR_RANKS spawned ranks share the card over gloo
+# (NCCL refuses two ranks on one device); each World.run of a path is bounded
+# by PAR_TIMEOUT seconds. tp2_7b: a PAR_PROMPT-token prefill in PAR_CHUNK-row
+# chunks and PAR_NEW greedy tokens; cp2_tiny: LONG_PROMPT tokens, then PAR_NEW;
+# the plain path's envelope from PAR_SENS_DRAWS draws a perturbation kind
+PAR_RANKS, PAR_TIMEOUT = 2, 300
+PAR_PROMPT, PAR_NEW, PAR_CHUNK, PAR_SENS_DRAWS = 128, 32, 128, 2
+# the kernels each rank of a parallel path must launch (and no other, no plain
+# version): JAX's verdicts on the local shapes (tp2_7b: K7's int8 A phase and K6c
+# at the padded width 4096, which TP keeps; K1 for the gathered head, never K5);
+# cp2_tiny's prefill is the cp body (K2's bf16 form over 768-row chunks, K10f's
+# bf16 form a ring hop), its decode the normal batch-1 path (K7, K6d, K5; the
+# first step returns its logits: K1 for its head)
+PAR_KERNELS = {"tp2_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
+                          "fused_ffn_norm_i8", "attn_block_i8"),
+               "cp2_tiny_bf16": ("q4_matmul_bf16", "flash_fwd_bf16", "attn_block",
+                                 "fused_ffn_norm", "q4_greedy", "q4_matmul_i8"),
+               "cp2_tiny_int8": ("q4_matmul_bf16", "flash_fwd_bf16", "attn_block_kv8",
+                                 "fused_ffn_norm", "q4_greedy", "q4_matmul_i8"),
+               # ZGML_TPU_PREFILL_BF16=0, the prefill alone: K2's f32 form
+               # (and its GEMV for the head's row), K10f's f32-K/V form
+               "cp2_tiny_f32": ("q4_matmul", "flash_fwd_f32kv"),
+               "serve_mesh_tiny": SERVE_PATHS["serve_tiny"][1]}
+# TinyLlama paths whose kernels other paths (and phase 2) launch and check at
+# full depth: driven on the model's first SHALLOW_LAYERS layers (full width);
+# so are train_dense / train_rmsnorm_forced (K10 at full depth: train_q4_*,
+# phase 2), serve_mesh_tiny (serve_tiny's kernels) and serve_kv8_tiny (K9's
+# bf16 form and K8 run at full depth in kv8_tiny, K1, K2 and K6b in serve_tiny)
+SHALLOW_PATHS, SHALLOW_LAYERS = ("unfused", "q8_default", "kv8_i8pv", "rmsnorm_forced",
+                                 "stack_tiny", "tape_tiny", "layer_ffn_tiny",
+                                 "serve_kv8_tiny"), 4
+# the GGUFs phase 3 loads, written by a spawned process while phase 2 runs
+# (which draws its own weights), joined within GGUF_TIMEOUT seconds
+GGUF_FILES = (("tinyllama-1.1b", "q4_0"), ("tinyllama-1.1b", "q8_0"), ("llama2-7b", "q4_0"))
+GGUF_TIMEOUT = 600
 # the weight forms and quality tools (phase 3): mixed_tiny's GGUF is TinyLlama-1.1B
 # at Q4_0 with attn_v at Q8_0 in even layers (q / k / v load unfused), ffn_up at
 # Q8_0 in layers 1 mod 4 (gate / up unfused), ffn_down at Q8_0 in layers 3 mod 4
@@ -766,6 +878,8 @@ KERNELS = {
                         "zgml_tpu/ops/elementwise.py:104"),
     "decode_attention_f32": ("decode_attention_f32", _CSRC + "decode_attn.cu",
                              "zgml_tpu/ops/attention.py:375"),
+    "flash_fwd_f32kv": ("flash_fwd_f32kv", _CSRC + "flash_attn.cu",
+                        "zgml_tpu/ops/flash_vjp.py:140"),
 }
 # the form of each kernel with two (ZGML_TPU_PREFILL_BF16; K8's
 # ZGML_TPU_ATTN_I8PV): its mode in the JSON line, beside the counter that
@@ -779,7 +893,7 @@ MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "fla
         **{k: "phase_e" for k in ("attn_block_ffn", "attn_block_kv8_ffn", "attn_block_i8_ffn",
                                   "attn_block_i8_kv8_ffn")},
         "fused_ffn_q8": "no_norm", "fused_chain": "f32", "fused_chain_bf16": "bf16",
-        "fused_chain_f16": "f16", "decode_attention_f32": "f32"}
+        "fused_chain_f16": "f16", "decode_attention_f32": "f32", "flash_fwd_f32kv": "f32kv"}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -1071,9 +1185,9 @@ def check_kernels(torch, dev, ptxas_q8):
         return t, (f"torch._weight_int4pack_mm, bf16 activations and scales (rel err "
                    f"{err:.2g} vs the f32 plain output)")
 
-    def check_projection(kind, name, n, k, model):
-        """K2 at K2_ROWS (and K2_TRAIN_ROWS at TinyLlama-1.1B), K1 at
-        I8_ROWS and, on lm_head, K5. K2: two launches give the same bits; its
+    def check_projection(kind, name, n, k, model, k2_rows=None, i8_rows=I8_ROWS, greedy=True):
+        """K2 at K2_ROWS (and K2_TRAIN_ROWS at TinyLlama-1.1B) or k2_rows, K1
+        at i8_rows and, on lm_head where greedy, K5. K2: two launches give the same bits; its
         rms error against float64 is recorded, and above GEMV_MAX_M rows
         (split-TF32 tensor cores) held to at most K11_RMS_RATIO x the plain
         version's (cuBLAS f32); the bound counts the tiled tier's TF32
@@ -1087,7 +1201,7 @@ def check_kernels(torch, dev, ptxas_q8):
         packs, refusal = int4pack(copies) if kind == "q4_0" else (None, None)
         kname = NAME["matmul", kind]
         wds = [c.dequant() for c in copies[:copies_for(n * k * 4, most=len(copies))]]
-        for m in K2_ROWS + (K2_TRAIN_ROWS if not model else ()):
+        for m in K2_ROWS + (K2_TRAIN_ROWS if not model else ()) if k2_rows is None else k2_rows:
             x = torch.randn((m, k), device=dev, generator=g)
             got, again, want = qmatmul_cuda(x, w), qmatmul_cuda(x, w), qmatmul_ref(x, w)
             torch.cuda.synchronize()
@@ -1120,7 +1234,7 @@ def check_kernels(torch, dev, ptxas_q8):
                    tf32ops=TF32_PASSES * 2 * m * n * k if tiled else 0, **extra)
         del wds
         wd64 = w.dequant().double()
-        for m in I8_ROWS:
+        for m in i8_rows:
             x = torch.randn((m, k), device=dev, generator=g)
             xq, xs = quantize_act_cuda(x)
             rq, rs = quantize_act_ref(x)
@@ -1171,7 +1285,7 @@ def check_kernels(torch, dev, ptxas_q8):
                    NO_LIBRARY["q8" if kind == "q8_0" else "q4_i8"], i8ops=2 * m * n * k,
                    **extra)
         del wd64
-        if name == "lm_head":
+        if name == "lm_head" and greedy:
             check_greedy(torch, dev, g, kind, copies, record, greedy_cuda, greedy_ref,
                          qmatmul_i8_cuda, qmatmul_i8_ref, model)
 
@@ -1213,9 +1327,10 @@ def check_kernels(torch, dev, ptxas_q8):
                    ops // 3 if a_i8 else ops, None, NO_LIBRARY["ffn"],
                    i8ops=2 * ops // 3 if a_i8 else 0, **extra)
 
-    def check_planar(d, f, model):
-        """K6b on normed rows: a 1-token chunk, kv8_tiny's batch-4 decode,
-        the smoke's 7-token prompt in a <= 32-row chunk, a full 32-row chunk.
+    def check_planar(d, f, model, rows=PLANAR_ROWS):
+        """K6b on normed rows (PLANAR_ROWS: a 1-token chunk, kv8_tiny's
+        batch-4 decode, the smoke's 7-token prompt in a <= 32-row chunk, a
+        full 32-row chunk; or `rows`).
         Within REL_BOUND * max|y| of plain, two launches bit-equal, its rms
         error against float64 at most PLANAR_RMS_RATIO x the plain
         version's; the bound counts the tensor-core form's TF32 products
@@ -1225,7 +1340,7 @@ def check_kernels(torch, dev, ptxas_q8):
         from zgml_tpu_torch.ops.ffn import PLANAR_F32_MAX_M
         pairs, wbytes = ffn_weights("q4_0", d, f)
         gu0, wd0 = (w.dequant().double() for w in pairs[0])
-        for m in PLANAR_ROWS:
+        for m in rows:
             h = torch.randn((1, m, d), device=dev, generator=g)
             got, again = fused_ffn_cuda(h, *pairs[0]), fused_ffn_cuda(h, *pairs[0])
             want = fused_ffn_ref(h, *pairs[0])
@@ -1269,16 +1384,18 @@ def check_kernels(torch, dev, ptxas_q8):
     def clone(c):
         return tuple(t.clone() for t in c) if isinstance(c, tuple) else c.clone()
 
-    def check_attn_block(kind, shape, model, a_i8, kv8=False):
+    def check_attn_block(kind, shape, model, a_i8, kv8=False, d=None):
         """K7 over a random stacked cache, layer ATTN_LAYER; with a_i8 its
         int8 A phase, held to the plain version on the kernel's own int8
         activations; with kv8 its int8-cache mode, held to the plain version
         on the kernel's own quantized q (q8_out), its row pos bit-equal to
-        quantize_columns of its own k_cur / v_cur."""
+        quantize_columns of its own k_cur / v_cur. The model width d is
+        hq * hd unless given (a tensor-parallel shard: local heads, whole
+        width)."""
         n_layers, hq, hkv, hd = shape
         kc = random_cache((n_layers, 1, hkv, S, hd), kv8)
         vc = random_cache((n_layers, 1, hkv, S, hd), kv8)
-        d, nq, nkv = hq * hd, hq * hd, hkv * hd
+        d, nq, nkv = d or hq * hd, hq * hd, hkv * hd
         nqkv = nq + 2 * nkv
         wqkvs, wos = weights(kind, nqkv, d, 64_000_000), weights(kind, d, nq, 64_000_000)
         layers = list(zip(wqkvs, wos))
@@ -1569,6 +1686,39 @@ def check_kernels(torch, dev, ptxas_q8):
                     FLASH_CASES + FLASH_CASES_7B_LONG)
     check_attention_q8(torch, dev, g, record, (L_7B, HQ_7B, HKV_7B, D_7B), "7B ",
                        KV8_DECODE_LENS_7B, ptxas_q8)
+    log("  -- the parallel paths' shapes: a tp-2 rank of tp2_7b and of serve_mesh_tiny "
+        "(GEMM_SHAPES*_TP2), cp2_tiny's 768-row cp body and its ring hops")
+    for name, n, k in GEMM_SHAPES_7B_TP2:           # tp2_7b's PAR_CHUNK-row prefill chunks
+        check_projection_bf16(torch, dev, g, record, weights, "q4_0", name, n, k, "7B tp2 ",
+                              rows=(PAR_CHUNK,))
+    # its decode: K7's int8 A phase on 16 local heads, K6c at local d_ff, K1
+    # on the head's rows (gathered after it; no K5 under tp)
+    check_attn_block("q4_0", (L_7B, HQ_7B // 2, HKV_7B // 2, D_7B), "7B tp2 ", a_i8=True,
+                     d=FFN_D_7B)
+    check_ffn("q4_0", FFN_D_7B, FFN_F_7B // 2, "7B tp2 ", a_i8=True)
+    check_projection("q4_0", "lm_head", 16000, FFN_D_7B, "7B tp2 ", k2_rows=(), i8_rows=(1,),
+                     greedy=False)
+    # serve_mesh_tiny at tp 2: SERVE_CHUNK-row chunks, then SERVE_BATCH-row
+    # decode steps (K1 on wqkv, wo and the head, K6b at local d_ff, K4 over 2
+    # local KV heads; K3 keeps n_rep 8 and only loses heads of its grid)
+    for name, n, k in GEMM_SHAPES_TP2:
+        check_projection_bf16(torch, dev, g, record, weights, "q4_0", name, n, k, "tp2 ",
+                              rows=(SERVE_CHUNK,))
+        if name in ("wqkv", "wo", "lm_head"):
+            check_projection("q4_0", name, n, k, "tp2 ", k2_rows=(), i8_rows=(SERVE_BATCH,),
+                             greedy=False)
+    check_planar(FFN_D, FFN_F // 2, "tp2 ", rows=(SERVE_BATCH,))
+    from zgml_tpu_torch.ops.decode_plan import sm_count
+    kc_tp, vc_tp = (torch.randn((L, HKV // 2, S, D), device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+    check_decode_batch(torch, dev, g, record, decode_attention_cuda, decode_attention_ref, kc_tp,
+                       vc_tp, (L, HQ // 2, HKV // 2, D), "tp2 ", SERVE_DECODE_LENS,
+                       sm_count(dev.index or 0))
+    del kc_tp, vc_tp
+    for name, n, k in GEMM_SHAPES[:4]:              # cp2_tiny: LONG_PROMPT / 2 rows a rank
+        check_projection_bf16(torch, dev, g, record, weights, "q4_0", name, n, k, "cp2 ",
+                              rows=(LONG_PROMPT // PAR_RANKS,))
+    check_ring_hops(torch, dev, g, record)
     log("  -- training: K10 (flash forward with LSE, dQ, dK/dV) and K11 (dx)")
     check_training_attention(torch, dev, g, record)
     for kind in KINDS:
@@ -2094,8 +2244,9 @@ def check_training_attention(torch, dev, g, record):
             f"backward for both kernels")
 
 
-def check_projection_bf16(torch, dev, g, record, weights, kind, name, n, k, model):
-    """K2's bf16 form at K2_BF16_ROWS (and, on lm_head, its one row at
+def check_projection_bf16(torch, dev, g, record, weights, kind, name, n, k, model,
+                          rows=K2_BF16_ROWS):
+    """K2's bf16 form at `rows` (K2_BF16_ROWS) (and, on lm_head, its one row at
     tier_rows K2_HEAD_TIER, the GEMV's bf16 mode) against
     qmatmul_ref(bf16=True): the pre-pass's bf16(x) bit-equal to torch's
     rounding, two launches bit-equal, max-abs error within K2_BF16_RTOL *
@@ -2115,7 +2266,7 @@ def check_projection_bf16(torch, dev, g, record, weights, kind, name, n, k, mode
     wbs = [refs.bf16_round(c.dequant()).to(torch.bfloat16)
            for c in copies[:copies_for(n * k * 2, most=len(copies))]]
     w64 = wbs[0].double()
-    rows = [(m, m) for m in K2_BF16_ROWS] + ([(1, K2_HEAD_TIER)] if name == "lm_head" else [])
+    rows = [(m, m) for m in rows] + ([(1, K2_HEAD_TIER)] if name == "lm_head" else [])
     for m, tier in rows:
         x = torch.randn((m, k), device=dev, generator=g)
         xb = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
@@ -2389,6 +2540,67 @@ def check_training_attention_bf16(torch, dev, g, record):
                bf16ops=K10DKV_BF16_BF16 * heads * live * hd,
                tf32ops=K10DKV_BF16_TF32 * heads * live * hd, n_split=nkv, delta_ms=t_delta,
                mode="bf16")
+
+
+def check_ring_hops(torch, dev, g, record):
+    """K10f at cp2_tiny's ring hops (parallel/ring.py): a rank's LONG_PROMPT
+    / PAR_RANKS query rows (f32, HQ heads) over one visiting block of as
+    many keys (HKV heads of D), the diagonal hop (q_offset 0) and a past
+    block (q_offset t, every key live). Its bf16 form over bf16 K/V at the
+    ring's key group min(128, t rounded up to 8), within
+    check_attention_bf16's flip-aware bound of the plain version of its
+    plan; its f32-K/V form (ZGML_TPU_PREFILL_BF16=0: the cp body's f32 K/V)
+    within REL_BOUND * max|o| of the plain version; each LSE within
+    REL_BOUND * max|lse|, two launches bit-equal. Bound: one bf16 product a
+    dot, or three TF32 ones (the f32-K/V form). Library: aten's efficient
+    attention forward in bf16, or f32."""
+    from zgml_tpu_torch.ops import attention as A
+    from zgml_tpu_torch.ops.flash_vjp import flash_fwd_lse_cuda, flash_fwd_lse_ref
+    t = LONG_PROMPT // PAR_RANKS
+    group = min(128, -(-t // 8) * 8)
+    for q_off in (0, t):
+        q = torch.randn((1, HQ, t, D), device=dev, generator=g)
+        kf, vf = (torch.randn((1, HKV, t, D), device=dev, generator=g) for _ in range(2))
+        live = sum(min(t, q_off + i + 1) for i in range(t))
+        for bf16 in (True, False):
+            k, v = (kf.to(torch.bfloat16), vf.to(torch.bfloat16)) if bf16 else (kf, vf)
+            kname = "flash_fwd_bf16" if bf16 else "flash_fwd_f32kv"
+
+            def launch():
+                return flash_fwd_lse_cuda(q, k, v, t, q_off, bf16, group)
+            (o, lse), (o2, lse2) = launch(), launch()
+            plan = A.flash_plan(q, k, t, q_off, False, group if bf16 else None)
+
+            def plain(scale=None):
+                if not bf16:
+                    return flash_fwd_lse_ref(q, k, v, t, q_off)
+                return A.combine_partials_ref(*A.flash_partials_ref(
+                    q, k, v, t, q_off, 0, plan=plan, bf16=True, scale=scale))
+            o_r, lse_r = plain()
+            move = flip_moves(torch, lambda sc: plain(sc)[0], D)[0] if bf16 else 0.0
+            torch.cuda.synchronize()
+            err = float((o - o_r).abs().max())
+            bound = max((FLASH_BF16_RTOL if bf16 else REL_BOUND) * float(o_r.abs().max()),
+                        FLIP_MARGIN * move)
+            err_l, bound_l = float((lse - lse_r).abs().max()), REL_BOUND * float(lse_r.abs().max())
+            case = (f"ring hop Hq={HQ} Hkv={HKV} hd={D} t={t} q_offset={q_off} "
+                    f"n_split={plan.n_split}")
+            require(bool(torch.isfinite(o).all()) and err <= bound and err_l <= bound_l,
+                    f"{kname} {case}: o err {err:.3g} (bound {bound:.3g}), lse err {err_l:.3g} "
+                    f"(bound {bound_l:.3g})")
+            require(torch.equal(o.view(torch.int32), o2.view(torch.int32))
+                    and torch.equal(lse.view(torch.int32), lse2.view(torch.int32)),
+                    f"{kname} {case}: two launches differ")
+            fwd_lib, _, note = efficient_attention(torch, q, k, v, torch.zeros_like(q), t, q_off,
+                                                   torch.bfloat16 if bf16 else None)
+            tm = time_ms(torch, [launch], 20)
+            tp = time_ms(torch, [plain], 5)
+            lib = time_ms(torch, [fwd_lib], 20) if fwd_lib else None
+            record(kname, case + f" (lse err {err_l:.3g})", err, bound, tm, tp,
+                   2 * q.numel() * 4 + HQ * t * 4 + 2 * HKV * t * D * k.element_size(), 0, lib,
+                   note, bf16ops=4 * HQ * live * D if bf16 else 0,
+                   tf32ops=0 if bf16 else 3 * 4 * HQ * live * D, n_split=plan.n_split,
+                   mode=MODE[kname], flip_move=move)
 
 
 def check_qmatmul_bwd(torch, dev, g, record, weights, kind, name, n, k):
@@ -2918,6 +3130,25 @@ def set_path(name: str):
     os.environ.update(paths[name])
 
 
+def shallow_model(model, n_layers: int):
+    """The model's first n_layers layers at full width (the same weight
+    tensors, no copy; no megacall view), for SHALLOW_PATHS."""
+    import dataclasses
+
+    from zgml_tpu_torch.models.llama import LlamaModel
+    params = {k: v for k, v in model.params.items() if k not in ("layers_stacked", "layers_tape")}
+    params["layers"] = model.params["layers"][:n_layers]
+    return LlamaModel(dataclasses.replace(model.cfg, n_layers=n_layers), params)
+
+
+def write_ggufs():
+    """GGUF_FILES and mixed_tiny's GGUF, each where .bench_cache lacks it
+    (the target of the process main starts before phase 2)."""
+    for name, kind in GGUF_FILES:
+        model_path(name, kind)
+    mixed_model_path()
+
+
 def load_model(torch, dev, name: str, kind: str):
     from zgml_tpu_torch.io.llama_loader import load_llama
     path = model_path(name, kind)
@@ -2933,13 +3164,13 @@ def load_model(torch, dev, name: str, kind: str):
     return model
 
 
-def path_launches(name, kernels, decode=None):
-    """The placement counts since the last reset as {kernel: launches}, after
-    the rule of every path: each of `kernels` launched, no other kernel and
-    no plain version; `decode` {kernel: launches per decode token} adds
-    exact counts."""
+def path_launches(name, kernels, decode=None, tiers=None):
+    """The placement counts since the last reset (or `tiers`, a rank's) as
+    {kernel: launches}, after the rule of every path: each of `kernels`
+    launched, no other kernel and no plain version; `decode` {kernel:
+    launches per decode token} adds exact counts."""
     from zgml_tpu_torch.runtime.profile import global_profile
-    tiers = global_profile.tier_summary()
+    tiers = global_profile.tier_summary() if tiers is None else tiers
     launches = {k: tiers.get(counter, {}).get("cuda", 0) for k, (counter, _, _) in KERNELS.items()}
     plain = {op: t["ref"] for op, t in tiers.items() if t.get("ref")}
     require(all(launches[k] > 0 for k in kernels),
@@ -3024,7 +3255,8 @@ def end_to_end(torch, model, prompts, name, summary):
         log(f"  [{name}] {label} -> {out}")
     del sampled
 
-    entry = dict(flags=PATHS[name], model=PATH_MODEL[name], cache=cache, launches=launches,
+    entry = dict(flags=PATHS[name], model=PATH_MODEL[name], layers=model.cfg.n_layers,
+                 cache=cache, launches=launches,
                  placement=tiers, outputs=outs,
                  **against_plain(torch, eng, greedy[0], outs[0], name, "request 1"))
     if eng4 is not None:
@@ -3265,35 +3497,31 @@ def kernel_switch_check(torch, model, prompt, summary):
                                     bit_equal=True, placement=ta)
 
 
-def against_plain(torch, eng, prompt, out, name, label):
-    """The request `prompt` ([T], or [B, T] on a batch-B engine) against the
-    plain versions of the same path on the card (force_ref()): the prefill
-    logits, one decode step from a shared cache, and the greedy tokens `out`
-    ([32], or B rows of 32). Each of the first two is held to its fixed bound
-    or to SENS_MARGIN times what the plain path itself moves under SENS_EPS
-    input perturbations; on a path whose prefill takes the bf16 forms
-    (ZGML_TPU_PREFILL_BF16), the prefill's also under SENS_EPS perturbations
-    of every projection's output (proj_out_probe), the larger: there the
-    plain path's bf16 and int8 roundings swallow most embedding
-    perturbations (PERF.md)."""
+def plain_envelope(torch, eng, prompt, draws=SENS_DRAWS) -> dict:
+    """The engine `eng` on `prompt` ([T], or [B, T] on a batch-B engine)
+    with the kernels: its prefill logits, the greedy first ids tok0, its
+    cache after the prefill (a clone) and position, one decode step of tok0
+    from that cache; the same prefill and step under force_ref(), and how far
+    the plain path itself moves under SENS_EPS perturbations (the embedding
+    rows of the prompt, of tok0, and on a path whose prefill takes the bf16
+    forms (ZGML_TPU_PREFILL_BF16) every projection's output, proj_out_probe:
+    there the plain path's bf16 and int8 roundings swallow most embedding
+    perturbations, PERF.md), `draws` draws each; and the bounds made of them:
+    bound_p = max(LOGIT_RTOL x max|plain logit|, SENS_MARGIN x the largest
+    prefill move), bound_s the same for the step at STEP_RTOL."""
     from zgml_tpu_torch import config
     from zgml_tpu_torch.ops.dispatch import force_ref
     params = eng.model.params
     embd = params["tok_embd"] if "tok_embd" in params else params["wte"]    # llama, GPT-2
-    b, vocab = eng.batch, eng.model.cfg.vocab_size
-    rows_out = out if b > 1 else [out]
 
-    def perturbed(run, ids, want, proj_out=False):
-        """How far the plain path's output moves when the embedding rows of
-        `ids` are scaled by (1 + SENS_EPS * N(0, 1)), with proj_out each
-        projection's output as well, over SENS_DRAWS draws."""
+    def moves(run, ids, want, proj_out=False):
         ids = sorted({int(i) for i in np.asarray(ids.cpu() if hasattr(ids, "cpu") else ids)
                       .ravel()})
         rows = embd[ids].clone()
         g = torch.Generator(device=rows.device).manual_seed(SEED)
         moved = []
         with force_ref():
-            for _ in range(SENS_DRAWS):
+            for _ in range(draws):
                 embd[ids] = rows * (1 + SENS_EPS * torch.randn(rows.shape, device=rows.device,
                                                                generator=g))
                 with proj_out_probe(torch, g) if proj_out else contextlib.nullcontext():
@@ -3301,31 +3529,50 @@ def against_plain(torch, eng, prompt, out, name, label):
         embd[ids] = rows
         return moved
 
-    def prefill_from_0():
+    def prefill():
         eng.reset()
         return eng.prefill(prompt)
-
-    logits_k = prefill_from_0()
-    tok0 = torch.argmax(logits_k, dim=-1)
+    logits = prefill()
+    tok0 = torch.argmax(logits, dim=-1)
     saved, pos0 = {k: v.clone() for k, v in eng.cache.items()}, eng.pos
 
-    def step_from_saved():
+    def step():
         for k, v in saved.items():
             eng.cache[k].copy_(v)
         eng.pos = pos0
         return eng.step(tok0)[1]
-    step_k = step_from_saved()
+    env = dict(logits=logits, tok0=tok0, saved=saved, pos=pos0, step=step())
     with force_ref():
-        step_r = step_from_saved()
-    sens_s = perturbed(step_from_saved, tok0, step_r)
-    del saved
+        env["step_r"] = step()
+    env["sens_s"] = moves(step, tok0, env["step_r"])
     with force_ref():
-        logits_r = prefill_from_0()
-    sens_p = perturbed(prefill_from_0, prompt, logits_r)
-    proj_out = config.prefill_bf16()
-    sens_o = perturbed(prefill_from_0, prompt, logits_r, True) if proj_out else []
+        env["logits_r"] = prefill()
+    env["sens_p"] = moves(prefill, prompt, env["logits_r"])
+    env["sens_o"] = (moves(prefill, prompt, env["logits_r"], True) if config.prefill_bf16()
+                     else [])
+    env["bound_p"] = max(LOGIT_RTOL * float(env["logits_r"].abs().max()),
+                         SENS_MARGIN * max(env["sens_p"] + env["sens_o"]))
+    env["bound_s"] = max(STEP_RTOL * float(env["step_r"].abs().max()),
+                         SENS_MARGIN * max(env["sens_s"]))
+    return env
+
+
+def against_plain(torch, eng, prompt, out, name, label):
+    """The request `prompt` ([T], or [B, T] on a batch-B engine) against the
+    plain versions of the same path on the card (force_ref()): the prefill
+    logits and one decode step from a shared cache, each within
+    plain_envelope's bound, and the greedy tokens `out` ([32], or B rows of
+    32) equal to the plain path's up to its first small top-2 gap."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    b, vocab = eng.batch, eng.model.cfg.vocab_size
+    rows_out = out if b > 1 else [out]
+    env = plain_envelope(torch, eng, prompt)
+    del env["saved"]
+    logits_k, step_k, step_r = env["logits"], env["step"], env["step_r"]
+    sens_p, sens_o, sens_s = env["sens_p"], env["sens_o"], env["sens_s"]
     with force_ref():
-        logits_r = prefill_from_0()
+        eng.reset()
+        logits_r = eng.prefill(prompt)
         tok = torch.argmax(logits_r, dim=-1)
         ref_toks = [[int(t)] for t in tok]
         gaps = [[top2_gap(lg)] for lg in logits_r]
@@ -3339,14 +3586,14 @@ def against_plain(torch, eng, prompt, out, name, label):
             f"[{name}] {label}: prefill logits {tuple(logits_k.shape)} not finite [{b}, {vocab}]")
     scale_p = float(logits_r.abs().max())
     err = float((logits_k - logits_r).abs().max())
-    bound = max(LOGIT_RTOL * scale_p, SENS_MARGIN * max(sens_p + sens_o))
+    bound = env["bound_p"]
     require(err <= bound, f"[{name}] {label}: prefill logits max_abs_err {err:.4g} > bound "
             f"{bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
             f"{[f'{v:.3g}' for v in sens_p]}; and of every projection's output: "
             f"{[f'{v:.3g}' for v in sens_o]})")
     scale = float(step_r.abs().max())
     step_err = float((step_k - step_r).abs().max())
-    step_bound = max(STEP_RTOL * scale, SENS_MARGIN * max(sens_s))
+    step_bound = env["bound_s"]
     require(bool(torch.isfinite(step_k).all()) and step_err <= step_bound,
             f"[{name}] {label}: decode step from a shared cache max_abs_err {step_err:.4g} > "
             f"bound {step_bound:.4g} (plain path under {SENS_EPS:g} input perturbations: "
@@ -3711,13 +3958,14 @@ def rates(torch, engines, prompt, long_prompt, card, summary):
                 runs[name][2].append(time.perf_counter() - t0)
     for name, (pp, tg, tg_long, pp_long) in runs.items():
         pp_s, tg_s = statistics.median(pp), statistics.median(tg)
+        layers = engines[name].model.cfg.n_layers
         log(f"  [{name}] pp128: {128 / pp_s:.1f} tok/s ({pp_s * 1e3:.2f} ms per 128-token "
-            f"chunk; fastest turn {128 / min(pp):.1f})  [{card}]")
+            f"chunk; fastest turn {128 / min(pp):.1f}; {layers} layers)  [{card}]")
         log(f"  [{name}] tg32:  {32 / tg_s:.1f} tok/s ({tg_s / 32 * 1e3:.3f} ms per token; "
             f"fastest turn {32 / min(tg):.1f})  [{card}]")
         summary.setdefault("rates", {})[name] = dict(
             pp128_tok_s=128 / pp_s, tg32_tok_s=32 / tg_s, pp128_runs_s=pp, tg32_runs_s=tg,
-            order=order, rounds=RATE_ROUNDS, card=card)
+            order=order, rounds=RATE_ROUNDS, layers=layers, card=card)
         if tg_long:
             tl_s = statistics.median(tg_long)
             log(f"  [{name}] tg32 at a {LONG_PROMPT}-token context: {32 / tl_s:.1f} tok/s "
@@ -3857,20 +4105,23 @@ def kernel_line(name, cases, by_path) -> dict:
 
 
 def train_paths(torch, dev, models, summary, launches):
-    """Phase 3's training paths: train_dense (TinyLlama-1.1B width and depth,
-    dense f32 from init_params(seed 0), B 4 x T 512 corpus windows) and
+    """Phase 3's training paths: train_dense (TinyLlama-1.1B width at
+    SHALLOW_LAYERS layers, dense f32 from init_params(seed 0), B 4 x T 512
+    corpus windows) and
     train_q4_frozen (the TinyLlama Q4_0 GGUF with tok_embd and the norms
     trainable, B 1 x T 512, then the Q8_0 file the same way). Returns the
     trainers timed in phase 4: dense and the Q4_0 frozen one."""
+    import dataclasses
+
     from zgml_tpu_torch.models.llama import init_params
     t0 = time.perf_counter()
-    cfg = preset("tinyllama-1.1b")
+    cfg = dataclasses.replace(preset("tinyllama-1.1b"), n_layers=SHALLOW_LAYERS)
     dense = init_params(cfg, seed=SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in [dense["tok_embd"], dense["out_norm"], dense["lm_head"]]) \
         + sum(t.numel() for ly in dense["layers"] for t in ly.values())
-    log(f"  init_params(TinyLlama-1.1B, seed {SEED}): {n_params / 1e9:.3f} B f32 params in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  init_params(TinyLlama-1.1B width, {cfg.n_layers} layers, seed {SEED}): "
+        f"{n_params / 1e9:.3f} B f32 params in {time.perf_counter() - t0:.1f} s")
     trainers = {"train_dense": Trainer(llama_loss(cfg), dense,
                                        corpus_batches(torch, dev, TRAIN_B, TRAIN_T,
                                                       TRAIN_STEPS["train_dense"]))}
@@ -4926,6 +5177,612 @@ def whisper_path(torch, dev, card, summary):
     return launches
 
 
+# -- phase 3's parallel paths: ranks that share the card over gloo -----------------------
+
+_RANK_STATE = {}       # a rank's engine between two World.run calls of one path
+
+
+def _rank_counts() -> dict:
+    """A rank's placement counts {op: {tier: n}} and its counters."""
+    from zgml_tpu_torch.runtime.profile import global_profile
+    return dict(tiers=global_profile.tier_summary(), counters=dict(global_profile.counters))
+
+
+def tp2_rank(dev, path: str, prompt, n_new: int) -> dict:
+    """tp2_7b on one rank: the GGUF loaded on the CPU, this rank's shard on
+    the card (parallel/tp.shard_llama_params), a PAR_CHUNK-row prefill of
+    `prompt` and n_new greedy tokens (the first from the prefill's logits)
+    through LlamaEngine, each timed on the host clock (synchronized); the
+    device-busy share of 8 decode steps after them."""
+    import torch
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.parallel import make_mesh, shard_llama_params
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    t0 = time.perf_counter()
+    model, gf = load_llama(path, device="cpu")
+    gf.close()
+    mesh = make_mesh(tp=2, dp=1, device=dev)
+    shard_llama_params(model, mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    eng = LlamaEngine(model, prefill_chunk=PAR_CHUNK)
+    eng.prefill(prompt)                    # once to warm up, then from 0 counted
+    eng.reset()
+    torch.cuda.synchronize()
+    global_profile.reset()
+    t0 = time.perf_counter()
+    logits = eng.prefill(prompt)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1)
+    t0 = time.perf_counter()
+    toks = eng.decode_n(tok, n_new - 1)
+    torch.cuda.synchronize()
+    tg_s = time.perf_counter() - t0
+    counts = _rank_counts()
+    wall_us, busy_us = device_busy(torch, lambda: [eng.step(tok) for _ in range(8)])
+    plain = rank_plain(torch, eng, prompt, n_new)
+    _RANK_STATE["tp2"] = eng
+    return dict(logits=logits.cpu().numpy(), tokens=[int(tok[0])] + toks[:, 0].tolist(),
+                load_s=load_s, pp_s=pp_s, tg_s=tg_s, busy_wall_us=wall_us, busy_us=busy_us,
+                plain=plain, **counts)
+
+
+def rank_plain(torch, eng, prompt, n_new: int) -> dict:
+    """A rank's engine on its own shards against force_ref() (every rank
+    together: the collectives run on both tiers): the prefill logits, one
+    decode step from the kernels' cache after it, and n_new plain greedy
+    tokens with their top-2 gaps (the first from the plain prefill's
+    logits); the main process holds them to the plain path's bounds
+    (check_rank_plain)."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    eng.reset()
+    logits = eng.prefill(prompt)
+    tok0 = torch.argmax(logits, dim=-1)
+    saved, pos0 = {k: v.clone() for k, v in eng.cache.items()}, eng.pos
+
+    def step():
+        for k, v in saved.items():
+            eng.cache[k].copy_(v)
+        eng.pos = pos0
+        return eng.step(tok0)[1]
+    step_k = step()
+    with force_ref():
+        step_r = step()
+        eng.reset()
+        logits_r = eng.prefill(prompt)
+        toks, gaps = greedy_with_gaps(torch, eng, int(torch.argmax(logits_r[0])), n_new)
+    del saved
+    torch.cuda.empty_cache()
+    return dict(err_p=float((logits - logits_r).abs().max()), scale_p=float(logits_r.abs().max()),
+                err_s=float((step_k - step_r).abs().max()), scale_s=float(step_r.abs().max()),
+                finite=bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step_k).all()),
+                tokens=toks, gaps=[top2_gap(logits_r[0])] + gaps)
+
+
+def tp2_step_rank(dev, k, v, tok: int, pos: int) -> dict:
+    """One decode step of tp2_7b's engine from a shared cache: this rank's KV
+    heads of the bf16 cache rows k / v (int16 views [L, 1, Hkv, pos, hd])."""
+    import torch
+    eng = _RANK_STATE.pop("tp2")
+    tp = eng.model.tp
+    h = eng.cache["k"].shape[2]
+    for name, src in (("k", k), ("v", v)):
+        rows = torch.from_numpy(src[:, :, tp.rank * h:(tp.rank + 1) * h]).view(torch.bfloat16)
+        eng.cache[name][:, :, :, :pos] = rows.to(eng.cache[name].device)
+    eng.pos = pos
+    with torch.inference_mode():
+        _, logits = eng.step(torch.tensor([tok]))
+    return dict(logits=logits.cpu().numpy())
+
+
+def cp2_rank(dev, path: str, prompt, n_new: int, cache_dtype: str) -> dict:
+    """cp2_tiny on one rank: the whole model on the card, LlamaEngine.
+    prefill_cp of `prompt` over the 2-rank 'cp' axis (timed, host clock),
+    then n_new greedy tokens on the normal path; the cache's first len(prompt)
+    positions (int16 views of bf16, or int8 levels and f32 scales)."""
+    import torch
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.parallel import make_mesh
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    model = _RANK_STATE.get("cp2_model")
+    if model is None:
+        model, gf = load_llama(path, device=dev)
+        gf.close()
+        _RANK_STATE["cp2_model"] = model
+    mesh = make_mesh(tp=2, dp=1, axis_names=("dp", "cp"), device=dev)
+    eng = LlamaEngine(model, prefill_chunk=PAR_CHUNK, cache_dtype=cache_dtype)
+    eng.prefill_cp(prompt, mesh)           # once to warm up, then from 0 counted
+    eng.reset()
+    torch.cuda.synchronize()
+    global_profile.reset()
+    t0 = time.perf_counter()
+    last = eng.prefill_cp(prompt, mesh)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    prefill_counts = _rank_counts()
+    tok = torch.argmax(last, dim=-1)
+    tok1, step = eng.step(tok)
+    toks = eng.decode_n(tok1, n_new - 2)
+    t = len(prompt)
+    cache = {name: (c[:, :, :, :t].view(torch.int16) if c.dtype == torch.bfloat16
+                    else c[:, :, :, :t]).cpu().numpy() for name, c in eng.cache.items()}
+    return dict(last=last.cpu().numpy(), step=step.cpu().numpy(),
+                tokens=[int(tok[0]), int(tok1[0])] + toks[:, 0].tolist(), pp_s=pp_s,
+                prefill=prefill_counts, cache=cache, **_rank_counts())
+
+
+def cp2_f32_rank(dev, path: str, prompt) -> dict:
+    """cp2_tiny under ZGML_TPU_PREFILL_BF16=0 on one rank (the model cp2_rank
+    loaded): LlamaEngine.prefill_cp of `prompt` with the kernels (counted:
+    K2's f32 form, K10f's f32-K/V form a ring hop), then under force_ref()
+    on the same ranks; both last logits."""
+    import torch
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.parallel import make_mesh
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    os.environ["ZGML_TPU_PREFILL_BF16"] = "0"
+    try:
+        mesh = make_mesh(tp=2, dp=1, axis_names=("dp", "cp"), device=dev)
+        eng = LlamaEngine(_RANK_STATE["cp2_model"], prefill_chunk=PAR_CHUNK)
+        eng.prefill_cp(prompt, mesh)           # once to warm up, then from 0 counted
+        eng.reset()
+        torch.cuda.synchronize()
+        global_profile.reset()
+        last = eng.prefill_cp(prompt, mesh)
+        torch.cuda.synchronize()
+        counts = _rank_counts()
+        eng.reset()
+        with force_ref():
+            last_r = eng.prefill_cp(prompt, mesh)
+    finally:
+        os.environ.pop("ZGML_TPU_PREFILL_BF16", None)
+    return dict(last=last.cpu().numpy(), last_r=last_r.cpu().numpy(), **counts)
+
+
+def serve_rank(dev, path: str, n_layers: int, reqs, tp: int, dp: int) -> dict:
+    """serve_mesh_tiny on one rank: the GGUF's first n_layers layers sharded
+    over a (dp, tp) mesh of the two ranks, ContinuousBatchingEngine(max_batch
+    SERVE_BATCH, prefill_chunk SERVE_CHUNK, mesh=) under drive_server, timed
+    (host clock, synchronized)."""
+    import torch
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.parallel import make_mesh, shard_llama_params
+    from zgml_tpu_torch.runtime.profile import global_profile
+    from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
+    model, gf = load_llama(path, device="cpu")
+    gf.close()
+    model = shallow_model(model, n_layers)
+    mesh = make_mesh(tp=tp, dp=dp, device=dev)
+    shard_llama_params(model, mesh)
+    serve = ContinuousBatchingEngine(model, max_batch=SERVE_BATCH, prefill_chunk=SERVE_CHUNK,
+                                     mesh=mesh)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    t0 = time.perf_counter()
+    outs, steps = drive_server(serve, reqs)
+    torch.cuda.synchronize()
+    out = dict(outs=outs, steps=steps, wall_s=time.perf_counter() - t0, **_rank_counts())
+    if tp > 1:      # the same sharded server under force_ref(): its streams and their gaps
+        from zgml_tpu_torch.ops.dispatch import force_ref
+        with force_ref():
+            ref = ContinuousBatchingEngine(model, max_batch=SERVE_BATCH,
+                                           prefill_chunk=SERVE_CHUNK, mesh=mesh)
+            _, gaps = watch_server(torch, ref, gaps=True)
+            out["plain_outs"], _ = drive_server(ref, reqs)
+        out["plain_gaps"] = [gaps[rid] for rid in sorted(gaps)]
+    return out
+
+
+def rank_launches(name, results, kernels):
+    """The path's launches {kernel: n} summed over the ranks, after the rule
+    of every path on each rank (path_launches)."""
+    per_rank = [path_launches(f"{name} rank {r}", kernels, tiers=res["tiers"])[0]
+                for r, res in enumerate(results)]
+    return {k: sum(p[k] for p in per_rank) for k in KERNELS}
+
+
+def greedy_with_gaps(torch, eng, tok0: int, n: int):
+    """n - 1 greedy steps of `eng` after tok0: the n tokens and each one's
+    top-2 gap (the logits it was the argmax of; the first from the prefill's,
+    given by the caller)."""
+    toks, gaps, tok = [tok0], [], torch.tensor([tok0])
+    for _ in range(n - 1):
+        tok, lg = eng.step(tok)
+        toks.append(int(tok[0]))
+        gaps.append(top2_gap(lg[0]))
+    return toks, gaps
+
+
+def check_rank_plain(label, p, tokens, bound_p: float, bound_s: float) -> dict:
+    """A rank's kernels against its own plain versions on the same shards
+    (rank_plain): prefill logits and the decode step within the plain
+    path's bounds (plain_envelope's of the model), its tokens equal to the
+    plain greedy tokens up to the first plain top-2 gap under the step bound
+    (relative; FLIP_PATHS' rule: K7-i8 and K6c quantize per token). Logs
+    and returns the figures."""
+    require(p["finite"] and p["err_p"] <= bound_p and p["err_s"] <= bound_s,
+            f"[{label}] vs force_ref() on its shards: prefill logits {p['err_p']:.4g} (bound "
+            f"{bound_p:.4g}), decode step {p['err_s']:.4g} (bound {bound_s:.4g}), or not finite")
+    gap_bound = bound_s / p["scale_s"] * p["scale_p"]
+    n_cmp = next((i for i, gap in enumerate(p["gaps"]) if gap < gap_bound), len(tokens))
+    require(tokens[:n_cmp] == p["tokens"][:n_cmp],
+            f"[{label}] tokens differ from force_ref()'s on its shards before step {n_cmp}: "
+            f"{tokens} vs {p['tokens']}")
+    log(f"  [{label}] vs force_ref() on its shards: prefill logits {p['err_p']:.4g} "
+        f"({p['err_p'] / p['scale_p']:.3g} of max|logit|; bound {bound_p:.4g}); decode step "
+        f"from a shared cache {p['err_s']:.4g} ({p['err_s'] / p['scale_s']:.3g}; bound "
+        f"{bound_s:.4g}); tokens equal over the first {n_cmp} of {len(tokens)} (plain top-2 "
+        f"gap bound {gap_bound:.3g}), all equal {tokens == p['tokens']}")
+    return dict(err_p=p["err_p"], err_s=p["err_s"], scale_p=p["scale_p"], scale_s=p["scale_s"],
+                plain_tokens=p["tokens"], tokens_checked=n_cmp, gap_bound=gap_bound,
+                all_equal=tokens == p["tokens"])
+
+
+def tp2_path(torch, world, model, prompt, card, summary):
+    """tp2_7b: Llama-2-7B Q4_0 at full width and depth, tensor-parallel over
+    the two ranks (module note, phase 3); returns the launches."""
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    name = "tp2_7b"
+    path = str(model_path("llama2-7b", "q4_0"))
+    res = world.run(tp2_rank, path, prompt, PAR_NEW, timeout=PAR_TIMEOUT)
+    launches = rank_launches(name, res, PAR_KERNELS[name])
+    require(all(np.array_equal(r["logits"], res[0]["logits"]) and r["tokens"] == res[0]["tokens"]
+                for r in res), f"[{name}] the ranks' logits or tokens differ")
+    one = LlamaEngine(model, prefill_chunk=PAR_CHUNK)
+    env = plain_envelope(torch, one, prompt, PAR_SENS_DRAWS)
+    want = env["logits"].cpu().numpy()
+    got = res[0]["logits"]
+    scale_p = float(np.abs(want).max())
+    err_p = float(np.abs(got - want).max())
+    require(np.isfinite(got).all() and got.shape == want.shape and err_p <= env["bound_p"],
+            f"[{name}] prefill logits {err_p:.4g} from one process's (bound {env['bound_p']:.4g})")
+    k, v = (env["saved"][n][:, :, :, :env["pos"]].view(torch.int16).cpu().numpy()
+            for n in ("k", "v"))
+    steps = world.run(tp2_step_rank, k, v, int(env["tok0"][0]), env["pos"], timeout=PAR_TIMEOUT)
+    step_k = env["step"].cpu().numpy()
+    scale_s = float(np.abs(step_k).max())
+    err_s = float(np.abs(steps[0]["logits"] - step_k).max())
+    require(err_s <= env["bound_s"] and all(np.array_equal(s["logits"], steps[0]["logits"])
+                                            for s in steps),
+            f"[{name}] decode step from a shared cache {err_s:.4g} from one process's (bound "
+            f"{env['bound_s']:.4g})")
+    # tokens: the one-process engine's, equal up to its first top-2 gap under
+    # the step bound (relative; FLIP_PATHS' rule: K7-i8 and K6c quantize per token)
+    one.reset()
+    first = one.prefill(prompt)
+    ref, gaps = greedy_with_gaps(torch, one, int(torch.argmax(first[0])), PAR_NEW)
+    gaps = [top2_gap(first[0])] + gaps
+    gap_bound = env["bound_s"] / scale_s * scale_p
+    n_cmp = next((i for i, gap in enumerate(gaps) if gap < gap_bound), PAR_NEW)
+    require(res[0]["tokens"][:n_cmp] == ref[:n_cmp],
+            f"[{name}] tokens differ before step {n_cmp}: {res[0]['tokens']} vs {ref}")
+    plain = [check_rank_plain(f"{name} rank {i}", r["plain"], r["tokens"], env["bound_p"],
+                              env["bound_s"]) for i, r in enumerate(res)]
+    pp = [PAR_PROMPT / r["pp_s"] for r in res]
+    tg = [(PAR_NEW - 1) / r["tg_s"] for r in res]
+    copies = [r["counters"].get("host_copies", 0) for r in res]
+    log(f"  [{name}] tp 2 over 2 gloo ranks sharing one card: placement rank 0 "
+        f"{res[0]['tiers']}; host copies per rank {copies} "
+        f"({[r['counters'].get('host_copy_bytes', 0) for r in res]} bytes)")
+    log(f"  [{name}] prefill logits {err_p:.4g} from one process's ({err_p / scale_p:.3g} of "
+        f"max|logit|; bound {env['bound_p']:.4g}); decode step from a shared cache {err_s:.4g} "
+        f"({err_s / scale_s:.3g}; bound {env['bound_s']:.4g}); tokens equal over the first "
+        f"{n_cmp} of {PAR_NEW} (gap bound {gap_bound:.3g}), all equal {res[0]['tokens'] == ref}")
+    log(f"  [{name}] pp{PAR_PROMPT} {min(pp):.1f} tok/s, tg{PAR_NEW} {min(tg):.1f} tok/s "
+        f"(slower rank; host clock, ranks sharing one card over gloo, not a multi-card rate); "
+        f"8 decode steps per rank: "
+        + "; ".join(busy_text(r["busy_wall_us"], r["busy_us"]) for r in res) + f"  [{card}]")
+    summary.setdefault("parallel", {})[name] = dict(
+        launches=launches, placement=[r["tiers"] for r in res], host_copies=copies,
+        host_copy_bytes=[r["counters"].get("host_copy_bytes", 0) for r in res],
+        logits_err=err_p, logits_bound=env["bound_p"], logits_scale=scale_p,
+        logits_sensitivity=env["sens_p"], logits_sensitivity_proj_out=env["sens_o"],
+        step_err=err_s, step_bound=env["bound_s"], step_sensitivity=env["sens_s"],
+        tokens=res[0]["tokens"], one_process_tokens=ref, tokens_checked=n_cmp,
+        vs_plain_on_shards=plain, pp_tok_s=pp, tg_tok_s=tg, load_s=[r["load_s"] for r in res],
+        busy=[dict(wall_us=r["busy_wall_us"], busy_us=r["busy_us"]) for r in res], card=card,
+        backend="gloo", ranks=2)
+    return launches
+
+
+def cp2_path(torch, world, model, prompt, card, summary):
+    """cp2_tiny: TinyLlama-1.1B Q4_0, context-parallel prefill over the two
+    ranks (module note, phase 3); returns the launches."""
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    name = "cp2_tiny"
+    path = str(model_path("tinyllama-1.1b", "q4_0"))
+    runs = {c: world.run(cp2_rank, path, prompt, PAR_NEW, c, timeout=PAR_TIMEOUT)
+            for c in ("bf16", "int8")}
+    layers = model.cfg.n_layers
+    launches = {k: 0 for k in KERNELS}
+    for c, res in runs.items():
+        for k, n in rank_launches(f"{name} {c}", res, PAR_KERNELS[f"{name}_{c}"]).items():
+            launches[k] += n
+        # the prefill's ring hops: rank idx runs idx + 1 of its 2 a layer, each one
+        # K10f launch (its bf16 form), and one ring call a layer
+        for idx, r in enumerate(res):
+            pre = r["prefill"]
+            k10 = pre["tiers"].get("flash_fwd_bf16", {}).get("cuda", 0)
+            require(k10 == layers * (idx + 1) == pre["counters"].get("ring_hops")
+                    and pre["tiers"].get("ring_attention", {}).get("cuda") == layers,
+                    f"[{name} {c}] rank {idx}: K10f launched {k10} times in the prefill, "
+                    f"want {layers * (idx + 1)} ({pre['counters']})")
+        require(all(np.array_equal(r["last"], res[0]["last"]) for r in res),
+                f"[{name} {c}] the ranks' last logits differ")
+        require(all(np.array_equal(r["cache"][n], res[0]["cache"][n])
+                    for r in res for n in res[0]["cache"]),
+                f"[{name} {c}] the ranks' caches differ")
+    # bf16: against the engine's chunked prefill of the same prompt
+    one = LlamaEngine(model, prefill_chunk=PAR_CHUNK)
+    env = plain_envelope(torch, one, prompt, PAR_SENS_DRAWS)
+    want, got = env["logits"].cpu().numpy(), runs["bf16"][0]["last"]
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    require(np.isfinite(got).all() and err <= env["bound_p"],
+            f"[{name}] last logits {err:.4g} from the chunked prefill's (bound "
+            f"{env['bound_p']:.4g})")
+    t = len(prompt)
+    rel = env["bound_p"] / scale
+    cache_err = {}
+    for n in ("k", "v"):
+        ref = env["saved"][n][:, :, :, :t].float().cpu().numpy()
+        mine = torch.from_numpy(runs["bf16"][0]["cache"][n]).view(torch.bfloat16).float().numpy()
+        d = np.abs(mine - ref)
+        ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(mine), np.abs(ref)))[1] - 8)
+        floor0 = 1e-5 * float(np.abs(ref[0]).max())
+        cache_err[n] = dict(layer0_over=float((d[0] / np.maximum(ulp[0], floor0)).max()),
+                            rel=float(d.max() / np.abs(ref).max()))
+        # layer 0's K/V are the projection of the embeddings alone (K2's bf16
+        # form over 768 rows here, 128 there: f32 sums in another order), so one
+        # bf16 ulp, or 1e-5 of max|K| where a value near zero flips by more
+        # ulps; later layers carry the logits' relative envelope (at least 2 ulps)
+        require(cache_err[n]["layer0_over"] <= 1 and cache_err[n]["rel"] <= max(rel, 2.0 ** -7),
+                f"[{name}] cache {n} vs the chunked prefill's: {cache_err[n]} (relative bound "
+                f"{max(rel, 2.0 ** -7):.3g})")
+    one.reset()
+    first = one.prefill(prompt)
+    ref_toks, gaps = greedy_with_gaps(torch, one, int(torch.argmax(first[0])), PAR_NEW)
+    gaps = [top2_gap(first[0])] + gaps
+    gap_bound = env["bound_s"] / float(env["step"].abs().max()) * scale
+    n_cmp = next((i for i, gap in enumerate(gaps) if gap < gap_bound), PAR_NEW)
+    toks = runs["bf16"][0]["tokens"]
+    require(toks[:n_cmp] == ref_toks[:n_cmp],
+            f"[{name}] tokens after prefill_cp differ before step {n_cmp}: {toks} vs {ref_toks}")
+    # int8: the same prefill (its logits do not read the cache), its cache the
+    # bf16 run's K/V quantized per position: within half a level plus half a
+    # bf16 ulp of them
+    i8 = runs["int8"][0]
+    require(np.array_equal(i8["last"], got), f"[{name}] int8: last logits differ from bf16's")
+    for n in ("k", "v"):
+        deq = i8["cache"][n].astype(np.float32) * i8["cache"][f"{n}_s"][..., None]
+        b16 = torch.from_numpy(runs["bf16"][0]["cache"][n]).view(torch.bfloat16).float().numpy()
+        ulp = np.ldexp(1.0, np.frexp(np.abs(b16))[1] - 8)
+        lim = 0.5 * i8["cache"][f"{n}_s"][..., None] * (1 + 1e-6) + 0.5 * ulp
+        require(bool(np.all(np.abs(deq - b16) <= lim)),
+                f"[{name}] int8 cache {n}: not the bf16 run's K/V quantized per position")
+    vocab = model.cfg.vocab_size
+    require(all(len(r[0]["tokens"]) == PAR_NEW and all(0 <= x < vocab for x in r[0]["tokens"])
+                for r in runs.values()), f"[{name}] decode after prefill_cp gave bad tokens")
+    kv8 = check_cp_int8_decode(torch, model, prompt, i8, name)
+    f32 = check_cp_f32(torch, world, path, prompt, layers, launches, name)
+    pp = {c: [t / r["pp_s"] for r in res] for c, res in runs.items()}
+    log(f"  [{name}] cp 2 over 2 gloo ranks sharing one card: prefill placement rank 1 "
+        f"{runs['bf16'][1]['prefill']['tiers']}; host copies per rank "
+        f"{[r['counters'].get('host_copies', 0) for r in runs['bf16']]}")
+    log(f"  [{name}] last logits {err:.4g} from the chunked prefill's ({err / scale:.3g} of "
+        f"max|logit|; bound {env['bound_p']:.4g}); cache {cache_err}; tokens equal over the "
+        f"first {n_cmp} of {PAR_NEW}; int8 run: logits bit-equal, cache the K/V quantized; "
+        f"its tokens {i8['tokens']}")
+    log(f"  [{name}] pp{t} " + ", ".join(f"{c} cache {min(v):.1f} tok/s" for c, v in pp.items())
+        + f" (slower rank; host clock, ranks sharing one card over gloo)  [{card}]")
+    summary.setdefault("parallel", {})[name] = dict(
+        launches=launches, placement={c: [r["tiers"] for r in res] for c, res in runs.items()},
+        prefill_placement={c: [r["prefill"] for r in res] for c, res in runs.items()},
+        logits_err=err, logits_bound=env["bound_p"], logits_scale=scale, cache_err=cache_err,
+        tokens={c: res[0]["tokens"] for c, res in runs.items()}, chunked_tokens=ref_toks,
+        tokens_checked=n_cmp, int8_decode=kv8, prefill_f32=f32, pp_tok_s=pp, prompt=t,
+        card=card, backend="gloo", ranks=2)
+    return launches
+
+
+def check_cp_int8_decode(torch, model, prompt, i8, name) -> dict:
+    """cp2_tiny's int8 run after prefill_cp: its first decode step (K7's
+    int8-cache mode over the cache the ranks wrote) and its tokens against a
+    one-process int8 LlamaEngine given that same cache (rank 0's first t
+    positions) under force_ref(): the step within the int8 path's
+    plain_envelope step bound, the tokens equal up to the first plain top-2
+    gap under that bound (relative; the int8 cache flips per token)."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    t = len(prompt)
+    one = LlamaEngine(model, prefill_chunk=PAR_CHUNK, cache_dtype="int8")
+    env = plain_envelope(torch, one, prompt, PAR_SENS_DRAWS)
+    del env["saved"]
+
+    def from_cp_cache():
+        one.reset()
+        for n, c in one.cache.items():
+            c[:, :, :, :t] = torch.from_numpy(i8["cache"][n]).to(c.device)
+        one.pos = t
+    tok0 = int(np.argmax(i8["last"][0]))
+    with force_ref():
+        from_cp_cache()
+        step_r = one.step(torch.tensor([tok0]))[1].cpu().numpy()
+        from_cp_cache()
+        toks_r, gaps = greedy_with_gaps(torch, one, tok0, PAR_NEW)
+    gaps = [top2_gap(torch.from_numpy(i8["last"][0]))] + gaps
+    scale_s = float(np.abs(step_r).max())
+    err = float(np.abs(i8["step"] - step_r).max())
+    require(bool(np.isfinite(i8["step"]).all()) and err <= env["bound_s"],
+            f"[{name} int8] decode step from the cache prefill_cp wrote {err:.4g} from "
+            f"force_ref()'s on the same cache (bound {env['bound_s']:.4g})")
+    gap_bound = env["bound_s"] / float(env["step_r"].abs().max()) * float(
+        env["logits_r"].abs().max())
+    n_cmp = next((i for i, gap in enumerate(gaps) if gap < gap_bound), PAR_NEW)
+    require(i8["tokens"][:n_cmp] == toks_r[:n_cmp],
+            f"[{name} int8] tokens after prefill_cp differ from force_ref()'s on the same cache "
+            f"before step {n_cmp}: {i8['tokens']} vs {toks_r}")
+    log(f"  [{name} int8] decode from the cache prefill_cp wrote vs force_ref() on the same "
+        f"cache: first step {err:.4g} ({err / scale_s:.3g} of max|logit|; bound "
+        f"{env['bound_s']:.4g}); tokens equal over the first {n_cmp} of {PAR_NEW} (plain top-2 "
+        f"gap bound {gap_bound:.3g}), all equal {i8['tokens'] == toks_r}")
+    return dict(step_err=err, step_bound=env["bound_s"], step_scale=scale_s,
+                step_sensitivity=env["sens_s"], tokens_checked=n_cmp, gap_bound=gap_bound,
+                plain_tokens=toks_r, all_equal=i8["tokens"] == toks_r)
+
+
+def check_cp_f32(torch, world, path, prompt, layers, launches, name) -> dict:
+    """cp2_tiny's prefill under ZGML_TPU_PREFILL_BF16=0 (cp2_f32_rank): each
+    rank launches K2's f32 form and K10f's f32-K/V form, idx + 1 hops a
+    layer on rank idx, no plain version; the ranks' last logits equal, and
+    within LOGIT_RTOL * max of the same prefill_cp under force_ref() (f32
+    throughout: sums in another order). Adds the launches to `launches`."""
+    res = world.run(cp2_f32_rank, path, prompt, timeout=PAR_TIMEOUT)
+    for k, n in rank_launches(f"{name} f32", res, PAR_KERNELS["cp2_tiny_f32"]).items():
+        launches[k] += n
+    for idx, r in enumerate(res):
+        k10 = r["tiers"].get("flash_fwd_f32kv", {}).get("cuda", 0)
+        require(k10 == layers * (idx + 1) == r["counters"].get("ring_hops")
+                and r["tiers"].get("ring_attention", {}).get("cuda") == layers,
+                f"[{name} f32] rank {idx}: K10f's f32-K/V form launched {k10} times, want "
+                f"{layers * (idx + 1)} ({r['counters']})")
+    require(all(np.array_equal(r["last"], res[0]["last"]) for r in res),
+            f"[{name} f32] the ranks' last logits differ")
+    got, want = res[0]["last"], res[0]["last_r"]
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    require(bool(np.isfinite(got).all()) and err <= LOGIT_RTOL * scale,
+            f"[{name} f32] last logits {err:.4g} from force_ref()'s (bound "
+            f"{LOGIT_RTOL * scale:.4g})")
+    log(f"  [{name} f32] ZGML_TPU_PREFILL_BF16=0: placement rank 1 {res[1]['tiers']}; last "
+        f"logits {err:.4g} from force_ref()'s on the same ranks ({err / scale:.3g} of "
+        f"max|logit|; bound {LOGIT_RTOL:g} of max)")
+    return dict(logits_err=err, logits_bound=LOGIT_RTOL * scale, logits_scale=scale,
+                placement=[r["tiers"] for r in res])
+
+
+def serve_mesh_path(torch, world, model, reqs, card, summary):
+    """serve_mesh_tiny: serve_tiny's traffic over the two ranks at (dp 1,
+    tp 2) and (dp 2, tp 1) on `model` (TinyLlama Q4_0's first layers; the
+    ranks load the same file and keep as many) (module note, phase 3);
+    returns the launches."""
+    from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
+    name = "serve_mesh_tiny"
+    path = str(model_path("tinyllama-1.1b", "q4_0"))
+    launches = {k: 0 for k in KERNELS}
+    out = {}
+    for tp, dp in ((2, 1), (1, 2)):
+        res = world.run(serve_rank, path, model.cfg.n_layers, reqs, tp, dp, timeout=PAR_TIMEOUT)
+        for k, n in rank_launches(f"{name} tp{tp} dp{dp}", res, PAR_KERNELS[name]).items():
+            launches[k] += n
+        require(all(r["outs"] == res[0]["outs"] for r in res),
+                f"[{name}] tp{tp} dp{dp}: the ranks' streams differ")
+        got = res[0]["outs"]
+        ref = ContinuousBatchingEngine(model, max_batch=SERVE_BATCH // dp,
+                                       prefill_chunk=SERVE_CHUNK)
+        _, gaps = watch_server(torch, ref, gaps=tp > 1)
+        ref_outs, _ = drive_server(ref, reqs)
+        if tp == 1:
+            # the same function a row at a time (each rank SERVE_BATCH // dp rows)
+            n_cmp = [len(o) for o in got]
+            require(got == ref_outs, f"[{name}] dp 2: streams differ from a one-process server "
+                    f"of {SERVE_BATCH // dp} slots")
+        else:
+            n_cmp = [next((i for i, g in enumerate(gaps[rid]) if g < STEP_RTOL), len(o))
+                     for rid, o in enumerate(got)]
+            require(all(o[:c] == r[:c] for o, r, c in zip(got, ref_outs, n_cmp)),
+                    f"[{name}] tp 2: tokens differ from the one-process server's before {n_cmp}")
+            # and the same sharded server under force_ref() on the ranks: the
+            # plain versions at the local shapes, up to their first small gap
+            require(all(r["plain_outs"] == res[0]["plain_outs"] for r in res),
+                    f"[{name}] tp 2: the ranks' plain streams differ")
+            plain_outs = res[0]["plain_outs"]
+            n_plain = [next((i for i, g in enumerate(pg) if g < STEP_RTOL), len(o))
+                       for pg, o in zip(res[0]["plain_gaps"], got)]
+            require(all(o[:c] == r[:c] for o, r, c in zip(got, plain_outs, n_plain)),
+                    f"[{name}] tp 2: tokens differ from force_ref()'s on the same shards before "
+                    f"{n_plain}: {got} vs {plain_outs}")
+            log(f"  [{name}] tp 2 vs force_ref() on the same shards: streams equal over "
+                f"{n_plain} (plain top-2 gap under {STEP_RTOL} of max|logit|), all equal "
+                f"{got == plain_outs}")
+        tokens = sum(len(o) for o in got)
+        wall = max(r["wall_s"] for r in res)
+        out[f"tp{tp}_dp{dp}"] = dict(
+            outputs=got, tokens_checked=n_cmp, all_equal=got == ref_outs, steps=res[0]["steps"],
+            **(dict(plain_tokens_checked=n_plain, plain_all_equal=got == plain_outs)
+               if tp > 1 else {}),
+            serve_tok_s=tokens / wall, wall_s=[r["wall_s"] for r in res],
+            host_copies=[r["counters"].get("host_copies", 0) for r in res],
+            placement=[r["tiers"] for r in res])
+        log(f"  [{name}] tp {tp} x dp {dp}: {len(got)} requests in {res[0]['steps']} steps, "
+            f"streams equal to the one-process server's (max_batch {SERVE_BATCH // dp}) over "
+            f"{n_cmp}, all equal {got == ref_outs}; serving rate {tokens / wall:.1f} tok/s "
+            f"(host wall {wall:.3f} s; ranks sharing one card over gloo); host copies per rank "
+            f"{out[f'tp{tp}_dp{dp}']['host_copies']}  [{card}]")
+    summary.setdefault("parallel", {})[name] = dict(launches=launches, card=card, **out)
+    return launches
+
+
+def nccl_check(torch, dev, summary):
+    """NCCL in this process at world size 1: init_distributed, then
+    all_reduce and all_gather through parallel/mesh.py, equal to their
+    input; the group is left before the function returns."""
+    import tempfile
+
+    import torch.distributed as dist
+    from zgml_tpu_torch.parallel import init_distributed, make_mesh
+    from zgml_tpu_torch.parallel.mesh import all_gather, all_reduce
+    with tempfile.TemporaryDirectory() as tmp:
+        got_dev = init_distributed("nccl", pathlib.Path(tmp, "rdv").as_uri(), 0, 1)
+        try:
+            mesh = make_mesh(device=dev)
+            x = torch.arange(1024, dtype=torch.float32, device=dev)
+            red = all_reduce(x, mesh.groups["tp"])
+            gat = all_gather(x, mesh.groups["tp"])
+            torch.cuda.synchronize()
+            ok = (bool(torch.equal(red, x)) and bool(torch.equal(gat, x))
+                  and dist.get_backend() == "nccl")
+        finally:
+            dist.destroy_process_group()
+    require(ok, "NCCL at world size 1: all_reduce / all_gather do not return their input")
+    log(f"  [nccl] world size 1 on {got_dev}: init, all_reduce and all_gather of 1024 floats "
+        f"equal their input (backend nccl)")
+    summary.setdefault("parallel", {})["nccl"] = dict(ok=ok, device=str(got_dev))
+
+
+def parallel_paths(torch, dev, models, shallow, prompts, serve_reqs, card, summary):
+    """Phase 3's parallel paths on PAR_RANKS spawned ranks that share the
+    card over gloo (one World for all, each run bounded by PAR_TIMEOUT: a
+    rank that fails or hangs fails the smoke; serve_mesh_tiny on `shallow`,
+    the TinyLlama Q4_0 model's first SHALLOW_LAYERS layers), then NCCL at
+    world size 1 in this process. Returns {path: launches}."""
+    from zgml_tpu_torch.parallel.world import World
+    set_path("default")
+    launches = {}
+    t0 = time.perf_counter()
+    with World(PAR_RANKS, backend="gloo", device="cuda") as world:
+        log(f"  {PAR_RANKS} gloo ranks up in {time.perf_counter() - t0:.1f} s on "
+            f"{world.devices}")
+        t1 = time.perf_counter()
+        launches["tp2_7b"] = tp2_path(torch, world, models["llama2-7b", "q4_0"],
+                                      prompts[1][:PAR_PROMPT], card, summary)
+        t2 = time.perf_counter()
+        launches["cp2_tiny"] = cp2_path(torch, world, models["tinyllama-1.1b", "q4_0"],
+                                        prompts[3], card, summary)
+        t3 = time.perf_counter()
+        launches["serve_mesh_tiny"] = serve_mesh_path(torch, world, shallow, serve_reqs, card,
+                                                      summary)
+        t4 = time.perf_counter()
+    nccl_check(torch, dev, summary)
+    summary["parallel_s"] = dict(tp2_7b=t2 - t1, cp2_tiny=t3 - t2, serve_mesh_tiny=t4 - t3,
+                                 total=time.perf_counter() - t0)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5006,6 +5863,9 @@ def main() -> int:
         require(summary["ptxas_i8"] and not spilled,
                 f"K1 / K5 spill registers or use a stack frame (or no ptxas report): {spilled}")
 
+    writer = multiprocessing.get_context("spawn").Process(target=write_ggufs, daemon=True)
+    writer.start()
+
     log("== 2. kernels vs plain torch on the card (TinyLlama-1.1B shapes at Q4_0 and Q8_0, "
         "Llama-2-7B shapes)")
     t0 = time.perf_counter()
@@ -5018,12 +5878,25 @@ def main() -> int:
         "cache; TinyLlama-1.1B Q4_0 under ZGML_TPU_KERNELS_FORCE=rmsnorm and through the "
         "megacalls K14 and K15; training; the graph tier")
     t0 = time.perf_counter()
+    writer.join(GGUF_TIMEOUT)
+    if writer.is_alive():
+        writer.kill()
+        writer.join()
+    require(writer.exitcode == 0, f"writing the GGUFs failed or took over {GGUF_TIMEOUT} s "
+            f"(exit code {writer.exitcode})")
+    log(f"  the GGUF writer joined {time.perf_counter() - t0:.1f} s after phase 2")
     models = {m: load_model(torch, dev, *m) for m in dict.fromkeys(PATH_MODEL.values())}
     # the megacall views on the model every TinyLlama Q4_0 path shares: only
     # stack_tiny's and tape_tiny's flags may make decode take them
     tiny = models["tinyllama-1.1b", "q4_0"]
     require(tiny.enable_stacked_decode() and tiny.enable_tape_decode(),
             "TinyLlama-1.1B Q4_0: enable_stacked_decode / enable_tape_decode refused")
+    shallow = {m: shallow_model(models[m], SHALLOW_LAYERS)
+               for m in (("tinyllama-1.1b", "q4_0"), ("tinyllama-1.1b", "q8_0"))}
+    require(shallow["tinyllama-1.1b", "q4_0"].enable_stacked_decode()
+            and shallow["tinyllama-1.1b", "q4_0"].enable_tape_decode(),
+            f"the {SHALLOW_LAYERS}-layer TinyLlama: enable_stacked_decode / enable_tape_decode "
+            f"refused")
     rng = np.random.default_rng(SEED)
     vocab = min(m.cfg.vocab_size for m in models.values())
     # the three greedy prompts, the long prompt, the batch-4 prompts
@@ -5032,8 +5905,8 @@ def main() -> int:
                     for n in sorted(set(BATCH4_PATHS.values()))})
     engines, engines4, launches = {}, {}, {}
     for name in PATHS:
-        engines[name], launches[name], eng4 = end_to_end(torch, models[PATH_MODEL[name]],
-                                                         prompts, name, summary)
+        model = (shallow if name in SHALLOW_PATHS else models)[PATH_MODEL[name]]
+        engines[name], launches[name], eng4 = end_to_end(torch, model, prompts, name, summary)
         if eng4 is not None:
             engines4[name] = eng4
     kernel_switch_check(torch, tiny, prompts[1], summary)
@@ -5041,7 +5914,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_reqs = serve_traffic(tiny.cfg.vocab_size)
     for name in SERVE_PATHS:
-        launches[name] = serving_path(torch, tiny, serve_reqs, name, summary)
+        launches[name] = serving_path(
+            torch, shallow["tinyllama-1.1b", "q4_0"] if name in SHALLOW_PATHS else tiny,
+            serve_reqs, name, summary)
     log(f"  phase 3 (serving) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trainers = train_paths(torch, dev, models, summary, launches)
@@ -5061,6 +5936,11 @@ def main() -> int:
     summary["model_paths_s"] = dict(gpt2_xl=t1 - t0, whisper_large_v3=time.perf_counter() - t1)
     log(f"  phase 3 (GPT-2 XL, Whisper large-v3) took {time.perf_counter() - t0:.1f} s "
         f"(gpt2_xl {t1 - t0:.1f} s, file writes included)")
+    t0 = time.perf_counter()
+    launches.update(parallel_paths(torch, dev, models, shallow["tinyllama-1.1b", "q4_0"],
+                                   prompts, serve_reqs, card, summary))
+    log(f"  phase 3 (parallel: tp2_7b, cp2_tiny, serve_mesh_tiny, nccl) took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("== 4. rates (the paths in turns) and where the time goes")
     t0 = time.perf_counter()
@@ -5076,6 +5956,14 @@ def main() -> int:
         train_profile(torch, lambda t_=tr: t_.step(0), name, summary)
     graph_rates(torch, graph, graph_feeds, card, summary)
     graph_rates(torch, graph16, graph16_feeds, card, summary, "graph_ffn_bf16")
+    for name in ("tp2_7b", "cp2_tiny", "serve_mesh_tiny"):      # timed in phase 3
+        par = summary["parallel"][name]
+        rate = {k: par[k] for k in ("pp_tok_s", "tg_tok_s") if k in par} or {
+            k: v["serve_tok_s"] for k, v in par.items()
+            if isinstance(v, dict) and "serve_tok_s" in v}
+        used = {k: n for k, n in launches[name].items() if n}
+        log(f"  [{name}] launches over both ranks {used}; rates (host clock, ranks sharing one "
+            f"card, phase 3) {rate}  [{card}]")
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [kernel_line(name, checks[name], {p: n[name] for p, n in launches.items()})

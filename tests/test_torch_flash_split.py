@@ -276,16 +276,28 @@ def test_tf32_rounding_and_its_fixed_points():
     assert np.all(resid <= 2.0 ** -22 * np.abs(x.astype(np.float64)))
 
 
-def _attend64(q, k, v, lim, scale, ks=None, vs=None, split=False):
+def _split_dot(eq, a, b, split_b):
+    """The kernel's dot of f32 operands a and b in float64: a as its two
+    TF32 parts, b exact (bf16 values, int8 levels), or with split_b its
+    parts too, the lo . lo product dropped (the f32-K/V form's three
+    products)."""
+    ah, al = (x.astype(np.float64) for x in split_tf32(a))
+    if not split_b:
+        return np.einsum(eq, ah + al, b.astype(np.float64))
+    bh, bl = (x.astype(np.float64) for x in split_tf32(b))
+    return np.einsum(eq, ah, bh) + np.einsum(eq, al, bh) + np.einsum(eq, ah, bl)
+
+
+def _attend64(q, k, v, lim, scale, ks=None, vs=None, split=False, split_kv=False):
     """Causal attention per query head in float64 with the kernel's operand
     rounding when `split`: q and f32 p each as two TF32 parts (K, V and
-    the levels are exact); else the exact float64 function. q [H, T, d];
-    k, v [H, S, d] f32 values; lim [T] live keys per row."""
-    q64 = q.astype(np.float64)
+    the levels are exact; with split_kv, f32 K and V split as well, the
+    f32-K/V form); else the exact float64 function. q [H, T, d]; k, v [H,
+    S, d] f32 values; lim [T] live keys per row."""
     if split:
-        hi, lo = split_tf32(q)
-        q64 = hi.astype(np.float64) + lo.astype(np.float64)
-    s = np.einsum("htd,hsd->hts", q64, k.astype(np.float64))
+        s = _split_dot("htd,hsd->hts", q, k, split_kv)
+    else:
+        s = np.einsum("htd,hsd->hts", q.astype(np.float64), k.astype(np.float64))
     s = s * (scale if ks is None else (ks.astype(np.float32) * np.float32(scale))
              .astype(np.float64)[:, None, :])
     s = np.where(np.arange(k.shape[1])[None, None, :] < lim[None, :, None], s, -np.inf)
@@ -293,8 +305,7 @@ def _attend64(q, k, v, lim, scale, ks=None, vs=None, split=False):
     l = p.sum(axis=-1, keepdims=True)
     pv = p if vs is None else p * vs.astype(np.float64)[:, None, :]
     if split:
-        hi, lo = split_tf32(pv.astype(np.float32))
-        pv = hi.astype(np.float64) + lo.astype(np.float64)
+        return _split_dot("hts,hsd->htd", pv.astype(np.float32), v, split_kv) / l
     return np.einsum("hts,hsd->htd", pv, v.astype(np.float64)) / l
 
 
@@ -319,6 +330,28 @@ def test_split_tf32_operands_stay_within_2e6_of_float64():
     err9 = np.max(np.abs(_attend64(q, kq, vq, lim, scale, ks, vs, split=True) -
                          _attend64(q, kq, vq, lim, scale, ks, vs)))
     assert err9 <= 2e-6, err9
+
+
+@pytest.mark.parametrize("d,q_off", [(64, 0), (64, 768), (128, 768)])
+def test_split_tf32_f32_kv_operands_stay_within_2e6_of_float64(d, q_off):
+    """The f32-K/V form (a ring hop under ZGML_TPU_PREFILL_BF16=0, K/V not
+    bf16 values) at TinyLlama's cp2 hop (768 rows over 768 keys; the
+    diagonal hop and a past block) and at head_dim 128: q, p, K and V each
+    split into TF32 parts, three products a dot, against float64."""
+    h, t = 4, 768
+    rng = np.random.default_rng(d + q_off)
+    q, k, v = (rng.standard_normal((h, t, d)).astype(np.float32) for _ in range(3))
+    lim = np.minimum(t, q_off + np.arange(t) + 1)
+    scale = 1.0 / d ** 0.5
+    err = np.max(np.abs(_attend64(q, k, v, lim, scale, split=True, split_kv=True)
+                        - _attend64(q, k, v, lim, scale)))
+    assert err <= 2e-6, err
+    # K/V's hi parts alone (two products a dot, as over bf16 K/V) keep
+    # TF32's 11 bits of them: the third product is what keeps f32's error
+    kh, vh = split_tf32(k)[0], split_tf32(v)[0]
+    err2 = np.max(np.abs(_attend64(q, kh, vh, lim, scale, split=True)
+                         - _attend64(q, k, v, lim, scale)))
+    assert err2 > 10 * err, (err2, err)
 
 
 def _rz(x64: np.ndarray) -> np.ndarray:

@@ -405,3 +405,69 @@ def test_gpt_whisper_and_audio_default_to_the_card(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
             call()
+
+
+_IMPORT_PARALLEL = """
+import sys
+import zgml_tpu_torch.parallel, zgml_tpu_torch.parallel.dryrun, zgml_tpu_torch.parallel.world
+import zgml_tpu_torch.parallel.ring, zgml_tpu_torch.parallel.cp
+import zgml_tpu_torch.runtime.serving
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "zgml_tpu") or m.startswith(("jax.", "zgml_tpu.")))
+assert not bad, bad
+"""
+
+
+def test_parallel_and_mesh_server_import_no_jax():
+    """parallel/ and the mesh server import neither jax nor zgml_tpu."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_PARALLEL], cwd=REPO, capture_output=True,
+                          text=True, timeout=300, env={"PYTHONPATH": str(REPO),
+                                                       "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_parallel_defaults_to_the_card(tmp_path):
+    """init_distributed, make_mesh and shard_llama_params put a rank on the
+    card unless asked for the CPU: without a card they raise naming the
+    device, before any process group is joined."""
+    import torch.distributed as dist
+
+    from zgml_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_params
+    from zgml_tpu_torch.parallel import init_distributed, make_mesh, shard_llama_params
+    from zgml_tpu_torch.parallel.mesh import Mesh
+    if torch.cuda.is_available():
+        pytest.skip("the default device is the card here")
+    with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+        init_distributed(init_method=(tmp_path / "rdv").as_uri(), rank=0, world_size=1)
+    assert not dist.is_initialized()
+    cfg = LlamaConfig(vocab_size=16, d_model=32, n_heads=2, n_kv_heads=2, d_ff=64, n_layers=1)
+    model = LlamaModel(cfg, init_params(cfg, device="cpu"))
+    mesh = Mesh({"dp": 1, "tp": 1}, {"dp": 0, "tp": 0}, {}, torch.device("cpu"))
+    with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+        shard_llama_params(model, mesh, device="cuda")
+    dist.init_process_group("gloo", init_method=(tmp_path / "rdv2").as_uri(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="device 'cuda'.*device='cpu'"):
+            make_mesh()
+        assert make_mesh(device="cpu").device == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_is_never_swapped_for_gloo():
+    """NCCL is the default backend of every entry point that joins ranks,
+    and a CPU rank asked for NCCL raises rather than switching to gloo."""
+    import inspect
+
+    from zgml_tpu_torch.parallel import init_distributed
+    from zgml_tpu_torch.parallel.dryrun import dryrun_multichip
+    from zgml_tpu_torch.parallel.world import World
+    for fn in (init_distributed, dryrun_multichip, World):
+        assert inspect.signature(fn).parameters["backend"].default == "nccl", fn
+    with pytest.raises(ValueError, match="nccl runs on CUDA devices"):
+        init_distributed("nccl", device="cpu", rank=0, world_size=1)
+    with pytest.raises(ValueError, match="backend"):
+        init_distributed("mpi", device="cpu", rank=0, world_size=1)
+    src = "".join(p.read_text() for p in (REPO / "zgml_tpu_torch" / "parallel").glob("*.py"))
+    assert "is_nccl_available" not in src and "else \"gloo\"" not in src

@@ -788,6 +788,38 @@ def _dq64(q, k, v, do, o, lse, kv_len, q_off):
 
 
 
+# (B, Hq, Hkv, t, d, q_offset) of ring hops: t query rows over one visiting
+# block of t keys, the diagonal hop (q_offset 0) and a past block (q_offset t);
+# TinyLlama's cp2 hop (t 768), Llama-2-7B heads, ragged tiles, the split prefix
+RING_HOP_CASES = [(1, 32, 4, 768, 64, 0), (1, 32, 4, 768, 64, 768), (1, 32, 32, 256, 128, 256),
+                  (2, 4, 2, 40, 32, 0), (1, 8, 2, 33, 16, 33), (1, 8, 8, 128, 128, 1024)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,t,d,q_off", RING_HOP_CASES)
+def test_flash_fwd_f32kv(cuda, b, hq, hkv, t, d, q_off):
+    """K10f's f32-K/V form (a ring hop under ZGML_TPU_PREFILL_BF16=0): O
+    within 1e-5 * max|O| and the LSE within 1e-5 * max|lse| of the plain
+    version on the same f32 K/V, two launches bit-equal, counted
+    flash_fwd_f32kv; the bf16 form refuses f32 K/V."""
+    from zgml_tpu_torch.ops.flash_vjp import flash_fwd_lse_cuda, flash_fwd_lse_ref
+    from zgml_tpu_torch.runtime.profile import global_profile
+    rng = np.random.default_rng(t + d + q_off)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+               for shape in ((b, hq, t, d), (b, hkv, t, d), (b, hkv, t, d)))
+    global_profile.reset()
+    o, lse = flash_fwd_lse_cuda(q, k, v, t, q_off)
+    o2, lse2 = flash_fwd_lse_cuda(q, k, v, t, q_off)
+    assert global_profile.tier_summary() == {"flash_fwd_f32kv": {"cuda": 2}}
+    o_ref, lse_ref = flash_fwd_lse_ref(q, k, v, t, q_off)
+    torch.cuda.synchronize()
+    assert float((o - o_ref).abs().max()) <= 1e-5 * float(o_ref.abs().max())
+    assert float((lse - lse_ref).abs().max()) <= 1e-5 * float(lse_ref.abs().max())
+    assert torch.equal(o.view(torch.int32), o2.view(torch.int32))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    with pytest.raises(ValueError, match="bf16 form reads bf16 K/V"):
+        flash_fwd_lse_cuda(q, k, v, t, q_off, bf16=True)
+
+
 @pytest.mark.parametrize("b,hq,hkv,tq,s,d,kv_len,q_off", TRAIN_FLASH_CASES)
 def test_flash_training_kernels(cuda, b, hq, hkv, tq, s, d, kv_len, q_off):
     """K10f's O equals K3's bit for bit and its LSE the plain one within

@@ -164,8 +164,17 @@ def test_chunked_admission_interleaves(model):
 # -- beyond the mirrors ----------------------------------------------------------
 
 def test_mesh_raises(model):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\.7"):
-        ContinuousBatchingEngine(model, mesh=object())
+    """A mesh the server cannot serve over raises: max_batch not divisible by
+    its dp, or a tp the model was not sharded for (mesh serving itself runs
+    in tests/test_torch_parallel_serving.py)."""
+    from zgml_tpu_torch.parallel.mesh import Mesh
+
+    def mesh(dp, tp):
+        return Mesh({"dp": dp, "tp": tp}, {"dp": 0, "tp": 0}, {}, torch.device("cpu"))
+    with pytest.raises(ValueError, match="not divisible by dp=3"):
+        ContinuousBatchingEngine(model, max_batch=8, mesh=mesh(3, 1))
+    with pytest.raises(ValueError, match="shard_llama_params"):
+        ContinuousBatchingEngine(model, max_batch=2, mesh=mesh(1, 2))
 
 
 def test_submit_rejects_what_the_cache_cannot_hold(model):

@@ -64,8 +64,9 @@ ops/dispatch.py:
   fused_ffn         no K6: the FFN composed from its projections
   rmsnorm           no K12, whatever ZGML_TPU_KERNELS_FORCE says
   stack_decode, tape_decode   no K14 / K15: the per-layer path
-  ring_attention    accepted; the port has no ring attention (ROADMAP A.7),
-                    so it routes nothing
+  ring_attention    ring attention's plain tier (parallel/ring.py: the online
+                    softmax over the visiting K/V blocks) in place of one
+                    K10f launch a ring hop, as JAX's einsum oracle
 
 Where a switch swaps a kernel for its plain version of the same function, the
 call counts under `ref`, as on the CPU. ``dispatch.use_kernel(op)`` is the

@@ -1,7 +1,8 @@
 // K3 flash_attention: causal GQA prefill attention over the bf16 KV cache;
 // its int8-cache mode, K9 flash_attention_q8; and its LSE mode, K10f
-// flash_fwd, the forward of training's flash attention. One kernel template,
-// flash_attn_kernel<D, KV8>, serves all three.
+// flash_fwd, the forward of training's flash attention and of a ring
+// attention hop, whose f32 form also reads f32 K/V (flash_fwd_f32kv). One
+// kernel template, flash_attn_kernel<D, KV8, F32KV>, serves all four.
 //
 // Replaces: zgml_tpu/ops/attention.py `_flash_kernel` (line 44, its grid at
 // 120-200, pallas_call at 194), reached through `_flash` /
@@ -103,6 +104,18 @@
 //    Only tiles that cross a row's causal limit or kv_len are masked, and a
 //    warp skips a tile that none of its rows reaches.
 //
+// The f32-K/V form, flash_attn_kernel<D, false, true> (zgml_flash_attention_f32;
+// the JAX ring's hop under ZGML_TPU_PREFILL_BF16=0, parallel/ring.py, which
+// attends over the f32 K/V of the cp body): K and V staged in f32 (16-byte
+// cp.async, rows padded by 8 floats for K's float2 reads and by 4 for V's
+// column reads, so neither meets a bank conflict), their B operands split
+// into TF32 parts as q's and p's are, and every dot the three products
+// hi . hi + lo . hi + hi . lo (3xTF32: lo . lo, below 2^-22 of the product,
+// is dropped). The lo products join the "lo" chains, so S keeps its three
+// chains and each P V block its fresh hi and lo accumulators.
+//  * What bounds it: the same bytes with K/V at 4 bytes, and three TF32
+//    products a dot (the bf16-K/V form takes two).
+//
 // The bf16 form, flash_bf16_kernel<D, KV8> (bf16 != 0; ZGML_TPU_PREFILL_BF16,
 // on by default): the JAX kernels' function at bf16=True (attention.py:77-104,
 // 625-644; flash_vjp.py:60-84). Scores bf16(q) . K (K9: . levels) with f32
@@ -150,15 +163,21 @@ struct FaShape {
   static constexpr int NT = BN / 8;               // 8-key blocks of a stage
   static constexpr int LDQ = D + 8;               // floats per q / O row in smem
   static constexpr int LDK = D + 8;               // bf16 per staged K / V row
+  static constexpr int LDKF = D + 8;              // the f32-K/V form: floats per K row
+  static constexpr int LDVF = D + 4;              // and per V row
   static_assert(NT % 4 == 0 && D % 16 == 0, "tile shape");
 };
 
 // Dynamic shared memory: q and O [FA_BM][LDQ] f32; the bf16 K and V stages
 // [BN][LDK] (two stages; K9 widens into one); K9 only: the raw int8 K and V
-// stages [BN][D] and their scales [BN], two stages each.
-template <int D, bool KV8>
+// stages [BN][D] and their scales [BN], two stages each; the f32-K/V form:
+// the f32 K [BN][LDKF] and V [BN][LDVF] stages in the bf16 stages' place.
+template <int D, bool KV8, bool F32KV = false>
 constexpr size_t fa_smem_bytes() {
   using Sh = FaShape<D>;
+  if constexpr (F32KV)
+    return 2ull * FA_BM * Sh::LDQ * sizeof(float) +
+           2ull * Sh::BN * (Sh::LDKF + Sh::LDVF) * sizeof(float);
   return 2ull * FA_BM * Sh::LDQ * sizeof(float) + (KV8 ? 1ull : 2ull) * 2 * Sh::BN * Sh::LDK * 2 +
          (KV8 ? 2ull * 2 * Sh::BN * D + 2ull * 2 * Sh::BN * sizeof(float) : 0ull);
 }
@@ -294,6 +313,26 @@ __device__ __forceinline__ void stage_tile(const T* kg, const T* vg, const float
   cp_async_commit();
 }
 
+// The f32-K/V form's stage st: the nk live f32 K and V rows of a key tile
+// (rows j0..), zero-filled past nk. One commit group.
+template <int D>
+__device__ __forceinline__ void stage_tile_f32(const float* kg, const float* vg, int j0, int nk,
+                                               int st, float* kvf_s) {
+  using Sh = FaShape<D>;
+  constexpr int BN = Sh::BN, CH = D / 4;           // 16-byte chunks of an f32 row
+  float* kd = kvf_s + st * BN * (Sh::LDKF + Sh::LDVF);
+  float* vd = kd + BN * Sh::LDKF;
+#pragma unroll
+  for (int e = threadIdx.x; e < BN * CH; e += FA_THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool live = r < nk;
+    const size_t off = (size_t)(j0 + (live ? r : 0)) * D + c * 4;
+    cp_async16(kd + r * Sh::LDKF + c * 4, kg + off, live);
+    cp_async16(vd + r * Sh::LDVF + c * 4, vg + off, live);
+  }
+  cp_async_commit();
+}
+
 // The block's end: each thread held its share of l, summed over the quad
 // (the same sum on all four); then o = O / l and the lse, or with a split
 // prefix the unnormalised O and (m, l) into the partials.
@@ -337,16 +376,19 @@ __device__ __forceinline__ void fa_epilogue(const FaParams& p, float* const (&or
 
 // minBlocks 1: an explicit occupancy target, so ptxas does not trade
 // spills for more blocks per SM on its own
-template <int D, bool KV8>
+template <int D, bool KV8, bool F32KV = false>
 __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParams p) {
+  static_assert(!(KV8 && F32KV), "one cache form");
   using Sh = FaShape<D>;
   constexpr int BN = Sh::BN, NT = Sh::NT, LDQ = Sh::LDQ, LDK = Sh::LDK;
+  constexpr int LDKF = Sh::LDKF, LDVF = Sh::LDVF;
   constexpr int NO = D / 8;                         // 8-column blocks of the output
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  using T = std::conditional_t<KV8, int8_t, std::conditional_t<F32KV, float, __nv_bfloat16>>;
   extern __shared__ __align__(16) unsigned char fa_smem[];
   float* q_s = reinterpret_cast<float*>(fa_smem);
   float* o_s = q_s + FA_BM * LDQ;
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(o_s + FA_BM * LDQ);
+  float* kvf_s = o_s + FA_BM * LDQ;                 // F32KV: the f32 K / V stages
   int8_t* raw = reinterpret_cast<int8_t*>(kv_s + (KV8 ? 1 : 2) * 2 * BN * LDK);
   float* scl = reinterpret_cast<float*>(raw + 2 * 2 * BN * D);
 
@@ -395,9 +437,15 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParam
   const float* ksg = KV8 ? p.ks + pos0 : nullptr;
   const float* vsg = KV8 ? p.vs + pos0 : nullptr;
 
+  auto stage = [&](int kt, int st) {
+    if constexpr (F32KV)
+      stage_tile_f32<D>(kg, vg, kt * BN, min(BN, key_end - kt * BN), st, kvf_s);
+    else
+      stage_tile<D, KV8>(kg, vg, ksg, vsg, kt * BN, min(BN, key_end - kt * BN), st, kv_s, raw,
+                         scl);
+  };
   if (kt0 < kt1) {
-    stage_tile<D, KV8>(kg, vg, ksg, vsg, kt0 * BN, min(BN, key_end - kt0 * BN), 0, kv_s, raw,
-                       scl);
+    stage(kt0, 0);
     // q of the tile's rows (split into TF32 parts where a fragment is loaded);
     // rows past n_rows are 0
 #pragma unroll 4
@@ -417,8 +465,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParam
     for (int kt = kt0; kt < kt1; ++kt) {
       const int st = (kt - kt0) & 1;
       if (kt + 1 < kt1) {
-        stage_tile<D, KV8>(kg, vg, ksg, vsg, (kt + 1) * BN, min(BN, key_end - (kt + 1) * BN),
-                           st ^ 1, kv_s, raw, scl);
+        stage(kt + 1, st ^ 1);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -438,6 +485,8 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParam
       }
       const __nv_bfloat16* Ks = kv_s + (KV8 ? 0 : st * 2 * BN * LDK);
       const __nv_bfloat16* Vs = Ks + BN * LDK;
+      const float* Kf = kvf_s + st * BN * (LDKF + LDVF);
+      const float* Vf = Kf + BN * LDKF;
       const float* ksc = scl + st * 2 * BN;
       const float* vsc = ksc + BN;
       const int k0 = kt * BN;
@@ -460,15 +509,29 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParam
           split_tf32(x1.x, ah[1], al[1]);
           split_tf32(x0.y, ah[2], al[2]);
           split_tf32(x1.y, ah[3], al[3]);
+          if constexpr (F32KV) {
 #pragma unroll
-          for (int j4 = 0; j4 < NT / 4; ++j4) {
-            uint32_t kb[4];        // B of key blocks 4 j4 .. 4 j4 + 3: (d 2t, 2t + 1) of key g
-            ldsm_x4(kb, Ks + (32 * j4 + lane) * LDK + kk * 8);
+            for (int j = 0; j < NT; ++j) {   // B of key block j: (d 2t, 2t + 1) of key 8 j + g
+              const float2 kx =
+                  *reinterpret_cast<const float2*>(Kf + (8 * j + g) * LDKF + kk * 8 + 2 * t);
+              uint32_t bh0, bl0, bh1, bl1;
+              split_tf32(kx.x, bh0, bl0);
+              split_tf32(kx.y, bh1, bl1);
+              mma_tf32(kk & 1 ? s1[j] : s[j], ah, bh0, bh1);
+              mma_tf32(sl[j], al, bh0, bh1);
+              mma_tf32(sl[j], ah, bl0, bl1);
+            }
+          } else {
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const uint32_t b0 = kb[u] << 16, b1 = kb[u] & 0xFFFF0000u;
-              mma_tf32(kk & 1 ? s1[4 * j4 + u] : s[4 * j4 + u], ah, b0, b1);
-              mma_tf32(sl[4 * j4 + u], al, b0, b1);
+            for (int j4 = 0; j4 < NT / 4; ++j4) {
+              uint32_t kb[4];      // B of key blocks 4 j4 .. 4 j4 + 3: (d 2t, 2t + 1) of key g
+              ldsm_x4(kb, Ks + (32 * j4 + lane) * LDK + kk * 8);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const uint32_t b0 = kb[u] << 16, b1 = kb[u] & 0xFFFF0000u;
+                mma_tf32(kk & 1 ? s1[4 * j4 + u] : s[4 * j4 + u], ah, b0, b1);
+                mma_tf32(sl[4 * j4 + u], al, b0, b1);
+              }
             }
           }
         }
@@ -532,14 +595,27 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_attn_kernel(const FaParam
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
           float oh[4] = {0.f, 0.f, 0.f, 0.f}, ol[4] = {0.f, 0.f, 0.f, 0.f};
+          if constexpr (F32KV) {
 #pragma unroll
-          for (int j4 = 0; j4 < NT / 4; ++j4) {
-            uint32_t vb[4];       // key blocks 4 j4 .. 4 j4 + 3: keys 2t, 2t + 1 at column g
-            ldsm_x4_trans(vb, Vs + (32 * j4 + lane) * LDK + 8 * n);
+            for (int j = 0; j < NT; ++j) {   // key block j: keys 8 j + 2t, + 1 at column 8 n + g
+              const float* vp = Vf + (8 * j + 2 * t) * LDVF + 8 * n + g;
+              uint32_t vh0, vl0, vh1, vl1;
+              split_tf32(vp[0], vh0, vl0);
+              split_tf32(vp[LDVF], vh1, vl1);
+              mma_tf32(oh, pah[j], vh0, vh1);
+              mma_tf32(ol, pal[j], vh0, vh1);
+              mma_tf32(ol, pah[j], vl0, vl1);
+            }
+          } else {
 #pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              mma_tf32(oh, pah[4 * j4 + u], vb[u] << 16, vb[u] & 0xFFFF0000u);
-              mma_tf32(ol, pal[4 * j4 + u], vb[u] << 16, vb[u] & 0xFFFF0000u);
+            for (int j4 = 0; j4 < NT / 4; ++j4) {
+              uint32_t vb[4];     // key blocks 4 j4 .. 4 j4 + 3: keys 2t, 2t + 1 at column g
+              ldsm_x4_trans(vb, Vs + (32 * j4 + lane) * LDK + 8 * n);
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                mma_tf32(oh, pah[4 * j4 + u], vb[u] << 16, vb[u] & 0xFFFF0000u);
+                mma_tf32(ol, pal[4 * j4 + u], vb[u] << 16, vb[u] & 0xFFFF0000u);
+              }
             }
           }
 #pragma unroll
@@ -928,10 +1004,11 @@ __global__ void flash_combine_kernel(const float* __restrict__ part, float* __re
   if (lse != nullptr && c == 0) lse[row] = den > 0.f ? mx + logf(den) : INFINITY;
 }
 
-template <int D, bool KV8>
+template <int D, bool KV8, bool F32KV = false>
 int launch(const FaParams& p, int B, int bn, bool bf16, cudaStream_t st) {
   const dim3 grid((p.n_rows + FA_BM - 1) / FA_BM, B * p.Hkv, p.n_split);
   int rc;
+  if (F32KV && bf16) return ZGML_ERR_SHAPE;          // the bf16 form reads bf16 K/V
   if (bf16) {         // bn is the key group, any size
     if (bn < 1) return ZGML_ERR_SHAPE;
     FaParams q = p;
@@ -942,10 +1019,10 @@ int launch(const FaParams& p, int B, int bn, bool bf16, cudaStream_t st) {
     flash_bf16_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(q);
   } else {
     if (bn != FaShape<D>::BN) return ZGML_ERR_SHAPE;    // the host plan's tile must be ours
-    constexpr size_t smem = fa_smem_bytes<D, KV8>();
-    rc = allow_dynamic_smem(flash_attn_kernel<D, KV8>, smem);
+    constexpr size_t smem = fa_smem_bytes<D, KV8, F32KV>();
+    rc = allow_dynamic_smem(flash_attn_kernel<D, KV8, F32KV>, smem);
     if (rc != 0) return rc;
-    flash_attn_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(p);
+    flash_attn_kernel<D, KV8, F32KV><<<grid, FA_THREADS, smem, st>>>(p);
   }
   rc = (int)cudaGetLastError();
   if (rc != 0 || p.n_split == 1) return rc;
@@ -968,25 +1045,34 @@ int blocks_per_sm(bool bf16, int* n) {
               : occupancy(flash_attn_kernel<D, KV8>, fa_smem_bytes<D, KV8>(), n);
 }
 
-template <bool KV8>
+template <int D>
+int blocks_per_sm_f32kv(int* n) {
+  return occupancy(flash_attn_kernel<D, false, true>, fa_smem_bytes<D, false, true>(), n);
+}
+
+template <bool KV8, bool F32KV = false>
 int launch_hd(const FaParams& p, int B, int D, int bn, bool bf16, cudaStream_t st) {
   switch (D) {
-    case 16: return launch<16, KV8>(p, B, bn, bf16, st);
-    case 32: return launch<32, KV8>(p, B, bn, bf16, st);
-    case 64: return launch<64, KV8>(p, B, bn, bf16, st);
-    case 128: return launch<128, KV8>(p, B, bn, bf16, st);
+    case 16: return launch<16, KV8, F32KV>(p, B, bn, bf16, st);
+    case 32: return launch<32, KV8, F32KV>(p, B, bn, bf16, st);
+    case 64: return launch<64, KV8, F32KV>(p, B, bn, bf16, st);
+    case 128: return launch<128, KV8, F32KV>(p, B, bn, bf16, st);
     default: return ZGML_ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
 
-// *n = the blocks of flash_attn_kernel<D, kv8> (bf16: flash_bf16_kernel)
-// one SM holds at once (the occupancy the host plan fills); returns a status.
-ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv8, int bf16, int* n) {
-#define ZGML_FLASH_OCC(DD) \
-  case DD:                 \
-    return kv8 ? blocks_per_sm<DD, true>(bf16 != 0, n) : blocks_per_sm<DD, false>(bf16 != 0, n);
+// *n = the blocks of flash_attn_kernel<D, kv == 1> (kv 2: its f32-K/V form;
+// bf16: flash_bf16_kernel) one SM holds at once (the occupancy the host plan
+// fills); returns a status.
+ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv, int bf16, int* n) {
+  if (kv == 2 && bf16 != 0) return ZGML_ERR_SHAPE;
+#define ZGML_FLASH_OCC(DD)                                 \
+  case DD:                                                 \
+    return kv == 2 ? blocks_per_sm_f32kv<DD>(n)            \
+           : kv    ? blocks_per_sm<DD, true>(bf16 != 0, n) \
+                   : blocks_per_sm<DD, false>(bf16 != 0, n);
   switch (D) {
     ZGML_FLASH_OCC(16)
     ZGML_FLASH_OCC(32)
@@ -1018,4 +1104,20 @@ ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const float*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return ks != nullptr ? launch_hd<true>(p, B, D, bn, bf16 != 0, st)
                        : launch_hd<false>(p, B, D, bn, bf16 != 0, st);
+}
+
+// The f32-K/V form of the f32 kernel (a ring hop's K10f under
+// ZGML_TPU_PREFILL_BF16=0): q f32 [B, Hq, Tq, D], k/v f32 [R, Hkv, S, D], o
+// and lse as zgml_flash_attention's (lse may be null); n_split, bn and part
+// as there (bn this build's tile for D).
+ZGML_EXPORT int zgml_flash_attention_f32(const float* q, const float* k, const float* v, float* o,
+                                         float* lse, float* part, int B, int Hq, int Hkv, int Tq,
+                                         int S, int D, int kv_len, int q_offset, int kv_row,
+                                         int n_split, int bn, float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0 || S <= 0 || kv_row < 0 ||
+      q_offset < 0 || n_split < 1 || n_split > 65535 || (n_split > 1 && part == nullptr))
+    return ZGML_ERR_SHAPE;
+  FaParams p{q, k, nullptr, v, nullptr, o, lse, part, Hq, Hkv, Tq, S, max(0, min(kv_len, S)),
+             q_offset, kv_row, n_split, (Hq / Hkv) * Tq, B * Hq * Tq, scale, 0};
+  return launch_hd<false, true>(p, B, D, bn, false, static_cast<cudaStream_t>(stream));
 }

@@ -34,6 +34,15 @@ Every projection's tier (K1 int8 for M <= 32, or K2) is picked in
 ops/dispatch.qmatmul, at the weight's kind (Q4_0 or Q8_0). GQA, RMSNorm,
 half-split RoPE, SwiGLU, tied or separate lm_head.
 
+Tensor parallelism (the JAX forward under shard_map with tp_axis,
+llama.py:129-260, 353-512, 517-543, 695-854): once parallel/tp.
+shard_llama_params has made the params a rank's shard and set ``tp``, every
+rank runs these paths on its local heads and d_ff (``local_config``), the
+collectives `_tp_copy` / `_tp_reduce` / `_tp_gather` (autograd Functions
+with JAX's forward and backward) where JAX places them; the megacalls and
+K7's phase E are off, K7 is chosen layer by layer (JAX's TP cache is the
+per-layer list), and the head gathers the vocab-sharded logits, never K5.
+
 The KV cache is stacked over layers and position-major in both of its
 dtypes (``init_cache(batch, "bf16" | "int8")``): ``{"k", "v"}`` bf16 tensors
 [L, B, Hkv, S, d], or the int8 cache of quant/kv_cache.py, ``{"k", "k_s",
@@ -106,6 +115,95 @@ class LlamaConfig:
         return self.n_heads // self.n_kv_heads
 
 
+@dataclasses.dataclass(frozen=True)
+class _LocalConfig(LlamaConfig):
+    """A tensor-parallel rank's view of the config (JAX's _LocalCfgView,
+    llama.py:205-214): its local head counts and d_ff with the FULL model
+    width (norms see all of d; heads are the shard's own). head_dim is held
+    explicitly: d_model / n_heads would be wrong for a shard."""
+    local_head_dim: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.local_head_dim
+
+
+def local_config(cfg: LlamaConfig, tp: int) -> LlamaConfig:
+    """The config a rank of a tp-way shard computes with."""
+    return _LocalConfig(**{**dataclasses.asdict(cfg), "n_heads": cfg.n_heads // tp,
+                           "n_kv_heads": cfg.n_kv_heads // tp, "d_ff": cfg.d_ff // tp},
+                        local_head_dim=cfg.head_dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPShard:
+    """A rank's place in tensor parallelism: the process group of its tp
+    axis, the axis size, its index there and the config its layers compute
+    with (local_config; parallel/tp.py sets it once)."""
+    group: object
+    size: int
+    rank: int
+    cfg: LlamaConfig | None = None
+
+
+class _TPCopy(torch.autograd.Function):
+    """Megatron 'f' (llama.py:129-145): identity forward, psum backward, at
+    the input of every column-parallel projection, so the replicated
+    residual stream's cotangent stays replicated."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from zgml_tpu_torch.parallel.mesh import all_reduce
+        return all_reduce(g, ctx.group), None
+
+
+class _TPReduce(torch.autograd.Function):
+    """Megatron 'g' (llama.py:148-178): psum forward, identity backward (a
+    row-parallel projection's output joins the replicated stream)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from zgml_tpu_torch.parallel.mesh import all_reduce
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TPGather(torch.autograd.Function):
+    """all_gather along the last axis, whose backward takes each rank's own
+    slice of the replicated cotangent (llama.py:181-200)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        from zgml_tpu_torch.parallel.mesh import all_gather
+        ctx.slice = (rank * x.shape[-1], x.shape[-1])
+        return all_gather(x, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        start, n = ctx.slice
+        return g[..., start:start + n], None, None
+
+
+def _tp_copy(x, tp: TPShard | None):
+    return x if tp is None else _TPCopy.apply(x, tp.group)
+
+
+def _tp_reduce(x, tp: TPShard | None):
+    return x if tp is None else _TPReduce.apply(x, tp.group)
+
+
+def _tp_gather(x, tp: TPShard | None):
+    return x if tp is None else _TPGather.apply(x, tp.group, tp.rank)
+
+
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda", scale: float = 0.02) -> dict:
     """Random dense f32 params drawn as zgml_tpu/models/llama.py:93-121
     draws them (numpy default_rng(seed), the same order and shapes), so the
@@ -170,18 +268,22 @@ def write_kv(ck: torch.Tensor, cv: torch.Tensor, li: int, pos: int, k: torch.Ten
 
 
 def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_len,
-                cos, sin, decode: bool, row: int | None = None, wp: torch.Tensor | None = None):
+                cos, sin, decode: bool, row: int | None = None, wp: torch.Tensor | None = None,
+                tp: TPShard | None = None):
     """One block. x f32 [B, T, D]; ck/cv the whole [L, B', Hkv, S, d] cache
     (bf16, or (levels, scales) tuples of the int8 one), written in place at
     (li, :, :, pos:pos+T), or (li, row, :, pos:pos+T) for a batch-1 chunk
     into row `row` (attention then reads that row through kv_row), or at
     (li, b, :, wp[b]) for per-row decode; kv_len an int (prefill) or an
     int32 tensor [B] (decode). ck None is training: pos 0, no cache, K/V
-    rounded to bf16."""
+    rounded to bf16. Under tensor parallelism (tp, cfg the rank's
+    local_config, layer its shard) the normed rows enter the column-parallel
+    projections through _tp_copy and the outputs of wo and w_down are summed
+    over the tp group before they join the stream (llama.py:398-512)."""
     b, t, _ = x.shape
     nq = cfg.n_heads * cfg.head_dim
 
-    h = ops.rmsnorm(x, layer["attn_norm"], cfg.rms_norm_eps)
+    h = _tp_copy(ops.rmsnorm(x, layer["attn_norm"], cfg.rms_norm_eps), tp)
     q, k, v = _qkv(cfg, h, layer)
     q = ops.rope_apply(q, cos, sin)
     k = ops.rope_apply(k, cos, sin)
@@ -212,8 +314,8 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
             att = ops.flash_attention(q, rows_k, rows_v, kv_len=kv_len, q_offset=pos,
                                       kv_row=li * bb + (row or 0))
     att = att.transpose(1, 2).reshape(b, t, nq)
-    x = x + ops.qmatmul(att, layer["wo"])
-    return _ffn(cfg, x, layer, after_attn_block=False)
+    x = x + _tp_reduce(ops.qmatmul(att, layer["wo"]), tp)
+    return _ffn(cfg, x, layer, after_attn_block=False, tp=tp)
 
 
 def _phase_e(cfg: LlamaConfig, layer: dict) -> bool:
@@ -227,7 +329,7 @@ def _phase_e(cfg: LlamaConfig, layer: dict) -> bool:
             and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, "q4_0", after_attn_block=True))
 
 
-def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
+def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool, tp: TPShard | None = None):
     """The FFN half of a layer, x + down(swiglu(gate|up(rmsnorm(x)))), fused
     where the JAX package fuses it (at most 32 rows, fused_ffn not disabled,
     a width and kind it fuses at: ops/ffn.ffn_fuses), else composed from two
@@ -239,53 +341,80 @@ def _ffn(cfg: LlamaConfig, x, layer: dict, after_attn_block: bool):
     residual, as JAX composes them, and at Q8_0 K6a (the same f32 sums).
     Under autograd `_layer_step` takes JAX's composition at both kinds:
     rmsnorm, the fused FFN (K6b, or K6a's no-norm form at Q8_0) through
-    ops/ffn.FusedFFN, the residual; JAX has no backward for the normed form."""
+    ops/ffn.FusedFFN, the residual; JAX has no backward for the normed form.
+    Under tensor parallelism (cfg.d_ff the local one, which ffn_fuses reads
+    as JAX's padding rules read the shard's local dict) a fused launch's
+    output after K7 joins the stream as x + psum(x_new - x)
+    (`_ffn_after_attn`, llama.py:224-228), and `_layer_step`'s FFN is JAX's
+    composition at both kinds: _tp_copy at the normed rows, the down
+    projection's output summed over the tp group."""
     if "w_gate" in layer:
-        h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
+        h = _tp_copy(ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps), tp)
         ff = refs.swiglu(ops.qmatmul(h, layer["w_gate"]), ops.qmatmul(h, layer["w_up"]))
-        return x + ops.qmatmul(ff, layer["w_down"])
+        return x + _tp_reduce(ops.qmatmul(ff, layer["w_down"]), tp)
     rows = x.numel() // x.shape[-1]
     packed_ffn = all(isinstance(layer[n], PackedWeight) for n in ("w_gate_up", "w_down"))
     kind = layer["w_down"].kind if packed_ffn else None
     fuses = (packed_ffn and rows <= ffn.FFN_MAX_ROWS and config.kernel_on("fused_ffn")
              and layer["w_gate_up"].kind == kind
              and ffn.ffn_fuses(cfg.d_model, cfg.d_ff, kind, after_attn_block))
-    if fuses and (after_attn_block or (kind == "q8_0" and not ops.needs_grad(x))):
-        return ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
-                                  cfg.rms_norm_eps)
-    h = ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps)
+    if fuses and (after_attn_block or (kind == "q8_0" and tp is None
+                                       and not ops.needs_grad(x))):
+        x_new = ops.fused_ffn_norm(x, layer["ffn_norm"], layer["w_gate_up"], layer["w_down"],
+                                   cfg.rms_norm_eps)
+        return x_new if tp is None else x + _tp_reduce(x_new - x, tp)
+    h = _tp_copy(ops.rmsnorm(x, layer["ffn_norm"], cfg.rms_norm_eps), tp)
     if fuses:
-        return x + ops.fused_ffn(h, layer["w_gate_up"], layer["w_down"])
+        return x + _tp_reduce(ops.fused_ffn(h, layer["w_gate_up"], layer["w_down"]), tp)
     gu = ops.qmatmul(h, layer["w_gate_up"])
     f = gu.shape[-1] // 2
     ff = refs.swiglu(gu[..., :f], gu[..., f:])
-    return x + ops.qmatmul(ff, layer["w_down"])
+    return x + _tp_reduce(ops.qmatmul(ff, layer["w_down"]), tp)
 
 
-def _fused_layer(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos_t, cos, sin):
+def _fused_layer(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos_t, cos, sin,
+                 tp: TPShard | None = None):
     """Batch-1 decode of one token through one layer: K7 then the FFN
     (llama.py:796-805, 366-395), or where JAX runs K7's phase E (`_phase_e`)
     one K7 launch with the FFN inside it; K7 writes the layer's K/V row at
-    pos."""
+    pos. Under tensor parallelism K7 runs on the rank's local heads without
+    phase E (allow_ffn=tp_axis is None, llama.py:368) and its output joins
+    the stream as x + psum(x2 - x) (llama.py:369-372), not x + psum(partial):
+    the two differ in the bits."""
     ffn = ((layer["ffn_norm"], layer["w_gate_up"], layer["w_down"])
-           if _phase_e(cfg, layer) else None)
-    x, _, _ = ops.attn_block(x, layer["attn_norm"], layer["wqkv"], layer["wo"], ck, cv, li,
-                             pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps, ffn)
-    return x if ffn is not None else _ffn(cfg, x, layer, after_attn_block=True)
+           if tp is None and _phase_e(cfg, layer) else None)
+    x2, _, _ = ops.attn_block(x, layer["attn_norm"], layer["wqkv"], layer["wo"], ck, cv, li,
+                              pos_t, cos, sin, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps,
+                              ffn)
+    if ffn is not None:
+        return x2
+    if tp is not None:
+        x2 = x + _tp_reduce(x2 - x, tp)
+    return _ffn(cfg, x2, layer, after_attn_block=True, tp=tp)
 
 
 class LlamaModel(torch.nn.Module):
     """Holds the config and the params dict; ``forward`` runs tokens through
-    the stack against a cache from ``init_cache``."""
+    the stack against a cache from ``init_cache``. ``tp`` is None, or, once
+    parallel/tp.shard_llama_params has replaced the params by this rank's
+    shard, the rank's TPShard: its layers then run on local head counts
+    (``layer_cfg``) and its cache holds the local KV heads."""
 
     def __init__(self, cfg: LlamaConfig, params: dict):
         super().__init__()
         self.cfg = cfg
         self.params = params
+        self.tp: TPShard | None = None
 
     @property
     def device(self) -> torch.device:
         return self.params["tok_embd"].device
+
+    @property
+    def layer_cfg(self) -> LlamaConfig:
+        """The config the layers compute with: cfg, or under tensor
+        parallelism the rank's local_config."""
+        return self.cfg if self.tp is None else self.tp.cfg
 
     def quantize(self, kind: str = "q8_0") -> "LlamaModel":
         """Post-hoc weight quantization in place, as the JAX package's
@@ -324,8 +453,9 @@ class LlamaModel(torch.nn.Module):
 
     def init_cache(self, batch: int, dtype: str = "bf16") -> dict:
         """The stacked KV cache: "bf16", or "int8" (quant/kv_cache.py, as
-        the JAX package's init_cache(batch, "int8"), llama.py:659-692)."""
-        c = self.cfg
+        the JAX package's init_cache(batch, "int8"), llama.py:659-692); a
+        tensor-parallel rank's holds its local KV heads (tp.py:375-378)."""
+        c = self.layer_cfg
         shape = (c.n_layers, batch, c.n_kv_heads, c.max_seq_len, c.head_dim)
         if dtype == "int8":
             return kv_cache.init_cache(*shape, device=self.device)
@@ -359,8 +489,12 @@ class LlamaModel(torch.nn.Module):
         batch 1 into row cache_row of a cache of more rows, written at
         (li, cache_row, :, pos:pos+T) and attended through kv_row
         li * B' + cache_row. write_pos with an int pos takes that path too and
-        writes at pos, as JAX does (it reads write_pos with per-row pos only)."""
-        cfg = self.cfg
+        writes at pos, as JAX does (it reads write_pos with per-row pos only).
+
+        Under tensor parallelism (self.tp) every layer takes its local heads
+        and the tp collectives; the megacalls are off (llama.py:748), and K7
+        is chosen layer by layer, as over JAX's per-layer TP cache."""
+        cfg, tp = self.layer_cfg, self.tp
         b, t = tokens.shape
         kv8 = "k_s" in cache
         shape = cache["k"].shape
@@ -391,7 +525,8 @@ class LlamaModel(torch.nn.Module):
             wp = pos_v if write_pos is None else write_pos.to(device=x.device,
                                                               dtype=torch.int32)
             for li, layer in enumerate(layers):
-                x = _layer_step(cfg, x, layer, ck, cv, li, 0, kv_len, cos, sin, decode, wp=wp)
+                x = _layer_step(cfg, x, layer, ck, cv, li, 0, kv_len, cos, sin, decode, wp=wp,
+                                tp=tp)
             return x
         positions = torch.arange(pos, pos + t, device=x.device)
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
@@ -401,9 +536,9 @@ class LlamaModel(torch.nn.Module):
                 kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
             for li, layer in enumerate(layers):
                 x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode,
-                                row=cache_row)
+                                row=cache_row, tp=tp)
             return x
-        mega = self._megacall() if decode and b == 1 and not kv8 else None
+        mega = self._megacall() if decode and b == 1 and not kv8 and tp is None else None
         if mega is not None:
             run, view = mega
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
@@ -412,7 +547,7 @@ class LlamaModel(torch.nn.Module):
         fused = [k7 and all(isinstance(ly.get(n), PackedWeight) for n in ("wqkv", "wo"))
                  and attn_block_compatible(cfg.head_dim, b, (ly["wqkv"].kind, ly["wo"].kind))
                  for ly in layers]
-        if not kv8 and not all(fused):
+        if not kv8 and tp is None and not all(fused):
             fused = [False] * len(layers)        # the stacked bf16 cache: all layers or none
         pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device) if any(fused) else None
         kv_len = pos + t
@@ -420,9 +555,9 @@ class LlamaModel(torch.nn.Module):
             kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
         for li, layer in enumerate(layers):
             if fused[li]:
-                x = _fused_layer(cfg, x, layer, ck, cv, li, pos_t, cos, sin)
+                x = _fused_layer(cfg, x, layer, ck, cv, li, pos_t, cos, sin, tp)
             else:
-                x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode)
+                x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode, tp=tp)
         return x
 
     def head(self, x: torch.Tensor, greedy: bool = False,
@@ -431,17 +566,20 @@ class LlamaModel(torch.nn.Module):
         argmax ids int64 [B] of the last position (first index on ties; K5
         for batch 1). tier_rows: the row count of the call this head stands
         for (the prefill engine computes the last row of a chunk), which picks
-        the projection's tier."""
-        x = ops.rmsnorm(x, self.params["out_norm"], self.cfg.rms_norm_eps)
+        the projection's tier. Under tensor parallelism lm_head is the rank's
+        vocab shard: its logits are gathered over the tp group, and greedy
+        takes their argmax, never K5 (llama.py:517-543)."""
+        tp = self.tp
+        x = _tp_copy(ops.rmsnorm(x, self.params["out_norm"], self.cfg.rms_norm_eps), tp)
         lm_head = self.params.get("lm_head")
-        if greedy and isinstance(lm_head, PackedWeight):
+        if greedy and isinstance(lm_head, PackedWeight) and tp is None:
             tok = ops.qmatmul_greedy(x[:, -1], lm_head)
             if tok is not None:
                 return tok
         if lm_head is None:       # tied embeddings: logits = x @ embd.T
             logits = x.to(torch.float32) @ self.params["tok_embd"].to(torch.float32).T
         else:
-            logits = ops.qmatmul(x, lm_head, tier_rows)
+            logits = _tp_gather(ops.qmatmul(x, lm_head, tier_rows), tp)
         if greedy:
             return torch.argmax(logits[:, -1], dim=-1)
         return logits

@@ -172,10 +172,13 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(index: int, d: int, kv8: bool, bf16: bool = False) -> int:
+def _blocks_per_sm(index: int, d: int, kv: int, bf16: bool = False) -> int:
+    """Blocks of the prefill kernel an SM of card `index` holds at head_dim
+    d: over the bf16 cache (kv 0), the int8 one (1) or f32 K/V (2, K10f's
+    f32-K/V form); bf16: the bf16 form."""
     n = ctypes.c_int(0)
     with torch.cuda.device(index):
-        build.check(build.library().zgml_flash_blocks_per_sm(d, int(kv8), int(bf16),
+        build.check(build.library().zgml_flash_blocks_per_sm(d, int(kv), int(bf16),
                                                              ctypes.byref(n)),
                     "flash occupancy")
     if n.value < 1:
@@ -192,8 +195,9 @@ def flash_plan(q, k, kv_len, q_offset: int, kv8: bool, group: int | None = None)
     _, hkv, s, _ = k.shape
     kv_len = s if kv_len is None else min(int(kv_len), s)
     index = q.device.index or 0
+    kv = 1 if kv8 else 2 if k.dtype == torch.float32 else 0
     return flash_split_plan(b, hq, hkv, tq, d, kv_len, int(q_offset), _sm_count(index),
-                            _blocks_per_sm(index, d, kv8, group is not None), bn=group)
+                            _blocks_per_sm(index, d, kv, group is not None), bn=group)
 
 
 def grouped_softmax_pv(sc: torch.Tensor, v: torch.Tensor, vs: torch.Tensor | None,
@@ -576,6 +580,13 @@ def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool,
     if plan.n_split > 1:        # each split's o, then its (m, l), per row
         part = torch.empty(plan.n_split * b * hq * tq * (d + 2), dtype=torch.float32,
                            device=q.device)
+    if k.dtype == torch.float32:        # K10f's f32-K/V form (a ring hop)
+        status = build.library().zgml_flash_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse_t), _ptr(part), b,
+            hq, hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), plan.n_split, plan.bn,
+            1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        build.check(status, "flash_fwd_f32kv")
+        return o, lse_t
     status = build.library().zgml_flash_attention(
         q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), _ptr(lse_t),
         _ptr(part), b, hq, hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), plan.n_split,

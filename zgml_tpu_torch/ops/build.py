@@ -51,6 +51,7 @@ _SIGNATURES = {
     "zgml_qmatmul_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_qmatmul_bf16_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 12, _F, _P),
+    "zgml_flash_attention_f32": (*(_P,) * 6, *(_I,) * 11, _F, _P),
     "zgml_flash_dq": (*(_P,) * 8, *(_I,) * 11, _F, _P),
     "zgml_flash_dkv": (*(_P,) * 9, *(_I,) * 10, _F, _P),
     "zgml_flash_delta": (_P, _P, _P, _I, _I, _P),

@@ -63,7 +63,8 @@ ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
 fused_chain = K13, the graph tier's fused chains (f32; fused_chain_bf16,
 fused_chain_f16 and fused_chain_i32 its other dtypes); stack_decode = K14 and
 tape_decode = K15, tape_decode_f32 under ZGML_TPU_TAPE_BF16=0, the
-whole-stack decode megacalls): a kernel's count is
+whole-stack decode megacalls; ring_attention, one call of parallel/ring.py,
+whose hops count as K10f's): a kernel's count is
 added where it launches, a plain call's here. The cache's dtype picks K3/K4
 or K9/K8 in the model, and K7's cache mode here.
 """
@@ -307,6 +308,21 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
         return attention.flash_attention_cuda(q, k, v, kv_len, q_offset, kv_row, bf16, group)
     global_profile.count_op(attention.counter("attention", bf16), "ref")
     return attention.flash_attention_ref(q, k, v, kv_len, q_offset, kv_row, bf16, group)
+
+
+def flash_fwd_lse(q, k, v, kv_len=None, q_offset: int = 0, bf16: bool = False,
+                  group: int | None = None):
+    """K10f outside autograd, (o f32 [B, Hq, Tq, d], lse f32 [B, Hq, Tq]):
+    one ring-attention hop (parallel/ring.py, the JAX ring's direct
+    `_flash_fwd` call, ring.py:56-66). bf16 and group as flash_attention's;
+    over f32 k / v (bf16 False) K10f's f32-K/V form, counted flash_fwd_f32kv.
+    The ring decides its tier from the ring_attention switch, so this runs
+    the kernel on the card unless under force_ref()."""
+    _refuse_grad("flash_fwd_lse (K10f)", q, k, v)
+    if _use_kernel(None, q, k, v):
+        return flash_vjp.flash_fwd_lse_cuda(q, k, v, kv_len, q_offset, bf16, group)
+    global_profile.count_op(flash_vjp.fwd_counter(k, bf16), "ref")
+    return flash_vjp.flash_fwd_lse_ref(q, k, v, kv_len, q_offset, bf16, group)
 
 
 def decode_attention(q, k, v, kv_len, kv_row: int = 0):

@@ -26,7 +26,9 @@ The bf16 form (flash_vjp.py:60-84, 168-187, 258-284): K10f is K3's bf16
 form with its LSE (ops/attention.py); the backward's s takes bf16(q), both
 dP take bf16(dO), dV = bf16(p)^T bf16(dO), and dS k / dS'^T q keep the f32
 dS against k and bf16(q). Its launches count under flash_fwd_bf16,
-flash_dq_bf16 and flash_dkv_bf16.
+flash_dq_bf16 and flash_dkv_bf16. K10f alone also takes f32 k / v (a ring
+hop under ZGML_TPU_PREFILL_BF16=0, parallel/ring.py, as JAX's hop attends
+over the f32 K/V of the cp body): its f32-K/V form, flash_fwd_f32kv.
 ``FlashAttention`` sums each GQA group of dK / dV outside the kernels in f32
 and rounds once to bf16, as XLA sums the bf16 group (flash_vjp.py:366-370).
 
@@ -158,8 +160,8 @@ def group_sum(dh: torch.Tensor, hkv: int) -> torch.Tensor:
     return dh.reshape(b, hkv, hq // hkv, s, d).to(torch.float32).sum(dim=2).to(dh.dtype)
 
 
-def _check(name, q, k, v, extra=()):
-    check_qkv(name, q, k, v, 0, None)
+def _check(name, q, k, v, extra=(), kv_dtype=torch.bfloat16):
+    check_qkv(name, q, k, v, 0, None, kv_dtype=kv_dtype)
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"{name}: k has {k.shape[0]} batch rows, q {q.shape[0]}: the training "
                          f"kernels read row b of k for row b of q (no kv_row)")
@@ -257,14 +259,26 @@ def flash_dkv_plan(q, k, kv_len, q_offset: int, bf16: bool = False) -> FlashDkvP
                                 _bwd_blocks_per_sm(index, d, 1, bf16))
 
 
+def fwd_counter(k: torch.Tensor, bf16: bool) -> str:
+    """K10f's placement counter: flash_fwd_f32kv over f32 K/V (its f32-K/V
+    form, a ring hop under ZGML_TPU_PREFILL_BF16=0), else flash_fwd or
+    flash_fwd_bf16."""
+    return "flash_fwd_f32kv" if k.dtype == torch.float32 else counter("flash_fwd", bf16)
+
+
 def flash_fwd_lse_cuda(q, k, v, kv_len=None, q_offset: int = 0, bf16: bool = False,
                        group: int | None = None):
     """Launch K10f (csrc/flash_attn.cu): (o, lse); bf16 and group as
-    attention.flash_attention_cuda's."""
-    _check("flash_fwd", q, k, v)
+    attention.flash_attention_cuda's. Over f32 k / v (the JAX ring's hop at
+    ZGML_TPU_PREFILL_BF16=0) its f32-K/V form, which has no bf16 form: JAX's
+    bf16 kernel rounds K/V to bf16, so its caller hands them over rounded."""
+    f32kv = k.dtype == torch.float32
+    if f32kv and bf16:
+        raise ValueError("flash_fwd: the bf16 form reads bf16 K/V, got float32")
+    _check("flash_fwd", q, k, v, kv_dtype=torch.float32 if f32kv else torch.bfloat16)
     o, lse = launch_flash(q, k, None, v, None, kv_len, q_offset, 0, lse=True,
                           group=(group or flash_group(k.shape[2], False)) if bf16 else None)
-    global_profile.count_op(counter("flash_fwd", bf16), "cuda")
+    global_profile.count_op(fwd_counter(k, bf16), "cuda")
     return o, lse
 
 

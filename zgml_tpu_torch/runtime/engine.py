@@ -15,13 +15,21 @@ The tiers match the JAX engine's plans (engine.py:46-91): `step` and sampled
 `decode_n` take the logits through the M = B projection (K1 when the int8
 tier is on), greedy `decode_n` the fused greedy head (K5), and batch-1 decode
 runs the layer kernels (K7, K6) when ZGML_TPU_ATTN_BLOCK is on.
+
+`prefill_cp` is the context-parallel prefill (engine.py:128-206) over a
+mesh axis of parallel/mesh.py; an engine over a tensor-parallel shard
+(parallel/tp.shard_llama_params) runs its usual calls on every rank of the
+tp group together.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from zgml_tpu_torch.models.llama import LlamaModel
+from zgml_tpu_torch.models.llama import LlamaModel, write_kv
+from zgml_tpu_torch.parallel.cp import cp_prefill
+from zgml_tpu_torch.parallel.mesh import broadcast
+from zgml_tpu_torch.quant import kv_cache
 from zgml_tpu_torch.runtime.profile import global_profile
 from zgml_tpu_torch.runtime.sampling import SamplingParams, sample
 
@@ -78,6 +86,51 @@ class LlamaEngine:
                 last = self.model.head(x[:, n_valid - 1:n_valid],
                                        tier_rows=window.size)[:, 0]
                 self.pos += n_valid
+        global_profile.add("prefill_tokens", t * b)
+        return last
+
+    @torch.inference_mode()
+    def prefill_cp(self, tokens, mesh, axis: str = "cp") -> torch.Tensor:
+        """Context-parallel prefill of a prompt from a fresh session over the
+        mesh axis `axis` (engine.py:128-206): every rank of the axis group
+        calls it with the same prompt and its own engine over the whole
+        model. The prompt is zero-padded to a multiple of cp, each rank runs
+        its chunk through parallel/cp.cp_prefill (ring attention), and the
+        gathered K/V of the t real positions land in this engine's cache: the
+        bf16 cache takes them rounded, the int8 one quantized per position
+        (quant/kv_cache.write, bit-equal to quantize_columns). Sets pos = t
+        and returns the last real row's logits f32 [B, V] (computed by the
+        rank whose chunk holds it, at the tier of its chunk's rows, and
+        broadcast). Decode then continues on the normal path."""
+        tokens = np.atleast_2d(np.asarray(tokens, np.int64))
+        b, t = tokens.shape
+        if b != self.batch:
+            raise ValueError(f"engine holds batch {self.batch}, got {b}")
+        if self.pos != 0:
+            raise ValueError("prefill_cp requires a fresh session (pos==0)")
+        if t > self.cfg.max_seq_len:
+            raise ValueError("SequenceTooLong")
+        cp, idx, group = mesh.shape[axis], mesh.coords[axis], mesh.groups[axis]
+        t_loc = -(-t // cp)
+        toks = np.pad(tokens, ((0, 0), (0, t_loc * cp - t)))
+        with global_profile.phase("prefill_cp"):
+            x, kv = cp_prefill(self.model, group, self._ids(toks[:, idx * t_loc:(idx + 1) * t_loc],
+                                                             (b, t_loc)))
+            int8 = "k_s" in self.cache
+            for li, (k, v) in enumerate(kv):
+                k, v = k[:, :, :t], v[:, :, :t]
+                if int8:
+                    kv_cache.write((self.cache["k"], self.cache["k_s"]),
+                                   (self.cache["v"], self.cache["v_s"]), li, 0, k, v)
+                else:
+                    write_kv(self.cache["k"], self.cache["v"], li, 0, k, v)
+            owner, row = divmod(t - 1, t_loc)
+            last = torch.empty((b, self.cfg.vocab_size), dtype=torch.float32,
+                               device=self.device)
+            if idx == owner:
+                last = self.model.head(x[:, row:row + 1], tier_rows=b * t_loc)[:, 0]
+            last = broadcast(last, group, owner)
+        self.pos = t
         global_profile.add("prefill_tokens", t * b)
         return last
 

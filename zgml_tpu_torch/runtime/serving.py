@@ -23,14 +23,25 @@ device (a CUDA graph of it is ROADMAP.md A.2's work).
 
 Sampling draws from a torch.Generator on the model's device seeded from
 `seed` (JAX keys and torch generators give different streams: greedy
-decoding is what the two packages share).
+decoding is what the two packages share). Over a mesh every rank draws for
+all max_batch rows, so a sampled stream is the one-process server's.
 
 One repair against the reference: a padded last chunk that would run past
 max_seq_len (only where prefill_chunk does not divide it) is trimmed to
 max_seq_len - pos, as LlamaEngine.prefill trims it; the JAX engine pads it
 to the whole chunk, its dynamic_update_slice clamps the start, and the cache
-is corrupted (ROADMAP.md, reference weak spots). Tensor- or data-parallel
-serving (`mesh=`) waits for parallel/ (ROADMAP.md A.7).
+is corrupted (ROADMAP.md, reference weak spots).
+
+Over a (dp, tp) mesh (`mesh=`, parallel/mesh.py; serving.py:56-215) every
+rank runs this engine with the same calls. The slots are sharded over dp:
+dp rank i owns slots [i * b, (i + 1) * b), b = max_batch / dp, in a cache of
+b rows (its local KV heads under tp, the model sharded by
+parallel/tp.shard_llama_params). A slot's prefill chunk runs only in its
+owner's tp group, and its logits are broadcast over dp; a decode step or a
+burst runs on every rank over its own rows, and the sampled ids are
+gathered over dp, so every rank's host state (admission, positions,
+streams) stays identical. A process per rank needs no scratch row: JAX's
+non-owner shards write into one (serving.py:154-163).
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 
 from zgml_tpu_torch.models.llama import LlamaModel
+from zgml_tpu_torch.parallel.mesh import all_gather, broadcast
 from zgml_tpu_torch.runtime.profile import global_profile
 from zgml_tpu_torch.runtime.sampling import SamplingParams, sample
 
@@ -68,21 +80,29 @@ class _Prefill:
 class ContinuousBatchingEngine:
     """`max_batch` slots over one model and one shared KV cache ("bf16" or
     "int8"), on the model's device (the card unless the model was built with
-    device="cpu")."""
+    device="cpu"); with `mesh`, this rank's share of them (module note)."""
 
     def __init__(self, model: LlamaModel, max_batch: int = 8, prefill_chunk: int = 128,
                  cache_dtype: str = "bf16", sampling: SamplingParams = SamplingParams(),
                  seed: int = 0, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatchingEngine(mesh=...): dp / tp serving needs parallel/, which "
-                "zgml_tpu_torch does not have yet (ROADMAP.md A.7)")
+        self.mesh = mesh
+        self.dp = 1 if mesh is None else mesh.shape.get("dp", 1)
+        tp = 1 if mesh is None else mesh.shape.get("tp", 1)
+        sharded = model.tp.size if model.tp else 1
+        if max_batch % self.dp:
+            raise ValueError(f"max_batch={max_batch} not divisible by dp={self.dp}")
+        if sharded != tp:
+            raise ValueError(f"the model is sharded {sharded} ways, the mesh's tp is {tp}: run "
+                             f"shard_llama_params(model, mesh)")
+        self._b_loc = max_batch // self.dp          # this rank's rows
+        self._dpi = 0 if mesh is None else mesh.coords.get("dp", 0)
+        self._rows = slice(self._dpi * self._b_loc, (self._dpi + 1) * self._b_loc)
         self.model = model
         self.cfg = model.cfg
         self.max_batch = max_batch
         self.sampling = sampling
         self.device = model.device
-        self.cache = model.init_cache(max_batch, cache_dtype)
+        self.cache = model.init_cache(self._b_loc, cache_dtype)
         self.prefill_chunk = min(prefill_chunk, self.cfg.max_seq_len)
         self.pos = np.zeros(max_batch, np.int64)
         self.slots: list[Request | None] = [None] * max_batch
@@ -99,19 +119,34 @@ class ContinuousBatchingEngine:
                       ) -> torch.Tensor:
         """One prefill chunk [1, T] written into slot `slot`'s rows at pos;
         the logits f32 [1, V] of its last valid token (the head's tier that
-        of the whole chunk, as JAX computes the chunk's logits)."""
-        ids = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
-        x = self.model.body(ids, self.cache, pos, cache_row=slot)
-        return self.model.head(x[:, n_valid - 1:n_valid], tier_rows=tokens.size)[:, 0]
+        of the whole chunk, as JAX computes the chunk's logits). Over a mesh
+        only the slot's owner dp group computes, and broadcasts them."""
+        owner, row = divmod(slot, self._b_loc)
+        if owner == self._dpi:
+            ids = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
+            x = self.model.body(ids, self.cache, pos, cache_row=row)
+            last = self.model.head(x[:, n_valid - 1:n_valid], tier_rows=tokens.size)[:, 0]
+        else:
+            last = torch.empty((1, self.cfg.vocab_size), dtype=torch.float32,
+                               device=self.device)
+        if self.dp > 1:
+            last = broadcast(last, self.mesh.groups["dp"], owner)
+        return last
+
+    def _gathered(self, tok: torch.Tensor) -> torch.Tensor:
+        """This rank's ids [..., b] joined over dp into [..., max_batch]."""
+        return tok if self.dp == 1 else all_gather(tok, self.mesh.groups["dp"], dim=-1)
 
     def _device_state(self, active: list[int]) -> tuple[torch.Tensor, torch.Tensor,
                                                         torch.Tensor]:
-        """(last ids [B], positions int32 [B], active mask [B]) on the device."""
+        """(last ids [b], positions int32 [b], active mask [b]) of this
+        rank's rows on the device."""
         mask = np.zeros(self.max_batch, bool)
         mask[active] = True
-        return (torch.as_tensor(self.last_tok, device=self.device),
-                torch.as_tensor(self.pos.astype(np.int32), device=self.device),
-                torch.as_tensor(mask, device=self.device))
+        rows = self._rows
+        return (torch.as_tensor(self.last_tok[rows], device=self.device),
+                torch.as_tensor(self.pos[rows].astype(np.int32), device=self.device),
+                torch.as_tensor(mask[rows], device=self.device))
 
     def _decode_logits(self, tok: torch.Tensor, pos: torch.Tensor, active: torch.Tensor
                        ) -> torch.Tensor:
@@ -122,8 +157,17 @@ class ContinuousBatchingEngine:
 
     def _decode(self, tok: torch.Tensor, pos: torch.Tensor, active: torch.Tensor
                 ) -> torch.Tensor:
-        """One batched decode step: next ids [B] on the device."""
-        return sample(self._decode_logits(tok, pos, active), self.sampling, self.generator)
+        """One batched decode step: this rank's next ids [b] on the device.
+        Sampling over dp gathers the logits of all max_batch rows and draws
+        for every row on every rank (one generator, seeded alike), keeping
+        this rank's: the draws of the one-process server, as the JAX mesh
+        server samples the global batch, so no two dp ranks' rows share
+        random numbers."""
+        logits = self._decode_logits(tok, pos, active)
+        if self.dp > 1 and self.sampling.temperature != 0.0:
+            logits = all_gather(logits, self.mesh.groups["dp"], dim=0)
+            return sample(logits, self.sampling, self.generator)[self._rows]
+        return sample(logits, self.sampling, self.generator)
 
     # -- public api ------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, stop_ids: tuple[int, ...] = ()) -> int:
@@ -203,7 +247,7 @@ class ContinuousBatchingEngine:
         if not active:
             return []
         with torch.inference_mode(), global_profile.phase("serve_decode"):
-            tok = self._decode(*self._device_state(active))
+            tok = self._gathered(self._decode(*self._device_state(active)))
         tok_host = tok.cpu().numpy()
         out = []
         for i in active:
@@ -242,7 +286,7 @@ class ContinuousBatchingEngine:
                 tok = self._decode(tok, pos, mask)
                 toks.append(tok)
                 pos = pos + 1
-            toks = torch.stack(toks)
+            toks = self._gathered(torch.stack(toks))
         toks_host = toks.cpu().numpy()          # [n, B]
         out = []
         for i in active:
