@@ -178,6 +178,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                    and the sampled request; K7 with its phase E exactly once
                    per layer per decode token (22 a token), and K1q4, K2q4,
                    K3, K5q4 and K6b, no K6d and no K7 without E;
+       f32kv_tiny  TinyLlama Q4_0 at the default flags over the f32 KV cache
+                   (cache_dtype="f32"): the 3 greedy and the sampled request
+                   through K3's f32-K/V bf16 form and K7's f32-cache mode
+                   (with K1q4, K2q4, K5q4, K6b and K6d); then its 128-token
+                   prompt once more under ZGML_TPU_PREFILL_BF16=0 (K2's f32
+                   form, K3's f32-K/V f32 form in every layer, counted)
+                   against force_ref() within LOGIT_RTOL;
+       f32kv_7b    Llama-2-7B Q4_0's first SHALLOW_LAYERS layers over the
+                   f32 cache: K7's int8 A phase in its f32-cache mode and K6c;
      then the serving paths (runtime/serving.py, ContinuousBatchingEngine of
      max_batch 8 and prefill_chunk 128 on TinyLlama Q4_0 at the default
      flags): serve_tiny (bf16 cache: K2q4's and K3's bf16 forms prefilling
@@ -283,6 +292,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                    greedy tokens (K3's bf16 form, K4 in every layer; no plain
                    version), against force_ref() as the inference paths'
                    first request; pp128, tg32 and a profile;
+       gpt2_xl_f32 its first SHALLOW_LAYERS layers over an f32 cache
+                   (GPTModel.init_cache(b, "f32")): the same request through
+                   K3's f32-K/V bf16 form and K4's f32 form (counted
+                   exactly), against force_ref() likewise; pp128 and tg32 in
+                   turns with gpt2_xl;
        whisper_large_v3  Whisper large-v3's shapes (WHISPER_V3, heads from
                    its config.json) through load_whisper_hf: 30 s of tones and
                    noise through log_mel_spectrogram and pad_or_trim(3000),
@@ -350,11 +364,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                    on the ranks (the plain versions at the local shapes), each
                    up to its first top-2 gap under STEP_RTOL; the serving
                    rate;
+     and the training half of parallel/ (ROADMAP A.7b) on the same ranks, on
+     TinyLlama-1.1B's widths at SHALLOW_LAYERS layers, dense f32 from
+     init_params(seed 0), train_dense's batch (B 4 x T 512 corpus windows):
+       tp2_train_tiny, dp2_train_tiny, pp2_train_tiny  make_sharded_train_step
+                   at tp 2 x dp 1 and dp 2 x tp 1, make_pp_train_step over 2
+                   stages (n_micro _choose_micro(4, 2)): 2 SGD steps at lr
+                   1e-2; on every rank K10's bf16 forms and no plain version,
+                   the losses within 1e-4 relative and the first step's
+                   gradients within max(GRAD_RTOL * max|g|, 2 x the
+                   one-process gradients' move under 1e-7 embedding
+                   perturbations) of the one-process computation on the same
+                   inputs (made on the rank), the replicated leaves the same
+                   bits on both ranks after the steps; step ms and host
+                   copies;
+       pp2_tiny    make_pp_forward over 2 stages of the same model at batch
+                   2 (n_micro _choose_micro(2, 2) = 2 microbatches of a
+                   row, each its own cache row): a 128-token prefill and 32
+                   greedy tokens a row, one pipeline forward a token (K3's
+                   bf16 form and K4 on each stage's layers, counted exactly,
+                   and the stages' run and bubble ticks), against the
+                   one-process model
+                   (prefill logits within 1e-3, steps within 1e-2 of max,
+                   tokens up to a small top-2 gap);
      and NCCL at world size 1 in this process (init, all_reduce and
      all_gather through parallel/mesh.py, equal to their input).
      SHALLOW_PATHS (unfused, q8_default, kv8_i8pv, rmsnorm_forced,
-     stack_tiny, tape_tiny, layer_ffn_tiny, serve_kv8_tiny), train_dense
-     and train_rmsnorm_forced run on TinyLlama-1.1B's first SHALLOW_LAYERS = 4
+     stack_tiny, tape_tiny, layer_ffn_tiny, serve_kv8_tiny; f32kv_7b on
+     Llama-2-7B's), train_dense, train_rmsnorm_forced and the parallel
+     training paths run on TinyLlama-1.1B's first SHALLOW_LAYERS = 4
      layers at full width: their kernels run and are checked at full depth
      elsewhere (phase 2 and the full-depth paths). The GGUFs phase 3 loads
      are written by a spawned process while phase 2 runs;
@@ -460,7 +498,7 @@ PLANAR_ROWS = (1, 4, 7, 8, 32)   # K6b: a 1-token chunk, kv8_tiny's batch-4 deco
                                  # smoke's 7-token prompt, the serving decode, a full chunk
 SAMPLED_CHUNK = 32         # prefill chunk of the sampled request's engine
 GREEDY_TRIALS = 8
-RATE_ROUNDS = 5            # phase 4: rounds of the paths in turns, there and back
+RATE_ROUNDS = 4            # phase 4: rounds of the paths in turns, there and back
 ATTN_LAYER = 3             # K7 reads and writes a layer slab other than the first
 REL_BOUND = 1e-5           # K1, K6, K7 vs plain: f32 sums in another order
 # K6b (split-TF32 tensor cores, as K2 above 4 rows): its rms error against
@@ -486,6 +524,13 @@ KINDS = ("q4_0", "q8_0")
 TRAIN_FLASH_CASES = [("TinyLlama B=4 T=512", 4, 32, 4, 512, 512, 64, 512, 0),
                      ("7B hd=128 n_rep=1 T=512", 1, 32, 32, 512, 512, 128, 512, 0),
                      ("kv_len < S", 1, 32, 4, 128, 512, 64, 300, 172)]
+# K10's bf16 forms also at the training half of parallel/'s shapes (phase 3,
+# PAR_TRAIN): a tp-2 rank's local heads, a dp-2 rank's rows, a pp-2
+# microbatch (_choose_micro(4, 2) = 4 of one row)
+PAR_TRAIN_FLASH_CASES = [("tp2_train_tiny rank B=4 T=512", 4, 16, 2, 512, 512, 64, 512, 0),
+                         ("dp2_train_tiny rank B=2 T=512", 2, 32, 4, 512, 512, 64, 512, 0),
+                         ("pp2_train_tiny microbatch B=1 T=512", 1, 32, 4, 512, 512, 64, 512,
+                          0)]
 TRAIN_M = 512              # K11's rows: B 1 x T 512 (train_q4_frozen), one step's g
 K11_RMS_RATIO = 2.0        # K11's rms error vs float64, at most this x cuBLAS f32's
 TRAIN_B, TRAIN_T = 4, 512  # train_dense's batch of corpus windows
@@ -587,6 +632,11 @@ TF32_FLOP_PER_S = 495e12
 # operands exact): K10DQ_TF32 and K10DKV_TF32 / K10DKV_BF16 operations per
 # (head, live pair, head_dim)
 TF32_PASSES = 2
+# K3 over f32 K / V (its f32-K/V form, csrc/flash_attn.cu): K and V split as
+# q and p are, three TF32 products a dot (hi.hi + lo.hi + hi.lo); held to
+# F32KV_RTOL * max|o| of the plain version on the same f32 K / V
+F32KV_PASSES = 3
+F32KV_RTOL = 1e-5
 K10DQ_TF32 = 2 * (2 + 2 + 2)          # S = q K^T, dP = dO V^T, dQ = dS K
 K10DKV_TF32 = 2 * (2 + 3 + 3)         # S^T, dV = P^T dO, dK = dS'^T q
 K10DKV_BF16 = 2 * 1                   # dP'^T = V bf16(dO)^T
@@ -636,23 +686,28 @@ PATHS = {"default": {},
          "rmsnorm_forced": {"ZGML_TPU_KERNELS_FORCE": "rmsnorm"},
          "stack_tiny": {"ZGML_TPU_STACK_DECODE": "1"},
          "tape_tiny": {"ZGML_TPU_TAPE_DECODE": "1"},
-         "layer_ffn_tiny": {"ZGML_TPU_LAYER_FFN": "1"}}
+         "layer_ffn_tiny": {"ZGML_TPU_LAYER_FFN": "1"},
+         "f32kv_tiny": {},
+         "f32kv_7b": {}}
 PATH_MODEL = {"default": ("tinyllama-1.1b", "q4_0"), "unfused": ("tinyllama-1.1b", "q4_0"),
               "q8_default": ("tinyllama-1.1b", "q8_0"), "llama2_7b": ("llama2-7b", "q4_0"),
               "kv8_tiny": ("tinyllama-1.1b", "q4_0"), "kv8_i8pv": ("tinyllama-1.1b", "q4_0"),
               "kv8_7b": ("llama2-7b", "q4_0"),
               "rmsnorm_forced": ("tinyllama-1.1b", "q4_0"),
               "stack_tiny": ("tinyllama-1.1b", "q4_0"), "tape_tiny": ("tinyllama-1.1b", "q4_0"),
-              "layer_ffn_tiny": ("tinyllama-1.1b", "q4_0")}
+              "layer_ffn_tiny": ("tinyllama-1.1b", "q4_0"),
+              "f32kv_tiny": ("tinyllama-1.1b", "q4_0"), "f32kv_7b": ("llama2-7b", "q4_0")}
 # the megacall of a path, which must launch exactly once per decode token
 MEGA_PATHS = {"stack_tiny": "stack_decode", "tape_tiny": "tape_decode"}
 # the layer kernel of a path, which must launch once per layer per decode token
 LAYER_PATHS = {"layer_ffn_tiny": "attn_block_ffn"}
 # the engines' cache_dtype; else bf16
-PATH_CACHE = {"kv8_tiny": "int8", "kv8_i8pv": "int8", "kv8_7b": "int8"}
+PATH_CACHE = {"kv8_tiny": "int8", "kv8_i8pv": "int8", "kv8_7b": "int8", "f32kv_tiny": "f32",
+              "f32kv_7b": "f32"}
 # paths that also answer the sampled request
 PATH_SAMPLED = ("default", "q8_default", "llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b",
-                "rmsnorm_forced", "stack_tiny", "tape_tiny", "layer_ffn_tiny")
+                "rmsnorm_forced", "stack_tiny", "tape_tiny", "layer_ffn_tiny", "f32kv_tiny",
+                "f32kv_7b")
 # + a greedy request of 4 rows x this many prompt tokens (32 new tokens each)
 # from a batch-4 engine (K8; on kv8_i8pv 3 chunks of 128, the decode in JAX
 # block 1 of K8's 256-key blocks)
@@ -663,7 +718,8 @@ LONG_PROMPT = 1536
 # paths whose decode quantizes per token beyond K1 (K7-i8 and K6c on Llama-2-7B, the
 # int8 cache, K15's bf16 operands): their tokens are compared up to a top-2 gap
 # under the step bound
-FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b", "tape_tiny", "mixed_tiny",
+FLIP_PATHS = ("llama2_7b", "kv8_tiny", "kv8_i8pv", "kv8_7b", "tape_tiny", "f32kv_7b",
+              "mixed_tiny",
               "mixed_kv8_tiny")
 PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
                             "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block"),
@@ -688,7 +744,18 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_b
                 "tape_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
                               "q4_greedy", "fused_ffn", "tape_decode"),
                 "layer_ffn_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16",
-                                   "q4_greedy", "fused_ffn", "attn_block_ffn")}
+                                   "q4_greedy", "fused_ffn", "attn_block_ffn"),
+                # the f32 KV cache: K3's f32-K/V bf16 form for the prefill
+                # (F32KV_TINY_F32 below: its f32 form), K7's f32-cache mode
+                "f32kv_tiny": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16_f32kv",
+                               "q4_greedy", "fused_ffn_norm", "fused_ffn", "attn_block_f32kv"),
+                "f32kv_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16_f32kv",
+                             "q4_greedy", "fused_ffn_norm_i8", "fused_ffn",
+                             "attn_block_i8_f32kv")}
+# f32kv_tiny's second prefill (its 128-token prompt) under
+# ZGML_TPU_PREFILL_BF16=0: K2's f32 form and K3's f32-K/V f32 form
+F32KV_TINY_F32 = ("f32kv_tiny_f32", {"ZGML_TPU_PREFILL_BF16": "0"},
+                  ("q4_matmul", "flash_attention_f32kv"))
 # continuous batching (runtime/serving.py) on the TinyLlama Q4_0 model the
 # default path loads, at the default flags: its cache and the kernels that
 # must launch (and no other, no plain version)
@@ -727,6 +794,28 @@ PAR_KERNELS = {"tp2_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf1
                # (and its GEMV for the head's row), K10f's f32-K/V form
                "cp2_tiny_f32": ("q4_matmul", "flash_fwd_f32kv"),
                "serve_mesh_tiny": SERVE_PATHS["serve_tiny"][1]}
+# the training half of parallel/ (phase 3, on the same PAR_RANKS ranks):
+# TinyLlama-1.1B widths at SHALLOW_LAYERS layers, dense f32 from
+# init_params(seed SEED), TRAIN_B x TRAIN_T corpus windows (train_dense's
+# batch; the loss on tokens[:, :-1] against tokens[:, 1:]), PAR_TRAIN_STEPS
+# SGD steps at PAR_TRAIN_LR, each path's mesh; every rank launches K10's bf16
+# forms and no plain version. Each is held on every rank to the one-process
+# computation on the same inputs (made on the rank): the loss of each step
+# within PAR_LOSS_RTOL relative, the first step's gradients per tensor
+# within max(GRAD_RTOL * max|g|, SENS_MARGIN x the one-process gradients'
+# own move under SENS_EPS embedding perturbations, GRAD_SENS_DRAWS draws),
+# the replicated leaves the same bits on both ranks after the steps
+PAR_TRAIN = {"tp2_train_tiny": dict(tp=2, dp=1), "dp2_train_tiny": dict(tp=1, dp=2),
+             "pp2_train_tiny": dict(pp=2)}
+PAR_TRAIN_KERNELS = ("flash_fwd_bf16", "flash_dq_bf16", "flash_dkv_bf16")
+PAR_TRAIN_STEPS, PAR_TRAIN_LR, PAR_LOSS_RTOL = 2, 1e-2, 1e-4
+# pp2_tiny: make_pp_forward over 2 stages of the same dense model at batch
+# PP_FWD_BATCH (n_micro _choose_micro(PP_FWD_BATCH, 2) microbatches, which
+# write and read their own rows of the stage's cache), a PAR_PROMPT-token
+# prefill and PAR_NEW greedy tokens a row, one pipeline forward a token: K3's
+# bf16 form and K4 on each stage's layers, once a microbatch
+PP_FWD_KERNELS = ("flash_attention_bf16", "decode_attention")
+PP_FWD_BATCH = 2
 # TinyLlama paths whose kernels other paths (and phase 2) launch and check at
 # full depth: driven on the model's first SHALLOW_LAYERS layers (full width);
 # so are train_dense / train_rmsnorm_forced (K10 at full depth: train_q4_*,
@@ -734,7 +823,7 @@ PAR_KERNELS = {"tp2_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf1
 # bf16 form and K8 run at full depth in kv8_tiny, K1, K2 and K6b in serve_tiny)
 SHALLOW_PATHS, SHALLOW_LAYERS = ("unfused", "q8_default", "kv8_i8pv", "rmsnorm_forced",
                                  "stack_tiny", "tape_tiny", "layer_ffn_tiny",
-                                 "serve_kv8_tiny"), 4
+                                 "serve_kv8_tiny", "f32kv_7b"), 4
 # the GGUFs phase 3 loads, written by a spawned process while phase 2 runs
 # (which draws its own weights), joined within GGUF_TIMEOUT seconds
 GGUF_FILES = (("tinyllama-1.1b", "q4_0"), ("tinyllama-1.1b", "q8_0"), ("llama2-7b", "q4_0"))
@@ -783,6 +872,9 @@ WHISPER_V3 = dict(n_mels=128, n_audio_ctx=1500, n_audio_state=1280, n_audio_head
                   n_text_heads=20, n_text_layers=32)
 GPT_PROMPT, GPT_NEW = 128, 32          # gpt2_xl: one 128-token chunk, 32 greedy tokens
 GPT_KERNELS = ("flash_attention_bf16", "decode_attention")
+# gpt2_xl_f32: the same model's first SHALLOW_LAYERS layers over an f32 cache
+# (GPTModel.init_cache(b, "f32")): K3's f32-K/V bf16 form, K4's f32 form
+GPT_F32_KERNELS = ("flash_attention_bf16_f32kv", "decode_attention_f32")
 # phase 2 at GPT-2 XL's heads (Hq = Hkv = 25 of 64, a cache of n_ctx 1024):
 # K4 at these kv_len, K3's bf16 form on a 128-row chunk at (q_offset, kv_len)
 GPT_DECODE_LENS = [1, 200, 1023]
@@ -880,6 +972,21 @@ KERNELS = {
                              "zgml_tpu/ops/attention.py:375"),
     "flash_fwd_f32kv": ("flash_fwd_f32kv", _CSRC + "flash_attn.cu",
                         "zgml_tpu/ops/flash_vjp.py:140"),
+    # the f32 KV cache: K3 over f32 K / V in both forms, K7 over the f32 cache
+    "flash_attention_f32kv": ("attention_f32kv", _CSRC + "flash_attn.cu",
+                              "zgml_tpu/ops/attention.py:194"),
+    "flash_attention_bf16_f32kv": ("attention_bf16_f32kv", _CSRC + "flash_attn.cu",
+                                   "zgml_tpu/ops/attention.py:194"),
+    "attn_block_f32kv": ("attn_block_f32kv", _CSRC + "layer_attn_f32.cu",
+                         "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_f32kv_q8": ("attn_block_f32kv_q8", _CSRC + "layer_attn_f32.cu",
+                            "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_f32kv": ("attn_block_i8_f32kv", _CSRC + "layer_attn_f32.cu",
+                            "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_f32kv_ffn": ("attn_block_f32kv_ffn", _CSRC + "layer_attn_f32.cu",
+                             "zgml_tpu/ops/layerkernel.py:685"),
+    "attn_block_i8_f32kv_ffn": ("attn_block_i8_f32kv_ffn", _CSRC + "layer_attn_f32.cu",
+                                "zgml_tpu/ops/layerkernel.py:685"),
 }
 # the form of each kernel with two (ZGML_TPU_PREFILL_BF16; K8's
 # ZGML_TPU_ATTN_I8PV): its mode in the JSON line, beside the counter that
@@ -893,7 +1000,11 @@ MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "fla
         **{k: "phase_e" for k in ("attn_block_ffn", "attn_block_kv8_ffn", "attn_block_i8_ffn",
                                   "attn_block_i8_kv8_ffn")},
         "fused_ffn_q8": "no_norm", "fused_chain": "f32", "fused_chain_bf16": "bf16",
-        "fused_chain_f16": "f16", "decode_attention_f32": "f32", "flash_fwd_f32kv": "f32kv"}
+        "fused_chain_f16": "f16", "decode_attention_f32": "f32", "flash_fwd_f32kv": "f32kv",
+        "flash_attention_f32kv": "f32kv", "flash_attention_bf16_f32kv": "bf16_f32kv",
+        **{k: "f32_cache" for k in ("attn_block_f32kv", "attn_block_f32kv_q8",
+                                    "attn_block_i8_f32kv")},
+        **{k: "phase_e_f32_cache" for k in ("attn_block_f32kv_ffn", "attn_block_i8_f32kv_ffn")}}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -903,7 +1014,10 @@ NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("attn_i8", "q4_0"): "attn_block_i8", ("attn_i8", "q8_0"): "attn_block_i8_q8",
         ("attn_kv8", "q4_0"): "attn_block_kv8", ("attn_kv8", "q8_0"): "attn_block_kv8_q8",
         ("attn_i8_kv8", "q4_0"): "attn_block_i8_kv8",
-        ("attn_i8_kv8", "q8_0"): "attn_block_i8_kv8_q8"}
+        ("attn_i8_kv8", "q8_0"): "attn_block_i8_kv8_q8",
+        ("attn_f32kv", "q4_0"): "attn_block_f32kv", ("attn_f32kv", "q8_0"): "attn_block_f32kv_q8",
+        ("attn_i8_f32kv", "q4_0"): "attn_block_i8_f32kv",
+        ("attn_i8_f32kv", "q8_0"): "attn_block_i8_f32kv_q8"}
 # K2's library call (phase 2): the same function, timed and used nowhere in the port
 LIBRARY_K2 = ("torch.matmul(x, W.T) f32 (allow_tf32 False), W dequantized outside the "
               "timed window")
@@ -1374,8 +1488,11 @@ def check_kernels(torch, dev, ptxas_q8):
         del gu0, wd0
 
     def random_cache(shape, kv8):
-        """A random stacked cache [L, 1, Hkv, S, hd]: bf16, or (kv8) int8
-        levels with per-position f32 scales (the dequantized values ~1)."""
+        """A random stacked cache [L, 1, Hkv, S, hd]: bf16, f32 (kv8 "f32"), or
+        (kv8 True) int8 levels with per-position f32 scales (the dequantized
+        values ~1)."""
+        if kv8 == "f32":
+            return torch.randn(shape, device=dev, generator=g)
         if not kv8:
             return torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
         return (torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g),
@@ -1389,20 +1506,26 @@ def check_kernels(torch, dev, ptxas_q8):
         int8 A phase, held to the plain version on the kernel's own int8
         activations; with kv8 its int8-cache mode, held to the plain version
         on the kernel's own quantized q (q8_out), its row pos bit-equal to
-        quantize_columns of its own k_cur / v_cur. The model width d is
-        hq * hd unless given (a tensor-parallel shard: local heads, whole
-        width)."""
+        quantize_columns of its own k_cur / v_cur; with kv8 "f32" over the
+        f32 cache, its row pos bit-equal to its own k_cur / v_cur. The model
+        width d is hq * hd unless given (a tensor-parallel shard: local
+        heads, whole width)."""
+        f32kv = kv8 == "f32"
+        kv8 = kv8 is True
         n_layers, hq, hkv, hd = shape
-        kc = random_cache((n_layers, 1, hkv, S, hd), kv8)
-        vc = random_cache((n_layers, 1, hkv, S, hd), kv8)
+        kc = random_cache((n_layers, 1, hkv, S, hd), "f32" if f32kv else kv8)
+        vc = random_cache((n_layers, 1, hkv, S, hd), "f32" if f32kv else kv8)
         d, nq, nkv = d or hq * hd, hq * hd, hkv * hd
         nqkv = nq + 2 * nkv
         wqkvs, wos = weights(kind, nqkv, d, 64_000_000), weights(kind, d, nq, 64_000_000)
         layers = list(zip(wqkvs, wos))
         wbytes = nbytes_of(wqkvs[0].qs, wqkvs[0].d, wos[0].qs, wos[0].d)
         gamma = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
-        kname = NAME[("attn_i8" if a_i8 else "attn") + ("_kv8" if kv8 else ""), kind]
-        row_bytes = 2 * (nkv + 4 * hkv) if kv8 else 2 * nkv * 2   # K and V of one position
+        kname = NAME[("attn_i8" if a_i8 else "attn") + ("_kv8" if kv8 else "")
+                     + ("_f32kv" if f32kv else ""), kind]
+        # K and V of one position
+        row_bytes = 2 * (nkv + 4 * hkv) if kv8 else 2 * nkv * (4 if f32kv else 2)
+        cache_form = 2 if f32kv else kv8
         for pos in ATTN_POS:
             x = torch.randn((1, 1, d), device=dev, generator=g)
             cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
@@ -1440,17 +1563,15 @@ def check_kernels(torch, dev, ptxas_q8):
                 require(same, f"{kname} {model}pos={pos}: cache row pos is not "
                         f"quantize_columns(k_cur, v_cur), or another row changed")
             else:
-                require(torch.equal(kc[ATTN_LAYER, 0, :, pos],
-                                    got[1][0, :, 0].to(torch.bfloat16))
-                        and torch.equal(vc[ATTN_LAYER, 0, :, pos],
-                                        got[2][0, :, 0].to(torch.bfloat16))
+                require(torch.equal(kc[ATTN_LAYER, 0, :, pos], got[1][0, :, 0].to(kc.dtype))
+                        and torch.equal(vc[ATTN_LAYER, 0, :, pos], got[2][0, :, 0].to(vc.dtype))
                         and torch.equal(kc[..., rows, :], kr[..., rows, :])
                         and torch.equal(vc[..., rows, :], vr[..., rows, :]),
-                        f"{kname} {model}pos={pos}: cache row pos is not bf16(k_cur, v_cur), "
-                        f"or another row changed")
+                        f"{kname} {model}pos={pos}: cache row pos is not (k_cur, v_cur) in the "
+                        f"cache's {kc.dtype}, or another row changed")
             case = f"{model}pos={pos} layer={ATTN_LAYER} (x_out, k_cur, v_cur)"
-            extra = stream_plan(launch_args(dev, attn_plan, d, hq, hkv, hd, kind, a_i8, kv8,
-                                            S)[0])
+            extra = stream_plan(launch_args(dev, attn_plan, d, hq, hkv, hd, kind, a_i8,
+                                            cache_form, S)[0])
             if a_i8:
                 n_diff, n_all = own_levels(act, x, gamma)
                 case += f", on the kernel's int8 activations ({n_diff} of {n_all} levels " \
@@ -1493,10 +1614,13 @@ def check_kernels(torch, dev, ptxas_q8):
         plain version (attn_block_ffn_ref on the kernel's own int8
         activations and quantized q, as K7's checks). The chain's device time
         is recorded beside it (chain_ms); the bound is K7's bytes and
-        operations plus K6d's weights and operations."""
+        operations plus K6d's weights and operations. kv8 "f32": over the
+        f32 cache."""
+        f32kv = kv8 == "f32"
+        kv8 = kv8 is True
         n_layers, hq, hkv, hd = shape
-        kc = random_cache((n_layers, 1, hkv, S, hd), kv8)
-        vc = random_cache((n_layers, 1, hkv, S, hd), kv8)
+        kc = random_cache((n_layers, 1, hkv, S, hd), "f32" if f32kv else kv8)
+        vc = random_cache((n_layers, 1, hkv, S, hd), "f32" if f32kv else kv8)
         d, nq, nkv = hq * hd, hq * hd, hkv * hd
         nqkv = nq + 2 * nkv
         layers = list(zip(weights("q4_0", nqkv, d, 64_000_000), weights("q4_0", d, nq, 64_000_000),
@@ -1504,8 +1628,9 @@ def check_kernels(torch, dev, ptxas_q8):
         wbytes = sum(nbytes_of(w.qs, w.d) for w in layers[0])
         g1 = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
         g2 = 1.0 + 0.1 * torch.randn(d, device=dev, generator=g)
-        kname = ("attn_block" + ("_i8" if a_i8 else "") + ("_kv8" if kv8 else "") + "_ffn")
-        row_bytes = 2 * (nkv + 4 * hkv) if kv8 else 2 * nkv * 2
+        kname = ("attn_block" + ("_i8" if a_i8 else "") + ("_kv8" if kv8 else "")
+                 + ("_f32kv" if f32kv else "") + "_ffn")
+        row_bytes = 2 * (nkv + 4 * hkv) if kv8 else 2 * nkv * (4 if f32kv else 2)
 
         def run(ly, kc_, vc_, pos_t, cos, sin, act=None, q8=None):
             return attn_block_cuda(x, g1, ly[0], ly[1], kc_, vc_, ATTN_LAYER, pos_t, cos, sin,
@@ -1543,7 +1668,12 @@ def check_kernels(torch, dev, ptxas_q8):
                     and all(e <= b for e, b in errs),
                     f"{kname} {model}pos={pos}: (max_abs_err, bound) of x_out, k_cur, v_cur "
                     f"vs plain {errs}")
-            plan = launch_args(dev, attn_ffn_plan, d, hq, hkv, hd, "q4_0", a_i8, kv8, S, f)[0]
+            if f32kv:            # the row K7 writes: k_cur / v_cur as they are
+                require(torch.equal(kc[ATTN_LAYER, 0, :, pos], got[1][0, :, 0])
+                        and torch.equal(vc[ATTN_LAYER, 0, :, pos], got[2][0, :, 0]),
+                        f"{kname} {model}pos={pos}: the f32 cache's row pos is not k_cur / v_cur")
+            plan = launch_args(dev, attn_ffn_plan, d, hq, hkv, hd, "q4_0", a_i8,
+                               2 if f32kv else kv8, S, f)[0]
             t = time_ms(torch, [lambda l_=ly: run(l_, kc, vc, pos_t, cos, sin)
                                 for ly in layers], 50)
             tc = time_ms(torch, [lambda l_=ly: chain(l_, kc, vc, pos_t, cos, sin)
@@ -1645,6 +1775,15 @@ def check_kernels(torch, dev, ptxas_q8):
     check_attn_block_ffn((L, HQ, HKV, D), FFN_F, "", a_i8=False, kv8=True)
     check_attn_block_ffn((L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B, "7B ", a_i8=True, kv8=False)
     check_attn_block_ffn((L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B, "7B ", a_i8=True, kv8=True)
+    log("  -- the f32 KV cache: K7 over it (f32 A at TinyLlama-1.1B, both kinds; the int8 A "
+        "phase at Llama-2-7B; with and without phase E), K3 over f32 K / V in both forms")
+    for kind in KINDS:
+        check_attn_block(kind, (L, HQ, HKV, D), "", a_i8=False, kv8="f32")
+    check_attn_block("q4_0", (L_7B, HQ_7B, HKV_7B, D_7B), "7B ", a_i8=True, kv8="f32")
+    check_attn_block_ffn((L, HQ, HKV, D), FFN_F, "", a_i8=False, kv8="f32")
+    check_attn_block_ffn((L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B, "7B ", a_i8=True, kv8="f32")
+    for shape, model in (((L, HQ, HKV, D), ""), ((L_7B, HQ_7B, HKV_7B, D_7B), "7B ")):
+        check_attention_f32kv(torch, dev, g, record, shape, model)
     check_ffn_nonorm(FFN_D, FFN_F, "")
     for kind in KINDS:
         check_ffn_vjp(kind, FFN_D, FFN_F, "")
@@ -1669,6 +1808,15 @@ def check_kernels(torch, dev, ptxas_q8):
         check_decode_case(torch, dev, g, record, "decode_attention", GPT2_XL["n_heads"],
                           GPT2_XL["n_heads"], hd_gpt, GPT2_XL["max_seq_len"], kv_len, "GPT-2 XL ",
                           torch.bfloat16)
+    log("  -- GPT-2 XL's f32 cache (gpt2_xl_f32): K3 over f32 K / V in both forms, K4's f32 "
+        "form")
+    gpt_heads = (2, GPT2_XL["n_heads"], GPT2_XL["n_heads"], hd_gpt)
+    check_attention_f32kv(torch, dev, g, record, gpt_heads, "GPT-2 XL ", GPT2_XL["max_seq_len"],
+                          GPT_FLASH_CASES)
+    for kv_len in GPT_DECODE_LENS:
+        check_decode_case(torch, dev, g, record, "decode_attention_f32", GPT2_XL["n_heads"],
+                          GPT2_XL["n_heads"], hd_gpt, GPT2_XL["max_seq_len"], kv_len, "GPT-2 XL ",
+                          torch.float32)
     for label, hq, hkv, hd, s_, kv_len in F32_DECODE_CASES:
         check_decode_case(torch, dev, g, record, "decode_attention_f32", hq, hkv, hd, s_, kv_len,
                           f"Whisper large-v3 {label} " if hd == 64 else f"{label} ",
@@ -2414,6 +2562,83 @@ def check_attention_bf16(torch, dev, g, record, shape, model, kv8, s=S,
                vs_unsplit=float((got - unsplit).abs().max()) / mx)
 
 
+def check_attention_f32kv(torch, dev, g, record, shape, model, s=S, cases=BF16_FLASH_CASES):
+    """K3 over f32 K / V (the f32 KV cache's prefill) on a 128-row chunk at
+    `cases` (q_offset, kv_len) of a random stacked f32 cache of `s`
+    positions, reading a cache row other than 0, in both forms, each
+    bit-equal over two launches. The f32 form within F32KV_RTOL * max|o| of
+    flash_attention_ref on the same
+    f32 K / V (f32 sums in another order; its dots are 3xTF32, bound at
+    three TF32 products a dot). The bf16 form against the plain version of
+    its launch plan within check_attention_bf16's flip-aware bound, and
+    bit-equal to K3's bf16 form run on k.bfloat16(), v.bfloat16() (it
+    rounds the staged f32 rows to nearest even and takes that form's plan;
+    bound at one bf16 product a dot, with K / V read at 4 bytes). Library:
+    f32 scaled_dot_product_attention(enable_gqa=True) with a boolean causal
+    mask over the same f32 rows."""
+    from zgml_tpu_torch.ops import attention as A
+    n_layers, hq, hkv, hd = shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kc = torch.randn((n_layers, hkv, s, hd), device=dev, generator=g)
+    vc = torch.randn((n_layers, hkv, s, hd), device=dev, generator=g)
+    kb, vb = kc.bfloat16(), vc.bfloat16()
+    group = A.flash_group(s, False)
+    for q_off, kv_len in cases:
+        q = torch.randn((1, hq, 128, hd), device=dev, generator=g)
+        row = 1 + (q_off // 128) % (n_layers - 1)
+        qi = torch.arange(128, device=dev)[:, None] + q_off
+        mask = torch.arange(kv_len, device=dev)[None, :] <= qi
+        live = int(mask.sum())
+        kf, vf = kc[row:row + 1, :, :kv_len], vc[row:row + 1, :, :kv_len]
+        nbytes = 2 * q.numel() * 4 + kv_len * 2 * hkv * hd * 4
+        for bf16 in (False, True):
+            kname = "flash_attention_bf16_f32kv" if bf16 else "flash_attention_f32kv"
+
+            def launch(bf16_=bf16):
+                return A.flash_attention_cuda(q, kc, vc, kv_len, q_off, row, bf16_)
+            got, again = launch(), launch()
+            plan = A.flash_plan(q, kc, kv_len, q_off, False, group if bf16 else None)
+            case = (f"{model}hd={hd} Tq=128 q_offset={q_off} kv_len={kv_len} row={row} "
+                    f"n_split={plan.n_split}")
+            if bf16:
+                on_rounded = A.flash_attention_cuda(q, kb, vb, kv_len, q_off, row, True)
+
+                def plain(scale=None, exact=False):
+                    return A.combine_partials_ref(*A.flash_partials_ref(
+                        q, kc, vc, kv_len, q_off, row, plan=plan, bf16=True, exact=exact,
+                        scale=scale))[0]
+                want = plain()
+                move, _ = flip_moves(torch, plain, hd)
+                bound = max(FLASH_BF16_RTOL * float(want.abs().max()), FLIP_MARGIN * move)
+            else:
+                def plain():
+                    return A.flash_attention_ref(q, kc, vc, kv_len, q_off, row)
+                want = plain()
+                bound = F32KV_RTOL * float(want.abs().max())
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            require(bool(torch.isfinite(got).all()) and err <= bound,
+                    f"{kname} {case}: max_abs_err {err:.3g} > bound {bound:.3g}")
+            require(bool(torch.equal(got, again)), f"{kname} {case}: two launches differ")
+            extra = {}
+            if bf16:
+                require(bool(torch.equal(got.view(torch.int32), on_rounded.view(torch.int32))),
+                        f"{kname} {case}: not bit-equal to K3's bf16 form on the bf16-rounded "
+                        f"K / V")
+                extra = dict(bit_equal_on_rounded=True, flip_move=move)
+            t = time_ms(torch, [launch], 50)
+            tp = time_ms(torch, [plain], 10)
+            lib_err = float((sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True) - want)
+                            .abs().max())
+            lib = time_ms(torch, [lambda: sdpa(q, kf, vf, attn_mask=mask, enable_gqa=True)], 50)
+            ops = 4 * hq * live * hd
+            record(kname, case, err, bound, t, tp, nbytes, 0, lib,
+                   f"scaled_dot_product_attention(enable_gqa=True, boolean causal mask), f32 "
+                   f"over the f32 rows (max abs err {lib_err:.2g})",
+                   **(dict(bf16ops=ops) if bf16 else dict(tf32ops=F32KV_PASSES * ops)),
+                   n_split=plan.n_split, **extra)
+
+
 def dq_float64_bf16(torch, q, k, v, do, o, lse, kv_len, q_off):
     """K10dq's bf16 form in float64 from the same inputs and roundings:
     bf16(q) in s, bf16(dO) in dP (o and lse the kernel's)."""
@@ -2438,7 +2663,8 @@ def dq_float64_bf16(torch, q, k, v, do, o, lse, kv_len, q_off):
 
 
 def check_training_attention_bf16(torch, dev, g, record):
-    """K10f, K10dq and K10dkv in their bf16 forms at TRAIN_FLASH_CASES:
+    """K10f, K10dq and K10dkv in their bf16 forms at TRAIN_FLASH_CASES and
+    PAR_TRAIN_FLASH_CASES:
     K10f's O bit-equal to K3's bf16 O, within the flip-aware bound of
     check_attention_bf16 of the plain version of its plan, its LSE within
     REL_BOUND * max; dQ within REL_BOUND * max and its rms error against
@@ -2452,7 +2678,8 @@ def check_training_attention_bf16(torch, dev, g, record):
     from zgml_tpu_torch.ops.flash_vjp import (flash_delta_cuda, flash_dkv_cuda, flash_dkv_plan,
                                               flash_dkv_ref, flash_dq_cuda, flash_dq_plan,
                                               flash_dq_ref, flash_fwd_lse_cuda)
-    for label, b, hq, hkv, tq, s, hd, kv_len, q_off in TRAIN_FLASH_CASES:
+    for label, b, hq, hkv, tq, s, hd, kv_len, q_off in (TRAIN_FLASH_CASES
+                                                        + PAR_TRAIN_FLASH_CASES):
         q = torch.randn((b, hq, tq, hd), device=dev, generator=g)
         k = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
         v = torch.randn((b, hkv, s, hd), device=dev, generator=g).to(torch.bfloat16)
@@ -3263,6 +3490,47 @@ def end_to_end(torch, model, prompts, name, summary):
         entry["batch4"] = against_plain(torch, eng4, prompt4, out4, name, "the batch-4 request")
     summary.setdefault("e2e", {})[name] = entry
     return eng, launches, eng4
+
+
+def f32_prefill_check(torch, eng, prompt, summary):
+    """f32kv_tiny's second prefill: `prompt` under ZGML_TPU_PREFILL_BF16=0
+    (K2's f32 form, K3's f32-K/V f32 form in every layer), the placement
+    counts set to 0 just before, against the same prefill under force_ref()
+    within LOGIT_RTOL * max|logit| (f32 sums in another order over an f32
+    cache: no bf16 rounding to flip). Returns the launches."""
+    from zgml_tpu_torch.ops.dispatch import force_ref
+    from zgml_tpu_torch.runtime.profile import global_profile
+    name, flags, kernels = F32KV_TINY_F32
+    set_path("f32kv_tiny")
+    os.environ.update(flags)
+    try:
+        eng.reset()
+        torch.cuda.synchronize()
+        global_profile.reset()
+        got = eng.prefill(prompt)
+        torch.cuda.synchronize()
+        launches, tiers = path_launches(name, kernels)
+        layers = eng.model.cfg.n_layers
+        chunks = -(-len(prompt) // eng.prefill_chunk)
+        require(launches["flash_attention_f32kv"] == layers * chunks,
+                f"[{name}] K3's f32-K/V form launched {launches['flash_attention_f32kv']} times, "
+                f"want {layers * chunks}")
+        eng.reset()
+        with force_ref():
+            want = eng.prefill(prompt)
+        torch.cuda.synchronize()
+    finally:
+        set_path("default")
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= LOGIT_RTOL * scale,
+            f"[{name}] prefill logits {err:.4g} from force_ref()'s (bound "
+            f"{LOGIT_RTOL * scale:.4g})")
+    log(f"  [{name}] {len(prompt)}-token prefill under ZGML_TPU_PREFILL_BF16=0 over the f32 "
+        f"cache: placement {tiers}; logits {err:.4g} from force_ref()'s ({err / scale:.3g} of "
+        f"max|logit|, bound {LOGIT_RTOL:g})")
+    summary.setdefault("e2e", {})[name] = dict(flags=flags, launches=launches, placement=tiers,
+                                               logits_err=err, logits_scale=scale)
+    return launches
 
 
 def serve_traffic(vocab: int) -> list[tuple[list[int], int]]:
@@ -4982,28 +5250,65 @@ def gpt2_path(torch, dev, card, summary):
     entry = dict(config=GPT2_XL, load_s=load_s, n_params=n_params, launches=launches,
                  placement=tiers, outputs=out,
                  **against_plain(torch, eng, prompt, out, "gpt2_xl", "request 1"))
-    pp, tg = [], []
+    f32_launches, f32_entry, f32_eng = gpt2_f32_path(torch, model, prompt, summary)
+    # pp128 / tg32 of gpt2_xl and gpt2_xl_f32 in turns
+    runs = {"gpt2_xl": (eng, [], []), "gpt2_xl_f32": (f32_eng, [], [])}
     for _ in range(RATE_ROUNDS):
-        eng.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tok = torch.argmax(eng.prefill(prompt), dim=-1)
-        torch.cuda.synchronize()
-        pp.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        eng.decode_n(tok, 32)
-        torch.cuda.synchronize()
-        tg.append(time.perf_counter() - t0)
-    entry["rates"] = dict(pp128_tok_s=GPT_PROMPT / statistics.median(pp),
-                          tg32_tok_s=32 / statistics.median(tg), pp128_runs_s=pp, tg32_runs_s=tg,
-                          card=card)
-    log(f"  [gpt2_xl] pp128: {entry['rates']['pp128_tok_s']:.1f} tok/s, tg32: "
-        f"{entry['rates']['tg32_tok_s']:.1f} tok/s (medians of {RATE_ROUNDS})  [{card}]")
+        for name_, (e, pp, tg) in runs.items():
+            e.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok = torch.argmax(e.prefill(prompt), dim=-1)
+            torch.cuda.synchronize()
+            pp.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            e.decode_n(tok, 32)
+            torch.cuda.synchronize()
+            tg.append(time.perf_counter() - t0)
+    for (name_, (e, pp, tg)), ent in zip(runs.items(), (entry, f32_entry)):
+        ent["rates"] = dict(pp128_tok_s=GPT_PROMPT / statistics.median(pp),
+                            tg32_tok_s=32 / statistics.median(tg), pp128_runs_s=pp,
+                            tg32_runs_s=tg, layers=e.model.cfg.n_layers, card=card)
+        log(f"  [{name_}] pp128: {ent['rates']['pp128_tok_s']:.1f} tok/s, tg32: "
+            f"{ent['rates']['tg32_tok_s']:.1f} tok/s (medians of {RATE_ROUNDS}, in turns; "
+            f"{e.model.cfg.n_layers} layers)  [{card}]")
     profile(torch, eng, prompt, prompt, "gpt2_xl", summary)
     summary["gpt2_xl"] = entry
-    del eng, model
+    summary["gpt2_xl_f32"] = f32_entry
+    del eng, model, f32_eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, f32_launches
+
+
+def gpt2_f32_path(torch, model, prompt, summary):
+    """gpt2_xl_f32: GPT-2 XL's first SHALLOW_LAYERS layers (the loaded
+    model's tensors, full width) over an f32 cache: the GPT_PROMPT-token
+    prompt (K3's f32-K/V bf16 form in every layer) and GPT_NEW greedy tokens
+    (K4's f32 form in every layer a decode token), the placement counts and
+    the request against force_ref(). Returns (launches, entry, engine)."""
+    import dataclasses
+
+    from zgml_tpu_torch.models.gpt import GPTModel
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    cfg = dataclasses.replace(model.cfg, n_layers=SHALLOW_LAYERS)
+    shallow = GPTModel(cfg, {**model.params, "layers": model.params["layers"][:SHALLOW_LAYERS]})
+    eng = LlamaEngine(shallow, prefill_chunk=128, cache_dtype="f32")
+    require(eng.cache["k"].dtype == torch.float32, "[gpt2_xl_f32] the cache is not f32")
+    torch.cuda.synchronize()
+    global_profile.reset()
+    out = eng.generate(prompt, GPT_NEW)
+    torch.cuda.synchronize()
+    launches, tiers = path_launches("gpt2_xl_f32", GPT_F32_KERNELS,
+                                    {"decode_attention_f32": cfg.n_layers})
+    require(len(out) == GPT_NEW and all(0 <= t < cfg.vocab_size for t in out),
+            f"[gpt2_xl_f32] greedy request gave {out}")
+    log(f"  [gpt2_xl_f32] {cfg.n_layers} layers over an f32 cache: placement: {tiers}")
+    log(f"  [gpt2_xl_f32] prompt {GPT_PROMPT} tokens, greedy -> {out}")
+    entry = dict(layers=cfg.n_layers, cache="f32", launches=launches, placement=tiers,
+                 outputs=out, **against_plain(torch, eng, prompt, out, "gpt2_xl_f32",
+                                              "request 1"))
+    return launches, entry, eng
 
 
 def whisper_wave() -> np.ndarray:
@@ -5377,6 +5682,188 @@ def serve_rank(dev, path: str, n_layers: int, reqs, tp: int, dp: int) -> dict:
     return out
 
 
+def _train_ref(dev) -> dict:
+    """A rank's one-process computation for the training paths, made once
+    and kept: the dense model (init_params on the CPU, a copy on the card),
+    the batch, the first step's loss and gradients, their move under
+    SENS_EPS embedding perturbations, and the losses of the later steps."""
+    if "train_ref" in _RANK_STATE:
+        return _RANK_STATE["train_ref"]
+    import dataclasses
+
+    import torch
+    from zgml_tpu_torch.models.llama import LlamaModel, init_params
+    from zgml_tpu_torch.optim.sgd import sgd_update
+    from zgml_tpu_torch.parallel.tp import next_token_nll
+    from zgml_tpu_torch.utils.tree import flatten, paths, tree_map
+    cfg = dataclasses.replace(preset("tinyllama-1.1b"), n_layers=SHALLOW_LAYERS)
+    full = init_params(cfg, seed=SEED, device="cpu")
+    tokens = corpus_batches(torch, "cpu", TRAIN_B, TRAIN_T, 1)[0]
+    tok_dev = tokens.to(dev)
+
+    def loss_grads(params):
+        leaves, _ = flatten(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = next_token_nll(LlamaModel(cfg, params)(tok_dev[:, :-1]), tok_dev)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return float(loss.detach()), list(grads)
+    params = tree_map(lambda t: t.to(dev), full)
+    loss, grads = loss_grads(params)
+    moves = [0.0] * len(grads)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    emb = params["tok_embd"]
+    for _ in range(GRAD_SENS_DRAWS):
+        p2 = {**params, "tok_embd": emb * (1 + SENS_EPS * torch.randn(emb.shape, device=dev,
+                                                                       generator=gen))}
+        moves = [max(m, float((a - b).abs().max())) for m, a, b in zip(moves, loss_grads(p2)[1],
+                                                                        grads)]
+        del p2
+    losses, later = [loss], params
+    _, rebuild = flatten(params)
+    g = rebuild(grads)
+    for _ in range(PAR_TRAIN_STEPS - 1):
+        later = sgd_update(later, g, PAR_TRAIN_LR)
+        lo, gl = loss_grads(later)
+        losses.append(lo)
+        g = rebuild(gl)
+    del later, g
+    names = [n for n, _ in paths(params)]
+    ref = dict(cfg=cfg, full=full, tokens=tokens, losses=losses,
+               grads=rebuild(grads), moves=dict(zip(names, moves)), params=params)
+    _RANK_STATE["train_ref"] = ref
+    return ref
+
+
+def train_rank(dev, name: str) -> dict:
+    """One training path of PAR_TRAIN on this rank: the dense model's shard
+    for the path's mesh (shard_llama_params, or shard_pp_params), the step
+    (make_sharded_train_step or make_pp_train_step, n_micro _choose_micro),
+    PAR_TRAIN_STEPS steps on this rank's rows (dp: its half of the batch),
+    the first step's loss and gradients counted and timed (the placement
+    counts set to 0 just before), and each held to the one-process
+    computation (_train_ref) here; the replicated leaves' digests after the
+    steps."""
+    import hashlib
+
+    import torch
+    from zgml_tpu_torch.models.llama import LlamaModel
+    from zgml_tpu_torch.optim.sgd import sgd_update
+    from zgml_tpu_torch.parallel import (make_mesh, make_pp_train_step,
+                                         make_sharded_train_step, shard_llama_params,
+                                         shard_pp_params)
+    from zgml_tpu_torch.parallel.pp import _choose_micro
+    from zgml_tpu_torch.parallel.tp import _split, shard_layer
+    from zgml_tpu_torch.runtime.profile import global_profile
+    from zgml_tpu_torch.utils.tree import flatten, paths, tree_map
+    ref = _train_ref(dev)
+    cfg, par = ref["cfg"], PAR_TRAIN[name]
+    model = LlamaModel(cfg, tree_map(torch.clone, ref["full"]))
+    tokens = ref["tokens"]
+    want = ref["grads"]
+    if "pp" in par:
+        mesh = make_mesh(tp=par["pp"], dp=1, axis_names=("dp", "pp"), device=dev)
+        shard_pp_params(model, mesh)
+        n_micro = _choose_micro(tokens.shape[0], par["pp"])
+        step = make_pp_train_step(model, mesh, n_micro)
+        s, per = mesh.coords["pp"], cfg.n_layers // par["pp"]
+        want = {**want, "layers": want["layers"][s * per:(s + 1) * per]}
+        layer_of = lambda li: s * per + li          # noqa: E731
+        replicated = ("tok_embd", "out_norm", "lm_head")
+        where = dict(stage=s, n_micro=n_micro)
+    else:
+        mesh = make_mesh(tp=par["tp"], dp=par["dp"], device=dev)
+        shard_llama_params(model, mesh)
+        step = make_sharded_train_step(model, mesh)
+        tp, t = par["tp"], mesh.coords["tp"]
+        b = tokens.shape[0] // par["dp"]
+        tokens = tokens[mesh.coords["dp"] * b:(mesh.coords["dp"] + 1) * b]
+        if tp > 1:
+            want = {"tok_embd": want["tok_embd"], "out_norm": want["out_norm"],
+                    "lm_head": _split(want["lm_head"], tp, "n", t),
+                    "layers": [shard_layer(ly, cfg, tp, t) for ly in want["layers"]]}
+        layer_of = lambda li: li                     # noqa: E731
+        replicated = (("tok_embd", "out_norm", "attn_norm", "ffn_norm") if tp > 1 else
+                      ("tok_embd", "out_norm", "lm_head", "attn_norm", "ffn_norm", "wq", "wk",
+                       "wv", "wo", "w_gate", "w_up", "w_down"))
+        where = dict(tp=t, dp=mesh.coords["dp"])
+    tok_dev = tokens.to(dev)
+    torch.cuda.synchronize()
+    global_profile.reset()
+    t0 = time.perf_counter()
+    loss, grads = step.loss_and_grads(tok_dev)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = _rank_counts()
+    names = [n for n, _ in paths(model.params)]
+    wants = flatten(want)[0]
+    rows = []
+    for n_, got, w in zip(names, grads, wants):
+        parts = n_.split("/")
+        full_name = f"layers/{layer_of(int(parts[1]))}/{parts[2]}" if parts[0] == "layers" else n_
+        err, scale = float((got - w).abs().max()), float(w.abs().max())
+        move = ref["moves"][full_name]
+        rows.append(dict(tensor=n_, err=err, scale=scale, plain_move=move,
+                         bound=max(GRAD_RTOL * scale, SENS_MARGIN * move),
+                         finite=bool(torch.isfinite(got).all())))
+    losses = [float(loss)]
+    _, rebuild = flatten(model.params)
+    model.params = sgd_update(model.params, rebuild(grads), PAR_TRAIN_LR)
+    del grads
+    for _ in range(PAR_TRAIN_STEPS - 1):
+        lo, _ = step(tok_dev, PAR_TRAIN_LR)
+        losses.append(float(lo))
+    torch.cuda.synchronize()
+    digests = {n_: hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+               for n_, t in paths(model.params) if n_.split("/")[-1] in replicated}
+    del model, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, want_losses=ref["losses"], grads=rows, digests=digests,
+                step_ms=step_ms, where=where, **counts)
+
+
+def pp_forward_rank(dev, prompts, n_new: int) -> dict:
+    """pp2_tiny on this rank: the dense model's stage (shard_pp_params),
+    make_pp_forward over a stage cache of one row a prompt (prompts int
+    [B, T], n_micro _choose_micro(B, 2)): the prefill, then n_new - 1 greedy
+    tokens a row, one pipeline forward each (the first from the prefill),
+    each timed on the host clock; each call's last-position logits [B, V]."""
+    import torch
+    from zgml_tpu_torch.models.llama import LlamaModel
+    from zgml_tpu_torch.parallel import make_mesh, make_pp_forward, shard_pp_params
+    from zgml_tpu_torch.runtime.profile import global_profile
+    from zgml_tpu_torch.utils.tree import tree_map
+    ref = _train_ref(dev)
+    model = LlamaModel(ref["cfg"], tree_map(torch.clone, ref["full"]))
+    mesh = make_mesh(tp=PAR_RANKS, dp=1, axis_names=("dp", "pp"), device=dev)
+    shard_pp_params(model, mesh)
+    fwd = make_pp_forward(model, mesh)
+    x = torch.as_tensor(np.asarray(prompts, np.int64))
+    cache = model.init_cache(x.shape[0])
+    torch.cuda.synchronize()
+    global_profile.reset()
+    t0 = time.perf_counter()
+    logits = fwd(x, cache, 0)[:, -1]
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    tok, toks, steps = torch.argmax(logits, -1), [], []
+    t0 = time.perf_counter()
+    for i in range(n_new - 1):
+        toks.append(tok.tolist())
+        lg = fwd(tok[:, None], cache, x.shape[1] + i)[:, -1]
+        steps.append(lg)
+        tok = torch.argmax(lg, -1)
+    toks.append(tok.tolist())
+    torch.cuda.synchronize()
+    tg_s = time.perf_counter() - t0
+    counts = _rank_counts()
+    return dict(logits=logits.cpu().numpy(), steps=torch.stack(steps).cpu().numpy(),
+                tokens=np.asarray(toks).T.tolist(), pp_s=pp_s, tg_s=tg_s,
+                stage=mesh.coords["pp"], **counts)
+
+
 def rank_launches(name, results, kernels):
     """The path's launches {kernel: n} summed over the ranks, after the rule
     of every path on each rank (path_launches)."""
@@ -5727,6 +6214,128 @@ def serve_mesh_path(torch, world, model, reqs, card, summary):
     return launches
 
 
+def train_par_path(torch, world, name, card, summary):
+    """One training path of PAR_TRAIN over the two ranks (train_rank), held
+    as the module note says; returns the launches."""
+    res = world.run(train_rank, name, timeout=PAR_TIMEOUT)
+    launches = rank_launches(name, res, PAR_TRAIN_KERNELS)
+    for r, out in enumerate(res):
+        lbl = f"{name} rank {r} {out['where']}"
+        for got, want in zip(out["losses"], out["want_losses"]):
+            require(np.isfinite(got) and abs(got - want) <= PAR_LOSS_RTOL * abs(want),
+                    f"[{lbl}] losses {out['losses']} vs the one-process steps' "
+                    f"{out['want_losses']} (bound {PAR_LOSS_RTOL:g} relative)")
+        bad = [g for g in out["grads"] if not (g["finite"] and g["err"] <= g["bound"])]
+        require(not bad, f"[{lbl}] gradients off the one-process ones: {bad[:4]}")
+        worst = max(out["grads"], key=lambda g: g["err"] / max(g["bound"], 1e-30))
+        log(f"  [{lbl}] losses {[round(v, 6) for v in out['losses']]} (one process "
+            f"{[round(v, 6) for v in out['want_losses']]}); {len(out['grads'])} gradients, "
+            f"worst against its bound: {worst['tensor']} err {worst['err']:.3g} bound "
+            f"{worst['bound']:.3g} ({worst['err'] / max(worst['scale'], 1e-30):.3g} of max|g|); "
+            f"first step {out['step_ms']:.1f} ms (host clock, ranks sharing one card); host "
+            f"copies {out['counters'].get('host_copies', 0)} "
+            f"({out['counters'].get('host_copy_bytes', 0)} bytes); placement {out['tiers']}  "
+            f"[{card}]")
+    same = set(res[0]["digests"]) == set(res[1]["digests"]) and all(
+        res[1]["digests"][k] == v for k, v in res[0]["digests"].items())
+    require(res[0]["digests"] and same, f"[{name}] the replicated leaves differ between the "
+            f"ranks after {PAR_TRAIN_STEPS} steps")
+    log(f"  [{name}] {len(res[0]['digests'])} replicated leaves the same bits on both ranks "
+        f"after {PAR_TRAIN_STEPS} steps")
+    summary.setdefault("parallel", {})[name] = dict(
+        launches=launches, placement=[r["tiers"] for r in res],
+        losses=[r["losses"] for r in res], one_process_losses=res[0]["want_losses"],
+        grads=[r["grads"] for r in res], replicated_leaves=len(res[0]["digests"]),
+        step_ms=[r["step_ms"] for r in res],
+        host_copies=[r["counters"].get("host_copies", 0) for r in res],
+        host_copy_bytes=[r["counters"].get("host_copy_bytes", 0) for r in res],
+        where=[r["where"] for r in res], card=card, backend="gloo", ranks=PAR_RANKS)
+    return launches
+
+
+def pp_forward_path(torch, dev, world, prompts, card, summary):
+    """pp2_tiny: make_pp_forward on the training paths' dense model over the
+    two ranks (pp_forward_rank) at batch PP_FWD_BATCH, against the
+    one-process model here on the same tokens: the prefill's last-position
+    logits within LOGIT_RTOL * max, each decode step (fed the ranks' tokens)
+    within STEP_RTOL * max, each row's tokens equal to the one-process greedy
+    choice up to a top-2 gap under the prefill bound; both stages' logits the
+    same bits; each stage ran its layers once a microbatch of each call and
+    sat out pp - 1 bubble ticks. Returns the launches."""
+    import dataclasses
+
+    from zgml_tpu_torch.models.llama import LlamaModel, init_params
+    from zgml_tpu_torch.parallel.pp import _choose_micro
+    name = "pp2_tiny"
+    prompts = np.stack(prompts)
+    b, n_micro = prompts.shape[0], _choose_micro(prompts.shape[0], PAR_RANKS)
+    require(n_micro > 1, f"[{name}] batch {b} gives one microbatch: the pipeline's "
+            f"microbatched cache rows would not run")
+    res = world.run(pp_forward_rank, prompts, PAR_NEW, timeout=PAR_TIMEOUT)
+    launches = rank_launches(name, res, PP_FWD_KERNELS)
+    layers = SHALLOW_LAYERS // PAR_RANKS
+    for r, out in enumerate(res):
+        want = layers * n_micro * (1 + PAR_NEW - 1)
+        got = sum(out["tiers"].get(KERNELS[k][0], {}).get("cuda", 0) for k in PP_FWD_KERNELS)
+        require(got == want, f"[{name} rank {r}] {got} attention launches, want {want} "
+                f"({layers} layers a microbatch, {n_micro} microbatches a call)")
+        ticks = [out["counters"].get(k, 0) for k in ("pp_stage_runs", "pp_bubble_ticks")]
+        require(ticks == [n_micro * PAR_NEW, (PAR_RANKS - 1) * PAR_NEW],
+                f"[{name} rank {r}] ticks run / bubble {ticks}, want "
+                f"{[n_micro * PAR_NEW, (PAR_RANKS - 1) * PAR_NEW]}")
+    require(all(np.array_equal(o["logits"], res[0]["logits"])
+                and np.array_equal(o["steps"], res[0]["steps"]) for o in res),
+            f"[{name}] the stages' logits differ")
+    cfg = dataclasses.replace(preset("tinyllama-1.1b"), n_layers=SHALLOW_LAYERS)
+    model = LlamaModel(cfg, init_params(cfg, seed=SEED, device=dev))
+    out = res[0]
+    with torch.inference_mode():
+        cache = model.init_cache(b)
+        want = model(torch.as_tensor(prompts, device=dev), cache, 0)[:, -1]
+        fed = torch.as_tensor(np.asarray(out["tokens"]), device=dev)     # [B, PAR_NEW]
+        steps = [model(fed[:, i:i + 1], cache, prompts.shape[1] + i)[:, -1]
+                 for i in range(PAR_NEW - 1)]
+    scale_p = float(want.abs().max())
+    err_p = float(np.abs(out["logits"] - want.cpu().numpy()).max())
+    require(err_p <= LOGIT_RTOL * scale_p, f"[{name}] prefill logits {err_p:.4g} from one "
+            f"process's (bound {LOGIT_RTOL * scale_p:.4g})")
+    errs = [float(np.abs(g - w.cpu().numpy()).max()) / float(w.abs().max())
+            for g, w in zip(out["steps"], steps)]
+    require(max(errs) <= STEP_RTOL, f"[{name}] decode steps {max(errs):.4g} of max|logit| from "
+            f"one process's (bound {STEP_RTOL:g})")
+    firsts = [want] + steps
+    n_cmp = []
+    for row in range(b):
+        n = next((i for i, lg in enumerate(firsts) if top2_gap(lg[row]) < LOGIT_RTOL * scale_p),
+                 PAR_NEW)
+        ref_toks = [int(torch.argmax(lg[row])) for lg in firsts]
+        require(out["tokens"][row][:n] == ref_toks[:n],
+                f"[{name}] row {row}'s tokens differ before step {n}: {out['tokens'][row]} vs "
+                f"{ref_toks}")
+        n_cmp.append(n)
+    del model, cache
+    torch.cuda.empty_cache()
+    pp = [b * PAR_PROMPT / o["pp_s"] for o in res]
+    tg = [b * (PAR_NEW - 1) / o["tg_s"] for o in res]
+    log(f"  [{name}] pp 2 over 2 gloo ranks, batch {b} in {n_micro} microbatches: prefill "
+        f"logits {err_p:.4g} from one process's ({err_p / scale_p:.3g} of max|logit|), decode "
+        f"steps up to {max(errs):.3g} of max|logit|, tokens equal over the first {n_cmp} of "
+        f"{PAR_NEW}; pp{PAR_PROMPT} {min(pp):.1f} tok/s, tg{PAR_NEW} {min(tg):.1f} tok/s over the "
+        f"batch (host clock, ranks sharing one card); ticks "
+        f"{[o['counters'].get('pp_stage_runs', 0) for o in res]} run, "
+        f"{[o['counters'].get('pp_bubble_ticks', 0) for o in res]} bubble; host copies "
+        f"{[o['counters'].get('host_copies', 0) for o in res]}; placement {res[0]['tiers']}  "
+        f"[{card}]")
+    summary.setdefault("parallel", {})[name] = dict(
+        launches=launches, placement=[o["tiers"] for o in res], logits_err=err_p,
+        logits_scale=scale_p, step_errs=errs, tokens=out["tokens"], tokens_checked=n_cmp,
+        batch=b, n_micro=n_micro, pp_tok_s=pp, tg_tok_s=tg,
+        host_copies=[o["counters"].get("host_copies", 0) for o in res],
+        ticks=[{k: o["counters"].get(k, 0) for k in ("pp_stage_runs", "pp_bubble_ticks")}
+               for o in res], card=card, backend="gloo", ranks=PAR_RANKS)
+    return launches
+
+
 def nccl_check(torch, dev, summary):
     """NCCL in this process at world size 1: init_distributed, then
     all_reduce and all_gather through parallel/mesh.py, equal to their
@@ -5777,9 +6386,19 @@ def parallel_paths(torch, dev, models, shallow, prompts, serve_reqs, card, summa
         launches["serve_mesh_tiny"] = serve_mesh_path(torch, world, shallow, serve_reqs, card,
                                                       summary)
         t4 = time.perf_counter()
+        train_s = {}
+        for name in PAR_TRAIN:
+            t5 = time.perf_counter()
+            launches[name] = train_par_path(torch, world, name, card, summary)
+            train_s[name] = time.perf_counter() - t5
+        t5 = time.perf_counter()
+        launches["pp2_tiny"] = pp_forward_path(
+            torch, dev, world, [p[:PAR_PROMPT] for p in prompts[1:1 + PP_FWD_BATCH]], card,
+            summary)
+        train_s["pp2_tiny"] = time.perf_counter() - t5
     nccl_check(torch, dev, summary)
     summary["parallel_s"] = dict(tp2_7b=t2 - t1, cp2_tiny=t3 - t2, serve_mesh_tiny=t4 - t3,
-                                 total=time.perf_counter() - t0)
+                                 **train_s, total=time.perf_counter() - t0)
     return launches
 
 
@@ -5892,7 +6511,8 @@ def main() -> int:
     require(tiny.enable_stacked_decode() and tiny.enable_tape_decode(),
             "TinyLlama-1.1B Q4_0: enable_stacked_decode / enable_tape_decode refused")
     shallow = {m: shallow_model(models[m], SHALLOW_LAYERS)
-               for m in (("tinyllama-1.1b", "q4_0"), ("tinyllama-1.1b", "q8_0"))}
+               for m in (("tinyllama-1.1b", "q4_0"), ("tinyllama-1.1b", "q8_0"),
+                         ("llama2-7b", "q4_0"))}
     require(shallow["tinyllama-1.1b", "q4_0"].enable_stacked_decode()
             and shallow["tinyllama-1.1b", "q4_0"].enable_tape_decode(),
             f"the {SHALLOW_LAYERS}-layer TinyLlama: enable_stacked_decode / enable_tape_decode "
@@ -5909,6 +6529,8 @@ def main() -> int:
         engines[name], launches[name], eng4 = end_to_end(torch, model, prompts, name, summary)
         if eng4 is not None:
             engines4[name] = eng4
+    launches[F32KV_TINY_F32[0]] = f32_prefill_check(torch, engines["f32kv_tiny"], prompts[1],
+                                                   summary)
     kernel_switch_check(torch, tiny, prompts[1], summary)
     log(f"  phase 3 (inference) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5930,7 +6552,7 @@ def main() -> int:
     launches.update(weight_form_paths(torch, dev, models, prompts[0], summary))
     log(f"  phase 3 (weight forms, text and quality) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches["gpt2_xl"] = gpt2_path(torch, dev, card, summary)
+    launches["gpt2_xl"], launches["gpt2_xl_f32"] = gpt2_path(torch, dev, card, summary)
     t1 = time.perf_counter()
     launches["whisper_large_v3"] = whisper_path(torch, dev, card, summary)
     summary["model_paths_s"] = dict(gpt2_xl=t1 - t0, whisper_large_v3=time.perf_counter() - t1)

@@ -175,6 +175,12 @@ def test_engine_greedy_tokens_match_jax(learned):
 
 
 def test_f32_cache_is_refused():
+    """The f32 cache is no longer refused (K3 has its f32-K/V forms): it is
+    the bf16 cache's shape in f32. A dtype the JAX GPT engine makes no cache
+    of (int8) still is."""
     model = _model(CFG, 0)
-    with pytest.raises(NotImplementedError, match="B.4"):
-        model.init_cache(1, "f32")
+    cache = model.init_cache(1, "f32")
+    assert cache["k"].dtype == cache["v"].dtype == torch.float32
+    assert cache["k"].shape == model.init_cache(1)["k"].shape
+    with pytest.raises(ValueError, match="cache dtype"):
+        model.init_cache(1, "int8")

@@ -4,6 +4,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -158,6 +159,68 @@ def test_int8_cache_wrappers_refuse_cpu_tensors():
         bf = torch.zeros(1, 1, 8, 16, dtype=torch.bfloat16, device="cuda")
         with pytest.raises(ValueError, match="int8"):
             flash_attention_q8_cuda(q.cuda(), bf, sc.cuda(), bf, sc.cuda(), 4)
+
+
+def test_f32_cache_wrappers_refuse_cpu_tensors():
+    """K3's f32-K/V forms and K7's f32-cache mode raise off the card, as
+    the others do."""
+    q = torch.zeros(1, 2, 4, 16)
+    kv = torch.zeros(1, 1, 8, 16)
+    for bf16 in (False, True):
+        with pytest.raises(ValueError, match="attention: q on cpu.*one CUDA device"):
+            flash_attention_cuda(q, kv, kv, 4, bf16=bf16)
+    x = torch.zeros(1, 1, 32)
+    cache = torch.zeros(1, 1, 1, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        attn_block_cuda(x, torch.ones(32), _pw_n(96), _pw_n(32), cache, cache, 0,
+                        torch.zeros(1, dtype=torch.int32), torch.ones(1, 16),
+                        torch.zeros(1, 16), 1, 1, 1e-5)
+
+
+def test_f32_cache_is_routed_to_its_kernels_on_a_card(monkeypatch, tmp_path):
+    """With the attention kernels taken as on the card (their wrappers
+    swapped for the plain versions, which record the cache dtype they were
+    handed), an engine over the f32 cache sends each prefill layer to K3
+    over f32 K / V, a batch-1 decode layer to K7 over the f32 cache and a
+    batch-2 one to K4's f32 form."""
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.models.llama import LlamaConfig
+    from zgml_tpu_torch.ops import attention, layerkernel
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.utils.synthetic import write_synthetic_llama_gguf
+    seen = []
+
+    def record(name, plain, cache_arg):
+        def fn(*args, **kw):
+            seen.append((name, args[cache_arg].dtype))
+            kw.pop("ffn", None)
+            return plain(*args, **kw)
+        return fn
+    kernel = dispatch._use_kernel
+    monkeypatch.setattr(dispatch, "_use_kernel", lambda op, *t: op in (
+        "attention", "decode_attention", "attn_block") or kernel(op, *t))
+    monkeypatch.setattr(attention, "flash_attention_cuda",
+                        record("flash", attention.flash_attention_ref, 1))
+    monkeypatch.setattr(attention, "decode_attention_cuda",
+                        record("decode", attention.decode_attention_ref, 1))
+    monkeypatch.setattr(layerkernel, "attn_block_cuda",
+                        record("attn_block", layerkernel.attn_block_ref, 4))
+    for k in ("ZGML_TPU_KERNELS", "ZGML_TPU_KERNELS_DISABLE", "ZGML_TPU_ATTN_BLOCK",
+              "ZGML_TPU_LAYER_FFN"):
+        monkeypatch.delenv(k, raising=False)
+    cfg = LlamaConfig(vocab_size=64, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, n_layers=2,
+                      max_seq_len=32)
+    path = str(tmp_path / "t.gguf")
+    write_synthetic_llama_gguf(path, cfg, seed=3)
+    model, gf = load_llama(path, device="cpu")
+    gf.close()
+    n = cfg.n_layers
+    for batch, decode in ((1, "attn_block"), (2, "decode")):
+        seen.clear()
+        eng = LlamaEngine(model, batch=batch, prefill_chunk=16, cache_dtype="f32")
+        logits = eng.prefill(np.zeros((batch, 5), np.int64))
+        eng.step(torch.argmax(logits, -1))
+        assert seen == [("flash", torch.float32)] * n + [(decode, torch.float32)] * n, seen
 
 
 def _pw_n(n):

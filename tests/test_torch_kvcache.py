@@ -490,10 +490,10 @@ def test_kv8_run_takes_the_int8_cache_kernels(kv8_runs):
 
 
 def test_init_cache_refuses_other_dtypes(kv8_model):
-    """A cache dtype other than "bf16" or "int8" raises, naming both."""
+    """A cache dtype other than "bf16", "f32" or "int8" raises, naming them."""
     model, gf = load_llama(kv8_model, device="cpu")
     gf.close()
-    with pytest.raises(ValueError, match="'bf16' or 'int8'"):
+    with pytest.raises(ValueError, match="'bf16', 'f32' or 'int8'"):
         model.init_cache(1, "fp8")
 
 

@@ -11,7 +11,7 @@ loaded dense by each package, as tests/test_serving.py loads it), greedy:
     local max_batch (max_batch / dp rows, the same function a row at a time);
     sampled (temperature > 0), equal to the one-process server of the whole
     max_batch from the same seed;
-  - dryrun_multichip(4, "cpu", "gloo") once.
+  - dryrun_multichip(4, "cpu", "gloo") once, both halves.
 """
 import jax
 import pytest
@@ -111,9 +111,38 @@ def test_dp_sampled_serving_equals_one_process_server(world2, gguf, burst):
     assert want != [greedy[r] for r in sorted(greedy)]      # the draws decide tokens
 
 
-def test_dryrun_multichip_cpu():
-    """The dry run's TP forward, TP decode through K7, CP prefill and mesh
-    request on 4 spawned gloo ranks."""
+def test_dryrun_multichip_cpu(monkeypatch):
+    """The dry run on 4 spawned gloo ranks (which inherit the flags): its
+    training half, the dp + tp train step and the GPipe step over 4 stages,
+    whose losses are JAX's dry run's (__graft_entry__.py:64-104: the same
+    configs, seeds and tokens) within 1e-4 at ZGML_TPU_PREFILL_BF16=0; and
+    its serving half (TP forward, TP decode through K7, CP prefill, a mesh
+    request)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from zgml_tpu.models.llama import LlamaConfig as JCfg
+    from zgml_tpu.models.llama import init_params as jax_init_params
+    from zgml_tpu.parallel import make_sharded_train_step, shard_llama_params
+    from zgml_tpu.parallel.pp import make_pp_train_step, shard_pp_params
+    monkeypatch.setenv("ZGML_TPU_PREFILL_BF16", "0")
+    monkeypatch.setenv("ZGML_TPU_SCALES", "f16")
+    cfg = JCfg(vocab_size=256, d_model=64, n_heads=8, n_kv_heads=8, d_ff=128, n_layers=2,
+               max_seq_len=32)
+    model = JModel(cfg, jax_init_params(cfg, seed=0))
+    mesh = jax_make_mesh(tp=4, dp=1, devices=jax.devices()[:4])
+    tokens = jnp.asarray(np.random.default_rng(0).integers(0, 256, (2, 9)), jnp.int32)
+    loss, _ = make_sharded_train_step(model, mesh)(shard_llama_params(model.params, mesh), tokens,
+                                                   model.init_cache(2), 1e-2)
+    pp_cfg = JCfg(vocab_size=256, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, n_layers=4,
+                  max_seq_len=32, tied_lm_head=True)
+    pp_model = JModel(pp_cfg, jax_init_params(pp_cfg, seed=1))
+    pp_mesh = jax_make_mesh(tp=4, dp=1, devices=jax.devices()[:4], axis_names=("dp", "pp"))
+    pp_tokens = jnp.asarray(np.random.default_rng(1).integers(0, 256, (4, 9)), jnp.int32)
+    pp_loss, _ = make_pp_train_step(pp_model, pp_mesh, n_micro=4)(
+        shard_pp_params(pp_model.params, pp_mesh), pp_tokens, pp_model.init_cache(4), 1e-2)
     out = dryrun_multichip(4, "cpu", "gloo", timeout=WORLD_TIMEOUT)
+    assert abs(out["train_loss"] - float(loss)) < 1e-4
+    assert abs(out["pp_loss"] - float(pp_loss)) < 1e-4
     assert out["tp_decode_k7_calls"] > 0 and out["cp_ring_calls"] > 0
     assert len(out["served"]) == 4

@@ -9,13 +9,17 @@ import torch
 
 from zgml_tpu_torch.io.llama_loader import load_llama, params_from_jax
 from zgml_tpu_torch.models.llama import LlamaModel
-from zgml_tpu_torch.parallel import make_mesh, make_sharded_forward, shard_llama_params
+from zgml_tpu_torch.parallel import (make_mesh, make_pp_forward, make_pp_train_step,
+                                     make_sharded_forward, make_sharded_train_step,
+                                     shard_llama_params, shard_pp_params)
+from zgml_tpu_torch.parallel.pp import _choose_micro
 from zgml_tpu_torch.parallel.ring import make_ring_attention
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.engine import LlamaEngine
 from zgml_tpu_torch.runtime.profile import global_profile
 from zgml_tpu_torch.runtime.sampling import SamplingParams
 from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
+from zgml_tpu_torch.utils.tree import paths
 
 
 def build_model(src) -> LlamaModel:
@@ -143,4 +147,107 @@ def tp_collectives(dev, x: np.ndarray) -> dict:
         y = fn(a, tp)
         (y * w * torch.arange(1, y.shape[-1] + 1, dtype=y.dtype)).sum().backward()
         out[name] = (y.detach().numpy(), a.grad.numpy())
+    return out
+
+
+def _np_tree(params) -> dict:
+    """{path: numpy} of a dense params tree (utils.tree.paths)."""
+    return {p: t.detach().cpu().numpy() for p, t in paths(params)}
+
+
+def tp_train(dev, src, tp: int, dp: int, tokens: np.ndarray, lr: float, steps: int) -> dict:
+    """`steps` make_sharded_train_step steps of this rank's dp rows of
+    tokens [B, T + 1] over a (dp, tp) mesh: {"losses", "grads" of the first
+    step's loss_and_grads by path, "params" after the steps by path (the
+    rank's shard), "dp", "tp", "counts" of the first step}."""
+    model = build_model(src)
+    mesh = make_mesh(tp=tp, dp=dp, device=dev)
+    shard_llama_params(model, mesh)
+    step = make_sharded_train_step(model, mesh)
+    b = tokens.shape[0] // dp
+    mine = torch.as_tensor(tokens[mesh.coords["dp"] * b:(mesh.coords["dp"] + 1) * b])
+    global_profile.reset()
+    _, grads = step.loss_and_grads(mine)
+    names = [p for p, _ in paths(model.params)]
+    out = {"dp": mesh.coords["dp"], "tp": mesh.coords["tp"], "counts": counts(),
+           "grads": {n: g.numpy() for n, g in zip(names, grads)}, "losses": []}
+    for _ in range(steps):
+        loss, _ = step(mine, lr)
+        out["losses"].append(float(loss))
+    out["params"] = _np_tree(model.params)
+    return out
+
+
+def pp_train(dev, src, n_micro, tokens: np.ndarray, lr: float, steps: int) -> dict:
+    """`steps` make_pp_train_step steps of tokens [B, T + 1] over a 'pp' axis
+    of every rank: {"losses", "grads" of the first step by path (the stage's
+    layers numbered from 0), "params" after the steps, "stage", "counts" and
+    "ticks" (pp_stage_runs, pp_bubble_ticks) of the first step}."""
+    model = build_model(src)
+    mesh = make_mesh(tp=torch.distributed.get_world_size(), axis_names=("dp", "pp"), device=dev)
+    shard_pp_params(model, mesh)
+    step = make_pp_train_step(model, mesh, n_micro)
+    global_profile.reset()
+    _, grads = step.loss_and_grads(torch.as_tensor(tokens))
+    names = [p for p, _ in paths(model.params)]
+    out = {"stage": mesh.coords["pp"], "counts": counts(), "ticks": dict(global_profile.counters),
+           "grads": {n: g.numpy() for n, g in zip(names, grads)}, "losses": []}
+    for _ in range(steps):
+        loss, _ = step(torch.as_tensor(tokens), lr)
+        out["losses"].append(float(loss))
+    out["params"] = _np_tree(model.params)
+    return out
+
+
+def pp_forward(dev, src, n_micro, tokens: np.ndarray, steps: np.ndarray,
+               cache_dtype: str) -> dict:
+    """make_pp_forward over a 'pp' axis of every rank: prefill of tokens [B,
+    T] from pos 0, then one decode token steps [B, 1] at pos T: {"prefill",
+    "decode" logits, "cache": the stage's slabs' first T + 1 positions,
+    "stage", "counts" and "ticks" of the prefill}."""
+    model = build_model(src)
+    mesh = make_mesh(tp=torch.distributed.get_world_size(), axis_names=("dp", "pp"), device=dev)
+    shard_pp_params(model, mesh)
+    fwd = make_pp_forward(model, mesh, n_micro)
+    cache = model.init_cache(tokens.shape[0], cache_dtype)
+    global_profile.reset()
+    out = {"stage": mesh.coords["pp"], "prefill": fwd(torch.as_tensor(tokens), cache, 0).numpy()}
+    out["counts"], out["ticks"] = counts(), dict(global_profile.counters)
+    out["decode"] = fwd(torch.as_tensor(steps), cache, tokens.shape[1]).numpy()
+    out["cache"] = {n: c[:, :, :, :tokens.shape[1] + 1].float().numpy() for n, c in cache.items()}
+    return out
+
+
+def pp_refusals(dev, srcs: dict) -> dict:
+    """The messages of the parallel training paths' refusals, each on the
+    model of srcs[name]: "layers" (n_layers % pp), "unsharded" (params never
+    split into stages), "batch" (batch % n_micro), "quantized" (a pipeline
+    step of a quantized model) and "tp_quantized" (the sharded train step
+    of one)."""
+    mesh = make_mesh(tp=torch.distributed.get_world_size(), axis_names=("dp", "pp"), device=dev)
+    tp_mesh = make_mesh(tp=2, device=dev)
+
+    def batch(m):
+        shard_pp_params(m, mesh)
+        make_pp_forward(m, mesh, 3)(torch.zeros((4, 2), dtype=torch.long), m.init_cache(4), 0)
+
+    def quantized(m):
+        shard_pp_params(m, mesh)
+        make_pp_train_step(m, mesh)
+
+    def tp_quantized(m):
+        shard_llama_params(m, tp_mesh)
+        make_sharded_train_step(m, tp_mesh)(torch.zeros((4, 3), dtype=torch.long), 0.1)
+
+    out = {}
+    for name, fn, src in (("layers", lambda m: shard_pp_params(m, mesh), srcs["layers"]),
+                          ("unsharded", lambda m: make_pp_forward(m, mesh), srcs["unsharded"]),
+                          ("batch", batch, srcs["batch"]),
+                          ("quantized", quantized, srcs["quantized"]),
+                          ("tp_quantized", tp_quantized, srcs["tp_quantized"])):
+        try:
+            fn(build_model(src))
+            out[name] = ""
+        except ValueError as e:
+            out[name] = str(e)
     return out

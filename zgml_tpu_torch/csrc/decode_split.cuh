@@ -12,8 +12,13 @@
 // whole block, or K7's consumer warps beside its weight producer). K rows in shared memory are padded by one word so the per-key
 // dot products of a warp hit distinct banks.
 //
-// Two cache elements, one template parameter T:
+// Three cache elements, one template parameter T:
 //   bf16 (K7, K14):    f32 scores q . k * scale, p @ V in f32;
+//   f32 (K7 over the f32 cache): the same function on f32 K and V. Its rows
+//     are twice as wide, so the chunk's K is staged, scored, and V is then
+//     staged into the same buffer: the area is the bf16 form's (K7's plans
+//     do not change with the cache) at the cost of V's load no longer
+//     overlapping K's;
 //   int8 (K7-kv8):     the position-major int8 cache with one f32 scale per
 //     position (zgml_tpu_torch/quant/kv_cache.py). The block quantizes the
 //     group's f32 q rows itself (quantize_vec: absmax/127 per query head,
@@ -55,7 +60,7 @@ __device__ __forceinline__ void quantize_vec(const float* src, int8_t* dst, floa
 }
 
 // Dynamic shared memory of decode_chunk_partial<D, THREADS, T>, in bytes
-// (KV8: T is int8_t).
+// (KV8: T is int8_t; the bf16 and the f32 element take the same area).
 template <int D, bool KV8>
 __host__ __device__ inline size_t decode_chunk_smem_bytes(int n_rep) {
   if (KV8)   // q levels, q scales, scores, K words (padded), V words, K and V scales
@@ -95,7 +100,7 @@ __device__ __forceinline__ void chunk_softmax(float* sc, int n_rep, int D, float
 
 // q: the group's n_rep f32 query rows [n_rep][D] (read with __ldcg: K7 writes
 // them in the same kernel); k, v: the chunk's first key row of this head,
-// rows of D elements T, bf16 or (int8_t) levels; ksc, vsc (int8 only, else
+// rows of D elements T, bf16, f32 or (int8_t) levels; ksc, vsc (int8 only, else
 // null): the chunk's first position scale. All THREADS threads (threads
 // 0 .. THREADS - 1 of the block, joined by Sync) call it; it ends with a
 // barrier, so the caller may reuse smem at once.
@@ -155,6 +160,42 @@ __device__ void decode_chunk_partial(const float* q, const T* k, const float* ks
       const float* pr = sc + r * DA_CHUNK;
       float acc = 0.f;
       for (int j = 0; j < nk; ++j) acc = fmaf(pr[j] * vss[j], (float)v8[j * D + c], acc);
+      part[r * head_stride + c] = acc;
+    }
+  } else if constexpr (std::is_same_v<T, float>) {
+    float* qs = smem;                                  // [n_rep][D]
+    sc = qs + n_rep * D;
+    float* kv = sc + n_rep * DA_CHUNK;                 // K [DA_CHUNK][D + 1], then V [DA_CHUNK][D]
+
+    for (int i = tid; i < n_rep * D; i += THREADS) qs[i] = __ldcg(q + i);
+    for (int i = tid; i < nk * D; i += THREADS) kv[(i / D) * (D + 1) + i % D] = __ldg(k + i);
+    Sync::sync();
+
+    // scores: thread -> (query head r, key j)
+    for (int i = tid; i < n_rep * DA_CHUNK; i += THREADS) {
+      const int r = i / DA_CHUNK, j = i % DA_CHUNK;
+      float sj = -INFINITY;
+      if (j < nk) {
+        const float* kr = kv + j * (D + 1);
+        const float* qr = qs + r * D;
+        float dot = 0.f;
+#pragma unroll 8
+        for (int c = 0; c < D; ++c) dot = fmaf(qr[c], kr[c], dot);
+        sj = dot * scale;
+      }
+      sc[i] = sj;
+    }
+    Sync::sync();
+    chunk_softmax<THREADS, Sync>(sc, n_rep, D, part, head_stride);   // K no longer read
+    for (int i = tid; i < nk * D; i += THREADS) kv[i] = __ldg(v + i);
+    Sync::sync();
+
+    // unnormalised p @ V: thread -> (query head r, dim c)
+    for (int i = tid; i < n_rep * D; i += THREADS) {
+      const int r = i / D, c = i % D;
+      const float* pr = sc + r * DA_CHUNK;
+      float acc = 0.f;
+      for (int j = 0; j < nk; ++j) acc = fmaf(pr[j], kv[j * D + c], acc);
       part[r * head_stride + c] = acc;
     }
   } else {

@@ -1,8 +1,10 @@
-// K3 flash_attention: causal GQA prefill attention over the bf16 KV cache;
+// K3 flash_attention: causal GQA prefill attention over the bf16 KV cache,
+// and over the f32 one in both forms (attention_f32kv, attention_bf16_f32kv);
 // its int8-cache mode, K9 flash_attention_q8; and its LSE mode, K10f
 // flash_fwd, the forward of training's flash attention and of a ring
-// attention hop, whose f32 form also reads f32 K/V (flash_fwd_f32kv). One
-// kernel template, flash_attn_kernel<D, KV8, F32KV>, serves all four.
+// attention hop, whose f32 form also reads f32 K/V (flash_fwd_f32kv). Two
+// kernel templates, flash_attn_kernel<D, KV8, F32KV> and
+// flash_bf16_kernel<D, KV8, F32KV>, serve all of them.
 //
 // Replaces: zgml_tpu/ops/attention.py `_flash_kernel` (line 44, its grid at
 // 120-200, pallas_call at 194), reached through `_flash` /
@@ -105,8 +107,9 @@
 //    warp skips a tile that none of its rows reaches.
 //
 // The f32-K/V form, flash_attn_kernel<D, false, true> (zgml_flash_attention_f32;
-// the JAX ring's hop under ZGML_TPU_PREFILL_BF16=0, parallel/ring.py, which
-// attends over the f32 K/V of the cp body): K and V staged in f32 (16-byte
+// K3 over the f32 KV cache under ZGML_TPU_PREFILL_BF16=0, and the JAX ring's
+// hop there, parallel/ring.py, which attends over the f32 K/V of the cp
+// body; JAX's kernel casts K and V to f32, attention.py:81-84): K and V staged in f32 (16-byte
 // cp.async, rows padded by 8 floats for K's float2 reads and by 4 for V's
 // column reads, so neither meets a bank conflict), their B operands split
 // into TF32 parts as q's and p's are, and every dot the three products
@@ -141,6 +144,19 @@
 //    (the same MMAs, the same bits) against the group's max. The walk over a
 //    split is a sequence of items (group, sub-tile, pass), double-buffered
 //    by cp.async as the f32 form's tiles.
+//  * Over f32 K/V (flash_bf16_kernel<D, false, true>: the f32 cache under
+//    ZGML_TPU_PREFILL_BF16=1, where JAX casts K and V to bf16) the function
+//    is this form's over bf16(K), bf16(V). cp.async cannot convert, so an
+//    item's f32 rows land by cp.async in a raw buffer (two stages, [2][BN][D]
+//    f32 each) and are rounded to nearest even into one bf16 sub-tile in one
+//    pass (cvt.rn.bf16x2), as K9 widens its levels; the rest is the bf16
+//    cache's code, so the output is bit-equal to this form on the rounded
+//    K/V. At D 128 that is 200,704 bytes of shared memory, one block an SM
+//    (the bf16 cache's form takes 104,448, two). The launch takes the bf16
+//    cache's plan (ops/attention.flash_plan), since a split moves where p
+//    rounds: so the f32 cache's output is the bf16 cache's on the rounded
+//    K/V bit for bit, at the cost of a second wave where that plan counted
+//    on more blocks an SM than fit.
 //  * A split of the prefix (flash_split_plan, at `group` keys a tile) starts
 //    its running max at its first key: where the plan splits, p rounds
 //    against another max than JAX's for keys whose group lies past a larger
@@ -648,13 +664,17 @@ struct FbShape {
 };
 
 // O [FA_BM][LDO] f32; the bf16 K and V sub-tiles [BN][LDK] (two stages; K9
-// widens into one); K9 only: the raw int8 K and V [BN][D] and their scales
-// [BN], two stages each.
-template <int D, bool KV8>
+// and the f32-K/V form widen or round into one); K9 only: the raw int8 K and
+// V [BN][D] and their scales [BN], two stages each; the f32-K/V form: the raw
+// f32 K and V [BN][D], two stages (at D 128: 34,816 + 34,816 + 131,072 =
+// 200,704 bytes, one block an SM).
+template <int D, bool KV8, bool F32KV = false>
 constexpr size_t fb_smem_bytes() {
   using Sh = FbShape<D>;
-  return 1ull * FA_BM * Sh::LDO * sizeof(float) + (KV8 ? 1ull : 2ull) * 2 * Sh::BN * Sh::LDK * 2 +
-         (KV8 ? 2ull * 2 * Sh::BN * D + 2ull * 2 * Sh::BN * sizeof(float) : 0ull);
+  return 1ull * FA_BM * Sh::LDO * sizeof(float) +
+         (KV8 || F32KV ? 1ull : 2ull) * 2 * Sh::BN * Sh::LDK * 2 +
+         (KV8 ? 2ull * 2 * Sh::BN * D + 2ull * 2 * Sh::BN * sizeof(float) : 0ull) +
+         (F32KV ? 2ull * 2 * Sh::BN * D * sizeof(float) : 0ull);
 }
 
 // One step of the bf16 form's walk over a split: sub-tile `sub` of key group
@@ -688,7 +708,18 @@ __device__ __forceinline__ void fb_stage(const T* kg, const T* vg, const float* 
   using Sh = FbShape<D>;
   constexpr int BN = Sh::BN, LDK = Sh::LDK;
   const int tid = threadIdx.x;
-  if constexpr (KV8) {
+  if constexpr (std::is_same_v<T, float>) {       // the f32-K/V form: raw f32 rows
+    constexpr int CH = D / 4;
+    float* kd = reinterpret_cast<float*>(raw) + st * 2 * BN * D;
+    float* vd = kd + BN * D;
+    for (int e = tid; e < BN * CH; e += FA_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool live = r < nk;
+      const size_t off = (size_t)(j0 + (live ? r : 0)) * D + c * 4;
+      cp_async16(kd + r * D + c * 4, kg + off, live);
+      if (with_v) cp_async16(vd + r * D + c * 4, vg + off, live);
+    }
+  } else if constexpr (KV8) {
     constexpr int CH = D / 16;
     int8_t* kd = raw + st * 2 * BN * D;
     int8_t* vd = kd + BN * D;
@@ -720,16 +751,18 @@ __device__ __forceinline__ void fb_stage(const T* kg, const T* vg, const float* 
   cp_async_commit();
 }
 
-template <int D, bool KV8>
+template <int D, bool KV8, bool F32KV = false>
 __global__ void __launch_bounds__(FA_THREADS, 1) flash_bf16_kernel(const FaParams p) {
+  static_assert(!(KV8 && F32KV), "one cache form");
   using Sh = FbShape<D>;
   constexpr int BN = Sh::BN, NT = Sh::NT, KS = Sh::KS, LDO = Sh::LDO, LDK = Sh::LDK;
   constexpr int NO = D / 8;
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  constexpr bool RAW = KV8 || F32KV;                 // staged raw, then made bf16 in one pass
+  using T = std::conditional_t<KV8, int8_t, std::conditional_t<F32KV, float, __nv_bfloat16>>;
   extern __shared__ __align__(16) unsigned char fa_smem[];
   float* o_s = reinterpret_cast<float*>(fa_smem);
   __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(o_s + FA_BM * LDO);
-  int8_t* raw = reinterpret_cast<int8_t*>(kv_s + (KV8 ? 1 : 2) * 2 * BN * LDK);
+  int8_t* raw = reinterpret_cast<int8_t*>(kv_s + (RAW ? 1 : 2) * 2 * BN * LDK);
   float* scl = reinterpret_cast<float*>(raw + 2 * 2 * BN * D);
 
   const int n_rep = p.Hq / p.Hkv;
@@ -831,8 +864,19 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_bf16_kernel(const FaParam
                          level_bf16(w, 2) | (level_bf16(w, 3) << 16));
         }
         __syncthreads();
+      } else if constexpr (F32KV) {   // round the stage's f32 rows to bf16 (nearest even), once
+        const float4* src = reinterpret_cast<const float4*>(raw) + st * 2 * BN * (D / 4);
+        constexpr int W = D / 4;
+        const int n_w = (main_pass ? 2 : 1) * BN * W;
+        for (int e = tid; e < n_w; e += FA_THREADS) {
+          const int kv = e / (BN * W), r = (e / W) % BN, c = e % W;
+          const float4 x = src[e];
+          *reinterpret_cast<uint2*>(kv_s + (kv * BN + r) * LDK + 4 * c) =
+              make_uint2(tf32::pack_bf16x2(x.x, x.y), tf32::pack_bf16x2(x.z, x.w));
+        }
+        __syncthreads();
       }
-      const __nv_bfloat16* Ks = kv_s + (KV8 ? 0 : st * 2 * BN * LDK);
+      const __nv_bfloat16* Ks = kv_s + (RAW ? 0 : st * 2 * BN * LDK);
       const __nv_bfloat16* Vs = Ks + BN * LDK;
       const float* ksc = scl + st * 2 * BN;
       const float* vsc = ksc + BN;
@@ -1008,15 +1052,14 @@ template <int D, bool KV8, bool F32KV = false>
 int launch(const FaParams& p, int B, int bn, bool bf16, cudaStream_t st) {
   const dim3 grid((p.n_rows + FA_BM - 1) / FA_BM, B * p.Hkv, p.n_split);
   int rc;
-  if (F32KV && bf16) return ZGML_ERR_SHAPE;          // the bf16 form reads bf16 K/V
   if (bf16) {         // bn is the key group, any size
     if (bn < 1) return ZGML_ERR_SHAPE;
     FaParams q = p;
     q.group = bn;
-    constexpr size_t smem = fb_smem_bytes<D, KV8>();
-    rc = allow_dynamic_smem(flash_bf16_kernel<D, KV8>, smem);
+    constexpr size_t smem = fb_smem_bytes<D, KV8, F32KV>();
+    rc = allow_dynamic_smem(flash_bf16_kernel<D, KV8, F32KV>, smem);
     if (rc != 0) return rc;
-    flash_bf16_kernel<D, KV8><<<grid, FA_THREADS, smem, st>>>(q);
+    flash_bf16_kernel<D, KV8, F32KV><<<grid, FA_THREADS, smem, st>>>(q);
   } else {
     if (bn != FaShape<D>::BN) return ZGML_ERR_SHAPE;    // the host plan's tile must be ours
     constexpr size_t smem = fa_smem_bytes<D, KV8, F32KV>();
@@ -1065,7 +1108,8 @@ int launch_hd(const FaParams& p, int B, int D, int bn, bool bf16, cudaStream_t s
 
 // *n = the blocks of flash_attn_kernel<D, kv == 1> (kv 2: its f32-K/V form;
 // bf16: flash_bf16_kernel) one SM holds at once (the occupancy the host plan
-// fills); returns a status.
+// fills); returns a status. The bf16 form over f32 K/V takes the bf16
+// cache's plan (ops/attention.flash_plan), so it has no entry here.
 ZGML_EXPORT int zgml_flash_blocks_per_sm(int D, int kv, int bf16, int* n) {
   if (kv == 2 && bf16 != 0) return ZGML_ERR_SHAPE;
 #define ZGML_FLASH_OCC(DD)                                 \
@@ -1106,18 +1150,21 @@ ZGML_EXPORT int zgml_flash_attention(const float* q, const void* k, const float*
                        : launch_hd<false>(p, B, D, bn, bf16 != 0, st);
 }
 
-// The f32-K/V form of the f32 kernel (a ring hop's K10f under
-// ZGML_TPU_PREFILL_BF16=0): q f32 [B, Hq, Tq, D], k/v f32 [R, Hkv, S, D], o
-// and lse as zgml_flash_attention's (lse may be null); n_split, bn and part
-// as there (bn this build's tile for D).
+// The f32-K/V forms over f32 k/v [R, Hkv, S, D] (the f32 KV cache's K3, and
+// a ring hop's K10f under ZGML_TPU_PREFILL_BF16=0): q f32 [B, Hq, Tq, D], o
+// and lse as zgml_flash_attention's (lse may be null; the bf16 form takes
+// none); n_split, bn and part as there (bf16 == 0: bn this build's tile for
+// D; bf16 != 0: the bf16 form over bf16(K), bf16(V), bn its key group).
 ZGML_EXPORT int zgml_flash_attention_f32(const float* q, const float* k, const float* v, float* o,
                                          float* lse, float* part, int B, int Hq, int Hkv, int Tq,
                                          int S, int D, int kv_len, int q_offset, int kv_row,
-                                         int n_split, int bn, float scale, void* stream) {
+                                         int n_split, int bn, int bf16, float scale,
+                                         void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Tq <= 0 || S <= 0 || kv_row < 0 ||
-      q_offset < 0 || n_split < 1 || n_split > 65535 || (n_split > 1 && part == nullptr))
+      q_offset < 0 || n_split < 1 || n_split > 65535 || (n_split > 1 && part == nullptr) ||
+      (bf16 != 0 && lse != nullptr))
     return ZGML_ERR_SHAPE;
   FaParams p{q, k, nullptr, v, nullptr, o, lse, part, Hq, Hkv, Tq, S, max(0, min(kv_len, S)),
              q_offset, kv_row, n_split, (Hq / Hkv) * Tq, B * Hq * Tq, scale, 0};
-  return launch_hd<false, true>(p, B, D, bn, false, static_cast<cudaStream_t>(stream));
+  return launch_hd<false, true>(p, B, D, bn, bf16 != 0, static_cast<cudaStream_t>(stream));
 }

@@ -37,6 +37,9 @@
 // (quantize_vec, bit-equal to the plain quantize_columns on the same values;
 // llama.py:377-385). qq_out / qs_out, where not null, receive the quantized
 // q, so a check can feed the plain version the kernel's own levels.
+// With the f32 cache (the JAX package's init_cache(batch, float32);
+// instantiated in layer_attn_f32.cu) the rows j < pos are read in f32 and
+// row pos receives k_cur, v_cur as they are (layerkernel.py:311-314).
 //
 // What bounds it on the H100: at short context the weight bytes (wqkv 2.95 MB
 // + wo 2.36 MB at TinyLlama-1.1B at Q4_0, 5.57 + 4.46 MB at Q8_0; 28.3 + 9.4
@@ -93,24 +96,27 @@
 
 namespace {
 
-// The modes of one weight format without phase E: the A phase and the cache.
+// The modes of one weight format without phase E over the bf16 or the int8
+// cache: the A phase and the cache.
 template <class F>
 int launch_modes(const LayerParams& p, int a_i8, int kv8, unsigned int* heads, int hd,
                  const int* plan, const int* bounds, int device, cudaStream_t st) {
-  if (a_i8 && kv8) return launch_hd<F, true, true, false>(p, heads, hd, plan, bounds, device, st);
-  if (a_i8) return launch_hd<F, true, false, false>(p, heads, hd, plan, bounds, device, st);
-  if (kv8) return launch_hd<F, false, true, false>(p, heads, hd, plan, bounds, device, st);
-  return launch_hd<F, false, false, false>(p, heads, hd, plan, bounds, device, st);
+  using B = __nv_bfloat16;
+  using I8 = int8_t;
+  if (a_i8 && kv8) return launch_hd<F, true, I8, false>(p, heads, hd, plan, bounds, device, st);
+  if (a_i8) return launch_hd<F, true, B, false>(p, heads, hd, plan, bounds, device, st);
+  if (kv8) return launch_hd<F, false, I8, false>(p, heads, hd, plan, bounds, device, st);
+  return launch_hd<F, false, B, false>(p, heads, hd, plan, bounds, device, st);
 }
 
 }  // namespace
 
 // kind 0 (q4_0) or 1 (q8_0), the kind of both weights; a_i8 1 for the int8 A
 // phase (then xq_out int8 [d] and xs_out f32 [d/32] receive its activations
-// unless null), 0 for the f32 one; kv8 1 for the int8 cache (ck/cv int8
+// unless null), 0 for the f32 one; kv the cache: 1 the int8 one (ck/cv int8
 // levels and cks/cvs f32 scales [hkv, S]; qq_out int8 [hq, hd] and qs_out f32
-// [hq] receive the quantized q unless null), 0 for the bf16 one (cks, cvs,
-// qq_out, qs_out null); g2 non-null for phase E (kind 0 only: g2 f32 [d]
+// [hq] receive the quantized q unless null), 0 the bf16 one, 2 the f32 one
+// (for both, cks, cvs, qq_out, qs_out null); g2 non-null for phase E (kind 0 only: g2 f32 [d]
 // ffn_norm, w_gate_up gu_qs / gu_d [2F, d], w_down dn_qs / dn_d [d, F], the
 // planes 16-byte aligned, act f32 [F] scratch; x_out 16-byte aligned), else
 // those null and F 0; x f32 [d], g f32 [d], wqkv (qs [(hq+2hkv)hd, d/32 *
@@ -123,7 +129,7 @@ int launch_modes(const LayerParams& p, int a_i8, int kv8, unsigned int* heads, i
 // (left zeroed). plan: the host ints of ops/decode_plan.py
 // attn_plan (host_ints), bounds: its int32 [2, grid + 1] range bounds on the
 // card; device: the card's index. All contiguous.
-ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, const float* g,
+ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv, const float* x, const float* g,
                                 const uint8_t* wqkv_qs, const void* wqkv_d, const uint8_t* wo_qs,
                                 const void* wo_d, const float* cos, const float* sin, void* ck,
                                 void* cv, float* cks, float* cvs, const int* pos, float* x_out,
@@ -135,9 +141,11 @@ ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, con
                                 const void* dn_d, float* act, int F, const int* plan,
                                 const int* bounds, int device, void* stream) {
   const int e = g2 != nullptr;
-  if (d <= 0 || d % 32 != 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || S <= 0 ||
-      (kv8 != 0) != (cks != nullptr && cvs != nullptr) || heads == nullptr || plan == nullptr ||
-      bounds == nullptr ||
+  const int kv8 = kv == 1;
+  if (d <= 0 || d % 32 != 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || S <= 0 || kv < 0 ||
+      kv > 2 || (kv8 != 0) != (cks != nullptr && cvs != nullptr) ||
+      (kv != 1 && (qq_out != nullptr || qs_out != nullptr)) || heads == nullptr ||
+      plan == nullptr || bounds == nullptr ||
       (e && (F <= 0 || F % 32 != 0 || !gu_qs || !gu_d || !dn_qs || !dn_d || !act ||
              !ws::aligned16(x_out))))
     return ZGML_ERR_SHAPE;
@@ -148,6 +156,7 @@ ZGML_EXPORT int zgml_attn_block(int kind, int a_i8, int kv8, const float* x, con
                       static_cast<const __half*>(gu_d), dn_qs, static_cast<const __half*>(dn_d),
                       act, e ? F : 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv == 2) return launch_attn_f32kv(p, kind, a_i8, e, heads, hd, plan, bounds, device, st);
   if (e)             // JAX's has_ffn: Q4_0 only
     return kind == 0 ? launch_attn_ffn(p, a_i8, kv8, heads, hd, plan, bounds, device, st)
                      : (int)ZGML_ERR_KIND;

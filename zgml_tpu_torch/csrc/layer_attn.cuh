@@ -1,7 +1,9 @@
 // K7's kernel template and launchers (layer_attn.cu describes the kernel):
-// the modes without phase E are instantiated in layer_attn.cu, phase E's
-// (Q4_0, every A phase and cache) in layer_attn_ffn.cu, so nvcc compiles the
-// two halves in parallel.
+// over the bf16 and the int8 cache, the modes without phase E are
+// instantiated in layer_attn.cu and phase E's (Q4_0, every A phase) in
+// layer_attn_ffn.cu; every mode over the f32 cache in layer_attn_f32.cu; so
+// nvcc compiles the three in parallel. C, the cache element, is
+// __nv_bfloat16, int8_t (levels with per-position scales: kv8) or float.
 #pragma once
 
 #include "layer_phases.cuh"
@@ -31,10 +33,11 @@ size_t attn_act_bytes(int d, int hq, int hkv, int items, int f) {
   return m > e ? m : e;
 }
 
-template <class F, int D, bool AI8, bool KV8, bool E>
+template <class F, int D, bool AI8, class C, bool E>
 __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams p,
                                                                      ws::ArgsN<E ? 4 : 2> a) {
   constexpr int PH = E ? 4 : 2;
+  constexpr bool KV8 = std::is_same_v<C, int8_t>;
   extern __shared__ __align__(128) uint8_t smem[];
   ws::ring_init(smem, a.ring);
   // x and g, copied ahead of the weights where both are 16-byte aligned
@@ -110,7 +113,12 @@ __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams 
         const int kvh = h - p.hq;          // 0..hkv-1: k heads, hkv..2hkv-1: v heads
         p.kv_cur[kvh * D + ii] = o1;
         p.kv_cur[kvh * D + ii + HALF] = o2;
-        if constexpr (!KV8) {              // kv8: quantized after the combine
+        if constexpr (std::is_same_v<C, float>) {   // the f32 cache: k_cur, v_cur as they are
+          float* cache = static_cast<float*>(kvh < p.hkv ? p.ck : p.cv);
+          const size_t c0 = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
+          cache[c0 + ii] = o1;
+          cache[c0 + ii + HALF] = o2;
+        } else if constexpr (!KV8) {       // kv8: quantized after the combine
           __nv_bfloat16* cache = static_cast<__nv_bfloat16*>(kvh < p.hkv ? p.ck : p.cv);
           const size_t c0 = ((size_t)(kvh % p.hkv) * p.S + pos) * D;
           cache[c0 + ii] = __float2bfloat16_rn(o1);
@@ -120,7 +128,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams 
     }
   });
   gb.wait();
-  phase_b_merged<D, KV8>(p, act, a.counters);
+  phase_b_merged<D, C>(p, act, a.counters);
   gb.wait();
 
   // C: x_out = x + att @ Wo^T
@@ -184,11 +192,12 @@ __global__ void __launch_bounds__(ws::THREADS, 1) layer_attn_kernel(LayerParams 
   }
 }
 
-template <class F, int D, bool AI8, bool KV8, bool E>
+template <class F, int D, bool AI8, class C, bool E>
 int launch(const LayerParams& p, unsigned int* heads, const int* plan, const int* bounds,
            int device, cudaStream_t st) {
   static std::atomic<unsigned> ready{0};
   constexpr int PH = E ? 4 : 2;
+  constexpr bool KV8 = std::is_same_v<C, int8_t>;
   const int nq = p.hq * D;
   ws::ArgsN<PH> a{};
   a.ph[0] = ws::plan_phase(plan, 0, p.wqkv_qs, p.wqkv_d, bounds, p.d);
@@ -212,29 +221,33 @@ int launch(const LayerParams& p, unsigned int* heads, const int* plan, const int
                                                     (p.hkv * p.n_split + plan[0] - 1) / plan[0],
                                                     E ? p.F : 0)))
     return ZGML_ERR_SMEM;
-  return ws::launch(layer_attn_kernel<F, D, AI8, KV8, E>, p, a, plan[0], plan[4], device, ready,
+  return ws::launch(layer_attn_kernel<F, D, AI8, C, E>, p, a, plan[0], plan[4], device, ready,
                     st);
 }
 
-template <class F, bool AI8, bool KV8, bool E>
+template <class F, bool AI8, class C, bool E>
 int launch_hd(const LayerParams& p, unsigned int* heads, int hd, const int* plan,
               const int* bounds, int device, cudaStream_t st) {
   switch (hd) {      // the JAX rule's head dims (multiples of 32) up to 256
-    case 32: return launch<F, 32, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 64: return launch<F, 64, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 96: return launch<F, 96, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 128: return launch<F, 128, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 160: return launch<F, 160, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 192: return launch<F, 192, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 224: return launch<F, 224, AI8, KV8, E>(p, heads, plan, bounds, device, st);
-    case 256: return launch<F, 256, AI8, KV8, E>(p, heads, plan, bounds, device, st);
+    case 32: return launch<F, 32, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 64: return launch<F, 64, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 96: return launch<F, 96, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 128: return launch<F, 128, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 160: return launch<F, 160, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 192: return launch<F, 192, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 224: return launch<F, 224, AI8, C, E>(p, heads, plan, bounds, device, st);
+    case 256: return launch<F, 256, AI8, C, E>(p, heads, plan, bounds, device, st);
     default: return ZGML_ERR_HEAD_DIM;
   }
 }
 
 }  // namespace
 
-// Launch phase E's instantiation of the mode (a_i8, kv8) at Q4_0
-// (layer_attn_ffn.cu).
+// Launch phase E's instantiation of the mode (a_i8, kv8) at Q4_0 over the
+// bf16 or the int8 cache (layer_attn_ffn.cu).
 int launch_attn_ffn(const LayerParams& p, int a_i8, int kv8, unsigned int* heads, int hd,
                     const int* plan, const int* bounds, int device, cudaStream_t st);
+// Launch the instantiation of the mode (kind, a_i8, phase E where e) over the
+// f32 cache (layer_attn_f32.cu); phase E at kind 0 (Q4_0) only.
+int launch_attn_f32kv(const LayerParams& p, int kind, int a_i8, int e, unsigned int* heads,
+                      int hd, const int* plan, const int* bounds, int device, cudaStream_t st);

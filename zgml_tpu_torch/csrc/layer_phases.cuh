@@ -21,7 +21,7 @@ struct LayerParams {
   const __half* wo_d;        // [d, hq hd / 32]
   const float* cos;          // [hd/2] at pos
   const float* sin;          // [hd/2]
-  void* ck;                  // layer li's slab [hkv, S, hd]: bf16, or int8 levels (kv8)
+  void* ck;                  // layer li's slab [hkv, S, hd]: bf16, f32, or int8 levels (kv8)
   void* cv;
   float* cks;                // kv8: layer li's scales [hkv, S]
   float* cvs;
@@ -90,13 +90,15 @@ __device__ __forceinline__ void merge_head(const LayerParams& p, int h, int n_li
 // at once, one round trip), and the block that completes a head's count
 // merges its n_rep query heads (one warp each, merge_head, the chunks in
 // their fixed order) and sets the word back to 0. With no live chunk (pos 0)
-// block hk % grid merges head hk. With kv8 the consumers also quantize
-// k_cur, v_cur into cache row pos (phase B reads rows below pos only) and,
-// where asked, q into qq_out. smem: the phase's area, then `last`'s ints.
-template <int D, bool KV8>
+// block hk % grid merges head hk. C is the cache element (bf16, f32, or
+// int8 levels: kv8). With kv8 the consumers also quantize k_cur, v_cur into
+// cache row pos (phase B reads rows below pos only) and, where asked, q into
+// qq_out. smem: the phase's area, then `last`'s ints.
+template <int D, class C>
 __device__ __forceinline__ void phase_b_merged(const LayerParams& p, float* smem,
                                                unsigned int* heads) {
-  using T = std::conditional_t<KV8, int8_t, __nv_bfloat16>;
+  using T = C;
+  constexpr bool KV8 = std::is_same_v<C, int8_t>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pos = __ldg(p.pos);
   const int n_rep = p.hq / p.hkv;

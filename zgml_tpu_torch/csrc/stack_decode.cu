@@ -266,7 +266,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) stack_decode_kernel(StackParam
     });
     gb.wait();
     // B and the combine (K7's)
-    phase_b_merged<D, false>(lp, act, p.heads);
+    phase_b_merged<D, __nv_bfloat16>(lp, act, p.heads);
     gb.wait();
     // C: x2 = x + att @ Wo^T
     ws::stage_rows<BF16>(p.att, p.hq * D, act);

@@ -1,4 +1,4 @@
-"""GPT-2-style decoder over a stacked bf16 KV cache.
+"""GPT-2-style decoder over a stacked bf16 or f32 KV cache.
 
 Counterpart of zgml_tpu/models/gpt.py: pre-LN blocks with one packed w_qkv
 [D, 3D] projection, a tanh-GeLU FFN (jax.nn.gelu's default form; F.gelu's
@@ -11,8 +11,9 @@ JAX engine does.
 
 Kernels on the path, as the JAX model's (gpt.py:120-133): a prefill chunk's
 attention is K3 (``dispatch.flash_attention``, in its bf16 form under the
-default ZGML_TPU_PREFILL_BF16=1), a decode token's K4 over the bf16 cache
-(``dispatch.decode_attention``); both read layer li's slab of the stacked
+default ZGML_TPU_PREFILL_BF16=1; its f32-K/V forms over the f32 cache), a
+decode token's K4 (``dispatch.decode_attention``; its f32 form over the
+f32 cache); both read layer li's slab of the stacked
 cache [L, B, H, S, hd] through kv_row = li * B, as models/llama.py does.
 The projections are dense f32 [K, N] and go through ``dispatch.qmatmul``
 (torch.matmul), as the JAX package leaves them to XLA; the tied head, the
@@ -122,18 +123,16 @@ class GPTModel(torch.nn.Module):
         return self.params["wte"].device
 
     def init_cache(self, batch: int, dtype: str = "bf16") -> dict:
-        """The stacked bf16 KV cache {"k", "v"} [L, B, H, S, hd]. "f32" (the
-        JAX engine's cache_dtype=float32) raises NotImplementedError: its
-        prefill needs K3 over f32 K / V, which the port does not have."""
-        if dtype == "f32":
-            raise NotImplementedError("an f32 GPT cache needs K3 over f32 K/V, which the port "
-                                      "does not have yet (ROADMAP.md B.4)")
-        if dtype != "bf16":
-            raise ValueError(f"cache dtype {dtype!r}: want 'bf16'")
+        """The stacked KV cache {"k", "v"} [L, B, H, S, hd]: "bf16", or "f32"
+        (the JAX engine's cache_dtype=float32: prefill through K3's f32-K/V
+        forms, decode through K4's f32 form)."""
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}.get(dtype)
+        if dt is None:
+            raise ValueError(f"cache dtype {dtype!r}: want 'bf16' or 'f32'")
         c = self.cfg
         shape = (c.n_layers, batch, c.n_heads, c.max_seq_len, c.head_dim)
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=self.device)}
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
 
     def body(self, tokens: torch.Tensor, cache: dict, pos: int) -> torch.Tensor:
         """tokens int [B, T] at positions pos.. -> hidden states f32 [B, T, D]

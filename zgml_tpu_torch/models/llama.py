@@ -43,9 +43,11 @@ with JAX's forward and backward) where JAX places them; the megacalls and
 K7's phase E are off, K7 is chosen layer by layer (JAX's TP cache is the
 per-layer list), and the head gathers the vocab-sharded logits, never K5.
 
-The KV cache is stacked over layers and position-major in both of its
-dtypes (``init_cache(batch, "bf16" | "int8")``): ``{"k", "v"}`` bf16 tensors
-[L, B, Hkv, S, d], or the int8 cache of quant/kv_cache.py, ``{"k", "k_s",
+The KV cache is stacked over layers and position-major in each of its
+dtypes (``init_cache(batch, "bf16" | "f32" | "int8")``): ``{"k", "v"}`` bf16
+or f32 tensors [L, B, Hkv, S, d] (over f32 prefill takes K3's f32-K/V
+forms, batch-1 decode K7's f32-cache mode, other decode K4's f32 form), or
+the int8 cache of quant/kv_cache.py, ``{"k", "k_s",
 "v", "v_s"}`` int8 levels [L, B, Hkv, S, d] and f32 scales [L, B, Hkv, S].
 ``forward`` writes the new positions into it IN PLACE (the JAX package
 threads a new cache value through instead). Attention reads layer li's slab
@@ -250,36 +252,38 @@ def _qkv(cfg: LlamaConfig, h, layer: dict):
 
 
 def write_kv(ck: torch.Tensor, cv: torch.Tensor, li: int, pos: int, k: torch.Tensor,
-             v: torch.Tensor, row: int | None = None, wp: torch.Tensor | None = None):
-    """k / v [B, Hkv, T, hd] into layer li of the bf16 cache, IN PLACE: at
-    positions pos..pos+T-1 of every row, or of row `row` alone for a batch-1
-    chunk (serving's prefill into a slot, zgml_tpu/models/llama.py:460-468),
-    or, wp an int32 tensor [B] and T 1, row b at position wp[b] (per-row
-    decode, llama.py:474-478: indexed on the device, no host sync)."""
-    t = k.shape[2]
+             v: torch.Tensor, wp: torch.Tensor | None = None, row0: int = 0):
+    """k / v [B, Hkv, T, hd] into layer li of the bf16 or f32 cache, IN
+    PLACE: at positions pos..pos+T-1 of rows row0..row0+B-1 (every row where
+    B is the cache's; a batch-1 chunk into row row0, serving's prefill into a
+    slot, zgml_tpu/models/llama.py:460-468; a pipeline microbatch's rows), or,
+    wp an int32 tensor [B] and T 1, row b at position wp[b] (per-row decode,
+    llama.py:474-478: indexed on the device, no host sync)."""
+    t, b = k.shape[2], k.shape[0]
     for c, u in ((ck, k), (cv, v)):
         if wp is not None:
             rows = torch.arange(u.shape[0], device=wp.device)
             c[li][rows, :, wp.long()] = u[:, :, 0].to(c.dtype)
-        elif row is not None:
-            c[li, row, :, pos:pos + t] = u[0].to(c.dtype)
         else:
-            c[li, :, :, pos:pos + t] = u.to(c.dtype)
+            c[li, row0:row0 + b, :, pos:pos + t] = u.to(c.dtype)
 
 
 def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_len,
-                cos, sin, decode: bool, row: int | None = None, wp: torch.Tensor | None = None,
-                tp: TPShard | None = None):
+                cos, sin, decode: bool, wp: torch.Tensor | None = None,
+                tp: TPShard | None = None, row0: int = 0):
     """One block. x f32 [B, T, D]; ck/cv the whole [L, B', Hkv, S, d] cache
-    (bf16, or (levels, scales) tuples of the int8 one), written in place at
-    (li, :, :, pos:pos+T), or (li, row, :, pos:pos+T) for a batch-1 chunk
-    into row `row` (attention then reads that row through kv_row), or at
-    (li, b, :, wp[b]) for per-row decode; kv_len an int (prefill) or an
-    int32 tensor [B] (decode). ck None is training: pos 0, no cache, K/V
-    rounded to bf16. Under tensor parallelism (tp, cfg the rank's
-    local_config, layer its shard) the normed rows enter the column-parallel
-    projections through _tp_copy and the outputs of wo and w_down are summed
-    over the tp group before they join the stream (llama.py:398-512)."""
+    (bf16 or f32, or (levels, scales) tuples of the int8 one), written in
+    place at (li, row0:row0+B, :, pos:pos+T): every row, or where the cache
+    has more rows, a batch-1 chunk into a slot (serving) or a pipeline
+    microbatch (parallel/pp.py), attended through kv_row li * B' + row0; or
+    at (li, b, :, wp[b]) for per-row decode. decode: attention through the
+    decode kernels with kv_len an int32 tensor [B]; otherwise flash over
+    kv_len an int (prefill, and a slot's chunk at any length). ck None is
+    training: pos 0, no cache, K/V rounded to bf16. Under tensor
+    parallelism (tp, cfg the rank's local_config, layer its shard) the
+    normed rows enter the column-parallel projections through _tp_copy and
+    the outputs of wo and w_down are summed over the tp group before they
+    join the stream (llama.py:398-512)."""
     b, t, _ = x.shape
     nq = cfg.n_heads * cfg.head_dim
 
@@ -297,22 +301,22 @@ def _layer_step(cfg: LlamaConfig, x, layer: dict, ck, cv, li: int, pos: int, kv_
         # the int8 cache (llama.py:424-459): quantize and write first, then
         # attend from the int8 rows like every other position
         L, bb = ck[0].shape[:2]
-        kv_cache.write(ck, cv, li, pos, k, v, row, wp)
+        kv_cache.write(ck, cv, li, pos, k, v, wp, row0)
         rows = [c.view(L * bb, *c.shape[2:]) for c in (*ck, *cv)]      # k, k_s, v, v_s
-        if decode and row is None:
-            att = ops.decode_attention_q8(q, *rows, kv_len, kv_row=li * bb)
+        if decode:
+            att = ops.decode_attention_q8(q, *rows, kv_len, kv_row=li * bb + row0)
         else:
             att = ops.flash_attention_q8(q, *rows, kv_len=kv_len, q_offset=pos,
-                                         kv_row=li * bb + (row or 0))
+                                         kv_row=li * bb + row0)
     else:
         L, bb = ck.shape[:2]
-        write_kv(ck, cv, li, pos, k, v, row, wp)
+        write_kv(ck, cv, li, pos, k, v, wp, row0)
         rows_k, rows_v = ck.view(L * bb, *ck.shape[2:]), cv.view(L * bb, *cv.shape[2:])
-        if decode and row is None:
-            att = ops.decode_attention(q, rows_k, rows_v, kv_len, kv_row=li * bb)
+        if decode:
+            att = ops.decode_attention(q, rows_k, rows_v, kv_len, kv_row=li * bb + row0)
         else:
             att = ops.flash_attention(q, rows_k, rows_v, kv_len=kv_len, q_offset=pos,
-                                      kv_row=li * bb + (row or 0))
+                                      kv_row=li * bb + row0)
     att = att.transpose(1, 2).reshape(b, t, nq)
     x = x + _tp_reduce(ops.qmatmul(att, layer["wo"]), tp)
     return _ffn(cfg, x, layer, after_attn_block=False, tp=tp)
@@ -452,17 +456,23 @@ class LlamaModel(torch.nn.Module):
         return True
 
     def init_cache(self, batch: int, dtype: str = "bf16") -> dict:
-        """The stacked KV cache: "bf16", or "int8" (quant/kv_cache.py, as
-        the JAX package's init_cache(batch, "int8"), llama.py:659-692); a
-        tensor-parallel rank's holds its local KV heads (tp.py:375-378)."""
+        """The stacked KV cache: "bf16", "f32" (the JAX package's
+        init_cache(batch, jnp.float32), stacked as its bf16 one,
+        llama.py:659-676: prefill through K3's f32-K/V forms, batch-1 decode
+        through K7's f32-cache mode, K4's f32 form above), or "int8"
+        (quant/kv_cache.py, as the JAX package's init_cache(batch, "int8"),
+        llama.py:659-692); a tensor-parallel rank's holds its local KV heads
+        (tp.py:375-378), a pipeline stage's its own layers' slabs (pp.py:
+        the layers of its params)."""
         c = self.layer_cfg
-        shape = (c.n_layers, batch, c.n_kv_heads, c.max_seq_len, c.head_dim)
+        shape = (len(self.params["layers"]), batch, c.n_kv_heads, c.max_seq_len, c.head_dim)
         if dtype == "int8":
             return kv_cache.init_cache(*shape, device=self.device)
-        if dtype != "bf16":
-            raise ValueError(f"cache dtype {dtype!r}: want 'bf16' or 'int8'")
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=self.device),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=self.device)}
+        dt = {"bf16": torch.bfloat16, "f32": torch.float32}.get(dtype)
+        if dt is None:
+            raise ValueError(f"cache dtype {dtype!r}: want 'bf16', 'f32' or 'int8'")
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
 
     def _megacall(self):
         """(dispatch function, view) of the whole-stack megacall a batch-1
@@ -532,13 +542,18 @@ class LlamaModel(torch.nn.Module):
         cos, sin = refs.rope_cos_sin(positions, cfg.head_dim, cfg.rope_base)
         if slots:                  # a chunk into row cache_row, or write_pos with an int pos
             kv_len = pos + t
-            if decode and cache_row is None:    # a slot's chunk takes flash at any length
+            decode = decode and cache_row is None   # a slot's chunk takes flash at any length
+            if decode:
                 kv_len = torch.full((b,), kv_len, dtype=torch.int32, device=x.device)
             for li, layer in enumerate(layers):
                 x = _layer_step(cfg, x, layer, ck, cv, li, pos, kv_len, cos, sin, decode,
-                                row=cache_row, tp=tp)
+                                tp=tp, row0=cache_row or 0)
             return x
         mega = self._megacall() if decode and b == 1 and not kv8 and tp is None else None
+        if mega is not None and cache["k"].dtype == torch.float32:
+            raise NotImplementedError(
+                "the whole-stack decode megacalls (K14 / K15) over the f32 KV cache: the JAX "
+                "package's take it, the port's run over the bf16 cache only (ROADMAP.md B.4)")
         if mega is not None:
             run, view = mega
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
@@ -587,16 +602,24 @@ class LlamaModel(torch.nn.Module):
     def train_body(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens int [B, T] -> hidden states f32 [B, T, D] before the final
         norm: the JAX forward from a fresh cache at pos 0, without the cache
-        (module docstring)."""
-        cfg = self.cfg
-        t = tokens.shape[1]
+        (module docstring); under tensor parallelism on the rank's local
+        heads with the tp collectives, as the JAX train step's forward
+        (tp.py:524-526)."""
+        return self.train_layers(self.params["tok_embd"][tokens])
+
+    def train_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """x f32 [B, T, D] (embedded, at positions 0..T-1) through the
+        params' layers on the training path: train_body's loop, which a
+        pipeline stage runs over its own layers (parallel/pp.py)."""
+        cfg = self.layer_cfg
+        t = x.shape[1]
         if t > cfg.max_seq_len:
             raise ValueError(f"SequenceTooLong: {t} tokens > max_seq_len {cfg.max_seq_len}")
-        x = self.params["tok_embd"][tokens]
         cos, sin = refs.rope_cos_sin(torch.arange(t, device=x.device), cfg.head_dim,
                                      cfg.rope_base)
         for layer in self.params["layers"]:
-            x = _layer_step(cfg, x, layer, None, None, 0, 0, t, cos, sin, decode=False)
+            x = _layer_step(cfg, x, layer, None, None, 0, 0, t, cos, sin, decode=False,
+                            tp=self.tp)
         return x
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None, pos=0,

@@ -11,9 +11,11 @@ cache's, which is position-major as the bf16 one (quant/kv_cache.py):
                                      row b of the query reads cache row
                                      kv_row + b (the stacked [L, B, ...] cache
                                      viewed as [L*B, ...], kv_row = layer * B)
-       or f32  [R, Hkv, S, d]        K4's f32 form (Whisper's decoder: its
-                                     f32 self cache and cross K / V), the
-                                     JAX kernel's widening of any cache
+       or f32  [R, Hkv, S, d]        the f32 KV cache (init_cache(b, "f32")):
+                                     K3's f32-K/V forms and K4's f32 form
+                                     (also Whisper's f32 self cache and
+                                     cross K / V), the JAX kernels' cast of
+                                     any cache to their operand dtype
        or int8 [R, Hkv, S, d] with ks, vs f32 [R, Hkv, S], one scale per
                                      position (K8, K9)
 
@@ -46,6 +48,13 @@ rounded to bf16 against bf16 V (K9: levels), f32 sums; l the sum of the
 unrounded p. The plain versions take bf16=True (``grouped_softmax_pv``);
 the bf16 launches count under attention_bf16, flash_attention_q8_bf16 and
 flash_fwd_bf16.
+
+Over f32 K / V (the f32 cache) K3 has both forms as the JAX kernel does
+(attention.py:81-84, 107: K and V cast to the operand dtype): the bf16 form
+is K3's bf16 form over bf16(K), bf16(V) (rounded to nearest even, as astype
+rounds), the f32 form the f32 function on the f32 K / V (3xTF32 dots, the
+ring hop's K10f f32-K/V form without the LSE); counted under
+attention_bf16_f32kv and attention_f32kv (``flash_counter``).
 
 The prefill kernel (K3, K9 and K10f, csrc/flash_attn.cu) packs the n_rep
 query heads of a KV head into tiles of FLASH_BM rows, position-major, and
@@ -190,12 +199,15 @@ def flash_plan(q, k, kv_len, q_offset: int, kv8: bool, group: int | None = None)
     """The plan a launch of the prefill kernel takes for q and the cache k
     on q's card (its SM count and the instantiation's blocks per SM); with
     `group` (the bf16 form's keys a running-max step) its splits start on a
-    group."""
+    group, over bf16 or f32 K / V alike."""
     b, hq, tq, d = q.shape
     _, hkv, s, _ = k.shape
     kv_len = s if kv_len is None else min(int(kv_len), s)
     index = q.device.index or 0
-    kv = 1 if kv8 else 2 if k.dtype == torch.float32 else 0
+    # the bf16 form over f32 K / V takes the bf16 cache's plan: a split moves
+    # where p rounds, and with one plan its output is the bf16 cache's on the
+    # rounded K / V bit for bit (csrc/flash_attn.cu, the bf16 form's note)
+    kv = 1 if kv8 else 2 if k.dtype == torch.float32 and group is None else 0
     return flash_split_plan(b, hq, hkv, tq, d, kv_len, int(q_offset), _sm_count(index),
                             _blocks_per_sm(index, d, kv, group is not None), bn=group)
 
@@ -248,10 +260,10 @@ def flash_attention_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0
                         scale: float | None = None):
     """Causal GQA prefill attention: query row i (absolute q_offset + i)
     attends keys j < kv_len with j <= q_offset + i. bf16: K3's bf16 form
-    (the module note), its running max stepping every `group` keys
-    (flash_group of the cache length where None), its scores scaled by
-    `scale` (1/sqrt(d) where None; a check moves it by a few ulps to see
-    which p roundings flip)."""
+    (the module note; over f32 K / V, on their bf16 roundings), its running
+    max stepping every `group` keys (flash_group of the cache length where
+    None), its scores scaled by `scale` (1/sqrt(d) where None; a check moves
+    it by a few ulps to see which p roundings flip)."""
     b, hq, tq, d = q.shape
     k, v = k[kv_row:kv_row + b], v[kv_row:kv_row + b]
     s = k.shape[2]
@@ -262,6 +274,8 @@ def flash_attention_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0
     mask = (ki < kv_len) & (ki <= qi)                       # [Tq, S]
     if not bf16:
         return refs.gqa_attention_ref(q, k, v, mask[None, None])
+    if k.dtype == torch.float32:                 # f32 K / V: the bf16 form reads bf16(K), bf16(V)
+        k, v = refs.bf16_round(k), refs.bf16_round(v)
     hkv = k.shape[1]
     qg = refs.bf16_round(q.to(torch.float32)).reshape(b, hkv, hq // hkv, tq, d)
     sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, k.to(torch.float32)) * (scale or 1.0 / d ** 0.5)
@@ -423,6 +437,8 @@ def flash_partials_ref(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
     b, hq, tq, d = q.shape
     if ks is None:
         k, v = _rows(kv_row, b, k, v)
+        if bf16 and k.dtype == torch.float32:      # the f32 cache's bf16 form
+            k, v = refs.bf16_round(k), refs.bf16_round(v)
     else:
         k, ks, v, vs = _rows(kv_row, b, k, ks, v, vs)
     hkv, s_len = k.shape[1], k.shape[2]
@@ -540,15 +556,23 @@ def counter(name: str, bf16: bool) -> str:
     return f"{name}_bf16" if bf16 else name
 
 
+def flash_counter(k: torch.Tensor, bf16: bool) -> str:
+    """K3's placement counter over a cache of k's dtype: attention(_bf16)
+    over bf16 K / V, attention(_bf16)_f32kv over f32 K / V."""
+    return counter("attention", bf16) + ("_f32kv" if k.dtype == torch.float32 else "")
+
+
 def flash_attention_cuda(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
                          bf16: bool = False, group: int | None = None):
-    """Launch K3 (bf16: its bf16 form, the running max stepping every
-    `group` keys, flash_group of the cache length where None). kv_len,
-    q_offset and kv_row are host ints."""
-    check_qkv("attention", q, k, v, kv_row, None)
+    """Launch K3 over bf16 or f32 K / V (bf16: its bf16 form, the running
+    max stepping every `group` keys, flash_group of the cache length where
+    None; over f32 K / V it reads their bf16 roundings). kv_len, q_offset
+    and kv_row are host ints. Counted under flash_counter(k, bf16)."""
+    check_qkv("attention", q, k, v, kv_row, None,
+              kv_dtype=torch.float32 if k.dtype == torch.float32 else torch.bfloat16)
     o, _ = launch_flash(q, k, None, v, None, kv_len, q_offset, kv_row, lse=False,
                         group=(group or flash_group(k.shape[2], False)) if bf16 else None)
-    global_profile.count_op(counter("attention", bf16), "cuda")
+    global_profile.count_op(flash_counter(k, bf16), "cuda")
     return o
 
 
@@ -580,12 +604,13 @@ def launch_flash(q, k, ks, v, vs, kv_len, q_offset, kv_row, lse: bool,
     if plan.n_split > 1:        # each split's o, then its (m, l), per row
         part = torch.empty(plan.n_split * b * hq * tq * (d + 2), dtype=torch.float32,
                            device=q.device)
-    if k.dtype == torch.float32:        # K10f's f32-K/V form (a ring hop)
+    if k.dtype == torch.float32:        # the f32-K/V forms (the f32 cache's K3, a ring hop)
         status = build.library().zgml_flash_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse_t), _ptr(part), b,
             hq, hkv, tq, s, d, kv_len, int(q_offset), int(kv_row), plan.n_split, plan.bn,
-            1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream)
-        build.check(status, "flash_fwd_f32kv")
+            int(group is not None), 1.0 / d ** 0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        build.check(status, "flash_fwd_f32kv" if lse else "attention_f32kv")
         return o, lse_t
     status = build.library().zgml_flash_attention(
         q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs), o.data_ptr(), _ptr(lse_t),

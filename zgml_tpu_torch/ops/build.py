@@ -36,7 +36,7 @@ from zgml_tpu_torch import config
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
            "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "layer_attn_ffn.cu",
-           "flash_bwd.cu", "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
+           "layer_attn_f32.cu", "flash_bwd.cu", "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
 HEADERS = ("common.cuh", "decode_split.cuh", "layer_attn.cuh", "layer_phases.cuh",
            "tf32_mma.cuh", "weight_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +51,7 @@ _SIGNATURES = {
     "zgml_qmatmul_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_qmatmul_bf16_blocks_per_sm": (_I, ctypes.POINTER(ctypes.c_int)),
     "zgml_flash_attention": (*(_P,) * 8, *(_I,) * 12, _F, _P),
-    "zgml_flash_attention_f32": (*(_P,) * 6, *(_I,) * 11, _F, _P),
+    "zgml_flash_attention_f32": (*(_P,) * 6, *(_I,) * 12, _F, _P),
     "zgml_flash_dq": (*(_P,) * 8, *(_I,) * 11, _F, _P),
     "zgml_flash_dkv": (*(_P,) * 9, *(_I,) * 10, _F, _P),
     "zgml_flash_delta": (_P, _P, _P, _I, _I, _P),

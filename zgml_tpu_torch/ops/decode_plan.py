@@ -137,9 +137,15 @@ def _ahead(slot: int) -> int:
     return max(1, AHEAD_BYTES // slot)
 
 
-def decode_chunk_smem_bytes(hd: int, kv8: bool, n_rep: int) -> int:
-    """csrc/decode_split.cuh decode_chunk_smem_bytes<hd, kv8>(n_rep)."""
-    if kv8:
+KV_BF16, KV_INT8, KV_F32 = 0, 1, 2   # K7's cache forms (the `kv` argument; False / True
+                                    # stand for the first two)
+
+
+def decode_chunk_smem_bytes(hd: int, kv: int, n_rep: int) -> int:
+    """csrc/decode_split.cuh decode_chunk_smem_bytes<hd, kv == KV_INT8>(n_rep):
+    the f32 cache's chunk stages K, then V in the same buffer, and takes the
+    bf16 cache's area."""
+    if kv == KV_INT8:
         return 4 * (n_rep * hd // 4 + n_rep + n_rep * DA_CHUNK + DA_CHUNK * (hd // 4 + 1)
                     + DA_CHUNK * (hd // 4) + 2 * DA_CHUNK)
     return 4 * (n_rep * hd + n_rep * DA_CHUNK) + 4 * (DA_CHUNK * (hd // 2 + 1)
@@ -152,7 +158,7 @@ def xq_row_bytes(d: int) -> int:
     return -(-(d // 32 * XQ_BYTES) // 16) * 16
 
 
-def attn_act_bytes(d: int, hq: int, hkv: int, hd: int, a_i8: bool, kv8: bool, s: int,
+def attn_act_bytes(d: int, hq: int, hkv: int, hd: int, a_i8: bool, kv: int, s: int,
                    grid: int, f: int = 0) -> int:
     """K7's activation area: phase A's normed x (f32, or int8 with its scales
     and sums) with x and g as copied behind it; phase B's chunk and an int
@@ -162,7 +168,7 @@ def attn_act_bytes(d: int, hq: int, hkv: int, hd: int, a_i8: bool, kv8: bool, s:
     (csrc/layer_attn.cu attn_act_bytes)."""
     a = (xq_row_bytes(d) if a_i8 else d // 32 * XPAD * 4) + 2 * d * 4
     items = hkv * -(-s // DA_CHUNK)         # phase B's (KV head, chunk) items
-    b = decode_chunk_smem_bytes(hd, kv8, hq // hkv) + 4 * -(-items // grid)
+    b = decode_chunk_smem_bytes(hd, kv, hq // hkv) + 4 * -(-items // grid)
     c = hq * hd // 32 * XPAD * 4
     e = d * 4 + max(d, f) // 32 * XPAD * 4 if f else 0
     return max(a, b, c, e)
@@ -176,9 +182,10 @@ def ffn_act_bytes(d: int, f: int, mr: int, a_i8: bool) -> int:
     return max(gu, mr * f // 32 * XPAD * 4)
 
 
-def attn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bool, s: int,
+def attn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv: int, s: int,
               sm_count: int, stage_bytes: int | None = None, f: int = 0) -> StreamPlan:
-    """K7's plan for an S-row cache: phase A over wqkv in units of RoPE-pair
+    """K7's plan for an S-row cache of form `kv` (KV_BF16 / False, KV_INT8 /
+    True, KV_F32): phase A over wqkv in units of RoPE-pair
     runs of one head (rows h*hd + i and h*hd + hd/2 + i), phase C over wo in
     runs of rows; with f > 0 (phase E, a d_ff of f) then K6d's two phases,
     gate|up in (gate row, up row) runs and down in runs of rows, through the
@@ -197,7 +204,7 @@ def attn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bo
             out += (_phase(d, kind, 2, f, ga, f // ga, 0, f // ga, grid, slot),
                     _phase(f, kind, 1, 0, gd, d // gd, 0, d // gd, grid, slot))
         return out
-    act = attn_act_bytes(d, hq, hkv, hd, a_i8, kv8, s, grid, f)
+    act = attn_act_bytes(d, hq, hkv, hd, a_i8, kv, s, grid, f)
     units = [2 * ga * row_bytes(d, kind), gc * row_bytes(hq * hd, kind)]
     if f:
         units.append(gd * row_bytes(f, kind))
@@ -210,11 +217,11 @@ def attn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bo
                       _ahead(slot), phases(slot))
 
 
-def attn_ffn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv8: bool, s: int,
+def attn_ffn_plan(d: int, hq: int, hkv: int, hd: int, kind: str, a_i8: bool, kv: int, s: int,
                   f: int, sm_count: int, stage_bytes: int | None = None) -> StreamPlan:
     """K7 with its phase E (ZGML_TPU_LAYER_FFN): attn_plan's two phases, then
     gate|up and down of a d_ff of f, four phases through one ring."""
-    return attn_plan(d, hq, hkv, hd, kind, a_i8, kv8, s, sm_count, stage_bytes, f)
+    return attn_plan(d, hq, hkv, hd, kind, a_i8, kv, s, sm_count, stage_bytes, f)
 
 
 FFN_GROUPS = (4, 2, 1)      # rows a group (csrc/ffn.cu instantiations)
@@ -264,7 +271,7 @@ def stack_act_bytes(n_layers: int, d: int, hq: int, hkv: int, hd: int, f: int, s
     table = -(-n_layers * TABLE_SLOTS * 8 // SLOT_ALIGN) * SLOT_ALIGN if table else 0
     row = d // 32 * XPAD * 4
     items = hkv * -(-s // DA_CHUNK)
-    b = decode_chunk_smem_bytes(hd, False, hq // hkv) + 4 * -(-items // grid)
+    b = decode_chunk_smem_bytes(hd, KV_BF16, hq // hkv) + 4 * -(-items // grid)
     return table + d * 4 + max(row + d * 4, b, hq * hd // 32 * XPAD * 4, f // 32 * XPAD * 4)
 
 

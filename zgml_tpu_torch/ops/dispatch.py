@@ -52,11 +52,12 @@ fused_ffn_norm_i8 = K6c, fused_ffn = K6b (fused_ffn_q8 = K6a's no-norm
 form), attn_block_ffn = K7 with its phase E (ZGML_TPU_LAYER_FFN), attn_block = K7 with the f32 A
 phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
 at Q4_0; the same names with _q8 for K2q8, K1q8, K5q8, K6a and K7 at Q8_0;
-attention = K3, decode_attention = K4 (decode_attention_f32 its f32 form over f32
-K / V), flash_attention_q8 = K9 (each prefill
+attention = K3 (attention_f32kv its form over f32 K / V), decode_attention =
+K4 (decode_attention_f32 its f32 form over f32 K / V), flash_attention_q8 = K9 (each prefill
 flash kernel + _bf16 in its bf16 form, ZGML_TPU_PREFILL_BF16),
 decode_attention_q8 = K8 (decode_attention_q8_i8pv in its
-ZGML_TPU_ATTN_I8PV mode), the JAX package's names; flash_fwd = K10f,
+ZGML_TPU_ATTN_I8PV mode), the JAX package's names; attn_block_f32kv (+_i8, _q8,
+_ffn) K7 over the f32 cache; flash_fwd = K10f,
 flash_dq = K10dq, flash_dkv = K10dkv and qmatmul_bwd = K11, with _q8 for
 K11q8; matmul for a dense projection; rmsnorm = K12 under
 ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
@@ -273,8 +274,8 @@ def attn_block(x, gamma, wqkv: PackedWeight, wo: PackedWeight, ck, cv, li: int, 
     if _use_kernel("attn_block", x, gamma, wqkv.qs, wo.qs, *cache):
         return layerkernel.attn_block_cuda(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                            n_heads, n_kv_heads, eps, a_i8, ffn=ffn)
-    global_profile.count_op(layerkernel.counter_name(a_i8, isinstance(ck, tuple), wqkv.kind,
-                                                     ffn is not None), "ref")
+    global_profile.count_op(layerkernel.counter_name(a_i8, layerkernel.cache_form(ck),
+                                                     wqkv.kind, ffn is not None), "ref")
     if ffn is not None:
         return layerkernel.attn_block_ffn_ref(x, gamma, wqkv, wo, ck, cv, li, pos, cos, sin,
                                               n_heads, n_kv_heads, eps, ffn, a_i8)
@@ -293,7 +294,9 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
     f32 at every ZGML_TPU_PREFILL_BF16. With it on, the bf16 forms where
     config.prefill_bf16(), their running max stepping as JAX's tile over a
     cache of tile_s positions (k's length where None: training passes the
-    cache length the JAX forward attends over)."""
+    cache length the JAX forward attends over). Over f32 K / V (the f32
+    cache) both forms read them as JAX's kernel casts them (the bf16 form
+    their bf16 roundings), counted under attention(_bf16)_f32kv."""
     on = config.kernel_on("attention")
     bf16 = on and config.prefill_bf16()
     group = attention.flash_group(tile_s or k.shape[2], False) if bf16 else None
@@ -306,7 +309,7 @@ def flash_attention(q, k, v, kv_len=None, q_offset: int = 0, kv_row: int = 0,
                                               _use_kernel("attention", q, k, v), bf16, group)
     if _use_kernel("attention", q, k, v):
         return attention.flash_attention_cuda(q, k, v, kv_len, q_offset, kv_row, bf16, group)
-    global_profile.count_op(attention.counter("attention", bf16), "ref")
+    global_profile.count_op(attention.flash_counter(k, bf16), "ref")
     return attention.flash_attention_ref(q, k, v, kv_len, q_offset, kv_row, bf16, group)
 
 

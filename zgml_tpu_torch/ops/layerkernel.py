@@ -9,7 +9,10 @@ projection and the residual, with wqkv and wo both Q4_0 or both Q8_0 (the
 JAX `kind`). Ported: both A phases, f32 and int8 (`a_i8`, layerkernel.py:
 148-190, on where config.attn_i8a(dp) holds: by default at padded d >=
 4096), both caches, bf16 and int8 (`kv_i8`), and phase E (`has_ffn`,
-layerkernel.py:91-123, 758-765, under ZGML_TPU_LAYER_FFN=1 at Q4_0): with
+layerkernel.py:91-123, 758-765, under ZGML_TPU_LAYER_FFN=1 at Q4_0), and
+over the f32 cache too (the JAX package's init_cache(batch, float32): the
+rows read in f32, the row at pos written as k_cur / v_cur are,
+layerkernel.py:311-314; csrc/layer_attn_f32.cu): with
 ``ffn`` = (ffn_norm, w_gate_up, w_down) the same launch then runs the
 layer's FFN, K6d's f32 function at one row, on its output (x_out = x2 +
 down(silu(gate(n)) * up(n)), n = rmsnorm(x2) * ffn_norm), whatever the A
@@ -35,8 +38,8 @@ prologue, and a check can pass `act_out` to receive those activations and
 `act` to feed them to the plain version (a row near a rounding boundary can
 land one level apart when the two sum the norm in another order).
 
-Layouts: x f32 [1, 1, d]; the stacked bf16 cache ck / cv [L, 1, Hkv, S, hd]
-(models/llama.py), or the int8 one as ck = (k int8 [L, 1, Hkv, S, hd], k_s
+Layouts: x f32 [1, 1, d]; the stacked bf16 or f32 cache ck / cv [L, 1, Hkv,
+S, hd] (models/llama.py), or the int8 one as ck = (k int8 [L, 1, Hkv, S, hd], k_s
 f32 [L, 1, Hkv, S]) and cv likewise (the JAX package's tuple convention),
 which both versions write IN PLACE at (li, 0, :, pos) with the current K/V
 rounded to bf16 or quantized (the JAX package writes the rows after the
@@ -73,11 +76,21 @@ def attn_block_compatible(head_dim: int, batch: int, kinds: tuple[str, str]) -> 
             and kinds[0] in KIND_CODE)
 
 
-def counter_name(a_i8: bool, kv8: bool, kind: str, ffn: bool = False) -> str:
-    """K7's placement counter for its A phase, cache, phase E and kind:
-    attn_block, attn_block_i8, attn_block_kv8, attn_block_i8_kv8, each with
-    _q8 at Q8_0; with phase E (Q4_0) the same names + _ffn."""
-    name = "attn_block" + ("_i8" if a_i8 else "") + ("_kv8" if kv8 else "")
+def cache_form(ck) -> int:
+    """K7's cache form (decode_plan.KV_*): the int8 cache's (levels, scales)
+    tuple, an f32 slab, else bf16."""
+    if isinstance(ck, tuple):
+        return decode_plan.KV_INT8
+    return decode_plan.KV_F32 if ck.dtype == torch.float32 else decode_plan.KV_BF16
+
+
+def counter_name(a_i8: bool, kv: int, kind: str, ffn: bool = False) -> str:
+    """K7's placement counter for its A phase, cache form (cache_form; False
+    / True stand for bf16 / int8), phase E and kind: attn_block,
+    attn_block_i8, each + _kv8 over the int8 cache and + _f32kv over the f32
+    one, each with _q8 at Q8_0; with phase E (Q4_0) the same names + _ffn."""
+    name = ("attn_block" + ("_i8" if a_i8 else "")
+            + {decode_plan.KV_INT8: "_kv8", decode_plan.KV_F32: "_f32kv"}.get(int(kv), ""))
     return counter(name + ("_ffn" if ffn else ""), kind)
 
 
@@ -180,12 +193,14 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
     [Hq, hd], qs f32 [Hq]) receives the quantized q where given. With ffn =
     (ffn_norm f32 [d], w_gate_up [2F, d], w_down [d, F], Q4_0) phase E runs
     in the same launch on decode_plan.attn_ffn_plan: attn_block_ffn_ref's
-    contract. Counted under counter_name(a_i8, kv8, kind, ffn given)."""
+    contract. ck / cv bf16 or f32 slabs, or the int8 tuples. Counted under
+    counter_name(a_i8, cache_form(ck), kind, ffn given)."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"attn_block: {msg}")
     dev = x.device
-    kv8 = isinstance(ck, tuple)
+    kv = cache_form(ck)
+    kv8 = kv == decode_plan.KV_INT8
     (ck, cks), (cv, cvs) = (ck, cv) if kv8 else ((ck, None), (cv, None))
     scales = (cks, cvs) if kv8 else ()
     require(x.is_cuda and all(t.device == dev for t in
@@ -198,11 +213,13 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
     require(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
     require(x.dtype == torch.float32 and x.numel() == d,
             f"x must be one float32 row, got {x.dtype} {tuple(x.shape)}")
-    cdt = torch.int8 if kv8 else torch.bfloat16
-    require(ck.dtype == cdt and cv.dtype == cdt and ck.shape == cv.shape
+    cdt = torch.int8 if kv8 else ck.dtype
+    require(ck.dtype == cdt and cdt in (torch.int8, torch.bfloat16, torch.float32)
+            and cv.dtype == cdt and ck.shape == cv.shape
             and ck.dim() == 5 and ck.shape[1] == 1 and ck.shape[2] == n_kv_heads
             and ck.shape[4] == hd and 0 <= li < ck.shape[0],
-            f"cache {tuple(ck.shape)} {ck.dtype}: want {cdt} [L, 1, {n_kv_heads}, S, {hd}], "
+            f"cache {tuple(ck.shape)} {ck.dtype} / {cv.dtype}: want both bfloat16, float32 or "
+            f"int8 levels [L, 1, {n_kv_heads}, S, {hd}], "
             f"layer {li}")
     require(all(t.dtype == torch.float32 and t.shape == ck.shape[:4] for t in scales),
             f"cache scales must be float32 {tuple(ck.shape[:4])}")
@@ -253,17 +270,17 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
         qq_p, qs_p = q8_out[0].data_ptr(), q8_out[1].data_ptr()
     if ffn is None:
         _, plan, bounds = decode_plan.launch_args(dev, decode_plan.attn_plan, d, n_heads,
-                                                  n_kv_heads, hd, wqkv.kind, bool(a_i8), kv8, s)
+                                                  n_kv_heads, hd, wqkv.kind, bool(a_i8), kv, s)
         e_args = (None,) * 6 + (0,)
     else:
         _, plan, bounds = decode_plan.launch_args(dev, decode_plan.attn_ffn_plan, d, n_heads,
-                                                  n_kv_heads, hd, wqkv.kind, bool(a_i8), kv8,
+                                                  n_kv_heads, hd, wqkv.kind, bool(a_i8), kv,
                                                   s, f)
         act = torch.empty(f, dtype=torch.float32, device=dev)
         e_args = (g2.data_ptr(), gu.qs.data_ptr(), gu.d.data_ptr(), wd.qs.data_ptr(),
                   wd.d.data_ptr(), act.data_ptr(), f)
     status = lib.zgml_attn_block(
-        KIND_CODE[wqkv.kind], int(a_i8), int(kv8), x.data_ptr(), gamma.data_ptr(),
+        KIND_CODE[wqkv.kind], int(a_i8), kv, x.data_ptr(), gamma.data_ptr(),
         wqkv.qs.data_ptr(), wqkv.d.data_ptr(), wo.qs.data_ptr(), wo.d.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), ck[li].data_ptr(), cv[li].data_ptr(),
         cks[li].data_ptr() if kv8 else None, cvs[li].data_ptr() if kv8 else None,
@@ -273,6 +290,6 @@ def attn_block_cuda(x: torch.Tensor, gamma: torch.Tensor, wqkv: PackedWeight,
         coop.counter_words(dev, n_kv_heads).data_ptr(), *e_args, plan, bounds.data_ptr(),
         bounds.device.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "attn_block")
-    global_profile.count_op(counter_name(a_i8, kv8, wqkv.kind, ffn is not None), "cuda")
+    global_profile.count_op(counter_name(a_i8, kv, wqkv.kind, ffn is not None), "cuda")
     kv = kv_cur.reshape(2, 1, n_kv_heads, 1, hd)
     return x_out, kv[0], kv[1]

@@ -1,13 +1,15 @@
-"""A multi-rank dry run of the parallel inference paths on tiny shapes.
+"""A multi-rank dry run of the parallel paths on tiny shapes.
 
-The serving half of zgml_tpu's dryrun_multichip (__graft_entry__.py:48-175):
+zgml_tpu's dryrun_multichip (__graft_entry__.py:48-175):
 ``dryrun_multichip(n, device)`` spawns n ranks (parallel/world.World,
-init_method file://) and runs on them one TP forward of a dense model over
-a (dp, tp) mesh, one TP decode token of a Q4_0 model through K7 on local
-heads, one context-parallel prefill (ring attention over a 'cp' axis of all
-n ranks) with a decode step after it, and one request served over the mesh.
-Its training half (the sharded train step, the GPipe step) is ROADMAP.md
-A.7b. Run it on the card with NCCL (the default), or on the CPU with
+init_method file://) and runs on them, in its training half, one dp + tp
+train step of a dense model over a (dp, tp) mesh (:75-79) and one GPipe
+train step of a tied-head dense model over a 'pp' axis of all n ranks, one
+layer a stage, four microbatches (:90-104); in its serving half one TP
+forward of the stepped model, one TP decode token of a Q4_0 model through
+K7 on local heads, one context-parallel prefill (ring attention over a 'cp'
+axis of all n ranks) with a decode step after it, and one request served
+over the mesh. Run it on the card with NCCL (the default), or on the CPU with
 backend="gloo" and device="cpu":
 
     python -m zgml_tpu_torch.parallel.dryrun 4 cpu gloo
@@ -25,7 +27,9 @@ import torch
 def _dryrun_rank(dev: torch.device, n: int, gguf: str) -> dict:
     from zgml_tpu_torch.io.llama_loader import load_llama
     from zgml_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_params
-    from zgml_tpu_torch.parallel import make_mesh, make_sharded_forward, shard_llama_params
+    from zgml_tpu_torch.parallel import (make_mesh, make_pp_train_step, make_sharded_forward,
+                                         make_sharded_train_step, shard_llama_params,
+                                         shard_pp_params)
     from zgml_tpu_torch.runtime.engine import LlamaEngine
     from zgml_tpu_torch.runtime.profile import global_profile
     from zgml_tpu_torch.runtime.serving import ContinuousBatchingEngine
@@ -37,9 +41,26 @@ def _dryrun_rank(dev: torch.device, n: int, gguf: str) -> dict:
                       n_layers=2, max_seq_len=32)
     model = LlamaModel(cfg, init_params(cfg, seed=0, device="cpu"))
     shard_llama_params(model, mesh)
-    fwd = make_sharded_forward(model, mesh)
     tokens = np.random.default_rng(0).integers(0, 256, (2 * dp, 9))
     mine = torch.as_tensor(tokens[mesh.coords["dp"] * 2:(mesh.coords["dp"] + 1) * 2])
+    # the full dp + tp training step, then the forward on the stepped params
+    loss, _ = make_sharded_train_step(model, mesh)(mine, 1e-2)
+    if not bool(torch.isfinite(loss)):
+        raise RuntimeError("training loss not finite")
+    out["train_loss"] = float(loss)
+    # a GPipe training step over a 'pp' axis of all n ranks, tied lm_head
+    pp_mesh = make_mesh(tp=n, dp=1, axis_names=("dp", "pp"), device=dev)
+    pp_cfg = LlamaConfig(vocab_size=256, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                         n_layers=n, max_seq_len=32, tied_lm_head=True)
+    pp_model = LlamaModel(pp_cfg, init_params(pp_cfg, seed=1, device="cpu"))
+    shard_pp_params(pp_model, pp_mesh)
+    pp_tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 256, (4, 9)))
+    pp_loss, _ = make_pp_train_step(pp_model, pp_mesh, n_micro=4)(pp_tokens, 1e-2)
+    if not bool(torch.isfinite(pp_loss)):
+        raise RuntimeError("pp training loss not finite")
+    out["pp_loss"] = float(pp_loss)
+
+    fwd = make_sharded_forward(model, mesh)
     logits = fwd(mine[:, :1], model.init_cache(2), 0)
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("TP forward logits not finite")

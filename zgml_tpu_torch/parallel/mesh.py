@@ -160,16 +160,18 @@ def broadcast(t: torch.Tensor, group, src: int) -> torch.Tensor:
     return _to_device(buf, t.device) if host else buf
 
 
-def ring_shift(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
+def ring_shift(tensors: list[torch.Tensor], group, reverse: bool = False) -> list[torch.Tensor]:
     """Each tensor sent to the next rank of the group, (i + 1) % n, and the
     previous rank's received in its place: lax.ppermute with the ring
-    permutation [(j, (j + 1) % n)], through batch_isend_irecv."""
+    permutation [(j, (j + 1) % n)], through batch_isend_irecv; `reverse`
+    the other way round, [(j, (j - 1) % n)] (a pipeline's backward)."""
     n = dist.get_world_size(group)
     if n == 1:
         return list(tensors)
     me = dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (me + 1) % n)
-    prv = dist.get_global_rank(group, (me - 1) % n)
+    step = -1 if reverse else 1
+    nxt = dist.get_global_rank(group, (me + step) % n)
+    prv = dist.get_global_rank(group, (me - step) % n)
     host = _through_host(tensors[0], group)
     srcs = [_to_host(t) if host else t.contiguous() for t in tensors]
     bufs = [torch.empty_like(s) for s in srcs]

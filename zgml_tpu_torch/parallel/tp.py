@@ -1,6 +1,6 @@
-"""Tensor + data parallel inference of the llama model on torch.distributed.
+"""Tensor + data parallel inference and training of the llama model on torch.distributed.
 
-Counterpart of zgml_tpu/parallel/tp.py (55-508, its serving half). The JAX
+Counterpart of zgml_tpu/parallel/tp.py (55-546). The JAX
 package runs Megatron-style TP inside shard_map over a 'tp' mesh axis; the
 port runs one process per rank, each holding only its own shard:
 
@@ -24,17 +24,24 @@ the K6 form, K1 or K2) are taken from the rank's local config and weights
 
 torch has neither shard_map nor PartitionSpec, so llama_param_specs,
 cache_specs and cache_specs_like have no counterpart: shard_llama_params
-takes their role (ROADMAP.md, "Not ported, and why"). Training over the
-mesh (make_sharded_train_step) is ROADMAP.md A.7b.
+takes their role (ROADMAP.md, "Not ported, and why").
+
+Training over the mesh (make_sharded_train_step, tp.py:510-546): each rank
+differentiates the next-token loss of its dp rows through its shard; the
+Megatron operators of models/llama.py give sharded leaves their exact local
+gradients and replicated leaves the full gradient on every tp member, so
+only the dp average is left, one all-reduce per flat bucket of gradients.
 """
 from __future__ import annotations
 
 import torch
 
 from zgml_tpu_torch.models.llama import LlamaModel, TPShard, local_config
-from zgml_tpu_torch.parallel.mesh import Mesh, rank_device
+from zgml_tpu_torch.optim.sgd import sgd_update
+from zgml_tpu_torch.parallel.mesh import Mesh, all_reduce, rank_device
 from zgml_tpu_torch.quant.blocks import QK
 from zgml_tpu_torch.quant.packed import QS_BLOCK_BYTES, PackedWeight
+from zgml_tpu_torch.utils.tree import flatten
 
 _COL_SHARDED = ("wq", "wk", "wv", "w_gate", "w_up")    # out-features over tp
 _ROW_SHARDED = ("wo", "w_down")                        # in-features over tp
@@ -168,12 +175,9 @@ def shard_llama_params(model: LlamaModel, mesh: Mesh, device=None) -> dict:
     return out
 
 
-def make_sharded_forward(model: LlamaModel, mesh: Mesh):
-    """fn(tokens, cache, pos) -> logits f32 [B, T, V] (full vocab) for this
-    rank's dp rows `tokens` [B, T] and its cache (model.init_cache(B): the
-    local KV heads), written in place at pos (tp.py:441-508). Raises JAX's
-    errors: heads not divisible by tp, and params that were never sharded."""
-    tp = int(mesh.shape.get("tp", 1))
+def _check_sharded(model: LlamaModel, tp: int):
+    """Raise JAX's errors: heads not divisible by tp, and params that were
+    never sharded."""
     cfg = model.cfg
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(f"n_heads={cfg.n_heads}/n_kv_heads={cfg.n_kv_heads} "
@@ -188,8 +192,103 @@ def make_sharded_forward(model: LlamaModel, mesh: Mesh):
             raise ValueError("params not TP-sharded — run shard_llama_params(model, mesh) "
                              "first")
 
+
+def make_sharded_forward(model: LlamaModel, mesh: Mesh):
+    """fn(tokens, cache, pos) -> logits f32 [B, T, V] (full vocab) for this
+    rank's dp rows `tokens` [B, T] and its cache (model.init_cache(B): the
+    local KV heads), written in place at pos (tp.py:441-508). Raises JAX's
+    errors: heads not divisible by tp, and params that were never sharded."""
+    _check_sharded(model, int(mesh.shape.get("tp", 1)))
+
     @torch.inference_mode()
     def call(tokens: torch.Tensor, cache: dict, pos) -> torch.Tensor:
         return model(tokens.to(model.device), cache, pos)
 
     return call
+
+
+GRAD_BUCKET_BYTES = 256 << 20     # gradients summed over dp in flat buckets of about this size
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The mean next-token negative log-likelihood of logits [B, T, V]
+    against tokens [B, T + 1]'s last T columns (tp.py:519-524)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, tokens[:, 1:, None].to(logits.device)).mean()
+
+
+def dense_leaves(params: dict, what: str) -> list[torch.Tensor]:
+    """The leaves of a dense model's params (init_params), in flatten's
+    order; a PackedWeight raises, as the JAX step does on a loaded quantized
+    model (its gradient of int8 leaves)."""
+    leaves, _ = flatten(params)
+    if not all(isinstance(t, torch.Tensor) and t.is_floating_point() for t in leaves):
+        raise ValueError(f"{what} trains dense float params (init_params), as the JAX "
+                         f"package's: quantized weights have no gradient")
+    return leaves
+
+
+def dp_mean(loss: torch.Tensor, grads: list[torch.Tensor], group, dp: int):
+    """pmean over the dp group of the loss and every gradient: the values
+    packed into flat f32 buckets of about GRAD_BUCKET_BYTES, one all_reduce
+    a bucket (under gloo each is two host copies, whatever its size), the
+    sums divided by dp. Returns (loss, grads)."""
+    if dp == 1:
+        return loss, grads
+    flat = [loss.reshape(1), *(g.reshape(-1) for g in grads)]
+    out, bucket, size = [], [], 0
+    for i, t in enumerate(flat):
+        bucket.append(t)
+        size += t.numel() * 4
+        if size >= GRAD_BUCKET_BYTES or i == len(flat) - 1:
+            summed = all_reduce(torch.cat(bucket), group) / dp
+            out.extend(summed.split([u.numel() for u in bucket]))
+            bucket, size = [], 0
+    return out[0].reshape(()), [o.view_as(g) for o, g in zip(out[1:], grads)]
+
+
+def stepper(model: LlamaModel, loss_and_grads):
+    """fn(tokens, lr) -> (loss, new params): loss_and_grads(tokens), then an
+    SGD step, which becomes model.params, so steps chain; fn.loss_and_grads
+    is the first half alone."""
+    def step(tokens: torch.Tensor, lr: float):
+        loss, grads = loss_and_grads(tokens)
+        model.params = sgd_update(model.params, flatten(model.params)[1](grads), lr)
+        return loss, model.params
+
+    step.loss_and_grads = loss_and_grads
+    return step
+
+
+def make_sharded_train_step(model: LlamaModel, mesh: Mesh, optimizer=None):
+    """The full dp + tp training step (tp.py:510-546) as fn(tokens, lr) ->
+    (loss, new params), for this rank's dp rows tokens [B, T + 1] of a dense
+    model (init_params) whose params are this rank's shard
+    (shard_llama_params, as make_sharded_forward): the next-token loss of
+    tokens[:, :-1] against tokens[:, 1:] through the training forward (K10
+    flash attention on the card), its gradients by autograd through the
+    Megatron operators, the loss and every gradient averaged over dp
+    (dp_mean), then an SGD step. `optimizer` is taken and ignored, as JAX's
+    step ignores it (it always takes sgd_update, tp.py:539). model.params
+    becomes the new params, so steps chain. After a step the replicated
+    leaves are the same bits on every rank. fn.loss_and_grads(tokens) gives
+    (loss, grads in flatten order) without the update."""
+    tp, dp = int(mesh.shape.get("tp", 1)), int(mesh.shape.get("dp", 1))
+    _check_sharded(model, tp)
+    dp_group = mesh.groups.get("dp")
+
+    def loss_and_grads(tokens: torch.Tensor):
+        leaves = dense_leaves(model.params, "make_sharded_train_step")
+        tokens = tokens.to(model.device)
+        with torch.enable_grad():
+            for t in leaves:
+                t.requires_grad_(True)
+            try:
+                loss = next_token_nll(model(tokens[:, :-1]), tokens)
+                grads = torch.autograd.grad(loss, leaves)
+            finally:
+                for t in leaves:
+                    t.requires_grad_(False)
+        return dp_mean(loss.detach(), list(grads), dp_group, dp)
+
+    return stepper(model, loss_and_grads)

@@ -55,12 +55,12 @@ def quantize_columns(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def write(ck: tuple, cv: tuple, li: int, pos: int, k: torch.Tensor, v: torch.Tensor,
-          row: int | None = None, wp: torch.Tensor | None = None):
+          wp: torch.Tensor | None = None, row0: int = 0):
     """Quantize k and v [B, Hkv, T, hd] (together: one set of launches) and
     write them IN PLACE into layer li of the cache's (levels, scales) pairs ck
-    and cv: at positions pos..pos+T-1 of every row (the JAX write_columns,
-    kv_cache.py:56-61), or of row `row` alone for a batch-1 chunk (serving's
-    prefill into a slot, zgml_tpu/models/llama.py:429-438), or, wp an int32
+    and cv: at positions pos..pos+T-1 of rows row0..row0+B-1 (every row, the
+    JAX write_columns, kv_cache.py:56-61, or a batch-1 chunk into row row0,
+    serving's prefill into a slot, zgml_tpu/models/llama.py:429-438), or, wp an int32
     tensor [B] on the cache's device and T 1, row b at its own position
     wp[b] (per-row decode, llama.py:443-447): indexed on the device, no host
     sync, no loop over rows."""
@@ -71,12 +71,9 @@ def write(ck: tuple, cv: tuple, li: int, pos: int, k: torch.Tensor, v: torch.Ten
             rows, at = torch.arange(k.shape[0], device=wp.device), wp.long()
             lv[li][rows, :, at] = qi[:, :, 0]
             sc[li][rows, :, at] = si[:, :, 0]
-        elif row is not None:
-            lv[li, row, :, pos:pos + t] = qi[0]
-            sc[li, row, :, pos:pos + t] = si[0]
         else:
-            lv[li, :, :, pos:pos + t] = qi
-            sc[li, :, :, pos:pos + t] = si
+            lv[li, row0:row0 + k.shape[0], :, pos:pos + t] = qi
+            sc[li, row0:row0 + k.shape[0], :, pos:pos + t] = si
 
 
 def dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ prefix and are overwritten by the next tokens); decode_n is a Python loop
 whose tokens stay on the device, so a burst needs no host sync until its ids
 are read. The KV cache is updated in place; `cache_dtype` "int8" makes it
 the int8 cache (engine.py:33, 41), whose prefill runs K9 and decode K7's
-int8-cache mode at batch 1, K8 above.
+int8-cache mode at batch 1, K8 above; "f32" the f32 one (the JAX engine's
+cache_dtype=jnp.float32), whose prefill runs K3's f32-K/V forms and decode
+K7's f32-cache mode at batch 1, K4's f32 form above.
 
 The tiers match the JAX engine's plans (engine.py:46-91): `step` and sampled
 `decode_n` take the logits through the M = B projection (K1 when the int8
@@ -97,7 +99,8 @@ class LlamaEngine:
         model. The prompt is zero-padded to a multiple of cp, each rank runs
         its chunk through parallel/cp.cp_prefill (ring attention), and the
         gathered K/V of the t real positions land in this engine's cache: the
-        bf16 cache takes them rounded, the int8 one quantized per position
+        bf16 cache takes them rounded, the f32 one as they are, the int8 one
+        quantized per position
         (quant/kv_cache.write, bit-equal to quantize_columns). Sets pos = t
         and returns the last real row's logits f32 [B, V] (computed by the
         rank whose chunk holds it, at the tier of its chunk's rows, and

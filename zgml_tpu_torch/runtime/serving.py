@@ -78,8 +78,8 @@ class _Prefill:
 
 
 class ContinuousBatchingEngine:
-    """`max_batch` slots over one model and one shared KV cache ("bf16" or
-    "int8"), on the model's device (the card unless the model was built with
+    """`max_batch` slots over one model and one shared KV cache ("bf16",
+    "f32" or "int8"), on the model's device (the card unless the model was built with
     device="cpu"); with `mesh`, this rank's share of them (module note)."""
 
     def __init__(self, model: LlamaModel, max_batch: int = 8, prefill_chunk: int = 128,
