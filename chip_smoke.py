@@ -81,25 +81,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      at M = 1, 8, 32; the fused FFN's dx (ops/ffn.FusedFFN) at M = 1, 8, 32
      at both kinds against force_ref() (summary ffn_vjp). The whole-stack
      decode megacalls K14 (stack_decode) and K15 (tape_decode, and
-     tape_decode_f32 under ZGML_TPU_TAPE_BF16=0) over a random stacked cache
-     at pos 0, 1, 200, 2047: TinyLlama-1.1B's 22 layers, and Llama-2-7B's
-     widths over 4 layers; x_out, k_cur and v_cur within MEGA_REL_PER_LAYER *
-     L * max|out| with f32 operands and TAPE_BF16_RTOL * max|out| with bf16
-     ones, every layer's cache row pos the kernel's own k_cur / v_cur in bf16;
-     K14 and tape_decode_f32 bit-equal to the per-layer chain (K7 with the
-     f32 A phase, then K6d at one row, every layer's k_cur / v_cur, the final
-     x and the cache), K15's rms error against a float64 evaluation of the
-     same stack at most MEGA_RMS_RATIO x the plain version's and its rms
-     distance from the plain version at most MEGA_ROUNDING_RATIO x the f32
-     chain's (so a K15 without its bf16 roundings fails), all three
-     bit-equal over two launches, no spill or stack frame in any instantiation.
+     tape_decode_f32 under ZGML_TPU_TAPE_BF16=0) over a random stacked bf16
+     cache and, in their f32-cache modes (stack_decode_f32kv,
+     tape_decode_f32kv, tape_decode_f32_f32kv), over a random stacked f32
+     cache, at pos 0, 1, 200, 2047: TinyLlama-1.1B's 22 layers, and
+     Llama-2-7B's widths over 4 layers; x_out, k_cur and v_cur within
+     MEGA_REL_PER_LAYER * L * max|out| with f32 operands and TAPE_BF16_RTOL *
+     max|out| with bf16 ones, every layer's cache row pos the kernel's own
+     k_cur / v_cur in the cache's dtype; K14 and tape_decode_f32 bit-equal to
+     the per-layer chain over the same cache (K7 with the f32 A phase in the
+     cache's mode, then K6d at one row, every layer's k_cur / v_cur, the
+     final x and the cache), K15's rms distance from the plain version at
+     most MEGA_ROUNDING_RATIO x the f32 chain's (so a K15 without its bf16
+     roundings fails) and, over the bf16 cache, its rms error against a
+     float64 evaluation of the same stack at most MEGA_RMS_RATIO x the plain
+     version's; each f32-cache mode, over an f32 cache holding the bf16
+     cache's values, bit-equal to its bf16-cache launch (x_out, k_cur,
+     v_cur), all six bit-equal over two launches, no spill or stack frame in any instantiation.
      ROADMAP B.6's shapes (check_wide): K1q8's K-split form on a 70B-shaped
      Q8_0 w_down (N 8192, K 28,672) at M = 1 and 32 (within REL_BOUND *
      max|y| of plain, two launches bit-equal, its own int8 activations the
      pre-pass's), and K14 at 80 layers of the 70B width (its pointer table
      read from global memory, 80 table rows over two layers' weights: within
      MEGA_REL_PER_LAYER * 80 * max|out| of plain, bit-equal to the chain and
-     over two launches). K4, K8 and K6b also at the serving paths' 8 rows.
+     over two launches); K5 on K1's K-split plan (q8_greedy_ksplit on that
+     w_down, q4_greedy_ksplit on a Q4_0 weight of N 8192, K 51,072): for 8
+     rows its id equal to argmax of K1's split output exactly and over two
+     launches, its bound K1's split bytes. K4, K8 and K6b also at the
+     serving paths' 8 rows.
      The bf16 forms (ZGML_TPU_PREFILL_BF16, the JAX default): K2's at M =
      128 and 512 on every projection of both models at Q4_0 and Q8_0, and
      lm_head's one row at tier_rows 128 (the bf16 GEMV, through the
@@ -174,6 +183,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                    K1q4, K2q4, K3, K5q4 and K6b, no K7 and no K6d;
        tape_tiny   the same with ZGML_TPU_TAPE_DECODE=1: K15 (bf16 operands)
                    once per decode token;
+       stack_tiny_f32kv / tape_tiny_f32kv  stack_tiny's and tape_tiny's
+                   first request once more from an engine over the f32 KV
+                   cache: the megacall's f32-cache mode once per decode
+                   token, K2's, K3's (f32-K/V) bf16 forms and K5q4, against
+                   force_ref() as every path's first request;
        layer_ffn_tiny  TinyLlama Q4_0 with ZGML_TPU_LAYER_FFN=1: the 3 greedy
                    and the sampled request; K7 with its phase E exactly once
                    per layer per decode token (22 a token), and K1q4, K2q4,
@@ -413,7 +427,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      profile of one step each; graph_ffn's ms per run and per
      value_and_grad in turns (median of 6) and a profile of one
      value_and_grad;
-  5. print the kernels' JSON line, then the device JSON line last.
+  5. the modules without a kernel of their own: the native host codecs
+     (built with g++ and loaded, their Q4_0 / Q8_0 bytes of Llama-2-7B's
+     layer-0 w_gate_up bit-equal to numpy's, both timed), the packed
+     checkpoint (Llama-2-7B written from the loaded model, the packed and
+     the GGUF load's host walls, planes and one 128-token prefill's logits
+     bit-equal; the 4.2 GB file deleted), the roofline of llama2_7b at
+     kv_len 160 over the bf16 cache with the bandwidth measured on the card,
+     beside its tg32, and runtime/conformance.py at TinyLlama-1.1B's and
+     Llama-2-7B's dims (every entry ok, each entry's kernel call placed on
+     cuda with no plain version);
+  6. print the kernels' JSON line, then the device JSON line last.
 Details also go to chiprun_out/chip_smoke/ (summary JSON with the profiler
 tables, and log.txt, every line printed).
 There is no CPU path: without a CUDA device it exits 2.
@@ -617,6 +641,7 @@ MEGA_ROUNDING_RATIO = 0.5
 # K14 at (L, d, hq, hkv, hd, d_ff, pos) of the 70B width over S
 WIDE_DOWN = (8192, 28672)
 WIDE_STACK = (80, 8192, 64, 8, 128, 28672, 1500)
+WIDE_GREEDY_Q4 = (8192, 51072)   # K5q4's K-split form: Q4_0 rows from K 51,072 (i8_plan)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
@@ -752,6 +777,20 @@ PATH_KERNELS = {"default": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_b
                 "f32kv_7b": ("q4_matmul_i8", "q4_matmul_bf16", "flash_attention_bf16_f32kv",
                              "q4_greedy", "fused_ffn_norm_i8", "fused_ffn",
                              "attn_block_i8_f32kv")}
+# stack_tiny's and tape_tiny's first request served once more over the f32
+# KV cache (its own counts: label, the megacall's f32-cache mode), and the
+# kernels that request must launch beside it: the prefill chunk's K2 and K3
+# (f32-K/V) bf16 forms, the prefill head's bf16 GEMV row and K5 for the
+# greedy decode heads
+MEGA_F32_PATHS = {"stack_tiny": ("stack_tiny_f32kv", "stack_decode_f32kv"),
+                  "tape_tiny": ("tape_tiny_f32kv", "tape_decode_f32kv")}
+MEGA_F32_KERNELS = ("q4_matmul_bf16", "flash_attention_bf16_f32kv", "q4_greedy")
+# the modules phase (5): the packed file's prompt, the roofline's live
+# context (a 128-token prefill and 32 decode tokens, as tg32's) and the
+# conformance sweep's models
+PACKED_PROMPT = 128
+ROOFLINE_KV = 160
+CONFORMANCE_MODELS = ("tinyllama-1.1b", "llama2-7b")
 # f32kv_tiny's second prefill (its 128-token prompt) under
 # ZGML_TPU_PREFILL_BF16=0: K2's f32 form and K3's f32-K/V f32 form
 F32KV_TINY_F32 = ("f32kv_tiny_f32", {"ZGML_TPU_PREFILL_BF16": "0"},
@@ -987,6 +1026,17 @@ KERNELS = {
                              "zgml_tpu/ops/layerkernel.py:685"),
     "attn_block_i8_f32kv_ffn": ("attn_block_i8_f32kv_ffn", _CSRC + "layer_attn_f32.cu",
                                 "zgml_tpu/ops/layerkernel.py:685"),
+    # the megacalls over the f32 cache, K5 on K1's K-split plan
+    "stack_decode_f32kv": ("stack_decode_f32kv", _CSRC + "stack_decode_f32.cu",
+                           "zgml_tpu/ops/stackkernel.py:422"),
+    "tape_decode_f32kv": ("tape_decode_f32kv", _CSRC + "stack_decode_f32.cu",
+                          "zgml_tpu/ops/tapekernel.py:553"),
+    "tape_decode_f32_f32kv": ("tape_decode_f32_f32kv", _CSRC + "stack_decode_f32.cu",
+                              "zgml_tpu/ops/tapekernel.py:553"),
+    "q4_greedy_ksplit": ("qmatmul_greedy_ksplit", _CSRC + "qmatmul_i8.cu",
+                         "zgml_tpu/ops/qmatmul.py:462"),
+    "q8_greedy_ksplit": ("qmatmul_greedy_ksplit_q8", _CSRC + "qmatmul_i8.cu",
+                         "zgml_tpu/ops/qmatmul.py:444"),
 }
 # the form of each kernel with two (ZGML_TPU_PREFILL_BF16; K8's
 # ZGML_TPU_ATTN_I8PV): its mode in the JSON line, beside the counter that
@@ -1004,7 +1054,10 @@ MODE = {**{k: "tf32" for k in ("q4_matmul", "q8_matmul", "flash_attention", "fla
         "flash_attention_f32kv": "f32kv", "flash_attention_bf16_f32kv": "bf16_f32kv",
         **{k: "f32_cache" for k in ("attn_block_f32kv", "attn_block_f32kv_q8",
                                     "attn_block_i8_f32kv")},
-        **{k: "phase_e_f32_cache" for k in ("attn_block_f32kv_ffn", "attn_block_i8_f32kv_ffn")}}
+        **{k: "phase_e_f32_cache" for k in ("attn_block_f32kv_ffn", "attn_block_i8_f32kv_ffn")},
+        "stack_decode_f32kv": "f32_cache", "tape_decode_f32kv": "bf16_f32_cache",
+        "tape_decode_f32_f32kv": "f32_f32_cache", "q4_greedy_ksplit": "k_split",
+        "q8_greedy_ksplit": "k_split"}
 # kernel name of each (kernel family, kind) checked in phase 2
 NAME = {("matmul", "q4_0"): "q4_matmul", ("matmul", "q8_0"): "q8_matmul",
         ("i8", "q4_0"): "q4_matmul_i8", ("i8", "q8_0"): "q8_matmul_i8",
@@ -3088,20 +3141,30 @@ def check_chains_16(torch, dev, g, record, dtype):
 
 def check_megacalls(torch, dev, g, record, weights):
     """K14 and K15 (bf16 and f32 operands) against their plain versions on
-    one random stack of Q4_0 layers and a random stacked bf16 cache, at
-    TinyLlama-1.1B's 22 layers and at Llama-2-7B's widths over L_7B layers,
-    pos ATTN_POS: x_out, k_cur and v_cur within MEGA_REL_PER_LAYER * L *
-    max|out| with f32 operands, TAPE_BF16_RTOL * max|out| with bf16 ones;
-    every layer's cache row pos is the kernel's own k_cur / v_cur in bf16
-    (with f32 operands within one bf16 ulp of the plain version's row, or
-    that bound near 0), and no other row changes. With f32 operands the
-    kernel is bit-equal to the per-layer chain (stackkernel.layer_chain:
-    every layer's k_cur / v_cur, the final x and the cache); K15's rms error
-    against stackkernel.stacked_decode_f64 is at most MEGA_RMS_RATIO x the
-    plain version's, and its rms distance from the plain version at most
-    MEGA_ROUNDING_RATIO x the chain's (the f32 function's); two launches
-    give the same bits. Each case records the chain's device
-    time (chain_ms) and the launch's plan."""
+    one random stack of Q4_0 layers, over a random stacked bf16 cache and a
+    random stacked f32 cache, at TinyLlama-1.1B's 22 layers and at
+    Llama-2-7B's widths over L_7B layers, pos ATTN_POS: x_out, k_cur and
+    v_cur within MEGA_REL_PER_LAYER * L * max|out| with f32 operands,
+    TAPE_BF16_RTOL * max|out| with bf16 ones; every layer's cache row pos is
+    the kernel's own k_cur / v_cur in the cache's dtype (over the bf16 cache
+    with f32 operands also within one bf16 ulp of the plain version's row,
+    or that bound near 0), and no other row changes. With f32 operands the
+    kernel is bit-equal to the per-layer chain over the same cache
+    (stackkernel.layer_chain, K7 in its bf16- or f32-cache mode, then K6d:
+    every layer's k_cur / v_cur, the final x and the cache); K15's rms
+    distance from the plain version is at most MEGA_ROUNDING_RATIO x the
+    chain's (the f32 function's) over either cache. Over the bf16 cache
+    K15's rms error against stackkernel.stacked_decode_f64 is at most
+    MEGA_RMS_RATIO x the plain version's. Over the f32 cache each mode is
+    held, in that bound's place, to its bf16-cache mode by a second, exact
+    witness: over an f32 cache that holds the bf16 cache's values, it gives
+    the bf16-cache launch's x_out / k_cur / v_cur bits (phase B reads the
+    rows below pos, and attends the current token in f32, in either form),
+    its rows below pos unchanged and row pos its own k_cur / v_cur; its rms
+    errors over the random f32 cache are recorded. Two launches give the
+    same bits. Each bf16-cache case records the chain's device time
+    (chain_ms) and every case the launch's plan (one plan serves both
+    caches)."""
     from zgml_tpu_torch.ops import refs
     from zgml_tpu_torch.ops.decode_plan import launch_args, stack_plan
     from zgml_tpu_torch.ops.stackkernel import (PROJECTIONS, StackedLayers, layer_chain,
@@ -3116,6 +3179,16 @@ def check_megacalls(torch, dev, g, record, weights):
     def rms(a, b):
         return float(torch.sqrt(torch.mean((a.double() - b) ** 2)))
 
+    # kernel name -> (launcher, plain version, keywords, cache dtype)
+    runs = {"stack_decode": (stacked_decode_cuda, stacked_decode_ref, {}, torch.bfloat16),
+            "tape_decode": (tape_decode_cuda, tape_decode_ref, {"bf16": True}, torch.bfloat16),
+            "tape_decode_f32": (tape_decode_cuda, tape_decode_ref, {"bf16": False},
+                                torch.bfloat16),
+            "stack_decode_f32kv": (stacked_decode_cuda, stacked_decode_ref, {}, torch.float32),
+            "tape_decode_f32kv": (tape_decode_cuda, tape_decode_ref, {"bf16": True},
+                                  torch.float32),
+            "tape_decode_f32_f32kv": (tape_decode_cuda, tape_decode_ref, {"bf16": False},
+                                      torch.float32)}
     for model, (n_layers, hq, hkv, hd), f in (("", (L, HQ, HKV, D), FFN_F),
                                               ("7B ", (L_7B, HQ_7B, HKV_7B, D_7B), FFN_F_7B)):
         d, nkv = hq * hd, hkv * hd
@@ -3130,24 +3203,28 @@ def check_megacalls(torch, dev, g, record, weights):
         # the weights and norms of every layer, read once per token
         wbytes = sum(nbytes_of(ly[n].qs, ly[n].d) for ly in layers for n in PROJECTIONS) \
             + 2 * n_layers * d * 4
-        ck = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
-        cv = torch.randn((n_layers, 1, hkv, S, hd), device=dev, generator=g).to(torch.bfloat16)
-        runs = {"stack_decode": (stacked_decode_cuda, stacked_decode_ref, {}),
-                "tape_decode": (tape_decode_cuda, tape_decode_ref, {"bf16": True}),
-                "tape_decode_f32": (tape_decode_cuda, tape_decode_ref, {"bf16": False})}
+        caches = {}
+        for dt in (torch.bfloat16, torch.float32):
+            caches[dt] = tuple(torch.randn((n_layers, 1, hkv, S, hd), device=dev,
+                                           generator=g).to(dt) for _ in range(2))
         for pos in ATTN_POS:
             x = torch.randn((1, 1, d), device=dev, generator=g)
             cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=dev), hd)
             pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
-            kc, vc = ck.clone(), cv.clone()
-            chain = layer_chain(x, stack, kc, vc, pos_t, cos, sin)
-            chain_cache = (kc, vc)
-            flat_chain = torch.cat([t.reshape(-1) for t in chain])
-            kt, vt = ck.clone(), cv.clone()      # timed in place: row pos takes the same values
+            chains, t_chain = {}, None
+            for dt, (ck, cv) in caches.items():
+                kc, vc = ck.clone(), cv.clone()
+                chain = layer_chain(x, stack, kc, vc, pos_t, cos, sin)
+                chains[dt] = (chain, (kc, vc), torch.cat([t.reshape(-1) for t in chain]))
+            kt, vt = (c.clone() for c in caches[torch.bfloat16])  # timed in place: row pos
             t_chain = time_ms(torch, [lambda: layer_chain(x, stack, kt, vt, pos_t, cos, sin)], 3)
             del kt, vt
-            for kname, (kernel, plain, kw) in runs.items():
-                view = stack if kname == "stack_decode" else tape
+            outs = {}          # bf16-cache launches: the f32-cache modes' witness
+            for kname, (kernel, plain, kw, dt) in runs.items():
+                ck, cv = caches[dt]
+                chain, chain_cache, flat_chain = chains[dt]
+                f32kv = dt == torch.float32
+                view = stack if kname.startswith("stack") else tape
                 bf16 = kw.get("bf16", False)
                 kc, vc, kr, vr = ck.clone(), cv.clone(), ck.clone(), cv.clone()
                 got = kernel(x, view, kc, vc, pos_t, cos, sin, **kw)
@@ -3168,49 +3245,111 @@ def check_megacalls(torch, dev, g, record, weights):
                 for c, c_r, cur in ((kc, kr, got[1]), (vc, vr, got[2])):
                     row, row_r = c[:, 0, :, pos].double(), c_r[:, 0, :, pos].double()
                     tol = torch.clamp(bf16_ulp(torch, row_r), min=rel * float(row_r.abs().max()))
-                    same &= (torch.equal(c[:, 0, :, pos], cur.to(torch.bfloat16))
+                    same &= (torch.equal(c[:, 0, :, pos], cur.to(dt))
                              and torch.equal(c[:, :, :, rows], c_r[:, :, :, rows])
-                             and (bf16 or bool(((row - row_r).abs() <= tol).all())))
+                             and (bf16 or f32kv or bool(((row - row_r).abs() <= tol).all())))
                 require(same, f"{kname} {model}pos={pos}: a cache row pos is not the kernel's "
-                        f"k_cur / v_cur in bf16 (or is off the plain row), or another row changed")
+                        f"k_cur / v_cur in {dt} (or is off the plain row), or another row "
+                        f"changed")
                 if not bf16:
                     require(all(torch.equal(a.reshape(b.shape), b) for a, b in zip(got, chain))
                             and torch.equal(kc, chain_cache[0])
                             and torch.equal(vc, chain_cache[1]),
                             f"{kname} {model}pos={pos}: not bit-equal to the per-layer chain "
                             f"K7 + K6d")
+                if not f32kv:
+                    outs[kname] = got
+                else:
+                    # the exact witness: the bf16 cache's values held in f32
+                    wk, wv = (c.float() for c in caches[torch.bfloat16])
+                    seen = kernel(x, view, wk, wv, pos_t, cos, sin, **kw)
+                    base = outs[kname.removesuffix("_f32kv")]
+                    torch.cuda.synchronize()
+                    require(all(torch.equal(a, b) for a, b in zip(seen, base))
+                            and all(torch.equal(c[:, :, :, rows], c_b[:, :, :, rows].float())
+                                    and torch.equal(c[:, 0, :, pos], cur)
+                                    for c, c_b, cur in zip((wk, wv), caches[torch.bfloat16],
+                                                           seen[1:])),
+                            f"{kname} {model}pos={pos}: over an f32 cache holding the bf16 "
+                            f"cache's values, not the bf16-cache launch's bits (or a row is "
+                            f"off)")
+                    del wk, wv, seen
                 exact = stacked_decode_f64(x, stack, ck, cv, pos, cos, sin,
                                            bf16_weight if bf16 else PackedWeight.dequant)
                 flat = [torch.cat([t.reshape(-1) for t in out]) for out in (got, want)]
                 rms_k, rms_p = rms(flat[0], exact), rms(flat[1], exact)
-                require(not bf16 or rms_k <= MEGA_RMS_RATIO * rms_p,
+                near, far = rms(flat[0], flat[1].double()), rms(flat_chain, flat[1].double())
+                require(not bf16 or f32kv or rms_k <= MEGA_RMS_RATIO * rms_p,
                         f"{kname} {model}pos={pos}: rms error against float64 {rms_k:.3g} is "
                         f"over {MEGA_RMS_RATIO} x the plain version's {rms_p:.3g}")
                 # K15's roundings: nearer its plain version than the f32 function is
-                near, far = rms(flat[0], flat[1].double()), rms(flat_chain, flat[1].double())
                 require(not bf16 or near <= MEGA_ROUNDING_RATIO * far,
                         f"{kname} {model}pos={pos}: rms distance from the plain version "
                         f"{near:.3g} is over {MEGA_ROUNDING_RATIO} x the f32 chain's {far:.3g}")
                 del exact
                 t = time_ms(torch, [lambda: kernel(x, view, kc, vc, pos_t, cos, sin, **kw)], 20)
-                tp = time_ms(torch, [lambda: plain(x, view, kr, vr, pos, cos, sin, **kw)], 3)
+                tp = time_ms(torch, [lambda: plain(x, view, kr, vr, pos, cos, sin, **kw)],
+                             2 if f32kv else 3)
                 worst = max(errs, key=lambda eb: eb[0] / eb[1])
                 # x in and out, cos/sin, weights and norms, each layer's live
-                # cache rows, its new row and its k_cur / v_cur out
+                # cache rows (at the cache's element size), its new row and its
+                # k_cur / v_cur out
+                esz = 4 if f32kv else 2
                 nbytes = (2 * d * 4 + hd * 4 + wbytes
-                          + n_layers * ((pos + 1) * 2 * nkv * 2 + 2 * nkv * 4))
+                          + n_layers * ((pos + 1) * 2 * nkv * esz + 2 * nkv * 4))
                 ops = n_layers * (2 * d * (hq + 2 * hkv) * hd + 2 * d * d + 6 * d * f
                                   + 4 * hq * pos * hd)
                 record(kname, f"{model}L={n_layers} pos={pos} (x_out, k_cur, v_cur)", worst[0],
                        worst[1], t, tp, nbytes, 0 if bf16 else ops, None, NO_LIBRARY["stack"],
-                       bf16ops=ops if bf16 else 0, n_layers=n_layers, chain_ms=t_chain[0],
-                       bits_equal_chain=not bf16, rms_err=rms_k, plain_rms_err=rms_p,
-                       rounding_ratio=near / far if bf16 and far else None, **plan)
+                       bf16ops=ops if bf16 else 0, n_layers=n_layers,
+                       chain_ms=None if f32kv else t_chain[0], bits_equal_chain=not bf16,
+                       rms_err=rms_k, plain_rms_err=rms_p,
+                       bits_equal_bf16_cache=True if f32kv else None, rounding_ratio=near / far if bf16 and far else None,
+                       cache="f32" if f32kv else "bf16", **plan)
                 log(f"    {kname} {model}pos={pos}: per-layer chain K7 + K6d "
-                    f"{t_chain[0] * 1e3:.1f} us; rms error vs float64 {rms_k:.3g} (plain "
-                    f"{rms_p:.3g})")
-        del layers, stack, tape, ck, cv
+                    f"{t_chain[0] * 1e3:.1f} us (bf16 cache); rms error vs float64 {rms_k:.3g} "
+                    f"(plain {rms_p:.3g}); rms from plain {near:.3g}, the f32 chain's {far:.3g}"
+                    + ("; over the bf16 cache's values the bf16-cache launch's bits"
+                       if f32kv else ""))
+            del chains
+        del layers, stack, tape, caches
         torch.cuda.empty_cache()
+
+
+def greedy_k_split(torch, dev, g, record, kind, copies):
+    """K5 on K1's K-split plan (i8_plan kc > 1) on `copies` of one weight:
+    for GREEDY_TRIALS rows its id is argmax of K1's split output on the same
+    row exactly and the same over two launches; its error, as check_greedy's,
+    is how far the plain logit of its id lies below the plain maximum. The
+    bound is K1's split bytes (x, the weight, the id)."""
+    from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, greedy_ref, i8_plan, qmatmul_i8_cuda,
+                                            qmatmul_i8_ref)
+    w = copies[0]
+    plan = i8_plan(1, w.n, w.k, kind, torch.cuda.get_device_properties(dev).multi_processor_count)
+    kname = NAME["greedy", kind] + "_ksplit"
+    case = f"N={w.n} K={w.k} (K-split, kc={plan.kc}), {GREEDY_TRIALS} rows"
+    require(plan.kc > 1, f"{kname} {case}: the plan is not the K-split form")
+    lost = []
+    for _ in range(GREEDY_TRIALS):
+        x = torch.randn((1, w.k), device=dev, generator=g)
+        ids = [int(greedy_cuda(x, w)[0]), int(greedy_cuda(x, w)[0])]
+        y = qmatmul_i8_cuda(x, w)[0]
+        y_ref = qmatmul_i8_ref(x, w)[0]
+        torch.cuda.synchronize()
+        require(ids[0] == ids[1] == int(torch.argmax(y)),
+                f"{kname} {case}: ids {ids} over two launches, argmax of K1's split output "
+                f"{int(torch.argmax(y))}")
+        lost.append((float(y_ref.max() - y_ref[ids[0]]), REL_BOUND * float(y_ref.abs().max())))
+    require(all(e <= b for e, b in lost),
+            f"{kname} {case}: (max(plain) - plain[id], bound) per row {lost}")
+    err, bound = max(lost, key=lambda eb: eb[0] / eb[1])
+    t = time_ms(torch, [lambda w_=c: greedy_cuda(x, w_) for c in copies], 20)
+    tp = time_ms(torch, [lambda w_=c: greedy_ref(x, w_) for c in copies], 4)
+    record(kname, case + ": ids == argmax(K1 split) over two launches; error = max(plain) - "
+           "plain[id]", err, bound, t, tp, w.k * 4 + nbytes_of(w.qs, w.d) + 8, 0, None,
+           NO_LIBRARY["greedy"], i8ops=2 * w.n * w.k,
+           plan=dict(kc=plan.kc, tr=plan.tr, S=plan.S, stages=plan.stages,
+                     slot_bytes=plan.slot_bytes, xg=plan.xg, smem_bytes=plan.smem_bytes))
 
 
 def check_wide(torch, dev, g, record, weights):
@@ -3218,7 +3357,10 @@ def check_wide(torch, dev, g, record, weights):
     plans refused before: K1q8 on a 70B-shaped Q8_0 w_down (N 8192, K
     28,672) at M = 1 and 32, its K-split form (i8_plan kc > 1): within
     REL_BOUND * max|y| of plain, bit-equal over two launches, its own int8
-    activations the pre-pass's; and K14 at 80 layers of the 70B width
+    activations the pre-pass's; K5 on that split form on the same weight
+    (K5q8) and on a Q4_0 weight of K 51,072 (WIDE_GREEDY_Q4, K5q4): ids
+    equal to argmax of K1's split output (greedy_k_split); and K14 at 80
+    layers of the 70B width
     (WIDE_STACK), the layers' pointer table read from global memory, its 80
     table rows pointing at two layers' weights (~1 GB; each layer's weights
     still stream once a layer): within MEGA_REL_PER_LAYER * 80 * max|out| of
@@ -3258,7 +3400,9 @@ def check_wide(torch, dev, g, record, weights):
                plan=dict(kc=plan.kc, tr=plan.tr, S=plan.S, stages=plan.stages,
                          slot_bytes=plan.slot_bytes, xg=plan.xg, pis=plan.pis,
                          smem_bytes=plan.smem_bytes))
+    greedy_k_split(torch, dev, g, record, "q8_0", copies)
     del copies, w
+    greedy_k_split(torch, dev, g, record, "q4_0", weights("q4_0", *WIDE_GREEDY_Q4))
     n_layers, d, hq, hkv, hd, f, pos = WIDE_STACK
     nkv = hkv * hd
     plan, _, _ = launch_args(dev, stack_plan, n_layers, d, hq, hkv, hd, f, S)
@@ -3490,6 +3634,158 @@ def end_to_end(torch, model, prompts, name, summary):
         entry["batch4"] = against_plain(torch, eng4, prompt4, out4, name, "the batch-4 request")
     summary.setdefault("e2e", {})[name] = entry
     return eng, launches, eng4
+
+
+def megacall_f32_request(torch, model, prompt, name, summary):
+    """stack_tiny's or tape_tiny's first request (`prompt`, 32 greedy
+    tokens) once more from an engine over the f32 KV cache, the placement
+    counts set to 0 just before it: the megacall's f32-cache mode exactly
+    once per decode token, MEGA_F32_KERNELS, no other kernel and no plain
+    version; then against force_ref() as every path's first request
+    (against_plain). Returns the launches."""
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.profile import global_profile
+    label, mega = MEGA_F32_PATHS[name]
+    set_path(name)
+    try:
+        eng = LlamaEngine(model, prefill_chunk=128, cache_dtype="f32")
+        torch.cuda.synchronize()
+        global_profile.reset()
+        out = eng.generate(prompt, 32)
+        torch.cuda.synchronize()
+        launches, tiers = path_launches(label, MEGA_F32_KERNELS + (mega,), {mega: 1})
+        require(len(out) == 32 and all(0 <= t < model.cfg.vocab_size for t in out),
+                f"[{label}] the request gave {out}")
+        log(f"  [{label}] prompt {len(prompt)} tokens, greedy, over the f32 cache -> {out}; "
+            f"placement: {tiers}")
+        summary.setdefault("e2e", {})[label] = dict(
+            flags=PATHS[name], model=PATH_MODEL[name], layers=model.cfg.n_layers, cache="f32",
+            launches=launches, placement=tiers, outputs=[out],
+            **against_plain(torch, eng, prompt, out, name, "request 1 over the f32 cache"))
+    finally:
+        set_path("default")
+    return launches
+
+
+def modules_phase(torch, dev, models, card, summary):
+    """Phase 5, the modules without a kernel of their own, on the card's
+    machine: the native host codecs (loaded, and their Q4_0 / Q8_0 bytes of
+    Llama-2-7B's layer-0 w_gate_up rows bit-equal to the numpy codecs', each
+    timed); the packed checkpoint (Llama-2-7B written from the loaded model,
+    loaded back and the GGUF loaded once more, both host walls printed, the
+    packed model's planes and the logits of one PACKED_PROMPT-token prefill
+    chunk bit-equal to the GGUF model's; the file deleted); the roofline of
+    llama2_7b at ROOFLINE_KV over the bf16 cache with the bandwidth measured
+    here, beside that path's tg32; and the conformance sweep at
+    CONFORMANCE_MODELS' dims, every entry ok and its kernel call placed on
+    `cuda` with no `ref` count."""
+    from zgml_tpu_torch import native
+    from zgml_tpu_torch.io.llama_loader import load_llama
+    from zgml_tpu_torch.io.packed_ckpt import load_packed_llama, save_packed_llama
+    from zgml_tpu_torch.quant import blocks
+    from zgml_tpu_torch.quant.packed import PackedWeight
+    from zgml_tpu_torch.runtime.conformance import render, run_conformance
+    from zgml_tpu_torch.runtime.engine import LlamaEngine
+    from zgml_tpu_torch.runtime.roofline import roofline
+    out = summary.setdefault("modules", {})
+    set_path("default")
+    m7 = models["llama2-7b", "q4_0"]
+
+    t0 = time.perf_counter()
+    loaded = native.available()
+    out["native"] = dict(loaded=loaded, library=str(native.library_path()),
+                         load_s=time.perf_counter() - t0)
+    log(f"  native host library loaded: {loaded} ({native.library_path().name}, "
+        f"{out['native']['load_s']:.1f} s with the g++ build)")
+    require(loaded, "the native host library (g++ -fopenmp, zgml_tpu_torch/native) did not "
+            "build or load on the card's machine")
+    w = m7.params["layers"][0]["w_gate_up"].dequant().cpu().numpy()
+    for kind in ("q4_0", "q8_0"):
+        quantize = getattr(blocks, f"quantize_{kind}")
+        t0 = time.perf_counter()
+        nat = quantize(w)
+        t_nat = time.perf_counter() - t0
+        os.environ["ZGML_TPU_NATIVE"] = "0"
+        try:
+            t0 = time.perf_counter()
+            ref = quantize(w)
+            t_np = time.perf_counter() - t0
+        finally:
+            os.environ.pop("ZGML_TPU_NATIVE")
+        require(np.array_equal(nat, ref), f"native quantize_{kind} of Llama-2-7B's w_gate_up "
+                f"rows differs from the numpy codec's")
+        out["native"][kind] = dict(rows=w.shape[0], k=w.shape[1], native_s=t_nat, numpy_s=t_np)
+        log(f"  native quantize_{kind} of Llama-2-7B's layer-0 w_gate_up {tuple(w.shape)}: "
+            f"bit-equal to numpy; host wall native {t_nat:.3f} s, numpy {t_np:.3f} s")
+    del w
+
+    path = ROOT / ".bench_cache" / "llama2-7b-q4_0-seed0.packed.safetensors"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        save_packed_llama(str(path), m7)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pm = load_packed_llama(str(path), device=dev)
+        torch.cuda.synchronize()
+        packed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gm, gf = load_llama(str(model_path("llama2-7b", "q4_0")), device=dev)
+        gf.close()
+        torch.cuda.synchronize()
+        gguf_s = time.perf_counter() - t0
+        size = path.stat().st_size
+    finally:
+        path.unlink(missing_ok=True)
+
+    def leaves(params):
+        for ly in params["layers"]:
+            for key in sorted(ly):
+                v = ly[key]
+                yield from ((v.qs, v.d) if isinstance(v, PackedWeight) else (v,))
+        for key in ("tok_embd", "out_norm", "lm_head"):
+            v = params[key]
+            yield from ((v.qs, v.d) if isinstance(v, PackedWeight) else (v,))
+    require(pm.cfg == gm.cfg and all(a.dtype == b.dtype and torch.equal(a, b)
+                                     for a, b in zip(leaves(pm.params), leaves(gm.params))),
+            "the packed Llama-2-7B's config or planes differ from the GGUF load's")
+    prompt = np.random.default_rng(SEED).integers(0, gm.cfg.vocab_size, PACKED_PROMPT)
+    lg = LlamaEngine(gm, prefill_chunk=PACKED_PROMPT).prefill(prompt)
+    lp = LlamaEngine(pm, prefill_chunk=PACKED_PROMPT).prefill(prompt)
+    torch.cuda.synchronize()
+    require(torch.equal(lg, lp), "the packed Llama-2-7B's prefill logits differ from the GGUF "
+            "model's")
+    out["packed"] = dict(bytes=size, save_s=save_s, load_packed_s=packed_s, load_gguf_s=gguf_s,
+                         logits_bit_equal=True)
+    log(f"  packed checkpoint of Llama-2-7B Q4_0 ({size / 1e9:.2f} GB): written in "
+        f"{save_s:.1f} s; host wall of the load: packed {packed_s:.2f} s, GGUF {gguf_s:.2f} s "
+        f"(both from the page cache); planes and a {PACKED_PROMPT}-token prefill's logits "
+        f"bit-equal  [{card}]")
+    del pm, gm, lg, lp
+    torch.cuda.empty_cache()
+
+    r = roofline(m7, kv_len=ROOFLINE_KV, cache_dtype="bf16")
+    tg = summary.get("rates", {}).get("llama2_7b", {}).get("tg32_tok_s")
+    out["roofline_llama2_7b"] = dict(r, kv_len=ROOFLINE_KV, tg32_tok_s=tg)
+    log(f"  roofline llama2_7b at kv_len {ROOFLINE_KV} (bf16 cache): measured bandwidth "
+        f"{r['hbm_bandwidth_GBs']:.1f} GB/s (saxpy, read + write), {r['weight_bytes']} weight "
+        f"+ {r['kv_bytes']} KV bytes a token -> {r['achievable_tok_s']:.1f} tok/s achievable; "
+        f"the path's tg32 {tg if tg is None else round(tg, 1)} tok/s"
+        + (f" ({100 * tg / r['achievable_tok_s']:.1f}% of it)" if tg else "") + f"  [{card}]")
+
+    for name in CONFORMANCE_MODELS:
+        t0 = time.perf_counter()
+        res = run_conformance(preset(name), device=dev)
+        secs = time.perf_counter() - t0
+        log(f"  conformance at {name}'s dims ({secs:.1f} s):\n" + render(res))
+        bad = [r_["name"] for r_ in res if not r_["ok"]]
+        require(not bad, f"conformance at {name}'s dims: entries over tolerance {bad}")
+        off = {r_["name"]: r_["placement"] for r_ in res
+               if not any(t.get("cuda") for t in r_["placement"].values())
+               or any(t.get("ref") for t in r_["placement"].values())}
+        require(not off, f"conformance at {name}'s dims: entries whose call ran no kernel or a "
+                f"plain version: {off}")
+        out.setdefault("conformance", {})[name] = dict(seconds=secs, results=res)
 
 
 def f32_prefill_check(torch, eng, prompt, summary):
@@ -6531,6 +6827,10 @@ def main() -> int:
             engines4[name] = eng4
     launches[F32KV_TINY_F32[0]] = f32_prefill_check(torch, engines["f32kv_tiny"], prompts[1],
                                                    summary)
+    for name, (label, _) in MEGA_F32_PATHS.items():
+        launches[label] = megacall_f32_request(
+            torch, (shallow if name in SHALLOW_PATHS else models)[PATH_MODEL[name]], prompts[0],
+            name, summary)
     kernel_switch_check(torch, tiny, prompts[1], summary)
     log(f"  phase 3 (inference) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -6587,6 +6887,12 @@ def main() -> int:
         log(f"  [{name}] launches over both ranks {used}; rates (host clock, ranks sharing one "
             f"card, phase 3) {rate}  [{card}]")
     log(f"  phase 4 took {time.perf_counter() - t0:.1f} s")
+
+    log("== 5. modules: the native host codecs, the packed checkpoint, the roofline, the "
+        "conformance sweep")
+    t0 = time.perf_counter()
+    modules_phase(torch, dev, models, card, summary)
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [kernel_line(name, checks[name], {p: n[name] for p, n in launches.items()})
                for name in KERNELS]

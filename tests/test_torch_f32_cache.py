@@ -305,14 +305,32 @@ def _tree_np(tree):
 
 
 def test_megacalls_refuse_the_f32_cache(flags, d512_q4):
-    """The whole-stack megacall K14 over the f32 cache raises, naming
-    ROADMAP.md B.4 (the port's runs over the bf16 cache only), rather than
-    running the per-layer path under the flag."""
-    flags.setenv("ZGML_TPU_STACK_DECODE", "1")
+    """The whole-stack megacall K14 refuses nothing the JAX package's takes:
+    over the f32 cache the engine's decode steps under ZGML_TPU_STACK_DECODE
+    run its f32-cache mode (stack_decode_f32kv, one a step, no K7) and give
+    the per-layer path's logits (K7's f32-cache mode + K6d, the same
+    function) within 3e-3 * max|logit| (tests/test_torch_stackkernel.py's
+    bound). tests/test_torch_megacall_f32_cache.py holds K14 and K15 over the
+    f32 cache to the JAX kernels."""
     model, gf = load_llama(d512_q4, device="cpu")
     gf.close()
     assert model.enable_stacked_decode()
-    eng = LlamaEngine(model, cache_dtype="f32", prefill_chunk=16)
-    eng.prefill(np.arange(8))
-    with pytest.raises(NotImplementedError, match="B.4"):
-        eng.step(torch.tensor([1]))
+    prompt = np.arange(8)
+
+    def steps():
+        eng = LlamaEngine(model, cache_dtype="f32", prefill_chunk=16)
+        tok = torch.argmax(eng.prefill(prompt), dim=-1)
+        out = []
+        for _ in range(3):
+            tok, lg = eng.step(tok)
+            out.append(lg[0])
+        return out
+    per_layer = steps()
+    flags.setenv("ZGML_TPU_STACK_DECODE", "1")
+    global_profile.reset()
+    mega = steps()
+    tiers = global_profile.tier_summary()
+    assert tiers["stack_decode_f32kv"] == {"ref": 3}
+    assert not any(op.startswith("attn_block") for op in tiers)
+    for a, b in zip(per_layer, mega):
+        assert float((a - b).abs().max()) <= 3e-3 * float(a.abs().max())

@@ -35,14 +35,17 @@ assert not bad, bad
 
 def test_port_imports_no_jax():
     """Every module of the port imports (the GPT-2 and Whisper modules and
-    their loaders among them) without jax or zgml_tpu."""
+    their loaders, the native host codecs, the packed checkpoint, the
+    roofline and the conformance sweep among them) without jax or
+    zgml_tpu."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                           text=True, timeout=300, env={"PYTHONPATH": str(REPO),
                                                        "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 20
-    for name in ("models.gpt", "models.whisper", "data.audio", "io.hf_loaders"):
+    for name in ("models.gpt", "models.whisper", "data.audio", "io.hf_loaders", "native",
+                 "io.packed_ckpt", "runtime.roofline", "runtime.conformance"):
         assert f"zgml_tpu_torch.{name}" in proc.stdout, name
 
 

@@ -1,5 +1,6 @@
 """The f32 KV cache's kernel modes on the card (skipped without one): K3 over
-f32 K / V in both forms and K7 over the f32 cache.
+f32 K / V in both forms, K7 over the f32 cache, and the whole-stack decode
+megacalls K14 / K15 over it.
 
     python -m pytest --noconftest -q tests/test_torch_kernels_f32cache.py
 
@@ -11,7 +12,14 @@ bf16 form run on k.bfloat16(), v.bfloat16() (the kernel rounds the staged
 f32 rows to nearest even, as torch does, and takes that form's plan). K7
 over the f32 cache within 1e-5 * max|out| of attn_block_ref (the int8 A
 phase on the kernel's own activations), the written row bit-equal to k_cur
-/ v_cur; every launch bit-equal to a second one.
+/ v_cur; every launch bit-equal to a second one. K14 and tape_decode_f32
+over the f32 cache bit-equal to the per-layer chain K7 (f32-cache mode) +
+K6d, every layer's row pos its own k_cur / v_cur and no other row changed;
+K15 (bf16 operands) under its bf16-cache case's bounds (tests/
+test_torch_kernels.py test_tape_decode_rms_error_and_two_launches); and
+each of the three f32-cache modes, over an f32 cache that holds a bf16
+cache's values, bit-equal to its bf16-cache launch (phase B reads the rows
+below pos and attends the current token in f32 in either form).
 """
 import numpy as np
 import pytest
@@ -156,3 +164,97 @@ def test_dispatch_routes_the_f32_cache(cuda, monkeypatch):
     assert global_profile.tier_summary() == {"attention_bf16_f32kv": {"cuda": 1},
                                              "attention_f32kv": {"cuda": 1},
                                              "attn_block_f32kv": {"cuda": 1}}
+
+
+# (L, hq, hkv, hd, f, S, pos): TinyLlama-1.1B and Llama-2-7B widths, pos 0
+STACK_CASES = [(3, 32, 4, 64, 5632, 2048, 300), (2, 32, 32, 128, 11008, 512, 257),
+               (2, 8, 2, 64, 768, 64, 0)]
+
+
+def _stack_inputs(rng, n_layers, hq, hkv, hd, f, s, pos, device):
+    from test_torch_kernels import _stack
+    stack = _stack(rng, n_layers, hq, hkv, hd, f, device)
+    x = torch.from_numpy(rng.standard_normal((1, 1, hq * hd)).astype(np.float32)).to(device)
+    ck, cv = (torch.from_numpy(rng.standard_normal((n_layers, 1, hkv, s, hd)).astype(np.float32))
+              .to(device) for _ in range(2))
+    cos, sin = refs.rope_cos_sin(torch.tensor([pos], device=device), hd)
+    return stack, x, ck, cv, cos, sin, torch.tensor([pos], dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("mode", ("stack", "tape_f32"))
+@pytest.mark.parametrize("n_layers,hq,hkv,hd,f,s,pos", STACK_CASES)
+def test_stack_decode_f32_cache_is_the_layer_chain(cuda, mode, n_layers, hq, hkv, hd, f, s, pos):
+    from zgml_tpu_torch.ops.stackkernel import layer_chain, stacked_decode_cuda
+    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda
+    stack, x, ck, cv, cos, sin, pos_t = _stack_inputs(np.random.default_rng(pos + n_layers),
+                                                      n_layers, hq, hkv, hd, f, s, pos, cuda)
+
+    def run(kc, vc):
+        if mode == "stack":
+            return stacked_decode_cuda(x, stack, kc, vc, pos_t, cos, sin)
+        return tape_decode_cuda(x, Tape(stack, ()), kc, vc, pos_t, cos, sin, bf16=False)
+    ck1, cv1, ck2, cv2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
+    global_profile.reset()
+    got, again = run(ck1, cv1), run(ck.clone(), cv.clone())
+    assert global_profile.tier_summary() == {
+        "stack_decode_f32kv" if mode == "stack" else "tape_decode_f32_f32kv": {"cuda": 2}}
+    want = layer_chain(x, stack, ck2, cv2, pos_t, cos, sin)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a.reshape(b.shape), b) and torch.equal(a, c)
+    assert torch.equal(ck1, ck2) and torch.equal(cv1, cv2)
+    rows = torch.arange(s, device=cuda) != pos
+    assert torch.equal(ck1[:, 0, :, pos], got[1]) and torch.equal(cv1[:, 0, :, pos], got[2])
+    assert torch.equal(ck1[:, :, :, rows], ck[:, :, :, rows])
+    assert torch.equal(cv1[:, :, :, rows], cv[:, :, :, rows])
+
+
+@pytest.mark.parametrize("n_layers,hq,hkv,hd,f,s,pos", STACK_CASES)
+def test_tape_decode_f32_cache(cuda, n_layers, hq, hkv, hd, f, s, pos):
+    from zgml_tpu_torch.ops.stackkernel import layer_chain, stacked_decode_f64
+    from zgml_tpu_torch.ops.tapekernel import Tape, bf16_weight, tape_decode_cuda, tape_decode_ref
+    stack, x, ck, cv, cos, sin, pos_t = _stack_inputs(np.random.default_rng(pos + 7 * n_layers),
+                                                      n_layers, hq, hkv, hd, f, s, pos, cuda)
+    tape = Tape(stack, ())
+    global_profile.reset()
+    ck1 = ck.clone()
+    got = tape_decode_cuda(x, tape, ck1, cv.clone(), pos_t, cos, sin)
+    again = tape_decode_cuda(x, tape, ck.clone(), cv.clone(), pos_t, cos, sin)
+    assert global_profile.tier_summary() == {"tape_decode_f32kv": {"cuda": 2}}
+    want = tape_decode_ref(x, tape, ck.clone(), cv.clone(), pos, cos, sin)
+    chain = layer_chain(x, stack, ck.clone(), cv.clone(), pos_t, cos, sin)
+    exact = stacked_decode_f64(x, stack, ck, cv, pos, cos, sin, bf16_weight)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(ck1[:, 0, :, pos], got[1])
+    flat = [torch.cat([t.reshape(-1) for t in out]).double() for out in (got, want, chain)]
+
+    def rms(a, b):
+        return float(torch.sqrt(torch.mean((a - b) ** 2)))
+    assert rms(flat[0], exact) <= 2.0 * rms(flat[1], exact)
+    assert rms(flat[0], flat[1]) <= 0.5 * rms(flat[2], flat[1])
+
+
+@pytest.mark.parametrize("mode", ("stack", "tape", "tape_f32"))
+@pytest.mark.parametrize("n_layers,hq,hkv,hd,f,s,pos", STACK_CASES)
+def test_megacalls_over_bf16_values_in_an_f32_cache_give_the_bf16_cache_bits(
+        cuda, mode, n_layers, hq, hkv, hd, f, s, pos):
+    from zgml_tpu_torch.ops.stackkernel import stacked_decode_cuda
+    from zgml_tpu_torch.ops.tapekernel import Tape, tape_decode_cuda
+    stack, x, ck, cv, cos, sin, pos_t = _stack_inputs(np.random.default_rng(pos + 3 * n_layers),
+                                                      n_layers, hq, hkv, hd, f, s, pos, cuda)
+    kb, vb = ck.to(torch.bfloat16), cv.to(torch.bfloat16)
+
+    def run(kc, vc):
+        if mode == "stack":
+            return stacked_decode_cuda(x, stack, kc, vc, pos_t, cos, sin)
+        return tape_decode_cuda(x, Tape(stack, ()), kc, vc, pos_t, cos, sin,
+                                bf16=mode == "tape")
+    kf, vf = kb.float(), vb.float()
+    base, got = run(kb.clone(), vb.clone()), run(kf, vf)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, base))
+    rows = torch.arange(s, device=cuda) != pos
+    for c, c_b, cur in ((kf, kb, got[1]), (vf, vb, got[2])):
+        assert torch.equal(c[:, 0, :, pos], cur)
+        assert torch.equal(c[:, :, :, rows], c_b[:, :, :, rows].float())

@@ -4,7 +4,8 @@ The whole-stack megacall K14 at 80 layers of the 70B width (d 8192, 64 / 8
 heads of 128, d_ff 28,672), where its plan reads the layers' pointer table
 from global memory (ops/decode_plan.stack_plan), and K1 on rows whose 8-row
 tile of whole rows leaves no slot (Q8_0 at k 28,672, a 70B w_down; Q4_0 at
-k 51,072), which run its K-split form (ops/qmatmul.i8_plan, kc > 1).
+k 51,072), which run its K-split form (ops/qmatmul.i8_plan, kc > 1), and K5
+(the greedy head) on that form.
 
 Every test needs a CUDA device and skips without one; the file imports
 neither jax nor zgml_tpu:
@@ -16,13 +17,14 @@ Bounds: K14 holds 1e-5 * max|out| once per layer against its plain version
 chain K7 + K6d bit for bit, and two launches give the same bits. K1 holds
 1e-5 * max|out| against its plain version (only the f32 sum over blocks
 differs), two launches give the same bits, and its own int8 activations
-equal the plain pre-pass's.
+equal the plain pre-pass's. K5 on the K-split plan gives argmax of K1's
+split output exactly, the same id over two launches.
 """
 import pytest
 import torch
 
 from zgml_tpu_torch.ops import refs
-from zgml_tpu_torch.ops.qmatmul import (i8_plan, qmatmul_i8_cuda, qmatmul_i8_ref,
+from zgml_tpu_torch.ops.qmatmul import (greedy_cuda, i8_plan, qmatmul_i8_cuda, qmatmul_i8_ref,
                                         quantize_act_ref)
 from zgml_tpu_torch.quant.packed import PackedWeight
 
@@ -117,3 +119,29 @@ def test_qmatmul_i8_k_split(cuda, kind, n, k, m):
     assert torch.equal(y, y2)
     assert torch.equal(xq, xq_r) and torch.equal(xs, xs_r)
     torch.testing.assert_close(y, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kind,n,k", [("q8_0", 8192, 28672), ("q4_0", 8192, 51072),
+                                      ("q8_0", 1000, 27040)])
+def test_greedy_k_split(cuda, kind, n, k):
+    """K5 on K1's K-split plan: its id is argmax of K1's split output on the
+    same row (first index on ties) exactly, and the same over two launches;
+    a row whose best value sits in two places takes the first."""
+    plan = i8_plan(1, n, k, kind, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.kc > 1
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    w = _weight(g, n, k, cuda, kind)
+    x = torch.randn((1, k), generator=g, device=cuda)
+    y = qmatmul_i8_cuda(x, w)
+    ids = [greedy_cuda(x, w), greedy_cuda(x, w)]
+    torch.cuda.synchronize()
+    assert int(ids[0]) == int(ids[1]) == int(torch.argmax(y[0]))
+    # a tie: row n - 1 a copy of the best row, which comes first
+    best = int(ids[0])
+    qs, d = w.qs.clone(), w.d.clone()
+    qs[n - 1], d[n - 1] = qs[best], d[best]
+    w2 = PackedWeight(n, k, qs, d, kind)
+    y2 = qmatmul_i8_cuda(x, w2)
+    tok = greedy_cuda(x, w2)
+    torch.cuda.synchronize()
+    assert int(tok) == int(torch.argmax(y2[0])) == best

@@ -333,3 +333,27 @@ def test_float64_reference_agrees_with_the_plain_versions(bf16):
             exact.square().mean().sqrt())
     else:
         assert float((flat - exact).abs().max()) <= 1e-5 * float(exact.abs().max())
+
+
+# (L, d, hq, hkv, hd, f, S): TinyLlama-1.1B's 22 layers, Llama-2-7B's 32, and
+# the 70B width's 80 (chip_smoke.WIDE_STACK's cache), where the table is read
+# from global memory
+F32_CACHE_SHAPES = [(22, 2048, 32, 4, 64, 5632, 2048), (32, 4096, 32, 32, 128, 11008, 2048),
+                    (80, 8192, 64, 8, 128, 28672, 1500)]
+
+
+@pytest.mark.parametrize("n_layers,d,hq,hkv,hd,f,s", F32_CACHE_SHAPES)
+def test_stack_plan_over_the_f32_cache_is_the_bf16_plan(n_layers, d, hq, hkv, hd, f, s):
+    """Phase B's f32 chunk stages K, then V, in the bf16 chunk's area
+    (csrc/decode_split.cuh), so one plan serves both caches: stack_plan and
+    the kernel's stack_act_bytes size phase B by the bf16 chunk, which is
+    the f32 chunk's byte for byte. The plan fits at each shape, the 70B
+    width with the table read from global memory."""
+    n_rep = hq // hkv
+    assert (dp.decode_chunk_smem_bytes(hd, dp.KV_F32, n_rep)
+            == dp.decode_chunk_smem_bytes(hd, dp.KV_BF16, n_rep))
+    plan = dp.stack_plan(n_layers, d, hq, hkv, hd, f, s, SMS)
+    staged = dp.stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, SMS)
+    assert plan.stages >= 2 and plan.act_bytes in (
+        staged, dp.stack_act_bytes(n_layers, d, hq, hkv, hd, f, s, SMS, table=False))
+    assert (plan.act_bytes == staged) == (n_layers < 80)

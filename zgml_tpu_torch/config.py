@@ -4,7 +4,8 @@ The tier of an op follows the device of its tensors: a CUDA tensor runs the
 kernel, a CPU tensor the plain torch version (ops/dispatch.py), and
 ``dispatch.force_ref()`` is the one explicit way to run the plain versions on
 the card. The *path* follows thirteen of the JAX package's own variables, with
-its defaults, read at call time (the port is eager):
+its defaults, read at call time (the port is eager), and a fourteenth turns
+off the host codecs' native library as it does the JAX package's:
 
   ZGML_TPU_TORCH_BUILD_DIR=path   build_dir()          kernel build output
                                                        (default: <checkout>/build/zgml_tpu_torch)
@@ -38,6 +39,9 @@ its defaults, read at call time (the port is eager):
   ZGML_TPU_PREFILL_BF16=0         prefill_bf16()       f32 prefill operands (default 1: K2 in
                                                        JAX's bf16 row tiles, K3 / K9 / K10
                                                        round their dot operands to bf16)
+  ZGML_TPU_NATIVE=0               native()             the numpy GGUF block codecs, not the
+                                                       g++-built host library (native/;
+                                                       default 1: the library where it builds)
 
 The two i8a flags take the JAX package's padded width of the weight, which
 the port computes from its unpadded one (padded_k).
@@ -106,6 +110,11 @@ def build_dir() -> pathlib.Path:
 def _flag(name: str, default: str) -> bool:
     # as zgml_tpu/config.py:49-50 reads it: only "0" turns a flag off
     return os.environ.get(name, default) != "0"
+
+
+def native() -> bool:
+    """The host codecs' native library may load (zgml_tpu/config.py:198-199)."""
+    return _flag("ZGML_TPU_NATIVE", "1")
 
 
 def attn_block() -> bool:

@@ -85,7 +85,12 @@
 //     the block takes the largest value at its lowest row, each block's
 //     (value, row) goes to a global slot, and the last block to finish
 //     (ticket) reduces the slots the same way, all its threads at once, and
-//     leaves the ticket at 0.
+//     leaves the ticket at 0. On the K-split plan (the JAX kernel's grid
+//     walks K in blocks, qmatmul.py:425-480, so it takes any K) the units'
+//     piece sums go to the [kc, 1, N] area as K1's do, and after the grid
+//     barrier each thread sums its outputs' pieces in piece order (K1's
+//     order, so the values are K1's split outputs bit for bit) and keeps the
+//     best of them, into the same block and grid reduction.
 #include "weight_stream.cuh"
 
 namespace {
@@ -406,7 +411,7 @@ __device__ __forceinline__ void block_tiles(int N, int tr, int kc, int& t0, int&
 
 template <class F, int NT, bool XG, bool ARGMAX, bool ONE, bool SPLIT>
 __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args a) {
-  static_assert(!SPLIT || (XG && !ARGMAX), "the K-split form reads x from L2, K1 only");
+  static_assert(!SPLIT || (XG && !ONE), "the K-split form reads x from L2 on the n8 code");
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int MX = 8 * NT;
   constexpr int NH = NT == 4 ? 2 : 1;       // column groups a tile's warps split x's rows in
@@ -601,7 +606,7 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
     ws::sync();
     // each output: its tile's P partial sums in part order; a warp reads
     // consecutive rows (rows fastest, then m, then the tile)
-    if constexpr (!ARGMAX) {
+    if constexpr (!ARGMAX || SPLIT) {
       float* yo = SPLIT ? p.ypart + (size_t)(u % kc) * p.M * p.N : p.y;
       for (int o = threadIdx.x; o < st * p.M * tr; o += ws::CONSUMERS) {
         const int r = o & (tr - 1), q = o >> (tr == TILE ? 4 : 3);
@@ -637,7 +642,14 @@ __global__ void __launch_bounds__(ws::THREADS, 1) qi8_kernel(I8Params p, I8Args 
     for (size_t o = o0 + threadIdx.x; o < o1; o += ws::CONSUMERS) {
       float v = 0.f;
       for (int j = 0; j < kc; ++j) v += __ldcg(p.ypart + j * mn + o);
-      p.y[o] = v;
+      if constexpr (ARGMAX) {               // M == 1: o is the row; a thread's rows ascend
+        if (besti < 0 || v > bestv) {
+          bestv = v;
+          besti = (int)o;
+        }
+      } else {
+        p.y[o] = v;
+      }
     }
   }
   if constexpr (ARGMAX) {                   // the block's best, then the grid's: the largest
@@ -789,8 +801,12 @@ int launch_k5(const I8Params& p, const int* plan, int device, cudaStream_t st) {
   I8Args a;
   const int rc = plan_args<F>(plan, 1, p.K, a);
   if (rc != 0) return rc;
-  if (plan[7] != 1 || a.kc != 1) return ZGML_ERR_SHAPE;     // K5 runs whole rows only
+  if (plan[7] != 1) return ZGML_ERR_SHAPE;
   const int grid = plan[0], smem = plan[13];
+  if (a.kc > 1) {                           // the K-split form: K1's split code, then the argmax
+    if (p.ypart == nullptr) return ZGML_ERR_SHAPE;
+    return launch_nt<F, 1, true, true, false, true>(p, a, grid, smem, device, st);
+  }
   return plan[6] ? launch_nt<F, 1, true, true, true>(p, a, grid, smem, device, st)
                  : launch_nt<F, 1, false, true, true>(p, a, grid, smem, device, st);
 }
@@ -843,8 +859,10 @@ ZGML_EXPORT int zgml_qmatmul_i8(int kind, const float* x, const uint8_t* qs, con
 
 // K5, kind 0 (q4_0) or 1 (q8_0): one row x f32 [K] -> out_id int64 [1] =
 // argmax_n of K1's y (first index on ties), on K1's M = 1 plan; scratch as
-// K1's, then grid floats and grid ints for the blocks' best; ticket: a zeroed
-// counter word (coop.counter_words), left zeroed.
+// K1's xq and scales, then grid floats and grid ints for the blocks' best,
+// then on the K-split plan (kc > 1) the [kc, 1, N] f32 piece sums (ops/
+// qmatmul.py i8_scratch_bytes with greedy); ticket: a zeroed counter word
+// (coop.counter_words), left zeroed.
 ZGML_EXPORT int zgml_greedy(int kind, const float* x, const uint8_t* qs, const void* d,
                             long long* out_id, uint8_t* scratch, unsigned int* bar,
                             unsigned int* ticket, int N, int K, const int* plan, int device,
@@ -855,7 +873,8 @@ ZGML_EXPORT int zgml_greedy(int kind, const float* x, const uint8_t* qs, const v
   if (kind != 0 && kind != 1) return ZGML_ERR_KIND;
   const size_t xq_bytes = ((size_t)K + 15) / 16 * 16, xs_bytes = (size_t)K / 32 * 8 * 4;
   float* best_v = reinterpret_cast<float*>(scratch + xq_bytes + xs_bytes);
-  const I8Params p{x, qs, static_cast<const __half*>(d), nullptr, nullptr, scratch,
+  float* ypart = plan[16] > 1 ? best_v + 2 * (size_t)plan[0] : nullptr;
+  const I8Params p{x, qs, static_cast<const __half*>(d), nullptr, ypart, scratch,
                    reinterpret_cast<float*>(scratch + xq_bytes), nullptr, nullptr, bar, ticket,
                    best_v, reinterpret_cast<int*>(best_v + plan[0]), out_id, 1, N, K};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

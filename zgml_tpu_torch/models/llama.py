@@ -476,8 +476,8 @@ class LlamaModel(torch.nn.Module):
 
     def _megacall(self):
         """(dispatch function, view) of the whole-stack megacall a batch-1
-        decode token over the bf16 cache takes, or None: the tape first, as
-        llama.py:753-771."""
+        decode token over the stacked bf16 or f32 cache takes, or None: the
+        tape first, as llama.py:745-771."""
         tape, stack = self.params.get("layers_tape"), self.params.get("layers_stacked")
         if tape is not None and ops.megacall_enabled("tape_decode"):
             return ops.tape_decode, tape
@@ -550,10 +550,6 @@ class LlamaModel(torch.nn.Module):
                                 tp=tp, row0=cache_row or 0)
             return x
         mega = self._megacall() if decode and b == 1 and not kv8 and tp is None else None
-        if mega is not None and cache["k"].dtype == torch.float32:
-            raise NotImplementedError(
-                "the whole-stack decode megacalls (K14 / K15) over the f32 KV cache: the JAX "
-                "package's take it, the port's run over the bf16 cache only (ROADMAP.md B.4)")
         if mega is not None:
             run, view = mega
             pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)

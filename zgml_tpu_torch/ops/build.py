@@ -36,9 +36,10 @@ from zgml_tpu_torch import config
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("status.cu", "qmatmul.cu", "flash_attn.cu", "decode_attn.cu",
            "qmatmul_i8.cu", "ffn.cu", "ffn_planar.cu", "layer_attn.cu", "layer_attn_ffn.cu",
-           "layer_attn_f32.cu", "flash_bwd.cu", "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu", "stack_decode.cu")
+           "layer_attn_f32.cu", "flash_bwd.cu", "qmatmul_bwd.cu", "rmsnorm.cu", "elementwise.cu",
+           "stack_decode.cu", "stack_decode_f32.cu")
 HEADERS = ("common.cuh", "decode_split.cuh", "layer_attn.cuh", "layer_phases.cuh",
-           "tf32_mma.cuh", "weight_stream.cuh")
+           "stack_decode.cuh", "tf32_mma.cuh", "weight_stream.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,7 +75,7 @@ _SIGNATURES = {
     "zgml_rmsnorm": (_I, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     "zgml_fused_chain": (_I, _P, _P, _LL, _P, _I, _P),
     "zgml_fused_chain_blocks_per_sm": (_I, _I, _I, ctypes.POINTER(ctypes.c_int)),
-    "zgml_stack_decode": (_I, *(_P,) * 17, *(_I,) * 7, _F, _F, _IP, _P, _I, _P),
+    "zgml_stack_decode": (_I, _I, *(_P,) * 17, *(_I,) * 7, _F, _F, _IP, _P, _I, _P),
 }
 
 

@@ -47,7 +47,8 @@ here and in the model read config.kernel_on (config.py lists each op's
 path when it is off). Every call is counted by tier in
 runtime.profile.global_profile, under one name per kernel and kind
 (qmatmul = K2 and qmatmul_bf16 its bf16 form, qmatmul_i8 = K1,
-qmatmul_greedy = K5, fused_ffn_norm = K6d,
+qmatmul_greedy = K5 (qmatmul_greedy_ksplit on K1's K-split plan; the plain
+version counts under qmatmul_greedy), fused_ffn_norm = K6d,
 fused_ffn_norm_i8 = K6c, fused_ffn = K6b (fused_ffn_q8 = K6a's no-norm
 form), attn_block_ffn = K7 with its phase E (ZGML_TPU_LAYER_FFN), attn_block = K7 with the f32 A
 phase and attn_block_i8 with the int8 one, each + _kv8 over the int8 cache,
@@ -64,7 +65,7 @@ ZGML_TPU_KERNELS_FORCE=rmsnorm, plain torch under `torch` otherwise;
 fused_chain = K13, the graph tier's fused chains (f32; fused_chain_bf16,
 fused_chain_f16 and fused_chain_i32 its other dtypes); stack_decode = K14 and
 tape_decode = K15, tape_decode_f32 under ZGML_TPU_TAPE_BF16=0, the
-whole-stack decode megacalls; ring_attention, one call of parallel/ring.py,
+whole-stack decode megacalls, each + _f32kv over the f32 cache; ring_attention, one call of parallel/ring.py,
 whose hops count as K10f's): a kernel's count is
 added where it launches, a plain call's here. The cache's dtype picks K3/K4
 or K9/K8 in the model, and K7's cache mode here.
@@ -441,23 +442,25 @@ def megacall_enabled(name: str) -> bool:
 
 def stacked_decode(x, stack, ck, cv, pos, cos, sin):
     """K14: one batch-1 decode token through every layer of `stack`
-    (ops/stackkernel.py StackedLayers) over the stacked bf16 cache, written
-    in place at pos; returns (x_out, k_cur [L, Hkv, hd], v_cur). No backward:
-    the JAX package has no VJP for it."""
+    (ops/stackkernel.py StackedLayers) over the stacked bf16 or f32 cache,
+    written in place at pos; returns (x_out, k_cur [L, Hkv, hd], v_cur). No
+    backward: the JAX package has no VJP for it. Counted under
+    stackkernel.counter (stack_decode, stack_decode_f32kv)."""
     _refuse_grad("stacked_decode (K14)", x, cos, sin)
     if _use_kernel("stack_decode", x, ck, cv, stack.table):
         return stackkernel.stacked_decode_cuda(x, stack, ck, cv, pos, cos, sin)
-    global_profile.count_op("stack_decode", "ref")
+    global_profile.count_op(stackkernel.counter(stackkernel.kv_form(ck)), "ref")
     return stackkernel.stacked_decode_ref(x, stack, ck, cv, pos, cos, sin)
 
 
 def tape_decode(x, tape, ck, cv, pos, cos, sin):
     """K15: stacked_decode's contract over `tape` (ops/tapekernel.py Tape),
     with bf16 operands unless ZGML_TPU_TAPE_BF16=0 (counted under
-    tape_decode_f32 then). No backward, as K14."""
+    tape_decode_f32 then; + _f32kv over the f32 cache, tapekernel.counter).
+    No backward, as K14."""
     _refuse_grad("tape_decode (K15)", x, cos, sin)
     bf16 = config.tape_bf16()
     if _use_kernel("tape_decode", x, ck, cv, tape.stack.table):
         return tapekernel.tape_decode_cuda(x, tape, ck, cv, pos, cos, sin, bf16)
-    global_profile.count_op(tapekernel.counter(bf16), "ref")
+    global_profile.count_op(tapekernel.counter(bf16, stackkernel.kv_form(ck)), "ref")
     return tapekernel.tape_decode_ref(x, tape, ck, cv, pos, cos, sin, bf16)

@@ -648,22 +648,26 @@ class QMatmul(torch.autograd.Function):
 
 def greedy_cuda(x: torch.Tensor, w: PackedWeight) -> torch.Tensor:
     """K5: one row x f32 [..., K] -> int64 [1] on the card, equal to
-    argmax(qmatmul_i8_cuda(x, w)) (K1's M = 1 plan and device code)."""
+    argmax(qmatmul_i8_cuda(x, w)) (K1's M = 1 plan and device code; on its
+    K-split plan, kc > 1, the argmax of K1's split outputs, their pieces
+    summed in K1's order). Counted under greedy_counter."""
     _check(x, w)
     _require(x.numel() == w.k, f"the greedy head takes one row, got {tuple(x.shape)}")
     _require(w.d.data_ptr() % 16 == 0, "the weight's scales must be 16-byte aligned")
     plan, ints = i8_args(x.device, 1, w.n, w.k, w.kind)
-    if plan.kc > 1:
-        raise NotImplementedError(
-            f"greedy head: k {w.k} at {w.kind} takes K1's K-split form, which K5 does not run "
-            f"(ROADMAP.md queue B)")
     out = torch.empty(1, dtype=torch.int64, device=x.device)
-    scratch = coop.scratch(x.device, i8_scratch_bytes(plan, 1, w.k, greedy=True))
+    scratch = coop.scratch(x.device, i8_scratch_bytes(plan, 1, w.k, greedy=True, n=w.n))
     status = build.library().zgml_greedy(
         KIND_CODE[w.kind], x.data_ptr(), w.qs.data_ptr(), w.d.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), coop.barrier_words(x.device).data_ptr(),
         coop.counter_words(x.device, 1).data_ptr(), w.n, w.k, ints, x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "greedy")
-    global_profile.count_op(counter("qmatmul_greedy", w.kind), "cuda")
+    global_profile.count_op(greedy_counter(plan, w.kind), "cuda")
     return out
+
+
+def greedy_counter(plan: I8Plan, kind: str) -> str:
+    """K5's placement counter on `plan`: qmatmul_greedy (_q8), or
+    qmatmul_greedy_ksplit (_q8) on K1's K-split form (kc > 1)."""
+    return counter("qmatmul_greedy_ksplit" if plan.kc > 1 else "qmatmul_greedy", kind)

@@ -20,11 +20,12 @@ w_gate_up, w_down) and references to the tensors behind them, so it must be
 rebuilt if the params are replaced. `stack_llama_layers` attaches it exactly
 where the JAX package's returns a view (see q4_views).
 
-Layouts: x f32 [1, 1, d]; the stacked bf16 cache ck / cv [L, 1, Hkv, S, hd]
-(models/llama.py), which both versions write IN PLACE at row pos of every
-layer with the current K/V rounded to bf16 (the JAX package writes them
-after the call; phase B reads rows below pos only, so the cache ends the
-same); cos / sin the [1, hd/2] tables of pos; on the card pos is an int32
+Layouts: x f32 [1, 1, d]; the stacked cache ck / cv [L, 1, Hkv, S, hd],
+bf16 or f32 (models/llama.py init_cache), which both versions write IN
+PLACE at row pos of every layer with the current K/V cast to the cache's
+dtype (the JAX package writes them after the call, stackkernel.py:529-530;
+phase B reads rows below pos only, in f32, so the cache ends the same);
+cos / sin the [1, hd/2] tables of pos; on the card pos is an int32
 [1] tensor on the device. Returns (x_out [1, 1, d], k_cur [L, Hkv, hd],
 v_cur [L, Hkv, hd]), f32, k_cur rotated, as the JAX kernel's outputs.
 Callers go through ``ops.dispatch.stacked_decode``.
@@ -107,8 +108,9 @@ def stacked_decode_ref(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
                        cv: torch.Tensor, pos, cos: torch.Tensor, sin: torch.Tensor,
                        mm=refs.qmatmul_ref):
     """K14's plain version: per layer layerkernel.attn_block_ref (f32 A phase,
-    bf16 cache, row pos written in place) then ffn.fused_ffn_norm_ref, each
-    projection through `mm` (K15's plain version passes its bf16 one)."""
+    the bf16 or f32 cache, row pos written in place) then
+    ffn.fused_ffn_norm_ref, each projection through `mm` (K15's plain version
+    passes its bf16 one)."""
     hkv = stack.n_kv_heads
     ks, vs = [], []
     for li, ly in enumerate(stack.layers):
@@ -123,9 +125,10 @@ def stacked_decode_ref(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
 
 def layer_chain(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Tensor,
                 pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """The per-layer chain K14 replaces, on the card: K7 (f32 A phase, bf16
-    cache) then K6d at one row, for every layer. Same contract as
-    stacked_decode_cuda; K14 and tape_decode_f32 give its bits."""
+    """The per-layer chain K14 replaces, on the card: K7 (f32 A phase, in the
+    cache's form: bf16, or its f32-cache mode) then K6d at one row, for
+    every layer. Same contract as stacked_decode_cuda; K14 and
+    tape_decode_f32 give its bits over either cache."""
     hkv = stack.n_kv_heads
     ks, vs = [], []
     for li, ly in enumerate(stack.layers):
@@ -180,13 +183,27 @@ def stacked_decode_f64(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
     return torch.cat([x, torch.stack(ks).reshape(-1), torch.stack(vs).reshape(-1)])
 
 
+def kv_form(ck: torch.Tensor) -> int:
+    """The megacalls' cache form (decode_plan.KV_BF16 / KV_F32) of a cache
+    slab; K7's codes (layerkernel.cache_form), the int8 cache excluded."""
+    return decode_plan.KV_F32 if ck.dtype == torch.float32 else decode_plan.KV_BF16
+
+
+def counter(kv: int) -> str:
+    """K14's placement counter: stack_decode, or stack_decode_f32kv over the
+    f32 cache."""
+    return "stack_decode" + ("_f32kv" if kv == decode_plan.KV_F32 else "")
+
+
 def launch(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Tensor,
            pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, bf16_ops: bool):
     """Launch csrc/stack_decode.cu (K14 with f32 operands, K15 with bf16
-    ones) on the plan of decode_plan.stack_plan (cached per shape and card);
-    the contract of stacked_decode_ref, pos an int32 [1] CUDA tensor. A head
-    dim without an instantiation, or a shape the plan cannot fit, raises
-    NotImplementedError. Counts nothing: the wrappers of K14 and K15 do."""
+    ones) over the bf16 or the f32 cache on the plan of
+    decode_plan.stack_plan (cached per shape and card; the f32 cache's plan
+    is the bf16 cache's); the contract of stacked_decode_ref, pos an int32
+    [1] CUDA tensor. A head dim without an instantiation, or a shape the
+    plan cannot fit, raises NotImplementedError. Counts nothing: the
+    wrappers of K14 and K15 do."""
     def require(cond, msg):
         if not cond:
             raise ValueError(f"stack_decode: {msg}")
@@ -204,10 +221,11 @@ def launch(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Te
             "pos must be an int32 [1] tensor on the card")
     require(x.dtype == torch.float32 and x.numel() == d == hq * hd == stack.layers[0]["wqkv"].k,
             f"x must be one float32 row of {hq * hd}, got {x.dtype} {tuple(x.shape)}")
-    require(ck.dtype == torch.bfloat16 and cv.dtype == torch.bfloat16 and ck.shape == cv.shape
-            and ck.dim() == 5 and tuple(ck.shape[:3]) == (n_layers, 1, hkv)
-            and ck.shape[4] == hd,
-            f"cache {tuple(ck.shape)} {ck.dtype}: want bf16 [{n_layers}, 1, {hkv}, S, {hd}]")
+    require(ck.dtype in (torch.bfloat16, torch.float32) and cv.dtype == ck.dtype
+            and ck.shape == cv.shape and ck.dim() == 5
+            and tuple(ck.shape[:3]) == (n_layers, 1, hkv) and ck.shape[4] == hd,
+            f"cache {tuple(ck.shape)} {ck.dtype} / {cv.dtype}: want both bf16 or both f32 "
+            f"[{n_layers}, 1, {hkv}, S, {hd}]")
     require(cos.dtype == torch.float32 and sin.dtype == torch.float32
             and cos.numel() == hd // 2 and sin.numel() == hd // 2,
             f"cos/sin must be float32 [{hd // 2}]")
@@ -226,7 +244,7 @@ def launch(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor, cv: torch.Te
     x2_s, xres_s, act_s, q_s, att_s, part_s = torch.empty(
         sum(sizes), dtype=torch.float32, device=dev).split(sizes)
     status = lib.zgml_stack_decode(
-        int(bf16_ops), stack.table.data_ptr(), x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        int(bf16_ops), kv_form(ck), stack.table.data_ptr(), x.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         ck.data_ptr(), cv.data_ptr(), pos.data_ptr(), x_out.data_ptr(), kv_cur.data_ptr(),
         q_s.data_ptr(), att_s.data_ptr(), part_s.data_ptr(), x2_s.data_ptr(), xres_s.data_ptr(),
         act_s.data_ptr(), coop.barrier_words(dev).data_ptr(),
@@ -241,7 +259,7 @@ def stacked_decode_cuda(x: torch.Tensor, stack: StackedLayers, ck: torch.Tensor,
                         cv: torch.Tensor, pos: torch.Tensor, cos: torch.Tensor,
                         sin: torch.Tensor):
     """Launch K14 (csrc/stack_decode.cu, f32 operands); counted under
-    stack_decode."""
+    counter(kv_form(ck))."""
     out = launch(x, stack, ck, cv, pos, cos, sin, bf16_ops=False)
-    global_profile.count_op("stack_decode", "cuda")
+    global_profile.count_op(counter(kv_form(ck)), "cuda")
     return out

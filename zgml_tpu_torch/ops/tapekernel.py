@@ -4,7 +4,8 @@ Counterpart of zgml_tpu/ops/tapekernel.py: `build_tape` (the view that
 LlamaModel.enable_tape_decode() attaches) and `_tape_kernel` through
 `tape_decode_step` (pallas_call at line 553), which the JAX package runs for
 a batch-1 decode token over the stacked bf16 cache where the view is
-attached and ZGML_TPU_TAPE_DECODE is on, before K14 (models/llama.py:753-763).
+attached and ZGML_TPU_TAPE_DECODE is on, before K14 (models/llama.py:753-763),
+over the stacked bf16 or f32 cache (stackkernel.py's layouts).
 
 Its layer sequence is K14's (ops/stackkernel.py). Its numerics are not, as
 the JAX kernel's code has them (`_deq_rows`, tapekernel.py:217-234, and the
@@ -31,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from zgml_tpu_torch import config
-from zgml_tpu_torch.ops import refs, stackkernel
+from zgml_tpu_torch.ops import decode_plan, refs, stackkernel
 from zgml_tpu_torch.quant.packed import PackedWeight
 from zgml_tpu_torch.runtime.profile import global_profile
 
@@ -109,16 +110,19 @@ def tape_decode_ref(x: torch.Tensor, tape: Tape, ck: torch.Tensor, cv: torch.Ten
     return stackkernel.stacked_decode_ref(x, tape.stack, ck, cv, pos, cos, sin, mm=mm)
 
 
-def counter(bf16: bool) -> str:
+def counter(bf16: bool, kv: int = decode_plan.KV_BF16) -> str:
     """K15's placement counter: tape_decode, or tape_decode_f32 under
-    ZGML_TPU_TAPE_BF16=0."""
-    return "tape_decode" if bf16 else "tape_decode_f32"
+    ZGML_TPU_TAPE_BF16=0; each + _f32kv over the f32 cache (kv
+    decode_plan.KV_F32, stackkernel.kv_form)."""
+    return (("tape_decode" if bf16 else "tape_decode_f32")
+            + ("_f32kv" if kv == decode_plan.KV_F32 else ""))
 
 
 def tape_decode_cuda(x: torch.Tensor, tape: Tape, ck: torch.Tensor, cv: torch.Tensor,
                      pos: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, bf16: bool = True):
     """Launch K15 (csrc/stack_decode.cu with bf16 operands, or f32 ones with
-    bf16 False); counted under counter(bf16)."""
+    bf16 False) over the bf16 or the f32 cache; counted under counter(bf16,
+    stackkernel.kv_form(ck))."""
     out = stackkernel.launch(x, tape.stack, ck, cv, pos, cos, sin, bf16_ops=bf16)
-    global_profile.count_op(counter(bf16), "cuda")
+    global_profile.count_op(counter(bf16, stackkernel.kv_form(ck)), "cuda")
     return out

@@ -8,10 +8,17 @@ write identical bytes for the same input):
         value = (nibble - 8) * d, with d = (signed absmax) / -8.
   Q8_0: 32 elements / 34-byte block = [f16 scale d][32 int8], value = q * d,
         d = absmax / 127.
+
+The four codecs run through the native host library (native/, C++ with
+OpenMP, bit-equal) where it loads, as JAX's quantizers do (its
+blocks.py:45-50, 76-80), so a GGUF load (io/gguf.py) dequantizes there too,
+and through numpy otherwise (ZGML_TPU_NATIVE=0, or no g++).
 """
 from __future__ import annotations
 
 import numpy as np
+
+from zgml_tpu_torch import native
 
 QK = 32  # elements per block, both formats
 Q4_0_BLOCK_BYTES = 18
@@ -34,6 +41,8 @@ def _as_blocks(x: np.ndarray) -> np.ndarray:
 def quantize_q8_0(x: np.ndarray) -> np.ndarray:
     """f32 array -> raw Q8_0 bytes (uint8 [n_blocks * 34])."""
     b = _as_blocks(x)
+    if native.available():
+        return native.quantize(b, "q8_0")
     amax = np.max(np.abs(b), axis=1)
     d = (amax / 127.0).astype(np.float16)
     df = d.astype(np.float32)
@@ -48,7 +57,10 @@ def quantize_q8_0(x: np.ndarray) -> np.ndarray:
 def dequantize_q8_0(raw, n_elems: int) -> np.ndarray:
     """Raw Q8_0 bytes -> f32 [n_elems]."""
     n_blocks = -(-n_elems // QK)
-    blk = _as_u8(raw)[: n_blocks * Q8_0_BLOCK_BYTES].reshape(n_blocks, Q8_0_BLOCK_BYTES)
+    raw = _as_u8(raw)[: n_blocks * Q8_0_BLOCK_BYTES]
+    if native.available():
+        return native.dequant(raw, n_blocks, "q8_0")[:n_elems]
+    blk = raw.reshape(n_blocks, Q8_0_BLOCK_BYTES)
     d = blk[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
     q = blk[:, 2:].copy().view(np.int8).astype(np.float32)
     return (q * d[:, None]).reshape(-1)[:n_elems]
@@ -57,6 +69,8 @@ def dequantize_q8_0(raw, n_elems: int) -> np.ndarray:
 def quantize_q4_0(x: np.ndarray) -> np.ndarray:
     """f32 array -> raw Q4_0 bytes (uint8 [n_blocks * 18], ggml nibble order)."""
     b = _as_blocks(x)
+    if native.available():
+        return native.quantize(b, "q4_0")
     idx = np.argmax(np.abs(b), axis=1)
     maxv = b[np.arange(b.shape[0]), idx]
     d = (maxv / -8.0).astype(np.float16)
@@ -73,7 +87,10 @@ def quantize_q4_0(x: np.ndarray) -> np.ndarray:
 def dequantize_q4_0(raw, n_elems: int) -> np.ndarray:
     """Raw Q4_0 bytes -> f32 [n_elems]."""
     n_blocks = -(-n_elems // QK)
-    blk = _as_u8(raw)[: n_blocks * Q4_0_BLOCK_BYTES].reshape(n_blocks, Q4_0_BLOCK_BYTES)
+    raw = _as_u8(raw)[: n_blocks * Q4_0_BLOCK_BYTES]
+    if native.available():
+        return native.dequant(raw, n_blocks, "q4_0")[:n_elems]
+    blk = raw.reshape(n_blocks, Q4_0_BLOCK_BYTES)
     d = blk[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
     nib = blk[:, 2:]
     vals = np.empty((n_blocks, QK), dtype=np.float32)
